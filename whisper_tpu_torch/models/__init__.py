@@ -1,0 +1,1 @@
+"""models of whisper_tpu_torch (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""ops of whisper_tpu_torch (see the package docstring)."""

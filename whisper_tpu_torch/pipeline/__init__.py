@@ -1,0 +1,1 @@
+"""pipeline of whisper_tpu_torch (see the package docstring)."""

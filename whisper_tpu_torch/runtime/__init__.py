@@ -1,0 +1,1 @@
+"""runtime of whisper_tpu_torch (see the package docstring)."""

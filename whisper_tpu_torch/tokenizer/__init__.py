@@ -1,0 +1,1 @@
+"""tokenizer of whisper_tpu_torch (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""utils of whisper_tpu_torch (see the package docstring)."""

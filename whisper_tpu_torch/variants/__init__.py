@@ -1,0 +1,1 @@
+"""variants of whisper_tpu_torch (see the package docstring)."""
