@@ -5,12 +5,14 @@ What it does, in order (any failure raises and exits non-zero):
 1. Requires CUDA; prints the card's name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
    them.
-2. Builds the four CUDA kernels of ``whisper_tpu_torch/csrc`` with nvcc
-   (sm_90a) and prints the build time and each kernel's register use.
-3. Runs each kernel (B1-B4) against its plain PyTorch version on the card
-   at the shapes the main path gives it (whisper-base, rung x5, batch
-   bucket 16), prints the largest difference and the time of one call of
-   each (median of five runs of 20 calls).
+2. Builds the CUDA kernels of ``whisper_tpu_torch/csrc`` with nvcc
+   (sm_90a; one nvcc per source, all started together) and prints the
+   build time and each kernel's register use.
+3. Runs each kernel (B1-B6) against its plain PyTorch version on the card
+   at the shapes its path gives it (whisper-base, batch bucket 16: B1-B4
+   at x5, B6 at x4; B5 at the one-shot limit of 7,680 frames; B2 also at
+   whisper-medium's d=1024), prints the largest difference and the time of
+   one call of each (median of five runs of 20 calls).
 4. Holds the port on the card against the port on the CPU (the kernels'
    plain versions) on a small input: an 80 s clip through the front end,
    the encoder and twelve teacher-forced decode steps.
@@ -20,15 +22,26 @@ What it does, in order (any failure raises and exits non-zero):
    kernel's launch count set to 0 just before each run and read just after;
    asserts the token shape, identical tokens across runs, finite encoder
    states and logits, and that every kernel of the path was launched.
-6. Prints one JSON line with the kernels, then, as the last line,
+6. Drives the benchmark CLI (``whisper_tpu_torch.bench.cli.main``, in
+   process) over four synthetic WAV files (4 s; 29.5 s at 44.1 kHz stereo;
+   76 s, just under the one-shot limit; 150 s, streamed) at whisper-base
+   ``--variant x5`` and ``--variant int8``, then over the 4 s file at
+   whisper-medium x5, every kernel's count set to 0 just before each run
+   and read just after; asserts rc 0, the reference's CSV header and
+   summary keys, four rows of the files' durations, B5 on every one-shot
+   mel, B4 and not B6 at x5, B6 and not B4 at int8, B2 at d=1024 in the
+   medium run; prints each run's per-file e2e, p95 and peak device memory.
+7. Prints one JSON line with the kernels, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import sys
+import tempfile
 import time
 
 
@@ -65,11 +78,15 @@ def _bf16_steps(got, want) -> float:
 
 
 def check_kernels(card: str) -> list:
-    """Each kernel against its plain version at the main path's shapes."""
+    """Each kernel against its plain version at its path's shapes."""
+    import numpy as np
     import torch
 
+    from whisper_tpu_torch.frontend import golden
+    from whisper_tpu_torch.headline import synth_audio
     from whisper_tpu_torch.ops import attention, cross_attention, encoder_mlp
-    from whisper_tpu_torch.ops import self_attention
+    from whisper_tpu_torch.ops import log_mel, self_attention
+    from whisper_tpu_torch.pipeline.chunk import mel_frame_bucket
 
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(0)
@@ -85,7 +102,7 @@ def check_kernels(card: str) -> list:
     # B1: q pre-scaled, as the encoder passes it.
     q, k, v = randn(b, h, t, dh, scale=dh ** -0.5), randn(b, h, t, dh), \
         randn(b, h, t, dh)
-    rows.append(("fused_attention", attention, "attention.cu",
+    rows.append(("fused_attention", (attention, "launches"), "attention.cu",
                  "whisper_tpu/ops/attention.py:75",
                  lambda: attention.fused_attention(q, k, v),
                  lambda: attention.fused_attention_plain(q, k, v), 2.0))
@@ -99,10 +116,24 @@ def check_kernels(card: str) -> list:
           * torch.tensor(3e-4, dtype=bf))
     b1, b2 = randn(f, scale=0.1), randn(d, scale=0.1)
     mlp_args = (x, ln_s, ln_b, w1, b1, w2, b2)
-    rows.append(("fused_encoder_mlp", encoder_mlp, "encoder_mlp.cu",
-                 "whisper_tpu/ops/encoder_mlp.py:224",
+    rows.append(("fused_encoder_mlp", (encoder_mlp, "launches"),
+                 "encoder_mlp.cu", "whisper_tpu/ops/encoder_mlp.py:224",
                  lambda: encoder_mlp.fused_encoder_mlp(*mlp_args),
                  lambda: encoder_mlp.fused_encoder_mlp_plain(*mlp_args), 2.0))
+
+    # B2 at whisper-medium's width (the TPU's FFN-chunked kernel, B2c):
+    # the 4 s file of the CLI phase is one chunk, bucket 1.
+    dm, fm = 1024, 4096
+    xm = randn(1, t, dm)
+    med_args = (xm, 1.0 + randn(dm, scale=0.1), randn(dm, scale=0.1),
+                (torch.randint(-127, 128, (dm, fm), generator=g, device=dev)
+                 .to(bf) * torch.tensor(2e-4, dtype=bf)), randn(fm, scale=0.1),
+                (torch.randint(-127, 128, (fm, dm), generator=g, device=dev)
+                 .to(bf) * torch.tensor(2e-4, dtype=bf)), randn(dm, scale=0.1))
+    rows.append(("fused_encoder_mlp_d1024", (encoder_mlp, "launches"),
+                 "encoder_mlp.cu", "whisper_tpu/ops/encoder_mlp.py:163",
+                 lambda: encoder_mlp.fused_encoder_mlp(*med_args),
+                 lambda: encoder_mlp.fused_encoder_mlp_plain(*med_args), 2.0))
 
     # B3: the kernel writes row `pos` of the cache in place, so the kernel
     # and the plain version each get their own copy.
@@ -111,7 +142,8 @@ def check_kernels(card: str) -> list:
     kc, vc = randn(n_l, b, h, s_max, dh), randn(n_l, b, h, s_max, dh)
     kc2, vc2 = kc.clone(), vc.clone()
     pads = torch.zeros(b, dtype=torch.int32, device=dev)
-    rows.append(("self_attend_step", self_attention, "self_attention.cu",
+    rows.append(("self_attend_step", (self_attention, "launches"),
+                 "self_attention.cu",
                  "whisper_tpu/ops/self_attention.py:470",
                  lambda: self_attention.self_attend_step(
                      qs, kn, vn, kc, vc, layer, pos, pads),
@@ -126,25 +158,52 @@ def check_kernels(card: str) -> list:
                        device=dev, dtype=torch.int8)
     ks = torch.rand(n_l, b, h, generator=g, device=dev) * 0.02 + 1e-3
     vs = torch.rand(n_l, b, h, generator=g, device=dev) * 0.02 + 1e-3
-    rows.append(("cross_attend_step", cross_attention, "cross_attention.cu",
+    rows.append(("cross_attend_step", (cross_attention, "launches"),
+                 "cross_attention.cu",
                  "whisper_tpu/ops/cross_attention.py:533",
                  lambda: cross_attention.cross_attend_step(
                      qx, k8, v8, ks, vs, 2, s_valid=t),
                  lambda: cross_attention.cross_attend_step_plain(
                      qx, k8, v8, ks, vs, 2, s_valid=t), 2.0))
 
+    # B6 (x4): the same cache, dequantized in the kernel.
+    rows.append(("cross_attend_step_dequant",
+                 (cross_attention, "dequant_launches"),
+                 "cross_attention_dequant.cu",
+                 "whisper_tpu/ops/cross_attention.py:533",
+                 lambda: cross_attention.cross_attend_step_dequant(
+                     qx, k8, v8, ks, vs, 2, s_valid=t),
+                 lambda: cross_attention.cross_attend_step_dequant_plain(
+                     qx, k8, v8, ks, vs, 2, s_valid=t), 2.0))
+
+    # B5: a file at the one-shot limit (7,680 valid frames in its
+    # 12,000-frame bucket), int16 upload as at x3+; tolerance 1e-4 on the
+    # normalized mel, the card-vs-CPU mel bound of check_against_cpu.
+    nv = 7680
+    audio = synth_audio(nv * golden.HOP / 16000.0)
+    pcm = np.round(np.clip(golden.reflect_pad(audio), -1, 1) * 32767.0)
+    wire = torch.from_numpy(pcm.astype(np.int16)).to(dev)
+    nf = mel_frame_bucket(nv)
+    rows.append(("log_mel", (log_mel, "launches"), "log_mel.cu",
+                 "whisper_tpu/ops/pallas_mel.py:129",
+                 lambda: log_mel.log_mel(wire, nv, 80, nf),
+                 lambda: log_mel.log_mel_plain(wire, nv, 80, nf), 1e-4))
+
     out = []
-    for name, mod, src, replaces, kern, plain, tol in rows:
+    for name, counter, src, replaces, kern, plain, tol in rows:
         got = kern()
         torch.cuda.synchronize()
         want = plain()
         torch.cuda.synchronize()
-        steps = _bf16_steps(got, want)
         err = float((got.float() - want.float()).abs().max())
         if not torch.isfinite(got.float()).all():
             raise AssertionError(f"{name}: non-finite kernel output")
+        if got.dtype == torch.float32:  # B5: absolute error of the mel
+            steps, unit = err, "abs"
+        else:
+            steps, unit = _bf16_steps(got, want), "bf16 steps"
         if steps > tol:
-            raise AssertionError(f"{name}: {steps:.2f} bf16 steps from the "
+            raise AssertionError(f"{name}: {steps:.3g} {unit} from the "
                                  f"plain version (tolerance {tol})")
         if name == "self_attend_step":
             # the in-place insert must leave both caches bitwise equal
@@ -152,14 +211,29 @@ def check_kernels(card: str) -> list:
                 raise AssertionError("self_attend_step: cache differs from "
                                      "the plain version's after the insert")
         ms, plain_ms = _median_ms(kern), _median_ms(plain)
-        print(f"[kernel] {name}: max_abs_err {err:.3g} ({steps:.2f} bf16 "
-              f"steps, tolerance {tol}); {ms:.4f} ms vs plain "
-              f"{plain_ms:.4f} ms on {card}", flush=True)
+        print(f"[kernel] {name}: max_abs_err {err:.3g} ({steps:.3g} {unit}, "
+              f"tolerance {tol}); {ms:.4f} ms vs plain {plain_ms:.4f} ms on "
+              f"{card}", flush=True)
         out.append({"name": name, "route": "cuda",
                     "source": f"whisper_tpu_torch/csrc/{src}",
-                    "replaces": replaces, "module": mod,
+                    "replaces": replaces, "counter": counter,
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
     return out
+
+
+# The kernels of the headline main path (x5, a 301.574 s file: streamed
+# mel, so no B5; int8 x int8 cross-attention, so no B6).
+MAIN_PATH_KERNELS = ("fused_attention", "fused_encoder_mlp",
+                     "self_attend_step", "cross_attend_step")
+
+
+def _counts(results) -> dict:
+    return {r["name"]: getattr(*r["counter"]) for r in results}
+
+
+def _zero_counts(results) -> None:
+    for r in results:
+        setattr(*r["counter"], 0)
 
 
 def check_against_cpu(params, dims) -> None:
@@ -259,6 +333,154 @@ def check_main_path_finite(session, audio, dims) -> None:
                              "main path")
 
 
+# The CLI phase's files: (name, seconds, sample rate, channels).  Sorted by
+# name, the 4 s file comes first: the warm-up file and the medium run's.
+CLI_FILES = (("a_4s.wav", 4.0, 16000, 1),
+             ("b_29s5_44k_stereo.wav", 29.5, 44100, 2),
+             ("c_76s.wav", 76.0, 16000, 1),       # 7,600 frames: one shot
+             ("d_150s.wav", 150.0, 16000, 1))     # streamed slabs
+CSV_HEADER = ["file", "duration_s", "end_to_end_s", "rtf", "text"]
+SUMMARY_KEYS = {"config_used", "n_files", "latency_end_to_end_s",
+                "breakdown_s", "rtf_end_to_end", "model_id", "onnx_dir",
+                "language", "task", "max_new_tokens", "tokenizer_json",
+                "timestamps", "notes"}
+
+
+def _write_wav(path: str, seconds: float, sr: int, channels: int) -> None:
+    """16-bit PCM WAV of the headline's synthetic signal (the second
+    channel at 0.8 of the first)."""
+    import struct
+
+    import numpy as np
+
+    from whisper_tpu_torch.headline import synth_audio
+
+    x = synth_audio(seconds, sr=sr)
+    x = np.stack([x, 0.8 * x][:channels], axis=1).reshape(-1)
+    pcm = np.clip(x * 32768.0, -32768, 32767).astype("<i2").tobytes()
+    hdr = struct.pack("<4sI4s4sIHHIIHH4sI", b"RIFF", 36 + len(pcm), b"WAVE",
+                      b"fmt ", 16, 1, channels, sr, sr * channels * 2,
+                      channels * 2, 16, b"data", len(pcm))
+    with open(path, "wb") as f:
+        f.write(hdr + pcm)
+
+
+def _one_shot_mels(durations, warmup: int) -> int:
+    """B5 launches of one CLI run: one per one-shot mel, that is per warmed
+    shape (``warm_buckets``) of a one-shot file, per warm-up run of the
+    first file and per one-shot file (at most 7,680 frames)."""
+    from whisper_tpu_torch.frontend.golden import num_frames
+    from whisper_tpu_torch.pipeline.warmup import _shape_key
+
+    def one_shot(d):
+        return int(num_frames(int(round(d * 16000))) <= 7680)
+
+    seen, warmed = set(), 0
+    for d in durations:
+        key = _shape_key(d, 30.0, 5.0, 16)
+        if key not in seen:
+            seen.add(key)
+            warmed += one_shot(d)
+    return warmed + warmup * one_shot(durations[0]) + sum(map(one_shot,
+                                                               durations))
+
+
+def run_cli(label: str, card: str, results, audio_dir: str, out_dir: str,
+            args) -> dict:
+    """One in-process run of the benchmark CLI with every kernel count set
+    to 0 just before it; checks its outputs and returns the counts."""
+    import csv
+    import math
+
+    import torch
+
+    from whisper_tpu_torch.bench.cli import main as cli_main
+
+    out = os.path.join(out_dir, label)
+    _zero_counts(results)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = cli_main(["--audio-dir", audio_dir, "--onnx-dir",
+                   os.path.join(out_dir, "no-model"), "--allow-random-init",
+                   "--warmup", "1", "--out-csv", f"{out}/c.csv", "--out-json",
+                   f"{out}/j.json", "--out-summary-json", f"{out}/s.json",
+                   *args])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts(results)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = len(os.listdir(audio_dir))
+    with open(f"{out}/c.csv") as f:
+        table = list(csv.reader(f))
+    rows = json.load(open(f"{out}/j.json"))
+    summary = json.load(open(f"{out}/s.json"))
+    want = [(name, secs) for name, secs, _, _ in CLI_FILES][:n]
+    if rc != 0 or table[0] != CSV_HEADER or len(table) != n + 1:
+        raise AssertionError(f"{label}: rc {rc}, CSV {table[:1]} with "
+                             f"{len(table) - 1} rows, expected {n}")
+    if set(summary) != SUMMARY_KEYS or summary["n_files"] != n:
+        raise AssertionError(f"{label}: summary keys {sorted(summary)}")
+    got = [(r["file"], r["duration_s"]) for r in rows]
+    if [(f, round(d, 2)) for f, d in got] != want:
+        raise AssertionError(f"{label}: rows {got}, expected {want}")
+    e2e = [r["end_to_end_s"] for r in rows]
+    if not all(math.isfinite(x) and x > 0 for x in e2e):
+        raise AssertionError(f"{label}: per-file e2e {e2e}")
+    mels = _one_shot_mels([secs for _, secs in want], warmup=1)
+    if counts["log_mel"] != mels:
+        raise AssertionError(f"{label}: B5 launched {counts['log_mel']} "
+                             f"times, expected {mels} (one per one-shot "
+                             "mel)")
+    p95 = summary["latency_end_to_end_s"]["p95"]
+    print(f"[cli] {label} on {card}: per-file e2e "
+          + ", ".join(f"{f} {x:.4f} s" for (f, _), x in zip(want, e2e))
+          + f"; p95 {p95:.4f} s; wall {wall:.1f} s with warm-up; peak "
+          f"device memory {peak:.3f} GiB; launches {counts}", flush=True)
+    return counts
+
+
+def check_cli(card: str, results) -> dict:
+    """The CLI at whisper-base x5 and int8 over the four files, then at
+    whisper-medium x5 over the 4 s file; returns each run's counts."""
+    with tempfile.TemporaryDirectory() as tmp:
+        audio_dir = os.path.join(tmp, "audio")
+        os.makedirs(audio_dir)
+        for name, secs, sr, ch in CLI_FILES:
+            _write_wav(os.path.join(audio_dir, name), secs, sr, ch)
+        # No tokenizer.json anywhere: rows carry token ids, as in the
+        # reference; HF_HOME points the hub-cache lookup into the run.
+        os.environ["HF_HOME"] = os.path.join(tmp, "hf")
+        base = ["--model-id", "openai/whisper-base", "--max-new-tokens",
+                "128"]
+        runs = {
+            "whisper-base x5": run_cli("base-x5", card, results, audio_dir,
+                                       tmp, base + ["--variant", "x5"]),
+            "whisper-base int8": run_cli("base-int8", card, results,
+                                         audio_dir, tmp,
+                                         base + ["--variant", "int8"]),
+        }
+        for name in os.listdir(audio_dir):
+            if name != CLI_FILES[0][0]:
+                os.remove(os.path.join(audio_dir, name))
+        runs["whisper-medium x5"] = run_cli(
+            "medium-x5", card, results, audio_dir, tmp,
+            ["--model-id", "openai/whisper-medium", "--max-new-tokens", "16",
+             "--variant", "x5"])
+    x5, x4, med = (runs["whisper-base x5"], runs["whisper-base int8"],
+                   runs["whisper-medium x5"])
+    for label, c, on, off in (("x5", x5, "cross_attend_step",
+                               "cross_attend_step_dequant"),
+                              ("int8", x4, "cross_attend_step_dequant",
+                               "cross_attend_step"),
+                              ("medium x5", med, "cross_attend_step",
+                               "cross_attend_step_dequant")):
+        if not (c[on] > 0 and c[off] == 0 and c["self_attend_step"] > 0
+                and c["fused_attention"] > 0 and c["fused_encoder_mlp"] > 0):
+            raise AssertionError(f"CLI {label}: launches {c}")
+    return runs
+
+
 def main() -> None:
     import torch
 
@@ -303,17 +525,16 @@ def main() -> None:
     run_once(session, audio)  # warm-up
     runs, chains, counts = [], [], []
     for _ in range(3):
-        for r in results:
-            r["module"].launches = 0
+        _zero_counts(results)
         collector = []
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         _, timing = run_once(session, audio, token_collector=collector)
         runs.append((time.perf_counter() - t1, timing))
-        counts.append({r["name"]: r["module"].launches for r in results})
+        counts.append(_counts(results))
         chains.append(collector[0])
     for c in counts:
-        idle = [n for n, v in c.items() if v == 0]
+        idle = [n for n in MAIN_PATH_KERNELS if c[n] == 0]
         if idle:
             raise AssertionError(f"kernels not launched on the main path: "
                                  f"{idle}")
@@ -335,9 +556,14 @@ def main() -> None:
           f"{AUDIO_SECONDS / e2e:.2f}x real time (median of 3); launches "
           f"per run {counts[0]}", flush=True)
 
+    cli = check_cli(card, results)
+    # Each kernel's launches in the run of its own path.
+    path_of = {"log_mel": cli["whisper-base x5"],
+               "cross_attend_step_dequant": cli["whisper-base int8"],
+               "fused_encoder_mlp_d1024": cli["whisper-medium x5"]}
     for r in results:
-        r["launches"] = counts[0][r["name"]]
-        del r["module"]
+        r["launches"] = path_of.get(r["name"], counts[0])[r["name"]]
+        del r["counter"]
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,275 @@
+"""The port's benchmark CLI against the JAX package's (CPU).
+
+Both CLIs run in process on ``test/whisper-nano`` (random weights from seed
+0 through ``--allow-random-init``, a small byte-level BPE tokenizer.json
+with Whisper's special tokens and a generation_config.json beside it) over
+three WAV files: 3.2 s (one-shot mel), 80 s (8,000 frames: past the
+7,680-frame one-shot limit, so the streamed mel) and 2.5 s at 44.1 kHz
+stereo (downmix and resample).  Without a card the port runs the kernels'
+plain versions.  The prefetch thread is on (``suggested_cfg``: intra_op =
+min(cpu_count, 16) >= 2 here).
+"""
+
+import csv
+import json
+import os
+import struct
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from whisper_tpu.bench import cli as jax_cli
+from whisper_tpu.runtime.session import (
+    load_best_cfg_from_discovery as jax_load_best,
+)
+from whisper_tpu_torch.bench import cli
+from whisper_tpu_torch.ops import cross_attention, log_mel
+from whisper_tpu_torch.runtime.session import load_best_cfg_from_discovery
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _write_wav(path, data, sr=16000, ch=1):
+    pcm = np.clip(data * 32768.0, -32768, 32767).astype("<i2").tobytes()
+    hdr = struct.pack("<4sI4s4sIHHIIHH4sI", b"RIFF", 36 + len(pcm), b"WAVE",
+                      b"fmt ", 16, 1, ch, sr, sr * ch * 2, ch * 2, 16,
+                      b"data", len(pcm))
+    with open(path, "wb") as f:
+        f.write(hdr + pcm)
+
+
+@pytest.fixture(scope="module")
+def model_dir(tmp_path_factory):
+    """tokenizer.json (Whisper's specials at small ids) and
+    generation_config.json; no params: the runs use --allow-random-init."""
+    from tokenizers import (
+        Tokenizer,
+        decoders,
+        models,
+        pre_tokenizers,
+        trainers,
+    )
+
+    d = tmp_path_factory.mktemp("nano-sidecars")
+    tok = Tokenizer(models.BPE())
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tok.decoder = decoders.ByteLevel()
+    trainer = trainers.BpeTrainer(
+        vocab_size=400, initial_alphabet=pre_tokenizers.ByteLevel.alphabet())
+    tok.train_from_iterator(["some text to build a vocab"], trainer)
+    tok.add_special_tokens([
+        "<|endoftext|>", "<|startoftranscript|>", "<|en|>",
+        "<|transcribe|>", "<|translate|>", "<|notimestamps|>",
+    ])
+    tok.save(str(d / "tokenizer.json"))
+    with open(d / "generation_config.json", "w") as f:
+        json.dump({"suppress_tokens": [5, 6], "begin_suppress_tokens": [7]}, f)
+    return str(d)
+
+
+@pytest.fixture(scope="module")
+def audio_dir(tmp_path_factory):
+    d = tmp_path_factory.mktemp("audio")
+    rng = np.random.default_rng(0)
+    _write_wav(str(d / "a_short.wav"), rng.normal(0, 0.1, int(3.2 * 16000)))
+    _write_wav(str(d / "b_long.wav"), rng.normal(0, 0.1, 80 * 16000))
+    stereo = rng.normal(0, 0.1, (int(2.5 * 44100), 2)).reshape(-1)
+    _write_wav(str(d / "c_stereo.wav"), stereo, sr=44100, ch=2)
+    (d / "notes.txt").write_text("not audio")
+    return str(d)
+
+
+def _argv(audio_dir, model_dir, out, *extra):
+    return ["--audio-dir", audio_dir, "--model-id", "test/whisper-nano",
+            "--onnx-dir", model_dir, "--allow-random-init",
+            "--max-new-tokens", "4", "--warmup", "1", "--write-txt",
+            "--out-csv", str(out / "c.csv"), "--out-json", str(out / "j.json"),
+            "--out-summary-json", str(out / "s.json"), *extra]
+
+
+def _outputs(out):
+    with open(out / "c.csv") as f:
+        reader = csv.reader(f)
+        header = next(reader)
+        rows = list(reader)
+    return (header, rows, json.load(open(out / "j.json")),
+            json.load(open(out / "s.json")))
+
+
+def _keys(tree, prefix=""):
+    """Every key path of a nested dict."""
+    out = set()
+    for k, v in tree.items():
+        out.add(prefix + k)
+        if isinstance(v, dict):
+            out |= _keys(v, f"{prefix}{k}/")
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_x0(audio_dir, model_dir, tmp_path_factory):
+    out = tmp_path_factory.mktemp("jax-x0")
+    assert jax_cli.main(_argv(audio_dir, model_dir, out, "--variant",
+                              "x0")) == 0
+    return out
+
+
+def test_x0_text_equals_jax(jax_x0, audio_dir, model_dir, tmp_path):
+    """fp32 on both sides: the same files, durations and per-file text, in
+    the CSV, the JSON rows and the transcripts."""
+    rc = cli.main(_argv(audio_dir, model_dir, tmp_path, "--variant", "x0"))
+    assert rc == 0
+    header, rows, jrows, summary = _outputs(tmp_path)
+    jheader, jrows_csv, jjrows, jsummary = _outputs(jax_x0)
+    assert header == jheader
+    assert [r[0] for r in rows] == ["a_short.wav", "b_long.wav",
+                                    "c_stereo.wav"]
+    assert [(r[0], r[1], r[4]) for r in rows] == [
+        (r[0], r[1], r[4]) for r in jrows_csv]
+    assert [r["text"] for r in jrows] == [r["text"] for r in jjrows]
+    assert any(r["text"] for r in jrows)
+    for name in ("a_short", "b_long", "c_stereo"):
+        assert ((tmp_path / f"{name}.transcript.txt").read_text()
+                == (jax_x0 / f"{name}.transcript.txt").read_text())
+    assert summary["config_used"] == jsummary["config_used"]
+    assert summary["tokenizer_json"] == jsummary["tokenizer_json"]
+
+
+@pytest.mark.parametrize("variant", ["x5", "int8"])
+def test_schemas_equal_jax(jax_x0, audio_dir, model_dir, tmp_path, variant):
+    """At x5 and int8 (x4): the CSV header, the JSON rows' keys and every
+    key path of the summary are the JAX CLI's.  On the CPU the one-shot
+    files take B5's plain version, which counts no launch; nano's head_dim
+    32 keeps both packages on the plain decode step."""
+    log_mel.launches = cross_attention.dequant_launches = 0
+    rc = cli.main(_argv(audio_dir, model_dir, tmp_path, "--variant",
+                        variant))
+    assert rc == 0
+    assert log_mel.launches == 0 and cross_attention.dequant_launches == 0
+    header, rows, jrows, summary = _outputs(tmp_path)
+    jheader, _, jjrows, jsummary = _outputs(jax_x0)
+    assert header == jheader == ["file", "duration_s", "end_to_end_s", "rtf",
+                                 "text"]
+    assert len(rows) == 3
+    assert [set(r) for r in jrows] == [set(r) for r in jjrows]
+    assert _keys(summary) == _keys(jsummary) | {"notes/variant"}
+    assert summary["config_used"]["fused_frontend"] is True
+    assert summary["config_used"]["int8_mxu_attn"] is (variant == "x5")
+    assert summary["n_files"] == 3
+
+
+def test_onnx_dir_reads_jax_save_params(jax_x0, audio_dir, model_dir,
+                                        tmp_path):
+    """A model dir holding the JAX package's ``save_params`` output (seed 0:
+    the weights --allow-random-init builds) gives the JAX CLI's x0 text
+    through ``load_params``."""
+    import shutil
+
+    from whisper_tpu.models.convert import init_params, save_params
+    from whisper_tpu.models.registry import get_dims
+
+    mdir = tmp_path / "model"
+    shutil.copytree(model_dir, mdir)
+    dims = get_dims("test/whisper-nano")
+    save_params(init_params(dims, seed=0), dims, str(mdir))
+    argv = [a for a in _argv(audio_dir, str(mdir), tmp_path / "out",
+                             "--variant", "x0", "--limit-files", "1")
+            if a != "--allow-random-init"]
+    assert cli.main(argv) == 0
+    _, _, jrows, summary = _outputs(tmp_path / "out")
+    assert [r["text"] for r in jrows] == [
+        r["text"] for r in _outputs(jax_x0)[2][:1]]
+    assert summary["onnx_dir"] == str(mdir)
+
+
+def test_profile_dir_writes_a_trace(audio_dir, model_dir, tmp_path):
+    """--profile-dir writes a torch.profiler Chrome trace of the measured
+    loop (the JAX CLI writes a jax.profiler trace)."""
+    prof = tmp_path / "prof"
+    rc = cli.main(_argv(audio_dir, model_dir, tmp_path, "--variant", "x5",
+                        "--limit-files", "1", "--profile-dir", str(prof)))
+    assert rc == 0
+    trace = json.load(open(prof / "trace.json"))
+    assert trace["traceEvents"]
+
+
+NOT_PORTED = {
+    "beams": ["--num-beams", "2"],
+    "timestamps": ["--timestamps"],
+    "word_timestamps": ["--word-timestamps"],
+    "srt": ["--write-srt"],
+    "vtt": ["--write-vtt"],
+    "sequential": ["--longform-mode", "sequential"],
+    "pipelined": ["--longform-mode", "pipelined"],
+    "temperatures": ["--temperatures", "0,0.2"],
+    "vad": ["--vad-filter"],
+    "initial_prompt": ["--initial-prompt", "hello"],
+    "draft": ["--draft-model-id", "test/whisper-nano"],
+    "language_auto": ["--language", "auto"],
+    "data_parallel": ["--data-parallel", "2"],
+    "tensor_parallel": ["--tensor-parallel", "2"],
+    "dcn": ["--dcn-coordinator", "localhost:1234"],
+    "x6": ["--variant", "x6"],
+    "x7": ["--variant", "x7"],
+    "wire_ulaw8": ["--audio-transfer", "ulaw8"],
+    "wire_auto": ["--audio-transfer", "auto"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(NOT_PORTED))
+def test_not_ported_flags_exit_naming_roadmap(case, tmp_path):
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        cli.main(["--audio-dir", str(tmp_path), *NOT_PORTED[case]])
+
+
+def test_parser_has_every_jax_flag():
+    """The same option strings, defaults, choices and flag kinds."""
+    def spec(parser):
+        return {a.option_strings[0]: (a.dest, a.default, a.choices,
+                                      type(a).__name__, a.type)
+                for a in parser._actions if a.option_strings
+                and a.dest != "help"}
+
+    assert spec(cli.build_parser()) == spec(jax_cli.build_parser())
+
+
+def test_discovery_config_coerced_like_jax(tmp_path):
+    """Lenient coercion (strings, numbers, junk) gives the JAX package's
+    RuntimeCfg field for field."""
+    p = tmp_path / "best.json"
+    p.write_text(json.dumps({"best": {
+        "dtype": "float32", "max_batch": "8", "fused_frontend": "yes",
+        "int8_weights": 1, "int8_kv_cache": "true", "packed_cross_kv": 1.0,
+        "mel_slab_frames": "junk", "intra_op": 3.7, "audio_transfer": 5,
+        "streamed_mel": "off", "allow_spinning": 0}}))
+    mine = load_best_cfg_from_discovery(str(p))
+    assert mine.to_dict() == jax_load_best(str(p)).to_dict()
+    assert mine.max_batch == 8 and mine.fused_frontend
+    assert not mine.streamed_mel
+
+
+def test_module_run_loads_no_jax(audio_dir, model_dir, tmp_path):
+    """``python -m whisper_tpu_torch.bench`` at x5 in a fresh process: rc 0,
+    and no module of jax, jaxlib or whisper_tpu among its imports."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WHISPER_TPU_PLATFORM", "PYTHONPATH")}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "whisper_tpu_torch.bench",
+         *_argv(audio_dir, model_dir, tmp_path, "--variant", "x5",
+                "--limit-files", "1")],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "End-to-end p95(s):" in proc.stdout
+    imported = {line.split("|")[-1].strip()
+                for line in proc.stderr.splitlines()
+                if line.startswith("import time:")}
+    assert "whisper_tpu_torch.bench.cli" in imported
+    bad = sorted(m for m in imported
+                 if m.split(".")[0] in ("jax", "jaxlib", "whisper_tpu"))
+    assert not bad, bad

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (B1-B4) against their plain versions, on the card.
+"""The port's CUDA kernels (B1-B6) against their plain versions, on the card.
 
 These tests need an NVIDIA card and nvcc; elsewhere they skip.  Run them on
 the card with
@@ -8,17 +8,22 @@ the card with
 (``--noconftest``: the suite's conftest sets up JAX, which this file does
 not use).  ``chip_smoke.py`` checks the kernels at the main path's shapes;
 these cover the edges it does not reach: ragged sequence lengths, a
-nonzero ``pad_count``, a padded cross cache, the other model widths and the
-wrapper's refusals.  Tolerance: 2 bf16 steps (2^-7 relative) of each value,
-the mean magnitude as the floor near zero; both sides round at the same
-points, and sum in another order.
+nonzero ``pad_count``, a padded cross cache, the other model widths, the
+front end at 1 to 30,000 frames and the wrapper's refusals.  Tolerance: 2
+bf16 steps (2^-7 relative) of each value, the mean magnitude as the floor
+near zero; both sides round at the same points, and sum in another order.
+The front end (B5, fp32 out) is held to 1e-4 on the normalized mel, the
+card-vs-CPU mel bound of ``chip_smoke.py``.
 """
 
+import numpy as np
 import pytest
 import torch
 
+from whisper_tpu_torch.frontend import golden
 from whisper_tpu_torch.ops import attention, cross_attention, encoder_mlp
-from whisper_tpu_torch.ops import self_attention
+from whisper_tpu_torch.ops import log_mel, self_attention
+from whisper_tpu_torch.ops.common import disable_tf32
 
 pytestmark = pytest.mark.cuda
 
@@ -104,6 +109,54 @@ def test_b4_kernel_matches_plain(gen, s, s_valid):
     assert cross_attention.launches == before + 1
     _assert_close(got, cross_attention.cross_attend_step_plain(
         q, k8, v8, ks, vs, 1, s_valid=s_valid))
+
+
+@pytest.mark.parametrize("s,s_valid", [(1500, 1500), (1500, 1001),
+                                       (96, 96)])
+def test_b6_kernel_matches_plain(gen, s, s_valid):
+    n_l, b, h = 2, 3, 8
+    q = _randn(gen, b, h, 64, scale=0.125)
+    k8 = torch.randint(-127, 128, (n_l, b, h, s, 64), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    v8 = torch.randint(-127, 128, (n_l, b, h, s, 64), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    ks = torch.rand(n_l, b, h, generator=gen, device="cuda") * 0.02 + 1e-3
+    vs = torch.rand(n_l, b, h, generator=gen, device="cuda") * 0.02 + 1e-3
+    before = cross_attention.dequant_launches
+    got = cross_attention.cross_attend_step_dequant(q, k8, v8, ks, vs, 1,
+                                                    s_valid=s_valid)
+    assert cross_attention.dequant_launches == before + 1
+    _assert_close(got, cross_attention.cross_attend_step_dequant_plain(
+        q, k8, v8, ks, vs, 1, s_valid=s_valid))
+
+
+@pytest.mark.parametrize("frames,n_mels,wire", [
+    (1, 80, "float32"), (257, 128, "int16"), (257, 80, "float32"),
+    (7680, 80, "int16"), (30000, 128, "float32")])
+def test_b5_kernel_matches_plain(gen, frames, n_mels, wire):
+    """Reflect-padded noise-and-tone audio, the last 5% of the frame
+    capacity past the signal (zero samples, zeroed frames)."""
+    disable_tf32()
+    rng = np.random.default_rng(frames)
+    valid = max(1, frames - frames // 20)
+    n = valid * golden.HOP
+    t = np.arange(n) / 16000.0
+    audio = (0.3 * np.sin(2 * np.pi * 440 * t)
+             + 0.05 * rng.standard_normal(n)).astype(np.float32)
+    padded = golden.reflect_pad(audio)
+    if wire == "int16":
+        padded = np.round(np.clip(padded, -1, 1) * 32767.0).astype(np.int16)
+    x = torch.from_numpy(padded).cuda()
+    before = log_mel.launches
+    got = log_mel.log_mel(x, valid, n_mels=n_mels, n_frames=frames)
+    assert log_mel.launches == before + 1
+    want = log_mel.log_mel_plain(x, valid, n_mels=n_mels, n_frames=frames)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (n_mels, frames)
+    assert torch.isfinite(got).all()
+    err = float((got - want).abs().max())
+    assert err <= 1e-4, err
+    assert bool((got[:, valid:] == 0).all())
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):

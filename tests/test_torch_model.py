@@ -116,6 +116,31 @@ def test_params_from_numpy_round_trips(dtype):
                 _np(v), np.asarray(ref[k]).astype(_np(v).dtype), err_msg=k)
 
 
+@pytest.mark.parametrize("form", ["float32_int8", "bfloat16"])
+def test_load_params_reads_jax_save_params(form, tmp_path):
+    """A model dir written by the JAX package's ``save_params`` (stacked
+    [L, ...] leaves; int8 QTensor q8/scale pairs; or bf16 leaves, read back
+    widened to float32 exactly) loads value for value, and its dims."""
+    ref = jconvert.init_params(DIMS, seed=4)
+    if form == "bfloat16":
+        ref = jconvert.cast_params(ref, jnp.bfloat16)
+    else:
+        ref = jquant.quantize_params(ref)
+    jconvert.save_params(ref, DIMS, str(tmp_path))
+    got, dims = convert.load_params(str(tmp_path))
+    assert dims.to_dict() == DIMS.to_dict()
+    mine, want = _leaves(got), _leaves(ref)
+    assert mine.keys() == want.keys()
+    if form != "bfloat16":
+        assert isinstance(got["decoder"]["blocks"]["fc1_w"], quant.QTensor)
+        assert mine["decoder/tok_emb_q.q"].dtype == np.int8
+    for k, v in want.items():
+        w = np.asarray(jnp.asarray(v).astype(jnp.float32)) \
+            if form == "bfloat16" else np.asarray(v)
+        assert mine[k].dtype == w.dtype, k
+        np.testing.assert_array_equal(mine[k], w, err_msg=k)
+
+
 # ---------------------------------------------------------------------------
 # Front end
 # ---------------------------------------------------------------------------
@@ -215,6 +240,19 @@ def test_x5_encoder_prefill_and_kernel_step_match_jax(setup):
     every op, summed in another order on each side, through two layers);
     the logits within 2e-2, a few bf16 steps of the hidden state they
     project."""
+    _check_int8_rung(setup, int8_mxu=True)
+
+
+def test_x4_encoder_prefill_and_kernel_step_match_jax(setup):
+    """Rung x4: the same encoder and prefill as x5, and a step through B3
+    and B6 (the int8 cross cache dequantized in the kernel) against the
+    JAX x4 path (``cross_attend_step_packed(int8_mxu=False)`` on the
+    head-packed, untransposed cross cache).  The tolerances of the x5
+    test."""
+    _check_int8_rung(setup, int8_mxu=False)
+
+
+def _check_int8_rung(setup, int8_mxu: bool):
     params, mel = setup
     qparams = quant.quantize_params(params)
     jp = jconvert.cast_params(jquant.quantize_params(
@@ -240,15 +278,16 @@ def test_x5_encoder_prefill_and_kernel_step_match_jax(setup):
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=2e-2, rtol=0)
     np.testing.assert_array_equal(ct.cross_k.numpy(), np.asarray(cj.cross_k))
 
-    cj = jw.pack_cross_cache(cj, transpose_k=True)
+    cj = jw.pack_cross_cache(cj, transpose_k=int8_mxu)
     cj = cj._replace(self_k=pack_self_cache(cj.self_k),
                      self_v=pack_self_cache(cj.self_v))
     tok = np.array([9, 11])
     t_ = DIMS.max_source_positions
     sj, _ = jw.decoder_step(jp, DIMS, jnp.asarray(tok, jnp.int32),
-                            jnp.int32(3), cj, cross_len=t_, int8_mxu=True)
+                            jnp.int32(3), cj, cross_len=t_,
+                            int8_mxu=int8_mxu)
     st, _ = decoder(torch.from_numpy(tok), 3, ct, kernel_step=True,
-                    cross_len=t_)
+                    cross_len=t_, int8_mxu=int8_mxu)
     np.testing.assert_allclose(st.numpy(), np.asarray(sj), atol=2e-2, rtol=0)
 
 

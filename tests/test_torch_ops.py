@@ -1,4 +1,4 @@
-"""The port's kernel modules (B1-B4) against the JAX package's Pallas kernels.
+"""The port's kernel modules (B1-B6) against the JAX package's Pallas kernels.
 
 Each kernel module of ``whisper_tpu_torch.ops`` holds a CUDA kernel and its
 plain PyTorch version.  On a CPU tensor the wrapper runs the plain version,
@@ -27,7 +27,9 @@ from whisper_tpu.ops.cross_attention import (
     pack_cross_kv,
     pack_cross_kv_t,
 )
+from whisper_tpu.ops.encoder_mlp import chunk_plan
 from whisper_tpu.ops.encoder_mlp import fused_encoder_mlp as jax_fused_mlp
+from whisper_tpu.ops.pallas_mel import log_mel_pallas
 from whisper_tpu.ops.self_attention import (
     pack_self_cache,
     self_attend_step_packed,
@@ -35,7 +37,9 @@ from whisper_tpu.ops.self_attention import (
 from whisper_tpu_torch.ops import attention as t_attention
 from whisper_tpu_torch.ops import cross_attention as t_cross
 from whisper_tpu_torch.ops import encoder_mlp as t_mlp
+from whisper_tpu_torch.frontend import golden
 from whisper_tpu_torch.ops import kernels
+from whisper_tpu_torch.ops import log_mel as t_mel
 from whisper_tpu_torch.ops import self_attention as t_self
 
 torch.set_num_threads(2)
@@ -106,6 +110,30 @@ def test_b2_plain_matches_jax_ragged_rows():
     b2 = 0.1 * rng.normal(size=d)
     pairs = [_bf16_pair(a) for a in (x, ln_s, ln_b, w1, b1, w2, b2)]
     want = jax_fused_mlp(*[p[0] for p in pairs], interpret=True)
+    t_mlp.launches = 0
+    got = t_mlp.fused_encoder_mlp(*[p[1] for p in pairs])
+    assert got.shape == (b, t, d) and t_mlp.launches == 0
+    _assert_bf16_close(got, want, steps=2.0)
+
+
+def test_b2_plain_matches_jax_chunked_kernel_at_medium_width():
+    """whisper-medium's d=1024, f=4096, which the JAX package runs through
+    its FFN-chunked kernel (``_fused_mlp_chunked``, f_block from
+    ``chunk_plan``; B2c).  The port's one kernel and plain version take
+    every width.  Tolerance: 2 bf16 steps, as above."""
+    rng = np.random.default_rng(12)
+    b, t, d, f = 1, 40, 1024, 4096
+    blk = chunk_plan(d, f, jnp.bfloat16)
+    assert blk is not None and blk < f
+    x = rng.normal(0, 1, (b, t, d))
+    ln_s = 1.0 + 0.1 * rng.normal(size=d)
+    ln_b = 0.1 * rng.normal(size=d)
+    w1 = rng.normal(0, 0.03, (d, f))
+    b1 = 0.1 * rng.normal(size=f)
+    w2 = rng.normal(0, 0.02, (f, d))
+    b2 = 0.1 * rng.normal(size=d)
+    pairs = [_bf16_pair(a) for a in (x, ln_s, ln_b, w1, b1, w2, b2)]
+    want = jax_fused_mlp(*[p[0] for p in pairs], interpret=True, f_block=blk)
     t_mlp.launches = 0
     got = t_mlp.fused_encoder_mlp(*[p[1] for p in pairs])
     assert got.shape == (b, t, d) and t_mlp.launches == 0
@@ -205,6 +233,91 @@ def test_b4_probs_round_ties_to_even():
     want = np.asarray(jnp.round(jnp.asarray(ties) * 127.0)).astype(np.int8)
     np.testing.assert_array_equal(got, want)
     assert np.all(got % 2 == 0)
+
+
+# ---------------------------------------------------------------------------
+# B6: decode cross-attention, int8 cache dequantized in the kernel (x4)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("s_valid", [1500, 1001])
+def test_b6_plain_matches_jax(s_valid):
+    """fp32 scores times k_scale, fp32 softmax normalized before the bf16
+    cast, bf16 p * bf16(V8) products summed in fp32, times v_scale; a
+    1500-row cache, all valid or masked from row 1001.  Tolerance: 2 bf16
+    steps.  The port rounds each product to bf16, as the JAX kernel is
+    written (``(pm * v).astype(f32)`` on bf16 operands); XLA on the CPU
+    keeps those products in fp32 (``xla_allow_excess_precision``), and
+    1,500 rounded products move the sum by up to ~1.5 bf16 steps of the
+    output.  With XLA_FLAGS=--xla_allow_excess_precision=false the JAX
+    kernel in interpret mode and this plain version agree bitwise on
+    these inputs."""
+    rng = np.random.default_rng(s_valid)
+    n_l, b, h, s, dh = 2, 2, 4, 1500, 64
+    layer = 1
+    k8 = rng.integers(-127, 128, (n_l, b, h, s, dh), dtype=np.int8)
+    v8 = rng.integers(-127, 128, (n_l, b, h, s, dh), dtype=np.int8)
+    ks = rng.uniform(0.001, 0.02, (n_l, b, h)).astype(np.float32)
+    vs = rng.uniform(0.001, 0.02, (n_l, b, h)).astype(np.float32)
+    qj, qt = _bf16_pair(rng.normal(0, 1, (b, h, dh)) * dh ** -0.5)
+    want = cross_attend_step_packed(
+        qj, pack_cross_kv(jnp.asarray(k8)), pack_cross_kv(jnp.asarray(v8)),
+        jnp.asarray(ks), jnp.asarray(vs), jnp.int32(layer), s_valid=s_valid,
+        int8_mxu=False, interpret=True)
+    t_cross.dequant_launches = 0
+    got = t_cross.cross_attend_step_dequant(
+        qt, torch.from_numpy(k8), torch.from_numpy(v8), torch.from_numpy(ks),
+        torch.from_numpy(vs), layer, s_valid=s_valid)
+    assert got.dtype == torch.bfloat16 and t_cross.dequant_launches == 0
+    _assert_bf16_close(got, want, steps=2.0)
+
+
+# ---------------------------------------------------------------------------
+# B5: the one-shot log-mel front end
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seconds,n_mels,wire,extra", [
+    (3.71, 80, "int16", 13),     # 371 frames: one full 256-frame block + tail
+    (2.003, 128, "float32", 0),  # large-v3's 128 mels, float32 upload
+    (0.05, 80, "float32", 250),  # 5 frames, most of the capacity past the end
+])
+def test_b5_plain_matches_jax(seconds, n_mels, wire, extra):
+    """Reflect-padded audio of a ragged length (and frame capacity past the
+    valid frames, which read zeros and are zeroed), int16 PCM or float32,
+    80 or 128 mels, against ``log_mel_pallas`` in interpret mode.
+    Tolerance 1e-4 on the normalized mel: the fp32 DFT sums run in another
+    order on each side, and a quiet bin, whose power comes out of
+    cancelling terms, keeps few correct digits through log10.  The JAX
+    package's own two front ends (``log_mel_jax`` and ``log_mel_pallas``)
+    differ by up to 4.5e-5 on such clips, this version from the Pallas one
+    by up to 6.9e-5 (128 mels, float32); the ROADMAP bound against the
+    golden mel is 2e-4."""
+    rng = np.random.default_rng(int(seconds * 1000))
+    n = int(seconds * 16000)
+    t = np.arange(n) / 16000.0
+    audio = (0.3 * np.sin(2 * np.pi * 440 * t)
+             + 0.05 * rng.standard_normal(n)).astype(np.float32)
+    padded = golden.reflect_pad(audio)
+    if wire == "int16":
+        padded = np.round(np.clip(padded, -1, 1) * 32767.0).astype(np.int16)
+    nv = golden.num_frames(n)
+    n_frames = nv + extra
+    want = np.asarray(log_mel_pallas(jnp.asarray(padded), jnp.int32(nv),
+                                     n_mels=n_mels, n_frames=n_frames,
+                                     interpret=True))
+    t_mel.launches = 0
+    got = t_mel.log_mel(torch.from_numpy(padded), nv, n_mels=n_mels,
+                        n_frames=n_frames).numpy()
+    assert got.shape == want.shape == (n_mels, n_frames)
+    assert t_mel.launches == 0
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    assert np.all(got[:, nv:] == 0.0)
+
+
+def test_b5_kernel_entry_refuses_cpu_tensors():
+    """The raw kernel entry launches or raises; a CPU tensor goes through
+    ``log_mel``, which routes it to the plain version."""
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        t_mel.log_spec(torch.zeros(1000), 80, 3)
 
 
 # ---------------------------------------------------------------------------

@@ -209,6 +209,29 @@ def test_x5_slice_agrees_with_jax(params):
         assert trows == jrows and ttext == jtext
 
 
+@pytest.mark.parametrize("mode", ["f32", "float32", "auto"])
+def test_float_audio_transfer_modes_match_jax(mode):
+    """Every audio_transfer mode that is not a wire encoding uploads
+    float32 as it is, as the JAX session's ``_encode_transfer`` does: "f32"
+    is a choice of the CLI's --audio-transfer and may come from a discovery
+    JSON.  The one-shot (20 s) and the streamed (45 s, slabs of 2,000
+    frames) mel equal the JAX session's within 3e-5, the bound of
+    test_x5_slice_agrees_with_jax."""
+    cfg = dict(dtype="float32", audio_transfer=mode, mel_slab_frames=2000)
+    jsess = JaxSession(convert.init_params(SMALL, seed=0), SMALL,
+                       JaxCfg(**cfg))
+    tsess = WhisperSession(convert.init_params(SMALL, seed=0), SMALL,
+                           RuntimeCfg(**cfg), device="cpu")
+    for seconds in (20.0, 45.0):
+        audio = _audio(seconds, seed=3)
+        padded = golden.reflect_pad(audio)
+        nv = golden.num_frames(len(audio))
+        bucket = mel_frame_bucket(nv)
+        want = np.asarray(jsess.compute_mel(padded, nv, bucket))
+        got = tsess.compute_mel(padded, nv, bucket).numpy()
+        np.testing.assert_allclose(got, want, atol=3e-5, rtol=0)
+
+
 def test_port_loads_no_jax():
     """A fresh process, WHISPER_TPU_PLATFORM unset, runs the x5 slice at a
     small size through the port and never imports jax or whisper_tpu."""
@@ -287,7 +310,6 @@ def test_longform_options_not_ported_raise(case):
 
 
 SESSION_CASES = {
-    "x4": ("x4", {}),
     "x6": ("x6", {}),
     "x7": ("x7", {}),
     "fused_encoder_block": ("x5", dict(fused_encoder_block=True)),
@@ -320,15 +342,6 @@ def test_decode_options_not_ported_raise(case):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sess.transcribe_from_mel(mel, [0], [250], 2, 251,
                                  **DECODE_CASES[case])
-
-
-def test_one_shot_file_at_x3_and_up_raises():
-    """A file of at most mel_slab_frames frames at x3+ needs kernel B5."""
-    sess = _small_session()
-    audio = np.zeros(10 * 16000, np.float32)
-    nv = golden.num_frames(len(audio))
-    with pytest.raises(NotImplementedError, match="B5"):
-        sess.compute_mel(golden.reflect_pad(audio), nv, mel_frame_bucket(nv))
 
 
 def test_model_options_not_ported_raise():

@@ -1,15 +1,21 @@
 """whisper_tpu_torch — the PyTorch and CUDA port of ``whisper_tpu``.
 
-It runs the long-form main path (rung x5: streamed log-mel, encoder,
-greedy decoding, stitching) on an NVIDIA H100 through four hand-written
-CUDA kernels for Hopper (``csrc/``, built with nvcc at first use):
+It runs the chunked long-form path (log-mel, encoder, greedy decoding,
+stitching) at rungs x0-x5 and ``int8``, and the reference-compatible
+benchmark CLI over it (``python -m whisper_tpu_torch.bench``), on an
+NVIDIA H100 through six hand-written CUDA kernels for Hopper (``csrc/``,
+built with nvcc at first use):
 
 - B1 ``ops.attention.fused_attention``: encoder self-attention
-- B2 ``ops.encoder_mlp.fused_encoder_mlp``: encoder LN + MLP + residual
+- B2 ``ops.encoder_mlp.fused_encoder_mlp``: encoder LN + MLP + residual,
+  at every width (the TPU's chunked variant B2c included)
 - B3 ``ops.self_attention.self_attend_step``: decode self-attention with
   an in-place cache insert
 - B4 ``ops.cross_attention.cross_attend_step``: int8 x int8 decode
-  cross-attention
+  cross-attention (x5)
+- B5 ``ops.log_mel.log_mel``: the one-shot log-mel front end (x3+)
+- B6 ``ops.cross_attention.cross_attend_step_dequant``: decode
+  cross-attention with the int8 cache dequantized in the kernel (x4)
 
 The layout mirrors ``whisper_tpu``, which stays the reference: each module
 here is the counterpart of the module of the same path there.  This

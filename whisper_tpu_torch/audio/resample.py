@@ -1,0 +1,37 @@
+"""Linear-interpolation resampler with the reference's exact math
+(ref src/main.rs:207-226; port of ``whisper_tpu.audio.resample``): output
+length = round(len * ratio) (half away from zero), sample positions
+t = i / ratio in f64, 2-tap lerp with float32 blend weights, zero for
+out-of-bounds taps.
+
+Transcript parity with the reference requires this exact resampler
+(SURVEY.md §2.1 N6).  The JAX package's C++ resampler is bit-equal to this
+NumPy expression (tests/test_native_audio.py); the port keeps only the
+NumPy one.  mu-law encoding is a wire mode of the TPU tunnel (ROADMAP
+"Not to port").
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def resample_linear(x: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
+    """Resample ``x`` from ``sr_in`` to ``sr_out`` Hz (a copy when equal)."""
+    x = np.asarray(x, dtype=np.float32)
+    if sr_in == sr_out:
+        return x.copy()
+    ratio = float(sr_out) / float(sr_in)           # f64, like the reference
+    n_out = int(np.floor(len(x) * ratio + 0.5))    # Rust round(): half away from zero
+
+    t = np.arange(n_out, dtype=np.float64) / ratio
+    i0 = np.floor(t).astype(np.int64)
+    a = (t - i0).astype(np.float32)                # blend weight cast to f32
+
+    def tap(idx):
+        valid = (idx >= 0) & (idx < len(x))
+        return np.where(valid, x[np.clip(idx, 0, len(x) - 1)], np.float32(0.0))
+
+    s0 = tap(i0)
+    s1 = tap(i0 + 1)
+    return ((np.float32(1.0) - a) * s0 + a * s1).astype(np.float32)

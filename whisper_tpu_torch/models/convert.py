@@ -3,7 +3,11 @@
 
 ``init_params`` builds the stacked-layer parameter tree in numpy from
 ``default_rng(seed)``, leaf for leaf identical to the JAX package's, so
-that both packages start from the same weights.  ``params_from_numpy``
+that both packages start from the same weights.  ``load_params`` reads a
+model dir written by the JAX package's ``save_params`` (``params.safetensors``
+with stacked [L, ...] leaves and ``QTensor`` q8/scale pairs, plus
+``config.json``) with numpy alone: the card's machine has no
+``safetensors`` package.  ``params_from_numpy``
 turns such a tree (numpy arrays, or the JAX package's tree with its
 arrays read back as numpy; ``QTensor`` pairs included) into the port's
 torch tree with ``cast_params`` semantics: float leaves cast to the
@@ -12,7 +16,10 @@ compute dtype, int8 ``q`` and fp32 ``s`` kept.
 
 from __future__ import annotations
 
-from typing import Dict
+import json
+import os
+import struct
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -81,6 +88,71 @@ def init_params(dims: WhisperDims, seed: int = 0) -> Dict:
             "ln_f_s": ones(d), "ln_f_b": zeros(d),
         },
     }
+
+
+PARAMS_FILE = "params.safetensors"
+CONFIG_FILE = "config.json"
+
+# safetensors dtype tags -> numpy dtypes (BF16 is widened to float32 below)
+_ST_DTYPES = {"F64": "<f8", "F32": "<f4", "F16": "<f2", "I64": "<i8",
+              "I32": "<i4", "I16": "<i2", "I8": "i1", "U8": "u1",
+              "BOOL": "?"}
+
+
+def read_safetensors(path: str) -> Dict[str, np.ndarray]:
+    """{name: array} of a safetensors file, read with numpy: an 8-byte
+    little-endian header length, a JSON header of dtype, shape and data
+    offsets, then the raw little-endian bytes.  BF16 tensors come back as
+    float32 (exact)."""
+    raw = np.memmap(path, dtype=np.uint8, mode="r")
+    (n,) = struct.unpack("<Q", bytes(raw[:8]))
+    header = json.loads(bytes(raw[8:8 + n]))
+    base = 8 + n
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        start, end = info["data_offsets"]
+        buf = raw[base + start: base + end]
+        if info["dtype"] == "BF16":
+            arr = (buf.view("<u2").astype(np.uint32) << 16).view(np.float32)
+        else:
+            arr = buf.view(_ST_DTYPES[info["dtype"]]).copy()
+        out[name] = arr.reshape(info["shape"])
+    return out
+
+
+def _unflatten(flat: Dict[str, np.ndarray]) -> Dict:
+    """'/'-joined keys -> nested dict; ``<key>.q8``/``<key>.scale`` pairs ->
+    ``QTensor`` (the JAX package's ``_flatten`` inverted)."""
+    out: Dict = {}
+    pending_q: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, v in flat.items():
+        if key.endswith(".q8") or key.endswith(".scale"):
+            base, _, kind = key.rpartition(".")
+            pending_q.setdefault(base, {})[kind] = v
+            continue
+        parts = key.split("/")
+        node = out
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    for base, parts_q in pending_q.items():
+        parts = base.split("/")
+        node = out
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = QTensor(q=parts_q["q8"], s=parts_q["scale"])
+    return out
+
+
+def load_params(model_dir: str) -> Tuple[Dict, WhisperDims]:
+    """(numpy parameter tree, dims) of a model dir in the JAX package's
+    ``save_params`` format."""
+    flat = read_safetensors(os.path.join(model_dir, PARAMS_FILE))
+    with open(os.path.join(model_dir, CONFIG_FILE)) as f:
+        cfg = json.load(f)
+    return _unflatten(flat), WhisperDims(**cfg["whisper_tpu_dims"])
 
 
 def params_from_numpy(tree, device, dtype: torch.dtype) -> Dict:

@@ -22,10 +22,11 @@ written in place (JAX returns new arrays; the port updates where the data
 lies and returns the same cache).
 
 Kernels on the path (x3+): ``ops.attention.fused_attention`` (B1) and
-``ops.encoder_mlp.fused_encoder_mlp`` (B2) in the encoder; at x5 the
-decode step runs ``ops.self_attention.self_attend_step`` (B3) and
-``ops.cross_attention.cross_attend_step`` (B4), replacing
-``_decoder_blocks_packed``.
+``ops.encoder_mlp.fused_encoder_mlp`` (B2) in the encoder; at x4 and x5
+the decode step runs ``ops.self_attention.self_attend_step`` (B3) and,
+replacing ``_decoder_blocks_packed``, the int8 cross-attention kernel:
+``ops.cross_attention.cross_attend_step`` (B4, int8 x int8) at x5,
+``ops.cross_attention.cross_attend_step_dequant`` (B6) at x4.
 """
 
 from __future__ import annotations
@@ -250,13 +251,20 @@ def _decoder_blocks(params: Params, dims: WhisperDims, x, cache: KVCache,
 
 
 def _decoder_blocks_kernel(params: Params, dims: WhisperDims, x,
-                           cache: KVCache, pos: int, cross_len: int):
-    """Single-token decoder step through the x5 kernels, replacing the JAX
-    package's ``_decoder_blocks_packed``: per layer, B3 attends and writes
-    the self cache in place, B4 attends the int8 cross cache.  The caches
-    keep the prefill layout (no packing step)."""
-    from whisper_tpu_torch.ops.cross_attention import cross_attend_step
+                           cache: KVCache, pos: int, cross_len: int,
+                           int8_mxu: bool = True):
+    """Single-token decoder step through the x4/x5 kernels, replacing the
+    JAX package's ``_decoder_blocks_packed``: per layer, B3 attends and
+    writes the self cache in place, then B4 (int8_mxu, x5) or B6 (x4)
+    attends the int8 cross cache.  The caches keep the prefill layout (no
+    packing step)."""
+    from whisper_tpu_torch.ops.cross_attention import (
+        cross_attend_step,
+        cross_attend_step_dequant,
+    )
     from whisper_tpu_torch.ops.self_attention import self_attend_step
+
+    cross_attend = cross_attend_step if int8_mxu else cross_attend_step_dequant
 
     dec = params["decoder"]
     h = dims.decoder_heads
@@ -278,7 +286,7 @@ def _decoder_blocks_kernel(params: Params, dims: WhisperDims, x,
 
         r = _layer_norm(x, p["x_ln_s"], p["x_ln_b"])
         q = _dense(r, p["xq_w"], p["xq_b"])[:, 0]
-        ctx = cross_attend_step(
+        ctx = cross_attend(
             (q * scale).reshape(-1, h, dims.head_dim),
             cache.cross_k, cache.cross_v, ks, vs, li, s_valid=cross_len)
         x = x + _dense(ctx.reshape(x.shape), p["xo_w"], p["xo_b"])
@@ -344,15 +352,16 @@ def decoder_prefill(params: Params, dims: WhisperDims, tokens, enc_states,
 
 def decoder_step(params: Params, dims: WhisperDims, token, pos: int,
                  cache: KVCache, *, kernel_step: bool = False,
-                 cross_len: Optional[int] = None):
+                 cross_len: Optional[int] = None, int8_mxu: bool = True):
     """One-token pass at cache slot ``pos`` (all rows aligned): logits
-    [B, V].  kernel_step (x5) runs B3/B4 and needs the int8 cross cache."""
+    [B, V].  kernel_step runs B3 and, per int8_mxu, B4 (x5) or B6 (x4); it
+    needs the int8 cross cache."""
     dec = params["decoder"]
     dtype = dec["tok_emb"].dtype
     x = dec["tok_emb"][token][:, None, :] + dec["pos_embed"][pos].to(dtype)
     if kernel_step:
         x, cache = _decoder_blocks_kernel(params, dims, x, cache, pos,
-                                          cross_len)
+                                          cross_len, int8_mxu)
     else:
         max_len = cache.self_k.shape[3]
         mask = (torch.arange(max_len, device=x.device) <= pos)[None, :]
@@ -429,7 +438,8 @@ class WhisperDecoder(_StackedWeights):
         self.dims = dims
 
     def forward(self, token, pos: int, cache: KVCache, *,
-                kernel_step: bool = False, cross_len: Optional[int] = None):
+                kernel_step: bool = False, cross_len: Optional[int] = None,
+                int8_mxu: bool = True):
         return decoder_step({"decoder": self.tree()}, self.dims, token, pos,
                             cache, kernel_step=kernel_step,
-                            cross_len=cross_len)
+                            cross_len=cross_len, int8_mxu=int8_mxu)

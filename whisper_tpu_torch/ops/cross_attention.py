@@ -1,5 +1,5 @@
-"""B4: one-token decoder cross-attention with int8 x int8 dots (port of
-``whisper_tpu.ops.cross_attention``, x5 path).
+"""B4 and B6: one-token decoder cross-attention against the int8 cross
+cache (port of ``whisper_tpu.ops.cross_attention``, x5 and x4 paths).
 
 ``cross_attend_step`` replaces the JAX package's Pallas
 ``cross_attend_step_packed(int8_mxu=True)`` (``_kernel_int8_mxu``).  As
@@ -17,6 +17,14 @@ The port keeps the int8 cross cache in the prefill layout
 existed for Mosaic).  On a CUDA tensor it launches the hand-written
 Hopper kernel ``csrc/cross_attention.cu``; on a CPU tensor it takes
 ``cross_attend_step_plain``.  Any other device raises.
+
+``cross_attend_step_dequant`` (B6, rung x4) replaces
+``cross_attend_step_packed(int8_mxu=False)`` (``_kernel``): the int8 K/V
+are dequantized in the kernel, with fp32 scores times k_scale, an fp32
+softmax normalized before the cast to bf16, each bf16 p * bf16(V8)
+product rounded to bf16 and summed in fp32, then times v_scale.  On a
+CUDA tensor it launches ``csrc/cross_attention_dequant.cu``; on a CPU
+tensor it takes ``cross_attend_step_dequant_plain``.
 """
 
 from __future__ import annotations
@@ -26,7 +34,8 @@ import torch
 from whisper_tpu_torch.ops import kernels
 from whisper_tpu_torch.ops.common import check_operand, route
 
-launches = 0  # kernel launches since the last reset (plain calls excluded)
+launches = 0  # B4 kernel launches since the last reset (plain excluded)
+dequant_launches = 0  # B6 kernel launches since the last reset
 
 
 def quantize_q(q: torch.Tensor):
@@ -104,4 +113,60 @@ def cross_attend_step(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
         v8.data_ptr(), out.data_ptr(), b, h, s_max, int(layer), int(s_valid),
         kernels.stream_ptr(q.device)), "cross_attend_step")
     launches += 1
+    return out
+
+
+def cross_attend_step_dequant_plain(q, k8, v8, k_scale, v_scale, layer: int,
+                                    *, s_valid: int) -> torch.Tensor:
+    """Reference version of B6, with the wrapper's arguments: the JAX
+    ``_kernel``'s math in plain PyTorch.  The P.V products are taken in
+    bf16 (in fp32 for an fp32 q, as there), each rounded, then summed in
+    fp32."""
+    k, v = k8[layer].float(), v8[layer]                           # [B,H,S,Dh]
+    s_max = k.shape[2]
+    scores = torch.matmul(k, q.float()[..., None])[..., 0]
+    scores = scores * k_scale[layer].float()[..., None]           # [B, H, S]
+    cols = torch.arange(s_max, device=q.device)
+    scores = torch.where(cols < s_valid, scores,
+                         torch.finfo(torch.float32).min)
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    probs = e / e.sum(dim=-1, keepdim=True)
+    pv = torch.bfloat16 if q.dtype == torch.bfloat16 else torch.float32
+    prod = probs.to(pv)[..., None] * v.to(pv)                     # rounded
+    ctx = prod.float().sum(dim=-2)
+    return (ctx * v_scale[layer].float()[..., None]).to(q.dtype)
+
+
+def cross_attend_step_dequant(q: torch.Tensor, k8: torch.Tensor,
+                              v8: torch.Tensor, k_scale: torch.Tensor,
+                              v_scale: torch.Tensor, layer: int, *,
+                              s_valid: int) -> torch.Tensor:
+    """Single-token cross-attention against the int8 cache of one layer,
+    dequantized in the kernel (rung x4).  Arguments as
+    :func:`cross_attend_step`; the kernel reads q as it is (bf16)."""
+    if route(q) == "plain":
+        return cross_attend_step_dequant_plain(q, k8, v8, k_scale, v_scale,
+                                               layer, s_valid=s_valid)
+    global dequant_launches
+    b, h, dh = q.shape
+    n_layers, s_max = k8.shape[0], k8.shape[3]
+    if dh != 64 or q.dtype != torch.bfloat16:
+        raise ValueError("cross_attend_step_dequant kernel needs bf16 q with "
+                         f"head_dim 64, got {q.dtype} / {dh}")
+    if not (0 <= layer < n_layers and 0 < s_valid <= s_max):
+        raise ValueError(f"layer {layer} / s_valid {s_valid} outside the "
+                         f"cache [{n_layers}, {s_max}]")
+    check_operand("q", q, torch.bfloat16, (b, h, dh), q.device)
+    for name, x in (("k_scale", k_scale), ("v_scale", v_scale)):
+        check_operand(name, x, torch.float32, (n_layers, b, h), q.device)
+    for name, x in (("k8", k8), ("v8", v8)):
+        check_operand(name, x, torch.int8, (n_layers, b, h, s_max, dh),
+                      q.device)
+    out = torch.empty_like(q)
+    lib = kernels.library()
+    kernels.check(lib.wt_cross_attend_step_dequant(
+        q.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), k8.data_ptr(),
+        v8.data_ptr(), out.data_ptr(), b, h, s_max, int(layer), int(s_valid),
+        kernels.stream_ptr(q.device)), "cross_attend_step_dequant")
+    dequant_launches += 1
     return out

@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -27,7 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("attention.cu", "encoder_mlp.cu", "self_attention.cu",
-           "cross_attention.cu")
+           "cross_attention.cu", "cross_attention_dequant.cu", "log_mel.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -35,6 +36,7 @@ LIB_NAME = "libwhisper_tpu_torch.so"
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"  # the CUDA toolkit's usual place
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_L, _F = ctypes.c_longlong, ctypes.c_float
 # entry point -> argument types (every pointer and the stream as c_void_p)
 SIGNATURES = {
     # q, k, v, out, batch*heads, T, stream
@@ -47,9 +49,16 @@ SIGNATURES = {
     # q8, qk_scale, v_scale, k8, v8, out, batch, heads, S, layer,
     # s_valid, stream
     "wt_cross_attend_step": [_P] * 6 + [_I] * 5 + [_P],
+    # q, k_scale, v_scale, k8, v8, out, batch, heads, S, layer, s_valid,
+    # stream
+    "wt_cross_attend_step_dequant": [_P] * 6 + [_I] * 5 + [_P],
+    # audio, is_int16, n_samples, cosw, sinw, fb_t, out, n_frames, n_mels,
+    # int16 scale, stream
+    "wt_log_mel": [_P, _I, _L] + [_P] * 4 + [_I, _I, _F, _P],
 }
 
 _lib = None          # the loaded library (one per process)
+_lib_lock = threading.Lock()  # the CLI's prefetch thread may load it too
 build_seconds = None  # wall time of the build in this process, if it ran
 
 
@@ -113,13 +122,14 @@ def build(extra_flags=()) -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
     return _lib
 
 

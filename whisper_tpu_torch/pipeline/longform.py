@@ -51,6 +51,8 @@ def transcribe_longform(
     timestamps: bool = False,
     gen_cfg: Optional[GenerationCfg] = None,
     num_beams: int = 1,
+    length_penalty: float = 1.0,
+    precomputed_mel: Optional[Tuple] = None,
     word_collector: Optional[list] = None,
     initial_prompt_ids: Optional[list] = None,
     speculative: bool = False,
@@ -59,8 +61,14 @@ def transcribe_longform(
     """Transcribe one 16 kHz mono array: (stitched text, Timing).
 
     tokenizer: anything with ``decode(ids, skip_special_tokens=...)`` and
-    ``token_to_id`` (e.g. ``whisper_tpu.tokenizer.WhisperDetokenizer``);
-    without one, chunk texts are the token ids, as in the reference.
+    ``token_to_id`` (e.g. ``tokenizer.bpe.WhisperDetokenizer``); without
+    one, chunk texts are the token ids, as in the reference.
+    length_penalty: read by beam search only, as in the JAX package
+    (greedy decoding ignores it there too).
+    precomputed_mel: an optional (device mel, total_frames) pair, computed
+    by the CLI's prefetch thread while the previous file decoded; the
+    device is synchronized before preprocess_s is read, so it measures the
+    residual wait.
     token_collector: a list that receives the generated tokens
     [n_chunks, max_new_tokens] (int32 numpy)."""
     for flag, item in ((language == "auto", "language 'auto' (detection): "
@@ -87,10 +95,13 @@ def transcribe_longform(
     # 1. whole-file mel on the device
     tp0 = time.perf_counter()
     audio_16k = np.asarray(audio_16k, dtype=np.float32)
-    padded = golden.reflect_pad(audio_16k)
-    total_frames = golden.num_frames(len(audio_16k))
-    mel = session.compute_mel(padded, total_frames,
-                              mel_frame_bucket(total_frames))
+    if precomputed_mel is not None:
+        mel, total_frames = precomputed_mel
+    else:
+        padded = golden.reflect_pad(audio_16k)
+        total_frames = golden.num_frames(len(audio_16k))
+        mel = session.compute_mel(padded, total_frames,
+                                  mel_frame_bucket(total_frames))
     _sync(session.device)
     preprocess_s = time.perf_counter() - tp0
 

@@ -39,11 +39,13 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
                     prompt: torch.Tensor, suppress_mask: torch.Tensor,
                     first_suppress_mask: torch.Tensor, max_new_tokens: int,
                     eot_id: int, *, int8_cross_kv: bool = False,
-                    kernel_step: bool = False) -> torch.Tensor:
+                    kernel_step: bool = False,
+                    int8_mxu: bool = True) -> torch.Tensor:
     """Generated tokens [B, max_new_tokens] (prompt excluded), rows that
     finished early padded with EOT.  prompt: [P] ids shared by every row;
-    masks: [V] fp32 additive.  kernel_step (x5) runs the decode step
-    through kernels B3/B4 against the int8 cross cache."""
+    masks: [V] fp32 additive.  kernel_step runs the decode step through
+    kernel B3 and, against the int8 cross cache, B4 (int8_mxu, x5) or B6
+    (x4)."""
     if kernel_step and not int8_cross_kv:
         raise ValueError("kernel_step needs the int8 cross cache")
     b = enc_states.shape[0]
@@ -67,7 +69,7 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
         # `last` was generated as token index p+i-1 of the full sequence.
         step_logits, cache = whisper.decoder_step(
             params, dims, last, p + i - 1, cache, kernel_step=kernel_step,
-            cross_len=cross_len)
+            cross_len=cross_len, int8_mxu=int8_mxu)
         nxt = torch.argmax(step_logits.float() + suppress_mask, dim=-1)
         nxt = torch.where(done, eot_id, nxt)
         buf[:, i] = nxt

@@ -1,10 +1,12 @@
 """Inference session (port of ``whisper_tpu.runtime.session``).
 
 ``RuntimeCfg`` keeps the JAX package's field names and defaults, so a
-ladder rung or a discovery config means the same thing to both packages.
-``WhisperSession`` holds the weights on one device and runs the long-form
-main path: the streamed slab log-mel, chunk slicing on the device, the
-encoder and greedy decoding per batch bucket.
+ladder rung or a discovery config means the same thing to both packages;
+``suggested_cfg`` and ``load_best_cfg_from_discovery`` build one as the
+JAX CLI does.  ``WhisperSession`` holds the weights on one device and runs
+the long-form path: the whole-file log-mel (streamed in slabs, or one shot
+through kernel B5 at x3+), chunk slicing on the device, the encoder and
+greedy decoding per batch bucket.
 
 What the slice does not carry raises ``NotImplementedError`` naming its
 ROADMAP item; nothing silently takes another path.
@@ -13,6 +15,8 @@ ROADMAP item; nothing silently takes another path.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence
 
@@ -78,12 +82,68 @@ class RuntimeCfg:
         return _DTYPES[self.dtype]
 
 
+def suggested_cfg() -> RuntimeCfg:
+    """Built-in heuristic config (analog of suggested_optimum_cfg, ref
+    src/main.rs:108-122): bf16, batch bucket 16, one device."""
+    return RuntimeCfg(intra_op=min(os.cpu_count() or 8, 16))
+
+
+def _coerce_bool(v, default: bool) -> bool:
+    if isinstance(v, bool):
+        return v
+    if isinstance(v, (int, float)):
+        return v != 0
+    if isinstance(v, str):
+        return v.strip().lower() in ("1", "true", "yes", "y", "on")
+    return default
+
+
+def _coerce_int(v, default: int) -> int:
+    if isinstance(v, bool):
+        return int(v)
+    if isinstance(v, (int, float)):
+        return int(v)
+    if isinstance(v, str):
+        try:
+            return int(v.strip())
+        except ValueError:
+            return default
+    return default
+
+
+def _coerce_str(v, default: str) -> str:
+    return v if isinstance(v, str) else default
+
+
+def load_best_cfg_from_discovery(path: str) -> RuntimeCfg:
+    """A tuned config from ``{"best": {...}}`` with the reference's lenient
+    coercion rules (ref src/main.rs:124-167), extended with the TPU-native
+    keys, as ``whisper_tpu.runtime.session.load_best_cfg_from_discovery``:
+    a missing or ill-typed value takes the default."""
+    with open(path) as f:
+        outer = json.load(f)
+    best = outer.get("best") or {}
+    fb = suggested_cfg()
+    coerce = {bool: _coerce_bool, int: _coerce_int, str: _coerce_str}
+    values = {}
+    for fld in dataclasses.fields(RuntimeCfg):
+        default = getattr(fb, fld.name)
+        values[fld.name] = coerce[type(default)](best.get(fld.name), default)
+    return RuntimeCfg(**values)
+
+
 def _bucket_batch(n: int, cap: int) -> int:
     """Next power of two >= n, capped at `cap`."""
     b = 1
     while b < n and b < cap:
         b <<= 1
     return min(b, cap)
+
+
+# The compact upload encodings of the JAX package's remote-device link.
+# Every other audio_transfer mode ("int16" aside) uploads float32 as it is,
+# as the JAX session's _encode_transfer does ("f32", "float32", "auto").
+WIRE_ENCODINGS = ("dint16", "dint16p", "ulaw8", "pcm12", "pcm14")
 
 
 def _check_supported(cfg: RuntimeCfg) -> None:
@@ -102,13 +162,9 @@ def _check_supported(cfg: RuntimeCfg) -> None:
                        "queue 1 item 5")
     if cfg.int8_self_kv:
         missing.append("int8_self_kv (rung x7): kernel B8, ROADMAP queue 2")
-    if (cfg.packed_cross_kv and cfg.int8_kv_cache
-            and not cfg.int8_mxu_attn):
-        missing.append("the x4 decode step (int8 cross cache dequantized "
-                       "in the kernel): kernel B6, ROADMAP queue 2")
-    if cfg.audio_transfer not in ("int16", "float32"):
-        missing.append(f"audio_transfer {cfg.audio_transfer!r}: only int16 "
-                       "and float32 are ported (ROADMAP 'Not to port')")
+    if cfg.audio_transfer in WIRE_ENCODINGS:
+        missing.append(f"audio_transfer {cfg.audio_transfer!r}: a wire "
+                       "encoding of the TPU tunnel (ROADMAP 'Not to port')")
     if missing:
         raise NotImplementedError("; ".join(missing))
 
@@ -143,11 +199,16 @@ class WhisperSession:
         self.decoder = WhisperDecoder(tree["decoder"], dims,
                                       device=self.device)
         self._decoder_params = {"decoder": self.decoder.tree()}
-        # x5: the decode step runs kernels B3/B4 against the int8 cross
-        # cache (the JAX package's packed + int8-MXU step).
+        # x4/x5: the decode step runs kernel B3 and, against the int8 cross
+        # cache, B4 (int8 x int8, x5) or B6 (dequantizing, x4): the JAX
+        # package's packed step, which it takes for head_dim 64 and an even
+        # head count only (generate.py:129-130); other dims keep the plain
+        # step there and here.
         self._kernel_step = bool(self.cfg.packed_cross_kv
                                  and self.cfg.int8_kv_cache
-                                 and self.cfg.int8_mxu_attn)
+                                 and dims.head_dim == 64
+                                 and dims.decoder_heads % 2 == 0)
+        self._int8_mxu = bool(self.cfg.int8_mxu_attn and self._kernel_step)
         self._masks: Dict = {}
 
     def _batch_bucket(self, n: int) -> int:
@@ -166,7 +227,8 @@ class WhisperSession:
         return self._masks[key]
 
     def _encode_transfer(self, audio: np.ndarray) -> np.ndarray:
-        """Host-side wire encoding: int16 PCM or float32 as it is."""
+        """Host-side upload encoding: int16 PCM for "int16", float32 as it
+        is for every other mode the session accepts."""
         if self.cfg.audio_transfer == "int16" and audio.dtype != np.int16:
             x = np.clip(np.asarray(audio, dtype=np.float32), -1.0, 1.0)
             return np.round(x * 32767.0).astype(np.int16)
@@ -188,17 +250,15 @@ class WhisperSession:
 
     def _compute_mel_single(self, padded_audio: np.ndarray, n_valid: int,
                             n_frames: int) -> torch.Tensor:
-        """One-shot upload + whole-file mel (x0-x2: plain torch)."""
+        """One-shot upload + whole-file mel: kernel B5 when
+        cfg.fused_frontend (x3+), else the plain torch front end."""
+        audio = self._upload(self._encode_transfer(padded_audio))
         if self.cfg.fused_frontend:
-            raise NotImplementedError(
-                "the one-shot mel at x3+ (files of at most mel_slab_frames "
-                "frames) runs the fused mel kernel B5, not ported yet "
-                "(ROADMAP queue 2, B5)")
-        from whisper_tpu_torch.frontend.mel import log_mel_torch
-
-        return log_mel_torch(self._upload(self._encode_transfer(padded_audio)),
-                             n_valid, n_mels=self.dims.n_mels,
-                             n_frames=n_frames)
+            from whisper_tpu_torch.ops.log_mel import log_mel
+        else:
+            from whisper_tpu_torch.frontend.mel import log_mel_torch as log_mel
+        return log_mel(audio, n_valid, n_mels=self.dims.n_mels,
+                       n_frames=n_frames)
 
     def encode_host_slab(self, padded_audio: np.ndarray, s0: int,
                          need: int) -> np.ndarray:
@@ -305,7 +365,7 @@ class WhisperSession:
                 self._decoder_params, self.dims, enc, prompt_t, base_mask, first_mask,
                 max_new_tokens=max_new_tokens, eot_id=eot_id,
                 int8_cross_kv=self.cfg.int8_kv_cache,
-                kernel_step=self._kernel_step)
+                kernel_step=self._kernel_step, int8_mxu=self._int8_mxu)
             pieces.append((toks, start, n))
             start += n
         return pieces

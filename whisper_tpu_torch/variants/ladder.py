@@ -5,12 +5,12 @@ The same rungs and flags as the JAX package, read by the port as:
   x0   fp32, no TF32                       - strict token parity
   x1   fp32 storage ('high' runs as full fp32, see RuntimeCfg)
   x2   bf16
-  x3   bf16 + kernels B1 (encoder attention) and B2 (encoder MLP); the
-       fused front end (B5) is not ported, so only the streamed long-form
-       mel runs (a one-shot file raises)
-  x4   x3 + int8 weights + int8 cross-KV with the in-kernel dequantizing
-       decode step (B6): raises until B6 is ported
-  x5   x4 + int8 x int8 decode attention: kernels B3 and B4 (the slice)
+  x3   bf16 + kernels B1 (encoder attention), B2 (encoder MLP) and B5
+       (the one-shot front end, files of at most mel_slab_frames frames;
+       longer files take the streamed slab mel, as in JAX)
+  x4   x3 + int8 weights + int8 cross-KV: the decode step runs kernels B3
+       and B6 (the int8 cross cache dequantized in the kernel)
+  x5   x4 + int8 x int8 decode attention: kernels B3 and B4
   x6   x5 + W8A8 encoder: raises (not ported)
   x7   x5 + int8 self cache (B8): raises (not ported)
 
@@ -57,9 +57,11 @@ LADDER: Dict[str, VariantSpec] = {
     "x1": VariantSpec("x1", "fp32 storage, HIGH matmul precision",
                       "float32", "high", audio_transfer="float32"),
     "x2": VariantSpec("x2", "bf16 serving precision", "bfloat16", "default"),
-    "x3": VariantSpec("x3", "bf16 + fused encoder attention and MLP "
-                      "kernels (B1, B2)", "bfloat16", "default", **_FUSED),
-    "x4": VariantSpec("x4", "x3 + int8 weights + int8 cross-KV (B6)",
+    "x3": VariantSpec("x3", "bf16 + fused front end, encoder attention "
+                      "and MLP kernels (B5, B1, B2)", "bfloat16", "default",
+                      **_FUSED),
+    "x4": VariantSpec("x4", "x3 + int8 weights + int8 cross-KV, "
+                      "dequantized in the decode kernel (B3, B6)",
                       "bfloat16", "default", **_INT8),
     "x5": VariantSpec("x5", "x4 + int8 x int8 decode attention (B3, B4)",
                       "bfloat16", "default", int8_mxu_attn=True, **_INT8),
