@@ -8,11 +8,16 @@ What it does, in order (any failure raises and exits non-zero):
 2. Builds the CUDA kernels of ``whisper_tpu_torch/csrc`` with nvcc
    (sm_90a; one nvcc per source, all started together) and prints the
    build time and each kernel's register use.
-3. Runs each kernel (B1-B6) against its plain PyTorch version on the card
-   at the shapes its path gives it (whisper-base, batch bucket 16: B1-B4
-   at x5, B6 at x4; B5 at the one-shot limit of 7,680 frames; B2 also at
-   whisper-medium's d=1024), prints the largest difference and the time of
-   one call of each (median of five runs of 20 calls).
+3. Runs each kernel (B1-B6, B8, B9a, B9b, B10c) against its plain PyTorch
+   version on the card at the shapes its path gives it (whisper-base, batch
+   bucket 16: B1-B4 at x5, B6 at x4, B8 at x7, B9a/B9b with the fused
+   encoder block, B10c in the hybrid decode step; B5 at the one-shot limit
+   of 7,680 frames; B2 and B9a also at whisper-medium's d=1024), prints the
+   largest difference, the time of one call of each (median of five runs
+   of 20 calls), the least time the card could take for the same work (the
+   larger of its bytes over 3.35 TB/s and its operations over the peak rate
+   for their type) and, where one PyTorch call computes the same function,
+   that call's time.
 4. Holds the port on the card against the port on the CPU (the kernels'
    plain versions) on a small input: an 80 s clip through the front end,
    the encoder and twelve teacher-forced decode steps.
@@ -22,7 +27,16 @@ What it does, in order (any failure raises and exits non-zero):
    kernel's launch count set to 0 just before each run and read just after;
    asserts the token shape, identical tokens across runs, finite encoder
    states and logits, and that every kernel of the path was launched.
-6. Drives the benchmark CLI (``whisper_tpu_torch.bench.cli.main``, in
+6. Drives the same file at whisper-base through the rest of the ladder
+   and ``RuntimeCfg``, a warm-up and three timed runs each, counts set to 0
+   just before each and read just after: rung x7 (B8 and B4 once per layer and
+   step, no B3), rung x6 (the W8A8 encoder; kernels as at x5), and x5 with
+   ``fused_encoder_block`` and ``fused_decoder_step`` (B9a, B1 and B9b once
+   per encoder layer, B10c once per layer and step, none of B2, B3, B4);
+   then a 4 s file at whisper-medium with ``fused_encoder_block`` (the
+   d >= 1024 composition: B9a, B1 and B2 once per layer, no B9b).  Prints
+   e2e, model time and launches of each beside x5's.
+7. Drives the benchmark CLI (``whisper_tpu_torch.bench.cli.main``, in
    process) over four synthetic WAV files (4 s; 29.5 s at 44.1 kHz stereo;
    76 s, just under the one-shot limit; 150 s, streamed) at whisper-base
    ``--variant x5`` and ``--variant int8``, then over the 4 s file at
@@ -31,7 +45,8 @@ What it does, in order (any failure raises and exits non-zero):
    summary keys, four rows of the files' durations, B5 on every one-shot
    mel, B4 and not B6 at x5, B6 and not B4 at int8, B2 at d=1024 in the
    medium run; prints each run's per-file e2e, p95 and peak device memory.
-7. Prints one JSON line with the kernels, then, as the last line,
+   One more run at ``--variant x7`` over the four files (B8 and B4, no B3).
+8. Prints one JSON line with the kernels, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -66,6 +81,22 @@ def _median_ms(fn, runs: int = 5, calls: int = 20) -> float:
     return statistics.median(times)
 
 
+# Published peaks of one H100 SXM (dense): device memory 3.35 TB/s; bf16
+# 989 TFLOP/s and int8 1,979 TOP/s on the tensor cores; fp32 67 TFLOP/s.
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+
+
+def _bound(n_bytes: float, n_ops: float, kind: str):
+    """The least time (ms) the card could take: the larger of the bytes the
+    function must move (each input read once, each output written once)
+    over the memory rate and its operations over the peak for their type;
+    and which of the two it is."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / PEAK_OPS[kind]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def _bf16_steps(got, want) -> float:
     """Largest |got - want| in bf16 spacings (2^-7 relative) of the larger
     magnitude, the mean magnitude of ``want`` as the floor near zero."""
@@ -85,6 +116,7 @@ def check_kernels(card: str) -> list:
     from whisper_tpu_torch.frontend import golden
     from whisper_tpu_torch.headline import synth_audio
     from whisper_tpu_torch.ops import attention, cross_attention, encoder_mlp
+    from whisper_tpu_torch.ops import decoder_kernels, encoder_block
     from whisper_tpu_torch.ops import log_mel, self_attention
     from whisper_tpu_torch.pipeline.chunk import mel_frame_bucket
 
@@ -98,6 +130,11 @@ def check_kernels(card: str) -> list:
     b, h, t, dh, d, f = 16, 8, 1500, 64, 512, 2048
     n_l, s_max, layer, pos = 6, 132, 3, 70
     rows = []
+    # name -> (bytes moved, operations, their type) of one call, for the
+    # bound; and the one PyTorch call that computes the same function,
+    # where there is one.
+    work, library = {}, {}
+    n = b * t                                         # encoder rows
 
     # B1: q pre-scaled, as the encoder passes it.
     q, k, v = randn(b, h, t, dh, scale=dh ** -0.5), randn(b, h, t, dh), \
@@ -106,6 +143,11 @@ def check_kernels(card: str) -> list:
                  "whisper_tpu/ops/attention.py:75",
                  lambda: attention.fused_attention(q, k, v),
                  lambda: attention.fused_attention_plain(q, k, v), 2.0))
+    work["fused_attention"] = (4 * b * h * t * dh * 2,
+                               4 * b * h * t * t * dh, "bf16")
+    library["fused_attention"] = \
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, scale=1.0)
 
     # B2: dequantized int8 weights, as the encoder passes them.
     x = randn(b, t, d)
@@ -120,6 +162,8 @@ def check_kernels(card: str) -> list:
                  "encoder_mlp.cu", "whisper_tpu/ops/encoder_mlp.py:224",
                  lambda: encoder_mlp.fused_encoder_mlp(*mlp_args),
                  lambda: encoder_mlp.fused_encoder_mlp_plain(*mlp_args), 2.0))
+    work["fused_encoder_mlp"] = ((2 * n * d + 2 * d * f + 3 * d + f) * 2,
+                                 4 * n * d * f, "bf16")
 
     # B2 at whisper-medium's width (the TPU's FFN-chunked kernel, B2c):
     # the 4 s file of the CLI phase is one chunk, bucket 1.
@@ -134,6 +178,8 @@ def check_kernels(card: str) -> list:
                  "encoder_mlp.cu", "whisper_tpu/ops/encoder_mlp.py:163",
                  lambda: encoder_mlp.fused_encoder_mlp(*med_args),
                  lambda: encoder_mlp.fused_encoder_mlp_plain(*med_args), 2.0))
+    work["fused_encoder_mlp_d1024"] = (
+        (2 * t * dm + 2 * dm * fm + 3 * dm + fm) * 2, 4 * t * dm * fm, "bf16")
 
     # B3: the kernel writes row `pos` of the cache in place, so the kernel
     # and the plain version each get their own copy.
@@ -149,6 +195,27 @@ def check_kernels(card: str) -> list:
                      qs, kn, vn, kc, vc, layer, pos, pads),
                  lambda: self_attention.self_attend_step_plain(
                      qs, kn, vn, kc2, vc2, layer, pos, pads), 2.0))
+    # Rows [pad, pos] of K and V are read (the data decides how many), the
+    # new row written; scores and P.V in fp32 on the CUDA cores.
+    work["self_attend_step"] = (
+        b * h * dh * 2 * (2 * (pos + 1) + 6), 4 * b * h * (pos + 1) * dh,
+        "fp32")
+
+    # B8 (x7): the same step against the int8 self cache with per-row
+    # scales; the kernel and the plain version each get their own copies
+    # of the four buffers they write.
+    i8 = self_attention.quantize_self_cache(kc, vc)
+    i8_plain = [x.clone() for x in i8]
+    rows.append(("self_attend_step_int8", (self_attention, "int8_launches"),
+                 "self_attention_int8.cu",
+                 "whisper_tpu/ops/self_attention.py:327",
+                 lambda: self_attention.self_attend_step_int8(
+                     qs, kn, vn, *i8, layer, pos, pads),
+                 lambda: self_attention.self_attend_step_int8_plain(
+                     qs, kn, vn, *i8_plain, layer, pos, pads), 2.0))
+    work["self_attend_step_int8"] = (
+        b * h * (2 * (pos + 1) * (dh + 4) + 4 * dh * 2 + 2 * (dh + 4)),
+        4 * b * h * (pos + 1) * dh, "int8")
 
     # B4: the int8 cross cache as quantize_cross_kv leaves it.
     qx = randn(b, h, dh, scale=dh ** -0.5)
@@ -165,6 +232,10 @@ def check_kernels(card: str) -> list:
                      qx, k8, v8, ks, vs, 2, s_valid=t),
                  lambda: cross_attention.cross_attend_step_plain(
                      qx, k8, v8, ks, vs, 2, s_valid=t), 2.0))
+    cross_bytes = b * h * (2 * t * dh + 2 * dh * 2 + 8)
+    work["cross_attend_step"] = (cross_bytes, 4 * b * h * t * dh, "int8")
+    work["cross_attend_step_dequant"] = (cross_bytes, 4 * b * h * t * dh,
+                                         "fp32")
 
     # B6 (x4): the same cache, dequantized in the kernel.
     rows.append(("cross_attend_step_dequant",
@@ -188,6 +259,53 @@ def check_kernels(card: str) -> list:
                  "whisper_tpu/ops/pallas_mel.py:129",
                  lambda: log_mel.log_mel(wire, nv, 80, nf),
                  lambda: log_mel.log_mel_plain(wire, nv, 80, nf), 1e-4))
+    # Per frame: the 400-sample window against 201 cos and 201 sin columns,
+    # then 201 powers against 80 mel filters, two operations a product.
+    work["log_mel"] = (wire.numel() * 2 + 2 * 400 * 201 * 4 + 201 * 80 * 4
+                       + 80 * nf * 4,
+                       nf * (2 * 400 * 201 * 2 + 201 * 80 * 2), "fp32")
+
+    # B9a and B9b: one encoder layer's two kernels (fused_encoder_block),
+    # dequantized int8 weights as the encoder passes them.
+    def qweight(rows_, cols, s=3e-4):
+        return (torch.randint(-127, 128, (rows_, cols), generator=g,
+                              device=dev).to(bf) * torch.tensor(s, dtype=bf))
+
+    w_qkv, b_qkv = qweight(d, 3 * d), randn(3 * d, scale=0.1)
+    qkv_args = (x, ln_s, ln_b, w_qkv, b_qkv)
+    rows.append(("fused_ln_qkv", (encoder_block, "ln_qkv_launches"),
+                 "encoder_block.cu", "whisper_tpu/ops/encoder_block.py:178",
+                 lambda: encoder_block.fused_ln_qkv(*qkv_args),
+                 lambda: encoder_block.fused_ln_qkv_plain(*qkv_args), 2.0))
+    work["fused_ln_qkv"] = ((n * d + n * 3 * d + d * 3 * d + 5 * d) * 2,
+                            2 * n * d * 3 * d, "bf16")
+    qkv_med = (xm, med_args[1], med_args[2], qweight(dm, 3 * dm, 2e-4),
+               randn(3 * dm, scale=0.1))
+    rows.append(("fused_ln_qkv_d1024", (encoder_block, "ln_qkv_launches"),
+                 "encoder_block.cu", "whisper_tpu/ops/encoder_block.py:178",
+                 lambda: encoder_block.fused_ln_qkv(*qkv_med),
+                 lambda: encoder_block.fused_ln_qkv_plain(*qkv_med), 2.0))
+    work["fused_ln_qkv_d1024"] = (
+        (t * dm + t * 3 * dm + dm * 3 * dm + 5 * dm) * 2,
+        2 * t * dm * 3 * dm, "bf16")
+    out_args = (x, randn(b, t, d), qweight(d, d), randn(d, scale=0.1), ln_s,
+                ln_b, w1, b1, w2, b2)
+    rows.append(("fused_out_mlp", (encoder_block, "out_mlp_launches"),
+                 "encoder_block.cu", "whisper_tpu/ops/encoder_block.py:257",
+                 lambda: encoder_block.fused_out_mlp(*out_args),
+                 lambda: encoder_block.fused_out_mlp_plain(*out_args), 2.0))
+    work["fused_out_mlp"] = ((3 * n * d + d * d + 2 * d * f + 4 * d + f) * 2,
+                             2 * n * d * (d + 2 * f), "bf16")
+
+    # B10c: the decoder MLP of one step (the hybrid step), bucket 16.
+    mlp_step = (randn(b, d), torch.stack([ln_s, ln_b]), w1, b1[None], w2,
+                b2[None])
+    rows.append(("decoder_mlp_block", (decoder_kernels, "launches"),
+                 "decoder_mlp.cu", "whisper_tpu/ops/decoder_kernels.py:270",
+                 lambda: decoder_kernels.mlp_block(*mlp_step),
+                 lambda: decoder_kernels.mlp_block_plain(*mlp_step), 2.0))
+    work["decoder_mlp_block"] = ((2 * b * d + 2 * d * f + 3 * d + f) * 2,
+                                 4 * b * d * f, "bf16")
 
     out = []
     for name, counter, src, replaces, kern, plain, tol in rows:
@@ -205,19 +323,28 @@ def check_kernels(card: str) -> list:
         if steps > tol:
             raise AssertionError(f"{name}: {steps:.3g} {unit} from the "
                                  f"plain version (tolerance {tol})")
-        if name == "self_attend_step":
-            # the in-place insert must leave both caches bitwise equal
-            if not (torch.equal(kc, kc2) and torch.equal(vc, vc2)):
-                raise AssertionError("self_attend_step: cache differs from "
+        # the in-place inserts must leave every buffer bitwise equal to
+        # the plain version's
+        written = {"self_attend_step": ((kc, kc2), (vc, vc2)),
+                   "self_attend_step_int8": tuple(zip(i8, i8_plain))}
+        for mine, theirs in written.get(name, ()):
+            if not torch.equal(mine, theirs):
+                raise AssertionError(f"{name}: a cache buffer differs from "
                                      "the plain version's after the insert")
         ms, plain_ms = _median_ms(kern), _median_ms(plain)
+        bound_ms, bound_by = _bound(*work[name])
+        library_ms = _median_ms(library[name]) if name in library else None
         print(f"[kernel] {name}: max_abs_err {err:.3g} ({steps:.3g} {unit}, "
-              f"tolerance {tol}); {ms:.4f} ms vs plain {plain_ms:.4f} ms on "
-              f"{card}", flush=True)
+              f"tolerance {tol}); {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.5f} ms by {bound_by}, library call "
+              + (f"{library_ms:.4f} ms" if library_ms is not None else "none")
+              + f" on {card}", flush=True)
         out.append({"name": name, "route": "cuda",
                     "source": f"whisper_tpu_torch/csrc/{src}",
                     "replaces": replaces, "counter": counter,
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": library_ms})
     return out
 
 
@@ -333,6 +460,120 @@ def check_main_path_finite(session, audio, dims) -> None:
                              "main path")
 
 
+def _timed_run(session, audio, results, max_new_tokens: int = 128,
+               runs: int = 1):
+    """A warm-up, then ``runs`` runs, each with every kernel's count set to
+    0 just before it and read just after; the runs must give equal tokens
+    and counts.  The median run by e2e: (e2e s, Timing, tokens, counts)."""
+    import torch
+
+    from whisper_tpu_torch.headline import run_once
+
+    run_once(session, audio, max_new_tokens=max_new_tokens)
+    out = []
+    for _ in range(runs):
+        _zero_counts(results)
+        collector = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, timing = run_once(session, audio, token_collector=collector,
+                             max_new_tokens=max_new_tokens)
+        out.append((time.perf_counter() - t0, timing, collector[0],
+                    _counts(results)))
+        if not ((out[-1][2] == out[0][2]).all() and out[-1][3] == out[0][3]):
+            raise AssertionError("two runs gave different tokens or launches")
+    return sorted(out, key=lambda r: r[0])[len(out) // 2]
+
+
+def check_ladder(card: str, results, params, dims, audio, x5) -> dict:
+    """The 301.574 s file at whisper-base through x7, x6 and x5 with the
+    fused encoder block and the hybrid decode step; ``x5``: (e2e, Timing,
+    tokens, counts) of the main path's run, printed beside each.  Returns
+    each configuration's launch counts."""
+    import warnings
+
+    from whisper_tpu_torch.headline import make_session
+
+    n_l, n_e = dims.decoder_layers, dims.encoder_layers
+    configs = (("x7", "x7", {}),
+               ("x6", "x6", {}),
+               ("x5+fused_encoder_block+fused_decoder_step", "x5",
+                dict(fused_encoder_block=True, fused_decoder_step=True)))
+    runs = {"x5": x5}
+    for label, variant, overrides in configs:
+        with warnings.catch_warnings():
+            # x6: "fused_encoder_mlp overrides int8_encoder_act ..."
+            warnings.simplefilter("ignore", UserWarning)
+            session = make_session("cuda", params, variant, **overrides)
+        e2e, timing, toks, c = _timed_run(session, audio, results, runs=3)
+        runs[label] = (e2e, timing, toks, c)
+        if toks.shape != x5[2].shape:
+            raise AssertionError(f"{label}: tokens {toks.shape}")
+        if not ((toks >= 0) & (toks < dims.vocab_size)).all():
+            raise AssertionError(f"{label}: token ids outside the vocabulary")
+        check_main_path_finite(session, audio, dims)
+        enc = (c["fused_attention"], c["fused_encoder_mlp"],
+               c["fused_ln_qkv"], c["fused_out_mlp"])
+        step = (c["self_attend_step"], c["self_attend_step_int8"],
+                c["cross_attend_step"], c["decoder_mlp_block"])
+        layers_steps = max(step)
+        ok = layers_steps > 0 and layers_steps % n_l == 0 \
+            and c["cross_attend_step_dequant"] == 0
+        if label == "x7":      # B8 then B4, once per layer and step; no B3
+            ok = ok and enc == (n_e, n_e, 0, 0) \
+                and step == (0, layers_steps, layers_steps, 0)
+        elif label == "x6":    # the kernels of x5
+            ok = ok and enc == (n_e, n_e, 0, 0) \
+                and step == (layers_steps, 0, layers_steps, 0)
+        else:                  # B9a, B1, B9b per encoder layer; B10c per step
+            ok = ok and enc == (n_e, 0, n_e, n_e) \
+                and step == (0, 0, 0, layers_steps)
+        if not ok:
+            raise AssertionError(f"{label}: launches {c}")
+        del session
+    # x7 shares x5's prefill, so every chunk's first token is x5's; after
+    # that a flipped near-tie (random weights) carries to the chunk's end.
+    if not (runs["x7"][2][:, 0] == x5[2][:, 0]).all():
+        raise AssertionError("x7: a first token differs from x5's")
+    same = float((runs["x7"][2] == x5[2]).mean())
+    print(f"[ladder] x7 tokens equal to x5's: {same:.4f} of "
+          f"{x5[2].size}", flush=True)
+    for label, (e2e, timing, _, c) in runs.items():
+        steps = max(c["cross_attend_step"], c["decoder_mlp_block"]) // n_l
+        print(f"[ladder] whisper-base {label}, {len(audio) / 16000:.3f} s, "
+              f"on {card}: e2e {e2e:.4f} s, model {timing.model_only_s:.4f} "
+              f"s, preprocess {timing.preprocess_s:.4f} s, {steps} decode "
+              f"steps (median of 3 runs); launches {c}", flush=True)
+    return {label: r[3] for label, r in runs.items()}
+
+
+def check_medium_fused_block(card: str, results) -> dict:
+    """A 4 s file at whisper-medium (random weights from seed 0) at x5 with
+    fused_encoder_block: at d = 1024 the composition is B9a, B1, a plain
+    O-projection and B2, once per encoder layer, and never B9b."""
+    from whisper_tpu_torch.headline import make_session, synth_audio
+    from whisper_tpu_torch.models.registry import get_dims
+
+    model_id = "openai/whisper-medium"
+    dims = get_dims(model_id)
+    session = make_session("cuda", None, "x5", model_id,
+                           fused_encoder_block=True)
+    e2e, timing, toks, c = _timed_run(session, synth_audio(4.0), results,
+                                      max_new_tokens=16)
+    n_l = dims.encoder_layers
+    if not (c["fused_ln_qkv"] == c["fused_encoder_mlp"]
+            == c["fused_attention"] == n_l and c["fused_out_mlp"] == 0
+            and c["self_attend_step"] == c["cross_attend_step"] > 0):
+        raise AssertionError(f"whisper-medium fused block: launches {c}")
+    if toks.shape != (1, 16) or not ((toks >= 0)
+                                     & (toks < dims.vocab_size)).all():
+        raise AssertionError(f"whisper-medium fused block: tokens {toks}")
+    print(f"[medium] whisper-medium x5+fused_encoder_block, 4 s, 16 tokens, "
+          f"on {card}: e2e {e2e:.4f} s, model {timing.model_only_s:.4f} s; "
+          f"launches {c}", flush=True)
+    return c
+
+
 # The CLI phase's files: (name, seconds, sample rate, channels).  Sorted by
 # name, the 4 s file comes first: the warm-up file and the medium run's.
 CLI_FILES = (("a_4s.wav", 4.0, 16000, 1),
@@ -441,7 +682,7 @@ def run_cli(label: str, card: str, results, audio_dir: str, out_dir: str,
 
 
 def check_cli(card: str, results) -> dict:
-    """The CLI at whisper-base x5 and int8 over the four files, then at
+    """The CLI at whisper-base x5, int8 and x7 over the four files, then at
     whisper-medium x5 over the 4 s file; returns each run's counts."""
     with tempfile.TemporaryDirectory() as tmp:
         audio_dir = os.path.join(tmp, "audio")
@@ -459,6 +700,8 @@ def check_cli(card: str, results) -> dict:
             "whisper-base int8": run_cli("base-int8", card, results,
                                          audio_dir, tmp,
                                          base + ["--variant", "int8"]),
+            "whisper-base x7": run_cli("base-x7", card, results, audio_dir,
+                                       tmp, base + ["--variant", "x7"]),
         }
         for name in os.listdir(audio_dir):
             if name != CLI_FILES[0][0]:
@@ -478,6 +721,12 @@ def check_cli(card: str, results) -> dict:
         if not (c[on] > 0 and c[off] == 0 and c["self_attend_step"] > 0
                 and c["fused_attention"] > 0 and c["fused_encoder_mlp"] > 0):
             raise AssertionError(f"CLI {label}: launches {c}")
+    x7 = runs["whisper-base x7"]
+    if not (x7["self_attend_step_int8"] == x7["cross_attend_step"] > 0
+            and x7["self_attend_step"] == 0
+            and x7["cross_attend_step_dequant"] == 0
+            and x7["fused_attention"] > 0 and x7["fused_encoder_mlp"] > 0):
+        raise AssertionError(f"CLI x7: launches {x7}")
     return runs
 
 
@@ -492,7 +741,6 @@ def main() -> None:
         MODEL_ID,
         card_info,
         make_session,
-        run_once,
         synth_audio,
     )
     from whisper_tpu_torch.models.convert import init_params
@@ -522,47 +770,47 @@ def main() -> None:
 
     session = make_session("cuda", params)
     audio = synth_audio(AUDIO_SECONDS)
-    run_once(session, audio)  # warm-up
-    runs, chains, counts = [], [], []
-    for _ in range(3):
-        _zero_counts(results)
-        collector = []
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        _, timing = run_once(session, audio, token_collector=collector)
-        runs.append((time.perf_counter() - t1, timing))
-        counts.append(_counts(results))
-        chains.append(collector[0])
-    for c in counts:
-        idle = [n for n in MAIN_PATH_KERNELS if c[n] == 0]
-        if idle:
-            raise AssertionError(f"kernels not launched on the main path: "
-                                 f"{idle}")
-    toks = chains[0]
+    # A warm-up, then three timed runs that must give equal tokens and
+    # launch counts; the median run by e2e.
+    x5_run = _timed_run(session, audio, results, runs=3)
+    e2e, timing, toks, main_counts = x5_run
+    idle = [n for n in MAIN_PATH_KERNELS if main_counts[n] == 0]
+    if idle:
+        raise AssertionError(f"kernels not launched on the main path: {idle}")
     n_chunks = len(chunk_starts(len(audio), 480_000, 400_000))  # 12
     if toks.shape != (n_chunks, 128):
         raise AssertionError(f"tokens {toks.shape}, expected "
                              f"({n_chunks}, 128)")
     if not ((toks >= 0) & (toks < dims.vocab_size)).all():
         raise AssertionError("token ids outside the vocabulary")
-    for other in chains[1:]:
-        if not (other == toks).all():
-            raise AssertionError("two runs gave different tokens")
     check_main_path_finite(session, audio, dims)
-    e2e, timing = sorted(runs, key=lambda r: r[0])[len(runs) // 2]
     print(f"[main path] whisper-base x5, {AUDIO_SECONDS} s, on {card}: "
           f"e2e {e2e:.4f} s, preprocess {timing.preprocess_s:.4f} s, model "
           f"{timing.model_only_s:.4f} s, decode {timing.decode_s:.4f} s, "
           f"{AUDIO_SECONDS / e2e:.2f}x real time (median of 3); launches "
-          f"per run {counts[0]}", flush=True)
+          f"per run {main_counts}", flush=True)
 
+    del session
+    ladder = check_ladder(card, results, params, dims, audio, x5_run)
+    medium = check_medium_fused_block(card, results)
     cli = check_cli(card, results)
-    # Each kernel's launches in the run of its own path.
-    path_of = {"log_mel": cli["whisper-base x5"],
-               "cross_attend_step_dequant": cli["whisper-base int8"],
-               "fused_encoder_mlp_d1024": cli["whisper-medium x5"]}
+    # Each kernel's launches in the run of its own path.  The two rows at
+    # d = 1024 share their kernels' counters with the d = 512 rows.
+    fused = ladder["x5+fused_encoder_block+fused_decoder_step"]
+    path_of = {"log_mel": cli["whisper-base x5"]["log_mel"],
+               "cross_attend_step_dequant":
+                   cli["whisper-base int8"]["cross_attend_step_dequant"],
+               "fused_encoder_mlp_d1024":
+                   cli["whisper-medium x5"]["fused_encoder_mlp"],
+               "self_attend_step_int8": ladder["x7"]["self_attend_step_int8"],
+               "fused_ln_qkv": fused["fused_ln_qkv"],
+               "fused_out_mlp": fused["fused_out_mlp"],
+               "decoder_mlp_block": fused["decoder_mlp_block"],
+               "fused_ln_qkv_d1024": medium["fused_ln_qkv"]}
     for r in results:
-        r["launches"] = path_of.get(r["name"], counts[0])[r["name"]]
+        r["launches"] = path_of.get(r["name"], main_counts[r["name"]])
+        if r["launches"] < 1:
+            raise AssertionError(f"{r['name']}: not launched on its path")
         del r["counter"]
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,10 @@ Both CLIs run in process on ``test/whisper-nano`` (random weights from seed
 with Whisper's special tokens and a generation_config.json beside it) over
 three WAV files: 3.2 s (one-shot mel), 80 s (8,000 frames: past the
 7,680-frame one-shot limit, so the streamed mel) and 2.5 s at 44.1 kHz
-stereo (downmix and resample).  Without a card the port runs the kernels'
-plain versions.  The prefetch thread is on (``suggested_cfg``: intra_op =
+stereo (downmix and resample).  The port is asked for the CPU
+(``main(argv, device="cpu")``, or ``WHISPER_TPU_TORCH_DEVICE=cpu`` for a
+subprocess), where it runs the kernels' plain versions; unasked and without
+a card it exits.  The prefetch thread is on (``suggested_cfg``: intra_op =
 min(cpu_count, 16) >= 2 here).
 """
 
@@ -122,7 +124,8 @@ def jax_x0(audio_dir, model_dir, tmp_path_factory):
 def test_x0_text_equals_jax(jax_x0, audio_dir, model_dir, tmp_path):
     """fp32 on both sides: the same files, durations and per-file text, in
     the CSV, the JSON rows and the transcripts."""
-    rc = cli.main(_argv(audio_dir, model_dir, tmp_path, "--variant", "x0"))
+    rc = cli.main(_argv(audio_dir, model_dir, tmp_path, "--variant", "x0"),
+                  device="cpu")
     assert rc == 0
     header, rows, jrows, summary = _outputs(tmp_path)
     jheader, jrows_csv, jjrows, jsummary = _outputs(jax_x0)
@@ -148,7 +151,7 @@ def test_schemas_equal_jax(jax_x0, audio_dir, model_dir, tmp_path, variant):
     32 keeps both packages on the plain decode step."""
     log_mel.launches = cross_attention.dequant_launches = 0
     rc = cli.main(_argv(audio_dir, model_dir, tmp_path, "--variant",
-                        variant))
+                        variant), device="cpu")
     assert rc == 0
     assert log_mel.launches == 0 and cross_attention.dequant_launches == 0
     header, rows, jrows, summary = _outputs(tmp_path)
@@ -180,7 +183,7 @@ def test_onnx_dir_reads_jax_save_params(jax_x0, audio_dir, model_dir,
     argv = [a for a in _argv(audio_dir, str(mdir), tmp_path / "out",
                              "--variant", "x0", "--limit-files", "1")
             if a != "--allow-random-init"]
-    assert cli.main(argv) == 0
+    assert cli.main(argv, device="cpu") == 0
     _, _, jrows, summary = _outputs(tmp_path / "out")
     assert [r["text"] for r in jrows] == [
         r["text"] for r in _outputs(jax_x0)[2][:1]]
@@ -192,7 +195,8 @@ def test_profile_dir_writes_a_trace(audio_dir, model_dir, tmp_path):
     loop (the JAX CLI writes a jax.profiler trace)."""
     prof = tmp_path / "prof"
     rc = cli.main(_argv(audio_dir, model_dir, tmp_path, "--variant", "x5",
-                        "--limit-files", "1", "--profile-dir", str(prof)))
+                        "--limit-files", "1", "--profile-dir", str(prof)),
+                  device="cpu")
     assert rc == 0
     trace = json.load(open(prof / "trace.json"))
     assert trace["traceEvents"]
@@ -214,8 +218,6 @@ NOT_PORTED = {
     "data_parallel": ["--data-parallel", "2"],
     "tensor_parallel": ["--tensor-parallel", "2"],
     "dcn": ["--dcn-coordinator", "localhost:1234"],
-    "x6": ["--variant", "x6"],
-    "x7": ["--variant", "x7"],
     "wire_ulaw8": ["--audio-transfer", "ulaw8"],
     "wire_auto": ["--audio-transfer", "auto"],
 }
@@ -224,7 +226,104 @@ NOT_PORTED = {
 @pytest.mark.parametrize("case", sorted(NOT_PORTED))
 def test_not_ported_flags_exit_naming_roadmap(case, tmp_path):
     with pytest.raises(SystemExit, match="ROADMAP"):
-        cli.main(["--audio-dir", str(tmp_path), *NOT_PORTED[case]])
+        cli.main(["--audio-dir", str(tmp_path), *NOT_PORTED[case]],
+                 device="cpu")
+
+
+@pytest.mark.parametrize("variant", ["x6", "x7"])
+def test_x6_and_x7_run_with_the_jax_schemas(jax_x0, audio_dir, model_dir,
+                                            tmp_path, variant):
+    """The two upper rungs of the users' ladder: rc 0, the reference's CSV
+    header, three rows, the JAX CLI's summary keys and the rung's flags in
+    ``config_used`` as the JAX ladder sets them."""
+    from whisper_tpu.runtime.session import RuntimeCfg as JaxCfg
+    from whisper_tpu.variants.ladder import apply_variant as jax_apply
+
+    with pytest.warns(UserWarning) if variant == "x6" else _no_warning():
+        rc = cli.main(_argv(audio_dir, model_dir, tmp_path, "--variant",
+                            variant), device="cpu")
+    assert rc == 0
+    header, rows, jrows, summary = _outputs(tmp_path)
+    assert header == ["file", "duration_s", "end_to_end_s", "rtf", "text"]
+    assert len(rows) == 3 and summary["n_files"] == 3
+    assert _keys(summary) == _keys(_outputs(jax_x0)[3]) | {"notes/variant"}
+    want = jax_apply(JaxCfg(), variant)[0].to_dict()
+    got = summary["config_used"]
+    for flag in ("int8_encoder_act", "int8_self_kv", "int8_mxu_attn",
+                 "int8_weights", "packed_cross_kv", "fused_encoder_mlp"):
+        assert got[flag] is want[flag], flag
+    assert got["int8_encoder_act"] is (variant == "x6")
+    assert got["int8_self_kv"] is (variant == "x7")
+
+
+def _no_warning():
+    import contextlib
+
+    return contextlib.nullcontext()
+
+
+def test_discovery_json_with_the_four_flags_runs(audio_dir, model_dir,
+                                                 tmp_path):
+    """A discovery JSON may carry every flag of RuntimeCfg: the fused
+    encoder block and the hybrid decode step run, and are echoed."""
+    best = tmp_path / "best.json"
+    best.write_text(json.dumps({"best": {
+        "int8_weights": True, "int8_kv_cache": True, "packed_cross_kv": True,
+        "int8_mxu_attn": True, "int8_self_kv": True,
+        "int8_encoder_act": True, "fused_encoder_block": True,
+        "fused_decoder_step": True}}))
+    rc = cli.main(_argv(audio_dir, model_dir, tmp_path / "out",
+                        "--discovery-best-json", str(best), "--limit-files",
+                        "1"), device="cpu")
+    assert rc == 0
+    _, rows, _, summary = _outputs(tmp_path / "out")
+    assert len(rows) == 1
+    for flag in ("fused_encoder_block", "fused_decoder_step", "int8_self_kv",
+                 "int8_encoder_act"):
+        assert summary["config_used"][flag] is True, flag
+
+
+def test_without_a_card_the_cli_exits_unless_asked_for_the_cpu(
+        tmp_path, monkeypatch):
+    """No device argument, no WHISPER_TPU_TORCH_DEVICE, no card: a clear
+    error naming the missing card and how to ask for the CPU, and nothing
+    runs.  Asking for a card that is not there exits too."""
+    monkeypatch.delenv(cli.DEVICE_ENV, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--audio-dir", str(tmp_path), "--out-csv",
+            str(tmp_path / "o" / "c.csv")]
+    with pytest.raises(SystemExit) as exc:
+        cli.main(argv)
+    msg = str(exc.value)
+    assert exc.value.code not in (0, None)
+    assert "no CUDA card" in msg and cli.DEVICE_ENV in msg
+    assert not (tmp_path / "o").exists()
+    with pytest.raises(SystemExit, match="no CUDA card"):
+        cli.main(argv, device="cuda")
+    monkeypatch.setenv(cli.DEVICE_ENV, "cuda")
+    with pytest.raises(SystemExit, match="no CUDA card"):
+        cli.main(argv)
+    # asked for the CPU through the environment, it gets as far as the files
+    monkeypatch.setenv(cli.DEVICE_ENV, "cpu")
+    with pytest.raises(SystemExit, match="model dir does not exist"):
+        cli.main(argv)
+
+
+def test_module_run_without_a_card_exits_nonzero(tmp_path):
+    """``python -m whisper_tpu_torch.bench`` with the variable unset, on a
+    machine without a card: a non-zero exit code and the message on stderr.
+    (Skipped where a card is present: there the run is the card's.)"""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WHISPER_TPU_PLATFORM", "PYTHONPATH", cli.DEVICE_ENV)}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run(
+        [sys.executable, "-m", "whisper_tpu_torch.bench", "--audio-dir",
+         str(tmp_path)], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA card" in proc.stderr and "DONE" not in proc.stdout
 
 
 def test_parser_has_every_jax_flag():
@@ -259,6 +358,7 @@ def test_module_run_loads_no_jax(audio_dir, model_dir, tmp_path):
     env = {k: v for k, v in os.environ.items()
            if k not in ("WHISPER_TPU_PLATFORM", "PYTHONPATH")}
     env["PYTHONPATH"] = REPO
+    env[cli.DEVICE_ENV] = "cpu"
     proc = subprocess.run(
         [sys.executable, "-X", "importtime", "-m", "whisper_tpu_torch.bench",
          *_argv(audio_dir, model_dir, tmp_path, "--variant", "x5",

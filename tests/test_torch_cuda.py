@@ -1,4 +1,5 @@
-"""The port's CUDA kernels (B1-B6) against their plain versions, on the card.
+"""The port's CUDA kernels (B1-B6, B8, B9a, B9b, B10c) against their plain
+versions, on the card.
 
 These tests need an NVIDIA card and nvcc; elsewhere they skip.  Run them on
 the card with
@@ -22,6 +23,7 @@ import torch
 
 from whisper_tpu_torch.frontend import golden
 from whisper_tpu_torch.ops import attention, cross_attention, encoder_mlp
+from whisper_tpu_torch.ops import decoder_kernels, encoder_block
 from whisper_tpu_torch.ops import log_mel, self_attention
 from whisper_tpu_torch.ops.common import disable_tf32
 
@@ -159,6 +161,90 @@ def test_b5_kernel_matches_plain(gen, frames, n_mels, wire):
     assert bool((got[:, valid:] == 0).all())
 
 
+@pytest.mark.parametrize("pos,pads", [(70, [0, 5, 70, 1]), (0, [0, 0, 0, 0]),
+                                      (131, [3, 0, 131, 130])])
+def test_b8_kernel_matches_plain_and_inserts_in_place(gen, pos, pads):
+    """The int8 rows and the scales of the inserted row equal the plain
+    version's bit for bit (a true division, ties to even); ctx within 2
+    bf16 steps (the sums of e and the exp differ in the last place, which
+    can move a p8 by one)."""
+    n_l, b, h, s = 3, 4, 6, 132
+    q = _randn(gen, b, h, 64, scale=0.125)
+    kn, vn = _randn(gen, b, h, 64), _randn(gen, b, h, 64)
+    k8, v8, ks, vs = self_attention.quantize_self_cache(
+        _randn(gen, n_l, b, h, s, 64), _randn(gen, n_l, b, h, s, 64))
+    mine = [t.clone() for t in (k8, v8, ks, vs)]
+    pad = torch.tensor(pads, dtype=torch.int32, device="cuda")
+    before = self_attention.int8_launches
+    got = self_attention.self_attend_step_int8(q, kn, vn, *mine, 2, pos, pad)
+    assert self_attention.int8_launches == before + 1
+    want = self_attention.self_attend_step_int8_plain(q, kn, vn, k8, v8, ks,
+                                                      vs, 2, pos, pad)
+    _assert_close(got, want)
+    for a, b_ in zip(mine, (k8, v8, ks, vs)):
+        assert torch.equal(a, b_)
+    kn8, kns = self_attention.quant_rows(kn)
+    assert torch.equal(mine[0][2, :, :, pos], kn8)
+    assert torch.equal(mine[2][2, :, :, pos], kns)
+
+
+@pytest.mark.parametrize("rows,d", [(1, 512), (1499, 512), (24000, 512),
+                                    (1499, 1024), (77, 384), (130, 1280)])
+def test_b9a_kernel_matches_plain(gen, rows, d):
+    args = (_randn(gen, 1, rows, d), 1.0 + _randn(gen, d, scale=0.1),
+            _randn(gen, d, scale=0.1), _randn(gen, d, 3 * d, scale=0.04),
+            _randn(gen, 3 * d, scale=0.1))
+    before = encoder_block.ln_qkv_launches
+    got = encoder_block.fused_ln_qkv(*args)
+    assert encoder_block.ln_qkv_launches == before + 1
+    assert got.shape == (1, rows, 3 * d)
+    _assert_close(got, encoder_block.fused_ln_qkv_plain(*args))
+
+
+@pytest.mark.parametrize("rows,d", [(1, 512), (1499, 512), (24000, 512),
+                                    (77, 384), (130, 768)])
+def test_b9b_kernel_matches_plain(gen, rows, d):
+    f = 4 * d
+    args = (_randn(gen, 1, rows, d), _randn(gen, 1, rows, d),
+            _randn(gen, d, d, scale=0.04), _randn(gen, d, scale=0.1),
+            1.0 + _randn(gen, d, scale=0.1), _randn(gen, d, scale=0.1),
+            _randn(gen, d, f, scale=0.04), _randn(gen, f, scale=0.1),
+            _randn(gen, f, d, scale=0.04), _randn(gen, d, scale=0.1))
+    before = encoder_block.out_mlp_launches
+    got = encoder_block.fused_out_mlp(*args)
+    assert encoder_block.out_mlp_launches == before + 1
+    _assert_close(got, encoder_block.fused_out_mlp_plain(*args))
+
+
+@pytest.mark.parametrize("b,d", [(1, 512), (16, 512), (5, 1024), (33, 384)])
+def test_b10c_kernel_matches_plain(gen, b, d):
+    f = 4 * d
+    ln = torch.stack([1.0 + _randn(gen, d, scale=0.1),
+                      _randn(gen, d, scale=0.1)])
+    args = (_randn(gen, b, d), ln, _randn(gen, d, f, scale=0.04),
+            _randn(gen, 1, f, scale=0.1), _randn(gen, f, d, scale=0.04),
+            _randn(gen, 1, d, scale=0.1))
+    before = decoder_kernels.launches
+    got = decoder_kernels.mlp_block(*args)
+    assert decoder_kernels.launches == before + 1
+    _assert_close(got, decoder_kernels.mlp_block_plain(*args))
+
+
+def test_int8_matmul_is_exact_on_the_card(gen):
+    """The W8A8 product (rung x6) at K = 2,048, past the 1,040 where an
+    fp32 product stops being exact, and at 3 rows (padded for _int_mm)."""
+    from whisper_tpu_torch.variants.quant import int8_matmul
+
+    for m in (3, 1500):
+        x = torch.randint(-127, 128, (m, 2048), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (2048, 512), generator=gen,
+                          device="cuda", dtype=torch.int8)
+        got = int8_matmul(x, w)
+        assert got.dtype == torch.int32 and got.shape == (m, 512)
+        assert torch.equal(got.cpu(), int8_matmul(x.cpu(), w.cpu()))
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     """A CUDA tensor reaches its kernel or raises: no plain fallback."""
     q = _randn(gen, 1, 2, 16, 32)  # head_dim 32
@@ -175,3 +261,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="d=200"):
         encoder_mlp.fused_encoder_mlp(x, x[0, 0], x[0, 0], w, w[0],
                                       w.T.contiguous(), x[0, 0])
+    with pytest.raises(ValueError, match="d=200"):
+        encoder_block.fused_ln_qkv(x, x[0, 0], x[0, 0], w, w[0])
+    x = _randn(gen, 1, 4, 1024)  # B9b is instantiated up to d=768
+    w = _randn(gen, 1024, 1024)
+    with pytest.raises(ValueError, match="d=1024"):
+        encoder_block.fused_out_mlp(x, x, w, w[0], w[0], w[0], w, w[0], w,
+                                    w[0])

@@ -310,11 +310,8 @@ def test_longform_options_not_ported_raise(case):
 
 
 SESSION_CASES = {
-    "x6": ("x6", {}),
-    "x7": ("x7", {}),
-    "fused_encoder_block": ("x5", dict(fused_encoder_block=True)),
-    "fused_decoder_step": ("x5", dict(fused_decoder_step=True)),
     "mesh": ("x5", dict(data_parallel=2)),
+    "mesh_tensor_parallel": ("x7", dict(tensor_parallel=2)),
     "wire_encoding": ("x5", dict(audio_transfer="ulaw8")),
 }
 
@@ -348,10 +345,8 @@ def test_model_options_not_ported_raise():
     tp = convert.params_from_numpy(convert.init_params(SMALL, seed=0), "cpu",
                                    torch.float32)
     mel = torch.zeros((1, 80, 3000))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tw.encoder_apply(tp, SMALL, mel, int8_activations=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tw.encoder_apply(tp, SMALL, mel, fused_block=True)
+    assert tw.encoder_apply(tp, SMALL, mel, int8_activations=True,
+                            fused_block=True).shape == (1, 1500, 128)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tw.decoder_prefill(tp, SMALL, torch.zeros((1, 2), dtype=torch.long),
                            torch.zeros((1, 1500, 128)), 8,

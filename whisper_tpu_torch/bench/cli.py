@@ -5,12 +5,16 @@ main loop: ref ``Args`` src/main.rs:23-86 and ``main`` :1065-1271).
 ``build_parser`` accepts every flag of the JAX CLI with the same names,
 defaults and choices, and the three output files and the stdout report
 keep its schemas.  The run is the chunked long-form path on the first CUDA
-card (kernels B1-B6 per ``--variant``), or on the CPU with the kernels'
-plain versions when no card is present.  ``--onnx-dir`` keeps its name and
+card (the kernels per ``--variant`` and the discovery config).  Without a
+card the CLI exits with an error; it runs on the CPU, with the kernels'
+plain versions, only when the caller asks for it: ``main(argv,
+device="cpu")`` in process, or ``WHISPER_TPU_TORCH_DEVICE=cpu`` in the
+environment of ``python -m whisper_tpu_torch.bench`` (the parser stays the
+JAX CLI's, so there is no flag for it).  ``--onnx-dir`` keeps its name and
 points at a model dir in the JAX package's format (``params.safetensors``
 + ``config.json`` + ``tokenizer.json`` + ``generation_config.json``).
 
-Working flags: the chunked path, ``--variant x0..x5|int8``, ``--dtype``,
+Working flags: the chunked path, ``--variant x0..x7|int8``, ``--dtype``,
 ``--matmul-precision``, ``--max-batch``, ``--chunk-parallelism``,
 ``--audio-transfer f32|int16``, ``--discovery-best-json``, ``--intra-op``
 and ``--inter-op`` (``intra_op >= 2`` prefetches the next file and its mel
@@ -83,8 +87,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--variant", default="",
                    choices=["", "x0", "x1", "x2", "x3", "x4", "x5", "x6",
                             "x7", "int8"],
-                   help="optimization-ladder variant: x0..x5 or int8 (x6, x7 "
-                        "are not ported)")
+                   help="optimization-ladder variant: x0..x7, or int8 (= x4)")
     p.add_argument("--dtype", default="", choices=["", "float32", "bfloat16"])
     p.add_argument("--matmul-precision", default="",
                    choices=["", "default", "high", "highest", "float32"])
@@ -161,9 +164,6 @@ def not_ported(args) -> List[str]:
          f"--data-parallel/--tensor-parallel (more cards): {item} 12"),
         (bool({"dcn_coordinator", "dcn_num_processes", "dcn_process_id"}
               & changed), f"--dcn-* (multi-host): {item} 12"),
-        (args.variant == "x6", f"--variant x6 (W8A8 encoder): {item} 5"),
-        (args.variant == "x7", "--variant x7 (int8 self cache): kernel B8, "
-                               "ROADMAP queue 2"),
         (args.audio_transfer not in PORTED_TRANSFERS,
          f"--audio-transfer {args.audio_transfer} (the TPU tunnel's wire "
          "encodings and probe): ROADMAP 'Not to port'"),
@@ -183,10 +183,29 @@ def list_audio_files(audio_dir: str, limit: int) -> List[str]:
     return files
 
 
-def _device():
+DEVICE_ENV = "WHISPER_TPU_TORCH_DEVICE"
+
+
+def _device(device=None):
+    """The device of the run: ``device`` if given, else the environment
+    variable ``WHISPER_TPU_TORCH_DEVICE``, else the first CUDA card.  No
+    card and no request for the CPU exits: the CLI never carries on on the
+    CPU by itself."""
     import torch
 
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    asked = device if device is not None else os.environ.get(DEVICE_ENV, "")
+    if asked:
+        dev = torch.device(asked)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise SystemExit(f"error: device {asked!r} was asked for and no "
+                             "CUDA card is present")
+        return dev
+    if not torch.cuda.is_available():
+        raise SystemExit(
+            "error: no CUDA card is present (torch.cuda.is_available() is "
+            f"false); to run on the CPU ask for it: {DEVICE_ENV}=cpu in the "
+            "environment, or main(argv, device='cpu')")
+    return torch.device("cuda")
 
 
 def _build_session(args, cfg, device):
@@ -220,7 +239,9 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def main(argv: Optional[List[str]] = None) -> int:
+def main(argv: Optional[List[str]] = None, *, device=None) -> int:
+    """Run the benchmark; ``device`` (``"cpu"``, ``"cuda"``) overrides the
+    environment and the default, see ``_device``."""
     args = build_parser().parse_args(argv)
     if args.draft_k < 1:
         print(f"error: --draft-k must be >= 1, got {args.draft_k}",
@@ -229,6 +250,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     missing = not_ported(args)
     if missing:
         raise SystemExit("not ported: " + "; ".join(missing))
+    device = _device(device)
 
     # Ensure output dirs (ref src/main.rs:1068-1071).
     for out in (args.out_csv, args.out_json, args.out_summary_json):
@@ -289,7 +311,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         os.path.join(args.onnx_dir, "generation_config.json")
     )
 
-    device = _device()
     session = _build_session(args, cfg, device)
 
     files = list_audio_files(args.audio_dir, args.limit_files)

@@ -22,25 +22,14 @@
 // (both matrices, 4 MB, stay in the 50 MB L2).  The fp32 adds and
 // multiplies outside the matmuls use __fadd_rn/__fmul_rn so that the
 // compiler does not contract them into FMAs the JAX kernel does not use.
-#include "common.cuh"
+// The LayerNorm of a row and the FFN walk live in encoder_ffn.cuh, which
+// the O-projection + MLP kernel (encoder_block.cu) shares.
+#include "encoder_ffn.cuh"
 
 using namespace nvcuda;
+using namespace ffn;
 
 namespace {
-
-constexpr int R = 32;          // rows per block
-constexpr int FC = 64;         // FFN columns per chunk
-constexpr int NT = 256;        // 8 warps: 2 row tiles x 4 column quarters
-constexpr int HLD = FC + 4;    // fp32 h tile row stride
-constexpr int HBLD = FC + 8;   // bf16 h tile row stride
-
-__device__ __forceinline__ float gelu_tanh(float x) {
-  // 0.5 * x * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x * x * x))), in the
-  // JAX expression's evaluation order.
-  float u = __fmul_rn(__fmul_rn(__fmul_rn(0.044715f, x), x), x);
-  u = __fmul_rn(0.7978845608028654f, __fadd_rn(x, u));
-  return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, tanhf(u)));
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -71,28 +60,9 @@ mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lns,
     if (g < N) {
       const bf16* xr = x + (size_t)g * D;
       float xv[D / 32];
-      float s = 0.0f;
 #pragma unroll
-      for (int i = 0; i < D / 32; ++i) {
-        xv[i] = __bfloat162float(xr[lane + 32 * i]);
-        s += xv[i];
-      }
-      const float mean = warp_sum(s) / (float)D;
-      float s2 = 0.0f;
-#pragma unroll
-      for (int i = 0; i < D / 32; ++i) {
-        const float dv = xv[i] - mean;
-        s2 = __fadd_rn(s2, __fmul_rn(dv, dv));
-      }
-      const float var = warp_sum(s2) / (float)D;
-      const float rstd = 1.0f / sqrtf(var + 1e-5f);
-#pragma unroll
-      for (int i = 0; i < D / 32; ++i) {
-        const int c = lane + 32 * i;
-        const float y = __fmul_rn(xv[i] - mean, rstd);
-        dst[c] = __float2bfloat16_rn(__fadd_rn(
-            __fmul_rn(y, __bfloat162float(lns[c])), __bfloat162float(lnb[c])));
-      }
+      for (int i = 0; i < D / 32; ++i) xv[i] = __bfloat162float(xr[lane + 32 * i]);
+      ln_row<D>(xv, lns, lnb, dst, lane);
     } else {
 #pragma unroll
       for (int i = 0; i < D / 32; ++i) dst[lane + 32 * i] = __float2bfloat16_rn(0.0f);
@@ -100,51 +70,12 @@ mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lns,
   }
   __syncthreads();
 
-  const int rt = warp / 4;            // this warp's 16-row tile
-  const int cq = warp % 4;            // this warp's quarter of the d columns
-  const int ycol0 = cq * (D / 4);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> y[NY];
-#pragma unroll
-  for (int j = 0; j < NY; ++j) wmma::fill_fragment(y[j], 0.0f);
-
-  for (int c0 = 0; c0 < F; c0 += FC) {
-    // FC1: this warp's 16x16 tile (rt, cq) of h = r . W1[:, c0:c0+64].
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> h;
-    wmma::fill_fragment(h, 0.0f);
-#pragma unroll 4
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(a, sR + rt * 16 * RLD + kk * 16, RLD);
-      wmma::load_matrix_sync(b, w1 + (size_t)kk * 16 * F + c0 + cq * 16, F);
-      wmma::mma_sync(h, a, b, h);
-    }
-    wmma::store_matrix_sync(sH + rt * 16 * HLD + cq * 16, h, HLD,
-                            wmma::mem_row_major);
-    __syncthreads();
-    for (int e = threadIdx.x; e < R * FC; e += NT) {
-      const int r = e / FC, c = e % FC;
-      const float hv = __fadd_rn(sH[r * HLD + c], __bfloat162float(b1[c0 + c]));
-      sHb[r * HBLD + c] = __float2bfloat16_rn(gelu_tanh(hv));
-    }
-    __syncthreads();
-    // FC2: y[16 x D/4] += h[16 x 64] . W2[c0:c0+64, ycol0 : ycol0 + D/4].
-#pragma unroll
-    for (int kk = 0; kk < FC / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, sHb + rt * 16 * HBLD + kk * 16, HBLD);
-#pragma unroll
-      for (int j = 0; j < NY; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(
-            b, w2 + (size_t)(c0 + kk * 16) * D + ycol0 + j * 16, D);
-        wmma::mma_sync(y[j], a, b, y[j]);
-      }
-    }
-  }
+  acc_frag y[NY];
+  ffn_walk<D>(sR, sH, sHb, w1, b1, w2, F, y);
 
   // ---- epilogue: out = bf16(x + (y + b2)); sH is free after the last
   // barrier, each warp stages one 16x16 fragment at a time in it ----
+  const int rt = warp / 4, ycol0 = (warp % 4) * (D / 4);
   float* stage = sH + warp * 256;
 #pragma unroll
   for (int j = 0; j < NY; ++j) {

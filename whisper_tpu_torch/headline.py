@@ -51,17 +51,21 @@ def card_info() -> str:
     return out.strip().splitlines()[0]
 
 
-def make_session(device, params=None):
-    """A WhisperSession for the workload on ``device``: whisper-base at
-    rung x5, with ``params`` (a numpy weight tree) or random weights from
-    seed 0."""
+def make_session(device, params=None, variant: str = VARIANT,
+                 model_id: str = MODEL_ID, **overrides):
+    """A WhisperSession on ``device``: ``model_id`` (whisper-base) at rung
+    ``variant`` (x5) with ``overrides`` of its RuntimeCfg, with ``params``
+    (a numpy weight tree) or random weights from seed 0."""
+    import dataclasses
+
     from whisper_tpu_torch.models.convert import init_params
     from whisper_tpu_torch.models.registry import get_dims
     from whisper_tpu_torch.runtime.session import RuntimeCfg, WhisperSession
     from whisper_tpu_torch.variants.ladder import apply_variant
 
-    dims = get_dims(MODEL_ID)
-    cfg, _ = apply_variant(RuntimeCfg(), VARIANT)
+    dims = get_dims(model_id)
+    cfg, _ = apply_variant(RuntimeCfg(), variant)
+    cfg = dataclasses.replace(cfg, **overrides)
     if params is None:
         params = init_params(dims, seed=0)
     return WhisperSession(params, dims, cfg, device=device)

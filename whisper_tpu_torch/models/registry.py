@@ -112,10 +112,12 @@ def dims_from_hf_config(cfg) -> WhisperDims:
     if e_ffn != d_ffn:
         raise NotImplementedError(
             f"encoder_ffn_dim ({e_ffn}) != decoder_ffn_dim ({d_ffn}): the "
-            "stacked param layout assumes one FFN width for both towers")
+            "stacked param layout assumes one FFN width for both towers "
+            "(a limit the JAX package shares, on no ROADMAP queue)")
     if e_ffn % d != 0:
         raise NotImplementedError(
-            f"ffn dim {e_ffn} is not a multiple of d_model {d}")
+            f"ffn dim {e_ffn} is not a multiple of d_model {d} (a limit "
+            "the JAX package shares, on no ROADMAP queue)")
     return WhisperDims(
         n_mels=get("num_mel_bins"),
         d_model=d,

@@ -26,7 +26,13 @@ Kernels on the path (x3+): ``ops.attention.fused_attention`` (B1) and
 the decode step runs ``ops.self_attention.self_attend_step`` (B3) and,
 replacing ``_decoder_blocks_packed``, the int8 cross-attention kernel:
 ``ops.cross_attention.cross_attend_step`` (B4, int8 x int8) at x5,
-``ops.cross_attention.cross_attend_step_dequant`` (B6) at x4.
+``ops.cross_attention.cross_attend_step_dequant`` (B6) at x4.  At x7 the
+self cache is int8 with per-row scales and the step runs
+``ops.self_attention.self_attend_step_int8`` (B8), then B4.  At x6 the
+encoder's QKV/O products are W8A8 (``_dense(int8_act=True)``, an exact
+int8 product outside any kernel).  ``encoder_apply(fused_block=True)``
+runs ``ops.encoder_block`` (B9a, B1, then B9b or a plain O-projection and
+B2).  The hybrid decode step lives in ``ops.decoder_kernels``.
 """
 
 from __future__ import annotations
@@ -39,7 +45,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from whisper_tpu_torch.models.registry import WhisperDims
-from whisper_tpu_torch.variants.quant import QTensor
+from whisper_tpu_torch.ops.common import div127
+from whisper_tpu_torch.variants.quant import QTensor, int8_matmul
 
 Params = Dict
 LN_EPS = 1e-5
@@ -51,6 +58,9 @@ class KVCache(NamedTuple):
     self_k/self_v: [L, B, H, S_max, Dh], written in place each step.
     cross_k/cross_v: [L, B, H, T_enc, Dh], computed once at prefill; int8
         with per-(L, B, H) fp32 scales [L, B, H, 1, 1] when int8_cross_kv.
+    self_k_scale/self_v_scale: [L, B, H, S_max] fp32, one scale per cached
+        row, when the self cache is int8 (x7, ``quantize_self_kv``): each
+        row is quantized when it is written, since later rows are unknown.
     """
 
     self_k: torch.Tensor
@@ -59,6 +69,8 @@ class KVCache(NamedTuple):
     cross_v: torch.Tensor
     cross_k_scale: Optional[torch.Tensor] = None
     cross_v_scale: Optional[torch.Tensor] = None
+    self_k_scale: Optional[torch.Tensor] = None
+    self_v_scale: Optional[torch.Tensor] = None
 
 
 def sinusoid_position_embedding(length: int, channels: int) -> np.ndarray:
@@ -88,7 +100,20 @@ def _dequant(w, dtype):
     return w
 
 
-def _dense(x, w, b):
+def _dense(x, w, b, int8_act: bool = False):
+    """x @ w + b.  int8_act with a QTensor weight (W8A8, rung x6): x is
+    quantized per row (absmax taken in x's dtype, scale = absmax/127 in
+    fp32 with a floor of 1e-12, round half to even, clip +-127), the
+    int8 x int8 product is accumulated exactly in int32, and the output
+    scale is the row scale times the per-output-channel weight scale; the
+    bias adds in x's dtype."""
+    if int8_act and isinstance(w, QTensor):
+        xs = x.abs().amax(dim=-1, keepdim=True)
+        xs = torch.clamp_min(div127(xs.float()), 1e-12)
+        xq = torch.clamp(torch.round(x.float() / xs), -127, 127).to(torch.int8)
+        acc = int8_matmul(xq, w.q)
+        y = (acc.float() * xs * w.s.float()).to(x.dtype)
+        return y if b is None else y + b
     y = torch.matmul(x, _dequant(w, x.dtype))
     return y if b is None else y + b
 
@@ -158,15 +183,17 @@ def encoder_apply(params: Params, dims: WhisperDims, mel: torch.Tensor, *,
     conv1d(k=3,s=1)+GELU, conv1d(k=3,s=2)+GELU, + sinusoidal positions,
     pre-LN blocks, final LayerNorm.  fused_attention runs B1, fused_mlp
     runs B2 (the port's B2 takes every width, so there is no chunked
-    variant to choose)."""
-    if int8_activations:
-        raise NotImplementedError(
-            "int8_activations (W8A8 encoder, rung x6) is not ported yet "
-            "(ROADMAP queue 1 item 5)")
-    if fused_block:
-        raise NotImplementedError(
-            "fused_encoder_block needs kernels B9a/B9b, not ported yet "
-            "(ROADMAP queue 2, B9)")
+    variant to choose).
+
+    int8_activations (rung x6, needs QTensor weights): the blocks' QKV/O
+    products, and FC1/FC2 unless fused_mlp keeps the MLP half on B2, run
+    W8A8 (``_dense``).
+
+    fused_block: the whole layer through ``ops.encoder_block``: B9a -> B1
+    -> B9b ("whole"), or B9a -> B1 -> plain O-projection + residual -> B2
+    ("chunked"), chosen by ``fused_block_mode`` exactly where the JAX
+    package chooses, or the unfused block where it falls back.  It
+    supersedes fused_mlp and ignores int8_activations."""
     enc = params["encoder"]
     dtype = enc["conv1_w"].dtype
     x = mel.to(dtype)
@@ -175,15 +202,24 @@ def encoder_apply(params: Params, dims: WhisperDims, mel: torch.Tensor, *,
     x = x.transpose(1, 2).contiguous()                       # [B, T', d]
     x = x + enc["pos_embed"][: x.shape[1]].to(dtype)
     h = dims.encoder_heads
+    i8 = int8_activations
+    fb_mode = None
+    if fused_block:
+        from whisper_tpu_torch.ops.encoder_block import fused_block_mode
+
+        fb_mode = fused_block_mode(dims.d_model, dims.d_ffn, dtype)
     for li in range(dims.encoder_layers):
         p = _layer(enc["blocks"], li)
+        if fb_mode is not None:
+            x = _encoder_block_fused(x, p, h, fb_mode)
+            continue
         r = _layer_norm(x, p["attn_ln_s"], p["attn_ln_b"])
-        q = _dense(r, p["q_w"], p["q_b"])
-        k = _dense(r, p["k_w"], None)
-        v = _dense(r, p["v_w"], p["v_b"])
+        q = _dense(r, p["q_w"], p["q_b"], i8)
+        k = _dense(r, p["k_w"], None, i8)
+        v = _dense(r, p["v_w"], p["v_b"], i8)
         o = _attend(_split_heads(q, h), _split_heads(k, h),
                     _split_heads(v, h), None, fused=fused_attention)
-        x = x + _dense(_merge_heads(o), p["o_w"], p["o_b"])
+        x = x + _dense(_merge_heads(o), p["o_w"], p["o_b"], i8)
         if fused_mlp:
             from whisper_tpu_torch.ops.encoder_mlp import fused_encoder_mlp
 
@@ -193,9 +229,49 @@ def encoder_apply(params: Params, dims: WhisperDims, mel: torch.Tensor, *,
                 _dequant(p["fc2_w"], x.dtype), p["fc2_b"])
         else:
             r = _layer_norm(x, p["mlp_ln_s"], p["mlp_ln_b"])
-            r = F.gelu(_dense(r, p["fc1_w"], p["fc1_b"]))
-            x = x + _dense(r, p["fc2_w"], p["fc2_b"])
+            r = F.gelu(_dense(r, p["fc1_w"], p["fc1_b"], i8))
+            x = x + _dense(r, p["fc2_w"], p["fc2_b"], i8)
     return _layer_norm(x, enc["ln_f_s"], enc["ln_f_b"])
+
+
+def fused_qkv(p: Dict, dtype: torch.dtype):
+    """[q_w | k_w | v_w] dequantized and [q_b | 0 | v_b] of a block dict
+    (one layer or the stacked [L, ...] leaves)."""
+    w_qkv = torch.cat([_dequant(p[k], dtype) for k in ("q_w", "k_w", "v_w")],
+                      dim=-1)
+    b_qkv = torch.cat([p["q_b"], torch.zeros_like(p["q_b"]), p["v_b"]],
+                      dim=-1)
+    return w_qkv, b_qkv
+
+
+def _encoder_block_fused(x, p: Dict, h: int, mode: str):
+    """One encoder layer through the ``ops.encoder_block`` kernels (the JAX
+    package's ``block_fused``).  ``p`` may carry the pre-fused ``qkv_w`` /
+    ``qkv_b`` (``WhisperEncoder`` builds them once)."""
+    from whisper_tpu_torch.ops import encoder_block as eb
+
+    d = x.shape[-1]
+    if "qkv_w" in p:
+        w_qkv, b_qkv = p["qkv_w"], p["qkv_b"]
+    else:
+        w_qkv, b_qkv = fused_qkv(p, x.dtype)
+    qkv = eb.fused_ln_qkv(x, p["attn_ln_s"], p["attn_ln_b"], w_qkv, b_qkv)
+    q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    o = _attend(_split_heads(q, h), _split_heads(k, h), _split_heads(v, h),
+                None, fused=True)
+    if mode == "whole":
+        return eb.fused_out_mlp(
+            x, _merge_heads(o), _dequant(p["o_w"], x.dtype), p["o_b"],
+            p["mlp_ln_s"], p["mlp_ln_b"],
+            _dequant(p["fc1_w"], x.dtype), p["fc1_b"],
+            _dequant(p["fc2_w"], x.dtype), p["fc2_b"])
+    from whisper_tpu_torch.ops.encoder_mlp import fused_encoder_mlp
+
+    x = x + _dense(_merge_heads(o), p["o_w"], p["o_b"])
+    return fused_encoder_mlp(
+        x, p["mlp_ln_s"], p["mlp_ln_b"],
+        _dequant(p["fc1_w"], x.dtype), p["fc1_b"],
+        _dequant(p["fc2_w"], x.dtype), p["fc2_b"])
 
 
 # ---------------------------------------------------------------------------
@@ -223,7 +299,13 @@ def _decoder_blocks(params: Params, dims: WhisperDims, x, cache: KVCache,
                     pos: int, self_mask):
     """All decoder blocks in plain torch (prefill at every rung, and the
     step at x0-x3): writes self-attention rows [pos, pos+S) of the cache in
-    place and attends per ``self_mask``."""
+    place and attends per ``self_mask``.  An int8 self cache (x7) raises:
+    only the single-token kernel step reads it."""
+    if cache.self_k_scale is not None:
+        raise ValueError(
+            "int8 self cache requires the single-token kernel decode step "
+            "(kernel_step, scalar pos); use a bf16 cache for multi-token "
+            "passes")
     dec = params["decoder"]
     h = dims.decoder_heads
     s = x.shape[1]
@@ -253,18 +335,22 @@ def _decoder_blocks(params: Params, dims: WhisperDims, x, cache: KVCache,
 def _decoder_blocks_kernel(params: Params, dims: WhisperDims, x,
                            cache: KVCache, pos: int, cross_len: int,
                            int8_mxu: bool = True):
-    """Single-token decoder step through the x4/x5 kernels, replacing the
-    JAX package's ``_decoder_blocks_packed``: per layer, B3 attends and
-    writes the self cache in place, then B4 (int8_mxu, x5) or B6 (x4)
-    attends the int8 cross cache.  The caches keep the prefill layout (no
-    packing step)."""
+    """Single-token decoder step through the x4/x5/x7 kernels, replacing
+    the JAX package's ``_decoder_blocks_packed``: per layer, B3 (or, against
+    an int8 self cache, B8) attends and writes the self cache in place,
+    then B4 (int8_mxu, x5 and x7) or B6 (x4) attends the int8 cross cache.
+    The caches keep the prefill layout (no packing step)."""
     from whisper_tpu_torch.ops.cross_attention import (
         cross_attend_step,
         cross_attend_step_dequant,
     )
-    from whisper_tpu_torch.ops.self_attention import self_attend_step
+    from whisper_tpu_torch.ops.self_attention import (
+        self_attend_step,
+        self_attend_step_int8,
+    )
 
     cross_attend = cross_attend_step if int8_mxu else cross_attend_step_dequant
+    int8_self = cache.self_k_scale is not None
 
     dec = params["decoder"]
     h = dims.decoder_heads
@@ -277,11 +363,15 @@ def _decoder_blocks_kernel(params: Params, dims: WhisperDims, x,
         q = _dense(r, p["q_w"], p["q_b"])[:, 0]               # [B, d]
         k = _dense(r, p["k_w"], None)[:, 0]
         v = _dense(r, p["v_w"], p["v_b"])[:, 0]
-        ctx = self_attend_step(
-            (q * scale).reshape(-1, h, dims.head_dim),
-            k.reshape(-1, h, dims.head_dim).contiguous(),
-            v.reshape(-1, h, dims.head_dim).contiguous(),
-            cache.self_k, cache.self_v, li, pos)
+        qkv = ((q * scale).reshape(-1, h, dims.head_dim),
+               k.reshape(-1, h, dims.head_dim).contiguous(),
+               v.reshape(-1, h, dims.head_dim).contiguous())
+        if int8_self:
+            ctx = self_attend_step_int8(
+                *qkv, cache.self_k, cache.self_v, cache.self_k_scale,
+                cache.self_v_scale, li, pos)
+        else:
+            ctx = self_attend_step(*qkv, cache.self_k, cache.self_v, li, pos)
         x = x + _dense(ctx.reshape(x.shape), p["o_w"], p["o_b"])
 
         r = _layer_norm(x, p["x_ln_s"], p["x_ln_b"])
@@ -307,6 +397,16 @@ def quantize_cross_kv(cache: KVCache) -> KVCache:
     v8, vs = quant(cache.cross_v)
     return cache._replace(cross_k=k8, cross_v=v8,
                           cross_k_scale=ks, cross_v_scale=vs)
+
+
+def quantize_self_kv(cache: KVCache) -> KVCache:
+    """Quantize the self K/V to int8 with one scale per cached row, after
+    the prefill, for the x7 step (B8)."""
+    from whisper_tpu_torch.ops.self_attention import quantize_self_cache
+
+    k8, v8, ks, vs = quantize_self_cache(cache.self_k, cache.self_v)
+    return cache._replace(self_k=k8, self_v=v8, self_k_scale=ks,
+                          self_v_scale=vs)
 
 
 def _logits(params: Params, x):
@@ -354,8 +454,9 @@ def decoder_step(params: Params, dims: WhisperDims, token, pos: int,
                  cache: KVCache, *, kernel_step: bool = False,
                  cross_len: Optional[int] = None, int8_mxu: bool = True):
     """One-token pass at cache slot ``pos`` (all rows aligned): logits
-    [B, V].  kernel_step runs B3 and, per int8_mxu, B4 (x5) or B6 (x4); it
-    needs the int8 cross cache."""
+    [B, V].  kernel_step runs B3 (B8 against an int8 self cache) and, per
+    int8_mxu, B4 (x5, x7) or B6 (x4); it needs the int8 cross cache.
+    Without it an int8 self cache raises."""
     dec = params["decoder"]
     dtype = dec["tok_emb"].dtype
     x = dec["tok_emb"][token][:, None, :] + dec["pos_embed"][pos].to(dtype)
@@ -373,14 +474,17 @@ def decoder_step(params: Params, dims: WhisperDims, token, pos: int,
 # Modules: the weights on a device
 # ---------------------------------------------------------------------------
 
-def _dense_leaves(tree: Dict, dtype: torch.dtype) -> Dict:
-    """Dequantize every QTensor of a subtree once (``_dequant``)."""
-    return {k: _dense_leaves(v, dtype) if isinstance(v, dict)
-            else _dequant(v, dtype) for k, v in tree.items()}
+def _dense_leaves(tree: Dict, dtype: torch.dtype, keep=()) -> Dict:
+    """Dequantize every QTensor of a subtree once (``_dequant``), except
+    the leaves named in ``keep``."""
+    return {k: _dense_leaves(v, dtype, keep) if isinstance(v, dict)
+            else v if k in keep else _dequant(v, dtype)
+            for k, v in tree.items()}
 
 
 class _StackedWeights(nn.Module):
-    """Buffers for a nested weight dict; ``tree()`` rebuilds the dict."""
+    """Buffers for a nested weight dict (a QTensor leaf as two buffers);
+    ``tree()`` rebuilds the dict."""
 
     def __init__(self, tree: Dict, device):
         super().__init__()
@@ -390,38 +494,68 @@ class _StackedWeights(nn.Module):
             for k, v in node.items():
                 if isinstance(v, dict):
                     walk(v, path + (k,))
+                    continue
+                name = "__".join(path + (k,))
+                self._paths.append((path + (k,), isinstance(v, QTensor)))
+                if isinstance(v, QTensor):
+                    self.register_buffer(name + "__q", v.q.to(device))
+                    self.register_buffer(name + "__s", v.s.to(device))
                 else:
-                    self._paths.append(path + (k,))
-                    self.register_buffer("__".join(path + (k,)),
-                                         v.to(device))
+                    self.register_buffer(name, v.to(device))
         walk(tree, ())
 
     def tree(self) -> Dict:
         out: Dict = {}
-        for path in self._paths:
+        for path, quantized in self._paths:
             node = out
             for k in path[:-1]:
                 node = node.setdefault(k, {})
-            node[path[-1]] = getattr(self, "__".join(path))
+            name = "__".join(path)
+            node[path[-1]] = (QTensor(getattr(self, name + "__q"),
+                                      getattr(self, name + "__s"))
+                              if quantized else getattr(self, name))
         return out
 
 
 class WhisperEncoder(_StackedWeights):
-    """Encoder weights ([L, ...] stacked, int8 dequantized once) on
-    ``device``; forward = :func:`encoder_apply`."""
+    """Encoder weights ([L, ...] stacked) on ``device``; forward =
+    :func:`encoder_apply`.  int8 weights are dequantized once, except the
+    ones a W8A8 encoder (int8_activations, rung x6) multiplies as int8:
+    q/k/v/o, and fc1/fc2 unless fused_mlp keeps the MLP half on B2.  Where
+    fused_block engages, the [q|k|v] weight and bias are fused once."""
 
     def __init__(self, params_encoder: Dict, dims: WhisperDims, *, device,
-                 fused_attention: bool = False, fused_mlp: bool = False):
+                 fused_attention: bool = False, fused_mlp: bool = False,
+                 int8_activations: bool = False, fused_block: bool = False):
+        from whisper_tpu_torch.ops.encoder_block import fused_block_mode
+
         dtype = params_encoder["conv1_w"].dtype
-        super().__init__(_dense_leaves(params_encoder, dtype), device)
+        fused = fused_block and fused_block_mode(
+            dims.d_model, dims.d_ffn, dtype) is not None
+        keep = ()
+        if int8_activations and not fused:
+            keep = ("q_w", "k_w", "v_w", "o_w") + (
+                () if fused_mlp else ("fc1_w", "fc2_w"))
+        tree = _dense_leaves(params_encoder, dtype, keep)
+        if fused:
+            blocks = dict(tree["blocks"])
+            blocks["qkv_w"], blocks["qkv_b"] = fused_qkv(blocks, dtype)
+            for k in ("q_w", "k_w", "v_w", "q_b", "v_b"):
+                del blocks[k]
+            tree = dict(tree, blocks=blocks)
+        super().__init__(tree, device)
         self.dims = dims
         self.fused_attention = fused_attention
         self.fused_mlp = fused_mlp
+        self.int8_activations = int8_activations
+        self.fused_block = fused_block
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         return encoder_apply({"encoder": self.tree()}, self.dims, mel,
                              fused_attention=self.fused_attention,
-                             fused_mlp=self.fused_mlp)
+                             int8_activations=self.int8_activations,
+                             fused_mlp=self.fused_mlp,
+                             fused_block=self.fused_block)
 
 
 class WhisperDecoder(_StackedWeights):

@@ -24,6 +24,14 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     )
 
 
+def div127(x: torch.Tensor) -> torch.Tensor:
+    """x / 127 as a true fp32 division, the int8 scale of a row or a head.
+    On a CUDA tensor PyTorch turns a division by a Python number into a
+    product with its reciprocal, which differs in the last place from the
+    division the kernels and the CPU do; a tensor divisor is divided by."""
+    return x / torch.full_like(x, 127.0)
+
+
 def disable_tf32() -> None:
     """Run fp32 matmuls and convolutions in full fp32 on the card.
 

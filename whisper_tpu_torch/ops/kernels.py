@@ -28,8 +28,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("attention.cu", "encoder_mlp.cu", "self_attention.cu",
-           "cross_attention.cu", "cross_attention_dequant.cu", "log_mel.cu")
-HEADERS = ("common.cuh",)
+           "cross_attention.cu", "cross_attention_dequant.cu", "log_mel.cu",
+           "self_attention_int8.cu", "encoder_block.cu", "decoder_mlp.cu")
+HEADERS = ("common.cuh", "encoder_ffn.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 LIB_NAME = "libwhisper_tpu_torch.so"
@@ -55,6 +56,15 @@ SIGNATURES = {
     # audio, is_int16, n_samples, cosw, sinw, fb_t, out, n_frames, n_mels,
     # int16 scale, stream
     "wt_log_mel": [_P, _I, _L] + [_P] * 4 + [_I, _I, _F, _P],
+    # q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, pad_count, out,
+    # batch, heads, S, layer, pos, stream
+    "wt_self_attend_step_int8": [_P] * 9 + [_I] * 5 + [_P],
+    # x, ln_s, ln_b, w_qkv, b_qkv, out, rows, d, columns, stream
+    "wt_fused_ln_qkv": [_P] * 6 + [_I, _I, _I, _P],
+    # x, ctx, o_w, o_b, ln_s, ln_b, w1, b1, w2, b2, out, rows, d, f, stream
+    "wt_fused_out_mlp": [_P] * 11 + [_I, _I, _I, _P],
+    # x, ln, w1, b1, w2, b2, h scratch, out, batch, d, f, stream
+    "wt_decoder_mlp": [_P] * 8 + [_I, _I, _I, _P],
 }
 
 _lib = None          # the loaded library (one per process)

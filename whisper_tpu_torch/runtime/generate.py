@@ -24,6 +24,7 @@ import torch
 
 from whisper_tpu_torch.models import whisper
 from whisper_tpu_torch.models.registry import WhisperDims
+from whisper_tpu_torch.ops.decoder_kernels import decoder_step_hybrid
 
 
 def build_suppress_mask(vocab_size: int, ids: Sequence[int] | None) -> np.ndarray:
@@ -40,12 +41,30 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
                     first_suppress_mask: torch.Tensor, max_new_tokens: int,
                     eot_id: int, *, int8_cross_kv: bool = False,
                     kernel_step: bool = False,
-                    int8_mxu: bool = True) -> torch.Tensor:
+                    int8_mxu: bool = True, int8_self: bool = False,
+                    step_weights=None, pad_count=None) -> torch.Tensor:
     """Generated tokens [B, max_new_tokens] (prompt excluded), rows that
     finished early padded with EOT.  prompt: [P] ids shared by every row;
     masks: [V] fp32 additive.  kernel_step runs the decode step through
     kernel B3 and, against the int8 cross cache, B4 (int8_mxu, x5) or B6
-    (x4)."""
+    (x4); with int8_self and int8_mxu (x7) the self cache is quantized
+    after the prefill and the step runs B8, then B4.
+
+    step_weights (``ops.decoder_kernels.build_step_weights``,
+    cfg.fused_decoder_step) takes the hybrid step instead
+    (``decoder_step_hybrid``: one QKV product, plain attention against the
+    prefill-layout cache, kernel B10c for the MLP); the kernel step and the
+    int8 self cache are then not used, at any rung, as in the JAX
+    package."""
+    if step_weights is not None and pad_count is not None:
+        # decoder_step_hybrid has no pad mask: it would attend the left
+        # padding and offset positions on conditioned prompts.
+        raise ValueError("step_weights (fused_decoder_step) does not "
+                         "support pad_count-conditioned prompts")
+    if pad_count is not None:
+        raise NotImplementedError("conditioned prompts (pad_count): ROADMAP "
+                                  "queue 1 item 8")
+    kernel_step = kernel_step and step_weights is None
     if kernel_step and not int8_cross_kv:
         raise ValueError("kernel_step needs the int8 cross cache")
     b = enc_states.shape[0]
@@ -55,6 +74,8 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
     logits, cache = whisper.decoder_prefill(
         params, dims, tokens, enc_states, p + max_new_tokens,
         int8_cross_kv=int8_cross_kv)
+    if kernel_step and int8_self and int8_mxu:
+        cache = whisper.quantize_self_kv(cache)
     first = torch.argmax(logits[:, -1, :].float() + first_suppress_mask, -1)
 
     buf = torch.full((b, max_new_tokens), eot_id, dtype=torch.long,
@@ -67,9 +88,14 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
         if bool(done.all()):
             break
         # `last` was generated as token index p+i-1 of the full sequence.
-        step_logits, cache = whisper.decoder_step(
-            params, dims, last, p + i - 1, cache, kernel_step=kernel_step,
-            cross_len=cross_len, int8_mxu=int8_mxu)
+        if step_weights is not None:
+            step_logits, cache = decoder_step_hybrid(
+                params, step_weights, dims, last, p + i - 1, cache)
+        else:
+            step_logits, cache = whisper.decoder_step(
+                params, dims, last, p + i - 1, cache,
+                kernel_step=kernel_step, cross_len=cross_len,
+                int8_mxu=int8_mxu)
         nxt = torch.argmax(step_logits.float() + suppress_mask, dim=-1)
         nxt = torch.where(done, eot_id, nxt)
         buf[:, i] = nxt

@@ -8,7 +8,12 @@ the long-form path: the whole-file log-mel (streamed in slabs, or one shot
 through kernel B5 at x3+), chunk slicing on the device, the encoder and
 greedy decoding per batch bucket.
 
-What the slice does not carry raises ``NotImplementedError`` naming its
+Every flag of ``RuntimeCfg`` runs for the greedy path: the ladder's rungs
+x0-x7 (x6: the W8A8 encoder; x7: the int8 self cache through kernel B8),
+``fused_encoder_block`` (kernels B9a, B1 and B9b, or B2 at d >= 1024) and
+``fused_decoder_step`` (the hybrid step with kernel B10c).  What the port
+does not carry (meshes, the wire encodings, and the decoding features
+``transcribe_from_mel`` names) raises ``NotImplementedError`` naming its
 ROADMAP item; nothing silently takes another path.
 """
 
@@ -147,21 +152,11 @@ WIRE_ENCODINGS = ("dint16", "dint16p", "ulaw8", "pcm12", "pcm14")
 
 
 def _check_supported(cfg: RuntimeCfg) -> None:
-    """Raise NotImplementedError for configurations the slice lacks."""
+    """Raise NotImplementedError for configurations the port lacks."""
     missing = []
     if cfg.data_parallel * cfg.tensor_parallel > 1:
         missing.append("meshes (data/tensor parallel): ROADMAP queue 1 "
                        "item 12")
-    if cfg.fused_encoder_block:
-        missing.append("fused_encoder_block: kernels B9a/B9b, ROADMAP "
-                       "queue 2")
-    if cfg.fused_decoder_step:
-        missing.append("fused_decoder_step: kernels B10a-c, ROADMAP queue 2")
-    if cfg.int8_encoder_act:
-        missing.append("int8_encoder_act (rung x6, W8A8 encoder): ROADMAP "
-                       "queue 1 item 5")
-    if cfg.int8_self_kv:
-        missing.append("int8_self_kv (rung x7): kernel B8, ROADMAP queue 2")
     if cfg.audio_transfer in WIRE_ENCODINGS:
         missing.append(f"audio_transfer {cfg.audio_transfer!r}: a wire "
                        "encoding of the TPU tunnel (ROADMAP 'Not to port')")
@@ -192,13 +187,38 @@ class WhisperSession:
             if not is_quantized(params):
                 params = quantize_params(params)
         tree = params_from_numpy(params, self.device, self.cfg.torch_dtype)
+        # W8A8 encoder (x6): only meaningful when the block weights are
+        # QTensors, since the int8 product needs the int8 weight operand.
+        self._enc_i8 = bool(self.cfg.int8_encoder_act
+                            and self.cfg.int8_weights)
+        if self._enc_i8 and self.cfg.fused_encoder_mlp:
+            # Precedence (as in encoder_apply): the fused MLP kernel
+            # dequantizes FC1/FC2 and runs bf16 products, overriding W8A8
+            # for the MLP half.
+            import warnings
+
+            warnings.warn(
+                "fused_encoder_mlp overrides int8_encoder_act for the "
+                "encoder MLP half (bf16 fused kernel; W8A8 still applies "
+                "to QKV/O)", stacklevel=2)
         self.encoder = WhisperEncoder(
             tree["encoder"], dims, device=self.device,
             fused_attention=self.cfg.fused_attention,
-            fused_mlp=self.cfg.fused_encoder_mlp)
+            fused_mlp=self.cfg.fused_encoder_mlp,
+            int8_activations=self._enc_i8,
+            fused_block=self.cfg.fused_encoder_block)
         self.decoder = WhisperDecoder(tree["decoder"], dims,
                                       device=self.device)
         self._decoder_params = {"decoder": self.decoder.tree()}
+        # Pre-fused decoder weights for the hybrid step (built once).
+        self._step_weights = None
+        if self.cfg.fused_decoder_step:
+            from whisper_tpu_torch.ops.decoder_kernels import (
+                build_step_weights,
+            )
+
+            self._step_weights = build_step_weights(self._decoder_params,
+                                                    dims)
         # x4/x5: the decode step runs kernel B3 and, against the int8 cross
         # cache, B4 (int8 x int8, x5) or B6 (dequantizing, x4): the JAX
         # package's packed step, which it takes for head_dim 64 and an even
@@ -209,6 +229,9 @@ class WhisperSession:
                                  and dims.head_dim == 64
                                  and dims.decoder_heads % 2 == 0)
         self._int8_mxu = bool(self.cfg.int8_mxu_attn and self._kernel_step)
+        # x7: the int8 self cache and kernel B8, only with the int8 x int8
+        # step; on dims without the kernel step x7 behaves as x5 does there.
+        self._int8_self = bool(self.cfg.int8_self_kv and self._int8_mxu)
         self._masks: Dict = {}
 
     def _batch_bucket(self, n: int) -> int:
@@ -365,7 +388,8 @@ class WhisperSession:
                 self._decoder_params, self.dims, enc, prompt_t, base_mask, first_mask,
                 max_new_tokens=max_new_tokens, eot_id=eot_id,
                 int8_cross_kv=self.cfg.int8_kv_cache,
-                kernel_step=self._kernel_step, int8_mxu=self._int8_mxu)
+                kernel_step=self._kernel_step, int8_mxu=self._int8_mxu,
+                int8_self=self._int8_self, step_weights=self._step_weights)
             pieces.append((toks, start, n))
             start += n
         return pieces

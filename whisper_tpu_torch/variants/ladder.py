@@ -11,8 +11,15 @@ The same rungs and flags as the JAX package, read by the port as:
   x4   x3 + int8 weights + int8 cross-KV: the decode step runs kernels B3
        and B6 (the int8 cross cache dequantized in the kernel)
   x5   x4 + int8 x int8 decode attention: kernels B3 and B4
-  x6   x5 + W8A8 encoder: raises (not ported)
-  x7   x5 + int8 self cache (B8): raises (not ported)
+  x6   x5 + W8A8 encoder: QKV/O of every encoder block as an exact
+       int8 x int8 product with per-row activation scales (the MLP half
+       stays on B2)
+  x7   x5 + int8 self cache with per-row scales: the decode step runs
+       kernels B8 and B4
+
+Off the ladder, through ``RuntimeCfg`` or a discovery JSON:
+``fused_encoder_block`` (kernels B9a, B1, B9b; B2 at d >= 1024) and
+``fused_decoder_step`` (the hybrid step with kernel B10c).
 
 ``int8`` is an alias of x4, as in the JAX package.
 """
@@ -65,10 +72,12 @@ LADDER: Dict[str, VariantSpec] = {
                       "bfloat16", "default", **_INT8),
     "x5": VariantSpec("x5", "x4 + int8 x int8 decode attention (B3, B4)",
                       "bfloat16", "default", int8_mxu_attn=True, **_INT8),
-    "x6": VariantSpec("x6", "x5 + W8A8 encoder QKV/O", "bfloat16",
+    "x6": VariantSpec("x6", "x5 + W8A8 encoder QKV/O (exact int8 x int8 "
+                      "products)", "bfloat16",
                       "default", int8_mxu_attn=True, int8_encoder_act=True,
                       **_INT8),
-    "x7": VariantSpec("x7", "x5 + int8 self cache (B8)", "bfloat16",
+    "x7": VariantSpec("x7", "x5 + int8 self cache with per-row scales "
+                      "(B8, B4)", "bfloat16",
                       "default", int8_mxu_attn=True, int8_self_kv=True,
                       **_INT8),
 }

@@ -8,6 +8,9 @@ Storage is per-output-channel symmetric int8 with a float32 scale.  The
 functions work on the numpy parameter tree of ``models.convert``
 (``init_params``), so the port and the JAX package quantize the same
 arrays with the same arithmetic (``np.rint``: round half to even).
+
+``int8_matmul`` is the W8A8 product of rung x6 (torch tensors): an
+int8 x int8 matrix product accumulated exactly in int32.
 """
 
 from __future__ import annotations
@@ -72,3 +75,31 @@ def is_quantized(params: Dict) -> bool:
     if isinstance(params, dict):
         return any(is_quantized(v) for v in params.values())
     return False
+
+
+def int8_matmul(xq, wq):
+    """xq [..., K] int8 @ wq [K, N] int8 -> [..., N] int32, every sum exact
+    (the JAX package's ``dot_general`` with ``preferred_element_type=int32``;
+    a plain library product, outside any kernel, as there).
+
+    On a CUDA tensor this is ``torch._int_mm`` (int8 tensor cores, int32
+    accumulators), which wants more than 16 rows and K and N multiples of
+    8: short inputs are padded with zero rows.  On a CPU tensor it is a
+    float64 product, which holds every partial sum exactly (127^2 * K is
+    far below 2^53) and runs through BLAS, cast to int32.  An fp32 product
+    would be exact only while 127^2 * K < 2^24, that is K <= 1,040."""
+    import torch
+
+    lead, k = xq.shape[:-1], xq.shape[-1]
+    x2 = xq.reshape(-1, k)
+    if xq.device.type == "cpu":
+        acc = torch.matmul(x2.double(), wq.double()).to(torch.int32)
+    else:
+        if k % 8 or wq.shape[1] % 8:
+            raise ValueError(f"int8_matmul on the card needs K={k} and "
+                             f"N={wq.shape[1]} to be multiples of 8")
+        m = x2.shape[0]
+        if m <= 16:
+            x2 = torch.nn.functional.pad(x2, (0, 0, 0, 17 - m))
+        acc = torch._int_mm(x2.contiguous(), wq)[:m]
+    return acc.reshape(*lead, wq.shape[1])
