@@ -8,16 +8,21 @@ What it does, in order (any failure raises and exits non-zero):
 2. Builds the CUDA kernels of ``whisper_tpu_torch/csrc`` with nvcc
    (sm_90a; one nvcc per source, all started together) and prints the
    build time and each kernel's register use.
-3. Runs each kernel (B1-B6, B8, B9a, B9b, B10c) against its plain PyTorch
+3. Runs each kernel (B1-B10c, sixteen rows) against its plain PyTorch
    version on the card at the shapes its path gives it (whisper-base, batch
    bucket 16: B1-B4 at x5, B6 at x4, B8 at x7, B9a/B9b with the fused
-   encoder block, B10c in the hybrid decode step; B5 at the one-shot limit
-   of 7,680 frames; B2 and B9a also at whisper-medium's d=1024), prints the
+   encoder block, B10c in the hybrid decode step, B7 with five queries a
+   row as the speculative verify pass gives it at draft_k = 4, B10a and B10b
+   in the fully fused decode step; B5 at the one-shot limit of 7,680
+   frames; B2 and B9a also at whisper-medium's d=1024), prints the
    largest difference, the time of one call of each (median of five runs
    of 20 calls), the least time the card could take for the same work (the
    larger of its bytes over 3.35 TB/s and its operations over the peak rate
    for their type) and, where one PyTorch call computes the same function,
-   that call's time.
+   that call's time.  B7 is also held, query by query and bitwise, against
+   the single-token kernels B4 and B6 at T = 2, 5 and 9; what B10a writes
+   into the cache bitwise against the plain version at pos 0, 70 and 131;
+   B10b at T = 1500, 96 and 100.
 4. Holds the port on the card against the port on the CPU (the kernels'
    plain versions) on a small input: an 80 s clip through the front end,
    the encoder and twelve teacher-forced decode steps.
@@ -36,7 +41,21 @@ What it does, in order (any failure raises and exits non-zero):
    then a 4 s file at whisper-medium with ``fused_encoder_block`` (the
    d >= 1024 composition: B9a, B1 and B2 once per layer, no B9b).  Prints
    e2e, model time and launches of each beside x5's.
-7. Drives the benchmark CLI (``whisper_tpu_torch.bench.cli.main``, in
+7. Speculative decoding on the same file: x5 with a random whisper-tiny
+   draft (draft_k = 4; B7 once per layer and verify round), x5 with
+   whisper-base as its own draft sharing the encoder (the accept path:
+   about ceil(128 / 5) rounds), x4 with the tiny draft (B7's dequantizing
+   kernel).  The two x5 runs must give the same tokens (one rejects nearly
+   every proposal, the other accepts nearly all: the same arithmetic,
+   opposite bookkeeping), each chunk's first token must be the greedy
+   run's, and the share of tokens equal to the greedy run's is printed with
+   rounds and tokens committed per round.
+8. The fully fused decode step (``decoder_step_fused``: B10a, B10b, B10c per
+   layer) for 127 steps from a bf16 prefill at bucket 16: the first step's
+   logits within 5e-2 of ``decoder_step`` on the same cache, finite tokens
+   equal across two runs, 127 x 6 launches of B10a and of B10b, and the time
+   per step beside the x5 kernel step's and the hybrid step's.
+9. Drives the benchmark CLI (``whisper_tpu_torch.bench.cli.main``, in
    process) over four synthetic WAV files (4 s; 29.5 s at 44.1 kHz stereo;
    76 s, just under the one-shot limit; 150 s, streamed) at whisper-base
    ``--variant x5`` and ``--variant int8``, then over the 4 s file at
@@ -45,8 +64,10 @@ What it does, in order (any failure raises and exits non-zero):
    summary keys, four rows of the files' durations, B5 on every one-shot
    mel, B4 and not B6 at x5, B6 and not B4 at int8, B2 at d=1024 in the
    medium run; prints each run's per-file e2e, p95 and peak device memory.
-   One more run at ``--variant x7`` over the four files (B8 and B4, no B3).
-8. Prints one JSON line with the kernels, then, as the last line,
+   One more run at ``--variant x7`` over the four files (B8 and B4, no B3),
+   and one at x5 with ``--draft-model-id openai/whisper-tiny`` over the 4 s
+   file (B7).
+10. Prints one JSON line with the kernels, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -307,6 +328,60 @@ def check_kernels(card: str) -> list:
     work["decoder_mlp_block"] = ((2 * b * d + 2 * d * f + 3 * d + f) * 2,
                                  4 * b * d * f, "bf16")
 
+    # B7: the verify pass of speculative decoding at draft_k = 4, five
+    # queries a row against the cache B4 and B6 read; int8 x int8 (x5) and
+    # dequantizing (x4).  One stream of K and V for all five.
+    n_q = 5
+    qm = randn(b, n_q, h, dh, scale=dh ** -0.5)
+    for name, mxu, kind in (("cross_attend_multi", True, "int8"),
+                            ("cross_attend_multi_dequant", False, "fp32")):
+        rows.append((name, (cross_attention, "multi_launches"),
+                     "cross_attention_multi.cu",
+                     "whisper_tpu/ops/cross_attention.py:398",
+                     lambda mxu=mxu: cross_attention.cross_attend_multi(
+                         qm, k8, v8, ks, vs, 2, s_valid=t, int8_mxu=mxu),
+                     lambda mxu=mxu: cross_attention.cross_attend_multi_plain(
+                         qm, k8, v8, ks, vs, 2, s_valid=t, int8_mxu=mxu),
+                     2.0))
+        work[name] = (b * h * (2 * t * dh + 8) + 2 * b * n_q * h * dh * 2,
+                      4 * b * n_q * h * t * dh, kind)
+
+    # B10a and B10b: a layer's two attention blocks of the fully fused
+    # decode step.  B10a writes row `pos` of the time-major self cache in
+    # place, so the kernel and the plain version each get their own copy.
+    xs = randn(b, d)
+    ln2 = torch.stack([ln_s, ln_b])
+    qkv_w1, qkv_b1 = qweight(d, 3 * d), randn(1, 3 * d, scale=0.1)
+    o_w1, o_b1 = qweight(d, d), randn(1, d, scale=0.1)
+    tk, tv = randn(s_max, b, d), randn(s_max, b, d)
+    tk2, tv2 = tk.clone(), tv.clone()
+    self_args = (xs, ln2, qkv_w1, qkv_b1, o_w1, o_b1)
+    rows.append(("decoder_self_block",
+                 (decoder_kernels, "self_block_launches"),
+                 "decoder_self_block.cu",
+                 "whisper_tpu/ops/decoder_kernels.py:120",
+                 lambda: decoder_kernels.self_attn_block(
+                     *self_args, tk, tv, pos, h)[0],
+                 lambda: decoder_kernels.self_attn_block_plain(
+                     *self_args, tk2, tv2, pos, h)[0], 2.0))
+    work["decoder_self_block"] = (
+        (4 * d * d + 6 * d + 2 * b * d + 2 * (pos + 1) * b * d) * 2,
+        2 * b * d * 4 * d + 4 * b * (pos + 1) * d, "bf16")
+    xk, xv = randn(b, h, t, dh), randn(b, h, t, dh)
+    cross_args = (xs, ln2, o_w1, o_b1, qweight(d, d), randn(1, d, scale=0.1))
+    rows.append(("decoder_cross_block",
+                 (decoder_kernels, "cross_block_launches"),
+                 "decoder_cross_block.cu",
+                 "whisper_tpu/ops/decoder_kernels.py:222",
+                 lambda: decoder_kernels.cross_attn_block(
+                     *cross_args, xk, xv, h),
+                 lambda: decoder_kernels.cross_attn_block_plain(
+                     *cross_args, xk, xv, h), 2.0))
+    # bf16 K and V streamed once; the scores and P.V in fp32.
+    work["decoder_cross_block"] = (
+        (2 * b * h * t * dh + 2 * d * d + 4 * d + 2 * b * d) * 2,
+        4 * b * h * t * dh + 4 * b * d * d, "fp32")
+
     out = []
     for name, counter, src, replaces, kern, plain, tol in rows:
         got = kern()
@@ -326,7 +401,8 @@ def check_kernels(card: str) -> list:
         # the in-place inserts must leave every buffer bitwise equal to
         # the plain version's
         written = {"self_attend_step": ((kc, kc2), (vc, vc2)),
-                   "self_attend_step_int8": tuple(zip(i8, i8_plain))}
+                   "self_attend_step_int8": tuple(zip(i8, i8_plain)),
+                   "decoder_self_block": ((tk, tk2), (tv, tv2))}
         for mine, theirs in written.get(name, ()):
             if not torch.equal(mine, theirs):
                 raise AssertionError(f"{name}: a cache buffer differs from "
@@ -345,6 +421,68 @@ def check_kernels(card: str) -> list:
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": library_ms})
+
+    # B7 against the kernels it repeats: every query bitwise the
+    # single-token kernel's (B4, B6) on that query, at T = 2, 5 and 9, and
+    # its time beside T calls of that kernel.
+    for mxu, one, label in ((True, cross_attention.cross_attend_step, "B4"),
+                            (False, cross_attention.cross_attend_step_dequant,
+                             "B6")):
+        for n_t in (2, 5, 9):
+            qt = randn(b, n_t, h, dh, scale=dh ** -0.5)
+            got = cross_attention.cross_attend_multi(
+                qt, k8, v8, ks, vs, 2, s_valid=t, int8_mxu=mxu)
+            for i in range(n_t):
+                want = one(qt[:, i].contiguous(), k8, v8, ks, vs, 2,
+                           s_valid=t)
+                if not torch.equal(got[:, i], want):
+                    raise AssertionError(
+                        f"B7 (int8_mxu={mxu}), T = {n_t}: query {i} is not "
+                        f"bitwise {label}'s")
+            plain = cross_attention.cross_attend_multi_plain(
+                qt, k8, v8, ks, vs, 2, s_valid=t, int8_mxu=mxu)
+            if _bf16_steps(got, plain) > 2.0:
+                raise AssertionError(f"B7 (int8_mxu={mxu}), T = {n_t}: "
+                                     f"{_bf16_steps(got, plain):.3g} bf16 "
+                                     "steps from the plain version")
+        q1 = qm[:, 0].contiguous()
+        one_ms = _median_ms(lambda: one(q1, k8, v8, ks, vs, 2, s_valid=t))
+        multi_ms = _median_ms(lambda: cross_attention.cross_attend_multi(
+            qm, k8, v8, ks, vs, 2, s_valid=t, int8_mxu=mxu))
+        print(f"[kernel] B7 (int8_mxu={mxu}): every query bitwise {label}'s "
+              f"at T = 2, 5, 9; T = {n_q}: {multi_ms:.4f} ms against "
+              f"{n_q} x {label} = {n_q * one_ms:.4f} ms on {card}",
+              flush=True)
+
+    # B10a at the first and the last cache row, B10b at a short encoder
+    # and at one whose length is no multiple of its 64-key blocks.
+    for p_ in (0, s_max - 1):
+        a, b_ = [x.clone() for x in (tk, tv)], [x.clone() for x in (tk, tv)]
+        got = decoder_kernels.self_attn_block(*self_args, *a, p_, h)[0]
+        want = decoder_kernels.self_attn_block_plain(*self_args, *b_, p_,
+                                                     h)[0]
+        steps = _bf16_steps(got, want)
+        same = all(torch.equal(m_, t_) for m_, t_ in zip(a, b_))
+        kept = all(torch.equal(m_[p_ + 1:], o_[p_ + 1:])
+                   and torch.equal(m_[:p_], o_[:p_])
+                   for m_, o_ in zip(a, (tk, tv)))
+        if steps > 2.0 or not same or not kept:
+            raise AssertionError(f"B10a at pos {p_}: {steps:.3g} bf16 steps, "
+                                 f"caches bitwise {same}, other rows "
+                                 f"untouched {kept}")
+    for t_enc in (96, 100):
+        xk_s = xk[:, :, :t_enc].contiguous()
+        xv_s = xv[:, :, :t_enc].contiguous()
+        steps = _bf16_steps(
+            decoder_kernels.cross_attn_block(*cross_args, xk_s, xv_s, h),
+            decoder_kernels.cross_attn_block_plain(*cross_args, xk_s, xv_s,
+                                                   h))
+        if steps > 2.0:
+            raise AssertionError(f"B10b at T = {t_enc}: {steps:.3g} bf16 "
+                                 "steps from the plain version")
+    print(f"[kernel] B10a at pos 0, {pos}, {s_max - 1}: caches bitwise the "
+          "plain version's, other rows untouched; B10b at T = 1500, 96, 100 "
+          "within 2 bf16 steps", flush=True)
     return out
 
 
@@ -428,13 +566,13 @@ def check_against_cpu(params, dims) -> None:
                              "5e-2)")
 
 
-def check_main_path_finite(session, audio, dims) -> None:
-    """The main path's encoder states and prefill logits for the file's
-    chunk bucket (16 rows, the padding rows slicing zeros) are finite."""
+def _bucket_encoder_states(session, audio):
+    """Encoder states of the file's chunk bucket (the 301.574 s file: 12
+    chunks in a bucket of 16, the padding rows slicing zeros), and a prompt
+    row (en, transcribe, no timestamps) for each."""
     import torch
 
     from whisper_tpu_torch.frontend import golden
-    from whisper_tpu_torch.models import whisper
     from whisper_tpu_torch.pipeline.chunk import (
         CHUNK_FRAMES,
         chunk_starts,
@@ -453,6 +591,17 @@ def check_main_path_finite(session, audio, dims) -> None:
                                        for s in starts]))
     prompt = torch.tensor([[50258, 50259, 50359, 50363]] * len(starts),
                           device=enc.device)
+    return enc, prompt
+
+
+def check_main_path_finite(session, audio, dims) -> None:
+    """The main path's encoder states and prefill logits for the file's
+    chunk bucket are finite."""
+    import torch
+
+    from whisper_tpu_torch.models import whisper
+
+    enc, prompt = _bucket_encoder_states(session, audio)
     logits, _ = whisper.decoder_prefill(session._decoder_params, dims, prompt,
                                         enc, 4 + 128, int8_cross_kv=True)
     if not (torch.isfinite(enc).all() and torch.isfinite(logits).all()):
@@ -461,15 +610,16 @@ def check_main_path_finite(session, audio, dims) -> None:
 
 
 def _timed_run(session, audio, results, max_new_tokens: int = 128,
-               runs: int = 1):
+               runs: int = 1, **decode):
     """A warm-up, then ``runs`` runs, each with every kernel's count set to
     0 just before it and read just after; the runs must give equal tokens
-    and counts.  The median run by e2e: (e2e s, Timing, tokens, counts)."""
+    and counts.  ``decode``: run_once's decoding options (speculative,
+    draft_k).  The median run by e2e: (e2e s, Timing, tokens, counts)."""
     import torch
 
     from whisper_tpu_torch.headline import run_once
 
-    run_once(session, audio, max_new_tokens=max_new_tokens)
+    run_once(session, audio, max_new_tokens=max_new_tokens, **decode)
     out = []
     for _ in range(runs):
         _zero_counts(results)
@@ -477,7 +627,7 @@ def _timed_run(session, audio, results, max_new_tokens: int = 128,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, timing = run_once(session, audio, token_collector=collector,
-                             max_new_tokens=max_new_tokens)
+                             max_new_tokens=max_new_tokens, **decode)
         out.append((time.perf_counter() - t0, timing, collector[0],
                     _counts(results)))
         if not ((out[-1][2] == out[0][2]).all() and out[-1][3] == out[0][3]):
@@ -505,7 +655,7 @@ def check_ladder(card: str, results, params, dims, audio, x5) -> dict:
             # x6: "fused_encoder_mlp overrides int8_encoder_act ..."
             warnings.simplefilter("ignore", UserWarning)
             session = make_session("cuda", params, variant, **overrides)
-        e2e, timing, toks, c = _timed_run(session, audio, results, runs=3)
+        e2e, timing, toks, c = _timed_run(session, audio, results)
         runs[label] = (e2e, timing, toks, c)
         if toks.shape != x5[2].shape:
             raise AssertionError(f"{label}: tokens {toks.shape}")
@@ -543,8 +693,188 @@ def check_ladder(card: str, results, params, dims, audio, x5) -> dict:
         print(f"[ladder] whisper-base {label}, {len(audio) / 16000:.3f} s, "
               f"on {card}: e2e {e2e:.4f} s, model {timing.model_only_s:.4f} "
               f"s, preprocess {timing.preprocess_s:.4f} s, {steps} decode "
-              f"steps (median of 3 runs); launches {c}", flush=True)
+              f"steps (x5: median of 3 runs, the others one run); launches "
+              f"{c}", flush=True)
     return {label: r[3] for label, r in runs.items()}
+
+
+def check_speculative(card: str, results, params, dims, audio, x5) -> dict:
+    """Speculative decoding of the 301.574 s file (one bucket of 16, 128
+    tokens, draft_k = 4): x5 with a random whisper-tiny draft, x5 with
+    whisper-base as its own draft on the shared encoder, x4 with the tiny
+    draft; ``x5``: (e2e, Timing, tokens, counts) of the greedy main path's
+    run.  Returns the launch counts of the x5 and the x4 run with the tiny
+    draft."""
+    import numpy as np
+
+    from whisper_tpu_torch.headline import make_session
+    from whisper_tpu_torch.models.convert import init_params
+    from whisper_tpu_torch.models.registry import get_dims
+    from whisper_tpu_torch.variants.quant import quantize_params
+
+    n_l, k = dims.decoder_layers, 4
+    tiny = get_dims("openai/whisper-tiny")
+    tiny_params = init_params(tiny, seed=1)
+
+    def run(label, variant, draft, draft_dims, share, greedy):
+        session = make_session("cuda", params, variant)
+        if greedy is None:      # this rung's greedy run, for comparison
+            greedy = _timed_run(session, audio, results)
+        session.set_draft_model(draft, draft_dims, share_encoder=share)
+        e2e, timing, toks, c = _timed_run(session, audio, results,
+                                          speculative=True, draft_k=k)
+        rounds = sum(r for r, _ in session.speculative_stats)
+        committed = np.concatenate(
+            [n.cpu().numpy() for _, n in session.speculative_stats])
+        if toks.shape != greedy[2].shape or not (
+                (toks >= 0) & (toks < dims.vocab_size)).all():
+            raise AssertionError(f"{label}: tokens {toks.shape}")
+        if c["cross_attend_multi"] != rounds * n_l or rounds < 1:
+            raise AssertionError(f"{label}: B7 launched "
+                                 f"{c['cross_attend_multi']} times in "
+                                 f"{rounds} rounds of {n_l} layers")
+        if c["self_attend_step"] or c["self_attend_step_int8"]:
+            raise AssertionError(f"{label}: B3/B8 launched: {c}")
+        # The prefill is the greedy run's, so every chunk's first token is.
+        if not (toks[:, 0] == greedy[2][:, 0]).all():
+            raise AssertionError(f"{label}: a first token differs from the "
+                                 "greedy run's")
+        same = float((toks == greedy[2]).mean())
+        print(f"[speculative] whisper-base {label}, draft_k {k}, on {card}: "
+              f"e2e {e2e:.4f} s, model {timing.model_only_s:.4f} s (greedy "
+              f"{greedy[0]:.4f} / {greedy[1].model_only_s:.4f} s); {rounds} "
+              f"verify rounds, {committed.sum() / rounds / len(committed):.3f}"
+              f" tokens committed per round and row; tokens equal to the "
+              f"greedy run's: {same:.4f} of {toks.size}; launches {c}",
+              flush=True)
+        return toks, rounds, c
+
+    adv, _, c5 = run("x5 + whisper-tiny draft", "x5", tiny_params, tiny,
+                     False, x5)
+    if not (c5["cross_attend_step"] > 0
+            and c5["cross_attend_step_dequant"] == 0):
+        raise AssertionError(f"x5 draft steps: launches {c5}")
+    # the main model's own int8 weights, so that draft and main differ only
+    # in the shape of their passes (one token against five)
+    own, rounds, _ = run("x5 + its own weights as draft, shared encoder",
+                         "x5", quantize_params(params), dims, True, x5)
+    # One run rejects nearly every proposal, the other accepts nearly all:
+    # the committed sequence must not depend on the draft.
+    if not (adv == own).all():
+        raise AssertionError(
+            "speculative tokens depend on the draft: "
+            f"{float((adv == own).mean()):.4f} equal")
+    if rounds > 2 * -(-128 // (k + 1)):
+        raise AssertionError(f"own-weights draft: {rounds} rounds, expected "
+                             f"about {-(-128 // (k + 1))}")
+    _, _, c4 = run("x4 + whisper-tiny draft", "x4", tiny_params, tiny, False,
+                   None)
+    if not (c4["cross_attend_step_dequant"] > 0
+            and c4["cross_attend_step"] == 0):
+        raise AssertionError(f"x4 draft steps: launches {c4}")
+    return {"x5": c5, "x4": c4}
+
+
+def check_fused_step(card: str, results, params, dims, audio) -> dict:
+    """``decoder_step_fused`` (B10a, B10b, B10c per layer) driven greedily
+    for 127 steps at whisper-base from a bf16 prefill of the 301.574 s
+    file's bucket of 16; its time per step beside the x5 kernel step's and
+    the hybrid step's over the same 127 steps.  Returns the launch counts
+    of one fused run."""
+    import torch
+
+    from whisper_tpu_torch.headline import make_session
+    from whisper_tpu_torch.models import whisper
+    from whisper_tpu_torch.ops import decoder_kernels as dk
+
+    session = make_session("cuda", params)
+    p = session._decoder_params
+    enc, prompt = _bucket_encoder_states(session, audio)
+    n_p, n_new = prompt.shape[1], 128
+    sw = dk.build_step_weights(p, dims)
+
+    def prefill(int8):
+        logits, cache = whisper.decoder_prefill(p, dims, prompt, enc,
+                                                n_p + n_new,
+                                                int8_cross_kv=int8)
+        return logits[:, -1].argmax(-1), cache
+
+    def loop(step, first):
+        """127 greedy steps without a host sync: (tokens, ms per step)."""
+        toks, last = [first], first
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(1, n_new):
+            last = step(last, n_p + i - 1).argmax(-1)
+            toks.append(last)
+        torch.cuda.synchronize()
+        return (torch.stack(toks, 1),
+                (time.perf_counter() - t0) * 1e3 / (n_new - 1))
+
+    def fused_run():
+        first, cache = prefill(False)
+        k_tm = dk.cache_to_time_major(cache.self_k)
+        v_tm = dk.cache_to_time_major(cache.self_v)
+
+        def step(tok, pos):
+            return dk.decoder_step_fused(p, sw, dims, tok, pos, k_tm, v_tm,
+                                         cache.cross_k, cache.cross_v)[0]
+
+        # the first step against the port's plain step on the same cache
+        plain_cache = cache._replace(self_k=cache.self_k.clone(),
+                                     self_v=cache.self_v.clone())
+        want, _ = whisper.decoder_step(p, dims, first, n_p, plain_cache)
+        k0, v0 = k_tm.clone(), v_tm.clone()
+        got = dk.decoder_step_fused(p, sw, dims, first, n_p, k0, v0,
+                                    cache.cross_k, cache.cross_v)[0]
+        err = float((got - want).abs().max())
+        _zero_counts(results)
+        toks, ms = loop(step, first)
+        return toks, ms, err, _counts(results)
+
+    fused_run()                                   # warm-up
+    toks, ms, err, c = fused_run()
+    toks2, ms2, _, c2 = fused_run()
+    n_steps = (n_new - 1) * dims.decoder_layers
+    if err > 5e-2:
+        raise AssertionError(f"fused step: first-step logits differ from "
+                             f"decoder_step's by {err} (tolerance 5e-2)")
+    if not ((toks >= 0) & (toks < dims.vocab_size)).all() \
+            or not torch.equal(toks, toks2):
+        raise AssertionError("fused step: tokens outside the vocabulary or "
+                             "not repeatable")
+    if not (c["decoder_self_block"] == c["decoder_cross_block"]
+            == c["decoder_mlp_block"] == n_steps and c == c2):
+        raise AssertionError(f"fused step: launches {c}, expected {n_steps} "
+                             "of B10a, B10b and B10c")
+    if any(v for k_, v in c.items() if k_ not in (
+            "decoder_self_block", "decoder_cross_block",
+            "decoder_mlp_block")):
+        raise AssertionError(f"fused step: other kernels launched: {c}")
+
+    first8, cache8 = prefill(True)
+
+    def x5_step(tok, pos):
+        return whisper.decoder_step(p, dims, tok, pos, cache8,
+                                    kernel_step=True,
+                                    cross_len=enc.shape[1])[0]
+
+    loop(x5_step, first8)
+    _, x5_ms = loop(x5_step, first8)
+    first16, cache16 = prefill(False)
+
+    def hybrid_step(tok, pos):
+        return dk.decoder_step_hybrid(p, sw, dims, tok, pos, cache16)[0]
+
+    loop(hybrid_step, first16)
+    _, hybrid_ms = loop(hybrid_step, first16)
+    print(f"[fused step] whisper-base, bucket {enc.shape[0]}, 127 steps from "
+          f"a bf16 prefill, on {card}: {ms:.4f} and {ms2:.4f} ms a step "
+          f"(host clock, one sync at the end) against the x5 kernel step "
+          f"{x5_ms:.4f} ms and the hybrid step {hybrid_ms:.4f} ms; first-step"
+          f" logits within {err:.3g} of decoder_step's; tokens equal across "
+          f"two runs; launches {c}", flush=True)
+    return c
 
 
 def check_medium_fused_block(card: str, results) -> dict:
@@ -683,7 +1013,8 @@ def run_cli(label: str, card: str, results, audio_dir: str, out_dir: str,
 
 def check_cli(card: str, results) -> dict:
     """The CLI at whisper-base x5, int8 and x7 over the four files, then at
-    whisper-medium x5 over the 4 s file; returns each run's counts."""
+    whisper-medium x5 and at whisper-base x5 with a whisper-tiny draft over
+    the 4 s file; returns each run's counts."""
     with tempfile.TemporaryDirectory() as tmp:
         audio_dir = os.path.join(tmp, "audio")
         os.makedirs(audio_dir)
@@ -710,6 +1041,10 @@ def check_cli(card: str, results) -> dict:
             "medium-x5", card, results, audio_dir, tmp,
             ["--model-id", "openai/whisper-medium", "--max-new-tokens", "16",
              "--variant", "x5"])
+        runs["whisper-base x5 draft"] = run_cli(
+            "base-x5-draft", card, results, audio_dir, tmp,
+            base + ["--variant", "x5", "--draft-model-id",
+                    "openai/whisper-tiny", "--draft-k", "4"])
     x5, x4, med = (runs["whisper-base x5"], runs["whisper-base int8"],
                    runs["whisper-medium x5"])
     for label, c, on, off in (("x5", x5, "cross_attend_step",
@@ -727,6 +1062,11 @@ def check_cli(card: str, results) -> dict:
             and x7["cross_attend_step_dequant"] == 0
             and x7["fused_attention"] > 0 and x7["fused_encoder_mlp"] > 0):
         raise AssertionError(f"CLI x7: launches {x7}")
+    dr = runs["whisper-base x5 draft"]
+    if not (dr["cross_attend_multi"] > 0 and dr["cross_attend_step"] > 0
+            and dr["cross_attend_multi"] % 6 == 0
+            and dr["self_attend_step"] == 0 and dr["log_mel"] > 0):
+        raise AssertionError(f"CLI x5 with a draft: launches {dr}")
     return runs
 
 
@@ -792,6 +1132,8 @@ def main() -> None:
 
     del session
     ladder = check_ladder(card, results, params, dims, audio, x5_run)
+    spec = check_speculative(card, results, params, dims, audio, x5_run)
+    fused_step = check_fused_step(card, results, params, dims, audio)
     medium = check_medium_fused_block(card, results)
     cli = check_cli(card, results)
     # Each kernel's launches in the run of its own path.  The two rows at
@@ -806,7 +1148,12 @@ def main() -> None:
                "fused_ln_qkv": fused["fused_ln_qkv"],
                "fused_out_mlp": fused["fused_out_mlp"],
                "decoder_mlp_block": fused["decoder_mlp_block"],
-               "fused_ln_qkv_d1024": medium["fused_ln_qkv"]}
+               "fused_ln_qkv_d1024": medium["fused_ln_qkv"],
+               "cross_attend_multi": spec["x5"]["cross_attend_multi"],
+               "cross_attend_multi_dequant":
+                   spec["x4"]["cross_attend_multi_dequant"],
+               "decoder_self_block": fused_step["decoder_self_block"],
+               "decoder_cross_block": fused_step["decoder_cross_block"]}
     for r in results:
         r["launches"] = path_of.get(r["name"], main_counts[r["name"]])
         if r["launches"] < 1:

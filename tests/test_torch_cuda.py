@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (B1-B6, B8, B9a, B9b, B10c) against their plain
-versions, on the card.
+"""The port's CUDA kernels (B1-B10c) against their plain versions, on the
+card.
 
 These tests need an NVIDIA card and nvcc; elsewhere they skip.  Run them on
 the card with
@@ -111,6 +111,25 @@ def test_b4_kernel_matches_plain(gen, s, s_valid):
     assert cross_attention.launches == before + 1
     _assert_close(got, cross_attention.cross_attend_step_plain(
         q, k8, v8, ks, vs, 1, s_valid=s_valid))
+
+
+def test_b4_takes_a_layer_slice_off_the_16_byte_grid(gen):
+    """Six heads at bucket 1 (whisper-tiny as a draft): layer 1's slice of
+    the [L, B, H] scales starts 24 bytes in; the kernel reads one scale a
+    block and takes it."""
+    n_l, b, h, s = 3, 1, 6, 200
+    q = _randn(gen, b, h, 64, scale=0.125)
+    k8 = torch.randint(-127, 128, (n_l, b, h, s, 64), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    v8 = torch.randint(-127, 128, (n_l, b, h, s, 64), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    ks = torch.rand(n_l, b, h, generator=gen, device="cuda") * 0.02 + 1e-3
+    vs = torch.rand(n_l, b, h, generator=gen, device="cuda") * 0.02 + 1e-3
+    assert vs[1].data_ptr() % 16
+    _assert_close(
+        cross_attention.cross_attend_step(q, k8, v8, ks, vs, 1, s_valid=s),
+        cross_attention.cross_attend_step_plain(q, k8, v8, ks, vs, 1,
+                                                s_valid=s))
 
 
 @pytest.mark.parametrize("s,s_valid", [(1500, 1500), (1500, 1001),
@@ -230,6 +249,117 @@ def test_b10c_kernel_matches_plain(gen, b, d):
     _assert_close(got, decoder_kernels.mlp_block_plain(*args))
 
 
+@pytest.mark.parametrize("int8_mxu", [True, False])
+@pytest.mark.parametrize("t,s,s_valid,b,h", [
+    (1, 1500, 1500, 2, 8), (5, 1500, 1500, 3, 6), (9, 1504, 1500, 1, 8),
+    (3, 96, 96, 2, 2), (2, 2000, 1999, 1, 2)])
+def test_b7_queries_are_bitwise_the_single_token_kernels(gen, t, s, s_valid,
+                                                         b, h, int8_mxu):
+    """Every query of B7 bit for bit what B4 (int8_mxu) or B6 gives for it,
+    with the tile staged in shared memory (S <= ~1730) and left in device
+    memory (S = 2000); and the whole within 2 bf16 steps of the plain
+    version."""
+    n_l = 2
+    q = _randn(gen, b, t, h, 64, scale=0.125)
+    k8 = torch.randint(-127, 128, (n_l, b, h, s, 64), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    v8 = torch.randint(-127, 128, (n_l, b, h, s, 64), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    ks = torch.rand(n_l, b, h, generator=gen, device="cuda") * 0.02 + 1e-3
+    vs = torch.rand(n_l, b, h, generator=gen, device="cuda") * 0.02 + 1e-3
+    before = cross_attention.multi_launches
+    got = cross_attention.cross_attend_multi(q, k8, v8, ks, vs, 1,
+                                             s_valid=s_valid,
+                                             int8_mxu=int8_mxu)
+    assert cross_attention.multi_launches == before + 1
+    one = cross_attention.cross_attend_step if int8_mxu \
+        else cross_attention.cross_attend_step_dequant
+    for i in range(t):
+        assert torch.equal(got[:, i], one(q[:, i].contiguous(), k8, v8, ks,
+                                          vs, 1, s_valid=s_valid))
+    _assert_close(got, cross_attention.cross_attend_multi_plain(
+        q, k8, v8, ks, vs, 1, s_valid=s_valid, int8_mxu=int8_mxu))
+
+
+def _block_weights(gen, d, n):
+    ln = torch.stack([1.0 + _randn(gen, d, scale=0.1),
+                      _randn(gen, d, scale=0.1)])
+    return (ln, _randn(gen, d, n, scale=0.04), _randn(gen, 1, n, scale=0.1),
+            _randn(gen, d, d, scale=0.04), _randn(gen, 1, d, scale=0.1))
+
+
+@pytest.mark.parametrize("b,d,s,pos", [(16, 512, 132, 70), (1, 512, 132, 0),
+                                       (5, 384, 40, 39), (33, 1280, 448, 300),
+                                       (16, 512, 137, 136)])
+def test_b10a_kernel_matches_plain_and_writes_the_cache_bitwise(gen, b, d, s,
+                                                                pos):
+    """The output within 2 bf16 steps; both cache buffers bit for bit the
+    plain version's (rows > pos and < pos untouched, row pos written)."""
+    h = d // 64
+    x = _randn(gen, b, d)
+    w = _block_weights(gen, d, 3 * d)
+    ck, cv = _randn(gen, s, b, d), _randn(gen, s, b, d)
+    mine, theirs = [ck.clone(), cv.clone()], [ck.clone(), cv.clone()]
+    before = decoder_kernels.self_block_launches
+    got, gk, gv = decoder_kernels.self_attn_block(x, *w, *mine, pos, h)
+    assert decoder_kernels.self_block_launches == before + 1
+    assert gk is mine[0] and gv is mine[1]
+    want, _, _ = decoder_kernels.self_attn_block_plain(x, *w, *theirs, pos, h)
+    _assert_close(got, want)
+    for a, b_, orig in zip(mine, theirs, (ck, cv)):
+        assert torch.equal(a, b_)
+        assert torch.equal(a[:pos], orig[:pos])
+        assert torch.equal(a[pos + 1:], orig[pos + 1:])
+        assert not torch.equal(a[pos], orig[pos])
+
+
+@pytest.mark.parametrize("b,d,t", [(16, 512, 1500), (1, 512, 96),
+                                   (3, 384, 100), (20, 768, 1), (2, 1024, 63),
+                                   (4, 512, 513)])
+def test_b10b_kernel_matches_plain(gen, b, d, t):
+    """T a multiple of the 64-key block, not a multiple, one key, and fewer
+    blocks than the kernel has warps."""
+    h = d // 64
+    x = _randn(gen, b, d)
+    w = _block_weights(gen, d, d)
+    ck, cv = _randn(gen, b, h, t, 64), _randn(gen, b, h, t, 64)
+    before = decoder_kernels.cross_block_launches
+    got = decoder_kernels.cross_attn_block(x, *w, ck, cv, h)
+    assert decoder_kernels.cross_block_launches == before + 1
+    _assert_close(got, decoder_kernels.cross_attn_block_plain(x, *w, ck, cv,
+                                                              h))
+
+
+def test_speculative_tokens_do_not_depend_on_the_draft(gen):
+    """Through the kernels (B4 for the draft's steps, B7 for the verify
+    pass) at a small width: a random draft and the main model's own weights
+    as draft commit the same tokens, and the second needs fewer rounds."""
+    from whisper_tpu_torch.models import convert
+    from whisper_tpu_torch.models.registry import WhisperDims
+    from whisper_tpu_torch.runtime.session import RuntimeCfg, WhisperSession
+    from whisper_tpu_torch.variants.ladder import apply_variant
+
+    dims = WhisperDims(n_mels=80, d_model=128, encoder_layers=2,
+                       encoder_heads=2, decoder_layers=2, decoder_heads=2,
+                       vocab_size=256, max_source_positions=1500,
+                       max_target_positions=64)
+    cfg, _ = apply_variant(RuntimeCfg(max_batch=4), "x5")
+    params = convert.init_params(dims, seed=0)
+    sess = WhisperSession(params, dims, cfg, device="cuda")
+    mel = torch.randn(80, 6000, generator=gen, device="cuda")
+    args = (mel, [0, 2500, 3000], [3, 5], 24, 2)
+    runs = []
+    for draft in (convert.init_params(dims, seed=99), params):
+        sess.set_draft_model(draft, dims)
+        before = cross_attention.multi_launches
+        toks = sess.transcribe_from_mel(*args, speculative=True, draft_k=3)
+        rounds = sum(r for r, _ in sess.speculative_stats)
+        assert cross_attention.multi_launches == before + 2 * rounds
+        runs.append((toks, rounds))
+    assert (runs[0][0] == runs[1][0]).all()
+    assert runs[1][1] <= runs[0][1]
+
+
 def test_int8_matmul_is_exact_on_the_card(gen):
     """The W8A8 product (rung x6) at K = 2,048, past the 1,040 where an
     fp32 product stops being exact, and at 3 rows (padded for _int_mm)."""
@@ -268,3 +398,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="d=1024"):
         encoder_block.fused_out_mlp(x, x, w, w[0], w[0], w[0], w, w[0], w,
                                     w[0])
+    q = _randn(gen, 2, 3, 4, 32)  # B7: head_dim 32
+    with pytest.raises(ValueError, match="head_dim 64"):
+        cross_attention.cross_attend_multi(q, q, q, q, q, 0, s_valid=1)
+    x = _randn(gen, 2, 192)       # B10a, B10b: d no multiple of 128
+    with pytest.raises(ValueError, match="multiple of 128"):
+        decoder_kernels.self_attn_block(x, x, x, x, x, x, x, x, 0, 3)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        decoder_kernels.cross_attn_block(x, x, x, x, x, x, x, x, 3)

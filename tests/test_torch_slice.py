@@ -234,7 +234,8 @@ def test_float_audio_transfer_modes_match_jax(mode):
 
 def test_port_loads_no_jax():
     """A fresh process, WHISPER_TPU_PLATFORM unset, runs the x5 slice at a
-    small size through the port and never imports jax or whisper_tpu."""
+    small size through the port, greedy and then speculative with a draft
+    model attached, and never imports jax or whisper_tpu."""
     code = f"""
 import dataclasses, sys
 import numpy as np, torch
@@ -261,6 +262,11 @@ text, _ = transcribe_longform(sess, rng.normal(0, 0.1, 35 * 16000),
                               "en", "transcribe", 3, tokenizer=Tok(),
                               token_collector=tok)
 assert tok[0].shape == (2, 3), tok[0].shape
+sess.set_draft_model(init_params(dims, seed=1), dims)
+spec, _ = transcribe_longform(sess, rng.normal(0, 0.1, 35 * 16000),
+                              "en", "transcribe", 3, tokenizer=Tok(),
+                              speculative=True, draft_k=2)
+assert isinstance(spec, str)
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "whisper_tpu")]
 assert not bad, bad
@@ -300,11 +306,19 @@ LONGFORM_CASES = {
 }
 
 
+def _refusal(case):
+    """What refuses a case: speculative decoding is ported and asks for a
+    draft model first; the rest names its ROADMAP item."""
+    if case == "speculative":
+        return pytest.raises(RuntimeError, match="set_draft_model")
+    return pytest.raises(NotImplementedError, match="ROADMAP")
+
+
 @pytest.mark.parametrize("case", sorted(LONGFORM_CASES))
 def test_longform_options_not_ported_raise(case):
     kw = dict(language="en", task="transcribe", max_new_tokens=2)
     kw.update(LONGFORM_CASES[case])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with _refusal(case):
         transcribe_longform(_small_session(), np.zeros(16000, np.float32),
                             **kw)
 
@@ -336,7 +350,7 @@ DECODE_CASES = {
 def test_decode_options_not_ported_raise(case):
     sess = _small_session()
     mel = torch.zeros((80, 3000))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with _refusal(case):
         sess.transcribe_from_mel(mel, [0], [250], 2, 251,
                                  **DECODE_CASES[case])
 

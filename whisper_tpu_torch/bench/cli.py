@@ -19,10 +19,11 @@ Working flags: the chunked path, ``--variant x0..x7|int8``, ``--dtype``,
 ``--audio-transfer f32|int16``, ``--discovery-best-json``, ``--intra-op``
 and ``--inter-op`` (``intra_op >= 2`` prefetches the next file and its mel
 on a second thread), ``--warmup``, ``--limit-files``, ``--write-txt``,
-``--tokenizer-json``, ``--allow-random-init``, ``--onnx-dir`` and
+``--tokenizer-json``, ``--allow-random-init``, ``--onnx-dir``,
 ``--profile-dir`` (a ``torch.profiler`` Chrome trace in place of the JAX
-trace).  Every other feature flag exits naming its ROADMAP item; none is
-silently ignored.
+trace) and speculative decoding (``--draft-dir`` or ``--draft-model-id``,
+``--draft-k``, ``--draft-share-encoder``).  Every other feature flag exits
+naming its ROADMAP item; none is silently ignored.
 """
 
 from __future__ import annotations
@@ -103,11 +104,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "model dir has no params.safetensors (benchmarking "
                         "without converted weights)")
     p.add_argument("--draft-dir", default="",
-                   help="speculative decoding: not ported (ROADMAP queue 1 "
-                        "item 11)")
-    p.add_argument("--draft-model-id", default="")
-    p.add_argument("--draft-k", type=int, default=4)
-    p.add_argument("--draft-share-encoder", action="store_true")
+                   help="speculative decoding: model dir of a draft model "
+                        "(e.g. a distilled decoder); the text stays the "
+                        "greedy text")
+    p.add_argument("--draft-model-id", default="",
+                   help="with --allow-random-init semantics: build a "
+                        "random-weight draft from this registry id")
+    p.add_argument("--draft-k", type=int, default=4,
+                   help="draft tokens proposed per verify round")
+    p.add_argument("--draft-share-encoder", action="store_true",
+                   help="feed the main model's encoder states to the draft's "
+                        "decoder (the draft's encoder never runs; needs "
+                        "equal d_model)")
     p.add_argument("--temperatures", default="",
                    help="temperature fallback: not ported (ROADMAP queue 1 "
                         "item 9)")
@@ -157,9 +165,6 @@ def not_ported(args) -> List[str]:
         (bool({"initial_prompt", "condition_on_prev_text"} & changed),
          f"--initial-prompt/--condition-on-prev-text (conditioned prompts): "
          f"{item} 9"),
-        (bool({"draft_dir", "draft_model_id", "draft_k",
-               "draft_share_encoder"} & changed),
-         f"--draft-* (speculative decoding): {item} 11"),
         (args.data_parallel > 1 or args.tensor_parallel > 1,
          f"--data-parallel/--tensor-parallel (more cards): {item} 12"),
         (bool({"dcn_coordinator", "dcn_num_processes", "dcn_process_id"}
@@ -313,6 +318,26 @@ def main(argv: Optional[List[str]] = None, *, device=None) -> int:
 
     session = _build_session(args, cfg, device)
 
+    speculative = bool(args.draft_dir or args.draft_model_id)
+    if speculative:
+        if (args.longform_mode not in ("chunked", "pipelined")
+                or args.num_beams > 1
+                or args.timestamps or args.word_timestamps
+                or args.temperatures):
+            raise SystemExit(
+                "--draft-dir/--draft-model-id (speculative decoding) "
+                "composes with plain greedy chunked/pipelined modes only")
+        from whisper_tpu_torch.models import convert
+        from whisper_tpu_torch.models.registry import get_dims
+
+        if args.draft_dir:
+            d_params, d_dims = convert.load_params(args.draft_dir)
+        else:
+            d_dims = get_dims(args.draft_model_id)
+            d_params = convert.init_params(d_dims, seed=1)
+        session.set_draft_model(d_params, d_dims,
+                                share_encoder=args.draft_share_encoder)
+
     files = list_audio_files(args.audio_dir, args.limit_files)
     if not files:
         raise SystemExit(f"No audio files found in {args.audio_dir}")
@@ -333,7 +358,8 @@ def main(argv: Optional[List[str]] = None, *, device=None) -> int:
             session, audio, args.language, args.task, args.max_new_tokens,
             args.chunk_length_s, args.overlap_s, tokenizer, args.timestamps,
             gen_cfg, args.num_beams, args.length_penalty,
-            precomputed_mel=pre_mel)
+            precomputed_mel=pre_mel, speculative=speculative,
+            draft_k=args.draft_k)
 
     # Warmup (ref src/main.rs:1131-1152), and beyond it one run of every
     # (mel bucket, batch bucket) shape the files will hit.
@@ -350,7 +376,8 @@ def main(argv: Optional[List[str]] = None, *, device=None) -> int:
             max_new_tokens=args.max_new_tokens,
             chunk_length_s=args.chunk_length_s, overlap_s=args.overlap_s,
             tokenizer=tokenizer, timestamps=args.timestamps, gen_cfg=gen_cfg,
-            num_beams=args.num_beams, length_penalty=args.length_penalty)
+            num_beams=args.num_beams, length_penalty=args.length_penalty,
+            speculative=speculative, draft_k=args.draft_k)
         for _ in range(args.warmup):
             _transcribe(a0)
 

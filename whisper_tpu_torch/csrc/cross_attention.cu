@@ -25,75 +25,32 @@
 // rows, so a warp reads 32 consecutive bytes of a V row.  128 blocks on
 // 132 SMs leave each SM one block, which caps the bandwidth one block can
 // pull: more blocks per (b, h) with a second reduction pass is the next
-// step.
-#include "common.cuh"
+// step.  The per-(b, h) arithmetic lives in cross_attention.cuh, shared with
+// the multi-query kernel of the speculative verify pass (B7).
+#include "cross_attention.cuh"
 
 namespace {
 
-constexpr int DH = 64;
-constexpr int NT = 256;
-
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(CROSS_NT)
 cross_step_kernel(const int8_t* __restrict__ q8, const float* __restrict__ qks,
                   const float* __restrict__ vds, const int8_t* __restrict__ k8,
                   const int8_t* __restrict__ v8, bf16* __restrict__ out, int B,
                   int H, int S, int layer, int s_valid) {
   extern __shared__ float sS[];                 // [S] scores, then e
   int8_t* sP8 = reinterpret_cast<int8_t*>(sS + S);  // [S] p8
-  __shared__ int sq[DH / 4];
-  __shared__ float sred[NT / 32];
-  __shared__ int sacc[NT];
+  __shared__ CrossScratch sc;
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const size_t row = (size_t)b * H + h;
-  const size_t cbase = (((size_t)layer * B + b) * H + h) * (size_t)S * DH;
-  const int8_t* kc = k8 + cbase;
-  const int8_t* vc = v8 + cbase;
+  const size_t cbase =
+      (((size_t)layer * B + b) * H + h) * (size_t)S * CROSS_DH;
   const int tid = threadIdx.x;
 
-  if (tid < DH / 4) sq[tid] = reinterpret_cast<const int*>(q8 + row * DH)[tid];
+  if (tid < CROSS_DH / 4)
+    sc.q8[tid] = reinterpret_cast<const int*>(q8 + row * CROSS_DH)[tid];
   __syncthreads();
-  const float qk_scale = qks[row];
-
-  float lmax = -FLT_MAX;
-  for (int s = tid; s < S; s += NT) {
-    const int4* kr = reinterpret_cast<const int4*>(kc + (size_t)s * DH);
-    int acc = 0;
-#pragma unroll
-    for (int i = 0; i < DH / 16; ++i) {
-      const int4 w = kr[i];
-      acc = __dp4a(w.x, sq[4 * i + 0], acc);
-      acc = __dp4a(w.y, sq[4 * i + 1], acc);
-      acc = __dp4a(w.z, sq[4 * i + 2], acc);
-      acc = __dp4a(w.w, sq[4 * i + 3], acc);
-    }
-    const float sc = s < s_valid ? (float)acc * qk_scale : -FLT_MAX;
-    sS[s] = sc;
-    lmax = fmaxf(lmax, sc);
-  }
-  const float m = block_reduce<NT>(lmax, sred, true);
-
-  float lsum = 0.0f;
-  for (int s = tid; s < S; s += NT) {
-    const float e = expf(sS[s] - m);   // masked columns give exactly 0
-    lsum += e;
-    sP8[s] = (int8_t)__float2int_rn(e * 127.0f);
-  }
-  const float denom = block_reduce<NT>(lsum, sred, false);  // syncs sP8
-
-  const int d = tid % DH, grp = tid / DH;
-  int acc = 0;
-  for (int s = grp; s < S; s += NT / DH)
-    acc += (int)sP8[s] * (int)vc[(size_t)s * DH + d];
-  sacc[tid] = acc;
-  __syncthreads();
-  if (tid < DH) {
-    int ctx = 0;
-#pragma unroll
-    for (int g = 0; g < NT / DH; ++g) ctx += sacc[g * DH + tid];
-    const float scale = vds[row] / (127.0f * denom);
-    out[row * DH + tid] = __float2bfloat16_rn((float)ctx * scale);
-  }
+  cross_head_int8(sc, qks[row], vds[row], k8 + cbase, v8 + cbase,
+                  out + row * CROSS_DH, S, s_valid, sS, sP8);
 }
 
 }  // namespace
@@ -104,7 +61,7 @@ WT_EXPORT int wt_cross_attend_step(const void* q8, const void* qk_scale,
                                    int S, int layer, int s_valid,
                                    void* stream) {
   const size_t smem = (size_t)S * (sizeof(float) + 1);
-  cross_step_kernel<<<B * H, NT, smem, (cudaStream_t)stream>>>(
+  cross_step_kernel<<<B * H, CROSS_NT, smem, (cudaStream_t)stream>>>(
       (const int8_t*)q8, (const float*)qk_scale, (const float*)v_scale,
       (const int8_t*)k8, (const int8_t*)v8, (bf16*)out, B, H, S, layer,
       s_valid);

@@ -25,20 +25,13 @@
 // shared memory; for P.V each thread owns one of the 64 columns for a
 // quarter of the rows, so a warp reads 32 consecutive bytes of a V row.
 // As with B4, 128 blocks leave each SM one block; more blocks per (b, h)
-// with a second reduction pass is the next step.
-#include "common.cuh"
+// with a second reduction pass is the next step.  The per-(b, h) arithmetic
+// lives in cross_attention.cuh, shared with the multi-query kernel (B7).
+#include "cross_attention.cuh"
 
 namespace {
 
-constexpr int DH = 64;
-constexpr int NT = 256;
-
-// Byte j (0..3) of a packed word, sign-extended, as fp32 (exact).
-__device__ __forceinline__ float s8(int w, int j) {
-  return (float)((int)((unsigned)w << (24 - 8 * j)) >> 24);
-}
-
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(CROSS_NT)
 cross_dequant_kernel(const bf16* __restrict__ q,
                      const float* __restrict__ k_scale,
                      const float* __restrict__ v_scale,
@@ -47,69 +40,19 @@ cross_dequant_kernel(const bf16* __restrict__ q,
                      int B, int H, int S, int layer, int s_valid) {
   extern __shared__ float sS[];                   // [S] scores, then e
   bf16* sP = reinterpret_cast<bf16*>(sS + S);     // [S] bf16 probabilities
-  __shared__ float sq[DH];
-  __shared__ float sred[NT / 32];
-  __shared__ float sacc[NT];
+  __shared__ CrossScratch sc;
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const size_t row = (size_t)b * H + h;
   const size_t lrow = ((size_t)layer * B + b) * H + h;
-  const int8_t* kc = k8 + lrow * (size_t)S * DH;
-  const int8_t* vc = v8 + lrow * (size_t)S * DH;
+  const size_t cbase = lrow * (size_t)S * CROSS_DH;
   const int tid = threadIdx.x;
 
-  if (tid < DH) sq[tid] = __bfloat162float(q[row * DH + tid]);
+  if (tid < CROSS_DH)
+    sc.qf[tid] = __bfloat162float(q[row * CROSS_DH + tid]);
   __syncthreads();
-  float qr[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) qr[d] = sq[d];
-  const float ks = k_scale[lrow];
-
-  float lmax = -FLT_MAX;
-  for (int s = tid; s < S; s += NT) {
-    const int4* kr = reinterpret_cast<const int4*>(kc + (size_t)s * DH);
-    float acc = 0.0f;
-#pragma unroll
-    for (int i = 0; i < DH / 16; ++i) {
-      const int4 w = kr[i];
-      const int ws[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          acc = __fmaf_rn(qr[16 * i + 4 * j + c], s8(ws[j], c), acc);
-    }
-    const float sc = s < s_valid ? __fmul_rn(acc, ks) : -FLT_MAX;
-    sS[s] = sc;
-    lmax = fmaxf(lmax, sc);
-  }
-  const float m = block_reduce<NT>(lmax, sred, true);
-
-  float lsum = 0.0f;
-  for (int s = tid; s < S; s += NT) {
-    const float e = expf(sS[s] - m);  // masked columns give exactly 0
-    sS[s] = e;
-    lsum += e;
-  }
-  const float denom = block_reduce<NT>(lsum, sred, false);
-  for (int s = tid; s < S; s += NT)
-    sP[s] = __float2bfloat16_rn(__fdiv_rn(sS[s], denom));
-  __syncthreads();
-
-  const int d = tid % DH, grp = tid / DH;
-  float acc = 0.0f;
-  for (int s = grp; s < S; s += NT / DH) {
-    const bf16 v = __float2bfloat16_rn((float)vc[(size_t)s * DH + d]);
-    acc = __fadd_rn(acc, __bfloat162float(__hmul(sP[s], v)));
-  }
-  sacc[tid] = acc;
-  __syncthreads();
-  if (tid < DH) {
-    float ctx = sacc[tid];
-#pragma unroll
-    for (int g = 1; g < NT / DH; ++g) ctx = __fadd_rn(ctx, sacc[g * DH + tid]);
-    out[row * DH + tid] = __float2bfloat16_rn(__fmul_rn(ctx, v_scale[lrow]));
-  }
+  cross_head_dequant(sc, k_scale[lrow], v_scale[lrow], k8 + cbase, v8 + cbase,
+                     out + row * CROSS_DH, S, s_valid, sS, sP);
 }
 
 }  // namespace
@@ -120,7 +63,7 @@ WT_EXPORT int wt_cross_attend_step_dequant(const void* q, const void* k_scale,
                                            int H, int S, int layer,
                                            int s_valid, void* stream) {
   const size_t smem = (size_t)S * (sizeof(float) + sizeof(bf16));
-  cross_dequant_kernel<<<B * H, NT, smem, (cudaStream_t)stream>>>(
+  cross_dequant_kernel<<<B * H, CROSS_NT, smem, (cudaStream_t)stream>>>(
       (const bf16*)q, (const float*)k_scale, (const float*)v_scale,
       (const int8_t*)k8, (const int8_t*)v8, (bf16*)out, B, H, S, layer,
       s_valid);

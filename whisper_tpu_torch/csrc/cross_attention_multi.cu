@@ -1,0 +1,171 @@
+// B7: T-query decoder cross-attention against the int8 cross cache of layer
+// `layer`: the verify pass of speculative decoding (T = draft_k + 1 tokens
+// per row and round).  Two kernels, as in the JAX package:
+//   wt_cross_attend_multi          int8 x int8 dots   (per query what B4 does)
+//   wt_cross_attend_multi_dequant  dequantizing       (per query what B6 does)
+//
+// Replaces whisper_tpu/ops/cross_attention.py:cross_attend_multi_packed
+// (_kernel_multi_int8_mxu and _kernel_multi).  Contract: for each of the T
+// queries of a row, bit for bit the output of the single-token kernel on
+// that query; both kernels run the device functions of cross_attention.cuh
+// with the same block size and reduction order.  q: [B, T, H, 64]; for the
+// int8 kernel q arrives quantized per (b, t, h) with its scales [B, T, H],
+// and the kernel multiplies q_scale by k_scale[layer] itself (one fp32
+// product, as the single-token wrapper does outside its kernel).
+//
+// What bounds it on the H100: one layer's K and V, 24.6 MB at whisper-base
+// bucket 16 (7.3 us at 3.35 TB/s), read once for all T queries: that single
+// stream is the kernel's point.  T x 49 M int8 or fp32 operations stay
+// below it for any T a draft uses.  Design: one block of 256 threads per
+// (b, h).  The block copies its K and V tile ([S, 64] int8 each, 192 KB at
+// S = 1500) into shared memory once, then loops over the T queries against
+// the tile; T is a runtime value with no upper limit.  A tile that does not
+// fit 227 KB of shared memory (S > ~1730) stays in device memory, where the
+// block's T passes find it in L2; the results are the same.  Known cost: K
+// rows are 64 bytes apart, so the 16-byte row reads conflict four ways in
+// shared memory; a swizzled tile is the next step.
+#include "cross_attention.cuh"
+
+namespace {
+
+constexpr size_t SMEM_LIMIT = 232448;  // 227 KB a block may use on sm_90
+
+__host__ __device__ inline size_t round16(size_t n) { return (n + 15) & ~(size_t)15; }
+
+// Copy n16 16-byte words from device to shared memory with the whole block.
+__device__ __forceinline__ void stage_tile(int8_t* dst, const int8_t* src,
+                                           int n16) {
+  const int4* g = reinterpret_cast<const int4*>(src);
+  int4* s = reinterpret_cast<int4*>(dst);
+  for (int i = threadIdx.x; i < n16; i += CROSS_NT) s[i] = g[i];
+}
+
+template <bool STAGE>
+__global__ void __launch_bounds__(CROSS_NT)
+cross_multi_int8_kernel(const int8_t* __restrict__ q8,
+                        const float* __restrict__ q_scale,
+                        const float* __restrict__ k_scale,
+                        const float* __restrict__ v_scale,
+                        const int8_t* __restrict__ k8,
+                        const int8_t* __restrict__ v8, bf16* __restrict__ out,
+                        int B, int T, int H, int S, int layer, int s_valid) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sS = reinterpret_cast<float*>(smem);                    // [S]
+  int8_t* sP8 = reinterpret_cast<int8_t*>(smem + (size_t)S * 4);  // [S]
+  int8_t* sK = reinterpret_cast<int8_t*>(smem + round16((size_t)S * 5));
+  int8_t* sV = sK + (size_t)S * CROSS_DH;
+  __shared__ CrossScratch sc;
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const size_t lrow = ((size_t)layer * B + b) * H + h;
+  const size_t cbase = lrow * (size_t)S * CROSS_DH;
+  const int8_t* kc = k8 + cbase;
+  const int8_t* vc = v8 + cbase;
+  const int tid = threadIdx.x;
+  if (STAGE) {
+    stage_tile(sK, kc, S * CROSS_DH / 16);
+    stage_tile(sV, vc, S * CROSS_DH / 16);
+    kc = sK;
+    vc = sV;
+  }
+  const float ks = k_scale[lrow], vs = v_scale[lrow];
+  for (int t = 0; t < T; ++t) {
+    const size_t row = ((size_t)b * T + t) * H + h;
+    __syncthreads();  // the tile is staged; the last query's scratch is free
+    if (tid < CROSS_DH / 4)
+      sc.q8[tid] = reinterpret_cast<const int*>(q8 + row * CROSS_DH)[tid];
+    __syncthreads();
+    cross_head_int8(sc, __fmul_rn(q_scale[row], ks), vs, kc, vc,
+                    out + row * CROSS_DH, S, s_valid, sS, sP8);
+  }
+}
+
+template <bool STAGE>
+__global__ void __launch_bounds__(CROSS_NT)
+cross_multi_dequant_kernel(const bf16* __restrict__ q,
+                           const float* __restrict__ k_scale,
+                           const float* __restrict__ v_scale,
+                           const int8_t* __restrict__ k8,
+                           const int8_t* __restrict__ v8,
+                           bf16* __restrict__ out, int B, int T, int H, int S,
+                           int layer, int s_valid) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sS = reinterpret_cast<float*>(smem);                  // [S]
+  bf16* sP = reinterpret_cast<bf16*>(smem + (size_t)S * 4);    // [S]
+  int8_t* sK = reinterpret_cast<int8_t*>(smem + round16((size_t)S * 6));
+  int8_t* sV = sK + (size_t)S * CROSS_DH;
+  __shared__ CrossScratch sc;
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const size_t lrow = ((size_t)layer * B + b) * H + h;
+  const size_t cbase = lrow * (size_t)S * CROSS_DH;
+  const int8_t* kc = k8 + cbase;
+  const int8_t* vc = v8 + cbase;
+  const int tid = threadIdx.x;
+  if (STAGE) {
+    stage_tile(sK, kc, S * CROSS_DH / 16);
+    stage_tile(sV, vc, S * CROSS_DH / 16);
+    kc = sK;
+    vc = sV;
+  }
+  const float ks = k_scale[lrow], vs = v_scale[lrow];
+  for (int t = 0; t < T; ++t) {
+    const size_t row = ((size_t)b * T + t) * H + h;
+    __syncthreads();  // the tile is staged; the last query's scratch is free
+    if (tid < CROSS_DH)
+      sc.qf[tid] = __bfloat162float(q[row * CROSS_DH + tid]);
+    __syncthreads();
+    cross_head_dequant(sc, ks, vs, kc, vc, out + row * CROSS_DH, S, s_valid,
+                       sS, sP);
+  }
+}
+
+// Launch KERNEL<true> with the tile in shared memory when it fits, else
+// KERNEL<false> against device memory.
+template <typename K, typename... A>
+int launch(K staged, K direct, size_t head_bytes, int B, int H, int S,
+           cudaStream_t stream, A... args) {
+  const size_t small = round16(head_bytes);
+  const size_t big = small + 2 * (size_t)S * CROSS_DH;
+  // sizeof(CrossScratch) of static shared memory counts against the limit
+  if (big + sizeof(CrossScratch) + 64 <= SMEM_LIMIT) {
+    cudaError_t rc = cudaFuncSetAttribute(
+        (const void*)staged, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)big);
+    if (rc != cudaSuccess) return (int)rc;
+    staged<<<B * H, CROSS_NT, big, stream>>>(args...);
+  } else {
+    direct<<<B * H, CROSS_NT, small, stream>>>(args...);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+WT_EXPORT int wt_cross_attend_multi(const void* q8, const void* q_scale,
+                                    const void* k_scale, const void* v_scale,
+                                    const void* k8, const void* v8, void* out,
+                                    int B, int T, int H, int S, int layer,
+                                    int s_valid, void* stream) {
+  if (B < 1 || T < 1 || H < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  return launch(cross_multi_int8_kernel<true>, cross_multi_int8_kernel<false>,
+                (size_t)S * 5, B, H, S, (cudaStream_t)stream,
+                (const int8_t*)q8, (const float*)q_scale,
+                (const float*)k_scale, (const float*)v_scale,
+                (const int8_t*)k8, (const int8_t*)v8, (bf16*)out, B, T, H, S,
+                layer, s_valid);
+}
+
+WT_EXPORT int wt_cross_attend_multi_dequant(const void* q, const void* k_scale,
+                                            const void* v_scale,
+                                            const void* k8, const void* v8,
+                                            void* out, int B, int T, int H,
+                                            int S, int layer, int s_valid,
+                                            void* stream) {
+  if (B < 1 || T < 1 || H < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  return launch(cross_multi_dequant_kernel<true>,
+                cross_multi_dequant_kernel<false>, (size_t)S * 6, B, H, S,
+                (cudaStream_t)stream, (const bf16*)q, (const float*)k_scale,
+                (const float*)v_scale, (const int8_t*)k8, (const int8_t*)v8,
+                (bf16*)out, B, T, H, S, layer, s_valid);
+}

@@ -72,14 +72,17 @@ def make_session(device, params=None, variant: str = VARIANT,
 
 
 def run_once(session, audio: np.ndarray, token_collector=None,
-             max_new_tokens: int = 128):
-    """One long-form transcription of ``audio``: (text, Timing)."""
+             max_new_tokens: int = 128, speculative: bool = False,
+             draft_k: int = 4):
+    """One long-form transcription of ``audio``: (text, Timing);
+    ``speculative`` with the session's draft model."""
     from whisper_tpu_torch.pipeline.longform import transcribe_longform
 
     return transcribe_longform(
         session, audio, language="en", task="transcribe",
         max_new_tokens=max_new_tokens, chunk_length_s=30.0, overlap_s=5.0,
-        token_collector=token_collector)
+        token_collector=token_collector, speculative=speculative,
+        draft_k=draft_k)
 
 
 def main() -> None:

@@ -32,7 +32,10 @@ self cache is int8 with per-row scales and the step runs
 encoder's QKV/O products are W8A8 (``_dense(int8_act=True)``, an exact
 int8 product outside any kernel).  ``encoder_apply(fused_block=True)``
 runs ``ops.encoder_block`` (B9a, B1, then B9b or a plain O-projection and
-B2).  The hybrid decode step lives in ``ops.decoder_kernels``.
+B2).  The hybrid and the fully fused decode steps live in
+``ops.decoder_kernels``.  Speculative decoding (``runtime.speculative``)
+runs ``_decoder_blocks`` at per-row positions with plain self-attention and
+cross-attention through B4/B6 (a draft's step) or B7 (the verify pass).
 """
 
 from __future__ import annotations
@@ -296,33 +299,81 @@ def _decoder_mlp(x, p):
 
 
 def _decoder_blocks(params: Params, dims: WhisperDims, x, cache: KVCache,
-                    pos: int, self_mask):
-    """All decoder blocks in plain torch (prefill at every rung, and the
-    step at x0-x3): writes self-attention rows [pos, pos+S) of the cache in
-    place and attends per ``self_mask``.  An int8 self cache (x7) raises:
-    only the single-token kernel step reads it."""
+                    pos, self_mask, cross_len: Optional[int] = None,
+                    int8_mxu: bool = True):
+    """All decoder blocks with plain self-attention (prefill at every rung,
+    the step at x0-x3, and every pass of speculative decoding): writes
+    self-attention rows [pos, pos+S) of the cache in place and attends per
+    ``self_mask``.
+
+    pos: an int (all rows aligned) or a [B] tensor of per-row positions
+    (batched speculative decoding, where rows accept different draft
+    lengths): row r then writes rows [pos_r, pos_r+S), one indexed write per
+    layer and cache, in place and without a host sync.
+
+    cross_len (the encoder length) routes cross-attention through the
+    kernels against the int8 cross cache, the JAX package's packed-cross
+    generic block: one token a row through B4 (int8_mxu) or B6, S > 1 (the
+    verify pass) through B7.  An int8 self cache (x7) raises: only the
+    single-token kernel step reads it."""
     if cache.self_k_scale is not None:
         raise ValueError(
             "int8 self cache requires the single-token kernel decode step "
             "(kernel_step, scalar pos); use a bf16 cache for multi-token "
-            "passes")
+            "or per-row-position passes")
+    if cross_len is not None and cache.cross_k_scale is None:
+        raise ValueError("cross_len (the cross-attention kernels) needs the "
+                         "int8 cross cache")
     dec = params["decoder"]
     h = dims.decoder_heads
     s = x.shape[1]
+    rows = None
+    if isinstance(pos, torch.Tensor):
+        if pos.ndim != 1:
+            raise ValueError(f"pos must be an int or a [B] tensor, got "
+                             f"shape {tuple(pos.shape)}")
+        pos = pos.to(torch.long)
+        rows = (torch.arange(x.shape[0], device=x.device)[:, None],
+                pos[:, None] + torch.arange(s, device=x.device)[None, :])
+    if cross_len is not None:
+        from whisper_tpu_torch.ops.cross_attention import (
+            cross_attend_multi,
+            cross_attend_step,
+            cross_attend_step_dequant,
+        )
+
+        scale = dims.head_dim ** -0.5
+        ks = cache.cross_k_scale[:, :, :, 0, 0]                # [L, B, H]
+        vs = cache.cross_v_scale[:, :, :, 0, 0]
     for li in range(dims.decoder_layers):
         p = _layer(dec["blocks"], li)
         r = _layer_norm(x, p["ln_s"], p["ln_b"])
         q = _split_heads(_dense(r, p["q_w"], p["q_b"]), h)
-        cache.self_k[li, :, :, pos:pos + s] = _split_heads(
-            _dense(r, p["k_w"], None), h)
-        cache.self_v[li, :, :, pos:pos + s] = _split_heads(
-            _dense(r, p["v_w"], p["v_b"]), h)
+        k = _split_heads(_dense(r, p["k_w"], None), h)
+        v = _split_heads(_dense(r, p["v_w"], p["v_b"]), h)
+        if rows is None:
+            cache.self_k[li, :, :, pos:pos + s] = k
+            cache.self_v[li, :, :, pos:pos + s] = v
+        else:
+            # [B, S] row indices around the head axis: values [B, S, H, Dh]
+            cache.self_k[li][rows[0], :, rows[1]] = k.transpose(1, 2)
+            cache.self_v[li][rows[0], :, rows[1]] = v.transpose(1, 2)
         o = _attend(q, cache.self_k[li], cache.self_v[li], self_mask)
         x = x + _dense(_merge_heads(o), p["o_w"], p["o_b"])
 
         r = _layer_norm(x, p["x_ln_s"], p["x_ln_b"])
         q = _split_heads(_dense(r, p["xq_w"], p["xq_b"]), h)
-        if cache.cross_k_scale is not None:
+        if cross_len is not None and s == 1:
+            step = cross_attend_step if int8_mxu else cross_attend_step_dequant
+            o = step((q[:, :, 0, :] * scale).contiguous(), cache.cross_k,
+                     cache.cross_v, ks, vs, li,
+                     s_valid=cross_len)[:, :, None, :]
+        elif cross_len is not None:
+            qm = (q.transpose(1, 2) * scale).contiguous()    # [B, T, H, Dh]
+            o = cross_attend_multi(qm, cache.cross_k, cache.cross_v, ks, vs,
+                                   li, s_valid=cross_len,
+                                   int8_mxu=int8_mxu).transpose(1, 2)
+        elif cache.cross_k_scale is not None:
             o = _attend_int8(q, cache.cross_k[li], cache.cross_v[li],
                              cache.cross_k_scale[li], cache.cross_v_scale[li])
         else:
@@ -450,23 +501,41 @@ def decoder_prefill(params: Params, dims: WhisperDims, tokens, enc_states,
     return _logits(params, x), cache
 
 
-def decoder_step(params: Params, dims: WhisperDims, token, pos: int,
+def decoder_step(params: Params, dims: WhisperDims, token, pos,
                  cache: KVCache, *, kernel_step: bool = False,
                  cross_len: Optional[int] = None, int8_mxu: bool = True):
-    """One-token pass at cache slot ``pos`` (all rows aligned): logits
-    [B, V].  kernel_step runs B3 (B8 against an int8 self cache) and, per
-    int8_mxu, B4 (x5, x7) or B6 (x4); it needs the int8 cross cache.
-    Without it an int8 self cache raises."""
+    """One-token pass at cache slot ``pos``: logits [B, V].  pos is an int
+    (all rows aligned) or a [B] tensor that gives each row its own position
+    (batched speculative decoding).
+
+    kernel_step runs B3 (B8 against an int8 self cache) and, per int8_mxu,
+    B4 (x5, x7) or B6 (x4); it needs the int8 cross cache and an int pos.
+    Without it, cross_len (the encoder length) keeps plain self-attention
+    and runs cross-attention through B4 or B6 (the step a speculative draft
+    takes); with neither, every block is plain torch.  An int8 self cache
+    raises outside the kernel step."""
     dec = params["decoder"]
     dtype = dec["tok_emb"].dtype
-    x = dec["tok_emb"][token][:, None, :] + dec["pos_embed"][pos].to(dtype)
+    max_len = cache.self_k.shape[3]
+    ar = torch.arange(max_len, device=token.device)
+    if isinstance(pos, torch.Tensor):
+        if kernel_step:
+            raise ValueError(
+                "the kernel decode step (B3/B8) takes one position for all "
+                "rows; per-row positions run the plain self-attention "
+                "(kernel_step=False)")
+        pos_emb = dec["pos_embed"][pos].to(dtype)[:, None, :]   # [B, 1, d]
+        mask = (ar[None, :] <= pos[:, None])[:, None, None, :]  # [B,1,1,S]
+    else:
+        pos_emb = dec["pos_embed"][pos].to(dtype)
+        mask = (ar <= pos)[None, :]
+    x = dec["tok_emb"][token][:, None, :] + pos_emb
     if kernel_step:
         x, cache = _decoder_blocks_kernel(params, dims, x, cache, pos,
                                           cross_len, int8_mxu)
     else:
-        max_len = cache.self_k.shape[3]
-        mask = (torch.arange(max_len, device=x.device) <= pos)[None, :]
-        x, cache = _decoder_blocks(params, dims, x, cache, pos, mask)
+        x, cache = _decoder_blocks(params, dims, x, cache, pos, mask,
+                                   cross_len=cross_len, int8_mxu=int8_mxu)
     return _logits(params, x)[:, 0, :], cache
 
 
@@ -571,7 +640,7 @@ class WhisperDecoder(_StackedWeights):
         super().__init__(tree, device)
         self.dims = dims
 
-    def forward(self, token, pos: int, cache: KVCache, *,
+    def forward(self, token, pos, cache: KVCache, *,
                 kernel_step: bool = False, cross_len: Optional[int] = None,
                 int8_mxu: bool = True):
         return decoder_step({"decoder": self.tree()}, self.dims, token, pos,

@@ -1,5 +1,6 @@
-"""B4 and B6: one-token decoder cross-attention against the int8 cross
-cache (port of ``whisper_tpu.ops.cross_attention``, x5 and x4 paths).
+"""B4, B6 and B7: decoder cross-attention against the int8 cross cache
+(port of ``whisper_tpu.ops.cross_attention``): one token a call on the x5
+and x4 decode paths, T tokens a call in the speculative verify pass.
 
 ``cross_attend_step`` replaces the JAX package's Pallas
 ``cross_attend_step_packed(int8_mxu=True)`` (``_kernel_int8_mxu``).  As
@@ -25,6 +26,15 @@ softmax normalized before the cast to bf16, each bf16 p * bf16(V8)
 product rounded to bf16 and summed in fp32, then times v_scale.  On a
 CUDA tensor it launches ``csrc/cross_attention_dequant.cu``; on a CPU
 tensor it takes ``cross_attend_step_dequant_plain``.
+
+``cross_attend_multi`` (B7) replaces ``cross_attend_multi_packed``
+(``_kernel_multi_int8_mxu`` and ``_kernel_multi``): T queries per row
+against one layer's K/V, read once for all of them.  Each query's output
+is bit for bit what the single-token function gives for it (B4 with
+``int8_mxu``, else B6), on the card and in the plain version alike: that is
+what keeps speculative decoding equal to greedy decoding.  On a CUDA tensor
+it launches ``csrc/cross_attention_multi.cu``; on a CPU tensor it takes
+``cross_attend_multi_plain``.
 """
 
 from __future__ import annotations
@@ -36,11 +46,12 @@ from whisper_tpu_torch.ops.common import check_operand, route
 
 launches = 0  # B4 kernel launches since the last reset (plain excluded)
 dequant_launches = 0  # B6 kernel launches since the last reset
+multi_launches = 0  # B7 launches (either kernel) since the last reset
 
 
 def quantize_q(q: torch.Tensor):
-    """Per-head symmetric int8 quantization of q [B, H, Dh] (the JAX
-    wrapper's): returns (q8 int8, q_scale [B, H] fp32)."""
+    """Per-head symmetric int8 quantization of q [..., H, Dh] (the JAX
+    wrapper's): returns (q8 int8, q_scale [..., H] fp32)."""
     q32 = q.float()
     absmax = q32.abs().amax(dim=-1, keepdim=True)
     qscale = torch.clamp_min(absmax, 1e-12) / 127.0
@@ -101,8 +112,10 @@ def cross_attend_step(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     qks = (qscale * k_scale[layer].float()).contiguous()
     vds = v_scale[layer].float().contiguous()
     check_operand("q8", q8, torch.int8, (b, h, dh), q.device)
+    # the kernel reads one scale a block; a layer's slice of [L, B, H] need
+    # not lie on a 16-byte boundary (6 heads at bucket 1)
     for name, x in (("qk_scale", qks), ("v_scale", vds)):
-        check_operand(name, x, torch.float32, (b, h), q.device)
+        check_operand(name, x, torch.float32, (b, h), q.device, align=4)
     for name, x in (("k8", k8), ("v8", v8)):
         check_operand(name, x, torch.int8, (n_layers, b, h, s_max, dh),
                       q.device)
@@ -169,4 +182,69 @@ def cross_attend_step_dequant(q: torch.Tensor, k8: torch.Tensor,
         v8.data_ptr(), out.data_ptr(), b, h, s_max, int(layer), int(s_valid),
         kernels.stream_ptr(q.device)), "cross_attend_step_dequant")
     dequant_launches += 1
+    return out
+
+
+def cross_attend_multi_plain(q, k8, v8, k_scale, v_scale, layer: int, *,
+                             s_valid: int,
+                             int8_mxu: bool = False) -> torch.Tensor:
+    """Reference version of B7, with the wrapper's arguments: the
+    single-token plain version (B4's with int8_mxu, else B6's) applied to
+    each of the T queries, so each query is bitwise what that function
+    gives."""
+    one = cross_attend_step_plain if int8_mxu \
+        else cross_attend_step_dequant_plain
+    return torch.stack([one(q[:, t], k8, v8, k_scale, v_scale, layer,
+                            s_valid=s_valid) for t in range(q.shape[1])],
+                       dim=1)
+
+
+def cross_attend_multi(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
+                       k_scale: torch.Tensor, v_scale: torch.Tensor,
+                       layer: int, *, s_valid: int,
+                       int8_mxu: bool = False) -> torch.Tensor:
+    """T-query cross-attention against the int8 cache of one layer (the
+    speculative verify pass, T = draft_k + 1).
+
+    q: [B, T, H, 64] (pre-scaled by 64^-0.5); k8, v8: [L, B, H, S, 64]
+    int8; k_scale, v_scale: [L, B, H] fp32.  int8_mxu: both dots int8 x
+    int8 with q quantized per (b, t, h) here (the x5 numerics), else the
+    cache is dequantized in the kernel (x4).  Returns ctx [B, T, H, 64] in
+    q's dtype.  T is any positive number."""
+    if route(q) == "plain":
+        return cross_attend_multi_plain(q, k8, v8, k_scale, v_scale, layer,
+                                        s_valid=s_valid, int8_mxu=int8_mxu)
+    global multi_launches
+    b, t, h, dh = q.shape
+    n_layers, s_max = k8.shape[0], k8.shape[3]
+    if dh != 64 or q.dtype != torch.bfloat16:
+        raise ValueError("cross_attend_multi kernel needs bf16 q with "
+                         f"head_dim 64, got {q.dtype} / {dh}")
+    if not (0 <= layer < n_layers and 0 < s_valid <= s_max and t >= 1):
+        raise ValueError(f"layer {layer} / s_valid {s_valid} / T {t} outside "
+                         f"the cache [{n_layers}, {s_max}]")
+    check_operand("q", q, torch.bfloat16, (b, t, h, dh), q.device)
+    for name, x in (("k_scale", k_scale), ("v_scale", v_scale)):
+        check_operand(name, x, torch.float32, (n_layers, b, h), q.device)
+    for name, x in (("k8", k8), ("v8", v8)):
+        check_operand(name, x, torch.int8, (n_layers, b, h, s_max, dh),
+                      q.device)
+    out = torch.empty_like(q)
+    lib = kernels.library()
+    dims = (b, t, h, s_max, int(layer), int(s_valid),
+            kernels.stream_ptr(q.device))
+    if int8_mxu:
+        q8, qscale = quantize_q(q)           # [B,T,H,64] int8, [B,T,H] fp32
+        check_operand("q8", q8, torch.int8, (b, t, h, dh), q.device)
+        check_operand("q_scale", qscale, torch.float32, (b, t, h), q.device)
+        kernels.check(lib.wt_cross_attend_multi(
+            q8.data_ptr(), qscale.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), k8.data_ptr(), v8.data_ptr(), out.data_ptr(),
+            *dims), "cross_attend_multi")
+    else:
+        kernels.check(lib.wt_cross_attend_multi_dequant(
+            q.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+            k8.data_ptr(), v8.data_ptr(), out.data_ptr(), *dims),
+            "cross_attend_multi_dequant")
+    multi_launches += 1
     return out

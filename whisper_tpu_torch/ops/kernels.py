@@ -29,8 +29,11 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("attention.cu", "encoder_mlp.cu", "self_attention.cu",
            "cross_attention.cu", "cross_attention_dequant.cu", "log_mel.cu",
-           "self_attention_int8.cu", "encoder_block.cu", "decoder_mlp.cu")
-HEADERS = ("common.cuh", "encoder_ffn.cuh")
+           "self_attention_int8.cu", "encoder_block.cu", "decoder_mlp.cu",
+           "cross_attention_multi.cu", "decoder_self_block.cu",
+           "decoder_cross_block.cu")
+HEADERS = ("common.cuh", "encoder_ffn.cuh", "cross_attention.cuh",
+           "decoder_block.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 LIB_NAME = "libwhisper_tpu_torch.so"
@@ -65,6 +68,18 @@ SIGNATURES = {
     "wt_fused_out_mlp": [_P] * 11 + [_I, _I, _I, _P],
     # x, ln, w1, b1, w2, b2, h scratch, out, batch, d, f, stream
     "wt_decoder_mlp": [_P] * 8 + [_I, _I, _I, _P],
+    # q8, q_scale, k_scale, v_scale, k8, v8, out, batch, T, heads, S, layer,
+    # s_valid, stream
+    "wt_cross_attend_multi": [_P] * 7 + [_I] * 6 + [_P],
+    # q, k_scale, v_scale, k8, v8, out, batch, T, heads, S, layer, s_valid,
+    # stream
+    "wt_cross_attend_multi_dequant": [_P] * 6 + [_I] * 6 + [_P],
+    # x, ln, qkv_w, qkv_b, o_w, o_b, cache_k, cache_v, q scratch, ctx
+    # scratch, out, batch, d, heads, S, pos, stream
+    "wt_decoder_self_block": [_P] * 11 + [_I] * 5 + [_P],
+    # x, ln, q_w, q_b, o_w, o_b, cross_k, cross_v, q scratch, ctx scratch,
+    # out, batch, d, heads, T, stream
+    "wt_decoder_cross_block": [_P] * 11 + [_I] * 4 + [_P],
 }
 
 _lib = None          # the loaded library (one per process)

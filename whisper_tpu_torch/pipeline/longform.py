@@ -11,7 +11,8 @@ src/main.rs:834-1008):
 
 Device work is fenced with ``torch.cuda.synchronize`` inside each timed
 region, so the breakdown is honest.  Greedy decoding with an explicit
-language only: the rest raises NotImplementedError naming its ROADMAP item.
+language, plain or speculative (a draft model attached to the session):
+the rest raises NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ def transcribe_longform(
     initial_prompt_ids: Optional[list] = None,
     speculative: bool = False,
     token_collector: Optional[list] = None,
+    draft_k: int = 4,
 ) -> Tuple[str, Timing]:
     """Transcribe one 16 kHz mono array: (stitched text, Timing).
 
@@ -70,7 +72,10 @@ def transcribe_longform(
     device is synchronized before preprocess_s is read, so it measures the
     residual wait.
     token_collector: a list that receives the generated tokens
-    [n_chunks, max_new_tokens] (int32 numpy)."""
+    [n_chunks, max_new_tokens] (int32 numpy).
+    speculative: draft-and-verify decoding with the session's draft model
+    (``session.set_draft_model``), ``draft_k`` proposals a round; the text
+    is the greedy text."""
     for flag, item in ((language == "auto", "language 'auto' (detection): "
                         "ROADMAP queue 1 item 8"),
                        (timestamps, "timestamp decoding: ROADMAP queue 1 "
@@ -79,9 +84,7 @@ def transcribe_longform(
                        (word_collector is not None, "word timings: ROADMAP "
                         "queue 1 item 8"),
                        (bool(initial_prompt_ids), "conditioned prompts: "
-                        "ROADMAP queue 1 item 8"),
-                       (speculative, "speculative decoding: ROADMAP queue 1 "
-                        "item 11")):
+                        "ROADMAP queue 1 item 8")):
         if flag:
             raise NotImplementedError(item)
     t0 = time.perf_counter()
@@ -113,7 +116,8 @@ def transcribe_longform(
     tokens = session.transcribe_from_mel(
         mel, frame_starts, prompt=prompt, max_new_tokens=max_new_tokens,
         eot_id=special.eot, suppress_ids=gen_cfg.suppress_tokens,
-        begin_suppress_ids=gen_cfg.begin_suppress_tokens)
+        begin_suppress_ids=gen_cfg.begin_suppress_tokens,
+        speculative=speculative, draft_k=draft_k)
     model_only_s = time.perf_counter() - tm0   # gather_tokens synced
     if token_collector is not None:
         token_collector.append(tokens)

@@ -53,7 +53,7 @@ def warm_buckets(session, durations_s: Iterable[float], *, language: str,
                  overlap_s: float, tokenizer=None, timestamps: bool = False,
                  gen_cfg=None, num_beams: int = 1,
                  length_penalty: float = 1.0, initial_prompt_ids=None,
-                 speculative: bool = False) -> int:
+                 speculative: bool = False, draft_k: int = 4) -> int:
     """Transcribe synthetic zero audio once per distinct shape; returns the
     number of shapes warmed."""
     seen: Set[Tuple[int, frozenset]] = set()
@@ -69,5 +69,5 @@ def warm_buckets(session, durations_s: Iterable[float], *, language: str,
             session, audio, language, task, max_new_tokens, chunk_length_s,
             overlap_s, tokenizer, timestamps, gen_cfg, num_beams,
             length_penalty, initial_prompt_ids=initial_prompt_ids,
-            speculative=speculative)
+            speculative=speculative, draft_k=draft_k)
     return len(durs)

@@ -94,7 +94,8 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
         else:
             step_logits, cache = whisper.decoder_step(
                 params, dims, last, p + i - 1, cache,
-                kernel_step=kernel_step, cross_len=cross_len,
+                kernel_step=kernel_step,
+                cross_len=cross_len if kernel_step else None,
                 int8_mxu=int8_mxu)
         nxt = torch.argmax(step_logits.float() + suppress_mask, dim=-1)
         nxt = torch.where(done, eot_id, nxt)

@@ -11,8 +11,11 @@ greedy decoding per batch bucket.
 Every flag of ``RuntimeCfg`` runs for the greedy path: the ladder's rungs
 x0-x7 (x6: the W8A8 encoder; x7: the int8 self cache through kernel B8),
 ``fused_encoder_block`` (kernels B9a, B1 and B9b, or B2 at d >= 1024) and
-``fused_decoder_step`` (the hybrid step with kernel B10c).  What the port
-does not carry (meshes, the wire encodings, and the decoding features
+``fused_decoder_step`` (the hybrid step with kernel B10c).
+``set_draft_model`` attaches a draft for speculative decoding
+(``transcribe_from_mel(speculative=True)``, ``runtime.speculative``: the
+verify pass runs kernel B7 where the greedy step runs B4 or B6).  What the
+port does not carry (meshes, the wire encodings, and the decoding features
 ``transcribe_from_mel`` names) raises ``NotImplementedError`` naming its
 ROADMAP item; nothing silently takes another path.
 """
@@ -233,6 +236,10 @@ class WhisperSession:
         # step; on dims without the kernel step x7 behaves as x5 does there.
         self._int8_self = bool(self.cfg.int8_self_kv and self._int8_mxu)
         self._masks: Dict = {}
+        self._draft = None  # (encoder or None, decoder params, dims)
+        # (verify rounds, committed tokens [B] on the device) per batch
+        # bucket of the last speculative transcribe_from_mel call
+        self.speculative_stats: list = []
 
     def _batch_bucket(self, n: int) -> int:
         """Power-of-two batch bucket, capped at max_batch."""
@@ -338,10 +345,22 @@ class WhisperSession:
                             begin_suppress_ids: Sequence[int] | None = None,
                             *, num_beams: int = 1, ts_cfg=None,
                             temperature: float = 0.0, pad_count=None,
-                            speculative: bool = False) -> np.ndarray:
+                            speculative: bool = False,
+                            draft_k: int = 4) -> np.ndarray:
         """Transcribe the 3000-frame chunks sliced (on the device) from a
         whole-file mel [n_mels, F]: tokens [len(frame_starts),
-        max_new_tokens]."""
+        max_new_tokens].  speculative: draft-and-verify over the chunk batch
+        with the attached draft model (``set_draft_model``), ``draft_k``
+        proposals a round; plain greedy decoding only."""
+        if speculative:
+            if not self.has_draft:
+                raise RuntimeError(
+                    "speculative=True requires set_draft_model first")
+            if (num_beams > 1 or ts_cfg is not None or temperature > 0.0
+                    or pad_count is not None):
+                raise ValueError(
+                    "speculative long-form composes with plain greedy only "
+                    "(no beams/timestamps/temperature/scores/conditioning)")
         for flag, item in ((num_beams > 1, "beam search: ROADMAP queue 1 "
                             "item 8"),
                            (ts_cfg is not None, "timestamp decoding: "
@@ -349,21 +368,26 @@ class WhisperSession:
                            (temperature > 0.0, "temperature sampling: "
                             "ROADMAP queue 1 item 4"),
                            (pad_count is not None, "conditioned prompts: "
-                            "ROADMAP queue 1 item 8"),
-                           (speculative, "speculative decoding: ROADMAP "
-                            "queue 1 item 11")):
+                            "ROADMAP queue 1 item 8")):
             if flag:
                 raise NotImplementedError(item)
         return self.gather_tokens(
             self.transcribe_from_mel_async(
                 mel, frame_starts, prompt, max_new_tokens, eot_id,
-                suppress_ids, begin_suppress_ids),
+                suppress_ids, begin_suppress_ids, speculative=speculative,
+                draft_k=draft_k),
             len(frame_starts), max_new_tokens)
 
     def transcribe_from_mel_async(self, mel, frame_starts, prompt,
                                   max_new_tokens, eot_id, suppress_ids=None,
-                                  begin_suppress_ids=None):
+                                  begin_suppress_ids=None, *,
+                                  speculative: bool = False,
+                                  draft_k: int = 4):
         """Per batch bucket: [(device tokens, start, n), ...]."""
+        if speculative and not self.has_draft:
+            raise RuntimeError(
+                "speculative=True requires set_draft_model first")
+        self.speculative_stats = []
         from whisper_tpu_torch.pipeline.chunk import CHUNK_FRAMES
 
         c = len(frame_starts)
@@ -384,6 +408,12 @@ class WhisperSession:
             chunks = torch.stack([mel_pad[:, s:s + CHUNK_FRAMES]
                                   for s in starts])
             enc = self.encoder(chunks)
+            if speculative:
+                pieces.append((self._speculative_tokens(
+                    chunks, enc, prompt_t, base_mask, first_mask,
+                    max_new_tokens, eot_id, draft_k), start, n))
+                start += n
+                continue
             toks = greedy_generate(
                 self._decoder_params, self.dims, enc, prompt_t, base_mask, first_mask,
                 max_new_tokens=max_new_tokens, eot_id=eot_id,
@@ -393,6 +423,86 @@ class WhisperSession:
             pieces.append((toks, start, n))
             start += n
         return pieces
+
+    # -- speculative decoding ------------------------------------------------
+
+    def set_draft_model(self, draft_params: Dict, draft_dims: WhisperDims,
+                        share_encoder: bool = False) -> None:
+        """Attach a draft model (e.g. a distilled decoder) for speculative
+        decoding at any batch size (``runtime.speculative``; per-row cache
+        positions let rows accept different draft lengths).  draft_params:
+        a numpy weight tree, as the session's own.
+
+        share_encoder: feed the MAIN model's encoder states to the draft's
+        decoder instead of running the draft's encoder (right for
+        distil-whisper checkpoints, whose decoder was distilled against the
+        frozen teacher encoder).  It needs equal widths; the draft's encoder
+        weights then never reach the device."""
+        if share_encoder and draft_dims.d_model != self.dims.d_model:
+            raise ValueError(
+                "share_encoder requires the draft to share the main "
+                f"model's width (draft d_model={draft_dims.d_model}, "
+                f"main {self.dims.d_model})")
+        if share_encoder:
+            draft_params = {"decoder": draft_params["decoder"]}
+        tree = params_from_numpy(draft_params, self.device,
+                                 self.cfg.torch_dtype)
+        # The draft's encoder runs plain: none of the fused flags.
+        encoder = None if share_encoder else WhisperEncoder(
+            tree["encoder"], draft_dims, device=self.device)
+        decoder = WhisperDecoder(tree["decoder"], draft_dims,
+                                 device=self.device)
+        self._draft = (encoder, {"decoder": decoder.tree()}, draft_dims)
+
+        # Sizing is advisory and never fatal: both models' parameters, KV
+        # caches and encoder states stay resident during a speculative
+        # decode.  max_len 132 = prompt (4) + the chunk decode's default 128
+        # new tokens; the cross caches dominate the total anyway.
+        warn = None
+        try:
+            from whisper_tpu_torch.utils import hbm
+
+            wb = torch.empty((), dtype=self.cfg.torch_dtype).element_size()
+            fp = hbm.decode_footprint(
+                self.dims, self.cfg.max_batch, 132, weight_bytes=wb,
+                kv_bytes=wb, int8_cross=self.cfg.int8_kv_cache,
+                draft_dims=draft_dims, shared_draft_encoder=share_encoder,
+                cache_copies=1.0)
+            warn = hbm.check_fit(fp, label="speculative decode "
+                                 f"(max_batch={self.cfg.max_batch})",
+                                 device=self.device)
+        except Exception:  # noqa: BLE001 (the estimate is a courtesy)
+            pass
+        if warn:
+            import warnings
+
+            warnings.warn(warn, ResourceWarning, stacklevel=2)
+
+    @property
+    def has_draft(self) -> bool:
+        return self._draft is not None
+
+    def _speculative_tokens(self, chunks, enc, prompt_t, base_mask,
+                            first_mask, max_new_tokens: int, eot_id: int,
+                            draft_k: int) -> torch.Tensor:
+        """Draft-and-verify over one chunk batch: device tokens [B,
+        max_new_tokens].  The cross caches follow cfg.int8_kv_cache and the
+        kernels the session's rung: the draft's steps through B4/B6, the
+        verify pass through B7."""
+        from whisper_tpu_torch.runtime.speculative import speculative_generate
+
+        d_encoder, d_params, d_dims = self._draft
+        enc_d = enc if d_encoder is None else d_encoder(chunks)
+        packed = bool(self.cfg.packed_cross_kv and self.cfg.int8_kv_cache)
+        toks, rounds, n_committed = speculative_generate(
+            self._decoder_params, self.dims, d_params, d_dims, enc, enc_d,
+            prompt_t, base_mask, first_mask, max_new_tokens=max_new_tokens,
+            eot_id=eot_id, draft_k=draft_k,
+            int8_cross_kv=self.cfg.int8_kv_cache, packed_draft=packed,
+            packed_main=packed,
+            int8_mxu=bool(self.cfg.int8_mxu_attn and packed))
+        self.speculative_stats.append((rounds, n_committed))
+        return toks
 
     @staticmethod
     def gather_tokens(pieces, c: int, max_new_tokens: int) -> np.ndarray:

@@ -1,0 +1,173 @@
+"""Device-memory footprint estimator (port of ``whisper_tpu.utils.hbm``): a
+gate that warns before a decode that cannot fit the card.
+
+A speculative decode keeps TWO models' parameters, KV caches and encoder
+states resident.  The sizes follow from static shapes, so they can be
+priced before anything is allocated, and an operator can shrink
+``max_batch`` while that is still cheap.
+
+Estimates cover the long-lived residents: parameters, KV caches (self and
+cross, floating point or int8) and encoder states.  Temporaries (attention
+scores, activations of one layer) are excluded: they are small next to the
+residents at decode shapes.  Treat the numbers as a tight lower bound and
+keep 5-10% headroom.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional
+
+from whisper_tpu_torch.models.registry import WhisperDims
+
+BUDGET_ENV = "WHISPER_TPU_HBM_GB"  # the JAX package's name, kept
+
+
+def _param_counts(dims: WhisperDims) -> tuple:
+    """(encoder, decoder) parameter counts of the tree
+    ``models.convert.init_params`` builds."""
+    d, f = dims.d_model, dims.d_ffn
+    le, ld = dims.encoder_layers, dims.decoder_layers
+
+    attn = 4 * d * d + 3 * d                     # q/k/v/o weights, q/v/o bias
+    mlp = d * f + f + f * d + d                  # fc1 + fc2
+    ln = 2 * d                                   # scale + bias
+
+    enc_layer = ln + attn + ln + mlp
+    enc = (
+        3 * dims.n_mels * d + d                  # conv1
+        + 3 * d * d + d                          # conv2
+        + dims.max_source_positions * d          # (sinusoidal, still stored)
+        + le * enc_layer
+        + ln                                     # ln_f
+    )
+    dec_layer = ln + attn + ln + attn + ln + mlp  # self + cross + mlp
+    dec = (
+        dims.vocab_size * d
+        + dims.max_target_positions * d
+        + ld * dec_layer
+        + ln
+    )
+    return enc, dec
+
+
+def param_count(dims: WhisperDims) -> int:
+    """Exact parameter count of the tree ``models.convert.init_params``
+    builds (converted checkpoints mirror it)."""
+    return sum(_param_counts(dims))
+
+
+def param_bytes(dims: WhisperDims, bytes_per_el: int = 2) -> int:
+    """Resident weight bytes (2 = bf16, 4 = fp32; the int8 variants store
+    the matmul weights at 1 byte plus fp32 scales, about half of bf16)."""
+    return param_count(dims) * bytes_per_el
+
+
+def kv_cache_bytes(dims: WhisperDims, batch: int, max_len: int,
+                   enc_len: Optional[int] = None, *, kv_bytes: int = 2,
+                   int8_cross: bool = False, int8_self: bool = False) -> int:
+    """Bytes of one decoder KV cache as ``models.whisper.decoder_prefill``
+    allocates it: self_k/self_v [L,B,H,max_len,Dh] and cross_k/cross_v
+    [L,B,H,enc_len,Dh] (plus fp32 per-(L,B,H) scales when int8)."""
+    enc_len = dims.max_source_positions if enc_len is None else enc_len
+    l, h, dh = dims.decoder_layers, dims.decoder_heads, dims.head_dim
+    self_el = l * batch * h * max_len * dh
+    cross_el = l * batch * h * enc_len * dh
+    total = 2 * self_el * (1 if int8_self else kv_bytes)
+    total += 2 * cross_el * (1 if int8_cross else kv_bytes)
+    scales = 2 * l * batch * h * 4                # fp32 [L,B,H,1,1] k+v
+    if int8_cross:
+        total += scales
+    if int8_self:
+        total += scales
+    return total
+
+
+def decode_footprint(dims: WhisperDims, batch: int, max_len: int,
+                     enc_len: Optional[int] = None, *, weight_bytes: int = 2,
+                     kv_bytes: int = 2, int8_cross: bool = False,
+                     int8_self: bool = False,
+                     draft_dims: Optional[WhisperDims] = None,
+                     shared_draft_params: bool = False,
+                     shared_draft_encoder: bool = False,
+                     cache_copies: float = 1.0) -> Dict[str, int]:
+    """Resident-set breakdown (bytes) of a greedy or speculative decode:
+    {'params', 'kv_cache', 'enc_states', 'draft_*', 'total'}.
+
+    draft_dims adds the draft's weights (unless shared_draft_params: the
+    same buffers serve both models), its cache, and its encoder states.
+    shared_draft_encoder (``set_draft_model(share_encoder=True)``): the
+    draft's decoder reads the main model's encoder states, so neither the
+    draft's encoder weights nor a second set of encoder states is resident.
+
+    cache_copies multiplies the KV-cache terms.  It is 1.0 here: eager
+    PyTorch updates the caches in place and carries no second copy of them
+    (the JAX package passes 2.0 for the copies its compiled decode loop
+    holds)."""
+    enc_len = dims.max_source_positions if enc_len is None else enc_len
+    out = {
+        "params": param_bytes(dims, weight_bytes),
+        "kv_cache": int(cache_copies * kv_cache_bytes(
+            dims, batch, max_len, enc_len, kv_bytes=kv_bytes,
+            int8_cross=int8_cross, int8_self=int8_self)),
+        "enc_states": batch * enc_len * dims.d_model * kv_bytes,
+    }
+    if draft_dims is not None:
+        draft_count = (_param_counts(draft_dims)[1] if shared_draft_encoder
+                       else param_count(draft_dims))
+        out["draft_params"] = (
+            0 if shared_draft_params else draft_count * weight_bytes
+        )
+        out["draft_kv_cache"] = int(cache_copies * kv_cache_bytes(
+            draft_dims, batch, max_len, enc_len, kv_bytes=kv_bytes,
+            int8_cross=int8_cross, int8_self=int8_self))
+        out["draft_enc_states"] = (
+            0 if shared_draft_encoder
+            else batch * enc_len * draft_dims.d_model * kv_bytes
+        )
+    out["total"] = sum(out.values())
+    return out
+
+
+def device_hbm_budget(device=None) -> Optional[int]:
+    """The card's memory in bytes: the ``WHISPER_TPU_HBM_GB`` override when
+    it parses as a number, else the total memory of ``device`` (the current
+    CUDA card).  A malformed override falls through to the card's figure.
+    None when there is no card to ask."""
+    env = os.environ.get(BUDGET_ENV)
+    if env:
+        try:
+            return int(float(env) * (1 << 30))
+        except ValueError:
+            pass
+    import torch
+
+    if device is not None and torch.device(device).type != "cuda":
+        return None
+    if not torch.cuda.is_available():
+        return None
+    _, total = torch.cuda.mem_get_info(device)
+    return int(total)
+
+
+def check_fit(footprint: Dict[str, int], budget: Optional[int] = None, *,
+              label: str = "decode", headroom: float = 0.95,
+              device=None) -> Optional[str]:
+    """A warning string when footprint['total'] exceeds headroom * budget;
+    None when it fits or the budget is unknown.  Callers warn or raise as
+    they see fit."""
+    budget = device_hbm_budget(device) if budget is None else budget
+    if not budget:
+        return None
+    total = footprint["total"]
+    if total <= headroom * budget:
+        return None
+    gib = 1 << 30
+    parts = ", ".join(
+        f"{k}={v / gib:.2f}" for k, v in footprint.items() if k != "total"
+    )
+    return (
+        f"{label}: resident device-memory estimate {total / gib:.2f} GiB "
+        f"exceeds {headroom:.0%} of the {budget / gib:.2f} GiB budget "
+        f"({parts}); reduce batch, shorten max_len, or enable int8 KV"
+    )
