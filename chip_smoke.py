@@ -7,7 +7,9 @@ What it does, in order (any failure raises and exits non-zero):
    them.
 2. Builds the CUDA kernels of ``whisper_tpu_torch/csrc`` with nvcc
    (sm_90a; one nvcc per source, all started together) and prints the
-   build time and each kernel's register use.
+   build time, each kernel's register use and, from the library's SASS,
+   that B1 holds warpgroup products and tensor-map loads and B4 bulk
+   copies.
 3. Runs each kernel (B1-B10c, sixteen rows) against its plain PyTorch
    version on the card at the shapes its path gives it (whisper-base, batch
    bucket 16: B1-B4 at x5, B6 at x4, B8 at x7, B9a/B9b with the fused
@@ -19,10 +21,15 @@ What it does, in order (any failure raises and exits non-zero):
    of 20 calls), the least time the card could take for the same work (the
    larger of its bytes over 3.35 TB/s and its operations over the peak rate
    for their type) and, where one PyTorch call computes the same function,
-   that call's time.  B7 is also held, query by query and bitwise, against
-   the single-token kernels B4 and B6 at T = 2, 5 and 9; what B10a writes
-   into the cache bitwise against the plain version at pos 0, 70 and 131;
-   B10b at T = 1500, 96 and 100.
+   that call's time.  B1 (wgmma, scores in registers) is also held at
+   whisper-medium's bucket-1 shape (16 heads) and at T = 100, and prints a
+   second bound, the 111 GFLOP its two-pass contract executes; B4 (a
+   cluster of blocks a head) also at bucket 1 with 6 heads and at S = 1504
+   with 1,500 valid columns, and its wrapper must put exactly one operation
+   on the card a call (counted by torch.profiler).  B7 is also held, query
+   by query and bitwise, against the single-token kernels B4 and B6 at T =
+   2, 5 and 9; what B10a writes into the cache bitwise against the plain
+   version at pos 0, 70 and 131; B10b at T = 1500, 96 and 100.
 4. Holds the port on the card against the port on the CPU (the kernels'
    plain versions) on a small input: an 80 s clip through the front end,
    the encoder and twelve teacher-forced decode steps.
@@ -127,6 +134,39 @@ def _bf16_steps(got, want) -> float:
     scale = torch.maximum(torch.maximum(got.abs(), want.abs()),
                           want.abs().mean())
     return float(((got - want).abs() / (scale * 2.0 ** -7)).max())
+
+
+def check_sass(lib_path) -> None:
+    """What the compiler made of the two kernels built on Hopper's own
+    instructions, read from the library with cuobjdump: the encoder
+    attention kernel must hold warpgroup products (HGMMA) and tensor-map
+    loads (UTMALDG), the cross-attention step bulk copies (UBLKCP)."""
+    import re
+    import shutil
+    import subprocess
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.isfile(tool):
+        print("[sass] cuobjdump not found: instruction counts not read",
+              flush=True)
+        return
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    # the mangled names, with their lengths: no other kernel's name ends so
+    want = {"11attn_kernelE": ("HGMMA", "UTMALDG"),
+            "17cross_step_kernelE": ("UBLKCP",)}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0]
+        for kernel, ops in want.items():
+            if kernel not in name:
+                continue
+            counts = {op: len(re.findall(rf"\b{op}\b", part))
+                      for op in ops + ("SYNCS", "MUFU")}
+            print(f"[sass] {kernel[2:-1]}: {counts}", flush=True)
+            missing = [op for op in ops if counts[op] == 0]
+            if missing:
+                raise AssertionError(f"{kernel[2:-1]}: no {missing} in its "
+                                     "SASS")
 
 
 def check_kernels(card: str) -> list:
@@ -422,6 +462,9 @@ def check_kernels(card: str) -> list:
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": library_ms})
 
+    by_name = {r["name"]: r for r in out}
+    check_b1_b4_edges(card, by_name, randn, q.shape, (qx, k8, v8, ks, vs))
+
     # B7 against the kernels it repeats: every query bitwise the
     # single-token kernel's (B4, B6) on that query, at T = 2, 5 and 9, and
     # its time beside T calls of that kernel.
@@ -484,6 +527,94 @@ def check_kernels(card: str) -> list:
           "plain version's, other rows untouched; B10b at T = 1500, 96, 100 "
           "within 2 bf16 steps", flush=True)
     return out
+
+
+def _device_ops_per_call(fn, calls: int = 5) -> float:
+    """Operations (kernels, copies, memsets) that one call of ``fn`` puts on
+    the card, counted by torch.profiler over ``calls`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n / calls
+
+
+def check_b1_b4_edges(card: str, by_name, randn, b1_shape, b4_args) -> None:
+    """B1 and B4 beyond the main path's shape, and what their redesign
+    promises: B1's second bound (the operations its two-pass contract
+    executes: Q.K^T twice, P.V once), B1 at whisper-medium's bucket-1 shape
+    and at T = 100; B4 with 6 heads at bucket 1 and with a masked tail; one
+    device operation a call of B4's wrapper."""
+    import torch
+
+    from whisper_tpu_torch.ops import attention, cross_attention
+
+    b, h, t, dh = b1_shape
+    row = by_name["fused_attention"]
+    row["two_pass_bound_ms"] = 6 * b * h * t * t * dh / PEAK_OPS["bf16"] * 1e3
+    print(f"[kernel] fused_attention: {row['ms']:.4f} ms against the "
+          f"function's bound {row['bound_ms']:.5f} ms, the two-pass "
+          f"contract's {row['two_pass_bound_ms']:.5f} ms (6 B H T^2 Dh "
+          f"operations) and the library call {row['library_ms']:.4f} ms on "
+          f"{card}", flush=True)
+    for bh, t_ in ((16, 1500), (16, 100)):
+        qe, ke, ve = (randn(1, bh, t_, dh, scale=dh ** -0.5),
+                      randn(1, bh, t_, dh), randn(1, bh, t_, dh))
+        got = attention.fused_attention(qe, ke, ve)
+        steps = _bf16_steps(got, attention.fused_attention_plain(qe, ke, ve))
+        if steps > 2.0 or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"B1 at B*H = {bh}, T = {t_}: {steps:.3g} "
+                                 "bf16 steps from the plain version")
+        ms = _median_ms(lambda: attention.fused_attention(qe, ke, ve))
+        lib = _median_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qe, ke, ve, scale=1.0))
+        print(f"[kernel] B1 at B*H = {bh}, T = {t_}: {steps:.3g} bf16 steps; "
+              f"{ms:.4f} ms, library call {lib:.4f} ms on {card}", flush=True)
+
+    qx, k8, v8, ks, vs = b4_args
+    n_l, _, _, s, _ = k8.shape
+    g = torch.Generator(device="cuda").manual_seed(1)
+    cases = []
+    # bucket 1 with whisper-tiny's 6 heads: a layer's scales off the
+    # 16-byte grid; then a cache padded to 1,504 with 1,500 valid columns
+    for b_, h_, s_, valid in ((1, 6, s, s), (16, 8, 1504, 1500)):
+        k8e = torch.randint(-127, 128, (n_l, b_, h_, s_, 64), generator=g,
+                            device="cuda", dtype=torch.int8)
+        v8e = torch.randint(-127, 128, (n_l, b_, h_, s_, 64), generator=g,
+                            device="cuda", dtype=torch.int8)
+        kse = torch.rand(n_l, b_, h_, generator=g, device="cuda") * 0.02 + 1e-3
+        vse = torch.rand(n_l, b_, h_, generator=g, device="cuda") * 0.02 + 1e-3
+        qe = randn(b_, h_, 64, scale=0.125)
+        args = (qe, k8e, v8e, kse, vse, 1)
+        got = cross_attention.cross_attend_step(*args, s_valid=valid)
+        steps = _bf16_steps(got, cross_attention.cross_attend_step_plain(
+            *args, s_valid=valid))
+        again = cross_attention.cross_attend_step(*args, s_valid=valid)
+        if steps > 2.0 or not torch.equal(got, again):
+            raise AssertionError(f"B4 at B = {b_}, H = {h_}, S = {s_}, "
+                                 f"s_valid = {valid}: {steps:.3g} bf16 steps,"
+                                 " or two calls differ")
+        ms = _median_ms(lambda: cross_attention.cross_attend_step(
+            *args, s_valid=valid))
+        cases.append(f"B = {b_}, H = {h_}, S = {s_}/{valid}: {steps:.3g} "
+                     f"bf16 steps, {ms:.4f} ms")
+    ops = _device_ops_per_call(lambda: cross_attention.cross_attend_step(
+        qx, k8, v8, ks, vs, 2, s_valid=s))
+    by_name["cross_attend_step"]["device_ops_per_call"] = ops
+    if ops != 1.0:
+        raise AssertionError(f"B4's wrapper puts {ops} operations on the "
+                             "card a call, expected its one kernel")
+    print(f"[kernel] B4: {ops:g} device operation a call (torch.profiler); "
+          + "; ".join(cases) + f" on {card}", flush=True)
 
 
 # The kernels of the headline main path (x5, a 301.574 s file: streamed
@@ -1101,6 +1232,7 @@ def main() -> None:
         for line in log.read_text().splitlines():
             if "Used" in line or "spill" in line:
                 print(f"[ptxas] {line.strip()}", flush=True)
+    check_sass(lib)
 
     results = check_kernels(card)
 

@@ -54,14 +54,37 @@ def _assert_close(got, want, steps=2.0):
     assert err <= steps, f"{err:.2f} bf16 steps"
 
 
-@pytest.mark.parametrize("t", [1500, 200, 64, 1])
-def test_b1_kernel_matches_plain(gen, t):
-    q = _randn(gen, 2, 3, t, 64, scale=0.5)
-    k, v = _randn(gen, 2, 3, t, 64), _randn(gen, 2, 3, t, 64)
+@pytest.mark.parametrize("bh", [(2, 3), (16, 8)])
+@pytest.mark.parametrize("t", [1500, 1499, 200, 100, 65, 64, 17, 1])
+def test_b1_kernel_matches_plain(gen, t, bh):
+    """A whole number of 128-key tiles and not, one tile, one key; T no
+    multiple of 16 (the last P.V depth step) and of 8; 6 and 128 heads.  q
+    has scale 0.5 (sharply peaked rows) at 6 heads and the encoder's 64^-0.5
+    at 128: over the 12.3 M outputs of 128 peaked heads the plain version
+    itself lies more than 2 steps from the exactly computed contract
+    (``python -m whisper_tpu_torch.kernel_variants`` prints both distances)."""
+    b, h = bh
+    q = _randn(gen, b, h, t, 64, scale=0.5 if b * h < 100 else 0.125)
+    k, v = _randn(gen, b, h, t, 64), _randn(gen, b, h, t, 64)
     before = attention.launches
     got = attention.fused_attention(q, k, v)
     assert attention.launches == before + 1
     _assert_close(got, attention.fused_attention_plain(q, k, v))
+
+
+def test_b1_peaked_scores(gen):
+    """Scores up to 128 apart within a row (p from 1 down to 2^-92 and an
+    exact 0 on the masked tail), T = 100: one tile, the last depth step of
+    P.V partly past T."""
+    t = 100
+    idx = torch.arange(t, device="cuda")
+    q = torch.zeros(1, 1, t, 64, device="cuda", dtype=BF)
+    k = torch.zeros(1, 1, t, 64, device="cuda", dtype=BF)
+    q[0, 0, idx, idx % 64] = 64.0
+    k[0, 0, idx, idx % 64] = 1.0 + (idx // 64).to(BF)
+    v = _randn(gen, 1, 1, t, 64)
+    _assert_close(attention.fused_attention(q, k, v),
+                  attention.fused_attention_plain(q, k, v))
 
 
 @pytest.mark.parametrize("b,t,d,f", [(2, 37, 512, 2048), (1, 1500, 384, 1536),
@@ -95,22 +118,96 @@ def test_b3_kernel_matches_plain_and_inserts_in_place(gen, pos, pads):
                                                               vn)
 
 
-@pytest.mark.parametrize("s,s_valid", [(96, 96), (1504, 1500), (1500, 1500)])
-def test_b4_kernel_matches_plain(gen, s, s_valid):
-    n_l, b, h = 2, 3, 8
-    q = _randn(gen, b, h, 64, scale=0.125)
+def _cross_cache(gen, n_l, b, h, s):
     k8 = torch.randint(-127, 128, (n_l, b, h, s, 64), generator=gen,
                        device="cuda", dtype=torch.int8)
     v8 = torch.randint(-127, 128, (n_l, b, h, s, 64), generator=gen,
                        device="cuda", dtype=torch.int8)
     ks = torch.rand(n_l, b, h, generator=gen, device="cuda") * 0.02 + 1e-3
     vs = torch.rand(n_l, b, h, generator=gen, device="cuda") * 0.02 + 1e-3
+    return k8, v8, ks, vs
+
+
+@pytest.mark.parametrize("b,h", [(1, 6), (3, 8), (16, 8)])
+@pytest.mark.parametrize("s,s_valid", [(96, 96), (192, 192), (193, 193),
+                                       (1500, 1500), (1501, 1501),
+                                       (1504, 1500), (2000, 1900)])
+def test_b4_kernel_matches_plain(gen, s, s_valid, b, h):
+    """One segment of 192 rows, exactly one, one row more, eight (the last
+    one short), an odd S (a row is 64 bytes, so every segment's bulk copy
+    is a multiple of 16 bytes on a 16-byte boundary whatever S is), a masked
+    tail, and more segments than a cluster has blocks (S = 2000: eleven, so
+    three blocks walk two)."""
+    n_l = 2
+    q = _randn(gen, b, h, 64, scale=0.125)
+    k8, v8, ks, vs = _cross_cache(gen, n_l, b, h, s)
     before = cross_attention.launches
     got = cross_attention.cross_attend_step(q, k8, v8, ks, vs, 1,
                                             s_valid=s_valid)
     assert cross_attention.launches == before + 1
     _assert_close(got, cross_attention.cross_attend_step_plain(
         q, k8, v8, ks, vs, 1, s_valid=s_valid))
+    again = cross_attention.cross_attend_step(q, k8, v8, ks, vs, 1,
+                                              s_valid=s_valid)
+    assert torch.equal(got, again)
+
+
+def test_b4_launches_one_device_operation(gen):
+    """The wrapper's launch is all it puts on the card: the kernel quantizes
+    q and combines the scales itself."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q = _randn(gen, 16, 8, 64, scale=0.125)
+    k8, v8, ks, vs = _cross_cache(gen, 2, 16, 8, 1500)
+    cross_attention.cross_attend_step(q, k8, v8, ks, vs, 1, s_valid=1500)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            cross_attention.cross_attend_step(q, k8, v8, ks, vs, 1,
+                                              s_valid=1500)
+        torch.cuda.synchronize()
+    ops = {e.key: e.count for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert sum(ops.values()) == 3 and len(ops) == 1, ops
+
+
+def test_b4_quantizes_q_as_quantize_q_does(gen):
+    """The kernel's q quantization against ``quantize_q``, read from the
+    output.  Per head q has one dominant element (-127 s, s a power of two,
+    so the scale is s exactly) and ties (n + 0.5) s elsewhere, which only a
+    true division and round-half-to-even send to the even neighbour.  K8 row
+    r is the unit vector of column r and V8 row r likewise, so scores are
+    q8[r] / 2 and out[r] is proportional to p8[r] = rint(127 e^((q8[r] -
+    max) / 2)): levels far from any tie, a different level for each q8.  The
+    plain version (``quantize_q``) on the same tensors must give the same
+    output; the same arithmetic fed q8 rounded half away from zero must
+    not."""
+    b, h, s = 2, 8, 64
+    n = torch.randint(0, 7, (b, h, 64), generator=gen, device="cuda")
+    sc = 2.0 ** -torch.randint(5, 9, (b, h, 1), generator=gen, device="cuda")
+    q = (n + 0.5) * sc
+    q[:, :, 63] = -127.0 * sc[..., 0]
+    q = q.to(BF)
+    eye = torch.eye(64, device="cuda", dtype=torch.int8)
+    k8 = eye.expand(1, b, h, s, 64).contiguous()
+    v8 = k8.clone()
+    ks = (0.5 / sc[..., 0])[None].contiguous()
+    vs = torch.ones(1, b, h, device="cuda")
+    q8, qs = cross_attention.quantize_q(q)
+    assert torch.equal(qs, sc[..., 0]) and bool((q8[..., :63] % 2 == 0).all())
+    got = cross_attention.cross_attend_step(q, k8, v8, ks, vs, 0, s_valid=s)
+    want = cross_attention.cross_attend_step_plain(q, k8, v8, ks, vs, 0,
+                                                   s_valid=s)
+    _assert_close(got, want, steps=0.51)
+    # the same arithmetic on q8 rounded half away from zero (n + 1
+    # everywhere) lands far from the kernel's output
+    away = (n + 1).float()
+    away[:, :, 63] = -127.0
+    e = torch.exp((away - away.amax(-1, keepdim=True)) * 0.5)
+    wrong = torch.round(127.0 * e) / (127.0 * e.sum(-1, keepdim=True))
+    moved = (got.float() - wrong).abs() > 4 * 2.0 ** -8 * wrong.abs()
+    assert float(moved[..., :63].float().mean()) > 0.25
 
 
 def test_b4_takes_a_layer_slice_off_the_16_byte_grid(gen):
@@ -119,12 +216,7 @@ def test_b4_takes_a_layer_slice_off_the_16_byte_grid(gen):
     block and takes it."""
     n_l, b, h, s = 3, 1, 6, 200
     q = _randn(gen, b, h, 64, scale=0.125)
-    k8 = torch.randint(-127, 128, (n_l, b, h, s, 64), generator=gen,
-                       device="cuda", dtype=torch.int8)
-    v8 = torch.randint(-127, 128, (n_l, b, h, s, 64), generator=gen,
-                       device="cuda", dtype=torch.int8)
-    ks = torch.rand(n_l, b, h, generator=gen, device="cuda") * 0.02 + 1e-3
-    vs = torch.rand(n_l, b, h, generator=gen, device="cuda") * 0.02 + 1e-3
+    k8, v8, ks, vs = _cross_cache(gen, n_l, b, h, s)
     assert vs[1].data_ptr() % 16
     _assert_close(
         cross_attention.cross_attend_step(q, k8, v8, ks, vs, 1, s_valid=s),
@@ -358,6 +450,33 @@ def test_speculative_tokens_do_not_depend_on_the_draft(gen):
         runs.append((toks, rounds))
     assert (runs[0][0] == runs[1][0]).all()
     assert runs[1][1] <= runs[0][1]
+
+
+def test_int8_scales_are_true_divisions_on_the_card(gen):
+    """A division by the Python number 127.0 becomes, on the card, a product
+    with its reciprocal: one place off the true division for some values
+    (asserted here on the very absmax values, 131,072 heads, so the test
+    shows the fault).  ``quantize_q`` and ``quantize_cross_kv`` divide
+    truly (``div127``): on the card they equal their CPU results bit for
+    bit, scales and int8 values."""
+    from whisper_tpu_torch.models.whisper import KVCache, quantize_cross_kv
+
+    q = torch.randn(16384, 8, 64, generator=gen, device="cuda")
+    absmax = q.abs().amax(dim=-1)
+    assert not torch.equal((absmax / 127.0).cpu(), absmax.cpu() / 127.0)
+    q8, qs = cross_attention.quantize_q(q)
+    q8_cpu, qs_cpu = cross_attention.quantize_q(q.cpu())
+    assert torch.equal(qs.cpu(), qs_cpu) and torch.equal(q8.cpu(), q8_cpu)
+
+    kv = [torch.randn(16, 128, 64, 4, 64, generator=gen, device="cuda")
+          for _ in range(2)]
+    absmax = kv[0].abs().amax(dim=(3, 4))
+    assert not torch.equal((absmax / 127.0).cpu(), absmax.cpu() / 127.0)
+    empty = torch.empty(0)
+    got = quantize_cross_kv(KVCache(empty, empty, *kv))
+    want = quantize_cross_kv(KVCache(empty, empty, *(x.cpu() for x in kv)))
+    for name in ("cross_k", "cross_v", "cross_k_scale", "cross_v_scale"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
 
 
 def test_int8_matmul_is_exact_on_the_card(gen):

@@ -91,6 +91,23 @@ def test_b1_plain_matches_jax(t):
     _assert_bf16_close(got, want, steps=2.0)
 
 
+@pytest.mark.parametrize("t", [100, 65])
+def test_b1_plain_matches_jax_ragged_lengths(t):
+    """T no multiple of 16, 64 or 128: the lengths at which the card's kernel
+    masks a partly filled key tile and a partly filled depth step of P.V.
+    The rows are less peaked than above.  Tolerance: 1 bf16 step."""
+    rng = np.random.default_rng(t)
+    b, h, dh = 2, 3, 64
+    q, k, v = (rng.normal(0, 1, (b, h, t, dh)).astype(np.float32)
+               for _ in range(3))
+    q *= dh ** -0.5
+    (qj, qt), (kj, kt), (vj, vt) = _bf16_pair(q), _bf16_pair(k), _bf16_pair(v)
+    want = jax_fused_attention(qj, kj, vj, interpret=True)
+    got = t_attention.fused_attention_plain(qt, kt, vt)
+    assert got.shape == (b, h, t, dh) and got.dtype == torch.bfloat16
+    _assert_bf16_close(got, want, steps=1.0)
+
+
 # ---------------------------------------------------------------------------
 # B2: encoder MLP
 # ---------------------------------------------------------------------------
@@ -208,6 +225,57 @@ def test_b4_plain_matches_jax(s_valid):
         torch.from_numpy(vs), layer, s_valid=s_valid)
     assert got.dtype == torch.bfloat16 and t_cross.launches == 0
     _assert_bf16_close(got, want, steps=2.0)
+
+
+@pytest.mark.parametrize("h,s,s_valid", [(2, 200, 193), (6, 200, 200),
+                                         (6, 96, 90)])
+def test_b4_plain_matches_jax_masked_tail_and_six_heads(h, s, s_valid):
+    """What the card's split kernel leans on: columns [s_valid, S) masked
+    (their e exactly 0) with S no multiple of its 192-row segments, and six
+    heads (whisper-tiny as a draft).  Tolerance: 2 bf16 steps, as above."""
+    rng = np.random.default_rng(1000 * h + s_valid)
+    n_l, b, dh = 2, 2, 64
+    layer = 1
+    k8 = rng.integers(-127, 128, (n_l, b, h, s, dh), dtype=np.int8)
+    v8 = rng.integers(-127, 128, (n_l, b, h, s, dh), dtype=np.int8)
+    ks = rng.uniform(0.001, 0.02, (n_l, b, h)).astype(np.float32)
+    vs = rng.uniform(0.001, 0.02, (n_l, b, h)).astype(np.float32)
+    qj, qt = _bf16_pair(rng.normal(0, 1, (b, h, dh)) * dh ** -0.5)
+    want = cross_attend_step_packed(
+        qj, pack_cross_kv_t(jnp.asarray(k8)), pack_cross_kv(jnp.asarray(v8)),
+        jnp.asarray(ks), jnp.asarray(vs), jnp.int32(layer), s_valid=s_valid,
+        int8_mxu=True, interpret=True)
+    got = t_cross.cross_attend_step_plain(
+        qt, torch.from_numpy(k8), torch.from_numpy(v8), torch.from_numpy(ks),
+        torch.from_numpy(vs), layer, s_valid=s_valid)
+    assert got.shape == (b, h, dh)
+    _assert_bf16_close(got, want, steps=2.0)
+    # the masked rows do not reach the output
+    k8[:, :, :, s_valid:] = 127
+    v8[:, :, :, s_valid:] = -127
+    again = t_cross.cross_attend_step_plain(
+        qt, torch.from_numpy(k8), torch.from_numpy(v8), torch.from_numpy(ks),
+        torch.from_numpy(vs), layer, s_valid=s_valid)
+    assert torch.equal(got, again)
+
+
+def test_b4_quantize_q_divides_as_the_jax_wrapper():
+    """``quantize_q`` takes its scale through ``div127`` (a true fp32
+    division): q8 and the scales equal the JAX wrapper's arithmetic
+    (``jnp.maximum(absmax, 1e-12) / 127.0``, ``jnp.round(q / scale)``) on
+    8,192 heads of bf16 values, ties included."""
+    rng = np.random.default_rng(5)
+    q = rng.normal(0, 1, (1024, 8, 64)).astype(np.float32)
+    q[:, 0, :3] = [2.5, -3.5, 127.0]          # ties against a scale of 1
+    qj, qt = _bf16_pair(q)
+    q8, qs = t_cross.quantize_q(qt)
+    q32 = qj.astype(jnp.float32)
+    scale = jnp.maximum(jnp.max(jnp.abs(q32), axis=-1, keepdims=True),
+                        1e-12) / 127.0
+    want = jnp.clip(jnp.round(q32 / scale), -127, 127).astype(jnp.int8)
+    np.testing.assert_array_equal(q8.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(qs.numpy(), np.asarray(scale[..., 0]))
+    assert q8[0, 0, 0] == 2 and q8[0, 0, 1] == -4
 
 
 def test_b4_quantize_q_matches_jax_wrapper():

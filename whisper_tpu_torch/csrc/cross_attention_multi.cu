@@ -8,10 +8,9 @@
 // (_kernel_multi_int8_mxu and _kernel_multi).  Contract: for each of the T
 // queries of a row, bit for bit the output of the single-token kernel on
 // that query; both kernels run the device functions of cross_attention.cuh
-// with the same block size and reduction order.  q: [B, T, H, 64]; for the
-// int8 kernel q arrives quantized per (b, t, h) with its scales [B, T, H],
-// and the kernel multiplies q_scale by k_scale[layer] itself (one fp32
-// product, as the single-token wrapper does outside its kernel).
+// in the order of summation fixed there.  q: [B, T, H, 64] bf16; the int8
+// kernel quantizes each query per head itself and multiplies q_scale by
+// k_scale[layer], with the device functions the single-token kernel uses.
 //
 // What bounds it on the H100: one layer's K and V, 24.6 MB at whisper-base
 // bucket 16 (7.3 us at 3.35 TB/s), read once for all T queries: that single
@@ -21,9 +20,10 @@
 // S = 1500) into shared memory once, then loops over the T queries against
 // the tile; T is a runtime value with no upper limit.  A tile that does not
 // fit 227 KB of shared memory (S > ~1730) stays in device memory, where the
-// block's T passes find it in L2; the results are the same.  Known cost: K
-// rows are 64 bytes apart, so the 16-byte row reads conflict four ways in
-// shared memory; a swizzled tile is the next step.
+// block's T passes find it in L2; the results are the same.  The int8
+// kernel reads a K row with four threads and V in 16-byte vectors
+// (cross_scores, cross_pv), free of bank conflicts; the dequantizing kernel
+// still reads a 64-byte row a thread, four ways conflicted.
 #include "cross_attention.cuh"
 
 namespace {
@@ -40,19 +40,28 @@ __device__ __forceinline__ void stage_tile(int8_t* dst, const int8_t* src,
   for (int i = threadIdx.x; i < n16; i += CROSS_NT) s[i] = g[i];
 }
 
+// Bytes of the int8 kernel's scores [S], group sums [ceil(S / 32)] and p8
+// [S rounded up to 8], in front of the tile.
+__host__ __device__ inline size_t int8_head_bytes(int S) {
+  return (((size_t)S * 4 + (size_t)((S + 31) / 32) * 4 + 7) & ~(size_t)7) +
+         (((size_t)S + 7) & ~(size_t)7);
+}
+
 template <bool STAGE>
 __global__ void __launch_bounds__(CROSS_NT)
-cross_multi_int8_kernel(const int8_t* __restrict__ q8,
-                        const float* __restrict__ q_scale,
+cross_multi_int8_kernel(const bf16* __restrict__ q,
                         const float* __restrict__ k_scale,
                         const float* __restrict__ v_scale,
                         const int8_t* __restrict__ k8,
                         const int8_t* __restrict__ v8, bf16* __restrict__ out,
                         int B, int T, int H, int S, int layer, int s_valid) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const int n_groups = (S + 31) / 32;
   float* sS = reinterpret_cast<float*>(smem);                    // [S]
-  int8_t* sP8 = reinterpret_cast<int8_t*>(smem + (size_t)S * 4);  // [S]
-  int8_t* sK = reinterpret_cast<int8_t*>(smem + round16((size_t)S * 5));
+  float* gsum = sS + S;                                          // [n_groups]
+  int8_t* sP8 = reinterpret_cast<int8_t*>(
+      smem + (((size_t)(S + n_groups) * 4 + 7) & ~(size_t)7));
+  int8_t* sK = reinterpret_cast<int8_t*>(smem + round16(int8_head_bytes(S)));
   int8_t* sV = sK + (size_t)S * CROSS_DH;
   __shared__ CrossScratch sc;
 
@@ -61,7 +70,6 @@ cross_multi_int8_kernel(const int8_t* __restrict__ q8,
   const size_t cbase = lrow * (size_t)S * CROSS_DH;
   const int8_t* kc = k8 + cbase;
   const int8_t* vc = v8 + cbase;
-  const int tid = threadIdx.x;
   if (STAGE) {
     stage_tile(sK, kc, S * CROSS_DH / 16);
     stage_tile(sV, vc, S * CROSS_DH / 16);
@@ -72,11 +80,8 @@ cross_multi_int8_kernel(const int8_t* __restrict__ q8,
   for (int t = 0; t < T; ++t) {
     const size_t row = ((size_t)b * T + t) * H + h;
     __syncthreads();  // the tile is staged; the last query's scratch is free
-    if (tid < CROSS_DH / 4)
-      sc.q8[tid] = reinterpret_cast<const int*>(q8 + row * CROSS_DH)[tid];
-    __syncthreads();
-    cross_head_int8(sc, __fmul_rn(q_scale[row], ks), vs, kc, vc,
-                    out + row * CROSS_DH, S, s_valid, sS, sP8);
+    cross_head_int8(sc, q + row * CROSS_DH, ks, vs, kc, vc,
+                    out + row * CROSS_DH, S, s_valid, sS, gsum, sP8);
   }
 }
 
@@ -142,16 +147,15 @@ int launch(K staged, K direct, size_t head_bytes, int B, int H, int S,
 
 }  // namespace
 
-WT_EXPORT int wt_cross_attend_multi(const void* q8, const void* q_scale,
-                                    const void* k_scale, const void* v_scale,
-                                    const void* k8, const void* v8, void* out,
-                                    int B, int T, int H, int S, int layer,
-                                    int s_valid, void* stream) {
+WT_EXPORT int wt_cross_attend_multi(const void* q, const void* k_scale,
+                                    const void* v_scale, const void* k8,
+                                    const void* v8, void* out, int B, int T,
+                                    int H, int S, int layer, int s_valid,
+                                    void* stream) {
   if (B < 1 || T < 1 || H < 1 || S < 1) return (int)cudaErrorInvalidValue;
   return launch(cross_multi_int8_kernel<true>, cross_multi_int8_kernel<false>,
-                (size_t)S * 5, B, H, S, (cudaStream_t)stream,
-                (const int8_t*)q8, (const float*)q_scale,
-                (const float*)k_scale, (const float*)v_scale,
+                int8_head_bytes(S), B, H, S, (cudaStream_t)stream,
+                (const bf16*)q, (const float*)k_scale, (const float*)v_scale,
                 (const int8_t*)k8, (const int8_t*)v8, (bf16*)out, B, T, H, S,
                 layer, s_valid);
 }

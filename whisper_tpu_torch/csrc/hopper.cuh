@@ -1,0 +1,212 @@
+// Hopper (sm_90a) primitives as thin wrappers over PTX: mbarriers, bulk
+// asynchronous copies (1-D and through a TMA tensor map), warpgroup matrix
+// products (wgmma) and their shared-memory descriptors.  Used by the
+// encoder attention kernel (attention.cu) and the split cross-attention
+// step (cross_attention.cu).
+#pragma once
+
+#include "common.cuh"
+
+#define WT_DEV __device__ __forceinline__
+
+WT_DEV uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarrier -------------------------------------------------------------
+// A barrier counts thread arrivals and, for asynchronous copies, bytes.  A
+// wait names the parity of the phase it waits for: a fresh barrier is in
+// phase 0 (incomplete), and a wait on parity 1 returns at once.
+
+WT_DEV void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+// After the inits, before any other thread or the copy engine uses them.
+WT_DEV void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+WT_DEV void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// One arrival that also announces `bytes` of asynchronous copies.
+WT_DEV void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+WT_DEV void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Orders this thread's earlier accesses to shared memory before later
+// asynchronous copies into it (a buffer that is filled again).
+WT_DEV void async_proxy_fence() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// ---- bulk asynchronous copies ----------------------------------------------
+
+// `bytes` contiguous bytes from device to shared memory; both addresses and
+// the size are multiples of 16.  Completion is counted on `bar`.
+WT_DEV void bulk_load_1d(uint32_t dst, const void* src, uint32_t bytes,
+                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// One box of a 3-D tensor map (coordinates innermost first).  Elements
+// outside the tensor arrive as zeros and count as bytes all the same.
+WT_DEV void tma_load_3d(uint32_t dst, const void* map, uint32_t bar, int c0,
+                        int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(map), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// ---- wgmma ----------------------------------------------------------------
+
+// Descriptor of a bf16 operand tile in shared memory whose rows are 128
+// bytes (64 values), written with the 128-byte swizzle, base 1024-aligned:
+// eight rows make a 1024-byte group (the stride offset); the leading offset
+// is not used at this width.  It serves a K-major operand (Q, K: the
+// product's depth runs along the row) and an MN-major one (V: the depth runs
+// across rows) alike; which it is, the instruction's transpose bit says.
+WT_DEV uint64_t wgmma_desc(uint32_t saddr) {
+  uint64_t d = 0;
+  d |= (uint64_t)((saddr & 0x3FFFF) >> 4);
+  d |= (uint64_t)(16 >> 4) << 16;
+  d |= (uint64_t)(1024 >> 4) << 32;
+  d |= (uint64_t)1 << 62;  // 128-byte swizzle
+  return d;
+}
+
+WT_DEV void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+WT_DEV void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+WT_DEV void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// d[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T, bf16 -> fp32; A and B from
+// shared memory, both K-major.  `acc` = 0 overwrites d.
+WT_DEV void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc)
+      : "memory");
+}
+
+// d[64 x 64] (+)= A[64 x 16] . B[16 x 64], bf16 -> fp32; A from registers
+// (the m64k16 fragment: four words of two bf16), B from shared memory,
+// MN-major (its 16 depth rows are 16 rows of the tile).
+WT_DEV void wgmma_m64n64k16_rs(float (&d)[32], uint32_t a0, uint32_t a1,
+                               uint32_t a2, uint32_t a3, uint64_t db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(acc)
+      : "memory");
+}
+
+// After a wait: keeps the compiler from reading accumulator registers above
+// the wait that makes them valid.
+template <int N>
+WT_DEV void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// A warpgroup gives up (producer) or takes (consumer) registers; all four
+// warps execute it, in a branch that never rejoins the other role's.
+template <int N>
+WT_DEV void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+WT_DEV void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+// 2^x in one instruction (ex2.approx, about 2 ulp; -inf gives +0).
+WT_DEV float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two fp32 as one word of two bf16 (round to nearest even), `lo` in the low
+// half.
+WT_DEV uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}

@@ -1,0 +1,264 @@
+"""What holds the two kernels redesigned for Hopper, by timed variants:
+``python -m whisper_tpu_torch.kernel_variants``.
+
+**B1** (encoder attention).  Builds ``csrc/attention.cu`` as it is and in
+variants cut from its text, each into its own library under
+``build/kernel_variants/``, and times one call of each at whisper-base
+bucket 16 (B*H = 128, T = 1500, CUDA events over 20 calls, median of 5,
+twice in alternation):
+
+- ``no_ex2``: every ``ex2`` replaced by a multiplication (the special-
+  function units idle);
+- ``no_mma``: every ``wgmma`` replaced by one addition (the tensor cores
+  idle);
+- ``neither``: both, which leaves the loads, the barriers and the fp32
+  arithmetic of the softmax;
+- ``no_load``: the producer signals each tile full without copying it;
+- ``two_consumers``: two consumer warpgroups of 240 registers a thread (128
+  query rows a block) in place of three of 152.
+
+Only the first variant's output means anything: the others exist to be
+timed.  It also says how far the kernel as built and its plain version
+each stand from the contract computed exactly (scores, softmax and P.V in
+fp64, p and the output rounded to bf16 once), in bf16 steps of each of the
+12.3 M outputs, with q at the encoder's scale (64^-0.5) and at 0.5, where
+rows are sharply peaked: the largest distance and the share of outputs
+more than one step away.
+
+**B4** (the int8 decode cross-attention step).  Builds
+``csrc/cross_attention.cu`` as it is and cut short, and times one call of
+each at bucket 16 over a six-layer cache (148 MB, so no layer is found in
+the 50 MB L2; 600 calls back to back, the layer rotating, median of 5):
+
+- ``loads_only``: every block waits for its K and V segment and leaves;
+- ``loads_and_barriers``: the same and the kernel's three cluster barriers;
+- ``no_pv``: the whole kernel but the p8 . V8 product.
+
+Prints one JSON line for each kernel with the card's name and power limit.
+It needs a CUDA card and nvcc and raises without them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+
+B1_VARIANTS = ("as_built", "no_ex2", "no_mma", "neither", "no_load",
+            "two_consumers")
+_MMA_QK = "wgmma_m64n128k16_ss(s, dq + 2 * kk, dk + 2 * kk, kk > 0);"
+_MMA_PV = ("wgmma_m64n64k16_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],\n"
+           "                           p[4 * kk + 3], "
+           "dv + kk * (16 * DH * 2 / 16), 1);")
+_LOAD = ("        tma_load_3d(s_ring + slot * TILE_BYTES, map, full(slot), 0, "
+         "tile * BK,\n                    head);\n")
+
+
+def _swap(text: str, old: str, new: str) -> str:
+    if old not in text:
+        raise RuntimeError(f"the source no longer holds {old!r}: bring "
+                           "this script up to date")
+    return text.replace(old, new)
+
+
+def b1_source(text: str, name: str) -> str:
+    """``attention.cu``'s text cut into the named variant."""
+    if name in ("no_ex2", "neither"):
+        text = _swap(text, "namespace {\n", "namespace {\nWT_DEV float "
+                     "cheap(float x) { return x * 0.5f; }\n")
+        text = _swap(text, "fast_exp2(", "cheap(")
+    if name in ("no_mma", "neither"):
+        text = _swap(text, _MMA_QK, "s[kk] += (float)(dq + dk);")
+        text = _swap(text, _MMA_PV,
+                     "o[kk] += __uint_as_float(p[4 * kk]) + (float)dv;")
+    if name == "no_load":
+        text = _swap(text, "mbar_arrive_expect_tx(full(slot), TILE_BYTES);",
+                     "mbar_arrive(full(slot));")
+        text = _swap(text, _LOAD, "")
+    if name == "two_consumers":
+        text = _swap(text, "constexpr int CONSUMERS = 3;",
+                     "constexpr int CONSUMERS = 2;")
+        text = _swap(text, "constexpr int PRODUCER_REGS = 56;",
+                     "constexpr int PRODUCER_REGS = 24;")
+        text = _swap(text, "constexpr int CONSUMER_REGS = 152;",
+                     "constexpr int CONSUMER_REGS = 240;")
+    return text
+
+
+B4_VARIANTS = ("as_built", "loads_only", "loads_and_barriers", "no_pv")
+_B4_READY = "  __syncthreads();  // the barriers and q8 are visible\n"
+_B4_LEAVE = """  mbar_wait(bar_k, 0);
+  mbar_wait(bar_v, 0);
+  %s
+  if (tid < CROSS_DH && rank == 0)
+    out[(size_t)head * CROSS_DH + tid] =
+        __float2bfloat16_rn((float)(sK[tid] + sV[tid]));
+  return;
+"""
+
+
+def b4_source(text: str, name: str) -> str:
+    """``cross_attention.cu``'s text cut into the named variant."""
+    if name == "loads_only":
+        text = _swap(text, _B4_READY, _B4_READY + _B4_LEAVE % "")
+    if name == "loads_and_barriers":
+        text = _swap(text, _B4_READY, _B4_READY + _B4_LEAVE
+                     % "cluster.sync(); cluster.sync(); cluster.sync();")
+    if name == "no_pv":
+        text = _swap(text, "    ctx += cross_pv<NT>(sP8, sV, rows, part);\n",
+                     "")
+    return text
+
+
+def _build(source: str, cut, names) -> dict:
+    """Each named variant of ``csrc/<source>`` as a loaded library."""
+    from whisper_tpu_torch.ops import kernels
+
+    out_dir = kernels.BUILD_ROOT.parent / "kernel_variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    text = (kernels.CSRC / source).read_text()
+    stem = source.split(".")[0]
+    procs = []
+    for name in names:
+        src = out_dir / f"{stem}_{name}.cu"
+        src.write_text(cut(text, name))
+        procs.append(subprocess.Popen(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC),
+             "-shared", "-o", str(src.with_suffix(".so")), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for name, proc in zip(names, procs):
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {stem} variant {name}:\n{log}")
+    return {name: ctypes.CDLL(str(out_dir / f"{stem}_{name}.so"))
+            for name in names}
+
+
+def _median_ms(call, runs: int = 5, calls: int = 20) -> float:
+    """One call of ``call(i)``: CUDA events around ``calls`` calls."""
+    import torch
+
+    call(0)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(calls):
+            call(i)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return sorted(times)[len(times) // 2]
+
+
+def b1(card: str) -> dict:
+    import torch
+
+    from whisper_tpu_torch.ops.attention import fused_attention_plain
+
+    libs = _build("attention.cu", b1_source, B1_VARIANTS)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    b, h, t, dh = 16, 8, 1500, 64
+    q, k, v = ((torch.randn(b, h, t, dh, generator=g, device="cuda")
+                * s).to(torch.bfloat16) for s in (dh ** -0.5, 1.0, 1.0))
+    ptr = ctypes.c_void_p
+    stream = torch.cuda.current_stream().cuda_stream
+    for lib in libs.values():
+        lib.wt_fused_attention.argtypes = [ptr] * 4 + [ctypes.c_int] * 2 + [ptr]
+
+    def run(lib, q_):
+        out = torch.empty_like(q_)
+        rc = lib.wt_fused_attention(q_.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                    out.data_ptr(), b * h, t, stream)
+        if rc != 0:
+            raise RuntimeError(f"launch failed with CUDA error {rc}")
+        return out
+
+    ms = {name: [_median_ms(lambda i, lib=lib: run(lib, q))]
+          for name, lib in libs.items()}
+    for name in reversed(B1_VARIANTS):
+        ms[name].append(_median_ms(lambda i: run(libs[name], q)))
+
+    def exact(q_):
+        outs = []
+        for i in range(b):      # a batch row at a time: fp64 scores are large
+            sc = torch.matmul(q_[i].double(), k[i].double().transpose(-1, -2))
+            probs = torch.softmax(sc, -1).to(torch.bfloat16)
+            outs.append(torch.matmul(probs.double(), v[i].double())
+                        .to(torch.bfloat16))
+        return torch.stack(outs)
+
+    def distance(got, want):
+        got, want = got.float(), want.float()
+        scale = torch.maximum(torch.maximum(got.abs(), want.abs()),
+                              want.abs().mean())
+        steps = (got - want).abs() / (scale * 2.0 ** -7)
+        return {"max_steps": float(steps.max()),
+                "share_over_1_step": float((steps > 1).float().mean())}
+
+    accuracy = {}
+    for q_scale in (dh ** -0.5, 0.5):
+        q_ = (torch.randn(b, h, t, dh, generator=g, device="cuda")
+              * q_scale).to(torch.bfloat16)
+        got = run(libs["as_built"], q_)
+        torch.cuda.synchronize()
+        want, plain = exact(q_), fused_attention_plain(q_, k, v)
+        accuracy[f"q_scale_{q_scale:g}"] = {
+            "kernel_vs_exact": distance(got, want),
+            "plain_vs_exact": distance(plain, want),
+            "kernel_vs_plain": distance(got, plain)}
+    return {"kernel": "B1", "card": card, "shape": [b, h, t, dh],
+            "ms_per_call": ms, "bf16_steps": accuracy}
+
+
+def b4(card: str) -> dict:
+    import torch
+
+    libs = _build("cross_attention.cu", b4_source, B4_VARIANTS)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    n_l, b, h, s = 6, 16, 8, 1500
+    k8, v8 = (torch.randint(-127, 128, (n_l, b, h, s, 64), generator=g,
+                            device="cuda", dtype=torch.int8) for _ in "kv")
+    ks, vs = (torch.rand(n_l, b, h, generator=g, device="cuda") * 0.02 + 1e-3
+              for _ in "kv")
+    q = (torch.randn(b, h, 64, generator=g, device="cuda")
+         * 0.125).to(torch.bfloat16)
+    out = torch.empty_like(q)
+    ptr = ctypes.c_void_p
+    stream = torch.cuda.current_stream().cuda_stream
+    for lib in libs.values():
+        lib.wt_cross_attend_step.argtypes = ([ptr] * 6 + [ctypes.c_int] * 5
+                                             + [ptr])
+
+    def run(lib, i):
+        rc = lib.wt_cross_attend_step(
+            q.data_ptr(), ks.data_ptr(), vs.data_ptr(), k8.data_ptr(),
+            v8.data_ptr(), out.data_ptr(), b, h, s, i % n_l, s, stream)
+        if rc != 0:
+            raise RuntimeError(f"launch failed with CUDA error {rc}")
+
+    us = {name: [] for name in B4_VARIANTS}
+    for names in (B4_VARIANTS, tuple(reversed(B4_VARIANTS))):
+        for name in names:
+            us[name].append(1e3 * _median_ms(
+                lambda i: run(libs[name], i), calls=600))
+    return {"kernel": "B4", "card": card, "cache": [n_l, b, h, s, 64],
+            "us_per_call": us}
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_variants needs a CUDA card")
+    from whisper_tpu_torch.headline import card_info
+
+    card = card_info()
+    print(json.dumps(b1(card)), flush=True)
+    print(json.dumps(b4(card)), flush=True)
+
+
+if __name__ == "__main__":
+    main()

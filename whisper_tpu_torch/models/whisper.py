@@ -440,7 +440,7 @@ def quantize_cross_kv(cache: KVCache) -> KVCache:
     def quant(x):
         x32 = x.float()
         absmax = x32.abs().amax(dim=(3, 4), keepdim=True)
-        scale = torch.clamp_min(absmax, 1e-12) / 127.0
+        scale = div127(torch.clamp_min(absmax, 1e-12))  # a true division
         q = torch.clamp(torch.round(x32 / scale), -127, 127)
         return q.to(torch.int8), scale
 

@@ -7,8 +7,9 @@ probabilities cast to the q dtype, P.V accumulated in fp32 and written in
 the q dtype.
 
 On a CUDA tensor it launches the hand-written Hopper kernel
-``csrc/attention.cu`` (the source note there says what bounds it and how
-the design answers); on a CPU tensor it takes ``fused_attention_plain``,
+``csrc/attention.cu`` (TMA loads, ``wgmma`` for both products, the scores
+and probabilities kept in registers; the source note there says what
+bounds it and how the design answers); on a CPU tensor it takes ``fused_attention_plain``,
 the same function in plain PyTorch.  Any other device raises.
 """
 

@@ -43,12 +43,10 @@ def disable_tf32() -> None:
 
 
 def check_operand(name: str, t: torch.Tensor, dtype: torch.dtype,
-                  shape: tuple, device: torch.device, align: int = 16) -> None:
+                  shape: tuple, device: torch.device) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
-    ``device`` whose data lies on an ``align``-byte boundary: 16, what a
-    kernel of this package reads in vectors; an operand a kernel reads one
-    element at a time (a layer's slice of the per-head scales) passes its
-    element size."""
+    ``device`` whose data lies on a 16-byte boundary, what a kernel of this
+    package reads in vectors."""
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -58,8 +56,8 @@ def check_operand(name: str, t: torch.Tensor, dtype: torch.dtype,
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
-    if t.data_ptr() % align:
-        raise ValueError(f"{name}: data pointer not {align}-byte aligned")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data pointer not 16-byte aligned")
 
 
 def route(t: torch.Tensor) -> str:

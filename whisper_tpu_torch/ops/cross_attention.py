@@ -4,9 +4,10 @@ and x4 decode paths, T tokens a call in the speculative verify pass.
 
 ``cross_attend_step`` replaces the JAX package's Pallas
 ``cross_attend_step_packed(int8_mxu=True)`` (``_kernel_int8_mxu``).  As
-there, q is quantized per head in the wrapper (absmax/127, round half to
-even, clip +-127) and the per-column scales for the layer are combined
-outside the kernel:
+there, q is quantized per head (absmax/127, round half to even, clip
++-127) and the scales of q and of the layer's K are combined; in the port
+the kernel does both itself, so the wrapper launches it and nothing else
+(``quantize_q`` is the plain version's):
 
   scores = (q8 . K8 as int32) * (q_scale * k_scale[layer])
   e = exp(scores - max) over columns < s_valid
@@ -16,7 +17,8 @@ outside the kernel:
 The port keeps the int8 cross cache in the prefill layout
 [L, B, H, S, 64] for both K and V (the head-pair packing and transposed K
 existed for Mosaic).  On a CUDA tensor it launches the hand-written
-Hopper kernel ``csrc/cross_attention.cu``; on a CPU tensor it takes
+Hopper kernel ``csrc/cross_attention.cu`` (a cluster of blocks per head,
+each a segment of the rows); on a CPU tensor it takes
 ``cross_attend_step_plain``.  Any other device raises.
 
 ``cross_attend_step_dequant`` (B6, rung x4) replaces
@@ -42,7 +44,7 @@ from __future__ import annotations
 import torch
 
 from whisper_tpu_torch.ops import kernels
-from whisper_tpu_torch.ops.common import check_operand, route
+from whisper_tpu_torch.ops.common import check_operand, div127, route
 
 launches = 0  # B4 kernel launches since the last reset (plain excluded)
 dequant_launches = 0  # B6 kernel launches since the last reset
@@ -51,10 +53,11 @@ multi_launches = 0  # B7 launches (either kernel) since the last reset
 
 def quantize_q(q: torch.Tensor):
     """Per-head symmetric int8 quantization of q [..., H, Dh] (the JAX
-    wrapper's): returns (q8 int8, q_scale [..., H] fp32)."""
+    wrapper's): returns (q8 int8, q_scale [..., H] fp32).  Both divisions
+    are true fp32 divisions, as in the kernels (``cross_quantize_q``)."""
     q32 = q.float()
     absmax = q32.abs().amax(dim=-1, keepdim=True)
-    qscale = torch.clamp_min(absmax, 1e-12) / 127.0
+    qscale = div127(torch.clamp_min(absmax, 1e-12))
     q8 = torch.clamp(torch.round(q32 / qscale), -127, 127).to(torch.int8)
     return q8, qscale[..., 0]
 
@@ -108,21 +111,21 @@ def cross_attend_step(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     if not (0 <= layer < n_layers and 0 < s_valid <= s_max):
         raise ValueError(f"layer {layer} / s_valid {s_valid} outside the "
                          f"cache [{n_layers}, {s_max}]")
-    q8, qscale = quantize_q(q)
-    qks = (qscale * k_scale[layer].float()).contiguous()
-    vds = v_scale[layer].float().contiguous()
-    check_operand("q8", q8, torch.int8, (b, h, dh), q.device)
-    # the kernel reads one scale a block; a layer's slice of [L, B, H] need
-    # not lie on a 16-byte boundary (6 heads at bucket 1)
-    for name, x in (("qk_scale", qks), ("v_scale", vds)):
-        check_operand(name, x, torch.float32, (b, h), q.device, align=4)
+    check_operand("q", q, torch.bfloat16, (b, h, dh), q.device)
+    # the kernel takes the whole scale tensors and reads one scale a block,
+    # so a layer's slice need not lie on a 16-byte boundary (6 heads at
+    # bucket 1)
+    for name, x in (("k_scale", k_scale), ("v_scale", v_scale)):
+        check_operand(name, x, torch.float32, (n_layers, b, h), q.device)
     for name, x in (("k8", k8), ("v8", v8)):
         check_operand(name, x, torch.int8, (n_layers, b, h, s_max, dh),
                       q.device)
+    # this launch is the wrapper's only device operation: the kernel
+    # quantizes q and combines the scales itself
     out = torch.empty_like(q)
     lib = kernels.library()
     kernels.check(lib.wt_cross_attend_step(
-        q8.data_ptr(), qks.data_ptr(), vds.data_ptr(), k8.data_ptr(),
+        q.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), k8.data_ptr(),
         v8.data_ptr(), out.data_ptr(), b, h, s_max, int(layer), int(s_valid),
         kernels.stream_ptr(q.device)), "cross_attend_step")
     launches += 1
@@ -208,8 +211,8 @@ def cross_attend_multi(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
 
     q: [B, T, H, 64] (pre-scaled by 64^-0.5); k8, v8: [L, B, H, S, 64]
     int8; k_scale, v_scale: [L, B, H] fp32.  int8_mxu: both dots int8 x
-    int8 with q quantized per (b, t, h) here (the x5 numerics), else the
-    cache is dequantized in the kernel (x4).  Returns ctx [B, T, H, 64] in
+    int8 with q quantized per (b, t, h) in the kernel (the x5 numerics),
+    else the cache is dequantized in the kernel (x4).  Returns ctx [B, T, H, 64] in
     q's dtype.  T is any positive number."""
     if route(q) == "plain":
         return cross_attend_multi_plain(q, k8, v8, k_scale, v_scale, layer,
@@ -233,18 +236,12 @@ def cross_attend_multi(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     lib = kernels.library()
     dims = (b, t, h, s_max, int(layer), int(s_valid),
             kernels.stream_ptr(q.device))
-    if int8_mxu:
-        q8, qscale = quantize_q(q)           # [B,T,H,64] int8, [B,T,H] fp32
-        check_operand("q8", q8, torch.int8, (b, t, h, dh), q.device)
-        check_operand("q_scale", qscale, torch.float32, (b, t, h), q.device)
-        kernels.check(lib.wt_cross_attend_multi(
-            q8.data_ptr(), qscale.data_ptr(), k_scale.data_ptr(),
-            v_scale.data_ptr(), k8.data_ptr(), v8.data_ptr(), out.data_ptr(),
-            *dims), "cross_attend_multi")
-    else:
-        kernels.check(lib.wt_cross_attend_multi_dequant(
-            q.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-            k8.data_ptr(), v8.data_ptr(), out.data_ptr(), *dims),
-            "cross_attend_multi_dequant")
+    # the int8 kernel quantizes each query per (b, t, h) itself
+    entry = lib.wt_cross_attend_multi if int8_mxu \
+        else lib.wt_cross_attend_multi_dequant
+    kernels.check(entry(
+        q.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), k8.data_ptr(),
+        v8.data_ptr(), out.data_ptr(), *dims),
+        "cross_attend_multi" if int8_mxu else "cross_attend_multi_dequant")
     multi_launches += 1
     return out

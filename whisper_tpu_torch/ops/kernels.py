@@ -32,8 +32,8 @@ SOURCES = ("attention.cu", "encoder_mlp.cu", "self_attention.cu",
            "self_attention_int8.cu", "encoder_block.cu", "decoder_mlp.cu",
            "cross_attention_multi.cu", "decoder_self_block.cu",
            "decoder_cross_block.cu")
-HEADERS = ("common.cuh", "encoder_ffn.cuh", "cross_attention.cuh",
-           "decoder_block.cuh")
+HEADERS = ("common.cuh", "hopper.cuh", "encoder_ffn.cuh",
+           "cross_attention.cuh", "decoder_block.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 LIB_NAME = "libwhisper_tpu_torch.so"
@@ -50,11 +50,9 @@ SIGNATURES = {
     # q, k_new, v_new, k_cache, v_cache, pad_count, out,
     # batch, heads, S, layer, pos, stream
     "wt_self_attend_step": [_P] * 7 + [_I] * 5 + [_P],
-    # q8, qk_scale, v_scale, k8, v8, out, batch, heads, S, layer,
-    # s_valid, stream
-    "wt_cross_attend_step": [_P] * 6 + [_I] * 5 + [_P],
     # q, k_scale, v_scale, k8, v8, out, batch, heads, S, layer, s_valid,
-    # stream
+    # stream (both)
+    "wt_cross_attend_step": [_P] * 6 + [_I] * 5 + [_P],
     "wt_cross_attend_step_dequant": [_P] * 6 + [_I] * 5 + [_P],
     # audio, is_int16, n_samples, cosw, sinw, fb_t, out, n_frames, n_mels,
     # int16 scale, stream
@@ -68,11 +66,9 @@ SIGNATURES = {
     "wt_fused_out_mlp": [_P] * 11 + [_I, _I, _I, _P],
     # x, ln, w1, b1, w2, b2, h scratch, out, batch, d, f, stream
     "wt_decoder_mlp": [_P] * 8 + [_I, _I, _I, _P],
-    # q8, q_scale, k_scale, v_scale, k8, v8, out, batch, T, heads, S, layer,
-    # s_valid, stream
-    "wt_cross_attend_multi": [_P] * 7 + [_I] * 6 + [_P],
     # q, k_scale, v_scale, k8, v8, out, batch, T, heads, S, layer, s_valid,
-    # stream
+    # stream (both)
+    "wt_cross_attend_multi": [_P] * 6 + [_I] * 6 + [_P],
     "wt_cross_attend_multi_dequant": [_P] * 6 + [_I] * 6 + [_P],
     # x, ln, qkv_w, qkv_b, o_w, o_b, cache_k, cache_v, q scratch, ctx
     # scratch, out, batch, d, heads, S, pos, stream
