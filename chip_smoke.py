@@ -8,8 +8,8 @@ What it does, in order (any failure raises and exits non-zero):
 2. Builds the CUDA kernels of ``whisper_tpu_torch/csrc`` with nvcc
    (sm_90a; one nvcc per source, all started together) and prints the
    build time, each kernel's register use and, from the library's SASS,
-   that B1 holds warpgroup products and tensor-map loads and B4 bulk
-   copies.
+   that B1 and B2's products hold warpgroup products and tensor-map loads
+   and B3 and B4 bulk copies.
 3. Runs each kernel (B1-B10c, sixteen rows) against its plain PyTorch
    version on the card at the shapes its path gives it (whisper-base, batch
    bucket 16: B1-B4 at x5, B6 at x4, B8 at x7, B9a/B9b with the fused
@@ -29,7 +29,16 @@ What it does, in order (any failure raises and exits non-zero):
    on the card a call (counted by torch.profiler).  B7 is also held, query
    by query and bitwise, against the single-token kernels B4 and B6 at T =
    2, 5 and 9; what B10a writes into the cache bitwise against the plain
-   version at pos 0, 70 and 131; B10b at T = 1500, 96 and 100.
+   version at pos 0, 70 and 131; B10b at T = 1500, 96 and 100.  B2 (LayerNorm
+   and two tiled wgmma products) is also held at 1, 1,499 and 24,000 rows at
+   d = 512 and at 1,500 rows at d = 1,024 and 1,280, must put exactly its
+   three kernels on the card a call, and is printed beside the bf16
+   composition of five PyTorch calls that computes the same function; B3
+   (bulk copies of its cache rows) at pos 0, 70 and S - 1 with mixed pads,
+   with ``pos`` as an int and as a device tensor (bitwise the same output and
+   caches), one operation a call with and without ``pad_count``.  An empty
+   kernel launched through the same C interface is timed and printed beside
+   the kernels whose bound is under 20 microseconds.
 4. Holds the port on the card against the port on the CPU (the kernels'
    plain versions) on a small input: an 80 s clip through the front end,
    the encoder and twelve teacher-forced decode steps.
@@ -137,10 +146,11 @@ def _bf16_steps(got, want) -> float:
 
 
 def check_sass(lib_path) -> None:
-    """What the compiler made of the two kernels built on Hopper's own
+    """What the compiler made of the kernels built on Hopper's own
     instructions, read from the library with cuobjdump: the encoder
-    attention kernel must hold warpgroup products (HGMMA) and tensor-map
-    loads (UTMALDG), the cross-attention step bulk copies (UBLKCP)."""
+    attention kernel and the encoder MLP's products must hold warpgroup
+    products (HGMMA) and tensor-map loads (UTMALDG), the self- and the
+    cross-attention step bulk copies (UBLKCP)."""
     import re
     import shutil
     import subprocess
@@ -154,12 +164,16 @@ def check_sass(lib_path) -> None:
                           text=True, check=True).stdout
     # the mangled names, with their lengths: no other kernel's name ends so
     want = {"11attn_kernelE": ("HGMMA", "UTMALDG"),
+            "11gemm_kernelI": ("HGMMA", "UTMALDG"),
+            "16self_step_kernelE": ("UBLKCP",),
             "17cross_step_kernelE": ("UBLKCP",)}
+    seen = set()
     for part in sass.split("Function : ")[1:]:
         name = part.split("\n", 1)[0]
         for kernel, ops in want.items():
             if kernel not in name:
                 continue
+            seen.add(kernel)
             counts = {op: len(re.findall(rf"\b{op}\b", part))
                       for op in ops + ("SYNCS", "MUFU")}
             print(f"[sass] {kernel[2:-1]}: {counts}", flush=True)
@@ -167,6 +181,9 @@ def check_sass(lib_path) -> None:
             if missing:
                 raise AssertionError(f"{kernel[2:-1]}: no {missing} in its "
                                      "SASS")
+    if seen != set(want):
+        raise AssertionError(f"kernels not found in the SASS: "
+                             f"{sorted(set(want) - seen)}")
 
 
 def check_kernels(card: str) -> list:
@@ -178,7 +195,7 @@ def check_kernels(card: str) -> list:
     from whisper_tpu_torch.headline import synth_audio
     from whisper_tpu_torch.ops import attention, cross_attention, encoder_mlp
     from whisper_tpu_torch.ops import decoder_kernels, encoder_block
-    from whisper_tpu_torch.ops import log_mel, self_attention
+    from whisper_tpu_torch.ops import kernels, log_mel, self_attention
     from whisper_tpu_torch.pipeline.chunk import mel_frame_bucket
 
     dev = "cuda"
@@ -249,13 +266,14 @@ def check_kernels(card: str) -> list:
     kc, vc = randn(n_l, b, h, s_max, dh), randn(n_l, b, h, s_max, dh)
     kc2, vc2 = kc.clone(), vc.clone()
     pads = torch.zeros(b, dtype=torch.int32, device=dev)
+    # no pad_count, as the x5 step calls it
     rows.append(("self_attend_step", (self_attention, "launches"),
                  "self_attention.cu",
                  "whisper_tpu/ops/self_attention.py:470",
                  lambda: self_attention.self_attend_step(
-                     qs, kn, vn, kc, vc, layer, pos, pads),
+                     qs, kn, vn, kc, vc, layer, pos),
                  lambda: self_attention.self_attend_step_plain(
-                     qs, kn, vn, kc2, vc2, layer, pos, pads), 2.0))
+                     qs, kn, vn, kc2, vc2, layer, pos), 2.0))
     # Rows [pad, pos] of K and V are read (the data decides how many), the
     # new row written; scores and P.V in fp32 on the CUDA cores.
     work["self_attend_step"] = (
@@ -422,6 +440,15 @@ def check_kernels(card: str) -> list:
         (2 * b * h * t * dh + 2 * d * d + 4 * d + 2 * b * d) * 2,
         4 * b * h * t * dh + 4 * b * d * d, "fp32")
 
+    # What a launch through the library's C interface costs when the kernel
+    # does nothing: the floor under every kernel whose bound is microseconds.
+    lib = kernels.library()
+    stream = kernels.stream_ptr(torch.device(dev))
+    floor_ms = _median_ms(
+        lambda: kernels.check(lib.wt_launch_floor(stream), "launch_floor"))
+    print(f"[kernel] launch floor: an empty kernel through the same ctypes "
+          f"route {floor_ms:.4f} ms a call on {card}", flush=True)
+
     out = []
     for name, counter, src, replaces, kern, plain, tol in rows:
         got = kern()
@@ -454,16 +481,21 @@ def check_kernels(card: str) -> list:
               f"tolerance {tol}); {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.5f} ms by {bound_by}, library call "
               + (f"{library_ms:.4f} ms" if library_ms is not None else "none")
-              + f" on {card}", flush=True)
+              + (f", an empty launch {floor_ms:.4f} ms" if bound_ms < 0.02
+                 else "") + f" on {card}", flush=True)
         out.append({"name": name, "route": "cuda",
                     "source": f"whisper_tpu_torch/csrc/{src}",
                     "replaces": replaces, "counter": counter,
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": library_ms})
+        if bound_ms < 0.02:
+            out[-1]["launch_floor_ms"] = floor_ms
 
     by_name = {r["name"]: r for r in out}
     check_b1_b4_edges(card, by_name, randn, q.shape, (qx, k8, v8, ks, vs))
+    check_b2_b3_edges(card, by_name, randn, mlp_args, med_args,
+                      (qs, kn, vn, kc, vc))
 
     # B7 against the kernels it repeats: every query bitwise the
     # single-token kernel's (B4, B6) on that query, at T = 2, 5 and 9, and
@@ -529,9 +561,10 @@ def check_kernels(card: str) -> list:
     return out
 
 
-def _device_ops_per_call(fn, calls: int = 5) -> float:
+def _device_ops_per_call(fn, calls: int = 5, names=None) -> float:
     """Operations (kernels, copies, memsets) that one call of ``fn`` puts on
-    the card, counted by torch.profiler over ``calls`` calls."""
+    the card, counted by torch.profiler over ``calls`` calls; their names
+    are added to the set ``names`` where one is given."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -542,9 +575,11 @@ def _device_ops_per_call(fn, calls: int = 5) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    n = sum(e.count for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA)
-    return n / calls
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if names is not None:
+        names.update(e.key for e in events)
+    return sum(e.count for e in events) / calls
 
 
 def check_b1_b4_edges(card: str, by_name, randn, b1_shape, b4_args) -> None:
@@ -615,6 +650,129 @@ def check_b1_b4_edges(card: str, by_name, randn, b1_shape, b4_args) -> None:
                              "card a call, expected its one kernel")
     print(f"[kernel] B4: {ops:g} device operation a call (torch.profiler); "
           + "; ".join(cases) + f" on {card}", flush=True)
+
+
+def check_b2_b3_edges(card: str, by_name, randn, mlp_args, med_args,
+                      b3_args) -> None:
+    """B2 and B3 beyond the main path's shape, and what their redesign
+    promises.  B2: 1 row, 1,499 rows (a ragged last tile) and the 24,000 of
+    the main path at d = 512, 1,500 rows at d = 1,024 and 1,280; its three
+    hand-written kernels and nothing else on the card a call; its time
+    beside the bf16 composition of five PyTorch calls.  B3: pos 0, 70 and
+    S - 1 with mixed pads, ``pos`` as an int and as a device tensor bitwise
+    the same in output and caches; one device operation a call with and
+    without ``pad_count``."""
+    import torch
+    import torch.nn.functional as F
+
+    from whisper_tpu_torch.ops import encoder_mlp, self_attention
+
+    cases = []
+    for args, n_rows in ((mlp_args, 1), (mlp_args, 1499), (mlp_args, None),
+                         (med_args, None)):
+        xe = args[0].reshape(1, -1, args[0].shape[-1])
+        xe = xe if n_rows is None else xe[:, :n_rows].contiguous()
+        got = encoder_mlp.fused_encoder_mlp(xe, *args[1:])
+        steps = _bf16_steps(got, encoder_mlp.fused_encoder_mlp_plain(
+            xe, *args[1:]))
+        if steps > 2.0 or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"B2 at {tuple(xe.shape)}: {steps:.3g} bf16 "
+                                 "steps from the plain version")
+        cases.append(f"{xe.shape[1]} x {xe.shape[2]}: {steps:.3g}")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    dl, fl, bf = 1280, 5120, torch.bfloat16
+    large = (randn(1, 1500, dl), 1.0 + randn(dl, scale=0.1),
+             randn(dl, scale=0.1),
+             torch.randint(-127, 128, (dl, fl), generator=g, device="cuda")
+             .to(bf) * torch.tensor(2e-4, dtype=bf), randn(fl, scale=0.1),
+             torch.randint(-127, 128, (fl, dl), generator=g, device="cuda")
+             .to(bf) * torch.tensor(2e-4, dtype=bf), randn(dl, scale=0.1))
+    got = encoder_mlp.fused_encoder_mlp(*large)
+    steps = _bf16_steps(got, encoder_mlp.fused_encoder_mlp_plain(*large))
+    if steps > 2.0:
+        raise AssertionError(f"B2 at d = {dl}: {steps:.3g} bf16 steps from "
+                             "the plain version")
+    large_ms = _median_ms(lambda: encoder_mlp.fused_encoder_mlp(*large))
+    cases.append(f"1500 x {dl}: {steps:.3g} ({large_ms:.4f} ms)")
+    names = set()
+    ops = _device_ops_per_call(
+        lambda: encoder_mlp.fused_encoder_mlp(*mlp_args), names=names)
+    by_name["fused_encoder_mlp"]["device_ops_per_call"] = ops
+    if ops != 3.0 or not all("mlp_ln_kernel" in n or "gemm_kernel" in n
+                             for n in names):
+        raise AssertionError(f"B2's wrapper puts {ops} operations on the "
+                             f"card a call, expected its three kernels: "
+                             f"{sorted(names)}")
+
+    def composition(a):
+        xc, s_, b_, w1_, b1_, w2_, b2_ = a
+        r = F.layer_norm(xc, xc.shape[-1:], s_, b_, 1e-5)
+        h = F.gelu(F.linear(r, w1_.t(), b1_), approximate="tanh")
+        return xc + F.linear(h, w2_.t(), b2_)
+
+    for label, args, row in (("d = 512, 24,000 rows", mlp_args,
+                              "fused_encoder_mlp"),
+                             ("d = 1,024, 1,500 rows", med_args,
+                              "fused_encoder_mlp_d1024")):
+        comp_ms = _median_ms(lambda: composition(args))
+        peak = by_name[row]["bound_ms"] / by_name[row]["ms"]
+        print(f"[kernel] B2 at {label}: {by_name[row]['ms']:.4f} ms "
+              f"({100 * peak:.1f}% of the bf16 peak) against a composition "
+              f"of five PyTorch calls in bf16 (layer_norm, linear, gelu, "
+              f"linear, add; no one call computes B2) {comp_ms:.4f} ms on "
+              f"{card}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    encoder_mlp.fused_encoder_mlp(*mlp_args)
+    torch.cuda.synchronize()
+    scratch = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    print(f"[kernel] B2: {ops:g} device operations a call, all its own "
+          f"kernels; bf16 steps from the plain version at rows x d "
+          + ", ".join(cases) + f"; output and scratch of a call at 24,000 "
+          f"rows {scratch:.1f} MiB on {card}", flush=True)
+
+    q, kn, vn, kc, vc = b3_args
+    n_b, s_max = q.shape[0], kc.shape[3]
+    pads = torch.arange(n_b, dtype=torch.int32, device="cuda") % 5
+    worst = 0.0
+    for pos in (0, 70, s_max - 1):
+        pad = torch.clamp(pads * (pos // 4), max=pos).to(torch.int32)
+        caches = [[t.clone() for t in (kc, vc)] for _ in range(3)]
+        pos_t = torch.tensor([pos], dtype=torch.int32, device="cuda")
+        got = self_attention.self_attend_step(q, kn, vn, *caches[0], 3, pos,
+                                              pad)
+        got_t = self_attention.self_attend_step(q, kn, vn, *caches[1], 3,
+                                                pos_t, pad)
+        want = self_attention.self_attend_step_plain(q, kn, vn, *caches[2],
+                                                     3, pos, pad)
+        steps = _bf16_steps(got, want)
+        worst = max(worst, steps)
+        same = torch.equal(got, got_t) and all(
+            torch.equal(a, b_) and torch.equal(a, c)
+            for a, b_, c in zip(*caches))
+        if steps > 2.0 or not same:
+            raise AssertionError(f"B3 at pos {pos}: {steps:.3g} bf16 steps; "
+                                 f"int and device pos and the plain "
+                                 f"version's caches bitwise equal: {same}")
+    pos_t = torch.tensor([70], dtype=torch.int32, device="cuda")
+    zero = torch.zeros(n_b, dtype=torch.int32, device="cuda")
+    ops = {_device_ops_per_call(lambda: self_attention.self_attend_step(
+        q, kn, vn, kc, vc, 3, p_, pad_))
+        for p_ in (70, pos_t) for pad_ in (None, zero)}
+    by_name["self_attend_step"]["device_ops_per_call"] = max(ops)
+    if ops != {1.0}:
+        raise AssertionError(f"B3's wrapper puts {sorted(ops)} operations on "
+                             "the card a call, expected its one kernel")
+    dev_ms = _median_ms(lambda: self_attention.self_attend_step(
+        q, kn, vn, kc, vc, 3, pos_t))
+    by_name["self_attend_step"]["device_pos_ms"] = dev_ms
+    print(f"[kernel] B3: 1 device operation a call with and without "
+          f"pad_count, pos an int or a device tensor; at pos 0, 70, "
+          f"{s_max - 1} with mixed pads at most {worst:.3g} bf16 steps from "
+          f"the plain version, the two forms of pos bitwise equal in output "
+          f"and caches; with pos on the device {dev_ms:.4f} ms a call "
+          f"(an int: {by_name['self_attend_step']['ms']:.4f}) on {card}",
+          flush=True)
 
 
 # The kernels of the headline main path (x5, a 301.574 s file: streamed
@@ -1222,7 +1380,7 @@ def main() -> None:
     card = card_info()
     print(card, flush=True)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     lib = kernels.build(extra_flags=("-Xptxas", "-v"))
     print(f"[build] {lib.parent.name}: {time.perf_counter() - t0:.1f} s "
           f"(nvcc: {kernels.build_seconds if kernels.build_seconds else 0:.1f}"
@@ -1291,6 +1449,8 @@ def main() -> None:
         if r["launches"] < 1:
             raise AssertionError(f"{r['name']}: not launched on its path")
         del r["counter"]
+    print(f"[time] chip_smoke.py: {time.perf_counter() - t_start:.0f} s, the "
+          "kernels' build included", flush=True)
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

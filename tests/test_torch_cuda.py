@@ -88,8 +88,15 @@ def test_b1_peaked_scores(gen):
 
 
 @pytest.mark.parametrize("b,t,d,f", [(2, 37, 512, 2048), (1, 1500, 384, 1536),
-                                     (2, 100, 1024, 4096), (3, 5, 1280, 5120)])
+                                     (2, 100, 1024, 4096), (3, 5, 1280, 5120),
+                                     (1, 1, 512, 2048), (16, 1500, 512, 2048),
+                                     (1, 129, 128, 512), (1, 1500, 768, 3072),
+                                     (1, 300, 128, 192)])
 def test_b2_kernel_matches_plain(gen, b, t, d, f):
+    """Every width of the kernel; one row, one row past a 128-row tile, a
+    ragged last tile (1,500 = 11 tiles and 92 rows), the main path's 24,000
+    rows (128 x 256 column tiles) and an f that is a multiple of 64 only (the
+    last column tile half outside the matrix)."""
     args = (_randn(gen, b, t, d), 1.0 + _randn(gen, d, scale=0.1),
             _randn(gen, d, scale=0.1), _randn(gen, d, f, scale=0.04),
             _randn(gen, f, scale=0.1), _randn(gen, f, d, scale=0.04),
@@ -101,21 +108,90 @@ def test_b2_kernel_matches_plain(gen, b, t, d, f):
 
 
 @pytest.mark.parametrize("pos,pads", [(70, [0, 5, 70, 1]), (0, [0, 0, 0, 0]),
-                                      (131, [3, 0, 131, 130])])
-def test_b3_kernel_matches_plain_and_inserts_in_place(gen, pos, pads):
-    n_l, b, h, s = 3, 4, 6, 132
+                                      (131, [3, 0, 131, 130]), (70, None),
+                                      (447, [0, 440, 1, 447])])
+@pytest.mark.parametrize("pos_on_device", [False, True])
+def test_b3_kernel_matches_plain_and_inserts_in_place(gen, pos, pads,
+                                                      pos_on_device):
+    """Mixed pads and none (a null pointer), the first and the last row, a
+    cache of 448 rows (more shared memory than a launch gets unasked), ``pos``
+    as an int and as a tensor the kernel reads."""
+    n_l, b, h, s = 3, 4, 6, 448 if pos > 131 else 132
     q = _randn(gen, b, h, 64, scale=0.125)
     kn, vn = _randn(gen, b, h, 64), _randn(gen, b, h, 64)
     kc, vc = _randn(gen, n_l, b, h, s, 64), _randn(gen, n_l, b, h, s, 64)
     kc2, vc2 = kc.clone(), vc.clone()
-    pad = torch.tensor(pads, dtype=torch.int32, device="cuda")
-    got = self_attention.self_attend_step(q, kn, vn, kc, vc, 2, pos, pad)
+    pad = None if pads is None else torch.tensor(pads, dtype=torch.int32,
+                                                 device="cuda")
+    p = (torch.tensor([pos], dtype=torch.int32, device="cuda")
+         if pos_on_device else pos)
+    before = self_attention.launches
+    got = self_attention.self_attend_step(q, kn, vn, kc, vc, 2, p, pad)
+    assert self_attention.launches == before + 1
     want = self_attention.self_attend_step_plain(q, kn, vn, kc2, vc2, 2, pos,
                                                  pad)
     _assert_close(got, want)
     assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
     assert torch.equal(kc[2, :, :, pos], kn) and torch.equal(vc[2, :, :, pos],
                                                               vn)
+
+
+def test_b3_pos_tensor_is_bitwise_the_int_and_out_of_range_is_nan(gen):
+    """The two forms of ``pos`` give the same bits; a ``pos`` tensor of S or
+    of -1 leaves both caches as they were and returns NaN (the wrapper
+    refuses such an int); a tensor of another type or place is refused."""
+    n_l, b, h, s = 2, 4, 8, 132
+    q = _randn(gen, b, h, 64, scale=0.125)
+    kn, vn = _randn(gen, b, h, 64), _randn(gen, b, h, 64)
+    kc, vc = _randn(gen, n_l, b, h, s, 64), _randn(gen, n_l, b, h, s, 64)
+    pad = torch.tensor([0, 2, 0, 9], dtype=torch.int32, device="cuda")
+    for pos in (9, 70, 131):
+        a, a2 = [x.clone() for x in (kc, vc)], [x.clone() for x in (kc, vc)]
+        p = torch.tensor([pos], dtype=torch.int32, device="cuda")
+        got = self_attention.self_attend_step(q, kn, vn, *a, 1, pos, pad)
+        got2 = self_attention.self_attend_step(q, kn, vn, *a2, 1, p, pad)
+        torch.cuda.synchronize()
+        assert torch.equal(got, got2)
+        assert torch.equal(a[0], a2[0]) and torch.equal(a[1], a2[1])
+    for bad in (s, -1):
+        a = [x.clone() for x in (kc, vc)]
+        p = torch.tensor([bad], dtype=torch.int32, device="cuda")
+        got = self_attention.self_attend_step(q, kn, vn, *a, 1, p, pad)
+        torch.cuda.synchronize()
+        assert torch.isnan(got.float()).all()
+        assert torch.equal(a[0], kc) and torch.equal(a[1], vc)
+        with pytest.raises(ValueError, match="outside the cache"):
+            self_attention.self_attend_step(q, kn, vn, *a, 1, bad, pad)
+    for p in (torch.tensor([3], dtype=torch.int64, device="cuda"),
+              torch.tensor([3], dtype=torch.int32),
+              torch.tensor([3, 4], dtype=torch.int32, device="cuda")):
+        with pytest.raises(ValueError, match="pos: a tensor"):
+            self_attention.self_attend_step(q, kn, vn, kc, vc, 1, p, pad)
+
+
+def test_b3_launches_one_device_operation(gen):
+    """With and without ``pad_count``, with ``pos`` in either form, the
+    wrapper's launch is all it puts on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n_l, b, h, s = 2, 16, 8, 132
+    q = _randn(gen, b, h, 64, scale=0.125)
+    kn, vn = _randn(gen, b, h, 64), _randn(gen, b, h, 64)
+    kc, vc = _randn(gen, n_l, b, h, s, 64), _randn(gen, n_l, b, h, s, 64)
+    pad = torch.zeros(b, dtype=torch.int32, device="cuda")
+    p = torch.tensor([70], dtype=torch.int32, device="cuda")
+    for pos, pads in ((70, None), (70, pad), (p, None), (p, pad)):
+        self_attention.self_attend_step(q, kn, vn, kc, vc, 1, pos, pads)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                self_attention.self_attend_step(q, kn, vn, kc, vc, 1, pos,
+                                                pads)
+            torch.cuda.synchronize()
+        ops = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+        assert sum(ops.values()) == 3 and len(ops) == 1, ops
 
 
 def _cross_cache(gen, n_l, b, h, s):

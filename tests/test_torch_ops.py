@@ -133,6 +133,24 @@ def test_b2_plain_matches_jax_ragged_rows():
     _assert_bf16_close(got, want, steps=2.0)
 
 
+@pytest.mark.parametrize("rows", [127, 128, 129])
+def test_b2_plain_matches_jax_around_the_row_tile(rows):
+    """Row counts that straddle the 128-row tile of the card's products: one
+    row short of a tile, a whole tile, one row into the next.  Tolerance: 2
+    bf16 steps, as above."""
+    rng = np.random.default_rng(rows)
+    d, f = 128, 256
+    arrays = (rng.normal(0, 1, (1, rows, d)), 1.0 + 0.1 * rng.normal(size=d),
+              0.1 * rng.normal(size=d), rng.normal(0, 0.05, (d, f)),
+              0.1 * rng.normal(size=f), rng.normal(0, 0.05, (f, d)),
+              0.1 * rng.normal(size=d))
+    pairs = [_bf16_pair(a) for a in arrays]
+    want = jax_fused_mlp(*[p[0] for p in pairs], interpret=True)
+    got = t_mlp.fused_encoder_mlp_plain(*[p[1] for p in pairs])
+    assert got.shape == (1, rows, d) and got.dtype == torch.bfloat16
+    _assert_bf16_close(got, want, steps=2.0)
+
+
 def test_b2_plain_matches_jax_chunked_kernel_at_medium_width():
     """whisper-medium's d=1024, f=4096, which the JAX package runs through
     its FFN-chunked kernel (``_fused_mlp_chunked``, f_block from
@@ -195,6 +213,45 @@ def test_b3_plain_matches_jax_and_updates_cache_in_place():
     np.testing.assert_array_equal(_np(kct), _unpack_self(k_out, s))
     np.testing.assert_array_equal(_np(vct), _unpack_self(v_out, s))
     _assert_bf16_close(ctx_t, ctx_j, steps=2.0)
+
+
+@pytest.mark.parametrize("pos,pads", [(0, [0, 0, 0]), (9, [0, 3, 9]),
+                                      (19, [18, 0, 5])])
+def test_b3_pos_as_tensor_matches_int_and_jax(pos, pads):
+    """``pos`` as a one-element int32 tensor (what the card's kernel reads
+    from device memory) at the first row, mid-cache and the last row, with
+    mixed ``pad_count``: the plain version and the wrapper on CPU tensors
+    give the int form's output and caches bitwise, and the JAX kernel's
+    within 1 bf16 step (rows less peaked than a trained model's; both sides
+    round each p*v product to bf16)."""
+    rng = np.random.default_rng(100 + pos)
+    n_l, b, h, s, dh = 2, 3, 2, 20, 64
+    layer = 1
+    pads = np.array(pads, np.int32)
+    kc = rng.normal(0, 1, (n_l, b, h, s, dh))
+    vc = rng.normal(0, 1, (n_l, b, h, s, dh))
+    (kcj, kct), (vcj, vct) = _bf16_pair(kc), _bf16_pair(vc)
+    (qj, qt), (knj, knt), (vnj, vnt) = (
+        _bf16_pair(rng.normal(0, 1, (b, h, dh)) * dh ** -0.5),
+        _bf16_pair(rng.normal(0, 1, (b, h, dh))),
+        _bf16_pair(rng.normal(0, 1, (b, h, dh))))
+    ctx_j, k_out, v_out = self_attend_step_packed(
+        qj, knj, vnj, pack_self_cache(kcj), pack_self_cache(vcj),
+        jnp.int32(layer), jnp.int32(pos), jnp.asarray(pads), interpret=True)
+    pad_t = torch.from_numpy(pads)
+    pos_t = torch.tensor([pos], dtype=torch.int32)
+    outs = []
+    for fn, p in ((t_self.self_attend_step_plain, pos),
+                  (t_self.self_attend_step_plain, pos_t),
+                  (t_self.self_attend_step, pos_t)):
+        k_, v_ = kct.clone(), vct.clone()
+        outs.append((fn(qt, knt, vnt, k_, v_, layer, p, pad_t), k_, v_))
+    for ctx, k_, v_ in outs[1:]:
+        assert torch.equal(ctx, outs[0][0])
+        assert torch.equal(k_, outs[0][1]) and torch.equal(v_, outs[0][2])
+    np.testing.assert_array_equal(_np(outs[0][1]), _unpack_self(k_out, s))
+    np.testing.assert_array_equal(_np(outs[0][2]), _unpack_self(v_out, s))
+    _assert_bf16_close(outs[0][0], ctx_j, steps=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -420,3 +477,34 @@ def test_source_hash_covers_every_source():
     assert sorted(p.name for p in kernels.CSRC.glob("*.cu")) == sorted(
         kernels.SOURCES)
     assert len(kernels.source_hash()) == 16
+
+
+def test_every_csrc_file_is_named_for_the_build():
+    """Every file under csrc/ is a source or a header of the build, so that
+    ``source_hash`` sees it: a header left out would be edited without a
+    rebuild."""
+    named = sorted(kernels.HEADERS + kernels.SOURCES)
+    assert len(set(named)) == len(named)
+    assert sorted(p.name for p in kernels.CSRC.iterdir()) == named
+    assert set(kernels.SIGNATURES) >= {"wt_fused_encoder_mlp",
+                                       "wt_self_attend_step",
+                                       "wt_launch_floor"}
+
+
+def test_kernel_variants_cut_the_sources_as_they_are():
+    """``kernel_variants`` makes its timed variants by replacing text of the
+    CUDA sources; every replacement must still find its text."""
+    from whisper_tpu_torch import kernel_variants as kv
+
+    for cut, source, names in ((kv.b1_source, "attention.cu", kv.B1_VARIANTS),
+                               (kv.b4_source, "cross_attention.cu",
+                                kv.B4_VARIANTS),
+                               (kv.b2_source, "encoder_mlp.cu",
+                                kv.B2_VARIANTS),
+                               (kv.b3_source, "self_attention.cu",
+                                kv.B3_VARIANTS)):
+        text = (kernels.CSRC / source).read_text()
+        variants = {name: cut(text, name) for name in names}
+        assert variants["as_built"].count("WT_EXPORT") == \
+            text.count("WT_EXPORT")
+        assert len(set(variants.values())) == len(names)

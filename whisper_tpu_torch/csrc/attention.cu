@@ -52,8 +52,6 @@
 // and then.  The kernel is held to 2 bf16 steps of the plain version.
 //
 // Ragged T: query rows >= T are never written; any T >= 1.
-#include <cuda.h>  // CUtensorMap and its enums; nothing of libcuda is linked
-
 #include "hopper.cuh"
 
 namespace {
@@ -244,43 +242,13 @@ attn_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// libcuda's tensor-map encoder, found through the CUDA runtime.
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult st = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaError_t rc = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &st);
-#else
-    cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                             cudaEnableDefault, &st);
-#endif
-    if (rc != cudaSuccess || st != cudaDriverEntryPointSuccess) p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
 // [bh, T, 64] bf16 in boxes of `rows` rows of one head, 128-byte swizzle;
 // rows outside the tensor are filled with zeros.
 bool make_map(CUtensorMap* map, const void* ptr, int bh, int T, int rows) {
   const cuuint64_t dims[3] = {DH, (cuuint64_t)T, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {DH * 2, (cuuint64_t)T * DH * 2};
   const cuuint32_t box[3] = {DH, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                   const_cast<void*>(ptr), dims, strides, box, elem,
-                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return make_tensor_map(map, ptr, 3, dims, strides, box);
 }
 
 }  // namespace
@@ -288,7 +256,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int bh, int T, int rows) {
 WT_EXPORT int wt_fused_attention(const void* q, const void* k, const void* v,
                                  void* out, int bh, int T, void* stream) {
   if (bh < 1 || T < 1) return (int)cudaErrorInvalidValue;
-  if (!encoder()) return (int)cudaErrorNotSupported;
+  if (!tensor_map_encoder()) return (int)cudaErrorNotSupported;
   CUtensorMap mq, mk, mv;
   if (!make_map(&mq, q, bh, T, BQ) || !make_map(&mk, k, bh, T, BK) ||
       !make_map(&mv, v, bh, T, BK))

@@ -1,6 +1,6 @@
-// The row-tile LayerNorm and the 64-column FFN walk shared by the encoder
-// MLP kernel (B2, encoder_mlp.cu) and the O-projection + MLP kernel (B9b,
-// encoder_block.cu).
+// The LayerNorm of a row and the tanh GELU shared by the encoder MLP (B2,
+// encoder_mlp.cu) and the O-projection + MLP kernel (B9b, encoder_block.cu),
+// and the 64-column FFN walk of the latter.
 //
 // A block of NT = 256 threads (8 warps) owns R = 32 rows.  `ln_row` turns
 // one row, held as D/32 fp32 values per lane, into bf16 LayerNorm output

@@ -2,8 +2,8 @@
 //
 // Replaces whisper_tpu/ops/encoder_mlp.py:fused_encoder_mlp (_mlp_kernel),
 // and by design its FFN-chunked twin _fused_mlp_chunked (_mlp_kernel_
-// chunked): this kernel always streams the FFN in chunks of 64 columns,
-// so it has no VMEM-style budget and takes any d in the instantiated set.
+// chunked): the same kernels take every d in the instantiated set, so there
+// is no VMEM-style budget.
 // Contract (the JAX kernel's): LayerNorm with fp32 statistics (eps 1e-5),
 // its output cast to bf16; FC1 + b1 accumulated in fp32; tanh GELU in
 // fp32, cast to bf16; FC2 + b2 accumulated in fp32; + x in fp32; bf16 out.
@@ -12,99 +12,98 @@
 //
 // What bounds it on the H100: at whisper-base bucket 16 (N = 24,000 rows,
 // d = 512, f = 2048) one call is 4*N*d*f = 101 GFLOP against ~53 MB of
-// activations and weights: compute-bound.  Design: one block per 32 rows
-// (750 blocks), 8 warps.  LN runs once per row into a bf16 tile in shared
-// memory; the FFN is walked in 64-column chunks: h = r.W1[:, c] on the
-// bf16 tensor cores (wmma, fp32 accumulate), bias + GELU in fp32 into a
-// bf16 tile, then y += h.W2[c, :] into fp32 accumulators that stay in
-// registers for the whole walk, so the [N, f] intermediate never touches
-// device memory.  Weight fragments are read straight from global memory
-// (both matrices, 4 MB, stay in the 50 MB L2).  The fp32 adds and
-// multiplies outside the matmuls use __fadd_rn/__fmul_rn so that the
-// compiler does not contract them into FMAs the JAX kernel does not use.
-// The LayerNorm of a row and the FFN walk live in encoder_ffn.cuh, which
-// the O-projection + MLP kernel (encoder_block.cu) shares.
+// activations and weights: operations bound it, 0.102 ms at 989 TFLOP/s.
+// The TPU kernel keeps y = h.W2 on the chip for the whole FFN walk so that
+// h [N, f] never reaches device memory.  Here that costs M*d*4 bytes of
+// accumulators a block: with wgmma's 64-row tiles half the register file
+// at d = 512 and all of it at d = 1024, and 64 rows a block still read the
+// 4 MB of weights 375 times a call.  So the function is three kernels on
+// the stream, launched by the one entry point:
+//   1. mlp_ln_kernel: r = bf16(LN(x)), a warp a row (ln_row of
+//      encoder_ffn.cuh, which the O-projection + MLP kernel shares).
+//   2. h = bf16(gelu_tanh(r.W1 + b1)) and
+//   3. out = bf16(x + (h.W2 + b2)): the tiled wgmma product of
+//      gemm_sm90.cuh (TMA-fed ring, two consumer warpgroups, 128 x 128
+//      tiles, two blocks an SM where the grid is large enough), bias and
+//      GELU, or bias and residual, on the accumulator registers.
+// r [N, d] and h [N, f] are scratch of the call (the caller allocates them):
+// h is written and read once, 2*N*f*2 = 196 MB at bucket 16, 0.06 ms of
+// device-memory time that the products partly hide.  The fp32 adds and
+// multiplies outside the products use __fadd_rn/__fmul_rn so that the
+// compiler does not contract them into FMAs the JAX kernel does not use,
+// and GELU's tanh is tanhf.
 #include "encoder_ffn.cuh"
-
-using namespace nvcuda;
-using namespace ffn;
+#include "gemm_sm90.cuh"
 
 namespace {
 
+constexpr int LN_WARPS = 8;  // rows a block of mlp_ln_kernel
+
 template <int D>
-constexpr size_t smem_bytes() {
-  return (size_t)R * (D + 8) * 2 + (size_t)R * HLD * 4 + (size_t)R * HBLD * 2;
+__global__ void __launch_bounds__(32 * LN_WARPS)
+mlp_ln_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lns,
+              const bf16* __restrict__ lnb, bf16* __restrict__ r, int N) {
+  const int row = blockIdx.x * LN_WARPS + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= N) return;
+  const bf16* xr = x + (size_t)row * D;
+  float xv[D / 32];
+#pragma unroll
+  for (int i = 0; i < D / 32; ++i) xv[i] = __bfloat162float(xr[lane + 32 * i]);
+  ffn::ln_row<D>(xv, lns, lnb, r + (size_t)row * D, lane);
 }
 
-template <int D>
-__global__ void __launch_bounds__(NT)
-mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lns,
-           const bf16* __restrict__ lnb, const bf16* __restrict__ w1,
-           const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-           const bf16* __restrict__ b2, bf16* __restrict__ out, int N, int F) {
-  constexpr int RLD = D + 8;     // bf16 LN tile row stride
-  constexpr int NY = D / 64;     // fp32 accumulator fragments per warp
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sR = reinterpret_cast<bf16*>(smem);                         // [R][RLD]
-  float* sH = reinterpret_cast<float*>(smem + R * RLD * 2);         // [R][HLD]
-  bf16* sHb = reinterpret_cast<bf16*>(smem + R * RLD * 2 + R * HLD * 4);
-
-  const int row0 = blockIdx.x * R;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  // ---- LayerNorm: warp w normalises rows 4w .. 4w+3 ----
-  for (int rr = 0; rr < R / 8; ++rr) {
-    const int r = warp * (R / 8) + rr;
-    const int g = row0 + r;
-    bf16* dst = sR + r * RLD;
-    if (g < N) {
-      const bf16* xr = x + (size_t)g * D;
-      float xv[D / 32];
-#pragma unroll
-      for (int i = 0; i < D / 32; ++i) xv[i] = __bfloat162float(xr[lane + 32 * i]);
-      ln_row<D>(xv, lns, lnb, dst, lane);
-    } else {
-#pragma unroll
-      for (int i = 0; i < D / 32; ++i) dst[lane + 32 * i] = __float2bfloat16_rn(0.0f);
-    }
+// h[row, col .. col + 1] = bf16(gelu_tanh(v + b1))
+struct BiasGelu {
+  const bf16* bias;
+  bf16* out;
+  int ld;
+  __device__ __forceinline__ void operator()(int row, int col, float v0,
+                                             float v1) const {
+    const __nv_bfloat162 b =
+        *reinterpret_cast<const __nv_bfloat162*>(bias + col);
+    *reinterpret_cast<uint32_t*>(out + (size_t)row * ld + col) = pack_bf16(
+        ffn::gelu_tanh(__fadd_rn(v0, __low2float(b))),
+        ffn::gelu_tanh(__fadd_rn(v1, __high2float(b))));
   }
-  __syncthreads();
+};
 
-  acc_frag y[NY];
-  ffn_walk<D>(sR, sH, sHb, w1, b1, w2, F, y);
-
-  // ---- epilogue: out = bf16(x + (y + b2)); sH is free after the last
-  // barrier, each warp stages one 16x16 fragment at a time in it ----
-  const int rt = warp / 4, ycol0 = (warp % 4) * (D / 4);
-  float* stage = sH + warp * 256;
-#pragma unroll
-  for (int j = 0; j < NY; ++j) {
-    wmma::store_matrix_sync(stage, y[j], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int g = row0 + rt * 16 + e / 16;
-      const int col = ycol0 + j * 16 + e % 16;
-      if (g < N) {
-        const size_t o = (size_t)g * D + col;
-        const float yv = __fadd_rn(stage[e], __bfloat162float(b2[col]));
-        out[o] = __float2bfloat16_rn(__fadd_rn(__bfloat162float(x[o]), yv));
-      }
-    }
-    __syncwarp();
+// out[row, col .. col + 1] = bf16(x + (v + b2))
+struct BiasResidual {
+  const bf16* bias;
+  const bf16* x;
+  bf16* out;
+  int ld;
+  __device__ __forceinline__ void operator()(int row, int col, float v0,
+                                             float v1) const {
+    const size_t o = (size_t)row * ld + col;
+    const __nv_bfloat162 b =
+        *reinterpret_cast<const __nv_bfloat162*>(bias + col);
+    const __nv_bfloat162 xr = *reinterpret_cast<const __nv_bfloat162*>(x + o);
+    *reinterpret_cast<uint32_t*>(out + o) = pack_bf16(
+        __fadd_rn(__low2float(xr), __fadd_rn(v0, __low2float(b))),
+        __fadd_rn(__high2float(xr), __fadd_rn(v1, __high2float(b))));
   }
-}
+};
 
 template <int D>
-int launch(const void* x, const void* lns, const void* lnb, const void* w1,
-           const void* b1, const void* w2, const void* b2, void* out, int N,
-           int F, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
-  cudaFuncSetAttribute(mlp_kernel<D>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  mlp_kernel<D><<<(N + R - 1) / R, NT, smem, stream>>>(
-      (const bf16*)x, (const bf16*)lns, (const bf16*)lnb, (const bf16*)w1,
-      (const bf16*)b1, (const bf16*)w2, (const bf16*)b2, (bf16*)out, N, F);
+int launch_ln(const void* x, const void* lns, const void* lnb, void* r, int N,
+              cudaStream_t stream) {
+  mlp_ln_kernel<D><<<(N + LN_WARPS - 1) / LN_WARPS, 32 * LN_WARPS, 0, stream>>>(
+      (const bf16*)x, (const bf16*)lns, (const bf16*)lnb, (bf16*)r, N);
   return (int)cudaGetLastError();
+}
+
+constexpr int SMS = 132;  // streaming multiprocessors of an H100
+
+// Two blocks an SM where the grid has more blocks than the card has SMs,
+// else one with the deeper ring (gemm_sm90.cuh).
+template <class Epilogue>
+int product(const void* a, const void* b, int M, int N, int K, Epilogue epi,
+            cudaStream_t stream) {
+  if (gemm::tiles(M, N) > SMS)
+    return gemm::launch<2>(a, b, M, N, K, epi, stream);
+  return gemm::launch<1>(a, b, M, N, K, epi, stream);
 }
 
 }  // namespace
@@ -112,17 +111,24 @@ int launch(const void* x, const void* lns, const void* lnb, const void* w1,
 WT_EXPORT int wt_fused_encoder_mlp(const void* x, const void* lns,
                                    const void* lnb, const void* w1,
                                    const void* b1, const void* w2,
-                                   const void* b2, void* out, int n, int d,
-                                   int f, void* stream) {
+                                   const void* b2, void* r, void* h, void* out,
+                                   int n, int d, int f, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (f % FC != 0) return (int)cudaErrorInvalidValue;
+  if (n < 1 || f < 64 || f % 64 != 0) return (int)cudaErrorInvalidValue;
+  int rc;
   switch (d) {
-    case 128: return launch<128>(x, lns, lnb, w1, b1, w2, b2, out, n, f, s);
-    case 384: return launch<384>(x, lns, lnb, w1, b1, w2, b2, out, n, f, s);
-    case 512: return launch<512>(x, lns, lnb, w1, b1, w2, b2, out, n, f, s);
-    case 768: return launch<768>(x, lns, lnb, w1, b1, w2, b2, out, n, f, s);
-    case 1024: return launch<1024>(x, lns, lnb, w1, b1, w2, b2, out, n, f, s);
-    case 1280: return launch<1280>(x, lns, lnb, w1, b1, w2, b2, out, n, f, s);
+    case 128: rc = launch_ln<128>(x, lns, lnb, r, n, s); break;
+    case 384: rc = launch_ln<384>(x, lns, lnb, r, n, s); break;
+    case 512: rc = launch_ln<512>(x, lns, lnb, r, n, s); break;
+    case 768: rc = launch_ln<768>(x, lns, lnb, r, n, s); break;
+    case 1024: rc = launch_ln<1024>(x, lns, lnb, r, n, s); break;
+    case 1280: rc = launch_ln<1280>(x, lns, lnb, r, n, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
+  if (rc != 0) return rc;
+  rc = product(r, w1, n, f, d, BiasGelu{(const bf16*)b1, (bf16*)h, f}, s);
+  if (rc != 0) return rc;
+  return product(h, w2, n, d, f,
+                 BiasResidual{(const bf16*)b2, (const bf16*)x, (bf16*)out, d},
+                 s);
 }

@@ -1,9 +1,13 @@
 // Hopper (sm_90a) primitives as thin wrappers over PTX: mbarriers, bulk
 // asynchronous copies (1-D and through a TMA tensor map), warpgroup matrix
-// products (wgmma) and their shared-memory descriptors.  Used by the
-// encoder attention kernel (attention.cu) and the split cross-attention
-// step (cross_attention.cu).
+// products (wgmma) and their shared-memory descriptors, and on the host the
+// tensor maps themselves.  Used by the encoder attention kernel
+// (attention.cu), the tiled product (gemm_sm90.cuh), the split
+// cross-attention step (cross_attention.cu) and the self-attention step
+// (self_attention.cu).
 #pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; nothing of libcuda is linked
 
 #include "common.cuh"
 
@@ -85,18 +89,30 @@ WT_DEV void tma_load_3d(uint32_t dst, const void* map, uint32_t bar, int c0,
       : "memory");
 }
 
+// One box of a 2-D tensor map (coordinates innermost first).
+WT_DEV void tma_load_2d(uint32_t dst, const void* map, uint32_t bar, int c0,
+                        int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(map), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // ---- wgmma ----------------------------------------------------------------
 
 // Descriptor of a bf16 operand tile in shared memory whose rows are 128
 // bytes (64 values), written with the 128-byte swizzle, base 1024-aligned:
-// eight rows make a 1024-byte group (the stride offset); the leading offset
-// is not used at this width.  It serves a K-major operand (Q, K: the
-// product's depth runs along the row) and an MN-major one (V: the depth runs
-// across rows) alike; which it is, the instruction's transpose bit says.
-WT_DEV uint64_t wgmma_desc(uint32_t saddr) {
+// eight rows make a 1024-byte group (the stride offset).  It serves a
+// K-major operand (Q, K: the product's depth runs along the row) and an
+// MN-major one (V, a weight [K, N]: the depth runs across rows) alike; which
+// it is, the instruction's transpose bit says.  An MN-major operand wider
+// than 64 values is several such tiles, `lead_bytes` apart (the leading
+// offset); a K-major operand and one of 64 values do not use it.
+WT_DEV uint64_t wgmma_desc(uint32_t saddr, uint32_t lead_bytes = 16) {
   uint64_t d = 0;
   d |= (uint64_t)((saddr & 0x3FFFF) >> 4);
-  d |= (uint64_t)(16 >> 4) << 16;
+  d |= (uint64_t)(lead_bytes >> 4) << 16;
   d |= (uint64_t)(1024 >> 4) << 32;
   d |= (uint64_t)1 << 62;  // 128-byte swizzle
   return d;
@@ -111,8 +127,11 @@ WT_DEV void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
-// d[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T, bf16 -> fp32; A and B from
-// shared memory, both K-major.  `acc` = 0 overwrites d.
+// d[64 x 128] (+)= A[64 x 16] . B, bf16 -> fp32; A and B from shared
+// memory, A K-major; B K-major ([128 x 16], TRANS_B = 0) or MN-major
+// ([16 x 128]: 16 rows of two 64-value tiles, TRANS_B = 1).  `acc` = 0
+// overwrites d.
+template <int TRANS_B = 0>
 WT_DEV void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da, uint64_t db,
                                 int acc) {
   asm volatile(
@@ -128,7 +147,7 @@ WT_DEV void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da, uint64_t db,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
+      "%64, %65, p, 1, 1, 0, %67;\n"
       "}"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -146,7 +165,7 @@ WT_DEV void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da, uint64_t db,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(acc)
+      : "l"(da), "l"(db), "r"(acc), "n"(TRANS_B)
       : "memory");
 }
 
@@ -209,4 +228,48 @@ WT_DEV float fast_exp2(float x) {
 WT_DEV uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---- tensor maps (host) -----------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// libcuda's tensor-map encoder, found through the CUDA runtime; null where
+// libcuda has none.
+inline EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult st = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &st);
+#else
+    cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                             cudaEnableDefault, &st);
+#endif
+    if (rc != cudaSuccess || st != cudaDriverEntryPointSuccess) p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A bf16 tensor of `rank` dimensions (innermost first; `strides` in bytes,
+// from the second dimension on) in boxes of `box`, 128-byte swizzle, so the
+// innermost box extent is 64 values; what lies outside the tensor is filled
+// with zeros.
+inline bool make_tensor_map(CUtensorMap* map, const void* ptr, int rank,
+                            const cuuint64_t* dims, const cuuint64_t* strides,
+                            const cuuint32_t* box) {
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  return tensor_map_encoder()(
+             map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+             const_cast<void*>(ptr), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

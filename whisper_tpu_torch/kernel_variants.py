@@ -1,4 +1,4 @@
-"""What holds the two kernels redesigned for Hopper, by timed variants:
+"""What holds the four kernels redesigned for Hopper, by timed variants:
 ``python -m whisper_tpu_torch.kernel_variants``.
 
 **B1** (encoder attention).  Builds ``csrc/attention.cu`` as it is and in
@@ -33,6 +33,30 @@ the 50 MB L2; 600 calls back to back, the layer rotating, median of 5):
 - ``loads_only``: every block waits for its K and V segment and leaves;
 - ``loads_and_barriers``: the same and the kernel's three cluster barriers;
 - ``no_pv``: the whole kernel but the p8 . V8 product.
+
+**B2** (the encoder MLP: LayerNorm, then two tiled wgmma products).  Builds
+``csrc/encoder_mlp.cu`` with ``csrc/gemm_sm90.cuh`` written into it, as it
+is and in variants, and times one call of each (all three kernels) at
+whisper-base bucket 16 (24,000 rows, d = 512) and at whisper-medium's one
+chunk (1,500 rows, d = 1,024):
+
+- ``no_mma``: every ``wgmma`` replaced by one addition;
+- ``no_load``: the producer signals each slot full without copying into it;
+- ``no_epilogue``: the accumulators stored as they are, without bias, GELU
+  or residual;
+- ``one_block`` and ``two_blocks``: both products with one block an SM and a
+  ring of 6 slots, or with two and rings of 3, whatever the grid (as built,
+  the size of each product's grid chooses).
+
+**B3** (the decode self-attention step).  Builds ``csrc/self_attention.cu``
+as it is and cut short, and times one call of each at bucket 16 with
+``pos`` 70 and 131 over a six-layer cache, the layer rotating: 600 calls
+back to back from the host, where the host's launch rate is the limit, and
+the same 600 launches captured in one CUDA graph and replayed, where the
+card's is (median of 5 each):
+
+- ``copies_only``: every block waits for its rows of K and V and leaves;
+- ``no_pv``: the whole kernel but the P.V sum.
 
 Prints one JSON line for each kernel with the card's name and power limit.
 It needs a CUDA card and nvcc and raises without them.
@@ -107,6 +131,69 @@ def b4_source(text: str, name: str) -> str:
     if name == "no_pv":
         text = _swap(text, "    ctx += cross_pv<NT>(sP8, sV, rows, part);\n",
                      "")
+    return text
+
+
+B2_VARIANTS = ("as_built", "no_mma", "no_load", "no_epilogue", "one_block",
+               "two_blocks")
+_B2_CHOICE = "if (gemm::tiles(M, N) > SMS)"
+_B2_MMA = ("        wgmma_m64n128k16_ss<1>(acc, da + 2 * kk, "
+           "db + kk * (16 * 128 / 16), 1);\n")
+_B2_LOADS = """        tma_load_2d(dst, &map_a, full(slot), s * BK, m0);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load_2d(dst + A_BYTES + j * B_BOX_BYTES, &map_b, full(slot),
+                      n0 + 64 * j, s * BK);
+"""
+
+
+def b2_source(text: str, name: str) -> str:
+    """``encoder_mlp.cu``'s text, the product's header written into it, cut
+    into the named variant."""
+    from whisper_tpu_torch.ops import kernels
+
+    text = _swap(text, '#include "gemm_sm90.cuh"\n',
+                 (kernels.CSRC / "gemm_sm90.cuh").read_text())
+    if name == "no_mma":
+        text = _swap(text, _B2_MMA, "        acc[kk] += (float)(da + db);\n")
+    if name == "no_load":
+        text = _swap(text, "mbar_arrive_expect_tx(full(slot), STAGE_BYTES);",
+                     "mbar_arrive(full(slot));")
+        text = _swap(text, _B2_LOADS, "        (void)dst;\n")
+    if name in ("one_block", "two_blocks"):
+        text = _swap(text, _B2_CHOICE,
+                     "if (true)" if name == "two_blocks" else "if (false)")
+    if name == "no_epilogue":
+        text = _swap(text, "ffn::gelu_tanh(__fadd_rn(v0, __low2float(b)))",
+                     "v0")
+        text = _swap(text, "ffn::gelu_tanh(__fadd_rn(v1, __high2float(b)))",
+                     "v1")
+        text = _swap(
+            text, "__fadd_rn(__low2float(xr), __fadd_rn(v0, __low2float(b)))",
+            "v0")
+        text = _swap(
+            text,
+            "__fadd_rn(__high2float(xr), __fadd_rn(v1, __high2float(b)))",
+            "v1")
+    return text
+
+
+B3_VARIANTS = ("as_built", "copies_only", "no_pv")
+_B3_WAIT = "  mbar_wait(bar, 0);\n"
+_B3_LEAVE = """  if (tid < DH)
+    out[row * DH + tid] = __float2bfloat16_rn(
+        __bfloat162float(sK[tid]) + __bfloat162float(sV[tid]));
+  return;
+"""
+
+
+def b3_source(text: str, name: str) -> str:
+    """``self_attention.cu``'s text cut into the named variant."""
+    if name == "copies_only":
+        text = _swap(text, _B3_WAIT, _B3_WAIT + _B3_LEAVE)
+    if name == "no_pv":
+        text = _swap(text, "  for (int s = warp; s < n; s += NW) {",
+                     "  for (int s = warp; s < 0; s += NW) {")
     return text
 
 
@@ -248,6 +335,93 @@ def b4(card: str) -> dict:
             "us_per_call": us}
 
 
+def b2(card: str) -> dict:
+    import torch
+
+    libs = _build("encoder_mlp.cu", b2_source, B2_VARIANTS)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    bf, ptr = torch.bfloat16, ctypes.c_void_p
+    stream = torch.cuda.current_stream().cuda_stream
+    for lib in libs.values():
+        lib.wt_fused_encoder_mlp.argtypes = ([ptr] * 10 + [ctypes.c_int] * 3
+                                             + [ptr])
+    ms = {}
+    for n, d in ((24000, 512), (1500, 1024)):
+        f = 4 * d
+        x, w1, w2 = ((torch.randn(*shape, generator=g, device="cuda")
+                      * scale).to(bf)
+                     for shape, scale in (((n, d), 1.0), ((d, f), 0.04),
+                                          ((f, d), 0.04)))
+        ln_s, ln_b, b1, b2_ = (torch.full((k,), v, dtype=bf, device="cuda")
+                               for k, v in ((d, 1.0), (d, 0.1), (f, 0.1),
+                                            (d, 0.1)))
+        r, out = torch.empty_like(x), torch.empty_like(x)
+        h = torch.empty(n, f, dtype=bf, device="cuda")
+
+        def run(lib):
+            rc = lib.wt_fused_encoder_mlp(
+                x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
+                b1.data_ptr(), w2.data_ptr(), b2_.data_ptr(), r.data_ptr(),
+                h.data_ptr(), out.data_ptr(), n, d, f, stream)
+            if rc != 0:
+                raise RuntimeError(f"launch failed with CUDA error {rc}")
+
+        shape = ms.setdefault(f"rows_{n}_d_{d}", {v: [] for v in B2_VARIANTS})
+        for names in (B2_VARIANTS, tuple(reversed(B2_VARIANTS))):
+            for name in names:
+                shape[name].append(_median_ms(lambda i: run(libs[name])))
+    return {"kernel": "B2", "card": card, "ms_per_call": ms}
+
+
+def b3(card: str) -> dict:
+    import torch
+
+    libs = _build("self_attention.cu", b3_source, B3_VARIANTS)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    n_l, b, h, s = 6, 16, 8, 132
+    bf, ptr = torch.bfloat16, ctypes.c_void_p
+    kc, vc = (torch.randn(n_l, b, h, s, 64, generator=g,
+                          device="cuda").to(bf) for _ in "kv")
+    q, kn, vn = ((torch.randn(b, h, 64, generator=g, device="cuda")
+                  * sc).to(bf) for sc in (0.125, 1.0, 1.0))
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+    for lib in libs.values():
+        lib.wt_self_attend_step.argtypes = ([ptr] * 7 + [ctypes.c_int] * 5
+                                            + [ptr, ptr])
+
+    def run(lib, i, pos, on):
+        rc = lib.wt_self_attend_step(
+            q.data_ptr(), kn.data_ptr(), vn.data_ptr(), kc.data_ptr(),
+            vc.data_ptr(), None, out.data_ptr(), b, h, s, i % n_l, pos, None,
+            on)
+        if rc != 0:
+            raise RuntimeError(f"launch failed with CUDA error {rc}")
+
+    def graph_of(lib, pos, calls=600):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            capturing = torch.cuda.current_stream().cuda_stream
+            for i in range(calls):
+                run(lib, i, pos, capturing)
+        return graph
+
+    us, graph_us = {}, {}
+    for pos in (70, 131):
+        at = us.setdefault(f"pos_{pos}", {v: [] for v in B3_VARIANTS})
+        graphs = {v: graph_of(libs[v], pos) for v in B3_VARIANTS}
+        in_graph = graph_us.setdefault(f"pos_{pos}",
+                                       {v: [] for v in B3_VARIANTS})
+        for names in (B3_VARIANTS, tuple(reversed(B3_VARIANTS))):
+            for name in names:
+                at[name].append(1e3 * _median_ms(
+                    lambda i: run(libs[name], i, pos, stream), calls=600))
+                in_graph[name].append(1e3 / 600 * _median_ms(
+                    lambda i: graphs[name].replay(), calls=1))
+    return {"kernel": "B3", "card": card, "cache": [n_l, b, h, s, 64],
+            "us_per_call": us, "us_per_call_in_a_cuda_graph": graph_us}
+
+
 def main() -> None:
     import torch
 
@@ -258,6 +432,8 @@ def main() -> None:
     card = card_info()
     print(json.dumps(b1(card)), flush=True)
     print(json.dumps(b4(card)), flush=True)
+    print(json.dumps(b2(card)), flush=True)
+    print(json.dumps(b3(card)), flush=True)
 
 
 if __name__ == "__main__":

@@ -6,10 +6,15 @@ variant (``_fused_mlp_chunked``): x + FC2(GELU_tanh(FC1(LN(x)))) with LN
 statistics in fp32 (eps 1e-5), fp32 accumulation, tanh GELU, bf16 out.
 The weights arrive dense; int8 weights are dequantized by the caller.
 
-On a CUDA tensor it launches the hand-written Hopper kernel
-``csrc/encoder_mlp.cu``, which walks the FFN in 64-column chunks and so
-needs no VMEM-style budget (no ``fits_vmem``/``chunk_plan``); on a CPU
-tensor it takes ``fused_encoder_mlp_plain``.  Any other device raises.
+On a CUDA tensor it launches the hand-written Hopper kernels of
+``csrc/encoder_mlp.cu``: the LayerNorm, then the two products as tiled
+``wgmma`` kernels fed by TMA (``csrc/gemm_sm90.cuh``) with bias + GELU and
+bias + residual on the accumulators, one C call and no torch operation.
+They take every width of ``KERNEL_WIDTHS``, so there is no VMEM-style
+budget (no ``fits_vmem``/``chunk_plan``).  LN(x) [N, d] and the FFN's
+hidden activations [N, f] pass through device memory as scratch of the
+call: 123 MB at whisper-base bucket 16.  On a CPU tensor it takes
+``fused_encoder_mlp_plain``.  Any other device raises.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from whisper_tpu_torch.ops.common import check_operand, gelu_tanh, route
 
 LN_EPS = 1e-5
 KERNEL_WIDTHS = (128, 384, 512, 768, 1024, 1280)  # d_model instantiations
-F_CHUNK = 64  # the kernel's FFN chunk: f must be a multiple
+F_CHUNK = 64  # a TMA box of the products: f must be a multiple
 
 launches = 0  # kernel launches since the last reset (plain calls excluded)
 
@@ -59,10 +64,14 @@ def fused_encoder_mlp(x: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor,
                            ("w2", w2, (f, d)), ("b2", b2, (d,))):
         check_operand(name, a, bf, shape, x.device)
     out = torch.empty_like(x)
+    # scratch of this call (the CLI's prefetch thread may be inside another)
+    r = torch.empty_like(x)
+    h = torch.empty((b * t, f), dtype=bf, device=x.device)
     lib = kernels.library()
     kernels.check(lib.wt_fused_encoder_mlp(
         x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-        b * t, d, f, kernels.stream_ptr(x.device)), "fused_encoder_mlp")
+        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), r.data_ptr(),
+        h.data_ptr(), out.data_ptr(), b * t, d, f,
+        kernels.stream_ptr(x.device)), "fused_encoder_mlp")
     launches += 1
     return out

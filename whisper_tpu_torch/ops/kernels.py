@@ -31,8 +31,8 @@ SOURCES = ("attention.cu", "encoder_mlp.cu", "self_attention.cu",
            "cross_attention.cu", "cross_attention_dequant.cu", "log_mel.cu",
            "self_attention_int8.cu", "encoder_block.cu", "decoder_mlp.cu",
            "cross_attention_multi.cu", "decoder_self_block.cu",
-           "decoder_cross_block.cu")
-HEADERS = ("common.cuh", "hopper.cuh", "encoder_ffn.cuh",
+           "decoder_cross_block.cu", "launch_floor.cu")
+HEADERS = ("common.cuh", "hopper.cuh", "encoder_ffn.cuh", "gemm_sm90.cuh",
            "cross_attention.cuh", "decoder_block.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -45,11 +45,12 @@ _L, _F = ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     # q, k, v, out, batch*heads, T, stream
     "wt_fused_attention": [_P, _P, _P, _P, _I, _I, _P],
-    # x, ln_s, ln_b, w1, b1, w2, b2, out, rows, d, f, stream
-    "wt_fused_encoder_mlp": [_P] * 8 + [_I, _I, _I, _P],
-    # q, k_new, v_new, k_cache, v_cache, pad_count, out,
-    # batch, heads, S, layer, pos, stream
-    "wt_self_attend_step": [_P] * 7 + [_I] * 5 + [_P],
+    # x, ln_s, ln_b, w1, b1, w2, b2, r scratch, h scratch, out, rows, d, f,
+    # stream
+    "wt_fused_encoder_mlp": [_P] * 10 + [_I, _I, _I, _P],
+    # q, k_new, v_new, k_cache, v_cache, pad_count (or null), out,
+    # batch, heads, S, layer, pos, pos on the device (or null), stream
+    "wt_self_attend_step": [_P] * 7 + [_I] * 5 + [_P, _P],
     # q, k_scale, v_scale, k8, v8, out, batch, heads, S, layer, s_valid,
     # stream (both)
     "wt_cross_attend_step": [_P] * 6 + [_I] * 5 + [_P],
@@ -76,6 +77,8 @@ SIGNATURES = {
     # x, ln, q_w, q_b, o_w, o_b, cross_k, cross_v, q scratch, ctx scratch,
     # out, batch, d, heads, T, stream
     "wt_decoder_cross_block": [_P] * 11 + [_I] * 4 + [_P],
+    # stream: an empty kernel
+    "wt_launch_floor": [_P],
 }
 
 _lib = None          # the loaded library (one per process)

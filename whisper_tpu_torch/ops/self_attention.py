@@ -9,8 +9,12 @@ IN PLACE, in the kernel and in the plain version alike, so the caller's
 cache tensors are the updated cache.
 
 On a CUDA tensor it launches the hand-written Hopper kernel
-``csrc/self_attention.cu``; on a CPU tensor it takes
-``self_attend_step_plain``.  Any other device raises.
+``csrc/self_attention.cu`` and puts nothing else on the card; on a CPU
+tensor it takes ``self_attend_step_plain``.  Any other device raises.
+``pos`` is an int or a one-element int32 tensor on q's device: the kernel
+reads the tensor itself (the JAX kernel's scalar prefetch), so the wrapper
+does not wait for the card and every step of a decode loop is the same
+launch.
 
 ``self_attend_step_int8`` (B8, rung x7) replaces
 ``self_attend_step_packed_int8`` (``_kernel_int8``): the same step against
@@ -44,11 +48,13 @@ int8_launches = 0  # B8 kernel launches since the last reset
 
 
 def self_attend_step_plain(q, k_new, v_new, k_cache, v_cache, layer: int,
-                           pos: int, pad_count=None) -> torch.Tensor:
+                           pos, pad_count=None) -> torch.Tensor:
     """Reference version: the JAX kernel's math in plain PyTorch (q widened
     to fp32, fp32 scores and softmax over rows [pad_count[b], pos], each
-    p*v product rounded to the cache dtype before the fp32 sum)."""
+    p*v product rounded to the cache dtype before the fp32 sum).  ``pos``:
+    an int or a one-element integer tensor, which is read here."""
     b, h, s_max = k_cache.shape[1], k_cache.shape[2], k_cache.shape[3]
+    pos = int(pos)
     k_cache[layer, :, :, pos] = k_new.to(k_cache.dtype)
     v_cache[layer, :, :, pos] = v_new.to(v_cache.dtype)
     k = k_cache[layer]                                     # [B, H, S, Dh]
@@ -70,13 +76,15 @@ def self_attend_step_plain(q, k_new, v_new, k_cache, v_cache, layer: int,
 
 def self_attend_step(q: torch.Tensor, k_new: torch.Tensor,
                      v_new: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, layer: int, pos: int,
+                     v_cache: torch.Tensor, layer: int, pos,
                      pad_count=None) -> torch.Tensor:
     """One self-attention decode step against (and into) the cache.
 
     q, k_new, v_new: [B, H, 64] (q pre-scaled by 64^-0.5);
     k_cache, v_cache: [L, B, H, S, 64], row ``pos`` of ``layer`` is
-    overwritten in place; pad_count: [B] int32 left-pad slots or None.
+    overwritten in place; pos: an int, checked here, or a one-element int32
+    tensor on q's device, read by the kernel (outside [0, S) it writes no
+    cache row and returns NaN); pad_count: [B] int32 left-pad slots or None.
     Returns ctx [B, H, 64] in q's dtype."""
     if route(q) == "plain":
         return self_attend_step_plain(q, k_new, v_new, k_cache, v_cache,
@@ -86,24 +94,34 @@ def self_attend_step(q: torch.Tensor, k_new: torch.Tensor,
     n_layers, s_max = k_cache.shape[0], k_cache.shape[3]
     if dh != 64:
         raise ValueError(f"self_attend_step kernel needs head_dim 64, got {dh}")
-    if not (0 <= layer < n_layers and 0 <= pos < s_max):
-        raise ValueError(f"layer {layer} / pos {pos} outside the cache "
+    pos_ptr = None
+    if isinstance(pos, torch.Tensor):
+        if (pos.device != q.device or pos.dtype != torch.int32
+                or pos.numel() != 1):
+            raise ValueError("pos: a tensor must hold one int32 on "
+                             f"{q.device}, got {pos.dtype} "
+                             f"{tuple(pos.shape)} on {pos.device}")
+        pos_ptr, pos = pos.data_ptr(), -1
+    elif not 0 <= pos < s_max:
+        raise ValueError(f"pos {pos} outside the cache [{n_layers}, {s_max}]")
+    if not 0 <= layer < n_layers:
+        raise ValueError(f"layer {layer} outside the cache "
                          f"[{n_layers}, {s_max}]")
     bf = torch.bfloat16
     for name, x in (("q", q), ("k_new", k_new), ("v_new", v_new)):
         check_operand(name, x, bf, (b, h, dh), q.device)
     for name, x in (("k_cache", k_cache), ("v_cache", v_cache)):
         check_operand(name, x, bf, (n_layers, b, h, s_max, dh), q.device)
-    if pad_count is None:
-        pad_count = torch.zeros(b, dtype=torch.int32, device=q.device)
-    check_operand("pad_count", pad_count, torch.int32, (b,), q.device)
+    if pad_count is not None:
+        check_operand("pad_count", pad_count, torch.int32, (b,), q.device)
     out = torch.empty_like(q)
     lib = kernels.library()
     kernels.check(lib.wt_self_attend_step(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), pad_count.data_ptr(), out.data_ptr(), b, h, s_max,
-        int(layer), int(pos), kernels.stream_ptr(q.device)),
-        "self_attend_step")
+        v_cache.data_ptr(),
+        None if pad_count is None else pad_count.data_ptr(), out.data_ptr(),
+        b, h, s_max, int(layer), int(pos), pos_ptr,
+        kernels.stream_ptr(q.device)), "self_attend_step")
     launches += 1
     return out
 

@@ -3,13 +3,15 @@
 
 Runs the headline workload (whisper-base, random weights from seed 0, the
 301.574 s synthetic file, 128 greedy tokens) on the card at x5, x6, x7 and
-at x5 with ``fused_encoder_block`` and ``fused_decoder_step``, each once to
+at x5 with ``fused_encoder_block`` and ``fused_decoder_step``, and at x5
+decoded speculatively with the model's own int8 weights as the draft on the
+shared encoder (draft_k 4: the verify pass runs B7), each once to
 warm up and once under ``torch.profiler``, and prints for each, on one JSON
 line: the wall time of the traced run (the profiler slows the host, so it
 is no e2e figure), the device operations it launched (kernels, copies and
 memsets) in all and per decode step, the device's busy time and share, the
-mean in-situ time of each hand-written kernel, and the five largest other
-device operations.  It needs a CUDA card and raises without one.
+mean in-situ time of each hand-written kernel (B2 as its three kernels, whose
+means add up to one call), and the five largest other device operations.  It needs a CUDA card and raises without one.
 """
 
 from __future__ import annotations
@@ -19,26 +21,34 @@ import time
 import warnings
 
 # kernel function name in csrc/ -> the kernel's number
-KERNELS = {"attn_kernel": "B1", "out_mlp_kernel": "B9b", "mlp_kernel": "B2",
+KERNELS = {"attn_kernel": "B1", "out_mlp_kernel": "B9b",
+           "mlp_ln_kernel": "B2 (LayerNorm)", "BiasGelu": "B2 (FC1 product)",
+           "BiasResidual": "B2 (FC2 product)",
            "self_step_int8_kernel": "B8", "self_step_kernel": "B3",
            "cross_step_kernel": "B4", "cross_dequant_kernel": "B6",
+           "cross_multi_int8_kernel": "B7-i8",
+           "cross_multi_dequant_kernel": "B7-dq",
            "log_mel_kernel": "B5", "ln_qkv_kernel": "B9a",
            "fc1_kernel": "B10c (FC1 phase)", "fc2_kernel": "B10c (FC2 phase)"}
 CONFIGS = (("x5", "x5", {}), ("x6", "x6", {}), ("x7", "x7", {}),
            ("x5+fused_encoder_block+fused_decoder_step", "x5",
             dict(fused_encoder_block=True, fused_decoder_step=True)))
+SPECULATIVE = "x5+speculative (own int8 weights as draft, shared encoder)"
 DECODE_STEPS = 127  # 128 new tokens: the prefill gives the first
 
 
 def _kernel_of(name: str):
-    for fn, label in KERNELS.items():   # out_mlp_kernel before mlp_kernel
-        if fn + "<" in name or fn + "(" in name or name.endswith(fn):
+    for fn, label in KERNELS.items():
+        # a kernel's name, or for gemm_kernel<BN, Epilogue> its epilogue's
+        if any(fn + end in name for end in "<(>") or name.endswith(fn):
             return label
     return None
 
 
 def profile_config(label: str, variant: str, overrides: dict, params,
-                   audio) -> dict:
+                   audio, draft=None) -> dict:
+    """One traced run of the workload; ``draft``: (params, dims) of a draft
+    model, and then the run decodes speculatively with draft_k 4."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -48,12 +58,16 @@ def profile_config(label: str, variant: str, overrides: dict, params,
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)  # x6's precedence note
         session = make_session("cuda", params, variant, **overrides)
-    run_once(session, audio)
+    decode = {}
+    if draft is not None:
+        session.set_draft_model(*draft, share_encoder=True)
+        decode = dict(speculative=True, draft_k=4)
+    run_once(session, audio, **decode)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run_once(session, audio)
+        run_once(session, audio, **decode)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     ops, busy_us, mine, other = 0, 0.0, {}, []
@@ -102,6 +116,7 @@ def main() -> None:
     )
     from whisper_tpu_torch.models.convert import init_params
     from whisper_tpu_torch.models.registry import get_dims
+    from whisper_tpu_torch.variants.quant import quantize_params
 
     card = card_info()
     # The first profiler session of a process sets up the tracing (seconds
@@ -109,10 +124,13 @@ def main() -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         torch.zeros(1, device="cuda")
         torch.cuda.synchronize()
-    params = init_params(get_dims(MODEL_ID), seed=0)
+    dims = get_dims(MODEL_ID)
+    params = init_params(dims, seed=0)
     audio = synth_audio(AUDIO_SECONDS)
-    for label, variant, overrides in CONFIGS:
-        out = profile_config(label, variant, overrides, params, audio)
+    runs = [(*config, None) for config in CONFIGS]
+    runs.append((SPECULATIVE, "x5", {}, (quantize_params(params), dims)))
+    for label, variant, overrides, draft in runs:
+        out = profile_config(label, variant, overrides, params, audio, draft)
         out["device"] = card
         print(json.dumps(out), flush=True)
 
