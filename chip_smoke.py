@@ -9,7 +9,7 @@ What it does, in order (any failure raises and exits non-zero):
    (sm_90a; one nvcc per source, all started together) and prints the
    build time, each kernel's register use and, from the library's SASS,
    that B1 and B2's products hold warpgroup products and tensor-map loads
-   and B3 and B4 bulk copies.
+   and B3, B4, B6 and B7-dq bulk copies.
 3. Runs each kernel (B1-B10c, sixteen rows) against its plain PyTorch
    version on the card at the shapes its path gives it (whisper-base, batch
    bucket 16: B1-B4 at x5, B6 at x4, B8 at x7, B9a/B9b with the fused
@@ -26,9 +26,12 @@ What it does, in order (any failure raises and exits non-zero):
    second bound, the 111 GFLOP its two-pass contract executes; B4 (a
    cluster of blocks a head) also at bucket 1 with 6 heads and at S = 1504
    with 1,500 valid columns, and its wrapper must put exactly one operation
-   on the card a call (counted by torch.profiler).  B7 is also held, query
-   by query and bitwise, against the single-token kernels B4 and B6 at T =
-   2, 5 and 9; what B10a writes into the cache bitwise against the plain
+   on the card a call (counted by torch.profiler); B6 (B4's cluster,
+   dequantizing) at S = 96, 192, 193, 1500, 1504 (1,500 valid) and 2000
+   (1,999 valid), at bucket 16 with 8 heads and at bucket 1 with 6, and it
+   and B7-dq one operation a call.  B7 is also held, query by query and
+   bitwise, against the single-token kernels B4 and B6 at T = 1, 2, 5, 9
+   and 17 and S = 96, 1500, 1504 and 2000; what B10a writes into the cache bitwise against the plain
    version at pos 0, 70 and 131; B10b at T = 1500, 96 and 100.  B2 (LayerNorm
    and two tiled wgmma products) is also held at 1, 1,499 and 24,000 rows at
    d = 512 and at 1,500 rows at d = 1,024 and 1,280, must put exactly its
@@ -89,6 +92,7 @@ What it does, in order (any failure raises and exits non-zero):
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import statistics
@@ -150,7 +154,8 @@ def check_sass(lib_path) -> None:
     instructions, read from the library with cuobjdump: the encoder
     attention kernel and the encoder MLP's products must hold warpgroup
     products (HGMMA) and tensor-map loads (UTMALDG), the self- and the
-    cross-attention step bulk copies (UBLKCP)."""
+    cross-attention steps and the dequantizing verify pass bulk copies
+    (UBLKCP)."""
     import re
     import shutil
     import subprocess
@@ -166,7 +171,9 @@ def check_sass(lib_path) -> None:
     want = {"11attn_kernelE": ("HGMMA", "UTMALDG"),
             "11gemm_kernelI": ("HGMMA", "UTMALDG"),
             "16self_step_kernelE": ("UBLKCP",),
-            "17cross_step_kernelE": ("UBLKCP",)}
+            "17cross_step_kernelE": ("UBLKCP",),
+            "20cross_dequant_kernelE": ("UBLKCP",),
+            "26cross_multi_dequant_kernelE": ("UBLKCP",)}
     seen = set()
     for part in sass.split("Function : ")[1:]:
         name = part.split("\n", 1)[0]
@@ -494,38 +501,54 @@ def check_kernels(card: str) -> list:
 
     by_name = {r["name"]: r for r in out}
     check_b1_b4_edges(card, by_name, randn, q.shape, (qx, k8, v8, ks, vs))
+    check_b6_edges(card, by_name, randn, (qx, k8, v8, ks, vs), qm)
     check_b2_b3_edges(card, by_name, randn, mlp_args, med_args,
                       (qs, kn, vn, kc, vc))
 
     # B7 against the kernels it repeats: every query bitwise the
-    # single-token kernel's (B4, B6) on that query, at T = 2, 5 and 9, and
-    # its time beside T calls of that kernel.
+    # single-token kernel's (B4, B6) on that query, at T = 1, 2, 5, 9 and 17
+    # (B7-dq takes its queries in chunks of 8) and S = 96, 1500, 1504 (1,500
+    # valid) and 2000 (1,999 valid: eleven segments), and its time beside T
+    # calls of that kernel.
+    caches = {t: (k8, v8, ks, vs, 2)}
+    for s_ in (96, 1504, 2000):
+        caches[s_] = (torch.randint(-127, 128, (2, b, h, s_, dh), generator=g,
+                                    device=dev, dtype=torch.int8),
+                      torch.randint(-127, 128, (2, b, h, s_, dh), generator=g,
+                                    device=dev, dtype=torch.int8),
+                      torch.rand(2, b, h, generator=g, device=dev) * 0.02
+                      + 1e-3,
+                      torch.rand(2, b, h, generator=g, device=dev) * 0.02
+                      + 1e-3, 1)
+    valid_of = {96: 96, t: t, 1504: 1500, 2000: 1999}
     for mxu, one, label in ((True, cross_attention.cross_attend_step, "B4"),
                             (False, cross_attention.cross_attend_step_dequant,
                              "B6")):
-        for n_t in (2, 5, 9):
+        for (s_, (*cache, lay)), n_t in itertools.product(caches.items(),
+                                                         (1, 2, 5, 9, 17)):
             qt = randn(b, n_t, h, dh, scale=dh ** -0.5)
+            valid = valid_of[s_]
             got = cross_attention.cross_attend_multi(
-                qt, k8, v8, ks, vs, 2, s_valid=t, int8_mxu=mxu)
+                qt, *cache, lay, s_valid=valid, int8_mxu=mxu)
             for i in range(n_t):
-                want = one(qt[:, i].contiguous(), k8, v8, ks, vs, 2,
-                           s_valid=t)
+                want = one(qt[:, i].contiguous(), *cache, lay, s_valid=valid)
                 if not torch.equal(got[:, i], want):
                     raise AssertionError(
-                        f"B7 (int8_mxu={mxu}), T = {n_t}: query {i} is not "
-                        f"bitwise {label}'s")
+                        f"B7 (int8_mxu={mxu}), T = {n_t}, S = {s_}: query "
+                        f"{i} is not bitwise {label}'s")
             plain = cross_attention.cross_attend_multi_plain(
-                qt, k8, v8, ks, vs, 2, s_valid=t, int8_mxu=mxu)
+                qt, *cache, lay, s_valid=valid, int8_mxu=mxu)
             if _bf16_steps(got, plain) > 2.0:
-                raise AssertionError(f"B7 (int8_mxu={mxu}), T = {n_t}: "
-                                     f"{_bf16_steps(got, plain):.3g} bf16 "
-                                     "steps from the plain version")
+                raise AssertionError(f"B7 (int8_mxu={mxu}), T = {n_t}, S = "
+                                     f"{s_}: {_bf16_steps(got, plain):.3g} "
+                                     "bf16 steps from the plain version")
         q1 = qm[:, 0].contiguous()
         one_ms = _median_ms(lambda: one(q1, k8, v8, ks, vs, 2, s_valid=t))
         multi_ms = _median_ms(lambda: cross_attention.cross_attend_multi(
             qm, k8, v8, ks, vs, 2, s_valid=t, int8_mxu=mxu))
         print(f"[kernel] B7 (int8_mxu={mxu}): every query bitwise {label}'s "
-              f"at T = 2, 5, 9; T = {n_q}: {multi_ms:.4f} ms against "
+              f"at T = 1, 2, 5, 9, 17 and S = 96, 1500, 1504, 2000; T = "
+              f"{n_q}: {multi_ms:.4f} ms against "
               f"{n_q} x {label} = {n_q * one_ms:.4f} ms on {card}",
               flush=True)
 
@@ -650,6 +673,60 @@ def check_b1_b4_edges(card: str, by_name, randn, b1_shape, b4_args) -> None:
                              "card a call, expected its one kernel")
     print(f"[kernel] B4: {ops:g} device operation a call (torch.profiler); "
           + "; ".join(cases) + f" on {card}", flush=True)
+
+
+def check_b6_edges(card: str, by_name, randn, b6_args, q_multi) -> None:
+    """B6 (B4's cluster of row segments, dequantizing) at the edges its
+    segments make: one segment short and exactly one (a cluster of one
+    block), one row more, the 1,500 of the path, a masked tail and eleven
+    segments (three blocks own two), at bucket 16 with 8 heads and at
+    bucket 1 with 6 (a layer's slice of the scales off the 16-byte grid);
+    each within 2 bf16 steps of the plain version and two calls bitwise
+    equal.  B6's and B7-dq's wrappers each put one operation on the card a
+    call."""
+    import torch
+
+    from whisper_tpu_torch.ops import cross_attention
+
+    qx, k8, v8, ks, vs = b6_args
+    g = torch.Generator(device="cuda").manual_seed(2)
+    cases = []
+    for (b_, h_), (s_, valid) in itertools.product(
+            ((16, 8), (1, 6)), ((96, 96), (192, 192), (193, 193), (1500, 1500),
+                                (1504, 1500), (2000, 1999))):
+        k8e = torch.randint(-127, 128, (2, b_, h_, s_, 64), generator=g,
+                            device="cuda", dtype=torch.int8)
+        v8e = torch.randint(-127, 128, (2, b_, h_, s_, 64), generator=g,
+                            device="cuda", dtype=torch.int8)
+        kse = torch.rand(2, b_, h_, generator=g, device="cuda") * 0.02 + 1e-3
+        vse = torch.rand(2, b_, h_, generator=g, device="cuda") * 0.02 + 1e-3
+        args = (randn(b_, h_, 64, scale=0.125), k8e, v8e, kse, vse, 1)
+        got = cross_attention.cross_attend_step_dequant(*args, s_valid=valid)
+        steps = _bf16_steps(
+            got, cross_attention.cross_attend_step_dequant_plain(
+                *args, s_valid=valid))
+        again = cross_attention.cross_attend_step_dequant(*args, s_valid=valid)
+        if steps > 2.0 or not torch.equal(got, again):
+            raise AssertionError(f"B6 at B = {b_}, H = {h_}, S = {s_}, "
+                                 f"s_valid = {valid}: {steps:.3g} bf16 steps,"
+                                 " or two calls differ")
+        cases.append(f"{b_}x{h_}, S = {s_}/{valid}: {steps:.3g}")
+    s = k8.shape[3]
+    calls = {"cross_attend_step_dequant":
+             lambda: cross_attention.cross_attend_step_dequant(
+                 qx, k8, v8, ks, vs, 2, s_valid=s),
+             "cross_attend_multi_dequant":
+             lambda: cross_attention.cross_attend_multi(
+                 q_multi, k8, v8, ks, vs, 2, s_valid=s)}
+    for name, call in calls.items():
+        ops = _device_ops_per_call(call)
+        by_name[name]["device_ops_per_call"] = ops
+        if ops != 1.0:
+            raise AssertionError(f"{name}'s wrapper puts {ops} operations on "
+                                 "the card a call, expected its one kernel")
+    print(f"[kernel] B6 and B7-dq: 1 device operation a call each "
+          "(torch.profiler); B6 within 2 bf16 steps, two calls equal, at "
+          + "; ".join(cases) + f" (bf16 steps) on {card}", flush=True)
 
 
 def check_b2_b3_edges(card: str, by_name, randn, mlp_args, med_args,

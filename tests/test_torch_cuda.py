@@ -300,23 +300,59 @@ def test_b4_takes_a_layer_slice_off_the_16_byte_grid(gen):
                                                 s_valid=s))
 
 
-@pytest.mark.parametrize("s,s_valid", [(1500, 1500), (1500, 1001),
-                                       (96, 96)])
-def test_b6_kernel_matches_plain(gen, s, s_valid):
-    n_l, b, h = 2, 3, 8
+@pytest.mark.parametrize("b,h", [(3, 8), (16, 8), (1, 6)])
+@pytest.mark.parametrize("s,s_valid", [(1500, 1500), (1500, 1001), (96, 96),
+                                       (192, 192), (193, 193), (1504, 1500),
+                                       (2000, 1999)])
+def test_b6_kernel_matches_plain(gen, s, s_valid, b, h):
+    """B6's cluster at its segment edges: one segment short and exactly
+    one (a cluster of one block), one row more, eight with the last 156
+    rows, a masked tail, and eleven segments (three blocks of the cluster
+    own two); at bucket 1 with six heads, layer 1's slice of the scales
+    starts 24 bytes in (off the 16-byte grid).  Two calls bitwise equal."""
+    n_l = 2
     q = _randn(gen, b, h, 64, scale=0.125)
-    k8 = torch.randint(-127, 128, (n_l, b, h, s, 64), generator=gen,
-                       device="cuda", dtype=torch.int8)
-    v8 = torch.randint(-127, 128, (n_l, b, h, s, 64), generator=gen,
-                       device="cuda", dtype=torch.int8)
-    ks = torch.rand(n_l, b, h, generator=gen, device="cuda") * 0.02 + 1e-3
-    vs = torch.rand(n_l, b, h, generator=gen, device="cuda") * 0.02 + 1e-3
+    k8, v8, ks, vs = _cross_cache(gen, n_l, b, h, s)
     before = cross_attention.dequant_launches
     got = cross_attention.cross_attend_step_dequant(q, k8, v8, ks, vs, 1,
                                                     s_valid=s_valid)
     assert cross_attention.dequant_launches == before + 1
     _assert_close(got, cross_attention.cross_attend_step_dequant_plain(
         q, k8, v8, ks, vs, 1, s_valid=s_valid))
+    again = cross_attention.cross_attend_step_dequant(q, k8, v8, ks, vs, 1,
+                                                      s_valid=s_valid)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_b6_and_b7_dequant_launch_one_device_operation(gen, multi):
+    """B6's and B7-dq's wrappers put their kernel on the card and nothing
+    else (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    k8, v8, ks, vs = _cross_cache(gen, 2, 16, 8, 1500)
+    if multi:
+        q = _randn(gen, 16, 5, 8, 64, scale=0.125)
+
+        def call():
+            return cross_attention.cross_attend_multi(q, k8, v8, ks, vs, 1,
+                                                      s_valid=1500)
+    else:
+        q = _randn(gen, 16, 8, 64, scale=0.125)
+
+        def call():
+            return cross_attention.cross_attend_step_dequant(
+                q, k8, v8, ks, vs, 1, s_valid=1500)
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+    ops = {e.key: e.count for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert sum(ops.values()) == 3 and len(ops) == 1, ops
 
 
 @pytest.mark.parametrize("frames,n_mels,wire", [
@@ -420,13 +456,15 @@ def test_b10c_kernel_matches_plain(gen, b, d):
 @pytest.mark.parametrize("int8_mxu", [True, False])
 @pytest.mark.parametrize("t,s,s_valid,b,h", [
     (1, 1500, 1500, 2, 8), (5, 1500, 1500, 3, 6), (9, 1504, 1500, 1, 8),
-    (3, 96, 96, 2, 2), (2, 2000, 1999, 1, 2)])
+    (3, 96, 96, 2, 2), (2, 2000, 1999, 1, 2), (17, 1500, 1500, 2, 8),
+    (17, 2000, 1999, 1, 6), (8, 193, 193, 2, 4), (1, 2000, 384, 1, 8)])
 def test_b7_queries_are_bitwise_the_single_token_kernels(gen, t, s, s_valid,
                                                          b, h, int8_mxu):
-    """Every query of B7 bit for bit what B4 (int8_mxu) or B6 gives for it,
-    with the tile staged in shared memory (S <= ~1730) and left in device
-    memory (S = 2000); and the whole within 2 bf16 steps of the plain
-    version."""
+    """Every query of B7 bit for bit what B4 (int8_mxu) or B6 gives for it;
+    the int8 kernel with the tile staged in shared memory (S <= ~1730) and
+    left in device memory (S = 2000), the dequantizing one with T past one
+    chunk of eight queries (17), exactly one chunk (8), and at eleven
+    segments; and the whole within 2 bf16 steps of the plain version."""
     n_l = 2
     q = _randn(gen, b, t, h, 64, scale=0.125)
     k8 = torch.randint(-127, 128, (n_l, b, h, s, 64), generator=gen,

@@ -364,20 +364,24 @@ def test_b4_probs_round_ties_to_even():
 # B6: decode cross-attention, int8 cache dequantized in the kernel (x4)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("s_valid", [1500, 1001])
-def test_b6_plain_matches_jax(s_valid):
+@pytest.mark.parametrize("s,s_valid", [
+    pytest.param(1500, 1500, id="1500"), pytest.param(1500, 1001, id="1001"),
+    (192, 192), (193, 193), (2000, 384), (2000, 1999)])
+def test_b6_plain_matches_jax(s, s_valid):
     """fp32 scores times k_scale, fp32 softmax normalized before the bf16
     cast, bf16 p * bf16(V8) products summed in fp32, times v_scale; a
-    1500-row cache, all valid or masked from row 1001.  Tolerance: 2 bf16
-    steps.  The port rounds each product to bf16, as the JAX kernel is
+    1500-row cache, all valid or masked from row 1001, and the edges of the
+    card's 192-row segments: exactly one, one row more, eleven masked at a
+    segment boundary (384) and inside the last segment (1,999).  Tolerance:
+    2 bf16 steps.  The port rounds each product to bf16, as the JAX kernel is
     written (``(pm * v).astype(f32)`` on bf16 operands); XLA on the CPU
     keeps those products in fp32 (``xla_allow_excess_precision``), and
     1,500 rounded products move the sum by up to ~1.5 bf16 steps of the
     output.  With XLA_FLAGS=--xla_allow_excess_precision=false the JAX
     kernel in interpret mode and this plain version agree bitwise on
     these inputs."""
-    rng = np.random.default_rng(s_valid)
-    n_l, b, h, s, dh = 2, 2, 4, 1500, 64
+    rng = np.random.default_rng(s_valid if s == 1500 else s + s_valid)
+    n_l, b, h, dh = 2, 2, 4, 64
     layer = 1
     k8 = rng.integers(-127, 128, (n_l, b, h, s, dh), dtype=np.int8)
     v8 = rng.integers(-127, 128, (n_l, b, h, s, dh), dtype=np.int8)
@@ -502,9 +506,37 @@ def test_kernel_variants_cut_the_sources_as_they_are():
                                (kv.b2_source, "encoder_mlp.cu",
                                 kv.B2_VARIANTS),
                                (kv.b3_source, "self_attention.cu",
-                                kv.B3_VARIANTS)):
+                                kv.B3_VARIANTS),
+                               (kv.dq_source, "cross_attention_dequant.cu",
+                                kv.DQ_VARIANTS),
+                               (kv.dq_source, "cross_attention_multi.cu",
+                                kv.DQ_VARIANTS)):
         text = (kernels.CSRC / source).read_text()
         variants = {name: cut(text, name) for name in names}
         assert variants["as_built"].count("WT_EXPORT") == \
             text.count("WT_EXPORT")
         assert len(set(variants.values())) == len(names)
+
+
+def test_profile_ladder_reads_the_x4_kernels():
+    """``profile_ladder`` runs x4 greedy and x4 decoded speculatively, and
+    names the kernels of those runs (B6, B7-dq) from the device's names."""
+    from whisper_tpu_torch import profile_ladder as pl
+
+    assert ("x4", "x4", {}) in pl.CONFIGS
+    assert [v for _, v in pl.SPECULATIVE] == ["x5", "x4"]
+    names = {"B6": "(anonymous namespace)::cross_dequant_kernel("
+                   "__nv_bfloat16 const*, float const*)",
+             "B7-dq": "(anonymous namespace)::cross_multi_dequant_kernel("
+                      "__nv_bfloat16 const*)",
+             "B7-i8": "void (anonymous namespace)::cross_multi_int8_kernel"
+                      "<true>(__nv_bfloat16 const*)",
+             "B4": "(anonymous namespace)::cross_step_kernel(int)"}
+    for label, name in names.items():
+        assert pl._kernel_of(name) == label, name
+    # the names it looks for are the kernels' names in the sources
+    for fn, src in (
+            ("cross_dequant_kernel", "cross_attention_dequant.cu"),
+            ("cross_multi_dequant_kernel", "cross_attention_multi.cu")):
+        assert f"\n{fn}(" in (kernels.CSRC / src).read_text()
+        assert fn in pl.KERNELS

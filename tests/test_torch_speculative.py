@@ -87,7 +87,12 @@ def _bf16_steps(got, want) -> float:
 # B7: T queries against one layer's int8 cross cache
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("t", [2, 5])
+# T -> S of the cache: one query and nine (past one of the card's chunks
+# of eight queries) against eleven 192-row segments
+_B7_ROWS = {2: 200, 5: 200, 1: 2000, 9: 2000}
+
+
+@pytest.mark.parametrize("t", [2, 5, 1, 9])
 @pytest.mark.parametrize("int8_mxu", [False, True])
 def test_b7_plain_matches_jax_and_each_query_is_the_single_token_one(
         int8_mxu, t):
@@ -98,7 +103,7 @@ def test_b7_plain_matches_jax_and_each_query_is_the_single_token_one(
     each as the kernel is written).  And each query BITWISE equal to the
     port's single-token plain version (B4's or B6's) on that query."""
     rng = np.random.default_rng(10 * t + int8_mxu)
-    n_l, b, h, s, dh, layer = 2, 2, 4, 200, 64, 1
+    n_l, b, h, s, dh, layer = 2, 2, 4, _B7_ROWS[t], 64, 1
     k8 = rng.integers(-127, 128, (n_l, b, h, s, dh), dtype=np.int8)
     v8 = rng.integers(-127, 128, (n_l, b, h, s, dh), dtype=np.int8)
     ks = rng.uniform(0.001, 0.02, (n_l, b, h)).astype(np.float32)

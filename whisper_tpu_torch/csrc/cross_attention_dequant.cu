@@ -13,46 +13,42 @@
 //
 // Layout: the prefill layout [L, B, H, S, 64] int8 for K and V, as B4 reads
 // it (no head-pair packing, no transposed K); the scales stay [L, B, H]
-// fp32 and the kernel indexes the layer itself, so the wrapper runs no
+// fp32 and the kernel indexes the layer itself (one scale a block, so a
+// layer's slice need not lie on a 16-byte boundary), so the wrapper runs no
 // torch op besides allocating the output.
 //
 // What bounds it on the H100: per call it streams one layer's K and V, at
 // whisper-base bucket 16 16*8*1500*64*2 = 24.6 MB (7.3 us at 3.35 TB/s),
-// for 2*16*8*1500*64*2 = 49 MFLOP of fp32 work, so bytes bound it.
-// Design: B4's skeleton, one block of 256 threads per (b, h): q is held in
-// registers; each thread owns whole K rows (four 16-byte loads, 64 FMAs);
-// block reductions give the max and the sum; the bf16 probabilities sit in
-// shared memory; for P.V each thread owns one of the 64 columns for a
-// quarter of the rows, so a warp reads 32 consecutive bytes of a V row.
-// As with B4, 128 blocks leave each SM one block; more blocks per (b, h)
-// with a second reduction pass is the next step.  The per-(b, h) arithmetic
-// lives in cross_attention.cuh, shared with the multi-query kernel (B7).
+// for 2*16*8*1500*64*2 = 49 MFLOP of fp32 work, so bytes bound it; but
+// widening 24.6 M int8 values with the conversion unit (16 a clock an SM)
+// alone takes about 6 us, so no value is widened that way.
+// Design, B4's: a thread-block cluster per (b, h), a block of 192 threads
+// per segment of 192 rows (8 blocks at S = 1500; a block owns several
+// segments where S has more than 8), so that every SM holds several blocks
+// pulling bytes: 1,024 blocks at bucket 16.  Each block fetches its K and V
+// segments by bulk copies at entry.  From shared memory: the scores by bf16
+// mma.sync (K widened by a byte permute and one subtraction), p . V in
+// 16-byte vectors with each product rounded to bf16 by __hmul2; the
+// cluster's max, the segments' sums of e and their contexts are written
+// into the blocks that read them, three cluster barriers in all.  The
+// arithmetic is cross_attention.cuh's cross_dequant_cluster, which the
+// verify pass (B7-dq, cross_attention_multi.cu) runs for each of its
+// queries: every query of B7-dq is bit for bit this kernel's.
 #include "cross_attention.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(CROSS_NT)
+__global__ void __launch_bounds__(DQ_NT)
 cross_dequant_kernel(const bf16* __restrict__ q,
                      const float* __restrict__ k_scale,
                      const float* __restrict__ v_scale,
                      const int8_t* __restrict__ k8,
                      const int8_t* __restrict__ v8, bf16* __restrict__ out,
-                     int B, int H, int S, int layer, int s_valid) {
-  extern __shared__ float sS[];                   // [S] scores, then e
-  bf16* sP = reinterpret_cast<bf16*>(sS + S);     // [S] bf16 probabilities
-  __shared__ CrossScratch sc;
-
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const size_t row = (size_t)b * H + h;
-  const size_t lrow = ((size_t)layer * B + b) * H + h;
-  const size_t cbase = lrow * (size_t)S * CROSS_DH;
-  const int tid = threadIdx.x;
-
-  if (tid < CROSS_DH)
-    sc.qf[tid] = __bfloat162float(q[row * CROSS_DH + tid]);
-  __syncthreads();
-  cross_head_dequant(sc, k_scale[lrow], v_scale[lrow], k8 + cbase, v8 + cbase,
-                     out + row * CROSS_DH, S, s_valid, sS, sP);
+                     int B, int T, int H, int S, int layer, int s_valid,
+                     int n_own, int qmax) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  cross_dequant_cluster<1>(smem, q, k_scale, v_scale, k8, v8, out, B, T, H, S,
+                           layer, s_valid, n_own, qmax);
 }
 
 }  // namespace
@@ -62,10 +58,8 @@ WT_EXPORT int wt_cross_attend_step_dequant(const void* q, const void* k_scale,
                                            const void* v8, void* out, int B,
                                            int H, int S, int layer,
                                            int s_valid, void* stream) {
-  const size_t smem = (size_t)S * (sizeof(float) + sizeof(bf16));
-  cross_dequant_kernel<<<B * H, CROSS_NT, smem, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const float*)k_scale, (const float*)v_scale,
-      (const int8_t*)k8, (const int8_t*)v8, (bf16*)out, B, H, S, layer,
-      s_valid);
-  return (int)cudaGetLastError();
+  // q, out [B, H, 64] are [B, T = 1, H, 64]
+  return cross_dequant_launch<1>(cross_dequant_kernel, q, k_scale, v_scale,
+                                 k8, v8, out, B, 1, H, S, layer, s_valid,
+                                 (cudaStream_t)stream);
 }

@@ -15,15 +15,23 @@
 // What bounds it on the H100: one layer's K and V, 24.6 MB at whisper-base
 // bucket 16 (7.3 us at 3.35 TB/s), read once for all T queries: that single
 // stream is the kernel's point.  T x 49 M int8 or fp32 operations stay
-// below it for any T a draft uses.  Design: one block of 256 threads per
-// (b, h).  The block copies its K and V tile ([S, 64] int8 each, 192 KB at
-// S = 1500) into shared memory once, then loops over the T queries against
-// the tile; T is a runtime value with no upper limit.  A tile that does not
-// fit 227 KB of shared memory (S > ~1730) stays in device memory, where the
-// block's T passes find it in L2; the results are the same.  The int8
-// kernel reads a K row with four threads and V in 16-byte vectors
-// (cross_scores, cross_pv), free of bank conflicts; the dequantizing kernel
-// still reads a 64-byte row a thread, four ways conflicted.
+// below it for any T a draft uses.
+//
+// The int8 kernel: one block of 256 threads per (b, h).  The block copies
+// its K and V tile ([S, 64] int8 each, 192 KB at S = 1500) into shared
+// memory once, then loops over the T queries against the tile; a tile that
+// does not fit 227 KB of shared memory (S > ~1730) stays in device memory,
+// where the block's T passes find it in L2; the results are the same.  It
+// reads a K row with four threads and V in 16-byte vectors (cross_scores,
+// cross_pv).
+//
+// The dequantizing kernel: B6's cluster of 192-thread blocks a (b, h), a
+// block a 192-row segment (cross_dequant_cluster).  Each block fetches its
+// own K and V segments once, by bulk copies, and every query runs B6's
+// functions against them; the queries go in chunks of DQ_MAX_QC, the columns
+// of one mma for the scores, each chunk exchanging its maxima, its sums of
+// e and its partial contexts under one cluster barrier each.  T is a
+// runtime value with no upper limit.
 #include "cross_attention.cuh"
 
 namespace {
@@ -85,44 +93,20 @@ cross_multi_int8_kernel(const bf16* __restrict__ q,
   }
 }
 
-template <bool STAGE>
-__global__ void __launch_bounds__(CROSS_NT)
+// The dequantizing kernel: B6's cluster (cross_dequant_cluster), each block
+// holding its own K and V segments for all T queries, the queries in chunks
+// of DQ_MAX_QC: three cluster barriers a chunk, not three a query.
+__global__ void __launch_bounds__(DQ_NT)
 cross_multi_dequant_kernel(const bf16* __restrict__ q,
                            const float* __restrict__ k_scale,
                            const float* __restrict__ v_scale,
                            const int8_t* __restrict__ k8,
                            const int8_t* __restrict__ v8,
                            bf16* __restrict__ out, int B, int T, int H, int S,
-                           int layer, int s_valid) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sS = reinterpret_cast<float*>(smem);                  // [S]
-  bf16* sP = reinterpret_cast<bf16*>(smem + (size_t)S * 4);    // [S]
-  int8_t* sK = reinterpret_cast<int8_t*>(smem + round16((size_t)S * 6));
-  int8_t* sV = sK + (size_t)S * CROSS_DH;
-  __shared__ CrossScratch sc;
-
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const size_t lrow = ((size_t)layer * B + b) * H + h;
-  const size_t cbase = lrow * (size_t)S * CROSS_DH;
-  const int8_t* kc = k8 + cbase;
-  const int8_t* vc = v8 + cbase;
-  const int tid = threadIdx.x;
-  if (STAGE) {
-    stage_tile(sK, kc, S * CROSS_DH / 16);
-    stage_tile(sV, vc, S * CROSS_DH / 16);
-    kc = sK;
-    vc = sV;
-  }
-  const float ks = k_scale[lrow], vs = v_scale[lrow];
-  for (int t = 0; t < T; ++t) {
-    const size_t row = ((size_t)b * T + t) * H + h;
-    __syncthreads();  // the tile is staged; the last query's scratch is free
-    if (tid < CROSS_DH)
-      sc.qf[tid] = __bfloat162float(q[row * CROSS_DH + tid]);
-    __syncthreads();
-    cross_head_dequant(sc, ks, vs, kc, vc, out + row * CROSS_DH, S, s_valid,
-                       sS, sP);
-  }
+                           int layer, int s_valid, int n_own, int qmax) {
+  extern __shared__ __align__(128) unsigned char dq_smem[];
+  cross_dequant_cluster<DQ_MAX_QC>(dq_smem, q, k_scale, v_scale, k8, v8, out,
+                                   B, T, H, S, layer, s_valid, n_own, qmax);
 }
 
 // Launch KERNEL<true> with the tile in shared memory when it fits, else
@@ -166,10 +150,8 @@ WT_EXPORT int wt_cross_attend_multi_dequant(const void* q, const void* k_scale,
                                             void* out, int B, int T, int H,
                                             int S, int layer, int s_valid,
                                             void* stream) {
-  if (B < 1 || T < 1 || H < 1 || S < 1) return (int)cudaErrorInvalidValue;
-  return launch(cross_multi_dequant_kernel<true>,
-                cross_multi_dequant_kernel<false>, (size_t)S * 6, B, H, S,
-                (cudaStream_t)stream, (const bf16*)q, (const float*)k_scale,
-                (const float*)v_scale, (const int8_t*)k8, (const int8_t*)v8,
-                (bf16*)out, B, T, H, S, layer, s_valid);
+  return cross_dequant_launch<DQ_MAX_QC>(cross_multi_dequant_kernel, q,
+                                         k_scale, v_scale, k8, v8, out, B, T,
+                                         H, S, layer, s_valid,
+                                         (cudaStream_t)stream);
 }

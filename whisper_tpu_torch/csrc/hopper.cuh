@@ -3,8 +3,9 @@
 // products (wgmma) and their shared-memory descriptors, and on the host the
 // tensor maps themselves.  Used by the encoder attention kernel
 // (attention.cu), the tiled product (gemm_sm90.cuh), the split
-// cross-attention step (cross_attention.cu) and the self-attention step
-// (self_attention.cu).
+// cross-attention steps (cross_attention.cu, and cross_attention.cuh's
+// cluster, which also uses the cluster barrier and mma.sync) and the
+// self-attention step (self_attention.cu).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; nothing of libcuda is linked
@@ -97,6 +98,44 @@ WT_DEV void tma_load_2d(uint32_t dst, const void* map, uint32_t bar, int c0,
       "[%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
       "l"(map), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// ---- cluster barrier --------------------------------------------------------
+// Every thread of every block of the cluster arrives, then waits; a block
+// that has arrived and does not wait may leave.  `arrive` releases this
+// thread's earlier writes (to its own or another block's shared memory) to
+// the threads that `wait` acquires; `arrive_relaxed` only says that the
+// block is running, which a block must know of another before it writes
+// into that one's shared memory.
+
+WT_DEV void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+WT_DEV void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+WT_DEV void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// ---- mma.sync ---------------------------------------------------------------
+
+// d[16 x 8] = A[16 x 16] . B[16 x 8] + c, bf16 -> fp32, by one warp, every
+// operand in registers, a word two bf16 with the lower depth in the low half
+// (PTX's m16n8k16 fragments: lane = 4 g + t holds A's row g at depths 2t,
+// 2t + 1 (a0) and 2t + 8, 2t + 9 (a2), row g + 8 at the same depths (a1,
+// a3), B's column g at depths 2t, 2t + 1 (b0) and 2t + 8, 2t + 9 (b1), and
+// d's row g (d0, d1) and row g + 8 (d2, d3) at columns 2t, 2t + 1).
+WT_DEV void mma_m16n8k16_bf16(float (&d)[4], uint32_t a0, uint32_t a1,
+                              uint32_t a2, uint32_t a3, uint32_t b0,
+                              uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // ---- wgmma ----------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""What holds the four kernels redesigned for Hopper, by timed variants:
+"""What holds the six kernels redesigned for Hopper, by timed variants:
 ``python -m whisper_tpu_torch.kernel_variants``.
 
 **B1** (encoder attention).  Builds ``csrc/attention.cu`` as it is and in
@@ -57,6 +57,19 @@ card's is (median of 5 each):
 
 - ``copies_only``: every block waits for its rows of K and V and leaves;
 - ``no_pv``: the whole kernel but the P.V sum.
+
+**B6 and B7-dq** (the dequantizing decode cross-attention step and its
+speculative verify pass, one cluster of 192-thread blocks a (b, h), a block
+a 192-row segment).  Builds ``csrc/cross_attention_dequant.cu`` and
+``csrc/cross_attention_multi.cu``, ``csrc/cross_attention.cuh`` written into
+each, as they are and cut short, and times one call of each as for B4 (B7-dq
+with five queries a row, as the verify pass at draft_k = 4 gives it):
+
+- ``copies_only``: every block waits for its K and V segments and leaves;
+- ``no_pv``: the whole kernel but the p . V products of each segment;
+- ``no_exchange``: every cluster barrier a block barrier and every write
+  into another block's shared memory a write into the block's own (the
+  blocks of a cluster no longer meet).
 
 Prints one JSON line for each kernel with the card's name and power limit.
 It needs a CUDA card and nvcc and raises without them.
@@ -194,6 +207,44 @@ def b3_source(text: str, name: str) -> str:
     if name == "no_pv":
         text = _swap(text, "  for (int s = warp; s < n; s += NW) {",
                      "  for (int s = warp; s < 0; s += NW) {")
+    return text
+
+
+DQ_VARIANTS = ("as_built", "copies_only", "no_pv", "no_exchange")
+_DQ_READY = "  mbar_wait(bar_k, 0);\n"
+_DQ_LEAVE = """  mbar_wait(bar_v, 0);
+  if (rank == 0 && tid < CROSS_DH)
+    out[(size_t)head * CROSS_DH + tid] =
+        __float2bfloat16_rn((float)(sK[tid] + sV[tid]));
+  return;
+"""
+_DQ_PV = """            dq_segment_pv(sS + (i * qmax + t) * CROSS_SEG, denom,
+                          sV + (size_t)i * DQ_SEG_BYTES, seg_rows(i), col);
+"""
+_DQ_CLUSTER = ("template <int QC>\n__device__ __forceinline__ void "
+               "cross_dequant_cluster(")
+
+
+def dq_source(text: str, name: str) -> str:
+    """``cross_attention_dequant.cu``'s or ``cross_attention_multi.cu``'s
+    text, the shared header written into it, cut into the named variant."""
+    from whisper_tpu_torch.ops import kernels
+
+    text = _swap(text, '#include "cross_attention.cuh"\n',
+                 (kernels.CSRC / "cross_attention.cuh").read_text())
+    if name == "copies_only":
+        text = _swap(text, _DQ_READY, _DQ_READY + _DQ_LEAVE)
+    if name == "no_pv":
+        text = _swap(text, _DQ_PV, "            make_float2(denom, "
+                     "(float)(col = 2 * (tid % 32)));\n")
+    if name == "no_exchange":
+        text = _swap(text, _DQ_CLUSTER, "template <class T>\n__device__ T* "
+                     "own_shared(T* p, int) { return p; }\n" + _DQ_CLUSTER)
+        text = _swap(text, "cluster_arrive_relaxed();", "")
+        text = _swap(text, "if (t0 == 0) cluster_wait();", "")
+        text = _swap(text, "cluster_arrive();\n    cluster_wait();",
+                     "__syncthreads();")
+        text = _swap(text, "cluster.map_shared_rank(", "own_shared(")
     return text
 
 
@@ -335,6 +386,56 @@ def b4(card: str) -> dict:
             "us_per_call": us}
 
 
+def b6_b7_dequant(card: str) -> list:
+    """B6 and B7-dq as built and cut short (``DQ_VARIANTS``), µs a call."""
+    import torch
+
+    libs = {"B6": _build("cross_attention_dequant.cu", dq_source,
+                         DQ_VARIANTS),
+            "B7-dq": _build("cross_attention_multi.cu", dq_source,
+                            DQ_VARIANTS)}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    n_l, b, h, s, n_q = 6, 16, 8, 1500, 5
+    k8, v8 = (torch.randint(-127, 128, (n_l, b, h, s, 64), generator=g,
+                            device="cuda", dtype=torch.int8) for _ in "kv")
+    ks, vs = (torch.rand(n_l, b, h, generator=g, device="cuda") * 0.02 + 1e-3
+              for _ in "kv")
+    queries = {"B6": (b, h, 64), "B7-dq": (b, n_q, h, 64)}
+    ptr = ctypes.c_void_p
+    stream = torch.cuda.current_stream().cuda_stream
+    out = []
+    for kernel, by_name in libs.items():
+        q = (torch.randn(*queries[kernel], generator=g, device="cuda")
+             * 0.125).to(torch.bfloat16)
+        res = torch.empty_like(q)
+        n_int = 5 if kernel == "B6" else 6
+        for lib in by_name.values():
+            entry = (lib.wt_cross_attend_step_dequant if kernel == "B6"
+                     else lib.wt_cross_attend_multi_dequant)
+            entry.argtypes = [ptr] * 6 + [ctypes.c_int] * n_int + [ptr]
+
+        def run(lib, i, kernel=kernel, q=q, res=res):
+            dims = ((b, h) if kernel == "B6" else (b, n_q, h)) + (
+                s, i % n_l, s)
+            entry = (lib.wt_cross_attend_step_dequant if kernel == "B6"
+                     else lib.wt_cross_attend_multi_dequant)
+            rc = entry(q.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+                       k8.data_ptr(), v8.data_ptr(), res.data_ptr(), *dims,
+                       stream)
+            if rc != 0:
+                raise RuntimeError(f"launch failed with CUDA error {rc}")
+
+        us = {name: [] for name in DQ_VARIANTS}
+        for names in (DQ_VARIANTS, tuple(reversed(DQ_VARIANTS))):
+            for name in names:
+                us[name].append(1e3 * _median_ms(
+                    lambda i: run(by_name[name], i), calls=600))
+        out.append({"kernel": kernel, "card": card,
+                    "cache": [n_l, b, h, s, 64], "queries": list(q.shape),
+                    "us_per_call": us})
+    return out
+
+
 def b2(card: str) -> dict:
     import torch
 
@@ -432,6 +533,8 @@ def main() -> None:
     card = card_info()
     print(json.dumps(b1(card)), flush=True)
     print(json.dumps(b4(card)), flush=True)
+    for line in b6_b7_dequant(card):
+        print(json.dumps(line), flush=True)
     print(json.dumps(b2(card)), flush=True)
     print(json.dumps(b3(card)), flush=True)
 

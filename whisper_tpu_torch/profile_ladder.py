@@ -2,16 +2,18 @@
 ``python -m whisper_tpu_torch.profile_ladder``.
 
 Runs the headline workload (whisper-base, random weights from seed 0, the
-301.574 s synthetic file, 128 greedy tokens) on the card at x5, x6, x7 and
-at x5 with ``fused_encoder_block`` and ``fused_decoder_step``, and at x5
+301.574 s synthetic file, 128 greedy tokens) on the card at x5, x6, x7, x4
+(the dequantizing cross-attention, B6) and at x5 with
+``fused_encoder_block`` and ``fused_decoder_step``, and at x5 and at x4
 decoded speculatively with the model's own int8 weights as the draft on the
-shared encoder (draft_k 4: the verify pass runs B7), each once to
-warm up and once under ``torch.profiler``, and prints for each, on one JSON
-line: the wall time of the traced run (the profiler slows the host, so it
-is no e2e figure), the device operations it launched (kernels, copies and
-memsets) in all and per decode step, the device's busy time and share, the
-mean in-situ time of each hand-written kernel (B2 as its three kernels, whose
-means add up to one call), and the five largest other device operations.  It needs a CUDA card and raises without one.
+shared encoder (draft_k 4: the verify pass runs B7-i8 at x5, B7-dq at x4),
+each once to warm up and once under ``torch.profiler``, and prints for
+each, on one JSON line: the wall time of the traced run (the profiler slows
+the host, so it is no e2e figure), the device operations it launched
+(kernels, copies and memsets) in all and per decode step, the device's busy
+time and share, the mean in-situ time of each hand-written kernel (B2 as
+its three kernels, whose means add up to one call), and the five largest
+other device operations.  It needs a CUDA card and raises without one.
 """
 
 from __future__ import annotations
@@ -31,9 +33,13 @@ KERNELS = {"attn_kernel": "B1", "out_mlp_kernel": "B9b",
            "log_mel_kernel": "B5", "ln_qkv_kernel": "B9a",
            "fc1_kernel": "B10c (FC1 phase)", "fc2_kernel": "B10c (FC2 phase)"}
 CONFIGS = (("x5", "x5", {}), ("x6", "x6", {}), ("x7", "x7", {}),
+           ("x4", "x4", {}),
            ("x5+fused_encoder_block+fused_decoder_step", "x5",
             dict(fused_encoder_block=True, fused_decoder_step=True)))
-SPECULATIVE = "x5+speculative (own int8 weights as draft, shared encoder)"
+# (label, variant) of the runs decoded speculatively
+SPECULATIVE = (
+    ("x5+speculative (own int8 weights as draft, shared encoder)", "x5"),
+    ("x4+speculative (own int8 weights as draft, shared encoder)", "x4"))
 DECODE_STEPS = 127  # 128 new tokens: the prefill gives the first
 
 
@@ -128,7 +134,8 @@ def main() -> None:
     params = init_params(dims, seed=0)
     audio = synth_audio(AUDIO_SECONDS)
     runs = [(*config, None) for config in CONFIGS]
-    runs.append((SPECULATIVE, "x5", {}, (quantize_params(params), dims)))
+    draft = (quantize_params(params), dims)
+    runs += [(label, variant, {}, draft) for label, variant in SPECULATIVE]
     for label, variant, overrides, draft in runs:
         out = profile_config(label, variant, overrides, params, audio, draft)
         out["device"] = card
