@@ -8,8 +8,9 @@ What it does, in order (any failure raises and exits non-zero):
 2. Builds the CUDA kernels of ``whisper_tpu_torch/csrc`` with nvcc
    (sm_90a; one nvcc per source, all started together) and prints the
    build time, each kernel's register use and, from the library's SASS,
-   that B1 and B2's products hold warpgroup products and tensor-map loads
-   and B3, B4, B6 and B7-dq bulk copies.
+   that B1 and B2's products hold warpgroup products and tensor-map loads,
+   B3, B4, B6 and both B7 kernels bulk copies, B7-i8 int8 mma.sync and
+   B10c's two kernels cp.async, ldmatrix and bf16 mma.sync.
 3. Runs each kernel (B1-B10c, sixteen rows) against its plain PyTorch
    version on the card at the shapes its path gives it (whisper-base, batch
    bucket 16: B1-B4 at x5, B6 at x4, B8 at x7, B9a/B9b with the fused
@@ -31,8 +32,11 @@ What it does, in order (any failure raises and exits non-zero):
    (1,999 valid), at bucket 16 with 8 heads and at bucket 1 with 6, and it
    and B7-dq one operation a call.  B7 is also held, query by query and
    bitwise, against the single-token kernels B4 and B6 at T = 1, 2, 5, 9
-   and 17 and S = 96, 1500, 1504 and 2000; what B10a writes into the cache bitwise against the plain
-   version at pos 0, 70 and 131; B10b at T = 1500, 96 and 100.  B2 (LayerNorm
+   and 17 and S = 96, 193, 1500, 1504 and 2000, and timed at T = 5
+   beside five calls of B4 or B6; B10c beside the bf16 composition of five
+   PyTorch calls that computes it; what B10a writes into the cache bitwise
+   against the plain version at pos 0, 70 and 131; B10b at T = 1500, 96
+   and 100.  B2 (LayerNorm
    and two tiled wgmma products) is also held at 1, 1,499 and 24,000 rows at
    d = 512 and at 1,500 rows at d = 1,024 and 1,280, must put exactly its
    three kernels on the card a call, and is printed beside the bf16
@@ -58,8 +62,9 @@ What it does, in order (any failure raises and exits non-zero):
    ``fused_encoder_block`` and ``fused_decoder_step`` (B9a, B1 and B9b once
    per encoder layer, B10c once per layer and step, none of B2, B3, B4);
    then a 4 s file at whisper-medium with ``fused_encoder_block`` (the
-   d >= 1024 composition: B9a, B1 and B2 once per layer, no B9b).  Prints
-   e2e, model time and launches of each beside x5's.
+   d >= 1024 composition: B9a, B1 and B2 once per layer, no B9b; one more
+   run under torch.profiler for B9a's and B2's in-situ times at d = 1,024).
+   Prints e2e, model time and launches of each beside x5's.
 7. Speculative decoding on the same file: x5 with a random whisper-tiny
    draft (draft_k = 4; B7 once per layer and verify round), x5 with
    whisper-base as its own draft sharing the encoder (the accept path:
@@ -73,7 +78,9 @@ What it does, in order (any failure raises and exits non-zero):
    layer) for 127 steps from a bf16 prefill at bucket 16: the first step's
    logits within 5e-2 of ``decoder_step`` on the same cache, finite tokens
    equal across two runs, 127 x 6 launches of B10a and of B10b, and the time
-   per step beside the x5 kernel step's and the hybrid step's.
+   per step beside the x5 kernel step's and the hybrid step's; then one
+   more run under torch.profiler: B10a's, B10b's and B10c's in-situ time
+   a call.
 9. Drives the benchmark CLI (``whisper_tpu_torch.bench.cli.main``, in
    process) over four synthetic WAV files (4 s; 29.5 s at 44.1 kHz stereo;
    76 s, just under the one-shot limit; 150 s, streamed) at whisper-base
@@ -154,8 +161,9 @@ def check_sass(lib_path) -> None:
     instructions, read from the library with cuobjdump: the encoder
     attention kernel and the encoder MLP's products must hold warpgroup
     products (HGMMA) and tensor-map loads (UTMALDG), the self- and the
-    cross-attention steps and the dequantizing verify pass bulk copies
-    (UBLKCP)."""
+    cross-attention steps and both verify passes bulk copies (UBLKCP), the
+    int8 verify pass int8 mma.sync (IMMA), and the decoder MLP's two kernels
+    cp.async copies (LDGSTS), ldmatrix (LDSM) and bf16 mma.sync (HMMA)."""
     import re
     import shutil
     import subprocess
@@ -173,7 +181,10 @@ def check_sass(lib_path) -> None:
             "16self_step_kernelE": ("UBLKCP",),
             "17cross_step_kernelE": ("UBLKCP",),
             "20cross_dequant_kernelE": ("UBLKCP",),
-            "26cross_multi_dequant_kernelE": ("UBLKCP",)}
+            "26cross_multi_dequant_kernelE": ("UBLKCP",),
+            "23cross_multi_int8_kernelE": ("UBLKCP", "IMMA"),
+            "10fc1_kernelE": ("LDGSTS", "LDSM", "HMMA"),
+            "10fc2_kernelE": ("LDGSTS", "LDSM", "HMMA")}
     seen = set()
     for part in sass.split("Function : ")[1:]:
         name = part.split("\n", 1)[0]
@@ -500,6 +511,13 @@ def check_kernels(card: str) -> list:
             out[-1]["launch_floor_ms"] = floor_ms
 
     by_name = {r["name"]: r for r in out}
+    comp_ms = _median_ms(lambda: _mlp_composition(*mlp_step))
+    by_name["decoder_mlp_block"]["composition_ms"] = comp_ms
+    print(f"[kernel] B10c at bucket 16, d = {d}: "
+          f"{by_name['decoder_mlp_block']['ms']:.4f} ms against a composition "
+          f"of five PyTorch calls in bf16 (layer_norm, linear, gelu, linear, "
+          f"add; no one call computes B10c) {comp_ms:.4f} ms on {card}",
+          flush=True)
     check_b1_b4_edges(card, by_name, randn, q.shape, (qx, k8, v8, ks, vs))
     check_b6_edges(card, by_name, randn, (qx, k8, v8, ks, vs), qm)
     check_b2_b3_edges(card, by_name, randn, mlp_args, med_args,
@@ -507,11 +525,11 @@ def check_kernels(card: str) -> list:
 
     # B7 against the kernels it repeats: every query bitwise the
     # single-token kernel's (B4, B6) on that query, at T = 1, 2, 5, 9 and 17
-    # (B7-dq takes its queries in chunks of 8) and S = 96, 1500, 1504 (1,500
-    # valid) and 2000 (1,999 valid: eleven segments), and its time beside T
-    # calls of that kernel.
+    # (both take their queries in chunks of 8) and S = 96, 193, 1500, 1504
+    # (1,500 valid) and 2000 (1,999 valid: eleven segments), and its time
+    # beside T calls of that kernel.
     caches = {t: (k8, v8, ks, vs, 2)}
-    for s_ in (96, 1504, 2000):
+    for s_ in (96, 193, 1504, 2000):
         caches[s_] = (torch.randint(-127, 128, (2, b, h, s_, dh), generator=g,
                                     device=dev, dtype=torch.int8),
                       torch.randint(-127, 128, (2, b, h, s_, dh), generator=g,
@@ -520,7 +538,7 @@ def check_kernels(card: str) -> list:
                       + 1e-3,
                       torch.rand(2, b, h, generator=g, device=dev) * 0.02
                       + 1e-3, 1)
-    valid_of = {96: 96, t: t, 1504: 1500, 2000: 1999}
+    valid_of = {96: 96, 193: 193, t: t, 1504: 1500, 2000: 1999}
     for mxu, one, label in ((True, cross_attention.cross_attend_step, "B4"),
                             (False, cross_attention.cross_attend_step_dequant,
                              "B6")):
@@ -547,7 +565,7 @@ def check_kernels(card: str) -> list:
         multi_ms = _median_ms(lambda: cross_attention.cross_attend_multi(
             qm, k8, v8, ks, vs, 2, s_valid=t, int8_mxu=mxu))
         print(f"[kernel] B7 (int8_mxu={mxu}): every query bitwise {label}'s "
-              f"at T = 1, 2, 5, 9, 17 and S = 96, 1500, 1504, 2000; T = "
+              f"at T = 1, 2, 5, 9, 17 and S = 96, 193, 1500, 1504, 2000; T = "
               f"{n_q}: {multi_ms:.4f} ms against "
               f"{n_q} x {label} = {n_q * one_ms:.4f} ms on {card}",
               flush=True)
@@ -582,6 +600,41 @@ def check_kernels(card: str) -> list:
           "plain version's, other rows untouched; B10b at T = 1500, 96, 100 "
           "within 2 bf16 steps", flush=True)
     return out
+
+
+def _mlp_composition(x, ln, w1, b1, w2, b2):
+    """B10c's function as five PyTorch calls in bf16 (the yardstick beside
+    it: no one call computes it)."""
+    import torch.nn.functional as F
+
+    r = F.layer_norm(x, x.shape[-1:], ln[0], ln[1], 1e-5)
+    h = F.gelu(F.linear(r, w1.t(), b1[0]), approximate="tanh")
+    return x + F.linear(h, w2.t(), b2[0])
+
+
+def _traced(fn):
+    """``fn()`` under torch.profiler: profile_ladder's summary of the trace
+    (device operations, busy ms, in-situ kernel times, call spans)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_tpu_torch.profile_ladder import summarize
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return summarize(prof)
+
+
+def _in_situ(summary) -> str:
+    """The in-situ means of a trace summary, in µs, as one line."""
+    parts = [f"{k} {1e3 * v['mean_ms']:.2f} ({v['launches']})"
+             for k, v in summary["kernels"].items()]
+    parts += [f"{k} a call {1e3 * v['mean_ms']:.2f} ({v['calls']})"
+              for k, v in summary["calls"].items()]
+    return "; ".join(parts)
 
 
 def _device_ops_per_call(fn, calls: int = 5, names=None) -> float:
@@ -1201,6 +1254,11 @@ def check_fused_step(card: str, results, params, dims, audio) -> dict:
     fused_run()                                   # warm-up
     toks, ms, err, c = fused_run()
     toks2, ms2, _, c2 = fused_run()
+    traced = _traced(fused_run)
+    print(f"[fused step] in situ over one traced run (a prefill, a checked "
+          f"step, 127 steps), µs (launches): "
+          f"{_in_situ(traced)}; {traced['device_ops']} device operations, "
+          f"busy {traced['device_busy_ms']:.2f} ms on {card}", flush=True)
     n_steps = (n_new - 1) * dims.decoder_layers
     if err > 5e-2:
         raise AssertionError(f"fused step: first-step logits differ from "
@@ -1247,7 +1305,7 @@ def check_medium_fused_block(card: str, results) -> dict:
     """A 4 s file at whisper-medium (random weights from seed 0) at x5 with
     fused_encoder_block: at d = 1024 the composition is B9a, B1, a plain
     O-projection and B2, once per encoder layer, and never B9b."""
-    from whisper_tpu_torch.headline import make_session, synth_audio
+    from whisper_tpu_torch.headline import make_session, run_once, synth_audio
     from whisper_tpu_torch.models.registry import get_dims
 
     model_id = "openai/whisper-medium"
@@ -1264,9 +1322,12 @@ def check_medium_fused_block(card: str, results) -> dict:
     if toks.shape != (1, 16) or not ((toks >= 0)
                                      & (toks < dims.vocab_size)).all():
         raise AssertionError(f"whisper-medium fused block: tokens {toks}")
+    traced = _traced(lambda: run_once(session, synth_audio(4.0),
+                                      max_new_tokens=16))
     print(f"[medium] whisper-medium x5+fused_encoder_block, 4 s, 16 tokens, "
           f"on {card}: e2e {e2e:.4f} s, model {timing.model_only_s:.4f} s; "
-          f"launches {c}", flush=True)
+          f"launches {c}; in situ, µs (launches; at d = 1,024 B9a is B9a' "
+          f"and B2 B2c): {_in_situ(traced)}", flush=True)
     return c
 
 

@@ -266,10 +266,12 @@ def test_fused_block_mode_follows_jax_predicates(d, f, dtype, mode):
 # B10c: the decoder MLP block
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("b", [1, 16])
-def test_b10c_plain_matches_jax(b):
+@pytest.mark.parametrize("b,d", [(1, 128), (16, 128), (16, 512), (17, 512)])
+def test_b10c_plain_matches_jax(b, d):
+    """A narrow model, and whisper-base's width (f = 2,048) at one and at two
+    tiles of 16 rows."""
     rng = np.random.default_rng(20 + b)
-    d, f = 128, 512
+    f = 4 * d
     x = _bf16_pair(rng.normal(0, 1, (b, d)))
     ln = _bf16_pair(np.stack([1.0 + 0.1 * rng.normal(size=d),
                               0.1 * rng.normal(size=d)]))

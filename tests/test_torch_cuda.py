@@ -54,6 +54,28 @@ def _assert_close(got, want, steps=2.0):
     assert err <= steps, f"{err:.2f} bf16 steps"
 
 
+def _device_ops(call, calls=3):
+    """{operation: count} that ``calls`` calls of ``call`` put on the card,
+    by torch.profiler.  A trace with no device activity at all is taken once
+    more: the profiler now and then records none for a whole session, which
+    says nothing of what the wrapper launched."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        ops = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+        if ops:
+            break
+    return ops
+
+
 @pytest.mark.parametrize("bh", [(2, 3), (16, 8)])
 @pytest.mark.parametrize("t", [1500, 1499, 200, 100, 65, 64, 17, 1])
 def test_b1_kernel_matches_plain(gen, t, bh):
@@ -172,8 +194,6 @@ def test_b3_pos_tensor_is_bitwise_the_int_and_out_of_range_is_nan(gen):
 def test_b3_launches_one_device_operation(gen):
     """With and without ``pad_count``, with ``pos`` in either form, the
     wrapper's launch is all it puts on the card."""
-    from torch.profiler import ProfilerActivity, profile
-
     n_l, b, h, s = 2, 16, 8, 132
     q = _randn(gen, b, h, 64, scale=0.125)
     kn, vn = _randn(gen, b, h, 64), _randn(gen, b, h, 64)
@@ -181,16 +201,8 @@ def test_b3_launches_one_device_operation(gen):
     pad = torch.zeros(b, dtype=torch.int32, device="cuda")
     p = torch.tensor([70], dtype=torch.int32, device="cuda")
     for pos, pads in ((70, None), (70, pad), (p, None), (p, pad)):
-        self_attention.self_attend_step(q, kn, vn, kc, vc, 1, pos, pads)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                self_attention.self_attend_step(q, kn, vn, kc, vc, 1, pos,
-                                                pads)
-            torch.cuda.synchronize()
-        ops = {e.key: e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA}
+        ops = _device_ops(lambda: self_attention.self_attend_step(
+            q, kn, vn, kc, vc, 1, pos, pads))
         assert sum(ops.values()) == 3 and len(ops) == 1, ops
 
 
@@ -231,20 +243,10 @@ def test_b4_kernel_matches_plain(gen, s, s_valid, b, h):
 def test_b4_launches_one_device_operation(gen):
     """The wrapper's launch is all it puts on the card: the kernel quantizes
     q and combines the scales itself."""
-    from torch.profiler import ProfilerActivity, profile
-
     q = _randn(gen, 16, 8, 64, scale=0.125)
     k8, v8, ks, vs = _cross_cache(gen, 2, 16, 8, 1500)
-    cross_attention.cross_attend_step(q, k8, v8, ks, vs, 1, s_valid=1500)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            cross_attention.cross_attend_step(q, k8, v8, ks, vs, 1,
-                                              s_valid=1500)
-        torch.cuda.synchronize()
-    ops = {e.key: e.count for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA}
+    ops = _device_ops(lambda: cross_attention.cross_attend_step(
+        q, k8, v8, ks, vs, 1, s_valid=1500))
     assert sum(ops.values()) == 3 and len(ops) == 1, ops
 
 
@@ -324,34 +326,25 @@ def test_b6_kernel_matches_plain(gen, s, s_valid, b, h):
     assert torch.equal(got, again)
 
 
-@pytest.mark.parametrize("multi", [False, True])
+@pytest.mark.parametrize("multi", [False, "dequant", "int8"])
 def test_b6_and_b7_dequant_launch_one_device_operation(gen, multi):
-    """B6's and B7-dq's wrappers put their kernel on the card and nothing
-    else (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """B6's and B7's wrappers (B7-dq and B7-i8) put their kernel on the card
+    and nothing else (torch.profiler)."""
     k8, v8, ks, vs = _cross_cache(gen, 2, 16, 8, 1500)
     if multi:
         q = _randn(gen, 16, 5, 8, 64, scale=0.125)
 
         def call():
-            return cross_attention.cross_attend_multi(q, k8, v8, ks, vs, 1,
-                                                      s_valid=1500)
+            return cross_attention.cross_attend_multi(
+                q, k8, v8, ks, vs, 1, s_valid=1500,
+                int8_mxu=multi == "int8")
     else:
         q = _randn(gen, 16, 8, 64, scale=0.125)
 
         def call():
             return cross_attention.cross_attend_step_dequant(
                 q, k8, v8, ks, vs, 1, s_valid=1500)
-    call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            call()
-        torch.cuda.synchronize()
-    ops = {e.key: e.count for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA}
+    ops = _device_ops(call)
     assert sum(ops.values()) == 3 and len(ops) == 1, ops
 
 
@@ -439,8 +432,12 @@ def test_b9b_kernel_matches_plain(gen, rows, d):
     _assert_close(got, encoder_block.fused_out_mlp_plain(*args))
 
 
-@pytest.mark.parametrize("b,d", [(1, 512), (16, 512), (5, 1024), (33, 384)])
+@pytest.mark.parametrize("b,d", [(1, 512), (16, 512), (17, 512), (5, 1024),
+                                 (33, 384), (17, 1280)])
 def test_b10c_kernel_matches_plain(gen, b, d):
+    """One row, one tile of 16, two tiles (17), whisper-medium's and
+    whisper-large's widths (f = 5,120: FC1's 320 blocks, FC2's quarters of
+    1,280); two calls bitwise equal (no atomics, one order of every sum)."""
     f = 4 * d
     ln = torch.stack([1.0 + _randn(gen, d, scale=0.1),
                       _randn(gen, d, scale=0.1)])
@@ -451,20 +448,50 @@ def test_b10c_kernel_matches_plain(gen, b, d):
     got = decoder_kernels.mlp_block(*args)
     assert decoder_kernels.launches == before + 1
     _assert_close(got, decoder_kernels.mlp_block_plain(*args))
+    assert torch.equal(got, decoder_kernels.mlp_block(*args))
+
+
+@pytest.mark.parametrize("b,d", [(16, 512), (17, 1280)])
+def test_b10c_replays_in_a_cuda_graph(gen, b, d):
+    """FC2 is a programmatic dependent launch of FC1: captured in a CUDA
+    graph and replayed (new inputs copied into the captured ones), the
+    output equals the eager call's bitwise."""
+    f = 4 * d
+    ln = torch.stack([1.0 + _randn(gen, d, scale=0.1),
+                      _randn(gen, d, scale=0.1)])
+    args = [_randn(gen, b, d), ln, _randn(gen, d, f, scale=0.04),
+            _randn(gen, 1, f, scale=0.1), _randn(gen, f, d, scale=0.04),
+            _randn(gen, 1, d, scale=0.1)]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        decoder_kernels.mlp_block(*args)   # built and warm before capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = decoder_kernels.mlp_block(*args)
+    fresh = _randn(gen, b, d)
+    args[0].copy_(fresh)
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = decoder_kernels.mlp_block(fresh, *args[1:])
+    assert torch.equal(captured, eager)
+    _assert_close(captured, decoder_kernels.mlp_block_plain(fresh, *args[1:]))
 
 
 @pytest.mark.parametrize("int8_mxu", [True, False])
 @pytest.mark.parametrize("t,s,s_valid,b,h", [
     (1, 1500, 1500, 2, 8), (5, 1500, 1500, 3, 6), (9, 1504, 1500, 1, 8),
     (3, 96, 96, 2, 2), (2, 2000, 1999, 1, 2), (17, 1500, 1500, 2, 8),
-    (17, 2000, 1999, 1, 6), (8, 193, 193, 2, 4), (1, 2000, 384, 1, 8)])
+    (17, 2000, 1999, 1, 6), (8, 193, 193, 2, 4), (1, 2000, 384, 1, 8),
+    (5, 1731, 1731, 2, 8), (5, 2000, 1999, 3, 6)])
 def test_b7_queries_are_bitwise_the_single_token_kernels(gen, t, s, s_valid,
                                                          b, h, int8_mxu):
-    """Every query of B7 bit for bit what B4 (int8_mxu) or B6 gives for it;
-    the int8 kernel with the tile staged in shared memory (S <= ~1730) and
-    left in device memory (S = 2000), the dequantizing one with T past one
-    chunk of eight queries (17), exactly one chunk (8), and at eleven
-    segments; and the whole within 2 bf16 steps of the plain version."""
+    """Every query of B7 bit for bit what B4 (int8_mxu) or B6 gives for it:
+    both kernels with T past one chunk of eight queries (9, 17), exactly one
+    chunk (8), at one segment short, one row past one, eight and eleven
+    segments (S = 1,731 to 2,000: three blocks own two), with masked tails;
+    and the whole within 2 bf16 steps of the plain version."""
     n_l = 2
     q = _randn(gen, b, t, h, 64, scale=0.125)
     k8 = torch.randint(-127, 128, (n_l, b, h, s, 64), generator=gen,
@@ -639,3 +666,5 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         decoder_kernels.self_attn_block(x, x, x, x, x, x, x, x, 0, 3)
     with pytest.raises(ValueError, match="multiple of 128"):
         decoder_kernels.cross_attn_block(x, x, x, x, x, x, x, x, 3)
+    with pytest.raises(ValueError, match="d=192"):  # B10c: d no multiple of 64
+        decoder_kernels.mlp_block(x, x, x, x, x, x)

@@ -495,27 +495,30 @@ def test_every_csrc_file_is_named_for_the_build():
                                        "wt_launch_floor"}
 
 
-def test_kernel_variants_cut_the_sources_as_they_are():
+@pytest.mark.parametrize("kernel,source", [
+    ("B1", "attention.cu"), ("B4", "cross_attention.cu"),
+    ("B2", "encoder_mlp.cu"), ("B3", "self_attention.cu"),
+    ("B6", "cross_attention_dequant.cu"),
+    ("B7-dq", "cross_attention_multi.cu"),
+    ("B7-i8", "cross_attention_multi.cu"), ("B10c", "decoder_mlp.cu")])
+def test_kernel_variants_cut_the_sources_as_they_are(kernel, source):
     """``kernel_variants`` makes its timed variants by replacing text of the
-    CUDA sources; every replacement must still find its text."""
+    CUDA sources; every replacement must still find its text, and each
+    variant must differ from the others."""
     from whisper_tpu_torch import kernel_variants as kv
 
-    for cut, source, names in ((kv.b1_source, "attention.cu", kv.B1_VARIANTS),
-                               (kv.b4_source, "cross_attention.cu",
-                                kv.B4_VARIANTS),
-                               (kv.b2_source, "encoder_mlp.cu",
-                                kv.B2_VARIANTS),
-                               (kv.b3_source, "self_attention.cu",
-                                kv.B3_VARIANTS),
-                               (kv.dq_source, "cross_attention_dequant.cu",
-                                kv.DQ_VARIANTS),
-                               (kv.dq_source, "cross_attention_multi.cu",
-                                kv.DQ_VARIANTS)):
-        text = (kernels.CSRC / source).read_text()
-        variants = {name: cut(text, name) for name in names}
-        assert variants["as_built"].count("WT_EXPORT") == \
-            text.count("WT_EXPORT")
-        assert len(set(variants.values())) == len(names)
+    cut, names = {"B1": (kv.b1_source, kv.B1_VARIANTS),
+                  "B4": (kv.b4_source, kv.B4_VARIANTS),
+                  "B2": (kv.b2_source, kv.B2_VARIANTS),
+                  "B3": (kv.b3_source, kv.B3_VARIANTS),
+                  "B6": (kv.dq_source, kv.DQ_VARIANTS),
+                  "B7-dq": (kv.dq_source, kv.DQ_VARIANTS),
+                  "B7-i8": (kv.i8_source, kv.I8_VARIANTS),
+                  "B10c": (kv.b10c_source, kv.B10C_VARIANTS)}[kernel]
+    text = (kernels.CSRC / source).read_text()
+    variants = {name: cut(text, name) for name in names}
+    assert variants["as_built"].count("WT_EXPORT") == text.count("WT_EXPORT")
+    assert len(set(variants.values())) == len(names)
 
 
 def test_profile_ladder_reads_the_x4_kernels():
@@ -529,14 +532,52 @@ def test_profile_ladder_reads_the_x4_kernels():
                    "__nv_bfloat16 const*, float const*)",
              "B7-dq": "(anonymous namespace)::cross_multi_dequant_kernel("
                       "__nv_bfloat16 const*)",
-             "B7-i8": "void (anonymous namespace)::cross_multi_int8_kernel"
-                      "<true>(__nv_bfloat16 const*)",
-             "B4": "(anonymous namespace)::cross_step_kernel(int)"}
+             "B7-i8": "(anonymous namespace)::cross_multi_int8_kernel("
+                      "__nv_bfloat16 const*, float const*)",
+             "B4": "(anonymous namespace)::cross_step_kernel(int)",
+             "B10c (FC1)": "(anonymous namespace)::fc1_kernel("
+                           "__nv_bfloat16 const*)",
+             "B10c (FC2)": "(anonymous namespace)::fc2_kernel("
+                           "__nv_bfloat16 const*)"}
     for label, name in names.items():
         assert pl._kernel_of(name) == label, name
     # the names it looks for are the kernels' names in the sources
     for fn, src in (
             ("cross_dequant_kernel", "cross_attention_dequant.cu"),
-            ("cross_multi_dequant_kernel", "cross_attention_multi.cu")):
+            ("cross_multi_dequant_kernel", "cross_attention_multi.cu"),
+            ("cross_multi_int8_kernel", "cross_attention_multi.cu"),
+            ("fc1_kernel", "decoder_mlp.cu"), ("fc2_kernel", "decoder_mlp.cu"),
+            ("self_attn_kernel", "decoder_self_block.cu"),
+            ("cross_attn_kernel", "decoder_cross_block.cu"),
+            ("ln_gemm_kernel", "decoder_block.cuh"),
+            ("out_proj_kernel", "decoder_block.cuh")):
         assert f"\n{fn}(" in (kernels.CSRC / src).read_text()
         assert fn in pl.KERNELS
+
+
+def test_profile_ladder_spans_a_call_of_several_kernels():
+    """``call_spans`` reads a call of B10a, B10b or B10c from its kernels as
+    they follow each other on the stream: from the first one's start to the
+    last one's end, B10c's overlapping FC1 and FC2 counted once."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    from whisper_tpu_torch import profile_ladder as pl
+
+    def ev(name, start, end, dev=DeviceType.CUDA):
+        return SimpleNamespace(name=f"(anonymous namespace)::{name}(int)",
+                               device_type=dev,
+                               time_range=SimpleNamespace(start=start,
+                                                          end=end))
+
+    events = [ev("ln_gemm_kernel", 0, 2), ev("self_attn_kernel", 2, 5),
+              ev("out_proj_kernel", 5, 6), ev("ln_gemm_kernel", 6, 7),
+              ev("cross_attn_kernel", 7, 12), ev("out_proj_kernel", 12, 13),
+              ev("fc1_kernel", 13, 17), ev("fc2_kernel", 14, 19),
+              ev("argmax", 19, 20), ev("fc1_kernel", 30, 33, DeviceType.CPU),
+              ev("fc1_kernel", 40, 43), ev("fc2_kernel", 41, 45)]
+    spans = pl.call_spans(SimpleNamespace(events=lambda: events[::-1]))
+    assert spans == {"B10a": {"calls": 1, "mean_ms": 6e-3},
+                     "B10b": {"calls": 1, "mean_ms": 7e-3},
+                     "B10c": {"calls": 2, "mean_ms": 5.5e-3}}

@@ -8,13 +8,18 @@
 // is lossless only then.  The int32 dots and the max are exact in any order;
 // the fp32 sums are not, so their order is fixed here.
 //
-// int8 x int8 (B4, B7-i8).  B4 splits a head's S rows over the blocks of a
-// cluster, B7 walks them in one block, and both must reach the same
-// denominator.  So the order of sum e is a function of S alone, not of the
-// launch: rows fall into groups of 32 (one warp: the xor tree), six groups
-// make a segment of CROSS_SEG = 192 rows (added in sequence from 0), and
-// the segments are added in sequence from 0.  p8 = rint(127 e) depends only
-// on the global max, so splitting changes no p8.
+// int8 x int8 (B4, B7-i8).  Both run a cluster of blocks a (b, h), a block
+// of CROSS_SEG threads a segment, but each with its own kernel body (B4 one
+// query, refetching K and V where a block owns several segments; B7-i8
+// cross_int8_cluster, every segment kept for all T queries), and both must
+// reach the same denominator.  So the order of sum e is a function of S
+// alone, not of the launch: rows fall into groups of 32 (one warp: the xor
+// tree over lanes 16, 8, 4, 2, 1 with the row's index in the group as its
+// lane), six groups make a segment of CROSS_SEG = 192 rows (added in
+// sequence from 0), and the segments are added in sequence from 0.  p8 =
+// rint(127 e) depends only on the global max, and every int32 sum is exact
+// in any order, so neither the split nor the instruction changes a p8 or a
+// context.
 //
 // Dequantizing (B6, B7-dq).  Both kernels run one cluster of blocks a (b,
 // h), a block of CROSS_SEG threads a segment, and call the same function
@@ -44,17 +49,8 @@
 #include "hopper.cuh"
 
 constexpr int CROSS_DH = 64;
-constexpr int CROSS_NT = 256;
 constexpr int CROSS_SEG = 192;               // rows a segment
 constexpr int CROSS_SEG_GROUPS = CROSS_SEG / 32;
-
-// Scratch in static shared memory that one call of a head function uses.
-struct CrossScratch {
-  float red[CROSS_NT / 32];
-  int q8[CROSS_DH / 4];
-  int pv[CROSS_NT / 32][CROSS_DH];
-  float q_scale;
-};
 
 // ---- int8 x int8 ------------------------------------------------------------
 
@@ -130,16 +126,26 @@ __device__ __forceinline__ float cross_segment_sum(const float* gsum, int n) {
   return seg;
 }
 
+// The 4 x 4 bytes of four rows' words (a, b, c, d) transposed: col[j] holds
+// byte j of a, b, c, d in its bytes 0..3.
+__device__ __forceinline__ void cross_transpose4x4(int a, int b, int c, int d,
+                                                   int* col) {
+  const int ab_lo = __byte_perm(a, b, 0x5140), cd_lo = __byte_perm(c, d, 0x5140);
+  const int ab_hi = __byte_perm(a, b, 0x7362), cd_hi = __byte_perm(c, d, 0x7362);
+  col[0] = (int)__byte_perm(ab_lo, cd_lo, 0x5410);
+  col[1] = (int)__byte_perm(ab_lo, cd_lo, 0x7632);
+  col[2] = (int)__byte_perm(ab_hi, cd_hi, 0x5410);
+  col[3] = (int)__byte_perm(ab_hi, cd_hi, 0x7632);
+}
+
 // Columns j of four rows' words (bytes j of a, b, c, d) against the four
 // packed p8: acc[j] += p . (a_j, b_j, c_j, d_j).
 __device__ __forceinline__ void cross_dot4x4(int a, int b, int c, int d, int p,
                                              int* acc) {
-  const int ab_lo = __byte_perm(a, b, 0x5140), cd_lo = __byte_perm(c, d, 0x5140);
-  const int ab_hi = __byte_perm(a, b, 0x7362), cd_hi = __byte_perm(c, d, 0x7362);
-  acc[0] = __dp4a((int)__byte_perm(ab_lo, cd_lo, 0x5410), p, acc[0]);
-  acc[1] = __dp4a((int)__byte_perm(ab_lo, cd_lo, 0x7632), p, acc[1]);
-  acc[2] = __dp4a((int)__byte_perm(ab_hi, cd_hi, 0x5410), p, acc[2]);
-  acc[3] = __dp4a((int)__byte_perm(ab_hi, cd_hi, 0x7632), p, acc[3]);
+  int col[4];
+  cross_transpose4x4(a, b, c, d, col);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) acc[j] = __dp4a(col[j], p, acc[j]);
 }
 
 // ctx[64] = sum over rows [0, rows) of p8[r] * V8[r, :] as int32, by a block
@@ -200,43 +206,320 @@ __device__ __forceinline__ bf16 cross_finish(int ctx, float v_scale,
   return __float2bfloat16_rn(__fmul_rn((float)ctx, scale));
 }
 
-// One query against a whole head's K and V, by one block of CROSS_NT threads
-// (B7-i8): what B4's cluster computes, in the same order.
-//   q8, q_scale = quantize(q);  scores = (q8 . K8 as int32) * (q_scale *
-//   k_scale); columns >= s_valid masked;  e = exp(s - max); p8 = rint(127 e);
-//   out = bf16((p8 . V8 as int32) * (v_scale / (127 sum e))).
-// In shared memory: sS [S] floats, gsum [ceil(S / 32)] floats, sP8 [S
-// rounded up to 8] bytes, 8-byte aligned.
-__device__ __forceinline__ void cross_head_int8(
-    CrossScratch& sc, const bf16* __restrict__ q, float k_scale, float v_scale,
-    const int8_t* __restrict__ kc, const int8_t* __restrict__ vc,
-    bf16* __restrict__ out, int S, int s_valid, float* sS, float* gsum,
-    int8_t* sP8) {
+// ---- int8 x int8, T queries: the verify pass (B7-i8) ---------------------
+
+constexpr int I8_WARPS = 3;               // a block's warps, two groups each
+constexpr int I8_NT = 32 * I8_WARPS;
+constexpr int I8_QC = 8;                  // queries a chunk: an mma's columns
+constexpr int I8_SEG_BYTES = CROSS_SEG * CROSS_DH;
+constexpr int I8_GROUP_BYTES = 32 * CROSS_DH;
+constexpr int I8_MAX_CLUSTER = 8;         // the portable cluster size
+
+// The chunk's int32 scores against the 32 rows of one group of a K segment
+// in shared memory, by one warp: two m16n8k32 tiles, the group's rows the
+// mma's rows and query n of the chunk its column n (q8 [I8_QC][64] in shared
+// memory).  The 64 columns of a row are two k-steps taken in an order that
+// lets lane c read bytes 16 c .. 16 c + 15 of each of its rows once (q8 in
+// the same order; an int32 sum is exact in any order).  d[mt][e] is row 16
+// mt + lane / 4 + 8 (e / 2) of the group against query 2 (lane % 4) + e % 2.
+__device__ __forceinline__ void i8_group_scores(const int8_t* sK_group,
+                                                const int8_t* sq8,
+                                                int (&d)[2][4]) {
+  const int lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
+  const int4 qw = reinterpret_cast<const int4*>(sq8 + g * CROSS_DH)[c];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int4 wa =
+        reinterpret_cast<const int4*>(sK_group + (16 * mt + g) * CROSS_DH)[c];
+    const int4 wb = reinterpret_cast<const int4*>(
+        sK_group + (16 * mt + g + 8) * CROSS_DH)[c];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[mt][e] = 0;
+    mma_m16n8k32_s8(d[mt], wa.x, wb.x, wa.y, wb.y, qw.x, qw.y);
+    mma_m16n8k32_s8(d[mt], wa.z, wb.z, wa.w, wb.w, qw.z, qw.w);
+  }
+}
+
+// A group's 32 rows of V ([32][64] int8 in shared memory) transposed in
+// place into [64][32] (a column's 32 bytes, row order), by one warp: the
+// int8 mma's A operand for P . V, whose depth (the rows) must be contiguous.
+__device__ __forceinline__ void i8_transpose_group(int8_t* sV_group) {
+  const int lane = threadIdx.x % 32, rq = lane / 4, c = lane % 4;
+  int4 w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)  // rows 4 rq + j, columns 16 c .. 16 c + 15
+    w[j] = reinterpret_cast<const int4*>(sV_group +
+                                         (4 * rq + j) * CROSS_DH)[c];
+  __syncwarp();
+  int col[16];
+  cross_transpose4x4(w[0].x, w[1].x, w[2].x, w[3].x, col);
+  cross_transpose4x4(w[0].y, w[1].y, w[2].y, w[3].y, col + 4);
+  cross_transpose4x4(w[0].z, w[1].z, w[2].z, w[3].z, col + 8);
+  cross_transpose4x4(w[0].w, w[1].w, w[2].w, w[3].w, col + 12);
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+    reinterpret_cast<int*>(sV_group + (16 * c + k) * 32)[rq] = col[k];
+  __syncwarp();
+}
+
+// T queries of one (b, h) against one layer's int8 K and V, by a cluster of
+// n_rank blocks of I8_NT threads (blockIdx.x / n_rank is b * H + h): for each
+// query, bit for bit what B4 (cross_attention.cu) gives for it.  Block `rank`
+// owns segments rank + i * n_rank (i < n_own) and fetches each once, by bulk
+// copies at entry (K on one mbarrier, V on another, so V lands while the
+// scores are computed); warp w takes groups 2 w and 2 w + 1 of each (three
+// warps, so that eight blocks fit an SM and bucket 16's 1,024 blocks run in
+// one wave).  The queries go in chunks of I8_QC, each quantized by one warp
+// as B4 does it (cross_quantize_q), and each chunk meets under two cluster
+// barriers:
+//   1. the scores (i8_group_scores, int8 mma.sync) and each block's max of
+//      each query, written into every block;
+//   2. the scores again (cheaper than keeping them), e = exp(s - max) and p8
+//      = rint(127 e) in the mma's layout; each group's sum of e by B4's xor
+//      tree (rows 16 apart are the mma's two tiles, rows 8 apart its two row
+//      halves: additions in a lane; then lanes 16, 8, 4); each segment's sum
+//      of its six groups in sequence, written into the block that finishes
+//      the query (rank n % n_rank for query n of the chunk); p8 . V8 as int8
+//      mma.sync (V transposed in place once, the chunk's p8 the columns of
+//      B), the warp's int32 context added into the finisher's (exact in any
+//      order);
+// then the finisher adds the segments' sums in segment order and writes
+// cross_finish's output.  What a query computes does not depend on T or on
+// the chunk it falls in.  `smem`: cross_int8_smem(n_own, n_rank) bytes; q,
+// out [B, T, H, 64] bf16; the scales [L, B, H], one read a block.
+__device__ __forceinline__ void cross_int8_cluster(
+    unsigned char* smem, const bf16* __restrict__ q,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+    const int8_t* __restrict__ k8, const int8_t* __restrict__ v8,
+    bf16* __restrict__ out, int B, int T, int H, int S, int layer,
+    int s_valid, int n_own) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_rank = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int n_slot = n_rank * n_own;  // segments, counted to a whole round
+  const int n_fin = (I8_QC + n_rank - 1) / n_rank;  // queries finished here
+  // [K n_own segs][V n_own segs], then, written by every block: maxima
+  // [I8_QC][I8_MAX_CLUSTER] floats, segment sums [n_fin][n_slot] floats,
+  // contexts [n_fin][64] int32
+  int8_t* sK = reinterpret_cast<int8_t*>(smem);
+  int8_t* sV = sK + (size_t)n_own * I8_SEG_BYTES;
+  float* cmax = reinterpret_cast<float*>(sV + (size_t)n_own * I8_SEG_BYTES);
+  float* csum = cmax + I8_QC * I8_MAX_CLUSTER;
+  int* cctx = reinterpret_cast<int*>(csum + n_fin * n_slot);
+  __shared__ __align__(16) int8_t sq8[I8_QC][CROSS_DH];
+  __shared__ __align__(16) int8_t sp8[I8_WARPS][I8_QC][32];
+  __shared__ float qk[I8_QC], red[I8_WARPS][I8_QC];
+  __shared__ float gsum[CROSS_SEG_GROUPS][I8_QC];
+  __shared__ __align__(8) uint64_t bars[2];
+
+  const int head = blockIdx.x / n_rank;              // b * H + h
+  const int b = head / H, h = head % H;
+  const size_t lrow = (size_t)layer * B * H + head;
+  const int8_t* kc = k8 + lrow * (size_t)S * CROSS_DH;
+  const int8_t* vc = v8 + lrow * (size_t)S * CROSS_DH;
+  const int n_seg = (S + CROSS_SEG - 1) / CROSS_SEG;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  if (warp == 0) {
-    const float qs = cross_quantize_q(q, reinterpret_cast<int8_t*>(sc.q8));
-    if (lane == 0) sc.q_scale = qs;
-  }
-  __syncthreads();
-  const float qk_scale = __fmul_rn(sc.q_scale, k_scale);
-  const float lmax =
-      cross_scores<CROSS_NT>(sc.q8, qk_scale, kc, S, 0, s_valid, sS);
-  const float m = block_reduce<CROSS_NT>(lmax, sc.red, true);  // syncs sS
+  const int g = lane / 4, c = lane % 4;
+  const uint32_t bar_k = smem_u32(&bars[0]), bar_v = smem_u32(&bars[1]);
 
-  const int n_groups = (S + 31) / 32;
-  for (int g = warp; g < n_groups; g += CROSS_NT / 32) {
-    const float gs =
-        cross_group_softmax(sS + 32 * g, S - 32 * g, m, sP8 + 32 * g);
-    if (lane == 0) gsum[g] = gs;
-  }
-  __syncthreads();
-  float denom = 0.0f;
-  for (int g0 = 0; g0 < n_groups; g0 += CROSS_SEG_GROUPS)
-    denom = __fadd_rn(denom, cross_segment_sum(
-        gsum + g0, min(CROSS_SEG_GROUPS, n_groups - g0)));
+  // Segment i of this block is segment rank + i * n_rank of the head.
+  auto seg_row0 = [&](int i) { return (rank + i * n_rank) * CROSS_SEG; };
+  auto seg_rows = [&](int i) {
+    return max(0, min(CROSS_SEG, S - seg_row0(i)));
+  };
+  auto fetch = [&](int8_t* dst, const int8_t* src, uint32_t bar) {
+    uint32_t bytes = 0;
+    for (int i = 0; i < n_own; ++i) bytes += (uint32_t)seg_rows(i) * CROSS_DH;
+    mbar_arrive_expect_tx(bar, bytes);
+    for (int i = 0; i < n_own; ++i)
+      if (seg_rows(i))
+        bulk_load_1d(smem_u32(dst + (size_t)i * I8_SEG_BYTES),
+                     src + (size_t)seg_row0(i) * CROSS_DH,
+                     (uint32_t)seg_rows(i) * CROSS_DH, bar);
+  };
 
-  const int ctx = cross_pv<CROSS_NT>(sP8, vc, S, sc.pv);
-  if (tid < CROSS_DH) out[tid] = cross_finish(ctx, v_scale, denom);
+  cluster_arrive_relaxed();  // this block runs: the first wait below
+  if (tid == 0) {
+    mbar_init(bar_k, 1);
+    mbar_init(bar_v, 1);
+    mbar_fence_init();
+    fetch(sK, kc, bar_k);
+    fetch(sV, vc, bar_v);
+  }
+  for (int x = tid; x < n_fin * CROSS_DH; x += I8_NT) cctx[x] = 0;
+  const float ks = k_scale[lrow], vs = v_scale[lrow];
+
+  for (int t0 = 0; t0 < T; t0 += I8_QC) {
+    const int qc = min(I8_QC, T - t0);
+    // ---- the chunk's queries, quantized as B4 quantizes its one ----
+    for (int n = warp; n < I8_QC; n += I8_WARPS) {
+      if (n < qc) {
+        const float qs = cross_quantize_q(
+            q + (((size_t)b * T + t0 + n) * H + h) * CROSS_DH, sq8[n]);
+        if (lane == 0) qk[n] = __fmul_rn(qs, ks);
+      } else {
+        reinterpret_cast<uint16_t*>(sq8[n])[lane] = 0;
+        if (lane == 0) qk[n] = 0.0f;
+      }
+    }
+    __syncthreads();  // q8 and the barriers (the first chunk) are visible
+    const float qk2[2] = {qk[2 * c], qk[2 * c + 1]};
+    // Row 16 mt + g + 8 (e / 2) of group `grp` of segment i: its score
+    // against query 2 c + e % 2, -FLT_MAX where masked.
+    auto score = [&](int i, int grp, const int (&d)[2][4], int mt, int e) {
+      const int col = seg_row0(i) + 32 * grp + 16 * mt + g + 8 * (e / 2);
+      return col < s_valid ? __fmul_rn((float)d[mt][e], qk2[e % 2])
+                           : -FLT_MAX;
+    };
+    mbar_wait(bar_k, 0);
+
+    // ---- 1: scores; each block's max of each query, into every block ----
+    float lmax[2] = {-FLT_MAX, -FLT_MAX};
+    for (int i = 0; i < n_own; ++i)
+      for (int grp = 2 * warp; grp < 2 * warp + 2; ++grp) {
+        const int rows = seg_rows(i) - 32 * grp;  // of the group
+        if (rows <= 0) continue;                  // the same in the warp
+        int d[2][4];
+        i8_group_scores(sK + (size_t)i * I8_SEG_BYTES + grp * I8_GROUP_BYTES,
+                        sq8[0], d);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (16 * mt + g + 8 * (e / 2) < rows)
+              lmax[e % 2] = fmaxf(lmax[e % 2], score(i, grp, d, mt, e));
+      }
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      lmax[0] = fmaxf(lmax[0], __shfl_xor_sync(0xffffffffu, lmax[0], o));
+      lmax[1] = fmaxf(lmax[1], __shfl_xor_sync(0xffffffffu, lmax[1], o));
+    }
+    if (lane < 4) {
+      red[warp][2 * lane] = lmax[0];
+      red[warp][2 * lane + 1] = lmax[1];
+    }
+    __syncthreads();
+    if (t0 == 0) cluster_wait();  // every block of the cluster runs
+    for (int x = tid; x < qc * n_rank; x += I8_NT) {
+      const int n = x % qc, r = x / qc;
+      float m = red[0][n];
+#pragma unroll
+      for (int w = 1; w < I8_WARPS; ++w) m = fmaxf(m, red[w][n]);
+      cluster.map_shared_rank(cmax, r)[n * I8_MAX_CLUSTER + rank] = m;
+    }
+    cluster_arrive();
+    cluster_wait();
+
+    // ---- 2: e, p8, the sums of e, p8 . V8 into the query's finisher ----
+    float m2[2] = {-FLT_MAX, -FLT_MAX};
+    for (int r = 0; r < n_rank; ++r) {
+      m2[0] = fmaxf(m2[0], cmax[(2 * c) * I8_MAX_CLUSTER + r]);
+      m2[1] = fmaxf(m2[1], cmax[(2 * c + 1) * I8_MAX_CLUSTER + r]);
+    }
+    int ctx[4][4];  // columns 16 mt + g + 8 (e / 2), query 2 c + e % 2
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ctx[mt][e] = 0;
+    for (int i = 0; i < n_own; ++i) {
+      if (i > 0) __syncthreads();  // gsum of segment i - 1 is read
+      for (int grp = 2 * warp; grp < 2 * warp + 2; ++grp) {
+        const int rows = seg_rows(i) - 32 * grp;
+        float gs[2] = {0.0f, 0.0f};  // a group with no rows sums to 0, as B4's
+        if (rows > 0) {
+          int d[2][4];
+          i8_group_scores(
+              sK + (size_t)i * I8_SEG_BYTES + grp * I8_GROUP_BYTES, sq8[0], d);
+          float ev[2][4];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = 16 * mt + g + 8 * (e / 2);
+              ev[mt][e] = r < rows ? expf(__fsub_rn(score(i, grp, d, mt, e),
+                                                    m2[e % 2]))
+                                   : 0.0f;
+              sp8[warp][2 * c + e % 2][r] =
+                  (int8_t)__float2int_rn(__fmul_rn(ev[mt][e], 127.0f));
+            }
+          // B4's tree: rows r ^ 16 (the two tiles), r ^ 8 (the row
+          // halves), then r ^ 4, r ^ 2, r ^ 1 (lanes 16, 8, 4 apart)
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            gs[k] = __fadd_rn(__fadd_rn(ev[0][k], ev[1][k]),
+                              __fadd_rn(ev[0][2 + k], ev[1][2 + k]));
+#pragma unroll
+            for (int o = 16; o >= 4; o >>= 1)
+              gs[k] = __fadd_rn(gs[k],
+                                __shfl_xor_sync(0xffffffffu, gs[k], o));
+          }
+          // p8 . V8: A = the group's V transposed ([64 columns][32 rows]),
+          // B = the chunk's p8 ([query][32 rows])
+          int8_t* vg = sV + (size_t)i * I8_SEG_BYTES + grp * I8_GROUP_BYTES;
+          mbar_wait(bar_v, 0);
+          if (t0 == 0) i8_transpose_group(vg);
+          __syncwarp();  // sp8 is written
+          const int* pw = reinterpret_cast<const int*>(sp8[warp][g]);
+          const uint32_t a_addr =
+              smem_u32(vg + ((lane % 8) + 8 * ((lane / 8) % 2)) * 32 +
+                       16 * (lane / 16));
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt) {
+            uint32_t a[4];
+            ldmatrix_x4(a, a_addr + mt * 16 * 32);
+            mma_m16n8k32_s8(ctx[mt], a[0], a[1], a[2], a[3], pw[c], pw[4 + c]);
+          }
+          __syncwarp();  // sp8 is read before the next group writes it
+        }
+        if (lane < 4) {
+          gsum[grp][2 * lane] = gs[0];
+          gsum[grp][2 * lane + 1] = gs[1];
+        }
+      }
+      __syncthreads();  // gsum is written
+      if (tid < qc) {
+        float seg = 0.0f;
+#pragma unroll
+        for (int w = 0; w < CROSS_SEG_GROUPS; ++w)
+          seg = __fadd_rn(seg, gsum[w][tid]);
+        cluster.map_shared_rank(csum, tid % n_rank)
+            [(tid / n_rank) * n_slot + rank + i * n_rank] = seg;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = 2 * c + e % 2;
+      if (n >= qc) continue;
+      const uint32_t dst =
+          dsmem_map(smem_u32(cctx + (n / n_rank) * CROSS_DH), n % n_rank);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+        dsmem_add(dst + 4 * (16 * mt + g + 8 * (e / 2)), ctx[mt][e]);
+    }
+    cluster_arrive();
+    cluster_wait();
+
+    // ---- the finisher: the segments' sums in segment order ----
+    const int n_mine = qc > rank ? (qc - rank + n_rank - 1) / n_rank : 0;
+    for (int x = tid; x < n_mine * CROSS_DH; x += I8_NT) {
+      const int slot = x / CROSS_DH, col = x % CROSS_DH;
+      float denom = 0.0f;
+      for (int s = 0; s < n_seg; ++s)
+        denom = __fadd_rn(denom, csum[slot * n_slot + s]);
+      out[(((size_t)b * T + t0 + rank + slot * n_rank) * H + h) * CROSS_DH +
+          col] = cross_finish(cctx[x], vs, denom);
+      cctx[x] = 0;  // before the next chunk's first barrier
+    }
+  }
+}
+
+// Dynamic shared memory of cross_int8_cluster.
+inline size_t cross_int8_smem(int n_own, int n_rank) {
+  const size_t n_fin = (I8_QC + n_rank - 1) / n_rank;
+  return (size_t)n_own * 2 * I8_SEG_BYTES +
+         sizeof(float) * (I8_QC * I8_MAX_CLUSTER + n_fin * n_rank * n_own) +
+         sizeof(int) * n_fin * CROSS_DH;
 }
 
 // ---- dequantizing (B6, B7-dq) -----------------------------------------------

@@ -5,7 +5,10 @@
 // (attention.cu), the tiled product (gemm_sm90.cuh), the split
 // cross-attention steps (cross_attention.cu, and cross_attention.cuh's
 // cluster, which also uses the cluster barrier and mma.sync) and the
-// self-attention step (self_attention.cu).
+// self-attention step (self_attention.cu), the int8 verify pass
+// (cross_attention.cuh's cross_int8_cluster: int8 mma.sync, additions into
+// another block's shared memory) and the decoder MLP (decoder_mlp.cu:
+// cp.async, ldmatrix, programmatic dependent launch).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; nothing of libcuda is linked
@@ -120,6 +123,55 @@ WT_DEV void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
+// ---- distributed shared memory -------------------------------------------
+// The address of the same shared variable in block `rank` of the cluster,
+// and an int32 addition into it (exact, so the order of a cluster's
+// additions does not show in the sum).
+
+WT_DEV uint32_t dsmem_map(uint32_t saddr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r)
+               : "r"(saddr), "r"(rank));
+  return r;
+}
+
+WT_DEV void dsmem_add(uint32_t addr, int v) {
+  asm volatile("red.relaxed.cluster.shared::cluster.add.s32 [%0], %1;"
+               ::"r"(addr), "r"(v)
+               : "memory");
+}
+
+// ---- cp.async (16 bytes a thread) and programmatic dependent launch --------
+
+WT_DEV void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src)
+               : "memory");
+}
+
+// Closes this thread's copies issued so far into a group; a wait for N
+// lets the N most recent groups still be in flight.
+WT_DEV void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+WT_DEV void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// The dependent grid of a launch with programmatic stream serialization may
+// start: its blocks run what precedes their grid_dependency_wait.
+WT_DEV void grid_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+// Waits until the grid this one depends on has finished and its writes are
+// visible (at once without such a dependency).
+WT_DEV void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
 // ---- mma.sync ---------------------------------------------------------------
 
 // d[16 x 8] = A[16 x 16] . B[16 x 8] + c, bf16 -> fp32, by one warp, every
@@ -136,6 +188,38 @@ WT_DEV void mma_m16n8k16_bf16(float (&d)[4], uint32_t a0, uint32_t a1,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// d[16 x 8] += A[16 x 32] . B[32 x 8], int8 -> int32 (exact), by one warp
+// (PTX's m16n8k32 fragments: lane = 4 g + t holds four bytes of A's row g at
+// depths 4t .. 4t + 3 (a0) and 16 + 4t .. (a2), row g + 8 likewise (a1, a3),
+// B's column g at depths 4t .. (b0) and 16 + 4t .. (b1), and d's row g (d0,
+// d1) and row g + 8 (d2, d3) at columns 2t, 2t + 1).
+WT_DEV void mma_m16n8k32_s8(int (&d)[4], uint32_t a0, uint32_t a1,
+                            uint32_t a2, uint32_t a3, uint32_t b0,
+                            uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 matrices of 16-bit values from shared memory, lanes 8 i .. 8 i
+// + 7 giving the rows of matrix i: as A's m16n8k16 fragment (a0..a3), or,
+// transposed, as two columns' B fragments (b0, b1 of each).
+WT_DEV void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+WT_DEV void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
 }
 
 // ---- wgmma ----------------------------------------------------------------

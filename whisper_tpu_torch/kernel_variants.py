@@ -1,4 +1,4 @@
-"""What holds the six kernels redesigned for Hopper, by timed variants:
+"""What holds the eight kernels redesigned for Hopper, by timed variants:
 ``python -m whisper_tpu_torch.kernel_variants``.
 
 **B1** (encoder attention).  Builds ``csrc/attention.cu`` as it is and in
@@ -32,7 +32,8 @@ the 50 MB L2; 600 calls back to back, the layer rotating, median of 5):
 
 - ``loads_only``: every block waits for its K and V segment and leaves;
 - ``loads_and_barriers``: the same and the kernel's three cluster barriers;
-- ``no_pv``: the whole kernel but the p8 . V8 product.
+- ``no_pv``: the whole kernel but the p8 . V8 product;
+- ``max_carveout``: launched with the largest shared-memory carveout.
 
 **B2** (the encoder MLP: LayerNorm, then two tiled wgmma products).  Builds
 ``csrc/encoder_mlp.cu`` with ``csrc/gemm_sm90.cuh`` written into it, as it
@@ -70,6 +71,41 @@ with five queries a row, as the verify pass at draft_k = 4 gives it):
 - ``no_exchange``: every cluster barrier a block barrier and every write
   into another block's shared memory a write into the block's own (the
   blocks of a cluster no longer meet).
+
+**B7-i8** (the int8 verify pass: B4's cluster, the queries in chunks of
+eight).  Builds ``csrc/cross_attention_multi.cu`` with the shared header
+written into it and times it at five queries a row as for B7-dq:
+
+- ``copies_only``: every block waits for its K and V segments and leaves;
+- ``copies_and_barriers``: the same and a chunk's two cluster barriers;
+- ``phase1_only``: the copies, the first pass (scores and maxima) and its
+  cluster barrier;
+- ``phase1_and_v``: the same, each block waiting for its V too;
+- ``no_phase2_groups``: the second pass without its work on the groups
+  (scores, e, p8, the group sums, P.V), its exchanges and the finisher
+  kept;
+- ``no_exp``: e = s - max in place of exp(s - max);
+- ``no_pv``: the whole kernel but the p8 . V8 products;
+- ``local_adds``: every block adds its contexts into its own shared memory,
+  not into the finisher's (wrong outputs: the cost of the remote adds);
+- ``max_carveout``: launched with the largest shared-memory carveout (as
+  built, the CUDA driver splits the SM's memory between L1 and shared
+  memory).
+
+**B10c** (the decode step's MLP block: FC1 over 16-column blocks, FC2 a
+cluster of four launched as FC1's programmatic dependent).  Builds
+``csrc/decoder_mlp.cu`` as it is and cut short, and times one call at
+bucket 16 at d = 512 and 1,280, six layers' weights in rotation:
+
+- ``fc1_only``: the wrapper launches FC1 and not FC2;
+- ``no_pdl``: FC2 launched as a plain dependent (it starts when FC1 ends);
+- ``copies_only``: each kernel waits for its weight copies (and FC2 for
+  h) and leaves;
+- ``fc1_only+no_ln`` and ``fc1_only+no_mma``: FC1 alone without its
+  LayerNorm or without its product.
+
+Each also as 600 calls captured in one CUDA graph and replayed, where the
+card's rate is the limit and not the host's.
 
 Prints one JSON line for each kernel with the card's name and power limit.
 It needs a CUDA card and nvcc and raises without them.
@@ -122,7 +158,13 @@ def b1_source(text: str, name: str) -> str:
     return text
 
 
-B4_VARIANTS = ("as_built", "loads_only", "loads_and_barriers", "no_pv")
+B4_VARIANTS = ("as_built", "loads_only", "loads_and_barriers", "no_pv",
+               "max_carveout")
+_B4_CFG = "  cudaLaunchConfig_t cfg = {};"
+_CARVEOUT = """  cudaFuncSetAttribute((const void*)%s,
+                       cudaFuncAttributePreferredSharedMemoryCarveout,
+                       (int)cudaSharedmemCarveoutMaxShared);
+"""
 _B4_READY = "  __syncthreads();  // the barriers and q8 are visible\n"
 _B4_LEAVE = """  mbar_wait(bar_k, 0);
   mbar_wait(bar_v, 0);
@@ -144,6 +186,8 @@ def b4_source(text: str, name: str) -> str:
     if name == "no_pv":
         text = _swap(text, "    ctx += cross_pv<NT>(sP8, sV, rows, part);\n",
                      "")
+    if name == "max_carveout":
+        text = _swap(text, _B4_CFG, _CARVEOUT % "cross_step_kernel" + _B4_CFG)
     return text
 
 
@@ -211,7 +255,8 @@ def b3_source(text: str, name: str) -> str:
 
 
 DQ_VARIANTS = ("as_built", "copies_only", "no_pv", "no_exchange")
-_DQ_READY = "  mbar_wait(bar_k, 0);\n"
+_DQ_READY = ("  __syncthreads();  // the barriers are initialised\n"
+             "  mbar_wait(bar_k, 0);\n")
 _DQ_LEAVE = """  mbar_wait(bar_v, 0);
   if (rank == 0 && tid < CROSS_DH)
     out[(size_t)head * CROSS_DH + tid] =
@@ -232,6 +277,10 @@ def dq_source(text: str, name: str) -> str:
 
     text = _swap(text, '#include "cross_attention.cuh"\n',
                  (kernels.CSRC / "cross_attention.cuh").read_text())
+    # cut cross_dequant_cluster and what follows it, not the int8 kernel's
+    # function before it
+    head, text = text.split(_DQ_CLUSTER, 1)
+    text = _DQ_CLUSTER + text
     if name == "copies_only":
         text = _swap(text, _DQ_READY, _DQ_READY + _DQ_LEAVE)
     if name == "no_pv":
@@ -245,20 +294,130 @@ def dq_source(text: str, name: str) -> str:
         text = _swap(text, "cluster_arrive();\n    cluster_wait();",
                      "__syncthreads();")
         text = _swap(text, "cluster.map_shared_rank(", "own_shared(")
+    return head + text
+
+
+I8_VARIANTS = ("as_built", "copies_only", "copies_and_barriers",
+               "phase1_only", "phase1_and_v", "no_phase2_groups", "no_exp",
+               "no_pv", "local_adds", "max_carveout")
+_I8_GROUP2 = "        if (rows > 0) {\n          int d[2][4];"
+_I8_PHASE2 = ("    // ---- 2: e, p8, the sums of e, p8 . V8 into the query's "
+              "finisher")
+_I8_CFG = ("  cudaLaunchConfig_t cfg = {};\n"
+           "  cfg.gridDim = dim3((unsigned)(B * H * n_rank));\n"
+           "  cfg.blockDim = dim3(I8_NT);")
+_I8_EXP = "ev[mt][e] = r < rows ? expf(__fsub_rn("
+_I8_CLUSTER = "__device__ __forceinline__ void cross_int8_cluster("
+_I8_READY = "    mbar_wait(bar_k, 0);\n\n    // ---- 1: scores"
+_I8_LEAVE = """    mbar_wait(bar_k, 0);
+    mbar_wait(bar_v, 0);
+    %s
+    if (rank == 0 && tid < CROSS_DH)
+      out[((size_t)b * T * H + h) * CROSS_DH + tid] =
+          __float2bfloat16_rn((float)(sK[tid] + sV[tid]));
+    return;
+
+    // ---- 1: scores"""
+_I8_PV = ("            mma_m16n8k32_s8(ctx[mt], a[0], a[1], a[2], a[3], "
+          "pw[c], pw[4 + c]);")
+_I8_ADD = "dsmem_map(smem_u32(cctx + (n / n_rank) * CROSS_DH), n % n_rank)"
+
+
+def i8_source(text: str, name: str) -> str:
+    """``cross_attention_multi.cu``'s text, the shared header written into
+    it, B7-i8 (``cross_int8_cluster``) cut into the named variant."""
+    from whisper_tpu_torch.ops import kernels
+
+    text = _swap(text, '#include "cross_attention.cuh"\n',
+                 (kernels.CSRC / "cross_attention.cuh").read_text())
+    head, text = text.split(_I8_CLUSTER, 1)
+    body, tail = text.split(_DQ_CLUSTER, 1)
+    if name == "copies_only":
+        body = _swap(body, _I8_READY, _I8_LEAVE % "cluster_wait();")
+    if name == "copies_and_barriers":
+        body = _swap(body, _I8_READY, _I8_LEAVE
+                     % "cluster_wait(); cluster_arrive(); cluster_wait(); "
+                       "cluster_arrive(); cluster_wait();")
+    if name == "no_pv":
+        body = _swap(body, _I8_PV,
+                     "            ctx[mt][0] += (int)(a[0] ^ a[3] ^ pw[c]);")
+    if name == "phase1_only":
+        body = _swap(body, _I8_PHASE2, "    return;\n" + _I8_PHASE2)
+    if name == "phase1_and_v":
+        body = _swap(body, _I8_PHASE2,
+                     "    mbar_wait(bar_v, 0);\n    return;\n" + _I8_PHASE2)
+    if name == "no_phase2_groups":
+        body = _swap(body, _I8_GROUP2, _I8_GROUP2.replace("rows > 0", "false"))
+    if name == "no_exp":
+        body = _swap(body, _I8_EXP, _I8_EXP.replace("expf(", "("))
+    if name == "max_carveout":
+        tail = _swap(tail, _I8_CFG,
+                     _CARVEOUT % "cross_multi_int8_kernel" + _I8_CFG)
+    if name == "local_adds":
+        body = _swap(body, _I8_ADD, _I8_ADD.replace("n % n_rank", "rank"))
+    return head + _I8_CLUSTER + body + _DQ_CLUSTER + tail
+
+
+B10C_VARIANTS = ("as_built", "fc1_only", "no_pdl", "copies_only",
+                 "fc1_only+no_ln", "fc1_only+no_mma")
+_B10C_FC1_LN = "  // LayerNorm in place while W1 lands:"
+_B10C_FC1_LEAVE = """  cp_async_wait<0>();
+  __syncthreads();
+  if (threadIdx.x < NC)
+    h[(size_t)row0 * F + c0 + threadIdx.x] = sW[threadIdx.x];
+  return;
+"""
+_B10C_FC2_READY = ("  cp_async_wait<0>();\n  __syncthreads();\n\n"
+                   "  const int kn = FQ / NW;")
+_B10C_FC2_LEAVE = """  cp_async_wait<0>();
+  __syncthreads();
+  if (rank == 0 && threadIdx.x < NC && row0 < B)
+    out[(size_t)row0 * D + c0 + threadIdx.x] = __float2bfloat16_rn(
+        __bfloat162float(sW[threadIdx.x]) + __bfloat162float(sH[threadIdx.x]));
+  return;
+
+  const int kn = FQ / NW;"""
+_B10C_LN = ("  {\n    const int r = threadIdx.x / 8, j = threadIdx.x % 8, "
+            "nw = D / 8;")
+_B10C_MMA = "  warp_tile(sR, RLD, sW, warp * kn, kn, d);"
+
+
+def b10c_source(text: str, name: str) -> str:
+    """``decoder_mlp.cu``'s text cut into the named variant (cuts joined by
+    "+" are applied together)."""
+    for cut in name.split("+"):
+        if cut == "fc1_only":
+            text = _swap(text, "  cudaLaunchConfig_t cfg = {};",
+                         "  return 0;\n  cudaLaunchConfig_t cfg = {};")
+        if cut == "no_pdl":
+            text = _swap(text, "  cfg.numAttrs = 2;", "  cfg.numAttrs = 1;")
+        if cut == "copies_only":
+            text = _swap(text, _B10C_FC1_LN, _B10C_FC1_LEAVE + _B10C_FC1_LN)
+            text = _swap(text, _B10C_FC2_READY, _B10C_FC2_LEAVE)
+        if cut == "no_ln":
+            text = _swap(text, _B10C_LN, "  if (false)" + _B10C_LN[1:])
+        if cut == "no_mma":
+            text = _swap(text, _B10C_MMA, """  for (auto& t : d)
+    for (float& v : t)
+      v = __bfloat162float(sR[threadIdx.x]) +
+          __bfloat162float(sW[threadIdx.x]);""")
     return text
 
 
-def _build(source: str, cut, names) -> dict:
-    """Each named variant of ``csrc/<source>`` as a loaded library."""
+def _build(source: str, cut, names, stem: str = "") -> dict:
+    """Each named variant of ``csrc/<source>`` as a loaded library, its
+    files named ``<stem>_<variant>`` (by default the source's stem: two
+    builds of one source need two stems, or the second loads the first's
+    library of the same path)."""
     from whisper_tpu_torch.ops import kernels
 
     out_dir = kernels.BUILD_ROOT.parent / "kernel_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     text = (kernels.CSRC / source).read_text()
-    stem = source.split(".")[0]
+    stem = stem or source.split(".")[0]
     procs = []
     for name in names:
-        src = out_dir / f"{stem}_{name}.cu"
+        src = out_dir / f"{stem}_{name.replace('+', '_and_')}.cu"
         src.write_text(cut(text, name))
         procs.append(subprocess.Popen(
             [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC),
@@ -268,8 +427,9 @@ def _build(source: str, cut, names) -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {stem} variant {name}:\n{log}")
-    return {name: ctypes.CDLL(str(out_dir / f"{stem}_{name}.so"))
-            for name in names}
+    return {name: ctypes.CDLL(str(
+        out_dir / f"{stem}_{name.replace('+', '_and_')}.so"))
+        for name in names}
 
 
 def _median_ms(call, runs: int = 5, calls: int = 20) -> float:
@@ -436,6 +596,117 @@ def b6_b7_dequant(card: str) -> list:
     return out
 
 
+def b7_int8(card: str) -> dict:
+    """B7-i8 as built and cut short (``I8_VARIANTS``), µs a call at bucket
+    16 with five queries a row, over a six-layer cache as for B4."""
+    import torch
+
+    libs = _build("cross_attention_multi.cu", i8_source, I8_VARIANTS,
+                  stem="cross_attention_multi_int8")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    n_l, b, h, s, n_q = 6, 16, 8, 1500, 5
+    k8, v8 = (torch.randint(-127, 128, (n_l, b, h, s, 64), generator=g,
+                            device="cuda", dtype=torch.int8) for _ in "kv")
+    ks, vs = (torch.rand(n_l, b, h, generator=g, device="cuda") * 0.02 + 1e-3
+              for _ in "kv")
+    q = (torch.randn(b, n_q, h, 64, generator=g, device="cuda")
+         * 0.125).to(torch.bfloat16)
+    res = torch.empty_like(q)
+    ptr = ctypes.c_void_p
+    stream = torch.cuda.current_stream().cuda_stream
+    for lib in libs.values():
+        lib.wt_cross_attend_multi.argtypes = ([ptr] * 6 + [ctypes.c_int] * 6
+                                              + [ptr])
+
+    def run(lib, i):
+        rc = lib.wt_cross_attend_multi(
+            q.data_ptr(), ks.data_ptr(), vs.data_ptr(), k8.data_ptr(),
+            v8.data_ptr(), res.data_ptr(), b, n_q, h, s, i % n_l, s, stream)
+        if rc != 0:
+            raise RuntimeError(f"launch failed with CUDA error {rc}")
+
+    us = {name: [] for name in I8_VARIANTS}
+    for names in (I8_VARIANTS, tuple(reversed(I8_VARIANTS))):
+        for name in names:
+            us[name].append(1e3 * _median_ms(
+                lambda i: run(libs[name], i), calls=600))
+    # as built at other batches and query counts (the first rows of the
+    # same cache): how its time scales with the blocks and the queries
+    by_shape = {}
+    for b_, t_ in ((1, 5), (4, 5), (8, 5), (16, 1), (16, 8), (16, 9)):
+        q_ = (torch.randn(b_, t_, h, 64, generator=g, device="cuda")
+              * 0.125).to(torch.bfloat16)
+        r_ = torch.empty_like(q_)
+
+        def run_shape(i, b_=b_, t_=t_, q_=q_, r_=r_):
+            rc = libs["as_built"].wt_cross_attend_multi(
+                q_.data_ptr(), ks.data_ptr(), vs.data_ptr(), k8.data_ptr(),
+                v8.data_ptr(), r_.data_ptr(), b_, t_, h, s, i % n_l, s,
+                stream)
+            if rc != 0:
+                raise RuntimeError(f"launch failed with CUDA error {rc}")
+
+        by_shape[f"B={b_},T={t_}"] = 1e3 * _median_ms(run_shape, calls=600)
+    return {"kernel": "B7-i8", "card": card, "cache": [n_l, b, h, s, 64],
+            "queries": list(q.shape), "us_per_call": us,
+            "as_built_us_by_shape": by_shape}
+
+
+def b10c(card: str) -> dict:
+    """B10c as built and cut short (``B10C_VARIANTS``), µs a call at bucket
+    16 at whisper-base (d = 512) and whisper-large (d = 1,280) widths, the
+    weights of six layers in rotation as the decode step takes them."""
+    import torch
+
+    libs = _build("decoder_mlp.cu", b10c_source, B10C_VARIANTS)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    bf, ptr = torch.bfloat16, ctypes.c_void_p
+    stream = torch.cuda.current_stream().cuda_stream
+    for lib in libs.values():
+        lib.wt_decoder_mlp.argtypes = [ptr] * 8 + [ctypes.c_int] * 3 + [ptr]
+    us, graph_us = {}, {}
+    n_l, b = 6, 16
+    for d in (512, 1280):
+        f = 4 * d
+        x = torch.randn(b, d, generator=g, device="cuda").to(bf)
+        ln = torch.stack([torch.ones(d), torch.zeros(d)]).to(bf).cuda()
+        w1, w2 = ((torch.randn(n_l, *shape, generator=g, device="cuda")
+                   * 0.04).to(bf) for shape in ((d, f), (f, d)))
+        b1 = torch.full((1, f), 0.1, dtype=bf, device="cuda")
+        b2 = torch.full((1, d), 0.1, dtype=bf, device="cuda")
+        h_ = torch.empty(b, f, dtype=bf, device="cuda")
+        out = torch.empty_like(x)
+
+        def run(lib, i, on=stream):
+            rc = lib.wt_decoder_mlp(
+                x.data_ptr(), ln.data_ptr(), w1[i % n_l].data_ptr(),
+                b1.data_ptr(), w2[i % n_l].data_ptr(), b2.data_ptr(),
+                h_.data_ptr(), out.data_ptr(), b, d, f, on)
+            if rc != 0:
+                raise RuntimeError(f"launch failed with CUDA error {rc}")
+
+        def graph_of(lib, calls=600):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                capturing = torch.cuda.current_stream().cuda_stream
+                for i in range(calls):
+                    run(lib, i, capturing)
+            return graph
+
+        at = us.setdefault(f"d_{d}", {v: [] for v in B10C_VARIANTS})
+        graphs = {v: graph_of(libs[v]) for v in B10C_VARIANTS}
+        in_graph = graph_us.setdefault(f"d_{d}",
+                                       {v: [] for v in B10C_VARIANTS})
+        for names in (B10C_VARIANTS, tuple(reversed(B10C_VARIANTS))):
+            for name in names:
+                at[name].append(1e3 * _median_ms(
+                    lambda i: run(libs[name], i), calls=600))
+                in_graph[name].append(1e3 / 600 * _median_ms(
+                    lambda i: graphs[name].replay(), calls=1))
+    return {"kernel": "B10c", "card": card, "rows": b, "layers": n_l,
+            "us_per_call": us, "us_per_call_in_a_cuda_graph": graph_us}
+
+
 def b2(card: str) -> dict:
     import torch
 
@@ -535,6 +806,8 @@ def main() -> None:
     print(json.dumps(b4(card)), flush=True)
     for line in b6_b7_dequant(card):
         print(json.dumps(line), flush=True)
+    print(json.dumps(b7_int8(card)), flush=True)
+    print(json.dumps(b10c(card)), flush=True)
     print(json.dumps(b2(card)), flush=True)
     print(json.dumps(b3(card)), flush=True)
 

@@ -50,7 +50,8 @@ from whisper_tpu_torch.ops.common import SQRT_2_OVER_PI, check_operand, route
 
 LN_EPS = 1e-5
 ROW_TILE = 16   # the kernel pads the batch to tiles of 16 rows
-F_MULTIPLE = 128  # the kernel splits f over 8 warps in steps of 16
+D_MULTIPLE = 64   # B10c splits d over 4 warps in steps of 16
+F_MULTIPLE = 256  # B10c splits f over a cluster of 4 blocks of 4 warps
 
 NEG_INF = -1e30   # the fused blocks' mask value (not finfo.min)
 CROSS_BLOCK = 64  # keys per online-softmax block of cross_attn_block
@@ -90,14 +91,18 @@ def mlp_block(x: torch.Tensor, ln: torch.Tensor, w1: torch.Tensor,
     global launches
     b, d = x.shape
     f = w1.shape[1]
-    if d % 16 or d > 1280 or f % F_MULTIPLE:
-        raise ValueError(f"mlp_block kernel: d={d} must be a multiple of 16 "
-                         f"up to 1280 and f={f} a multiple of {F_MULTIPLE}")
+    if d % D_MULTIPLE or d > 1280 or f % F_MULTIPLE or f > 5120:
+        raise ValueError(f"mlp_block kernel: d={d} must be a multiple of "
+                         f"{D_MULTIPLE} up to 1280 and f={f} a multiple of "
+                         f"{F_MULTIPLE} up to 5120")
     bf = torch.bfloat16
     for name, a, shape in (("x", x, (b, d)), ("ln", ln, (2, d)),
                            ("w1", w1, (d, f)), ("b1", b1, (1, f)),
                            ("w2", w2, (f, d)), ("b2", b2, (1, d))):
         check_operand(name, a, bf, shape, x.device)
+    if any(a.data_ptr() % 16 for a in (x, ln, w1, w2)):
+        raise ValueError("mlp_block kernel: x, ln, w1 and w2 must start on a "
+                         "16-byte boundary (it is copied in 16-byte words)")
     rows = -(-b // ROW_TILE) * ROW_TILE
     h = torch.empty((rows, f), dtype=bf, device=x.device)  # stays in L2
     out = torch.empty_like(x)

@@ -12,8 +12,10 @@ each, on one JSON line: the wall time of the traced run (the profiler slows
 the host, so it is no e2e figure), the device operations it launched
 (kernels, copies and memsets) in all and per decode step, the device's busy
 time and share, the mean in-situ time of each hand-written kernel (B2 as
-its three kernels, whose means add up to one call), and the five largest
-other device operations.  It needs a CUDA card and raises without one.
+its three kernels, whose means add up to one call), the mean span of a
+call of the wrappers that launch several kernels on one another's heels
+(B10c's FC1 and FC2, which overlap; B10a, B10b), and the five largest other
+device operations.  It needs a CUDA card and raises without one.
 """
 
 from __future__ import annotations
@@ -31,7 +33,18 @@ KERNELS = {"attn_kernel": "B1", "out_mlp_kernel": "B9b",
            "cross_multi_int8_kernel": "B7-i8",
            "cross_multi_dequant_kernel": "B7-dq",
            "log_mel_kernel": "B5", "ln_qkv_kernel": "B9a",
-           "fc1_kernel": "B10c (FC1 phase)", "fc2_kernel": "B10c (FC2 phase)"}
+           "fc1_kernel": "B10c (FC1)", "fc2_kernel": "B10c (FC2)",
+           "ln_gemm_kernel": "B10a/B10b (LN and product)",
+           "self_attn_kernel": "B10a (attention)",
+           "cross_attn_kernel": "B10b (attention)",
+           "out_proj_kernel": "B10a/B10b (O product)"}
+# A wrapper that launches several kernels, as they follow each other on the
+# stream: a call's in-situ time is the span from its first kernel's start to
+# its last one's end (B10c's FC2 starts before FC1 ends, so the two kernels'
+# own times overlap and do not add up to a call).
+CALLS = {"B10a": ("ln_gemm_kernel", "self_attn_kernel", "out_proj_kernel"),
+         "B10b": ("ln_gemm_kernel", "cross_attn_kernel", "out_proj_kernel"),
+         "B10c": ("fc1_kernel", "fc2_kernel")}
 CONFIGS = (("x5", "x5", {}), ("x6", "x6", {}), ("x7", "x7", {}),
            ("x4", "x4", {}),
            ("x5+fused_encoder_block+fused_decoder_step", "x5",
@@ -51,31 +64,15 @@ def _kernel_of(name: str):
     return None
 
 
-def profile_config(label: str, variant: str, overrides: dict, params,
-                   audio, draft=None) -> dict:
-    """One traced run of the workload; ``draft``: (params, dims) of a draft
-    model, and then the run decodes speculatively with draft_k 4."""
-    import torch
+def _is(fn: str, name: str) -> bool:
+    return any(fn + end in name for end in "<(")
+
+
+def summarize(prof) -> dict:
+    """Device operations, busy time and the hand-written kernels' in-situ
+    times of a torch.profiler trace (see the module's docstring)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    from whisper_tpu_torch.headline import make_session, run_once
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", UserWarning)  # x6's precedence note
-        session = make_session("cuda", params, variant, **overrides)
-    decode = {}
-    if draft is not None:
-        session.set_draft_model(*draft, share_encoder=True)
-        decode = dict(speculative=True, draft_k=4)
-    run_once(session, audio, **decode)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run_once(session, audio, **decode)
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     ops, busy_us, mine, other = 0, 0.0, {}, []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -95,16 +92,74 @@ def profile_config(label: str, variant: str, overrides: dict, params,
         raise RuntimeError("the profiler recorded no device time")
     other.sort(reverse=True)
     return {
-        "config": label, "traced_wall_s": wall, "device_ops": ops,
-        "device_ops_per_decode_step_upper": ops / DECODE_STEPS,
-        "device_busy_ms": busy_us / 1e3,
-        "device_busy_share_of_traced_wall": busy_us / 1e6 / wall,
+        "device_ops": ops, "device_busy_ms": busy_us / 1e3,
         "kernels": {k: {"launches": n, "mean_ms": total / n / 1e3,
                         "total_ms": total / 1e3}
                     for k, (n, total) in sorted(mine.items())},
+        "calls": call_spans(prof),
         "largest_other": [{"name": name, "count": n, "total_ms": us / 1e3}
                           for us, n, name in other[:5]],
     }
+
+
+def call_spans(prof) -> dict:
+    """Mean in-situ time of each call of the wrappers in ``CALLS`` found in
+    the trace, each call the span of its kernels (see ``CALLS``)."""
+    from torch.autograd import DeviceType
+
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    spans, i = {}, 0
+    while i < len(events):
+        for label, seq in CALLS.items():
+            group = events[i:i + len(seq)]
+            if len(group) == len(seq) and all(
+                    _is(fn, e.name) for fn, e in zip(seq, group)):
+                n, total = spans.get(label, (0, 0.0))
+                spans[label] = (n + 1, total + group[-1].time_range.end
+                                - group[0].time_range.start)
+                i += len(seq)
+                break
+        else:
+            i += 1
+    return {k: {"calls": n, "mean_ms": total / n / 1e3}
+            for k, (n, total) in sorted(spans.items())}
+
+
+def profile_config(label: str, variant: str, overrides: dict, params,
+                   audio, draft=None) -> dict:
+    """One traced run of the workload; ``draft``: (params, dims) of a draft
+    model, and then the run decodes speculatively with draft_k 4."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_tpu_torch.headline import make_session, run_once
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # x6's precedence note
+        session = make_session("cuda", params, variant, **overrides)
+    decode = {}
+    if draft is not None:
+        session.set_draft_model(*draft, share_encoder=True)
+        decode = dict(speculative=True, draft_k=4)
+    run_once(session, audio, **decode)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_once(session, audio, **decode)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = summarize(prof)
+    busy_ms = out["device_busy_ms"]
+    return {"config": label, "traced_wall_s": wall,
+            "device_ops": out["device_ops"],
+            "device_ops_per_decode_step_upper":
+                out["device_ops"] / DECODE_STEPS,
+            "device_busy_ms": busy_ms,
+            "device_busy_share_of_traced_wall": busy_ms / 1e3 / wall,
+            **{k: out[k] for k in ("kernels", "calls", "largest_other")}}
 
 
 def main() -> None:
