@@ -9,8 +9,11 @@ What it does, in order (any failure raises and exits non-zero):
    (sm_90a; one nvcc per source, all started together) and prints the
    build time, each kernel's register use and, from the library's SASS,
    that B1 and B2's products hold warpgroup products and tensor-map loads,
-   B3, B4, B6 and both B7 kernels bulk copies, B7-i8 int8 mma.sync and
-   B10c's two kernels cp.async, ldmatrix and bf16 mma.sync.
+   B3, B4, B6 and both B7 kernels bulk copies, B7-i8 int8 mma.sync,
+   B10c's two kernels cp.async, ldmatrix and bf16 mma.sync, and of B10a's
+   and B10b's kernels the LN-and-product kernel cp.async and fp64 mma.sync
+   (DMMA), B10a's attention cp.async, B10b's bulk copies and the O product
+   cp.async, ldmatrix and bf16 mma.sync.
 3. Runs each kernel (B1-B10c, sixteen rows) against its plain PyTorch
    version on the card at the shapes its path gives it (whisper-base, batch
    bucket 16: B1-B4 at x5, B6 at x4, B8 at x7, B9a/B9b with the fused
@@ -35,8 +38,10 @@ What it does, in order (any failure raises and exits non-zero):
    and 17 and S = 96, 193, 1500, 1504 and 2000, and timed at T = 5
    beside five calls of B4 or B6; B10c beside the bf16 composition of five
    PyTorch calls that computes it; what B10a writes into the cache bitwise
-   against the plain version at pos 0, 70 and 131; B10b at T = 1500, 96
-   and 100.  B2 (LayerNorm
+   against the plain version at pos 0, 70 and 131, with ``pos`` as an int
+   and as a device tensor; B10b at T = 1500, 96, 100 and 1731 (a short last
+   key block); two calls of each bitwise equal and at most three device
+   operations a call.  B2 (LayerNorm
    and two tiled wgmma products) is also held at 1, 1,499 and 24,000 rows at
    d = 512 and at 1,500 rows at d = 1,024 and 1,280, must put exactly its
    three kernels on the card a call, and is printed beside the bf16
@@ -77,10 +82,12 @@ What it does, in order (any failure raises and exits non-zero):
 8. The fully fused decode step (``decoder_step_fused``: B10a, B10b, B10c per
    layer) for 127 steps from a bf16 prefill at bucket 16: the first step's
    logits within 5e-2 of ``decoder_step`` on the same cache, finite tokens
-   equal across two runs, 127 x 6 launches of B10a and of B10b, and the time
-   per step beside the x5 kernel step's and the hybrid step's; then one
-   more run under torch.profiler: B10a's, B10b's and B10c's in-situ time
-   a call.
+   equal across two runs, 127 x 6 launches of B10a and of B10b; the same
+   127 steps replayed from one captured CUDA graph of a step (token and
+   ``pos`` on the card), whose tokens must equal the eager loop's; the time
+   per step of both beside the x5 kernel step's and the hybrid step's; then
+   the 127 eager steps once more under torch.profiler: B10a's, B10b's and
+   B10c's in-situ time a call, by kernel, and the device time a step.
 9. Drives the benchmark CLI (``whisper_tpu_torch.bench.cli.main``, in
    process) over four synthetic WAV files (4 s; 29.5 s at 44.1 kHz stereo;
    76 s, just under the one-shot limit; 150 s, streamed) at whisper-base
@@ -162,8 +169,11 @@ def check_sass(lib_path) -> None:
     attention kernel and the encoder MLP's products must hold warpgroup
     products (HGMMA) and tensor-map loads (UTMALDG), the self- and the
     cross-attention steps and both verify passes bulk copies (UBLKCP), the
-    int8 verify pass int8 mma.sync (IMMA), and the decoder MLP's two kernels
-    cp.async copies (LDGSTS), ldmatrix (LDSM) and bf16 mma.sync (HMMA)."""
+    int8 verify pass int8 mma.sync (IMMA), the decoder MLP's two kernels
+    cp.async copies (LDGSTS), ldmatrix (LDSM) and bf16 mma.sync (HMMA), and
+    of the fused attention blocks the LN-and-product kernel cp.async copies
+    and fp64 mma.sync (DMMA), B10a's attention cp.async copies, B10b's bulk
+    copies and the O product cp.async, ldmatrix and bf16 mma.sync."""
     import re
     import shutil
     import subprocess
@@ -183,6 +193,10 @@ def check_sass(lib_path) -> None:
             "20cross_dequant_kernelE": ("UBLKCP",),
             "26cross_multi_dequant_kernelE": ("UBLKCP",),
             "23cross_multi_int8_kernelE": ("UBLKCP", "IMMA"),
+            "14ln_gemm_kernelE": ("LDGSTS", "DMMA"),
+            "16self_attn_kernelE": ("LDGSTS",),
+            "17cross_attn_kernelE": ("UBLKCP",),
+            "15out_proj_kernelE": ("LDGSTS", "LDSM", "HMMA"),
             "10fc1_kernelE": ("LDGSTS", "LDSM", "HMMA"),
             "10fc2_kernelE": ("LDGSTS", "LDSM", "HMMA")}
     seen = set()
@@ -570,35 +584,64 @@ def check_kernels(card: str) -> list:
               f"{n_q} x {label} = {n_q * one_ms:.4f} ms on {card}",
               flush=True)
 
-    # B10a at the first and the last cache row, B10b at a short encoder
-    # and at one whose length is no multiple of its 64-key blocks.
-    for p_ in (0, s_max - 1):
-        a, b_ = [x.clone() for x in (tk, tv)], [x.clone() for x in (tk, tv)]
-        got = decoder_kernels.self_attn_block(*self_args, *a, p_, h)[0]
+    # B10a at the first, the path's and the last cache row, with `pos` as an
+    # int and as a device tensor; B10b at the path's encoder, a short one,
+    # one whose length is no multiple of its 64-key blocks and one whose
+    # split leaves a short last key block (1,731: three keys); two calls of
+    # each bitwise equal, and each call at most three device operations.
+    for p_, form in itertools.product((0, pos, s_max - 1), ("int", "tensor")):
+        a, b_, c_ = ([x.clone() for x in (tk, tv)] for _ in range(3))
+        p_arg = (torch.tensor([p_], dtype=torch.int32, device=dev)
+                 if form == "tensor" else p_)
+        got = decoder_kernels.self_attn_block(*self_args, *a, p_arg, h)[0]
         want = decoder_kernels.self_attn_block_plain(*self_args, *b_, p_,
                                                      h)[0]
+        again = decoder_kernels.self_attn_block(*self_args, *c_, p_arg, h)[0]
         steps = _bf16_steps(got, want)
         same = all(torch.equal(m_, t_) for m_, t_ in zip(a, b_))
         kept = all(torch.equal(m_[p_ + 1:], o_[p_ + 1:])
                    and torch.equal(m_[:p_], o_[:p_])
                    for m_, o_ in zip(a, (tk, tv)))
-        if steps > 2.0 or not same or not kept:
-            raise AssertionError(f"B10a at pos {p_}: {steps:.3g} bf16 steps, "
-                                 f"caches bitwise {same}, other rows "
-                                 f"untouched {kept}")
-    for t_enc in (96, 100):
-        xk_s = xk[:, :, :t_enc].contiguous()
-        xv_s = xv[:, :, :t_enc].contiguous()
+        repeat = torch.equal(got, again) and all(
+            torch.equal(m_, t_) for m_, t_ in zip(a, c_))
+        if steps > 2.0 or not (same and kept and repeat):
+            raise AssertionError(f"B10a at pos {p_} ({form}): {steps:.3g} "
+                                 f"bf16 steps, caches bitwise {same}, other "
+                                 f"rows untouched {kept}, two calls bitwise "
+                                 f"{repeat}")
+    xk_long, xv_long = randn(b, h, 1731, dh), randn(b, h, 1731, dh)
+    for t_enc in (t, 96, 100, 1731):
+        src_k, src_v = (xk, xv) if t_enc <= t else (xk_long, xv_long)
+        xk_s = src_k[:, :, :t_enc].contiguous()
+        xv_s = src_v[:, :, :t_enc].contiguous()
+        got = decoder_kernels.cross_attn_block(*cross_args, xk_s, xv_s, h)
         steps = _bf16_steps(
-            decoder_kernels.cross_attn_block(*cross_args, xk_s, xv_s, h),
-            decoder_kernels.cross_attn_block_plain(*cross_args, xk_s, xv_s,
-                                                   h))
-        if steps > 2.0:
+            got, decoder_kernels.cross_attn_block_plain(*cross_args, xk_s,
+                                                        xv_s, h))
+        repeat = torch.equal(got, decoder_kernels.cross_attn_block(
+            *cross_args, xk_s, xv_s, h))
+        if steps > 2.0 or not repeat:
             raise AssertionError(f"B10b at T = {t_enc}: {steps:.3g} bf16 "
-                                 "steps from the plain version")
-    print(f"[kernel] B10a at pos 0, {pos}, {s_max - 1}: caches bitwise the "
-          "plain version's, other rows untouched; B10b at T = 1500, 96, 100 "
-          "within 2 bf16 steps", flush=True)
+                                 "steps from the plain version, two calls "
+                                 f"bitwise {repeat}")
+    pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
+    for name, fn in (
+            ("decoder_self_block", lambda: decoder_kernels.self_attn_block(
+                *self_args, tk, tv, pos_t, h)),
+            ("decoder_cross_block", lambda: decoder_kernels.cross_attn_block(
+                *cross_args, xk, xv, h))):
+        ops = _device_ops_per_call(fn)
+        if ops > 3:
+            raise AssertionError(f"{name}: {ops} device operations a call, "
+                                 "expected its three kernels")
+        by_name[name]["device_ops_per_call"] = ops
+    print(f"[kernel] B10a at pos 0, {pos}, {s_max - 1} (int and device "
+          "tensor): caches bitwise the plain version's, other rows "
+          f"untouched; B10b at T = {t}, 96, 100, 1731 within 2 bf16 steps; "
+          "two calls of each bitwise equal; device operations a call: B10a "
+          f"{by_name['decoder_self_block']['device_ops_per_call']:g}, B10b "
+          f"{by_name['decoder_cross_block']['device_ops_per_call']:g}",
+          flush=True)
     return out
 
 
@@ -1197,9 +1240,10 @@ def check_speculative(card: str, results, params, dims, audio, x5) -> dict:
 def check_fused_step(card: str, results, params, dims, audio) -> dict:
     """``decoder_step_fused`` (B10a, B10b, B10c per layer) driven greedily
     for 127 steps at whisper-base from a bf16 prefill of the 301.574 s
-    file's bucket of 16; its time per step beside the x5 kernel step's and
-    the hybrid step's over the same 127 steps.  Returns the launch counts
-    of one fused run."""
+    file's bucket of 16, eagerly and replayed from one captured CUDA graph
+    of a step (token and ``pos`` on the card, advanced inside the graph);
+    its time per step beside the x5 kernel step's and the hybrid step's
+    over the same 127 steps.  Returns the launch counts of one eager run."""
     import torch
 
     from whisper_tpu_torch.headline import make_session
@@ -1230,7 +1274,7 @@ def check_fused_step(card: str, results, params, dims, audio) -> dict:
         return (torch.stack(toks, 1),
                 (time.perf_counter() - t0) * 1e3 / (n_new - 1))
 
-    def fused_run():
+    def fused_setup():
         first, cache = prefill(False)
         k_tm = dk.cache_to_time_major(cache.self_k)
         v_tm = dk.cache_to_time_major(cache.self_v)
@@ -1239,6 +1283,10 @@ def check_fused_step(card: str, results, params, dims, audio) -> dict:
             return dk.decoder_step_fused(p, sw, dims, tok, pos, k_tm, v_tm,
                                          cache.cross_k, cache.cross_v)[0]
 
+        return first, cache, k_tm, v_tm, step
+
+    def fused_run():
+        first, cache, k_tm, v_tm, step = fused_setup()
         # the first step against the port's plain step on the same cache
         plain_cache = cache._replace(self_k=cache.self_k.clone(),
                                      self_v=cache.self_v.clone())
@@ -1251,15 +1299,58 @@ def check_fused_step(card: str, results, params, dims, audio) -> dict:
         toks, ms = loop(step, first)
         return toks, ms, err, _counts(results)
 
+    def graph_run():
+        """The 127 steps replayed from one graph of a step: (tokens, ms per
+        step on the host clock, one sync at the end)."""
+        first, cache, k_tm, v_tm, _ = fused_setup()
+        saved = (k_tm.clone(), v_tm.clone())
+        tok = first.clone()
+        pos_t = torch.tensor([n_p], dtype=torch.int32, device="cuda")
+        toks = torch.zeros((first.shape[0], n_new), dtype=first.dtype,
+                           device="cuda")
+
+        def step():
+            logits = dk.decoder_step_fused(p, sw, dims, tok, pos_t, k_tm,
+                                           v_tm, cache.cross_k,
+                                           cache.cross_v)[0]
+            tok.copy_(logits.argmax(-1))
+            toks.index_copy_(1, (pos_t - (n_p - 1)).long(), tok[:, None])
+            pos_t.add_(1)
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()                   # warm before the capture
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step()
+        for buf, s_ in zip((k_tm, v_tm), saved):
+            buf.copy_(s_)
+        tok.copy_(first)
+        pos_t.fill_(n_p)
+        toks[:, 0] = first
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_new - 1):
+            graph.replay()
+        torch.cuda.synchronize()
+        return toks, (time.perf_counter() - t0) * 1e3 / (n_new - 1)
+
     fused_run()                                   # warm-up
     toks, ms, err, c = fused_run()
     toks2, ms2, _, c2 = fused_run()
-    traced = _traced(fused_run)
-    print(f"[fused step] in situ over one traced run (a prefill, a checked "
-          f"step, 127 steps), µs (launches): "
-          f"{_in_situ(traced)}; {traced['device_ops']} device operations, "
-          f"busy {traced['device_busy_ms']:.2f} ms on {card}", flush=True)
+    graph_run()                                   # warm-up
+    g_toks, g_ms = graph_run()
+    g_toks2, g_ms2 = graph_run()
+    first, _, _, _, step = fused_setup()
+    traced = _traced(lambda: loop(step, first))
     n_steps = (n_new - 1) * dims.decoder_layers
+    step_ms = traced["device_busy_ms"] / (n_new - 1)
+    print(f"[fused step] in situ over 127 traced eager steps, µs "
+          f"(launches): {_in_situ(traced)}; {traced['device_ops']} device "
+          f"operations, busy {traced['device_busy_ms']:.2f} ms = "
+          f"{step_ms:.4f} ms of device time a step on {card}", flush=True)
     if err > 5e-2:
         raise AssertionError(f"fused step: first-step logits differ from "
                              f"decoder_step's by {err} (tolerance 5e-2)")
@@ -1267,6 +1358,9 @@ def check_fused_step(card: str, results, params, dims, audio) -> dict:
             or not torch.equal(toks, toks2):
         raise AssertionError("fused step: tokens outside the vocabulary or "
                              "not repeatable")
+    if not (torch.equal(g_toks, toks) and torch.equal(g_toks2, toks)):
+        raise AssertionError("fused step: the tokens replayed from a CUDA "
+                             "graph differ from the eager loop's")
     if not (c["decoder_self_block"] == c["decoder_cross_block"]
             == c["decoder_mlp_block"] == n_steps and c == c2):
         raise AssertionError(f"fused step: launches {c}, expected {n_steps} "
@@ -1293,11 +1387,14 @@ def check_fused_step(card: str, results, params, dims, audio) -> dict:
     loop(hybrid_step, first16)
     _, hybrid_ms = loop(hybrid_step, first16)
     print(f"[fused step] whisper-base, bucket {enc.shape[0]}, 127 steps from "
-          f"a bf16 prefill, on {card}: {ms:.4f} and {ms2:.4f} ms a step "
-          f"(host clock, one sync at the end) against the x5 kernel step "
-          f"{x5_ms:.4f} ms and the hybrid step {hybrid_ms:.4f} ms; first-step"
-          f" logits within {err:.3g} of decoder_step's; tokens equal across "
-          f"two runs; launches {c}", flush=True)
+          f"a bf16 prefill, on {card}: eager {ms:.4f} and {ms2:.4f} ms a "
+          f"step (host clock, one sync at the end), replayed from one CUDA "
+          f"graph of a step {g_ms:.4f} and {g_ms2:.4f} ms a step (tokens "
+          f"equal to the eager loop's), against the x5 kernel step "
+          f"{x5_ms:.4f} ms and the hybrid step {hybrid_ms:.4f} ms; device "
+          f"time {step_ms:.4f} ms a step; first-step logits within "
+          f"{err:.3g} of decoder_step's; tokens equal across two runs; "
+          f"launches {c}", flush=True)
     return c
 
 

@@ -521,20 +521,31 @@ def _block_weights(gen, d, n):
             _randn(gen, d, d, scale=0.04), _randn(gen, 1, d, scale=0.1))
 
 
-@pytest.mark.parametrize("b,d,s,pos", [(16, 512, 132, 70), (1, 512, 132, 0),
-                                       (5, 384, 40, 39), (33, 1280, 448, 300),
-                                       (16, 512, 137, 136)])
+def _pos(pos, form):
+    return (torch.tensor([pos], dtype=torch.int32, device="cuda")
+            if form == "tensor" else pos)
+
+
+@pytest.mark.parametrize("pos_form", ["int", "tensor"])
+@pytest.mark.parametrize("b,d,s,pos", [
+    (16, 512, 132, 70), (1, 512, 132, 0), (5, 384, 40, 39),
+    (33, 1280, 448, 300), (16, 512, 137, 136), (17, 768, 132, 131),
+    (5, 1024, 64, 10), (1, 1280, 448, 447), (33, 384, 132, 1)])
 def test_b10a_kernel_matches_plain_and_writes_the_cache_bitwise(gen, b, d, s,
-                                                                pos):
+                                                                pos,
+                                                                pos_form):
     """The output within 2 bf16 steps; both cache buffers bit for bit the
-    plain version's (rows > pos and < pos untouched, row pos written)."""
+    plain version's (rows > pos and < pos untouched, row pos written), with
+    ``pos`` as an int and as a device tensor; two calls bitwise equal."""
     h = d // 64
     x = _randn(gen, b, d)
     w = _block_weights(gen, d, 3 * d)
     ck, cv = _randn(gen, s, b, d), _randn(gen, s, b, d)
     mine, theirs = [ck.clone(), cv.clone()], [ck.clone(), cv.clone()]
+    again = [ck.clone(), cv.clone()]
     before = decoder_kernels.self_block_launches
-    got, gk, gv = decoder_kernels.self_attn_block(x, *w, *mine, pos, h)
+    got, gk, gv = decoder_kernels.self_attn_block(x, *w, *mine,
+                                                  _pos(pos, pos_form), h)
     assert decoder_kernels.self_block_launches == before + 1
     assert gk is mine[0] and gv is mine[1]
     want, _, _ = decoder_kernels.self_attn_block_plain(x, *w, *theirs, pos, h)
@@ -544,14 +555,39 @@ def test_b10a_kernel_matches_plain_and_writes_the_cache_bitwise(gen, b, d, s,
         assert torch.equal(a[:pos], orig[:pos])
         assert torch.equal(a[pos + 1:], orig[pos + 1:])
         assert not torch.equal(a[pos], orig[pos])
+    second, _, _ = decoder_kernels.self_attn_block(x, *w, *again,
+                                                   _pos(pos, pos_form), h)
+    assert torch.equal(got, second)
+    assert all(torch.equal(a, b_) for a, b_ in zip(mine, again))
 
 
-@pytest.mark.parametrize("b,d,t", [(16, 512, 1500), (1, 512, 96),
-                                   (3, 384, 100), (20, 768, 1), (2, 1024, 63),
-                                   (4, 512, 513)])
+@pytest.mark.parametrize("pos", [-1, 132, 1000])
+def test_b10a_pos_outside_the_cache_writes_nothing_and_gives_nan(gen, pos):
+    """A device ``pos`` outside [0, S) (the wrapper cannot see it) writes no
+    cache row and makes every output NaN; an int there raises."""
+    b, d, s = 16, 512, 132
+    x = _randn(gen, b, d)
+    w = _block_weights(gen, d, 3 * d)
+    ck, cv = _randn(gen, s, b, d), _randn(gen, s, b, d)
+    mine = [ck.clone(), cv.clone()]
+    got, _, _ = decoder_kernels.self_attn_block(x, *w, *mine,
+                                                _pos(pos, "tensor"), 8)
+    torch.cuda.synchronize()
+    assert torch.isnan(got.float()).all()
+    assert torch.equal(mine[0], ck) and torch.equal(mine[1], cv)
+    with pytest.raises(ValueError, match="outside the cache"):
+        decoder_kernels.self_attn_block(x, *w, *mine, pos, 8)
+
+
+@pytest.mark.parametrize("b,d,t", [
+    (16, 512, 1500), (1, 512, 96), (3, 384, 100), (20, 768, 1),
+    (2, 1024, 63), (4, 512, 513), (5, 1280, 1731), (17, 512, 1731),
+    (33, 384, 1500), (1, 768, 513), (16, 1024, 100), (5, 512, 1),
+    (1, 1280, 63)])
 def test_b10b_kernel_matches_plain(gen, b, d, t):
-    """T a multiple of the 64-key block, not a multiple, one key, and fewer
-    blocks than the kernel has warps."""
+    """T a multiple of the 64-key block, not a multiple, one key, fewer key
+    blocks than a cluster has blocks (T = 63, 100), a split that leaves a
+    short last key block (1,731: three keys); two calls bitwise equal."""
     h = d // 64
     x = _randn(gen, b, d)
     w = _block_weights(gen, d, d)
@@ -561,6 +597,56 @@ def test_b10b_kernel_matches_plain(gen, b, d, t):
     assert decoder_kernels.cross_block_launches == before + 1
     _assert_close(got, decoder_kernels.cross_attn_block_plain(x, *w, ck, cv,
                                                               h))
+    assert torch.equal(got, decoder_kernels.cross_attn_block(x, *w, ck, cv,
+                                                             h))
+
+
+def _b10_call(gen, which, b, d):
+    """A B10a (tensor pos) or B10b call on fresh inputs: (call, x, caches
+    it writes)."""
+    h = d // 64
+    x = _randn(gen, b, d)
+    if which == "B10a":
+        w = _block_weights(gen, d, 3 * d)
+        ck, cv = _randn(gen, 132, b, d), _randn(gen, 132, b, d)
+        pos = torch.tensor([70], dtype=torch.int32, device="cuda")
+        return (lambda: decoder_kernels.self_attn_block(x, *w, ck, cv, pos,
+                                                        h)[0]), x, (ck, cv)
+    w = _block_weights(gen, d, d)
+    ck, cv = _randn(gen, b, h, 1500, 64), _randn(gen, b, h, 1500, 64)
+    return (lambda: decoder_kernels.cross_attn_block(x, *w, ck, cv, h)), x, ()
+
+
+@pytest.mark.parametrize("which", ["B10a", "B10b"])
+@pytest.mark.parametrize("b,d", [(16, 512), (17, 1280), (5, 384)])
+def test_b10a_b10b_replay_in_a_cuda_graph_in_three_operations(gen, which, b,
+                                                              d):
+    """Each call puts at most three operations on the card (its three
+    kernels, the attention kernel launched as a programmatic dependent of
+    the product before it; no copy, no memset), and replays in a captured
+    CUDA graph: a new x copied into the captured one gives the eager call's
+    output bit for bit, and B10a's cache rows."""
+    call, x, caches = _b10_call(gen, which, b, d)
+    ops = _device_ops(call, calls=3)
+    assert sum(ops.values()) <= 3 * 3, ops   # three calls
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        call()                      # built and warm before capture
+    torch.cuda.current_stream().wait_stream(stream)
+    saved = [c.clone() for c in caches]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    x.copy_(_randn(gen, b, d))
+    graph.replay()
+    torch.cuda.synchronize()
+    replayed = [c.clone() for c in caches]
+    for c, s_ in zip(caches, saved):
+        c.copy_(s_)
+    eager = call()
+    assert torch.equal(captured, eager)
+    assert all(torch.equal(r, c) for r, c in zip(replayed, caches))
 
 
 def test_speculative_tokens_do_not_depend_on_the_draft(gen):

@@ -88,6 +88,70 @@ def test_self_attn_block_plain_matches_jax(pos):
     assert not np.array_equal(_np(gk)[pos], ck[pos])
 
 
+def _self_block_inputs(seed=2):
+    dims = _dims()
+    jsw, tsw, x, rng = _layer_args(dims, seed)
+    s_max, b, d = 12, 3, dims.d_model
+    ck = rng.normal(0, 1, (s_max, b, d)).astype(np.float32)
+    cv = rng.normal(0, 1, (s_max, b, d)).astype(np.float32)
+    return dims, jsw, tsw, x, ck, cv
+
+
+SELF_NAMES = ("ln1", "qkv_w", "qkv_b", "o_w", "o_b")
+
+
+@pytest.mark.parametrize("pos", [0, 5, 11])
+def test_self_attn_block_tensor_pos_matches_jax(pos):
+    """B10a with ``pos`` as a one-element int32 tensor (what the kernel reads
+    on the card) against the JAX kernel with ``pos`` as an array (its SMEM
+    scalar): the output and both cache buffers."""
+    dims, jsw, tsw, x, ck, cv = _self_block_inputs()
+    want, wk, wv = jdk.self_attn_block(
+        jnp.asarray(x), *(jsw[n][1] for n in SELF_NAMES), jnp.asarray(ck),
+        jnp.asarray(cv), jnp.asarray([pos], jnp.int32), dims.decoder_heads,
+        interpret=True)
+    tk, tv = torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy())
+    got, gk, gv = tdk.self_attn_block(
+        torch.from_numpy(x), *(tsw[n][1] for n in SELF_NAMES), tk, tv,
+        torch.tensor([pos], dtype=torch.int32), dims.decoder_heads)
+    assert gk is tk and gv is tv
+    np.testing.assert_allclose(_np(got), _np(want), atol=OUT_TOL, rtol=0)
+    np.testing.assert_allclose(_np(gk), _np(wk), atol=CACHE_TOL, rtol=0)
+    np.testing.assert_allclose(_np(gv), _np(wv), atol=CACHE_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("pos", [0, 5, 11])
+def test_self_attn_block_tensor_pos_is_bitwise_the_int(pos):
+    """The two forms of ``pos`` give the same output and caches, bit for
+    bit."""
+    dims, _, tsw, x, ck, cv = _self_block_inputs(7)
+    outs = []
+    for p_ in (pos, torch.tensor([pos], dtype=torch.int32)):
+        tk, tv = torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy())
+        outs.append(tdk.self_attn_block(
+            torch.from_numpy(x), *(tsw[n][1] for n in SELF_NAMES), tk, tv,
+            p_, dims.decoder_heads))
+    for a, b_ in zip(*outs):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("bad,match", [
+    (torch.tensor([3], dtype=torch.int64), "torch.int64"),
+    (torch.tensor([3, 4], dtype=torch.int32), "one int32"),
+    (torch.tensor([3], dtype=torch.int32, device="meta"), "on cpu"),
+    (12, "outside the cache")])
+def test_self_attn_block_refuses_a_pos_it_cannot_take(bad, match):
+    """A tensor ``pos`` must be one int32 on x's device (the kernel reads 4
+    bytes there); an int must lie inside the cache.  Both are checked before
+    the device is chosen, so the CPU path refuses what the card would."""
+    dims, _, tsw, x, ck, cv = _self_block_inputs()
+    with pytest.raises(ValueError, match=match):
+        tdk.self_attn_block(
+            torch.from_numpy(x), *(tsw[n][1] for n in SELF_NAMES),
+            torch.from_numpy(ck), torch.from_numpy(cv), bad,
+            dims.decoder_heads)
+
+
 @pytest.mark.parametrize("t_enc", [96, 64, 100, 40])
 def test_cross_attn_block_plain_matches_jax(t_enc):
     """B10b at T a multiple of 64, not a multiple, and under one block."""
@@ -171,6 +235,44 @@ def test_decoder_step_fused_three_step_chain_matches_jax(t_enc):
         np.testing.assert_allclose(_np(tl), _np(pl), atol=0.1, rtol=0)
         tok = np.asarray(jl.argmax(-1))
     assert tdk.self_block_launches == tdk.cross_block_launches == 0
+
+
+@pytest.mark.parametrize("t_enc", [96, 72])
+def test_decoder_step_fused_tensor_pos_chain_equals_the_int_chain(t_enc):
+    """Three fused steps chained on their own tokens with ``pos`` as a
+    one-element int32 tensor advanced in place (as a CUDA graph of the step
+    replays it) give the int chain's tokens, logits and caches, bit for
+    bit."""
+    dims = _dims(t_enc)
+    _, tp = _params(dims, 8)
+    rng = np.random.default_rng(9)
+    enc = torch.from_numpy(
+        rng.normal(0, 1, (2, t_enc, dims.d_model)).astype(np.float32))
+    prompt = torch.from_numpy(np.asarray([[3, 5, 7]] * 2))
+    tsw = tdk.build_step_weights(tp, dims)
+    chains = []
+    for as_tensor in (False, True):
+        logits, cache = tw.decoder_prefill(tp, dims, prompt, enc, 8)
+        tk = tdk.cache_to_time_major(cache.self_k)
+        tv = tdk.cache_to_time_major(cache.self_v)
+        tok = logits[:, -1].argmax(-1)
+        pos = torch.tensor([3], dtype=torch.int32) if as_tensor else 3
+        toks, outs = [], []
+        for _ in range(3):
+            lg, _, _ = tdk.decoder_step_fused(tp, tsw, dims, tok, pos, tk, tv,
+                                              cache.cross_k, cache.cross_v)
+            tok = lg.argmax(-1)
+            toks.append(tok)
+            outs.append(lg)
+            if as_tensor:
+                pos.add_(1)
+            else:
+                pos += 1
+        chains.append((torch.stack(toks, 1), outs, tk, tv))
+    (ti, li, ki, vi), (tt, lt, kt, vt) = chains
+    assert torch.equal(ti, tt)
+    assert all(torch.equal(a, b_) for a, b_ in zip(li, lt))
+    assert torch.equal(ki, kt) and torch.equal(vi, vt)
 
 
 def test_fused_blocks_refuse_what_the_kernels_do_not_take():

@@ -500,7 +500,8 @@ def test_every_csrc_file_is_named_for_the_build():
     ("B2", "encoder_mlp.cu"), ("B3", "self_attention.cu"),
     ("B6", "cross_attention_dequant.cu"),
     ("B7-dq", "cross_attention_multi.cu"),
-    ("B7-i8", "cross_attention_multi.cu"), ("B10c", "decoder_mlp.cu")])
+    ("B7-i8", "cross_attention_multi.cu"), ("B10c", "decoder_mlp.cu"),
+    ("B10a", "decoder_self_block.cu"), ("B10b", "decoder_cross_block.cu")])
 def test_kernel_variants_cut_the_sources_as_they_are(kernel, source):
     """``kernel_variants`` makes its timed variants by replacing text of the
     CUDA sources; every replacement must still find its text, and each
@@ -514,7 +515,9 @@ def test_kernel_variants_cut_the_sources_as_they_are(kernel, source):
                   "B6": (kv.dq_source, kv.DQ_VARIANTS),
                   "B7-dq": (kv.dq_source, kv.DQ_VARIANTS),
                   "B7-i8": (kv.i8_source, kv.I8_VARIANTS),
-                  "B10c": (kv.b10c_source, kv.B10C_VARIANTS)}[kernel]
+                  "B10c": (kv.b10c_source, kv.B10C_VARIANTS),
+                  "B10a": (kv.b10_source, kv.B10_VARIANTS),
+                  "B10b": (kv.b10_source, kv.B10_VARIANTS)}[kernel]
     text = (kernels.CSRC / source).read_text()
     variants = {name: cut(text, name) for name in names}
     assert variants["as_built"].count("WT_EXPORT") == text.count("WT_EXPORT")
@@ -553,6 +556,24 @@ def test_profile_ladder_reads_the_x4_kernels():
             ("out_proj_kernel", "decoder_block.cuh")):
         assert f"\n{fn}(" in (kernels.CSRC / src).read_text()
         assert fn in pl.KERNELS
+
+
+@pytest.mark.parametrize("name,label", [
+    ("(anonymous namespace)::attn_kernel(CUtensorMap)", "B1"),
+    ("(anonymous namespace)::self_attn_kernel(float const*, int)",
+     "B10a (attention)"),
+    ("(anonymous namespace)::cross_attn_kernel(float const*, int)",
+     "B10b (attention)"),
+    ("(anonymous namespace)::self_step_kernel(int)", "B3"),
+    ("(anonymous namespace)::self_step_int8_kernel(int)", "B8"),
+    ("void gemm::gemm_kernel<128, (anonymous namespace)::BiasGelu>(int)",
+     "B2 (FC1 product)")])
+def test_profile_ladder_tells_kernels_whose_names_overlap(name, label):
+    """A kernel's name counts only whole: B1's attn_kernel is not the end of
+    B10a's self_attn_kernel or B10b's cross_attn_kernel."""
+    from whisper_tpu_torch import profile_ladder as pl
+
+    assert pl._kernel_of(name) == label
 
 
 def test_profile_ladder_spans_a_call_of_several_kernels():

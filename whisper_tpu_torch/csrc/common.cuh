@@ -45,3 +45,13 @@ __device__ __forceinline__ float block_reduce(float v, float* scratch,
   for (int w = 1; w < NW; ++w) r = is_max ? fmaxf(r, scratch[w]) : r + scratch[w];
   return r;
 }
+
+// Raises a kernel's dynamic shared memory limit to `bytes` once, not on
+// every call: `allowed` remembers the most set so far.
+inline cudaError_t allow_smem(const void* fn, size_t bytes, size_t& allowed) {
+  if (bytes <= allowed) return cudaSuccess;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (rc == cudaSuccess) allowed = bytes;
+  return rc;
+}

@@ -69,30 +69,6 @@ __device__ __forceinline__ void issue_slice(bf16* sW, const bf16* w, int k0,
   }
 }
 
-// This warp's part of A[16 x K] . W[K x 16], A rows [16][lda] and W rows
-// [K][WLD] in shared memory, over depths [k0, k0 + kn): d[nt] is the
-// m16n8k16 accumulator of columns 8 nt .. 8 nt + 7.
-__device__ __forceinline__ void warp_tile(const bf16* sA, int lda,
-                                          const bf16* sW, int k0, int kn,
-                                          float (&d)[2][4]) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) d[nt][e] = 0.0f;
-  const uint32_t a_addr =
-      smem_u32(sA + (lane % 16) * lda + k0 + 8 * (lane / 16));
-  const uint32_t w_addr = smem_u32(
-      sW + (k0 + 8 * ((lane / 8) % 2) + lane % 8) * WLD + 8 * (lane / 16));
-  for (int k = 0; k < kn; k += 16) {
-    uint32_t a[4], w[4];
-    ldmatrix_x4(a, a_addr + 2 * k);
-    ldmatrix_x4_trans(w, w_addr + 2 * k * WLD);
-    mma_m16n8k16_bf16(d[0], a[0], a[1], a[2], a[3], w[0], w[1]);
-    mma_m16n8k16_bf16(d[1], a[0], a[1], a[2], a[3], w[2], w[3]);
-  }
-}
-
 // The warps' partial tiles into part [NW][RT * NC], then element e of the
 // block's tile (row e / 16, column e % 16): their sum in warp order.
 __device__ __forceinline__ void store_partial(float* part,
@@ -214,7 +190,7 @@ fc1_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln,
 
   const int kn = D / NW;
   float d[2][4];
-  warp_tile(sR, RLD, sW, warp * kn, kn, d);
+  mma_tile_16x16(sR, RLD, sW, WLD, warp * kn, kn, d);
   store_partial(part, d);
   __syncthreads();
   for (int e = threadIdx.x; e < RT * NC; e += NT) {  // column e % NC
@@ -267,7 +243,7 @@ fc2_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w2,
 
   const int kn = FQ / NW;
   float d[2][4];
-  warp_tile(sH, HLD, sW, warp * kn, kn, d);
+  mma_tile_16x16(sH, HLD, sW, WLD, warp * kn, kn, d);
   store_partial(part, d);
   __syncthreads();
   cluster_wait();
@@ -298,16 +274,6 @@ size_t fc2_smem(int F) {
   const int FQ = F / SPLIT;
   return (size_t)FQ * WLD * 2 + (size_t)RT * (FQ + 8) * 2 +
          (NW + SPLIT) * RT * NC * 4;
-}
-
-// Raises a kernel's dynamic shared memory limit to `bytes` once, not on
-// every call: `allowed` remembers the most set so far.
-cudaError_t allow_smem(const void* fn, size_t bytes, size_t& allowed) {
-  if (bytes <= allowed) return cudaSuccess;
-  const cudaError_t rc = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (rc == cudaSuccess) allowed = bytes;
-  return rc;
 }
 
 size_t fc1_allowed = 48 * 1024, fc2_allowed = 48 * 1024;

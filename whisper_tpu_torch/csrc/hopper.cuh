@@ -7,8 +7,10 @@
 // cluster, which also uses the cluster barrier and mma.sync) and the
 // self-attention step (self_attention.cu), the int8 verify pass
 // (cross_attention.cuh's cross_int8_cluster: int8 mma.sync, additions into
-// another block's shared memory) and the decoder MLP (decoder_mlp.cu:
-// cp.async, ldmatrix, programmatic dependent launch).
+// another block's shared memory), the decoder MLP (decoder_mlp.cu:
+// cp.async, ldmatrix, programmatic dependent launch) and the fused
+// attention blocks (decoder_block.cuh and the two decoder_*_block.cu: fp64
+// mma.sync as well).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; nothing of libcuda is linked
@@ -190,6 +192,18 @@ WT_DEV void mma_m16n8k16_bf16(float (&d)[4], uint32_t a0, uint32_t a1,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+// d[8 x 8] += A[8 x 4] . B[4 x 8] in fp64 on the fp64 tensor cores (DMMA),
+// by one warp (PTX's m8n8k4 .f64 fragments: lane = 4 g + t holds A's row g
+// at depth t (a), B's column g at depth t (b), and d's row g at columns 2t,
+// 2t + 1).
+WT_DEV void mma_m8n8k4_f64(double (&d)[2], double a, double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1}, {%2}, {%3}, {%0, %1};"
+      : "+d"(d[0]), "+d"(d[1])
+      : "d"(a), "d"(b));
+}
+
 // d[16 x 8] += A[16 x 32] . B[32 x 8], int8 -> int32 (exact), by one warp
 // (PTX's m16n8k32 fragments: lane = 4 g + t holds four bytes of A's row g at
 // depths 4t .. 4t + 3 (a0) and 16 + 4t .. (a2), row g + 8 likewise (a1, a3),
@@ -220,6 +234,31 @@ WT_DEV void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
+}
+
+// A warp's part of A[16 x K] . W[K x 16], bf16 -> fp32: A's rows [16][lda]
+// and W's rows [K][ldw] in shared memory (rows on 16-byte boundaries), over
+// depths [k0, k0 + kn), kn a multiple of 16, by ldmatrix and mma.sync
+// m16n8k16; d[nt] is the accumulator of columns 8 nt .. 8 nt + 7 (rows g
+// and g + 8 as mma_m16n8k16_bf16 holds them), summed from 0 in depth order.
+WT_DEV void mma_tile_16x16(const bf16* sA, int lda, const bf16* sW, int ldw,
+                           int k0, int kn, float (&d)[2][4]) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[nt][e] = 0.0f;
+  const uint32_t a_addr =
+      smem_u32(sA + (lane % 16) * lda + k0 + 8 * (lane / 16));
+  const uint32_t w_addr = smem_u32(
+      sW + (k0 + 8 * ((lane / 8) % 2) + lane % 8) * ldw + 8 * (lane / 16));
+  for (int k = 0; k < kn; k += 16) {
+    uint32_t a[4], w[4];
+    ldmatrix_x4(a, a_addr + 2 * k);
+    ldmatrix_x4_trans(w, w_addr + 2 * k * ldw);
+    mma_m16n8k16_bf16(d[0], a[0], a[1], a[2], a[3], w[0], w[1]);
+    mma_m16n8k16_bf16(d[1], a[0], a[1], a[2], a[3], w[2], w[3]);
+  }
 }
 
 // ---- wgmma ----------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""What holds the eight kernels redesigned for Hopper, by timed variants:
+"""What holds the ten kernels redesigned for Hopper, by timed variants:
 ``python -m whisper_tpu_torch.kernel_variants``.
 
 **B1** (encoder attention).  Builds ``csrc/attention.cu`` as it is and in
@@ -107,12 +107,41 @@ bucket 16 at d = 512 and 1,280, six layers' weights in rotation:
 Each also as 600 calls captured in one CUDA graph and replayed, where the
 card's rate is the limit and not the host's.
 
+**B10a and B10b** (the fused decode step's self- and cross-attention
+blocks: the LN-and-product kernel of ``decoder_block.cuh``, an attention
+kernel launched as its programmatic dependent, the O product).  Builds
+``csrc/decoder_self_block.cu`` and ``csrc/decoder_cross_block.cu``, the
+shared header written into each, as they are and cut short, and times one
+call at whisper-base bucket 16 (B10a with ``pos`` 70 of a 132-row cache,
+B10b against 1,500 encoder positions), six layers in rotation (B10b's
+cross K/V 295 MB, so no layer is found in L2), eagerly and as 600 calls in
+one CUDA graph:
+
+- ``ln_product_only``: the wrapper launches the LN-and-product kernel
+  alone;
+- ``copies_only``: each of the three kernels waits for its copies and
+  leaves (the LN-and-product kernel: x, the LN parameters, its W slice; the
+  attention: its K and V rows; the O product: its W slice and ctx);
+- ``no_pv``: the attention without its P.V sums;
+- ``no_pdl``: the attention kernel launched as a plain dependent;
+- ``no_scores``: the attention without the q . k products (every score 0);
+- ``late_v``: the attention asks for its first V block (B10b) or its cache
+  rows (B10a) only once q is written, not while the product runs;
+- ``other_trigger``: the LN-and-product kernel lets the attention start at
+  the other of its two points (B10a's at its entry, not once its own
+  copies have landed; B10b's the other way round);
+- ``ln_product_only`` with ``no_stats`` (the LN statistics' sums skipped),
+  ``no_mma`` (the fp64 product skipped) or ``no_exchange`` (each partial
+  column written into the block's own shared memory, not its owner's):
+  what the LN-and-product kernel's parts cost.
+
 Prints one JSON line for each kernel with the card's name and power limit.
 It needs a CUDA card and nvcc and raises without them.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
@@ -379,7 +408,7 @@ _B10C_FC2_LEAVE = """  cp_async_wait<0>();
   const int kn = FQ / NW;"""
 _B10C_LN = ("  {\n    const int r = threadIdx.x / 8, j = threadIdx.x % 8, "
             "nw = D / 8;")
-_B10C_MMA = "  warp_tile(sR, RLD, sW, warp * kn, kn, d);"
+_B10C_MMA = "  mma_tile_16x16(sR, RLD, sW, WLD, warp * kn, kn, d);"
 
 
 def b10c_source(text: str, name: str) -> str:
@@ -401,6 +430,120 @@ def b10c_source(text: str, name: str) -> str:
     for (float& v : t)
       v = __bfloat162float(sR[threadIdx.x]) +
           __bfloat162float(sW[threadIdx.x]);""")
+    return text
+
+
+B10_VARIANTS = ("as_built", "ln_product_only", "copies_only", "no_pv",
+                "no_pdl", "no_scores", "late_v", "other_trigger",
+                "ln_product_only+no_stats",
+                "ln_product_only+no_mma", "ln_product_only+no_exchange")
+_B10B_FIRST = """    if (kb0 + warp < kb1) {
+      fetch(sK, ck, kb0 + warp, bar_k);
+      fetch(sV, cv, kb0 + warp, bar_v);
+    }
+  }
+  grid_dependency_wait();  // ln_gemm has written q
+"""
+_B10B_LATE_V = """    if (kb0 + warp < kb1) fetch(sK, ck, kb0 + warp, bar_k);
+  }
+  grid_dependency_wait();  // ln_gemm has written q
+  if (lane == 0 && kb0 + warp < kb1) fetch(sV, cv, kb0 + warp, bar_v);
+"""
+# (B10a's text, B10b's text) of each cut
+_B10_SCORES = ("    for (int j = 0; j < DH / 8; ++j) {\n"
+               "      const uint4 w = kr[(j + rot) & 7];",
+               "        for (int j = 0; j < DH / 8; ++j) {\n"
+               "          const uint4 w = kr[(j + rot) & 7];")
+_B10_STATS = "    for (int wd = half * 32 + lane; wd < nw; wd += 64) {\n"
+_B10_MMA = "    for (int k = 0; k < kw; k += 8) {\n"
+_B10_EXCHANGE = ("    *cluster.map_shared_rank(red + (rank * BLK_RT + r) * CR"
+                 " + c % CR,\n                             c / CR) = z;\n")
+_B10_LN_READY = ("  cp_async_wait<0>();\n  __syncthreads();  // x's rows, "
+                 "the LN parameters and W have landed\n")
+_B10_LN_LEAVE = "  cp_async_wait<0>();\n  __syncthreads();\n  return;\n"
+_B10_OUT_READY = ("  cp_async_wait<0>();\n  __syncthreads();\n\n"
+                  "  const int kn = KQ / BLK_GW;")
+_B10_OUT_LEAVE = """  cp_async_wait<0>();
+  __syncthreads();
+  if (rank == 0 && tid < OUT_NC && row0 < B)
+    out[(size_t)row0 * D + c0 + tid] = sH[tid];
+  return;
+
+  const int kn = KQ / BLK_GW;"""
+_B10A_READY = ("  cp_async_wait<0>();\n  __syncthreads();\n\n"
+               "  // a thread a row;")
+_B10A_LEAVE = """  cp_async_wait<0>();
+  __syncthreads();
+  if (tid < DH) ctx[head + tid] = sK[pos * DH + tid];
+  return;
+
+  // a thread a row;"""
+_B10B_READY = "  __syncthreads();  // the barriers and q are visible\n"
+_B10B_LEAVE = """  for (int kb = kb0 + warp, it = 0; kb < kb1; kb += NW, ++it) {
+    mbar_wait(bar_k, it & 1);
+    mbar_wait(bar_v, it & 1);
+    __syncwarp();
+    if (lane == 0 && kb + NW < kb1) {
+      fetch(sK, ck, kb + NW, bar_k);
+      fetch(sV, cv, kb + NW, bar_v);
+    }
+  }
+  if (rank == 0 && tid < DH) ctx[(size_t)head * DH + tid] = sK[tid];
+  return;
+"""
+# (B10a's text, B10b's text) of each cut
+_B10_ONLY = ("  if (rc != 0) return rc;\n  // shared memory for S rows",
+             "  if (rc != 0) return rc;\n  // about two blocks an SM")
+_B10_PV = ("  for (int s = grp; s <= pos; s += NT / DH)\n",
+           "    for (int s = 0; s < n; ++s) {\n")
+_B10_TRIGGER = (("(float)DH), false, s);", "(float)DH), true, s);"),
+                ("(float)DH), true, s);", "(float)DH), false, s);"))
+_B10_PDL = ("dim3(B * H), NT, smem, s, 1, true,",
+            "(unsigned)n_rank, true,")
+
+
+def b10_source(text: str, name: str) -> str:
+    """``decoder_self_block.cu``'s or ``decoder_cross_block.cu``'s text, the
+    shared header written into it, cut into the named variant (cuts joined
+    by "+" are applied together)."""
+    from whisper_tpu_torch.ops import kernels
+
+    k = 0 if "wt_decoder_self_block" in text else 1
+    text = _swap(text, '#include "decoder_block.cuh"\n',
+                 (kernels.CSRC / "decoder_block.cuh").read_text())
+    for cut in name.split("+"):
+        if cut == "ln_product_only":
+            text = _swap(text, _B10_ONLY[k], _B10_ONLY[k].replace(
+                "if (rc != 0) return rc;", "return rc;"))
+        if cut == "copies_only":
+            text = _swap(text, _B10_LN_READY, _B10_LN_LEAVE)
+            text = _swap(text, _B10_OUT_READY, _B10_OUT_LEAVE)
+            text = (_swap(text, _B10A_READY, _B10A_LEAVE) if k == 0 else
+                    _swap(text, _B10B_READY, _B10B_READY + _B10B_LEAVE))
+        if cut == "no_pv":
+            text = _swap(text, _B10_PV[k], _B10_PV[k].replace(
+                "s <= pos" if k == 0 else "s < n", "s < 0"))
+        if cut == "no_pdl":
+            text = _swap(text, _B10_PDL[k],
+                         _B10_PDL[k].replace("true", "false"))
+        if cut == "no_scores":
+            text = _swap(text, _B10_SCORES[k],
+                         _B10_SCORES[k].replace("j < DH / 8", "j < 0"))
+        if cut == "late_v" and k == 1:
+            text = _swap(text, _B10B_FIRST, _B10B_LATE_V)
+        if cut == "late_v" and k == 0:   # B10a: its rows [0, pos) after q
+            text = _swap(text, "  // rows [0, pos) of K, then of V",
+                         "  grid_dependency_wait();\n"
+                         "  // rows [0, pos) of K, then of V")
+        if cut == "other_trigger":
+            text = _swap(text, *_B10_TRIGGER[k])
+        if cut == "no_stats":
+            text = _swap(text, _B10_STATS, _B10_STATS.replace("nw;", "0;"))
+        if cut == "no_mma":
+            text = _swap(text, _B10_MMA, _B10_MMA.replace("kw;", "0;"))
+        if cut == "no_exchange":
+            text = _swap(text, _B10_EXCHANGE,
+                         "    red[(rank * BLK_RT + r) * CR + c % CR] = z;\n")
     return text
 
 
@@ -707,6 +850,102 @@ def b10c(card: str) -> dict:
             "us_per_call": us, "us_per_call_in_a_cuda_graph": graph_us}
 
 
+def b10ab(card: str) -> list:
+    """B10a and B10b as built and cut short (``B10_VARIANTS``), µs a call at
+    bucket 16, six layers in rotation (see the module's docstring); and
+    the span of a call as built and where in it each kernel runs, traced in
+    a CUDA graph of 20 calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_tpu_torch.profile_ladder import call_spans, call_timelines
+
+    libs = {"B10a": _build("decoder_self_block.cu", b10_source,
+                           B10_VARIANTS),
+            "B10b": _build("decoder_cross_block.cu", b10_source,
+                           B10_VARIANTS)}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    bf, ptr, i32 = torch.bfloat16, ctypes.c_void_p, ctypes.c_int
+    for lib in libs["B10a"].values():
+        lib.wt_decoder_self_block.argtypes = [ptr] * 11 + [i32] * 5 + [ptr,
+                                                                     ptr]
+    for lib in libs["B10b"].values():
+        lib.wt_decoder_cross_block.argtypes = [ptr] * 11 + [i32] * 4 + [ptr]
+    n_l, b, d, h, s, pos, t = 6, 16, 512, 8, 132, 70, 1500
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda")
+                * scale).to(bf)
+
+    x = randn(b, d)
+    ln = torch.stack([torch.ones(d), torch.zeros(d)]).to(bf).cuda()
+    qkv_w, o_w, q_w = (randn(n_l, d, n, scale=0.04)
+                       for n in (3 * d, d, d))
+    qkv_b, o_b = randn(1, 3 * d, scale=0.1), randn(1, d, scale=0.1)
+    ck, cv = randn(n_l, s, b, d), randn(n_l, s, b, d)
+    xk, xv = randn(n_l, b, h, t, 64), randn(n_l, b, h, t, 64)
+    qbuf = torch.empty(b, d, dtype=torch.float32, device="cuda")
+    ctx, out = torch.empty_like(x), torch.empty_like(x)
+
+    def run(kernel, lib, i, on):
+        j = i % n_l
+        if kernel == "B10a":
+            rc = lib.wt_decoder_self_block(
+                x.data_ptr(), ln.data_ptr(), qkv_w[j].data_ptr(),
+                qkv_b.data_ptr(), o_w[j].data_ptr(), o_b.data_ptr(),
+                ck[j].data_ptr(), cv[j].data_ptr(), qbuf.data_ptr(),
+                ctx.data_ptr(), out.data_ptr(), b, d, h, s, pos, None, on)
+        else:
+            rc = lib.wt_decoder_cross_block(
+                x.data_ptr(), ln.data_ptr(), q_w[j].data_ptr(),
+                qkv_b.data_ptr(), o_w[j].data_ptr(), o_b.data_ptr(),
+                xk[j].data_ptr(), xv[j].data_ptr(), qbuf.data_ptr(),
+                ctx.data_ptr(), out.data_ptr(), b, d, h, t, on)
+        if rc != 0:
+            raise RuntimeError(f"launch failed with CUDA error {rc}")
+
+    def graph_of(kernel, lib, calls=600):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            capturing = torch.cuda.current_stream().cuda_stream
+            for i in range(calls):
+                run(kernel, lib, i, capturing)
+        return graph
+
+    stream = torch.cuda.current_stream().cuda_stream
+    lines = []
+    for kernel, by_name in libs.items():
+        names_of = tuple(by_name)
+        us = {v: [] for v in names_of}
+        graph_us = {v: [] for v in names_of}
+        for lib in by_name.values():   # built and warm before a capture
+            run(kernel, lib, 0, stream)
+        graphs = {v: graph_of(kernel, by_name[v]) for v in names_of}
+        for names in (names_of, names_of[::-1]):
+            for name in names:
+                us[name].append(1e3 * _median_ms(
+                    lambda i: run(kernel, by_name[name], i, stream),
+                    calls=600))
+                graph_us[name].append(1e3 / 600 * _median_ms(
+                    lambda i: graphs[name].replay(), calls=1))
+        # where each kernel of a call runs, in a graph of 20 calls
+        traced = graph_of(kernel, by_name["as_built"], calls=20)
+        traced.replay()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            traced.replay()
+            torch.cuda.synchronize()
+        lines.append({"kernel": kernel, "card": card, "rows": b,
+                      "layers": n_l, "cache_rows": s, "pos": pos,
+                      "encoder_positions": t, "us_per_call": us,
+                      "us_per_call_in_a_cuda_graph": graph_us,
+                      "as_built_call_in_a_cuda_graph": {
+                          "spans": call_spans(prof),
+                          "timelines_us": call_timelines(prof)}})
+    return lines
+
+
 def b2(card: str) -> dict:
     import torch
 
@@ -797,20 +1036,25 @@ def b3(card: str) -> dict:
 def main() -> None:
     import torch
 
+    runs = {"b1": b1, "b4": b4, "b6_b7_dequant": b6_b7_dequant,
+            "b7_int8": b7_int8, "b10c": b10c, "b10ab": b10ab, "b2": b2,
+            "b3": b3}
+    parser = argparse.ArgumentParser(prog="whisper_tpu_torch.kernel_variants")
+    parser.add_argument("kernels", nargs="*", metavar="KERNEL",
+                        help=f"any of {', '.join(runs)} (default: all)")
+    names = parser.parse_args().kernels or list(runs)
+    unknown = sorted(set(names) - set(runs))
+    if unknown:
+        parser.error(f"unknown kernels {unknown}")
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants needs a CUDA card")
     from whisper_tpu_torch.headline import card_info
 
     card = card_info()
-    print(json.dumps(b1(card)), flush=True)
-    print(json.dumps(b4(card)), flush=True)
-    for line in b6_b7_dequant(card):
-        print(json.dumps(line), flush=True)
-    print(json.dumps(b7_int8(card)), flush=True)
-    print(json.dumps(b10c(card)), flush=True)
-    print(json.dumps(b2(card)), flush=True)
-    print(json.dumps(b3(card)), flush=True)
-
+    for name in names:
+        lines = runs[name](card)
+        for line in lines if isinstance(lines, list) else [lines]:
+            print(json.dumps(line), flush=True)
 
 if __name__ == "__main__":
     main()

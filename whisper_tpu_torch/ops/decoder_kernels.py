@@ -33,7 +33,10 @@ CPU tensor they take ``self_attn_block_plain`` and
 QKV / Q product are accumulated in float64 and rounded to fp32 once, so
 that the value does not depend on the order of a sum and the rows B10a
 writes into the cache are bitwise equal between the kernel and the plain
-version.  ``decoder_step_fused`` composes B10a, B10b and B10c per layer;
+version.  B10a's ``pos`` is an int or a one-element int32 tensor that the
+kernel reads on the card (as B3's), so a CUDA graph of the fused step
+replays every position.  ``decoder_step_fused`` composes B10a, B10b and
+B10c per layer;
 as in the JAX package no session path calls it, and no ``RuntimeCfg``
 flag selects it.
 """
@@ -56,6 +59,7 @@ F_MULTIPLE = 256  # B10c splits f over a cluster of 4 blocks of 4 warps
 NEG_INF = -1e30   # the fused blocks' mask value (not finfo.min)
 CROSS_BLOCK = 64  # keys per online-softmax block of cross_attn_block
 HEAD_DIM = 64     # the fused attention kernels take head_dim 64 only
+SELF_MAX_ROWS = 768     # B10a holds a head's K and V rows: 192 KB
 
 launches = 0  # B10c kernel launches since the last reset (plain excluded)
 self_block_launches = 0   # B10a launches since the last reset
@@ -260,6 +264,15 @@ def _check_block(name, x, ln, w, wb, o_w, o_b, heads):
     return b, d
 
 
+def _check_aligned(name, *tensors):
+    """The kernels copy x, the LN parameters and the weights in 16-byte
+    words (cp.async)."""
+    if any(a.data_ptr() % 16 for a in tensors):
+        raise ValueError(f"{name} kernel: x, ln and the weights must start "
+                         "on a 16-byte boundary (they are copied in 16-byte "
+                         "words)")
+
+
 def _block_scratch(b: int, d: int, device):
     """(q fp32, ctx bf16) scratch of the batch padded to 16-row tiles."""
     rows = -(-b // ROW_TILE) * ROW_TILE
@@ -267,13 +280,36 @@ def _block_scratch(b: int, d: int, device):
             torch.empty((rows, d), dtype=torch.bfloat16, device=device))
 
 
+def _check_pos(pos, x: torch.Tensor, s_max: int):
+    """B10a's ``pos``: an int inside the cache, or a one-element int32
+    tensor on x's device (read by the kernel).  Returns the pointer to hand
+    the kernel (None for an int) and the int (-1 for a tensor)."""
+    if isinstance(pos, torch.Tensor):
+        if (pos.device != x.device or pos.dtype != torch.int32
+                or pos.numel() != 1):
+            raise ValueError("pos: a tensor must hold one int32 on "
+                             f"{x.device}, got {pos.dtype} "
+                             f"{tuple(pos.shape)} on {pos.device}")
+        return pos.data_ptr(), -1
+    pos = int(pos)
+    if not 0 <= pos < s_max:
+        raise ValueError(f"self_attn_block: pos {pos} outside the cache of "
+                         f"{s_max} rows")
+    return None, pos
+
+
 def self_attn_block(x: torch.Tensor, ln: torch.Tensor, qkv_w: torch.Tensor,
                     qkv_b: torch.Tensor, o_w: torch.Tensor, o_b: torch.Tensor,
-                    cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
+                    cache_k: torch.Tensor, cache_v: torch.Tensor, pos,
                     heads: int):
     """x [B, d]; ln [2, d]; qkv_w [d, 3d], qkv_b [1, 3d]; o_w [d, d], o_b
     [1, d]; cache_k / cache_v TIME-MAJOR [S, B, d], rows ``pos`` written in
-    place.  Returns (out [B, d], cache_k, cache_v), the same cache tensors."""
+    place; pos: an int, checked here, or a one-element int32 tensor on x's
+    device, which the kernel reads (the JAX kernel's SMEM scalar: a
+    captured CUDA graph replays every step; outside [0, S) the kernel
+    writes no cache row and returns NaN).  Returns (out [B, d], cache_k,
+    cache_v), the same cache tensors."""
+    pos_ptr, pos_int = _check_pos(pos, x, cache_k.shape[0])
     if route(x) == "plain":
         return self_attn_block_plain(x, ln, qkv_w, qkv_b, o_w, o_b, cache_k,
                                      cache_v, pos, heads)
@@ -281,12 +317,12 @@ def self_attn_block(x: torch.Tensor, ln: torch.Tensor, qkv_w: torch.Tensor,
     b, d = _check_block("self_attn_block", x, ln, qkv_w, qkv_b, o_w, o_b,
                         heads)
     s_max = cache_k.shape[0]
-    pos = int(pos)
-    if qkv_w.shape[1] != 3 * d or not 0 <= pos < s_max:
-        raise ValueError(f"self_attn_block: qkv_w {tuple(qkv_w.shape)} / pos "
-                         f"{pos} outside the cache of {s_max} rows")
+    if qkv_w.shape[1] != 3 * d or s_max > SELF_MAX_ROWS:
+        raise ValueError(f"self_attn_block: qkv_w {tuple(qkv_w.shape)}, a "
+                         f"cache of {s_max} rows (at most {SELF_MAX_ROWS})")
     for nm, a in (("cache_k", cache_k), ("cache_v", cache_v)):
         check_operand(nm, a, torch.bfloat16, (s_max, b, d), x.device)
+    _check_aligned("self_attn_block", x, ln, qkv_w, o_w)
     qbuf, ctx = _block_scratch(b, d, x.device)
     out = torch.empty_like(x)
     lib = kernels.library()
@@ -294,7 +330,7 @@ def self_attn_block(x: torch.Tensor, ln: torch.Tensor, qkv_w: torch.Tensor,
         x.data_ptr(), ln.data_ptr(), qkv_w.data_ptr(), qkv_b.data_ptr(),
         o_w.data_ptr(), o_b.data_ptr(), cache_k.data_ptr(),
         cache_v.data_ptr(), qbuf.data_ptr(), ctx.data_ptr(), out.data_ptr(),
-        b, d, heads, s_max, pos, kernels.stream_ptr(x.device)),
+        b, d, heads, s_max, pos_int, pos_ptr, kernels.stream_ptr(x.device)),
         "self_attn_block")
     self_block_launches += 1
     return out, cache_k, cache_v
@@ -345,6 +381,7 @@ def cross_attn_block(x: torch.Tensor, ln: torch.Tensor, q_w: torch.Tensor,
     for nm, a in (("cross_k", cross_k), ("cross_v", cross_v)):
         check_operand(nm, a, torch.bfloat16, (b, heads, t, HEAD_DIM),
                       x.device)
+    _check_aligned("cross_attn_block", x, ln, q_w, o_w, cross_k, cross_v)
     qbuf, ctx = _block_scratch(b, d, x.device)
     out = torch.empty_like(x)
     lib = kernels.library()
@@ -371,22 +408,26 @@ def cache_from_time_major(tm: torch.Tensor, heads: int) -> torch.Tensor:
 
 
 def decoder_step_fused(params: Dict, step_weights: Dict, dims: WhisperDims,
-                       token: torch.Tensor, pos: int,
+                       token: torch.Tensor, pos,
                        self_k_tm: torch.Tensor, self_v_tm: torch.Tensor,
                        cross_k: torch.Tensor, cross_v: torch.Tensor):
     """Fully fused decoder step: per layer B10a, B10b and B10c, then the
     final LayerNorm and the logits.  self_k_tm / self_v_tm: [L, S, B, d]
     time-major self cache (``cache_to_time_major``), rows ``pos`` written
     in place; cross_k / cross_v: [L, B, H, T, Dh] in the activation dtype
-    (a prefill without ``int8_cross_kv``).  Returns (logits [B, V],
-    self_k_tm, self_v_tm), the same cache tensors."""
+    (a prefill without ``int8_cross_kv``).  ``pos``: an int, or a
+    one-element int32 tensor on the tokens' device, which no step reads on
+    the host (B10a reads it on the card), so one captured CUDA graph
+    replays every step.  Returns (logits [B, V], self_k_tm, self_v_tm), the
+    same cache tensors."""
     from whisper_tpu_torch.models.whisper import _layer_norm, _logits
 
     dec = params["decoder"]
     dtype = dec["tok_emb"].dtype
     h = dims.decoder_heads
     sw = step_weights
-    x = dec["tok_emb"][token] + dec["pos_embed"][pos].to(dtype)[None, :]
+    pe = dec["pos_embed"][pos].to(dtype).reshape(1, -1)   # int or [1] pos
+    x = dec["tok_emb"][token] + pe
     for i in range(dims.decoder_layers):
         x, _, _ = self_attn_block(
             x, sw["ln1"][i], sw["qkv_w"][i], sw["qkv_b"][i], sw["o_w"][i],

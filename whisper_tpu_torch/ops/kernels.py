@@ -72,8 +72,9 @@ SIGNATURES = {
     "wt_cross_attend_multi": [_P] * 6 + [_I] * 6 + [_P],
     "wt_cross_attend_multi_dequant": [_P] * 6 + [_I] * 6 + [_P],
     # x, ln, qkv_w, qkv_b, o_w, o_b, cache_k, cache_v, q scratch, ctx
-    # scratch, out, batch, d, heads, S, pos, stream
-    "wt_decoder_self_block": [_P] * 11 + [_I] * 5 + [_P],
+    # scratch, out, batch, d, heads, S, pos, pos on the device (or null),
+    # stream
+    "wt_decoder_self_block": [_P] * 11 + [_I] * 5 + [_P, _P],
     # x, ln, q_w, q_b, o_w, o_b, cross_k, cross_v, q scratch, ctx scratch,
     # out, batch, d, heads, T, stream
     "wt_decoder_cross_block": [_P] * 11 + [_I] * 4 + [_P],

@@ -16,11 +16,21 @@ its three kernels, whose means add up to one call), the mean span of a
 call of the wrappers that launch several kernels on one another's heels
 (B10c's FC1 and FC2, which overlap; B10a, B10b), and the five largest other
 device operations.  It needs a CUDA card and raises without one.
+
+``python -m whisper_tpu_torch.profile_ladder --fused-step`` runs only
+whisper-base's fully fused decode step (``decoder_step_fused``: B10a, B10b
+and B10c per layer; no session path calls it): 127 steps at bucket 16 from
+a bf16 prefill against random encoder states of 1,500 positions, once to
+warm up and once under ``torch.profiler``, on one JSON line with the same
+keys and the device operations and busy ms a step.  It passes ``pos`` as
+an int, so the file also runs against an older tree of the package (that
+tree on ``PYTHONPATH``, this file run by its path).
 """
 
 from __future__ import annotations
 
 import json
+import re
 import time
 import warnings
 
@@ -54,18 +64,26 @@ SPECULATIVE = (
     ("x5+speculative (own int8 weights as draft, shared encoder)", "x5"),
     ("x4+speculative (own int8 weights as draft, shared encoder)", "x4"))
 DECODE_STEPS = 127  # 128 new tokens: the prefill gives the first
+FUSED_BUCKET = 16   # the 301.574 s file's 12 chunks in a bucket of 16
+
+
+def _named(fn: str, name: str, ends: str = "<(>") -> bool:
+    """``fn`` is the whole of a name in ``name`` (attn_kernel is not
+    cross_attn_kernel): a kernel's, or for gemm_kernel<BN, Epilogue> its
+    epilogue's."""
+    return re.search(rf"(?:^|[\s:]){re.escape(fn)}(?:[{ends}]|$)",
+                     name) is not None
 
 
 def _kernel_of(name: str):
     for fn, label in KERNELS.items():
-        # a kernel's name, or for gemm_kernel<BN, Epilogue> its epilogue's
-        if any(fn + end in name for end in "<(>") or name.endswith(fn):
+        if _named(fn, name):
             return label
     return None
 
 
 def _is(fn: str, name: str) -> bool:
-    return any(fn + end in name for end in "<(")
+    return _named(fn, name, "<(")
 
 
 def summarize(prof) -> dict:
@@ -102,29 +120,54 @@ def summarize(prof) -> dict:
     }
 
 
-def call_spans(prof) -> dict:
-    """Mean in-situ time of each call of the wrappers in ``CALLS`` found in
-    the trace, each call the span of its kernels (see ``CALLS``)."""
+def _calls(prof):
+    """(label, its kernels' events) of each call of the wrappers in
+    ``CALLS`` found in the trace, in the order of the stream."""
     from torch.autograd import DeviceType
 
     events = sorted((e for e in prof.events()
                      if e.device_type == DeviceType.CUDA),
                     key=lambda e: e.time_range.start)
-    spans, i = {}, 0
+    i = 0
     while i < len(events):
         for label, seq in CALLS.items():
             group = events[i:i + len(seq)]
             if len(group) == len(seq) and all(
                     _is(fn, e.name) for fn, e in zip(seq, group)):
-                n, total = spans.get(label, (0, 0.0))
-                spans[label] = (n + 1, total + group[-1].time_range.end
-                                - group[0].time_range.start)
+                yield label, group
                 i += len(seq)
                 break
         else:
             i += 1
+
+
+def call_spans(prof) -> dict:
+    """Mean in-situ time of each call of the wrappers in ``CALLS`` found in
+    the trace, each call the span of its kernels (see ``CALLS``)."""
+    spans = {}
+    for label, group in _calls(prof):
+        n, total = spans.get(label, (0, 0.0))
+        spans[label] = (n + 1, total + group[-1].time_range.end
+                        - group[0].time_range.start)
     return {k: {"calls": n, "mean_ms": total / n / 1e3}
             for k, (n, total) in sorted(spans.items())}
+
+
+def call_timelines(prof) -> dict:
+    """For each wrapper in ``CALLS``: the mean start and end of each of its
+    kernels in µs from the start of the call's first, which shows how far
+    a programmatic dependent overlaps the kernel before it."""
+    sums = {}
+    for label, group in _calls(prof):
+        n, acc = sums.get(label, (0, [[0.0, 0.0] for _ in group]))
+        t0 = group[0].time_range.start
+        for a, e in zip(acc, group):
+            a[0] += e.time_range.start - t0
+            a[1] += e.time_range.end - t0
+        sums[label] = (n + 1, acc)
+    return {label: {fn: [a[0] / n, a[1] / n]
+                    for fn, a in zip(CALLS[label], acc)}
+            for label, (n, acc) in sorted(sums.items())}
 
 
 def profile_config(label: str, variant: str, overrides: dict, params,
@@ -162,9 +205,74 @@ def profile_config(label: str, variant: str, overrides: dict, params,
             **{k: out[k] for k in ("kernels", "calls", "largest_other")}}
 
 
+def profile_fused_step(params, dims, device: str = "cuda") -> dict:
+    """127 steps of ``decoder_step_fused``, one traced run after a warm-up
+    (see the module's docstring).  ``device`` "cpu" rehearses it with the
+    kernels' plain versions, and then ``summarize`` raises: no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_tpu_torch.headline import make_session
+    from whisper_tpu_torch.models import whisper
+    from whisper_tpu_torch.ops import decoder_kernels as dk
+
+    p = make_session(device, params)._decoder_params
+    g = torch.Generator(device=device).manual_seed(0)
+    enc = torch.randn(FUSED_BUCKET, dims.max_source_positions, dims.d_model,
+                      generator=g, device=device).to(
+                          p["decoder"]["tok_emb"].dtype)
+    prompt = torch.tensor([[50258, 50259, 50359, 50363]] * FUSED_BUCKET,
+                          device=device)
+    n_p = prompt.shape[1]
+    sw = dk.build_step_weights(p, dims)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def steps():
+        """A prefill, then the 127 steps as a function to run."""
+        logits, cache = whisper.decoder_prefill(p, dims, prompt, enc,
+                                                n_p + DECODE_STEPS + 1)
+        k_tm = dk.cache_to_time_major(cache.self_k)
+        v_tm = dk.cache_to_time_major(cache.self_v)
+        first = logits[:, -1].argmax(-1)
+        sync()
+
+        def run():
+            tok = first
+            for i in range(DECODE_STEPS):
+                tok = dk.decoder_step_fused(
+                    p, sw, dims, tok, n_p + i, k_tm, v_tm, cache.cross_k,
+                    cache.cross_v)[0].argmax(-1)
+            sync()
+
+        return run
+
+    steps()()
+    run = steps()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    wall = time.perf_counter() - t0
+    out = summarize(prof)
+    return {"config": "decoder_step_fused", "steps": DECODE_STEPS,
+            "traced_wall_s": wall, "device_ops": out["device_ops"],
+            "device_ops_per_step": out["device_ops"] / DECODE_STEPS,
+            "device_busy_ms": out["device_busy_ms"],
+            "device_ms_per_step": out["device_busy_ms"] / DECODE_STEPS,
+            "call_timelines_us": call_timelines(prof),
+            **{k: out[k] for k in ("kernels", "calls", "largest_other")}}
+
+
 def main() -> None:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(prog="whisper_tpu_torch.profile_ladder")
+    parser.add_argument("--fused-step", action="store_true",
+                        help="run only the fully fused decode step")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("whisper_tpu_torch.profile_ladder needs a CUDA card")
     from torch.profiler import ProfilerActivity, profile
@@ -187,6 +295,11 @@ def main() -> None:
         torch.cuda.synchronize()
     dims = get_dims(MODEL_ID)
     params = init_params(dims, seed=0)
+    if args.fused_step:
+        out = profile_fused_step(params, dims)
+        out["device"] = card
+        print(json.dumps(out), flush=True)
+        return
     audio = synth_audio(AUDIO_SECONDS)
     runs = [(*config, None) for config in CONFIGS]
     draft = (quantize_params(params), dims)
