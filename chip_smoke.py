@@ -8,9 +8,10 @@ What it does, in order (any failure raises and exits non-zero):
 2. Builds the CUDA kernels of ``whisper_tpu_torch/csrc`` with nvcc
    (sm_90a; one nvcc per source, all started together) and prints the
    build time, each kernel's register use and, from the library's SASS,
-   that B1 and B2's products hold warpgroup products and tensor-map loads,
-   B3, B4, B6 and both B7 kernels bulk copies, B7-i8 int8 mma.sync,
-   B10c's two kernels cp.async, ldmatrix and bf16 mma.sync, and of B10a's
+   that B1 and the products of B2, B9a and B9b hold warpgroup products and
+   tensor-map loads, B3, B4, B6 and both B7 kernels bulk copies, B7-i8 int8
+   mma.sync, B10c's two kernels cp.async, ldmatrix and bf16 mma.sync, and
+   of B10a's
    and B10b's kernels the LN-and-product kernel cp.async and fp64 mma.sync
    (DMMA), B10a's attention cp.async, B10b's bulk copies and the O product
    cp.async, ldmatrix and bf16 mma.sync.
@@ -45,7 +46,12 @@ What it does, in order (any failure raises and exits non-zero):
    and two tiled wgmma products) is also held at 1, 1,499 and 24,000 rows at
    d = 512 and at 1,500 rows at d = 1,024 and 1,280, must put exactly its
    three kernels on the card a call, and is printed beside the bf16
-   composition of five PyTorch calls that computes the same function; B3
+   composition of five PyTorch calls that computes the same function; B9a
+   and B9b (B2's LayerNorm kernel and products under names of their own)
+   at 1, 1,499 and 24,000 rows, B9a also at d = 1,280 and B9b at d = 128,
+   384 and 768, two calls of each bitwise equal, two device operations a
+   call for B9a and four for B9b, each beside the bf16 composition of
+   PyTorch calls that computes it; B3
    (bulk copies of its cache rows) at pos 0, 70 and S - 1 with mixed pads,
    with ``pos`` as an int and as a device tensor (bitwise the same output and
    caches), one operation a call with and without ``pad_count``.  An empty
@@ -536,6 +542,7 @@ def check_kernels(card: str) -> list:
     check_b6_edges(card, by_name, randn, (qx, k8, v8, ks, vs), qm)
     check_b2_b3_edges(card, by_name, randn, mlp_args, med_args,
                       (qs, kn, vn, kc, vc))
+    check_b9_edges(card, by_name, randn, qkv_args, qkv_med, out_args)
 
     # B7 against the kernels it repeats: every query bitwise the
     # single-token kernel's (B4, B6) on that query, at T = 1, 2, 5, 9 and 17
@@ -946,6 +953,114 @@ def check_b2_b3_edges(card: str, by_name, randn, mlp_args, med_args,
           f"and caches; with pos on the device {dev_ms:.4f} ms a call "
           f"(an int: {by_name['self_attend_step']['ms']:.4f}) on {card}",
           flush=True)
+
+
+def check_b9_edges(card: str, by_name, randn, qkv_args, qkv_med,
+                   out_args) -> None:
+    """B9a and B9b (B2's LayerNorm kernel and tiled products under names of
+    their own) at the edges of the tiles: B9a at 1 and 1,499 rows and at
+    d = 1,280, B9b at 1, 1,499 and 24,000 rows and at d = 128, 384 and 768,
+    each within 2 bf16 steps of the plain version; two calls of each
+    bitwise equal; B9a puts its two kernels on the card a call and B9b its
+    four, each by its name; their times beside the bf16 composition of
+    PyTorch calls that computes the same function (no one call does)."""
+    import torch
+    import torch.nn.functional as F
+
+    from whisper_tpu_torch.ops import encoder_block as eb
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    bf = torch.bfloat16
+
+    def qweight(rows_, cols, s):
+        return (torch.randint(-127, 128, (rows_, cols), generator=g,
+                              device="cuda").to(bf)
+                * torch.tensor(s, dtype=bf))
+
+    def first(a, n_rows):
+        return a.reshape(1, -1, a.shape[-1])[:, :n_rows].contiguous()
+
+    cases = []
+
+    def hold(label, call, plain, args):
+        got = call(*args)
+        steps = _bf16_steps(got, plain(*args))
+        if steps > 2.0 or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{label}: {steps:.3g} bf16 steps from the "
+                                 "plain version")
+        if not torch.equal(got, call(*args)):
+            raise AssertionError(f"{label}: two calls differ")
+        cases.append(f"{label} {steps:.3g}")
+
+    qkv, out_mlp = (eb.fused_ln_qkv, eb.fused_ln_qkv_plain), \
+        (eb.fused_out_mlp, eb.fused_out_mlp_plain)
+    for n_rows in (1, 1499, None):
+        hold(f"B9a {n_rows or 24000} x 512", *qkv,
+             (first(qkv_args[0], n_rows),) + qkv_args[1:])
+        hold(f"B9b {n_rows or 24000} x 512", *out_mlp,
+             (first(out_args[0], n_rows), first(out_args[1], n_rows))
+             + out_args[2:])
+    hold("B9a' 1500 x 1024", *qkv, qkv_med)
+    dl = 1280
+    hold(f"B9a 1500 x {dl}", *qkv,
+         (randn(1, 1500, dl), 1.0 + randn(dl, scale=0.1),
+          randn(dl, scale=0.1), qweight(dl, 3 * dl, 2e-4),
+          randn(3 * dl, scale=0.1)))
+    for dw in (128, 384, 768):
+        fw = 4 * dw
+        hold(f"B9b 1500 x {dw}", *out_mlp,
+             (randn(1, 1500, dw), randn(1, 1500, dw), qweight(dw, dw, 3e-4),
+              randn(dw, scale=0.1), 1.0 + randn(dw, scale=0.1),
+              randn(dw, scale=0.1), qweight(dw, fw, 3e-4),
+              randn(fw, scale=0.1), qweight(fw, dw, 3e-4),
+              randn(dw, scale=0.1)))
+
+    for row, call, args, want in (
+            ("fused_ln_qkv", eb.fused_ln_qkv, qkv_args,
+             ("qkv_ln_kernel", "QkvBias")),
+            ("fused_ln_qkv_d1024", eb.fused_ln_qkv, qkv_med,
+             ("qkv_ln_kernel", "QkvBias")),
+            ("fused_out_mlp", eb.fused_out_mlp, out_args,
+             ("OutProjResidual", "out_ln_kernel", "OutFc1Gelu",
+              "OutFc2Residual"))):
+        names = set()
+        ops = _device_ops_per_call(lambda: call(*args), names=names)
+        by_name[row]["device_ops_per_call"] = ops
+        if ops != len(want) or not all(any(fn in n for n in names)
+                                       for fn in want):
+            raise AssertionError(f"{row}'s wrapper puts {ops} operations on "
+                                 f"the card a call, expected its kernels "
+                                 f"{want}: {sorted(names)}")
+
+    def qkv_composition(x, ln_s, ln_b, w, bias):
+        r = F.layer_norm(x, x.shape[-1:], ln_s, ln_b, 1e-5)
+        return F.linear(r, w.t(), bias)
+
+    def out_mlp_composition(x, ctx, o_w, o_b, ln_s, ln_b, w1, b1, w2, b2):
+        y = x + F.linear(ctx, o_w.t(), o_b)
+        r = F.layer_norm(y, y.shape[-1:], ln_s, ln_b, 1e-5)
+        h = F.gelu(F.linear(r, w1.t(), b1), approximate="tanh")
+        return y + F.linear(h, w2.t(), b2)
+
+    for row, comp, args, calls in (
+            ("fused_ln_qkv", qkv_composition, qkv_args,
+             "layer_norm, linear"),
+            ("fused_ln_qkv_d1024", qkv_composition, qkv_med,
+             "layer_norm, linear"),
+            ("fused_out_mlp", out_mlp_composition, out_args,
+             "linear, add, layer_norm, linear, gelu, linear, add")):
+        comp_ms = _median_ms(lambda: comp(*args))
+        by_name[row]["composition_ms"] = comp_ms
+        peak = by_name[row]["bound_ms"] / by_name[row]["ms"]
+        print(f"[kernel] {row}: {by_name[row]['ms']:.4f} ms "
+              f"({100 * peak:.1f}% of its bound), "
+              f"{by_name[row]['device_ops_per_call']:g} device operations a "
+              f"call, against a composition of PyTorch calls in bf16 "
+              f"({calls}; no one call computes it) {comp_ms:.4f} ms on "
+              f"{card}", flush=True)
+    print(f"[kernel] B9a and B9b: bf16 steps from the plain version at rows "
+          f"x d: " + "; ".join(cases) + f"; two calls of each bitwise equal "
+          f"on {card}", flush=True)
 
 
 # The kernels of the headline main path (x5, a 301.574 s file: streamed

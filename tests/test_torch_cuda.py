@@ -405,7 +405,8 @@ def test_b8_kernel_matches_plain_and_inserts_in_place(gen, pos, pads):
 
 
 @pytest.mark.parametrize("rows,d", [(1, 512), (1499, 512), (24000, 512),
-                                    (1499, 1024), (77, 384), (130, 1280)])
+                                    (1499, 1024), (77, 384), (130, 1280),
+                                    (1, 128), (257, 128), (1501, 768)])
 def test_b9a_kernel_matches_plain(gen, rows, d):
     args = (_randn(gen, 1, rows, d), 1.0 + _randn(gen, d, scale=0.1),
             _randn(gen, d, scale=0.1), _randn(gen, d, 3 * d, scale=0.04),
@@ -417,19 +418,74 @@ def test_b9a_kernel_matches_plain(gen, rows, d):
     _assert_close(got, encoder_block.fused_ln_qkv_plain(*args))
 
 
-@pytest.mark.parametrize("rows,d", [(1, 512), (1499, 512), (24000, 512),
-                                    (77, 384), (130, 768)])
-def test_b9b_kernel_matches_plain(gen, rows, d):
+def _b9b_args(gen, rows, d):
     f = 4 * d
-    args = (_randn(gen, 1, rows, d), _randn(gen, 1, rows, d),
+    return (_randn(gen, 1, rows, d), _randn(gen, 1, rows, d),
             _randn(gen, d, d, scale=0.04), _randn(gen, d, scale=0.1),
             1.0 + _randn(gen, d, scale=0.1), _randn(gen, d, scale=0.1),
             _randn(gen, d, f, scale=0.04), _randn(gen, f, scale=0.1),
             _randn(gen, f, d, scale=0.04), _randn(gen, d, scale=0.1))
+
+
+@pytest.mark.parametrize("rows,d", [(1, 512), (1499, 512), (24000, 512),
+                                    (77, 384), (130, 768), (1, 128),
+                                    (257, 128), (1, 384), (1501, 768)])
+def test_b9b_kernel_matches_plain(gen, rows, d):
+    args = _b9b_args(gen, rows, d)
     before = encoder_block.out_mlp_launches
     got = encoder_block.fused_out_mlp(*args)
     assert encoder_block.out_mlp_launches == before + 1
     _assert_close(got, encoder_block.fused_out_mlp_plain(*args))
+
+
+@pytest.mark.parametrize("which", ["B9a", "B9b"])
+def test_b9_two_calls_are_bitwise_equal_and_launch_their_kernels(gen, which):
+    """No sum of B9a's or B9b's products depends on timing: two calls give
+    the same bits.  B9a puts its two kernels on the card a call, B9b its
+    four, each under a name of its own."""
+    if which == "B9a":
+        d = 512
+        args = (_randn(gen, 1, 1499, d), 1.0 + _randn(gen, d, scale=0.1),
+                _randn(gen, d, scale=0.1), _randn(gen, d, 3 * d, scale=0.04),
+                _randn(gen, 3 * d, scale=0.1))
+        call, want = encoder_block.fused_ln_qkv, ("qkv_ln_kernel", "QkvBias")
+    else:
+        args = _b9b_args(gen, 1499, 512)
+        call = encoder_block.fused_out_mlp
+        want = ("OutProjResidual", "out_ln_kernel", "OutFc1Gelu",
+                "OutFc2Residual")
+    assert torch.equal(call(*args), call(*args))
+    ops = _device_ops(lambda: call(*args))
+    assert sum(ops.values()) == 3 * len(want), ops
+    for fn in want:
+        assert sum(n for k, n in ops.items() if fn in k) == 3, (fn, ops)
+
+
+def test_b9_wrappers_raise_on_a_misaligned_or_strided_operand(gen):
+    """A CUDA operand the kernels cannot read in vectors (off the 16-byte
+    grid, or not contiguous) raises; nothing falls back to the plain
+    version."""
+    d = 512
+    qkv = [_randn(gen, 1, 64, d), 1.0 + _randn(gen, d, scale=0.1),
+           _randn(gen, d, scale=0.1), _randn(gen, d, 3 * d, scale=0.04),
+           _randn(gen, 3 * d, scale=0.1)]
+    out_mlp = list(_b9b_args(gen, 64, d))
+    before = (encoder_block.ln_qkv_launches, encoder_block.out_mlp_launches)
+    for call, args in ((encoder_block.fused_ln_qkv, qkv),
+                       (encoder_block.fused_out_mlp, out_mlp)):
+        x = args[0]
+        flat = torch.empty(x.numel() + 8, dtype=BF, device="cuda")
+        off = flat[1:1 + x.numel()].view(x.shape)   # 2 bytes off the grid
+        off.copy_(x)
+        with pytest.raises(ValueError, match="16-byte"):
+            call(off, *args[1:])
+        i = 3 if call is encoder_block.fused_ln_qkv else 2  # a weight
+        strided = args[i].T.contiguous().T     # same shape, transposed
+        bad = args[:i] + [strided] + args[i + 1:]
+        with pytest.raises(ValueError, match="contiguous"):
+            call(*bad)
+    assert (encoder_block.ln_qkv_launches,
+            encoder_block.out_mlp_launches) == before
 
 
 @pytest.mark.parametrize("b,d", [(1, 512), (16, 512), (17, 512), (5, 1024),

@@ -501,7 +501,8 @@ def test_every_csrc_file_is_named_for_the_build():
     ("B6", "cross_attention_dequant.cu"),
     ("B7-dq", "cross_attention_multi.cu"),
     ("B7-i8", "cross_attention_multi.cu"), ("B10c", "decoder_mlp.cu"),
-    ("B10a", "decoder_self_block.cu"), ("B10b", "decoder_cross_block.cu")])
+    ("B10a", "decoder_self_block.cu"), ("B10b", "decoder_cross_block.cu"),
+    ("B9a", "encoder_block.cu"), ("B9b", "encoder_block.cu")])
 def test_kernel_variants_cut_the_sources_as_they_are(kernel, source):
     """``kernel_variants`` makes its timed variants by replacing text of the
     CUDA sources; every replacement must still find its text, and each
@@ -517,7 +518,9 @@ def test_kernel_variants_cut_the_sources_as_they_are(kernel, source):
                   "B7-i8": (kv.i8_source, kv.I8_VARIANTS),
                   "B10c": (kv.b10c_source, kv.B10C_VARIANTS),
                   "B10a": (kv.b10_source, kv.B10_VARIANTS),
-                  "B10b": (kv.b10_source, kv.B10_VARIANTS)}[kernel]
+                  "B10b": (kv.b10_source, kv.B10_VARIANTS),
+                  "B9a": (kv.b9_source, kv.B9_VARIANTS),
+                  "B9b": (kv.b9_source, kv.B9_VARIANTS)}[kernel]
     text = (kernels.CSRC / source).read_text()
     variants = {name: cut(text, name) for name in names}
     assert variants["as_built"].count("WT_EXPORT") == text.count("WT_EXPORT")
@@ -555,6 +558,59 @@ def test_profile_ladder_reads_the_x4_kernels():
             ("ln_gemm_kernel", "decoder_block.cuh"),
             ("out_proj_kernel", "decoder_block.cuh")):
         assert f"\n{fn}(" in (kernels.CSRC / src).read_text()
+        assert fn in pl.KERNELS
+
+
+def test_profile_ladder_tells_b9_from_b2():
+    """B9a and B9b run B2's pieces (a LayerNorm kernel a warp a row, the
+    gemm_sm90.cuh product) under names of their own, so that a trace of a
+    run with the fused encoder block, where whisper-medium runs B9a and B2
+    side by side, gives each its own time; a call of B9a or B9b is read as
+    the span of its kernels."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    from whisper_tpu_torch import profile_ladder as pl
+
+    gemm = ("void gemm::gemm_kernel<{}, (anonymous namespace)::{}>("
+            "CUtensorMap, CUtensorMap, int, int, int, int, "
+            "(anonymous namespace)::{})")
+    ln = ("void (anonymous namespace)::{}<{}>({} const*, __nv_bfloat16 "
+          "const*, __nv_bfloat16 const*, __nv_bfloat16*, int)")
+    names = {"B2 (LayerNorm)": ln.format("mlp_ln_kernel", 512,
+                                         "__nv_bfloat16"),
+             "B9a (LayerNorm)": ln.format("qkv_ln_kernel", 1024,
+                                          "__nv_bfloat16"),
+             "B9b (LayerNorm)": ln.format("out_ln_kernel", 512, "float"),
+             "B2 (FC1 product)": gemm.format(2, "BiasGelu", "BiasGelu"),
+             "B2 (FC2 product)": gemm.format(1, "BiasResidual",
+                                             "BiasResidual"),
+             "B9a (QKV product)": gemm.format(2, "QkvBias", "QkvBias"),
+             "B9b (O product)": gemm.format(2, "OutProjResidual",
+                                            "OutProjResidual"),
+             "B9b (FC1 product)": gemm.format(2, "OutFc1Gelu", "OutFc1Gelu"),
+             "B9b (FC2 product)": gemm.format(1, "OutFc2Residual",
+                                              "OutFc2Residual")}
+    for label, name in names.items():
+        assert pl._kernel_of(name) == label, name
+    assert pl.CALLS["B9a"] == ("qkv_ln_kernel", "QkvBias")
+    assert pl.CALLS["B9b"] == ("OutProjResidual", "out_ln_kernel",
+                               "OutFc1Gelu", "OutFc2Residual")
+    events = [SimpleNamespace(name=names[label], device_type=DeviceType.CUDA,
+                              time_range=SimpleNamespace(start=s, end=e))
+              for label, s, e in (
+                  ("B9a (LayerNorm)", 0, 1), ("B9a (QKV product)", 1, 4),
+                  ("B2 (LayerNorm)", 4, 5), ("B9b (O product)", 10, 12),
+                  ("B9b (LayerNorm)", 12, 13), ("B9b (FC1 product)", 13, 17),
+                  ("B9b (FC2 product)", 17, 20))]
+    spans = pl.call_spans(SimpleNamespace(events=lambda: events))
+    assert spans == {"B9a": {"calls": 1, "mean_ms": 4e-3},
+                     "B9b": {"calls": 1, "mean_ms": 10e-3}}
+    # the names it looks for are the kernels' and epilogues' in the source
+    text = (kernels.CSRC / "encoder_block.cu").read_text()
+    for fn in pl.CALLS["B9a"] + pl.CALLS["B9b"]:
+        assert f"\n{fn}(" in text or f"struct {fn} {{" in text, fn
         assert fn in pl.KERNELS
 
 

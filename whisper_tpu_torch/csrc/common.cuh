@@ -10,7 +10,6 @@
 #include <cfloat>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 
 typedef __nv_bfloat16 bf16;
 

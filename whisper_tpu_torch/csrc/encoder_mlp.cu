@@ -20,7 +20,7 @@
 // 4 MB of weights 375 times a call.  So the function is three kernels on
 // the stream, launched by the one entry point:
 //   1. mlp_ln_kernel: r = bf16(LN(x)), a warp a row (ln_row of
-//      encoder_ffn.cuh, which the O-projection + MLP kernel shares).
+//      encoder_ffn.cuh, which the fused encoder block's LN kernels share).
 //   2. h = bf16(gelu_tanh(r.W1 + b1)) and
 //   3. out = bf16(x + (h.W2 + b2)): the tiled wgmma product of
 //      gemm_sm90.cuh (TMA-fed ring, two consumer warpgroups, 128 x 128
@@ -94,18 +94,6 @@ int launch_ln(const void* x, const void* lns, const void* lnb, void* r, int N,
   return (int)cudaGetLastError();
 }
 
-constexpr int SMS = 132;  // streaming multiprocessors of an H100
-
-// Two blocks an SM where the grid has more blocks than the card has SMs,
-// else one with the deeper ring (gemm_sm90.cuh).
-template <class Epilogue>
-int product(const void* a, const void* b, int M, int N, int K, Epilogue epi,
-            cudaStream_t stream) {
-  if (gemm::tiles(M, N) > SMS)
-    return gemm::launch<2>(a, b, M, N, K, epi, stream);
-  return gemm::launch<1>(a, b, M, N, K, epi, stream);
-}
-
 }  // namespace
 
 WT_EXPORT int wt_fused_encoder_mlp(const void* x, const void* lns,
@@ -126,9 +114,9 @@ WT_EXPORT int wt_fused_encoder_mlp(const void* x, const void* lns,
     default: return (int)cudaErrorInvalidValue;
   }
   if (rc != 0) return rc;
-  rc = product(r, w1, n, f, d, BiasGelu{(const bf16*)b1, (bf16*)h, f}, s);
+  rc = gemm::run(r, w1, n, f, d, BiasGelu{(const bf16*)b1, (bf16*)h, f}, s);
   if (rc != 0) return rc;
-  return product(h, w2, n, d, f,
-                 BiasResidual{(const bf16*)b2, (const bf16*)x, (bf16*)out, d},
-                 s);
+  return gemm::run(h, w2, n, d, f,
+                   BiasResidual{(const bf16*)b2, (const bf16*)x, (bf16*)out, d},
+                   s);
 }

@@ -1,8 +1,10 @@
 // A tiled bf16 product for Hopper with its epilogue as a template argument:
 // C[M, N] = epilogue(A[M, K] . B[K, N]), A and B row-major bf16 in device
 // memory, the sum in fp32.  Used by the encoder MLP (encoder_mlp.cu: FC1
-// with bias + GELU, FC2 with bias + residual); any dense product of the port
-// whose operands are laid out so can take it.
+// with bias + GELU, FC2 with bias + residual) and the fused encoder block
+// (encoder_block.cu: the QKV product; the O product into an fp32 residual,
+// FC1, FC2); any dense product of the port whose operands are laid out so
+// can take it.
 //
 // Design: one block of two warpgroups and a warp per 128 x 128 tile of C,
 // the column tiles of one row band in neighbouring blocks, so that a band of
@@ -29,7 +31,8 @@
 //     most one block an SM anyway.  Measured on the H100, 128 x 256 tiles
 //     (one block an SM, 128 accumulator registers) were faster at no shape
 //     of the encoder MLP, and the TMA loads, not the products, are what the
-//     kernel waits for (PERF.md, section 6).
+//     kernel waits for (PERF.md, section 6).  `run` makes that choice from
+//     the grid's size.
 #pragma once
 
 #include "hopper.cuh"
@@ -168,6 +171,17 @@ int launch(const void* a, const void* b, int M, int N, int K, Epilogue epi,
       <<<m_tiles * n_tiles, NT, Ring<BLOCKS>::SMEM_BYTES, stream>>>(
           ma, mb, M, N, K, n_tiles, epi);
   return (int)cudaGetLastError();
+}
+
+constexpr int SMS = 132;  // streaming multiprocessors of an H100
+
+// `launch` with two blocks an SM where the grid has more blocks than the
+// card has SMs, else with one block and the deeper ring.
+template <class Epilogue>
+int run(const void* a, const void* b, int M, int N, int K, Epilogue epi,
+        cudaStream_t stream) {
+  if (tiles(M, N) > SMS) return launch<2>(a, b, M, N, K, epi, stream);
+  return launch<1>(a, b, M, N, K, epi, stream);
 }
 
 }  // namespace gemm

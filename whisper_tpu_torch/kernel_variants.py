@@ -1,4 +1,4 @@
-"""What holds the ten kernels redesigned for Hopper, by timed variants:
+"""What holds the twelve kernels redesigned for Hopper, by timed variants:
 ``python -m whisper_tpu_torch.kernel_variants``.
 
 **B1** (encoder attention).  Builds ``csrc/attention.cu`` as it is and in
@@ -135,6 +135,18 @@ one CUDA graph:
   column written into the block's own shared memory, not its owner's):
   what the LN-and-product kernel's parts cost.
 
+**B9a and B9b** (the fused encoder block: B9a a LayerNorm kernel and the
+QKV product, B9b the O product into an fp32 residual, a LayerNorm kernel
+and the two FFN products, all on ``csrc/gemm_sm90.cuh``).  Builds
+``csrc/encoder_block.cu`` as it is and cut short, and times one call of B9a
+at whisper-base bucket 16 and at whisper-medium's one chunk, and of B9b at
+bucket 16, eagerly and in a CUDA graph of 20 calls:
+
+- ``products_only``: the wrappers launch their products and not their
+  LayerNorm kernels;
+- ``ln_only``: the LayerNorm kernels alone;
+- ``no_oproj``: B9b without its O product.
+
 Prints one JSON line for each kernel with the card's name and power limit.
 It needs a CUDA card and nvcc and raises without them.
 """
@@ -222,7 +234,7 @@ def b4_source(text: str, name: str) -> str:
 
 B2_VARIANTS = ("as_built", "no_mma", "no_load", "no_epilogue", "one_block",
                "two_blocks")
-_B2_CHOICE = "if (gemm::tiles(M, N) > SMS)"
+_B2_CHOICE = "if (tiles(M, N) > SMS)"
 _B2_MMA = ("        wgmma_m64n128k16_ss<1>(acc, da + 2 * kk, "
            "db + kk * (16 * 128 / 16), 1);\n")
 _B2_LOADS = """        tma_load_2d(dst, &map_a, full(slot), s * BK, m0);
@@ -261,6 +273,27 @@ def b2_source(text: str, name: str) -> str:
             text,
             "__fadd_rn(__high2float(xr), __fadd_rn(v1, __high2float(b)))",
             "v1")
+    return text
+
+
+B9_VARIANTS = ("as_built", "products_only", "ln_only", "no_oproj")
+_B9_SKIP = "namespace {\n\ntemplate <class... A>\nint skip(A...) { return 0; }\n"
+
+
+def b9_source(text: str, name: str) -> str:
+    """``encoder_block.cu``'s text cut into the named variant: the entry
+    points skip their LayerNorm kernels (``products_only``), their products
+    (``ln_only``) or B9b's O product (``no_oproj``)."""
+    if name != "as_built":
+        text = _swap(text, "namespace {\n", _B9_SKIP)
+    if name == "products_only":
+        text = _swap(text, "launch_ln(qkv_ln_of(d),", "skip(qkv_ln_of(d),")
+        text = _swap(text, "launch_ln(out_ln_of(d),", "skip(out_ln_of(d),")
+    if name == "ln_only":
+        text = _swap(text, "gemm::run(", "skip(")
+    if name == "no_oproj":
+        text = _swap(text, "int rc = gemm::run(ctx, ow,",
+                     "int rc = skip(ctx, ow,")
     return text
 
 
@@ -984,6 +1017,94 @@ def b2(card: str) -> dict:
     return {"kernel": "B2", "card": card, "ms_per_call": ms}
 
 
+def b9(card: str) -> list:
+    """B9a and B9b as built and cut short (``B9_VARIANTS``; B9a without
+    ``no_oproj``, which does not touch it), ms a call eagerly and in a
+    CUDA graph of 20 calls: B9a at whisper-base bucket 16 (24,000 rows,
+    d = 512) and at whisper-medium's one chunk (1,500 rows, d = 1,024),
+    B9b at bucket 16."""
+    import torch
+
+    libs = _build("encoder_block.cu", b9_source, B9_VARIANTS)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    bf, ptr, i32 = torch.bfloat16, ctypes.c_void_p, ctypes.c_int
+    for lib in libs.values():
+        lib.wt_fused_ln_qkv.argtypes = [ptr] * 7 + [i32] * 3 + [ptr]
+        lib.wt_fused_out_mlp.argtypes = [ptr] * 14 + [i32] * 3 + [ptr]
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda")
+                * scale).to(bf)
+
+    def qkv_call(n, d):
+        x, w, bias = randn(n, d), randn(d, 3 * d, scale=0.04), randn(3 * d)
+        ln_s, ln_b = 1.0 + randn(d, scale=0.1), randn(d, scale=0.1)
+        r, out = torch.empty_like(x), torch.empty(n, 3 * d, dtype=bf,
+                                                  device="cuda")
+
+        def run(lib, on):
+            return lib.wt_fused_ln_qkv(
+                x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), w.data_ptr(),
+                bias.data_ptr(), r.data_ptr(), out.data_ptr(), n, d, 3 * d,
+                on)
+        return run
+
+    def out_mlp_call(n, d):
+        f = 4 * d
+        x, ctx = randn(n, d), randn(n, d)
+        o_w, w1, w2 = (randn(*s, scale=0.04) for s in ((d, d), (d, f),
+                                                       (f, d)))
+        o_b, b1, b2 = randn(d, scale=0.1), randn(f, scale=0.1), \
+            randn(d, scale=0.1)
+        ln_s, ln_b = 1.0 + randn(d, scale=0.1), randn(d, scale=0.1)
+        y32 = torch.empty(n, d, device="cuda")
+        r, out = torch.empty_like(x), torch.empty_like(x)
+        h = torch.empty(n, f, dtype=bf, device="cuda")
+
+        def run(lib, on):
+            return lib.wt_fused_out_mlp(
+                x.data_ptr(), ctx.data_ptr(), o_w.data_ptr(), o_b.data_ptr(),
+                ln_s.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
+                b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), y32.data_ptr(),
+                r.data_ptr(), h.data_ptr(), out.data_ptr(), n, d, f, on)
+        return run
+
+    stream = torch.cuda.current_stream().cuda_stream
+    lines = []
+    for kernel, n, d, run, names in (
+            ("B9a", 24000, 512, qkv_call(24000, 512), B9_VARIANTS[:3]),
+            ("B9a", 1500, 1024, qkv_call(1500, 1024), B9_VARIANTS[:3]),
+            ("B9b", 24000, 512, out_mlp_call(24000, 512), B9_VARIANTS)):
+        def call(lib, on):
+            rc = run(lib, on)
+            if rc != 0:
+                raise RuntimeError(f"launch failed with CUDA error {rc}")
+
+        def graph_of(lib, calls=20):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                capturing = torch.cuda.current_stream().cuda_stream
+                for _ in range(calls):
+                    call(lib, capturing)
+            return graph
+
+        for name in names:   # built and warm before a capture
+            call(libs[name], stream)
+        graphs = {v: graph_of(libs[v]) for v in names}
+        ms = {v: [] for v in names}
+        graph_ms = {v: [] for v in names}
+        for order in (names, names[::-1]):
+            for name in order:
+                ms[name].append(_median_ms(
+                    lambda i: call(libs[name], stream)))
+                graph_ms[name].append(_median_ms(
+                    lambda i: graphs[name].replay(), calls=1) / 20)
+        lines.append({"kernel": kernel, "card": card, "rows": n, "d": d,
+                      "ms_per_call": ms,
+                      "ms_per_call_in_a_cuda_graph": graph_ms})
+    return lines
+
+
 def b3(card: str) -> dict:
     import torch
 
@@ -1038,7 +1159,7 @@ def main() -> None:
 
     runs = {"b1": b1, "b4": b4, "b6_b7_dequant": b6_b7_dequant,
             "b7_int8": b7_int8, "b10c": b10c, "b10ab": b10ab, "b2": b2,
-            "b3": b3}
+            "b3": b3, "b9": b9}
     parser = argparse.ArgumentParser(prog="whisper_tpu_torch.kernel_variants")
     parser.add_argument("kernels", nargs="*", metavar="KERNEL",
                         help=f"any of {', '.join(runs)} (default: all)")

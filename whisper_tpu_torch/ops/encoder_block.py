@@ -13,9 +13,17 @@ has one kernel.  ``fused_out_mlp`` replaces ``fused_out_mlp``
 (``_out_mlp_kernel``): LN2 reads the UNROUNDED fp32 residual y32, the
 final residual adds the bf16-ROUNDED y, as there.
 
-On a CUDA tensor each launches its hand-written Hopper kernel in
-``csrc/encoder_block.cu``; on a CPU tensor it takes its ``*_plain``
-version.  Any other device raises.
+On a CUDA tensor each launches its hand-written Hopper kernels in
+``csrc/encoder_block.cu``, B2's pieces under names of their own: B9a a
+LayerNorm kernel into a bf16 scratch r, then the tiled ``wgmma`` product
+of ``csrc/gemm_sm90.cuh`` with the bias in its epilogue (two device
+operations a call); B9b that product for the O-projection with its
+residual written in fp32 into a scratch y32, the LayerNorm kernel over
+y32, and the two FFN products, FC1 with bias and GELU into a scratch h,
+FC2 with bias and the residual on the rounded y32 (four device operations
+a call).  The scratch belongs to the call (``torch.empty``): 172 MB for
+B9b at whisper-base bucket 16.  On a CPU tensor each takes its
+``*_plain`` version.  Any other device raises.
 
 ``fits_vmem`` and ``qkv_chunk_plan`` are copies of the JAX package's VMEM
 predicates (and ``mlp_fits_vmem``/``mlp_chunk_plan`` of
@@ -39,7 +47,7 @@ from whisper_tpu_torch.ops.encoder_mlp import F_CHUNK, KERNEL_WIDTHS, LN_EPS
 
 QKV_WIDTHS = KERNEL_WIDTHS              # B9a d_model instantiations (B2's)
 OUT_MLP_WIDTHS = (128, 384, 512, 768)   # B9b d_model instantiations
-QKV_COL_TILE = 128  # B9a's output-column tile: 3d must be a multiple
+QKV_COL_TILE = 128  # the product's column tile: 3d must be a multiple
 
 ln_qkv_launches = 0   # B9a kernel launches since the last reset
 out_mlp_launches = 0  # B9b kernel launches since the last reset
@@ -137,10 +145,11 @@ def fused_ln_qkv(x: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor,
                            ("w_qkv", w_qkv, (d, c)), ("b_qkv", b_qkv, (c,))):
         check_operand(name, a, bf, shape, x.device)
     out = torch.empty((b, t, c), dtype=bf, device=x.device)
+    r = torch.empty_like(x)  # LN1(x): scratch of this call
     lib = kernels.library()
     kernels.check(lib.wt_fused_ln_qkv(
         x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), w_qkv.data_ptr(),
-        b_qkv.data_ptr(), out.data_ptr(), b * t, d, c,
+        b_qkv.data_ptr(), r.data_ptr(), out.data_ptr(), b * t, d, c,
         kernels.stream_ptr(x.device)), "fused_ln_qkv")
     ln_qkv_launches += 1
     return out
@@ -184,11 +193,16 @@ def fused_out_mlp(x: torch.Tensor, ctx: torch.Tensor, o_w: torch.Tensor,
                            ("w2", w2, (f, d)), ("b2", b2, (d,))):
         check_operand(name, a, bf, shape, x.device)
     out = torch.empty_like(x)
+    # scratch of this call: the fp32 residual, LN2 of it, the FFN's hidden
+    y32 = torch.empty((b * t, d), dtype=torch.float32, device=x.device)
+    r = torch.empty_like(x)
+    h = torch.empty((b * t, f), dtype=bf, device=x.device)
     lib = kernels.library()
     kernels.check(lib.wt_fused_out_mlp(
         x.data_ptr(), ctx.data_ptr(), o_w.data_ptr(), o_b.data_ptr(),
         ln_s.data_ptr(), ln_b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(), out.data_ptr(), b * t, d, f,
+        w2.data_ptr(), b2.data_ptr(), y32.data_ptr(), r.data_ptr(),
+        h.data_ptr(), out.data_ptr(), b * t, d, f,
         kernels.stream_ptr(x.device)), "fused_out_mlp")
     out_mlp_launches += 1
     return out

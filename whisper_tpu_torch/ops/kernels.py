@@ -61,10 +61,11 @@ SIGNATURES = {
     # q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, pad_count, out,
     # batch, heads, S, layer, pos, stream
     "wt_self_attend_step_int8": [_P] * 9 + [_I] * 5 + [_P],
-    # x, ln_s, ln_b, w_qkv, b_qkv, out, rows, d, columns, stream
-    "wt_fused_ln_qkv": [_P] * 6 + [_I, _I, _I, _P],
-    # x, ctx, o_w, o_b, ln_s, ln_b, w1, b1, w2, b2, out, rows, d, f, stream
-    "wt_fused_out_mlp": [_P] * 11 + [_I, _I, _I, _P],
+    # x, ln_s, ln_b, w_qkv, b_qkv, r scratch, out, rows, d, columns, stream
+    "wt_fused_ln_qkv": [_P] * 7 + [_I, _I, _I, _P],
+    # x, ctx, o_w, o_b, ln_s, ln_b, w1, b1, w2, b2, y32 scratch, r scratch,
+    # h scratch, out, rows, d, f, stream
+    "wt_fused_out_mlp": [_P] * 14 + [_I, _I, _I, _P],
     # x, ln, w1, b1, w2, b2, h scratch, out, batch, d, f, stream
     "wt_decoder_mlp": [_P] * 8 + [_I, _I, _I, _P],
     # q, k_scale, v_scale, k8, v8, out, batch, T, heads, S, layer, s_valid,

@@ -12,10 +12,19 @@ each, on one JSON line: the wall time of the traced run (the profiler slows
 the host, so it is no e2e figure), the device operations it launched
 (kernels, copies and memsets) in all and per decode step, the device's busy
 time and share, the mean in-situ time of each hand-written kernel (B2 as
-its three kernels, whose means add up to one call), the mean span of a
-call of the wrappers that launch several kernels on one another's heels
-(B10c's FC1 and FC2, which overlap; B10a, B10b), and the five largest other
-device operations.  It needs a CUDA card and raises without one.
+its three kernels, whose means add up to one call; B9a and B9b as theirs),
+the mean span of a call of the wrappers that launch several kernels on one
+another's heels (B9a, B9b; B10c's FC1 and FC2, which overlap; B10a, B10b),
+and the five largest other device operations.  It needs a CUDA card and
+raises without one.
+
+``python -m whisper_tpu_torch.profile_ladder --fused-block`` runs only the
+fused encoder block's two runs: the 301.574 s file at x5 with both fused
+flags (B9a and B9b at d = 512), and a 4 s file at whisper-medium (random
+weights, 16 tokens) at x5 with ``fused_encoder_block`` (B9a at d = 1,024,
+B1, B2), one JSON line each as above.  The file also runs against an older
+tree of the package (that tree on ``PYTHONPATH``, this file run by its
+path).
 
 ``python -m whisper_tpu_torch.profile_ladder --fused-step`` runs only
 whisper-base's fully fused decode step (``decoder_step_fused``: B10a, B10b
@@ -34,15 +43,24 @@ import re
 import time
 import warnings
 
-# kernel function name in csrc/ -> the kernel's number
-KERNELS = {"attn_kernel": "B1", "out_mlp_kernel": "B9b",
+# kernel function name in csrc/ (for a gemm_kernel, its epilogue's) -> the
+# kernel's number
+KERNELS = {"attn_kernel": "B1",
            "mlp_ln_kernel": "B2 (LayerNorm)", "BiasGelu": "B2 (FC1 product)",
            "BiasResidual": "B2 (FC2 product)",
            "self_step_int8_kernel": "B8", "self_step_kernel": "B3",
            "cross_step_kernel": "B4", "cross_dequant_kernel": "B6",
            "cross_multi_int8_kernel": "B7-i8",
            "cross_multi_dequant_kernel": "B7-dq",
-           "log_mel_kernel": "B5", "ln_qkv_kernel": "B9a",
+           "log_mel_kernel": "B5",
+           "qkv_ln_kernel": "B9a (LayerNorm)", "QkvBias": "B9a (QKV product)",
+           "OutProjResidual": "B9b (O product)",
+           "out_ln_kernel": "B9b (LayerNorm)",
+           "OutFc1Gelu": "B9b (FC1 product)",
+           "OutFc2Residual": "B9b (FC2 product)",
+           # the first ports of B9a and B9b, one kernel each: so that this
+           # file, run by its path against an older tree, times that tree
+           "ln_qkv_kernel": "B9a", "out_mlp_kernel": "B9b",
            "fc1_kernel": "B10c (FC1)", "fc2_kernel": "B10c (FC2)",
            "ln_gemm_kernel": "B10a/B10b (LN and product)",
            "self_attn_kernel": "B10a (attention)",
@@ -52,7 +70,10 @@ KERNELS = {"attn_kernel": "B1", "out_mlp_kernel": "B9b",
 # stream: a call's in-situ time is the span from its first kernel's start to
 # its last one's end (B10c's FC2 starts before FC1 ends, so the two kernels'
 # own times overlap and do not add up to a call).
-CALLS = {"B10a": ("ln_gemm_kernel", "self_attn_kernel", "out_proj_kernel"),
+CALLS = {"B9a": ("qkv_ln_kernel", "QkvBias"),
+         "B9b": ("OutProjResidual", "out_ln_kernel", "OutFc1Gelu",
+                 "OutFc2Residual"),
+         "B10a": ("ln_gemm_kernel", "self_attn_kernel", "out_proj_kernel"),
          "B10b": ("ln_gemm_kernel", "cross_attn_kernel", "out_proj_kernel"),
          "B10c": ("fc1_kernel", "fc2_kernel")}
 CONFIGS = (("x5", "x5", {}), ("x6", "x6", {}), ("x7", "x7", {}),
@@ -65,13 +86,17 @@ SPECULATIVE = (
     ("x4+speculative (own int8 weights as draft, shared encoder)", "x4"))
 DECODE_STEPS = 127  # 128 new tokens: the prefill gives the first
 FUSED_BUCKET = 16   # the 301.574 s file's 12 chunks in a bucket of 16
+FUSED_BLOCK = CONFIGS[-1]
+# (label, model_id, seconds of audio, new tokens) of the whisper-medium run
+MEDIUM = ("whisper-medium x5+fused_encoder_block, 4 s",
+          "openai/whisper-medium", 4.0, 16)
 
 
-def _named(fn: str, name: str, ends: str = "<(>") -> bool:
+def _named(fn: str, name: str) -> bool:
     """``fn`` is the whole of a name in ``name`` (attn_kernel is not
-    cross_attn_kernel): a kernel's, or for gemm_kernel<BN, Epilogue> its
-    epilogue's."""
-    return re.search(rf"(?:^|[\s:]){re.escape(fn)}(?:[{ends}]|$)",
+    cross_attn_kernel): a kernel's, or for gemm_kernel<BLOCKS, Epilogue>
+    its epilogue's."""
+    return re.search(rf"(?:^|[\s:]){re.escape(fn)}(?:[<(>]|$)",
                      name) is not None
 
 
@@ -80,10 +105,6 @@ def _kernel_of(name: str):
         if _named(fn, name):
             return label
     return None
-
-
-def _is(fn: str, name: str) -> bool:
-    return _named(fn, name, "<(")
 
 
 def summarize(prof) -> dict:
@@ -133,7 +154,7 @@ def _calls(prof):
         for label, seq in CALLS.items():
             group = events[i:i + len(seq)]
             if len(group) == len(seq) and all(
-                    _is(fn, e.name) for fn, e in zip(seq, group)):
+                    _named(fn, e.name) for fn, e in zip(seq, group)):
                 yield label, group
                 i += len(seq)
                 break
@@ -171,9 +192,11 @@ def call_timelines(prof) -> dict:
 
 
 def profile_config(label: str, variant: str, overrides: dict, params,
-                   audio, draft=None) -> dict:
+                   audio, draft=None, max_new_tokens: int = 128) -> dict:
     """One traced run of the workload; ``draft``: (params, dims) of a draft
-    model, and then the run decodes speculatively with draft_k 4."""
+    model, and then the run decodes speculatively with draft_k 4;
+    ``overrides`` may name another ``model_id`` (``params`` None: random
+    weights from seed 0)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -182,7 +205,7 @@ def profile_config(label: str, variant: str, overrides: dict, params,
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)  # x6's precedence note
         session = make_session("cuda", params, variant, **overrides)
-    decode = {}
+    decode = {"max_new_tokens": max_new_tokens}
     if draft is not None:
         session.set_draft_model(*draft, share_encoder=True)
         decode = dict(speculative=True, draft_k=4)
@@ -199,7 +222,7 @@ def profile_config(label: str, variant: str, overrides: dict, params,
     return {"config": label, "traced_wall_s": wall,
             "device_ops": out["device_ops"],
             "device_ops_per_decode_step_upper":
-                out["device_ops"] / DECODE_STEPS,
+                out["device_ops"] / (max_new_tokens - 1),
             "device_busy_ms": busy_ms,
             "device_busy_share_of_traced_wall": busy_ms / 1e3 / wall,
             **{k: out[k] for k in ("kernels", "calls", "largest_other")}}
@@ -272,6 +295,8 @@ def main() -> None:
     parser = argparse.ArgumentParser(prog="whisper_tpu_torch.profile_ladder")
     parser.add_argument("--fused-step", action="store_true",
                         help="run only the fully fused decode step")
+    parser.add_argument("--fused-block", action="store_true",
+                        help="run only the fused encoder block's two runs")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("whisper_tpu_torch.profile_ladder needs a CUDA card")
@@ -301,6 +326,17 @@ def main() -> None:
         print(json.dumps(out), flush=True)
         return
     audio = synth_audio(AUDIO_SECONDS)
+    if args.fused_block:
+        label, model_id, seconds, tokens = MEDIUM
+        for out in (profile_config(*FUSED_BLOCK, params, audio),
+                    profile_config(label, "x5",
+                                   dict(model_id=model_id,
+                                        fused_encoder_block=True),
+                                   None, synth_audio(seconds),
+                                   max_new_tokens=tokens)):
+            out["device"] = card
+            print(json.dumps(out), flush=True)
+        return
     runs = [(*config, None) for config in CONFIGS]
     draft = (quantize_params(params), dims)
     runs += [(label, variant, {}, draft) for label, variant in SPECULATIVE]
