@@ -9,8 +9,9 @@ What it does, in order (any failure raises and exits non-zero):
    (sm_90a; one nvcc per source, all started together) and prints the
    build time, each kernel's register use and, from the library's SASS,
    that B1 and the products of B2, B9a and B9b hold warpgroup products and
-   tensor-map loads, B3, B4, B6 and both B7 kernels bulk copies, B7-i8 int8
-   mma.sync, B10c's two kernels cp.async, ldmatrix and bf16 mma.sync, and
+   tensor-map loads, B3, B8, B4, B6 and both B7 kernels bulk copies, B7-i8
+   int8 mma.sync, that B5's two kernels are there, B10c's two kernels
+   cp.async, ldmatrix and bf16 mma.sync, and
    of B10a's
    and B10b's kernels the LN-and-product kernel cp.async and fp64 mma.sync
    (DMMA), B10a's attention cp.async, B10b's bulk copies and the O product
@@ -21,7 +22,9 @@ What it does, in order (any failure raises and exits non-zero):
    encoder block, B10c in the hybrid decode step, B7 with five queries a
    row as the speculative verify pass gives it at draft_k = 4, B10a and B10b
    in the fully fused decode step; B5 at the one-shot limit of 7,680
-   frames; B2 and B9a also at whisper-medium's d=1024), prints the
+   frames, beside the composition of PyTorch calls around ``torch.stft``
+   (cuFFT) that computes the same function; B2 and B9a also at
+   whisper-medium's d=1024), prints the
    largest difference, the time of one call of each (median of five runs
    of 20 calls), the least time the card could take for the same work (the
    larger of its bytes over 3.35 TB/s and its operations over the peak rate
@@ -54,7 +57,13 @@ What it does, in order (any failure raises and exits non-zero):
    PyTorch calls that computes it; B3
    (bulk copies of its cache rows) at pos 0, 70 and S - 1 with mixed pads,
    with ``pos`` as an int and as a device tensor (bitwise the same output and
-   caches), one operation a call with and without ``pad_count``.  An empty
+   caches), one operation a call with and without ``pad_count``.  B8 the
+   same at S = 131, 132 and 448, its four buffers bitwise the plain
+   version's; B5 at 1, 16, 17, 3,000 and 7,680 valid frames in buckets of
+   3,000 and 12,000, both wires, 80 and 128 mels (within 1e-4 of the plain
+   version, or of its float64 evaluation where the plain version itself is
+   farther from that), two calls bitwise equal and two device operations a
+   call.  An empty
    kernel launched through the same C interface is timed and printed beside
    the kernels whose bound is under 20 microseconds.
 4. Holds the port on the card against the port on the CPU (the kernels'
@@ -174,8 +183,9 @@ def check_sass(lib_path) -> None:
     instructions, read from the library with cuobjdump: the encoder
     attention kernel and the encoder MLP's products must hold warpgroup
     products (HGMMA) and tensor-map loads (UTMALDG), the self- and the
-    cross-attention steps and both verify passes bulk copies (UBLKCP), the
-    int8 verify pass int8 mma.sync (IMMA), the decoder MLP's two kernels
+    cross-attention steps (B3, B8, B4, B6) and both verify passes bulk
+    copies (UBLKCP), the int8 verify pass int8 mma.sync (IMMA), B5's two
+    kernels present (its FFT on the CUDA cores), the decoder MLP's two kernels
     cp.async copies (LDGSTS), ldmatrix (LDSM) and bf16 mma.sync (HMMA), and
     of the fused attention blocks the LN-and-product kernel cp.async copies
     and fp64 mma.sync (DMMA), B10a's attention cp.async copies, B10b's bulk
@@ -195,6 +205,9 @@ def check_sass(lib_path) -> None:
     want = {"11attn_kernelE": ("HGMMA", "UTMALDG"),
             "11gemm_kernelI": ("HGMMA", "UTMALDG"),
             "16self_step_kernelE": ("UBLKCP",),
+            "21self_step_int8_kernelE": ("UBLKCP",),
+            "19mel_spectrum_kernelI": (),
+            "20mel_normalize_kernelE": (),
             "17cross_step_kernelE": ("UBLKCP",),
             "20cross_dequant_kernelE": ("UBLKCP",),
             "26cross_multi_dequant_kernelE": ("UBLKCP",),
@@ -235,6 +248,7 @@ def check_kernels(card: str) -> list:
     from whisper_tpu_torch.ops import decoder_kernels, encoder_block
     from whisper_tpu_torch.ops import kernels, log_mel, self_attention
     from whisper_tpu_torch.pipeline.chunk import mel_frame_bucket
+    from whisper_tpu_torch.profile_ladder import mel_composition
 
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(0)
@@ -303,7 +317,6 @@ def check_kernels(card: str) -> list:
         randn(b, h, dh)
     kc, vc = randn(n_l, b, h, s_max, dh), randn(n_l, b, h, s_max, dh)
     kc2, vc2 = kc.clone(), vc.clone()
-    pads = torch.zeros(b, dtype=torch.int32, device=dev)
     # no pad_count, as the x5 step calls it
     rows.append(("self_attend_step", (self_attention, "launches"),
                  "self_attention.cu",
@@ -320,16 +333,16 @@ def check_kernels(card: str) -> list:
 
     # B8 (x7): the same step against the int8 self cache with per-row
     # scales; the kernel and the plain version each get their own copies
-    # of the four buffers they write.
+    # of the four buffers they write.  No pad_count, as the x7 step calls it.
     i8 = self_attention.quantize_self_cache(kc, vc)
     i8_plain = [x.clone() for x in i8]
     rows.append(("self_attend_step_int8", (self_attention, "int8_launches"),
                  "self_attention_int8.cu",
                  "whisper_tpu/ops/self_attention.py:327",
                  lambda: self_attention.self_attend_step_int8(
-                     qs, kn, vn, *i8, layer, pos, pads),
+                     qs, kn, vn, *i8, layer, pos),
                  lambda: self_attention.self_attend_step_int8_plain(
-                     qs, kn, vn, *i8_plain, layer, pos, pads), 2.0))
+                     qs, kn, vn, *i8_plain, layer, pos), 2.0))
     work["self_attend_step_int8"] = (
         b * h * (2 * (pos + 1) * (dh + 4) + 4 * dh * 2 + 2 * (dh + 4)),
         4 * b * h * (pos + 1) * dh, "int8")
@@ -376,11 +389,18 @@ def check_kernels(card: str) -> list:
                  "whisper_tpu/ops/pallas_mel.py:129",
                  lambda: log_mel.log_mel(wire, nv, 80, nf),
                  lambda: log_mel.log_mel_plain(wire, nv, 80, nf), 1e-4))
-    # Per frame: the 400-sample window against 201 cos and 201 sin columns,
-    # then 201 powers against 80 mel filters, two operations a product.
-    work["log_mel"] = (wire.numel() * 2 + 2 * 400 * 201 * 4 + 201 * 80 * 4
-                       + 80 * nf * 4,
-                       nf * (2 * 400 * 201 * 2 + 201 * 80 * 2), "fp32")
+    # What the inputs need: the valid frames' samples, the [80, n_frames]
+    # output and the tables (twiddles, window, bands, weights) once; per
+    # valid frame an FFT of 400 real points (2.5 N log2 N), the power of 201
+    # bins (3 operations each) and the 391 nonzero mel weights (2 each).
+    tables = sum(x.numel() * x.element_size()
+                 for x in log_mel._device_tables(torch.device(dev), 80))
+    nnz = log_mel.mel_bands(80)[1].size
+    work["log_mel"] = (((nv - 1) * golden.HOP + golden.WIN) * 2
+                       + 80 * nf * 4 + tables,
+                       nv * (2.5 * 400 * np.log2(400) + 3 * 201 + 2 * nnz),
+                       "fp32")
+    library["log_mel"] = lambda: mel_composition(wire, nv, 80, nf)
 
     # B9a and B9b: one encoder layer's two kernels (fused_encoder_block),
     # dequantized int8 weights as the encoder passes them.
@@ -543,6 +563,7 @@ def check_kernels(card: str) -> list:
     check_b2_b3_edges(card, by_name, randn, mlp_args, med_args,
                       (qs, kn, vn, kc, vc))
     check_b9_edges(card, by_name, randn, qkv_args, qkv_med, out_args)
+    check_b8_b5_edges(card, by_name, randn, (qs, kn, vn, kc, vc), wire)
 
     # B7 against the kernels it repeats: every query bitwise the
     # single-token kernel's (B4, B6) on that query, at T = 1, 2, 5, 9 and 17
@@ -1061,6 +1082,143 @@ def check_b9_edges(card: str, by_name, randn, qkv_args, qkv_med,
     print(f"[kernel] B9a and B9b: bf16 steps from the plain version at rows "
           f"x d: " + "; ".join(cases) + f"; two calls of each bitwise equal "
           f"on {card}", flush=True)
+
+
+def check_b8_b5_edges(card: str, by_name, randn, b3_args, wire) -> None:
+    """B8 and B5 beyond the main path's shape, and what their redesign
+    promises.  B8: pos 0, 70 and S - 1 with mixed pads and with none, at
+    S = 132, 131 (the scale planes off the 16-byte grid) and 448 (more
+    shared memory than a launch gets unasked), ``pos`` as an int and as a
+    device tensor: output and the four buffers bitwise equal between the
+    two, the buffers bitwise the plain version's, the output within 2 bf16
+    steps of it; one device operation a call with and without
+    ``pad_count``.  B5: 1, 16, 17, 3,000 and 7,680 valid frames in buckets
+    of 3,000 and 12,000, int16 and float32 wires, 80 and 128 mels: within
+    1e-4 of the plain version or, where the plain version itself stands
+    farther than 1e-4 from its function evaluated in float64 (cuBLAS orders
+    its fp32 sums by the shape), within 1e-4 of that; the invalid frames
+    exactly 0, two calls bitwise equal, its two kernels and nothing else on
+    the card a call; the cuFFT composition's error beside its time."""
+    import numpy as np
+    import torch
+
+    from whisper_tpu_torch.frontend import golden
+    from whisper_tpu_torch.ops import log_mel, self_attention
+    from whisper_tpu_torch.ops.common import disable_tf32
+    from whisper_tpu_torch.profile_ladder import mel_composition
+
+    q, kn, vn, kc, vc = b3_args
+    n_b, n_h = q.shape[:2]
+    worst = 0.0
+    for s_ in (132, 131, 448):
+        k8, v8, ks, vs = self_attention.quantize_self_cache(
+            randn(2, n_b, n_h, s_, 64), randn(2, n_b, n_h, s_, 64))
+        for pos, mixed in itertools.product((0, 70, s_ - 1), (True, False)):
+            pad = (torch.clamp(torch.arange(n_b, device="cuda") % 5
+                               * (pos // 4), max=pos).to(torch.int32)
+                   if mixed else None)
+            bufs = [[x.clone() for x in (k8, v8, ks, vs)] for _ in range(3)]
+            pos_t = torch.tensor([pos], dtype=torch.int32, device="cuda")
+            got = self_attention.self_attend_step_int8(q, kn, vn, *bufs[0], 1,
+                                                       pos, pad)
+            got_t = self_attention.self_attend_step_int8(q, kn, vn, *bufs[1],
+                                                         1, pos_t, pad)
+            want = self_attention.self_attend_step_int8_plain(
+                q, kn, vn, *bufs[2], 1, pos, pad)
+            steps = _bf16_steps(got, want)
+            worst = max(worst, steps)
+            same = torch.equal(got, got_t) and all(
+                torch.equal(a, b_) and torch.equal(a, c)
+                for a, b_, c in zip(*bufs))
+            if steps > 2.0 or not same:
+                raise AssertionError(
+                    f"B8 at S = {s_}, pos {pos}, pads {mixed}: {steps:.3g} "
+                    "bf16 steps; int and device pos and the plain version's "
+                    f"buffers bitwise equal: {same}")
+    i8 = self_attention.quantize_self_cache(kc, vc)
+    pos_t = torch.tensor([70], dtype=torch.int32, device="cuda")
+    zero = torch.zeros(n_b, dtype=torch.int32, device="cuda")
+    ops = {_device_ops_per_call(lambda: self_attention.self_attend_step_int8(
+        q, kn, vn, *i8, 3, p_, pad_))
+        for p_ in (70, pos_t) for pad_ in (None, zero)}
+    by_name["self_attend_step_int8"]["device_ops_per_call"] = max(ops)
+    if ops != {1.0}:
+        raise AssertionError(f"B8's wrapper puts {sorted(ops)} operations on "
+                             "the card a call, expected its one kernel")
+    dev_ms = _median_ms(lambda: self_attention.self_attend_step_int8(
+        q, kn, vn, *i8, 3, pos_t))
+    by_name["self_attend_step_int8"]["device_pos_ms"] = dev_ms
+    print(f"[kernel] B8: 1 device operation a call with and without "
+          f"pad_count, pos an int or a device tensor; at S = 132, 131, 448 "
+          f"and pos 0, 70, S - 1, mixed pads and none, at most {worst:.3g} "
+          f"bf16 steps from the plain version, the four buffers bitwise its "
+          f"own, the two forms of pos bitwise equal; with pos on the device "
+          f"{dev_ms:.4f} ms a call (an int: "
+          f"{by_name['self_attend_step_int8']['ms']:.4f}) on {card}",
+          flush=True)
+
+    disable_tf32()
+    rng = np.random.default_rng(4)
+    worst, cases, by_float64 = 0.0, 0, []
+    for (valid, n_frames), n_mels, form in itertools.product(
+            ((1, 3000), (16, 3000), (17, 3000), (3000, 3000), (1, 12000),
+             (16, 12000), (17, 12000), (3000, 12000), (7680, 12000)),
+            (80, 128), ("int16", "float32")):
+        n = valid * golden.HOP
+        t_ = np.arange(n) / 16000.0
+        audio = (0.3 * np.sin(2 * np.pi * 440 * t_)
+                 + 0.05 * rng.standard_normal(n)).astype(np.float32)
+        padded = golden.reflect_pad(audio)
+        if form == "int16":
+            padded = np.round(np.clip(padded, -1, 1) * 32767).astype(np.int16)
+        x = torch.from_numpy(padded).cuda()
+        got = log_mel.log_mel(x, valid, n_mels, n_frames)
+        again = log_mel.log_mel(x, valid, n_mels, n_frames)
+        want = log_mel.log_mel_plain(x, valid, n_mels, n_frames)
+        exact = log_mel.log_mel_float64(x, valid, n_mels, n_frames)
+        err, err64, plain64 = (float((a - b).abs().max())
+                               for a, b in ((got, want), (got, exact),
+                                            (want, exact)))
+        label = f"{valid} of {n_frames} frames, {n_mels} mels, {form}"
+        if err > 1e-4 and plain64 > 1e-4:
+            by_float64.append(f"{label}: {err:.3g} from the plain version, "
+                              f"which is {plain64:.3g} from float64; "
+                              f"{err64:.3g} from float64")
+            err = err64
+        worst = max(worst, err)
+        if (err > 1e-4 or not torch.equal(got, again)
+                or not bool((got[:, valid:] == 0).all())):
+            raise AssertionError(
+                f"B5 at {label}: {err:.3g} from the plain version (tolerance "
+                f"1e-4; the plain version {plain64:.3g} from float64), two "
+                f"calls bitwise {torch.equal(got, again)}")
+        cases += 1
+        if valid in (1, 7680):
+            names = set()
+            ops = _device_ops_per_call(
+                lambda: log_mel.log_mel(x, valid, n_mels, n_frames),
+                names=names)
+            if ops != 2.0 or not all(
+                    any(k in n_ for n_ in names)
+                    for k in ("mel_spectrum_kernel", "mel_normalize_kernel")):
+                raise AssertionError(f"B5's wrapper puts {ops} operations on "
+                                     f"the card a call: {sorted(names)}")
+    by_name["log_mel"]["device_ops_per_call"] = 2.0
+    nv, nf = 7680, 12000
+    comp_err = float((mel_composition(wire, nv, 80, nf)
+                      - log_mel.log_mel_plain(wire, nv, 80, nf)).abs().max())
+    row = by_name["log_mel"]
+    row["library_err"] = comp_err
+    print(f"[kernel] B5: 2 device operations a call (its two kernels); "
+          f"within {worst:.3g} of the plain version at {cases} cases (1, 16, "
+          f"17, 3,000, 7,680 valid frames in buckets of 3,000 and 12,000, "
+          f"int16 and float32, 80 and 128 mels; held against float64 where "
+          f"the plain version is out: {by_float64 or 'none'}), invalid "
+          f"frames 0, two calls bitwise equal; at 7,680 of 12,000 frames "
+          f"{row['ms']:.4f} ms "
+          f"against the composition around torch.stft {row['library_ms']:.4f}"
+          f" ms (its error against the plain version {comp_err:.3g}) on "
+          f"{card}", flush=True)
 
 
 # The kernels of the headline main path (x5, a 301.574 s file: streamed

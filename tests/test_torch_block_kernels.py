@@ -154,6 +154,34 @@ def test_b8_plain_matches_jax(pos, pad):
     _assert_bf16_close(ctx, jctx, steps=1.0)
 
 
+@pytest.mark.parametrize("pos", [0, 5, 11])
+def test_b8_pos_as_tensor_matches_int_and_jax(pos):
+    """``pos`` as a one-element int32 tensor (what the card's kernel reads
+    from device memory) at the first row, mid-cache and a later row, with
+    mixed ``pad_count``: the plain version and the wrapper on CPU tensors
+    give the int form's output and four buffers bit for bit, and the
+    interpret-mode kernel's ctx within 1 bf16 step, as
+    ``test_b8_plain_matches_jax`` holds the int form."""
+    k, v, q, kn, vn = _b8_inputs(40 + pos)
+    layer, pad = 1, np.array([0, min(4, pos), pos], np.int32)
+    jbuf = quantize_pack_self(k[0], v[0])
+    jctx, *_ = self_attend_step_packed_int8(
+        q[0], kn[0], vn[0], *jbuf, jnp.int32(layer), jnp.int32(pos),
+        jnp.asarray(pad), interpret=True)
+    pad_t = torch.from_numpy(pad)
+    pos_t = torch.tensor([pos], dtype=torch.int32)
+    outs = []
+    for fn, p in ((t_self.self_attend_step_int8_plain, pos),
+                  (t_self.self_attend_step_int8_plain, pos_t),
+                  (t_self.self_attend_step_int8, pos_t)):
+        bufs = list(t_self.quantize_self_cache(k[1], v[1]))
+        outs.append((fn(q[1], kn[1], vn[1], *bufs, layer, p, pad_t), bufs))
+    for ctx, bufs in outs[1:]:
+        assert torch.equal(ctx, outs[0][0])
+        assert all(torch.equal(a, b) for a, b in zip(bufs, outs[0][1]))
+    _assert_bf16_close(outs[0][0], jctx, steps=1.0)
+
+
 def test_b8_masked_rows_hold_anything():
     """Rows after ``pos`` and before ``pad_count`` get exactly zero weight
     whatever stale int8 and scale they hold."""

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from whisper_tpu_torch.frontend import golden
+from whisper_tpu_torch.frontend.mel import normalize
 from whisper_tpu_torch.ops import attention, cross_attention, encoder_mlp
 from whisper_tpu_torch.ops import decoder_kernels, encoder_block
 from whisper_tpu_torch.ops import log_mel, self_attention
@@ -402,6 +403,172 @@ def test_b8_kernel_matches_plain_and_inserts_in_place(gen, pos, pads):
     kn8, kns = self_attention.quant_rows(kn)
     assert torch.equal(mine[0][2, :, :, pos], kn8)
     assert torch.equal(mine[2][2, :, :, pos], kns)
+
+
+def _b8_inputs(gen, n_l, b, h, s):
+    q = _randn(gen, b, h, 64, scale=0.125)
+    kn, vn = _randn(gen, b, h, 64), _randn(gen, b, h, 64)
+    bufs = self_attention.quantize_self_cache(
+        _randn(gen, n_l, b, h, s, 64), _randn(gen, n_l, b, h, s, 64))
+    return q, kn, vn, bufs
+
+
+@pytest.mark.parametrize("s", [131, 132, 448])
+@pytest.mark.parametrize("mixed_pads", [False, True])
+def test_b8_pos_tensor_is_bitwise_the_int_at_every_edge(gen, s, mixed_pads):
+    """At pos 0, 70 and S - 1, with mixed pads or none (a null pointer), in
+    caches of 131 rows (the scale planes off the 16-byte grid), 132 and 448
+    (more shared memory than a launch gets unasked): ``pos`` as an int and
+    as a tensor give the same output and buffers bit for bit, the four
+    buffers equal the plain version's bit for bit, ctx within 2 bf16 steps
+    of it."""
+    n_l, b, h = 3, 4, 6
+    q, kn, vn, bufs = _b8_inputs(gen, n_l, b, h, s)
+    for pos in (0, 70, s - 1):
+        pad = (torch.tensor([0, min(5, pos), pos, pos // 3], dtype=torch.int32,
+                            device="cuda") if mixed_pads else None)
+        copies = [[x.clone() for x in bufs] for _ in range(3)]
+        pos_t = torch.tensor([pos], dtype=torch.int32, device="cuda")
+        before = self_attention.int8_launches
+        got = self_attention.self_attend_step_int8(q, kn, vn, *copies[0], 1,
+                                                   pos, pad)
+        got_t = self_attention.self_attend_step_int8(q, kn, vn, *copies[1], 1,
+                                                     pos_t, pad)
+        assert self_attention.int8_launches == before + 2
+        want = self_attention.self_attend_step_int8_plain(
+            q, kn, vn, *copies[2], 1, pos_t, pad)
+        _assert_close(got, want)
+        assert torch.equal(got, got_t)
+        for a, b_, c in zip(*copies):
+            assert torch.equal(a, b_) and torch.equal(a, c)
+
+
+def test_b8_pos_outside_the_cache_writes_nothing_and_gives_nan(gen):
+    """A ``pos`` tensor of S or of -1 leaves the four buffers as they were
+    and returns NaN (the wrapper refuses such an int); a tensor of another
+    type or place is refused."""
+    n_l, b, h, s = 2, 4, 8, 131
+    q, kn, vn, bufs = _b8_inputs(gen, n_l, b, h, s)
+    pad = torch.tensor([0, 2, 0, 9], dtype=torch.int32, device="cuda")
+    for bad in (s, -1):
+        a = [x.clone() for x in bufs]
+        p = torch.tensor([bad], dtype=torch.int32, device="cuda")
+        got = self_attention.self_attend_step_int8(q, kn, vn, *a, 1, p, pad)
+        torch.cuda.synchronize()
+        assert torch.isnan(got.float()).all()
+        assert all(torch.equal(x, y) for x, y in zip(a, bufs))
+        with pytest.raises(ValueError, match="outside the cache"):
+            self_attention.self_attend_step_int8(q, kn, vn, *a, 1, bad, pad)
+    for p in (torch.tensor([3], dtype=torch.int64, device="cuda"),
+              torch.tensor([3], dtype=torch.int32),
+              torch.tensor([3, 4], dtype=torch.int32, device="cuda")):
+        with pytest.raises(ValueError, match="pos: a tensor"):
+            self_attention.self_attend_step_int8(q, kn, vn, *bufs, 1, p, pad)
+
+
+def test_b8_launches_one_device_operation(gen):
+    """With and without ``pad_count``, with ``pos`` in either form, the
+    wrapper's launch is all it puts on the card: no zero ``pad_count`` is
+    made."""
+    n_l, b, h, s = 2, 16, 8, 132
+    q, kn, vn, bufs = _b8_inputs(gen, n_l, b, h, s)
+    pad = torch.zeros(b, dtype=torch.int32, device="cuda")
+    p = torch.tensor([70], dtype=torch.int32, device="cuda")
+    for pos, pads in ((70, None), (70, pad), (p, None), (p, pad)):
+        ops = _device_ops(lambda: self_attention.self_attend_step_int8(
+            q, kn, vn, *bufs, 1, pos, pads))
+        assert sum(ops.values()) == 3 and len(ops) == 1, ops
+
+
+def test_b8_replays_in_a_cuda_graph(gen):
+    """One step captured in a CUDA graph with ``pos`` a device tensor and
+    replayed at other positions (the tensor and new q, k_new, v_new copied
+    in): each replay's output and buffers equal an eager call's at that
+    position bit for bit."""
+    n_l, b, h, s = 2, 16, 8, 132
+    q, kn, vn, bufs = _b8_inputs(gen, n_l, b, h, s)
+    eager_bufs = [x.clone() for x in bufs]
+    pos_t = torch.tensor([0], dtype=torch.int32, device="cuda")
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):   # built and warm before the capture
+        self_attention.self_attend_step_int8(
+            q, kn, vn, *[x.clone() for x in bufs], 1, pos_t)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = self_attention.self_attend_step_int8(q, kn, vn, *bufs, 1,
+                                                        pos_t)
+    for pos in (3, 4, 70, 131):
+        fresh = [_randn(gen, b, h, 64, scale=sc) for sc in (0.125, 1.0, 1.0)]
+        for x, y in zip((q, kn, vn), fresh):
+            x.copy_(y)
+        pos_t.fill_(pos)
+        graph.replay()
+        eager = self_attention.self_attend_step_int8(*fresh, *eager_bufs, 1,
+                                                     pos)
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+        assert all(torch.equal(x, y) for x, y in zip(bufs, eager_bufs))
+
+
+def _b5_wire(valid, wire, seed):
+    rng = np.random.default_rng(seed)
+    n = valid * golden.HOP
+    t = np.arange(n) / 16000.0
+    audio = (0.3 * np.sin(2 * np.pi * 440 * t)
+             + 0.05 * rng.standard_normal(n)).astype(np.float32)
+    padded = golden.reflect_pad(audio)
+    if wire == "int16":
+        padded = np.round(np.clip(padded, -1, 1) * 32767.0).astype(np.int16)
+    return torch.from_numpy(padded).cuda()
+
+
+@pytest.mark.parametrize("valid,n_frames", [
+    (1, 3000), (16, 3000), (17, 3000), (3000, 3000), (1, 12000),
+    (16, 12000), (17, 12000), (3000, 12000), (7680, 12000)])
+@pytest.mark.parametrize("n_mels", [80, 128])
+@pytest.mark.parametrize("wire", ["int16", "float32"])
+def test_b5_edges_match_plain_and_repeat(gen, valid, n_frames, n_mels, wire):
+    """One valid frame, a tile of 16 and one frame more, a whole bucket of
+    3,000 and the one-shot limit of 7,680 in a bucket of 12,000, both wires,
+    80 and 128 mels: within 1e-4 of the plain version on the normalized
+    mel, or, where the plain version itself stands farther than 1e-4 from
+    its function evaluated in float64 (``log_mel_float64``: cuBLAS orders
+    its fp32 sums by the shape), within 1e-4 of that; the frames past
+    ``valid`` exactly 0; two calls bitwise equal; the spectrum kernel alone
+    (``log_spec``) normalized as the plain version normalizes gives the
+    call's output bit for bit."""
+    disable_tf32()
+    x = _b5_wire(valid, wire, valid + n_frames)
+    got = log_mel.log_mel(x, valid, n_mels=n_mels, n_frames=n_frames)
+    want = log_mel.log_mel_plain(x, valid, n_mels=n_mels, n_frames=n_frames)
+    again = log_mel.log_mel(x, valid, n_mels=n_mels, n_frames=n_frames)
+    exact = log_mel.log_mel_float64(x, valid, n_mels, n_frames)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (n_mels, n_frames)
+    assert torch.isfinite(got).all()
+    err, err64, plain64 = (float((a - b).abs().max())
+                           for a, b in ((got, want), (got, exact),
+                                        (want, exact)))
+    assert err <= 1e-4 or (plain64 > 1e-4 and err64 <= 1e-4), (
+        err, err64, plain64)
+    assert bool((got[:, valid:] == 0).all())
+    assert torch.equal(got, again)
+    raw = log_mel.log_spec(x, n_mels, n_frames, valid)
+    assert torch.equal(normalize(raw, raw[:, :valid].amax(), valid), got)
+    assert bool((raw[:, valid:] == 0).all())
+
+
+def test_b5_launches_its_two_kernels(gen):
+    """A call puts the spectrum kernel and the normalization kernel on the
+    card and nothing else."""
+    x = _b5_wire(7680, "int16", 0)
+    ops = _device_ops(lambda: log_mel.log_mel(x, 7680, n_mels=80,
+                                              n_frames=12000))
+    assert sum(ops.values()) == 6 and len(ops) == 2, ops
+    assert any("mel_spectrum_kernel" in k for k in ops), ops
+    assert any("mel_normalize_kernel" in k for k in ops), ops
 
 
 @pytest.mark.parametrize("rows,d", [(1, 512), (1499, 512), (24000, 512),

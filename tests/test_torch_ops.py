@@ -442,6 +442,53 @@ def test_b5_plain_matches_jax(seconds, n_mels, wire, extra):
     assert np.all(got[:, nv:] == 0.0)
 
 
+def test_b5_twiddles_are_fp64_cos_sin_rounded_once():
+    """The FFT's one twiddle table holds cos and sin of 2 pi k / 400 for
+    k = 0..399, each computed in float64 and rounded to float32 once (the
+    radix-8 and radix-5 constants are its entries 50, 80 and 160); the
+    window is the plain version's Hann window; the device tables are these
+    and ``mel_bands``'s."""
+    tw, win = t_mel.fft_tables()
+    assert tw.dtype == np.float32 and tw.shape == (400, 2)
+    ang = 2.0 * np.pi * np.arange(400) / 400.0
+    np.testing.assert_array_equal(tw[:, 0], np.cos(ang).astype(np.float32))
+    np.testing.assert_array_equal(tw[:, 1], np.sin(ang).astype(np.float32))
+    assert tw[50, 0] == np.float32(np.cos(np.pi / 4))
+    np.testing.assert_array_equal(win, golden.hann_window_periodic(400))
+    on_device = t_mel._device_tables(torch.device("cpu"), 80)
+    for got, want in zip(on_device, (tw, win) + t_mel.mel_bands(80)):
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_b5_mel_bands_cover_every_nonzero_and_sum_as_the_dense(n_mels):
+    """Each filter's band (first bin, count) holds every nonzero weight of
+    its row of ``fb_t`` and only those; the banded sum of a power spectrum,
+    in increasing k, equals the dense sum over all 201 bins in the same
+    order bit for bit (an exact 0 weight adds +0 to a non-negative sum)."""
+    fb_t = t_mel._constants(n_mels)[2]                   # [201, n_mels]
+    bands, weights = t_mel.mel_bands(n_mels)
+    assert bands.shape == (n_mels, 3) and weights.dtype == np.float32
+    assert weights.size == np.count_nonzero(fb_t)
+    rebuilt = np.zeros_like(fb_t)
+    for m, (first, count, off) in enumerate(bands):
+        rebuilt[first:first + count, m] = weights[off:off + count]
+        assert np.all(fb_t[first:first + count, m] != 0)
+    np.testing.assert_array_equal(rebuilt, fb_t)
+    rng = np.random.default_rng(n_mels)
+    power = (rng.standard_normal((64, 201)) ** 2
+             * 10.0 ** rng.uniform(-6, 3, (64, 1))).astype(np.float32)
+    dense = np.zeros((64, n_mels), np.float32)
+    for k in range(201):
+        dense = dense + power[:, k:k + 1] * fb_t[k][None, :]
+    banded = np.zeros((64, n_mels), np.float32)
+    for m, (first, count, off) in enumerate(bands):
+        for i in range(count):
+            banded[:, m] = (banded[:, m]
+                            + power[:, first + i] * weights[off + i])
+    np.testing.assert_array_equal(banded, dense)
+
+
 def test_b5_kernel_entry_refuses_cpu_tensors():
     """The raw kernel entry launches or raises; a CPU tensor goes through
     ``log_mel``, which routes it to the plain version."""
@@ -502,7 +549,8 @@ def test_every_csrc_file_is_named_for_the_build():
     ("B7-dq", "cross_attention_multi.cu"),
     ("B7-i8", "cross_attention_multi.cu"), ("B10c", "decoder_mlp.cu"),
     ("B10a", "decoder_self_block.cu"), ("B10b", "decoder_cross_block.cu"),
-    ("B9a", "encoder_block.cu"), ("B9b", "encoder_block.cu")])
+    ("B9a", "encoder_block.cu"), ("B9b", "encoder_block.cu"),
+    ("B8", "self_attention_int8.cu"), ("B5", "log_mel.cu")])
 def test_kernel_variants_cut_the_sources_as_they_are(kernel, source):
     """``kernel_variants`` makes its timed variants by replacing text of the
     CUDA sources; every replacement must still find its text, and each
@@ -520,7 +568,9 @@ def test_kernel_variants_cut_the_sources_as_they_are(kernel, source):
                   "B10a": (kv.b10_source, kv.B10_VARIANTS),
                   "B10b": (kv.b10_source, kv.B10_VARIANTS),
                   "B9a": (kv.b9_source, kv.B9_VARIANTS),
-                  "B9b": (kv.b9_source, kv.B9_VARIANTS)}[kernel]
+                  "B9b": (kv.b9_source, kv.B9_VARIANTS),
+                  "B8": (kv.b8_source, kv.B8_VARIANTS),
+                  "B5": (kv.b5_source, kv.B5_VARIANTS)}[kernel]
     text = (kernels.CSRC / source).read_text()
     variants = {name: cut(text, name) for name in names}
     assert variants["as_built"].count("WT_EXPORT") == text.count("WT_EXPORT")
@@ -622,6 +672,11 @@ def test_profile_ladder_tells_b9_from_b2():
      "B10b (attention)"),
     ("(anonymous namespace)::self_step_kernel(int)", "B3"),
     ("(anonymous namespace)::self_step_int8_kernel(int)", "B8"),
+    ("(anonymous namespace)::log_mel_kernel<short>(short const*)", "B5"),
+    ("void (anonymous namespace)::mel_spectrum_kernel<short>(short const*, "
+     "long long)", "B5 (spectrum)"),
+    ("(anonymous namespace)::mel_normalize_kernel(float*, int)",
+     "B5 (normalization)"),
     ("void gemm::gemm_kernel<128, (anonymous namespace)::BiasGelu>(int)",
      "B2 (FC1 product)")])
 def test_profile_ladder_tells_kernels_whose_names_overlap(name, label):
@@ -630,6 +685,41 @@ def test_profile_ladder_tells_kernels_whose_names_overlap(name, label):
     from whisper_tpu_torch import profile_ladder as pl
 
     assert pl._kernel_of(name) == label
+
+
+def test_profile_ladder_reads_b5_and_b8_by_their_names():
+    """The names ``profile_ladder`` looks for are B8's and B5's two kernels'
+    names in the sources, and the first ports' names stay, so that the file
+    run by its path against an older tree times that tree; a call of B5 is
+    the span of its two kernels (the normalization, a programmatic
+    dependent, starts before the spectrum kernel ends)."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    from whisper_tpu_torch import profile_ladder as pl
+
+    assert pl.CALLS["B5"] == ("mel_spectrum_kernel", "mel_normalize_kernel")
+    for fn, src in (("mel_spectrum_kernel", "log_mel.cu"),
+                    ("mel_normalize_kernel", "log_mel.cu"),
+                    ("self_step_int8_kernel", "self_attention_int8.cu")):
+        assert f"\n{fn}(" in (kernels.CSRC / src).read_text()
+        assert fn in pl.KERNELS
+    assert pl.KERNELS["log_mel_kernel"] == "B5"
+    assert pl.KERNELS["self_step_int8_kernel"] == "B8"
+
+    def ev(name, start, end):
+        return SimpleNamespace(name=f"void (anonymous namespace)::{name}(int)",
+                               device_type=DeviceType.CUDA,
+                               time_range=SimpleNamespace(start=start,
+                                                          end=end))
+
+    events = [ev("mel_spectrum_kernel<short>", 0, 10),
+              ev("mel_normalize_kernel", 8, 12),
+              ev("mel_spectrum_kernel<float>", 20, 30),
+              ev("mel_normalize_kernel", 29, 33)]
+    assert pl.call_spans(SimpleNamespace(events=lambda: events)) == {
+        "B5": {"calls": 2, "mean_ms": 12.5e-3}}
 
 
 def test_profile_ladder_spans_a_call_of_several_kernels():

@@ -1,4 +1,4 @@
-"""What holds the twelve kernels redesigned for Hopper, by timed variants:
+"""What holds the kernels redesigned for Hopper, by timed variants:
 ``python -m whisper_tpu_torch.kernel_variants``.
 
 **B1** (encoder attention).  Builds ``csrc/attention.cu`` as it is and in
@@ -58,6 +58,26 @@ card's is (median of 5 each):
 
 - ``copies_only``: every block waits for its rows of K and V and leaves;
 - ``no_pv``: the whole kernel but the P.V sum.
+
+**B8** (the int8 decode self-attention step: B3's bulk copies, per-row
+scales).  Builds ``csrc/self_attention_int8.cu`` as it is and cut short and
+times it as B3 (``pos`` 70 and 131, an int; 600 calls from the host and in
+one CUDA graph):
+
+- ``copies_only``: every block quantizes, waits for its rows of K8 and V8
+  and leaves;
+- ``no_pv``: the whole kernel but the p8 . V8 product.
+
+**B5** (the one-shot front end: a spectrum kernel, the normalization
+kernel as its programmatic dependent).  Builds ``csrc/log_mel.cu`` as it is
+and cut short and times one call at the one-shot limit (7,680 valid frames
+of a 12,000-frame bucket, int16 PCM), eagerly and as 20 calls in one CUDA
+graph:
+
+- ``transform_only``: the spectrum kernel alone (the entry's ``normalize``
+  0, as ``ops.log_mel.log_spec`` calls it);
+- ``normalization_only``: the entry launches the normalization kernel
+  alone (over what the buffer holds).
 
 **B6 and B7-dq** (the dequantizing decode cross-attention step and its
 speculative verify pass, one cluster of 192-thread blocks a (b, h), a block
@@ -330,6 +350,36 @@ _DQ_PV = """            dq_segment_pv(sS + (i * qmax + t) * CROSS_SEG, denom,
 """
 _DQ_CLUSTER = ("template <int QC>\n__device__ __forceinline__ void "
                "cross_dequant_cluster(")
+
+
+B8_VARIANTS = ("as_built", "copies_only", "no_pv")
+_B8_LEAVE = """  if (tid < DH)
+    out[row * DH + tid] = __float2bfloat16_rn((float)(sK[tid] + sV[tid]));
+  return;
+"""
+
+
+def b8_source(text: str, name: str) -> str:
+    """``self_attention_int8.cu``'s text cut into the named variant."""
+    if name == "copies_only":
+        text = _swap(text, _B3_WAIT, _B3_WAIT + _B8_LEAVE)
+    if name == "no_pv":
+        text = _swap(text, "  const int ctx = cross_pv<NT>(sP8, sV, n, part);",
+                     "  const int ctx = sP8[0];")
+    return text
+
+
+B5_VARIANTS = ("as_built", "normalization_only")  # transform_only: a flag
+
+
+def b5_source(text: str, name: str) -> str:
+    """``log_mel.cu``'s text cut into the named variant."""
+    if name == "normalization_only":
+        text = _swap(text, "  if (is_int16)\n    mel_spectrum_kernel<",
+                     "  if (false)\n    mel_spectrum_kernel<")
+        text = _swap(text, "  else\n    mel_spectrum_kernel<",
+                     "  else if (false)\n    mel_spectrum_kernel<")
+    return text
 
 
 def dq_source(text: str, name: str) -> str:
@@ -1154,12 +1204,121 @@ def b3(card: str) -> dict:
             "us_per_call": us, "us_per_call_in_a_cuda_graph": graph_us}
 
 
+def b8(card: str) -> dict:
+    import torch
+
+    from whisper_tpu_torch.ops.self_attention import quantize_self_cache
+
+    libs = _build("self_attention_int8.cu", b8_source, B8_VARIANTS)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    n_l, b, h, s = 6, 16, 8, 132
+    bf, ptr = torch.bfloat16, ctypes.c_void_p
+    bufs = quantize_self_cache(*(torch.randn(n_l, b, h, s, 64, generator=g,
+                                             device="cuda").to(bf)
+                                 for _ in "kv"))
+    q, kn, vn = ((torch.randn(b, h, 64, generator=g, device="cuda")
+                  * sc).to(bf) for sc in (0.125, 1.0, 1.0))
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+    for lib in libs.values():
+        lib.wt_self_attend_step_int8.argtypes = ([ptr] * 9
+                                                 + [ctypes.c_int] * 5
+                                                 + [ptr, ptr])
+
+    def run(lib, i, pos, on):
+        rc = lib.wt_self_attend_step_int8(
+            q.data_ptr(), kn.data_ptr(), vn.data_ptr(),
+            *(x.data_ptr() for x in bufs), None, out.data_ptr(), b, h, s,
+            i % n_l, pos, None, on)
+        if rc != 0:
+            raise RuntimeError(f"launch failed with CUDA error {rc}")
+
+    def graph_of(lib, pos, calls=600):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            capturing = torch.cuda.current_stream().cuda_stream
+            for i in range(calls):
+                run(lib, i, pos, capturing)
+        return graph
+
+    us, graph_us = {}, {}
+    for pos in (70, 131):
+        at = us.setdefault(f"pos_{pos}", {v: [] for v in B8_VARIANTS})
+        graphs = {v: graph_of(libs[v], pos) for v in B8_VARIANTS}
+        in_graph = graph_us.setdefault(f"pos_{pos}",
+                                       {v: [] for v in B8_VARIANTS})
+        for names in (B8_VARIANTS, tuple(reversed(B8_VARIANTS))):
+            for name in names:
+                at[name].append(1e3 * _median_ms(
+                    lambda i: run(libs[name], i, pos, stream), calls=600))
+                in_graph[name].append(1e3 / 600 * _median_ms(
+                    lambda i: graphs[name].replay(), calls=1))
+    return {"kernel": "B8", "card": card, "cache": [n_l, b, h, s, 64],
+            "us_per_call": us, "us_per_call_in_a_cuda_graph": graph_us}
+
+
+def b5(card: str) -> dict:
+    import numpy as np
+    import torch
+
+    from whisper_tpu_torch.frontend import golden
+    from whisper_tpu_torch.headline import synth_audio
+    from whisper_tpu_torch.ops import log_mel
+
+    libs = _build("log_mel.cu", b5_source, B5_VARIANTS)
+    valid, n_frames, n_mels = 7680, 12000, 80
+    pcm = np.round(np.clip(golden.reflect_pad(synth_audio(
+        valid * golden.HOP / 16000.0)), -1, 1) * 32767.0)
+    wire = torch.from_numpy(pcm.astype(np.int16)).cuda()
+    tables = log_mel._device_tables(wire.device, n_mels)
+    out = torch.empty((n_mels, n_frames), device="cuda")
+    tile_max = torch.empty(n_frames // log_mel.TILE_FRAMES, device="cuda")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for lib in libs.values():
+        lib.wt_log_mel.argtypes = ([ptr, i32, ctypes.c_longlong] + [ptr] * 6
+                                   + [i32, i32, i32, ctypes.c_float, i32, ptr])
+
+    # variant -> (library, the entry's normalize flag)
+    calls = {"as_built": (libs["as_built"], 1),
+             "transform_only": (libs["as_built"], 0),
+             "normalization_only": (libs["normalization_only"], 1)}
+
+    def run(name, on):
+        lib, normalize = calls[name]
+        rc = lib.wt_log_mel(wire.data_ptr(), 1, wire.shape[0],
+                            *(x.data_ptr() for x in tables), out.data_ptr(),
+                            tile_max.data_ptr(), n_frames, valid, n_mels,
+                            log_mel.INT16_SCALE, normalize, on)
+        if rc != 0:
+            raise RuntimeError(f"launch failed with CUDA error {rc}")
+
+    stream = torch.cuda.current_stream().cuda_stream
+    graphs = {}
+    for name in calls:
+        run(name, stream)
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name]):
+            capturing = torch.cuda.current_stream().cuda_stream
+            for _ in range(20):
+                run(name, capturing)
+    ms = {v: [] for v in calls}
+    graph_ms = {v: [] for v in calls}
+    for names in (tuple(calls), tuple(reversed(calls))):
+        for name in names:
+            ms[name].append(_median_ms(lambda i: run(name, stream)))
+            graph_ms[name].append(_median_ms(
+                lambda i: graphs[name].replay(), calls=1) / 20)
+    return {"kernel": "B5", "card": card, "frames": [valid, n_frames],
+            "n_mels": n_mels, "ms_per_call": ms,
+            "ms_per_call_in_a_cuda_graph": graph_ms}
+
+
 def main() -> None:
     import torch
 
     runs = {"b1": b1, "b4": b4, "b6_b7_dequant": b6_b7_dequant,
             "b7_int8": b7_int8, "b10c": b10c, "b10ab": b10ab, "b2": b2,
-            "b3": b3, "b9": b9}
+            "b3": b3, "b9": b9, "b8": b8, "b5": b5}
     parser = argparse.ArgumentParser(prog="whisper_tpu_torch.kernel_variants")
     parser.add_argument("kernels", nargs="*", metavar="KERNEL",
                         help=f"any of {', '.join(runs)} (default: all)")

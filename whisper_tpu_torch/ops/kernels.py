@@ -55,12 +55,14 @@ SIGNATURES = {
     # stream (both)
     "wt_cross_attend_step": [_P] * 6 + [_I] * 5 + [_P],
     "wt_cross_attend_step_dequant": [_P] * 6 + [_I] * 5 + [_P],
-    # audio, is_int16, n_samples, cosw, sinw, fb_t, out, n_frames, n_mels,
-    # int16 scale, stream
-    "wt_log_mel": [_P, _I, _L] + [_P] * 4 + [_I, _I, _F, _P],
-    # q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, pad_count, out,
-    # batch, heads, S, layer, pos, stream
-    "wt_self_attend_step_int8": [_P] * 9 + [_I] * 5 + [_P],
+    # audio, is_int16, n_samples, twiddles, window, bands, weights, out,
+    # tile maxima scratch, n_frames, valid_frames, n_mels, int16 scale,
+    # normalize, stream
+    "wt_log_mel": [_P, _I, _L] + [_P] * 6 + [_I, _I, _I, _F, _I, _P],
+    # q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, pad_count (or
+    # null), out, batch, heads, S, layer, pos, pos on the device (or null),
+    # stream
+    "wt_self_attend_step_int8": [_P] * 9 + [_I] * 5 + [_P, _P],
     # x, ln_s, ln_b, w_qkv, b_qkv, r scratch, out, rows, d, columns, stream
     "wt_fused_ln_qkv": [_P] * 7 + [_I, _I, _I, _P],
     # x, ctx, o_w, o_b, ln_s, ln_b, w1, b1, w2, b2, y32 scratch, r scratch,

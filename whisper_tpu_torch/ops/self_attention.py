@@ -32,8 +32,9 @@ call:
 
 The cache keeps the prefill layout, [L, B, H, S, 64] int8 with
 [L, B, H, S] fp32 scale planes (no head packing, no padding of S).  On a
-CUDA tensor it launches ``csrc/self_attention_int8.cu``; on a CPU tensor
-it takes ``self_attend_step_int8_plain``.
+CUDA tensor it launches ``csrc/self_attention_int8.cu`` and puts nothing
+else on the card; on a CPU tensor it takes ``self_attend_step_int8_plain``.
+``pos`` and ``pad_count`` are taken as by ``self_attend_step``.
 """
 
 from __future__ import annotations
@@ -74,6 +75,26 @@ def self_attend_step_plain(q, k_new, v_new, k_cache, v_cache, layer: int,
     return prod.float().sum(dim=-2).to(q.dtype)
 
 
+def _pos_args(pos, q: torch.Tensor, n_layers: int, s_max: int, layer: int):
+    """(pos, pos_ptr) for a kernel: an int checked here, or a one-element
+    int32 tensor on q's device passed by its pointer (pos -1), which the
+    kernel reads."""
+    pos_ptr = None
+    if isinstance(pos, torch.Tensor):
+        if (pos.device != q.device or pos.dtype != torch.int32
+                or pos.numel() != 1):
+            raise ValueError("pos: a tensor must hold one int32 on "
+                             f"{q.device}, got {pos.dtype} "
+                             f"{tuple(pos.shape)} on {pos.device}")
+        pos_ptr, pos = pos.data_ptr(), -1
+    elif not 0 <= pos < s_max:
+        raise ValueError(f"pos {pos} outside the cache [{n_layers}, {s_max}]")
+    if not 0 <= layer < n_layers:
+        raise ValueError(f"layer {layer} outside the cache "
+                         f"[{n_layers}, {s_max}]")
+    return int(pos), pos_ptr
+
+
 def self_attend_step(q: torch.Tensor, k_new: torch.Tensor,
                      v_new: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, layer: int, pos,
@@ -94,19 +115,7 @@ def self_attend_step(q: torch.Tensor, k_new: torch.Tensor,
     n_layers, s_max = k_cache.shape[0], k_cache.shape[3]
     if dh != 64:
         raise ValueError(f"self_attend_step kernel needs head_dim 64, got {dh}")
-    pos_ptr = None
-    if isinstance(pos, torch.Tensor):
-        if (pos.device != q.device or pos.dtype != torch.int32
-                or pos.numel() != 1):
-            raise ValueError("pos: a tensor must hold one int32 on "
-                             f"{q.device}, got {pos.dtype} "
-                             f"{tuple(pos.shape)} on {pos.device}")
-        pos_ptr, pos = pos.data_ptr(), -1
-    elif not 0 <= pos < s_max:
-        raise ValueError(f"pos {pos} outside the cache [{n_layers}, {s_max}]")
-    if not 0 <= layer < n_layers:
-        raise ValueError(f"layer {layer} outside the cache "
-                         f"[{n_layers}, {s_max}]")
+    pos, pos_ptr = _pos_args(pos, q, n_layers, s_max, layer)
     bf = torch.bfloat16
     for name, x in (("q", q), ("k_new", k_new), ("v_new", v_new)):
         check_operand(name, x, bf, (b, h, dh), q.device)
@@ -120,7 +129,7 @@ def self_attend_step(q: torch.Tensor, k_new: torch.Tensor,
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(),
         None if pad_count is None else pad_count.data_ptr(), out.data_ptr(),
-        b, h, s_max, int(layer), int(pos), pos_ptr,
+        b, h, s_max, int(layer), pos, pos_ptr,
         kernels.stream_ptr(q.device)), "self_attend_step")
     launches += 1
     return out
@@ -148,12 +157,14 @@ def quantize_self_cache(k: torch.Tensor, v: torch.Tensor):
 
 
 def self_attend_step_int8_plain(q, k_new, v_new, k_cache, v_cache, k_scale,
-                                v_scale, layer: int, pos: int,
+                                v_scale, layer: int, pos,
                                 pad_count=None) -> torch.Tensor:
     """Reference version of B8, with the wrapper's arguments: the JAX
     ``_kernel_int8``'s math in plain PyTorch.  Both integer dots run in
-    float64, which holds every partial sum exactly."""
+    float64, which holds every partial sum exactly.  ``pos``: an int or a
+    one-element integer tensor, which is read here."""
     b, s_max = k_cache.shape[1], k_cache.shape[3]
+    pos = int(pos)
     q8, qs = quant_rows(q)                                    # [B,H,64], [B,H]
     k_cache[layer, :, :, pos], k_scale[layer, :, :, pos] = quant_rows(k_new)
     v_cache[layer, :, :, pos], v_scale[layer, :, :, pos] = quant_rows(v_new)
@@ -179,15 +190,17 @@ def self_attend_step_int8_plain(q, k_new, v_new, k_cache, v_cache, k_scale,
 def self_attend_step_int8(q: torch.Tensor, k_new: torch.Tensor,
                           v_new: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, k_scale: torch.Tensor,
-                          v_scale: torch.Tensor, layer: int, pos: int,
+                          v_scale: torch.Tensor, layer: int, pos,
                           pad_count=None) -> torch.Tensor:
     """One self-attention decode step against (and into) the int8 cache.
 
     q, k_new, v_new: [B, H, 64] unquantized (q pre-scaled by 64^-0.5);
     k_cache, v_cache: [L, B, H, S, 64] int8 and k_scale, v_scale:
     [L, B, H, S] fp32, row ``pos`` of ``layer`` overwritten in place in all
-    four; pad_count: [B] int32 left-pad slots or None.  Returns ctx
-    [B, H, 64] in q's dtype."""
+    four; pos: an int, checked here, or a one-element int32 tensor on q's
+    device, read by the kernel (outside [0, S) it writes no cache row or
+    scale and returns NaN); pad_count: [B] int32 left-pad slots or None.
+    Returns ctx [B, H, 64] in q's dtype."""
     if route(q) == "plain":
         return self_attend_step_int8_plain(q, k_new, v_new, k_cache, v_cache,
                                            k_scale, v_scale, layer, pos,
@@ -198,9 +211,7 @@ def self_attend_step_int8(q: torch.Tensor, k_new: torch.Tensor,
     if dh != 64:
         raise ValueError("self_attend_step_int8 kernel needs head_dim 64, "
                          f"got {dh}")
-    if not (0 <= layer < n_layers and 0 <= pos < s_max):
-        raise ValueError(f"layer {layer} / pos {pos} outside the cache "
-                         f"[{n_layers}, {s_max}]")
+    pos, pos_ptr = _pos_args(pos, q, n_layers, s_max, layer)
     for name, x in (("q", q), ("k_new", k_new), ("v_new", v_new)):
         check_operand(name, x, torch.bfloat16, (b, h, dh), q.device)
     for name, x in (("k_cache", k_cache), ("v_cache", v_cache)):
@@ -209,15 +220,15 @@ def self_attend_step_int8(q: torch.Tensor, k_new: torch.Tensor,
     for name, x in (("k_scale", k_scale), ("v_scale", v_scale)):
         check_operand(name, x, torch.float32, (n_layers, b, h, s_max),
                       q.device)
-    if pad_count is None:
-        pad_count = torch.zeros(b, dtype=torch.int32, device=q.device)
-    check_operand("pad_count", pad_count, torch.int32, (b,), q.device)
+    if pad_count is not None:
+        check_operand("pad_count", pad_count, torch.int32, (b,), q.device)
     out = torch.empty_like(q)
     lib = kernels.library()
     kernels.check(lib.wt_self_attend_step_int8(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-        pad_count.data_ptr(), out.data_ptr(), b, h, s_max, int(layer),
-        int(pos), kernels.stream_ptr(q.device)), "self_attend_step_int8")
+        None if pad_count is None else pad_count.data_ptr(), out.data_ptr(),
+        b, h, s_max, int(layer), pos, pos_ptr, kernels.stream_ptr(q.device)),
+        "self_attend_step_int8")
     int8_launches += 1
     return out

@@ -34,6 +34,22 @@ warm up and once under ``torch.profiler``, on one JSON line with the same
 keys and the device operations and busy ms a step.  It passes ``pos`` as
 an int, so the file also runs against an older tree of the package (that
 tree on ``PYTHONPATH``, this file run by its path).
+
+``python -m whisper_tpu_torch.profile_ladder --x7-one-shot`` runs only
+what the int8 self-attention step (B8) and the one-shot front end (B5)
+touch: the 301.574 s file at x7 (traced as above), the share of its tokens
+equal to x5's, x5 on a 76 s file (7,600 frames: one shot through B5,
+traced), and B5 alone at the one-shot limit (7,680 valid frames of a
+12,000-frame bucket, int16) and B8 alone at bucket 16 (``pos`` 70 of 132,
+no ``pad_count``): 20 calls back to back traced (device operations and
+busy time a call, the kernels' in-situ means, B5's call as the span of its
+two kernels), each wrapper's time (CUDA events over 20 calls, median of 5)
+and, beside B5's, the composition of PyTorch calls around ``torch.stft``
+(cuFFT) that computes the same function.  The profiler can miss a few
+operations of so short a trace: a wrapper's device operations are counted
+exactly by ``chip_smoke.py``.  It calls only what older trees have, so it
+also runs against one (that tree on ``PYTHONPATH``, this file run by its
+path).
 """
 
 from __future__ import annotations
@@ -42,6 +58,8 @@ import json
 import re
 import time
 import warnings
+
+import numpy as np
 
 # kernel function name in csrc/ (for a gemm_kernel, its epilogue's) -> the
 # kernel's number
@@ -53,6 +71,8 @@ KERNELS = {"attn_kernel": "B1",
            "cross_multi_int8_kernel": "B7-i8",
            "cross_multi_dequant_kernel": "B7-dq",
            "log_mel_kernel": "B5",
+           "mel_spectrum_kernel": "B5 (spectrum)",
+           "mel_normalize_kernel": "B5 (normalization)",
            "qkv_ln_kernel": "B9a (LayerNorm)", "QkvBias": "B9a (QKV product)",
            "OutProjResidual": "B9b (O product)",
            "out_ln_kernel": "B9b (LayerNorm)",
@@ -70,7 +90,8 @@ KERNELS = {"attn_kernel": "B1",
 # stream: a call's in-situ time is the span from its first kernel's start to
 # its last one's end (B10c's FC2 starts before FC1 ends, so the two kernels'
 # own times overlap and do not add up to a call).
-CALLS = {"B9a": ("qkv_ln_kernel", "QkvBias"),
+CALLS = {"B5": ("mel_spectrum_kernel", "mel_normalize_kernel"),
+         "B9a": ("qkv_ln_kernel", "QkvBias"),
          "B9b": ("OutProjResidual", "out_ln_kernel", "OutFc1Gelu",
                  "OutFc2Residual"),
          "B10a": ("ln_gemm_kernel", "self_attn_kernel", "out_proj_kernel"),
@@ -90,6 +111,8 @@ FUSED_BLOCK = CONFIGS[-1]
 # (label, model_id, seconds of audio, new tokens) of the whisper-medium run
 MEDIUM = ("whisper-medium x5+fused_encoder_block, 4 s",
           "openai/whisper-medium", 4.0, 16)
+ONE_SHOT_SECONDS = 76.0   # 7,600 frames: the one-shot front end (B5)
+B5_VALID = 7680           # the one-shot limit, in a bucket of 12,000 frames
 
 
 def _named(fn: str, name: str) -> bool:
@@ -287,6 +310,154 @@ def profile_fused_step(params, dims, device: str = "cuda") -> dict:
             **{k: out[k] for k in ("kernels", "calls", "largest_other")}}
 
 
+def _median_ms(fn, runs: int = 5, calls: int = 20) -> float:
+    """One call of ``fn``: CUDA events around ``calls`` calls back to back,
+    the median over ``runs`` runs."""
+    import statistics
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def call_profile(fn, calls: int = 20) -> dict:
+    """``calls`` calls of ``fn`` back to back, traced in one profiler
+    session: device operations and busy µs a call, the in-situ means of the
+    hand-written kernels and, for a wrapper that ``CALLS`` names, the mean
+    span of its call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = summarize(prof)
+    return {"device_ops_per_call": out["device_ops"] / calls,
+            "busy_us_per_call": out["device_busy_ms"] * 1e3 / calls,
+            "kernels": out["kernels"], "calls": out["calls"],
+            "largest_other": out["largest_other"]}
+
+
+_MEL_CONSTANTS: dict = {}  # (device, n_mels) -> (window, fb) on the card
+
+
+def mel_composition(wire, valid: int, n_mels: int, n_frames: int):
+    """B5's function as a composition of PyTorch calls, the yardstick beside
+    it (no one call computes it): the decode, ``torch.stft`` (cuFFT), the
+    power, the fp32 mel product with TF32 off, log10 and the masked
+    normalization."""
+    import torch
+
+    from whisper_tpu_torch.frontend import golden
+    from whisper_tpu_torch.frontend.mel import (
+        _constants,
+        decode_transfer,
+        normalize,
+    )
+    from whisper_tpu_torch.ops.common import disable_tf32
+
+    disable_tf32()
+    key = (str(wire.device), n_mels)
+    if key not in _MEL_CONSTANTS:
+        _MEL_CONSTANTS[key] = tuple(
+            torch.from_numpy(np.ascontiguousarray(c)).to(wire.device)
+            for c in (golden.hann_window_periodic(golden.WIN),
+                      _constants(n_mels)[2].T))
+    window, fb = _MEL_CONSTANTS[key]
+    need = (n_frames - 1) * golden.HOP + golden.WIN
+    x = decode_transfer(wire)
+    x = torch.nn.functional.pad(x, (0, max(0, need - x.numel())))[:need]
+    spec = torch.stft(x, golden.N_FFT, hop_length=golden.HOP,
+                      win_length=golden.WIN, window=window, center=False,
+                      return_complex=True)                 # [201, n_frames]
+    power = spec.real.square() + spec.imag.square()
+    ls = torch.log10(torch.clamp_min(torch.matmul(fb, power), 1e-10))
+    return normalize(ls, ls[:, :valid].amax(), valid)
+
+
+def profile_x7_one_shot(params):
+    """The ``--x7-one-shot`` lines, one at a time (see the module's
+    docstring)."""
+    import torch
+
+    from whisper_tpu_torch.frontend import golden
+    from whisper_tpu_torch.headline import (
+        AUDIO_SECONDS,
+        make_session,
+        run_once,
+        synth_audio,
+    )
+    from whisper_tpu_torch.ops import log_mel, self_attention
+    from whisper_tpu_torch.pipeline.chunk import mel_frame_bucket
+
+    audio = synth_audio(AUDIO_SECONDS)
+    x7 = profile_config("x7", "x7", {}, params, audio)
+    tokens = {}
+    for variant in ("x5", "x7"):
+        session = make_session("cuda", params, variant)
+        run_once(session, audio)
+        collector = []
+        run_once(session, audio, token_collector=collector)
+        tokens[variant] = np.asarray(collector[0])
+        del session
+    x7["tokens_equal_to_x5"] = float((tokens["x7"] == tokens["x5"]).mean())
+    x7["first_tokens_equal_to_x5"] = bool(
+        (tokens["x7"][:, 0] == tokens["x5"][:, 0]).all())
+    yield x7
+    yield profile_config(f"x5, {ONE_SHOT_SECONDS:g} s (one-shot front end)",
+                         "x5", {}, params, synth_audio(ONE_SHOT_SECONDS))
+
+    dev = torch.device("cuda")
+    wave = synth_audio(B5_VALID * golden.HOP / 16000.0)
+    pcm = np.round(np.clip(golden.reflect_pad(wave), -1, 1) * 32767.0)
+    wire = torch.from_numpy(pcm.astype(np.int16)).to(dev)
+    n_frames = mel_frame_bucket(B5_VALID)
+
+    def composition():
+        return mel_composition(wire, B5_VALID, 80, n_frames)
+
+    def b5():
+        return log_mel.log_mel(wire, B5_VALID, 80, n_frames)
+
+    plain = log_mel.log_mel_plain(wire, B5_VALID, 80, n_frames)
+    yield {"config": f"B5 alone, {B5_VALID} of {n_frames} frames, int16",
+           **call_profile(b5), "wrapper_ms": _median_ms(b5),
+           "composition_ms": _median_ms(composition),
+           "max_abs_err": float((b5() - plain).abs().max()),
+           "composition_max_abs_err": float((composition() - plain)
+                                            .abs().max())}
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    n_l, b, h, s = 6, 16, 8, 132
+    q, kn, vn = ((torch.randn(b, h, 64, generator=g, device=dev) * sc)
+                 .to(torch.bfloat16) for sc in (0.125, 1.0, 1.0))
+    i8 = self_attention.quantize_self_cache(
+        *(torch.randn(n_l, b, h, s, 64, generator=g, device=dev)
+          .to(torch.bfloat16) for _ in "kv"))
+
+    def b8():
+        return self_attention.self_attend_step_int8(q, kn, vn, *i8, 3, 70)
+
+    yield {"config": "B8 alone, bucket 16, pos 70 of 132",
+           **call_profile(b8), "wrapper_ms": _median_ms(b8)}
+
+
 def main() -> None:
     import argparse
 
@@ -297,6 +468,8 @@ def main() -> None:
                         help="run only the fully fused decode step")
     parser.add_argument("--fused-block", action="store_true",
                         help="run only the fused encoder block's two runs")
+    parser.add_argument("--x7-one-shot", action="store_true",
+                        help="run only x7, x5 on a one-shot file, B5 and B8")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("whisper_tpu_torch.profile_ladder needs a CUDA card")
@@ -324,6 +497,11 @@ def main() -> None:
         out = profile_fused_step(params, dims)
         out["device"] = card
         print(json.dumps(out), flush=True)
+        return
+    if args.x7_one_shot:
+        for out in profile_x7_one_shot(params):
+            out["device"] = card
+            print(json.dumps(out), flush=True)
         return
     audio = synth_audio(AUDIO_SECONDS)
     if args.fused_block:
