@@ -37,7 +37,9 @@ What it does, in order (any failure raises and exits non-zero):
    on the card a call (counted by torch.profiler); B6 (B4's cluster,
    dequantizing) at S = 96, 192, 193, 1500, 1504 (1,500 valid) and 2000
    (1,999 valid), at bucket 16 with 8 heads and at bucket 1 with 6, and it
-   and B7-dq one operation a call.  B7 is also held, query by query and
+   and B7-dq one operation a call; B4 and B6 also at the 64 rows of beam
+   search at K = 4 (the cache tiled per beam, the scales as views), each
+   beam's rows bitwise the call on the untiled cache.  B7 is also held, query by query and
    bitwise, against the single-token kernels B4 and B6 at T = 1, 2, 5, 9
    and 17 and S = 96, 193, 1500, 1504 and 2000, and timed at T = 5
    beside five calls of B4 or B6; B10c beside the bf16 composition of five
@@ -94,6 +96,16 @@ What it does, in order (any failure raises and exits non-zero):
    opposite bookkeeping), each chunk's first token must be the greedy
    run's, and the share of tokens equal to the greedy run's is printed with
    rounds and tokens committed per round.
+7b. The decoding options on the same file (``check_decoding``, ``[decoding]``
+   lines): the timestamp grammar at x5 and x7, every row checked by a
+   grammar checker, two runs equal; scores at T = 0, the tokens bitwise the
+   main path's and each count the row's length to its first EOT; the
+   fallback ladder 0, 0.2 ... 1.0 with every gate failing (every chunk walks
+   every rung; 64 tokens), twice with one seed (equal at every rung) and
+   once with another (different), no suppressed id drawn; beam search K = 1
+   against greedy decoding on the step beam search takes (equal), and K = 4
+   at x5 (B4 at 64 rows) and x4 (B6), with the share of tokens equal to
+   greedy x5's.
 8. The fully fused decode step (``decoder_step_fused``: B10a, B10b, B10c per
    layer) for 127 steps from a bf16 prefill at bucket 16: the first step's
    logits within 5e-2 of ``decoder_step`` on the same cache, finite tokens
@@ -113,8 +125,9 @@ What it does, in order (any failure raises and exits non-zero):
    mel, B4 and not B6 at x5, B6 and not B4 at int8, B2 at d=1024 in the
    medium run; prints each run's per-file e2e, p95 and peak device memory.
    One more run at ``--variant x7`` over the four files (B8 and B4, no B3),
-   and one at x5 with ``--draft-model-id openai/whisper-tiny`` over the 4 s
-   file (B7).
+   one at x5 with each decoding flag (``--timestamps``, ``--language auto``,
+   ``--temperatures 0,0.2,0.4``, ``--num-beams 4``; 32 tokens), and one at x5
+   with ``--draft-model-id openai/whisper-tiny`` over the 4 s file (B7).
 10. Prints one JSON line with the kernels, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 """
@@ -711,22 +724,57 @@ def _in_situ(summary) -> str:
 def _device_ops_per_call(fn, calls: int = 5, names=None) -> float:
     """Operations (kernels, copies, memsets) that one call of ``fn`` puts on
     the card, counted by torch.profiler over ``calls`` calls; their names
-    are added to the set ``names`` where one is given."""
+    are added to the set ``names`` where one is given.  The profiler now
+    and then drops an event from a trace of short calls (PERF.md §7), which
+    only ever lowers the count, so the largest count of three traces is
+    taken: an operation a wrapper adds shows in every trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    if names is not None:
-        names.update(e.key for e in events)
-    return sum(e.count for e in events) / calls
+    counts = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names is not None:
+            names.update(e.key for e in events)
+        counts.append(sum(e.count for e in events) / calls)
+    return max(counts)
+
+
+def _at_beam_rows(label: str, step, plain, randn, args, k: int = 4):
+    """B4 or B6 (``step``, ``plain`` its plain version) at the rows beam
+    search gives it: the main path's cache (``args``: q, k8, v8, k_scale,
+    v_scale) tiled per beam as ``runtime.beam`` tiles it
+    (``repeat_interleave(k, dim=1)``, scales as the [..., 0, 0] views of a
+    [L, B*K, H, 1, 1] tensor), B*K queries.  Each beam's rows must be
+    bitwise the kernel's rows on the untiled cache; returns (bf16 steps
+    from the plain version, bitwise equal to it, ms a call)."""
+    import torch
+
+    q, k8, v8, ks, vs = args
+    b, h, dh = q.shape
+    s = k8.shape[3]
+    tiled = [x.repeat_interleave(k, dim=1) for x in (k8, v8)] + [
+        x[..., None, None].repeat_interleave(k, dim=1)[..., 0, 0]
+        for x in (ks, vs)]
+    qk = randn(b * k, h, dh, scale=0.125)
+    got = step(qk, *tiled, 2, s_valid=s)
+    for j in range(k):
+        rows = torch.arange(b, device=q.device) * k + j
+        if not torch.equal(got[rows], step(qk[rows].contiguous(), k8, v8, ks,
+                                           vs, 2, s_valid=s)):
+            raise AssertionError(f"{label} at {b * k} beam rows: beam {j} is "
+                                 "not bitwise its rows on the untiled cache")
+    want = plain(qk, *tiled, 2, s_valid=s)
+    ms = _median_ms(lambda: step(qk, *tiled, 2, s_valid=s))
+    return _bf16_steps(got, want), torch.equal(got, want), ms
 
 
 def check_b1_b4_edges(card: str, by_name, randn, b1_shape, b4_args) -> None:
@@ -795,6 +843,19 @@ def check_b1_b4_edges(card: str, by_name, randn, b1_shape, b4_args) -> None:
     if ops != 1.0:
         raise AssertionError(f"B4's wrapper puts {ops} operations on the "
                              "card a call, expected its one kernel")
+    # bitwise the plain version only where no 7-bit probability sits on a
+    # rounding edge (the path's inputs above); at random queries B4 keeps
+    # its 2 bf16 steps, and each beam's rows are bitwise the untiled call's
+    steps, bitwise, ms = _at_beam_rows(
+        "B4", cross_attention.cross_attend_step,
+        cross_attention.cross_attend_step_plain, randn, b4_args)
+    if steps > 2.0:
+        raise AssertionError(f"B4 at {4 * b4_args[0].shape[0]} beam rows: "
+                             f"{steps:.3g} bf16 steps from the plain version")
+    cases.append(f"beam rows B*K = {4 * b4_args[0].shape[0]} (the cache "
+                 f"tiled per beam): {steps:.3g} bf16 steps, bitwise the plain "
+                 f"version {bitwise}, each beam bitwise the untiled call, "
+                 f"{ms:.4f} ms")
     print(f"[kernel] B4: {ops:g} device operation a call (torch.profiler); "
           + "; ".join(cases) + f" on {card}", flush=True)
 
@@ -848,6 +909,18 @@ def check_b6_edges(card: str, by_name, randn, b6_args, q_multi) -> None:
         if ops != 1.0:
             raise AssertionError(f"{name}'s wrapper puts {ops} operations on "
                                  "the card a call, expected its one kernel")
+    # B6 sums its bf16 p.v products in another order than the plain version
+    # (0.3 bf16 steps at the path's inputs): its 2 steps, and each beam's
+    # rows bitwise the untiled call's
+    steps, bitwise, ms = _at_beam_rows(
+        "B6", cross_attention.cross_attend_step_dequant,
+        cross_attention.cross_attend_step_dequant_plain, randn, b6_args)
+    if steps > 2.0:
+        raise AssertionError(f"B6 at {4 * b6_args[0].shape[0]} beam rows: "
+                             f"{steps:.3g} bf16 steps from the plain version")
+    cases.append(f"beam rows B*K = {4 * b6_args[0].shape[0]} (the cache "
+                 f"tiled per beam): {steps:.3g}, bitwise the plain version "
+                 f"{bitwise}, each beam bitwise the untiled call, {ms:.4f} ms")
     print(f"[kernel] B6 and B7-dq: 1 device operation a call each "
           "(torch.profiler); B6 within 2 bf16 steps, two calls equal, at "
           + "; ".join(cases) + f" (bf16 steps) on {card}", flush=True)
@@ -1701,6 +1774,232 @@ def check_medium_fused_block(card: str, results) -> dict:
     return c
 
 
+def _grammar_errors(row, cfg) -> list:
+    """What one generated row breaks of the timestamp grammar
+    (``runtime.timestamps``): the first token a timestamp at most
+    ``max_initial_timestamp_index`` steps in, no <|notimestamps|>, pairs
+    closed (after text and a timestamp no text; after two timestamps no
+    third), timestamps never decreasing.  The row is read up to its first
+    EOT."""
+    gen = []
+    for t in row:
+        if t == cfg.eot_id:
+            break
+        gen.append(int(t))
+    tsb = cfg.timestamp_begin
+    if not gen:
+        return ["no first token"]
+    errs = []
+    if not tsb <= gen[0] <= tsb + cfg.max_initial_timestamp_index:
+        errs.append(f"first token {gen[0]}")
+    if cfg.no_timestamps_id in gen:
+        errs.append("<|notimestamps|>")
+    stamps = [t for t in gen if t >= tsb]
+    if stamps != sorted(stamps):
+        errs.append("timestamps decrease")
+    for j in range(1, len(gen)):
+        last, pen = gen[j - 1] >= tsb, j < 2 or gen[j - 2] >= tsb
+        if last and pen and gen[j] >= tsb:
+            errs.append(f"a third timestamp at {j}")
+        if last and not pen and gen[j] < cfg.eot_id:
+            errs.append(f"an open pair at {j}")
+    return errs
+
+
+def _decode_run(results, fn):
+    """``fn()`` with every kernel's count set to 0 just before it and read
+    just after: (its result, host seconds, counts)."""
+    import torch
+
+    _zero_counts(results)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, _counts(results)
+
+
+def check_decoding(card: str, results, params, dims, audio, x5) -> None:
+    """The decoding options on the 301.574 s file (12 chunks, one bucket of
+    16, 128 tokens) at whisper-base: (a) the timestamp grammar at x5 and x7
+    (B8), every row checked, two runs equal; (b) scores at T = 0, tokens
+    bitwise the greedy main path's; (c) the fallback ladder 0-1.0 with every
+    gate failing, so every chunk walks every rung (64 tokens a chunk), run
+    twice with one seed and once with another; (d) beam search, K = 4 at x5 (B4 at 64 rows) and
+    x4 (B6), and K = 1 against greedy decoding on the step beam search
+    takes; ``x5``: (e2e, Timing, tokens, counts) of the main path's run.
+    Each result on a ``[decoding]`` line."""
+    import numpy as np
+    import torch
+
+    from whisper_tpu_torch.frontend import golden
+    from whisper_tpu_torch.headline import make_session
+    from whisper_tpu_torch.models import whisper
+    from whisper_tpu_torch.pipeline.chunk import chunk_starts, mel_frame_bucket
+    from whisper_tpu_torch.pipeline.fallback import (
+        DEFAULT_TEMPERATURES,
+        transcribe_longform_fallback,
+    )
+    from whisper_tpu_torch.pipeline.longform import transcribe_longform
+    from whisper_tpu_torch.runtime.beam import beam_generate
+    from whisper_tpu_torch.runtime.genconfig import GenerationCfg
+    from whisper_tpu_torch.runtime.timestamps import TimestampCfg
+    from whisper_tpu_torch.tokenizer.specials import special_tokens
+
+    t_phase = time.perf_counter()
+    n_l = dims.decoder_layers
+    special = special_tokens("en", "transcribe", None)
+    ts_cfg = TimestampCfg(special.no_timestamps + 1, special.eot,
+                          special.no_timestamps)
+    greedy = x5[2]
+
+    def longform(session, **kw):
+        tokens = []
+        _, timing = transcribe_longform(session, audio, "en", "transcribe",
+                                        128, token_collector=tokens, **kw)
+        return tokens[0], timing
+
+    # (a) the timestamp grammar at x5 (B3, B4) and x7 (B8, B4)
+    sessions = {v: make_session("cuda", params, v) for v in ("x5", "x7")}
+    for variant, session in sessions.items():
+        again, _ = longform(session, timestamps=True)        # and warm-up
+        (toks, timing), e2e, c = _decode_run(
+            results, lambda: longform(session, timestamps=True))
+        errs = {r: _grammar_errors(row, ts_cfg) for r, row in enumerate(toks)}
+        errs = {r: e for r, e in errs.items() if e}
+        self_step = "self_attend_step_int8" if variant == "x7" \
+            else "self_attend_step"
+        if toks.shape != greedy.shape or errs or not (again == toks).all():
+            raise AssertionError(f"timestamps at {variant}: rows breaking "
+                                 f"the grammar {errs}, two runs equal "
+                                 f"{bool((again == toks).all())}")
+        if not (c[self_step] > 0 and c[self_step] == c["cross_attend_step"]
+                and c["fused_attention"] > 0):
+            raise AssertionError(f"timestamps at {variant}: launches {c}")
+        stamps = float((toks >= ts_cfg.timestamp_begin).sum(1).mean())
+        print(f"[decoding] (a) timestamps, whisper-base {variant}, on {card}: "
+              f"e2e {e2e:.4f} s, model {timing.model_only_s:.4f} s (greedy "
+              f"x5 {x5[0]:.4f} / {x5[1].model_only_s:.4f} s); every row of "
+              f"{len(toks)} keeps the grammar, {stamps:.2f} timestamps a row, "
+              f"two runs equal; {c[self_step] // n_l} steps; launches {c}",
+              flush=True)
+
+    # (b) scores at T = 0: the greedy main path's tokens, bitwise
+    session = sessions["x5"]
+    nv = golden.num_frames(len(audio))
+    mel = session.compute_mel(golden.reflect_pad(audio), nv,
+                              mel_frame_bucket(nv))
+    starts = [p // golden.HOP for p in chunk_starts(len(audio), 480_000,
+                                                    400_000)]
+    (toks, sum_lp, n_tok), secs, c = _decode_run(
+        results, lambda: session.transcribe_from_mel(
+            mel, starts, [special.sot, special.lang, special.task,
+                          special.no_timestamps], 128, special.eot,
+            with_scores=True))
+    ends = [int(np.argmax(row == special.eot)) + 1
+            if (row == special.eot).any() else len(row) for row in toks]
+    if not ((toks == greedy).all() and np.isfinite(sum_lp).all()
+            and list(n_tok) == ends):
+        raise AssertionError(f"scores at T = 0: tokens equal the greedy "
+                             f"run's {bool((toks == greedy).all())}, sum_lp "
+                             f"{sum_lp}, n_tok {n_tok.tolist()} against "
+                             f"{ends}")
+    print(f"[decoding] (b) scores at T = 0, whisper-base x5, on {card}: "
+          f"{secs:.4f} s; tokens bitwise the greedy main path's; avg "
+          f"log-probability a token {float(sum_lp.sum() / n_tok.sum()):.4f}; "
+          f"n_tok {n_tok.tolist()}", flush=True)
+
+    # (c) the fallback ladder, every gate failing: every chunk every rung,
+    # 64 tokens a chunk (three ladders of six rungs: the phase's time)
+    supp = list(range(1, special.eot, 97)) + list(range(special.sot + 100,
+                                                         special.sot + 106))
+    gen_cfg = GenerationCfg(suppress_tokens=supp,
+                            begin_suppress_tokens=[220, special.eot])
+    ladders = []
+    for seed in (0, 0, 1):
+        rungs = []
+        (_, timing, info), secs, c = _decode_run(
+            results, lambda: transcribe_longform_fallback(
+                session, audio, "en", "transcribe", 64, gen_cfg=gen_cfg,
+                logprob_threshold=float("inf"), seed=seed,
+                token_collector=rungs))
+        if info["accepted_at"] != [1.0] * len(starts) or [
+                (t, i) for t, i, _ in rungs] != [
+                (t, list(range(len(starts)))) for t in DEFAULT_TEMPERATURES]:
+            raise AssertionError(f"ladder, seed {seed}: accepted at "
+                                 f"{info['accepted_at']}, rungs "
+                                 f"{[(t, i) for t, i, _ in rungs]}")
+        drawn = np.concatenate([r[2].reshape(-1) for r in rungs])
+        if np.isin(drawn, supp).any():
+            raise AssertionError(f"ladder, seed {seed}: a suppressed id drawn")
+        ladders.append([r[2] for r in rungs])
+        print(f"[decoding] (c) fallback ladder {DEFAULT_TEMPERATURES}, seed "
+              f"{seed}, whisper-base x5, on {card}: e2e {secs:.4f} s, model "
+              f"{timing.model_only_s:.4f} s for {len(rungs)} rungs of "
+              f"{len(starts)} chunks; every chunk accepted at 1.0; no "
+              f"suppressed id among {drawn.size} tokens; B4 launches "
+              f"{c['cross_attend_step']}", flush=True)
+    same = all((a == b).all() for a, b in zip(*ladders[:2]))
+    other = [float((a == b).mean()) for a, b in zip(ladders[0], ladders[2])]
+    if not same or min(other[1:]) == 1.0:
+        raise AssertionError(f"ladder: one seed twice equal {same}; another "
+                             f"seed's share of equal tokens by rung {other}")
+    print(f"[decoding] (c) two runs with seed 0 equal at every rung; seed 1 "
+          f"against seed 0, share of equal tokens by rung: "
+          + ", ".join(f"{t} {x:.4f}" for t, x in zip(DEFAULT_TEMPERATURES,
+                                                     other)), flush=True)
+
+    # (d) beam search: K = 1 against greedy on the same step, K = 4 at x5, x4
+    enc, prompt = _bucket_encoder_states(session, audio)
+    zero = torch.zeros(dims.vocab_size, device="cuda")
+    toks1, _ = beam_generate(session._decoder_params, dims, enc, prompt[0],
+                             zero, zero, 128, special.eot, 1,
+                             int8_cross_kv=True, packed_cross=True,
+                             int8_mxu=True)
+    logits, cache = whisper.decoder_prefill(session._decoder_params, dims,
+                                            prompt, enc, 132,
+                                            int8_cross_kv=True)
+    want = [logits[:, -1].float().argmax(-1)]
+    done = want[0] == special.eot
+    for i in range(1, 128):
+        lg, cache = whisper.decoder_step(session._decoder_params, dims,
+                                         want[-1], 3 + i, cache,
+                                         cross_len=enc.shape[1],
+                                         int8_mxu=True)
+        want.append(torch.where(done, special.eot, lg.float().argmax(-1)))
+        done = done | (want[-1] == special.eot)
+    if not torch.equal(toks1, torch.stack(want, dim=1)):
+        raise AssertionError("beam K = 1 differs from greedy decoding on "
+                             "the same step")
+    print(f"[decoding] (d) beam K = 1 equals greedy decoding on its step "
+          f"(plain self-attention, B4) for the {enc.shape[0]} rows of the "
+          f"bucket, on {card}", flush=True)
+    del sessions, session, cache
+    for variant, on, off in (("x5", "cross_attend_step",
+                              "cross_attend_step_dequant"),
+                             ("x4", "cross_attend_step_dequant",
+                              "cross_attend_step")):
+        session = make_session("cuda", params, variant)
+        again, _ = longform(session, num_beams=4)             # and warm-up
+        (toks, timing), e2e, c = _decode_run(
+            results, lambda: longform(session, num_beams=4))
+        steps = c[on] // n_l
+        if not (toks.shape == greedy.shape and (again == toks).all()
+                and c[on] == steps * n_l > 0 and c[off] == 0
+                and c["self_attend_step"] == 0):
+            raise AssertionError(f"beam K = 4 at {variant}: two runs equal "
+                                 f"{bool((again == toks).all())}, launches "
+                                 f"{c}")
+        print(f"[decoding] (d) beam K = 4, whisper-base {variant}, 64 beam "
+              f"rows, on {card}: e2e {e2e:.4f} s, model "
+              f"{timing.model_only_s:.4f} s, {steps} steps; tokens equal to "
+              f"greedy x5's: {float((toks == greedy).mean()):.4f} of "
+              f"{toks.size}; two runs equal; launches {c}", flush=True)
+        del session
+    print(f"[decoding] phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 # The CLI phase's files: (name, seconds, sample rate, channels).  Sorted by
 # name, the 4 s file comes first: the warm-up file and the medium run's.
 CLI_FILES = (("a_4s.wav", 4.0, 16000, 1),
@@ -1708,6 +2007,10 @@ CLI_FILES = (("a_4s.wav", 4.0, 16000, 1),
              ("c_76s.wav", 76.0, 16000, 1),       # 7,600 frames: one shot
              ("d_150s.wav", 150.0, 16000, 1))     # streamed slabs
 CSV_HEADER = ["file", "duration_s", "end_to_end_s", "rtf", "text"]
+DECODING_FLAGS = {"timestamps": ["--timestamps"],
+                  "language-auto": ["--language", "auto"],
+                  "temperatures": ["--temperatures", "0,0.2,0.4"],
+                  "beams": ["--num-beams", "4"]}
 SUMMARY_KEYS = {"config_used", "n_files", "latency_end_to_end_s",
                 "breakdown_s", "rtf_end_to_end", "model_id", "onnx_dir",
                 "language", "task", "max_new_tokens", "tokenizer_json",
@@ -1831,6 +2134,12 @@ def check_cli(card: str, results) -> dict:
             "whisper-base x7": run_cli("base-x7", card, results, audio_dir,
                                        tmp, base + ["--variant", "x7"]),
         }
+        # the decoding flags, at 32 tokens a chunk to bound the run time
+        for label, flags in DECODING_FLAGS.items():
+            runs[f"whisper-base x5 {label}"] = run_cli(
+                f"base-x5-{label}", card, results, audio_dir, tmp,
+                ["--model-id", "openai/whisper-base", "--max-new-tokens", "32",
+                 "--variant", "x5", *flags])
         for name in os.listdir(audio_dir):
             if name != CLI_FILES[0][0]:
                 os.remove(os.path.join(audio_dir, name))
@@ -1859,6 +2168,14 @@ def check_cli(card: str, results) -> dict:
             and x7["cross_attend_step_dequant"] == 0
             and x7["fused_attention"] > 0 and x7["fused_encoder_mlp"] > 0):
         raise AssertionError(f"CLI x7: launches {x7}")
+    for label in DECODING_FLAGS:
+        c = runs[f"whisper-base x5 {label}"]
+        step_ok = c["self_attend_step"] == 0 if label == "beams" \
+            else c["self_attend_step"] == c["cross_attend_step"]
+        if not (c["cross_attend_step"] > 0 and step_ok
+                and c["cross_attend_step_dequant"] == 0
+                and c["fused_attention"] > 0):
+            raise AssertionError(f"CLI x5 {label}: launches {c}")
     dr = runs["whisper-base x5 draft"]
     if not (dr["cross_attend_multi"] > 0 and dr["cross_attend_step"] > 0
             and dr["cross_attend_multi"] % 6 == 0
@@ -1931,6 +2248,7 @@ def main() -> None:
     del session
     ladder = check_ladder(card, results, params, dims, audio, x5_run)
     spec = check_speculative(card, results, params, dims, audio, x5_run)
+    check_decoding(card, results, params, dims, audio, x5_run)
     fused_step = check_fused_step(card, results, params, dims, audio)
     medium = check_medium_fused_block(card, results)
     cli = check_cli(card, results)

@@ -203,20 +203,16 @@ def test_profile_dir_writes_a_trace(audio_dir, model_dir, tmp_path):
 
 
 NOT_PORTED = {
-    "beams": ["--num-beams", "2"],
-    "timestamps": ["--timestamps"],
     "word_timestamps": ["--word-timestamps"],
     "srt": ["--write-srt"],
     "vtt": ["--write-vtt"],
     "sequential": ["--longform-mode", "sequential"],
     "pipelined": ["--longform-mode", "pipelined"],
-    "temperatures": ["--temperatures", "0,0.2"],
     "vad": ["--vad-filter"],
     "initial_prompt": ["--initial-prompt", "hello"],
     # a draft runs in the chunked mode; with the pipelined mode it waits
     "draft": ["--draft-model-id", "test/whisper-nano", "--longform-mode",
               "pipelined"],
-    "language_auto": ["--language", "auto"],
     "data_parallel": ["--data-parallel", "2"],
     "tensor_parallel": ["--tensor-parallel", "2"],
     "dcn": ["--dcn-coordinator", "localhost:1234"],
@@ -230,6 +226,68 @@ def test_not_ported_flags_exit_naming_roadmap(case, tmp_path):
     with pytest.raises(SystemExit, match="ROADMAP"):
         cli.main(["--audio-dir", str(tmp_path), *NOT_PORTED[case]],
                  device="cpu")
+
+
+DECODING_FLAGS = {
+    "timestamps": ["--timestamps"],
+    "language_auto": ["--language", "auto"],
+    "temperatures": ["--temperatures", "0,0.2,0.4"],
+    "beams": ["--num-beams", "2", "--length-penalty", "0.8"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(DECODING_FLAGS))
+def test_decoding_flags_run_and_give_jax_text_at_x0(jax_x0, audio_dir,
+                                                    model_dir, tmp_path,
+                                                    tmp_path_factory, case):
+    """Each decoding flag the JAX CLI takes runs on the CPU at x0: rc 0,
+    the JAX CLI's CSV header and summary keys, and the JAX CLI's text for
+    every file with the same flag (the fallback ladder at T = 0 for files
+    that pass its gates; sampled rungs may differ, so there the files and
+    durations only)."""
+    rc = cli.main(_argv(audio_dir, model_dir, tmp_path, "--variant", "x0",
+                        *DECODING_FLAGS[case]), device="cpu")
+    assert rc == 0
+    header, rows, jrows, summary = _outputs(tmp_path)
+    jout = tmp_path_factory.mktemp(f"jax-{case}")
+    assert jax_cli.main(_argv(audio_dir, model_dir, jout, "--variant", "x0",
+                              *DECODING_FLAGS[case])) == 0
+    jheader, jcsv, jjrows, jsummary = _outputs(jout)
+    assert header == jheader and _keys(summary) == _keys(jsummary)
+    assert summary["timestamps"] == jsummary["timestamps"]
+    assert [r[:2] for r in rows] == [r[:2] for r in jcsv]
+    if case != "temperatures":
+        assert [r["text"] for r in jrows] == [r["text"] for r in jjrows]
+    if case == "timestamps":
+        assert all("<|" in r["text"] for r in jrows if r["text"])
+
+
+REFUSED = {
+    # the JAX CLI's refusals of combinations (cli.py:220-228, 329-336)
+    "temperatures_beams": ["--temperatures", "0,0.2", "--num-beams", "2"],
+    "temperatures_timestamps": ["--temperatures", "0,0.2", "--timestamps"],
+    "temperatures_prompt": ["--temperatures", "0", "--initial-prompt", "x"],
+    "temperatures_words": ["--temperatures", "0", "--word-timestamps"],
+    "temperatures_srt": ["--temperatures", "0", "--write-srt"],
+    "draft_beams": ["--draft-model-id", "test/whisper-nano", "--num-beams",
+                    "2"],
+    "draft_timestamps": ["--draft-model-id", "test/whisper-nano",
+                         "--timestamps"],
+    "draft_temperatures": ["--draft-model-id", "test/whisper-nano",
+                           "--temperatures", "0,0.2"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED))
+def test_refused_combinations_exit_as_in_jax(case, audio_dir, model_dir,
+                                             tmp_path):
+    argv = _argv(audio_dir, model_dir, tmp_path, *REFUSED[case])
+    with pytest.raises(SystemExit) as want:
+        jax_cli.main(argv)
+    with pytest.raises(SystemExit) as got:
+        cli.main(argv, device="cpu")
+    assert str(got.value) == str(want.value)
+    assert "compose" in str(got.value)
 
 
 @pytest.mark.parametrize("variant", ["x6", "x7"])

@@ -977,3 +977,113 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         decoder_kernels.cross_attn_block(x, x, x, x, x, x, x, x, 3)
     with pytest.raises(ValueError, match="d=192"):  # B10c: d no multiple of 64
         decoder_kernels.mlp_block(x, x, x, x, x, x)
+
+
+# ---------------------------------------------------------------------------
+# The decoding options on the card: beam rows, sampling
+# ---------------------------------------------------------------------------
+
+def _beam_cache(gen, n_l, b, k, h, s):
+    """The int8 cross cache of b rows tiled per beam as ``beam_generate``
+    tiles it: [L, B*K, H, S, 64] and scales [L, B*K, H, 1, 1], each beam
+    of row r at r*K + j; the kernels take the scales' [..., 0, 0] views."""
+    k8, v8, ks, vs = _cross_cache(gen, n_l, b, h, s)
+    tiled = [x.repeat_interleave(k, dim=1) for x in (k8, v8)]
+    scales = [x[..., None, None].repeat_interleave(k, dim=1)[..., 0, 0]
+              for x in (ks, vs)]
+    return (k8, v8, ks, vs), (*tiled, *scales)
+
+
+@pytest.mark.parametrize("dequant", [False, True])
+@pytest.mark.parametrize("b,k,h,s", [(16, 4, 8, 1500), (3, 3, 8, 1500),
+                                     (16, 4, 6, 193)])
+def test_b4_b6_at_beam_rows(gen, b, k, h, s, dequant):
+    """B4 (x5) and B6 (x4) at B*K rows against the cache tiled per beam,
+    the scales as views of a [L, B*K, H, 1, 1] tensor: each beam's row is
+    bitwise the kernel's row on the untiled cache, and the whole within 2
+    bf16 steps of the plain version (B4 bitwise at the path's inputs,
+    PERF.md)."""
+    n_l = 2
+    step = cross_attention.cross_attend_step_dequant if dequant \
+        else cross_attention.cross_attend_step
+    plain = cross_attention.cross_attend_step_dequant_plain if dequant \
+        else cross_attention.cross_attend_step_plain
+    untiled, tiled = _beam_cache(gen, n_l, b, k, h, s)
+    q = _randn(gen, b * k, h, 64, scale=0.125)
+    got = step(q, *tiled, 1, s_valid=s)
+    _assert_close(got, plain(q, *tiled, 1, s_valid=s))
+    for j in range(k):
+        rows = torch.arange(b, device="cuda") * k + j
+        one = step(q[rows].contiguous(), *untiled, 1, s_valid=s)
+        assert torch.equal(got[rows], one), j
+
+
+def _small_model(seed=0):
+    from whisper_tpu_torch.models import convert
+    from whisper_tpu_torch.models.registry import WhisperDims
+
+    dims = WhisperDims(n_mels=80, d_model=128, encoder_layers=2,
+                       encoder_heads=2, decoder_layers=2, decoder_heads=2,
+                       vocab_size=320, max_source_positions=1500,
+                       max_target_positions=64)
+    tree = convert.params_from_numpy(convert.init_params(dims, seed), "cuda",
+                                     BF)
+    return dims, tree
+
+
+def test_sampled_step_with_a_cuda_generator(gen):
+    """temperature > 0 through the x5 kernel step: a generator on the card
+    repeats its draws per seed, another seed draws others, no suppressed id
+    is drawn, and a generator on the CPU is refused by the draw itself."""
+    from whisper_tpu_torch.runtime.generate import (
+        build_suppress_mask,
+        greedy_generate,
+    )
+
+    dims, tree = _small_model()
+    enc = _randn(gen, 4, 1500, 128)
+    suppress = list(range(0, 320, 3))
+    mask = torch.from_numpy(build_suppress_mask(320, suppress)).cuda()
+    prompt = torch.tensor([250, 252, 253, 254], device="cuda")
+
+    def run(g):
+        return greedy_generate(tree, dims, enc, prompt, mask, mask, 16, 251,
+                               int8_cross_kv=True, kernel_step=True,
+                               temperature=1.0, generator=g,
+                               return_logprobs=True)
+
+    a, b, c = (run(torch.Generator(device="cuda").manual_seed(s))
+               for s in (7, 7, 8))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert not torch.equal(a[0], c[0])
+    assert not torch.isin(a[0], torch.tensor(suppress, device="cuda")).any()
+    assert torch.isfinite(a[1]).all()
+    with pytest.raises(RuntimeError):
+        run(torch.Generator().manual_seed(7))
+
+
+def test_beam_k1_equals_greedy_on_the_same_step(gen):
+    """One beam against greedy decoding over the step beam search takes
+    (plain self-attention, B4 against the int8 cross cache), on the card:
+    the same tokens."""
+    from whisper_tpu_torch.models import whisper
+    from whisper_tpu_torch.runtime.beam import beam_generate
+
+    dims, tree = _small_model(1)
+    enc = _randn(gen, 4, 1500, 128)
+    zero = torch.zeros(320, device="cuda")
+    prompt = torch.tensor([250, 252, 253, 254], device="cuda")
+    toks, _ = beam_generate(tree, dims, enc, prompt, zero, zero, 12, 251, 1,
+                            int8_cross_kv=True, packed_cross=True,
+                            int8_mxu=True)
+    logits, cache = whisper.decoder_prefill(tree, dims, prompt.expand(4, -1),
+                                            enc, 16, int8_cross_kv=True)
+    want = [logits[:, -1].float().argmax(-1)]
+    done = want[0] == 251
+    for i in range(1, 12):
+        lg, cache = whisper.decoder_step(tree, dims, want[-1], 3 + i, cache,
+                                         cross_len=1500, int8_mxu=True)
+        nxt = torch.where(done, 251, lg.float().argmax(-1))
+        done = done | (nxt == 251)
+        want.append(nxt)
+    assert torch.equal(toks, torch.stack(want, dim=1))

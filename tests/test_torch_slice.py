@@ -33,6 +33,7 @@ from whisper_tpu_torch.models.registry import WhisperDims
 from whisper_tpu_torch.pipeline.chunk import CHUNK_FRAMES, mel_frame_bucket
 from whisper_tpu_torch.pipeline.longform import transcribe_longform
 from whisper_tpu_torch.runtime.session import RuntimeCfg, WhisperSession
+from whisper_tpu_torch.runtime.timestamps import TimestampCfg
 from whisper_tpu_torch.variants.ladder import apply_variant
 
 torch.set_num_threads(2)
@@ -244,6 +245,7 @@ from whisper_tpu_torch.models.convert import init_params
 from whisper_tpu_torch.models.registry import WhisperDims
 from whisper_tpu_torch.pipeline.longform import transcribe_longform
 from whisper_tpu_torch.runtime.session import RuntimeCfg, WhisperSession
+from whisper_tpu_torch.runtime.timestamps import TimestampCfg
 from whisper_tpu_torch.variants.ladder import apply_variant
 dims = WhisperDims(80, 128, 1, 2, 1, 2, 256)
 cfg, _ = apply_variant(RuntimeCfg(), "x5")
@@ -297,9 +299,6 @@ def _small_session(rung="x5", **overrides):
 
 
 LONGFORM_CASES = {
-    "beams": dict(num_beams=2),
-    "timestamps": dict(timestamps=True),
-    "language_auto": dict(language="auto"),
     "word_timings": dict(word_collector=[]),
     "conditioned_prompt": dict(initial_prompt_ids=[1, 2]),
     "speculative": dict(speculative=True),
@@ -323,6 +322,36 @@ def test_longform_options_not_ported_raise(case):
                             **kw)
 
 
+class LangTok(RecordingTok):
+    """RecordingTok with a token table, which language detection reads."""
+
+    _tokens = [None] * 250 + sorted(RecordingTok.ids, key=RecordingTok.ids.get)
+
+
+LONGFORM_RUNS = {
+    "beams": dict(num_beams=2),
+    "beams_length_penalty": dict(num_beams=3, length_penalty=0.5),
+    "timestamps": dict(timestamps=True),
+    "beams_timestamps": dict(num_beams=2, timestamps=True),
+    "language_auto": dict(language="auto"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LONGFORM_RUNS))
+def test_longform_decoding_options_run(case):
+    """What the long-form driver refused before the decoding options were
+    ported now runs at x5: one chunk decoded, a detected language
+    collected."""
+    kw = dict(language="en", task="transcribe", max_new_tokens=3)
+    kw.update(LONGFORM_RUNS[case])
+    tok, tokens, langs = LangTok(), [], []
+    text, timing = transcribe_longform(
+        _small_session(), _audio(8.0), tokenizer=tok, token_collector=tokens,
+        language_collector=langs, **kw)
+    assert tokens[0].shape == (1, 3) and timing.end_to_end_s > 0
+    assert langs == (["en"] if kw["language"] == "auto" else [])
+
+
 SESSION_CASES = {
     "mesh": ("x5", dict(data_parallel=2)),
     "mesh_tensor_parallel": ("x7", dict(tensor_parallel=2)),
@@ -338,9 +367,6 @@ def test_session_configs_not_ported_raise(case):
 
 
 DECODE_CASES = {
-    "beams": dict(num_beams=2),
-    "timestamps": dict(ts_cfg=object()),
-    "temperature": dict(temperature=0.5),
     "conditioned_prompt": dict(pad_count=2),
     "speculative": dict(speculative=True),
 }
@@ -353,6 +379,61 @@ def test_decode_options_not_ported_raise(case):
     with _refusal(case):
         sess.transcribe_from_mel(mel, [0], [250], 2, 251,
                                  **DECODE_CASES[case])
+
+
+DECODE_RUNS = {
+    "beams": dict(num_beams=2),
+    "timestamps": dict(ts_cfg=TimestampCfg(255, 251, 254), prompt=[250, 252,
+                                                                  253]),
+    "temperature": dict(temperature=0.5, seed=3),
+    "scores": dict(with_scores=True),
+    "temperature_scores": dict(temperature=1.0, with_scores=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_RUNS))
+def test_decode_options_run(case):
+    """The session's decoding options, refused before they were ported:
+    tokens of the asked shape, and with with_scores finite sums and counts
+    of at least one token."""
+    kw = dict(DECODE_RUNS[case])
+    prompt = kw.pop("prompt", [250, 252, 253, 254])
+    mel = torch.from_numpy(_audio(30.0)[:80 * 3000].reshape(80, 3000))
+    out = _small_session().transcribe_from_mel(mel, [0, 1000], prompt, 3, 251,
+                                               **kw)
+    toks = out[0] if kw.get("with_scores") else out
+    assert toks.shape == (2, 3)
+    if kw.get("with_scores"):
+        assert np.isfinite(out[1]).all() and (out[2] >= 1).all()
+
+
+COMBINATION_CASES = {
+    # the JAX session's refusals (session.py:801-807, 850-854)
+    "beams_with_scores": (dict(num_beams=2, with_scores=True), ValueError,
+                          "num_beams > 1 does not compose"),
+    "beams_with_temperature": (dict(num_beams=2, temperature=0.5),
+                               ValueError, "num_beams > 1 does not compose"),
+    "speculative_with_beams": (dict(speculative=True, num_beams=2),
+                               ValueError, "plain greedy only"),
+    "speculative_with_timestamps": (
+        dict(speculative=True, ts_cfg=TimestampCfg(255, 251, 254)),
+        ValueError, "plain greedy only"),
+    "speculative_with_scores": (dict(speculative=True, with_scores=True),
+                                ValueError, "plain greedy only"),
+    "conditioned_prompt_8c": (dict(pad_count=1), NotImplementedError,
+                              "item 8c"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(COMBINATION_CASES))
+def test_decode_combinations_refused_as_in_jax(case):
+    kw, exc, match = COMBINATION_CASES[case]
+    sess = _small_session()
+    if kw.get("speculative"):
+        sess.set_draft_model(convert.init_params(SMALL, seed=1), SMALL)
+    with pytest.raises(exc, match=match):
+        sess.transcribe_from_mel(torch.zeros((80, 3000)), [0], [250], 2, 251,
+                                 **kw)
 
 
 def test_model_options_not_ported_raise():

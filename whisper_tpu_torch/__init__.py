@@ -1,10 +1,11 @@
 """whisper_tpu_torch — the PyTorch and CUDA port of ``whisper_tpu``.
 
-It runs the chunked long-form path (log-mel, encoder, greedy decoding,
-stitching) at rungs x0-x5 and ``int8``, and the reference-compatible
-benchmark CLI over it (``python -m whisper_tpu_torch.bench``), on an
-NVIDIA H100 through six hand-written CUDA kernels for Hopper (``csrc/``,
-built with nvcc at first use):
+It runs the chunked long-form path (log-mel, encoder, greedy, sampled,
+speculative or beam decoding, the timestamp grammar, language detection,
+the temperature-fallback ladder, stitching) at rungs x0-x7 and ``int8``,
+and the reference-compatible benchmark CLI over it (``python -m
+whisper_tpu_torch.bench``), on an NVIDIA H100 through hand-written CUDA
+kernels for Hopper (``csrc/``, built with nvcc at first use), among them:
 
 - B1 ``ops.attention.fused_attention``: encoder self-attention
 - B2 ``ops.encoder_mlp.fused_encoder_mlp``: encoder LN + MLP + residual,

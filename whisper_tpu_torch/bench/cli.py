@@ -21,9 +21,13 @@ and ``--inter-op`` (``intra_op >= 2`` prefetches the next file and its mel
 on a second thread), ``--warmup``, ``--limit-files``, ``--write-txt``,
 ``--tokenizer-json``, ``--allow-random-init``, ``--onnx-dir``,
 ``--profile-dir`` (a ``torch.profiler`` Chrome trace in place of the JAX
-trace) and speculative decoding (``--draft-dir`` or ``--draft-model-id``,
-``--draft-k``, ``--draft-share-encoder``).  Every other feature flag exits
-naming its ROADMAP item; none is silently ignored.
+trace), speculative decoding (``--draft-dir`` or ``--draft-model-id``,
+``--draft-k``, ``--draft-share-encoder``) and the decoding options:
+``--timestamps``, ``--language auto``, ``--num-beams`` with
+``--length-penalty``, and ``--temperatures`` (the fallback ladder,
+``pipeline.fallback``).  The JAX CLI's refusals of combinations stay as
+they are there; every other feature flag exits naming its ROADMAP item;
+none is silently ignored.
 """
 
 from __future__ import annotations
@@ -54,8 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="model dir (framework params + sidecars); reference "
                         "flag name kept for artifact compatibility")
     p.add_argument("--language", default="en",
-                   help="language code ('auto' detection: ROADMAP queue 1 "
-                        "item 8)")
+                   help="language code, or 'auto' to detect from the first "
+                        "30s window")
     p.add_argument("--task", default="transcribe")
     p.add_argument("--max-new-tokens", type=int, default=128)
     p.add_argument("--warmup", type=int, default=0)
@@ -69,20 +73,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--inter-op", type=int, default=0)
     p.add_argument("--write-txt", action="store_true")
     p.add_argument("--write-srt", action="store_true",
-                   help="not ported (ROADMAP queue 1 item 8)")
+                   help="not ported (ROADMAP queue 1 items 8c/8g)")
     p.add_argument("--write-vtt", action="store_true",
-                   help="not ported (ROADMAP queue 1 item 8)")
+                   help="not ported (ROADMAP queue 1 items 8c/8g)")
     p.add_argument("--tokenizer-json", default="")
     p.add_argument("--timestamps", action="store_true",
-                   help="not ported (ROADMAP queue 1 item 8)")
+                   help="timestamp decoding (the grammar enforced; "
+                        "<|x.xx|> markers in the text)")
     p.add_argument("--chunk-parallelism", type=int, default=0,
                    help="reference: rayon threads; here: chunk-batch cap "
                         "(rounded to a power of two)")
     p.add_argument("--chunk-length-s", type=float, default=30.0)
     p.add_argument("--overlap-s", type=float, default=5.0)
     p.add_argument("--num-beams", type=int, default=1,
-                   help="1 = greedy; beam search is not ported (ROADMAP "
-                        "queue 1 item 8)")
+                   help="beam search width (1 = greedy, matching the "
+                        "reference rust SUT; >1 matches the python SUTs)")
     p.add_argument("--length-penalty", type=float, default=1.0)
     # --- extras of the JAX package ---
     p.add_argument("--variant", default="",
@@ -117,8 +122,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "decoder (the draft's encoder never runs; needs "
                         "equal d_model)")
     p.add_argument("--temperatures", default="",
-                   help="temperature fallback: not ported (ROADMAP queue 1 "
-                        "item 9)")
+                   help="comma list (e.g. '0,0.2,0.4,0.6,0.8,1') enabling "
+                        "openai-whisper-style temperature-fallback decoding")
     p.add_argument("--longform-mode", default="chunked",
                    choices=["chunked", "sequential", "pipelined"],
                    help="chunked = reference rust strategy (fixed 30s windows"
@@ -148,23 +153,18 @@ def not_ported(args) -> List[str]:
     changed = {k for k, v in vars(args).items() if getattr(defaults, k) != v}
     item = "ROADMAP queue 1 item"
     checks = [
-        (args.num_beams > 1, f"--num-beams > 1 (beam search): {item} 8"),
-        (args.timestamps, f"--timestamps (timestamp decoding): {item} 8"),
         (args.word_timestamps, f"--word-timestamps (DTW word timings): "
-                               f"{item} 8"),
+                               f"{item} 8g"),
         (args.write_srt or args.write_vtt, f"--write-srt/--write-vtt "
-                                           f"(subtitles): {item} 8"),
-        (args.language == "auto", f"--language auto (detection): {item} 8"),
+                                           f"(subtitles): {item} 8c/8g"),
         (args.longform_mode != "chunked" or "slab_chunks" in changed,
          f"--longform-mode {args.longform_mode}/--slab-chunks "
          f"(sequential and pipelined modes): {item} 9"),
-        (bool(args.temperatures), f"--temperatures (fallback decoding): "
-                                  f"{item} 9"),
         (bool({"vad_filter", "vad_threshold_db"} & changed),
          f"--vad-filter/--vad-threshold-db (VAD): {item} 9"),
         (bool({"initial_prompt", "condition_on_prev_text"} & changed),
          f"--initial-prompt/--condition-on-prev-text (conditioned prompts): "
-         f"{item} 9"),
+         f"{item} 8c"),
         (args.data_parallel > 1 or args.tensor_parallel > 1,
          f"--data-parallel/--tensor-parallel (more cards): {item} 12"),
         (bool({"dcn_coordinator", "dcn_num_processes", "dcn_process_id"}
@@ -252,6 +252,14 @@ def main(argv: Optional[List[str]] = None, *, device=None) -> int:
         print(f"error: --draft-k must be >= 1, got {args.draft_k}",
               file=sys.stderr)
         return 2
+    if args.temperatures and (args.initial_prompt or args.num_beams > 1
+                              or args.word_timestamps or args.timestamps
+                              or args.write_srt or args.write_vtt):
+        # the JAX CLI's refusal: the fallback ladder decodes greedy or
+        # sampled, without prompts, beams or timing output
+        raise SystemExit("--temperatures does not compose with "
+                         "--initial-prompt/--num-beams/--timestamps/"
+                         "--word-timestamps/--write-srt/--write-vtt")
     missing = not_ported(args)
     if missing:
         raise SystemExit("not ported: " + "; ".join(missing))
@@ -402,7 +410,8 @@ def main(argv: Optional[List[str]] = None, *, device=None) -> int:
     def _load(fnm, with_mel=False):
         audio, sr, dur = load_audio_16k_mono(os.path.join(args.audio_dir, fnm))
         pre_mel = None
-        if with_mel and len(audio):
+        # the fallback ladder computes its own mel
+        if with_mel and len(audio) and not args.temperatures:
             total = golden.num_frames(len(audio))
             pre_mel = (session.compute_mel(golden.reflect_pad(audio), total,
                                            mel_frame_bucket(total)), total)
@@ -433,7 +442,18 @@ def main(argv: Optional[List[str]] = None, *, device=None) -> int:
             if executor is not None and idx + 1 < len(files):
                 next_future = executor.submit(_load, files[idx + 1], True)
 
-            text, t = _transcribe(audio, pre_mel)
+            if args.temperatures:
+                from whisper_tpu_torch.pipeline.fallback import (
+                    transcribe_longform_fallback,
+                )
+
+                temps = tuple(float(x) for x in args.temperatures.split(","))
+                text, t, _info = transcribe_longform_fallback(
+                    session, audio, args.language, args.task,
+                    args.max_new_tokens, args.chunk_length_s, args.overlap_s,
+                    tokenizer, gen_cfg, temperatures=temps)
+            else:
+                text, t = _transcribe(audio, pre_mel)
 
             e2e = load_s + t.end_to_end_s
             rtf = e2e / max(dur, 1e-9)

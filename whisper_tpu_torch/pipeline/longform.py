@@ -10,9 +10,11 @@ src/main.rs:834-1008):
    deduped stitching on the host (decode_s)
 
 Device work is fenced with ``torch.cuda.synchronize`` inside each timed
-region, so the breakdown is honest.  Greedy decoding with an explicit
-language, plain or speculative (a draft model attached to the session):
-the rest raises NotImplementedError naming its ROADMAP item.
+region, so the breakdown is honest.  Greedy decoding, plain or speculative
+(a draft model attached to the session), or beam search; timestamp
+decoding; ``language="auto"`` detects the language on the first window.
+Word timings and conditioned prompts raise NotImplementedError naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ def transcribe_longform(
     precomputed_mel: Optional[Tuple] = None,
     word_collector: Optional[list] = None,
     initial_prompt_ids: Optional[list] = None,
+    language_collector: Optional[list] = None,
     speculative: bool = False,
     token_collector: Optional[list] = None,
     draft_k: int = 4,
@@ -65,8 +68,12 @@ def transcribe_longform(
     tokenizer: anything with ``decode(ids, skip_special_tokens=...)`` and
     ``token_to_id`` (e.g. ``tokenizer.bpe.WhisperDetokenizer``); without
     one, chunk texts are the token ids, as in the reference.
-    length_penalty: read by beam search only, as in the JAX package
-    (greedy decoding ignores it there too).
+    timestamps: no <|notimestamps|> in the prompt, the timestamp grammar
+    enforced, and timestamps rendered as ``<|x.xx|>`` in the text.
+    language: a code, or "auto" to detect it on the first 30 s window;
+    language_collector: a list that receives the detected code.
+    num_beams > 1: beam search; length_penalty is read by beam search only,
+    as in the JAX package.
     precomputed_mel: an optional (device mel, total_frames) pair, computed
     by the CLI's prefetch thread while the previous file decoded; the
     device is synchronized before preprocess_s is read, so it measures the
@@ -76,21 +83,26 @@ def transcribe_longform(
     speculative: draft-and-verify decoding with the session's draft model
     (``session.set_draft_model``), ``draft_k`` proposals a round; the text
     is the greedy text."""
-    for flag, item in ((language == "auto", "language 'auto' (detection): "
-                        "ROADMAP queue 1 item 8"),
-                       (timestamps, "timestamp decoding: ROADMAP queue 1 "
-                        "item 8"),
-                       (num_beams > 1, "beam search: ROADMAP queue 1 item 8"),
-                       (word_collector is not None, "word timings: ROADMAP "
-                        "queue 1 item 8"),
+    for flag, item in ((word_collector is not None, "word timings: ROADMAP "
+                        "queue 1 item 8g"),
                        (bool(initial_prompt_ids), "conditioned prompts: "
-                        "ROADMAP queue 1 item 8")):
+                        "ROADMAP queue 1 item 8c")):
         if flag:
             raise NotImplementedError(item)
     t0 = time.perf_counter()
     gen_cfg = gen_cfg or GenerationCfg()
-    special = special_tokens(language, task, tokenizer)
-    prompt = [special.sot, special.lang, special.task, special.no_timestamps]
+    detect = language == "auto"
+    special = special_tokens("en" if detect else language, task, tokenizer)
+    prompt = [special.sot, special.lang, special.task]
+    ts_cfg = None
+    ts_begin = special.no_timestamps + 1
+    if not timestamps:
+        prompt.append(special.no_timestamps)
+    else:
+        from whisper_tpu_torch.runtime.timestamps import TimestampCfg
+
+        ts_cfg = TimestampCfg(timestamp_begin=ts_begin, eot_id=special.eot,
+                              no_timestamps_id=special.no_timestamps)
 
     chunk_len = int(round(chunk_length_s * SAMPLE_RATE))
     step = max(chunk_len - int(round(overlap_s * SAMPLE_RATE)), 1)
@@ -108,15 +120,32 @@ def transcribe_longform(
     _sync(session.device)
     preprocess_s = time.perf_counter() - tp0
 
+    if detect:
+        from whisper_tpu_torch.pipeline.chunk import CHUNK_FRAMES
+        from whisper_tpu_torch.runtime.langdetect import (
+            detect_language,
+            language_token_ids,
+        )
+
+        lang_ids = language_token_ids(tokenizer, special.sot,
+                                      session.dims.vocab_size)
+        detected = detect_language(session, mel[:, :CHUNK_FRAMES],
+                                   special.sot, lang_ids)
+        if detected is not None:
+            prompt[1] = detected[1]
+            if language_collector is not None:
+                language_collector.append(detected[0])
+
     starts = chunk_starts(len(audio_16k), chunk_len, step)
     frame_starts = [pos // golden.HOP for pos in starts]
 
-    # 3. batched chunk slicing + encoder + greedy decoding
+    # 3. batched chunk slicing + encoder + decoding
     tm0 = time.perf_counter()
     tokens = session.transcribe_from_mel(
         mel, frame_starts, prompt=prompt, max_new_tokens=max_new_tokens,
         eot_id=special.eot, suppress_ids=gen_cfg.suppress_tokens,
         begin_suppress_ids=gen_cfg.begin_suppress_tokens,
+        num_beams=num_beams, length_penalty=length_penalty, ts_cfg=ts_cfg,
         speculative=speculative, draft_k=draft_k)
     model_only_s = time.perf_counter() - tm0   # gather_tokens synced
     if token_collector is not None:
@@ -128,7 +157,9 @@ def transcribe_longform(
     for row in tokens:
         gen = strip_generated(row, special.eot)
         if tokenizer is not None:
-            text = tokenizer.decode(gen, skip_special_tokens=True)
+            text = tokenizer.decode(
+                gen, skip_special_tokens=True,
+                timestamp_begin=ts_begin if timestamps else None)
         else:
             text = (f"[TOKENS:{' '.join(str(t) for t in gen[:200])}]"
                     if gen else "")

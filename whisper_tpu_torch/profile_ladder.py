@@ -50,6 +50,16 @@ operations of so short a trace: a wrapper's device operations are counted
 exactly by ``chip_smoke.py``.  It calls only what older trees have, so it
 also runs against one (that tree on ``PYTHONPATH``, this file run by its
 path).
+
+``python -m whisper_tpu_torch.profile_ladder --decoding`` runs only the
+decoding options on one x5 session over the 301.574 s file's mel (computed
+once; each run is the encoder and 128 tokens of ``transcribe_from_mel``):
+plain greedy, with scores, with the timestamp grammar, sampled at T = 0.5
+with scores, and beam search at K = 4, each once to warm up, then ROUNDS
+rounds in turns (the order rotated each round), then once traced.  One
+JSON line each: the median and quartiles of its host seconds, the median
+of its paired difference with greedy's run of the same round, and the
+traced run's device operations (in all and a decode step) and busy ms.
 """
 
 from __future__ import annotations
@@ -458,6 +468,73 @@ def profile_x7_one_shot(params):
            **call_profile(b8), "wrapper_ms": _median_ms(b8)}
 
 
+ROUNDS = 7   # of the --decoding runs, each option once a round
+
+
+def profile_decoding(params, audio):
+    """The ``--decoding`` lines, one at a time (see the module's
+    docstring)."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_tpu_torch.frontend import golden
+    from whisper_tpu_torch.headline import make_session
+    from whisper_tpu_torch.pipeline.chunk import chunk_starts, mel_frame_bucket
+    from whisper_tpu_torch.runtime.timestamps import TimestampCfg
+    from whisper_tpu_torch.tokenizer.specials import special_tokens
+
+    session = make_session("cuda", params)
+    sp = special_tokens("en", "transcribe", None)
+    nv = golden.num_frames(len(audio))
+    mel = session.compute_mel(golden.reflect_pad(audio), nv,
+                              mel_frame_bucket(nv))
+    starts = [p // golden.HOP for p in chunk_starts(len(audio), 480_000,
+                                                    400_000)]
+    plain = [sp.sot, sp.lang, sp.task, sp.no_timestamps]
+    options = {
+        "greedy": (plain, {}),
+        "greedy with scores": (plain, dict(with_scores=True)),
+        "timestamp grammar": (plain[:3], dict(ts_cfg=TimestampCfg(
+            sp.no_timestamps + 1, sp.eot, sp.no_timestamps))),
+        "sampled T = 0.5 with scores": (plain, dict(temperature=0.5,
+                                                    with_scores=True)),
+        "beam search K = 4": (plain, dict(num_beams=4)),
+    }
+
+    def run(name):
+        prompt, kw = options[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session.transcribe_from_mel(mel, starts, prompt, 128, sp.eot, **kw)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    names = list(options)
+    for name in names:
+        run(name)
+    secs = {name: [] for name in names}
+    for r in range(ROUNDS):
+        for name in names[r % len(names):] + names[:r % len(names)]:
+            secs[name].append(run(name))
+    for name in names:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(name)
+        out = summarize(prof)
+        q = statistics.quantiles(secs[name], n=4)
+        yield {"config": f"x5 {name}, transcribe_from_mel, 12 chunks",
+               "rounds": ROUNDS, "median_s": statistics.median(secs[name]),
+               "quartiles_s": [q[0], q[2]], "runs_s": secs[name],
+               "paired_minus_greedy_median_s": statistics.median(
+                   a - b for a, b in zip(secs[name], secs["greedy"])),
+               "device_ops": out["device_ops"],
+               "device_ops_per_decode_step_upper":
+                   out["device_ops"] / DECODE_STEPS,
+               "device_busy_ms": out["device_busy_ms"]}
+
+
 def main() -> None:
     import argparse
 
@@ -470,6 +547,8 @@ def main() -> None:
                         help="run only the fused encoder block's two runs")
     parser.add_argument("--x7-one-shot", action="store_true",
                         help="run only x7, x5 on a one-shot file, B5 and B8")
+    parser.add_argument("--decoding", action="store_true",
+                        help="run only the decoding options, in turns")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("whisper_tpu_torch.profile_ladder needs a CUDA card")
@@ -504,6 +583,11 @@ def main() -> None:
             print(json.dumps(out), flush=True)
         return
     audio = synth_audio(AUDIO_SECONDS)
+    if args.decoding:
+        for out in profile_decoding(params, audio):
+            out["device"] = card
+            print(json.dumps(out), flush=True)
+        return
     if args.fused_block:
         label, model_id, seconds, tokens = MEDIUM
         for out in (profile_config(*FUSED_BLOCK, params, audio),

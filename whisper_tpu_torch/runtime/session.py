@@ -11,12 +11,15 @@ greedy decoding per batch bucket.
 Every flag of ``RuntimeCfg`` runs for the greedy path: the ladder's rungs
 x0-x7 (x6: the W8A8 encoder; x7: the int8 self cache through kernel B8),
 ``fused_encoder_block`` (kernels B9a, B1 and B9b, or B2 at d >= 1024) and
-``fused_decoder_step`` (the hybrid step with kernel B10c).
-``set_draft_model`` attaches a draft for speculative decoding
-(``transcribe_from_mel(speculative=True)``, ``runtime.speculative``: the
-verify pass runs kernel B7 where the greedy step runs B4 or B6).  What the
-port does not carry (meshes, the wire encodings, and the decoding features
-``transcribe_from_mel`` names) raises ``NotImplementedError`` naming its
+``fused_decoder_step`` (the hybrid step with kernel B10c).  The decoding
+options of the JAX session run too: the timestamp grammar (``ts_cfg``),
+temperature sampling with a seed and the scores the fallback ladder reads
+(``with_scores``), and beam search (``num_beams``, ``runtime.beam``: B4 or
+B6 at B*K rows).  ``set_draft_model`` attaches a draft for speculative
+decoding (``transcribe_from_mel(speculative=True)``,
+``runtime.speculative``: the verify pass runs kernel B7 where the greedy
+step runs B4 or B6).  What the port does not carry (meshes, the wire
+encodings, conditioned prompts) raises ``NotImplementedError`` naming its
 ROADMAP item; nothing silently takes another path.
 """
 
@@ -343,50 +346,59 @@ class WhisperSession:
                             eot_id: int,
                             suppress_ids: Sequence[int] | None = None,
                             begin_suppress_ids: Sequence[int] | None = None,
-                            *, num_beams: int = 1, ts_cfg=None,
-                            temperature: float = 0.0, pad_count=None,
-                            speculative: bool = False,
-                            draft_k: int = 4) -> np.ndarray:
+                            *, num_beams: int = 1,
+                            length_penalty: float = 1.0, ts_cfg=None,
+                            temperature: float = 0.0, seed: int = 0,
+                            with_scores: bool = False, pad_count=None,
+                            speculative: bool = False, draft_k: int = 4):
         """Transcribe the 3000-frame chunks sliced (on the device) from a
         whole-file mel [n_mels, F]: tokens [len(frame_starts),
-        max_new_tokens].  speculative: draft-and-verify over the chunk batch
-        with the attached draft model (``set_draft_model``), ``draft_k``
-        proposals a round; plain greedy decoding only."""
+        max_new_tokens]; with with_scores also (sum_lp, n_tok) per chunk,
+        the quality signal of the temperature fallback.
+
+        num_beams > 1: beam search (``runtime.beam``) with length_penalty.
+        ts_cfg: the timestamp grammar.  temperature > 0 samples, each batch
+        piece from a generator seeded with ``seed * 100003 + start``, as the
+        JAX session keys its draws.  speculative: draft-and-verify over the
+        chunk batch with the attached draft model (``set_draft_model``),
+        ``draft_k`` proposals a round; plain greedy decoding only."""
+        if num_beams > 1 and (with_scores or temperature > 0.0):
+            raise ValueError("num_beams > 1 does not compose with "
+                             "with_scores/temperature (beam search is "
+                             "deterministic and returns tokens only)")
+        return self.gather_tokens(
+            self.transcribe_from_mel_async(
+                mel, frame_starts, prompt, max_new_tokens, eot_id,
+                suppress_ids, begin_suppress_ids, num_beams=num_beams,
+                length_penalty=length_penalty, ts_cfg=ts_cfg,
+                temperature=temperature, seed=seed, with_scores=with_scores,
+                pad_count=pad_count, speculative=speculative,
+                draft_k=draft_k),
+            len(frame_starts), max_new_tokens, with_scores)
+
+    def transcribe_from_mel_async(self, mel, frame_starts, prompt,
+                                  max_new_tokens, eot_id, suppress_ids=None,
+                                  begin_suppress_ids=None, *,
+                                  num_beams: int = 1,
+                                  length_penalty: float = 1.0, ts_cfg=None,
+                                  temperature: float = 0.0, seed: int = 0,
+                                  with_scores: bool = False, pad_count=None,
+                                  speculative: bool = False,
+                                  draft_k: int = 4):
+        """Per batch bucket: [(device result, start, n), ...], the result
+        the tokens or, with with_scores, (tokens, sum_lp, n_tok)."""
         if speculative:
             if not self.has_draft:
                 raise RuntimeError(
                     "speculative=True requires set_draft_model first")
             if (num_beams > 1 or ts_cfg is not None or temperature > 0.0
-                    or pad_count is not None):
+                    or with_scores or pad_count is not None):
                 raise ValueError(
                     "speculative long-form composes with plain greedy only "
                     "(no beams/timestamps/temperature/scores/conditioning)")
-        for flag, item in ((num_beams > 1, "beam search: ROADMAP queue 1 "
-                            "item 8"),
-                           (ts_cfg is not None, "timestamp decoding: "
-                            "ROADMAP queue 1 item 8"),
-                           (temperature > 0.0, "temperature sampling: "
-                            "ROADMAP queue 1 item 4"),
-                           (pad_count is not None, "conditioned prompts: "
-                            "ROADMAP queue 1 item 8")):
-            if flag:
-                raise NotImplementedError(item)
-        return self.gather_tokens(
-            self.transcribe_from_mel_async(
-                mel, frame_starts, prompt, max_new_tokens, eot_id,
-                suppress_ids, begin_suppress_ids, speculative=speculative,
-                draft_k=draft_k),
-            len(frame_starts), max_new_tokens)
-
-    def transcribe_from_mel_async(self, mel, frame_starts, prompt,
-                                  max_new_tokens, eot_id, suppress_ids=None,
-                                  begin_suppress_ids=None, *,
-                                  speculative: bool = False,
-                                  draft_k: int = 4):
-        """Per batch bucket: [(device tokens, start, n), ...]."""
-        if speculative and not self.has_draft:
-            raise RuntimeError(
-                "speculative=True requires set_draft_model first")
+        if pad_count is not None:
+            raise NotImplementedError("conditioned prompts (pad_count): "
+                                      "ROADMAP queue 1 item 8c")
         self.speculative_stats = []
         from whisper_tpu_torch.pipeline.chunk import CHUNK_FRAMES
 
@@ -409,18 +421,34 @@ class WhisperSession:
                                   for s in starts])
             enc = self.encoder(chunks)
             if speculative:
-                pieces.append((self._speculative_tokens(
+                result = self._speculative_tokens(
                     chunks, enc, prompt_t, base_mask, first_mask,
-                    max_new_tokens, eot_id, draft_k), start, n))
-                start += n
-                continue
-            toks = greedy_generate(
-                self._decoder_params, self.dims, enc, prompt_t, base_mask, first_mask,
-                max_new_tokens=max_new_tokens, eot_id=eot_id,
-                int8_cross_kv=self.cfg.int8_kv_cache,
-                kernel_step=self._kernel_step, int8_mxu=self._int8_mxu,
-                int8_self=self._int8_self, step_weights=self._step_weights)
-            pieces.append((toks, start, n))
+                    max_new_tokens, eot_id, draft_k)
+            elif num_beams > 1:
+                from whisper_tpu_torch.runtime.beam import beam_generate
+
+                result, _ = beam_generate(
+                    self._decoder_params, self.dims, enc, prompt_t,
+                    base_mask, first_mask, max_new_tokens, eot_id, num_beams,
+                    length_penalty, ts_cfg=ts_cfg,
+                    int8_cross_kv=self.cfg.int8_kv_cache,
+                    packed_cross=self.cfg.packed_cross_kv,
+                    int8_mxu=self._int8_mxu)
+            else:
+                gen = None
+                if temperature > 0.0:
+                    gen = torch.Generator(device=self.device)
+                    gen.manual_seed(seed * 100003 + start)
+                result = greedy_generate(
+                    self._decoder_params, self.dims, enc, prompt_t,
+                    base_mask, first_mask, max_new_tokens=max_new_tokens,
+                    eot_id=eot_id, ts_cfg=ts_cfg,
+                    int8_cross_kv=self.cfg.int8_kv_cache,
+                    kernel_step=self._kernel_step, int8_mxu=self._int8_mxu,
+                    int8_self=self._int8_self,
+                    step_weights=self._step_weights, temperature=temperature,
+                    generator=gen, return_logprobs=with_scores)
+            pieces.append((result, start, n))
             start += n
         return pieces
 
@@ -505,9 +533,22 @@ class WhisperSession:
         return toks
 
     @staticmethod
-    def gather_tokens(pieces, c: int, max_new_tokens: int) -> np.ndarray:
-        """Copy the results of transcribe_from_mel_async to the host."""
+    def gather_tokens(pieces, c: int, max_new_tokens: int,
+                      with_scores: bool = False):
+        """Copy the results of transcribe_from_mel_async to the host:
+        tokens [c, max_new_tokens] int32, with with_scores also sum_lp [c]
+        fp32 and n_tok [c] int32."""
         out = np.empty((c, max_new_tokens), dtype=np.int32)
-        for toks, start, n in pieces:
+        sum_lp = np.zeros(c, dtype=np.float32)
+        n_tok = np.zeros(c, dtype=np.int32)
+        for result, start, n in pieces:
+            if with_scores:
+                toks, lp, nt = result
+                sum_lp[start:start + n] = lp[:n].cpu().numpy()
+                n_tok[start:start + n] = nt[:n].cpu().numpy()
+            else:
+                toks = result
             out[start:start + n] = toks[:n].cpu().numpy()
+        if with_scores:
+            return out, sum_lp, n_tok
         return out
