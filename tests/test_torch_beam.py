@@ -190,15 +190,6 @@ def test_top_k_keeps_the_order_of_jax():
         np.testing.assert_array_equal(vals.numpy(), np.asarray(jv))
 
 
-def test_conditioned_prompts_raise_naming_the_roadmap():
-    enc, _, tp = _inputs(0)
-    base, first = _masks()
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        beam_generate(tp, DIMS, torch.from_numpy(enc), torch.tensor(PROMPT),
-                      torch.from_numpy(base), torch.from_numpy(first), 4,
-                      EOT, 2, pad_count=torch.zeros(2, dtype=torch.long))
-
-
 class RecordingTok:
     ids = {"<|startoftranscript|>": SOT, "<|endoftext|>": EOT,
            "<|en|>": LANG, "<|transcribe|>": TASK, "<|notimestamps|>": NO_TS}

@@ -67,6 +67,7 @@ def model_dir(tmp_path_factory):
     tok.add_special_tokens([
         "<|endoftext|>", "<|startoftranscript|>", "<|en|>",
         "<|transcribe|>", "<|translate|>", "<|notimestamps|>",
+        "<|startofprev|>",
     ])
     tok.save(str(d / "tokenizer.json"))
     with open(d / "generation_config.json", "w") as f:
@@ -203,13 +204,8 @@ def test_profile_dir_writes_a_trace(audio_dir, model_dir, tmp_path):
 
 
 NOT_PORTED = {
-    "word_timestamps": ["--word-timestamps"],
-    "srt": ["--write-srt"],
-    "vtt": ["--write-vtt"],
-    "sequential": ["--longform-mode", "sequential"],
     "pipelined": ["--longform-mode", "pipelined"],
-    "vad": ["--vad-filter"],
-    "initial_prompt": ["--initial-prompt", "hello"],
+    "slab_chunks": ["--slab-chunks", "2"],
     # a draft runs in the chunked mode; with the pipelined mode it waits
     "draft": ["--draft-model-id", "test/whisper-nano", "--longform-mode",
               "pipelined"],
@@ -433,3 +429,115 @@ def test_module_run_loads_no_jax(audio_dir, model_dir, tmp_path):
     bad = sorted(m for m in imported
                  if m.split(".")[0] in ("jax", "jaxlib", "whisper_tpu"))
     assert not bad, bad
+
+
+# ---------------------------------------------------------------------------
+# The sequential mode, conditioned prompts, word timings, subtitles and VAD
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def sparse_audio_dir(tmp_path_factory):
+    """JAX's VAD files (tests/test_vad.py): two tone bursts in near-silence
+    (7 s) and a file of near-silence alone."""
+    d = tmp_path_factory.mktemp("vad-audio")
+    t = np.arange(16000 * 3) / 16000
+
+    def quiet(s):
+        return 1e-4 * np.random.default_rng(0).standard_normal(int(s * 16000))
+
+    def tone(s):
+        return 0.3 * np.sin(2 * np.pi * 440 * t[:int(s * 16000)])
+
+    _write_wav(str(d / "sparse.wav"), np.concatenate(
+        [quiet(1.0), tone(1.5), quiet(3.0), tone(1.0), quiet(0.5)]))
+    _write_wav(str(d / "quiet.wav"), quiet(2.0))
+    return str(d)
+
+
+TIMING_FLAGS = {
+    "sequential": (["--longform-mode", "sequential"], False),
+    "sequential_conditioned": (["--longform-mode", "sequential",
+                                "--condition-on-prev-text"], False),
+    "sequential_subtitles": (["--longform-mode", "sequential", "--write-srt",
+                              "--write-vtt"], False),
+    "sequential_prompt_words": (["--longform-mode", "sequential",
+                                 "--condition-on-prev-text",
+                                 "--initial-prompt", "some vocab text",
+                                 "--word-timestamps"], False),
+    "initial_prompt": (["--initial-prompt", "build a vocab"], False),
+    "word_timestamps": (["--word-timestamps"], False),
+    "words_subtitles": (["--word-timestamps", "--write-srt", "--write-vtt"],
+                        False),
+    "vad_words_subtitles": (["--vad-filter", "--word-timestamps",
+                             "--write-srt"], True),
+    "vad_threshold": (["--vad-filter", "--vad-threshold-db", "6"], True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TIMING_FLAGS))
+def test_timing_and_prompt_flags_give_jax_outputs_at_x0(
+        audio_dir, sparse_audio_dir, model_dir, tmp_path, tmp_path_factory,
+        case):
+    """Each flag the port refused before this slice runs on the CPU at x0:
+    rc 0 and the JAX CLI's outputs with the same flags, byte for byte: the
+    CSV's files, durations and text, the per-file JSON (``words`` with
+    ``--word-timestamps``, times within 0.01 s), the summary's keys, the
+    transcripts and the .srt/.vtt files."""
+    flags, sparse = TIMING_FLAGS[case]
+    audio = sparse_audio_dir if sparse else audio_dir
+    argv = ["--variant", "x0", "--max-new-tokens", "6", *flags]
+    assert cli.main(_argv(audio, model_dir, tmp_path, *argv),
+                    device="cpu") == 0
+    jout = tmp_path_factory.mktemp(f"jax-{case}")
+    assert jax_cli.main(_argv(audio, model_dir, jout, *argv)) == 0
+    header, rows, jrows, summary = _outputs(tmp_path)
+    jheader, jcsv, jjrows, jsummary = _outputs(jout)
+    assert header == jheader and _keys(summary) == _keys(jsummary)
+    assert [(r[0], r[1], r[4]) for r in rows] == [(r[0], r[1], r[4])
+                                                  for r in jcsv]
+    assert [set(r) for r in jrows] == [set(r) for r in jjrows]
+    for got, want in zip(jrows, jjrows):
+        if "words" in want:
+            assert [w["word"] for w in got["words"]] == \
+                [w["word"] for w in want["words"]]
+            for a, b in zip(got["words"], want["words"]):
+                assert abs(a["start"] - b["start"]) <= 0.01
+                assert abs(a["end"] - b["end"]) <= 0.01
+    if "--word-timestamps" in flags:
+        assert any(r["words"] for r in jrows)
+    outputs = sorted(p.name for p in jout.iterdir()
+                     if p.suffix in (".txt", ".srt", ".vtt"))
+    assert outputs == sorted(p.name for p in tmp_path.iterdir()
+                             if p.suffix in (".txt", ".srt", ".vtt"))
+    for name in outputs:
+        assert (tmp_path / name).read_bytes() == (jout / name).read_bytes()
+    if "--write-srt" in flags:
+        assert any(name.endswith(".srt") for name in outputs)
+
+
+TIMING_REFUSED = {
+    # the JAX CLI's refusals (cli.py:216-237, 316-336)
+    "vad_sequential": ["--vad-filter", "--longform-mode", "sequential"],
+    "vad_pipelined": ["--vad-filter", "--longform-mode", "pipelined"],
+    "srt_without_timing": ["--write-srt"],
+    "vtt_without_timing": ["--write-vtt"],
+    "draft_sequential": ["--draft-model-id", "test/whisper-nano",
+                         "--longform-mode", "sequential"],
+    "draft_word_timestamps": ["--draft-model-id", "test/whisper-nano",
+                              "--word-timestamps"],
+    "initial_prompt_without_tokenizer": ["--initial-prompt", "x"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(TIMING_REFUSED))
+def test_timing_and_prompt_refusals_exit_as_in_jax(case, audio_dir,
+                                                   model_dir, tmp_path):
+    model = (str(tmp_path / "no-tokenizer")
+             if case == "initial_prompt_without_tokenizer" else model_dir)
+    argv = _argv(audio_dir, model, tmp_path, *TIMING_REFUSED[case])
+    with pytest.raises(SystemExit) as want:
+        jax_cli.main(argv)
+    with pytest.raises(SystemExit) as got:
+        cli.main(argv, device="cpu")
+    assert str(got.value) == str(want.value) and "ROADMAP" not in str(
+        got.value)

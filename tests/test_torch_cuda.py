@@ -1087,3 +1087,111 @@ def test_beam_k1_equals_greedy_on_the_same_step(gen):
         done = done | (nxt == 251)
         want.append(nxt)
     assert torch.equal(toks, torch.stack(want, dim=1))
+
+
+@pytest.mark.parametrize("int8_self", [False, True], ids=["b3", "b8"])
+def test_left_padded_prompt_through_b3_and_b8_gives_the_unpadded_tokens(
+        gen, int8_self):
+    """A conditioned prompt left-padded to one length (three pad counts
+    across rows) through the x5 kernel step (B3, B4) or x7's (B8, B4): each
+    row's tokens equal its unpadded prompt's, and every step launched B3
+    or B8 with the [B] int32 ``pad_count`` on the card."""
+    from whisper_tpu_torch.runtime.generate import greedy_generate
+
+    dims, tree = _small_model(2)
+    enc = _randn(gen, 3, 1500, 128)
+    prompt = [251] * 4 + [255, 17, 99, 140, 33, 61] + [250, 252, 253, 254]
+    pads = [4, 6, 9]
+    zero = torch.zeros(320, device="cuda")
+
+    def decode(rows, row_prompt, pad_count=None):
+        return greedy_generate(
+            tree, dims, enc[rows], torch.tensor(row_prompt, device="cuda"),
+            zero, zero, 12, 251, int8_cross_kv=True, kernel_step=True,
+            int8_mxu=True, int8_self=int8_self, pad_count=pad_count)
+
+    self_attention.padded_launches = self_attention.int8_padded_launches = 0
+    padded = decode([0, 1, 2], prompt,
+                    torch.tensor(pads, dtype=torch.int32, device="cuda"))
+    launched = (self_attention.int8_padded_launches if int8_self
+                else self_attention.padded_launches)
+    assert launched > 0 and launched % dims.decoder_layers == 0
+    for r, pad in enumerate(pads):
+        assert torch.equal(padded[r], decode([r], prompt[pad:])[0]), r
+
+
+def test_alignment_weights_rows_sum_to_one_on_the_card(gen):
+    """The session's teacher-forced alignment pass at x5 on the card (B1 in
+    the encoder, plain products after): [L, H, P_pad, T_enc] fp32, every
+    row a distribution over the encoder's positions within 1e-3."""
+    from whisper_tpu_torch.models import convert
+    from whisper_tpu_torch.runtime.session import RuntimeCfg, WhisperSession
+    from whisper_tpu_torch.variants.ladder import apply_variant
+
+    dims, _ = _small_model()
+    cfg, _ = apply_variant(RuntimeCfg(), "x5")
+    sess = WhisperSession(convert.init_params(dims, 3), dims, cfg,
+                          device="cuda")
+    mel = torch.randn(80, 3000, generator=gen, device="cuda")
+    attention.launches = 0
+    w = sess.alignment_weights(mel, [250, 252, 253, 254], list(range(5, 26)))
+    assert attention.launches == dims.encoder_layers
+    assert w.shape == (2, 2, 32, 1500) and w.dtype == np.float32
+    assert np.isfinite(w).all() and np.abs(w.sum(-1) - 1.0).max() <= 1e-3
+
+
+def test_encode_text_raises_its_message_without_tokenizers(gen, tmp_path,
+                                                          monkeypatch):
+    """Where ``tokenizers`` cannot be imported (hidden here if the card's
+    machine has it), encode_text, what --initial-prompt needs, raises its
+    message."""
+    import builtins
+
+    from whisper_tpu_torch.tokenizer.bpe import encode_text
+
+    real_import = builtins.__import__
+
+    def no_tokenizers(name, *args, **kwargs):
+        if name.split(".")[0] == "tokenizers":
+            raise ImportError(f"no module named {name!r}")
+        return real_import(name, *args, **kwargs)
+
+    monkeypatch.setattr(builtins, "__import__", no_tokenizers)
+    with pytest.raises(RuntimeError, match="needs the `tokenizers` package"):
+        encode_text(str(tmp_path / "tokenizer.json"), "hello")
+
+
+def test_b3_b8_launch_where_static_and_dynamic_memory_cross_48_kb(gen):
+    """B3 at pos 180-190 (dynamic shared memory 47.4-50.0 KB) and B8 at
+    340-352, each in order in a fresh process, so that no earlier launch has
+    raised the limit: where the dynamic memory fits in 48 KB and the
+    kernel's static memory does not, the launch must still go (B3 failed at
+    pos 183-186 when only the dynamic bytes were weighed)."""
+    import os
+    import subprocess
+    import sys
+
+    code = """
+import torch
+from whisper_tpu_torch.ops import self_attention as sa
+g = torch.Generator(device="cuda").manual_seed(0)
+r = lambda *s: torch.randn(*s, generator=g, device="cuda").to(torch.bfloat16)
+pad = torch.tensor([3, 0], dtype=torch.int32, device="cuda")
+kc, vc = r(1, 2, 2, 448, 64), r(1, 2, 2, 448, 64)
+for pos in range(180, 191):
+    sa.self_attend_step(r(2, 2, 64), r(2, 2, 64), r(2, 2, 64), kc, vc, 0,
+                        pos, pad)
+k8 = torch.zeros((1, 2, 2, 448, 64), dtype=torch.int8, device="cuda")
+v8, ks, vs = k8.clone(), torch.ones((1, 2, 2, 448), device="cuda"), \\
+    torch.ones((1, 2, 2, 448), device="cuda")
+for pos in range(340, 353):
+    sa.self_attend_step_int8(r(2, 2, 64), r(2, 2, 64), r(2, 2, 64), k8, v8,
+                             ks, vs, 0, pos, pad)
+torch.cuda.synchronize()
+print("launched", sa.launches, sa.int8_launches)
+"""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=600, cwd=repo)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "launched 11 13" in proc.stdout

@@ -299,8 +299,6 @@ def _small_session(rung="x5", **overrides):
 
 
 LONGFORM_CASES = {
-    "word_timings": dict(word_collector=[]),
-    "conditioned_prompt": dict(initial_prompt_ids=[1, 2]),
     "speculative": dict(speculative=True),
 }
 
@@ -334,6 +332,10 @@ LONGFORM_RUNS = {
     "timestamps": dict(timestamps=True),
     "beams_timestamps": dict(num_beams=2, timestamps=True),
     "language_auto": dict(language="auto"),
+    "word_timings": dict(word_collector=[]),
+    "conditioned_prompt": dict(initial_prompt_ids=[1, 2]),
+    "conditioned_prompt_timestamps": dict(initial_prompt_ids=[3],
+                                          timestamps=True),
 }
 
 
@@ -367,7 +369,6 @@ def test_session_configs_not_ported_raise(case):
 
 
 DECODE_CASES = {
-    "conditioned_prompt": dict(pad_count=2),
     "speculative": dict(speculative=True),
 }
 
@@ -388,6 +389,12 @@ DECODE_RUNS = {
     "temperature": dict(temperature=0.5, seed=3),
     "scores": dict(with_scores=True),
     "temperature_scores": dict(temperature=1.0, with_scores=True),
+    "conditioned_prompt": dict(pad_count=2, prompt=[251, 251, 255, 7, 250,
+                                                    252, 253, 254]),
+    "conditioned_prompt_beams": dict(pad_count=1, num_beams=2,
+                                     prompt=[251, 255, 250, 252, 253, 254]),
+    "conditioned_prompt_scores": dict(pad_count=2, with_scores=True,
+                                      prompt=[251, 251, 250, 252, 253, 254]),
 }
 
 
@@ -420,8 +427,8 @@ COMBINATION_CASES = {
         ValueError, "plain greedy only"),
     "speculative_with_scores": (dict(speculative=True, with_scores=True),
                                 ValueError, "plain greedy only"),
-    "conditioned_prompt_8c": (dict(pad_count=1), NotImplementedError,
-                              "item 8c"),
+    "speculative_with_pad_count": (dict(speculative=True, pad_count=1),
+                                   ValueError, "plain greedy only"),
 }
 
 
@@ -437,12 +444,17 @@ def test_decode_combinations_refused_as_in_jax(case):
 
 
 def test_model_options_not_ported_raise():
+    """Every model option the JAX functions take now runs: the fused block
+    with int8 activations, and a prefill with a prompt mask (all real
+    slots: the logits of the call without one)."""
     tp = convert.params_from_numpy(convert.init_params(SMALL, seed=0), "cpu",
                                    torch.float32)
     mel = torch.zeros((1, 80, 3000))
     assert tw.encoder_apply(tp, SMALL, mel, int8_activations=True,
                             fused_block=True).shape == (1, 1500, 128)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tw.decoder_prefill(tp, SMALL, torch.zeros((1, 2), dtype=torch.long),
-                           torch.zeros((1, 1500, 128)), 8,
-                           prompt_mask=torch.ones((1, 2), dtype=torch.bool))
+    args = (tp, SMALL, torch.tensor([[3, 9]]),
+            torch.randn((1, 1500, 128), generator=torch.Generator().manual_seed(0)),
+            8)
+    masked, _ = tw.decoder_prefill(
+        *args, prompt_mask=torch.ones((1, 2), dtype=torch.bool))
+    assert torch.equal(masked, tw.decoder_prefill(*args)[0])

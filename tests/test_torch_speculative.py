@@ -514,26 +514,15 @@ CLI_REFUSALS = {
 @pytest.mark.parametrize("case", sorted(CLI_REFUSALS))
 def test_cli_refuses_a_draft_beside_what_it_does_not_compose_with(case,
                                                                   tmp_path):
-    """The draft's own refusal is the JAX CLI's message.  Word timestamps
-    and the sequential mode are also not ported, and that message names its
-    ROADMAP item first; beams, timestamps and temperatures run without a
+    """The draft's own refusal is the JAX CLI's message: beams, timestamps,
+    word timestamps, temperatures and the sequential mode each run without a
     draft, so the draft's refusal is the one given."""
     argv = ["--audio-dir", str(tmp_path), "--model-id", "test/whisper-nano",
             "--allow-random-init", "--draft-model-id", "test/whisper-nano",
             *CLI_REFUSALS[case]]
-    refusal = pytest.raises(SystemExit, match="composes with plain greedy "
-                                              "chunked/pipelined modes only")
-    if case not in ("word_timestamps", "sequential"):
-        with refusal:
-            cli.main(argv, device="cpu")
-        return
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    with pytest.raises(SystemExit, match="composes with plain greedy "
+                                         "chunked/pipelined modes only"):
         cli.main(argv, device="cpu")
-    from unittest import mock
-
-    with mock.patch.object(cli, "not_ported", return_value=[]):
-        with refusal:
-            cli.main(argv, device="cpu")
 
 
 def test_cli_draft_k_zero_returns_2(tmp_path):

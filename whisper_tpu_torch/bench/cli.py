@@ -24,10 +24,15 @@ on a second thread), ``--warmup``, ``--limit-files``, ``--write-txt``,
 trace), speculative decoding (``--draft-dir`` or ``--draft-model-id``,
 ``--draft-k``, ``--draft-share-encoder``) and the decoding options:
 ``--timestamps``, ``--language auto``, ``--num-beams`` with
-``--length-penalty``, and ``--temperatures`` (the fallback ladder,
-``pipeline.fallback``).  The JAX CLI's refusals of combinations stay as
-they are there; every other feature flag exits naming its ROADMAP item;
-none is silently ignored.
+``--length-penalty``, ``--temperatures`` (the fallback ladder,
+``pipeline.fallback``), ``--longform-mode sequential`` with
+``--condition-on-prev-text`` (``pipeline.sequential``), ``--initial-prompt``
+(``tokenizer.bpe.encode_text``, which needs the ``tokenizers`` package),
+``--word-timestamps`` (``words`` in the per-file JSON, ``pipeline.words``),
+``--write-srt``/``--write-vtt`` (``bench.subtitles``) and ``--vad-filter``
+with ``--vad-threshold-db`` (``audio.vad``).  The JAX CLI's refusals of
+combinations stay as they are there; every other feature flag exits naming
+its ROADMAP item; none is silently ignored.
 """
 
 from __future__ import annotations
@@ -73,9 +78,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--inter-op", type=int, default=0)
     p.add_argument("--write-txt", action="store_true")
     p.add_argument("--write-srt", action="store_true",
-                   help="not ported (ROADMAP queue 1 items 8c/8g)")
+                   help="write <stem>.srt subtitles (needs --word-timestamps "
+                        "or --longform-mode sequential)")
     p.add_argument("--write-vtt", action="store_true",
-                   help="not ported (ROADMAP queue 1 items 8c/8g)")
+                   help="write <stem>.vtt subtitles (needs --word-timestamps "
+                        "or --longform-mode sequential)")
     p.add_argument("--tokenizer-json", default="")
     p.add_argument("--timestamps", action="store_true",
                    help="timestamp decoding (the grammar enforced; "
@@ -127,8 +134,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--longform-mode", default="chunked",
                    choices=["chunked", "sequential", "pipelined"],
                    help="chunked = reference rust strategy (fixed 30s windows"
-                        " + overlap stitching); sequential and pipelined are "
-                        "not ported (ROADMAP queue 1 item 9)")
+                        " + overlap stitching); sequential = seek by the "
+                        "predicted timestamps; pipelined is not ported "
+                        "(ROADMAP queue 1 item 8f)")
     p.add_argument("--slab-chunks", type=int, default=4)
     p.add_argument("--word-timestamps", action="store_true")
     p.add_argument("--vad-filter", action="store_true")
@@ -153,18 +161,9 @@ def not_ported(args) -> List[str]:
     changed = {k for k, v in vars(args).items() if getattr(defaults, k) != v}
     item = "ROADMAP queue 1 item"
     checks = [
-        (args.word_timestamps, f"--word-timestamps (DTW word timings): "
-                               f"{item} 8g"),
-        (args.write_srt or args.write_vtt, f"--write-srt/--write-vtt "
-                                           f"(subtitles): {item} 8c/8g"),
-        (args.longform_mode != "chunked" or "slab_chunks" in changed,
-         f"--longform-mode {args.longform_mode}/--slab-chunks "
-         f"(sequential and pipelined modes): {item} 9"),
-        (bool({"vad_filter", "vad_threshold_db"} & changed),
-         f"--vad-filter/--vad-threshold-db (VAD): {item} 9"),
-        (bool({"initial_prompt", "condition_on_prev_text"} & changed),
-         f"--initial-prompt/--condition-on-prev-text (conditioned prompts): "
-         f"{item} 8c"),
+        (args.longform_mode == "pipelined" or "slab_chunks" in changed,
+         "--longform-mode pipelined/--slab-chunks (the pipelined mode): "
+         f"{item} 8f"),
         (args.data_parallel > 1 or args.tensor_parallel > 1,
          f"--data-parallel/--tensor-parallel (more cards): {item} 12"),
         (bool({"dcn_coordinator", "dcn_num_processes", "dcn_process_id"}
@@ -252,14 +251,25 @@ def main(argv: Optional[List[str]] = None, *, device=None) -> int:
         print(f"error: --draft-k must be >= 1, got {args.draft_k}",
               file=sys.stderr)
         return 2
+    # the JAX CLI's refusals of combinations, in its order
+    if args.vad_filter and args.longform_mode != "chunked":
+        raise SystemExit("--vad-filter is supported in chunked long-form "
+                         "mode (timestamps from other modes would be in "
+                         "condensed time)")
     if args.temperatures and (args.initial_prompt or args.num_beams > 1
                               or args.word_timestamps or args.timestamps
                               or args.write_srt or args.write_vtt):
-        # the JAX CLI's refusal: the fallback ladder decodes greedy or
-        # sampled, without prompts, beams or timing output
+        # the fallback ladder decodes greedy or sampled, without prompts,
+        # beams or timing output
         raise SystemExit("--temperatures does not compose with "
                          "--initial-prompt/--num-beams/--timestamps/"
                          "--word-timestamps/--write-srt/--write-vtt")
+    if (args.write_srt or args.write_vtt) and not (
+            args.word_timestamps or args.longform_mode == "sequential"):
+        raise SystemExit(
+            "--write-srt/--write-vtt need a cue timing source: pass "
+            "--word-timestamps (any long-form mode) or "
+            "--longform-mode sequential (timestamped segments)")
     missing = not_ported(args)
     if missing:
         raise SystemExit("not ported: " + "; ".join(missing))
@@ -324,6 +334,16 @@ def main(argv: Optional[List[str]] = None, *, device=None) -> int:
         os.path.join(args.onnx_dir, "generation_config.json")
     )
 
+    initial_prompt_ids = None
+    if args.initial_prompt:
+        if not tokenizer_path:
+            raise SystemExit("--initial-prompt needs a resolvable "
+                             "tokenizer.json (pass --tokenizer-json or use "
+                             "a model dir with one)")
+        from whisper_tpu_torch.tokenizer.bpe import encode_text
+
+        initial_prompt_ids = encode_text(tokenizer_path, args.initial_prompt)
+
     session = _build_session(args, cfg, device)
 
     speculative = bool(args.draft_dir or args.draft_model_id)
@@ -361,33 +381,53 @@ def main(argv: Optional[List[str]] = None, *, device=None) -> int:
     from whisper_tpu_torch.pipeline.chunk import mel_frame_bucket
     from whisper_tpu_torch.pipeline.longform import transcribe_longform
 
-    def _transcribe(audio, pre_mel=None):
+    def _transcribe(audio, pre_mel=None, words=None):
         return transcribe_longform(
             session, audio, args.language, args.task, args.max_new_tokens,
             args.chunk_length_s, args.overlap_s, tokenizer, args.timestamps,
             gen_cfg, args.num_beams, args.length_penalty,
-            precomputed_mel=pre_mel, speculative=speculative,
+            precomputed_mel=pre_mel, word_collector=words,
+            initial_prompt_ids=initial_prompt_ids, speculative=speculative,
             draft_k=args.draft_k)
 
+    def _vad_condense(audio):
+        """--vad-filter: the audio condensed to its speech spans, and the
+        map back to file time (None without the flag)."""
+        if not args.vad_filter:
+            return audio, None
+        from whisper_tpu_torch.audio.vad import (
+            VadOptions,
+            collect_chunks,
+            detect_speech,
+        )
+
+        spans = detect_speech(
+            audio, VadOptions(threshold_db=args.vad_threshold_db))
+        return collect_chunks(audio, spans)
+
     # Warmup (ref src/main.rs:1131-1152), and beyond it one run of every
-    # (mel bucket, batch bucket) shape the files will hit.
+    # (mel bucket, batch bucket) shape the files will hit, at the condensed
+    # durations under --vad-filter.  Every mode but pipelined warms the
+    # chunked path, as the JAX CLI does.
     if args.warmup > 0:
         from whisper_tpu_torch.pipeline.warmup import warm_buckets
 
-        a0 = load_audio_16k_mono(os.path.join(args.audio_dir, files[0]))[0]
-        durs = [len(a0) / 16000.0] + [
-            load_audio_16k_mono(os.path.join(args.audio_dir, f))[2]
-            for f in files[1:]]
+        loaded = [_vad_condense(load_audio_16k_mono(
+            os.path.join(args.audio_dir, f))[0])[0] for f in files]
         warm_buckets(
-            session, durations_s=[d for d in durs if d > 0],
+            session, durations_s=[len(a) / 16000.0 for a in loaded
+                                  if len(a)],
             language=args.language, task=args.task,
             max_new_tokens=args.max_new_tokens,
             chunk_length_s=args.chunk_length_s, overlap_s=args.overlap_s,
             tokenizer=tokenizer, timestamps=args.timestamps, gen_cfg=gen_cfg,
             num_beams=args.num_beams, length_penalty=args.length_penalty,
+            initial_prompt_ids=initial_prompt_ids,
             speculative=speculative, draft_k=args.draft_k)
         for _ in range(args.warmup):
-            _transcribe(a0)
+            if len(loaded[0]) == 0:     # VAD condensed it to nothing
+                break
+            _transcribe(loaded[0])
 
     rows: List[RowOut] = []
     end2end, load_l, pre_l, model_l, dec_l, rtf_l = [], [], [], [], [], []
@@ -408,14 +448,19 @@ def main(argv: Optional[List[str]] = None, *, device=None) -> int:
         executor = ThreadPoolExecutor(max_workers=1)
 
     def _load(fnm, with_mel=False):
+        """Load and resample; under --vad-filter condense to the speech
+        spans (dur stays the file's: faster-whisper's RTF accounting); with
+        with_mel also the device mel of a chunked run."""
         audio, sr, dur = load_audio_16k_mono(os.path.join(args.audio_dir, fnm))
+        audio, smap = _vad_condense(audio)
         pre_mel = None
-        # the fallback ladder computes its own mel
-        if with_mel and len(audio) and not args.temperatures:
+        # the fallback ladder and the sequential mode compute their own mel
+        if (with_mel and len(audio) and not args.temperatures
+                and args.longform_mode == "chunked"):
             total = golden.num_frames(len(audio))
             pre_mel = (session.compute_mel(golden.reflect_pad(audio), total,
                                            mel_frame_bucket(total)), total)
-        return audio, sr, dur, pre_mel
+        return audio, sr, dur, pre_mel, smap
 
     if executor is not None:
         next_future = executor.submit(_load, files[0], True)
@@ -434,15 +479,36 @@ def main(argv: Optional[List[str]] = None, *, device=None) -> int:
         for idx, fnm in enumerate(files):
             tl0 = time.perf_counter()
             if executor is not None:
-                audio, sr, dur, pre_mel = next_future.result()
+                audio, sr, dur, pre_mel, smap = next_future.result()
             else:
-                audio, sr, dur, pre_mel = _load(fnm)
+                audio, sr, dur, pre_mel, smap = _load(fnm)
             load_s = time.perf_counter() - tl0
             assert sr == 16_000
             if executor is not None and idx + 1 < len(files):
                 next_future = executor.submit(_load, files[idx + 1], True)
 
-            if args.temperatures:
+            words = [] if args.word_timestamps else None
+            segments = None
+            if args.vad_filter and len(audio) == 0:
+                # All silence: nothing to transcribe; the file still gets
+                # its row and its (empty) outputs.
+                from whisper_tpu_torch.utils.timing import Timing
+
+                text, t = "", Timing(0.0, 0.0, 0.0, 0.0)
+            elif args.longform_mode == "sequential":
+                from whisper_tpu_torch.pipeline.sequential import (
+                    transcribe_sequential,
+                )
+
+                text, segments, t = transcribe_sequential(
+                    session, audio, args.language, args.task,
+                    args.max_new_tokens, tokenizer, gen_cfg,
+                    condition_on_prev_text=args.condition_on_prev_text,
+                    initial_prompt_ids=initial_prompt_ids,
+                    num_beams=args.num_beams,
+                    length_penalty=args.length_penalty,
+                    word_collector=words)
+            elif args.temperatures:
                 from whisper_tpu_torch.pipeline.fallback import (
                     transcribe_longform_fallback,
                 )
@@ -453,11 +519,18 @@ def main(argv: Optional[List[str]] = None, *, device=None) -> int:
                     args.max_new_tokens, args.chunk_length_s, args.overlap_s,
                     tokenizer, gen_cfg, temperatures=temps)
             else:
-                text, t = _transcribe(audio, pre_mel)
+                text, t = _transcribe(audio, pre_mel, words)
+
+            if smap is not None and words:
+                # condensed-signal times back to file time
+                # (faster-whisper's restore_speech_timestamps)
+                for w in words:
+                    w["start"] = round(smap.restore_time(w["start"]), 3)
+                    w["end"] = round(smap.restore_time(w["end"]), 3)
 
             e2e = load_s + t.end_to_end_s
             rtf = e2e / max(dur, 1e-9)
-            rows.append(RowOut.make(fnm, dur, e2e, rtf, text))
+            rows.append(RowOut.make(fnm, dur, e2e, rtf, text, words=words))
             load_l.append(load_s)
             pre_l.append(t.preprocess_s)
             model_l.append(t.model_only_s)
@@ -470,6 +543,23 @@ def main(argv: Optional[List[str]] = None, *, device=None) -> int:
                 with open(os.path.join(txt_dir, f"{stem}.transcript.txt"),
                           "w") as f:
                     f.write(text.strip() + "\n")
+
+            if args.write_srt or args.write_vtt:
+                from whisper_tpu_torch.bench.subtitles import (
+                    cues_from_segments,
+                    cues_from_words,
+                    write_subtitles,
+                )
+
+                # word timings are the finer source, else the sequential
+                # mode's segments (the flags' check ensured one)
+                cues = (cues_from_words(words) if words
+                        else cues_from_segments(segments or []))
+                stem = Path(fnm).stem
+                if args.write_srt:
+                    write_subtitles(os.path.join(txt_dir, f"{stem}.srt"), cues)
+                if args.write_vtt:
+                    write_subtitles(os.path.join(txt_dir, f"{stem}.vtt"), cues)
     finally:
         # Finalize the trace and stop the prefetcher even when a file
         # fails mid-loop.

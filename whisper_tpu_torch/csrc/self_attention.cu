@@ -181,6 +181,11 @@ self_step_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
   }
 }
 
+// The dynamic shared memory allowed so far; 0 sets the limit at the first
+// call, since the kernel's static shared memory counts against the 48 KB a
+// launch gets unasked (without it pos 183-186 failed to launch).
+size_t step_allowed = 0;
+
 }  // namespace
 
 // `pos_ptr`: one int32 in device memory that holds pos, or null, and then
@@ -195,12 +200,9 @@ WT_EXPORT int wt_self_attend_step(const void* q, const void* k_new,
   // on the device all S
   const int max_rows = pos_ptr ? S : pos + 1;
   const size_t smem = (size_t)max_rows * (2 * ROW_BYTES + 4 + 2) + 16;
-  if (smem > 48 * 1024) {
-    cudaError_t rc = cudaFuncSetAttribute(
-        (const void*)self_step_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (rc != cudaSuccess) return (int)rc;
-  }
+  const cudaError_t rc =
+      allow_smem((const void*)self_step_kernel, smem, step_allowed);
+  if (rc != cudaSuccess) return (int)rc;
   self_step_kernel<<<B * H, NT, smem, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k_new, (const bf16*)v_new, (bf16*)k_cache,
       (bf16*)v_cache, (const int*)pad_count, (bf16*)out, B, H, S, layer, pos,

@@ -201,7 +201,9 @@ self_step_int8_kernel(const bf16* __restrict__ q,
         __float2bfloat16_rn(__fmul_rn((float)ctx, __fdiv_rn(ps, denom)));
 }
 
-size_t step_allowed = 48 * 1024;  // the dynamic shared memory allowed so far
+// The dynamic shared memory allowed so far; 0 sets the limit at the first
+// call: the static shared memory counts against the 48 KB unasked.
+size_t step_allowed = 0;
 
 }  // namespace
 

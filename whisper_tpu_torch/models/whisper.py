@@ -6,8 +6,12 @@ weights allowed):
 
 - :func:`encoder_apply`   — log-mel [B, n_mels, 3000] -> states [B, 1500, d]
 - :func:`decoder_prefill` — full-prompt pass; self-attention KV for the
-  prompt and the cross-attention KV, computed once
+  prompt and the cross-attention KV, computed once; a prompt mask takes
+  left-padded conditioned prompts
 - :func:`decoder_step`    — one token against the static-shape KV cache
+  (``pad_count`` masks a conditioned prompt's pad slots on every step)
+- :func:`decoder_alignment_weights` — a teacher-forced pass returning the
+  cross-attention probabilities, for word timings
 
 ``WhisperEncoder`` and ``WhisperDecoder`` are the ``nn.Module``s that hold
 the stacked [L, ...] weights on a device, with int8 weights dequantized
@@ -385,12 +389,14 @@ def _decoder_blocks(params: Params, dims: WhisperDims, x, cache: KVCache,
 
 def _decoder_blocks_kernel(params: Params, dims: WhisperDims, x,
                            cache: KVCache, pos: int, cross_len: int,
-                           int8_mxu: bool = True):
+                           int8_mxu: bool = True, pad_count=None):
     """Single-token decoder step through the x4/x5/x7 kernels, replacing
     the JAX package's ``_decoder_blocks_packed``: per layer, B3 (or, against
     an int8 self cache, B8) attends and writes the self cache in place,
     then B4 (int8_mxu, x5 and x7) or B6 (x4) attends the int8 cross cache.
-    The caches keep the prefill layout (no packing step)."""
+    The caches keep the prefill layout (no packing step).  pad_count ([B]
+    int32 on the cache's device, or None) goes to B3/B8, which then attend
+    rows [pad_count, pos] of each row."""
     from whisper_tpu_torch.ops.cross_attention import (
         cross_attend_step,
         cross_attend_step_dequant,
@@ -420,9 +426,10 @@ def _decoder_blocks_kernel(params: Params, dims: WhisperDims, x,
         if int8_self:
             ctx = self_attend_step_int8(
                 *qkv, cache.self_k, cache.self_v, cache.self_k_scale,
-                cache.self_v_scale, li, pos)
+                cache.self_v_scale, li, pos, pad_count)
         else:
-            ctx = self_attend_step(*qkv, cache.self_k, cache.self_v, li, pos)
+            ctx = self_attend_step(*qkv, cache.self_k, cache.self_v, li, pos,
+                                   pad_count)
         x = x + _dense(ctx.reshape(x.shape), p["o_w"], p["o_b"])
 
         r = _layer_norm(x, p["x_ln_s"], p["x_ln_b"])
@@ -474,11 +481,13 @@ def decoder_prefill(params: Params, dims: WhisperDims, tokens, enc_states,
                     max_len: int, *, int8_cross_kv: bool = False,
                     prompt_mask=None):
     """Full-prompt decoder pass: logits [B, P, V] and a cache whose self-KV
-    holds positions [0, P) and whose cross-KV is final."""
-    if prompt_mask is not None:
-        raise NotImplementedError(
-            "left-padded conditioned prompts are not ported yet "
-            "(ROADMAP queue 1 item 8, sequential mode)")
+    holds positions [0, P) and whose cross-KV is final.
+
+    prompt_mask ([B, P] bool, False = a left pad slot) takes left-padded
+    prompts of one static length (previous-text conditioning): a real token
+    takes the position id of the real slots before it, a pad slot position
+    0, and no pad slot is ever attended, so the real rows equal those of
+    the unpadded shorter prompt."""
     dec = params["decoder"]
     dtype = dec["tok_emb"].dtype
     b, p = tokens.shape
@@ -494,16 +503,65 @@ def decoder_prefill(params: Params, dims: WhisperDims, tokens, enc_states,
     if int8_cross_kv:
         cache = quantize_cross_kv(cache)
 
-    x = dec["tok_emb"][tokens] + dec["pos_embed"][:p].to(dtype)
     ar = torch.arange(max_len, device=enc.device)
     mask = ar[None, :] <= ar[:p, None]                         # [P, S_max]
+    if prompt_mask is None:
+        x = dec["tok_emb"][tokens] + dec["pos_embed"][:p].to(dtype)
+    else:
+        prompt_mask = prompt_mask.to(device=enc.device, dtype=torch.bool)
+        pos_ids = torch.clamp_min(torch.cumsum(prompt_mask.long(), 1) - 1, 0)
+        x = dec["tok_emb"][tokens] + dec["pos_embed"][pos_ids].to(dtype)
+        valid_k = torch.cat([prompt_mask, prompt_mask.new_ones(
+            (b, max_len - p))], dim=1)                         # [B, S_max]
+        mask = (mask[None] & valid_k[:, None, :])[:, None]     # [B,1,P,S]
     x, cache = _decoder_blocks(params, dims, x, cache, 0, mask)
     return _logits(params, x), cache
 
 
+def decoder_alignment_weights(params: Params, dims: WhisperDims, tokens,
+                              enc_states) -> torch.Tensor:
+    """Teacher-forced pass over ``tokens`` [B, P] (prompt + generated,
+    padded): the cross-attention probabilities [L, B, H, P, T_enc], fp32,
+    the raw material of word timings (``pipeline.words``).  As in the JAX
+    function: causal self-attention over the P tokens alone (no cache), the
+    cross K/V in the weights' dtype (never int8), fp32 scores and softmax,
+    exact erf GELU; plain products, no kernel."""
+    dec = params["decoder"]
+    dtype = dec["tok_emb"].dtype
+    p = tokens.shape[1]
+    h = dims.decoder_heads
+    enc = enc_states.to(dtype)
+    x = dec["tok_emb"][tokens] + dec["pos_embed"][:p].to(dtype)
+    causal = torch.ones((p, p), dtype=torch.bool,
+                        device=x.device).tril()[None, None]
+    probs = []
+    for li in range(dims.decoder_layers):
+        pb = _layer(dec["blocks"], li)
+        r = _layer_norm(x, pb["ln_s"], pb["ln_b"])
+        q = _split_heads(_dense(r, pb["q_w"], pb["q_b"]), h)
+        k = _split_heads(_dense(r, pb["k_w"], None), h)
+        v = _split_heads(_dense(r, pb["v_w"], pb["v_b"]), h)
+        o = _attend(q, k, v, causal)
+        x = x + _dense(_merge_heads(o), pb["o_w"], pb["o_b"])
+
+        r = _layer_norm(x, pb["x_ln_s"], pb["x_ln_b"])
+        q = _split_heads(_dense(r, pb["xq_w"], pb["xq_b"]), h)
+        ck = _split_heads(_dense(enc, pb["xk_w"], None), h)
+        cv = _split_heads(_dense(enc, pb["xv_w"], pb["xv_b"]), h)
+        qs = q * q.shape[-1] ** -0.5
+        pr = torch.softmax(torch.matmul(qs.float(),
+                                        ck.float().transpose(-1, -2)), -1)
+        probs.append(pr)
+        o = torch.matmul(pr.to(dtype), cv)
+        x = x + _dense(_merge_heads(o), pb["xo_w"], pb["xo_b"])
+        x = _decoder_mlp(x, pb)
+    return torch.stack(probs)
+
+
 def decoder_step(params: Params, dims: WhisperDims, token, pos,
                  cache: KVCache, *, kernel_step: bool = False,
-                 cross_len: Optional[int] = None, int8_mxu: bool = True):
+                 cross_len: Optional[int] = None, int8_mxu: bool = True,
+                 pad_count=None):
     """One-token pass at cache slot ``pos``: logits [B, V].  pos is an int
     (all rows aligned) or a [B] tensor that gives each row its own position
     (batched speculative decoding).
@@ -513,17 +571,29 @@ def decoder_step(params: Params, dims: WhisperDims, token, pos,
     Without it, cross_len (the encoder length) keeps plain self-attention
     and runs cross-attention through B4 or B6 (the step a speculative draft
     takes); with neither, every block is plain torch.  An int8 self cache
-    raises outside the kernel step."""
+    raises outside the kernel step.
+
+    pad_count ([B] integer tensor: the left pad slots of a conditioned
+    prompt, see ``decoder_prefill``): ``pos`` stays the cache slot, the
+    position embedding takes pos - pad_count, and slots below pad_count are
+    never attended, on every step above (B3 and B8 take it as a [B] int32
+    tensor on the card)."""
     dec = params["decoder"]
     dtype = dec["tok_emb"].dtype
     max_len = cache.self_k.shape[3]
     ar = torch.arange(max_len, device=token.device)
-    if isinstance(pos, torch.Tensor):
-        if kernel_step:
-            raise ValueError(
-                "the kernel decode step (B3/B8) takes one position for all "
-                "rows; per-row positions run the plain self-attention "
-                "(kernel_step=False)")
+    if kernel_step and isinstance(pos, torch.Tensor):
+        raise ValueError(
+            "the kernel decode step (B3/B8) takes one position for all "
+            "rows; per-row positions run the plain self-attention "
+            "(kernel_step=False)")
+    if pad_count is not None:
+        pad_count = pad_count.to(device=token.device, dtype=torch.int32)
+        pos_emb = dec["pos_embed"][pos - pad_count.long()].to(dtype)[:, None]
+        slot = pos[:, None] if isinstance(pos, torch.Tensor) else pos
+        mask = ((ar[None, :] <= slot) & (ar[None, :] >= pad_count[:, None])
+                )[:, None, None, :]                            # [B,1,1,S]
+    elif isinstance(pos, torch.Tensor):
         pos_emb = dec["pos_embed"][pos].to(dtype)[:, None, :]   # [B, 1, d]
         mask = (ar[None, :] <= pos[:, None])[:, None, None, :]  # [B,1,1,S]
     else:
@@ -532,7 +602,7 @@ def decoder_step(params: Params, dims: WhisperDims, token, pos,
     x = dec["tok_emb"][token][:, None, :] + pos_emb
     if kernel_step:
         x, cache = _decoder_blocks_kernel(params, dims, x, cache, pos,
-                                          cross_len, int8_mxu)
+                                          cross_len, int8_mxu, pad_count)
     else:
         x, cache = _decoder_blocks(params, dims, x, cache, pos, mask,
                                    cross_len=cross_len, int8_mxu=int8_mxu)

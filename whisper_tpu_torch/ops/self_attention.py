@@ -46,6 +46,9 @@ from whisper_tpu_torch.ops.common import check_operand, div127, route
 
 launches = 0  # B3 kernel launches since the last reset (plain excluded)
 int8_launches = 0  # B8 kernel launches since the last reset
+# Of those, the launches given a pad_count (a left-padded conditioned prompt)
+padded_launches = 0
+int8_padded_launches = 0
 
 
 def self_attend_step_plain(q, k_new, v_new, k_cache, v_cache, layer: int,
@@ -110,7 +113,7 @@ def self_attend_step(q: torch.Tensor, k_new: torch.Tensor,
     if route(q) == "plain":
         return self_attend_step_plain(q, k_new, v_new, k_cache, v_cache,
                                       layer, pos, pad_count)
-    global launches
+    global launches, padded_launches
     b, h, dh = q.shape
     n_layers, s_max = k_cache.shape[0], k_cache.shape[3]
     if dh != 64:
@@ -132,6 +135,7 @@ def self_attend_step(q: torch.Tensor, k_new: torch.Tensor,
         b, h, s_max, int(layer), pos, pos_ptr,
         kernels.stream_ptr(q.device)), "self_attend_step")
     launches += 1
+    padded_launches += pad_count is not None
     return out
 
 
@@ -205,7 +209,7 @@ def self_attend_step_int8(q: torch.Tensor, k_new: torch.Tensor,
         return self_attend_step_int8_plain(q, k_new, v_new, k_cache, v_cache,
                                            k_scale, v_scale, layer, pos,
                                            pad_count)
-    global int8_launches
+    global int8_launches, int8_padded_launches
     b, h, dh = q.shape
     n_layers, s_max = k_cache.shape[0], k_cache.shape[3]
     if dh != 64:
@@ -231,4 +235,5 @@ def self_attend_step_int8(q: torch.Tensor, k_new: torch.Tensor,
         b, h, s_max, int(layer), pos, pos_ptr, kernels.stream_ptr(q.device)),
         "self_attend_step_int8")
     int8_launches += 1
+    int8_padded_launches += pad_count is not None
     return out

@@ -12,9 +12,9 @@ src/main.rs:834-1008):
 Device work is fenced with ``torch.cuda.synchronize`` inside each timed
 region, so the breakdown is honest.  Greedy decoding, plain or speculative
 (a draft model attached to the session), or beam search; timestamp
-decoding; ``language="auto"`` detects the language on the first window.
-Word timings and conditioned prompts raise NotImplementedError naming
-their ROADMAP item.
+decoding; ``language="auto"`` detects the language on the first window;
+an initial prompt conditions every chunk; word timings come from
+cross-attention DTW (``pipeline.words``).
 """
 
 from __future__ import annotations
@@ -82,18 +82,19 @@ def transcribe_longform(
     [n_chunks, max_new_tokens] (int32 numpy).
     speculative: draft-and-verify decoding with the session's draft model
     (``session.set_draft_model``), ``draft_k`` proposals a round; the text
-    is the greedy text."""
-    for flag, item in ((word_collector is not None, "word timings: ROADMAP "
-                        "queue 1 item 8g"),
-                       (bool(initial_prompt_ids), "conditioned prompts: "
-                        "ROADMAP queue 1 item 8c")):
-        if flag:
-            raise NotImplementedError(item)
+    is the greedy text.
+    initial_prompt_ids: every chunk's prompt is prefixed with
+    ``[<|startofprev|>] + ids`` (the HF pipeline's prompt_ids), unpadded.
+    word_collector: a list extended with {word, start, end} dicts in file
+    time: each chunk's text tokens aligned against its own 30 s slice of
+    the device mel (``pipeline.words.align_chunk_words``)."""
     t0 = time.perf_counter()
     gen_cfg = gen_cfg or GenerationCfg()
     detect = language == "auto"
     special = special_tokens("en" if detect else language, task, tokenizer)
     prompt = [special.sot, special.lang, special.task]
+    prefix = ([special.sot_prev] + list(initial_prompt_ids)
+              if initial_prompt_ids else [])
     ts_cfg = None
     ts_begin = special.no_timestamps + 1
     if not timestamps:
@@ -142,7 +143,8 @@ def transcribe_longform(
     # 3. batched chunk slicing + encoder + decoding
     tm0 = time.perf_counter()
     tokens = session.transcribe_from_mel(
-        mel, frame_starts, prompt=prompt, max_new_tokens=max_new_tokens,
+        mel, frame_starts, prompt=prefix + prompt,
+        max_new_tokens=max_new_tokens,
         eot_id=special.eot, suppress_ids=gen_cfg.suppress_tokens,
         begin_suppress_ids=gen_cfg.begin_suppress_tokens,
         num_beams=num_beams, length_penalty=length_penalty, ts_cfg=ts_cfg,
@@ -166,6 +168,23 @@ def transcribe_longform(
         if text.strip():
             texts.append(text)
     full_text = stitch_texts(texts)
+
+    if word_collector is not None:
+        from whisper_tpu_torch.pipeline.chunk import CHUNK_FRAMES
+        from whisper_tpu_torch.pipeline.words import align_chunk_words
+
+        mel_pad = torch.nn.functional.pad(mel, (0, CHUNK_FRAMES))
+        for i, row in enumerate(tokens):
+            gen = [t for t in strip_generated(row, special.eot)
+                   if t < ts_begin]                       # text tokens only
+            if not gen:
+                continue
+            s0 = frame_starts[i]
+            words = align_chunk_words(
+                session, mel_pad[:, s0:s0 + CHUNK_FRAMES], prefix + prompt,
+                gen, tokenizer, offset_s=s0 * 0.01,
+                audio_len_s=min(30.0, (total_frames - s0) * 0.01))
+            word_collector.extend(w.to_dict() for w in words)
     decode_s = time.perf_counter() - td0
     return full_text, Timing(preprocess_s=preprocess_s,
                              model_only_s=model_only_s, decode_s=decode_s,

@@ -53,12 +53,11 @@ def beam_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
     enc_states: [B, T_enc, d]; prompt: [P] ids shared by every row; masks:
     [V] fp32 additive.  packed_cross (with int8_cross_kv, head_dim 64 and
     an even head count) runs cross-attention through B4 (int8_mxu) or B6.
-    With ts_cfg each beam carries its own timestamp-grammar state."""
+    With ts_cfg each beam carries its own timestamp-grammar state.
+    pad_count ([B] int32): left pad slots of each row's prompt, masked in
+    the prefill and repeated per beam for every step."""
     from whisper_tpu_torch.runtime import timestamps as ts
 
-    if pad_count is not None:
-        raise NotImplementedError("conditioned prompts (pad_count): ROADMAP "
-                                  "queue 1 item 8c")
     b = enc_states.shape[0]
     k = num_beams
     p = prompt.shape[0]
@@ -66,9 +65,14 @@ def beam_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
     dev = enc_states.device
 
     tokens_p = prompt.to(device=dev, dtype=torch.long)[None, :].expand(b, p)
+    prompt_mask = pad_bk = None
+    if pad_count is not None:
+        prompt_mask = (torch.arange(p, device=dev)[None, :]
+                       >= pad_count[:, None])                  # [B, P]
+        pad_bk = pad_count.repeat_interleave(k)                # [B*K]
     logits, cache = whisper.decoder_prefill(
         params, dims, tokens_p, enc_states, p + max_new_tokens,
-        int8_cross_kv=int8_cross_kv)
+        int8_cross_kv=int8_cross_kv, prompt_mask=prompt_mask)
     first_logits = logits[:, -1, :].float() + first_suppress_mask
     if ts_cfg is not None:
         first_logits = ts.apply_rules(first_logits,
@@ -102,7 +106,7 @@ def beam_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
             break
         step_logits, cache = whisper.decoder_step(
             params, dims, last.reshape(b * k), p + i - 1, cache,
-            cross_len=cross_len, int8_mxu=int8_mxu)
+            cross_len=cross_len, int8_mxu=int8_mxu, pad_count=pad_bk)
         step_logits = step_logits.float() + suppress_mask
         if ts_cfg is not None:
             step_logits = ts.apply_rules(step_logits, ts_state, i, ts_cfg)

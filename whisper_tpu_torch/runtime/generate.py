@@ -93,7 +93,13 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
 
     ts_cfg (``runtime.timestamps.TimestampCfg``) enforces the timestamp
     grammar.  temperature > 0 samples with ``generator``, a
-    ``torch.Generator`` on enc_states' device."""
+    ``torch.Generator`` on enc_states' device.
+
+    pad_count ([B] int32 on enc_states' device): the first pad_count[r]
+    prompt slots of row r are left padding (previous-text conditioning at
+    one static prompt length): masked in the prefill, and passed to every
+    step (B3/B8 on the kernel step), so each row decodes as its unpadded
+    shorter prompt would."""
     from whisper_tpu_torch.runtime import timestamps as ts
 
     if step_weights is not None and pad_count is not None:
@@ -101,9 +107,6 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
         # padding and offset positions on conditioned prompts.
         raise ValueError("step_weights (fused_decoder_step) does not "
                          "support pad_count-conditioned prompts")
-    if pad_count is not None:
-        raise NotImplementedError("conditioned prompts (pad_count): ROADMAP "
-                                  "queue 1 item 8c")
     if temperature > 0 and generator is None:
         raise ValueError("temperature > 0 requires a generator")
     kernel_step = kernel_step and step_weights is None
@@ -113,9 +116,13 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
     p = prompt.shape[0]
     dev = enc_states.device
     tokens = prompt.to(device=dev, dtype=torch.long)[None, :].expand(b, p)
+    prompt_mask = None
+    if pad_count is not None:
+        prompt_mask = (torch.arange(p, device=dev)[None, :]
+                       >= pad_count[:, None])                  # [B, P]
     logits, cache = whisper.decoder_prefill(
         params, dims, tokens, enc_states, p + max_new_tokens,
-        int8_cross_kv=int8_cross_kv)
+        int8_cross_kv=int8_cross_kv, prompt_mask=prompt_mask)
     if kernel_step and int8_self and int8_mxu:
         cache = whisper.quantize_self_kv(cache)
     first_logits = logits[:, -1, :].float() + first_suppress_mask
@@ -148,7 +155,7 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
                 params, dims, last, p + i - 1, cache,
                 kernel_step=kernel_step,
                 cross_len=cross_len if kernel_step else None,
-                int8_mxu=int8_mxu)
+                int8_mxu=int8_mxu, pad_count=pad_count)
         step_logits = step_logits.float() + suppress_mask
         if ts_cfg is not None:
             step_logits = ts.apply_rules(step_logits, ts_state, i, ts_cfg)

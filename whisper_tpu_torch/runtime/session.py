@@ -18,9 +18,12 @@ temperature sampling with a seed and the scores the fallback ladder reads
 B6 at B*K rows).  ``set_draft_model`` attaches a draft for speculative
 decoding (``transcribe_from_mel(speculative=True)``,
 ``runtime.speculative``: the verify pass runs kernel B7 where the greedy
-step runs B4 or B6).  What the port does not carry (meshes, the wire
-encodings, conditioned prompts) raises ``NotImplementedError`` naming its
-ROADMAP item; nothing silently takes another path.
+step runs B4 or B6).  Left-padded conditioned prompts (``pad_count``) run
+through the prefill and every step, B3 and B8 included, and
+``alignment_weights`` gives the cross-attention of a teacher-forced pass
+for word timings.  What the port does not carry (meshes, the wire
+encodings) raises ``NotImplementedError`` naming its ROADMAP item; nothing
+silently takes another path.
 """
 
 from __future__ import annotations
@@ -361,7 +364,11 @@ class WhisperSession:
         piece from a generator seeded with ``seed * 100003 + start``, as the
         JAX session keys its draws.  speculative: draft-and-verify over the
         chunk batch with the attached draft model (``set_draft_model``),
-        ``draft_k`` proposals a round; plain greedy decoding only."""
+        ``draft_k`` proposals a round; plain greedy decoding only.
+        pad_count (an int): the prompt's first pad_count slots are left
+        padding, the same for every chunk (``pipeline.sequential``'s
+        previous-text conditioning); such a decode never takes the hybrid
+        step (``fused_decoder_step``)."""
         if num_beams > 1 and (with_scores or temperature > 0.0):
             raise ValueError("num_beams > 1 does not compose with "
                              "with_scores/temperature (beam search is "
@@ -396,9 +403,6 @@ class WhisperSession:
                 raise ValueError(
                     "speculative long-form composes with plain greedy only "
                     "(no beams/timestamps/temperature/scores/conditioning)")
-        if pad_count is not None:
-            raise NotImplementedError("conditioned prompts (pad_count): "
-                                      "ROADMAP queue 1 item 8c")
         self.speculative_stats = []
         from whisper_tpu_torch.pipeline.chunk import CHUNK_FRAMES
 
@@ -420,6 +424,10 @@ class WhisperSession:
             chunks = torch.stack([mel_pad[:, s:s + CHUNK_FRAMES]
                                   for s in starts])
             enc = self.encoder(chunks)
+            pads = None
+            if pad_count is not None:
+                pads = torch.full((bucket,), int(pad_count),
+                                  dtype=torch.int32, device=self.device)
             if speculative:
                 result = self._speculative_tokens(
                     chunks, enc, prompt_t, base_mask, first_mask,
@@ -433,7 +441,7 @@ class WhisperSession:
                     length_penalty, ts_cfg=ts_cfg,
                     int8_cross_kv=self.cfg.int8_kv_cache,
                     packed_cross=self.cfg.packed_cross_kv,
-                    int8_mxu=self._int8_mxu)
+                    int8_mxu=self._int8_mxu, pad_count=pads)
             else:
                 gen = None
                 if temperature > 0.0:
@@ -446,11 +454,42 @@ class WhisperSession:
                     int8_cross_kv=self.cfg.int8_kv_cache,
                     kernel_step=self._kernel_step, int8_mxu=self._int8_mxu,
                     int8_self=self._int8_self,
-                    step_weights=self._step_weights, temperature=temperature,
-                    generator=gen, return_logprobs=with_scores)
+                    # conditioned programs never take the hybrid step,
+                    # which has no pad mask (the JAX session's rule)
+                    step_weights=None if pads is not None
+                    else self._step_weights,
+                    temperature=temperature, generator=gen,
+                    return_logprobs=with_scores, pad_count=pads)
             pieces.append((result, start, n))
             start += n
         return pieces
+
+    # -- word alignment --------------------------------------------------------
+
+    def alignment_weights(self, mel_chunk, prompt: list,
+                          gen_tokens: list) -> np.ndarray:
+        """Cross-attention probabilities [L, H, P_pad, T_enc] (fp32 numpy)
+        of one decoded chunk, teacher-forced
+        (``whisper.decoder_alignment_weights``), for word timings.  The
+        token rows are padded with zeros to a multiple of 16, as in the JAX
+        session.  The encoder takes the JAX call's flags:
+        ``fused_attention`` only (B1 at x3+), no fused MLP, no fused block,
+        no W8A8 (``langdetect._plain_encoder_tree``); the decoder's cross
+        K/V stay in the weights' dtype."""
+        from whisper_tpu_torch.models import whisper
+        from whisper_tpu_torch.runtime.langdetect import _plain_encoder_tree
+
+        n = len(prompt) + len(gen_tokens)
+        p_pad = max(16, -(-n // 16) * 16)
+        toks = torch.zeros((1, p_pad), dtype=torch.long, device=self.device)
+        toks[0, :n] = torch.as_tensor(list(prompt) + list(gen_tokens))
+        mel = torch.as_tensor(mel_chunk).to(self.device)
+        enc = whisper.encoder_apply(
+            {"encoder": _plain_encoder_tree(self)}, self.dims, mel[None],
+            fused_attention=self.cfg.fused_attention)
+        w = whisper.decoder_alignment_weights(self._decoder_params, self.dims,
+                                              toks, enc)
+        return w[:, 0].float().cpu().numpy()
 
     # -- speculative decoding ------------------------------------------------
 

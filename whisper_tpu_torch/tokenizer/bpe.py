@@ -6,7 +6,7 @@ skip_special_tokens=true)` (ref src/main.rs:637-648).  This module
 implements that decode direction directly from a HF ``tokenizer.json``
 file: id -> token string -> byte-level unmap -> UTF-8, with no third-party
 dependency.  ``encode_text`` (text -> ids, for ``--initial-prompt``) needs
-the ``tokenizers`` package and is not ported (ROADMAP queue 1 item 8).
+the ``tokenizers`` package, imported when it is called.
 """
 
 from __future__ import annotations
@@ -113,3 +113,21 @@ class WhisperDetokenizer:
                     byte_buf.append(b)
         flush()
         return "".join(parts)
+
+
+def encode_text(tokenizer_json: str, text: str) -> List[int]:
+    """Encode free text to token ids for prompt conditioning
+    (``--initial-prompt``, ``<|startofprev|>`` prefixes).  Encoding needs
+    byte-level BPE merges and the GPT-2 pre-tokenizer, so this delegates to
+    the ``tokenizers`` package, imported here (decoding stays
+    dependency-free); a leading space is prepended as openai-whisper does
+    for its initial prompt."""
+    try:
+        from tokenizers import Tokenizer
+    except ImportError as e:
+        raise RuntimeError(
+            "--initial-prompt needs the `tokenizers` package to encode "
+            "text (decoding stays dependency-free)"
+        ) from e
+    tok = Tokenizer.from_file(tokenizer_json)
+    return list(tok.encode(" " + text.strip(), add_special_tokens=False).ids)
