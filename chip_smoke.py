@@ -122,6 +122,23 @@ What it does, in order (any failure raises and exits non-zero):
    over the four files with ``--longform-mode sequential
    --condition-on-prev-text``, ``--word-timestamps --write-srt --write-vtt``
    (every cue file parses) and ``--vad-filter --word-timestamps``.
+7d. Serving (``check_serve``, ``[serve]`` lines), whisper-base, 128 tokens:
+   (a) the engine's short lane at x4 (the server's default) and x5, a
+   burst of 16 synthetic clips of 1-30 s, each row against the clip alone
+   through ``transcribe_short_batch`` at bucket 1 (equal, or every first
+   divergence a tie-flip by ``divergence_report``), B1, B2, B3 and B6 (x4)
+   or B4 (x5) launched and B5 not, four clips of 1-3.5 s trimmed and at
+   full width (equal); (b) a 76 s file on the long lane while 16 clips are
+   in flight (the shorts resolve first, its text is ``transcribe_longform``'s
+   alone, the short lane's p95 with and without it); (c) 4 TCP clients x 4
+   requests through ``serve.server`` and then through ``serve.router`` in
+   front of it (the same answers, or tie-flips), ``{"stats": true}``;
+   (d) the OpenAI HTTP API: json, srt, verbose_json with words, SSE,
+   /healthz, /v1/models; (e) the speculative leg, whisper-base's own int8
+   weights as draft (B7), against the greedy burst; (f) a lone 5 s request
+   and ``serve_bench``'s 64 streams of 30 s, three times (aggregate x real
+   time, p50, p95); then the card test of two threads launching B3 and B8
+   across 48 KB at once, in a fresh process.
 8. The fully fused decode step (``decoder_step_fused``: B10a, B10b, B10c per
    layer) for 127 steps from a bf16 prefill at bucket 16: the first step's
    logits within 5e-2 of ``decoder_step`` on the same cache, finite tokens
@@ -2567,6 +2584,470 @@ def check_prompts_words(card: str, results, params, dims, audio,
           flush=True)
 
 
+def _engine_tokens(text: str) -> list:
+    """The generated ids of a tokenizer-less engine text ("[TOKENS:a b]")."""
+    if not text:
+        return []
+    if not (text.startswith("[TOKENS:") and text.endswith("]")):
+        raise AssertionError(f"not a tokenizer-less engine text: {text!r}")
+    return [int(t) for t in text[len("[TOKENS:"):-1].split()]
+
+
+def _serve_clips(n: int, seed: int, lo: float = 1.0, hi: float = 30.0):
+    """n synthetic clips of lo..hi seconds (a tone and noise each)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    secs = rng.uniform(lo, hi, n)
+    secs[0], secs[-1] = lo, hi        # both ends of the range
+    out = []
+    for i, s in enumerate(secs):
+        t = np.arange(int(s * 16000)) / 16000.0
+        out.append((0.1 * np.sin(2 * np.pi * (150 + 23 * i) * t)
+                    + 0.03 * rng.standard_normal(len(t))).astype(np.float32))
+    return out
+
+
+def _one_row(clip):
+    """A clip as the engine ships it alone: (its reflect-padded row in the
+    full 30 s window [1, 480,400], its valid frames [1])."""
+    import numpy as np
+
+    from whisper_tpu_torch.frontend import golden
+
+    pad = golden.reflect_pad(clip)
+    row = np.zeros((1, 480_000 + 400), dtype=np.float32)
+    row[0, :len(pad)] = pad
+    return row, np.array([golden.num_frames(len(clip))], np.int32)
+
+
+def _judge_rows(session, clips, prompt, eot, got_rows, want_rows,
+                label: str) -> str:
+    """Rows of two runs of the same clips: equal, or each first divergence
+    judged by ``_judge`` on the clip's own short-path mel (both chains
+    teacher-forced through ``session``); one that is not a tie-flip fails.
+    Returns a summary."""
+    import numpy as np
+
+    n_div = flips = 0
+    for clip, got, want in zip(clips, got_rows, want_rows):
+        if got == want:
+            continue
+        mel = session._short_mel(*_one_row(clip))[0]
+        d, f, _, _, bad = _judge(session, session, mel, [(0, prompt)],
+                                 [np.array(want)], [np.array(got)], eot,
+                                 label)
+        if bad:
+            raise AssertionError(f"{label}: a divergence that is not a "
+                                 f"tie-flip: {bad}")
+        n_div, flips = n_div + d, flips + f
+    same = sum(g == w for g, w in zip(got_rows, want_rows))
+    return (f"{same} of {len(got_rows)} rows equal, {n_div} divergences, "
+            f"{flips} tie-flips")
+
+
+def _latencies(engine, clips):
+    """Submit every clip at once; (texts, seconds from the submit to each
+    future's end).  A future holding an exception raises here."""
+    t0 = time.perf_counter()
+    done = {}
+    futs = []
+    for i, c in enumerate(clips):
+        f = engine.submit(c)
+        f.add_done_callback(lambda _, i=i: done.__setitem__(
+            i, time.perf_counter()))
+        futs.append(f)
+    texts = [f.result(timeout=600) for f in futs]
+    return texts, [done[i] - t0 for i in range(len(clips))]
+
+
+def _pct(lat, q: float) -> float:
+    """serve_bench's nearest-rank percentile of a list of latencies."""
+    from whisper_tpu_torch.serve.serve_bench import percentile
+
+    return percentile(sorted(lat), q)
+
+
+def check_serve(card: str, results, params, dims) -> None:
+    """The serving path at whisper-base (``[serve]`` lines): the engine's
+    short lane at x4 (the server's default) and x5, its long lane, the TCP
+    server and the router, the OpenAI HTTP API, the speculative leg and
+    the load of 64 streams, then the card test of two threads launching B3
+    and B8 at once in a fresh process.  Every future's result is read (an
+    exception fails the phase); each lane's kernels must have launched."""
+    import asyncio
+    import base64
+    import socket
+    import subprocess
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from whisper_tpu_torch.headline import make_session, synth_audio
+    from whisper_tpu_torch.pipeline.longform import transcribe_longform
+    from whisper_tpu_torch.runtime.genconfig import GenerationCfg
+    from whisper_tpu_torch.runtime.generate import strip_generated
+    from whisper_tpu_torch.serve import serve_bench
+    from whisper_tpu_torch.serve.engine import EngineConfig, StreamingEngine
+    from whisper_tpu_torch.serve.http_server import (
+        TranscriptionService,
+        make_server,
+    )
+    from whisper_tpu_torch.serve.router import serve_router
+    from whisper_tpu_torch.serve.server import serve
+    from whisper_tpu_torch.tokenizer.specials import special_tokens
+    from whisper_tpu_torch.variants.quant import quantize_params
+
+    t_phase = time.perf_counter()
+    special = special_tokens("en", "transcribe", None)
+    prompt = [special.sot, special.lang, special.task, special.no_timestamps]
+    eot = special.eot
+    gen = GenerationCfg()
+    clips = _serve_clips(16, seed=14)
+
+    def alone(session, clip):
+        """The clip by itself through the session's short path (bucket 1,
+        the full window)."""
+        toks = session.transcribe_short_batch(
+            *_one_row(clip), prompt, 128, eot,
+            suppress_ids=gen.suppress_tokens,
+            begin_suppress_ids=gen.begin_suppress_tokens)
+        return strip_generated(toks[0], eot)
+
+    # (a) the short lane: a burst of 16 clips against each clip alone
+    engines, burst = {}, {}
+    for rung, cross in (("x4", "cross_attend_step_dequant"),
+                        ("x5", "cross_attend_step")):
+        session = make_session("cuda", params, rung)
+        eng = StreamingEngine(session, cfg=EngineConfig(
+            max_new_tokens=128, batch_window_ms=20))
+        engines[rung] = eng
+        eng.warmup(batch=16)
+        ticks = eng.stats["batches"]
+        _zero_counts(results)
+        t0 = time.perf_counter()
+        texts, lat = _latencies(eng, clips)
+        wall = time.perf_counter() - t0
+        c = _counts(results)
+        ticks = eng.stats["batches"] - ticks
+        rows = [_engine_tokens(t) for t in texts]
+        burst[rung] = rows
+        need = ("fused_attention", "fused_encoder_mlp", "self_attend_step",
+                cross)
+        if any(c[n] == 0 for n in need) or c["log_mel"]:
+            raise AssertionError(f"(a) {rung} short lane: launches {c}")
+        verdict = _judge_rows(session, clips, prompt, eot,
+                              rows, [alone(session, a) for a in clips],
+                              f"(a) {rung} batched against alone")
+        # trimmed against full-width uploads: four clips under 1/8 window
+        short = _serve_clips(4, seed=15, lo=1.0, hi=3.5)
+        trimmed = [f.result(timeout=600) for f in
+                   [eng.submit(a) for a in short]]
+        eng.cfg.trim_upload = False
+        widths = [f.result(timeout=600) for f in
+                  [eng.submit(a) for a in short]]
+        eng.cfg.trim_upload = True
+        if trimmed != widths:
+            raise AssertionError(f"(a) {rung}: trimmed uploads give other "
+                                 "tokens than full-width ones")
+        print(f"[serve] (a) short lane {rung}, 16 clips of 1-30 s, on {card}:"
+              f" {ticks} tick(s), wall {wall:.4f} s, "
+              f"latency p50 {_pct(lat, 0.5):.4f} s p95 "
+              f"{_pct(lat, 0.95):.4f} s; "
+              f"{verdict} against each clip alone at bucket 1; trimmed "
+              f"uploads equal full-width ones (4 clips of 1-3.5 s); "
+              f"launches {c}", flush=True)
+    x4 = engines["x4"]
+
+    # (b) the long lane: a 76 s file while 16 short clips are in flight
+    long_audio = synth_audio(76.0)
+    _, lat_alone = _latencies(x4, clips)
+    done = {}
+    t0 = time.perf_counter()
+    shorts = []
+    for i, c in enumerate(clips):
+        f = x4.submit(c)
+        f.add_done_callback(lambda _, i=i: done.__setitem__(
+            i, time.perf_counter()))
+        shorts.append(f)
+    # Past the coalescing window, the tick of 16 decodes (~1 s on the card)
+    # when the long request arrives on its own lane.
+    time.sleep(0.3)
+    n_long = x4.stats["longform"]
+    _zero_counts(results)
+    long_fut = x4.submit(long_audio)
+    long_fut.add_done_callback(lambda _: done.__setitem__(
+        "long", time.perf_counter()))
+    for f in shorts:
+        f.result(timeout=600)
+    long_text = long_fut.result(timeout=600)
+    c = _counts(results)
+    if c["log_mel"] != 1 or c["cross_attend_step_dequant"] == 0:
+        raise AssertionError(f"(b) lanes: launches {c}")
+    if max(done[i] for i in range(16)) > done["long"]:
+        raise AssertionError("(b) the long request resolved before the "
+                             "short ones")
+    want, _ = transcribe_longform(x4.session, long_audio, "en", "transcribe",
+                                  128, 30.0, 5.0, None, False, gen)
+    if long_text != want or x4.stats["longform"] != n_long + 1:
+        raise AssertionError("(b) the long lane's text is not the long-form "
+                             "text of the file alone")
+    lat_long = [done[i] - t0 for i in range(16)]
+    print(f"[serve] (b) long lane x4, 76 s beside 16 short clips, on {card}: "
+          f"shorts done {max(lat_long):.4f} s, the long request "
+          f"{done['long'] - t0:.4f} s after the burst; its text equals "
+          f"transcribe_longform alone; short-lane p95 "
+          f"{_pct(lat_long, 0.95):.4f} s with the long request, "
+          f"{_pct(lat_alone, 0.95):.4f} s without; launches "
+          f"of both lanes {c} (B5 once: the long file's one-shot mel)",
+          flush=True)
+
+    # (c) the TCP server, then the router in front of it
+    def run_loop(coro_fn):
+        ready, holder = threading.Event(), {}
+
+        def target():
+            async def main_():
+                class Ev:
+                    def set(self):
+                        ready.set()
+
+                holder["loop"] = asyncio.get_running_loop()
+                holder["task"] = asyncio.current_task()
+                try:
+                    await coro_fn(Ev())
+                except asyncio.CancelledError:
+                    pass
+
+            asyncio.run(main_())
+
+        th = threading.Thread(target=target, daemon=True)
+        th.start()
+        if not ready.wait(30):
+            raise AssertionError("(c) a server did not start")
+
+        def stop():
+            holder["loop"].call_soon_threadsafe(holder["task"].cancel)
+            th.join(timeout=30)
+
+        return stop
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    def ask(port, payload):
+        with socket.create_connection(("127.0.0.1", port), timeout=300) as s:
+            s.settimeout(300)
+            s.sendall((json.dumps(payload) + "\n").encode())
+            buf = b""
+            while not buf.endswith(b"\n"):
+                chunk = s.recv(1 << 20)
+                if not chunk:
+                    break
+                buf += chunk
+        return json.loads(buf)
+
+    pcm = [(np.clip(a, -1, 1) * 32767).astype("<i2") for a in clips]
+    reqs = [{"id": f"r{i}", "pcm16_b64": base64.b64encode(p.tobytes())
+             .decode()} for i, p in enumerate(pcm)]
+
+    def four_clients(port):
+        out, errors = {}, []
+
+        def client(k):
+            try:
+                for r in reqs[4 * k:4 * k + 4]:
+                    out[r["id"]] = ask(port, r)
+            except Exception as e:  # noqa: BLE001 (reported below)
+                errors.append(repr(e))
+
+        ths = [threading.Thread(target=client, args=(k,)) for k in range(4)]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(timeout=600)
+        if errors or len(out) != 16:
+            raise AssertionError(f"(c) clients: {errors or sorted(out)}")
+        for r in reqs:
+            resp = out[r["id"]]
+            if "error" in resp or set(resp) != {"id", "text", "latency_s"}:
+                raise AssertionError(f"(c) response {resp}")
+        return [_engine_tokens(out[r["id"]]["text"]) for r in reqs]
+
+    port = free_port()
+    stop_server = run_loop(lambda ev: serve(x4, "127.0.0.1", port, ev))
+    try:
+        t0 = time.perf_counter()
+        direct = four_clients(port)
+        t_direct = time.perf_counter() - t0
+        stats = ask(port, {"id": "s", "stats": True})
+        if set(stats["stats"]) < {"batches", "batched_requests", "longform"}:
+            raise AssertionError(f"(c) stats {stats}")
+        rport = free_port()
+        stop_router = run_loop(lambda ev: serve_router(
+            [("127.0.0.1", port)], "127.0.0.1", rport, ev))
+        try:
+            t0 = time.perf_counter()
+            routed = four_clients(rport)
+            t_routed = time.perf_counter() - t0
+            merged = ask(rport, {"id": "m", "stats": True})["stats"]
+        finally:
+            stop_router()
+    finally:
+        stop_server()
+    decoded = [p.astype(np.float32) / 32768.0 for p in pcm]
+    verdict = _judge_rows(x4.session, decoded, prompt, eot, routed, direct,
+                          "(c) router against server")
+    print(f"[serve] (c) TCP x4, 4 clients x 4 requests, on {card}: "
+          f"{t_direct:.4f} s through the server, {t_routed:.4f} s through "
+          f"the router; router answers against the server's: {verdict}; "
+          f"stats {stats['stats']}; router's merged backends "
+          f"{len(merged['backends'])}", flush=True)
+
+    # (d) the OpenAI HTTP API
+    service = TranscriptionService(x4, "openai/whisper-base")
+    httpd = make_server(service, "127.0.0.1", 0)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        def wav(audio):
+            import struct
+
+            data = (np.clip(audio, -1, 1) * 32767).astype("<i2").tobytes()
+            return struct.pack(
+                "<4sI4s4sIHHIIHH4sI", b"RIFF", 36 + len(data), b"WAVE",
+                b"fmt ", 16, 1, 1, 16000, 32000, 2, 16, b"data",
+                len(data)) + data
+
+        def post(fields, audio):
+            b = "servephaseboundary"
+            parts = [(f"--{b}\r\nContent-Disposition: form-data; name="
+                      f"\"{k}\"\r\n\r\n{v}\r\n").encode()
+                     for k, vs in fields.items()
+                     for v in (vs if isinstance(vs, list) else [vs])]
+            parts.append((f"--{b}\r\nContent-Disposition: form-data; name="
+                          "\"file\"; filename=\"a.wav\"\r\n\r\n").encode()
+                         + wav(audio) + b"\r\n" + f"--{b}--\r\n".encode())
+            req = urllib.request.Request(
+                url + "/v1/audio/transcriptions", data=b"".join(parts),
+                headers={"Content-Type": f"multipart/form-data; boundary={b}"},
+                method="POST")
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=600) as r:
+                body = r.read().decode()
+                return (r.status, r.headers["Content-Type"], body,
+                        time.perf_counter() - t0)
+
+        def get(path):
+            with urllib.request.urlopen(url + path, timeout=60) as r:
+                return json.loads(r.read())
+
+        if get("/healthz") != {"status": "ok"}:
+            raise AssertionError("(d) /healthz")
+        models = get("/v1/models")
+        if models["data"][0]["id"] != "openai/whisper-base":
+            raise AssertionError(f"(d) /v1/models {models}")
+        clip = clips[3]
+        took = {}
+        _zero_counts(results)
+        st, ct, body, took["json"] = post({"response_format": "json"}, clip)
+        if st != 200 or set(json.loads(body)) != {"text"}:
+            raise AssertionError(f"(d) json: {st} {body[:200]}")
+        st, ct, body, took["srt"] = post({"response_format": "srt"}, clip)
+        if st != 200 or "-->" not in body or not ct.startswith("text/plain"):
+            raise AssertionError(f"(d) srt: {st} {body[:200]}")
+        st, ct, body, took["verbose_json"] = post(
+            {"response_format": "verbose_json",
+             "timestamp_granularities[]": ["word", "segment"]}, clip)
+        out = json.loads(body)
+        if st != 200 or set(out) != {"task", "language", "duration", "text",
+                                     "segments", "words"} \
+                or not out["words"] or not out["segments"]:
+            raise AssertionError(f"(d) verbose_json: {st} {body[:300]}")
+        st, ct, body, took["sse"] = post({"stream": "true"}, clip)
+        events = [json.loads(line[6:]) for line in body.splitlines()
+                  if line.startswith("data: ")]
+        if st != 200 or not ct.startswith("text/event-stream") or not events \
+                or events[-1]["type"] != "transcript.text.done":
+            raise AssertionError(f"(d) sse: {st} {body[:300]}")
+        c = _counts(results)
+        if c["fused_attention"] == 0 or c["self_attend_step"] == 0:
+            raise AssertionError(f"(d) HTTP lanes: launches {c}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=30)
+    print(f"[serve] (d) HTTP x4, a {len(clip) / 16000:.2f} s upload, on "
+          f"{card}: json (short lane) {took['json']:.4f} s, srt "
+          f"{took['srt']:.4f} s, verbose_json with {len(out['words'])} words "
+          f"{took['verbose_json']:.4f} s (direct lane), SSE "
+          f"{len(events)} events {took['sse']:.4f} s; /healthz, /v1/models; "
+          f"launches {c}", flush=True)
+
+    # (e) the speculative leg: whisper-base's own int8 weights as draft
+    spec_session = make_session("cuda", params, "x5")
+    spec_session.set_draft_model(quantize_params(params), dims,
+                                 share_encoder=True)
+    spec = StreamingEngine(spec_session, cfg=EngineConfig(
+        max_new_tokens=128, batch_window_ms=20))
+    try:
+        _zero_counts(results)
+        t0 = time.perf_counter()
+        texts, _ = _latencies(spec, clips)
+        wall = time.perf_counter() - t0
+        c = _counts(results)
+        if c["cross_attend_multi"] == 0 or spec.stats["speculative"] != 16:
+            raise AssertionError(f"(e) speculative leg: launches {c}, "
+                                 f"stats {spec.stats}")
+        verdict = _judge_rows(spec_session, clips, prompt, eot,
+                              [_engine_tokens(t) for t in texts],
+                              burst["x5"], "(e) speculative against greedy")
+    finally:
+        spec.close()
+    print(f"[serve] (e) speculative leg x5, own int8 weights as draft, 16 "
+          f"clips, on {card}: wall {wall:.4f} s; against the greedy x5 "
+          f"burst: {verdict}; launches {c}", flush=True)
+
+    # (f) a lone 5 s request three times, then the load: 64 streams of 30 s,
+    # three repetitions
+    x5 = engines["x5"]
+    lone = []
+    for _ in range(3):
+        lone += _latencies(x5, serve_bench.make_streams(1, 5.0))[1]
+    print(f"[serve] (f) a lone 5 s request, x5, on {card}: "
+          f"{', '.join(f'{t:.4f}' for t in lone)} s", flush=True)
+    streams = serve_bench.make_streams(64, 30.0)
+    reps = serve_bench.run_bench(x5, streams, reps=3)
+    for i, r in enumerate(reps):
+        print(f"[serve] (f) load x5, 64 streams x 30 s, rep {i}, on {card}: "
+              f"wall {r['wall_s']:.4f} s, {r['x_real_time']:.2f}x real time "
+              f"aggregate, latency p50 {r['p50_s']:.4f} s p95 "
+              f"{r['p95_s']:.4f} s max {r['max_s']:.4f} s, ticks so far "
+              f"{r['ticks']}", flush=True)
+    for eng in engines.values():
+        eng.close()
+
+    # the two-thread launch test, in a fresh process of its own
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-p",
+         "no:cacheprovider", "-q", "-m", "cuda",
+         "tests/test_torch_cuda.py::"
+         "test_b3_b8_two_threads_raise_the_limit_at_once"],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0 or " passed" not in proc.stdout:
+        raise AssertionError(f"two-thread launch test: {proc.stdout[-2000:]}"
+                             f"{proc.stderr[-2000:]}")
+    print(f"[serve] two threads launching B3 and B8 across 48 KB at once: "
+          f"passed ({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"[serve] phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -2640,6 +3121,7 @@ def main() -> None:
                              spec_tokens["x5"],
                          "speculative x4 against greedy x4":
                              spec_tokens["x4"]})
+    check_serve(card, results, params, dims)
     fused_step = check_fused_step(card, results, params, dims, audio)
     medium = check_medium_fused_block(card, results)
     cli = check_cli(card, results)

@@ -1195,3 +1195,79 @@ print("launched", sa.launches, sa.int8_launches)
                           text=True, timeout=600, cwd=repo)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "launched 11 13" in proc.stdout
+
+
+def test_b3_b8_two_threads_raise_the_limit_at_once(gen):
+    """The serving engine's lanes launch from two threads.  In a fresh
+    process (no limit raised yet), two threads launch B3 at once, one
+    walking pos 100 and 150-179 (under 48 KB), the other 180-447 (over
+    it), then B8 the same way across its edge (250-339 against 340-447),
+    each launch 8 times, with a switch interval of a microsecond: no launch
+    may fail, every output must be bitwise the same call's alone, and the
+    launch counters must count every launch (the lock around `+=`)."""
+    import os
+    import subprocess
+    import sys
+
+    code = """
+import sys, threading, torch
+from whisper_tpu_torch.ops import self_attention as sa
+sys.setswitchinterval(1e-6)
+g = torch.Generator(device="cuda").manual_seed(0)
+r = lambda *s: torch.randn(*s, generator=g, device="cuda").to(torch.bfloat16)
+S, REPS = 448, 8
+pad = torch.tensor([3, 0], dtype=torch.int32, device="cuda")
+kc, vc = r(1, 2, 2, S, 64), r(1, 2, 2, S, 64)
+k8 = torch.randint(-127, 128, (1, 2, 2, S, 64), generator=g, device="cuda",
+                   dtype=torch.int8)
+v8 = k8.flip(-1).contiguous()
+ks = torch.rand((1, 2, 2, S), generator=g, device="cuda") / 64
+vs = torch.rand((1, 2, 2, S), generator=g, device="cuda") / 64
+qkv = {p: (r(2, 2, 64), r(2, 2, 64), r(2, 2, 64)) for p in range(S)}
+
+def b3(p):
+    return sa.self_attend_step(*qkv[p], kc.clone(), vc.clone(), 0, p, pad)
+
+def b8(p):
+    return sa.self_attend_step_int8(*qkv[p], k8.clone(), v8.clone(),
+                                    ks.clone(), vs.clone(), 0, p, pad)
+
+def race(step, lanes):
+    outs, errors = [{} for _ in lanes], []
+    start = threading.Barrier(len(lanes))
+    def lane(i):
+        try:
+            start.wait()
+            for p in lanes[i]:
+                for _ in range(REPS):
+                    out = step(p)
+                    first = outs[i].setdefault(p, out)
+                    if not torch.equal(out, first):
+                        errors.append(f"pos {p}: two calls differ")
+        except Exception as e:
+            errors.append(repr(e))
+    threads = [threading.Thread(target=lane, args=(i,))
+               for i in range(len(lanes))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        assert not t.is_alive(), "a lane hung"
+    torch.cuda.synchronize()
+    assert not errors, errors[:5]
+    for got in outs:
+        for p, out in got.items():
+            assert torch.equal(out, step(p)), f"pos {p}: not the lone call"
+    return sum(len(lanes[i]) for i in range(len(lanes))) * REPS
+
+n3 = race(b3, [[100] + list(range(150, 180)), list(range(180, S))])
+n8 = race(b8, [list(range(250, 340)), list(range(340, S))])
+assert sa.launches == n3 + 299, (sa.launches, n3)
+assert sa.int8_launches == n8 + 198, (sa.int8_launches, n8)
+print("raced", n3, n8)
+"""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=600, cwd=repo)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "raced 2392 1584" in proc.stdout

@@ -236,7 +236,9 @@ def test_float_audio_transfer_modes_match_jax(mode):
 def test_port_loads_no_jax():
     """A fresh process, WHISPER_TPU_PLATFORM unset, runs the x5 slice at a
     small size through the port, greedy and then speculative with a draft
-    model attached, and never imports jax or whisper_tpu."""
+    model attached, then a request through the serving engine, imports the
+    TCP server, the HTTP server and the router, and never imports jax or
+    whisper_tpu."""
     code = f"""
 import dataclasses, sys
 import numpy as np, torch
@@ -269,6 +271,13 @@ spec, _ = transcribe_longform(sess, rng.normal(0, 0.1, 35 * 16000),
                               "en", "transcribe", 3, tokenizer=Tok(),
                               speculative=True, draft_k=2)
 assert isinstance(spec, str)
+from whisper_tpu_torch.serve import (engine, http_server, router, server,
+                                     serve_bench)
+eng = engine.StreamingEngine(sess, Tok(), engine.EngineConfig(
+    max_new_tokens=2))
+assert isinstance(eng.transcribe(rng.normal(0, 0.1, 16000)), str)
+assert eng.stats["speculative"] == 1
+eng.close()
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "whisper_tpu")]
 assert not bad, bad

@@ -297,6 +297,38 @@ def test_speculative_generate_equals_jax_and_greedy(nano, case):
         assert not (set(got[0].flatten().tolist()) - {EOT}) & set(suppress)
 
 
+def test_rows_that_overrun_max_new_tokens_stay_frozen_inside_the_cache(nano):
+    """Rows 0-1 draft from the main model's own encoder states (every
+    proposal accepted: they end by length in round 3, past max_new_tokens
+    by draft_k - 1), rows 2-3 from another input's states (proposals
+    rejected, they go on).  The frozen rows' steps, computed and discarded,
+    must write inside the cache (an index error before); tokens, rounds and
+    counts equal JAX's (whose dynamic slices clamp) and greedy decoding."""
+    jp, tp = nano[0]
+    rng = np.random.default_rng(11)
+    mel, other = (rng.normal(0, 1, (4, NANO.n_mels, 3000)).astype(np.float32)
+                  for _ in range(2))
+    jenc, tenc = _encode(NANO, jp, tp, mel)
+    jo, to = _encode(NANO, jp, tp, other)
+    # ten times another input's states: far enough from the main model's
+    # field that the draft's proposals for rows 2-3 are rejected
+    jenc_d = jnp.concatenate([jenc[:2], 10.0 * jo[2:]])
+    tenc_d = torch.cat([tenc[:2], 10.0 * to[2:]])
+    mask = build_suppress_mask(NANO.vocab_size, [])
+    args = dict(max_new_tokens=12, eot_id=EOT, draft_k=4)
+    want = jax_speculative(jp, NANO, jp, NANO, jenc, jenc_d,
+                           jnp.asarray([3], jnp.int32), jnp.asarray(mask),
+                           jnp.asarray(mask), **args)
+    got = speculative_generate(tp, NANO, tp, NANO, tenc, tenc_d,
+                               torch.tensor([3]), torch.from_numpy(mask),
+                               torch.from_numpy(mask), **args)
+    greedy = greedy_generate(tp, NANO, tenc, torch.tensor([3]),
+                             torch.from_numpy(mask), torch.from_numpy(mask),
+                             12, EOT)
+    _assert_equal_runs(got, want, greedy)
+    assert (got[2][:2] == 16).all() and got[1] > 3, (got[1], got[2])
+
+
 def test_a_row_that_ends_early_is_frozen_while_the_rest_goes_on(nano):
     """All but EOT and five tokens suppressed, so rows reach EOT at
     different rounds: a frozen row commits nothing more and pads with EOT

@@ -46,6 +46,9 @@ import time
 from pathlib import Path
 from typing import List, Optional
 
+from whisper_tpu_torch.utils.device import DEVICE_ENV  # noqa: F401
+from whisper_tpu_torch.utils.device import resolve_device as _device
+
 AUDIO_EXTS = (".wav", ".flac", ".mp3")
 PORTED_TRANSFERS = ("", "f32", "int16")
 
@@ -185,31 +188,6 @@ def list_audio_files(audio_dir: str, limit: int) -> List[str]:
     if limit > 0:
         files = files[:limit]
     return files
-
-
-DEVICE_ENV = "WHISPER_TPU_TORCH_DEVICE"
-
-
-def _device(device=None):
-    """The device of the run: ``device`` if given, else the environment
-    variable ``WHISPER_TPU_TORCH_DEVICE``, else the first CUDA card.  No
-    card and no request for the CPU exits: the CLI never carries on on the
-    CPU by itself."""
-    import torch
-
-    asked = device if device is not None else os.environ.get(DEVICE_ENV, "")
-    if asked:
-        dev = torch.device(asked)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            raise SystemExit(f"error: device {asked!r} was asked for and no "
-                             "CUDA card is present")
-        return dev
-    if not torch.cuda.is_available():
-        raise SystemExit(
-            "error: no CUDA card is present (torch.cuda.is_available() is "
-            f"false); to run on the CPU ask for it: {DEVICE_ENV}=cpu in the "
-            "environment, or main(argv, device='cpu')")
-    return torch.device("cuda")
 
 
 def _build_session(args, cfg, device):

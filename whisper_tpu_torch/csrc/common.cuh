@@ -8,6 +8,8 @@
 #include <cmath>
 #include <cstdint>
 #include <cfloat>
+#include <mutex>
+#include <unordered_map>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -45,12 +47,22 @@ __device__ __forceinline__ float block_reduce(float v, float* scratch,
   return r;
 }
 
-// Raises a kernel's dynamic shared memory limit to `bytes` once, not on
-// every call: `allowed` remembers the most set so far.
-inline cudaError_t allow_smem(const void* fn, size_t bytes, size_t& allowed) {
-  if (bytes <= allowed) return cudaSuccess;
+// Raises a kernel's dynamic shared memory limit to at least `bytes`, once
+// per new maximum, not on every call, and never lowers it.  Launches come
+// from several host threads at once (the serving engine's lanes), so the
+// most set so far for each kernel is kept under one lock: two threads that
+// both find the limit too small then leave it at the larger of their sizes
+// and never at the smaller, which would refuse the larger launch.  The
+// first call sets the limit even below 48 KB, since a kernel's static
+// shared memory counts against the 48 KB a launch gets unasked.
+inline cudaError_t allow_smem(const void* fn, size_t bytes) {
+  static std::mutex lock;
+  static std::unordered_map<const void*, size_t> allowed;
+  std::lock_guard<std::mutex> hold(lock);
+  const auto it = allowed.find(fn);
+  if (it != allowed.end() && bytes <= it->second) return cudaSuccess;
   const cudaError_t rc = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (rc == cudaSuccess) allowed = bytes;
+  if (rc == cudaSuccess) allowed[fn] = bytes;
   return rc;
 }

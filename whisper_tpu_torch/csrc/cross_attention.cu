@@ -193,9 +193,7 @@ WT_EXPORT int wt_cross_attend_step(const void* q, const void* k_scale,
                       sizeof(float) * ((size_t)n_own * CROSS_SEG +
                                        ((n_own + 1) & ~1)) + CROSS_SEG;
   if (smem > 48 * 1024) {
-    cudaError_t rc = cudaFuncSetAttribute(
-        (const void*)cross_step_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t rc = allow_smem((const void*)cross_step_kernel, smem);
     if (rc != cudaSuccess) return (int)rc;
   }
   cudaLaunchConfig_t cfg = {};

@@ -930,9 +930,7 @@ inline int cross_dequant_launch(Kernel kernel, const void* q,
   const int qmax = T < QC ? T : QC;
   const size_t smem = cross_dequant_smem(n_own, qmax, n_rank);
   if (smem > 48 * 1024) {
-    cudaError_t rc = cudaFuncSetAttribute(
-        (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    cudaError_t rc = allow_smem((const void*)kernel, smem);
     if (rc != cudaSuccess) return (int)rc;
   }
   cudaLaunchConfig_t cfg = {};

@@ -81,9 +81,7 @@ WT_EXPORT int wt_cross_attend_multi(const void* q, const void* k_scale,
   const int n_own = (n_seg + n_rank - 1) / n_rank;
   const size_t smem = cross_int8_smem(n_own, n_rank);
   if (smem > 48 * 1024) {
-    cudaError_t rc = cudaFuncSetAttribute(
-        (const void*)cross_multi_int8_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t rc = allow_smem((const void*)cross_multi_int8_kernel, smem);
     if (rc != cudaSuccess) return (int)rc;
   }
   cudaLaunchConfig_t cfg = {};

@@ -422,9 +422,6 @@ size_t ln_gemm_smem(int D, int NC) {
          (size_t)BLK_RT * (KR + 4) * 8 + (size_t)(wsplit + 1) * BLK_RT * NC * 8;
 }
 
-size_t ln_gemm_allowed = 0;   // set at the first call: past static memory
-size_t out_proj_allowed = 0;
-
 int sm_count() {
   static const int n = [] {
     int dev = 0, v = 0;
@@ -484,7 +481,7 @@ inline int launch_ln_gemm(const void* x, const void* ln, const void* w,
   while (nc > 8 && N / nc * BLK_RANKS * row_tiles < sm_count()) nc /= 2;
   const size_t smem = ln_gemm_smem(D, nc);
   const cudaError_t rc =
-      allow_smem((const void*)ln_gemm_kernel, smem, ln_gemm_allowed);
+      allow_smem((const void*)ln_gemm_kernel, smem);
   if (rc != cudaSuccess) return (int)rc;
   return launch_ex(ln_gemm_kernel, dim3(N / nc * BLK_RANKS, row_tiles),
                    BLK_GT, smem, s, (unsigned)BLK_RANKS, true,
@@ -506,7 +503,7 @@ inline int launch_out_proj(const void* ctx, const void* w, const void* bias,
                       (size_t)BLK_RT * (KQ + 8) * 2 +
                       (size_t)(BLK_GW + split) * OUT_TILE * 4;
   const cudaError_t rc =
-      allow_smem((const void*)out_proj_kernel, smem, out_proj_allowed);
+      allow_smem((const void*)out_proj_kernel, smem);
   if (rc != cudaSuccess) return (int)rc;
   return launch_ex(out_proj_kernel, dim3(D / OUT_NC * split, row_tiles),
                    BLK_GT, smem, s, (unsigned)split, true, (const bf16*)ctx,

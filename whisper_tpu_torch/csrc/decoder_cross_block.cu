@@ -226,8 +226,6 @@ cross_attn_kernel(const float* __restrict__ qbuf, const bf16* __restrict__ ck,
   }
 }
 
-size_t cross_allowed = 0;  // set at the first call: past static memory
-
 }  // namespace
 
 // qbuf: scratch of ceil(B / 16) * 16 rows of D floats; ctx: the same rows of
@@ -251,7 +249,7 @@ WT_EXPORT int wt_decoder_cross_block(const void* x, const void* ln,
   n_rank = n_rank < nblk ? n_rank : nblk;
   const size_t smem = (size_t)NW * 2 * KB_BYTES;
   const cudaError_t err =
-      allow_smem((const void*)cross_attn_kernel, smem, cross_allowed);
+      allow_smem((const void*)cross_attn_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   rc = launch_ex(cross_attn_kernel, dim3(n_rank, B * H), NT, smem, s,
                  (unsigned)n_rank, true, (const float*)qbuf,

@@ -276,8 +276,6 @@ size_t fc2_smem(int F) {
          (NW + SPLIT) * RT * NC * 4;
 }
 
-size_t fc1_allowed = 48 * 1024, fc2_allowed = 48 * 1024;
-
 }  // namespace
 
 // h: scratch of ceil(B / 16) * 16 rows of F bf16 values.  D a multiple of
@@ -291,9 +289,10 @@ WT_EXPORT int wt_decoder_mlp(const void* x, const void* ln, const void* w1,
   cudaStream_t s = (cudaStream_t)stream;
   const int row_tiles = (B + RT - 1) / RT;
   const size_t smem1 = fc1_smem(D), smem2 = fc2_smem(F);
-  cudaError_t rc = allow_smem((const void*)fc1_kernel, smem1, fc1_allowed);
+  cudaError_t rc = cudaSuccess;
+  if (smem1 > 48 * 1024) rc = allow_smem((const void*)fc1_kernel, smem1);
   if (rc != cudaSuccess) return (int)rc;
-  rc = allow_smem((const void*)fc2_kernel, smem2, fc2_allowed);
+  if (smem2 > 48 * 1024) rc = allow_smem((const void*)fc2_kernel, smem2);
   if (rc != cudaSuccess) return (int)rc;
   fc1_kernel<<<dim3(F / NC, row_tiles), NT, smem1, s>>>(
       (const bf16*)x, (const bf16*)ln, (const bf16*)w1, (const bf16*)b1,

@@ -138,8 +138,6 @@ self_attn_kernel(const float* __restrict__ qbuf, const bf16* __restrict__ ck,
   }
 }
 
-size_t attn_allowed = 0;   // set at the first call: past static memory
-
 }  // namespace
 
 // qbuf: scratch of ceil(B / 16) * 16 rows of D floats; ctx: the same rows of
@@ -164,7 +162,7 @@ WT_EXPORT int wt_decoder_self_block(const void* x, const void* ln,
   // shared memory for S rows, whatever `pos` turns out to be on the device
   const size_t smem = (size_t)S * (2 * DH * 2 + sizeof(float));
   const cudaError_t err =
-      allow_smem((const void*)self_attn_kernel, smem, attn_allowed);
+      allow_smem((const void*)self_attn_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   rc = launch_ex(self_attn_kernel, dim3(B * H), NT, smem, s, 1, true,
                  (const float*)qbuf, (const bf16*)cache_k,

@@ -181,11 +181,6 @@ self_step_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
   }
 }
 
-// The dynamic shared memory allowed so far; 0 sets the limit at the first
-// call, since the kernel's static shared memory counts against the 48 KB a
-// launch gets unasked (without it pos 183-186 failed to launch).
-size_t step_allowed = 0;
-
 }  // namespace
 
 // `pos_ptr`: one int32 in device memory that holds pos, or null, and then
@@ -201,7 +196,7 @@ WT_EXPORT int wt_self_attend_step(const void* q, const void* k_new,
   const int max_rows = pos_ptr ? S : pos + 1;
   const size_t smem = (size_t)max_rows * (2 * ROW_BYTES + 4 + 2) + 16;
   const cudaError_t rc =
-      allow_smem((const void*)self_step_kernel, smem, step_allowed);
+      allow_smem((const void*)self_step_kernel, smem);
   if (rc != cudaSuccess) return (int)rc;
   self_step_kernel<<<B * H, NT, smem, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k_new, (const bf16*)v_new, (bf16*)k_cache,

@@ -201,10 +201,6 @@ self_step_int8_kernel(const bf16* __restrict__ q,
         __float2bfloat16_rn(__fmul_rn((float)ctx, __fdiv_rn(ps, denom)));
 }
 
-// The dynamic shared memory allowed so far; 0 sets the limit at the first
-// call: the static shared memory counts against the 48 KB unasked.
-size_t step_allowed = 0;
-
 }  // namespace
 
 // `pos_ptr`: one int32 in device memory that holds pos, or null, and then
@@ -222,7 +218,7 @@ WT_EXPORT int wt_self_attend_step_int8(const void* q, const void* k_new,
   const int max_rows = pos_ptr ? S : pos + 1;
   const size_t smem = step_smem(max_rows);
   const cudaError_t rc =
-      allow_smem((const void*)self_step_int8_kernel, smem, step_allowed);
+      allow_smem((const void*)self_step_int8_kernel, smem);
   if (rc != cudaSuccess) return (int)rc;
   self_step_int8_kernel<<<B * H, NT, smem, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k_new, (const bf16*)v_new, (int8_t*)k_cache,

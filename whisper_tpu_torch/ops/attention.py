@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from whisper_tpu_torch.ops import kernels
-from whisper_tpu_torch.ops.common import check_operand, route
+from whisper_tpu_torch.ops.common import COUNT_LOCK, check_operand, route
 
 launches = 0  # kernel launches since the last reset (plain calls excluded)
 
@@ -49,5 +49,6 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor,
     kernels.check(lib.wt_fused_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, t,
         kernels.stream_ptr(q.device)), "fused_attention")
-    launches += 1
+    with COUNT_LOCK:
+        launches += 1
     return out

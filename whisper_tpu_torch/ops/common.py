@@ -6,7 +6,14 @@ its plain version must use this one definition.
 
 from __future__ import annotations
 
+import threading
+
 import torch
+
+# Held by every wrapper while it adds one to its launch counter: the serving
+# engine's lanes launch from several threads, and `+=` on a module global is
+# a read and a write that two threads can interleave.
+COUNT_LOCK = threading.Lock()
 
 SQRT_2_OVER_PI = 0.7978845608028654
 

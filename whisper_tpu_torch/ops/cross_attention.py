@@ -44,7 +44,12 @@ from __future__ import annotations
 import torch
 
 from whisper_tpu_torch.ops import kernels
-from whisper_tpu_torch.ops.common import check_operand, div127, route
+from whisper_tpu_torch.ops.common import (
+    COUNT_LOCK,
+    check_operand,
+    div127,
+    route,
+)
 
 launches = 0  # B4 kernel launches since the last reset (plain excluded)
 dequant_launches = 0  # B6 kernel launches since the last reset
@@ -128,7 +133,8 @@ def cross_attend_step(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
         q.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), k8.data_ptr(),
         v8.data_ptr(), out.data_ptr(), b, h, s_max, int(layer), int(s_valid),
         kernels.stream_ptr(q.device)), "cross_attend_step")
-    launches += 1
+    with COUNT_LOCK:
+        launches += 1
     return out
 
 
@@ -184,7 +190,8 @@ def cross_attend_step_dequant(q: torch.Tensor, k8: torch.Tensor,
         q.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), k8.data_ptr(),
         v8.data_ptr(), out.data_ptr(), b, h, s_max, int(layer), int(s_valid),
         kernels.stream_ptr(q.device)), "cross_attend_step_dequant")
-    dequant_launches += 1
+    with COUNT_LOCK:
+        dequant_launches += 1
     return out
 
 
@@ -243,5 +250,6 @@ def cross_attend_multi(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
         q.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), k8.data_ptr(),
         v8.data_ptr(), out.data_ptr(), *dims),
         "cross_attend_multi" if int8_mxu else "cross_attend_multi_dequant")
-    multi_launches += 1
+    with COUNT_LOCK:
+        multi_launches += 1
     return out

@@ -49,7 +49,12 @@ import torch
 
 from whisper_tpu_torch.models.registry import WhisperDims
 from whisper_tpu_torch.ops import kernels
-from whisper_tpu_torch.ops.common import SQRT_2_OVER_PI, check_operand, route
+from whisper_tpu_torch.ops.common import (
+    COUNT_LOCK,
+    SQRT_2_OVER_PI,
+    check_operand,
+    route,
+)
 
 LN_EPS = 1e-5
 ROW_TILE = 16   # the kernel pads the batch to tiles of 16 rows
@@ -115,7 +120,8 @@ def mlp_block(x: torch.Tensor, ln: torch.Tensor, w1: torch.Tensor,
         x.data_ptr(), ln.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), h.data_ptr(), out.data_ptr(), b, d, f,
         kernels.stream_ptr(x.device)), "mlp_block")
-    launches += 1
+    with COUNT_LOCK:
+        launches += 1
     return out
 
 
@@ -332,7 +338,8 @@ def self_attn_block(x: torch.Tensor, ln: torch.Tensor, qkv_w: torch.Tensor,
         cache_v.data_ptr(), qbuf.data_ptr(), ctx.data_ptr(), out.data_ptr(),
         b, d, heads, s_max, pos_int, pos_ptr, kernels.stream_ptr(x.device)),
         "self_attn_block")
-    self_block_launches += 1
+    with COUNT_LOCK:
+        self_block_launches += 1
     return out, cache_k, cache_v
 
 
@@ -390,7 +397,8 @@ def cross_attn_block(x: torch.Tensor, ln: torch.Tensor, q_w: torch.Tensor,
         o_w.data_ptr(), o_b.data_ptr(), cross_k.data_ptr(),
         cross_v.data_ptr(), qbuf.data_ptr(), ctx.data_ptr(), out.data_ptr(),
         b, d, heads, t, kernels.stream_ptr(x.device)), "cross_attn_block")
-    cross_block_launches += 1
+    with COUNT_LOCK:
+        cross_block_launches += 1
     return out
 
 

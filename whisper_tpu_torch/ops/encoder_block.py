@@ -42,7 +42,12 @@ from typing import Optional
 import torch
 
 from whisper_tpu_torch.ops import kernels
-from whisper_tpu_torch.ops.common import check_operand, gelu_tanh, route
+from whisper_tpu_torch.ops.common import (
+    COUNT_LOCK,
+    check_operand,
+    gelu_tanh,
+    route,
+)
 from whisper_tpu_torch.ops.encoder_mlp import F_CHUNK, KERNEL_WIDTHS, LN_EPS
 
 QKV_WIDTHS = KERNEL_WIDTHS              # B9a d_model instantiations (B2's)
@@ -151,7 +156,8 @@ def fused_ln_qkv(x: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor,
         x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), w_qkv.data_ptr(),
         b_qkv.data_ptr(), r.data_ptr(), out.data_ptr(), b * t, d, c,
         kernels.stream_ptr(x.device)), "fused_ln_qkv")
-    ln_qkv_launches += 1
+    with COUNT_LOCK:
+        ln_qkv_launches += 1
     return out
 
 
@@ -204,5 +210,6 @@ def fused_out_mlp(x: torch.Tensor, ctx: torch.Tensor, o_w: torch.Tensor,
         w2.data_ptr(), b2.data_ptr(), y32.data_ptr(), r.data_ptr(),
         h.data_ptr(), out.data_ptr(), b * t, d, f,
         kernels.stream_ptr(x.device)), "fused_out_mlp")
-    out_mlp_launches += 1
+    with COUNT_LOCK:
+        out_mlp_launches += 1
     return out

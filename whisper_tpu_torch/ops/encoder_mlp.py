@@ -22,7 +22,12 @@ from __future__ import annotations
 import torch
 
 from whisper_tpu_torch.ops import kernels
-from whisper_tpu_torch.ops.common import check_operand, gelu_tanh, route
+from whisper_tpu_torch.ops.common import (
+    COUNT_LOCK,
+    check_operand,
+    gelu_tanh,
+    route,
+)
 
 LN_EPS = 1e-5
 KERNEL_WIDTHS = (128, 384, 512, 768, 1024, 1280)  # d_model instantiations
@@ -73,5 +78,6 @@ def fused_encoder_mlp(x: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor,
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), r.data_ptr(),
         h.data_ptr(), out.data_ptr(), b * t, d, f,
         kernels.stream_ptr(x.device)), "fused_encoder_mlp")
-    launches += 1
+    with COUNT_LOCK:
+        launches += 1
     return out

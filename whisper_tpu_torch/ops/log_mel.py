@@ -30,7 +30,6 @@ Python thread, so the launch count is incremented under a lock.
 from __future__ import annotations
 
 import functools
-import threading
 
 import numpy as np
 import torch
@@ -44,14 +43,13 @@ from whisper_tpu_torch.frontend.mel import (
     normalize,
 )
 from whisper_tpu_torch.ops import kernels
-from whisper_tpu_torch.ops.common import check_operand, route
+from whisper_tpu_torch.ops.common import COUNT_LOCK, check_operand, route
 
 INT16_SCALE = float(np.float32(1.0 / 32767.0))  # decode_transfer's factor
 TILE_FRAMES = 8     # frames of one block of the spectrum kernel (its FT)
 MAX_MELS = 128      # what the spectrum kernel's staging holds (its MAX_MELS)
 
 launches = 0  # kernel launches since the last reset (plain calls excluded)
-_count_lock = threading.Lock()
 _tables: dict = {}  # (device, n_mels) -> the kernels' tables on the device
 
 
@@ -149,7 +147,7 @@ def _launch(padded_audio: torch.Tensor, n_mels: int, n_frames: int,
         bands.data_ptr(), weights.data_ptr(), out.data_ptr(),
         tile_max.data_ptr(), n_frames, valid, n_mels, INT16_SCALE,
         int(normalize), kernels.stream_ptr(dev)), "log_mel")
-    with _count_lock:
+    with COUNT_LOCK:
         launches += 1
     return out
 

@@ -42,7 +42,12 @@ from __future__ import annotations
 import torch
 
 from whisper_tpu_torch.ops import kernels
-from whisper_tpu_torch.ops.common import check_operand, div127, route
+from whisper_tpu_torch.ops.common import (
+    COUNT_LOCK,
+    check_operand,
+    div127,
+    route,
+)
 
 launches = 0  # B3 kernel launches since the last reset (plain excluded)
 int8_launches = 0  # B8 kernel launches since the last reset
@@ -134,8 +139,9 @@ def self_attend_step(q: torch.Tensor, k_new: torch.Tensor,
         None if pad_count is None else pad_count.data_ptr(), out.data_ptr(),
         b, h, s_max, int(layer), pos, pos_ptr,
         kernels.stream_ptr(q.device)), "self_attend_step")
-    launches += 1
-    padded_launches += pad_count is not None
+    with COUNT_LOCK:
+        launches += 1
+        padded_launches += pad_count is not None
     return out
 
 
@@ -234,6 +240,7 @@ def self_attend_step_int8(q: torch.Tensor, k_new: torch.Tensor,
         None if pad_count is None else pad_count.data_ptr(), out.data_ptr(),
         b, h, s_max, int(layer), pos, pos_ptr, kernels.stream_ptr(q.device)),
         "self_attend_step_int8")
-    int8_launches += 1
-    int8_padded_launches += pad_count is not None
+    with COUNT_LOCK:
+        int8_launches += 1
+        int8_padded_launches += pad_count is not None
     return out

@@ -21,9 +21,14 @@ decoding (``transcribe_from_mel(speculative=True)``,
 step runs B4 or B6).  Left-padded conditioned prompts (``pad_count``) run
 through the prefill and every step, B3 and B8 included, and
 ``alignment_weights`` gives the cross-attention of a teacher-forced pass
-for word timings.  What the port does not carry (meshes, the wire
-encodings) raises ``NotImplementedError`` naming its ROADMAP item; nothing
-silently takes another path.
+for word timings.  The serving engine's short path,
+``transcribe_short_batch`` and ``transcribe_short_speculative`` (and their
+``_async`` forms, which leave the tokens on the device), runs a batch of
+reflect-padded utterances of at most 30 s through the plain mel, the
+encoder and greedy or speculative decoding; ``transcribe_chunks`` and
+``warmup`` take host mel chunks.  What the port does not carry (meshes, the
+wire encodings) raises ``NotImplementedError`` naming its ROADMAP item;
+nothing silently takes another path.
 """
 
 from __future__ import annotations
@@ -429,9 +434,10 @@ class WhisperSession:
                 pads = torch.full((bucket,), int(pad_count),
                                   dtype=torch.int32, device=self.device)
             if speculative:
-                result = self._speculative_tokens(
+                result, stats = self._speculative_tokens(
                     chunks, enc, prompt_t, base_mask, first_mask,
                     max_new_tokens, eot_id, draft_k)
+                self.speculative_stats.append(stats)
             elif num_beams > 1:
                 from whisper_tpu_torch.runtime.beam import beam_generate
 
@@ -447,22 +453,119 @@ class WhisperSession:
                 if temperature > 0.0:
                     gen = torch.Generator(device=self.device)
                     gen.manual_seed(seed * 100003 + start)
-                result = greedy_generate(
-                    self._decoder_params, self.dims, enc, prompt_t,
-                    base_mask, first_mask, max_new_tokens=max_new_tokens,
-                    eot_id=eot_id, ts_cfg=ts_cfg,
-                    int8_cross_kv=self.cfg.int8_kv_cache,
-                    kernel_step=self._kernel_step, int8_mxu=self._int8_mxu,
-                    int8_self=self._int8_self,
-                    # conditioned programs never take the hybrid step,
-                    # which has no pad mask (the JAX session's rule)
-                    step_weights=None if pads is not None
-                    else self._step_weights,
-                    temperature=temperature, generator=gen,
-                    return_logprobs=with_scores, pad_count=pads)
+                result = self._greedy(enc, prompt_t, base_mask, first_mask,
+                                      max_new_tokens, eot_id, ts_cfg=ts_cfg,
+                                      temperature=temperature, generator=gen,
+                                      with_scores=with_scores, pads=pads)
             pieces.append((result, start, n))
             start += n
         return pieces
+
+    def _greedy(self, enc, prompt_t, base_mask, first_mask,
+                max_new_tokens: int, eot_id: int, *, ts_cfg=None,
+                temperature: float = 0.0, generator=None,
+                with_scores: bool = False, pads=None):
+        """``greedy_generate`` over encoder states with the session's
+        rung: its kernels, its cross cache and its step."""
+        return greedy_generate(
+            self._decoder_params, self.dims, enc, prompt_t, base_mask,
+            first_mask, max_new_tokens=max_new_tokens, eot_id=eot_id,
+            ts_cfg=ts_cfg, int8_cross_kv=self.cfg.int8_kv_cache,
+            kernel_step=self._kernel_step, int8_mxu=self._int8_mxu,
+            int8_self=self._int8_self,
+            # conditioned programs never take the hybrid step, which has no
+            # pad mask (the JAX session's rule)
+            step_weights=None if pads is not None else self._step_weights,
+            temperature=temperature, generator=generator,
+            return_logprobs=with_scores, pad_count=pads)
+
+    # -- short-utterance batch (serving fast path) --------------------------
+
+    def _short_mel(self, padded_audio: np.ndarray,
+                   n_valid_frames: np.ndarray) -> torch.Tensor:
+        """The mel [B, n_mels, 3000] of a batch of reflect-padded rows of
+        at most 30 s: the rows uploaded wire-encoded and decoded on the
+        device, then given their zero tail up to the full window (the
+        engine's trimmed uploads ship them shorter) or cut back to it, as
+        the JAX program does after its wire decode, and each row's plain
+        log-mel over its own valid frames.  The one-shot kernel B5 is not
+        on this path: the JAX short program calls ``log_mel_jax`` whatever
+        ``fused_frontend`` says."""
+        from whisper_tpu_torch.frontend.mel import (
+            decode_transfer,
+            log_mel_torch,
+        )
+        from whisper_tpu_torch.pipeline.chunk import CHUNK_FRAMES
+
+        full = CHUNK_FRAMES * 160 + 400
+        audio = decode_transfer(self._upload(self._encode_transfer(
+            np.asarray(padded_audio))))
+        short = full - audio.shape[-1]
+        if short > 0:
+            audio = F.pad(audio, (0, short))
+        elif short < 0:
+            audio = audio[..., :full]
+        n_valid = np.asarray(n_valid_frames).astype(np.int64)
+        return torch.stack([
+            log_mel_torch(row, int(nv), n_mels=self.dims.n_mels,
+                          n_frames=CHUNK_FRAMES)
+            for row, nv in zip(audio, n_valid)])
+
+    def _short_inputs(self, padded_audio, n_valid_frames, prompt,
+                      suppress_ids, begin_suppress_ids):
+        mel = self._short_mel(padded_audio, n_valid_frames)
+        prompt_t = torch.as_tensor(np.asarray(prompt, dtype=np.int64),
+                                   device=self.device)
+        return (mel, prompt_t) + tuple(self._get_masks(suppress_ids,
+                                                       begin_suppress_ids))
+
+    def transcribe_short_batch(
+        self,
+        padded_audio: np.ndarray,        # [B, L] reflect-padded, <=30s each
+        n_valid_frames: np.ndarray,      # [B] true frame counts
+        prompt: Sequence[int],
+        max_new_tokens: int,
+        eot_id: int,
+        suppress_ids: Sequence[int] | None = None,
+        begin_suppress_ids: Sequence[int] | None = None,
+        ts_cfg=None,
+    ) -> np.ndarray:
+        """A batch of short utterances through mel, encoder and greedy
+        decoding (the continuous-batching serving path): tokens [B,
+        max_new_tokens] int32."""
+        return self.transcribe_short_batch_async(
+            padded_audio, n_valid_frames, prompt, max_new_tokens, eot_id,
+            suppress_ids, begin_suppress_ids, ts_cfg,
+        ).cpu().numpy().astype(np.int32)
+
+    def transcribe_short_batch_async(
+        self,
+        padded_audio: np.ndarray,
+        n_valid_frames: np.ndarray,
+        prompt: Sequence[int],
+        max_new_tokens: int,
+        eot_id: int,
+        suppress_ids: Sequence[int] | None = None,
+        begin_suppress_ids: Sequence[int] | None = None,
+        ts_cfg=None,
+    ) -> torch.Tensor:
+        """transcribe_short_batch without the copy to the host: the tokens
+        [B, max_new_tokens] as a tensor on the session's device.
+
+        Rows may be shipped shorter than the 30 s window
+        (``serve/engine.py``'s trimmed uploads); the zero tail is made on
+        the device after the wire decode.  Unlike the JAX program this
+        returns only after the decode loop has run: the greedy loop reads
+        ``bool(done.all())`` on the host every step
+        (``runtime/generate.py``), so the engine's tick pipeline overlaps a
+        tick's copy to the host with the next tick's work and little else
+        (ROADMAP queue 1 item 4(a))."""
+        mel, prompt_t, base_mask, first_mask = self._short_inputs(
+            padded_audio, n_valid_frames, prompt, suppress_ids,
+            begin_suppress_ids)
+        return self._greedy(self.encoder(mel), prompt_t, base_mask,
+                            first_mask, max_new_tokens, eot_id,
+                            ts_cfg=ts_cfg)
 
     # -- word alignment --------------------------------------------------------
 
@@ -549,11 +652,57 @@ class WhisperSession:
     def has_draft(self) -> bool:
         return self._draft is not None
 
+    def transcribe_short_speculative(
+        self,
+        padded_audio: np.ndarray,     # [B, L] reflect-padded, <=30s
+        n_valid_frames: np.ndarray,   # [B]
+        prompt: Sequence[int],
+        max_new_tokens: int,
+        eot_id: int,
+        suppress_ids: Sequence[int] | None = None,
+        begin_suppress_ids: Sequence[int] | None = None,
+        draft_k: int = 4,
+    ) -> np.ndarray:
+        """The short batch of ``transcribe_short_batch`` decoded by
+        draft-and-verify with the attached draft (``set_draft_model``):
+        tokens [B, max_new_tokens] int32, the greedy tokens at the
+        session's precision and cross-KV quantization."""
+        return self.transcribe_short_speculative_async(
+            padded_audio, n_valid_frames, prompt, max_new_tokens, eot_id,
+            suppress_ids, begin_suppress_ids, draft_k,
+        ).cpu().numpy().astype(np.int32)
+
+    def transcribe_short_speculative_async(
+        self,
+        padded_audio: np.ndarray,
+        n_valid_frames: np.ndarray,
+        prompt: Sequence[int],
+        max_new_tokens: int,
+        eot_id: int,
+        suppress_ids: Sequence[int] | None = None,
+        begin_suppress_ids: Sequence[int] | None = None,
+        draft_k: int = 4,
+    ) -> torch.Tensor:
+        """transcribe_short_speculative without the copy to the host (the
+        serving tick's speculative leg): the main encoder, the draft's own
+        or with ``share_encoder`` the main one's states, then
+        ``speculative_generate`` (its verify pass through B7).  Returns
+        after the loop, as ``transcribe_short_batch_async`` does."""
+        if not self.has_draft:
+            raise RuntimeError("no draft model attached (set_draft_model)")
+        mel, prompt_t, base_mask, first_mask = self._short_inputs(
+            padded_audio, n_valid_frames, prompt, suppress_ids,
+            begin_suppress_ids)
+        toks, _ = self._speculative_tokens(
+            mel, self.encoder(mel), prompt_t, base_mask, first_mask,
+            max_new_tokens, eot_id, draft_k)
+        return toks
+
     def _speculative_tokens(self, chunks, enc, prompt_t, base_mask,
                             first_mask, max_new_tokens: int, eot_id: int,
-                            draft_k: int) -> torch.Tensor:
-        """Draft-and-verify over one chunk batch: device tokens [B,
-        max_new_tokens].  The cross caches follow cfg.int8_kv_cache and the
+                            draft_k: int):
+        """Draft-and-verify over one chunk batch: (device tokens [B,
+        max_new_tokens], (verify rounds, committed tokens [B])).  The cross caches follow cfg.int8_kv_cache and the
         kernels the session's rung: the draft's steps through B4/B6, the
         verify pass through B7."""
         from whisper_tpu_torch.runtime.speculative import speculative_generate
@@ -568,8 +717,50 @@ class WhisperSession:
             int8_cross_kv=self.cfg.int8_kv_cache, packed_draft=packed,
             packed_main=packed,
             int8_mxu=bool(self.cfg.int8_mxu_attn and packed))
-        self.speculative_stats.append((rounds, n_committed))
-        return toks
+        return toks, (rounds, n_committed)
+
+    # -- mel chunks -> tokens -------------------------------------------------
+
+    def transcribe_chunks(
+        self,
+        mel_chunks: np.ndarray,          # [C, n_mels, 3000]
+        prompt: Sequence[int],
+        max_new_tokens: int,
+        eot_id: int,
+        suppress_ids: Sequence[int] | None = None,
+        begin_suppress_ids: Sequence[int] | None = None,
+    ) -> np.ndarray:
+        """Transcribe C host mel chunks: tokens [C, max_new_tokens] int32.
+        Chunks run in power-of-two buckets capped at max_batch, the padding
+        rows all zeros, as in the JAX session."""
+        from whisper_tpu_torch.pipeline.chunk import CHUNK_FRAMES
+
+        c, n_mels, n_frames = mel_chunks.shape
+        if n_frames != CHUNK_FRAMES:
+            raise ValueError(f"mel chunks of {n_frames} frames, expected "
+                             f"{CHUNK_FRAMES}")
+        # Side by side on the frame axis, each chunk is the slice at its
+        # own start; transcribe_from_mel's padding rows slice zeros.
+        mel = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(mel_chunks, dtype=np.float32).transpose(1, 0, 2)
+        ).reshape(n_mels, c * CHUNK_FRAMES)).to(self.device)
+        return self.transcribe_from_mel(
+            mel, [i * CHUNK_FRAMES for i in range(c)], prompt,
+            max_new_tokens, eot_id, suppress_ids, begin_suppress_ids)
+
+    def warmup(self, n_chunks: int, prompt: Sequence[int],
+               max_new_tokens: int, eot_id: int) -> None:
+        """Run the bucket that ``n_chunks`` lands in once on zeros.  There
+        is nothing to compile: the first run builds the kernels (at first
+        use), creates the libraries' handles and fills the allocator's
+        cache at the bucket's sizes."""
+        from whisper_tpu_torch.pipeline.chunk import CHUNK_FRAMES
+
+        bucket = _bucket_batch(min(n_chunks, self.cfg.max_batch),
+                               self.cfg.max_batch)
+        mel = np.zeros((bucket, self.dims.n_mels, CHUNK_FRAMES),
+                       dtype=np.float32)
+        self.transcribe_chunks(mel, prompt, max_new_tokens, eot_id)
 
     @staticmethod
     def gather_tokens(pieces, c: int, max_new_tokens: int,

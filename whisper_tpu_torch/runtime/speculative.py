@@ -128,7 +128,11 @@ def speculative_generate(params, dims: WhisperDims, draft_params,
     done = first == eot_id
     rounds = 0
     while not bool(done.all()):            # the round's one host sync
-        pos = p + n_gen - 1                # [B] position of each row's `last`
+        # [B] position of each row's `last`.  A row frozen by length may
+        # have overrun max_new_tokens by up to draft_k; its steps are still
+        # computed and discarded, and must write inside the cache (the JAX
+        # package's dynamic slices clamp them there).
+        pos = p + torch.clamp_max(n_gen, max_new_tokens - 1) - 1
 
         # --- the draft proposes draft_k tokens per row ---
         d_last = last
