@@ -139,6 +139,24 @@ What it does, in order (any failure raises and exits non-zero):
    and ``serve_bench``'s 64 streams of 30 s, three times (aggregate x real
    time, p50, p95); then the card test of two threads launching B3 and B8
    across 48 KB at once, in a fresh process.
+7e. The pipelined long-form mode and the last user tools
+   (``check_pipelined``, ``[pipelined]`` lines), whisper-base, 128 tokens:
+   (a) the same file at x5 through ``transcribe_longform_pipelined`` at
+   ``slab_chunks`` 4 and 16 (per-chunk mel normalization, slab by slab),
+   B1, B2, B3 and B4 launched and B5 not, the rows of slab 4 against slab
+   16's with every first divergence a tie-flip by ``divergence_report`` on
+   the chunk-normalized windows; (b) ``chunk_norm_window`` on the card
+   against numpy on the host (atol 1e-6), a ragged bucket's padding rows
+   all zeros; (c) speculative over pipelined with the model's own int8
+   weights as draft (B7), against greedy pipelined; (d) ``save_params`` /
+   ``load_params`` of whisper-base value for value without the
+   ``safetensors`` package, the CLI from that dir at x5 and from its
+   ``quantize_model_dir`` copy at int8 (B6), each text the in-memory
+   session's; (e) ``bench.discover`` over x4, x5 and x7 on 60 s, then the
+   CLI with its JSON; (f) the CLI with ``--longform-mode pipelined`` over
+   the four CLI files, plain and with ``--word-timestamps --language
+   auto``, then ``results.summarize`` and ``results.accumulate`` over its
+   output.
 8. The fully fused decode step (``decoder_step_fused``: B10a, B10b, B10c per
    layer) for 127 steps from a bf16 prefill at bucket 16: the first step's
    logits within 5e-2 of ``decoder_step`` on the same cache, finite tokens
@@ -167,6 +185,7 @@ What it does, in order (any failure raises and exits non-zero):
 
 from __future__ import annotations
 
+import csv
 import itertools
 import json
 import os
@@ -3048,6 +3067,342 @@ def check_serve(card: str, results, params, dims) -> None:
     print(f"[serve] phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+def _pipelined_windows(session, audio, slab_chunks: int):
+    """The pipelined mode's front end replayed on its own: per slab
+    of ``pipelined._slab_plan`` its raw log-spec on the card, and each
+    chunk's normalized window (``session.chunk_norm_window``).  Returns
+    (raw slabs, [(n_valid, local starts)], windows [n_chunks] of
+    [n_mels, 3000])."""
+    from whisper_tpu_torch.frontend import golden
+    from whisper_tpu_torch.frontend.mel import log_spec_slab
+    from whisper_tpu_torch.pipeline import pipelined
+    from whisper_tpu_torch.pipeline.chunk import chunk_starts
+
+    padded = golden.reflect_pad(audio)
+    total = golden.num_frames(len(audio))
+    starts = [p // golden.HOP for p in chunk_starts(len(audio), 480_000,
+                                                    400_000)]
+    cap, plan = pipelined._slab_plan(starts, total, slab_chunks)
+    slabs, geometry, windows = [], [], []
+    for f0, n_valid, local in plan:
+        enc = session._upload(session.encode_host_slab(
+            padded, f0 * golden.HOP, (cap + 2) * golden.HOP))
+        ls, _ = log_spec_slab(enc, n_valid, n_mels=session.dims.n_mels,
+                              n_frames=cap)
+        slabs.append(ls)
+        geometry.append((n_valid, local))
+        windows += [session.chunk_norm_window(ls, s, n_valid) for s in local]
+    return slabs, geometry, windows
+
+
+def check_pipelined(card: str, results, params, dims, audio) -> dict:
+    """The pipelined long-form mode at whisper-base, 128 tokens
+    (``[pipelined]`` lines): (a) the 301.574 s file at x5 through
+    ``transcribe_longform_pipelined`` at ``slab_chunks`` 4 and 16, a
+    warm-up and a run each, counts set to 0 just before the run and read
+    just after: B1, B2, B3 and B4 launched, B5 not (the slab front end is
+    the plain ``log_spec_slab``, as in JAX); the rows of slab 4 against
+    slab 16's, every first divergence judged by ``divergence_report`` on the
+    chunk-normalized windows (one that is not a tie-flip fails); (b)
+    ``chunk_norm_window`` on the card against a numpy evaluation of the
+    same raw slab copied to the host at frame 0, mid-file and n_valid - 100
+    (atol 1e-6), and ``chunk_norm`` on a ragged bucket's padding rows (all
+    zeros, finite); (c) speculative over pipelined, x5 with its own int8
+    weights as draft: B7 launched, rows against greedy pipelined's, every
+    divergence a tie-flip; (d) the converter with neither jax nor the
+    ``safetensors`` package: ``save_params`` then ``load_params`` value for
+    value, the CLI at x5 from that dir on the 4 s file with the in-memory
+    session's text, ``quantize_model_dir`` and the CLI ``--variant int8``
+    from the int8 dir with the text of a session that quantizes in memory,
+    B6 launched; (e) ``bench.discover`` on 60 s of synthetic audio over x4,
+    x5 and x7 with one run each, then the CLI with its JSON, the winner's
+    kernels launched; (f) the CLI with ``--longform-mode pipelined`` over
+    ``check_cli``'s four files at x5, plain and with ``--word-timestamps
+    --language auto``, then ``results.summarize`` and
+    ``results.accumulate`` over its output (one timed summary row).
+    Returns the launch counts of (a) at slab 4."""
+    import numpy as np
+    import torch
+
+    from whisper_tpu_torch.audio.io import load_audio_16k_mono
+    from whisper_tpu_torch.bench import discover
+    from whisper_tpu_torch.bench.cli import main as cli_main
+    from whisper_tpu_torch.headline import make_session
+    from whisper_tpu_torch.models import convert
+    from whisper_tpu_torch.pipeline.chunk import CHUNK_FRAMES
+    from whisper_tpu_torch.pipeline.longform import transcribe_longform
+    from whisper_tpu_torch.pipeline.pipelined import (
+        transcribe_longform_pipelined,
+    )
+    from whisper_tpu_torch.results import accumulate, summarize
+    from whisper_tpu_torch.runtime.session import chunk_norm
+    from whisper_tpu_torch.tokenizer.specials import special_tokens
+    from whisper_tpu_torch.variants.quant import quantize_params
+    from whisper_tpu_torch.variants.quantize_int8 import quantize_model_dir
+
+    t_phase = time.perf_counter()
+    special = special_tokens("en", "transcribe", None)
+    prompt = [special.sot, special.lang, special.task, special.no_timestamps]
+    eot = special.eot
+    session = make_session("cuda", params, "x5")
+
+    def run(slab: int, **kw):
+        """A warm-up, then one run with the counts zeroed before it and
+        read after: (e2e s, Timing, rows [chunks, 128] as the mode copied
+        them to the host, counts)."""
+        rows = []
+
+        def gather(pieces, c, max_new, with_scores=False):
+            out = type(session).gather_tokens(pieces, c, max_new,
+                                              with_scores)
+            rows.append(out)
+            return out
+
+        session.gather_tokens = gather
+        try:
+            transcribe_longform_pipelined(session, audio, "en", "transcribe",
+                                          128, slab_chunks=slab, **kw)
+            rows.clear()
+            _zero_counts(results)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, timing = transcribe_longform_pipelined(
+                session, audio, "en", "transcribe", 128, slab_chunks=slab,
+                **kw)
+            e2e = time.perf_counter() - t0
+            c = _counts(results)
+        finally:
+            del session.gather_tokens
+        return e2e, timing, np.concatenate(rows), c
+
+    def judged(ref_rows, var_rows, windows, label):
+        mel = torch.cat(windows, dim=1)
+        n_div, flips, _, margin, bad = _judge(
+            session, session, mel,
+            [(i * CHUNK_FRAMES, prompt) for i in range(len(windows))],
+            ref_rows, var_rows, eot, label)
+        if bad:
+            raise AssertionError(f"{label}: a divergence that is not a "
+                                 f"tie-flip: {bad}")
+        same = sum(bool((a == b).all()) for a, b in zip(ref_rows, var_rows))
+        return (f"{same} of {len(ref_rows)} rows equal, {n_div} divergences, "
+                f"{flips} tie-flips")
+
+    # (a) slab 4 against slab 16
+    need = ("fused_attention", "fused_encoder_mlp", "self_attend_step",
+            "cross_attend_step")
+    runs = {}
+    for slab in (4, 16):
+        runs[slab] = run(slab)
+        e2e, t, rows, c = runs[slab]
+        if any(c[n] == 0 for n in need) or c["log_mel"]:
+            raise AssertionError(f"(a) slab {slab}: launches {c}")
+        if rows.shape != (12, 128) or not (
+                (rows >= 0) & (rows < dims.vocab_size)).all():
+            raise AssertionError(f"(a) slab {slab}: rows {rows.shape}")
+    slabs, geometry, windows16 = _pipelined_windows(session, audio, 16)
+    verdict = judged(runs[16][2], runs[4][2], windows16,
+                     "(a) slab 4 against slab 16")
+    for slab in (4, 16):
+        e2e, t, _, c = runs[slab]
+        print(f"[pipelined] (a) whisper-base x5, 301.574 s, slab_chunks "
+              f"{slab}, on {card}: e2e {e2e:.4f} s, preprocess "
+              f"{t.preprocess_s:.4f} s, model {t.model_only_s:.4f} s, decode "
+              f"{t.decode_s:.4f} s; launches {c}", flush=True)
+    print(f"[pipelined] (a) slab 4 against slab 16: {verdict}", flush=True)
+
+    # (b) the normalized window on the card against numpy on the host, on
+    # slab 16's one raw slab (the whole file)
+    raw, (n_valid, _) = slabs[0], geometry[0]
+    host = raw.float().cpu().numpy()
+    worst = 0.0
+    for start in (0, n_valid // 2, n_valid - 100):
+        win = np.zeros((dims.n_mels, CHUNK_FRAMES), np.float32)
+        avail = max(0, min(start + CHUNK_FRAMES, n_valid) - start)
+        win[:, :avail] = host[:, start:start + avail]
+        mask = start + np.arange(CHUNK_FRAMES) < n_valid
+        win = (np.maximum(win, win[:, mask].max() - np.float32(8.0))
+               + np.float32(4.0)) / np.float32(4.0)
+        win[:, ~mask] = 0.0
+        got = session.chunk_norm_window(raw, start, n_valid).cpu().numpy()
+        worst = max(worst, float(np.abs(got - win).max()))
+    width = raw.shape[1]
+    mel_pad = torch.nn.functional.pad(raw, (0, CHUNK_FRAMES))
+    starts = [0, n_valid // 2, width, width]
+    bucket = chunk_norm(torch.stack([mel_pad[:, s:s + CHUNK_FRAMES]
+                                     for s in starts]), starts, n_valid)
+    if worst > 1e-6 or not torch.isfinite(bucket).all() \
+            or (bucket[2:] != 0).any():
+        raise AssertionError(f"(b) chunk_norm_window: {worst:.3g} from "
+                             "numpy, or padding rows not zeros")
+    print(f"[pipelined] (b) chunk_norm_window on {card} against numpy on "
+          f"the host at frames 0, {n_valid // 2}, {n_valid - 100} of "
+          f"{n_valid}: max diff {worst:.3g} (atol 1e-6); a bucket of 4 with "
+          "2 padding rows: padding rows all zeros, finite", flush=True)
+
+    # (c) speculative over pipelined: its own int8 weights as draft
+    session.set_draft_model(quantize_params(params), dims, share_encoder=True)
+    try:
+        e2e, t, spec_rows, c = run(4, speculative=True, draft_k=4)
+    finally:
+        session._draft = None
+    if c["cross_attend_multi"] == 0 or c["log_mel"]:
+        raise AssertionError(f"(c) speculative pipelined: launches {c}")
+    _, _, windows4 = _pipelined_windows(session, audio, 4)
+    verdict = judged(runs[4][2], spec_rows, windows4,
+                     "(c) speculative against greedy, slab 4")
+    print(f"[pipelined] (c) speculative x5 over pipelined, slab 4, own int8 "
+          f"weights as draft, on {card}: e2e {e2e:.4f} s, model "
+          f"{t.model_only_s:.4f} s; against greedy pipelined: {verdict}; "
+          f"launches {c}", flush=True)
+
+    saved_hf = os.environ.get("HF_HOME")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["HF_HOME"] = os.path.join(tmp, "hf")
+        audio_dir = os.path.join(tmp, "audio")
+        one_dir = os.path.join(tmp, "one")
+        for d in (audio_dir, one_dir):
+            os.makedirs(d)
+        for name, secs, sr, ch in CLI_FILES:
+            _write_wav(os.path.join(audio_dir, name), secs, sr, ch)
+        _write_wav(os.path.join(one_dir, CLI_FILES[0][0]), *CLI_FILES[0][1:])
+        one_audio = load_audio_16k_mono(
+            os.path.join(one_dir, CLI_FILES[0][0]))[0]
+
+        def cli(label, directory, *args):
+            out = os.path.join(tmp, "out", label)
+            _zero_counts(results)
+            t0 = time.perf_counter()
+            rc = cli_main(["--audio-dir", directory, "--model-id",
+                           "openai/whisper-base", "--max-new-tokens", "128",
+                           "--out-csv", f"{out}/inference_per_file.csv",
+                           "--out-json", f"{out}/inference_per_file.json",
+                           "--out-summary-json",
+                           f"{out}/inference_summary.json", *args])
+            wall = time.perf_counter() - t0
+            c = _counts(results)
+            rows = json.load(open(f"{out}/inference_per_file.json"))
+            if rc != 0 or len(rows) != len(os.listdir(directory)):
+                raise AssertionError(f"{label}: rc {rc}, {len(rows)} rows")
+            return rows, c, wall, out
+
+        # (d) the converter and the int8 quantizer
+        t0 = time.perf_counter()
+        model_dir = os.path.join(tmp, "whisper-base")
+        convert.save_params(params, dims, model_dir,
+                            {"model_id": "openai/whisper-base"})
+        back, dims2 = convert.load_params(model_dir)
+        flat, flat_back = convert._flatten(params), convert._flatten(back)
+        if dims2 != dims or sorted(flat) != sorted(flat_back) or not all(
+                np.array_equal(flat[k], flat_back[k]) for k in flat):
+            raise AssertionError("(d) load_params(save_params(x)) != x")
+        int8_dir = quantize_model_dir(model_dir)
+        qback, _ = convert.load_params(int8_dir)
+        qflat, qwant = convert._flatten(qback), convert._flatten(
+            quantize_params(params))
+        if sorted(qflat) != sorted(qwant) or not all(
+                np.array_equal(qflat[k], qwant[k]) for k in qwant):
+            raise AssertionError("(d) the int8 dir is not quantize_params")
+        t_files = time.perf_counter() - t0
+        if "safetensors" in sys.modules or "jax" in sys.modules:
+            raise AssertionError("(d) safetensors or jax was imported")
+        rows, c5, w5, _ = cli("from-dir-x5", one_dir, "--onnx-dir",
+                              model_dir, "--variant", "x5")
+        want, _ = transcribe_longform(session, one_audio, "en", "transcribe",
+                                      128)
+        if rows[0]["text"] != want:
+            raise AssertionError("(d) the CLI from the model dir gives other "
+                                 "tokens than the in-memory session")
+        rows, c4, w4, _ = cli("from-dir-int8", one_dir, "--onnx-dir",
+                              int8_dir, "--variant", "int8")
+        want, _ = transcribe_longform(make_session("cuda", params, "x4"),
+                                      one_audio, "en", "transcribe", 128)
+        if rows[0]["text"] != want or c4["cross_attend_step_dequant"] == 0:
+            raise AssertionError(f"(d) the CLI from the int8 dir: launches "
+                                 f"{c4}, or other tokens than a session "
+                                 "that quantizes in memory")
+        print(f"[pipelined] (d) converter on {card}'s machine (no jax, no "
+              f"safetensors): whisper-base written, read back value for "
+              f"value and quantized in {t_files:.1f} s; the CLI from the dir "
+              f"at x5 ({w5:.1f} s) and from the int8 dir at int8 "
+              f"({w4:.1f} s) on the 4 s file: text equal to the in-memory "
+              f"sessions'; launches int8 {c4}", flush=True)
+
+        # (e) the discovery tuner, then the CLI with its JSON
+        best = os.path.join(tmp, "best.json")
+        t0 = time.perf_counter()
+        if discover.main(["--synthetic-s", "60", "--variants", "x4,x5,x7",
+                          "--runs", "1", "--out", best]) != 0:
+            raise AssertionError("(e) discover failed")
+        t_disc = time.perf_counter() - t0
+        found = json.load(open(best))
+        winner = found["sweep"][0]["variant"]
+        _, c, _, _ = cli("discovered", one_dir, "--allow-random-init",
+                         "--discovery-best-json", best)
+        step = {"x4": "cross_attend_step_dequant", "x5": "cross_attend_step",
+                "x7": "self_attend_step_int8"}[winner]
+        if c[step] == 0 or c["fused_attention"] == 0:
+            raise AssertionError(f"(e) the CLI with the {winner} JSON: "
+                                 f"launches {c}")
+        print(f"[pipelined] (e) discover, 60 s synthetic, x4/x5/x7, one run "
+              f"each, on {card}: {t_disc:.1f} s; sweep "
+              + ", ".join(f"{r['variant']} {r['e2e_s']:.4f} s"
+                          for r in found["sweep"])
+              + f"; the CLI with its JSON ran {winner}: launches {c}",
+              flush=True)
+
+        # (f) the CLI in the pipelined mode, then the results tools
+        res = os.path.join(tmp, "out")
+        rows, c, wall, out = cli("whisper_tpu_torch_x5", audio_dir,
+                                 "--allow-random-init", "--variant", "x5",
+                                 "--longform-mode", "pipelined",
+                                 "--warmup", "1")
+        if any(c[n] == 0 for n in need) or c["log_mel"]:
+            raise AssertionError(f"(f) CLI pipelined: launches {c}")
+        e2e = [r["end_to_end_s"] for r in rows]
+        wrows, wc, wwall, _ = cli("pipelined-words", audio_dir,
+                                  "--allow-random-init", "--variant", "x5",
+                                  "--longform-mode", "pipelined",
+                                  "--word-timestamps", "--language", "auto")
+        n_words = sum(len(r.get("words") or []) for r in wrows)
+        if not all("words" in r for r in wrows) or wc["log_mel"]:
+            raise AssertionError(f"(f) CLI pipelined with words: launches "
+                                 f"{wc}")
+        if summarize.main(["--results-dir", res]) != 0:
+            raise AssertionError("(f) results.summarize failed")
+        table = list(csv.DictReader(open(os.path.join(
+            res, "summary_table.csv"))))
+        timed = [r for r in table if r["time_s"]]
+        if [r["implementation"] for r in timed] != [
+                "whisper-tpu-torch (int8 x int8)"]:
+            raise AssertionError(f"(f) summary rows with a time: {timed}")
+        if accumulate.main([
+                "--results-md", os.path.join(tmp, "RESULTS.md"),
+                "--summary-table", os.path.join(res, "summary_table.md"),
+                "--summary-csv", os.path.join(res, "summary_table.csv"),
+                "--sut-name", "h100", "--core-count",
+                str(os.cpu_count() or 1), "--memory-gb", "80",
+                "--results-csv", os.path.join(tmp, "RESULTS.csv")]) != 0:
+            raise AssertionError("(f) results.accumulate failed")
+        hist = list(csv.DictReader(open(os.path.join(tmp, "RESULTS.csv"))))
+        if [r["time_s"] for r in hist if r["time_s"]] != [timed[0]["time_s"]]:
+            raise AssertionError("(f) RESULTS.csv does not hold the run")
+        print(f"[pipelined] (f) CLI --longform-mode pipelined x5 over the "
+              f"four files, on {card}: per-file e2e "
+              + ", ".join(f"{x:.4f}" for x in e2e)
+              + f" s, wall {wall:.1f} s with warm-up; launches {c}; with "
+              f"--word-timestamps --language auto: {n_words} words, wall "
+              f"{wwall:.1f} s; summary row {timed[0]['implementation']} "
+              f"{timed[0]['time_s']} s, RESULTS.md/.csv written", flush=True)
+    if saved_hf is None:
+        os.environ.pop("HF_HOME", None)
+    else:
+        os.environ["HF_HOME"] = saved_hf
+    print(f"[pipelined] phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return runs[4][3]
+
+
 def main() -> None:
     import torch
 
@@ -3122,6 +3477,7 @@ def main() -> None:
                          "speculative x4 against greedy x4":
                              spec_tokens["x4"]})
     check_serve(card, results, params, dims)
+    check_pipelined(card, results, params, dims, audio)
     fused_step = check_fused_step(card, results, params, dims, audio)
     medium = check_medium_fused_block(card, results)
     cli = check_cli(card, results)

@@ -204,11 +204,6 @@ def test_profile_dir_writes_a_trace(audio_dir, model_dir, tmp_path):
 
 
 NOT_PORTED = {
-    "pipelined": ["--longform-mode", "pipelined"],
-    "slab_chunks": ["--slab-chunks", "2"],
-    # a draft runs in the chunked mode; with the pipelined mode it waits
-    "draft": ["--draft-model-id", "test/whisper-nano", "--longform-mode",
-              "pipelined"],
     "data_parallel": ["--data-parallel", "2"],
     "tensor_parallel": ["--tensor-parallel", "2"],
     "dcn": ["--dcn-coordinator", "localhost:1234"],
@@ -222,6 +217,66 @@ def test_not_ported_flags_exit_naming_roadmap(case, tmp_path):
     with pytest.raises(SystemExit, match="ROADMAP"):
         cli.main(["--audio-dir", str(tmp_path), *NOT_PORTED[case]],
                  device="cpu")
+
+
+PIPELINED = {
+    # the cases the port refused before the pipelined mode was ported
+    "pipelined": ["--longform-mode", "pipelined"],
+    "slab_chunks": ["--longform-mode", "pipelined", "--slab-chunks", "2"],
+    "draft": ["--draft-model-id", "test/whisper-nano", "--longform-mode",
+              "pipelined"],
+    "words_language_auto": ["--longform-mode", "pipelined",
+                            "--word-timestamps", "--language", "auto"],
+    "prompt_timestamps_beams": ["--longform-mode", "pipelined",
+                                "--initial-prompt", "build a vocab",
+                                "--timestamps", "--num-beams", "2"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(PIPELINED))
+def test_pipelined_mode_gives_jax_outputs_at_x0(audio_dir, model_dir,
+                                                tmp_path, tmp_path_factory,
+                                                case):
+    """``--longform-mode pipelined`` (with ``--slab-chunks``, a draft, word
+    timings with ``--language auto``, an initial prompt with the grammar
+    and beams) runs on the CPU at x0: rc 0 and the JAX CLI's outputs with
+    the same flags: the CSV's files, durations and text, ``words`` (times
+    within 0.01 s), the summary's keys and the transcripts, byte for
+    byte."""
+    argv = ["--variant", "x0", *PIPELINED[case]]
+    assert cli.main(_argv(audio_dir, model_dir, tmp_path, *argv),
+                    device="cpu") == 0
+    jout = tmp_path_factory.mktemp(f"jax-{case}")
+    assert jax_cli.main(_argv(audio_dir, model_dir, jout, *argv)) == 0
+    header, rows, jrows, summary = _outputs(tmp_path)
+    jheader, jcsv, jjrows, jsummary = _outputs(jout)
+    assert header == jheader and _keys(summary) == _keys(jsummary)
+    assert [(r[0], r[1], r[4]) for r in rows] == [(r[0], r[1], r[4])
+                                                  for r in jcsv]
+    assert any(r[4] for r in rows)
+    for got, want in zip(jrows, jjrows):
+        assert set(got) == set(want)
+        if "words" in want:
+            assert [w["word"] for w in got["words"]] == \
+                [w["word"] for w in want["words"]]
+            for a, b in zip(got["words"], want["words"]):
+                assert abs(a["start"] - b["start"]) <= 0.01
+                assert abs(a["end"] - b["end"]) <= 0.01
+    for p in jout.glob("*.txt"):
+        assert (tmp_path / p.name).read_bytes() == p.read_bytes()
+
+
+def test_without_weights_the_cli_names_the_ports_converter(tmp_path):
+    """A model dir without params.safetensors and no --allow-random-init:
+    the message names the port's converter (the card's machine has no jax
+    to run the JAX package's)."""
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["--audio-dir", str(tmp_path), "--onnx-dir",
+                  str(tmp_path / "none"), "--out-csv",
+                  str(tmp_path / "o" / "c.csv")], device="cpu")
+    msg = str(exc.value)
+    assert "python -m whisper_tpu_torch.models.convert_cli" in msg
+    assert "whisper_tpu.models" not in msg
 
 
 DECODING_FLAGS = {
@@ -271,6 +326,9 @@ REFUSED = {
                          "--timestamps"],
     "draft_temperatures": ["--draft-model-id", "test/whisper-nano",
                            "--temperatures", "0,0.2"],
+    "draft_pipelined_beams": ["--draft-model-id", "test/whisper-nano",
+                              "--longform-mode", "pipelined", "--num-beams",
+                              "2"],
 }
 
 

@@ -1271,3 +1271,64 @@ print("raced", n3, n8)
                           text=True, timeout=600, cwd=repo)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "raced 2392 1584" in proc.stdout
+
+
+def test_chunk_norm_on_the_card_zeroes_a_ragged_buckets_padding_rows(gen):
+    """The pipelined mode's per-chunk normalization on the card: a bucket
+    of 8 with 3 real windows of a raw slab (the last ragged past the valid
+    frames) and 5 padding rows that start at the slab's width.  The real
+    rows within 1e-6 of a float64 numpy evaluation of the same windows on
+    the host; the padding rows all zeros and finite (their max is -inf)."""
+    from whisper_tpu_torch.pipeline.chunk import CHUNK_FRAMES
+    from whisper_tpu_torch.runtime.session import chunk_norm
+
+    n_frames, n_valid = 7_000, 6_400
+    raw = torch.randn(80, n_frames, generator=gen, device="cuda") * 3 - 5
+    starts = [0, 2_500, 5_000] + [n_frames] * 5
+    mel_pad = torch.nn.functional.pad(raw, (0, CHUNK_FRAMES))
+    chunks = torch.stack([mel_pad[:, s:s + CHUNK_FRAMES] for s in starts])
+    out = chunk_norm(chunks, starts, n_valid)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out[3:] == 0).all()
+    host = np.pad(raw.cpu().numpy().astype(np.float64),
+                  ((0, 0), (0, CHUNK_FRAMES)))
+    for i, s in enumerate(starts[:3]):
+        win = host[:, s:s + CHUNK_FRAMES]
+        valid = s + np.arange(CHUNK_FRAMES) < n_valid
+        want = (np.maximum(win, win[:, valid].max() - 8.0) + 4.0) / 4.0
+        want[:, ~valid] = 0.0
+        np.testing.assert_allclose(out[i].cpu().numpy(), want, atol=1e-6,
+                                   rtol=0)
+
+
+def test_a_model_dir_written_and_read_without_the_safetensors_package(
+        gen, tmp_path):
+    """``save_params`` (numpy ``write_safetensors``) and ``load_params``
+    (``read_safetensors``) on the card's machine, whisper-base with its
+    int8 copy: the tree read back equals the tree written, value for value,
+    and on the card through ``params_from_numpy``; the ``safetensors``
+    package is never imported."""
+    import sys
+
+    from whisper_tpu_torch.models import convert
+    from whisper_tpu_torch.models.registry import get_dims
+    from whisper_tpu_torch.variants.quant import quantize_params
+
+    dims = get_dims("openai/whisper-base")
+    params = convert.init_params(dims, seed=0)
+    for name, tree in (("f32", params), ("int8", quantize_params(params))):
+        d = str(tmp_path / name)
+        convert.save_params(tree, dims, d)
+        back, dims2 = convert.load_params(d)
+        assert dims2 == dims
+        flat, flat_back = convert._flatten(tree), convert._flatten(back)
+        assert sorted(flat) == sorted(flat_back)
+        for k, v in flat.items():
+            assert flat_back[k].dtype == v.dtype
+            np.testing.assert_array_equal(flat_back[k], v, err_msg=k)
+        on_card = convert.params_from_numpy(back, "cuda", torch.float32)
+        w = on_card["decoder"]["blocks"]["fc1_w"]
+        w = w.q if hasattr(w, "q") else w
+        assert w.is_cuda
+    assert "safetensors" not in sys.modules

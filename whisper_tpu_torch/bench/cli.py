@@ -29,8 +29,10 @@ trace), speculative decoding (``--draft-dir`` or ``--draft-model-id``,
 ``--condition-on-prev-text`` (``pipeline.sequential``), ``--initial-prompt``
 (``tokenizer.bpe.encode_text``, which needs the ``tokenizers`` package),
 ``--word-timestamps`` (``words`` in the per-file JSON, ``pipeline.words``),
-``--write-srt``/``--write-vtt`` (``bench.subtitles``) and ``--vad-filter``
-with ``--vad-threshold-db`` (``audio.vad``).  The JAX CLI's refusals of
+``--write-srt``/``--write-vtt`` (``bench.subtitles``), ``--vad-filter``
+with ``--vad-threshold-db`` (``audio.vad``) and ``--longform-mode
+pipelined`` with ``--slab-chunks`` (per-chunk mel normalization, slab by
+slab: ``pipeline.pipelined``).  The JAX CLI's refusals of
 combinations stay as they are there; every other feature flag exits naming
 its ROADMAP item; none is silently ignored.
 """
@@ -138,8 +140,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["chunked", "sequential", "pipelined"],
                    help="chunked = reference rust strategy (fixed 30s windows"
                         " + overlap stitching); sequential = seek by the "
-                        "predicted timestamps; pipelined is not ported "
-                        "(ROADMAP queue 1 item 8f)")
+                        "predicted timestamps; pipelined = per-chunk mel "
+                        "normalization, decoded slab by slab")
     p.add_argument("--slab-chunks", type=int, default=4)
     p.add_argument("--word-timestamps", action="store_true")
     p.add_argument("--vad-filter", action="store_true")
@@ -164,9 +166,6 @@ def not_ported(args) -> List[str]:
     changed = {k for k, v in vars(args).items() if getattr(defaults, k) != v}
     item = "ROADMAP queue 1 item"
     checks = [
-        (args.longform_mode == "pipelined" or "slab_chunks" in changed,
-         "--longform-mode pipelined/--slab-chunks (the pipelined mode): "
-         f"{item} 8f"),
         (args.data_parallel > 1 or args.tensor_parallel > 1,
          f"--data-parallel/--tensor-parallel (more cards): {item} 12"),
         (bool({"dcn_coordinator", "dcn_num_processes", "dcn_process_id"}
@@ -205,8 +204,9 @@ def _build_session(args, cfg, device):
     else:
         raise SystemExit(
             f"model dir does not exist or has no {convert.PARAMS_FILE}: "
-            f"{model_dir} (convert a checkpoint with whisper_tpu.models."
-            f"convert.convert_hf_model_dir, or pass --allow-random-init)"
+            f"{model_dir} (convert a checkpoint with python -m "
+            f"whisper_tpu_torch.models.convert_cli --hf-dir HF_DIR --out-dir "
+            f"{model_dir}, or pass --allow-random-init)"
         )
     try:
         return WhisperSession(params, dims, cfg, device=device)
@@ -383,11 +383,37 @@ def main(argv: Optional[List[str]] = None, *, device=None) -> int:
             audio, VadOptions(threshold_db=args.vad_threshold_db))
         return collect_chunks(audio, spans)
 
+    def _pipelined(audio, words=None):
+        from whisper_tpu_torch.pipeline.pipelined import (
+            transcribe_longform_pipelined,
+        )
+
+        return transcribe_longform_pipelined(
+            session, audio, args.language, args.task, args.max_new_tokens,
+            args.chunk_length_s, args.overlap_s, tokenizer, args.timestamps,
+            gen_cfg, args.num_beams, args.length_penalty,
+            slab_chunks=args.slab_chunks, word_collector=words,
+            initial_prompt_ids=initial_prompt_ids, speculative=speculative,
+            draft_k=args.draft_k)
+
     # Warmup (ref src/main.rs:1131-1152), and beyond it one run of every
     # (mel bucket, batch bucket) shape the files will hit, at the condensed
-    # durations under --vad-filter.  Every mode but pipelined warms the
-    # chunked path, as the JAX CLI does.
-    if args.warmup > 0:
+    # durations under --vad-filter.  The pipelined mode warms its own
+    # entry point, one file per distinct duration (its slab geometry follows
+    # the duration), then --warmup runs of the first file; every other mode
+    # warms the chunked path, as the JAX CLI does.
+    if args.warmup > 0 and args.longform_mode == "pipelined":
+        a0 = _vad_condense(load_audio_16k_mono(
+            os.path.join(args.audio_dir, files[0]))[0])[0]
+        seen_durs = {round(len(a0) / 16000.0, 3)}
+        for f in files[1:]:
+            a, _, dur = load_audio_16k_mono(os.path.join(args.audio_dir, f))
+            if round(dur, 3) not in seen_durs:
+                seen_durs.add(round(dur, 3))
+                _pipelined(a)
+        for _ in range(args.warmup):
+            _pipelined(a0)
+    elif args.warmup > 0:
         from whisper_tpu_torch.pipeline.warmup import warm_buckets
 
         loaded = [_vad_condense(load_audio_16k_mono(
@@ -473,6 +499,8 @@ def main(argv: Optional[List[str]] = None, *, device=None) -> int:
                 from whisper_tpu_torch.utils.timing import Timing
 
                 text, t = "", Timing(0.0, 0.0, 0.0, 0.0)
+            elif args.longform_mode == "pipelined":
+                text, t = _pipelined(audio, words)
             elif args.longform_mode == "sequential":
                 from whisper_tpu_torch.pipeline.sequential import (
                     transcribe_sequential,

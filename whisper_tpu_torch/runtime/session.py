@@ -21,9 +21,12 @@ decoding (``transcribe_from_mel(speculative=True)``,
 step runs B4 or B6).  Left-padded conditioned prompts (``pad_count``) run
 through the prefill and every step, B3 and B8 included, and
 ``alignment_weights`` gives the cross-attention of a teacher-forced pass
-for word timings.  The serving engine's short path,
-``transcribe_short_batch`` and ``transcribe_short_speculative`` (and their
-``_async`` forms, which leave the tokens on the device), runs a batch of
+for word timings.  ``chunk_norm_n_valid`` takes a raw log-spec slab and
+normalizes each chunk with its own max (``chunk_norm``,
+``chunk_norm_window``: the pipelined long-form mode).  The serving
+engine's short path, ``transcribe_short_batch`` and
+``transcribe_short_speculative`` (and their ``_async`` forms, which leave
+the tokens on the device), runs a batch of
 reflect-padded utterances of at most 30 s through the plain mel, the
 encoder and greedy or speculative decoding; ``transcribe_chunks`` and
 ``warmup`` take host mel chunks.  What the port does not carry (meshes, the
@@ -176,6 +179,25 @@ def _check_supported(cfg: RuntimeCfg) -> None:
                        "encoding of the TPU tunnel (ROADMAP 'Not to port')")
     if missing:
         raise NotImplementedError("; ".join(missing))
+
+
+def chunk_norm(chunks: torch.Tensor, starts: Sequence[int],
+               n_valid: int) -> torch.Tensor:
+    """Per-chunk normalization of raw log-spec windows [B, n_mels, 3000]
+    cut at frame ``starts`` of a slab with ``n_valid`` valid frames (the
+    JAX session's ``chunk_norm`` branch): each window's max over its valid
+    frames (start + i < n_valid), a clamp at that max - 8, (x + 4) / 4,
+    invalid frames 0.  A window with no valid frame (a bucket's padding
+    row) has max -inf, leaves the clamp idle and comes out all zeros."""
+    from whisper_tpu_torch.pipeline.chunk import CHUNK_FRAMES
+
+    frame_ix = (torch.as_tensor(list(starts), dtype=torch.int64)[:, None]
+                + torch.arange(CHUNK_FRAMES)).to(chunks.device)
+    valid = (frame_ix < n_valid)[:, None, :]
+    vmax = torch.where(valid, chunks, -torch.inf).amax(dim=(1, 2),
+                                                       keepdim=True)
+    out = (torch.maximum(chunks, vmax - 8.0) + 4.0) / 4.0
+    return torch.where(valid, out, 0.0)
 
 
 class WhisperSession:
@@ -346,6 +368,18 @@ class WhisperSession:
             ls = F.pad(ls, (0, n_frames - total))
         return normalize(ls, torch.stack(vmaxes).amax(), n_valid)
 
+    def chunk_norm_window(self, raw_ls: torch.Tensor, frame_start: int,
+                          n_valid: int) -> torch.Tensor:
+        """One normalized [n_mels, 3000] window sliced from a RAW log-spec
+        slab, with its own masked max (the pipelined mode's language
+        detection and word alignment): the slab given CHUNK_FRAMES zero
+        columns, the window at ``frame_start``, then ``chunk_norm``."""
+        from whisper_tpu_torch.pipeline.chunk import CHUNK_FRAMES
+
+        win = F.pad(raw_ls, (0, CHUNK_FRAMES))[
+            :, frame_start:frame_start + CHUNK_FRAMES]
+        return chunk_norm(win[None], [frame_start], n_valid)[0]
+
     # -- chunks -> tokens ---------------------------------------------------
 
     def transcribe_from_mel(self, mel: torch.Tensor,
@@ -358,6 +392,7 @@ class WhisperSession:
                             length_penalty: float = 1.0, ts_cfg=None,
                             temperature: float = 0.0, seed: int = 0,
                             with_scores: bool = False, pad_count=None,
+                            chunk_norm_n_valid: int | None = None,
                             speculative: bool = False, draft_k: int = 4):
         """Transcribe the 3000-frame chunks sliced (on the device) from a
         whole-file mel [n_mels, F]: tokens [len(frame_starts),
@@ -373,7 +408,12 @@ class WhisperSession:
         pad_count (an int): the prompt's first pad_count slots are left
         padding, the same for every chunk (``pipeline.sequential``'s
         previous-text conditioning); such a decode never takes the hybrid
-        step (``fused_decoder_step``)."""
+        step (``fused_decoder_step``).
+        chunk_norm_n_valid: ``mel`` is a RAW log-spec slab with this many
+        valid frames (counted from its start), and each chunk window is
+        normalized with its own masked max before the encoder
+        (``chunk_norm``: the per-chunk semantics of
+        ``pipeline.pipelined``), on every branch; not with pad_count."""
         if num_beams > 1 and (with_scores or temperature > 0.0):
             raise ValueError("num_beams > 1 does not compose with "
                              "with_scores/temperature (beam search is "
@@ -384,8 +424,8 @@ class WhisperSession:
                 suppress_ids, begin_suppress_ids, num_beams=num_beams,
                 length_penalty=length_penalty, ts_cfg=ts_cfg,
                 temperature=temperature, seed=seed, with_scores=with_scores,
-                pad_count=pad_count, speculative=speculative,
-                draft_k=draft_k),
+                pad_count=pad_count, chunk_norm_n_valid=chunk_norm_n_valid,
+                speculative=speculative, draft_k=draft_k),
             len(frame_starts), max_new_tokens, with_scores)
 
     def transcribe_from_mel_async(self, mel, frame_starts, prompt,
@@ -395,10 +435,14 @@ class WhisperSession:
                                   length_penalty: float = 1.0, ts_cfg=None,
                                   temperature: float = 0.0, seed: int = 0,
                                   with_scores: bool = False, pad_count=None,
+                                  chunk_norm_n_valid: int | None = None,
                                   speculative: bool = False,
                                   draft_k: int = 4):
         """Per batch bucket: [(device result, start, n), ...], the result
         the tokens or, with with_scores, (tokens, sum_lp, n_tok)."""
+        if chunk_norm_n_valid is not None and pad_count is not None:
+            raise ValueError("chunk_norm and conditioned prompts are "
+                             "mutually exclusive")
         if speculative:
             if not self.has_draft:
                 raise RuntimeError(
@@ -428,6 +472,8 @@ class WhisperSession:
             starts += [n_frames] * (bucket - n)
             chunks = torch.stack([mel_pad[:, s:s + CHUNK_FRAMES]
                                   for s in starts])
+            if chunk_norm_n_valid is not None:
+                chunks = chunk_norm(chunks, starts, int(chunk_norm_n_valid))
             enc = self.encoder(chunks)
             pads = None
             if pad_count is not None:

@@ -22,12 +22,16 @@ Off the ladder, through ``RuntimeCfg`` or a discovery JSON:
 ``fused_decoder_step`` (the hybrid step with kernel B10c).
 
 ``int8`` is an alias of x4, as in the JAX package.
+``write_variant_metadata`` writes a model dir's
+``optimization_metadata.json`` with the JAX package's keys.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+import json
+import os
+from dataclasses import asdict, dataclass
 from typing import Dict
 
 from whisper_tpu_torch.runtime.session import RuntimeCfg
@@ -93,3 +97,20 @@ def apply_variant(cfg: RuntimeCfg, name: str) -> tuple[RuntimeCfg, VariantSpec]:
     flags = {f.name: getattr(spec, f.name) for f in dataclasses.fields(spec)
              if f.name not in ("name", "description")}
     return dataclasses.replace(cfg, **flags), spec
+
+
+def write_variant_metadata(model_dir: str, spec: VariantSpec,
+                           base_model_id: str) -> None:
+    """``optimization_metadata.json`` beside a model dir's weights (the
+    reference's optimization_metadata.json convention): the JAX package's
+    keys, with ``"framework"`` naming this package."""
+    meta = {
+        "variant": spec.name,
+        "description": spec.description,
+        **asdict(spec),
+        "base_model_id": base_model_id,
+        "framework": "whisper_tpu_torch",
+    }
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, "optimization_metadata.json"), "w") as f:
+        json.dump(meta, f, indent=2)
