@@ -179,6 +179,22 @@ What it does, in order (any failure raises and exits non-zero):
    one at x5 with each decoding flag (``--timestamps``, ``--language auto``,
    ``--temperatures 0,0.2,0.4``, ``--num-beams 4``; 32 tokens), and one at x5
    with ``--draft-model-id openai/whisper-tiny`` over the 4 s file (B7).
+9b. ``[audio]`` (``check_audio``): the native decoder built from the
+   checkout on this machine (g++ and libav's headers; where they are
+   missing one line says why, and the run goes on: a host library, not the
+   card); the 76 s clip written as a FLAC beside its WAV, both decoded
+   sample-equal, both through the CLI at whisper-base x5 with equal texts.
+9c. ``[parallel]`` (``check_parallel``), whisper-base, the 301.574 s file:
+   (a) a world of one over NCCL through the mesh code path
+   (``make_mesh(1, 1)``, ``shard_params``, the data rows, the row-parallel
+   branches), tokens bitwise and launches equal to the session's without
+   a group; (b) two ranks sharing cuda:0 over gloo (``python3
+   chip_smoke.py --parallel-rank R PORT REF OUT`` each, spawned with a
+   timeout; a rank that exits non-zero fails the run): DP 2 at x5, TP 2 at
+   x5 and at x7 (4 of 8 heads a rank), each rank's B1, B2, B3 or B8 and B4
+   launches counted, every chunk that differs from the one-process bucket-16
+   rows judged by ``divergence_report`` (a divergence that is not a
+   tie-flip fails), e2e printed beside the one-process run's.
 10. Prints one JSON line with the kernels, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 """
@@ -3403,9 +3419,296 @@ def check_pipelined(card: str, results, params, dims, audio) -> dict:
     return runs[4][3]
 
 
+# ---------------------------------------------------------------------------
+# [audio]: the native decoder; [parallel]: the mesh layer on one card
+# ---------------------------------------------------------------------------
+
+def check_audio(card: str, results) -> None:
+    """``[audio]``: the native decoder built from the checkout (g++ and
+    libav's headers on this machine), the 76 s clip written as a FLAC
+    (``audio.flac.write_flac``) beside its WAV, both decoded sample for
+    sample alike, then both through the CLI at whisper-base x5: equal
+    texts.  Without the headers or g++ it prints why and goes on: a host
+    library this machine lacks, not the card or a kernel."""
+    import numpy as np
+
+    from whisper_tpu_torch.audio.flac import write_flac
+    from whisper_tpu_torch.bench.cli import main as cli_main
+    from whisper_tpu_torch.headline import synth_audio
+    from whisper_tpu_torch.native import audio_native
+
+    t0 = time.perf_counter()
+    if not audio_native.available():
+        print("[audio] native decoder not built: "
+              f"{audio_native.unavailable_reason()}", flush=True)
+        return
+    build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        audio_dir = os.path.join(tmp, "audio")
+        os.makedirs(audio_dir)
+        wav = os.path.join(audio_dir, "c_76s.wav")
+        flac = os.path.join(audio_dir, "c_76s.flac")
+        _write_wav(wav, 76.0, 16000, 1)
+        pcm = np.clip(synth_audio(76.0) * 32768.0, -32768, 32767
+                      ).astype("<i2")       # _write_wav's samples
+        write_flac(flac, pcm, 16000)
+        t1 = time.perf_counter()
+        from_wav, _ = audio_native.decode_mono(wav)
+        t2 = time.perf_counter()
+        from_flac, _ = audio_native.decode_mono(flac)
+        t3 = time.perf_counter()
+        if not np.array_equal(from_wav, from_flac):
+            raise AssertionError("[audio] the FLAC decodes to other samples "
+                                 "than its WAV")
+        out = os.path.join(tmp, "out")
+        _zero_counts(results)
+        rc = cli_main(["--audio-dir", audio_dir, "--onnx-dir",
+                       os.path.join(tmp, "no-model"), "--allow-random-init",
+                       "--variant", "x5", "--out-csv", f"{out}/c.csv",
+                       "--out-json", f"{out}/j.json", "--out-summary-json",
+                       f"{out}/s.json"])
+        counts = _counts(results)
+        rows = {r["file"]: r for r in json.load(open(f"{out}/j.json"))}
+        if rc != 0 or set(rows) != {"c_76s.wav", "c_76s.flac"}:
+            raise AssertionError(f"[audio] CLI rc {rc}, rows {sorted(rows)}")
+        if rows["c_76s.wav"]["text"] != rows["c_76s.flac"]["text"]:
+            raise AssertionError("[audio] the FLAC's text differs from the "
+                                 "WAV's")
+        print(f"[audio] native decoder (build or load {build_s:.2f} s): the "
+              f"76 s clip as WAV and FLAC decoded in {1e3 * (t2 - t1):.1f} / "
+              f"{1e3 * (t3 - t2):.1f} ms, sample-equal; CLI whisper-base x5 "
+              f"on {card}: per-file e2e WAV "
+              f"{rows['c_76s.wav']['end_to_end_s']:.4f} s, FLAC "
+              f"{rows['c_76s.flac']['end_to_end_s']:.4f} s, texts equal; "
+              f"launches {counts}; phase {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+
+PARALLEL_CONFIGS = (("dp2 x5", "x5", 2, 1), ("tp2 x5", "x5", 1, 2),
+                    ("tp2 x7", "x7", 1, 2))
+PROMPT = [50258, 50259, 50359, 50363]   # sot, en, transcribe, notimestamps
+EOT = 50257
+
+
+def _module_counts() -> dict:
+    """The launch counts of the main path's kernels (and B8) in this
+    process."""
+    from whisper_tpu_torch.ops import (
+        attention,
+        cross_attention,
+        encoder_mlp,
+        self_attention,
+    )
+
+    return {"fused_attention": attention.launches,
+            "fused_encoder_mlp": encoder_mlp.launches,
+            "self_attend_step": self_attention.launches,
+            "self_attend_step_int8": self_attention.int8_launches,
+            "cross_attend_step": cross_attention.launches}
+
+
+def _zero_module_counts() -> None:
+    from whisper_tpu_torch.ops import (
+        attention,
+        cross_attention,
+        encoder_mlp,
+        self_attention,
+    )
+
+    attention.launches = encoder_mlp.launches = 0
+    self_attention.launches = self_attention.int8_launches = 0
+    cross_attention.launches = 0
+
+
+def parallel_rank(rank: int, port: int, ref_path: str, out_path: str) -> int:
+    """One of the two ranks of ``[parallel]`` (b): a gloo world of 2 on
+    cuda:0 (NCCL refuses two ranks on one card; gloo carries the CUDA
+    tensors through the host).  Each configuration of
+    ``PARALLEL_CONFIGS``: a short warm-up, then one run of the 301.574 s
+    file with the counts set to 0 just before and read just after; every
+    chunk whose chain differs from the one-process bucket-16 run's is
+    judged by ``divergence_report`` (through the mesh session's own field
+    under TP).  Writes its results to ``out_path``."""
+    import numpy as np
+    import torch
+
+    from whisper_tpu_torch.frontend import golden
+    from whisper_tpu_torch.headline import (
+        AUDIO_SECONDS,
+        make_session,
+        run_once,
+        synth_audio,
+    )
+    from whisper_tpu_torch.models.convert import init_params
+    from whisper_tpu_torch.models.registry import get_dims
+    from whisper_tpu_torch.parallel import mesh as pm
+    from whisper_tpu_torch.pipeline.chunk import chunk_starts, mel_frame_bucket
+
+    pm.init_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo",
+                        timeout_s=300)
+    ref = json.load(open(ref_path))
+    dims = get_dims("openai/whisper-base")
+    params = init_params(dims, seed=0)
+    audio = synth_audio(AUDIO_SECONDS)
+    nv = golden.num_frames(len(audio))
+    starts = [p // golden.HOP for p in chunk_starts(len(audio), 480_000,
+                                                    400_000)]
+    out = {}
+    for label, variant, dp, tp in PARALLEL_CONFIGS:
+        session = make_session("cuda", params, variant, data_parallel=dp,
+                               tensor_parallel=tp)
+        run_once(session, audio, max_new_tokens=8)          # warm-up
+        _zero_module_counts()
+        torch.cuda.synchronize()
+        collector = []
+        t0 = time.perf_counter()
+        _, timing = run_once(session, audio, token_collector=collector)
+        torch.cuda.synchronize()
+        e2e = time.perf_counter() - t0
+        counts = _module_counts()
+        toks = collector[0]
+        want = np.asarray(ref[variant], dtype=toks.dtype)
+        s_ref = make_session("cuda", params, variant)
+        mel = s_ref.compute_mel(golden.reflect_pad(audio), nv,
+                                mel_frame_bucket(nv))
+        n_div, flips, d_max, margin, drift = _judge(
+            s_ref, session if tp > 1 else s_ref, mel,
+            [(s, PROMPT) for s in starts], want, toks, EOT, label)
+        out[label] = {"e2e": e2e, "model_s": timing.model_only_s,
+                      "counts": counts, "rows_equal": int(sum(
+                          (a == b).all() for a, b in zip(toks, want))),
+                      "tokens_equal": float((toks == want).mean()),
+                      "divergences": n_div, "tie_flips": flips,
+                      "max_dlogit_chain": d_max, "margin": margin,
+                      "not_tie_flips": [(d.step, d.x0_token, d.var_token,
+                                         d.x0_margin) for d in drift],
+                      "shape": list(toks.shape)}
+        del session, s_ref
+        torch.cuda.empty_cache()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def check_parallel(card: str, results, params, dims, audio, x5,
+                   x7_tokens) -> None:
+    """``[parallel]``, whisper-base at full width, the 301.574 s file.
+    (a) A world of one over NCCL through the mesh code path (dp = tp = 1:
+    ``make_mesh`` over the group, ``shard_params``, the data rows, the
+    row-parallel branches, whose sums over one rank make no call): tokens
+    bitwise the session's without a group, the same launches.  (b) Two ranks sharing cuda:0 over gloo, spawned with a
+    timeout (``parallel_rank``): DP 2 at x5, TP 2 at x5 and at x7 (4 of 8
+    heads a rank through B1, B3 or B8, and B4); every divergence from the
+    one-process rows must be a tie-flip, each rank's launches as predicted.
+    e2e beside the one-process run's: two processes on one card, gloo
+    copying through the host; a record, not a claim."""
+    import subprocess
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from whisper_tpu_torch.headline import make_session
+    from whisper_tpu_torch.parallel import mesh as pm
+
+    t0 = time.perf_counter()
+    n_l, n_e = dims.decoder_layers, dims.encoder_layers
+    pm.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0, backend="nccl",
+                        timeout_s=300)
+    try:
+        session = make_session("cuda", params, "x5", mesh=pm.make_mesh(1, 1))
+        e2e, timing, toks, c = _timed_run(session, audio, results)
+        del session
+        # one NCCL collective on the card: the tokens summed over the world
+        import torch
+
+        summed = torch.as_tensor(toks, device="cuda")
+        dist.all_reduce(summed)
+        if not np.array_equal(summed.cpu().numpy(), toks):
+            raise AssertionError("[parallel] (a) an NCCL all-reduce over a "
+                                 "world of one changed its tensor")
+    finally:
+        dist.destroy_process_group()
+    if not np.array_equal(toks, x5[2]) or c != x5[3]:
+        raise AssertionError("[parallel] (a) the world of one over NCCL "
+                             "differs from the session without a group")
+    print(f"[parallel] (a) whisper-base x5, 301.574 s, a world of one over "
+          f"NCCL through the mesh (dp 1 x tp 1) on {card}: tokens bitwise "
+          f"the one-process run's, launches equal; e2e {e2e:.4f} s, model "
+          f"{timing.model_only_s:.4f} s (one-process median {x5[0]:.4f} s)",
+          flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "ref.json")
+        with open(ref_path, "w") as f:
+            json.dump({"x5": x5[2].tolist(), "x7": x7_tokens.tolist()}, f)
+        port = _free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+             str(r), str(port), ref_path, os.path.join(tmp, f"rank{r}.json")])
+            for r in range(2)]
+        try:
+            for p in procs:
+                p.wait(timeout=600)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode != 0 for p in procs):
+            raise AssertionError("[parallel] (b) a rank exited with "
+                                 f"{[p.returncode for p in procs]}")
+        ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json")))
+                 for r in range(2)]
+    steps = 127 * n_l
+    for label, variant, dp, tp in PARALLEL_CONFIGS:
+        r0, r1 = ranks[0][label], ranks[1][label]
+        self_b = "self_attend_step_int8" if variant == "x7" \
+            else "self_attend_step"
+        want = {"fused_attention": n_e, "fused_encoder_mlp": n_e,
+                "cross_attend_step": steps, self_b: steps}
+        for r, res in enumerate((r0, r1)):
+            got = {k: v for k, v in res["counts"].items() if v}
+            if got != want:
+                raise AssertionError(f"[parallel] (b) {label} rank {r}: "
+                                     f"launches {got}, expected {want}")
+            if res["not_tie_flips"]:
+                raise AssertionError(f"[parallel] (b) {label} rank {r}: "
+                                     "divergences that are not tie-flips: "
+                                     f"{res['not_tie_flips']}")
+        if r0["tokens_equal"] != r1["tokens_equal"]:
+            raise AssertionError(f"[parallel] (b) {label}: the ranks hold "
+                                 "different tokens")
+        one = x5[0]
+        print(f"[parallel] (b) whisper-base {label}, 301.574 s, two gloo "
+              f"ranks sharing cuda:0 on {card}: e2e rank 0 {r0['e2e']:.4f} "
+              f"s, rank 1 {r1['e2e']:.4f} s (one process, x5 median: "
+              f"{one:.4f} s); model {r0['model_s']:.4f} s; rows equal to the "
+              f"one-process bucket-16 rows {r0['rows_equal']} of "
+              f"{r0['shape'][0]}, tokens {r0['tokens_equal']:.4f}; "
+              f"{r0['divergences']} divergences, {r0['tie_flips']} tie-flips "
+              f"(largest reference margin {r0['margin']:.4f}, "
+              f"max_dlogit_chain {r0['max_dlogit_chain']:.4f}); launches a "
+              f"rank {r0['counts']} / {r1['counts']}", flush=True)
+    print(f"[parallel] phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> None:
     import torch
 
+    if sys.argv[1:2] == ["--parallel-rank"]:     # a rank of [parallel] (b)
+        rank, port, ref_path, out_path = sys.argv[2:6]
+        return parallel_rank(int(rank), int(port), ref_path, out_path)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card: "
                          "torch.cuda.is_available() is false")
@@ -3481,6 +3784,9 @@ def main() -> None:
     fused_step = check_fused_step(card, results, params, dims, audio)
     medium = check_medium_fused_block(card, results)
     cli = check_cli(card, results)
+    check_audio(card, results)
+    check_parallel(card, results, params, dims, audio, x5_run,
+                   ladder_runs["x7"][2])
     # Each kernel's launches in the run of its own path.  The two rows at
     # d = 1024 share their kernels' counters with the d = 512 rows.
     fused = ladder["x5+fused_encoder_block+fused_decoder_step"]

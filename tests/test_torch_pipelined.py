@@ -198,27 +198,31 @@ class FakeTok:
 
 
 def _both(nano, audio, **kw):
-    """Both packages' pipelined mode on the same audio; the nano
-    vocabulary holds only FakeTok's special ids (JAX clamps an id past it,
-    torch raises)."""
+    """Both packages' pipelined mode on the same audio.  Without a
+    tokenizer the default special ids (50258 ...) lie past the nano
+    vocabulary's 1,000 ids: both packages clamp them into it."""
     jsess, tsess = nano
     kw.setdefault("max_new_tokens", 5)
-    kw.setdefault("tokenizer", FakeTok())
     want = jax_pipelined(jsess, audio, "en", "transcribe", **kw)
     got = pipelined.transcribe_longform_pipelined(tsess, audio, "en",
                                                   "transcribe", **kw)
     return got, want
 
 
+@pytest.mark.parametrize("tok", ["default_specials", "fake_tok"])
 @pytest.mark.parametrize("slab", [2, 3, 100])
-def test_pipelined_text_equals_jax_at_each_slab_size(nano, slab):
+def test_pipelined_text_equals_jax_at_each_slab_size(nano, slab, tok):
     """103 s (five chunks) in slabs of 2, 3 and all: JAX's text, the same
-    text at every slab size, and the Timing fields filled."""
+    text at every slab size, and the Timing fields filled; with the
+    default special ids (clamped into the nano vocabulary, as JAX clamps
+    them) and with FakeTok's, which fit it."""
     audio = _speechy_audio(103 * 16000, seed=4)
-    (text, timing), (want, _) = _both(nano, audio, slab_chunks=slab)
+    tokenizer = FakeTok() if tok == "fake_tok" else None
+    (text, timing), (want, _) = _both(nano, audio, slab_chunks=slab,
+                                      tokenizer=tokenizer)
     assert text == want and text
     one, _ = pipelined.transcribe_longform_pipelined(
-        nano[1], audio, "en", "transcribe", 5, tokenizer=FakeTok(),
+        nano[1], audio, "en", "transcribe", 5, tokenizer=tokenizer,
         slab_chunks=100)
     assert text == one
     assert timing.preprocess_s > 0 and timing.model_only_s > 0
@@ -291,8 +295,7 @@ def test_speculative_pipelined_equals_jax(nano):
         (text, _), (want, _) = _both(nano, audio, slab_chunks=2,
                                      speculative=True, draft_k=3)
         greedy, _ = pipelined.transcribe_longform_pipelined(
-            tsess, audio, "en", "transcribe", 5, tokenizer=FakeTok(),
-            slab_chunks=2)
+            tsess, audio, "en", "transcribe", 5, slab_chunks=2)
         assert text == want == greedy
     finally:
         jsess._draft = None

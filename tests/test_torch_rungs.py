@@ -268,9 +268,9 @@ def test_hybrid_step_leaves_the_decode_kernels_out(params):
     seen = {}
     real = decoder_kernels.decoder_step_hybrid
 
-    def spy(p, sw, dims, token, pos, cache):
+    def spy(p, sw, dims, token, pos, cache, **kw):
         seen["cache"] = cache
-        return real(p, sw, dims, token, pos, cache)
+        return real(p, sw, dims, token, pos, cache, **kw)
 
     sess = WhisperSession(params, DIMS, _cfgs("x7", dict(
         fused_decoder_step=True))[1], device="cpu")

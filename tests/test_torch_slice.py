@@ -372,9 +372,54 @@ SESSION_CASES = {
 
 @pytest.mark.parametrize("case", sorted(SESSION_CASES))
 def test_session_configs_not_ported_raise(case):
+    """A wire encoding names its ROADMAP entry.  Meshes are ported
+    (``parallel.mesh``): in a process without a process group of
+    data_parallel x tensor_parallel processes they raise naming torchrun
+    (tests/test_torch_parallel.py runs them in gloo worlds)."""
     rung, overrides = SESSION_CASES[case]
+    if case.startswith("mesh"):
+        with pytest.raises(RuntimeError, match="torchrun"):
+            _small_session(rung, **overrides)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _small_session(rung, **overrides)
+
+
+@pytest.mark.parametrize("rung", ["x0", "x5"])
+def test_token_ids_past_the_vocabulary_clamp_as_in_jax(rung):
+    """test/whisper-nano (1,000 ids) with the default special ids (50258
+    ...): the JAX gather clamps each id past the vocabulary to the last
+    row, and so does the port (no IndexError): tokens equal to JAX's token
+    for token at x0, and the teacher-forced fields of the judge and of the
+    word alignment equal too."""
+    from whisper_tpu.models.registry import get_dims as jax_dims
+    from whisper_tpu.variants.diagnose import (
+        teacher_forced_logits as jax_tf_logits,
+    )
+    from whisper_tpu_torch.models.registry import get_dims
+    from whisper_tpu_torch.variants.diagnose import teacher_forced_logits
+
+    dims = get_dims("test/whisper-nano")
+    params = convert.init_params(dims, seed=0)
+    jcfg, _ = jax_apply_variant(JaxCfg(max_batch=2), rung)
+    cfg, _ = apply_variant(RuntimeCfg(max_batch=2), rung)
+    jsess = JaxSession(params, jax_dims("test/whisper-nano"), jcfg)
+    tsess = WhisperSession(params, dims, cfg, device="cpu")
+    rng = np.random.default_rng(2)
+    mel = rng.normal(0, 0.5, (2, dims.n_mels, CHUNK_FRAMES)).astype(
+        np.float32)
+    prompt = [50258, 50259, 50359, 50363]
+    want = jsess.transcribe_chunks(mel, prompt, 5, 50257)
+    got = tsess.transcribe_chunks(mel, prompt, 5, 50257)
+    if rung == "x0":
+        np.testing.assert_array_equal(got, want)
+    assert ((got >= 0) & (got < dims.vocab_size)).all()
+    seq = prompt + [int(t) for t in want[0, :3]] + [-1, 70000]
+    lt = teacher_forced_logits(tsess, mel[0], seq)
+    lj = jax_tf_logits(jsess, mel[0], seq)
+    np.testing.assert_allclose(lt, lj, atol=2e-3 if rung == "x0" else 0.15)
+    w = tsess.alignment_weights(mel[0], prompt, [70000, 3])
+    assert np.isfinite(w).all() and w.shape[2] == 16
 
 
 DECODE_CASES = {

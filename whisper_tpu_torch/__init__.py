@@ -4,8 +4,11 @@ It runs the chunked long-form path (log-mel, encoder, greedy, sampled,
 speculative or beam decoding, the timestamp grammar, language detection,
 the temperature-fallback ladder, stitching) at rungs x0-x7 and ``int8``,
 and the reference-compatible benchmark CLI over it (``python -m
-whisper_tpu_torch.bench``), on an NVIDIA H100 through hand-written CUDA
-kernels for Hopper (``csrc/``, built with nvcc at first use), among them:
+whisper_tpu_torch.bench``; any audio libav reads through the native
+decoder, ``native/``), on one NVIDIA H100 or a mesh of processes, one a
+card (``parallel/``: data and tensor parallelism over
+``torch.distributed``), through hand-written CUDA kernels for Hopper
+(``csrc/``, built with nvcc at first use), among them:
 
 - B1 ``ops.attention.fused_attention``: encoder self-attention
 - B2 ``ops.encoder_mlp.fused_encoder_mlp``: encoder LN + MLP + residual,

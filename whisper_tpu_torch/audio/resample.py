@@ -5,10 +5,11 @@ t = i / ratio in f64, 2-tap lerp with float32 blend weights, zero for
 out-of-bounds taps.
 
 Transcript parity with the reference requires this exact resampler
-(SURVEY.md §2.1 N6).  The JAX package's C++ resampler is bit-equal to this
-NumPy expression (tests/test_native_audio.py); the port keeps only the
-NumPy one.  mu-law encoding is a wire mode of the TPU tunnel (ROADMAP
-"Not to port").
+(SURVEY.md §2.1 N6).  Where the native library loads, the C++
+``wt_resample_linear`` (``native/audio_decode.cc``) runs instead; it is
+bit-equal to the NumPy expression (tests/test_torch_native_audio.py), as
+in the JAX package.  mu-law encoding is a wire mode of the TPU tunnel
+(ROADMAP "Not to port").
 """
 
 from __future__ import annotations
@@ -21,6 +22,17 @@ def resample_linear(x: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
     x = np.asarray(x, dtype=np.float32)
     if sr_in == sr_out:
         return x.copy()
+    # Only a library that does not load takes NumPy; an error of a loaded
+    # resampler propagates, so a defect is not masked.
+    from whisper_tpu_torch.native import audio_native
+
+    if audio_native.available():
+        return audio_native.resample_linear(x, sr_in, sr_out)
+    return _resample_linear_numpy(x, sr_in, sr_out)
+
+
+def _resample_linear_numpy(x: np.ndarray, sr_in: int,
+                           sr_out: int) -> np.ndarray:
     ratio = float(sr_out) / float(sr_in)           # f64, like the reference
     n_out = int(np.floor(len(x) * ratio + 0.5))    # Rust round(): half away from zero
 

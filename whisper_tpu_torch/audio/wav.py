@@ -93,7 +93,7 @@ def read_wav(path: str) -> Tuple[np.ndarray, int]:
     else:
         raise ValueError(
             f"Unsupported WAV format tag {audio_format} (compressed audio "
-            f"needs the native decoder: ROADMAP queue 1 item 9)"
+            f"needs the native decoder, whisper_tpu_torch.native)"
         )
 
     n = (len(x) // channels) * channels

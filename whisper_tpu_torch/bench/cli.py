@@ -32,9 +32,17 @@ trace), speculative decoding (``--draft-dir`` or ``--draft-model-id``,
 ``--write-srt``/``--write-vtt`` (``bench.subtitles``), ``--vad-filter``
 with ``--vad-threshold-db`` (``audio.vad``) and ``--longform-mode
 pipelined`` with ``--slab-chunks`` (per-chunk mel normalization, slab by
-slab: ``pipeline.pipelined``).  The JAX CLI's refusals of
-combinations stay as they are there; every other feature flag exits naming
-its ROADMAP item; none is silently ignored.
+slab: ``pipeline.pipelined``), any file libav decodes (wav, flac, mp3:
+``audio.io`` through the native decoder, built at first use), and
+``--data-parallel``/``--tensor-parallel`` over a mesh of processes, one a
+card (``parallel.mesh``): ``torchrun --nproc-per-node N -m
+whisper_tpu_torch.bench --data-parallel N ...``, or ``--dcn-coordinator
+host:port --dcn-num-processes N --dcn-process-id R`` in each process (0
+and -1, the defaults, take ``WORLD_SIZE`` and ``RANK`` from the
+environment).  Every rank decodes; rank 0 alone writes the CSV, the JSON,
+the summary, the transcripts and the report.  The JAX CLI's refusals of
+combinations stay as they are there; the wire encodings exit naming their
+ROADMAP entry; no flag is silently ignored.
 """
 
 from __future__ import annotations
@@ -162,14 +170,7 @@ def build_parser() -> argparse.ArgumentParser:
 def not_ported(args) -> List[str]:
     """The flags of ``args`` that ask for what the port lacks, each with
     its ROADMAP item (empty when the run is ported)."""
-    defaults = build_parser().parse_args([])
-    changed = {k for k, v in vars(args).items() if getattr(defaults, k) != v}
-    item = "ROADMAP queue 1 item"
     checks = [
-        (args.data_parallel > 1 or args.tensor_parallel > 1,
-         f"--data-parallel/--tensor-parallel (more cards): {item} 12"),
-        (bool({"dcn_coordinator", "dcn_num_processes", "dcn_process_id"}
-              & changed), f"--dcn-* (multi-host): {item} 12"),
         (args.audio_transfer not in PORTED_TRANSFERS,
          f"--audio-transfer {args.audio_transfer} (the TPU tunnel's wire "
          "encodings and probe): ROADMAP 'Not to port'"),
@@ -212,6 +213,42 @@ def _build_session(args, cfg, device):
         return WhisperSession(params, dims, cfg, device=device)
     except NotImplementedError as e:  # a discovery config the port lacks
         raise SystemExit(f"not ported: {e}")
+
+
+def _join_processes(args, n_mesh: int) -> int:
+    """Join the process group the run asks for and return this rank (0 in
+    a world of one): ``--dcn-*`` (any of them given) over TCP, else the
+    environment ``torchrun`` sets when the mesh has more than one process.
+    A mesh of n_mesh > 1 processes in a world of one exits naming
+    torchrun; it never runs on one card in silence."""
+    import torch.distributed as dist
+
+    from whisper_tpu_torch.parallel import mesh as pm
+
+    defaults = build_parser().parse_args([])
+    dcn = any(getattr(args, k) != getattr(defaults, k) for k in (
+        "dcn_coordinator", "dcn_num_processes", "dcn_process_id"))
+    if not dist.is_initialized():
+        try:
+            if dcn:
+                pm.init_distributed(args.dcn_coordinator,
+                                    args.dcn_num_processes,
+                                    args.dcn_process_id)
+            elif n_mesh > 1 and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+                pm.init_distributed()
+        except RuntimeError as e:
+            raise SystemExit(f"error: {e}")
+    world = pm.world_size()
+    if n_mesh > 1 and world == 1:
+        raise SystemExit(
+            f"error: --data-parallel x --tensor-parallel = {n_mesh} needs "
+            f"{n_mesh} processes, one a card, and this is a world of one: "
+            f"run {pm.torchrun_hint(n_mesh)}")
+    if world > 1 and n_mesh != world:
+        raise SystemExit(
+            f"error: the process group holds {world} processes; pass "
+            f"--data-parallel and --tensor-parallel whose product is {world}")
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def _sync(device) -> None:
@@ -301,6 +338,7 @@ def main(argv: Optional[List[str]] = None, *, device=None) -> int:
         while b < args.chunk_parallelism and b < 64:
             b <<= 1
         cfg = dataclasses.replace(cfg, max_batch=b)
+    rank = _join_processes(args, cfg.data_parallel * cfg.tensor_parallel)
 
     from whisper_tpu_torch.runtime.genconfig import load_generation_cfg
     from whisper_tpu_torch.tokenizer.specials import resolve_tokenizer
@@ -544,6 +582,8 @@ def main(argv: Optional[List[str]] = None, *, device=None) -> int:
             end2end.append(e2e)
             rtf_l.append(rtf)
 
+            if rank != 0:
+                continue
             if args.write_txt:
                 stem = Path(fnm).stem
                 with open(os.path.join(txt_dir, f"{stem}.transcript.txt"),
@@ -572,12 +612,15 @@ def main(argv: Optional[List[str]] = None, *, device=None) -> int:
         if prof is not None:
             _sync(device)
             prof.__exit__(None, None, None)
-            os.makedirs(args.profile_dir, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(args.profile_dir,
-                                                  "trace.json"))
+            if rank == 0:
+                os.makedirs(args.profile_dir, exist_ok=True)
+                prof.export_chrome_trace(os.path.join(args.profile_dir,
+                                                      "trace.json"))
         if executor is not None:
             executor.shutdown(wait=True)
 
+    if rank != 0:
+        return 0       # every rank decoded; rank 0 writes the outputs
     write_per_file_csv(rows, args.out_csv)
     write_per_file_json(rows, args.out_json)
 

@@ -52,10 +52,11 @@ def card_info() -> str:
 
 
 def make_session(device, params=None, variant: str = VARIANT,
-                 model_id: str = MODEL_ID, **overrides):
+                 model_id: str = MODEL_ID, mesh=None, **overrides):
     """A WhisperSession on ``device``: ``model_id`` (whisper-base) at rung
     ``variant`` (x5) with ``overrides`` of its RuntimeCfg, with ``params``
-    (a numpy weight tree) or random weights from seed 0."""
+    (a numpy weight tree) or random weights from seed 0; ``mesh`` (a
+    ``parallel.mesh.Mesh``) makes it one rank of a mesh."""
     import dataclasses
 
     from whisper_tpu_torch.models.convert import init_params
@@ -68,7 +69,7 @@ def make_session(device, params=None, variant: str = VARIANT,
     cfg = dataclasses.replace(cfg, **overrides)
     if params is None:
         params = init_params(dims, seed=0)
-    return WhisperSession(params, dims, cfg, device=device)
+    return WhisperSession(params, dims, cfg, device=device, mesh=mesh)
 
 
 def run_once(session, audio: np.ndarray, token_collector=None,

@@ -91,6 +91,19 @@ def sinusoid_position_embedding(length: int, channels: int) -> np.ndarray:
     ).astype(np.float32)
 
 
+def clamp_token_ids(ids, vocab_size: int) -> np.ndarray:
+    """Host token ids as the JAX model's embedding gather reads them
+    (int64 numpy): a negative id counts from the end, as in numpy, and an
+    id outside [0, vocab_size) is clamped into it (``jnp.take``'s
+    out-of-bounds mode for a gather: ``x[5]`` of 4 rows is row 3).  The
+    port's indexing would raise instead (an IndexError on the CPU, a
+    device-side assert on the card), so the session clamps every id it
+    uploads; ids decoded by an argmax over the vocabulary never need it."""
+    ids = np.asarray(ids, dtype=np.int64)
+    ids = np.where(ids < 0, ids + vocab_size, ids)
+    return np.clip(ids, 0, vocab_size - 1)
+
+
 def _layer_norm(x, scale, bias):
     x32 = x.float()
     mean = x32.mean(dim=-1, keepdim=True)
@@ -115,14 +128,72 @@ def _dense(x, w, b, int8_act: bool = False):
     scale is the row scale times the per-output-channel weight scale; the
     bias adds in x's dtype."""
     if int8_act and isinstance(w, QTensor):
-        xs = x.abs().amax(dim=-1, keepdim=True)
-        xs = torch.clamp_min(div127(xs.float()), 1e-12)
-        xq = torch.clamp(torch.round(x.float() / xs), -127, 127).to(torch.int8)
-        acc = int8_matmul(xq, w.q)
-        y = (acc.float() * xs * w.s.float()).to(x.dtype)
+        xq, xs = _quantize_rows(x, x.abs().amax(dim=-1, keepdim=True))
+        y = (int8_matmul(xq, w.q).float() * xs * w.s.float()).to(x.dtype)
         return y if b is None else y + b
     y = torch.matmul(x, _dequant(w, x.dtype))
     return y if b is None else y + b
+
+
+def _quantize_rows(x, absmax):
+    """W8A8's activation quantization of x given each row's absmax (in x's
+    dtype): (int8 rows, fp32 scales)."""
+    xs = torch.clamp_min(div127(absmax.float()), 1e-12)
+    xq = torch.clamp(torch.round(x.float() / xs), -127, 127).to(torch.int8)
+    return xq, xs
+
+
+def _rows(w) -> int:
+    """Input rows of a [..., in, out] weight (a QTensor's alike)."""
+    return (w.q if isinstance(w, QTensor) else w).shape[-2]
+
+
+def _cols(w) -> int:
+    """Output columns of a [..., in, out] weight (a QTensor's alike)."""
+    return (w.q if isinstance(w, QTensor) else w).shape[-1]
+
+
+def _row_dense(x, w, b, mesh, full: int, int8_act: bool = False):
+    """x @ w + b for a row-parallel weight (o, xo, fc2) of ``full`` input
+    rows.  Without a mesh, ``_dense``.  Under a mesh:
+
+    - w holds this rank's rows (``shard_params``): the partial product is
+      summed over "model" and the bias added once, after the sum.  W8A8
+      (x6) takes the row's absmax over "model" first and sums the exact
+      int32 accumulators, so it stays bitwise the one-process product;
+    - w is whole (kept whole for a fused kernel) and x holds the rank's
+      heads: x is all-gathered over "model" first;
+    - w and x are both whole: ``_dense``.
+
+    A model axis of one takes the first branch, whose sum over one rank
+    is no call at all."""
+    if mesh is None:
+        return _dense(x, w, b, int8_act)
+    from whisper_tpu_torch.parallel import mesh as pm
+
+    rows = _rows(w)
+    if x.shape[-1] != rows:
+        x = pm.all_gather(x.contiguous(), mesh, pm.MODEL_AXIS, x.ndim - 1)
+        return _dense(x, w, b, int8_act)
+    if rows * mesh.model != full:
+        return _dense(x, w, b, int8_act)
+    if int8_act and isinstance(w, QTensor):
+        xq, xs = _quantize_rows(x, pm.all_reduce(
+            x.abs().amax(dim=-1, keepdim=True), mesh, op="max"))
+        acc = pm.all_reduce(int8_matmul(xq, w.q), mesh)
+        y = (acc.float() * xs * w.s.float()).to(x.dtype)
+    else:
+        y = pm.all_reduce(torch.matmul(x, _dequant(w, x.dtype)), mesh)
+    return y if b is None else y + b
+
+
+def _whole(w, full: int, what: str) -> None:
+    """Raise unless a fused kernel's weight is whole (``full`` columns)."""
+    if _cols(w) != full:
+        raise ValueError(
+            f"{what}: the fused kernel needs its weights whole on every "
+            f"model rank ({_cols(w)} of {full} columns here); keep them out "
+            "of the tensor-parallel split (shard_params(whole=...))")
 
 
 def _split_heads(x, n_heads: int):
@@ -184,7 +255,7 @@ def encoder_apply(params: Params, dims: WhisperDims, mel: torch.Tensor, *,
                   fused_attention: bool = False,
                   int8_activations: bool = False,
                   fused_mlp: bool = False,
-                  fused_block: bool = False) -> torch.Tensor:
+                  fused_block: bool = False, mesh=None) -> torch.Tensor:
     """Encoder forward: mel [B, n_mels, T] -> hidden states [B, T//2, d].
 
     conv1d(k=3,s=1)+GELU, conv1d(k=3,s=2)+GELU, + sinusoidal positions,
@@ -200,7 +271,15 @@ def encoder_apply(params: Params, dims: WhisperDims, mel: torch.Tensor, *,
     -> B9b ("whole"), or B9a -> B1 -> plain O-projection + residual -> B2
     ("chunked"), chosen by ``fused_block_mode`` exactly where the JAX
     package chooses, or the unfused block where it falls back.  It
-    supersedes fused_mlp and ignores int8_activations."""
+    supersedes fused_mlp and ignores int8_activations.
+
+    mesh (``parallel.mesh.Mesh``): params are this rank's shard
+    (``shard_params``); attention runs on the rank's heads and the
+    row-parallel products are summed over "model" (``_row_dense``).  B2 and
+    B9b fuse FC2's bias and the residual into the product, so they take
+    whole weights (every model rank runs them whole); B9a and B1 run on the
+    rank's columns and heads, and B9b's input is all-gathered over
+    "model"."""
     enc = params["encoder"]
     dtype = enc["conv1_w"].dtype
     x = mel.to(dtype)
@@ -208,7 +287,8 @@ def encoder_apply(params: Params, dims: WhisperDims, mel: torch.Tensor, *,
     x = F.gelu(_conv1d(x, enc["conv2_w"], enc["conv2_b"], 2))
     x = x.transpose(1, 2).contiguous()                       # [B, T', d]
     x = x + enc["pos_embed"][: x.shape[1]].to(dtype)
-    h = dims.encoder_heads
+    dh = dims.d_model // dims.encoder_heads
+    d, f = dims.d_model, dims.d_ffn
     i8 = int8_activations
     fb_mode = None
     if fused_block:
@@ -218,18 +298,20 @@ def encoder_apply(params: Params, dims: WhisperDims, mel: torch.Tensor, *,
     for li in range(dims.encoder_layers):
         p = _layer(enc["blocks"], li)
         if fb_mode is not None:
-            x = _encoder_block_fused(x, p, h, fb_mode)
+            x = _encoder_block_fused(x, p, dh, f, fb_mode, mesh)
             continue
         r = _layer_norm(x, p["attn_ln_s"], p["attn_ln_b"])
         q = _dense(r, p["q_w"], p["q_b"], i8)
         k = _dense(r, p["k_w"], None, i8)
         v = _dense(r, p["v_w"], p["v_b"], i8)
+        h = q.shape[-1] // dh                     # the rank's heads
         o = _attend(_split_heads(q, h), _split_heads(k, h),
                     _split_heads(v, h), None, fused=fused_attention)
-        x = x + _dense(_merge_heads(o), p["o_w"], p["o_b"], i8)
+        x = x + _row_dense(_merge_heads(o), p["o_w"], p["o_b"], mesh, d, i8)
         if fused_mlp:
             from whisper_tpu_torch.ops.encoder_mlp import fused_encoder_mlp
 
+            _whole(p["fc1_w"], f, "fused_encoder_mlp (B2)")
             x = fused_encoder_mlp(
                 x, p["mlp_ln_s"], p["mlp_ln_b"],
                 _dequant(p["fc1_w"], x.dtype), p["fc1_b"],
@@ -237,7 +319,7 @@ def encoder_apply(params: Params, dims: WhisperDims, mel: torch.Tensor, *,
         else:
             r = _layer_norm(x, p["mlp_ln_s"], p["mlp_ln_b"])
             r = F.gelu(_dense(r, p["fc1_w"], p["fc1_b"], i8))
-            x = x + _dense(r, p["fc2_w"], p["fc2_b"], i8)
+            x = x + _row_dense(r, p["fc2_w"], p["fc2_b"], mesh, f, i8)
     return _layer_norm(x, enc["ln_f_s"], enc["ln_f_b"])
 
 
@@ -251,10 +333,14 @@ def fused_qkv(p: Dict, dtype: torch.dtype):
     return w_qkv, b_qkv
 
 
-def _encoder_block_fused(x, p: Dict, h: int, mode: str):
+def _encoder_block_fused(x, p: Dict, dh: int, f: int, mode: str,
+                         mesh=None):
     """One encoder layer through the ``ops.encoder_block`` kernels (the JAX
     package's ``block_fused``).  ``p`` may carry the pre-fused ``qkv_w`` /
-    ``qkv_b`` (``WhisperEncoder`` builds them once)."""
+    ``qkv_b`` (``WhisperEncoder`` builds them once).  Under a mesh B9a and
+    B1 run on the rank's columns and heads; B9b (O product, residual,
+    LayerNorm, MLP in one) takes the all-gathered context and whole
+    weights."""
     from whisper_tpu_torch.ops import encoder_block as eb
 
     d = x.shape[-1]
@@ -263,18 +349,31 @@ def _encoder_block_fused(x, p: Dict, h: int, mode: str):
     else:
         w_qkv, b_qkv = fused_qkv(p, x.dtype)
     qkv = eb.fused_ln_qkv(x, p["attn_ln_s"], p["attn_ln_b"], w_qkv, b_qkv)
-    q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    dl = qkv.shape[-1] // 3                       # the rank's columns
+    q, k, v = qkv[..., :dl], qkv[..., dl:2 * dl], qkv[..., 2 * dl:]
+    h = dl // dh
     o = _attend(_split_heads(q, h), _split_heads(k, h), _split_heads(v, h),
                 None, fused=True)
     if mode == "whole":
+        ctx = _merge_heads(o)
+        if mesh is not None:
+            from whisper_tpu_torch.parallel import mesh as pm
+
+            _whole(p["o_w"], d, "fused_out_mlp (B9b)")
+            _whole(p["fc1_w"], f, "fused_out_mlp (B9b)")
+            if dl != d:
+                ctx = pm.all_gather(ctx.contiguous(), mesh, pm.MODEL_AXIS,
+                                    ctx.ndim - 1)
         return eb.fused_out_mlp(
-            x, _merge_heads(o), _dequant(p["o_w"], x.dtype), p["o_b"],
+            x, ctx, _dequant(p["o_w"], x.dtype), p["o_b"],
             p["mlp_ln_s"], p["mlp_ln_b"],
             _dequant(p["fc1_w"], x.dtype), p["fc1_b"],
             _dequant(p["fc2_w"], x.dtype), p["fc2_b"])
     from whisper_tpu_torch.ops.encoder_mlp import fused_encoder_mlp
 
-    x = x + _dense(_merge_heads(o), p["o_w"], p["o_b"])
+    x = x + _row_dense(_merge_heads(o), p["o_w"], p["o_b"], mesh, d)
+    if mesh is not None:
+        _whole(p["fc1_w"], f, "fused_encoder_mlp (B2)")
     return fused_encoder_mlp(
         x, p["mlp_ln_s"], p["mlp_ln_b"],
         _dequant(p["fc1_w"], x.dtype), p["fc1_b"],
@@ -286,8 +385,12 @@ def _encoder_block_fused(x, p: Dict, h: int, mode: str):
 # ---------------------------------------------------------------------------
 
 def init_cache(dims: WhisperDims, batch: int, max_len: int, t_enc: int,
-               dtype: torch.dtype, device) -> KVCache:
-    l, h, dh = dims.decoder_layers, dims.decoder_heads, dims.head_dim
+               dtype: torch.dtype, device, heads: Optional[int] = None
+               ) -> KVCache:
+    """Zero caches of ``heads`` heads (a tensor-parallel rank's share;
+    the model's decoder heads by default)."""
+    l, dh = dims.decoder_layers, dims.head_dim
+    h = dims.decoder_heads if heads is None else heads
 
     def z(s):
         return torch.zeros((l, batch, h, s, dh), dtype=dtype, device=device)
@@ -296,15 +399,15 @@ def init_cache(dims: WhisperDims, batch: int, max_len: int, t_enc: int,
                    cross_k=z(t_enc), cross_v=z(t_enc))
 
 
-def _decoder_mlp(x, p):
+def _decoder_mlp(x, p, dims: WhisperDims, mesh=None):
     r = _layer_norm(x, p["mlp_ln_s"], p["mlp_ln_b"])
     r = F.gelu(_dense(r, p["fc1_w"], p["fc1_b"]))
-    return x + _dense(r, p["fc2_w"], p["fc2_b"])
+    return x + _row_dense(r, p["fc2_w"], p["fc2_b"], mesh, dims.d_ffn)
 
 
 def _decoder_blocks(params: Params, dims: WhisperDims, x, cache: KVCache,
                     pos, self_mask, cross_len: Optional[int] = None,
-                    int8_mxu: bool = True):
+                    int8_mxu: bool = True, mesh=None):
     """All decoder blocks with plain self-attention (prefill at every rung,
     the step at x0-x3, and every pass of speculative decoding): writes
     self-attention rows [pos, pos+S) of the cache in place and attends per
@@ -319,7 +422,11 @@ def _decoder_blocks(params: Params, dims: WhisperDims, x, cache: KVCache,
     kernels against the int8 cross cache, the JAX package's packed-cross
     generic block: one token a row through B4 (int8_mxu) or B6, S > 1 (the
     verify pass) through B7.  An int8 self cache (x7) raises: only the
-    single-token kernel step reads it."""
+    single-token kernel step reads it.
+
+    mesh: the params and the caches hold this rank's heads; the kernels
+    run through their ``*_sharded`` wrappers and o/xo/fc2 are summed over
+    "model" (``_row_dense``)."""
     if cache.self_k_scale is not None:
         raise ValueError(
             "int8 self cache requires the single-token kernel decode step "
@@ -329,7 +436,7 @@ def _decoder_blocks(params: Params, dims: WhisperDims, x, cache: KVCache,
         raise ValueError("cross_len (the cross-attention kernels) needs the "
                          "int8 cross cache")
     dec = params["decoder"]
-    h = dims.decoder_heads
+    d, dh = dims.d_model, dims.head_dim
     s = x.shape[1]
     rows = None
     if isinstance(pos, torch.Tensor):
@@ -340,17 +447,27 @@ def _decoder_blocks(params: Params, dims: WhisperDims, x, cache: KVCache,
         rows = (torch.arange(x.shape[0], device=x.device)[:, None],
                 pos[:, None] + torch.arange(s, device=x.device)[None, :])
     if cross_len is not None:
-        from whisper_tpu_torch.ops.cross_attention import (
-            cross_attend_multi,
-            cross_attend_step,
-            cross_attend_step_dequant,
-        )
+        from whisper_tpu_torch.ops import cross_attention as ca
 
-        scale = dims.head_dim ** -0.5
+        if mesh is None:
+            step = (ca.cross_attend_step if int8_mxu
+                    else ca.cross_attend_step_dequant)
+            multi = ca.cross_attend_multi
+        else:
+            def step(*a, **kw):
+                return ca.cross_attend_step_sharded(
+                    *a, **kw, int8_mxu=int8_mxu, mesh=mesh,
+                    heads=dims.decoder_heads)
+
+            def multi(*a, **kw):
+                return ca.cross_attend_multi_sharded(
+                    *a, **kw, mesh=mesh, heads=dims.decoder_heads)
+        scale = dh ** -0.5
         ks = cache.cross_k_scale[:, :, :, 0, 0]                # [L, B, H]
         vs = cache.cross_v_scale[:, :, :, 0, 0]
     for li in range(dims.decoder_layers):
         p = _layer(dec["blocks"], li)
+        h = _cols(p["q_w"]) // dh                 # the rank's heads
         r = _layer_norm(x, p["ln_s"], p["ln_b"])
         q = _split_heads(_dense(r, p["q_w"], p["q_b"]), h)
         k = _split_heads(_dense(r, p["k_w"], None), h)
@@ -363,82 +480,100 @@ def _decoder_blocks(params: Params, dims: WhisperDims, x, cache: KVCache,
             cache.self_k[li][rows[0], :, rows[1]] = k.transpose(1, 2)
             cache.self_v[li][rows[0], :, rows[1]] = v.transpose(1, 2)
         o = _attend(q, cache.self_k[li], cache.self_v[li], self_mask)
-        x = x + _dense(_merge_heads(o), p["o_w"], p["o_b"])
+        x = x + _row_dense(_merge_heads(o), p["o_w"], p["o_b"], mesh, d)
 
         r = _layer_norm(x, p["x_ln_s"], p["x_ln_b"])
         q = _split_heads(_dense(r, p["xq_w"], p["xq_b"]), h)
         if cross_len is not None and s == 1:
-            step = cross_attend_step if int8_mxu else cross_attend_step_dequant
             o = step((q[:, :, 0, :] * scale).contiguous(), cache.cross_k,
                      cache.cross_v, ks, vs, li,
                      s_valid=cross_len)[:, :, None, :]
         elif cross_len is not None:
             qm = (q.transpose(1, 2) * scale).contiguous()    # [B, T, H, Dh]
-            o = cross_attend_multi(qm, cache.cross_k, cache.cross_v, ks, vs,
-                                   li, s_valid=cross_len,
-                                   int8_mxu=int8_mxu).transpose(1, 2)
+            o = multi(qm, cache.cross_k, cache.cross_v, ks, vs, li,
+                      s_valid=cross_len, int8_mxu=int8_mxu).transpose(1, 2)
         elif cache.cross_k_scale is not None:
             o = _attend_int8(q, cache.cross_k[li], cache.cross_v[li],
                              cache.cross_k_scale[li], cache.cross_v_scale[li])
         else:
             o = _attend(q, cache.cross_k[li], cache.cross_v[li], None)
-        x = x + _dense(_merge_heads(o), p["xo_w"], p["xo_b"])
-        x = _decoder_mlp(x, p)
+        x = x + _row_dense(_merge_heads(o), p["xo_w"], p["xo_b"], mesh, d)
+        x = _decoder_mlp(x, p, dims, mesh)
     return _layer_norm(x, dec["ln_f_s"], dec["ln_f_b"]), cache
 
 
 def _decoder_blocks_kernel(params: Params, dims: WhisperDims, x,
                            cache: KVCache, pos: int, cross_len: int,
-                           int8_mxu: bool = True, pad_count=None):
+                           int8_mxu: bool = True, pad_count=None,
+                           mesh=None):
     """Single-token decoder step through the x4/x5/x7 kernels, replacing
     the JAX package's ``_decoder_blocks_packed``: per layer, B3 (or, against
     an int8 self cache, B8) attends and writes the self cache in place,
     then B4 (int8_mxu, x5 and x7) or B6 (x4) attends the int8 cross cache.
     The caches keep the prefill layout (no packing step).  pad_count ([B]
     int32 on the cache's device, or None) goes to B3/B8, which then attend
-    rows [pad_count, pos] of each row."""
-    from whisper_tpu_torch.ops.cross_attention import (
-        cross_attend_step,
-        cross_attend_step_dequant,
-    )
-    from whisper_tpu_torch.ops.self_attention import (
-        self_attend_step,
-        self_attend_step_int8,
-    )
+    rows [pad_count, pos] of each row.
 
-    cross_attend = cross_attend_step if int8_mxu else cross_attend_step_dequant
+    mesh: the counterpart of the JAX ``mesh=`` path, which runs the packed
+    kernels per shard through ``shard_map``: here the rank already holds
+    its rows and heads, and each kernel runs through its ``*_sharded``
+    wrapper (B3/B8 and B4/B6 on the rank's heads); o/xo/fc2 are summed
+    over "model"."""
+    from whisper_tpu_torch.ops import cross_attention as ca
+    from whisper_tpu_torch.ops import self_attention as sa
+
     int8_self = cache.self_k_scale is not None
+    if mesh is None:
+        cross_attend = (ca.cross_attend_step if int8_mxu
+                        else ca.cross_attend_step_dequant)
+        self_attend, self_attend_i8 = (sa.self_attend_step,
+                                       sa.self_attend_step_int8)
+    else:
+        shard = dict(mesh=mesh, heads=dims.decoder_heads)
+
+        def cross_attend(*a, **kw):
+            return ca.cross_attend_step_sharded(*a, **kw, int8_mxu=int8_mxu,
+                                                **shard)
+
+        def self_attend(*a):
+            return sa.self_attend_step_sharded(*a, **shard)
+
+        def self_attend_i8(*a):
+            return sa.self_attend_step_int8_sharded(*a, **shard)
 
     dec = params["decoder"]
-    h = dims.decoder_heads
-    scale = dims.head_dim ** -0.5
+    d, dh = dims.d_model, dims.head_dim
+    scale = dh ** -0.5
     ks = cache.cross_k_scale[:, :, :, 0, 0]                    # [L, B, H]
     vs = cache.cross_v_scale[:, :, :, 0, 0]
     for li in range(dims.decoder_layers):
         p = _layer(dec["blocks"], li)
         r = _layer_norm(x, p["ln_s"], p["ln_b"])
-        q = _dense(r, p["q_w"], p["q_b"])[:, 0]               # [B, d]
+        q = _dense(r, p["q_w"], p["q_b"])[:, 0]               # [B, d/tp]
         k = _dense(r, p["k_w"], None)[:, 0]
         v = _dense(r, p["v_w"], p["v_b"])[:, 0]
-        qkv = ((q * scale).reshape(-1, h, dims.head_dim),
-               k.reshape(-1, h, dims.head_dim).contiguous(),
-               v.reshape(-1, h, dims.head_dim).contiguous())
+        h = q.shape[-1] // dh                     # the rank's heads
+        qkv = ((q * scale).reshape(-1, h, dh),
+               k.reshape(-1, h, dh).contiguous(),
+               v.reshape(-1, h, dh).contiguous())
         if int8_self:
-            ctx = self_attend_step_int8(
+            ctx = self_attend_i8(
                 *qkv, cache.self_k, cache.self_v, cache.self_k_scale,
                 cache.self_v_scale, li, pos, pad_count)
         else:
-            ctx = self_attend_step(*qkv, cache.self_k, cache.self_v, li, pos,
-                                   pad_count)
-        x = x + _dense(ctx.reshape(x.shape), p["o_w"], p["o_b"])
+            ctx = self_attend(*qkv, cache.self_k, cache.self_v, li, pos,
+                              pad_count)
+        x = x + _row_dense(ctx.reshape(x.shape[0], 1, -1), p["o_w"],
+                           p["o_b"], mesh, d)
 
         r = _layer_norm(x, p["x_ln_s"], p["x_ln_b"])
         q = _dense(r, p["xq_w"], p["xq_b"])[:, 0]
         ctx = cross_attend(
-            (q * scale).reshape(-1, h, dims.head_dim),
+            (q * scale).reshape(-1, h, dh),
             cache.cross_k, cache.cross_v, ks, vs, li, s_valid=cross_len)
-        x = x + _dense(ctx.reshape(x.shape), p["xo_w"], p["xo_b"])
-        x = _decoder_mlp(x, p)
+        x = x + _row_dense(ctx.reshape(x.shape[0], 1, -1), p["xo_w"],
+                           p["xo_b"], mesh, d)
+        x = _decoder_mlp(x, p, dims, mesh)
     return _layer_norm(x, dec["ln_f_s"], dec["ln_f_b"]), cache
 
 
@@ -479,7 +614,7 @@ def _logits(params: Params, x):
 
 def decoder_prefill(params: Params, dims: WhisperDims, tokens, enc_states,
                     max_len: int, *, int8_cross_kv: bool = False,
-                    prompt_mask=None):
+                    prompt_mask=None, mesh=None):
     """Full-prompt decoder pass: logits [B, P, V] and a cache whose self-KV
     holds positions [0, P) and whose cross-KV is final.
 
@@ -487,18 +622,21 @@ def decoder_prefill(params: Params, dims: WhisperDims, tokens, enc_states,
     prompts of one static length (previous-text conditioning): a real token
     takes the position id of the real slots before it, a pad slot position
     0, and no pad slot is ever attended, so the real rows equal those of
-    the unpadded shorter prompt."""
+    the unpadded shorter prompt.
+
+    mesh: the caches hold this rank's heads (``_decoder_blocks``)."""
     dec = params["decoder"]
     dtype = dec["tok_emb"].dtype
     b, p = tokens.shape
-    h = dims.decoder_heads
+    h = _cols(dec["blocks"]["xk_w"]) // dims.head_dim   # the rank's heads
     enc = enc_states.to(dtype)
     ck, cv = [], []
     for li in range(dims.decoder_layers):
         pb = _layer(dec["blocks"], li)
         ck.append(_split_heads(_dense(enc, pb["xk_w"], None), h))
         cv.append(_split_heads(_dense(enc, pb["xv_w"], pb["xv_b"]), h))
-    cache = init_cache(dims, b, max_len, enc.shape[1], dtype, enc.device)
+    cache = init_cache(dims, b, max_len, enc.shape[1], dtype, enc.device,
+                       heads=h)
     cache = cache._replace(cross_k=torch.stack(ck), cross_v=torch.stack(cv))
     if int8_cross_kv:
         cache = quantize_cross_kv(cache)
@@ -514,22 +652,25 @@ def decoder_prefill(params: Params, dims: WhisperDims, tokens, enc_states,
         valid_k = torch.cat([prompt_mask, prompt_mask.new_ones(
             (b, max_len - p))], dim=1)                         # [B, S_max]
         mask = (mask[None] & valid_k[:, None, :])[:, None]     # [B,1,P,S]
-    x, cache = _decoder_blocks(params, dims, x, cache, 0, mask)
+    x, cache = _decoder_blocks(params, dims, x, cache, 0, mask, mesh=mesh)
     return _logits(params, x), cache
 
 
 def decoder_alignment_weights(params: Params, dims: WhisperDims, tokens,
-                              enc_states) -> torch.Tensor:
+                              enc_states, mesh=None) -> torch.Tensor:
     """Teacher-forced pass over ``tokens`` [B, P] (prompt + generated,
     padded): the cross-attention probabilities [L, B, H, P, T_enc], fp32,
     the raw material of word timings (``pipeline.words``).  As in the JAX
     function: causal self-attention over the P tokens alone (no cache), the
     cross K/V in the weights' dtype (never int8), fp32 scores and softmax,
-    exact erf GELU; plain products, no kernel."""
+    exact erf GELU; plain products, no kernel.  Under a mesh each rank
+    computes its heads and the probabilities are all-gathered over
+    "model", so every rank returns all heads."""
     dec = params["decoder"]
     dtype = dec["tok_emb"].dtype
     p = tokens.shape[1]
-    h = dims.decoder_heads
+    d = dims.d_model
+    h = _cols(dec["blocks"]["q_w"]) // dims.head_dim    # the rank's heads
     enc = enc_states.to(dtype)
     x = dec["tok_emb"][tokens] + dec["pos_embed"][:p].to(dtype)
     causal = torch.ones((p, p), dtype=torch.bool,
@@ -542,7 +683,7 @@ def decoder_alignment_weights(params: Params, dims: WhisperDims, tokens,
         k = _split_heads(_dense(r, pb["k_w"], None), h)
         v = _split_heads(_dense(r, pb["v_w"], pb["v_b"]), h)
         o = _attend(q, k, v, causal)
-        x = x + _dense(_merge_heads(o), pb["o_w"], pb["o_b"])
+        x = x + _row_dense(_merge_heads(o), pb["o_w"], pb["o_b"], mesh, d)
 
         r = _layer_norm(x, pb["x_ln_s"], pb["x_ln_b"])
         q = _split_heads(_dense(r, pb["xq_w"], pb["xq_b"]), h)
@@ -553,15 +694,20 @@ def decoder_alignment_weights(params: Params, dims: WhisperDims, tokens,
                                         ck.float().transpose(-1, -2)), -1)
         probs.append(pr)
         o = torch.matmul(pr.to(dtype), cv)
-        x = x + _dense(_merge_heads(o), pb["xo_w"], pb["xo_b"])
-        x = _decoder_mlp(x, pb)
-    return torch.stack(probs)
+        x = x + _row_dense(_merge_heads(o), pb["xo_w"], pb["xo_b"], mesh, d)
+        x = _decoder_mlp(x, pb, dims, mesh)
+    probs = torch.stack(probs)
+    if mesh is not None:
+        from whisper_tpu_torch.parallel import mesh as pm
+
+        probs = pm.all_gather(probs, mesh, pm.MODEL_AXIS, 2)
+    return probs
 
 
 def decoder_step(params: Params, dims: WhisperDims, token, pos,
                  cache: KVCache, *, kernel_step: bool = False,
                  cross_len: Optional[int] = None, int8_mxu: bool = True,
-                 pad_count=None):
+                 pad_count=None, mesh=None):
     """One-token pass at cache slot ``pos``: logits [B, V].  pos is an int
     (all rows aligned) or a [B] tensor that gives each row its own position
     (batched speculative decoding).
@@ -577,7 +723,11 @@ def decoder_step(params: Params, dims: WhisperDims, token, pos,
     prompt, see ``decoder_prefill``): ``pos`` stays the cache slot, the
     position embedding takes pos - pad_count, and slots below pad_count are
     never attended, on every step above (B3 and B8 take it as a [B] int32
-    tensor on the card)."""
+    tensor on the card).
+
+    mesh: this rank's share of a (data, model) mesh (``parallel.mesh``):
+    its rows, its heads in the cache, the row-parallel sums over "model".
+    The logits that come back are the same on every model rank."""
     dec = params["decoder"]
     dtype = dec["tok_emb"].dtype
     max_len = cache.self_k.shape[3]
@@ -602,10 +752,12 @@ def decoder_step(params: Params, dims: WhisperDims, token, pos,
     x = dec["tok_emb"][token][:, None, :] + pos_emb
     if kernel_step:
         x, cache = _decoder_blocks_kernel(params, dims, x, cache, pos,
-                                          cross_len, int8_mxu, pad_count)
+                                          cross_len, int8_mxu, pad_count,
+                                          mesh=mesh)
     else:
         x, cache = _decoder_blocks(params, dims, x, cache, pos, mask,
-                                   cross_len=cross_len, int8_mxu=int8_mxu)
+                                   cross_len=cross_len, int8_mxu=int8_mxu,
+                                   mesh=mesh)
     return _logits(params, x)[:, 0, :], cache
 
 
@@ -665,7 +817,8 @@ class WhisperEncoder(_StackedWeights):
 
     def __init__(self, params_encoder: Dict, dims: WhisperDims, *, device,
                  fused_attention: bool = False, fused_mlp: bool = False,
-                 int8_activations: bool = False, fused_block: bool = False):
+                 int8_activations: bool = False, fused_block: bool = False,
+                 mesh=None):
         from whisper_tpu_torch.ops.encoder_block import fused_block_mode
 
         dtype = params_encoder["conv1_w"].dtype
@@ -688,13 +841,14 @@ class WhisperEncoder(_StackedWeights):
         self.fused_mlp = fused_mlp
         self.int8_activations = int8_activations
         self.fused_block = fused_block
+        self.mesh = mesh
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         return encoder_apply({"encoder": self.tree()}, self.dims, mel,
                              fused_attention=self.fused_attention,
                              int8_activations=self.int8_activations,
                              fused_mlp=self.fused_mlp,
-                             fused_block=self.fused_block)
+                             fused_block=self.fused_block, mesh=self.mesh)
 
 
 class WhisperDecoder(_StackedWeights):

@@ -253,3 +253,36 @@ def cross_attend_multi(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     with COUNT_LOCK:
         multi_launches += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Per-shard wrappers of a (data, model) mesh (``parallel.mesh``)
+# ---------------------------------------------------------------------------
+
+def cross_attend_step_sharded(q, k8, v8, k_scale, v_scale, layer: int, *,
+                              s_valid: int, int8_mxu: bool = True, mesh,
+                              heads: int) -> torch.Tensor:
+    """B4 (int8_mxu) or B6 on this rank's shard: the counterpart of the
+    JAX ``cross_attend_step_packed_sharded`` (``shard_map`` with the batch
+    over "data" and head groups over "model").  The rank already holds its
+    rows and heads [model_index * heads/tp, (model_index + 1) * heads/tp)
+    of q and of the cross cache, so this checks the head count and runs the
+    kernel (the plain version on a CPU tensor) on them; no collective."""
+    from whisper_tpu_torch.parallel.mesh import check_heads
+
+    check_heads(heads, q.shape[1], mesh, "cross_attend_step_sharded")
+    step = cross_attend_step if int8_mxu else cross_attend_step_dequant
+    return step(q, k8, v8, k_scale, v_scale, layer, s_valid=s_valid)
+
+
+def cross_attend_multi_sharded(q, k8, v8, k_scale, v_scale, layer: int, *,
+                               s_valid: int, int8_mxu: bool = False, mesh,
+                               heads: int) -> torch.Tensor:
+    """B7 on this rank's shard (the JAX
+    ``cross_attend_multi_packed_sharded``), as
+    ``cross_attend_step_sharded``; q is [B, T, H/tp, 64]."""
+    from whisper_tpu_torch.parallel.mesh import check_heads
+
+    check_heads(heads, q.shape[2], mesh, "cross_attend_multi_sharded")
+    return cross_attend_multi(q, k8, v8, k_scale, v_scale, layer,
+                              s_valid=s_valid, int8_mxu=int8_mxu)

@@ -158,10 +158,14 @@ def build_step_weights(params: Dict, dims: WhisperDims) -> Dict:
 
 
 def decoder_step_hybrid(params: Dict, step_weights: Dict, dims: WhisperDims,
-                        token: torch.Tensor, pos: int, cache):
+                        token: torch.Tensor, pos: int, cache, mesh=None):
     """One-token decoder pass with the pre-fused weights: logits [B, V] and
     the cache, whose self rows at ``pos`` are written in place.  Same
-    arguments and results as ``models.whisper.decoder_step``."""
+    arguments and results as ``models.whisper.decoder_step``.
+
+    mesh: the QKV, O, XQ and XO weights hold this rank's heads and O and
+    XO are summed over "model"; B10c fuses FC2's bias and the residual, so
+    its weights are whole on every model rank."""
     from whisper_tpu_torch.models.whisper import (
         _attend,
         _attend_int8,
@@ -169,13 +173,26 @@ def decoder_step_hybrid(params: Dict, step_weights: Dict, dims: WhisperDims,
         _logits,
         _merge_heads,
         _split_heads,
+        _whole,
     )
 
     dec = params["decoder"]
     dtype = dec["tok_emb"].dtype
-    h = dims.decoder_heads
-    d = dims.d_model
     sw = step_weights
+    dl = sw["qkv_w"].shape[-1] // 3               # the rank's columns
+    h = dl // dims.head_dim
+
+    def out(ctx, w):
+        """The O / XO product; under a mesh the rank's rows, summed."""
+        y = torch.matmul(_merge_heads(ctx), w)
+        if mesh is None:
+            return y
+        from whisper_tpu_torch.parallel.mesh import all_reduce
+
+        return all_reduce(y, mesh)
+
+    if mesh is not None:
+        _whole(sw["fc1_w"], dims.d_ffn, "decoder_mlp_block (B10c)")
     x = dec["tok_emb"][token][:, None, :] + dec["pos_embed"][pos].to(dtype)
     max_len = cache.self_k.shape[3]
     mask = (torch.arange(max_len, device=x.device) <= pos)[None, :]
@@ -183,12 +200,12 @@ def decoder_step_hybrid(params: Dict, step_weights: Dict, dims: WhisperDims,
     for li in range(dims.decoder_layers):
         r = _layer_norm(x, sw["ln1"][li, 0], sw["ln1"][li, 1])
         qkv = torch.matmul(r, sw["qkv_w"][li]) + sw["qkv_b"][li, 0]
-        q, k, v = (_split_heads(t, h)
-                   for t in (qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]))
+        q, k, v = (_split_heads(t, h) for t in (
+            qkv[..., :dl], qkv[..., dl:2 * dl], qkv[..., 2 * dl:]))
         cache.self_k[li, :, :, pos:pos + 1] = k
         cache.self_v[li, :, :, pos:pos + 1] = v
         o = _attend(q, cache.self_k[li], cache.self_v[li], mask)
-        x = x + torch.matmul(_merge_heads(o), sw["o_w"][li]) + sw["o_b"][li, 0]
+        x = x + out(o, sw["o_w"][li]) + sw["o_b"][li, 0]
 
         r = _layer_norm(x, sw["ln2"][li, 0], sw["ln2"][li, 1])
         q = _split_heads(torch.matmul(r, sw["xq_w"][li]) + sw["xq_b"][li, 0],
@@ -198,8 +215,7 @@ def decoder_step_hybrid(params: Dict, step_weights: Dict, dims: WhisperDims,
                              cache.cross_k_scale[li], cache.cross_v_scale[li])
         else:
             o = _attend(q, cache.cross_k[li], cache.cross_v[li], None)
-        x = x + torch.matmul(_merge_heads(o), sw["xo_w"][li]) \
-            + sw["xo_b"][li, 0]
+        x = x + out(o, sw["xo_w"][li]) + sw["xo_b"][li, 0]
 
         x = mlp_block(x[:, 0, :].contiguous(), sw["ln3"][li], sw["fc1_w"][li],
                       sw["fc1_b"][li], sw["fc2_w"][li],

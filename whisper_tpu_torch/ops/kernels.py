@@ -83,6 +83,8 @@ SIGNATURES = {
     "wt_decoder_cross_block": [_P] * 11 + [_I] * 4 + [_P],
     # stream: an empty kernel
     "wt_launch_floor": [_P],
+    # the card of the next launches (the library runtime's current device)
+    "wt_set_device": [_I],
 }
 
 _lib = None          # the loaded library (one per process)
@@ -168,14 +170,16 @@ def check(rc: int, name: str) -> None:
 
 
 def stream_ptr(device) -> int:
-    """PyTorch's current stream on ``device``, for a kernel launch.
+    """PyTorch's current stream on ``device``, for a kernel launch, after
+    making ``device`` the library's current card.
 
     The library carries its own CUDA runtime, whose current device is card
-    0, so a tensor on another card raises instead of launching there."""
+    0 until told otherwise: ``wt_set_device`` gives it the tensor's card
+    (PyTorch's current card for a bare "cuda") before each launch, so a
+    rank of a mesh on ``cuda:N`` launches there."""
     import torch
 
-    if device.index not in (None, 0):
-        raise NotImplementedError(
-            f"kernels launch on cuda:0 only, got {device}: more cards are "
-            "ROADMAP queue 1 item 12")
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    check(library().wt_set_device(index), f"wt_set_device({index})")
     return torch.cuda.current_stream(device).cuda_stream

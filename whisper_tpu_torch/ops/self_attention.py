@@ -244,3 +244,38 @@ def self_attend_step_int8(q: torch.Tensor, k_new: torch.Tensor,
         int8_launches += 1
         int8_padded_launches += pad_count is not None
     return out
+
+
+# ---------------------------------------------------------------------------
+# Per-shard wrappers of a (data, model) mesh (``parallel.mesh``)
+# ---------------------------------------------------------------------------
+
+def self_attend_step_sharded(q, k_new, v_new, k_cache, v_cache, layer: int,
+                             pos, pad_count=None, *, mesh,
+                             heads: int) -> torch.Tensor:
+    """B3 on this rank's shard: the counterpart of the JAX
+    ``self_attend_step_packed_sharded``, which ``shard_map``s the kernel
+    with the batch over "data" and the head groups over "model".  A rank
+    of the port already holds its shard (its rows, and heads
+    [model_index * heads/tp, (model_index + 1) * heads/tp) of the
+    ``heads``), so this checks the head count and runs the kernel (the
+    plain version on a CPU tensor) on it; no collective."""
+    from whisper_tpu_torch.parallel.mesh import check_heads
+
+    check_heads(heads, q.shape[1], mesh, "self_attend_step_sharded")
+    return self_attend_step(q, k_new, v_new, k_cache, v_cache, layer, pos,
+                            pad_count)
+
+
+def self_attend_step_int8_sharded(q, k_new, v_new, k_cache, v_cache,
+                                  k_scale, v_scale, layer: int, pos,
+                                  pad_count=None, *, mesh,
+                                  heads: int) -> torch.Tensor:
+    """B8 on this rank's shard (the JAX
+    ``self_attend_step_packed_int8_sharded``), as
+    ``self_attend_step_sharded``."""
+    from whisper_tpu_torch.parallel.mesh import check_heads
+
+    check_heads(heads, q.shape[1], mesh, "self_attend_step_int8_sharded")
+    return self_attend_step_int8(q, k_new, v_new, k_cache, v_cache, k_scale,
+                                 v_scale, layer, pos, pad_count)

@@ -47,7 +47,7 @@ def beam_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
                   eot_id: int, num_beams: int, length_penalty: float = 1.0,
                   *, ts_cfg=None, int8_cross_kv: bool = False,
                   packed_cross: bool = False, int8_mxu: bool = False,
-                  pad_count=None):
+                  pad_count=None, mesh=None):
     """Returns (tokens [B, max_new_tokens] of the best beam, scores [B]).
 
     enc_states: [B, T_enc, d]; prompt: [P] ids shared by every row; masks:
@@ -55,7 +55,9 @@ def beam_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
     an even head count) runs cross-attention through B4 (int8_mxu) or B6.
     With ts_cfg each beam carries its own timestamp-grammar state.
     pad_count ([B] int32): left pad slots of each row's prompt, masked in
-    the prefill and repeated per beam for every step."""
+    the prefill and repeated per beam for every step.  mesh: this rank's
+    share of a (data, model) mesh (its rows and heads, ``greedy_generate``);
+    the loop's ``done`` read agrees across its model ranks."""
     from whisper_tpu_torch.runtime import timestamps as ts
 
     b = enc_states.shape[0]
@@ -72,7 +74,7 @@ def beam_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
         pad_bk = pad_count.repeat_interleave(k)                # [B*K]
     logits, cache = whisper.decoder_prefill(
         params, dims, tokens_p, enc_states, p + max_new_tokens,
-        int8_cross_kv=int8_cross_kv, prompt_mask=prompt_mask)
+        int8_cross_kv=int8_cross_kv, prompt_mask=prompt_mask, mesh=mesh)
     first_logits = logits[:, -1, :].float() + first_suppress_mask
     if ts_cfg is not None:
         first_logits = ts.apply_rules(first_logits,
@@ -81,7 +83,8 @@ def beam_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
     scores, first = top_k(torch.log_softmax(first_logits, dim=-1), k)
 
     cross_len = (enc_states.shape[1]
-                 if _kernel_cross(packed_cross, int8_cross_kv, dims) else None)
+                 if _kernel_cross(packed_cross, int8_cross_kv, dims, mesh)
+                 else None)
     # [L, B, ...] -> [L, B*K, ...], beam j of row r at r*K + j; the scales
     # [L, B, H, 1, 1] tile alike
     cache = whisper.KVCache(*(None if x is None
@@ -106,7 +109,8 @@ def beam_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
             break
         step_logits, cache = whisper.decoder_step(
             params, dims, last.reshape(b * k), p + i - 1, cache,
-            cross_len=cross_len, int8_mxu=int8_mxu, pad_count=pad_bk)
+            cross_len=cross_len, int8_mxu=int8_mxu, pad_count=pad_bk,
+            mesh=mesh)
         step_logits = step_logits.float() + suppress_mask
         if ts_cfg is not None:
             step_logits = ts.apply_rules(step_logits, ts_state, i, ts_cfg)

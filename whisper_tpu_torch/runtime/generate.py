@@ -23,6 +23,12 @@ The JAX ``lax.while_loop`` becomes a Python loop.  The early exit reads
 ``done`` on the host once per step, and nothing else does: the grammar, the
 draws and the sums stay on the device, so a CUDA graph can later capture
 the whole step.
+
+Under a mesh (``parallel.mesh``) every rank runs this loop on its own rows
+(``mesh=`` reaches the model's collectives): the model ranks of one data
+rank hold the same rows, and their logits follow the same all-reduce, so
+their ``done`` reads agree and they take the same number of steps, as the
+collectives need; a data rank stops when its own rows end.
 """
 
 from __future__ import annotations
@@ -47,14 +53,23 @@ def build_suppress_mask(vocab_size: int, ids: Sequence[int] | None) -> np.ndarra
 
 
 def pick(logits: torch.Tensor, temperature: float, generator,
-         want_lp: bool):
+         want_lp: bool, rows=None):
     """(token [B], its log-probability [B] or None) from masked fp32 logits
     [B, V].  T > 0: argmax(logits / T - log E), E ~ Exp(1) (a Gumbel-max
     draw); E is floored at the smallest normal float, so a suppressed id
     (-inf) can never be drawn.  The log-probability is that of the masked
-    distribution at T = 1, as the JAX ``pick`` takes it."""
+    distribution at T = 1, as the JAX ``pick`` takes it.
+
+    rows (lo, hi, n): the logits are rows [lo, hi) of a batch of n (a data
+    rank's share): the draws are made for all n rows, as the one-process
+    decode makes them, and rows [lo, hi) taken."""
     if temperature > 0:
-        e = torch.empty_like(logits).exponential_(generator=generator)
+        if rows is None:
+            e = torch.empty_like(logits).exponential_(generator=generator)
+        else:
+            lo, hi, n = rows
+            e = logits.new_empty((n,) + tuple(logits.shape[1:])).exponential_(
+                generator=generator)[lo:hi]
         tok = torch.argmax(
             logits / temperature
             - torch.log(e.clamp_min_(torch.finfo(torch.float32).tiny)), -1)
@@ -74,7 +89,8 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
                     int8_mxu: bool = True, int8_self: bool = False,
                     step_weights=None, temperature: float = 0.0,
                     generator: torch.Generator | None = None,
-                    return_logprobs: bool = False, pad_count=None):
+                    return_logprobs: bool = False, pad_count=None,
+                    mesh=None, draw_rows=None):
     """Generated tokens [B, max_new_tokens] (prompt excluded), rows that
     finished early padded with EOT; with return_logprobs also (sum_lp [B]
     fp32, n_tok [B] int64): the log-probability summed over each row's
@@ -99,7 +115,13 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
     prompt slots of row r are left padding (previous-text conditioning at
     one static prompt length): masked in the prefill, and passed to every
     step (B3/B8 on the kernel step), so each row decodes as its unpadded
-    shorter prompt would."""
+    shorter prompt would.
+
+    mesh: this rank's share of a (data, model) mesh: enc_states are its
+    rows, the weights its shard (``parallel.mesh.shard_params``); the
+    tokens returned are its rows.  draw_rows (lo, hi, n): those rows'
+    place in the batch, so that sampled draws equal the one-process
+    decode's (``pick``)."""
     from whisper_tpu_torch.runtime import timestamps as ts
 
     if step_weights is not None and pad_count is not None:
@@ -122,7 +144,7 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
                        >= pad_count[:, None])                  # [B, P]
     logits, cache = whisper.decoder_prefill(
         params, dims, tokens, enc_states, p + max_new_tokens,
-        int8_cross_kv=int8_cross_kv, prompt_mask=prompt_mask)
+        int8_cross_kv=int8_cross_kv, prompt_mask=prompt_mask, mesh=mesh)
     if kernel_step and int8_self and int8_mxu:
         cache = whisper.quantize_self_kv(cache)
     first_logits = logits[:, -1, :].float() + first_suppress_mask
@@ -131,7 +153,7 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
         ts_state = ts.init_state(b, eot_id, dev)
         first_logits = ts.apply_rules(first_logits, ts_state, 0, ts_cfg)
     first, sum_lp = pick(first_logits, temperature, generator,
-                         return_logprobs)
+                         return_logprobs, draw_rows)
     if ts_cfg is not None:
         ts_state = ts.update_state(ts_state, first, ts_cfg)
 
@@ -144,22 +166,27 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
     last = first
     cross_len = enc_states.shape[1]
     for i in range(1, max_new_tokens):
+        # The loop's one host read.  Under a mesh it is the same on every
+        # model rank (the logits follow an all-reduce); a data rank ends
+        # with its own rows, whose later tokens would all be EOT.
         if bool(done.all()):
             break
         # `last` was generated as token index p+i-1 of the full sequence.
         if step_weights is not None:
             step_logits, cache = decoder_step_hybrid(
-                params, step_weights, dims, last, p + i - 1, cache)
+                params, step_weights, dims, last, p + i - 1, cache,
+                mesh=mesh)
         else:
             step_logits, cache = whisper.decoder_step(
                 params, dims, last, p + i - 1, cache,
                 kernel_step=kernel_step,
                 cross_len=cross_len if kernel_step else None,
-                int8_mxu=int8_mxu, pad_count=pad_count)
+                int8_mxu=int8_mxu, pad_count=pad_count, mesh=mesh)
         step_logits = step_logits.float() + suppress_mask
         if ts_cfg is not None:
             step_logits = ts.apply_rules(step_logits, ts_state, i, ts_cfg)
-        nxt, lp = pick(step_logits, temperature, generator, return_logprobs)
+        nxt, lp = pick(step_logits, temperature, generator, return_logprobs,
+                       draw_rows)
         nxt = torch.where(done, eot_id, nxt)
         if return_logprobs:
             # rows done before this step add nothing

@@ -75,10 +75,12 @@ def detect_language(session, mel_chunk: torch.Tensor, sot: int,
     enc = whisper.encoder_apply(
         {"encoder": _plain_encoder_tree(session)}, dims,
         mel_chunk.to(session.device)[None],
-        fused_attention=session.cfg.fused_attention)
+        fused_attention=session.cfg.fused_attention,
+        mesh=getattr(session, "mesh", None))
     tokens = torch.full((1, 1), sot, dtype=torch.long, device=session.device)
     logits, _ = whisper.decoder_prefill(session._decoder_params, dims, tokens,
-                                        enc, max_len=2)
+                                        enc, max_len=2,
+                                        mesh=getattr(session, "mesh", None))
     probs = torch.softmax(logits[0, -1, :].float(), dim=-1).cpu().numpy()
     ids = np.asarray(sorted(lang_ids), dtype=np.int64)
     lang_probs = probs[ids]

@@ -3,7 +3,8 @@
 ``RuntimeCfg`` keeps the JAX package's field names and defaults, so a
 ladder rung or a discovery config means the same thing to both packages;
 ``suggested_cfg`` and ``load_best_cfg_from_discovery`` build one as the
-JAX CLI does.  ``WhisperSession`` holds the weights on one device and runs
+JAX CLI does.  ``WhisperSession`` holds the weights on one device (one
+rank's shard of them under a mesh, see below) and runs
 the long-form path: the whole-file log-mel (streamed in slabs, or one shot
 through kernel B5 at x3+), chunk slicing on the device, the encoder and
 greedy decoding per batch bucket.
@@ -29,8 +30,15 @@ engine's short path, ``transcribe_short_batch`` and
 the tokens on the device), runs a batch of
 reflect-padded utterances of at most 30 s through the plain mel, the
 encoder and greedy or speculative decoding; ``transcribe_chunks`` and
-``warmup`` take host mel chunks.  What the port does not carry (meshes, the
-wire encodings) raises ``NotImplementedError`` naming its ROADMAP item;
+``warmup`` take host mel chunks.
+
+``data_parallel`` x ``tensor_parallel`` > 1 (or an explicit ``mesh=``)
+runs the session as one rank of a (data, model) mesh of processes
+(``parallel.mesh``: one process a card, a ``torch.distributed`` group):
+the weights are this rank's tensor-parallel shard, each batch bucket's
+rows are split over "data" and the tokens all-gathered, and every rank
+returns the whole batch's tokens.  What the port does not carry (the wire
+encodings) raises ``NotImplementedError`` naming its ROADMAP entry;
 nothing silently takes another path.
 """
 
@@ -171,9 +179,6 @@ WIRE_ENCODINGS = ("dint16", "dint16p", "ulaw8", "pcm12", "pcm14")
 def _check_supported(cfg: RuntimeCfg) -> None:
     """Raise NotImplementedError for configurations the port lacks."""
     missing = []
-    if cfg.data_parallel * cfg.tensor_parallel > 1:
-        missing.append("meshes (data/tensor parallel): ROADMAP queue 1 "
-                       "item 12")
     if cfg.audio_transfer in WIRE_ENCODINGS:
         missing.append(f"audio_transfer {cfg.audio_transfer!r}: a wire "
                        "encoding of the TPU tunnel (ROADMAP 'Not to port')")
@@ -201,19 +206,33 @@ def chunk_norm(chunks: torch.Tensor, starts: Sequence[int],
 
 
 class WhisperSession:
-    """Weights + dims + cfg on one device, and the long-form path:
+    """Weights + dims + cfg on one device (a mesh rank's shard under
+    data/tensor parallelism), and the long-form path:
     ``compute_mel`` -> ``transcribe_from_mel``."""
 
     def __init__(self, params: Dict, dims: WhisperDims,
-                 cfg: Optional[RuntimeCfg] = None, *, device):
+                 cfg: Optional[RuntimeCfg] = None, *, device, mesh=None):
         """params: the numpy tree of ``models.convert.init_params`` (or the
         JAX package's tree read back as numpy).  int8_weights quantizes it
-        first with ``variants.quant.quantize_params``."""
+        first with ``variants.quant.quantize_params``.
+
+        mesh: this process's ``parallel.mesh.Mesh``; without one,
+        ``cfg.data_parallel * cfg.tensor_parallel > 1`` makes it over the
+        process group (``make_mesh``, which raises naming torchrun when
+        there is none).  The weights are then cut to this rank's shard
+        (``shard_params``) before they reach the device."""
         self.cfg = cfg or RuntimeCfg()
         _check_supported(self.cfg)
         disable_tf32()
         self.dims = dims
         self.device = torch.device(device)
+        n_mesh = self.cfg.data_parallel * self.cfg.tensor_parallel
+        if mesh is None and n_mesh > 1:
+            from whisper_tpu_torch.parallel.mesh import make_mesh
+
+            mesh = make_mesh(n_mesh, model_parallel=self.cfg.tensor_parallel)
+        self.mesh = mesh
+        self._replicate_warned: set = set()
         if self.cfg.int8_weights:
             from whisper_tpu_torch.variants.quant import (
                 is_quantized,
@@ -222,6 +241,11 @@ class WhisperSession:
 
             if not is_quantized(params):
                 params = quantize_params(params)
+        if mesh is not None:
+            from whisper_tpu_torch.parallel.mesh import shard_params
+
+            self._check_mesh(dims, mesh)
+            params = shard_params(params, mesh, whole=self._whole_leaves())
         tree = params_from_numpy(params, self.device, self.cfg.torch_dtype)
         # W8A8 encoder (x6): only meaningful when the block weights are
         # QTensors, since the int8 product needs the int8 weight operand.
@@ -242,7 +266,7 @@ class WhisperSession:
             fused_attention=self.cfg.fused_attention,
             fused_mlp=self.cfg.fused_encoder_mlp,
             int8_activations=self._enc_i8,
-            fused_block=self.cfg.fused_encoder_block)
+            fused_block=self.cfg.fused_encoder_block, mesh=mesh)
         self.decoder = WhisperDecoder(tree["decoder"], dims,
                                       device=self.device)
         self._decoder_params = {"decoder": self.decoder.tree()}
@@ -258,12 +282,14 @@ class WhisperSession:
         # x4/x5: the decode step runs kernel B3 and, against the int8 cross
         # cache, B4 (int8 x int8, x5) or B6 (dequantizing, x4): the JAX
         # package's packed step, which it takes for head_dim 64 and an even
-        # head count only (generate.py:129-130); other dims keep the plain
-        # step there and here.
-        self._kernel_step = bool(self.cfg.packed_cross_kv
-                                 and self.cfg.int8_kv_cache
-                                 and dims.head_dim == 64
-                                 and dims.decoder_heads % 2 == 0)
+        # head count only (generate.py:129-130), and under a mesh where the
+        # head pairs divide the model axis (session.py:287-289); other dims
+        # keep the plain step there and here.
+        from whisper_tpu_torch.runtime.speculative import _kernel_cross
+
+        self._packed = _kernel_cross(self.cfg.packed_cross_kv,
+                                     self.cfg.int8_kv_cache, dims, mesh)
+        self._kernel_step = self._packed
         self._int8_mxu = bool(self.cfg.int8_mxu_attn and self._kernel_step)
         # x7: the int8 self cache and kernel B8, only with the int8 x int8
         # step; on dims without the kernel step x7 behaves as x5 does there.
@@ -274,9 +300,71 @@ class WhisperSession:
         # bucket of the last speculative transcribe_from_mel call
         self.speculative_stats: list = []
 
+    @staticmethod
+    def _check_mesh(dims: WhisperDims, mesh) -> None:
+        """Tensor parallelism splits whole heads and MLP columns."""
+        tp = mesh.model
+        for what, n in (("encoder heads", dims.encoder_heads),
+                        ("decoder heads", dims.decoder_heads),
+                        ("d_ffn", dims.d_ffn)):
+            if n % tp:
+                raise ValueError(f"tensor_parallel={tp} must divide the "
+                                 f"{what} ({n})")
+
+    def _whole_leaves(self) -> tuple:
+        """Weights kept whole on every model rank: those of the fused
+        kernels whose fusion crosses the row-parallel sum (FC2's bias and
+        the residual inside B2, B9b and B10c; B9b's O product too)."""
+        mlp = ("fc1_w", "fc1_b", "fc2_w")
+        whole = []
+        if self.cfg.fused_encoder_mlp or self.cfg.fused_encoder_block:
+            whole += [f"encoder/blocks/{k}" for k in mlp]
+        if self.cfg.fused_encoder_block:
+            whole.append("encoder/blocks/o_w")
+        if self.cfg.fused_decoder_step:
+            whole += [f"decoder/blocks/{k}" for k in mlp]
+        return tuple(whole)
+
     def _batch_bucket(self, n: int) -> int:
-        """Power-of-two batch bucket, capped at max_batch."""
-        return _bucket_batch(n, self.cfg.max_batch)
+        """Power-of-two batch bucket, capped at max_batch and, under a
+        mesh, rounded up to the data axis so its rows divide evenly (a
+        40 s file is 2 chunks; on a data axis of 4 it buckets to 4)."""
+        b = _bucket_batch(n, self.cfg.max_batch)
+        if self.mesh is not None:
+            b = max(b, self.mesh.data)
+        return b
+
+    def _data_rows(self, n: int):
+        """(lo, hi): this rank's contiguous rows of a batch of n (all of
+        them without a mesh).  A batch that does not divide the data axis
+        runs replicated on every rank, with a warning once a size (the
+        JAX session's ``_put_batch``)."""
+        from whisper_tpu_torch.parallel.mesh import data_rows
+
+        rows = data_rows(n, self.mesh)
+        if rows is not None:
+            return rows
+        if n not in self._replicate_warned:
+            self._replicate_warned.add(n)
+            import warnings
+
+            warnings.warn(
+                f"batch of {n} does not divide the data-parallel axis "
+                f"({self.mesh.data}); running replicated on every rank (no "
+                "DP speedup) for this batch", stacklevel=3)
+        return 0, n
+
+    def _gather_rows(self, result, n: int):
+        """A result of this rank's rows of a batch of n (a tensor or a
+        tuple of them) as the whole batch's: all-gathered over "data"
+        under a mesh, unless the batch ran replicated."""
+        if self.mesh is None or n % self.mesh.data:
+            return result
+        from whisper_tpu_torch.parallel.mesh import all_gather_rows
+
+        if isinstance(result, tuple):
+            return tuple(all_gather_rows(t, self.mesh) for t in result)
+        return all_gather_rows(result, self.mesh)
 
     def _get_masks(self, suppress_ids, begin_suppress_ids):
         key = (tuple(suppress_ids or ()), tuple(begin_suppress_ids or ()))
@@ -288,6 +376,15 @@ class WhisperSession:
             self._masks[key] = (torch.from_numpy(base).to(self.device),
                                 torch.from_numpy(first).to(self.device))
         return self._masks[key]
+
+    def _token_tensor(self, ids) -> torch.Tensor:
+        """Host token ids (a prompt, a prefix, teacher-forced tokens) as an
+        int64 tensor on the device, clamped into the vocabulary as the JAX
+        model's gather clamps them (``whisper.clamp_token_ids``)."""
+        from whisper_tpu_torch.models.whisper import clamp_token_ids
+
+        return torch.from_numpy(clamp_token_ids(
+            ids, self.dims.vocab_size)).to(self.device)
 
     def _encode_transfer(self, audio: np.ndarray) -> np.ndarray:
         """Host-side upload encoding: int16 PCM for "int16", float32 as it
@@ -458,8 +555,7 @@ class WhisperSession:
         c = len(frame_starts)
         n_frames = mel.shape[1]
         mel_pad = F.pad(mel, (0, CHUNK_FRAMES))
-        prompt_t = torch.as_tensor(np.asarray(prompt, dtype=np.int64),
-                                   device=self.device)
+        prompt_t = self._token_tensor(prompt)
         base_mask, first_mask = self._get_masks(suppress_ids,
                                                 begin_suppress_ids)
         pieces = []
@@ -470,6 +566,9 @@ class WhisperSession:
             # Padding rows start at n_frames: they slice the zero tail.
             starts = [int(s) for s in frame_starts[start:start + n]]
             starts += [n_frames] * (bucket - n)
+            # this rank's rows under a mesh (all of them without one)
+            lo, hi = self._data_rows(bucket)
+            starts = starts[lo:hi]
             chunks = torch.stack([mel_pad[:, s:s + CHUNK_FRAMES]
                                   for s in starts])
             if chunk_norm_n_valid is not None:
@@ -477,13 +576,14 @@ class WhisperSession:
             enc = self.encoder(chunks)
             pads = None
             if pad_count is not None:
-                pads = torch.full((bucket,), int(pad_count),
+                pads = torch.full((hi - lo,), int(pad_count),
                                   dtype=torch.int32, device=self.device)
             if speculative:
-                result, stats = self._speculative_tokens(
+                result, (rounds, committed) = self._speculative_tokens(
                     chunks, enc, prompt_t, base_mask, first_mask,
                     max_new_tokens, eot_id, draft_k)
-                self.speculative_stats.append(stats)
+                self.speculative_stats.append(
+                    (rounds, self._gather_rows(committed, bucket)))
             elif num_beams > 1:
                 from whisper_tpu_torch.runtime.beam import beam_generate
 
@@ -492,8 +592,8 @@ class WhisperSession:
                     base_mask, first_mask, max_new_tokens, eot_id, num_beams,
                     length_penalty, ts_cfg=ts_cfg,
                     int8_cross_kv=self.cfg.int8_kv_cache,
-                    packed_cross=self.cfg.packed_cross_kv,
-                    int8_mxu=self._int8_mxu, pad_count=pads)
+                    packed_cross=self._packed,
+                    int8_mxu=self._int8_mxu, pad_count=pads, mesh=self.mesh)
             else:
                 gen = None
                 if temperature > 0.0:
@@ -502,17 +602,18 @@ class WhisperSession:
                 result = self._greedy(enc, prompt_t, base_mask, first_mask,
                                       max_new_tokens, eot_id, ts_cfg=ts_cfg,
                                       temperature=temperature, generator=gen,
-                                      with_scores=with_scores, pads=pads)
-            pieces.append((result, start, n))
+                                      with_scores=with_scores, pads=pads,
+                                      draw_rows=(lo, hi, bucket))
+            pieces.append((self._gather_rows(result, bucket), start, n))
             start += n
         return pieces
 
     def _greedy(self, enc, prompt_t, base_mask, first_mask,
                 max_new_tokens: int, eot_id: int, *, ts_cfg=None,
                 temperature: float = 0.0, generator=None,
-                with_scores: bool = False, pads=None):
+                with_scores: bool = False, pads=None, draw_rows=None):
         """``greedy_generate`` over encoder states with the session's
-        rung: its kernels, its cross cache and its step."""
+        rung: its kernels, its cross cache, its step and its mesh."""
         return greedy_generate(
             self._decoder_params, self.dims, enc, prompt_t, base_mask,
             first_mask, max_new_tokens=max_new_tokens, eot_id=eot_id,
@@ -523,7 +624,8 @@ class WhisperSession:
             # pad mask (the JAX session's rule)
             step_weights=None if pads is not None else self._step_weights,
             temperature=temperature, generator=generator,
-            return_logprobs=with_scores, pad_count=pads)
+            return_logprobs=with_scores, pad_count=pads, mesh=self.mesh,
+            draw_rows=draw_rows)
 
     # -- short-utterance batch (serving fast path) --------------------------
 
@@ -559,9 +661,12 @@ class WhisperSession:
 
     def _short_inputs(self, padded_audio, n_valid_frames, prompt,
                       suppress_ids, begin_suppress_ids):
-        mel = self._short_mel(padded_audio, n_valid_frames)
-        prompt_t = torch.as_tensor(np.asarray(prompt, dtype=np.int64),
-                                   device=self.device)
+        """The mel of this rank's rows (all of them without a mesh), the
+        prompt and the masks."""
+        lo, hi = self._data_rows(len(padded_audio))
+        mel = self._short_mel(np.asarray(padded_audio)[lo:hi],
+                              np.asarray(n_valid_frames)[lo:hi])
+        prompt_t = self._token_tensor(prompt)
         return (mel, prompt_t) + tuple(self._get_masks(suppress_ids,
                                                        begin_suppress_ids))
 
@@ -609,9 +714,10 @@ class WhisperSession:
         mel, prompt_t, base_mask, first_mask = self._short_inputs(
             padded_audio, n_valid_frames, prompt, suppress_ids,
             begin_suppress_ids)
-        return self._greedy(self.encoder(mel), prompt_t, base_mask,
-                            first_mask, max_new_tokens, eot_id,
-                            ts_cfg=ts_cfg)
+        return self._gather_rows(
+            self._greedy(self.encoder(mel), prompt_t, base_mask, first_mask,
+                         max_new_tokens, eot_id, ts_cfg=ts_cfg),
+            len(padded_audio))
 
     # -- word alignment --------------------------------------------------------
 
@@ -631,13 +737,13 @@ class WhisperSession:
         n = len(prompt) + len(gen_tokens)
         p_pad = max(16, -(-n // 16) * 16)
         toks = torch.zeros((1, p_pad), dtype=torch.long, device=self.device)
-        toks[0, :n] = torch.as_tensor(list(prompt) + list(gen_tokens))
+        toks[0, :n] = self._token_tensor(list(prompt) + list(gen_tokens))
         mel = torch.as_tensor(mel_chunk).to(self.device)
         enc = whisper.encoder_apply(
             {"encoder": _plain_encoder_tree(self)}, self.dims, mel[None],
-            fused_attention=self.cfg.fused_attention)
+            fused_attention=self.cfg.fused_attention, mesh=self.mesh)
         w = whisper.decoder_alignment_weights(self._decoder_params, self.dims,
-                                              toks, enc)
+                                              toks, enc, mesh=self.mesh)
         return w[:, 0].float().cpu().numpy()
 
     # -- speculative decoding ------------------------------------------------
@@ -679,11 +785,14 @@ class WhisperSession:
             from whisper_tpu_torch.utils import hbm
 
             wb = torch.empty((), dtype=self.cfg.torch_dtype).element_size()
+            m = self.mesh
             fp = hbm.decode_footprint(
                 self.dims, self.cfg.max_batch, 132, weight_bytes=wb,
                 kv_bytes=wb, int8_cross=self.cfg.int8_kv_cache,
                 draft_dims=draft_dims, shared_draft_encoder=share_encoder,
-                cache_copies=1.0)
+                cache_copies=1.0,
+                data_parallel=1 if m is None else m.data,
+                tensor_parallel=1 if m is None else m.model)
             warn = hbm.check_fit(fp, label="speculative decode "
                                  f"(max_batch={self.cfg.max_batch})",
                                  device=self.device)
@@ -742,7 +851,7 @@ class WhisperSession:
         toks, _ = self._speculative_tokens(
             mel, self.encoder(mel), prompt_t, base_mask, first_mask,
             max_new_tokens, eot_id, draft_k)
-        return toks
+        return self._gather_rows(toks, len(padded_audio))
 
     def _speculative_tokens(self, chunks, enc, prompt_t, base_mask,
                             first_mask, max_new_tokens: int, eot_id: int,
@@ -762,7 +871,7 @@ class WhisperSession:
             eot_id=eot_id, draft_k=draft_k,
             int8_cross_kv=self.cfg.int8_kv_cache, packed_draft=packed,
             packed_main=packed,
-            int8_mxu=bool(self.cfg.int8_mxu_attn and packed))
+            int8_mxu=bool(self.cfg.int8_mxu_attn and packed), mesh=self.mesh)
         return toks, (rounds, n_committed)
 
     # -- mel chunks -> tokens -------------------------------------------------

@@ -38,7 +38,7 @@ from whisper_tpu_torch.models.registry import WhisperDims
 
 
 def _verify_pass(params, dims: WhisperDims, tokens, pos, cache,
-                 cross_len=None, int8_mxu: bool = False):
+                 cross_len=None, int8_mxu: bool = False, mesh=None):
     """Multi-token decoder pass: tokens [B, K] at per-row positions
     [pos_r, pos_r+K); logits [B, K, V] and the cache, written in place.
     With cross_len set, cross-attention runs the multi-query kernel B7: one
@@ -54,15 +54,22 @@ def _verify_pass(params, dims: WhisperDims, tokens, pos, cache,
     k_idx = torch.arange(max_len, device=dev)[None, None, :]        # [1,1,S]
     mask = (k_idx <= pos_idx[:, :, None])[:, None]                # [B,1,K,S]
     x, cache = whisper._decoder_blocks(params, dims, x, cache, pos, mask,
-                                       cross_len=cross_len, int8_mxu=int8_mxu)
+                                       cross_len=cross_len, int8_mxu=int8_mxu,
+                                       mesh=mesh)
     return whisper._logits(params, x), cache
 
 
-def _kernel_cross(packed: bool, int8_cross_kv: bool, dims: WhisperDims) -> bool:
+def _kernel_cross(packed: bool, int8_cross_kv: bool, dims: WhisperDims,
+                  mesh=None) -> bool:
     """The JAX package's packing gate: the cross-attention kernels serve an
-    int8 cross cache with head_dim 64 and an even head count."""
+    int8 cross cache with head_dim 64 and an even head count, and under a
+    mesh only where the head pairs divide the model axis (``(heads // 2)
+    % tp == 0``, JAX session.py:287-289), so both packages take the same
+    path."""
+    tp = 1 if mesh is None else mesh.model
     return bool(packed and int8_cross_kv and dims.head_dim == 64
-                and dims.decoder_heads % 2 == 0)
+                and dims.decoder_heads % 2 == 0
+                and (dims.decoder_heads // 2) % tp == 0)
 
 
 def speculative_generate(params, dims: WhisperDims, draft_params,
@@ -73,7 +80,8 @@ def speculative_generate(params, dims: WhisperDims, draft_params,
                          max_new_tokens: int, eot_id: int, draft_k: int = 4,
                          *, int8_cross_kv: bool = False,
                          packed_draft: bool = False,
-                         packed_main: bool = False, int8_mxu: bool = False):
+                         packed_main: bool = False, int8_mxu: bool = False,
+                         mesh=None):
     """Returns (tokens [B, max_new_tokens], n_rounds, n_committed [B]).
 
     enc_states / draft_enc_states: each model's encoder states [B, T, d];
@@ -89,7 +97,13 @@ def speculative_generate(params, dims: WhisperDims, draft_params,
     steps through kernel B4 or B6 and the main model's verify pass through
     B7; int8_mxu picks the int8 x int8 numerics (x5) over the dequantizing
     ones (x4).  Drafts only propose, so the draft's kernel rounding cannot
-    change the output."""
+    change the output.
+
+    mesh: the main model is this rank's shard (its rows and heads); the
+    draft is whole on every rank and runs without collectives.  The model
+    ranks of a data rank propose alike (the same rows, the same
+    deterministic draft) and read the same logits after the all-reduce, so
+    their rounds agree."""
     if draft_k < 1:
         # Nothing would be drafted or committed, and the loop would not end.
         raise ValueError(f"draft_k must be >= 1, got {draft_k}")
@@ -103,10 +117,10 @@ def speculative_generate(params, dims: WhisperDims, draft_params,
 
     logits, cache = whisper.decoder_prefill(
         params, dims, tokens_p, enc_states, max_len,
-        int8_cross_kv=int8_cross_kv)
+        int8_cross_kv=int8_cross_kv, mesh=mesh)
     first = torch.argmax(logits[:, -1, :].float() + first_suppress_mask, -1)
     m_cross_len = (enc_states.shape[1]
-                   if _kernel_cross(packed_main, int8_cross_kv, dims)
+                   if _kernel_cross(packed_main, int8_cross_kv, dims, mesh)
                    else None)
 
     _, d_cache = whisper.decoder_prefill(
@@ -151,7 +165,7 @@ def speculative_generate(params, dims: WhisperDims, draft_params,
         verify_in = torch.cat([last[:, None], drafts], dim=1)     # [B, K+1]
         v_logits, cache = _verify_pass(
             params, dims, verify_in, pos, cache, cross_len=m_cross_len,
-            int8_mxu=int8_mxu)
+            int8_mxu=int8_mxu, mesh=mesh)
         targets = torch.argmax(v_logits.float() + suppress_mask, dim=-1)
 
         # Longest accepted prefix per row: drafts[r, i] == targets[r, i].

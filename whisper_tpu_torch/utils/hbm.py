@@ -23,14 +23,18 @@ from whisper_tpu_torch.models.registry import WhisperDims
 BUDGET_ENV = "WHISPER_TPU_HBM_GB"  # the JAX package's name, kept
 
 
-def _param_counts(dims: WhisperDims) -> tuple:
+def _param_counts(dims: WhisperDims, tensor_parallel: int = 1) -> tuple:
     """(encoder, decoder) parameter counts of the tree
-    ``models.convert.init_params`` builds."""
+    ``models.convert.init_params`` builds; with tensor_parallel > 1 those
+    of one model rank's shard (``parallel.mesh.shard_params``: q/k/v/o and
+    fc1/fc2 split, their o/fc2 biases, norms, convs and embeddings
+    whole)."""
     d, f = dims.d_model, dims.d_ffn
     le, ld = dims.encoder_layers, dims.decoder_layers
+    tp = tensor_parallel
 
-    attn = 4 * d * d + 3 * d                     # q/k/v/o weights, q/v/o bias
-    mlp = d * f + f + f * d + d                  # fc1 + fc2
+    attn = (4 * d * d + 2 * d) // tp + d         # q/k/v/o weights, q/v/o bias
+    mlp = (d * f + f + f * d) // tp + d          # fc1 + fc2
     ln = 2 * d                                   # scale + bias
 
     enc_layer = ln + attn + ln + mlp
@@ -51,26 +55,29 @@ def _param_counts(dims: WhisperDims) -> tuple:
     return enc, dec
 
 
-def param_count(dims: WhisperDims) -> int:
+def param_count(dims: WhisperDims, tensor_parallel: int = 1) -> int:
     """Exact parameter count of the tree ``models.convert.init_params``
-    builds (converted checkpoints mirror it)."""
-    return sum(_param_counts(dims))
+    builds (converted checkpoints mirror it), or of one model rank's
+    shard."""
+    return sum(_param_counts(dims, tensor_parallel))
 
 
-def param_bytes(dims: WhisperDims, bytes_per_el: int = 2) -> int:
+def param_bytes(dims: WhisperDims, bytes_per_el: int = 2,
+                tensor_parallel: int = 1) -> int:
     """Resident weight bytes (2 = bf16, 4 = fp32; the int8 variants store
     the matmul weights at 1 byte plus fp32 scales, about half of bf16)."""
-    return param_count(dims) * bytes_per_el
+    return param_count(dims, tensor_parallel) * bytes_per_el
 
 
 def kv_cache_bytes(dims: WhisperDims, batch: int, max_len: int,
                    enc_len: Optional[int] = None, *, kv_bytes: int = 2,
-                   int8_cross: bool = False, int8_self: bool = False) -> int:
+                   int8_cross: bool = False, int8_self: bool = False,
+                   heads: Optional[int] = None) -> int:
     """Bytes of one decoder KV cache as ``models.whisper.decoder_prefill``
     allocates it: self_k/self_v [L,B,H,max_len,Dh] and cross_k/cross_v
     [L,B,H,enc_len,Dh] (plus fp32 per-(L,B,H) scales when int8)."""
     enc_len = dims.max_source_positions if enc_len is None else enc_len
-    l, h, dh = dims.decoder_layers, dims.decoder_heads, dims.head_dim
+    l, h, dh = dims.decoder_layers, heads or dims.decoder_heads, dims.head_dim
     self_el = l * batch * h * max_len * dh
     cross_el = l * batch * h * enc_len * dh
     total = 2 * self_el * (1 if int8_self else kv_bytes)
@@ -90,7 +97,8 @@ def decode_footprint(dims: WhisperDims, batch: int, max_len: int,
                      draft_dims: Optional[WhisperDims] = None,
                      shared_draft_params: bool = False,
                      shared_draft_encoder: bool = False,
-                     cache_copies: float = 1.0) -> Dict[str, int]:
+                     cache_copies: float = 1.0, data_parallel: int = 1,
+                     tensor_parallel: int = 1) -> Dict[str, int]:
     """Resident-set breakdown (bytes) of a greedy or speculative decode:
     {'params', 'kv_cache', 'enc_states', 'draft_*', 'total'}.
 
@@ -103,13 +111,20 @@ def decode_footprint(dims: WhisperDims, batch: int, max_len: int,
     cache_copies multiplies the KV-cache terms.  It is 1.0 here: eager
     PyTorch updates the caches in place and carries no second copy of them
     (the JAX package passes 2.0 for the copies its compiled decode loop
-    holds)."""
+    holds).
+
+    data_parallel / tensor_parallel: the footprint of one rank of a
+    (data, model) mesh: its share of the batch's rows, its shard of the
+    weights and its heads of the main model's caches (the draft is whole on
+    every rank)."""
     enc_len = dims.max_source_positions if enc_len is None else enc_len
+    batch = -(-batch // data_parallel)
     out = {
-        "params": param_bytes(dims, weight_bytes),
+        "params": param_bytes(dims, weight_bytes, tensor_parallel),
         "kv_cache": int(cache_copies * kv_cache_bytes(
             dims, batch, max_len, enc_len, kv_bytes=kv_bytes,
-            int8_cross=int8_cross, int8_self=int8_self)),
+            int8_cross=int8_cross, int8_self=int8_self,
+            heads=dims.decoder_heads // tensor_parallel)),
         "enc_states": batch * enc_len * dims.d_model * kv_bytes,
     }
     if draft_dims is not None:

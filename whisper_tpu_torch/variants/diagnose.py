@@ -53,11 +53,11 @@ def teacher_forced_logits(session, mel_chunk, tokens: Sequence[int]
 
     dev = session.device
     enc = session.encoder(torch.as_tensor(mel_chunk).to(dev)[None])
-    toks = torch.as_tensor(np.asarray(tokens, dtype=np.int64),
-                           device=dev)[None]
+    toks = session._token_tensor(tokens)[None]   # clamped, as in JAX
     logits, _ = whisper.decoder_prefill(
         session._decoder_params, session.dims, toks, enc,
-        max_len=len(tokens) + 1, int8_cross_kv=session.cfg.int8_kv_cache)
+        max_len=len(tokens) + 1, int8_cross_kv=session.cfg.int8_kv_cache,
+        mesh=getattr(session, "mesh", None))
     return logits[0].float().cpu().numpy()
 
 
