@@ -73,7 +73,8 @@ What it does, in order (any failure raises and exits non-zero):
    the encoder and twelve teacher-forced decode steps.
 5. Drives the main path, ``whisper_tpu_torch.headline``'s workload
    (whisper-base, random weights from seed 0, rung x5, the 301.574 s
-   synthetic file), once to warm up and then three timed times, with every
+   synthetic file; the decode steps replayed from a CUDA graph captured in
+   the warm-up), once to warm up and then three timed times, with every
    kernel's launch count set to 0 just before each run and read just after;
    asserts the token shape, identical tokens across runs, finite encoder
    states and logits, and that every kernel of the path was launched.
@@ -166,6 +167,22 @@ What it does, in order (any failure raises and exits non-zero):
    per step of both beside the x5 kernel step's and the hybrid step's; then
    the 127 eager steps once more under torch.profiler: B10a's, B10b's and
    B10c's in-situ time a call, by kernel, and the device time a step.
+8b. ``[graph]`` (``check_graph``): the greedy loop that every session runs
+   on the card replays its steps from CUDA graphs (``runtime.generate``);
+   here it is held against the same step function run eagerly
+   (``session.eager_decode``): (a) the main path at x5, graphed and eager
+   alternated, three runs each: tokens bitwise and launches equal, e2e and
+   ms a decode step of both beside the fully fused step's replay; (b) the
+   bucket of 16 at x3, x4, x5, x7, both fused flags, the grammar, a 68-slot
+   left-padded prompt through B3 and B8, and sampling at T = 0.5 with a
+   seed: tokens bitwise and every kernel's launches equal (the sampled
+   draws: two graphed runs equal; equal to the eager draws, printed);
+   (c) the host seconds until ``transcribe_from_mel_async`` returns against
+   the card's span of the work it queued, and the sequential mode's
+   windows replaying a bucket-1 graph with the grammar and ``pad_count``;
+   (d) capture seconds a key and the peak device memory of an x5 session,
+   eager and graphed.  The main path, the ladder, the decoding options,
+   the prompts, serving and the pipelined mode above all run graphed.
 9. Drives the benchmark CLI (``whisper_tpu_torch.bench.cli.main``, in
    process) over four synthetic WAV files (4 s; 29.5 s at 44.1 kHz stereo;
    76 s, just under the one-shot limit; 150 s, streamed) at whisper-base
@@ -201,7 +218,9 @@ What it does, in order (any failure raises and exits non-zero):
 
 from __future__ import annotations
 
+import contextlib
 import csv
+import gc
 import itertools
 import json
 import os
@@ -1659,7 +1678,8 @@ def check_fused_step(card: str, results, params, dims, audio) -> dict:
     file's bucket of 16, eagerly and replayed from one captured CUDA graph
     of a step (token and ``pos`` on the card, advanced inside the graph);
     its time per step beside the x5 kernel step's and the hybrid step's
-    over the same 127 steps.  Returns the launch counts of one eager run."""
+    over the same 127 steps.  Returns the launch counts of one eager run
+    and the replayed step's ms (the faster of two runs)."""
     import torch
 
     from whisper_tpu_torch.headline import make_session
@@ -1811,7 +1831,334 @@ def check_fused_step(card: str, results, params, dims, audio) -> dict:
           f"time {step_ms:.4f} ms a step; first-step logits within "
           f"{err:.3g} of decoder_step's; tokens equal across two runs; "
           f"launches {c}", flush=True)
-    return c
+    return c, min(g_ms, g_ms2)
+
+
+@contextlib.contextmanager
+def _eager_loop(session):
+    """Within the block ``session``'s greedy decodes run the in-place step
+    eagerly on the card (``greedy_generate(eager=True)``), not from their
+    CUDA graphs."""
+    session.eager_decode = True
+    try:
+        yield
+    finally:
+        session.eager_decode = False
+
+
+# [graph] (b): label, variant, RuntimeCfg overrides, decode options
+GRAPH_CONFIGS = (
+    ("x3 (plain step)", "x3", {}, {}),
+    ("x4", "x4", {}, {}),
+    ("x5", "x5", {}, {}),
+    ("x7", "x7", {}, {}),
+    ("x5+fused_encoder_block+fused_decoder_step", "x5",
+     dict(fused_encoder_block=True, fused_decoder_step=True), {}),
+    ("x5 with the grammar", "x5", {}, {"grammar": True}),
+    ("x5, 68-slot prompt left-padded (B3 with pad_count)", "x5", {},
+     {"pads": True}),
+    ("x7, 68-slot prompt left-padded (B8 with pad_count)", "x7", {},
+     {"pads": True}),
+    ("x5 at T = 0.5, seed 3, with scores", "x5", {}, {"temperature": 0.5}),
+)
+
+
+def check_graph(card: str, results, params, dims, audio, x5,
+                fused_ms: float) -> None:
+    """The greedy loop replayed from CUDA graphs against the same loop run
+    eagerly (``[graph]`` lines), whisper-base, the 301.574 s file, 128
+    tokens: (a) the main path (x5), graphed and eager alternated, three runs
+    each after a warm-up of each: tokens bitwise and launches equal, e2e
+    (median) and ms a step of the bucket's decode (host clock, one sync at
+    the end, the prefill's time taken out) beside the fully fused step's
+    replay; (b) the bucket of 16 through ``session._greedy`` graphed (the
+    capture's call and a replay) and eagerly at x3, x4, x5, x7, both fused
+    flags, the grammar, left-padded prompts through B3 and B8, and sampling
+    at T = 0.5 with scores (twice one seed: equal; equal to the eager draws
+    is printed): tokens (and scores) bitwise, every kernel's launches
+    equal; (c) the host seconds until ``transcribe_from_mel_async`` returns
+    against the card's span of the work it queued (CUDA events), and the
+    sequential mode's windows graphed (bucket 1, the grammar, pad_count);
+    (d) each key's capture seconds; the device memory an x5 session keeps
+    (``memory_allocated()`` after its run, less before the session, and
+    the peak) run eagerly and then graphed; and, in a fresh x5 session,
+    what it keeps as keys add up: the buckets 1-16 warmed, the fallback
+    ladder's temperatures with scores at each bucket (every T > 0 one key),
+    four prompt lengths at bucket 1, beside the state its graphs count."""
+    import numpy as np
+    import torch
+
+    from whisper_tpu_torch.frontend import golden
+    from whisper_tpu_torch.headline import make_session, run_once, synth_audio
+    from whisper_tpu_torch.pipeline.chunk import chunk_starts, mel_frame_bucket
+    from whisper_tpu_torch.pipeline.sequential import transcribe_sequential
+    from whisper_tpu_torch.runtime.genconfig import GenerationCfg
+    from whisper_tpu_torch.runtime.timestamps import TimestampCfg
+    from whisper_tpu_torch.tokenizer.specials import special_tokens
+
+    t_phase = time.perf_counter()
+    special = special_tokens("en", "transcribe", None)
+    eot = special.eot
+    prompt = [special.sot, special.lang, special.task, special.no_timestamps]
+    gen_cfg = GenerationCfg()
+    captures = {}     # GraphKey -> (the label that first ran it, seconds)
+
+    def note(label, s_):
+        for k, secs in s_.graphs.captures().items():
+            captures.setdefault(k, (label, secs))
+
+    # (d) memory: a fresh x5 session, eager then graphed
+    def kept(base):
+        gc.collect()                 # what earlier work left in cycles
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated() - base
+
+    torch.cuda.empty_cache()
+    base_mem = kept(0)
+    session = make_session("cuda", params, "x5")
+    weights_mem = kept(base_mem)
+    torch.cuda.reset_peak_memory_stats()
+    with _eager_loop(session):
+        run_once(session, audio)
+    eager_mem = (kept(base_mem), torch.cuda.max_memory_allocated() - base_mem)
+    torch.cuda.reset_peak_memory_stats()
+    run_once(session, audio)                      # captures the bucket's key
+    graph_mem = (kept(base_mem), torch.cuda.max_memory_allocated() - base_mem,
+                 session.graphs.nbytes())
+    note("x5 main path", session)
+
+    # (a) the main path, alternated
+    runs = {"graphed": [], "eager": []}
+    for _ in range(3):
+        for mode in ("graphed", "eager"):
+            _zero_counts(results)
+            collector = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "eager":
+                with _eager_loop(session):
+                    run_once(session, audio, token_collector=collector)
+            else:
+                run_once(session, audio, token_collector=collector)
+            runs[mode].append((time.perf_counter() - t0, collector[0],
+                               _counts(results)))
+    want = x5[3]
+    for mode, rs in runs.items():
+        for e2e, toks, c in rs:
+            if not np.array_equal(toks, x5[2]):
+                raise AssertionError(f"(a) {mode}: tokens differ from the "
+                                     "main path's")
+            if c != want:
+                raise AssertionError(f"(a) {mode}: launches {c}, the main "
+                                     f"path's {want}")
+    e2e = {m: statistics.median(r[0] for r in rs) for m, rs in runs.items()}
+
+    enc, _ = _bucket_encoder_states(session, audio)
+    masks = session._get_masks(gen_cfg.suppress_tokens,
+                               gen_cfg.begin_suppress_tokens)
+    prompt_t = torch.tensor(prompt, device="cuda")
+
+    enc1 = enc[:1].contiguous()
+
+    def decode_s(n_new, eager=False, states=enc):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if eager:
+            with _eager_loop(session):
+                session._greedy(states, prompt_t, *masks, n_new, eot,
+                                early_exit=False)
+        else:
+            session._greedy(states, prompt_t, *masks, n_new, eot,
+                            early_exit=False)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    step_ms, decode_ms = {}, {}
+    for name, eager, states in (("graphed", False, enc), ("eager", True, enc),
+                                ("graphed, bucket 1", False, enc1)):
+        for n_new in (1, 128):
+            decode_s(n_new, eager, states)        # warm (and capture)
+        prefill = statistics.median(decode_s(1, eager, states)
+                                    for _ in range(3))
+        whole = statistics.median(decode_s(128, eager, states)
+                                  for _ in range(3))
+        step_ms[name] = (whole - prefill) * 1e3 / 127
+        decode_ms[name] = whole * 1e3
+    print(f"[graph] (a) whisper-base x5, {len(audio) / 16000:.3f} s, on "
+          f"{card}: e2e graphed {e2e['graphed']:.4f} s "
+          f"({[round(r[0], 4) for r in runs['graphed']]}), eager "
+          f"{e2e['eager']:.4f} s ({[round(r[0], 4) for r in runs['eager']]}),"
+          f" alternated, median of 3; tokens bitwise equal, launches equal "
+          f"{want}; the bucket of {enc.shape[0]}'s decode: "
+          f"{step_ms['graphed']:.4f} ms a step graphed, "
+          f"{step_ms['eager']:.4f} eager (host clock, one sync at the end, "
+          f"prefill taken out), the fully fused step replayed "
+          f"{fused_ms:.4f}; a lone request's decode (bucket 1, 128 tokens, "
+          f"no read) {decode_ms['graphed, bucket 1']:.4f} ms, "
+          f"{step_ms['graphed, bucket 1']:.4f} ms a step graphed", flush=True)
+
+    # (b) graphed against eager, configuration by configuration
+    rng = np.random.default_rng(17)
+    prev = [special.sot_prev] + rng.integers(220, 50000, 63).tolist()
+    ts_cfg = TimestampCfg(special.no_timestamps + 1, eot,
+                          special.no_timestamps)
+    sessions = {("x5", ()): (session, enc)}
+    for label, variant, overrides, opts in GRAPH_CONFIGS:
+        key = (variant, tuple(sorted(overrides.items())))
+        if key not in sessions:
+            s_ = make_session("cuda", params, variant, **overrides)
+            sessions[key] = (s_, _bucket_encoder_states(s_, audio)[0])
+        s_, enc_ = sessions[key]
+        b = enc_.shape[0]
+        kw, row_prompt = {}, prompt
+        if opts.get("grammar"):
+            kw["ts_cfg"], row_prompt = ts_cfg, prompt[:3]
+        if opts.get("pads"):
+            row_prompt = prev + prompt
+            kw["pads"] = torch.tensor([(5, 21, 40)[r % 3] for r in range(b)],
+                                      dtype=torch.int32, device="cuda")
+        seed = None
+        if opts.get("temperature"):
+            kw.update(temperature=opts["temperature"], with_scores=True)
+            seed = 3
+        p_t = torch.tensor(row_prompt, device="cuda")
+
+        def run(eager=False):
+            extra = {}
+            if seed is not None:
+                extra["generator"] = torch.Generator(
+                    device="cuda").manual_seed(seed)
+            _zero_counts(results)
+            if eager:
+                with _eager_loop(s_):
+                    out = s_._greedy(enc_, p_t, *masks, 128, eot, **kw,
+                                     **extra)
+            else:
+                out = s_._greedy(enc_, p_t, *masks, 128, eot, **kw, **extra)
+            out = tuple(t.cpu() for t in out) if isinstance(out, tuple) \
+                else (out.cpu(),)
+            return out, _counts(results)
+
+        eager_out, eager_c = run(eager=True)
+        got = [run(), run()]               # the capture's call, a replay
+        if any(not all(torch.equal(a, b_) for a, b_ in zip(g[0], got[0][0]))
+               for g in got):
+            raise AssertionError(f"(b) {label}: two graphed runs differ")
+        same = all(torch.equal(a, b_) for a, b_ in zip(got[0][0], eager_out))
+        if seed is None and not same:
+            raise AssertionError(f"(b) {label}: graphed tokens differ from "
+                                 "the eager loop's")
+        if any(g[1] != eager_c for g in got):
+            raise AssertionError(f"(b) {label}: launches graphed "
+                                 f"{[g[1] for g in got]}, eager {eager_c}")
+        launched = {k: v for k, v in eager_c.items() if v}
+        verdict = ("bitwise the eager loop's" if same else
+                   "not the eager loop's draws (the graph draws others)")
+        print(f"[graph] (b) {label}, bucket {b}, 128 tokens, on {card}: "
+              f"graphed tokens {verdict}"
+              f"{'' if seed is None else ', two runs of seed 3 equal'}; "
+              f"launches equal {launched}", flush=True)
+        note(label, s_)
+
+    # (c) the async dispatch, and the sequential mode's windows
+    nv = golden.num_frames(len(audio))
+    mel = session.compute_mel(golden.reflect_pad(audio), nv,
+                              mel_frame_bucket(nv))
+    starts = [p_ // golden.HOP for p_ in chunk_starts(len(audio), 480_000,
+                                                      400_000)]
+    dispatch = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        ev0, ev1 = torch.cuda.Event(True), torch.cuda.Event(True)
+        ev0.record()
+        t0 = time.perf_counter()
+        pieces = session.transcribe_from_mel_async(
+            mel, starts, prompt, 128, eot, gen_cfg.suppress_tokens,
+            gen_cfg.begin_suppress_tokens)
+        host_s = time.perf_counter() - t0
+        ev1.record()
+        toks = session.gather_tokens(pieces, len(starts), 128)
+        dispatch.append((host_s, ev0.elapsed_time(ev1) / 1e3,
+                         time.perf_counter() - t0))
+        if not np.array_equal(toks, x5[2]):
+            raise AssertionError("(c) async tokens differ from the main "
+                                 "path's")
+    host_s, dev_s, all_s = (statistics.median(d[i] for d in dispatch[1:])
+                            for i in range(3))
+    transcribe_sequential(session, synth_audio(76.0), "en", "transcribe",
+                          128, condition_on_prev_text=True)
+    seq_keys = [k for k in session.graphs.captures()
+                if k.rows == 1 and k.ts_cfg is not None and k.pads]
+    if not seq_keys:
+        raise AssertionError("(c) the sequential mode's windows ran no graph "
+                             "of bucket 1 with the grammar and pad_count")
+    note("sequential windows", session)
+    print(f"[graph] (c) whisper-base x5, {len(starts)} chunks, on {card}: "
+          f"transcribe_from_mel_async returns after {host_s * 1e3:.3f} ms of "
+          f"host time; the card's span of the work it queued "
+          f"{dev_s * 1e3:.3f} ms; to the tokens on the host "
+          f"{all_s * 1e3:.3f} ms (median of 3 after one); the sequential "
+          f"mode's windows replay {len(seq_keys)} graph(s) of bucket 1 with "
+          f"the grammar and pad_count", flush=True)
+
+    # (d) capture seconds and memory
+    print(f"[graph] (d) on {card}: seconds to capture a key (a real step "
+          f"on a side stream, then the capture), {len(captures)} keys: "
+          + "; ".join(f"{label}, rows {k.rows}, prompt {k.prompt_len}: "
+                      f"{secs:.4f}" for k, (label, secs) in captures.items()),
+          flush=True)
+    gib = 2**-30
+    print(f"[graph] (d) device memory of an x5 session over the file, "
+          f"memory_allocated() less before the session (its weights "
+          f"{weights_mem * gib:.4f} GiB), on {card}: kept after an eager run "
+          f"{eager_mem[0] * gib:.4f} GiB (peak {eager_mem[1] * gib:.4f}), "
+          f"kept after the graphed run {graph_mem[0] * gib:.4f} GiB (peak "
+          f"{graph_mem[1] * gib:.4f}; the state its graphs count "
+          f"{graph_mem[2] * gib:.4f})", flush=True)
+
+    # (d) keys adding up in a fresh session
+    from whisper_tpu_torch.pipeline.fallback import DEFAULT_TEMPERATURES
+    from whisper_tpu_torch.runtime.generate import _budget
+
+    del sessions, session, s_, enc_
+    base_mem = kept(0)
+    s_ = make_session("cuda", params, "x5")
+    enc16 = _bucket_encoder_states(s_, audio)[0]
+    weights_mem = kept(base_mem)          # with the encoder states (16 rows)
+    stages = []
+
+    def stage(label):
+        stages.append((label, len(s_.graphs.captures()),
+                       kept(base_mem) - weights_mem, s_.graphs.nbytes()))
+
+    for b in (1, 2, 4, 8, 16):
+        s_.warmup(b, prompt, 128, eot)
+    stage("buckets 1-16 warmed")
+    for b in (1, 2, 4, 8, 16):
+        for t in DEFAULT_TEMPERATURES:
+            s_._greedy(enc16[:b].contiguous(), prompt_t, *masks, 128, eot,
+                       temperature=t, with_scores=True,
+                       generator=torch.Generator(device="cuda").manual_seed(3)
+                       if t > 0 else None)
+    stage(f"the ladder's {len(DEFAULT_TEMPERATURES)} temperatures with "
+          "scores at each bucket")
+    for n_prev in (1, 2, 3, 4):
+        s_._greedy(enc16[:1].contiguous(),
+                   torch.tensor(prev[:n_prev] + prompt, device="cuda"),
+                   *masks, 128, eot)
+    stage("prompt lengths 5-8 at bucket 1")
+    if [st[1] for st in stages] != [5, 15, 19]:
+        raise AssertionError(f"(d) keys as they add up {stages}: want 5, "
+                             "15 (T = 0 and one key for every T > 0 a "
+                             "bucket), 19")
+    print(f"[graph] (d) a fresh x5 session's keys adding up, on {card}: "
+          + "; ".join(f"{label}: {n} keys, memory_allocated() less the "
+                      f"session's weights and 16 rows of encoder states "
+                      f"{m * gib:.4f} GiB, the state its "
+                      f"graphs count {c * gib:.4f} GiB"
+                      for label, n, m, c in stages)
+          + f"; budget {_budget(torch.device('cuda', 0)) * gib:.4f} GiB; "
+          f"[graph] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def check_medium_fused_block(card: str, results) -> dict:
@@ -3781,7 +4128,9 @@ def main() -> None:
                              spec_tokens["x4"]})
     check_serve(card, results, params, dims)
     check_pipelined(card, results, params, dims, audio)
-    fused_step = check_fused_step(card, results, params, dims, audio)
+    fused_step, fused_ms = check_fused_step(card, results, params, dims,
+                                            audio)
+    check_graph(card, results, params, dims, audio, x5_run, fused_ms)
     medium = check_medium_fused_block(card, results)
     cli = check_cli(card, results)
     check_audio(card, results)

@@ -1444,3 +1444,287 @@ def test_b4_b6_b7_sharded_at_a_tp_shard_of_heads(gen, int8_mxu):
     with pytest.raises(ValueError, match="heads"):
         cross_attention.cross_attend_multi_sharded(
             qm, k8, v8, ks, vs, 3, s_valid=s, mesh=_mesh(), heads=16)
+
+
+# ---------------------------------------------------------------------------
+# The greedy loop replayed from a CUDA graph (runtime.generate)
+# ---------------------------------------------------------------------------
+
+# rung -> greedy_generate keywords (whisper-base-like small model, bf16)
+GRAPH_RUNGS = {
+    "x4": dict(int8_cross_kv=True, kernel_step=True, int8_mxu=False),
+    "x5": dict(int8_cross_kv=True, kernel_step=True, int8_mxu=True),
+    "x7": dict(int8_cross_kv=True, kernel_step=True, int8_mxu=True,
+               int8_self=True),
+}
+GRAPH_CASES = [("x4", ""), ("x5", ""), ("x7", ""), ("x5", "pads"),
+               ("x7", "pads"), ("x5", "grammar"), ("x5", "scores")]
+# kernels of the greedy step, as the profiler names them
+STEP_KERNELS = ("self_step_kernel", "self_step_int8_kernel",
+                "cross_step_kernel", "cross_dequant_kernel")
+
+
+def _graph_inputs(gen, case):
+    from whisper_tpu_torch.runtime.generate import build_suppress_mask
+    from whisper_tpu_torch.runtime.timestamps import TimestampCfg
+
+    dims, tree = _small_model(5)
+    enc = _randn(gen, 4, 1500, 128)
+    mask = torch.from_numpy(build_suppress_mask(320, [8, 300])).cuda()
+    prompt = [250, 252, 253, 254]
+    kw = {}
+    if case == "pads":
+        prompt = [251] * 4 + [255, 17, 99, 140, 33, 61] + prompt
+        kw["pad_count"] = torch.tensor([4, 6, 9, 0], dtype=torch.int32,
+                                       device="cuda")
+    elif case == "grammar":
+        prompt = prompt[:3]
+        kw["ts_cfg"] = TimestampCfg(255, 251, 254, 10)
+    elif case == "scores":
+        kw["return_logprobs"] = True
+    return dims, tree, enc, mask, torch.tensor(prompt, device="cuda"), kw
+
+
+def _step_counts():
+    return (self_attention.launches, self_attention.int8_launches,
+            self_attention.padded_launches,
+            self_attention.int8_padded_launches, cross_attention.launches,
+            cross_attention.dequant_launches)
+
+
+@pytest.mark.parametrize("rung, case", GRAPH_CASES)
+def test_graphed_loop_is_bitwise_the_eager_loop(gen, rung, case):
+    """The same decode eagerly and replayed from a CUDA graph (captured at
+    the first call, replayed at the second): tokens (and scores) bitwise,
+    the launch counters equal, and each step kernel's launches under
+    torch.profiler equal (``_device_ops``: a replay's kernels are traced
+    one by one)."""
+    from whisper_tpu_torch.runtime.generate import (
+        DecodeGraphs,
+        greedy_generate,
+    )
+
+    dims, tree, enc, mask, prompt, kw = _graph_inputs(gen, case)
+    graphs = DecodeGraphs(tree)
+    kw.update(GRAPH_RUNGS[rung])
+
+    def run(eager):
+        return greedy_generate(tree, dims, enc, prompt, mask, mask, 24, 251,
+                               eager=eager, graphs=graphs, **kw)
+
+    counts = {}
+    outs = {}
+    for eager in (True, False, False):
+        before = _step_counts()
+        outs.setdefault(eager, []).append(run(eager))
+        torch.cuda.synchronize()
+        counts.setdefault(eager, []).append(
+            tuple(a - b for a, b in zip(_step_counts(), before)))
+    assert len(graphs.captures()) == 1
+    want = outs[True][0]
+    for got in outs[False]:
+        if kw.get("return_logprobs"):
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+        else:
+            assert torch.equal(got, want)
+    assert counts[False] == [counts[True][0]] * 2, counts
+    ops = {e: _device_ops(lambda e=e: run(e), calls=1) for e in (True, False)}
+    for name in STEP_KERNELS:
+        n = [sum(c for k, c in ops[e].items() if name + "(" in k
+                 or k.endswith(name) or f"{name}<" in k)
+             for e in (True, False)]
+        assert n[0] == n[1], (name, n, ops[False])
+
+
+def test_graphed_sampling_repeats_per_seed(gen):
+    """T = 1 through the x5 step: a graph registered with its own generator,
+    set per call to the caller's seed: one seed twice equal, another seed
+    different, no suppressed id drawn; printed whether the graphed draws
+    are the eager loop's."""
+    from whisper_tpu_torch.runtime.generate import (
+        DecodeGraphs,
+        build_suppress_mask,
+        greedy_generate,
+    )
+
+    dims, tree = _small_model(6)
+    enc = _randn(gen, 4, 1500, 128)
+    suppress = list(range(0, 320, 3))
+    mask = torch.from_numpy(build_suppress_mask(320, suppress)).cuda()
+    prompt = torch.tensor([250, 252, 253, 254], device="cuda")
+    graphs = DecodeGraphs(tree)
+
+    def run(seed, eager=False):
+        return greedy_generate(
+            tree, dims, enc, prompt, mask, mask, 16, 251, int8_cross_kv=True,
+            kernel_step=True, temperature=1.0, return_logprobs=True,
+            generator=torch.Generator(device="cuda").manual_seed(seed),
+            eager=eager, graphs=graphs)
+
+    a, b, c = run(7), run(7), run(8)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert not torch.equal(a[0], c[0])
+    assert not torch.isin(a[0], torch.tensor(suppress, device="cuda")).any()
+    print("graphed draws equal the eager loop's:",
+          all(torch.equal(x, y) for x, y in zip(a, run(7, eager=True))))
+
+
+def test_every_temperature_shares_one_graph(gen):
+    """The fallback ladder's temperatures through the x5 step with scores:
+    one sampled key, captured once; each T's tokens and scores bitwise the
+    eager loop's at that T."""
+    from whisper_tpu_torch.runtime.generate import (
+        DecodeGraphs,
+        greedy_generate,
+    )
+
+    dims, tree = _small_model(9)
+    enc = _randn(gen, 4, 1500, 128)
+    zero = torch.zeros(320, device="cuda")
+    prompt = torch.tensor([250, 252, 253, 254], device="cuda")
+    graphs = DecodeGraphs(tree)
+
+    def run(t, eager=False):
+        return greedy_generate(
+            tree, dims, enc, prompt, zero, zero, 16, 251, int8_cross_kv=True,
+            kernel_step=True, temperature=t, return_logprobs=True,
+            generator=torch.Generator(device="cuda").manual_seed(11),
+            eager=eager, graphs=graphs)
+
+    for t in (0.2, 0.4, 0.6, 0.8, 1.0):
+        got, want = run(t), run(t, eager=True)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), t
+    assert len(graphs.captures()) == 1
+
+
+def test_decode_graphs_keep_their_state_within_the_budget(gen, monkeypatch):
+    """Six prompt lengths (six keys) through a DecodeGraphs whose budget
+    holds two keys' state: two loops stay, and memory_allocated() after
+    the runs, less before, is their counted state (within 1 MiB); once the
+    graphs go, it is back where it was."""
+    from whisper_tpu_torch.runtime import generate
+    from whisper_tpu_torch.runtime.generate import (
+        DecodeGraphs,
+        greedy_generate,
+    )
+
+    dims, tree = _small_model(10)
+    enc = _randn(gen, 4, 1500, 128)
+    zero = torch.zeros(320, device="cuda")
+
+    def run(p, graphs):
+        prompt = torch.tensor([250] * (p - 3) + [252, 253, 254],
+                              device="cuda")
+        greedy_generate(tree, dims, enc, prompt, zero, zero, 16, 251,
+                        int8_cross_kv=True, kernel_step=True,
+                        early_exit=False, graphs=graphs)
+
+    one = DecodeGraphs(tree)
+    run(9, one)
+    budget = int(2.5 * one.nbytes())
+    del one
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    monkeypatch.setattr(generate, "_budget", lambda device: budget)
+    graphs = DecodeGraphs(tree)
+    for p in range(4, 10):
+        run(p, graphs)
+    torch.cuda.synchronize()
+    kept = graphs.captures()
+    assert len(kept) == 2 and [k.prompt_len for k in kept] == [8, 9]
+    counted = graphs.nbytes()
+    assert counted <= budget
+    kept_mem = torch.cuda.memory_allocated() - before
+    del graphs
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - before
+    print(f"state counted {counted} B; allocated after the runs {kept_mem} "
+          f"B, after the graphs went {left} B")
+    assert abs(kept_mem - left - counted) <= 2**20 and left <= 2**20
+
+
+def test_two_threads_capture_and_replay_at_once(gen):
+    """Two threads at once, as the serving engine's lanes: each captures a
+    loop of its own (two captures in flight) and then both replay one
+    shared loop, eight times each; every result bitwise the loop's alone,
+    no error, and the counters count every replay's launches."""
+    import threading
+
+    from whisper_tpu_torch.runtime.generate import (
+        DecodeGraphs,
+        greedy_generate,
+    )
+
+    dims, tree = _small_model(7)
+    encs = [_randn(gen, 4, 1500, 128) for _ in range(2)]
+    zero = torch.zeros(320, device="cuda")
+    prompt = torch.tensor([250, 252, 253, 254], device="cuda")
+    shared = DecodeGraphs(tree)
+
+    def run(enc, graphs):
+        return greedy_generate(tree, dims, enc, prompt, zero, zero, 20, 251,
+                               int8_cross_kv=True, kernel_step=True,
+                               early_exit=False, graphs=graphs)
+
+    want = [run(e, DecodeGraphs(tree)) for e in encs]
+    torch.cuda.synchronize()
+    before = self_attention.launches
+    errors, outs = [], [[], []]
+    start = threading.Barrier(2)
+
+    def lane(i):
+        try:
+            start.wait()
+            outs[i].append(run(encs[i], DecodeGraphs(tree)))   # a capture
+            for _ in range(8):
+                outs[i].append(run(encs[i], shared))
+        except Exception as e:   # noqa: BLE001 (reported below)
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=lane, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        assert not t.is_alive(), "a lane hung"
+    torch.cuda.synchronize()
+    assert not errors, errors
+    for i in (0, 1):
+        assert len(outs[i]) == 9
+        assert all(torch.equal(o, want[i]) for o in outs[i]), i
+    assert self_attention.launches - before == 2 * 9 * 19 * 2
+
+
+def test_a_failed_capture_raises_and_nothing_falls_back(gen, monkeypatch):
+    """A step that reads the host cannot be captured: greedy_generate
+    raises (no eager loop in its place), and the key captures at the next
+    call once the step is whole again."""
+    from whisper_tpu_torch.runtime import generate
+
+    dims, tree = _small_model(8)
+    enc = _randn(gen, 2, 1500, 128)
+    zero = torch.zeros(320, device="cuda")
+    prompt = torch.tensor([250, 252, 253, 254], device="cuda")
+    graphs = generate.DecodeGraphs(tree)
+    pick = generate.pick
+
+    def reading_pick(logits, *a, **k):
+        if logits.sum().item() != logits.sum().item():     # a host read
+            pass
+        return pick(logits, *a, **k)
+
+    def run():
+        return generate.greedy_generate(
+            tree, dims, enc, prompt, zero, zero, 12, 251, int8_cross_kv=True,
+            kernel_step=True, graphs=graphs)
+
+    monkeypatch.setattr(generate, "pick", reading_pick)
+    with pytest.raises(RuntimeError):
+        run()
+    monkeypatch.setattr(generate, "pick", pick)
+    torch.cuda.synchronize()
+    got = run()
+    assert len(graphs.captures()) == 1
+    assert torch.equal(got, generate.greedy_generate(
+        tree, dims, enc, prompt, zero, zero, 12, 251, int8_cross_kv=True,
+        kernel_step=True, eager=True))

@@ -413,10 +413,12 @@ def _decoder_blocks(params: Params, dims: WhisperDims, x, cache: KVCache,
     self-attention rows [pos, pos+S) of the cache in place and attends per
     ``self_mask``.
 
-    pos: an int (all rows aligned) or a [B] tensor of per-row positions
-    (batched speculative decoding, where rows accept different draft
-    lengths): row r then writes rows [pos_r, pos_r+S), one indexed write per
-    layer and cache, in place and without a host sync.
+    pos: an int (all rows aligned), a one-element tensor (one position for
+    every row, read on the device: the graphed decode loop), or a [B]
+    tensor of per-row positions (batched speculative decoding, where rows
+    accept different draft lengths): row r then writes rows [pos_r,
+    pos_r+S).  A tensor writes by one indexed copy per layer and cache, in
+    place and without a host sync (at B = 1 both tensor forms are one).
 
     cross_len (the encoder length) routes cross-attention through the
     kernels against the int8 cross cache, the JAX package's packed-cross
@@ -438,14 +440,17 @@ def _decoder_blocks(params: Params, dims: WhisperDims, x, cache: KVCache,
     dec = params["decoder"]
     d, dh = dims.d_model, dims.head_dim
     s = x.shape[1]
-    rows = None
+    rows = slots = None
     if isinstance(pos, torch.Tensor):
         if pos.ndim != 1:
             raise ValueError(f"pos must be an int or a [B] tensor, got "
                              f"shape {tuple(pos.shape)}")
         pos = pos.to(torch.long)
-        rows = (torch.arange(x.shape[0], device=x.device)[:, None],
-                pos[:, None] + torch.arange(s, device=x.device)[None, :])
+        if pos.numel() == 1:
+            slots = pos + torch.arange(s, device=x.device)      # [S]
+        else:
+            rows = (torch.arange(x.shape[0], device=x.device)[:, None],
+                    pos[:, None] + torch.arange(s, device=x.device)[None, :])
     if cross_len is not None:
         from whisper_tpu_torch.ops import cross_attention as ca
 
@@ -472,7 +477,10 @@ def _decoder_blocks(params: Params, dims: WhisperDims, x, cache: KVCache,
         q = _split_heads(_dense(r, p["q_w"], p["q_b"]), h)
         k = _split_heads(_dense(r, p["k_w"], None), h)
         v = _split_heads(_dense(r, p["v_w"], p["v_b"]), h)
-        if rows is None:
+        if slots is not None:
+            cache.self_k[li].index_copy_(2, slots, k.to(cache.self_k.dtype))
+            cache.self_v[li].index_copy_(2, slots, v.to(cache.self_v.dtype))
+        elif rows is None:
             cache.self_k[li, :, :, pos:pos + s] = k
             cache.self_v[li, :, :, pos:pos + s] = v
         else:
@@ -512,7 +520,8 @@ def _decoder_blocks_kernel(params: Params, dims: WhisperDims, x,
     then B4 (int8_mxu, x5 and x7) or B6 (x4) attends the int8 cross cache.
     The caches keep the prefill layout (no packing step).  pad_count ([B]
     int32 on the cache's device, or None) goes to B3/B8, which then attend
-    rows [pad_count, pos] of each row.
+    rows [pad_count, pos] of each row.  pos: an int, or a one-element
+    tensor that B3/B8 read on the card (as int32).
 
     mesh: the counterpart of the JAX ``mesh=`` path, which runs the packed
     kernels per shard through ``shard_map``: here the rank already holds
@@ -523,6 +532,8 @@ def _decoder_blocks_kernel(params: Params, dims: WhisperDims, x,
     from whisper_tpu_torch.ops import self_attention as sa
 
     int8_self = cache.self_k_scale is not None
+    if isinstance(pos, torch.Tensor) and pos.dtype != torch.int32:
+        pos = pos.to(torch.int32)
     if mesh is None:
         cross_attend = (ca.cross_attend_step if int8_mxu
                         else ca.cross_attend_step_dequant)
@@ -605,11 +616,17 @@ def quantize_self_kv(cache: KVCache) -> KVCache:
 def _logits(params: Params, x):
     """Tied output projection x [B, S, d] @ tok_emb.T in fp32 (an fp32
     matmul of the compute-dtype operands).  With int8 weights,
-    ``tok_emb_q`` holds the [d, V] projection."""
-    emb_q = params["decoder"].get("tok_emb_q")
+    ``tok_emb_q`` holds the [d, V] projection.  ``tok_emb_f32``, where the
+    tree has it (``WhisperDecoder``), is tok_emb widened once: the same
+    operand, not widened again every step."""
+    dec = params["decoder"]
+    emb_q = dec.get("tok_emb_q")
     if emb_q is not None:
         return torch.matmul(x.float(), _dequant(emb_q, x.dtype).float())
-    return torch.matmul(x.float(), params["decoder"]["tok_emb"].float().T)
+    emb = dec.get("tok_emb_f32")
+    if emb is None:
+        emb = dec["tok_emb"].float()
+    return torch.matmul(x.float(), emb.T)
 
 
 def decoder_prefill(params: Params, dims: WhisperDims, tokens, enc_states,
@@ -709,11 +726,15 @@ def decoder_step(params: Params, dims: WhisperDims, token, pos,
                  cross_len: Optional[int] = None, int8_mxu: bool = True,
                  pad_count=None, mesh=None):
     """One-token pass at cache slot ``pos``: logits [B, V].  pos is an int
-    (all rows aligned) or a [B] tensor that gives each row its own position
-    (batched speculative decoding).
+    (all rows aligned), a one-element integer tensor on the tokens' device
+    (one position for every row, never read on the host: the graphed
+    greedy loop advances it in place), or a [B] tensor that gives each row
+    its own position (batched speculative decoding; at B = 1 the two
+    tensor forms are one).
 
     kernel_step runs B3 (B8 against an int8 self cache) and, per int8_mxu,
-    B4 (x5, x7) or B6 (x4); it needs the int8 cross cache and an int pos.
+    B4 (x5, x7) or B6 (x4); it needs the int8 cross cache and one position
+    for all rows (an int or a one-element tensor).
     Without it, cross_len (the encoder length) keeps plain self-attention
     and runs cross-attention through B4 or B6 (the step a speculative draft
     takes); with neither, every block is plain torch.  An int8 self cache
@@ -732,7 +753,7 @@ def decoder_step(params: Params, dims: WhisperDims, token, pos,
     dtype = dec["tok_emb"].dtype
     max_len = cache.self_k.shape[3]
     ar = torch.arange(max_len, device=token.device)
-    if kernel_step and isinstance(pos, torch.Tensor):
+    if kernel_step and isinstance(pos, torch.Tensor) and pos.numel() != 1:
         raise ValueError(
             "the kernel decode step (B3/B8) takes one position for all "
             "rows; per-row positions run the plain self-attention "
@@ -854,7 +875,10 @@ class WhisperEncoder(_StackedWeights):
 class WhisperDecoder(_StackedWeights):
     """Decoder weights ([L, ...] stacked, int8 dequantized once; the int8
     ``tok_emb_q`` projection kept as its fp32-widened bf16 values, the
-    operand ``_logits`` multiplies) on ``device``."""
+    operand ``_logits`` multiplies) on ``device``.  Without ``tok_emb_q``,
+    ``tree()`` also holds ``tok_emb_f32``, tok_emb widened once (the
+    operand ``_logits`` would otherwise widen every step: 4 x V x d bytes
+    read and written a step)."""
 
     def __init__(self, params_decoder: Dict, dims: WhisperDims, *, device):
         dtype = params_decoder["tok_emb"].dtype
@@ -862,7 +886,16 @@ class WhisperDecoder(_StackedWeights):
         if "tok_emb_q" in tree:
             tree["tok_emb_q"] = tree["tok_emb_q"].float()
         super().__init__(tree, device)
+        self.register_buffer(
+            "tok_emb_f32", None if "tok_emb_q" in tree
+            else self.tok_emb.float(), persistent=False)
         self.dims = dims
+
+    def tree(self) -> Dict:
+        out = super().tree()
+        if self.tok_emb_f32 is not None:
+            out["tok_emb_f32"] = self.tok_emb_f32
+        return out
 
     def forward(self, token, pos, cache: KVCache, *,
                 kernel_step: bool = False, cross_len: Optional[int] = None,

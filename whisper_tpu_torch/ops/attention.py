@@ -15,10 +15,12 @@ the same function in plain PyTorch.  Any other device raises.
 
 from __future__ import annotations
 
+import sys
+
 import torch
 
 from whisper_tpu_torch.ops import kernels
-from whisper_tpu_torch.ops.common import COUNT_LOCK, check_operand, route
+from whisper_tpu_torch.ops.common import check_operand, count_launch, route
 
 launches = 0  # kernel launches since the last reset (plain calls excluded)
 
@@ -38,7 +40,6 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor,
     q must already be scaled by Dh^-0.5.  The kernel takes bf16, Dh = 64."""
     if route(q) == "plain":
         return fused_attention_plain(q, k, v)
-    global launches
     b, h, t, dh = q.shape
     if dh != 64:
         raise ValueError(f"fused_attention kernel needs head_dim 64, got {dh}")
@@ -49,6 +50,5 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor,
     kernels.check(lib.wt_fused_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, t,
         kernels.stream_ptr(q.device)), "fused_attention")
-    with COUNT_LOCK:
-        launches += 1
+    count_launch(sys.modules[__name__], launches=1)
     return out

@@ -6,6 +6,7 @@ its plain version must use this one definition.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
@@ -14,6 +15,42 @@ import torch
 # engine's lanes launch from several threads, and `+=` on a module global is
 # a read and a write that two threads can interleave.
 COUNT_LOCK = threading.Lock()
+# The launches a thread records while it captures a CUDA graph (None when
+# it captures nothing): a capture launches nothing, each replay does.
+_TALLY = threading.local()
+
+
+def count_launch(module, **counts) -> None:
+    """Add ``counts`` to the launch counters of the wrapper's ``module``
+    (``launches=1``, ...), under ``COUNT_LOCK``.  While this thread
+    captures a CUDA graph (``tally_launches``) they are tallied instead."""
+    tally = getattr(_TALLY, "counts", None)
+    with COUNT_LOCK:
+        for name, n in counts.items():
+            if tally is not None:
+                tally[(module, name)] = tally.get((module, name), 0) + int(n)
+            else:
+                setattr(module, name, getattr(module, name) + int(n))
+
+
+@contextlib.contextmanager
+def tally_launches():
+    """Within the block, this thread's wrappers tally their launches into
+    the dict yielded, {(module, counter): n}, and leave the counters as
+    they are: a CUDA graph's capture.  ``add_launches`` adds the tally once
+    a replay."""
+    _TALLY.counts = {}
+    try:
+        yield _TALLY.counts
+    finally:
+        _TALLY.counts = None
+
+
+def add_launches(tally: dict) -> None:
+    """Add a tally of ``tally_launches`` to the counters, under the lock."""
+    with COUNT_LOCK:
+        for (module, name), n in tally.items():
+            setattr(module, name, getattr(module, name) + n)
 
 SQRT_2_OVER_PI = 0.7978845608028654
 

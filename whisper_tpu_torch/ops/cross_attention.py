@@ -41,12 +41,14 @@ it launches ``csrc/cross_attention_multi.cu``; on a CPU tensor it takes
 
 from __future__ import annotations
 
+import sys
+
 import torch
 
 from whisper_tpu_torch.ops import kernels
 from whisper_tpu_torch.ops.common import (
-    COUNT_LOCK,
     check_operand,
+    count_launch,
     div127,
     route,
 )
@@ -107,7 +109,6 @@ def cross_attend_step(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     if route(q) == "plain":
         return cross_attend_step_plain(q, k8, v8, k_scale, v_scale, layer,
                                        s_valid=s_valid)
-    global launches
     b, h, dh = q.shape
     n_layers, s_max = k8.shape[0], k8.shape[3]
     if dh != 64 or q.dtype != torch.bfloat16:
@@ -133,8 +134,7 @@ def cross_attend_step(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
         q.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), k8.data_ptr(),
         v8.data_ptr(), out.data_ptr(), b, h, s_max, int(layer), int(s_valid),
         kernels.stream_ptr(q.device)), "cross_attend_step")
-    with COUNT_LOCK:
-        launches += 1
+    count_launch(sys.modules[__name__], launches=1)
     return out
 
 
@@ -169,7 +169,6 @@ def cross_attend_step_dequant(q: torch.Tensor, k8: torch.Tensor,
     if route(q) == "plain":
         return cross_attend_step_dequant_plain(q, k8, v8, k_scale, v_scale,
                                                layer, s_valid=s_valid)
-    global dequant_launches
     b, h, dh = q.shape
     n_layers, s_max = k8.shape[0], k8.shape[3]
     if dh != 64 or q.dtype != torch.bfloat16:
@@ -190,8 +189,7 @@ def cross_attend_step_dequant(q: torch.Tensor, k8: torch.Tensor,
         q.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), k8.data_ptr(),
         v8.data_ptr(), out.data_ptr(), b, h, s_max, int(layer), int(s_valid),
         kernels.stream_ptr(q.device)), "cross_attend_step_dequant")
-    with COUNT_LOCK:
-        dequant_launches += 1
+    count_launch(sys.modules[__name__], dequant_launches=1)
     return out
 
 
@@ -224,7 +222,6 @@ def cross_attend_multi(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     if route(q) == "plain":
         return cross_attend_multi_plain(q, k8, v8, k_scale, v_scale, layer,
                                         s_valid=s_valid, int8_mxu=int8_mxu)
-    global multi_launches
     b, t, h, dh = q.shape
     n_layers, s_max = k8.shape[0], k8.shape[3]
     if dh != 64 or q.dtype != torch.bfloat16:
@@ -250,8 +247,7 @@ def cross_attend_multi(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
         q.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), k8.data_ptr(),
         v8.data_ptr(), out.data_ptr(), *dims),
         "cross_attend_multi" if int8_mxu else "cross_attend_multi_dequant")
-    with COUNT_LOCK:
-        multi_launches += 1
+    count_launch(sys.modules[__name__], multi_launches=1)
     return out
 
 

@@ -43,6 +43,7 @@ flag selects it.
 
 from __future__ import annotations
 
+import sys
 from typing import Dict
 
 import torch
@@ -50,9 +51,9 @@ import torch
 from whisper_tpu_torch.models.registry import WhisperDims
 from whisper_tpu_torch.ops import kernels
 from whisper_tpu_torch.ops.common import (
-    COUNT_LOCK,
     SQRT_2_OVER_PI,
     check_operand,
+    count_launch,
     route,
 )
 
@@ -97,7 +98,6 @@ def mlp_block(x: torch.Tensor, ln: torch.Tensor, w1: torch.Tensor,
     b2 [1, d] -> [B, d]."""
     if route(x) == "plain":
         return mlp_block_plain(x, ln, w1, b1, w2, b2)
-    global launches
     b, d = x.shape
     f = w1.shape[1]
     if d % D_MULTIPLE or d > 1280 or f % F_MULTIPLE or f > 5120:
@@ -120,8 +120,7 @@ def mlp_block(x: torch.Tensor, ln: torch.Tensor, w1: torch.Tensor,
         x.data_ptr(), ln.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), h.data_ptr(), out.data_ptr(), b, d, f,
         kernels.stream_ptr(x.device)), "mlp_block")
-    with COUNT_LOCK:
-        launches += 1
+    count_launch(sys.modules[__name__], launches=1)
     return out
 
 
@@ -158,10 +157,12 @@ def build_step_weights(params: Dict, dims: WhisperDims) -> Dict:
 
 
 def decoder_step_hybrid(params: Dict, step_weights: Dict, dims: WhisperDims,
-                        token: torch.Tensor, pos: int, cache, mesh=None):
+                        token: torch.Tensor, pos, cache, mesh=None):
     """One-token decoder pass with the pre-fused weights: logits [B, V] and
     the cache, whose self rows at ``pos`` are written in place.  Same
-    arguments and results as ``models.whisper.decoder_step``.
+    arguments and results as ``models.whisper.decoder_step``: ``pos`` an
+    int or a one-element integer tensor on the tokens' device (one position
+    for every row; the mask and the cache writes take it on the device).
 
     mesh: the QKV, O, XQ and XO weights hold this rank's heads and O and
     XO are summed over "model"; B10c fuses FC2's bias and the residual, so
@@ -196,14 +197,19 @@ def decoder_step_hybrid(params: Dict, step_weights: Dict, dims: WhisperDims,
     x = dec["tok_emb"][token][:, None, :] + dec["pos_embed"][pos].to(dtype)
     max_len = cache.self_k.shape[3]
     mask = (torch.arange(max_len, device=x.device) <= pos)[None, :]
+    slot = pos.to(torch.long) if isinstance(pos, torch.Tensor) else None
     int8_cross = cache.cross_k_scale is not None
     for li in range(dims.decoder_layers):
         r = _layer_norm(x, sw["ln1"][li, 0], sw["ln1"][li, 1])
         qkv = torch.matmul(r, sw["qkv_w"][li]) + sw["qkv_b"][li, 0]
         q, k, v = (_split_heads(t, h) for t in (
             qkv[..., :dl], qkv[..., dl:2 * dl], qkv[..., 2 * dl:]))
-        cache.self_k[li, :, :, pos:pos + 1] = k
-        cache.self_v[li, :, :, pos:pos + 1] = v
+        if slot is None:
+            cache.self_k[li, :, :, pos:pos + 1] = k
+            cache.self_v[li, :, :, pos:pos + 1] = v
+        else:
+            cache.self_k[li].index_copy_(2, slot, k.to(cache.self_k.dtype))
+            cache.self_v[li].index_copy_(2, slot, v.to(cache.self_v.dtype))
         o = _attend(q, cache.self_k[li], cache.self_v[li], mask)
         x = x + out(o, sw["o_w"][li]) + sw["o_b"][li, 0]
 
@@ -335,7 +341,6 @@ def self_attn_block(x: torch.Tensor, ln: torch.Tensor, qkv_w: torch.Tensor,
     if route(x) == "plain":
         return self_attn_block_plain(x, ln, qkv_w, qkv_b, o_w, o_b, cache_k,
                                      cache_v, pos, heads)
-    global self_block_launches
     b, d = _check_block("self_attn_block", x, ln, qkv_w, qkv_b, o_w, o_b,
                         heads)
     s_max = cache_k.shape[0]
@@ -354,8 +359,7 @@ def self_attn_block(x: torch.Tensor, ln: torch.Tensor, qkv_w: torch.Tensor,
         cache_v.data_ptr(), qbuf.data_ptr(), ctx.data_ptr(), out.data_ptr(),
         b, d, heads, s_max, pos_int, pos_ptr, kernels.stream_ptr(x.device)),
         "self_attn_block")
-    with COUNT_LOCK:
-        self_block_launches += 1
+    count_launch(sys.modules[__name__], self_block_launches=1)
     return out, cache_k, cache_v
 
 
@@ -396,7 +400,6 @@ def cross_attn_block(x: torch.Tensor, ln: torch.Tensor, q_w: torch.Tensor,
     if route(x) == "plain":
         return cross_attn_block_plain(x, ln, q_w, q_b, o_w, o_b, cross_k,
                                       cross_v, heads)
-    global cross_block_launches
     b, d = _check_block("cross_attn_block", x, ln, q_w, q_b, o_w, o_b, heads)
     t = cross_k.shape[2]
     if q_w.shape[1] != d or t < 1:
@@ -413,8 +416,7 @@ def cross_attn_block(x: torch.Tensor, ln: torch.Tensor, q_w: torch.Tensor,
         o_w.data_ptr(), o_b.data_ptr(), cross_k.data_ptr(),
         cross_v.data_ptr(), qbuf.data_ptr(), ctx.data_ptr(), out.data_ptr(),
         b, d, heads, t, kernels.stream_ptr(x.device)), "cross_attn_block")
-    with COUNT_LOCK:
-        cross_block_launches += 1
+    count_launch(sys.modules[__name__], cross_block_launches=1)
     return out
 
 

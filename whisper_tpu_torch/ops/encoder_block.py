@@ -37,14 +37,15 @@ that the port gives the JAX package's values at every model size.
 
 from __future__ import annotations
 
+import sys
 from typing import Optional
 
 import torch
 
 from whisper_tpu_torch.ops import kernels
 from whisper_tpu_torch.ops.common import (
-    COUNT_LOCK,
     check_operand,
+    count_launch,
     gelu_tanh,
     route,
 )
@@ -137,7 +138,6 @@ def fused_ln_qkv(x: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor,
     K."""
     if route(x) == "plain":
         return fused_ln_qkv_plain(x, ln_s, ln_b, w_qkv, b_qkv)
-    global ln_qkv_launches
     b, t, d = x.shape
     c = w_qkv.shape[1]
     if d not in QKV_WIDTHS or c % QKV_COL_TILE:
@@ -156,8 +156,7 @@ def fused_ln_qkv(x: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor,
         x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), w_qkv.data_ptr(),
         b_qkv.data_ptr(), r.data_ptr(), out.data_ptr(), b * t, d, c,
         kernels.stream_ptr(x.device)), "fused_ln_qkv")
-    with COUNT_LOCK:
-        ln_qkv_launches += 1
+    count_launch(sys.modules[__name__], ln_qkv_launches=1)
     return out
 
 
@@ -184,7 +183,6 @@ def fused_out_mlp(x: torch.Tensor, ctx: torch.Tensor, o_w: torch.Tensor,
     if route(x) == "plain":
         return fused_out_mlp_plain(x, ctx, o_w, o_b, ln_s, ln_b, w1, b1, w2,
                                    b2)
-    global out_mlp_launches
     b, t, d = x.shape
     f = w1.shape[1]
     if d not in OUT_MLP_WIDTHS or f % F_CHUNK:
@@ -210,6 +208,5 @@ def fused_out_mlp(x: torch.Tensor, ctx: torch.Tensor, o_w: torch.Tensor,
         w2.data_ptr(), b2.data_ptr(), y32.data_ptr(), r.data_ptr(),
         h.data_ptr(), out.data_ptr(), b * t, d, f,
         kernels.stream_ptr(x.device)), "fused_out_mlp")
-    with COUNT_LOCK:
-        out_mlp_launches += 1
+    count_launch(sys.modules[__name__], out_mlp_launches=1)
     return out

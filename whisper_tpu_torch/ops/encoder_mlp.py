@@ -19,12 +19,14 @@ call: 123 MB at whisper-base bucket 16.  On a CPU tensor it takes
 
 from __future__ import annotations
 
+import sys
+
 import torch
 
 from whisper_tpu_torch.ops import kernels
 from whisper_tpu_torch.ops.common import (
-    COUNT_LOCK,
     check_operand,
+    count_launch,
     gelu_tanh,
     route,
 )
@@ -55,7 +57,6 @@ def fused_encoder_mlp(x: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor,
     """x [B, T, d] -> x + FC2(GELU_tanh(FC1(LN(x)))); w1 [d, f], w2 [f, d]."""
     if route(x) == "plain":
         return fused_encoder_mlp_plain(x, ln_s, ln_b, w1, b1, w2, b2)
-    global launches
     b, t, d = x.shape
     f = w1.shape[1]
     if d not in KERNEL_WIDTHS or f % F_CHUNK:
@@ -78,6 +79,5 @@ def fused_encoder_mlp(x: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor,
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), r.data_ptr(),
         h.data_ptr(), out.data_ptr(), b * t, d, f,
         kernels.stream_ptr(x.device)), "fused_encoder_mlp")
-    with COUNT_LOCK:
-        launches += 1
+    count_launch(sys.modules[__name__], launches=1)
     return out

@@ -30,6 +30,7 @@ Python thread, so the launch count is incremented under a lock.
 from __future__ import annotations
 
 import functools
+import sys
 
 import numpy as np
 import torch
@@ -43,7 +44,7 @@ from whisper_tpu_torch.frontend.mel import (
     normalize,
 )
 from whisper_tpu_torch.ops import kernels
-from whisper_tpu_torch.ops.common import COUNT_LOCK, check_operand, route
+from whisper_tpu_torch.ops.common import check_operand, count_launch, route
 
 INT16_SCALE = float(np.float32(1.0 / 32767.0))  # decode_transfer's factor
 TILE_FRAMES = 8     # frames of one block of the spectrum kernel (its FT)
@@ -121,7 +122,6 @@ def _device_tables(device: torch.device, n_mels: int):
 
 def _launch(padded_audio: torch.Tensor, n_mels: int, n_frames: int,
             valid_frames: int, normalize: bool) -> torch.Tensor:
-    global launches
     if route(padded_audio) != "kernel":
         raise ValueError("log_spec launches the CUDA kernel; a CPU tensor "
                          "takes log_mel_plain")
@@ -147,8 +147,7 @@ def _launch(padded_audio: torch.Tensor, n_mels: int, n_frames: int,
         bands.data_ptr(), weights.data_ptr(), out.data_ptr(),
         tile_max.data_ptr(), n_frames, valid, n_mels, INT16_SCALE,
         int(normalize), kernels.stream_ptr(dev)), "log_mel")
-    with COUNT_LOCK:
-        launches += 1
+    count_launch(sys.modules[__name__], launches=1)
     return out
 
 

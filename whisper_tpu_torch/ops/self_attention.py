@@ -39,12 +39,14 @@ else on the card; on a CPU tensor it takes ``self_attend_step_int8_plain``.
 
 from __future__ import annotations
 
+import sys
+
 import torch
 
 from whisper_tpu_torch.ops import kernels
 from whisper_tpu_torch.ops.common import (
-    COUNT_LOCK,
     check_operand,
+    count_launch,
     div127,
     route,
 )
@@ -118,7 +120,6 @@ def self_attend_step(q: torch.Tensor, k_new: torch.Tensor,
     if route(q) == "plain":
         return self_attend_step_plain(q, k_new, v_new, k_cache, v_cache,
                                       layer, pos, pad_count)
-    global launches, padded_launches
     b, h, dh = q.shape
     n_layers, s_max = k_cache.shape[0], k_cache.shape[3]
     if dh != 64:
@@ -139,9 +140,8 @@ def self_attend_step(q: torch.Tensor, k_new: torch.Tensor,
         None if pad_count is None else pad_count.data_ptr(), out.data_ptr(),
         b, h, s_max, int(layer), pos, pos_ptr,
         kernels.stream_ptr(q.device)), "self_attend_step")
-    with COUNT_LOCK:
-        launches += 1
-        padded_launches += pad_count is not None
+    count_launch(sys.modules[__name__], launches=1,
+                 padded_launches=pad_count is not None)
     return out
 
 
@@ -215,7 +215,6 @@ def self_attend_step_int8(q: torch.Tensor, k_new: torch.Tensor,
         return self_attend_step_int8_plain(q, k_new, v_new, k_cache, v_cache,
                                            k_scale, v_scale, layer, pos,
                                            pad_count)
-    global int8_launches, int8_padded_launches
     b, h, dh = q.shape
     n_layers, s_max = k_cache.shape[0], k_cache.shape[3]
     if dh != 64:
@@ -240,9 +239,8 @@ def self_attend_step_int8(q: torch.Tensor, k_new: torch.Tensor,
         None if pad_count is None else pad_count.data_ptr(), out.data_ptr(),
         b, h, s_max, int(layer), pos, pos_ptr, kernels.stream_ptr(q.device)),
         "self_attend_step_int8")
-    with COUNT_LOCK:
-        int8_launches += 1
-        int8_padded_launches += pad_count is not None
+    count_launch(sys.modules[__name__], int8_launches=1,
+                 int8_padded_launches=pad_count is not None)
     return out
 
 

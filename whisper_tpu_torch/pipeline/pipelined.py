@@ -14,14 +14,17 @@ tails masked by their valid-frame count), and each slab is uploaded
 JAX module, which calls the XLA ``log_spec_slab``) and decoded by
 ``session.transcribe_from_mel_async(..., chunk_norm_n_valid=n_valid)``.
 
-The limit of the overlap on the card: the mode exists so that slab k
-decodes while slab k+1's audio is still on the wire (the JAX package's
-remote-device link).  In the port ``transcribe_from_mel_async`` returns
-only after its decode loop, because the greedy loop reads
-``bool(done.all())`` on the host every step (``runtime/generate.py``,
-ROADMAP queue 1 item 4(a)); so the slabs run one after another, and each
-slab is a batch bucket of its own (4 rows at ``slab_chunks`` 4), that is a
-host-bound decode loop of its own.
+What overlaps on the card: the mode exists so that slab k decodes while
+slab k+1's audio is still on the wire (the JAX package's remote-device
+link).  In the port greedy ``transcribe_from_mel_async`` reads nothing on
+the host and returns once slab k's encoder, prefill and graphed steps are
+queued (``runtime/generate.py``), so the host goes on to slab k+1 while
+the card decodes slab k: slab k+1's host slicing and wire encoding overlap
+slab k's decode.  Its upload is a copy from pageable host memory, which
+waits for the stream, so it starts when slab k's queued work ends; each
+slab stays a batch bucket of its own (4 rows at ``slab_chunks`` 4).  With
+beams or a draft the slab's loop still reads the host, and slabs run in
+series.
 
 Timing: preprocess_s covers the host preparation and slab 0's upload and
 log-spec (synchronized); model_only_s runs from slab 0's decode to the

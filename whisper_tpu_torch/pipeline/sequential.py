@@ -21,6 +21,11 @@ LEFT-padded to ``prev_context_tokens`` slots so that every window's prompt
 has one length; the session's ``pad_count`` masks the pad slots
 (``models.whisper.decoder_prefill``'s prompt mask, then B3/B8 on every
 step), so the padded prompt decodes as the unpadded shorter one.
+
+Each window is one bucket-1 decode through ``transcribe_from_mel``: on a
+card its steps replay from the session's graph of that key (bucket 1, the
+grammar, ``pad_count`` when conditioned), captured at the first window;
+the window's tokens are read before the next seek, which needs them.
 """
 
 from __future__ import annotations

@@ -4,8 +4,12 @@ of file durations will hit, before the measured per-file loop.
 
 On the TPU each new shape is a full XLA compile.  The port compiles
 nothing per shape, but the first run of a shape still pays the kernel
-library's build and load, cuBLAS's heuristics and the caching allocator's
-growth, so the CLI warms the same shapes the JAX CLI does.
+library's build and load, cuBLAS's heuristics, the caching allocator's
+growth and, on a card, the capture of the greedy loop's CUDA graph for
+the shape's key (``runtime.generate``), so the CLI warms the same shapes
+the JAX CLI does and no timed run captures the keys they cover.  The
+fallback ladder's re-decodes run buckets of the chunks that failed, whose
+sizes depend on the data: a bucket size first met there captures then.
 """
 
 from __future__ import annotations
@@ -54,8 +58,9 @@ def warm_buckets(session, durations_s: Iterable[float], *, language: str,
                  gen_cfg=None, num_beams: int = 1,
                  length_penalty: float = 1.0, initial_prompt_ids=None,
                  speculative: bool = False, draft_k: int = 4) -> int:
-    """Transcribe synthetic zero audio once per distinct shape; returns the
-    number of shapes warmed."""
+    """Transcribe synthetic zero audio once per distinct shape (capturing
+    each bucket's greedy loop on a card); returns the number of shapes
+    warmed."""
     seen: Set[Tuple[int, frozenset]] = set()
     durs = []
     for d in durations_s:

@@ -51,6 +51,17 @@ exactly by ``chip_smoke.py``.  It calls only what older trees have, so it
 also runs against one (that tree on ``PYTHONPATH``, this file run by its
 path).
 
+Greedy decoding on the card replays its steps from CUDA graphs
+(``runtime.generate``), and the warm-up run captures them, so the traced
+run replays.  torch.profiler traces a replay's kernels one by one, each
+under its own name, so the in-situ times and the operation counts hold for
+the graphed loop as for the eager one.
+
+``python -m whisper_tpu_torch.profile_ladder --graph`` runs only x5 twice,
+graphed and with the session's greedy loop run eagerly
+(``eager_decode``), one JSON line each as above: what the graph takes off
+the host and what it leaves on the card.
+
 ``python -m whisper_tpu_torch.profile_ladder --decoding`` runs only the
 decoding options on one x5 session over the 301.574 s file's mel (computed
 once; each run is the encoder and 128 tokens of ``transcribe_from_mel``):
@@ -225,11 +236,12 @@ def call_timelines(prof) -> dict:
 
 
 def profile_config(label: str, variant: str, overrides: dict, params,
-                   audio, draft=None, max_new_tokens: int = 128) -> dict:
+                   audio, draft=None, max_new_tokens: int = 128,
+                   eager: bool = False) -> dict:
     """One traced run of the workload; ``draft``: (params, dims) of a draft
     model, and then the run decodes speculatively with draft_k 4;
     ``overrides`` may name another ``model_id`` (``params`` None: random
-    weights from seed 0)."""
+    weights from seed 0); ``eager``: the greedy loop without its graphs."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -238,6 +250,7 @@ def profile_config(label: str, variant: str, overrides: dict, params,
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)  # x6's precedence note
         session = make_session("cuda", params, variant, **overrides)
+    session.eager_decode = eager
     decode = {"max_new_tokens": max_new_tokens}
     if draft is not None:
         session.set_draft_model(*draft, share_encoder=True)
@@ -549,6 +562,8 @@ def main() -> None:
                         help="run only x7, x5 on a one-shot file, B5 and B8")
     parser.add_argument("--decoding", action="store_true",
                         help="run only the decoding options, in turns")
+    parser.add_argument("--graph", action="store_true",
+                        help="run only x5, graphed and eager")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("whisper_tpu_torch.profile_ladder needs a CUDA card")
@@ -585,6 +600,13 @@ def main() -> None:
     audio = synth_audio(AUDIO_SECONDS)
     if args.decoding:
         for out in profile_decoding(params, audio):
+            out["device"] = card
+            print(json.dumps(out), flush=True)
+        return
+    if args.graph:
+        for eager in (False, True):
+            label = "x5, greedy loop " + ("eager" if eager else "graphed")
+            out = profile_config(label, "x5", {}, params, audio, eager=eager)
             out["device"] = card
             print(json.dumps(out), flush=True)
         return

@@ -19,12 +19,34 @@ explicit ``torch.Generator`` on the logits' device; ``return_logprobs``
 also returns each row's summed log-probability (``log_softmax`` of the
 masked logits, before the division by T) and its token count.
 
-The JAX ``lax.while_loop`` becomes a Python loop.  The early exit reads
-``done`` on the host once per step, and nothing else does: the grammar, the
-draws and the sums stay on the device, so a CUDA graph can later capture
-the whole step.
+The JAX ``lax.while_loop`` becomes a step function that updates the
+loop's state in place (``LoopState``: the last token, the cache slot
+``pos`` and the step counter as one-element device tensors, ``done``, the
+token buffer, the scores, the grammar's state and the cache), so that no
+host value changes from one step to the next.  On the CPU the step
+function is called as it is.  On a card it is warmed once on a side stream,
+captured in a ``torch.cuda.CUDAGraph`` per key (``DecodeGraphs``: the
+batch rows, the prompt length, max_new_tokens, the step's route and rung,
+the grammar, whether it samples, the scores, ``pad_count``) and replayed
+once a step; a capture that fails raises.  The temperature is a tensor of
+the state, so every T > 0 shares one graph.  A key's loop keeps its state
+(the cache of its rows) for later calls; the loops of one ``DecodeGraphs``
+keep at most a quarter of the card's memory in it, the least recently
+used dropped first.  ``eager=True`` runs the step
+function on the card without a graph (the card checks compare the two).
+A replay adds to the kernels' launch counters what its capture tallied
+(``ops.common.tally_launches``).
 
-Under a mesh (``parallel.mesh``) every rank runs this loop on its own rows
+The early exit: with ``early_exit=False`` the loop reads nothing on the
+host and every step runs (the ``_async`` entry points; a row past EOT
+emits EOT and adds nothing to its scores, so the tokens, sums and counts
+are those of a loop that stopped).  Otherwise it reads whether every row
+is done once a block of ``EXIT_BLOCK`` steps on a card, once a step on
+the CPU: on a card from a non-blocking copy, read only after the next block
+is queued, so the card never waits on the host.
+
+Under a mesh (``parallel.mesh``) every rank runs the step function on its
+own rows without a graph, since gloo's collectives go through the host
 (``mesh=`` reaches the model's collectives): the model ranks of one data
 rank hold the same rows, and their logits follow the same all-reduce, so
 their ``done`` reads agree and they take the same number of steps, as the
@@ -33,7 +55,11 @@ collectives need; a data rank stops when its own rows end.
 
 from __future__ import annotations
 
-from typing import Sequence
+import collections
+import dataclasses
+import threading
+import time
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -52,18 +78,19 @@ def build_suppress_mask(vocab_size: int, ids: Sequence[int] | None) -> np.ndarra
     return mask
 
 
-def pick(logits: torch.Tensor, temperature: float, generator,
+def pick(logits: torch.Tensor, temperature, generator,
          want_lp: bool, rows=None):
     """(token [B], its log-probability [B] or None) from masked fp32 logits
     [B, V].  T > 0: argmax(logits / T - log E), E ~ Exp(1) (a Gumbel-max
     draw); E is floored at the smallest normal float, so a suppressed id
     (-inf) can never be drawn.  The log-probability is that of the masked
-    distribution at T = 1, as the JAX ``pick`` takes it.
+    distribution at T = 1, as the JAX ``pick`` takes it.  temperature: a
+    float, or a one-element fp32 tensor holding T > 0 (the loop's step).
 
     rows (lo, hi, n): the logits are rows [lo, hi) of a batch of n (a data
     rank's share): the draws are made for all n rows, as the one-process
     decode makes them, and rows [lo, hi) taken."""
-    if temperature > 0:
+    if torch.is_tensor(temperature) or temperature > 0:
         if rows is None:
             e = torch.empty_like(logits).exponential_(generator=generator)
         else:
@@ -81,6 +108,340 @@ def pick(logits: torch.Tensor, temperature: float, generator,
     return tok, lp
 
 
+EXIT_BLOCK = 16  # steps a synchronous caller runs between two reads of done
+
+
+@dataclasses.dataclass
+class LoopState:
+    """The greedy loop's carried state: every field a tensor on the device
+    that one step updates in place (``_step_fn``)."""
+
+    last: torch.Tensor            # [B] int64, the token the step feeds
+    pos: torch.Tensor             # [1] int32, its cache slot
+    step: torch.Tensor            # [1] int64, the column the step writes
+    done: torch.Tensor            # [B] bool
+    buf: torch.Tensor             # [B, max_new_tokens] int64
+    suppress: torch.Tensor        # [V] fp32 additive mask of every step
+    cache: whisper.KVCache
+    sum_lp: Optional[torch.Tensor] = None   # [B] fp32 (return_logprobs)
+    n_tok: Optional[torch.Tensor] = None    # [B] int64
+    ts: Optional[object] = None             # timestamps.TimestampState
+    pad_count: Optional[torch.Tensor] = None  # [B] int32
+    temperature: Optional[torch.Tensor] = None  # [1] fp32, T > 0 (sampling)
+
+    def tensors(self) -> list:
+        """Every tensor of the state, in one fixed order."""
+        out = [self.last, self.pos, self.step, self.done, self.buf,
+               self.suppress, *self.cache, self.sum_lp, self.n_tok,
+               *(self.ts or ()), self.pad_count, self.temperature]
+        return [t for t in out if t is not None]
+
+    def nbytes(self) -> int:
+        """Device bytes the state's tensors hold (whole storages, once)."""
+        storages = {t.untyped_storage().data_ptr():
+                    t.untyped_storage().nbytes() for t in self.tensors()}
+        return sum(storages.values())
+
+    def copy_(self, other: "LoopState") -> None:
+        for mine, theirs in zip(self.tensors(), other.tensors()):
+            mine.copy_(theirs)
+
+    def outputs(self, return_logprobs: bool):
+        """Copies of the results, so that the next run may reuse the
+        state: buf, or (buf, sum_lp, n_tok)."""
+        if return_logprobs:
+            return self.buf.clone(), self.sum_lp.clone(), self.n_tok.clone()
+        return self.buf.clone()
+
+
+def _step_fn(st: LoopState, params, dims: WhisperDims, *, eot_id: int,
+             kernel_step: bool, cross_len: int, int8_mxu: bool,
+             step_weights, ts_cfg, generator, return_logprobs: bool, mesh,
+             draw_rows):
+    """One decode step over ``st``, in place: nothing is read on the host
+    and no host value changes between steps, so a CUDA graph of it replays
+    every step."""
+    from whisper_tpu_torch.runtime import timestamps as ts
+
+    def step() -> None:
+        # `last` was generated as token index pos of the full sequence.
+        if step_weights is not None:
+            logits, _ = decoder_step_hybrid(params, step_weights, dims,
+                                            st.last, st.pos, st.cache,
+                                            mesh=mesh)
+        else:
+            logits, _ = whisper.decoder_step(
+                params, dims, st.last, st.pos, st.cache,
+                kernel_step=kernel_step,
+                cross_len=cross_len if kernel_step else None,
+                int8_mxu=int8_mxu, pad_count=st.pad_count, mesh=mesh)
+        logits = logits.float() + st.suppress
+        if ts_cfg is not None:
+            logits = ts.apply_rules(logits, st.ts, st.step, ts_cfg)
+        temperature = 0.0 if st.temperature is None else st.temperature
+        nxt, lp = pick(logits, temperature, generator, return_logprobs,
+                       draw_rows)
+        nxt = torch.where(st.done, eot_id, nxt)
+        if return_logprobs:
+            # rows done before this step add nothing
+            st.sum_lp.add_(torch.where(st.done, 0.0, lp))
+            st.n_tok.add_((~st.done).long())
+        if ts_cfg is not None:
+            ts.update_state_(st.ts, nxt, ts_cfg)
+        st.buf.index_copy_(1, st.step, nxt[:, None])
+        st.done.logical_or_(nxt == eot_id)
+        st.last.copy_(nxt)
+        st.pos.add_(1)
+        st.step.add_(1)
+
+    return step
+
+
+def _done_flag(done: torch.Tensor):
+    """(flag, event): whether every row is done, copied to the host without
+    a wait on a card (read it with ``_read``)."""
+    if done.device.type != "cuda":
+        return done.all(), None
+    flag = torch.empty((), dtype=torch.bool, pin_memory=True)
+    flag.copy_(done.all(), non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return flag, event
+
+
+def _read(flag_event) -> bool:
+    flag, event = flag_event
+    if event is not None:
+        event.synchronize()
+    return bool(flag)
+
+
+def _drive(step, first: int, n: int, done: torch.Tensor,
+           exit_every: Optional[int]) -> None:
+    """Steps first .. n-1.  exit_every None: no read.  Else ``done`` is
+    copied once a block of exit_every steps and, for blocks of more than
+    one step, read only after the next block is queued."""
+    lag = 0 if exit_every == 1 else 1
+    flags: collections.deque = collections.deque()
+    i = first
+    while i < n:
+        if exit_every is not None:
+            flags.append(_done_flag(done))
+            if len(flags) > lag and _read(flags.popleft()):
+                return
+        hi = n if exit_every is None else min(i + exit_every, n)
+        for _ in range(i, hi):
+            step()
+        i = hi
+
+
+_CAPTURE_LOCK = threading.Lock()  # one capture at a time in the process
+_CAPTURE_STREAMS: dict = {}       # device -> (warm-up stream, capture stream)
+
+GRAPH_MEMORY_SHARE = 0.25  # of the card's memory, for one DecodeGraphs
+
+
+def _budget(device) -> int:
+    """The bytes of loop state one ``DecodeGraphs`` keeps on ``device``."""
+    card = torch.cuda.get_device_properties(device)
+    return int(GRAPH_MEMORY_SHARE * card.total_memory)
+
+
+class _GraphLoop:
+    """One key's static state, its captured step and the launches the
+    capture tallied.  ``run`` holds the loop's lock from the copy-in to the
+    queued copies of the results, so two threads never share the state."""
+
+    def __init__(self, device: torch.device, sampled: bool):
+        self.device = device
+        self.generator = (torch.Generator(device=device) if sampled
+                          else None)
+        self.state: Optional[LoopState] = None
+        self.graph = None
+        self.tally: dict = {}
+        self.capture_s = 0.0
+        self.nbytes = 0     # the state's device bytes
+        self._lock = threading.Lock()
+        self._free = None   # an event: the last run's results are copied
+
+    def _seeded(self, generator):
+        """The loop's generator at the caller's seed and offset (the
+        graph draws from its own, registered one)."""
+        if generator.device.type != self.device.type:
+            raise RuntimeError(f"generator on {generator.device}, the decode "
+                               f"on {self.device}")
+        self.generator.manual_seed(generator.initial_seed())
+        offset = generator.get_offset()
+        if offset:
+            self.generator.set_offset(offset)
+        return self.generator
+
+    def _capture(self, step) -> None:
+        """Run ``step`` once for real on a side stream (the warm-up: the
+        first call's step 1), then capture it on a stream of its own; both
+        streams are the device's two, made once (each stream that runs a
+        product keeps a cuBLAS workspace).  Unlike ``torch.cuda.graph``, no
+        device-wide sync, garbage collection or emptying of the allocator's
+        cache: a key met while serving holds back no other thread's work."""
+        from whisper_tpu_torch.ops.common import tally_launches
+
+        t0 = time.perf_counter()
+        with _CAPTURE_LOCK:
+            if self.device not in _CAPTURE_STREAMS:
+                _CAPTURE_STREAMS[self.device] = (
+                    torch.cuda.Stream(self.device),
+                    torch.cuda.Stream(self.device))
+            side, own = _CAPTURE_STREAMS[self.device]
+            main = torch.cuda.current_stream(self.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                step()
+            main.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            if self.generator is not None:
+                graph.register_generator_state(self.generator)
+            with tally_launches() as tally, torch.cuda.stream(own):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    step()
+                finally:
+                    try:
+                        graph.capture_end()
+                    except BaseException:
+                        # the allocator may go on routing this stream's
+                        # allocations to the failed capture's pool
+                        del _CAPTURE_STREAMS[self.device]
+                        raise
+        self.graph, self.tally = graph, dict(tally)
+        self.capture_s = time.perf_counter() - t0
+
+    def _replay(self) -> None:
+        from whisper_tpu_torch.ops.common import add_launches
+
+        self.graph.replay()
+        add_launches(self.tally)
+
+    def run(self, init, make_step, n: int, exit_every: Optional[int],
+            generator, return_logprobs: bool):
+        """init(generator) -> the call's LoopState after its first token;
+        make_step(state, generator) -> the step function."""
+        with self._lock:
+            main = torch.cuda.current_stream(self.device)
+            if self._free is not None:
+                main.wait_event(self._free)
+            gen = None if self.generator is None else self._seeded(generator)
+            fresh = init(gen)
+            first = 1
+            if self.state is None:
+                # adopt the first call's tensors as the static state; the
+                # mask and the pads are the caller's, so they are copied
+                self.state = dataclasses.replace(
+                    fresh, suppress=fresh.suppress.clone(),
+                    pad_count=None if fresh.pad_count is None
+                    else fresh.pad_count.clone())
+                if n > 1:
+                    try:
+                        self._capture(make_step(self.state, gen))
+                    except BaseException:
+                        self.state = None
+                        raise
+                    first = 2
+                self.nbytes = self.state.nbytes()
+            else:
+                self.state.copy_(fresh)
+            del fresh
+            _drive(self._replay, first, n, self.state.done, exit_every)
+            out = self.state.outputs(return_logprobs)
+            self._free = torch.cuda.Event()
+            self._free.record(main)
+            return out
+
+    def release(self) -> None:
+        """Drop the graph and the state once the last run's work is done
+        (a later run captures anew)."""
+        with self._lock:
+            if self._free is not None:
+                self._free.synchronize()
+            self.state, self.graph, self.tally, self.nbytes = None, None, {}, 0
+
+
+class GraphKey(NamedTuple):
+    """What a captured greedy step is specialised to."""
+
+    rows: int
+    prompt_len: int
+    max_new_tokens: int
+    cross_len: int
+    kernel_step: bool
+    int8_mxu: bool
+    int8_self: bool
+    int8_cross_kv: bool
+    hybrid: bool           # the hybrid step (step_weights)
+    ts_cfg: object
+    sampled: bool          # temperature > 0 (T itself is in the state)
+    scores: bool
+    pads: bool
+    eot_id: int
+
+
+class DecodeGraphs:
+    """The captured greedy loops of one set of weights (a session's: the
+    decoder tree and, for the hybrid step, its step weights, held here), one
+    per key; ``greedy_generate(graphs=...)`` takes it and refuses other
+    weights.  The loops keep at most ``GRAPH_MEMORY_SHARE`` of the card's
+    memory in state: after a run that passes it, the least recently used
+    other loops are dropped.  Not counted: the temporaries of one step that
+    each graph's own memory pool keeps."""
+
+    def __init__(self, params, step_weights=None):
+        self.params = params
+        self.step_weights = step_weights
+        self._loops: collections.OrderedDict = collections.OrderedDict()
+        self._lock = threading.Lock()
+
+    def loop(self, params, step_weights, key: GraphKey, device,
+             sampled: bool) -> _GraphLoop:
+        if params is not self.params or (
+                step_weights is not None
+                and step_weights is not self.step_weights):
+            raise ValueError("these decode graphs belong to other weights")
+        with self._lock:
+            if key not in self._loops:
+                self._loops[key] = _GraphLoop(device, sampled)
+            self._loops.move_to_end(key)
+            return self._loops[key]
+
+    def trim(self, keep: GraphKey) -> None:
+        """Drop the least recently used loops other than ``keep`` while the
+        loops' state passes the budget."""
+        with self._lock:
+            if keep not in self._loops:     # dropped by another thread's run
+                return
+            budget = _budget(self._loops[keep].device)
+            total = sum(v.nbytes for v in self._loops.values())
+            victims = []
+            for k in list(self._loops):
+                if total <= budget:
+                    break
+                if k != keep:
+                    victims.append(self._loops.pop(k))
+                    total -= victims[-1].nbytes
+        for v in victims:
+            v.release()
+
+    def nbytes(self) -> int:
+        """Device bytes of the state the loops keep."""
+        with self._lock:
+            return sum(v.nbytes for v in self._loops.values())
+
+    def captures(self) -> dict:
+        """{key: seconds its warm-up step and capture took}, for the loops
+        kept and captured."""
+        with self._lock:
+            return {k: v.capture_s for k, v in self._loops.items()
+                    if v.graph is not None}
+
+
 def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
                     prompt: torch.Tensor, suppress_mask: torch.Tensor,
                     first_suppress_mask: torch.Tensor, max_new_tokens: int,
@@ -90,7 +451,9 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
                     step_weights=None, temperature: float = 0.0,
                     generator: torch.Generator | None = None,
                     return_logprobs: bool = False, pad_count=None,
-                    mesh=None, draw_rows=None):
+                    mesh=None, draw_rows=None, early_exit: bool = True,
+                    eager: bool = False,
+                    graphs: Optional[DecodeGraphs] = None):
     """Generated tokens [B, max_new_tokens] (prompt excluded), rows that
     finished early padded with EOT; with return_logprobs also (sum_lp [B]
     fp32, n_tok [B] int64): the log-probability summed over each row's
@@ -109,7 +472,8 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
 
     ts_cfg (``runtime.timestamps.TimestampCfg``) enforces the timestamp
     grammar.  temperature > 0 samples with ``generator``, a
-    ``torch.Generator`` on enc_states' device.
+    ``torch.Generator`` on enc_states' device (a graphed loop draws from a
+    generator of its own set to this one's seed and offset).
 
     pad_count ([B] int32 on enc_states' device): the first pad_count[r]
     prompt slots of row r are left padding (previous-text conditioning at
@@ -117,11 +481,18 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
     step (B3/B8 on the kernel step), so each row decodes as its unpadded
     shorter prompt would.
 
+    early_exit False reads nothing on the host (every step runs); else the
+    loop reads ``done`` once a block of ``EXIT_BLOCK`` steps on a card,
+    once a step on the CPU (see the module's docstring).  On a card
+    without a mesh the steps replay from a CUDA graph, kept in ``graphs``
+    (a ``DecodeGraphs`` of these weights; None: captured for this call
+    alone), unless ``eager``.
+
     mesh: this rank's share of a (data, model) mesh: enc_states are its
     rows, the weights its shard (``parallel.mesh.shard_params``); the
-    tokens returned are its rows.  draw_rows (lo, hi, n): those rows'
-    place in the batch, so that sampled draws equal the one-process
-    decode's (``pick``)."""
+    tokens returned are its rows, decoded without a graph.  draw_rows (lo,
+    hi, n): those rows' place in the batch, so that sampled draws equal the
+    one-process decode's (``pick``)."""
     from whisper_tpu_torch.runtime import timestamps as ts
 
     if step_weights is not None and pad_count is not None:
@@ -137,69 +508,70 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
     b = enc_states.shape[0]
     p = prompt.shape[0]
     dev = enc_states.device
-    tokens = prompt.to(device=dev, dtype=torch.long)[None, :].expand(b, p)
-    prompt_mask = None
-    if pad_count is not None:
-        prompt_mask = (torch.arange(p, device=dev)[None, :]
-                       >= pad_count[:, None])                  # [B, P]
-    logits, cache = whisper.decoder_prefill(
-        params, dims, tokens, enc_states, p + max_new_tokens,
-        int8_cross_kv=int8_cross_kv, prompt_mask=prompt_mask, mesh=mesh)
-    if kernel_step and int8_self and int8_mxu:
-        cache = whisper.quantize_self_kv(cache)
-    first_logits = logits[:, -1, :].float() + first_suppress_mask
-    ts_state = None
-    if ts_cfg is not None:
-        ts_state = ts.init_state(b, eot_id, dev)
-        first_logits = ts.apply_rules(first_logits, ts_state, 0, ts_cfg)
-    first, sum_lp = pick(first_logits, temperature, generator,
-                         return_logprobs, draw_rows)
-    if ts_cfg is not None:
-        ts_state = ts.update_state(ts_state, first, ts_cfg)
-
-    buf = torch.full((b, max_new_tokens), eot_id, dtype=torch.long,
-                     device=dev)
-    buf[:, 0] = first
-    done = first == eot_id
-    n_tok = (torch.ones(b, dtype=torch.long, device=dev)
-             if return_logprobs else None)
-    last = first
     cross_len = enc_states.shape[1]
-    for i in range(1, max_new_tokens):
-        # The loop's one host read.  Under a mesh it is the same on every
-        # model rank (the logits follow an all-reduce); a data rank ends
-        # with its own rows, whose later tokens would all be EOT.
-        if bool(done.all()):
-            break
-        # `last` was generated as token index p+i-1 of the full sequence.
-        if step_weights is not None:
-            step_logits, cache = decoder_step_hybrid(
-                params, step_weights, dims, last, p + i - 1, cache,
-                mesh=mesh)
-        else:
-            step_logits, cache = whisper.decoder_step(
-                params, dims, last, p + i - 1, cache,
-                kernel_step=kernel_step,
-                cross_len=cross_len if kernel_step else None,
-                int8_mxu=int8_mxu, pad_count=pad_count, mesh=mesh)
-        step_logits = step_logits.float() + suppress_mask
+    exit_every = None
+    if early_exit:
+        exit_every = EXIT_BLOCK if dev.type == "cuda" else 1
+
+    def init(gen) -> LoopState:
+        """The prefill and the first token: the state before step 1."""
+        tokens = prompt.to(device=dev, dtype=torch.long)[None, :].expand(b, p)
+        prompt_mask = None
+        if pad_count is not None:
+            prompt_mask = (torch.arange(p, device=dev)[None, :]
+                           >= pad_count[:, None])              # [B, P]
+        logits, cache = whisper.decoder_prefill(
+            params, dims, tokens, enc_states, p + max_new_tokens,
+            int8_cross_kv=int8_cross_kv, prompt_mask=prompt_mask, mesh=mesh)
+        if kernel_step and int8_self and int8_mxu:
+            cache = whisper.quantize_self_kv(cache)
+        first_logits = logits[:, -1, :].float() + first_suppress_mask
+        ts_state = None
         if ts_cfg is not None:
-            step_logits = ts.apply_rules(step_logits, ts_state, i, ts_cfg)
-        nxt, lp = pick(step_logits, temperature, generator, return_logprobs,
-                       draw_rows)
-        nxt = torch.where(done, eot_id, nxt)
-        if return_logprobs:
-            # rows done before this step add nothing
-            sum_lp = sum_lp + torch.where(done, 0.0, lp)
-            n_tok = n_tok + (~done).long()
+            ts_state = ts.init_state(b, eot_id, dev)
+            first_logits = ts.apply_rules(first_logits, ts_state, 0, ts_cfg)
+        first, sum_lp = pick(first_logits, temperature, gen,
+                             return_logprobs, draw_rows)
         if ts_cfg is not None:
-            ts_state = ts.update_state(ts_state, nxt, ts_cfg)
-        buf[:, i] = nxt
-        done = done | (nxt == eot_id)
-        last = nxt
-    if return_logprobs:
-        return buf, sum_lp, n_tok
-    return buf
+            ts_state = ts.update_state(ts_state, first.clone(), ts_cfg)
+        buf = torch.full((b, max_new_tokens), eot_id, dtype=torch.long,
+                         device=dev)
+        buf[:, 0] = first
+        return LoopState(
+            last=first, pos=torch.full((1,), p, dtype=torch.int32,
+                                       device=dev),
+            step=torch.ones(1, dtype=torch.long, device=dev),
+            done=first == eot_id, buf=buf, suppress=suppress_mask,
+            cache=cache, sum_lp=sum_lp,
+            n_tok=(torch.ones(b, dtype=torch.long, device=dev)
+                   if return_logprobs else None),
+            ts=ts_state, pad_count=pad_count,
+            temperature=(torch.full((1,), temperature, dtype=torch.float32,
+                                    device=dev) if temperature > 0 else None))
+
+    def make_step(st: LoopState, gen):
+        return _step_fn(st, params, dims, eot_id=eot_id,
+                        kernel_step=kernel_step, cross_len=cross_len,
+                        int8_mxu=int8_mxu, step_weights=step_weights,
+                        ts_cfg=ts_cfg, generator=gen, return_logprobs=return_logprobs,
+                        mesh=mesh, draw_rows=draw_rows)
+
+    if dev.type != "cuda" or mesh is not None or eager:
+        st = init(generator)
+        _drive(make_step(st, generator), 1, max_new_tokens, st.done,
+               exit_every)
+        return st.outputs(return_logprobs)
+    if graphs is None:
+        graphs = DecodeGraphs(params, step_weights)
+    key = GraphKey(b, p, max_new_tokens, cross_len, kernel_step, int8_mxu,
+                   int8_self, int8_cross_kv, step_weights is not None, ts_cfg,
+                   temperature > 0, return_logprobs, pad_count is not None,
+                   eot_id)
+    loop = graphs.loop(params, step_weights, key, dev, temperature > 0)
+    out = loop.run(init, make_step, max_new_tokens, exit_every, generator,
+                   return_logprobs)
+    graphs.trim(key)
+    return out
 
 
 def strip_generated(row: np.ndarray, eot_id: int) -> list[int]:

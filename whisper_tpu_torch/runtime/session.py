@@ -32,14 +32,24 @@ reflect-padded utterances of at most 30 s through the plain mel, the
 encoder and greedy or speculative decoding; ``transcribe_chunks`` and
 ``warmup`` take host mel chunks.
 
+Greedy decoding on a card replays each step from a CUDA graph captured
+once per key (``runtime.generate``; the session keeps them in
+``graphs``, and ``warmup`` captures a bucket's).  The ``_async`` forms of
+greedy decoding read nothing on the host: they return once the work is
+queued, before the decode ends, and ``gather_tokens`` (or the caller's
+``.cpu()``) is the sync.  The synchronous forms stop early, reading
+whether every row is done once a block of 16 steps.  Beam search and
+speculative decoding keep their host-read loops.
+
 ``data_parallel`` x ``tensor_parallel`` > 1 (or an explicit ``mesh=``)
 runs the session as one rank of a (data, model) mesh of processes
 (``parallel.mesh``: one process a card, a ``torch.distributed`` group):
 the weights are this rank's tensor-parallel shard, each batch bucket's
 rows are split over "data" and the tokens all-gathered, and every rank
-returns the whole batch's tokens.  What the port does not carry (the wire
-encodings) raises ``NotImplementedError`` naming its ROADMAP entry;
-nothing silently takes another path.
+returns the whole batch's tokens; its greedy loop runs without a graph
+(gloo's collectives go through the host).  What the port does not carry
+(the wire encodings) raises ``NotImplementedError`` naming its ROADMAP
+entry; nothing silently takes another path.
 """
 
 from __future__ import annotations
@@ -59,6 +69,7 @@ from whisper_tpu_torch.models.registry import WhisperDims
 from whisper_tpu_torch.models.whisper import WhisperDecoder, WhisperEncoder
 from whisper_tpu_torch.ops.common import disable_tf32
 from whisper_tpu_torch.runtime.generate import (
+    DecodeGraphs,
     build_suppress_mask,
     greedy_generate,
 )
@@ -295,6 +306,11 @@ class WhisperSession:
         # step; on dims without the kernel step x7 behaves as x5 does there.
         self._int8_self = bool(self.cfg.int8_self_kv and self._int8_mxu)
         self._masks: Dict = {}
+        # the captured greedy loops on a card, one per key, their state
+        # within a quarter of the card's memory; eager_decode runs the
+        # greedy loop on the card without them (for comparisons)
+        self.graphs = DecodeGraphs(self._decoder_params, self._step_weights)
+        self.eager_decode = False
         self._draft = None  # (encoder or None, decoder params, dims)
         # (verify rounds, committed tokens [B] on the device) per batch
         # bucket of the last speculative transcribe_from_mel call
@@ -522,7 +538,7 @@ class WhisperSession:
                 length_penalty=length_penalty, ts_cfg=ts_cfg,
                 temperature=temperature, seed=seed, with_scores=with_scores,
                 pad_count=pad_count, chunk_norm_n_valid=chunk_norm_n_valid,
-                speculative=speculative, draft_k=draft_k),
+                speculative=speculative, draft_k=draft_k, early_exit=True),
             len(frame_starts), max_new_tokens, with_scores)
 
     def transcribe_from_mel_async(self, mel, frame_starts, prompt,
@@ -534,9 +550,15 @@ class WhisperSession:
                                   with_scores: bool = False, pad_count=None,
                                   chunk_norm_n_valid: int | None = None,
                                   speculative: bool = False,
-                                  draft_k: int = 4):
+                                  draft_k: int = 4,
+                                  early_exit: bool = False):
         """Per batch bucket: [(device result, start, n), ...], the result
-        the tokens or, with with_scores, (tokens, sum_lp, n_tok)."""
+        the tokens or, with with_scores, (tokens, sum_lp, n_tok).  Greedy
+        decoding reads nothing on the host (every step runs), so on a card
+        this returns once the buckets' work is queued; early_exit reads
+        ``done`` once a block of steps (``transcribe_from_mel``'s form).
+        Beam search and speculative decoding read the host inside their
+        loops, as ever."""
         if chunk_norm_n_valid is not None and pad_count is not None:
             raise ValueError("chunk_norm and conditioned prompts are "
                              "mutually exclusive")
@@ -603,7 +625,8 @@ class WhisperSession:
                                       max_new_tokens, eot_id, ts_cfg=ts_cfg,
                                       temperature=temperature, generator=gen,
                                       with_scores=with_scores, pads=pads,
-                                      draw_rows=(lo, hi, bucket))
+                                      draw_rows=(lo, hi, bucket),
+                                      early_exit=early_exit)
             pieces.append((self._gather_rows(result, bucket), start, n))
             start += n
         return pieces
@@ -611,9 +634,11 @@ class WhisperSession:
     def _greedy(self, enc, prompt_t, base_mask, first_mask,
                 max_new_tokens: int, eot_id: int, *, ts_cfg=None,
                 temperature: float = 0.0, generator=None,
-                with_scores: bool = False, pads=None, draw_rows=None):
+                with_scores: bool = False, pads=None, draw_rows=None,
+                early_exit: bool = True):
         """``greedy_generate`` over encoder states with the session's
-        rung: its kernels, its cross cache, its step and its mesh."""
+        rung: its kernels, its cross cache, its step, its mesh and its
+        graphs."""
         return greedy_generate(
             self._decoder_params, self.dims, enc, prompt_t, base_mask,
             first_mask, max_new_tokens=max_new_tokens, eot_id=eot_id,
@@ -625,7 +650,8 @@ class WhisperSession:
             step_weights=None if pads is not None else self._step_weights,
             temperature=temperature, generator=generator,
             return_logprobs=with_scores, pad_count=pads, mesh=self.mesh,
-            draw_rows=draw_rows)
+            draw_rows=draw_rows, early_exit=early_exit, graphs=self.graphs,
+            eager=self.eager_decode)
 
     # -- short-utterance batch (serving fast path) --------------------------
 
@@ -686,7 +712,7 @@ class WhisperSession:
         max_new_tokens] int32."""
         return self.transcribe_short_batch_async(
             padded_audio, n_valid_frames, prompt, max_new_tokens, eot_id,
-            suppress_ids, begin_suppress_ids, ts_cfg,
+            suppress_ids, begin_suppress_ids, ts_cfg, early_exit=True,
         ).cpu().numpy().astype(np.int32)
 
     def transcribe_short_batch_async(
@@ -699,24 +725,27 @@ class WhisperSession:
         suppress_ids: Sequence[int] | None = None,
         begin_suppress_ids: Sequence[int] | None = None,
         ts_cfg=None,
+        *,
+        early_exit: bool = False,
     ) -> torch.Tensor:
         """transcribe_short_batch without the copy to the host: the tokens
         [B, max_new_tokens] as a tensor on the session's device.
 
         Rows may be shipped shorter than the 30 s window
         (``serve/engine.py``'s trimmed uploads); the zero tail is made on
-        the device after the wire decode.  Unlike the JAX program this
-        returns only after the decode loop has run: the greedy loop reads
-        ``bool(done.all())`` on the host every step
-        (``runtime/generate.py``), so the engine's tick pipeline overlaps a
-        tick's copy to the host with the next tick's work and little else
-        (ROADMAP queue 1 item 4(a))."""
+        the device after the wire decode.  As the JAX program, this returns
+        once the work is queued, before the decode ends: the greedy loop
+        reads nothing on the host (every step runs, replayed from a CUDA
+        graph on a card), so the engine's tick pipeline overlaps tick k's
+        decode with the dispatch of tick k+1.  early_exit reads ``done``
+        once a block of steps (``transcribe_short_batch``'s form)."""
         mel, prompt_t, base_mask, first_mask = self._short_inputs(
             padded_audio, n_valid_frames, prompt, suppress_ids,
             begin_suppress_ids)
         return self._gather_rows(
             self._greedy(self.encoder(mel), prompt_t, base_mask, first_mask,
-                         max_new_tokens, eot_id, ts_cfg=ts_cfg),
+                         max_new_tokens, eot_id, ts_cfg=ts_cfg,
+                         early_exit=early_exit),
             len(padded_audio))
 
     # -- word alignment --------------------------------------------------------
@@ -841,8 +870,10 @@ class WhisperSession:
         """transcribe_short_speculative without the copy to the host (the
         serving tick's speculative leg): the main encoder, the draft's own
         or with ``share_encoder`` the main one's states, then
-        ``speculative_generate`` (its verify pass through B7).  Returns
-        after the loop, as ``transcribe_short_batch_async`` does."""
+        ``speculative_generate`` (its verify pass through B7).  Unlike
+        ``transcribe_short_batch_async`` it returns after its loop, which
+        reads the host once a round (ROADMAP: the speculative round off
+        the host)."""
         if not self.has_draft:
             raise RuntimeError("no draft model attached (set_draft_model)")
         mel, prompt_t, base_mask, first_mask = self._short_inputs(
@@ -907,8 +938,9 @@ class WhisperSession:
                max_new_tokens: int, eot_id: int) -> None:
         """Run the bucket that ``n_chunks`` lands in once on zeros.  There
         is nothing to compile: the first run builds the kernels (at first
-        use), creates the libraries' handles and fills the allocator's
-        cache at the bucket's sizes."""
+        use), creates the libraries' handles, fills the allocator's cache at
+        the bucket's sizes and, on a card, captures the bucket's greedy
+        loop, so that no later run of that key captures."""
         from whisper_tpu_torch.pipeline.chunk import CHUNK_FRAMES
 
         bucket = _bucket_batch(min(n_chunks, self.cfg.max_batch),

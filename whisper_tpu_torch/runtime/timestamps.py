@@ -50,10 +50,12 @@ def init_state(batch: int, eot_id: int, device=None) -> TimestampState:
                           max_ts=torch.zeros_like(z))
 
 
-def apply_rules(logits: torch.Tensor, state: TimestampState, step: int,
+def apply_rules(logits: torch.Tensor, state: TimestampState, step,
                 cfg: TimestampCfg) -> torch.Tensor:
     """The grammar's -inf mask applied to fp32 logits [B, V]; ``step`` is
-    0 for the first generated token (a host int: the loop's counter)."""
+    0 for the first generated token: a host int, or the loop's counter as
+    a one-element integer tensor on the logits' device, which is never
+    read on the host (a captured step replays every step)."""
     v = logits.shape[-1]
     col = torch.arange(v, device=logits.device)[None, :]
     tsb = cfg.timestamp_begin
@@ -77,8 +79,11 @@ def apply_rules(logits: torch.Tensor, state: TimestampState, step: int,
     ban = ban | (has_ts & is_ts_col & (col < bound[:, None]))
 
     # First token: a bounded timestamp (rule 4), EOT banned with the rest.
-    if step == 0:
-        ban = ban | (col < tsb) | (col > tsb + cfg.max_initial_timestamp_index)
+    first = (col < tsb) | (col > tsb + cfg.max_initial_timestamp_index)
+    if isinstance(step, torch.Tensor):
+        ban = ban | ((step == 0)[:, None] & first)
+    elif step == 0:
+        ban = ban | first
     logits = logits.masked_fill(ban, NEG_INF)
 
     # Probability-mass rule (5), HF's `logprobs[k, :timestamp_begin].max()`.
@@ -97,6 +102,16 @@ def update_state(state: TimestampState, token: torch.Tensor,
     new_max = torch.where(token >= cfg.timestamp_begin,
                           torch.maximum(state.max_ts, token), state.max_ts)
     return TimestampState(last=token, penult=state.last, max_ts=new_max)
+
+
+def update_state_(state: TimestampState, token: torch.Tensor,
+                  cfg: TimestampCfg) -> None:
+    """``update_state`` in place, into the state's own tensors (the graphed
+    loop's static state)."""
+    new = update_state(state, token, cfg)
+    state.penult.copy_(new.penult)
+    state.max_ts.copy_(new.max_ts)
+    state.last.copy_(new.last)
 
 
 def render_timestamp(token_id: int, timestamp_begin: int) -> str:

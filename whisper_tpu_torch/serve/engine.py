@@ -16,11 +16,18 @@ continuous decode across concurrent streams"):
 
 Both lanes launch kernels from their own threads on the one CUDA stream
 PyTorch gives every thread by default (``ops/kernels.stream_ptr``), so the
-card runs their work in the order it is issued.  The greedy loop reads
-``bool(done.all())`` on the host every step, so a tick's dispatch returns
-after its decode: the one-deep tick pipeline overlaps less than the JAX
-engine's (ROADMAP queue 1 item 4(a)).  Both lanes hold the interpreter lock
-while they issue work, so a long request slows the short lane's host side.
+card runs their work in the order it is issued.  A greedy tick's dispatch
+(``transcribe_short_batch_async``) reads nothing on the host and returns
+once its encoder, prefill and graphed decode steps are queued, as the JAX
+engine's does: the one-deep tick pipeline overlaps tick k's decode with
+tick k+1's coalescing and host preparation (tick k+1's upload, a copy from
+pageable memory, waits for the stream), and tick k's copy to the host with
+tick k+1's queued work.  ``warmup`` captures each bucket's greedy loop
+before serving; a key first met while serving is captured under its loop's
+lock, on a stream of its own (``runtime.generate``), while the other lane
+launches.  A speculative tick still returns after its loop.  Both lanes
+hold the interpreter lock while they issue work, so a long request slows
+the short lane's host side.
 
 The engine is transport-agnostic; whisper_tpu_torch.serve.server wraps it
 in a JSON-lines TCP front end.
@@ -146,7 +153,7 @@ class StreamingEngine:
         power-of-two bucket up to max_batch (a lone request hits bucket 1,
         a burst the bigger ones): nothing compiles, but the first run of a
         shape builds the kernels (at first use), the libraries' handles and
-        the allocator's cache.
+        the allocator's cache, and captures the bucket's greedy loop.
 
         With trim_upload the live ticks ship sub-bucket lengths; the
         smallest (1/8 window, the short-utterance streaming case) is run
@@ -197,9 +204,8 @@ class StreamingEngine:
         # One-deep tick pipeline: tick k's copy of its tokens to the host
         # is deferred until tick k+1 is dispatched.  Under light load
         # (nothing else queued) it happens at once: no added latency for a
-        # lone request.  The port's dispatch returns after its decode loop
-        # (the loop reads `done` on the host each step), so what overlaps
-        # is the copy and the detokenizing of tick k with tick k+1.
+        # lone request.  A greedy dispatch returns once its decode is
+        # queued, so tick k decodes on the card while tick k+1 coalesces.
         inflight = None  # (device_tokens, reqs)
         while self._running:
             try:
