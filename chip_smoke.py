@@ -89,7 +89,9 @@ What it does, in order (any failure raises and exits non-zero):
    run under torch.profiler for B9a's and B2's in-situ times at d = 1,024).
    Prints e2e, model time and launches of each beside x5's.
 7. Speculative decoding on the same file: x5 with a random whisper-tiny
-   draft (draft_k = 4; B7 once per layer and verify round), x5 with
+   draft (draft_k = 4; B7 once per layer and verify round run, the rounds
+   replayed from a graph: the rounds counted, and up to two blocks of
+   rounds more run past all-done), x5 with
    whisper-base as its own draft sharing the encoder (the accept path:
    about ceil(128 / 5) rounds), x4 with the tiny draft (B7's dequantizing
    kernel).  The two x5 runs must give the same tokens (one rejects nearly
@@ -183,6 +185,14 @@ What it does, in order (any failure raises and exits non-zero):
    (d) capture seconds a key and the peak device memory of an x5 session,
    eager and graphed.  The main path, the ladder, the decoding options,
    the prompts, serving and the pipelined mode above all run graphed.
+   (e) beams K = 4 at x5 and x4 (64 beam rows, B4 or B6), graphed and
+   eager alternated: tokens bitwise, launches equal, e2e and model_s; at
+   x5 ms a beam step graphed and eager, and the grammar and left-padded
+   prompts graphed against eager; (f) speculative rounds at x5 and x4 with
+   a random whisper-tiny draft and with the model's own int8 weights as
+   draft, graphed and eager alternated: tokens bitwise, rounds and
+   launches equal, rounds counted and run, e2e; at x5 ms a round; each
+   new key's capture seconds and kept state.
 9. Drives the benchmark CLI (``whisper_tpu_torch.bench.cli.main``, in
    process) over four synthetic WAV files (4 s; 29.5 s at 44.1 kHz stereo;
    76 s, just under the one-shot limit; 150 s, streamed) at whisper-base
@@ -1606,6 +1616,7 @@ def check_speculative(card: str, results, params, dims, audio, x5) -> dict:
     from whisper_tpu_torch.headline import make_session
     from whisper_tpu_torch.models.convert import init_params
     from whisper_tpu_torch.models.registry import get_dims
+    from whisper_tpu_torch.runtime import speculative
     from whisper_tpu_torch.variants.quant import quantize_params
 
     n_l, k = dims.decoder_layers, 4
@@ -1625,9 +1636,14 @@ def check_speculative(card: str, results, params, dims, audio, x5) -> dict:
         if toks.shape != greedy[2].shape or not (
                 (toks >= 0) & (toks < dims.vocab_size)).all():
             raise AssertionError(f"{label}: tokens {toks.shape}")
-        if c["cross_attend_multi"] != rounds * n_l or rounds < 1:
-            raise AssertionError(f"{label}: B7 launched "
-                                 f"{c['cross_attend_multi']} times in "
+        # B7 once a layer and round run; the rounds replay from a graph and
+        # each bucket's last block may run past all-done (counted by no
+        # round), at most two blocks of rounds less one
+        b7 = c["cross_attend_multi"]           # either B7 kernel
+        ran = b7 // n_l
+        over = 2 * speculative.EXIT_BLOCK * len(session.speculative_stats)
+        if b7 != ran * n_l or not 1 <= rounds <= ran < rounds + over:
+            raise AssertionError(f"{label}: B7 launched {b7} times for "
                                  f"{rounds} rounds of {n_l} layers")
         if c["self_attend_step"] or c["self_attend_step_int8"]:
             raise AssertionError(f"{label}: B3/B8 launched: {c}")
@@ -1639,7 +1655,8 @@ def check_speculative(card: str, results, params, dims, audio, x5) -> dict:
         print(f"[speculative] whisper-base {label}, draft_k {k}, on {card}: "
               f"e2e {e2e:.4f} s, model {timing.model_only_s:.4f} s (greedy "
               f"{greedy[0]:.4f} / {greedy[1].model_only_s:.4f} s); {rounds} "
-              f"verify rounds, {committed.sum() / rounds / len(committed):.3f}"
+              f"verify rounds ({ran} run, graphed), "
+              f"{committed.sum() / rounds / len(committed):.3f}"
               f" tokens committed per round and row; tokens equal to the "
               f"greedy run's: {same:.4f} of {toks.size}; launches {c}",
               flush=True)
@@ -1836,9 +1853,9 @@ def check_fused_step(card: str, results, params, dims, audio) -> dict:
 
 @contextlib.contextmanager
 def _eager_loop(session):
-    """Within the block ``session``'s greedy decodes run the in-place step
-    eagerly on the card (``greedy_generate(eager=True)``), not from their
-    CUDA graphs."""
+    """Within the block ``session``'s decode loops (greedy, beams,
+    speculative rounds) run their in-place step eagerly on the card
+    (``eager=True``), not from their CUDA graphs."""
     session.eager_decode = True
     try:
         yield
@@ -2161,6 +2178,269 @@ def check_graph(card: str, results, params, dims, audio, x5,
           f"[graph] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+def _alternated(results, fns: dict, rounds: int):
+    """Each of ``fns`` ({mode: fn}) once to warm up (a graphed mode
+    captures there), then ``rounds`` rounds in turns, each run through
+    ``_decode_run``: {mode: [(result, host seconds, counts), ...]}."""
+    for fn in fns.values():
+        fn()
+    out = {mode: [] for mode in fns}
+    for _ in range(rounds):
+        for mode, fn in fns.items():
+            out[mode].append(_decode_run(results, fn))
+    return out
+
+
+def _bucket_chunks(session, audio):
+    """The mel chunks [16, n_mels, 3000] of the file's bucket (see
+    ``_bucket_encoder_states``)."""
+    import torch
+
+    from whisper_tpu_torch.frontend import golden
+    from whisper_tpu_torch.pipeline.chunk import (
+        CHUNK_FRAMES,
+        chunk_starts,
+        mel_frame_bucket,
+    )
+
+    nv = golden.num_frames(len(audio))
+    mel = session.compute_mel(golden.reflect_pad(audio), nv,
+                              mel_frame_bucket(nv))
+    starts = [p // golden.HOP for p in chunk_starts(len(audio), 480_000,
+                                                    400_000)]
+    starts += [mel.shape[1]] * (session._batch_bucket(len(starts))
+                                - len(starts))
+    mel_pad = torch.nn.functional.pad(mel, (0, CHUNK_FRAMES))
+    return torch.stack([mel_pad[:, s:s + CHUNK_FRAMES] for s in starts])
+
+
+def _kept_line(session, kind: str) -> str:
+    """Capture seconds and kept state of ``session``'s keys of ``kind``."""
+    kept, caps = session.graphs.kept(), session.graphs.captures()
+    return "; ".join(
+        f"rows {k.rows}, prompt {k.prompt_len}, {k.max_new_tokens} "
+        f"tokens: capture {caps[k]:.4f} s, "
+        f"state {kept[k] * 2**-30:.4f} GiB"
+        for k in caps if k.kind == kind)
+
+
+def check_graph_beam_spec(card: str, results, params, dims, audio) -> None:
+    """Beam search and speculative rounds replayed from CUDA graphs against
+    the same loops run eagerly (``[graph]`` (e), (f) lines), whisper-base,
+    the 301.574 s file, 128 tokens.  (e) beams K = 4 (64 beam rows) at x5
+    and x4 through the long-form path, graphed and eager alternated, three
+    runs each after a warm-up of each: tokens bitwise and launches equal,
+    e2e and model_s (median); at x5 the bucket's beam decode (no read, 127
+    steps) graphed and eager, ms a step with the prefill taken out, and the
+    grammar and left-padded prompts graphed against eager (tokens, scores
+    and launches); (f) speculative at x5 and x4 with a random whisper-tiny
+    draft and with the model's own int8 weights as draft (shared encoder),
+    draft_k 4, graphed and eager alternated, two runs each after a warm-up
+    of each: tokens bitwise, rounds and launches equal, rounds counted and
+    rounds run (B7 launches / layers), e2e and model_s; at x5 the bucket's
+    decode, ms a round.  Each key's capture seconds and kept state."""
+    import numpy as np
+    import torch
+
+    from whisper_tpu_torch.headline import make_session
+    from whisper_tpu_torch.models.convert import init_params
+    from whisper_tpu_torch.models.registry import get_dims
+    from whisper_tpu_torch.pipeline.longform import transcribe_longform
+    from whisper_tpu_torch.runtime import speculative
+    from whisper_tpu_torch.runtime.beam import beam_generate
+    from whisper_tpu_torch.runtime.genconfig import GenerationCfg
+    from whisper_tpu_torch.runtime.timestamps import TimestampCfg
+    from whisper_tpu_torch.tokenizer.specials import special_tokens
+    from whisper_tpu_torch.variants.quant import quantize_params
+
+    t_phase = time.perf_counter()
+    n_l = dims.decoder_layers
+    special = special_tokens("en", "transcribe", None)
+    eot = special.eot
+    prompt = [special.sot, special.lang, special.task, special.no_timestamps]
+    prompt_t = torch.tensor(prompt, device="cuda")
+    gen_cfg = GenerationCfg()
+
+    def run(session, eager, **kw):
+        """The long-form path over the file: (tokens, Timing)."""
+        collector = []
+        with _eager_loop(session) if eager else contextlib.nullcontext():
+            _, timing = transcribe_longform(
+                session, audio, "en", "transcribe", 128,
+                token_collector=collector, **kw)
+        return collector[0], timing
+
+    def same(runs, label, extra=lambda out: ()):
+        """Every run's tokens (and ``extra``) and launches the first
+        eager run's."""
+        (want, _, want_c) = runs["eager"][0]
+        for mode, rs in runs.items():
+            for out, _, c in rs:
+                if not (np.array_equal(out[0], want[0])
+                        and extra(out) == extra(want)):
+                    raise AssertionError(f"{label}, {mode}: tokens differ "
+                                         "from the eager loop's")
+                if c != want_c:
+                    raise AssertionError(f"{label}, {mode}: launches {c}, "
+                                         f"eager {want_c}")
+        return want_c
+
+    def medians(runs):
+        return {m: (statistics.median(r[1] for r in rs),
+                    statistics.median(r[0][1].model_only_s for r in rs))
+                for m, rs in runs.items()}
+
+    # (e) beams K = 4
+    for variant, on in (("x5", "cross_attend_step"),
+                        ("x4", "cross_attend_step_dequant")):
+        session = make_session("cuda", params, variant)
+        runs = _alternated(results, {
+            "graphed": lambda s=session: run(s, False, num_beams=4),
+            "eager": lambda s=session: run(s, True, num_beams=4)}, 3)
+        c = same(runs, f"(e) beams {variant}")
+        steps = c[on] // n_l
+        if not (c[on] == steps * n_l and 0 < steps <= 127
+                and c["self_attend_step"] == 0):
+            raise AssertionError(f"(e) beams {variant}: launches {c}")
+        med = medians(runs)
+        line = (f"[graph] (e) beams K = 4, whisper-base {variant}, 64 beam "
+                f"rows, on {card}: e2e graphed {med['graphed'][0]:.4f} s "
+                f"(model {med['graphed'][1]:.4f}), eager "
+                f"{med['eager'][0]:.4f} s (model {med['eager'][1]:.4f}), "
+                f"alternated, median of 3; tokens bitwise, launches equal, "
+                f"{steps} steps run (a block's overrun included)")
+        if variant == "x5":
+            enc = session.encoder(_bucket_chunks(session, audio))
+            masks = session._get_masks(gen_cfg.suppress_tokens,
+                                       gen_cfg.begin_suppress_tokens)
+
+            def beams(n_new, eager, **kw):
+                return beam_generate(
+                    session._decoder_params, dims, enc, kw.pop(
+                        "prompt", prompt_t), *masks, n_new, eot, 4,
+                    int8_cross_kv=True, packed_cross=True, int8_mxu=True,
+                    early_exit=False, eager=eager, graphs=session.graphs,
+                    **kw)
+
+            def decode_s(n_new, eager):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                beams(n_new, eager)
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0
+
+            step_ms = {}
+            for mode, eager in (("graphed", False), ("eager", True)):
+                for n_new in (1, 128):
+                    decode_s(n_new, eager)
+                pre = statistics.median(decode_s(1, eager) for _ in range(3))
+                whole = statistics.median(decode_s(128, eager)
+                                          for _ in range(3))
+                step_ms[mode] = (whole - pre) * 1e3 / 127
+            line += (f"; the bucket's beam decode (127 steps, no read) "
+                     f"{step_ms['graphed']:.4f} ms a step graphed, "
+                     f"{step_ms['eager']:.4f} eager (host clock, prefill "
+                     f"taken out)")
+            prev = [special.sot_prev] + np.random.default_rng(17).integers(
+                220, 50000, 63).tolist()
+            for label, kw in (
+                    ("the grammar", dict(
+                        prompt=prompt_t[:3], ts_cfg=TimestampCfg(
+                            special.no_timestamps + 1, eot,
+                            special.no_timestamps))),
+                    ("a 68-slot prompt left-padded", dict(
+                        prompt=torch.tensor(prev + prompt, device="cuda"),
+                        pad_count=torch.tensor(
+                            [(5, 21, 40)[r % 3] for r in range(16)],
+                            dtype=torch.int32, device="cuda")))):
+                got = {}
+                for mode, eager in (("eager", True), ("graphed", False),
+                                    ("replayed", False)):
+                    (toks, sc), _, c_ = _decode_run(
+                        results, lambda: beams(128, eager, **dict(kw)))
+                    got[mode] = (toks.cpu(), sc.cpu(), c_)
+                if any(not (torch.equal(g[0], got["eager"][0])
+                            and torch.equal(g[1], got["eager"][1])
+                            and g[2] == got["eager"][2])
+                       for g in got.values()):
+                    raise AssertionError(f"(e) beams with {label}: graphed "
+                                         "differs from eager")
+                line += (f"; with {label}: tokens and scores bitwise, "
+                         f"launches equal")
+        print(line + f"; keys: {_kept_line(session, 'beam')}", flush=True)
+        del session
+
+    # (f) speculative rounds
+    tiny = get_dims("openai/whisper-tiny")
+    drafts = (("a random whisper-tiny draft", init_params(tiny, seed=1),
+               tiny, False),
+              ("its own int8 weights as draft", quantize_params(params),
+               dims, True))
+    for variant in ("x5", "x4"):
+        session = make_session("cuda", params, variant)
+        for label, draft, d_dims, share in drafts:
+            session.set_draft_model(draft, d_dims, share_encoder=share)
+
+            def spec(eager, s=session):
+                out = run(s, eager, speculative=True, draft_k=4)
+                return out + (sum(r for r, _ in s.speculative_stats),)
+
+            runs = _alternated(results, {"graphed": lambda: spec(False),
+                                         "eager": lambda: spec(True)}, 2)
+            c = same(runs, f"(f) speculative {variant}, {label}",
+                     extra=lambda out: out[2])
+            rounds = runs["eager"][0][0][2]
+            run_rounds = c["cross_attend_multi"] // n_l   # either B7
+            if not rounds <= run_rounds < rounds + 2 * speculative.EXIT_BLOCK:
+                raise AssertionError(f"(f) {variant}, {label}: {rounds} "
+                                     f"rounds, {run_rounds} run")
+            med = medians(runs)
+            line = (f"[graph] (f) speculative, whisper-base {variant}, "
+                    f"{label}, draft_k 4, on {card}: e2e graphed "
+                    f"{med['graphed'][0]:.4f} s (model "
+                    f"{med['graphed'][1]:.4f}), eager {med['eager'][0]:.4f} "
+                    f"s (model {med['eager'][1]:.4f}), alternated, median of "
+                    f"2; tokens bitwise, rounds and launches equal; "
+                    f"{rounds} rounds counted, {run_rounds} run")
+            if variant == "x5":
+                chunks = _bucket_chunks(session, audio)
+                enc = session.encoder(chunks)
+                masks = session._get_masks(gen_cfg.suppress_tokens,
+                                           gen_cfg.begin_suppress_tokens)
+
+                def decode(n_new, eager):
+                    session.eager_decode = eager
+                    try:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        _, (r, _) = session._speculative_tokens(
+                            chunks, enc, prompt_t, *masks, n_new, eot, 4)
+                        torch.cuda.synchronize()
+                    finally:
+                        session.eager_decode = False
+                    return time.perf_counter() - t0, r
+
+                round_ms = {}
+                for mode, eager in (("graphed", False), ("eager", True)):
+                    for n_new in (1, 128):
+                        decode(n_new, eager)
+                    _zero_counts(results)
+                    whole, r = decode(128, eager)
+                    ran = _counts(results)["cross_attend_multi"] // n_l
+                    pre = decode(1, eager)[0]
+                    round_ms[mode] = (whole - pre) * 1e3 / (ran - 1)
+                line += (f"; the bucket's decode, ms a round run graphed "
+                         f"{round_ms['graphed']:.4f}, eager "
+                         f"{round_ms['eager']:.4f} ({r} rounds counted, "
+                         f"{ran} run; host clock, prefills and a round "
+                         f"taken out)")
+            print(line + f"; keys: {_kept_line(session, 'speculative')}",
+                  flush=True)
+        del session
+    print(f"[graph] (e), (f) phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def check_medium_fused_block(card: str, results) -> dict:
     """A 4 s file at whisper-medium (random weights from seed 0) at x5 with
     fused_encoder_block: at d = 1024 the composition is B9a, B1, a plain
@@ -2400,16 +2680,18 @@ def check_decoding(card: str, results, params, dims, audio, x5) -> None:
         again, _ = longform(session, num_beams=4)             # and warm-up
         (toks, timing), e2e, c = _decode_run(
             results, lambda: longform(session, num_beams=4))
+        # steps run, graphed: a block of 16 past all-done counts too
         steps = c[on] // n_l
         if not (toks.shape == greedy.shape and (again == toks).all()
-                and c[on] == steps * n_l > 0 and c[off] == 0
-                and c["self_attend_step"] == 0):
+                and c[on] == steps * n_l > 0 and steps <= 127
+                and c[off] == 0 and c["self_attend_step"] == 0):
             raise AssertionError(f"beam K = 4 at {variant}: two runs equal "
                                  f"{bool((again == toks).all())}, launches "
                                  f"{c}")
         print(f"[decoding] (d) beam K = 4, whisper-base {variant}, 64 beam "
               f"rows, on {card}: e2e {e2e:.4f} s, model "
-              f"{timing.model_only_s:.4f} s, {steps} steps; tokens equal to "
+              f"{timing.model_only_s:.4f} s, {steps} steps run (graphed); "
+              f"tokens equal to "
               f"greedy x5's: {float((toks == greedy).mean()):.4f} of "
               f"{toks.size}; two runs equal; launches {c}", flush=True)
         del session
@@ -4131,6 +4413,7 @@ def main() -> None:
     fused_step, fused_ms = check_fused_step(card, results, params, dims,
                                             audio)
     check_graph(card, results, params, dims, audio, x5_run, fused_ms)
+    check_graph_beam_spec(card, results, params, dims, audio)
     medium = check_medium_fused_block(card, results)
     cli = check_cli(card, results)
     check_audio(card, results)

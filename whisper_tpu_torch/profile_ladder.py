@@ -51,8 +51,9 @@ exactly by ``chip_smoke.py``.  It calls only what older trees have, so it
 also runs against one (that tree on ``PYTHONPATH``, this file run by its
 path).
 
-Greedy decoding on the card replays its steps from CUDA graphs
-(``runtime.generate``), and the warm-up run captures them, so the traced
+Greedy decoding, beam search and speculative rounds on the card replay
+their steps from CUDA graphs (``runtime.generate``, ``runtime.beam``,
+``runtime.speculative``), and the warm-up run captures them, so the traced
 run replays.  torch.profiler traces a replay's kernels one by one, each
 under its own name, so the in-situ times and the operation counts hold for
 the graphed loop as for the eager one.
@@ -66,11 +67,14 @@ the host and what it leaves on the card.
 decoding options on one x5 session over the 301.574 s file's mel (computed
 once; each run is the encoder and 128 tokens of ``transcribe_from_mel``):
 plain greedy, with scores, with the timestamp grammar, sampled at T = 0.5
-with scores, and beam search at K = 4, each once to warm up, then ROUNDS
-rounds in turns (the order rotated each round), then once traced.  One
-JSON line each: the median and quartiles of its host seconds, the median
-of its paired difference with greedy's run of the same round, and the
-traced run's device operations (in all and a decode step) and busy ms.
+with scores, and beam search at K = 4, graphed and run eagerly
+(``eager_decode``), each once to warm up, then ROUNDS rounds in turns (the
+order rotated each round), then once traced.  One JSON line each: the
+median and quartiles of its host seconds, the median of its paired
+difference with greedy's run of the same round, and the traced run's
+device operations (in all and a decode step), busy ms, the hand-written
+kernels' in-situ times and the five largest other device operations (for
+beams: the stable sort, the gathers).
 """
 
 from __future__ import annotations
@@ -514,14 +518,20 @@ def profile_decoding(params, audio):
         "sampled T = 0.5 with scores": (plain, dict(temperature=0.5,
                                                     with_scores=True)),
         "beam search K = 4": (plain, dict(num_beams=4)),
+        "beam search K = 4, eager": (plain, dict(num_beams=4)),
     }
 
     def run(name):
         prompt, kw = options[name]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        session.transcribe_from_mel(mel, starts, prompt, 128, sp.eot, **kw)
-        torch.cuda.synchronize()
+        session.eager_decode = name.endswith("eager")
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            session.transcribe_from_mel(mel, starts, prompt, 128, sp.eot,
+                                        **kw)
+            torch.cuda.synchronize()
+        finally:
+            session.eager_decode = False
         return time.perf_counter() - t0
 
     names = list(options)
@@ -545,7 +555,9 @@ def profile_decoding(params, audio):
                "device_ops": out["device_ops"],
                "device_ops_per_decode_step_upper":
                    out["device_ops"] / DECODE_STEPS,
-               "device_busy_ms": out["device_busy_ms"]}
+               "device_busy_ms": out["device_busy_ms"],
+               "kernels": out["kernels"],
+               "largest_other": out["largest_other"]}
 
 
 def main() -> None:

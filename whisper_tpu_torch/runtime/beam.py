@@ -19,14 +19,37 @@ with ``cross_len``): plain self-attention, and against the int8 cross
 cache of the packing gate the cross-attention kernels, B4 (x5, x7) or B6
 (x4), at B*K rows.  ``num_beams=1`` reduces to greedy decoding taking the
 same step.
+
+The JAX ``lax.while_loop`` becomes a step function over ``BeamState``,
+updated in place as the greedy loop's (``runtime.generate``): every gather
+of the parents (the token buffer, the lengths, ``done``, the self cache,
+the grammar state) is copied back into the state's own tensors, the token
+column is written at the device ``step``, and the cache slot ``pos`` is a
+device tensor.  On a card each step replays from a CUDA graph per key
+(``BeamKey``, in the caller's ``DecodeGraphs``); ``eager=True``, the CPU
+and a mesh call the step function as it is.  The early exit reads ``done``
+as the greedy loop does (``early_exit=False``: no read, every step runs).
+Steps past the point where every beam is done change nothing the loop
+returns: each beam's one candidate is its own EOT at zero cost, the scores
+are already in ``top_k``'s order, so the parents are the identity, the
+lengths stay and the column written is EOT, as it was.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
 
 import torch
 
 from whisper_tpu_torch.models import whisper
 from whisper_tpu_torch.models.registry import WhisperDims
+from whisper_tpu_torch.runtime.generate import (
+    DecodeGraphs,
+    InPlaceState,
+    exit_period,
+    run_loop,
+)
 from whisper_tpu_torch.runtime.speculative import _kernel_cross
 
 NEG_INF = -1e30  # a finished beam's non-EOT candidates, as in the JAX file
@@ -41,13 +64,110 @@ def top_k(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+@dataclasses.dataclass
+class BeamState(InPlaceState):
+    """The beam loop's carried state, on the device, updated in place by
+    one step (``_step_fn``)."""
+
+    last: torch.Tensor            # [B*K] int64, the tokens the step feeds
+    pos: torch.Tensor             # [1] int32, their cache slot
+    step: torch.Tensor            # [1] int64, the column the step writes
+    done: torch.Tensor            # [B, K] bool
+    lengths: torch.Tensor         # [B, K] int64, generated incl. EOT
+    scores: torch.Tensor          # [B, K] fp32, summed log-probabilities
+    buf: torch.Tensor             # [B, K, max_new_tokens] int64
+    suppress: torch.Tensor        # [V] fp32 additive mask of every step
+    eot_only: torch.Tensor        # [V] fp32: a finished beam's candidates
+    row0: torch.Tensor            # [B, 1] int64: row r's first beam, r*K
+    cache: whisper.KVCache        # tiled per beam: [L, B*K, ...]
+    ts: Optional[object] = None   # timestamps.TimestampState, [B*K] rows
+    pad_count: Optional[torch.Tensor] = None  # [B*K] int32
+
+    def tensors(self) -> list:
+        out = [self.last, self.pos, self.step, self.done, self.lengths,
+               self.scores, self.buf, self.suppress, self.eot_only,
+               self.row0, *self.cache, *(self.ts or ()), self.pad_count]
+        return [t for t in out if t is not None]
+
+    def owned(self) -> "BeamState":
+        return dataclasses.replace(self, suppress=self.suppress.clone())
+
+    def outputs(self):
+        """(buf, scores, lengths) of every beam."""
+        return self.buf.clone(), self.scores.clone(), self.lengths.clone()
+
+
+class BeamKey(NamedTuple):
+    """What a captured beam step is specialised to."""
+
+    rows: int              # B*K
+    beams: int
+    prompt_len: int
+    max_new_tokens: int
+    cross_len: int
+    kernel_cross: bool     # B4/B6 against the int8 cross cache
+    int8_mxu: bool
+    int8_cross_kv: bool
+    ts_cfg: object
+    pads: bool
+    eot_id: int
+    kind: str = "beam"
+
+
+def _step_fn(st: BeamState, params, dims: WhisperDims, *, eot_id: int,
+             cross_len, int8_mxu: bool, ts_cfg, mesh):
+    """One beam step over ``st``, in place, reading nothing on the host."""
+    from whisper_tpu_torch.runtime import timestamps as ts
+
+    b, k, n = st.buf.shape
+    v = st.eot_only.shape[0]
+
+    def step() -> None:
+        logits, _ = whisper.decoder_step(
+            params, dims, st.last, st.pos, st.cache, cross_len=cross_len,
+            int8_mxu=int8_mxu, pad_count=st.pad_count, mesh=mesh)
+        logits = logits.float() + st.suppress
+        if ts_cfg is not None:
+            logits = ts.apply_rules(logits, st.ts, st.step, ts_cfg)
+        logp = torch.log_softmax(logits, dim=-1).reshape(b, k, v)
+        logp = torch.where(st.done[:, :, None], st.eot_only, logp)
+
+        total = st.scores[:, :, None] + logp                   # [B, K, V]
+        scores, idx = top_k(total.reshape(b, k * v), k)        # [B, K]
+        parent = idx // v
+        tok = idx % v
+
+        st.buf.copy_(st.buf.gather(1, parent[:, :, None].expand(-1, -1, n)))
+        st.buf.index_copy_(2, st.step, tok[:, :, None])
+        prev_done = st.done.gather(1, parent)
+        lengths = st.lengths.gather(1, parent)
+        st.lengths.copy_(torch.where(prev_done, lengths, lengths + 1))
+        st.done.copy_(prev_done | (tok == eot_id))
+        st.scores.copy_(scores)
+        # Only the self cache follows the parent beams: the cross K/V (and
+        # its scales) are the same for every beam of a row.
+        rows = (parent + st.row0).reshape(-1)
+        st.cache.self_k.copy_(st.cache.self_k.index_select(1, rows))
+        st.cache.self_v.copy_(st.cache.self_v.index_select(1, rows))
+        if ts_cfg is not None:
+            ts.gather_state_(st.ts, rows)
+            ts.update_state_(st.ts, tok.reshape(b * k), ts_cfg)
+        st.last.copy_(tok.reshape(b * k))
+        st.pos.add_(1)
+        st.step.add_(1)
+
+    return step
+
+
 def beam_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
                   prompt: torch.Tensor, suppress_mask: torch.Tensor,
                   first_suppress_mask: torch.Tensor, max_new_tokens: int,
                   eot_id: int, num_beams: int, length_penalty: float = 1.0,
                   *, ts_cfg=None, int8_cross_kv: bool = False,
                   packed_cross: bool = False, int8_mxu: bool = False,
-                  pad_count=None, mesh=None):
+                  pad_count=None, mesh=None, early_exit: bool = True,
+                  eager: bool = False,
+                  graphs: Optional[DecodeGraphs] = None):
     """Returns (tokens [B, max_new_tokens] of the best beam, scores [B]).
 
     enc_states: [B, T_enc, d]; prompt: [P] ids shared by every row; masks:
@@ -57,7 +177,14 @@ def beam_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
     pad_count ([B] int32): left pad slots of each row's prompt, masked in
     the prefill and repeated per beam for every step.  mesh: this rank's
     share of a (data, model) mesh (its rows and heads, ``greedy_generate``);
-    the loop's ``done`` read agrees across its model ranks."""
+    the loop's ``done`` read agrees across its model ranks, and its steps
+    run without a graph.
+
+    early_exit False reads nothing on the host (every step runs); else
+    ``done`` is read once a block of ``generate.EXIT_BLOCK`` steps on a
+    card, once a step on the CPU.  On a card without a mesh the steps
+    replay from a CUDA graph kept in ``graphs`` (a ``DecodeGraphs`` of
+    these weights; None: captured for this call alone), unless ``eager``."""
     from whisper_tpu_torch.runtime import timestamps as ts
 
     b = enc_states.shape[0]
@@ -65,79 +192,67 @@ def beam_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
     p = prompt.shape[0]
     v = dims.vocab_size
     dev = enc_states.device
-
-    tokens_p = prompt.to(device=dev, dtype=torch.long)[None, :].expand(b, p)
-    prompt_mask = pad_bk = None
-    if pad_count is not None:
-        prompt_mask = (torch.arange(p, device=dev)[None, :]
-                       >= pad_count[:, None])                  # [B, P]
-        pad_bk = pad_count.repeat_interleave(k)                # [B*K]
-    logits, cache = whisper.decoder_prefill(
-        params, dims, tokens_p, enc_states, p + max_new_tokens,
-        int8_cross_kv=int8_cross_kv, prompt_mask=prompt_mask, mesh=mesh)
-    first_logits = logits[:, -1, :].float() + first_suppress_mask
-    if ts_cfg is not None:
-        first_logits = ts.apply_rules(first_logits,
-                                      ts.init_state(b, eot_id, dev), 0,
-                                      ts_cfg)
-    scores, first = top_k(torch.log_softmax(first_logits, dim=-1), k)
-
     cross_len = (enc_states.shape[1]
                  if _kernel_cross(packed_cross, int8_cross_kv, dims, mesh)
                  else None)
-    # [L, B, ...] -> [L, B*K, ...], beam j of row r at r*K + j; the scales
-    # [L, B, H, 1, 1] tile alike
-    cache = whisper.KVCache(*(None if x is None
-                              else x.repeat_interleave(k, dim=1)
-                              for x in cache))
 
-    buf = torch.full((b, k, max_new_tokens), eot_id, dtype=torch.long,
-                     device=dev)
-    buf[:, :, 0] = first
-    done = first == eot_id
-    lengths = torch.ones((b, k), dtype=torch.long, device=dev)
-    eot_only = torch.full((v,), NEG_INF, dtype=torch.float32, device=dev)
-    eot_only[eot_id] = 0.0
-    ts_state = None
-    if ts_cfg is not None:
-        ts_state = ts.update_state(ts.init_state(b * k, eot_id, dev),
-                                   first.reshape(b * k), ts_cfg)
-    row0 = torch.arange(b, device=dev)[:, None] * k
-    last = first
-    for i in range(1, max_new_tokens):
-        if bool(done.all()):
-            break
-        step_logits, cache = whisper.decoder_step(
-            params, dims, last.reshape(b * k), p + i - 1, cache,
-            cross_len=cross_len, int8_mxu=int8_mxu, pad_count=pad_bk,
-            mesh=mesh)
-        step_logits = step_logits.float() + suppress_mask
+    def init(_gen) -> BeamState:
+        """The prefill and the first top-K: the state before step 1."""
+        tokens_p = prompt.to(device=dev, dtype=torch.long)[None, :].expand(
+            b, p)
+        prompt_mask = pad_bk = None
+        if pad_count is not None:
+            prompt_mask = (torch.arange(p, device=dev)[None, :]
+                           >= pad_count[:, None])              # [B, P]
+            pad_bk = pad_count.to(torch.int32).repeat_interleave(k)  # [B*K]
+        logits, cache = whisper.decoder_prefill(
+            params, dims, tokens_p, enc_states, p + max_new_tokens,
+            int8_cross_kv=int8_cross_kv, prompt_mask=prompt_mask, mesh=mesh)
+        first_logits = logits[:, -1, :].float() + first_suppress_mask
         if ts_cfg is not None:
-            step_logits = ts.apply_rules(step_logits, ts_state, i, ts_cfg)
-        logp = torch.log_softmax(step_logits, dim=-1).reshape(b, k, v)
-        logp = torch.where(done[:, :, None], eot_only, logp)
-
-        total = scores[:, :, None] + logp                      # [B, K, V]
-        scores, idx = top_k(total.reshape(b, k * v), k)        # [B, K]
-        parent = idx // v
-        tok = idx % v
-
-        buf = buf.gather(1, parent[:, :, None].expand(-1, -1, max_new_tokens))
-        buf[:, :, i] = tok
-        prev_done = done.gather(1, parent)
-        lengths = lengths.gather(1, parent)
-        lengths = torch.where(prev_done, lengths, lengths + 1)
-        done = prev_done | (tok == eot_id)
-        # Only the self cache follows the parent beams: the cross K/V (and
-        # its scales) are the same for every beam of a row.
-        rows = (parent + row0).reshape(-1)
-        cache = cache._replace(self_k=cache.self_k.index_select(1, rows),
-                               self_v=cache.self_v.index_select(1, rows))
+            first_logits = ts.apply_rules(first_logits,
+                                          ts.init_state(b, eot_id, dev), 0,
+                                          ts_cfg)
+        scores, first = top_k(torch.log_softmax(first_logits, dim=-1), k)
+        # [L, B, ...] -> [L, B*K, ...], beam j of row r at r*K + j; the
+        # scales [L, B, H, 1, 1] tile alike
+        cache = whisper.KVCache(*(None if x is None
+                                  else x.repeat_interleave(k, dim=1)
+                                  for x in cache))
+        buf = torch.full((b, k, max_new_tokens), eot_id, dtype=torch.long,
+                         device=dev)
+        buf[:, :, 0] = first
+        eot_only = torch.full((v,), NEG_INF, dtype=torch.float32, device=dev)
+        eot_only[eot_id] = 0.0
+        ts_state = None
         if ts_cfg is not None:
-            parents = ts.TimestampState(*(x.index_select(0, rows)
-                                          for x in ts_state))
-            ts_state = ts.update_state(parents, tok.reshape(b * k), ts_cfg)
-        last = tok
+            ts_state = ts.update_state(ts.init_state(b * k, eot_id, dev),
+                                       first.reshape(b * k), ts_cfg)
+        return BeamState(
+            last=first.reshape(b * k),
+            pos=torch.full((1,), p, dtype=torch.int32, device=dev),
+            step=torch.ones(1, dtype=torch.long, device=dev),
+            done=first == eot_id,
+            lengths=torch.ones((b, k), dtype=torch.long, device=dev),
+            scores=scores, buf=buf, suppress=suppress_mask,
+            eot_only=eot_only,
+            row0=torch.arange(b, device=dev)[:, None] * k, cache=cache,
+            ts=ts_state, pad_count=pad_bk)
+
+    def make_step(st: BeamState, _gen):
+        return _step_fn(st, params, dims, eot_id=eot_id, cross_len=cross_len,
+                        int8_mxu=int8_mxu, ts_cfg=ts_cfg, mesh=mesh)
+
+    graphed = dev.type == "cuda" and mesh is None and not eager
+    if graphed and graphs is None:
+        graphs = DecodeGraphs(params)
+    key = BeamKey(b * k, k, p, max_new_tokens, enc_states.shape[1],
+                  cross_len is not None, int8_mxu, int8_cross_kv, ts_cfg,
+                  pad_count is not None, eot_id)
+    buf, scores, lengths = run_loop(
+        init, make_step, 1, max_new_tokens, exit_period(early_exit, dev),
+        graphs=graphs if graphed else None, key=key, device=dev,
+        params=params)
 
     norm = scores / lengths.float() ** length_penalty
     best = torch.argmax(norm, dim=1)                           # [B]

@@ -35,7 +35,10 @@ keep at most a quarter of the card's memory in it, the least recently
 used dropped first.  ``eager=True`` runs the step
 function on the card without a graph (the card checks compare the two).
 A replay adds to the kernels' launch counters what its capture tallied
-(``ops.common.tally_launches``).
+(``ops.common.tally_launches``).  The same machinery (``InPlaceState``,
+``_GraphLoop``, ``DecodeGraphs``, ``run_loop``) runs the beam loop
+(``runtime.beam``) and the speculative rounds (``runtime.speculative``),
+each with a key of its own, under one budget.
 
 The early exit: with ``early_exit=False`` the loop reads nothing on the
 host and every step runs (the ``_async`` entry points; a row past EOT
@@ -111,8 +114,39 @@ def pick(logits: torch.Tensor, temperature, generator,
 EXIT_BLOCK = 16  # steps a synchronous caller runs between two reads of done
 
 
+class InPlaceState:
+    """What ``_GraphLoop`` needs of a decode loop's state (``LoopState``
+    here, ``beam.BeamState``, ``speculative.SpecState``): ``tensors()``,
+    every tensor one step updates in place or reads, in one fixed order;
+    ``done``, the tensor whose ``all()`` ends the loop; ``owned()``, the
+    state with the caller's tensors (masks, pads) cloned, so that a graph
+    that adopts it reads none of them; ``outputs()``, copies of the
+    results, so that the next run may reuse the state."""
+
+    done: torch.Tensor
+
+    def tensors(self) -> list:
+        raise NotImplementedError
+
+    def owned(self):
+        raise NotImplementedError
+
+    def outputs(self):
+        raise NotImplementedError
+
+    def nbytes(self) -> int:
+        """Device bytes the state's tensors hold (whole storages, once)."""
+        storages = {t.untyped_storage().data_ptr():
+                    t.untyped_storage().nbytes() for t in self.tensors()}
+        return sum(storages.values())
+
+    def copy_(self, other: "InPlaceState") -> None:
+        for mine, theirs in zip(self.tensors(), other.tensors()):
+            mine.copy_(theirs)
+
+
 @dataclasses.dataclass
-class LoopState:
+class LoopState(InPlaceState):
     """The greedy loop's carried state: every field a tensor on the device
     that one step updates in place (``_step_fn``)."""
 
@@ -136,20 +170,15 @@ class LoopState:
                *(self.ts or ()), self.pad_count, self.temperature]
         return [t for t in out if t is not None]
 
-    def nbytes(self) -> int:
-        """Device bytes the state's tensors hold (whole storages, once)."""
-        storages = {t.untyped_storage().data_ptr():
-                    t.untyped_storage().nbytes() for t in self.tensors()}
-        return sum(storages.values())
+    def owned(self) -> "LoopState":
+        return dataclasses.replace(
+            self, suppress=self.suppress.clone(),
+            pad_count=None if self.pad_count is None
+            else self.pad_count.clone())
 
-    def copy_(self, other: "LoopState") -> None:
-        for mine, theirs in zip(self.tensors(), other.tensors()):
-            mine.copy_(theirs)
-
-    def outputs(self, return_logprobs: bool):
-        """Copies of the results, so that the next run may reuse the
-        state: buf, or (buf, sum_lp, n_tok)."""
-        if return_logprobs:
+    def outputs(self):
+        """buf, or with scores (buf, sum_lp, n_tok)."""
+        if self.sum_lp is not None:
             return self.buf.clone(), self.sum_lp.clone(), self.n_tok.clone()
         return self.buf.clone()
 
@@ -217,10 +246,13 @@ def _read(flag_event) -> bool:
 
 
 def _drive(step, first: int, n: int, done: torch.Tensor,
-           exit_every: Optional[int]) -> None:
+           exit_every: Optional[int], first_step=None) -> None:
     """Steps first .. n-1.  exit_every None: no read.  Else ``done`` is
     copied once a block of exit_every steps and, for blocks of more than
-    one step, read only after the next block is queued."""
+    one step, read only after the next block is queued.  first_step, where
+    given, runs step ``first`` in place of ``step`` (a key's capture, whose
+    warm-up runs the step for real), so that the blocks and the reads fall
+    where the eager loop's do."""
     lag = 0 if exit_every == 1 else 1
     flags: collections.deque = collections.deque()
     i = first
@@ -230,8 +262,8 @@ def _drive(step, first: int, n: int, done: torch.Tensor,
             if len(flags) > lag and _read(flags.popleft()):
                 return
         hi = n if exit_every is None else min(i + exit_every, n)
-        for _ in range(i, hi):
-            step()
+        for j in range(i, hi):
+            (step if first_step is None or j != first else first_step)()
         i = hi
 
 
@@ -256,7 +288,7 @@ class _GraphLoop:
         self.device = device
         self.generator = (torch.Generator(device=device) if sampled
                           else None)
-        self.state: Optional[LoopState] = None
+        self.state: Optional[InPlaceState] = None
         self.graph = None
         self.tally: dict = {}
         self.capture_s = 0.0
@@ -315,43 +347,49 @@ class _GraphLoop:
         self.graph, self.tally = graph, dict(tally)
         self.capture_s = time.perf_counter() - t0
 
+    def _capturing(self, step):
+        """Step ``first`` of a key's first call: ``_capture`` (its warm-up
+        runs the step); a capture that fails drops the state and raises."""
+        def first_step() -> None:
+            try:
+                self._capture(step)
+            except BaseException:
+                self.state = None
+                raise
+        return first_step
+
     def _replay(self) -> None:
         from whisper_tpu_torch.ops.common import add_launches
 
         self.graph.replay()
         add_launches(self.tally)
 
-    def run(self, init, make_step, n: int, exit_every: Optional[int],
-            generator, return_logprobs: bool):
-        """init(generator) -> the call's LoopState after its first token;
-        make_step(state, generator) -> the step function."""
+    def run(self, init, make_step, first: int, n: int,
+            exit_every: Optional[int], generator):
+        """init(generator) -> the call's state before step ``first`` (an
+        ``InPlaceState``); make_step(state, generator) -> the step
+        function; steps first .. n-1 (``_drive``), then the outputs."""
         with self._lock:
             main = torch.cuda.current_stream(self.device)
             if self._free is not None:
                 main.wait_event(self._free)
             gen = None if self.generator is None else self._seeded(generator)
             fresh = init(gen)
-            first = 1
+            first_step = None
             if self.state is None:
-                # adopt the first call's tensors as the static state; the
-                # mask and the pads are the caller's, so they are copied
-                self.state = dataclasses.replace(
-                    fresh, suppress=fresh.suppress.clone(),
-                    pad_count=None if fresh.pad_count is None
-                    else fresh.pad_count.clone())
-                if n > 1:
-                    try:
-                        self._capture(make_step(self.state, gen))
-                    except BaseException:
-                        self.state = None
-                        raise
-                    first = 2
-                self.nbytes = self.state.nbytes()
+                # adopt the first call's tensors as the static state; its
+                # first step is the capture's warm-up, then the capture
+                self.state = fresh.owned()
+                first_step = self._capturing(make_step(self.state, gen))
             else:
                 self.state.copy_(fresh)
             del fresh
-            _drive(self._replay, first, n, self.state.done, exit_every)
-            out = self.state.outputs(return_logprobs)
+            _drive(self._replay, first, n, self.state.done, exit_every,
+                   first_step=first_step)
+            out = self.state.outputs()
+            if self.graph is None:      # no step ran: capture at a later call
+                self.state = None
+            self.nbytes = 0 if self.state is None else self.state.nbytes()
             self._free = torch.cuda.Event()
             self._free.record(main)
             return out
@@ -366,7 +404,9 @@ class _GraphLoop:
 
 
 class GraphKey(NamedTuple):
-    """What a captured greedy step is specialised to."""
+    """What a captured greedy step is specialised to.  Each loop has a key
+    of its own (``beam.BeamKey``, ``speculative.SpecKey``), each ending in
+    its ``kind``, so that keys of two loops never compare equal."""
 
     rows: int
     prompt_len: int
@@ -382,28 +422,35 @@ class GraphKey(NamedTuple):
     scores: bool
     pads: bool
     eot_id: int
+    kind: str = "greedy"
 
 
 class DecodeGraphs:
-    """The captured greedy loops of one set of weights (a session's: the
-    decoder tree and, for the hybrid step, its step weights, held here), one
-    per key; ``greedy_generate(graphs=...)`` takes it and refuses other
-    weights.  The loops keep at most ``GRAPH_MEMORY_SHARE`` of the card's
-    memory in state: after a run that passes it, the least recently used
-    other loops are dropped.  Not counted: the temporaries of one step that
-    each graph's own memory pool keeps."""
+    """The captured decode loops of one set of weights (a session's: the
+    decoder tree, for the hybrid step its step weights, and for speculative
+    decoding the draft's decoder tree, held here), one per key, of every
+    kind: greedy steps, beam steps and speculative rounds;
+    ``greedy_generate``, ``beam_generate`` and ``speculative_generate``
+    take it (``graphs=``) and refuse other weights.  The loops keep at most
+    ``GRAPH_MEMORY_SHARE`` of the card's memory in state, every kind
+    counted: after a run that passes it, the least recently used other
+    loops are dropped.  Not counted: the temporaries of one step that each
+    graph's own memory pool keeps."""
 
-    def __init__(self, params, step_weights=None):
+    def __init__(self, params, step_weights=None, draft_params=None):
         self.params = params
         self.step_weights = step_weights
+        self.draft_params = draft_params
         self._loops: collections.OrderedDict = collections.OrderedDict()
         self._lock = threading.Lock()
 
-    def loop(self, params, step_weights, key: GraphKey, device,
-             sampled: bool) -> _GraphLoop:
+    def loop(self, params, step_weights, key, device, sampled: bool,
+             draft_params=None) -> _GraphLoop:
         if params is not self.params or (
                 step_weights is not None
-                and step_weights is not self.step_weights):
+                and step_weights is not self.step_weights) or (
+                draft_params is not None
+                and draft_params is not self.draft_params):
             raise ValueError("these decode graphs belong to other weights")
         with self._lock:
             if key not in self._loops:
@@ -411,7 +458,17 @@ class DecodeGraphs:
             self._loops.move_to_end(key)
             return self._loops[key]
 
-    def trim(self, keep: GraphKey) -> None:
+    def set_draft(self, draft_params) -> None:
+        """Serve speculative rounds with ``draft_params`` from now on: every
+        speculative loop, captured with the draft before, is dropped."""
+        with self._lock:
+            self.draft_params = draft_params
+            victims = [self._loops.pop(k) for k in list(self._loops)
+                       if k.kind == "speculative"]
+        for v in victims:
+            v.release()
+
+    def trim(self, keep) -> None:
         """Drop the least recently used loops other than ``keep`` while the
         loops' state passes the budget."""
         with self._lock:
@@ -434,12 +491,44 @@ class DecodeGraphs:
         with self._lock:
             return sum(v.nbytes for v in self._loops.values())
 
+    def kept(self) -> dict:
+        """{key: device bytes its loop's state keeps}."""
+        with self._lock:
+            return {k: v.nbytes for k, v in self._loops.items()}
+
     def captures(self) -> dict:
         """{key: seconds its warm-up step and capture took}, for the loops
         kept and captured."""
         with self._lock:
             return {k: v.capture_s for k, v in self._loops.items()
                     if v.graph is not None}
+
+
+def exit_period(early_exit: bool, device, block: int = EXIT_BLOCK):
+    """Steps between two reads of ``done`` (``_drive``): None without the
+    early exit, ``block`` on a card, one on the CPU."""
+    if not early_exit:
+        return None
+    return block if device.type == "cuda" else 1
+
+
+def run_loop(init, make_step, first: int, n: int, exit_every, *,
+             graphs: Optional[DecodeGraphs], key, device, params,
+             step_weights=None, draft_params=None, generator=None,
+             sampled: bool = False):
+    """Steps first .. n-1 of a decode loop over the state ``init`` makes:
+    eagerly (``graphs`` None: the CPU, a mesh, ``eager=True``), else
+    replayed from the CUDA graph of ``key`` in ``graphs``, which then drops
+    what passes its budget.  Returns the state's outputs."""
+    if graphs is None:
+        st = init(generator)
+        _drive(make_step(st, generator), first, n, st.done, exit_every)
+        return st.outputs()
+    loop = graphs.loop(params, step_weights, key, device, sampled,
+                       draft_params)
+    out = loop.run(init, make_step, first, n, exit_every, generator)
+    graphs.trim(key)
+    return out
 
 
 def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
@@ -509,9 +598,6 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
     p = prompt.shape[0]
     dev = enc_states.device
     cross_len = enc_states.shape[1]
-    exit_every = None
-    if early_exit:
-        exit_every = EXIT_BLOCK if dev.type == "cuda" else 1
 
     def init(gen) -> LoopState:
         """The prefill and the first token: the state before step 1."""
@@ -556,22 +642,18 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
                         ts_cfg=ts_cfg, generator=gen, return_logprobs=return_logprobs,
                         mesh=mesh, draw_rows=draw_rows)
 
-    if dev.type != "cuda" or mesh is not None or eager:
-        st = init(generator)
-        _drive(make_step(st, generator), 1, max_new_tokens, st.done,
-               exit_every)
-        return st.outputs(return_logprobs)
-    if graphs is None:
+    graphed = dev.type == "cuda" and mesh is None and not eager
+    if graphed and graphs is None:
         graphs = DecodeGraphs(params, step_weights)
     key = GraphKey(b, p, max_new_tokens, cross_len, kernel_step, int8_mxu,
                    int8_self, int8_cross_kv, step_weights is not None, ts_cfg,
                    temperature > 0, return_logprobs, pad_count is not None,
                    eot_id)
-    loop = graphs.loop(params, step_weights, key, dev, temperature > 0)
-    out = loop.run(init, make_step, max_new_tokens, exit_every, generator,
-                   return_logprobs)
-    graphs.trim(key)
-    return out
+    return run_loop(init, make_step, 1, max_new_tokens,
+                    exit_period(early_exit, dev),
+                    graphs=graphs if graphed else None, key=key, device=dev,
+                    params=params, step_weights=step_weights,
+                    generator=generator, sampled=temperature > 0)
 
 
 def strip_generated(row: np.ndarray, eot_id: int) -> list[int]:

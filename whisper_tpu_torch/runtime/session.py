@@ -32,14 +32,18 @@ reflect-padded utterances of at most 30 s through the plain mel, the
 encoder and greedy or speculative decoding; ``transcribe_chunks`` and
 ``warmup`` take host mel chunks.
 
-Greedy decoding on a card replays each step from a CUDA graph captured
-once per key (``runtime.generate``; the session keeps them in
-``graphs``, and ``warmup`` captures a bucket's).  The ``_async`` forms of
-greedy decoding read nothing on the host: they return once the work is
-queued, before the decode ends, and ``gather_tokens`` (or the caller's
-``.cpu()``) is the sync.  The synchronous forms stop early, reading
-whether every row is done once a block of 16 steps.  Beam search and
-speculative decoding keep their host-read loops.
+Greedy decoding, beam search and speculative decoding on a card replay
+each step (a speculative round) from a CUDA graph captured once per key
+(``runtime.generate``, ``runtime.beam``, ``runtime.speculative``; the
+session keeps them all in ``graphs``, with the draft's weights once
+``set_draft_model`` attaches them, and ``warmup`` captures a bucket's
+greedy loop).  The ``_async`` forms of greedy decoding and beam search
+read nothing on the host: they return once the work is queued, before the
+decode ends, and ``gather_tokens`` (or the caller's ``.cpu()``) is the
+sync.  The synchronous forms stop early, reading whether every row is
+done once a block of 16 steps.  Speculative decoding reads ``done`` once
+a block of rounds in every form, since its number of rounds depends on
+what the draft gets accepted, and returns after its loop.
 
 ``data_parallel`` x ``tensor_parallel`` > 1 (or an explicit ``mesh=``)
 runs the session as one rank of a (data, model) mesh of processes
@@ -306,9 +310,10 @@ class WhisperSession:
         # step; on dims without the kernel step x7 behaves as x5 does there.
         self._int8_self = bool(self.cfg.int8_self_kv and self._int8_mxu)
         self._masks: Dict = {}
-        # the captured greedy loops on a card, one per key, their state
-        # within a quarter of the card's memory; eager_decode runs the
-        # greedy loop on the card without them (for comparisons)
+        # the captured decode loops on a card (greedy, beams, speculative
+        # rounds), one per key, their state within a quarter of the card's
+        # memory; eager_decode runs the loops on the card without them
+        # (for comparisons)
         self.graphs = DecodeGraphs(self._decoder_params, self._step_weights)
         self.eager_decode = False
         self._draft = None  # (encoder or None, decoder params, dims)
@@ -557,8 +562,9 @@ class WhisperSession:
         decoding reads nothing on the host (every step runs), so on a card
         this returns once the buckets' work is queued; early_exit reads
         ``done`` once a block of steps (``transcribe_from_mel``'s form).
-        Beam search and speculative decoding read the host inside their
-        loops, as ever."""
+        Beam search (num_beams > 1) does the same.  Speculative decoding
+        reads ``done`` once a block of rounds and the round count at the
+        end, whatever early_exit says."""
         if chunk_norm_n_valid is not None and pad_count is not None:
             raise ValueError("chunk_norm and conditioned prompts are "
                              "mutually exclusive")
@@ -615,7 +621,9 @@ class WhisperSession:
                     length_penalty, ts_cfg=ts_cfg,
                     int8_cross_kv=self.cfg.int8_kv_cache,
                     packed_cross=self._packed,
-                    int8_mxu=self._int8_mxu, pad_count=pads, mesh=self.mesh)
+                    int8_mxu=self._int8_mxu, pad_count=pads, mesh=self.mesh,
+                    early_exit=early_exit, eager=self.eager_decode,
+                    graphs=self.graphs)
             else:
                 gen = None
                 if temperature > 0.0:
@@ -804,6 +812,8 @@ class WhisperSession:
         decoder = WhisperDecoder(tree["decoder"], draft_dims,
                                  device=self.device)
         self._draft = (encoder, {"decoder": decoder.tree()}, draft_dims)
+        # the speculative loops captured with an earlier draft go
+        self.graphs.set_draft(self._draft[1])
 
         # Sizing is advisory and never fatal: both models' parameters, KV
         # caches and encoder states stay resident during a speculative
@@ -870,10 +880,11 @@ class WhisperSession:
         """transcribe_short_speculative without the copy to the host (the
         serving tick's speculative leg): the main encoder, the draft's own
         or with ``share_encoder`` the main one's states, then
-        ``speculative_generate`` (its verify pass through B7).  Unlike
-        ``transcribe_short_batch_async`` it returns after its loop, which
-        reads the host once a round (ROADMAP: the speculative round off
-        the host)."""
+        ``speculative_generate`` (its verify pass through B7).  Its rounds
+        replay from CUDA graphs on a card, but unlike
+        ``transcribe_short_batch_async`` it returns after its loop: the
+        number of rounds depends on the draft, so the loop reads ``done``
+        once a block of rounds (ROADMAP: a device-side exit)."""
         if not self.has_draft:
             raise RuntimeError("no draft model attached (set_draft_model)")
         mel, prompt_t, base_mask, first_mask = self._short_inputs(
@@ -902,7 +913,8 @@ class WhisperSession:
             eot_id=eot_id, draft_k=draft_k,
             int8_cross_kv=self.cfg.int8_kv_cache, packed_draft=packed,
             packed_main=packed,
-            int8_mxu=bool(self.cfg.int8_mxu_attn and packed), mesh=self.mesh)
+            int8_mxu=bool(self.cfg.int8_mxu_attn and packed), mesh=self.mesh,
+            eager=self.eager_decode, graphs=self.graphs)
         return toks, (rounds, n_committed)
 
     # -- mel chunks -> tokens -------------------------------------------------

@@ -21,20 +21,44 @@ Rows accept different draft lengths, so every decoder pass runs at
 finish early are frozen: their commits are masked out and they pad with EOT
 while the rest of the batch goes on.
 
-The JAX package's ``lax.while_loop`` and ``fori_loop`` are Python loops
-here.  A round reads the device once (``done.all()``); the accept and
-commit arithmetic stays on the device.  With the int8 cross cache and
-head_dim 64 the draft's steps run cross-attention through kernel B4 or B6
-and the verify pass through B7 (``ops.cross_attention``); self-attention is
-plain in both, since B3 takes one position for all rows.
+The JAX package's ``lax.while_loop`` over rounds becomes a round function
+over ``SpecState``, updated in place as the greedy loop's step
+(``runtime.generate``); its ``fori_loop`` over the draft steps is unrolled
+in the round.  On a card each round replays from a CUDA graph per key
+(``SpecKey``, in a ``DecodeGraphs`` that holds the main and the draft
+weights); ``eager=True``, the CPU and a mesh call the round function as it
+is.  The loop reads ``done`` once a block of ``EXIT_BLOCK`` rounds on a
+card (one block behind), once a round on the CPU; the number of rounds is
+data-dependent, so every form reads.  A round adds one to the device
+round counter only when some row was undone at its start, so ``n_rounds``
+is the JAX ``while_loop``'s trip count however far a block overruns; a
+round past all-done commits nothing (every row is frozen) and writes its
+cache rows inside the cache (the clamp below).  With the int8 cross cache
+and head_dim 64 the draft's steps run cross-attention through kernel B4 or
+B6 and the verify pass through B7 (``ops.cross_attention``);
+self-attention is plain in both, since B3 takes one position for all rows.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
 
 import torch
 
 from whisper_tpu_torch.models import whisper
 from whisper_tpu_torch.models.registry import WhisperDims
+from whisper_tpu_torch.runtime.generate import (
+    DecodeGraphs,
+    InPlaceState,
+    exit_period,
+    run_loop,
+)
+
+# Rounds run between two reads of ``done`` on a card: a round takes 5-7 ms
+# at whisper-base (16 rows, draft_k 4), so a read every two rounds costs the
+# card nothing, and a block overruns all-done by at most three rounds.
+EXIT_BLOCK = 2
 
 
 def _verify_pass(params, dims: WhisperDims, tokens, pos, cache,
@@ -72,101 +96,125 @@ def _kernel_cross(packed: bool, int8_cross_kv: bool, dims: WhisperDims,
                 and (dims.decoder_heads // 2) % tp == 0)
 
 
-def speculative_generate(params, dims: WhisperDims, draft_params,
-                         draft_dims: WhisperDims, enc_states: torch.Tensor,
-                         draft_enc_states: torch.Tensor, prompt: torch.Tensor,
-                         suppress_mask: torch.Tensor,
-                         first_suppress_mask: torch.Tensor,
-                         max_new_tokens: int, eot_id: int, draft_k: int = 4,
-                         *, int8_cross_kv: bool = False,
-                         packed_draft: bool = False,
-                         packed_main: bool = False, int8_mxu: bool = False,
-                         mesh=None):
-    """Returns (tokens [B, max_new_tokens], n_rounds, n_committed [B]).
+def _verify_pass(params, dims: WhisperDims, tokens, pos, cache,
+                 cross_len=None, int8_mxu: bool = False, mesh=None):
+    """Multi-token decoder pass: tokens [B, K] at per-row positions
+    [pos_r, pos_r+K); logits [B, K, V] and the cache, written in place.
+    With cross_len set, cross-attention runs the multi-query kernel B7: one
+    K/V stream per layer for all K tokens, each query bitwise what the
+    single-token kernel gives."""
+    dec = params["decoder"]
+    dtype = dec["tok_emb"].dtype
+    k = tokens.shape[1]
+    dev = tokens.device
+    pos_idx = pos[:, None] + torch.arange(k, device=dev)[None, :]   # [B, K]
+    x = dec["tok_emb"][tokens] + dec["pos_embed"][pos_idx].to(dtype)
+    max_len = cache.self_k.shape[3]
+    k_idx = torch.arange(max_len, device=dev)[None, None, :]        # [1,1,S]
+    mask = (k_idx <= pos_idx[:, :, None])[:, None]                # [B,1,K,S]
+    x, cache = whisper._decoder_blocks(params, dims, x, cache, pos, mask,
+                                       cross_len=cross_len, int8_mxu=int8_mxu,
+                                       mesh=mesh)
+    return whisper._logits(params, x), cache
 
-    enc_states / draft_enc_states: each model's encoder states [B, T, d];
-    prompt: [P] ids shared by every row; masks: [V] fp32 additive.
-    n_rounds counts verify passes: with a good draft n_committed / n_rounds
-    approaches draft_k + 1 tokens per pass of the main model, with a useless
-    one about 1.
 
-    int8_cross_kv quantizes BOTH models' cross caches as the greedy path
-    does (both prefills run plain, through the same int8 values).
-    packed_draft / packed_main (names kept from the JAX package, where the
-    kernels needed a head-packed cache) route the draft's single-token
-    steps through kernel B4 or B6 and the main model's verify pass through
-    B7; int8_mxu picks the int8 x int8 numerics (x5) over the dequantizing
-    ones (x4).  Drafts only propose, so the draft's kernel rounding cannot
-    change the output.
+def _kernel_cross(packed: bool, int8_cross_kv: bool, dims: WhisperDims,
+                  mesh=None) -> bool:
+    """The JAX package's packing gate: the cross-attention kernels serve an
+    int8 cross cache with head_dim 64 and an even head count, and under a
+    mesh only where the head pairs divide the model axis (``(heads // 2)
+    % tp == 0``, JAX session.py:287-289), so both packages take the same
+    path."""
+    tp = 1 if mesh is None else mesh.model
+    return bool(packed and int8_cross_kv and dims.head_dim == 64
+                and dims.decoder_heads % 2 == 0
+                and (dims.decoder_heads // 2) % tp == 0)
 
-    mesh: the main model is this rank's shard (its rows and heads); the
-    draft is whole on every rank and runs without collectives.  The model
-    ranks of a data rank propose alike (the same rows, the same
-    deterministic draft) and read the same logits after the all-reduce, so
-    their rounds agree."""
-    if draft_k < 1:
-        # Nothing would be drafted or committed, and the loop would not end.
-        raise ValueError(f"draft_k must be >= 1, got {draft_k}")
-    b = enc_states.shape[0]
-    p = prompt.shape[0]
-    dev = enc_states.device
-    # + draft_k + 1 slack: the last verify round may overrun before masking
-    # (a round commits up to draft_k + 1 tokens, the bonus token included).
-    max_len = p + max_new_tokens + draft_k + 1
-    tokens_p = prompt.to(device=dev, dtype=torch.long)[None, :].expand(b, p)
 
-    logits, cache = whisper.decoder_prefill(
-        params, dims, tokens_p, enc_states, max_len,
-        int8_cross_kv=int8_cross_kv, mesh=mesh)
-    first = torch.argmax(logits[:, -1, :].float() + first_suppress_mask, -1)
-    m_cross_len = (enc_states.shape[1]
-                   if _kernel_cross(packed_main, int8_cross_kv, dims, mesh)
-                   else None)
+@dataclasses.dataclass
+class SpecState(InPlaceState):
+    """The speculative loop's carried state, on the device, updated in place
+    by one round (``_round_fn``)."""
 
-    _, d_cache = whisper.decoder_prefill(
-        draft_params, draft_dims, tokens_p, draft_enc_states, max_len,
-        int8_cross_kv=int8_cross_kv)
-    d_cross_len = (draft_enc_states.shape[1]
-                   if _kernel_cross(packed_draft, int8_cross_kv, draft_dims)
-                   else None)
+    n_gen: torch.Tensor           # [B] int64, tokens committed (the first)
+    last: torch.Tensor            # [B] int64, each row's last token
+    done: torch.Tensor            # [B] bool
+    buf: torch.Tensor             # [B, max_new_tokens + draft_k + 1] int64
+    rounds: torch.Tensor          # [1] int64, rounds with a row undone
+    suppress: torch.Tensor        # [V] fp32 additive mask
+    cache: whisper.KVCache        # the main model's
+    d_cache: whisper.KVCache      # the draft's
 
-    width = max_new_tokens + draft_k + 1
-    buf = torch.full((b, width), eot_id, dtype=torch.long, device=dev)
-    buf[:, 0] = first
-    ar_k1 = torch.arange(draft_k + 1, device=dev)[None, :]        # [1, K+1]
-    ar_w = torch.arange(width, device=dev)[None, :]
-    zero_col = torch.zeros((b, 1), dtype=torch.long, device=dev)
+    def tensors(self) -> list:
+        out = [self.n_gen, self.last, self.done, self.buf, self.rounds,
+               self.suppress, *self.cache, *self.d_cache]
+        return [t for t in out if t is not None]
 
-    n_gen = torch.ones((b,), dtype=torch.long, device=dev)
-    last = first
-    done = first == eot_id
-    rounds = 0
-    while not bool(done.all()):            # the round's one host sync
+    def owned(self) -> "SpecState":
+        return dataclasses.replace(self, suppress=self.suppress.clone())
+
+    def outputs(self):
+        """(buf, rounds, n_gen)."""
+        return self.buf.clone(), self.rounds.clone(), self.n_gen.clone()
+
+
+class SpecKey(NamedTuple):
+    """What a captured speculative round is specialised to."""
+
+    rows: int
+    prompt_len: int
+    max_new_tokens: int
+    draft_k: int
+    cross_len: int
+    draft_cross_len: int
+    kernel_main: bool      # the verify pass through B7
+    kernel_draft: bool     # the draft's steps through B4/B6
+    int8_mxu: bool
+    int8_cross_kv: bool
+    eot_id: int
+    kind: str = "speculative"
+
+
+def _round_fn(st: SpecState, params, dims: WhisperDims, draft_params,
+              draft_dims: WhisperDims, *, prompt_len: int,
+              max_new_tokens: int, draft_k: int, eot_id: int, m_cross_len,
+              d_cross_len, int8_mxu: bool, mesh):
+    """One draft-and-verify round over ``st``, in place, reading nothing on
+    the host."""
+    b, width = st.buf.shape
+
+    def round_() -> None:
+        dev = st.buf.device
+        ar_k1 = torch.arange(draft_k + 1, device=dev)[None, :]    # [1, K+1]
+        zero_col = torch.zeros((b, 1), dtype=torch.long, device=dev)
+        done = st.done        # the rows frozen for this round (set last)
+        st.rounds.add_((~done.all()).long())
         # [B] position of each row's `last`.  A row frozen by length may
-        # have overrun max_new_tokens by up to draft_k; its steps are still
-        # computed and discarded, and must write inside the cache (the JAX
-        # package's dynamic slices clamp them there).
-        pos = p + torch.clamp_max(n_gen, max_new_tokens - 1) - 1
+        # have overrun max_new_tokens by up to draft_k, and a round past
+        # all-done runs on frozen rows; their steps are still computed and
+        # discarded, and must write inside the cache (the JAX package's
+        # dynamic slices clamp them there).
+        pos = prompt_len + torch.clamp_max(st.n_gen, max_new_tokens - 1) - 1
 
         # --- the draft proposes draft_k tokens per row ---
-        d_last = last
+        d_last = st.last
         drafts = []
         for i in range(draft_k):
-            lg, d_cache = whisper.decoder_step(
-                draft_params, draft_dims, d_last, pos + i, d_cache,
+            lg, _ = whisper.decoder_step(
+                draft_params, draft_dims, d_last, pos + i, st.d_cache,
                 cross_len=d_cross_len, int8_mxu=int8_mxu)
-            d_last = torch.argmax(lg.float() + suppress_mask, dim=-1)
+            d_last = torch.argmax(lg.float() + st.suppress, dim=-1)
             drafts.append(d_last)
         drafts = torch.stack(drafts, dim=1)                       # [B, K]
 
         # --- the main model checks [last, d1..dK] in one K+1-token pass
         # (it scores the position after the last draft too, so full
         # acceptance commits the true bonus token) ---
-        verify_in = torch.cat([last[:, None], drafts], dim=1)     # [B, K+1]
-        v_logits, cache = _verify_pass(
-            params, dims, verify_in, pos, cache, cross_len=m_cross_len,
+        verify_in = torch.cat([st.last[:, None], drafts], dim=1)  # [B, K+1]
+        v_logits, _ = _verify_pass(
+            params, dims, verify_in, pos, st.cache, cross_len=m_cross_len,
             int8_mxu=int8_mxu, mesh=mesh)
-        targets = torch.argmax(v_logits.float() + suppress_mask, dim=-1)
+        targets = torch.argmax(v_logits.float() + st.suppress, dim=-1)
 
         # Longest accepted prefix per row: drafts[r, i] == targets[r, i].
         matches = torch.cat([(drafts == targets[:, :draft_k]).long(),
@@ -183,19 +231,117 @@ def speculative_generate(params, dims: WhisperDims, draft_params,
         # Row r writes commit[r] at buf[r, n_gen_r : n_gen_r + K + 1]: the
         # slack columns take the overrun, and a frozen row keeps its own
         # (its start is clamped into the buffer, as a dynamic slice's is).
-        cols = torch.clamp_max(n_gen, width - draft_k - 1)[:, None] + ar_k1
-        buf.scatter_(1, cols, torch.where(done[:, None],
-                                          buf.gather(1, cols), commit))
+        cols = torch.clamp_max(st.n_gen, width - draft_k - 1)[:, None] + ar_k1
+        st.buf.scatter_(1, cols, torch.where(done[:, None],
+                                             st.buf.gather(1, cols), commit))
 
         committed_eot = ((ar_k1 < n_commit[:, None])
                          & (commit == eot_id)).any(dim=1)
         last_new = commit.gather(
             1, torch.clamp_min(n_commit - 1, 0)[:, None])[:, 0]
-        last = torch.where(done, last, last_new)
-        n_gen = n_gen + n_commit
-        done = done | committed_eot | (n_gen >= max_new_tokens)
-        rounds += 1
+        st.last.copy_(torch.where(done, st.last, last_new))
+        st.n_gen.add_(n_commit)
+        st.done.logical_or_(committed_eot | (st.n_gen >= max_new_tokens))
 
+    return round_
+
+
+def speculative_generate(params, dims: WhisperDims, draft_params,
+                         draft_dims: WhisperDims, enc_states: torch.Tensor,
+                         draft_enc_states: torch.Tensor, prompt: torch.Tensor,
+                         suppress_mask: torch.Tensor,
+                         first_suppress_mask: torch.Tensor,
+                         max_new_tokens: int, eot_id: int, draft_k: int = 4,
+                         *, int8_cross_kv: bool = False,
+                         packed_draft: bool = False,
+                         packed_main: bool = False, int8_mxu: bool = False,
+                         mesh=None, eager: bool = False,
+                         graphs: Optional[DecodeGraphs] = None):
+    """Returns (tokens [B, max_new_tokens], n_rounds, n_committed [B]).
+
+    enc_states / draft_enc_states: each model's encoder states [B, T, d];
+    prompt: [P] ids shared by every row; masks: [V] fp32 additive.
+    n_rounds (a host int, read once the loop ends) counts verify passes
+    that had a row undone: with a good draft n_committed / n_rounds
+    approaches draft_k + 1 tokens per pass of the main model, with a
+    useless one about 1.
+
+    int8_cross_kv quantizes BOTH models' cross caches as the greedy path
+    does (both prefills run plain, through the same int8 values).
+    packed_draft / packed_main (names kept from the JAX package, where the
+    kernels needed a head-packed cache) route the draft's single-token
+    steps through kernel B4 or B6 and the main model's verify pass through
+    B7; int8_mxu picks the int8 x int8 numerics (x5) over the dequantizing
+    ones (x4).  Drafts only propose, so the draft's kernel rounding cannot
+    change the output.
+
+    mesh: the main model is this rank's shard (its rows and heads); the
+    draft is whole on every rank and runs without collectives.  The model
+    ranks of a data rank propose alike (the same rows, the same
+    deterministic draft) and read the same logits after the all-reduce, so
+    their rounds agree; the rounds run without a graph.
+
+    On a card without a mesh the rounds replay from a CUDA graph kept in
+    ``graphs`` (a ``DecodeGraphs`` of these main and draft weights; None:
+    captured for this call alone), unless ``eager``."""
+    if draft_k < 1:
+        # Nothing would be drafted or committed, and the loop would not end.
+        raise ValueError(f"draft_k must be >= 1, got {draft_k}")
+    b = enc_states.shape[0]
+    p = prompt.shape[0]
+    dev = enc_states.device
+    # + draft_k + 1 slack: the last verify round may overrun before masking
+    # (a round commits up to draft_k + 1 tokens, the bonus token included).
+    max_len = p + max_new_tokens + draft_k + 1
+    width = max_new_tokens + draft_k + 1
+    m_cross_len = (enc_states.shape[1]
+                   if _kernel_cross(packed_main, int8_cross_kv, dims, mesh)
+                   else None)
+    d_cross_len = (draft_enc_states.shape[1]
+                   if _kernel_cross(packed_draft, int8_cross_kv, draft_dims)
+                   else None)
+
+    def init(_gen) -> SpecState:
+        """Both prefills and the first token: the state before round 0."""
+        tokens_p = prompt.to(device=dev, dtype=torch.long)[None, :].expand(
+            b, p)
+        logits, cache = whisper.decoder_prefill(
+            params, dims, tokens_p, enc_states, max_len,
+            int8_cross_kv=int8_cross_kv, mesh=mesh)
+        first = torch.argmax(logits[:, -1, :].float() + first_suppress_mask,
+                             -1)
+        _, d_cache = whisper.decoder_prefill(
+            draft_params, draft_dims, tokens_p, draft_enc_states, max_len,
+            int8_cross_kv=int8_cross_kv)
+        buf = torch.full((b, width), eot_id, dtype=torch.long, device=dev)
+        buf[:, 0] = first
+        return SpecState(
+            n_gen=torch.ones((b,), dtype=torch.long, device=dev), last=first,
+            done=first == eot_id, buf=buf,
+            rounds=torch.zeros(1, dtype=torch.long, device=dev),
+            suppress=suppress_mask, cache=cache, d_cache=d_cache)
+
+    def make_round(st: SpecState, _gen):
+        return _round_fn(st, params, dims, draft_params, draft_dims,
+                         prompt_len=p, max_new_tokens=max_new_tokens,
+                         draft_k=draft_k, eot_id=eot_id,
+                         m_cross_len=m_cross_len, d_cross_len=d_cross_len,
+                         int8_mxu=int8_mxu, mesh=mesh)
+
+    graphed = dev.type == "cuda" and mesh is None and not eager
+    if graphed and graphs is None:
+        graphs = DecodeGraphs(params, draft_params=draft_params)
+    key = SpecKey(b, p, max_new_tokens, draft_k, enc_states.shape[1],
+                  draft_enc_states.shape[1], m_cross_len is not None,
+                  d_cross_len is not None, int8_mxu, int8_cross_kv, eot_id)
+    # Every undone row commits a token a round, so max_new_tokens rounds
+    # bound the loop; it stops where every row is done.
+    buf, rounds, n_gen = run_loop(
+        init, make_round, 0, max_new_tokens,
+        exit_period(True, dev, EXIT_BLOCK),
+        graphs=graphs if graphed else None, key=key, device=dev,
+        params=params, draft_params=draft_params)
     # Positions never committed (the overrun slack included) become EOT.
+    ar_w = torch.arange(width, device=dev)[None, :]
     buf = torch.where(ar_w < n_gen[:, None], buf, eot_id)[:, :max_new_tokens]
-    return buf, rounds, n_gen
+    return buf, int(rounds), n_gen

@@ -114,6 +114,13 @@ def update_state_(state: TimestampState, token: torch.Tensor,
     state.last.copy_(new.last)
 
 
+def gather_state_(state: TimestampState, rows: torch.Tensor) -> None:
+    """Each row of the state takes row ``rows[r]``'s values, in place (a
+    beam follows its parent in the graphed beam loop)."""
+    for t in state:
+        t.copy_(t.index_select(0, rows))
+
+
 def render_timestamp(token_id: int, timestamp_begin: int) -> str:
     """<|x.xx|> text for a timestamp token (0.02 s per step)."""
     return f"<|{(token_id - timestamp_begin) * 0.02:.2f}|>"

@@ -25,7 +25,10 @@ pageable memory, waits for the stream), and tick k's copy to the host with
 tick k+1's queued work.  ``warmup`` captures each bucket's greedy loop
 before serving; a key first met while serving is captured under its loop's
 lock, on a stream of its own (``runtime.generate``), while the other lane
-launches.  A speculative tick still returns after its loop.  Both lanes
+launches.  A speculative tick's rounds replay from CUDA graphs too (its
+keys captured by ``warmup`` as well), but its dispatch returns after its
+loop, which reads whether every row is done once a block of rounds: the
+number of rounds depends on the draft.  Both lanes
 hold the interpreter lock while they issue work, so a long request slows
 the short lane's host side.
 
