@@ -192,7 +192,25 @@ What it does, in order (any failure raises and exits non-zero):
    a random whisper-tiny draft and with the model's own int8 weights as
    draft, graphed and eager alternated: tokens bitwise, rounds and
    launches equal, rounds counted and run, e2e; at x5 ms a round; each
-   new key's capture seconds and kept state.
+   new key's capture seconds and kept state.  The eager loops of (b), (e)
+   and (f) read ``done`` every step (round), where the graphed ones stop.
+8c. ``[exit]`` (``check_exit``): every graphed greedy step, beam step and
+   speculative round runs under a CUDA-graph conditional node on "some row
+   undone" (``runtime.generate._if_node``), so the card stops where
+   ``lax.while_loop`` stops.  An end-of-text id that the 301.574 s file's
+   chunks emit at steps of their own within 12, a bucket of 16 of those
+   chunks and one of 1; against the eager loop reading ``done`` every
+   step: (a) greedy, synchronous and ``_async``, tokens, sum_lp and n_tok
+   bitwise, steps run the ``while_loop``'s trip count; (b) beams K = 4
+   (only those chunks' first ids kept, so every beam ends); (c)
+   speculative with a random whisper-tiny draft and with the model's own
+   int8 weights; launches equal throughout; device ms of each decode
+   beside the same call with no row ending, and the host ms until each
+   ``_async`` form (``transcribe_short_speculative_async`` too) returns
+   beside the card's span of its work; with the tiny draft the
+   speculative dispatch must return within half its span (the own-weights
+   draft's round graphs fill the driver's launch queue, so its dispatch
+   waits in its last launches: printed, not required).
 9. Drives the benchmark CLI (``whisper_tpu_torch.bench.cli.main``, in
    process) over four synthetic WAV files (4 s; 29.5 s at 44.1 kHz stereo;
    76 s, just under the one-shot limit; 150 s, streamed) at whisper-base
@@ -1398,10 +1416,21 @@ MAIN_PATH_KERNELS = ("fused_attention", "fused_encoder_mlp",
 
 
 def _counts(results) -> dict:
+    """Every kernel's count, once the launches of the graphs' bodies that
+    ran are added (``ops.common.settle_launches``: a graphed decode loop's
+    replays count where the results reach the host)."""
+    from whisper_tpu_torch.ops.common import settle_launches
+
+    settle_launches(wait=True)
     return {r["name"]: getattr(*r["counter"]) for r in results}
 
 
 def _zero_counts(results) -> None:
+    """Set every kernel's count to 0, earlier runs' graph bodies added
+    first (so none of them lands in the next count)."""
+    from whisper_tpu_torch.ops.common import settle_launches
+
+    settle_launches(wait=True)
     for r in results:
         setattr(*r["counter"], 0)
 
@@ -1616,7 +1645,6 @@ def check_speculative(card: str, results, params, dims, audio, x5) -> dict:
     from whisper_tpu_torch.headline import make_session
     from whisper_tpu_torch.models.convert import init_params
     from whisper_tpu_torch.models.registry import get_dims
-    from whisper_tpu_torch.runtime import speculative
     from whisper_tpu_torch.variants.quant import quantize_params
 
     n_l, k = dims.decoder_layers, 4
@@ -1630,19 +1658,18 @@ def check_speculative(card: str, results, params, dims, audio, x5) -> dict:
         session.set_draft_model(draft, draft_dims, share_encoder=share)
         e2e, timing, toks, c = _timed_run(session, audio, results,
                                           speculative=True, draft_k=k)
-        rounds = sum(r for r, _ in session.speculative_stats)
+        rounds = int(sum(r for r, _ in session.speculative_stats))
         committed = np.concatenate(
             [n.cpu().numpy() for _, n in session.speculative_stats])
         if toks.shape != greedy[2].shape or not (
                 (toks >= 0) & (toks < dims.vocab_size)).all():
             raise AssertionError(f"{label}: tokens {toks.shape}")
-        # B7 once a layer and round run; the rounds replay from a graph and
-        # each bucket's last block may run past all-done (counted by no
-        # round), at most two blocks of rounds less one
+        # B7 once a layer and round run; the rounds replay from a graph,
+        # each under a conditional node that stops them on the card where
+        # the last row ends, so every round run is counted
         b7 = c["cross_attend_multi"]           # either B7 kernel
         ran = b7 // n_l
-        over = 2 * speculative.EXIT_BLOCK * len(session.speculative_stats)
-        if b7 != ran * n_l or not 1 <= rounds <= ran < rounds + over:
+        if b7 != ran * n_l or not 1 <= rounds == ran:
             raise AssertionError(f"{label}: B7 launched {b7} times for "
                                  f"{rounds} rounds of {n_l} layers")
         if c["self_attend_step"] or c["self_attend_step_int8"]:
@@ -1855,7 +1882,9 @@ def check_fused_step(card: str, results, params, dims, audio) -> dict:
 def _eager_loop(session):
     """Within the block ``session``'s decode loops (greedy, beams,
     speculative rounds) run their in-place step eagerly on the card
-    (``eager=True``), not from their CUDA graphs."""
+    (``eager=True``), not from their CUDA graphs, reading ``done`` once a
+    step (round): where the JAX ``while_loop`` and the graphed loops
+    stop."""
     session.eager_decode = True
     try:
         yield
@@ -2227,9 +2256,11 @@ def _kept_line(session, kind: str) -> str:
 def check_graph_beam_spec(card: str, results, params, dims, audio) -> None:
     """Beam search and speculative rounds replayed from CUDA graphs against
     the same loops run eagerly (``[graph]`` (e), (f) lines), whisper-base,
-    the 301.574 s file, 128 tokens.  (e) beams K = 4 (64 beam rows) at x5
-    and x4 through the long-form path, graphed and eager alternated, three
-    runs each after a warm-up of each: tokens bitwise and launches equal,
+    the 301.574 s file, 128 tokens, the eager loops reading ``done`` every
+    step (round), where the graphed ones stop.  (e) beams K = 4 (64 beam
+    rows) at x5 and x4 through the long-form path, graphed and eager
+    alternated, three runs each after a warm-up of each: tokens bitwise
+    and launches equal,
     e2e and model_s (median); at x5 the bucket's beam decode (no read, 127
     steps) graphed and eager, ms a step with the prefill taken out, and the
     grammar and left-padded prompts graphed against eager (tokens, scores
@@ -2246,7 +2277,6 @@ def check_graph_beam_spec(card: str, results, params, dims, audio) -> None:
     from whisper_tpu_torch.models.convert import init_params
     from whisper_tpu_torch.models.registry import get_dims
     from whisper_tpu_torch.pipeline.longform import transcribe_longform
-    from whisper_tpu_torch.runtime import speculative
     from whisper_tpu_torch.runtime.beam import beam_generate
     from whisper_tpu_torch.runtime.genconfig import GenerationCfg
     from whisper_tpu_torch.runtime.timestamps import TimestampCfg
@@ -2262,9 +2292,11 @@ def check_graph_beam_spec(card: str, results, params, dims, audio) -> None:
     gen_cfg = GenerationCfg()
 
     def run(session, eager, **kw):
-        """The long-form path over the file: (tokens, Timing)."""
+        """The long-form path over the file: (tokens, Timing); eagerly,
+        ``done`` read every step (round), where the graphed loops stop."""
         collector = []
-        with _eager_loop(session) if eager else contextlib.nullcontext():
+        with (_eager_loop(session) if eager
+              else contextlib.nullcontext()):
             _, timing = transcribe_longform(
                 session, audio, "en", "transcribe", 128,
                 token_collector=collector, **kw)
@@ -2308,19 +2340,19 @@ def check_graph_beam_spec(card: str, results, params, dims, audio) -> None:
                 f"(model {med['graphed'][1]:.4f}), eager "
                 f"{med['eager'][0]:.4f} s (model {med['eager'][1]:.4f}), "
                 f"alternated, median of 3; tokens bitwise, launches equal, "
-                f"{steps} steps run (a block's overrun included)")
+                f"{steps} steps run")
         if variant == "x5":
             enc = session.encoder(_bucket_chunks(session, audio))
             masks = session._get_masks(gen_cfg.suppress_tokens,
                                        gen_cfg.begin_suppress_tokens)
 
-            def beams(n_new, eager, **kw):
+            def beams(n_new, eager, early_exit=False, **kw):
                 return beam_generate(
                     session._decoder_params, dims, enc, kw.pop(
                         "prompt", prompt_t), *masks, n_new, eot, 4,
                     int8_cross_kv=True, packed_cross=True, int8_mxu=True,
-                    early_exit=False, eager=eager, graphs=session.graphs,
-                    **kw)
+                    early_exit=early_exit, eager=eager,
+                    graphs=session.graphs, **kw)
 
             def decode_s(n_new, eager):
                 torch.cuda.synchronize()
@@ -2357,7 +2389,7 @@ def check_graph_beam_spec(card: str, results, params, dims, audio) -> None:
                 for mode, eager in (("eager", True), ("graphed", False),
                                     ("replayed", False)):
                     (toks, sc), _, c_ = _decode_run(
-                        results, lambda: beams(128, eager, **dict(kw)))
+                        results, lambda: beams(128, eager, True, **dict(kw)))
                     got[mode] = (toks.cpu(), sc.cpu(), c_)
                 if any(not (torch.equal(g[0], got["eager"][0])
                             and torch.equal(g[1], got["eager"][1])
@@ -2383,7 +2415,7 @@ def check_graph_beam_spec(card: str, results, params, dims, audio) -> None:
 
             def spec(eager, s=session):
                 out = run(s, eager, speculative=True, draft_k=4)
-                return out + (sum(r for r, _ in s.speculative_stats),)
+                return out + (int(sum(r for r, _ in s.speculative_stats)),)
 
             runs = _alternated(results, {"graphed": lambda: spec(False),
                                          "eager": lambda: spec(True)}, 2)
@@ -2391,7 +2423,7 @@ def check_graph_beam_spec(card: str, results, params, dims, audio) -> None:
                      extra=lambda out: out[2])
             rounds = runs["eager"][0][0][2]
             run_rounds = c["cross_attend_multi"] // n_l   # either B7
-            if not rounds <= run_rounds < rounds + 2 * speculative.EXIT_BLOCK:
+            if run_rounds != rounds:
                 raise AssertionError(f"(f) {variant}, {label}: {rounds} "
                                      f"rounds, {run_rounds} run")
             med = medians(runs)
@@ -2409,16 +2441,14 @@ def check_graph_beam_spec(card: str, results, params, dims, audio) -> None:
                                            gen_cfg.begin_suppress_tokens)
 
                 def decode(n_new, eager):
-                    session.eager_decode = eager
-                    try:
+                    with (_eager_loop(session) if eager
+                          else contextlib.nullcontext()):
                         torch.cuda.synchronize()
                         t0 = time.perf_counter()
                         _, (r, _) = session._speculative_tokens(
                             chunks, enc, prompt_t, *masks, n_new, eot, 4)
                         torch.cuda.synchronize()
-                    finally:
-                        session.eager_decode = False
-                    return time.perf_counter() - t0, r
+                    return time.perf_counter() - t0, int(r)
 
                 round_ms = {}
                 for mode, eager in (("graphed", False), ("eager", True)):
@@ -2438,6 +2468,306 @@ def check_graph_beam_spec(card: str, results, params, dims, audio) -> None:
                   flush=True)
         del session
     print(f"[graph] (e), (f) phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def _ending_id(toks, steps: int = 12):
+    """(id, rows, ends): the id that, declared end-of-text, ends the most
+    rows of ``toks`` (a decode with an end-of-text id no row emits) at a
+    step in 1 .. ``steps``, at two steps or more (a row that holds it in
+    column 0 would end at once: not counted); ties to more distinct
+    steps.  Random weights decode a row into runs of a few ids, so such an
+    id ends the rows that share it, each at its own step."""
+    best = None
+    for c in {int(t) for t in toks[:, 1:steps + 1].flatten()}:
+        rows, ends = [], []
+        for r, row in enumerate(toks):
+            hit = [i for i in range(1, steps + 1) if row[i] == c]
+            if hit and row[0] != c:
+                rows.append(r)
+                ends.append(hit[0])
+        score = (len(rows), len(set(ends)))
+        if len(set(ends)) > 1 and (best is None or score > best[0]):
+            best = (score, c, rows, ends)
+    if best is None:
+        raise AssertionError("[exit]: no id ends two rows at two steps "
+                             f"within {steps}")
+    return best[1:]
+
+
+def check_exit(card: str, results, params, dims, audio) -> None:
+    """The decode loops' exit on the card (``[exit]`` lines): each graphed
+    greedy step, beam step and speculative round runs under a conditional
+    node on "some row undone", so the card stops where ``lax.while_loop``
+    stops.  whisper-base x5, the 301.574 s file's chunks, 128 tokens; an
+    end-of-text id that the file's chunks emit at steps of their own within
+    12 (``_ending_id``, from the eager decode with the real end-of-text,
+    which random weights never emit), and a bucket of 16 made of the
+    chunks that hold it (in turn) and a bucket of 1.  Against the eager
+    loop reading ``done`` every step (round), which stops where the JAX
+    loop does: (a) greedy at bucket 16 and 1, synchronous and ``_async``:
+    tokens, sum_lp and n_tok bitwise, launches equal, steps run (B3
+    launches / layers) the last row's end; (b) beams K = 4 at bucket 16,
+    the session's forms and ``beam_generate`` (tokens and scores); (c)
+    speculative with a random whisper-tiny draft and with the model's own
+    int8 weights: tokens and rounds bitwise, launches equal, rounds run
+    (B7 launches / layers) the rounds counted.  Beside each, device ms of
+    the decode (CUDA events) against the same call whose rows never end,
+    and the host ms until each ``_async`` form returns against the card's
+    span of the work it queued (``transcribe_short_speculative_async``:
+    the serving tick's leg, 16 windows of 30 s; with the tiny draft within
+    half the span).  Any mismatch raises."""
+    import numpy as np
+    import torch
+
+    from whisper_tpu_torch.frontend import golden
+    from whisper_tpu_torch.headline import make_session
+    from whisper_tpu_torch.models.convert import init_params
+    from whisper_tpu_torch.models.registry import get_dims
+    from whisper_tpu_torch.pipeline.chunk import chunk_starts, mel_frame_bucket
+    from whisper_tpu_torch.runtime.beam import beam_generate
+    from whisper_tpu_torch.runtime.genconfig import GenerationCfg
+    from whisper_tpu_torch.tokenizer.specials import special_tokens
+    from whisper_tpu_torch.variants.quant import quantize_params
+
+    t_phase = time.perf_counter()
+    n_l = dims.decoder_layers
+    special = special_tokens("en", "transcribe", None)
+    never = special.eot                 # random weights never emit it
+    prompt = [special.sot, special.lang, special.task, special.no_timestamps]
+    prompt_t = torch.tensor(prompt, device="cuda")
+    gen_cfg = GenerationCfg()
+    sup = (gen_cfg.suppress_tokens, gen_cfg.begin_suppress_tokens)
+    session = make_session("cuda", params, "x5")
+    masks = session._get_masks(*sup)
+    nv = golden.num_frames(len(audio))
+    mel = session.compute_mel(golden.reflect_pad(audio), nv,
+                              mel_frame_bucket(nv))
+    starts = [p_ // golden.HOP for p_ in chunk_starts(len(audio), 480_000,
+                                                      400_000)]
+    with _eager_loop(session):
+        base = session.transcribe_from_mel(mel, starts, prompt, 128, never,
+                                           *sup)
+    eot, rows, ends = _ending_id(base)
+    buckets = {16: [starts[rows[i % len(rows)]] for i in range(16)],
+               1: [starts[rows[0]]]}
+    print(f"[exit] whisper-base x5, on {card}: end-of-text {eot} ends "
+          f"chunks {rows} of {len(starts)} at steps {ends}; bucket 16 of "
+          "them in turn, bucket 1 the first", flush=True)
+
+    def chunks_of(b_starts):
+        mel_pad = torch.nn.functional.pad(mel, (0, 3000))
+        return torch.stack([mel_pad[:, s_:s_ + 3000] for s_ in b_starts])
+
+    def device_ms(fn, calls: int = 3):
+        """Median device ms of ``fn()`` (CUDA events around it), warmed."""
+        fn()
+        out = []
+        for _ in range(calls):
+            torch.cuda.synchronize()
+            ev0, ev1 = torch.cuda.Event(True), torch.cuda.Event(True)
+            ev0.record()
+            fn()
+            ev1.record()
+            ev1.synchronize()
+            out.append(ev0.elapsed_time(ev1))
+        return statistics.median(out)
+
+    def async_ms(fn, calls: int = 3):
+        """Median (host ms until ``fn()`` returns, device ms of the span
+        of the work it queued), warmed."""
+        fn()
+        out = []
+        for _ in range(calls):
+            torch.cuda.synchronize()
+            ev0, ev1 = torch.cuda.Event(True), torch.cuda.Event(True)
+            ev0.record()
+            t0 = time.perf_counter()
+            res = fn()
+            host = (time.perf_counter() - t0) * 1e3
+            ev1.record()
+            ev1.synchronize()
+            out.append((host, ev0.elapsed_time(ev1)))
+            del res
+        return tuple(statistics.median(o[i] for o in out) for i in (0, 1))
+
+    def same(label, runs):
+        """Every run's result and counts those of the first (the eager
+        per-step loop's)."""
+        (want, _, want_c) = runs[0][1]
+        for mode, (out, _, c) in runs[1:]:
+            if not all(np.array_equal(np.asarray(a), np.asarray(b))
+                       for a, b in zip(out, want)):
+                raise AssertionError(f"[exit] {label}: {mode} results differ "
+                                     "from the eager per-step loop's")
+            if c != want_c:
+                raise AssertionError(f"[exit] {label}: {mode} launches {c}, "
+                                     f"eager {want_c}")
+        return want, want_c
+
+    # (a) greedy, bucket 16 and 1
+    for b, b_starts in buckets.items():
+        def sync(e=eot, st=b_starts):
+            return session.transcribe_from_mel(mel, st, prompt, 128, e, *sup,
+                                               with_scores=True)
+
+        def asynced(st=b_starts):
+            pieces = session.transcribe_from_mel_async(
+                mel, st, prompt, 128, eot, *sup, with_scores=True)
+            return session.gather_tokens(pieces, len(st), 128, True)
+
+        with _eager_loop(session):
+            eager = _decode_run(results, sync)
+        runs = [("eager", eager)] + [
+            (mode, _decode_run(results, fn)) for mode, fn in (
+                ("synchronous", sync), ("synchronous", sync),
+                ("_async", asynced))]
+        (toks, _, n_tok), c = same(f"(a) greedy, bucket {b}", runs)
+        steps = c["self_attend_step"] // n_l
+        trip = int(n_tok.max()) - 1          # the JAX loop's trip count
+        row_ends = sorted({int(n) - 1 for n in n_tok})
+        if not (steps == trip < 127 and c["cross_attend_step"] == steps
+                * n_l):
+            raise AssertionError(f"[exit] (a) bucket {b}: {steps} steps run, "
+                                 f"the while loop's {trip}; launches {c}")
+        enc = session.encoder(chunks_of(b_starts))
+        ms = {name: device_ms(lambda e=e: session._greedy(
+            enc, prompt_t, *masks, 128, e, early_exit=False))
+            for name, e in (("ending", eot), ("never ending", never))}
+        host, span = async_ms(lambda st=b_starts: session.transcribe_from_mel_async(
+            mel, st, prompt, 128, eot, *sup))
+        print(f"[exit] (a) greedy x5, bucket {b}, on {card}: tokens, sum_lp "
+              f"and n_tok bitwise the eager per-step loop's (synchronous, "
+              f"twice, and _async); rows end at steps {row_ends}; {steps} "
+              f"steps run = the while loop's trip count {trip}; launches "
+              f"equal {c['self_attend_step']} B3, {c['cross_attend_step']} "
+              f"B4; the decode's device ms {ms['ending']:.4f}, "
+              f"{ms['never ending']:.4f} with no row ending (median of 3); "
+              f"transcribe_from_mel_async returns after {host:.3f} ms of "
+              f"host time, the card's span of its work {span:.3f} ms",
+              flush=True)
+
+    # (b) beams K = 4, bucket 16, the ids of those rows' first steps kept
+    # (every other id suppressed), so that every beam ends
+    b_starts = buckets[16]
+    enc = session.encoder(chunks_of(b_starts))
+    keep = {int(t) for t in base[rows, :13].flatten()} | {eot}
+    b_sup = ([i for i in range(dims.vocab_size) if i not in keep], sup[1])
+    b_masks = session._get_masks(*b_sup)
+
+    def beams(e=eot, eager=False):
+        return beam_generate(session._decoder_params, dims, enc, prompt_t,
+                             *b_masks, 128, e, 4, int8_cross_kv=True,
+                             packed_cross=True, int8_mxu=True, eager=eager,
+                             graphs=session.graphs)
+
+    def beam_sync():
+        return (session.transcribe_from_mel(mel, b_starts, prompt, 128, eot,
+                                            *b_sup, num_beams=4),)
+
+    def beam_async():
+        return (session.gather_tokens(session.transcribe_from_mel_async(
+            mel, b_starts, prompt, 128, eot, *b_sup, num_beams=4),
+            len(b_starts), 128),)
+
+    with _eager_loop(session):
+        eager = _decode_run(results, beam_sync)
+    runs = [("eager", eager), ("synchronous", _decode_run(results, beam_sync)),
+            ("synchronous", _decode_run(results, beam_sync)),
+            ("_async", _decode_run(results, beam_async))]
+    _, c = same("(b) beams, the session's forms", runs)
+    steps = c["cross_attend_step"] // n_l
+    runs = [("eager", _decode_run(results, lambda: tuple(
+        t.cpu() for t in beams(eager=True))))] + [
+        ("beam_generate", _decode_run(results, lambda: tuple(
+            t.cpu() for t in beams()))) for _ in range(2)]
+    _, c2 = same("(b) beam_generate", runs)
+    if not (0 < steps and 0 < c2["cross_attend_step"]
+            and c["self_attend_step"] == 0):
+        raise AssertionError(f"[exit] (b) beams: {steps} steps run; launches "
+                             f"{c}, {c2}")
+    ms = {name: device_ms(lambda e=e: beams(e)) for name, e in (
+        ("ending", eot), ("never ending", never))}
+    host, span = async_ms(lambda: session.transcribe_from_mel_async(
+        mel, b_starts, prompt, 128, eot, *b_sup, num_beams=4))
+    print(f"[exit] (b) beams K = 4 x5, bucket 16 (64 beam rows), ids kept "
+          f"{sorted(keep)}, on {card}: "
+          f"tokens (and beam_generate's scores) bitwise the eager per-step "
+          f"loop's (synchronous, twice, and _async); {steps} steps run "
+          f"({c2['cross_attend_step'] // n_l} by beam_generate) "
+          f"{'(every beam ended)' if steps < 127 else '(a beam ran to the bound)'}"
+          f", launches equal {c['cross_attend_step']} B4; the decode's "
+          f"device ms {ms['ending']:.4f}, {ms['never ending']:.4f} with no "
+          f"beam ending; the _async form returns after {host:.3f} ms of host "
+          f"time, the card's span {span:.3f} ms", flush=True)
+
+    # (c) speculative
+    tiny = get_dims("openai/whisper-tiny")
+    hop = (len(audio) - 480_000) // 15
+    padded = np.stack([golden.reflect_pad(audio[i * hop:i * hop + 480_000])
+                       for i in range(16)])
+    n_valid = np.full(16, 3000, np.int32)
+    chunks = chunks_of(b_starts)
+    for label, draft, d_dims, share, ahead in (
+            ("a random whisper-tiny draft", init_params(tiny, seed=1), tiny,
+             False, True),
+            ("its own int8 weights as draft", quantize_params(params), dims,
+             True, False)):
+        session.set_draft_model(draft, d_dims, share_encoder=share)
+
+        def spec(e=eot):
+            toks = session.transcribe_from_mel(mel, b_starts, prompt, 128, e,
+                                               *sup, speculative=True)
+            return toks, int(sum(r for r, _ in session.speculative_stats))
+
+        def spec_async():
+            pieces = session.transcribe_from_mel_async(
+                mel, b_starts, prompt, 128, eot, *sup, speculative=True)
+            toks = session.gather_tokens(pieces, len(b_starts), 128)
+            return toks, int(sum(r for r, _ in session.speculative_stats))
+
+        with _eager_loop(session):
+            eager = _decode_run(results, spec)
+        runs = [("eager", eager), ("synchronous", _decode_run(results, spec)),
+                ("synchronous", _decode_run(results, spec)),
+                ("_async", _decode_run(results, spec_async))]
+        (_, rounds), c = same(f"(c) speculative, {label}", runs)
+        ran = c["cross_attend_multi"] // n_l
+        if not 0 < ran == rounds < 128:
+            raise AssertionError(f"[exit] (c) {label}: {rounds} rounds, "
+                                 f"{ran} run")
+        never_rounds = spec(never)[1]
+        ms = {name: device_ms(lambda e=e: session._speculative_tokens(
+            chunks, enc, prompt_t, *masks, 128, e, 4))
+            for name, e in (("ending", eot), ("never ending", never))}
+        loop_host, loop_span = async_ms(lambda: session._speculative_tokens(
+            chunks, enc, prompt_t, *masks, 128, never, 4))
+        host, span = async_ms(lambda: session.transcribe_short_speculative_async(
+            padded, n_valid, prompt, 128, never, *sup))
+        # The driver queues only so many launches of a graph this size
+        # ahead of the card (about 100 of an own-weights round: four
+        # whisper-base draft steps and a verify pass, under the node or
+        # captured flat alike, profile_ladder --conditional): that draft's
+        # dispatch waits in its last launches.
+        if ahead and not (loop_host < 0.5 * loop_span
+                          and host < 0.5 * span):
+            raise AssertionError(
+                f"[exit] (c) {label}: the _async dispatch returned after "
+                f"{host:.3f} ms of a {span:.3f} ms span (the rounds alone "
+                f"{loop_host:.3f} of {loop_span:.3f})")
+        print(f"[exit] (c) speculative x5, {label}, draft_k 4, bucket 16, on "
+              f"{card}: tokens and rounds bitwise the eager per-round loop's "
+              f"(synchronous, twice, and _async); {rounds} rounds counted = "
+              f"{ran} run, launches equal {c['cross_attend_multi']} B7 "
+              f"({never_rounds} rounds with no row ending); the decode's "
+              f"device ms {ms['ending']:.4f}, {ms['never ending']:.4f} with "
+              f"no row ending; transcribe_short_speculative_async (16 x 30 "
+              f"s, no row ending) returns after {host:.3f} ms of host time, "
+              f"the card's span of its work {span:.3f} ms (the prefills and "
+              f"rounds alone: {loop_host:.3f} ms host, {loop_span:.3f} ms "
+              f"span)", flush=True)
+    del session
+    print(f"[exit] phase {time.perf_counter() - t_phase:.1f} s, on {card}",
           flush=True)
 
 
@@ -4121,14 +4451,16 @@ EOT = 50257
 
 def _module_counts() -> dict:
     """The launch counts of the main path's kernels (and B8) in this
-    process."""
+    process, the graphs' bodies that ran added."""
     from whisper_tpu_torch.ops import (
         attention,
         cross_attention,
         encoder_mlp,
         self_attention,
     )
+    from whisper_tpu_torch.ops.common import settle_launches
 
+    settle_launches(wait=True)
     return {"fused_attention": attention.launches,
             "fused_encoder_mlp": encoder_mlp.launches,
             "self_attend_step": self_attention.launches,
@@ -4143,7 +4475,9 @@ def _zero_module_counts() -> None:
         encoder_mlp,
         self_attention,
     )
+    from whisper_tpu_torch.ops.common import settle_launches
 
+    settle_launches(wait=True)
     attention.launches = encoder_mlp.launches = 0
     self_attention.launches = self_attention.int8_launches = 0
     cross_attention.launches = 0
@@ -4414,6 +4748,7 @@ def main() -> None:
                                             audio)
     check_graph(card, results, params, dims, audio, x5_run, fused_ms)
     check_graph_beam_spec(card, results, params, dims, audio)
+    check_exit(card, results, params, dims, audio)
     medium = check_medium_fused_block(card, results)
     cli = check_cli(card, results)
     check_audio(card, results)

@@ -26,7 +26,7 @@ from whisper_tpu_torch.frontend.mel import normalize
 from whisper_tpu_torch.ops import attention, cross_attention, encoder_mlp
 from whisper_tpu_torch.ops import decoder_kernels, encoder_block
 from whisper_tpu_torch.ops import log_mel, self_attention
-from whisper_tpu_torch.ops.common import disable_tf32
+from whisper_tpu_torch.ops.common import disable_tf32, settle_launches
 
 pytestmark = pytest.mark.cuda
 
@@ -77,6 +77,26 @@ def _device_ops(call, calls=3, traces=3):
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 ops[e.key] = max(ops.get(e.key, 0), e.count)
     return ops
+
+
+def _device_events(call, traces=3) -> int:
+    """The device operations (kernels, copies, fills) one call of ``call``
+    puts on the card, by torch.profiler: the largest total over ``traces``
+    traces, whatever they are named."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    totals = []
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        totals.append(sum(
+            e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA))
+    return max(totals)
 
 
 @pytest.mark.parametrize("bh", [(2, 3), (16, 8)])
@@ -880,7 +900,6 @@ def test_speculative_tokens_do_not_depend_on_the_draft(gen):
     as draft commit the same tokens, and the second needs fewer rounds."""
     from whisper_tpu_torch.models import convert
     from whisper_tpu_torch.models.registry import WhisperDims
-    from whisper_tpu_torch.runtime import speculative
     from whisper_tpu_torch.runtime.session import RuntimeCfg, WhisperSession
     from whisper_tpu_torch.variants.ladder import apply_variant
 
@@ -898,12 +917,12 @@ def test_speculative_tokens_do_not_depend_on_the_draft(gen):
         sess.set_draft_model(draft, dims)
         before = cross_attention.multi_launches
         toks = sess.transcribe_from_mel(*args, speculative=True, draft_k=3)
-        rounds = sum(r for r, _ in sess.speculative_stats)
-        # B7 once a layer and round run: a round past all-done (the rest of
-        # a block, graphed or eager) counts no round
+        rounds = int(sum(r for r, _ in sess.speculative_stats))
+        # B7 once a layer and round run: the graphed rounds stop on the
+        # card where the last row ends, so every round run is counted
         run = (cross_attention.multi_launches - before) / 2
         assert run == int(run), run
-        assert rounds <= run < rounds + 2 * speculative.EXIT_BLOCK, run
+        assert run == rounds, (run, rounds)
         runs.append((toks, rounds))
     assert (runs[0][0] == runs[1][0]).all()
     assert runs[1][1] <= runs[0][1]
@@ -1120,6 +1139,7 @@ def test_left_padded_prompt_through_b3_and_b8_gives_the_unpadded_tokens(
     self_attention.padded_launches = self_attention.int8_padded_launches = 0
     padded = decode([0, 1, 2], prompt,
                     torch.tensor(pads, dtype=torch.int32, device="cuda"))
+    settle_launches(wait=True)      # the graph's bodies that ran
     launched = (self_attention.int8_padded_launches if int8_self
                 else self_attention.padded_launches)
     assert launched > 0 and launched % dims.decoder_layers == 0
@@ -1491,6 +1511,7 @@ def _graph_inputs(gen, case):
 
 
 def _step_counts():
+    settle_launches(wait=True)      # the graphs' bodies that ran
     return (self_attention.launches, self_attention.int8_launches,
             self_attention.padded_launches,
             self_attention.int8_padded_launches, cross_attention.launches,
@@ -1499,11 +1520,18 @@ def _step_counts():
 
 @pytest.mark.parametrize("rung, case", GRAPH_CASES)
 def test_graphed_loop_is_bitwise_the_eager_loop(gen, rung, case):
-    """The same decode eagerly and replayed from a CUDA graph (captured at
-    the first call, replayed at the second): tokens (and scores) bitwise,
-    the launch counters equal, and each step kernel's launches under
-    torch.profiler equal (``_device_ops``: a replay's kernels are traced
-    one by one)."""
+    """The same decode eagerly (reading ``done`` every step) and replayed
+    from a CUDA graph (captured at the first call, replayed at the second):
+    tokens (and scores) bitwise, the launch counters equal (the graph's
+    settled); under torch.profiler each step kernel's eager launches are
+    its counter's (``_device_ops``), a replayed call evaluates the
+    conditional node once a replay, and a replay puts on the card what an
+    eager step does less one operation (``_device_events``): the step's
+    operations, and the node's kernel in place of the eager loop's read of
+    ``done`` (a reduction and a copy to the host).  The graphed trace is
+    held by its totals: torch.profiler misnames a conditional body's
+    kernels (B3 for B8 at x7; with the grammar or scores no B3 at all) and
+    shows the body's copies as kernels, so its names are not held."""
     from whisper_tpu_torch.runtime.generate import (
         DecodeGraphs,
         greedy_generate,
@@ -1513,8 +1541,9 @@ def test_graphed_loop_is_bitwise_the_eager_loop(gen, rung, case):
     graphs = DecodeGraphs(tree)
     kw.update(GRAPH_RUNGS[rung])
 
-    def run(eager):
-        return greedy_generate(tree, dims, enc, prompt, mask, mask, 24, 251,
+    def run(eager, n=24):
+        # the eager loop reads every step: it stops where the graph does
+        return greedy_generate(tree, dims, enc, prompt, mask, mask, n, 251,
                                eager=eager, graphs=graphs, **kw)
 
     counts = {}
@@ -1522,7 +1551,7 @@ def test_graphed_loop_is_bitwise_the_eager_loop(gen, rung, case):
     for eager in (True, False, False):
         before = _step_counts()
         outs.setdefault(eager, []).append(run(eager))
-        torch.cuda.synchronize()
+        settle_launches(wait=True)
         counts.setdefault(eager, []).append(
             tuple(a - b for a, b in zip(_step_counts(), before)))
     assert len(graphs.captures()) == 1
@@ -1534,18 +1563,29 @@ def test_graphed_loop_is_bitwise_the_eager_loop(gen, rung, case):
             assert torch.equal(got, want)
     assert counts[False] == [counts[True][0]] * 2, counts
     ops = {e: _device_ops(lambda e=e: run(e), calls=1) for e in (True, False)}
-    for name in STEP_KERNELS:
-        n = [sum(c for k, c in ops[e].items() if name + "(" in k
-                 or k.endswith(name) or f"{name}<" in k)
-             for e in (True, False)]
-        assert n[0] == n[1], (name, n, ops[False])
+
+    def traced(e, name):
+        return sum(c for k, c in ops[e].items() if name + "(" in k
+                   or k.endswith(name) or f"{name}<" in k)
+
+    for name, at in zip(STEP_KERNELS, (0, 1, 4, 5)):
+        assert traced(True, name) == counts[True][0][at], (name, ops[True])
+    assert traced(False, "set_condition_kernel") == 23, ops[False]
+    assert traced(True, "set_condition_kernel") == 0
+    toks = want[0] if kw.get("return_logprobs") else want
+    assert not (toks == 251).any()      # no row ends: 23 steps each
+    # 24 tokens against 12: twelve steps (replays) more, what a call does
+    # outside its loop the same
+    more = {e: _device_events(lambda e=e: run(e))
+            - _device_events(lambda e=e: run(e, 12)) for e in (True, False)}
+    assert more[False] == more[True] - 12, more
 
 
 def test_graphed_sampling_repeats_per_seed(gen):
     """T = 1 through the x5 step: a graph registered with its own generator,
     set per call to the caller's seed: one seed twice equal, another seed
     different, no suppressed id drawn; printed whether the graphed draws
-    are the eager loop's."""
+    are those of the eager loop that reads every step."""
     from whisper_tpu_torch.runtime.generate import (
         DecodeGraphs,
         build_suppress_mask,
@@ -1604,9 +1644,13 @@ def test_every_temperature_shares_one_graph(gen):
 
 def test_decode_graphs_keep_their_state_within_the_budget(gen, monkeypatch):
     """Six prompt lengths (six keys) through a DecodeGraphs whose budget
-    holds two keys' state: two loops stay, and memory_allocated() after
-    the runs, less before, is their counted state (within 1 MiB); once the
-    graphs go, it is back where it was."""
+    holds two keys' state: two loops stay, and the bytes the allocator
+    holds for live tensors after the runs, less before, are their counted
+    state (within 1 MiB); once the graphs go, they are back where they
+    were.  Read as requested bytes, not ``memory_allocated()``, which
+    counts whole blocks: the allocator does not split a cached block whose
+    rest is under 1 MiB, so each tensor may hold up to 1 MiB more than it
+    asked for."""
     from whisper_tpu_torch.runtime import generate
     from whisper_tpu_torch.runtime.generate import (
         DecodeGraphs,
@@ -1624,12 +1668,15 @@ def test_decode_graphs_keep_their_state_within_the_budget(gen, monkeypatch):
                         int8_cross_kv=True, kernel_step=True,
                         early_exit=False, graphs=graphs)
 
+    def held():
+        return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
     one = DecodeGraphs(tree)
     run(9, one)
     budget = int(2.5 * one.nbytes())
     del one
     torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
+    before = held()
     monkeypatch.setattr(generate, "_budget", lambda device: budget)
     graphs = DecodeGraphs(tree)
     for p in range(4, 10):
@@ -1639,11 +1686,11 @@ def test_decode_graphs_keep_their_state_within_the_budget(gen, monkeypatch):
     assert len(kept) == 2 and [k.prompt_len for k in kept] == [8, 9]
     counted = graphs.nbytes()
     assert counted <= budget
-    kept_mem = torch.cuda.memory_allocated() - before
+    kept_mem = held() - before
     del graphs
     torch.cuda.synchronize()
-    left = torch.cuda.memory_allocated() - before
-    print(f"state counted {counted} B; allocated after the runs {kept_mem} "
+    left = held() - before
+    print(f"state counted {counted} B; held after the runs {kept_mem} "
           f"B, after the graphs went {left} B")
     assert abs(kept_mem - left - counted) <= 2**20 and left <= 2**20
 
@@ -1673,6 +1720,7 @@ def test_two_threads_capture_and_replay_at_once(gen):
 
     want = [run(e, DecodeGraphs(tree)) for e in encs]
     torch.cuda.synchronize()
+    settle_launches(wait=True)
     before = self_attention.launches
     errors, outs = [], [[], []]
     start = threading.Barrier(2)
@@ -1693,6 +1741,7 @@ def test_two_threads_capture_and_replay_at_once(gen):
         t.join(timeout=300)
         assert not t.is_alive(), "a lane hung"
     torch.cuda.synchronize()
+    settle_launches(wait=True)
     assert not errors, errors
     for i in (0, 1):
         assert len(outs[i]) == 9
@@ -1745,6 +1794,7 @@ BEAM_RUNGS = {"x4": False, "x5": True}      # int8_mxu: B6 or B4
 
 
 def _cross_counts():
+    settle_launches(wait=True)      # the graphs' bodies that ran
     return (cross_attention.launches, cross_attention.dequant_launches,
             cross_attention.multi_launches, self_attention.launches,
             self_attention.int8_launches)
@@ -1753,9 +1803,10 @@ def _cross_counts():
 @pytest.mark.parametrize("rung", list(BEAM_RUNGS))
 @pytest.mark.parametrize("case", ["", "grammar", "pads"])
 def test_graphed_beam_loop_is_bitwise_the_eager_loop(gen, rung, case):
-    """K = 4 at 16 beam rows: the eager loop, then the capture's call and
-    a replay: tokens and scores bitwise, the launch counters equal, one
-    key captured, and B4 (x5) or B6 (x4) launched, never B3."""
+    """K = 4 at 16 beam rows: the eager loop (reading ``done`` every
+    step), then the capture's call and a replay: tokens and scores
+    bitwise, the launch counters equal, one key captured, and B4 (x5) or
+    B6 (x4) launched, never B3."""
     from whisper_tpu_torch.runtime.beam import beam_generate
     from whisper_tpu_torch.runtime.generate import DecodeGraphs
 
@@ -1769,7 +1820,7 @@ def test_graphed_beam_loop_is_bitwise_the_eager_loop(gen, rung, case):
             ts_cfg=kw.get("ts_cfg"), pad_count=kw.get("pad_count"),
             int8_cross_kv=True, packed_cross=True, int8_mxu=BEAM_RUNGS[rung],
             eager=eager, graphs=graphs)
-        torch.cuda.synchronize()
+        settle_launches(wait=True)
         return out, tuple(a - b for a, b in zip(_cross_counts(), before))
 
     (want, want_s), want_c = run(True)
@@ -1801,11 +1852,11 @@ def _spec_inputs(gen, draft_seed):
 @pytest.mark.parametrize("draft", ["random", "own int8 weights"])
 def test_graphed_speculative_loop_is_bitwise_the_eager_loop(gen, rung,
                                                             draft):
-    """draft_k 3, 40 tokens: the eager rounds, then the capture's call and
-    a replay: tokens, rounds and committed counts bitwise, the launch
-    counters equal; B7 launched once a layer and round run, the rounds
-    run within two blocks of the rounds counted; the tokens those of the
-    other draft too."""
+    """draft_k 3, 40 tokens: the eager rounds (reading ``done`` every
+    round), then the capture's call and a replay: tokens, rounds and
+    committed counts bitwise, the launch counters equal; B7 launched once
+    a layer and round run, the rounds run the rounds counted; the tokens
+    those of the other draft too."""
     from whisper_tpu_torch.runtime import speculative
     from whisper_tpu_torch.runtime.generate import DecodeGraphs
 
@@ -1819,19 +1870,19 @@ def test_graphed_speculative_loop_is_bitwise_the_eager_loop(gen, rung,
             tree, dims, d, dims, enc, enc, prompt, zero, zero, 40, 251, 3,
             int8_cross_kv=True, packed_draft=True, packed_main=True,
             int8_mxu=BEAM_RUNGS[rung], eager=eager, graphs=g)
-        torch.cuda.synchronize()
+        settle_launches(wait=True)
         return out, tuple(a - b for a, b in zip(_cross_counts(), before))
 
     (want, rounds, n), want_c = run(True)
     for _ in range(2):
         (got, got_r, got_n), got_c = run(False)
-        assert torch.equal(got, want) and got_r == rounds
+        assert torch.equal(got, want) and torch.equal(got_r, rounds)
         assert torch.equal(got_n, n)
         assert got_c == want_c, (got_c, want_c)
     assert len(graphs.captures()) == 1
     run_rounds = want_c[2] // dims.decoder_layers
     assert want_c[2] == run_rounds * dims.decoder_layers
-    assert rounds <= run_rounds < rounds + 2 * speculative.EXIT_BLOCK
+    assert run_rounds == int(rounds)
     assert want_c[3] == want_c[4] == 0           # no B3/B8
     other = _small_model(14)[1]
     (other_toks, _, _), _ = run(False, other, None)
@@ -1866,8 +1917,9 @@ def test_a_new_draft_recaptures_and_never_replays_the_old(gen):
     assert graphs.loop(tree, None, key, enc.device, False, new) \
         is not old_loop
     want = run(new, eager=True)
-    assert torch.equal(got[0], want[0]) and got[1] == want[1]
-    assert got[1] < run(old, eager=True)[1]    # its own weights: fewer rounds
+    assert torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
+    # its own weights: fewer rounds
+    assert int(got[1]) < int(run(old, eager=True)[1])
 
 
 @pytest.mark.parametrize("loop", ["beam", "speculative"])
@@ -1905,6 +1957,230 @@ def test_a_failed_beam_or_round_capture_raises(gen, monkeypatch, loop):
     with pytest.raises(RuntimeError):
         run()
     monkeypatch.setattr(mod, name, whole)
+    torch.cuda.synchronize()
+    got = run()
+    assert len(graphs.captures()) == 1
+    assert torch.equal(got, run(eager=True))
+
+
+# ---------------------------------------------------------------------------
+# The loops' exit on the card: each graphed greedy step, beam step and
+# speculative round under a conditional node (runtime.generate)
+# ---------------------------------------------------------------------------
+
+NEVER = 300          # suppressed by EXIT_MASK: a row with this EOT never ends
+EXIT_RUNGS = {"x4": False, "x5": True}      # int8_mxu
+
+
+def _exit_mask(keep=None):
+    from whisper_tpu_torch.runtime.generate import build_suppress_mask
+
+    ids = [8, NEVER] if keep is None else [i for i in range(320)
+                                           if i not in keep]
+    return torch.from_numpy(build_suppress_mask(320, ids)).cuda()
+
+
+def _chains(seed, spread):
+    """Encoder states [4, 1500, 128]: rows 0-2 one state, row 3 that state
+    plus ``spread`` x noise (random weights decode a row into runs of one
+    id, so two chains that share an id end at steps of their own)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    base = torch.randn(1500, 128, generator=g, device="cuda")
+    noise = torch.randn(1500, 128, generator=g, device="cuda")
+    return torch.stack([base] * 3 + [base + spread * noise]).to(BF)
+
+
+def _first_ends(toks, eot):
+    """Each row's first step >= 1 that holds ``eot``, or None."""
+    out = []
+    for row in toks.tolist():
+        hits = [i for i, t in enumerate(row) if i >= 1 and t == eot]
+        out.append(hits[0] if hits else None)
+    return out
+
+
+def _early(ends, limit):
+    return all(e is not None and e < limit for e in ends) and \
+        len(set(ends)) > 1
+
+
+def _ending_inputs(decode, limit):
+    """(encoder states, eot, each row's end): an id that, declared
+    end-of-text, ends every row of ``decode(enc, eot)`` (tokens) before
+    ``limit``, at two steps or more; searched over chains of encoder
+    states."""
+    for seed in range(16):
+        for spread in (1.0, 0.2):
+            enc = _chains(seed, spread)
+            toks = decode(enc, NEVER)
+            for eot in sorted(set(toks[:, 1:].flatten().tolist())):
+                if _early(_first_ends(toks, eot), limit):
+                    ends = _first_ends(decode(enc, eot), eot)
+                    if _early(ends, limit):
+                        return enc, eot, ends
+    pytest.fail("no id ends every row early")
+
+
+@pytest.mark.parametrize("rung", list(EXIT_RUNGS))
+@pytest.mark.parametrize("loop", ["greedy", "beam", "speculative"])
+def test_graphed_loops_stop_where_the_while_loop_stops(gen, loop, rung):
+    """Rows that end at steps of their own before max_new_tokens: the eager
+    loop that reads ``done`` every step (the ``while_loop``'s exit), then
+    the capture's call and a replay, bitwise (tokens, scores or counts,
+    rounds), with equal launch counts, so equal steps (rounds) run: the
+    last row's end for greedy, fewer than the bound for beams and rounds.
+    Beams keep only the ids the rows decode before they end, so that every
+    beam ends."""
+    from whisper_tpu_torch.models import convert
+    from whisper_tpu_torch.runtime import beam, speculative
+    from whisper_tpu_torch.runtime.generate import (
+        DecodeGraphs,
+        greedy_generate,
+    )
+    from whisper_tpu_torch.variants.quant import quantize_params
+
+    dims, tree = _small_model(5)
+    mxu = EXIT_RUNGS[rung]
+    prompt = torch.tensor([250, 252, 253, 254], device="cuda")
+    new = 24
+    kw = dict(int8_cross_kv=True)
+    mask = _exit_mask()
+
+    def greedy(enc, eot, **k):
+        return greedy_generate(tree, dims, enc, prompt, mask, mask, new, eot,
+                               kernel_step=True, int8_mxu=mxu,
+                               return_logprobs=True, **kw, **k)
+
+    enc, eot, ends = _ending_inputs(
+        lambda e, i: greedy(e, i, eager=True)[0], new - 4)
+    # the ids those rows decode first, every other suppressed: every beam
+    # then ends too
+    firsts = greedy(enc, NEVER, eager=True)[0][:, :max(ends) + 1]
+    keep = _exit_mask(set(firsts.flatten().tolist()) | {eot})
+    if loop == "greedy":
+        graphs = DecodeGraphs(tree)
+
+        def run(eager):
+            return greedy(enc, eot, eager=eager, graphs=graphs)
+    elif loop == "beam":
+        graphs = DecodeGraphs(tree)
+
+        def run(eager):
+            return beam.beam_generate(
+                tree, dims, enc, prompt, keep, keep, new, eot, 4,
+                packed_cross=True, int8_mxu=mxu, eager=eager,
+                graphs=graphs, **kw)
+    else:
+        draft = convert.params_from_numpy(quantize_params(
+            convert.init_params(dims, 5)), "cuda", BF)
+        graphs = DecodeGraphs(tree, draft_params=draft)
+
+        def run(eager):
+            return speculative.speculative_generate(
+                tree, dims, draft, dims, enc, enc, prompt, mask, mask, new,
+                eot, 3, packed_draft=True, packed_main=True, int8_mxu=mxu,
+                eager=eager, graphs=graphs, **kw)
+
+    def counted(eager):
+        settle_launches(wait=True)
+        before = _cross_counts()
+        out = run(eager)
+        settle_launches(wait=True)
+        return out, tuple(a - b for a, b in zip(_cross_counts(), before))
+
+    want, want_c = counted(True)
+    for _ in range(2):                  # the capture's call, a replay
+        got, got_c = counted(False)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert got_c == want_c, (got_c, want_c)
+    assert len(graphs.captures()) == 1
+    on = 0 if mxu else 1
+    if loop == "speculative":
+        run_rounds = want_c[2] // dims.decoder_layers
+        assert run_rounds == int(want[1]) < new, (run_rounds, want[1])
+    else:
+        steps = want_c[on] // dims.decoder_layers
+        if loop == "greedy":
+            assert steps == max(ends) == int(want[2].max()) - 1, steps
+            assert want_c[3] == steps * dims.decoder_layers
+        else:
+            assert 0 < steps < new - 1, steps
+    print(f"{loop} {rung}: ends {ends} (eot {eot}); launches {want_c}")
+
+
+@pytest.mark.parametrize("draft", ["random", "own int8 weights"])
+def test_speculative_async_returns_before_its_loop_ends(gen, draft):
+    """The session's speculative ``_async`` form (the serving tick's leg)
+    over 48 tokens, with a random draft (47 rounds or so) and with the
+    model's own int8 weights sharing its encoder (a dozen rounds run, the
+    rest skipped): an event recorded right after it returns has not yet
+    been reached; the tokens are then the synchronous form's."""
+    import time
+
+    from whisper_tpu_torch.models import convert
+    from whisper_tpu_torch.models.registry import WhisperDims
+    from whisper_tpu_torch.runtime.session import RuntimeCfg, WhisperSession
+    from whisper_tpu_torch.variants.ladder import apply_variant
+    from whisper_tpu_torch.variants.quant import quantize_params
+
+    dims = WhisperDims(n_mels=80, d_model=128, encoder_layers=2,
+                       encoder_heads=2, decoder_layers=2, decoder_heads=2,
+                       vocab_size=256, max_source_positions=1500,
+                       max_target_positions=64)
+    cfg, _ = apply_variant(RuntimeCfg(max_batch=4), "x5")
+    params = convert.init_params(dims, seed=0)
+    sess = WhisperSession(params, dims, cfg, device="cuda")
+    if draft == "random":
+        sess.set_draft_model(convert.init_params(dims, seed=99), dims)
+    else:
+        sess.set_draft_model(quantize_params(params), dims,
+                             share_encoder=True)
+    rng = np.random.default_rng(0)
+    audio = rng.normal(0, 0.1, (4, 480_400)).astype(np.float32)
+    n_valid = np.asarray([3000, 2000, 1000, 3000], np.int32)
+    args = (audio, n_valid, [3, 5], 48, 2)
+    want = sess.transcribe_short_speculative(*args)        # captures
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = sess.transcribe_short_speculative_async(*args)
+    host_s = time.perf_counter() - t0
+    event = torch.cuda.Event()
+    event.record()
+    pending = not event.query()
+    t1 = time.perf_counter()
+    event.synchronize()
+    span_s = time.perf_counter() - t1
+    print(f"returned after {host_s * 1e3:.3f} ms, the card busy "
+          f"{span_s * 1e3:.3f} ms after")
+    assert pending
+    np.testing.assert_array_equal(toks.cpu().numpy(), want)
+
+
+def test_no_if_node_support_raises(gen, monkeypatch):
+    """A runtime that refuses the conditional node (cudaErrorNotSupported
+    from ``wt_if_node_begin``): the graphed call raises, nothing falls back
+    to the eager loop or to reads of ``done``, and once the node is made
+    again the key captures and gives the eager loop's tokens."""
+    from whisper_tpu_torch.ops import kernels
+    from whisper_tpu_torch.runtime import generate
+
+    dims, tree = _small_model(8)
+    enc = _randn(gen, 2, 1500, 128)
+    zero = torch.zeros(320, device="cuda")
+    prompt = torch.tensor([250, 252, 253, 254], device="cuda")
+    graphs = generate.DecodeGraphs(tree)
+
+    def run(eager=False):
+        return generate.greedy_generate(
+            tree, dims, enc, prompt, zero, zero, 12, 251, int8_cross_kv=True,
+            kernel_step=True, graphs=graphs, eager=eager)
+
+    lib = kernels.library()
+    monkeypatch.setattr(lib, "wt_if_node_begin", lambda *a: 801)
+    with pytest.raises(RuntimeError, match="wt_if_node_begin"):
+        run()
+    assert not graphs.captures()
+    monkeypatch.undo()
     torch.cuda.synchronize()
     got = run()
     assert len(graphs.captures()) == 1

@@ -37,8 +37,13 @@ def count_launch(module, **counts) -> None:
 def tally_launches():
     """Within the block, this thread's wrappers tally their launches into
     the dict yielded, {(module, counter): n}, and leave the counters as
-    they are: a CUDA graph's capture.  ``add_launches`` adds the tally once
-    a replay."""
+    they are: a CUDA graph's capture.  A decode loop's graph holds its
+    step under a conditional node that skips the step once every row is
+    done, so its replays add the tally once a step whose body ran, not
+    once a replay: ``defer_launches`` notes the device count of bodies
+    run, and ``settle_launches`` adds tally x count where the caller
+    copies the results to the host (so an ``_async`` form reads
+    nothing)."""
     _TALLY.counts = {}
     try:
         yield _TALLY.counts
@@ -46,11 +51,50 @@ def tally_launches():
         _TALLY.counts = None
 
 
-def add_launches(tally: dict) -> None:
-    """Add a tally of ``tally_launches`` to the counters, under the lock."""
+def add_launches(tally: dict, times: int = 1) -> None:
+    """Add ``times`` x a tally of ``tally_launches`` to the counters, under
+    the lock."""
     with COUNT_LOCK:
         for (module, name), n in tally.items():
-            setattr(module, name, getattr(module, name) + n)
+            setattr(module, name, getattr(module, name) + n * times)
+
+
+# (tally, the count of bodies run copied to the host, an event after the
+# copy), in the order the runs were queued
+_PENDING: list = []
+
+
+def defer_launches(tally: dict, runs: torch.Tensor) -> None:
+    """Note that ``runs`` (a one-element integer tensor on the card,
+    computed by work queued on the current stream) bodies of a graph whose
+    capture tallied ``tally`` ran.  Nothing waits: the count is copied to
+    pinned host memory behind that work and an event recorded after the
+    copy.  The runs whose copy has landed are added at once, so the list
+    holds only runs still on the card."""
+    if not tally:
+        return
+    host = runs.reshape(1).to("cpu", non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    with COUNT_LOCK:
+        _PENDING.append((tally, host, event))
+    settle_launches()
+
+
+def settle_launches(wait: bool = False) -> None:
+    """Add the launches of every deferred run whose count has reached the
+    host (``defer_launches``); with ``wait``, wait for all of them first.
+    Called after a copy of results to the host, which waited for its own
+    runs: a later run still on the card stays deferred, so the caller
+    never waits for another caller's work.  Reads only host memory."""
+    with COUNT_LOCK:
+        ready = [p for p in _PENDING if wait or p[2].query()]
+        for p in ready:
+            _PENDING.remove(p)
+    for tally, host, event in ready:
+        event.synchronize()
+        add_launches(tally, int(host[0]))
+
 
 SQRT_2_OVER_PI = 0.7978845608028654
 

@@ -54,9 +54,34 @@ path).
 Greedy decoding, beam search and speculative rounds on the card replay
 their steps from CUDA graphs (``runtime.generate``, ``runtime.beam``,
 ``runtime.speculative``), and the warm-up run captures them, so the traced
-run replays.  torch.profiler traces a replay's kernels one by one, each
-under its own name, so the in-situ times and the operation counts hold for
-the graphed loop as for the eager one.
+run replays.  Each replayed step sits in a conditional node's body, whose
+kernels torch.profiler does not always name right (one trace named B3 a
+replay where B8 ran): for a graphed run, read its counts of
+the hand-written kernels beside the launch counters, or trace the loop
+eagerly (``--graph``).
+
+``python -m whisper_tpu_torch.profile_ladder --decode-ms`` runs only x5
+over the 301.574 s file, five times (e2e, host clock), and the graphed
+decode of its bucket of 16 and of its first chunk alone with no row ending
+(128 tokens, no read): the device ms of the decode and of a step (the
+prefill taken out), CUDA events, median of 7, and the host ms to queue it.
+It calls only what trees since the graphed loop have, so it also runs
+against an older one (that tree on ``PYTHONPATH``, this file run by its
+path): the cost of the loops' conditional node, tree against tree.
+
+``python -m whisper_tpu_torch.profile_ladder --conditional`` runs only what
+the loops' conditional node costs, in one process, on fresh graphs of one
+x5 session, each step (round) captured under the node and captured flat in
+the graph itself (``runtime.generate._if_node`` replaced by a block that
+adds nothing), in turns: the bucket-16 greedy decode of the 301.574 s
+file's chunks with no row ending (device ms of 128 tokens and of a step,
+median of 5; the kernels of one traced decode), and the speculative rounds
+over the same states with a random whisper-tiny draft and with the model's
+own int8 weights (``_speculative_tokens``, 128 tokens, no row ending): the
+host ms of a round's graph launch (median), the launch at which the host
+first waits more than 2 ms when the card is held busy 300 ms first (how
+many launches the driver queues ahead), and the dispatch's host ms beside
+the card's span of its work, median of 3.
 
 ``python -m whisper_tpu_torch.profile_ladder --graph`` runs only x5 twice,
 graphed and with the session's greedy loop run eagerly
@@ -560,6 +585,216 @@ def profile_decoding(params, audio):
                "largest_other": out["largest_other"]}
 
 
+def profile_decode_ms(params, audio) -> dict:
+    """The ``--decode-ms`` line (see the module's docstring)."""
+    import statistics
+
+    import torch
+
+    from whisper_tpu_torch.frontend import golden
+    from whisper_tpu_torch.headline import make_session, run_once
+    from whisper_tpu_torch.pipeline.chunk import (
+        CHUNK_FRAMES,
+        chunk_starts,
+        mel_frame_bucket,
+    )
+    from whisper_tpu_torch.runtime.genconfig import GenerationCfg
+    from whisper_tpu_torch.tokenizer.specials import special_tokens
+
+    session = make_session("cuda", params)
+    sp = special_tokens("en", "transcribe", None)
+    run_once(session, audio)
+    e2e = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_once(session, audio)
+        torch.cuda.synchronize()
+        e2e.append(time.perf_counter() - t0)
+    nv = golden.num_frames(len(audio))
+    mel = session.compute_mel(golden.reflect_pad(audio), nv,
+                              mel_frame_bucket(nv))
+    starts = [p // golden.HOP for p in chunk_starts(len(audio), 480_000,
+                                                    400_000)]
+    starts += [mel.shape[1]] * (session._batch_bucket(len(starts))
+                                - len(starts))
+    mel_pad = torch.nn.functional.pad(mel, (0, CHUNK_FRAMES))
+    enc = session.encoder(torch.stack([mel_pad[:, s:s + CHUNK_FRAMES]
+                                       for s in starts]))
+    cfg = GenerationCfg()
+    masks = session._get_masks(cfg.suppress_tokens,
+                               cfg.begin_suppress_tokens)
+    prompt = torch.tensor([sp.sot, sp.lang, sp.task, sp.no_timestamps],
+                          device="cuda")
+
+    def decode(states, n):
+        """(device ms, host ms to queue) of one graphed decode of n
+        tokens."""
+        torch.cuda.synchronize()
+        ev0, ev1 = torch.cuda.Event(True), torch.cuda.Event(True)
+        ev0.record()
+        t0 = time.perf_counter()
+        session._greedy(states, prompt, *masks, n, sp.eot, early_exit=False)
+        host = (time.perf_counter() - t0) * 1e3
+        ev1.record()
+        ev1.synchronize()
+        return ev0.elapsed_time(ev1), host
+
+    out = {"config": "x5, the 301.574 s file; the graphed decode of its "
+                     "bucket, no row ending",
+           "e2e_median_s": statistics.median(e2e), "e2e_runs_s": e2e}
+    for b, states in ((16, enc), (1, enc[:1].contiguous())):
+        for n in (1, 128, 128):
+            decode(states, n)
+        whole = [decode(states, 128) for _ in range(7)]
+        pre = statistics.median(decode(states, 1)[0] for _ in range(7))
+        ms = statistics.median(w[0] for w in whole)
+        out[f"bucket{b}_decode_device_ms"] = ms
+        out[f"bucket{b}_step_device_ms"] = (ms - pre) / DECODE_STEPS
+        out[f"bucket{b}_queue_host_ms"] = statistics.median(
+            w[1] for w in whole)
+    return out
+
+
+def profile_conditional(params, audio) -> list:
+    """The ``--conditional`` lines (see the module's docstring)."""
+    import contextlib
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_tpu_torch.frontend import golden
+    from whisper_tpu_torch.headline import make_session
+    from whisper_tpu_torch.models.convert import init_params
+    from whisper_tpu_torch.models.registry import get_dims
+    from whisper_tpu_torch.pipeline.chunk import (
+        CHUNK_FRAMES,
+        chunk_starts,
+        mel_frame_bucket,
+    )
+    from whisper_tpu_torch.runtime import generate
+    from whisper_tpu_torch.runtime.genconfig import GenerationCfg
+    from whisper_tpu_torch.tokenizer.specials import special_tokens
+    from whisper_tpu_torch.variants.quant import quantize_params
+
+    @contextlib.contextmanager
+    def flat(graph, done, body):
+        yield
+
+    node = generate._if_node
+    dims = get_dims("openai/whisper-base")
+    session = make_session("cuda", params)
+    sp = special_tokens("en", "transcribe", None)
+    nv = golden.num_frames(len(audio))
+    mel = session.compute_mel(golden.reflect_pad(audio), nv,
+                              mel_frame_bucket(nv))
+    starts = [p // golden.HOP for p in chunk_starts(len(audio), 480_000,
+                                                    400_000)]
+    starts += [mel.shape[1]] * (16 - len(starts))
+    mel_pad = torch.nn.functional.pad(mel, (0, CHUNK_FRAMES))
+    chunks = torch.stack([mel_pad[:, s:s + CHUNK_FRAMES] for s in starts])
+    enc = session.encoder(chunks)
+    cfg = GenerationCfg()
+    masks = session._get_masks(cfg.suppress_tokens,
+                               cfg.begin_suppress_tokens)
+    prompt = torch.tensor([sp.sot, sp.lang, sp.task, sp.no_timestamps],
+                          device="cuda")
+
+    def fresh(capture):
+        generate._if_node = capture
+        old = session.graphs
+        session.graphs = generate.DecodeGraphs(old.params, old.step_weights,
+                                               old.draft_params)
+
+    def span_ms(fn):
+        """(device ms of fn's work, host ms until fn returns)."""
+        torch.cuda.synchronize()
+        ev0, ev1 = torch.cuda.Event(True), torch.cuda.Event(True)
+        ev0.record()
+        t0 = time.perf_counter()
+        fn()
+        host = (time.perf_counter() - t0) * 1e3
+        ev1.record()
+        ev1.synchronize()
+        return ev0.elapsed_time(ev1), host
+
+    out = []
+    try:
+        for mode, capture in (("node", node), ("flat", flat),
+                              ("node", node), ("flat", flat)):
+            fresh(capture)
+
+            def decode(n):
+                return session._greedy(enc, prompt, *masks, n, sp.eot,
+                                       early_exit=False)
+            for n in (1, 128, 128):
+                decode(n)
+            whole = [span_ms(lambda: decode(128))[0] for _ in range(5)]
+            pre = [span_ms(lambda: decode(1))[0] for _ in range(5)]
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                decode(128)
+                torch.cuda.synchronize()
+            kernels = sum(e.count for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and not e.key.startswith(("Memcpy", "Memset")))
+            ms = statistics.median(whole)
+            out.append({"config": f"x5 greedy, bucket 16, step {mode}",
+                        "decode_device_ms": ms, "runs_ms": whole,
+                        "step_device_ms": (ms - statistics.median(pre))
+                        / DECODE_STEPS, "decode_kernels": kernels})
+        tiny = get_dims("openai/whisper-tiny")
+        replay = torch.cuda.CUDAGraph.replay
+        launches: list = []
+
+        def timed(graph):
+            t0 = time.perf_counter()
+            replay(graph)
+            launches.append((time.perf_counter() - t0) * 1e3)
+
+        for label, draft, d_dims, share in (
+                ("a random whisper-tiny draft", init_params(tiny, seed=1),
+                 tiny, False),
+                ("its own int8 weights", quantize_params(params), dims,
+                 True)):
+            session.set_draft_model(draft, d_dims, share_encoder=share)
+            for mode, capture in (("node", node), ("flat", flat)):
+                fresh(capture)
+
+                def rounds():
+                    return session._speculative_tokens(
+                        chunks, enc, prompt, *masks, 128, sp.eot, 4)
+                rounds()
+                rounds()
+                spans = [span_ms(rounds) for _ in range(3)]
+                torch.cuda.CUDAGraph.replay = timed
+                try:
+                    launches.clear()
+                    span_ms(rounds)
+                    launch_ms = statistics.median(launches)
+                    launches.clear()
+                    torch.cuda.synchronize()
+                    torch.cuda._sleep(500_000_000)   # ~0.3 s of cycles
+                    rounds()
+                    torch.cuda.synchronize()
+                finally:
+                    torch.cuda.CUDAGraph.replay = replay
+                waits = [i for i, ms_ in enumerate(launches) if ms_ > 2.0]
+                out.append({
+                    "config": f"x5 speculative, {label}, bucket 16, round "
+                              f"{mode}",
+                    "round_launches": len(launches),
+                    "launch_host_ms": launch_ms,
+                    "first_waiting_launch": waits[0] if waits else None,
+                    "dispatch_host_ms": statistics.median(
+                        h for _, h in spans),
+                    "span_device_ms": statistics.median(d for d, _ in spans)})
+    finally:
+        generate._if_node = node
+    return out
+
+
 def main() -> None:
     import argparse
 
@@ -576,6 +811,12 @@ def main() -> None:
                         help="run only the decoding options, in turns")
     parser.add_argument("--graph", action="store_true",
                         help="run only x5, graphed and eager")
+    parser.add_argument("--conditional", action="store_true",
+                        help="run only the conditional node against a flat "
+                             "capture of the same step and round")
+    parser.add_argument("--decode-ms", action="store_true",
+                        help="run only x5's e2e and its graphed decode's "
+                             "device ms, no row ending")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("whisper_tpu_torch.profile_ladder needs a CUDA card")
@@ -610,6 +851,16 @@ def main() -> None:
             print(json.dumps(out), flush=True)
         return
     audio = synth_audio(AUDIO_SECONDS)
+    if args.conditional:
+        for out in profile_conditional(params, audio):
+            out["device"] = card
+            print(json.dumps(out), flush=True)
+        return
+    if args.decode_ms:
+        out = profile_decode_ms(params, audio)
+        out["device"] = card
+        print(json.dumps(out), flush=True)
+        return
     if args.decoding:
         for out in profile_decoding(params, audio):
             out["device"] = card

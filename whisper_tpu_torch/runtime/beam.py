@@ -26,9 +26,13 @@ of the parents (the token buffer, the lengths, ``done``, the self cache,
 the grammar state) is copied back into the state's own tensors, the token
 column is written at the device ``step``, and the cache slot ``pos`` is a
 device tensor.  On a card each step replays from a CUDA graph per key
-(``BeamKey``, in the caller's ``DecodeGraphs``); ``eager=True``, the CPU
-and a mesh call the step function as it is.  The early exit reads ``done``
-as the greedy loop does (``early_exit=False``: no read, every step runs).
+(``BeamKey``, in the caller's ``DecodeGraphs``) under the greedy loop's
+conditional node: every call queues max_new_tokens - 1 replays, reads
+nothing, and the card skips the step once every beam of every row is done,
+the JAX condition (``i < max_new_tokens`` and not all done), so the step
+counter is the ``while_loop``'s trip count.  ``eager=True``, the CPU and a
+mesh call the step function as it is and read ``done`` as the greedy
+loop's eager form does (``early_exit=False``: no read, every step runs).
 Steps past the point where every beam is done change nothing the loop
 returns: each beam's one candidate is its own EOT at zero cost, the scores
 are already in ``top_k``'s order, so the parents are the identity, the
@@ -88,6 +92,9 @@ class BeamState(InPlaceState):
                self.scores, self.buf, self.suppress, self.eot_only,
                self.row0, *self.cache, *(self.ts or ()), self.pad_count]
         return [t for t in out if t is not None]
+
+    def trips(self) -> torch.Tensor:
+        return self.step
 
     def owned(self) -> "BeamState":
         return dataclasses.replace(self, suppress=self.suppress.clone())
@@ -180,11 +187,13 @@ def beam_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
     the loop's ``done`` read agrees across its model ranks, and its steps
     run without a graph.
 
-    early_exit False reads nothing on the host (every step runs); else
-    ``done`` is read once a block of ``generate.EXIT_BLOCK`` steps on a
-    card, once a step on the CPU.  On a card without a mesh the steps
-    replay from a CUDA graph kept in ``graphs`` (a ``DecodeGraphs`` of
-    these weights; None: captured for this call alone), unless ``eager``."""
+    On a card without a mesh the steps replay from a CUDA graph kept in
+    ``graphs`` (a ``DecodeGraphs`` of these weights; None: captured for
+    this call alone), unless ``eager``: nothing is read, the card stops the
+    loop, and the call returns before the decode ends.  The eager loop
+    reads ``done`` once a step (under a mesh on a card once
+    ``generate.EXIT_BLOCK`` steps), or never with early_exit False (every
+    step runs)."""
     from whisper_tpu_torch.runtime import timestamps as ts
 
     b = enc_states.shape[0]
@@ -243,16 +252,13 @@ def beam_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
         return _step_fn(st, params, dims, eot_id=eot_id, cross_len=cross_len,
                         int8_mxu=int8_mxu, ts_cfg=ts_cfg, mesh=mesh)
 
-    graphed = dev.type == "cuda" and mesh is None and not eager
-    if graphed and graphs is None:
-        graphs = DecodeGraphs(params)
     key = BeamKey(b * k, k, p, max_new_tokens, enc_states.shape[1],
                   cross_len is not None, int8_mxu, int8_cross_kv, ts_cfg,
                   pad_count is not None, eot_id)
     buf, scores, lengths = run_loop(
-        init, make_step, 1, max_new_tokens, exit_period(early_exit, dev),
-        graphs=graphs if graphed else None, key=key, device=dev,
-        params=params)
+        init, make_step, 1, max_new_tokens,
+        exit_period(early_exit, dev, mesh), graphs=graphs, key=key,
+        device=dev, params=params, mesh=mesh, eager=eager)
 
     norm = scores / lengths.float() ** length_penalty
     best = torch.argmax(norm, dim=1)                           # [B]

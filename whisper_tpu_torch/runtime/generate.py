@@ -23,30 +23,40 @@ The JAX ``lax.while_loop`` becomes a step function that updates the
 loop's state in place (``LoopState``: the last token, the cache slot
 ``pos`` and the step counter as one-element device tensors, ``done``, the
 token buffer, the scores, the grammar's state and the cache), so that no
-host value changes from one step to the next.  On the CPU the step
-function is called as it is.  On a card it is warmed once on a side stream,
-captured in a ``torch.cuda.CUDAGraph`` per key (``DecodeGraphs``: the
-batch rows, the prompt length, max_new_tokens, the step's route and rung,
-the grammar, whether it samples, the scores, ``pad_count``) and replayed
-once a step; a capture that fails raises.  The temperature is a tensor of
-the state, so every T > 0 shares one graph.  A key's loop keeps its state
-(the cache of its rows) for later calls; the loops of one ``DecodeGraphs``
-keep at most a quarter of the card's memory in it, the least recently
-used dropped first.  ``eager=True`` runs the step
-function on the card without a graph (the card checks compare the two).
-A replay adds to the kernels' launch counters what its capture tallied
-(``ops.common.tally_launches``).  The same machinery (``InPlaceState``,
-``_GraphLoop``, ``DecodeGraphs``, ``run_loop``) runs the beam loop
-(``runtime.beam``) and the speculative rounds (``runtime.speculative``),
-each with a key of its own, under one budget.
+host value changes from one step to the next.  On a card it is warmed once
+on a side stream, captured in a ``torch.cuda.CUDAGraph`` per key
+(``DecodeGraphs``: the batch rows, the prompt length, max_new_tokens, the
+step's route and rung, the grammar, whether it samples, the scores,
+``pad_count``) and replayed once a step; a capture that fails raises.  The
+temperature is a tensor of the state, so every T > 0 shares one graph.  A
+key's loop keeps its state (the cache of its rows) for later calls; the
+loops of one ``DecodeGraphs`` keep at most a quarter of the card's memory
+in it, the least recently used dropped first.  The same machinery
+(``InPlaceState``, ``_GraphLoop``, ``DecodeGraphs``, ``run_loop``) runs
+the beam loop (``runtime.beam``) and the speculative rounds
+(``runtime.speculative``), each with a key of its own, under one budget.
 
-The early exit: with ``early_exit=False`` the loop reads nothing on the
-host and every step runs (the ``_async`` entry points; a row past EOT
-emits EOT and adds nothing to its scores, so the tokens, sums and counts
-are those of a loop that stopped).  Otherwise it reads whether every row
-is done once a block of ``EXIT_BLOCK`` steps on a card, once a step on
-the CPU: on a card from a non-blocking copy, read only after the next block
-is queued, so the card never waits on the host.
+The exit, as the ``while_loop``'s condition: the graph holds the step
+under a CUDA-graph conditional (if) node whose kernel reads ``done`` and
+sets the node to "some row undone", so a replay past all-done runs that
+one kernel and skips the step.  Every call on a card queues the loop's whole bound of replays and
+reads nothing: the step counter (and ``n_tok``) stop where the JAX loop
+stops, and the call returns before the decode ends.  A replay's launches
+count once a step whose body ran: ``ops.common.defer_launches``, settled
+where the results are copied to the host (``settle_launches``).  A torch
+without conditional nodes, or a capture that fails, raises; nothing falls
+back to reads.  Only a key's first call runs its step once for real, the
+warm-up before the capture, whatever ``done`` says (a step past all-done
+returns what the loop would have: a done row emits EOT and adds nothing).
+
+The eager loop (the CPU, a mesh, ``eager=True``: the card checks compare
+the two) calls the step function as it is and reads ``done`` on the host:
+with ``early_exit=False`` never (every step runs; a row past EOT emits EOT
+and adds nothing to its scores, so the tokens, sums and counts are those
+of a loop that stopped), else once a step, so that it stops where
+``lax.while_loop`` stops, except under a mesh on a card: there once a
+block of ``EXIT_BLOCK`` steps, from a non-blocking copy read only after the
+next block is queued, so the card never waits on the host.
 
 Under a mesh (``parallel.mesh``) every rank runs the step function on its
 own rows without a graph, since gloo's collectives go through the host
@@ -59,9 +69,11 @@ collectives need; a data rank stops when its own rows end.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import threading
 import time
+import weakref
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -111,21 +123,26 @@ def pick(logits: torch.Tensor, temperature, generator,
     return tok, lp
 
 
-EXIT_BLOCK = 16  # steps a synchronous caller runs between two reads of done
+EXIT_BLOCK = 16  # steps between two reads of done under a mesh on a card
 
 
 class InPlaceState:
     """What ``_GraphLoop`` needs of a decode loop's state (``LoopState``
     here, ``beam.BeamState``, ``speculative.SpecState``): ``tensors()``,
     every tensor one step updates in place or reads, in one fixed order;
-    ``done``, the tensor whose ``all()`` ends the loop; ``owned()``, the
-    state with the caller's tensors (masks, pads) cloned, so that a graph
-    that adopts it reads none of them; ``outputs()``, copies of the
-    results, so that the next run may reuse the state."""
+    ``done``, the tensor whose ``all()`` ends the loop; ``trips()``, the
+    one-element counter that a step (a round) whose body runs advances by
+    one; ``owned()``, the state with the caller's tensors (masks, pads)
+    cloned, so that a graph that adopts it reads none of them;
+    ``outputs()``, copies of the results, so that the next run may reuse
+    the state."""
 
     done: torch.Tensor
 
     def tensors(self) -> list:
+        raise NotImplementedError
+
+    def trips(self) -> torch.Tensor:
         raise NotImplementedError
 
     def owned(self):
@@ -169,6 +186,9 @@ class LoopState(InPlaceState):
                self.suppress, *self.cache, self.sum_lp, self.n_tok,
                *(self.ts or ()), self.pad_count, self.temperature]
         return [t for t in out if t is not None]
+
+    def trips(self) -> torch.Tensor:
+        return self.step
 
     def owned(self) -> "LoopState":
         return dataclasses.replace(
@@ -246,13 +266,10 @@ def _read(flag_event) -> bool:
 
 
 def _drive(step, first: int, n: int, done: torch.Tensor,
-           exit_every: Optional[int], first_step=None) -> None:
-    """Steps first .. n-1.  exit_every None: no read.  Else ``done`` is
-    copied once a block of exit_every steps and, for blocks of more than
-    one step, read only after the next block is queued.  first_step, where
-    given, runs step ``first`` in place of ``step`` (a key's capture, whose
-    warm-up runs the step for real), so that the blocks and the reads fall
-    where the eager loop's do."""
+           exit_every: Optional[int]) -> None:
+    """The eager loop: steps first .. n-1.  exit_every None: no read.  Else
+    ``done`` is copied once a block of exit_every steps and, for blocks of
+    more than one step, read only after the next block is queued."""
     lag = 0 if exit_every == 1 else 1
     flags: collections.deque = collections.deque()
     i = first
@@ -262,13 +279,13 @@ def _drive(step, first: int, n: int, done: torch.Tensor,
             if len(flags) > lag and _read(flags.popleft()):
                 return
         hi = n if exit_every is None else min(i + exit_every, n)
-        for j in range(i, hi):
-            (step if first_step is None or j != first else first_step)()
+        for _ in range(i, hi):
+            step()
         i = hi
 
 
 _CAPTURE_LOCK = threading.Lock()  # one capture at a time in the process
-_CAPTURE_STREAMS: dict = {}       # device -> (warm-up stream, capture stream)
+_CAPTURE_STREAMS: dict = {}       # device -> (body stream, capture stream)
 
 GRAPH_MEMORY_SHARE = 0.25  # of the card's memory, for one DecodeGraphs
 
@@ -277,6 +294,56 @@ def _budget(device) -> int:
     """The bytes of loop state one ``DecodeGraphs`` keeps on ``device``."""
     card = torch.cuda.get_device_properties(device)
     return int(GRAPH_MEMORY_SHARE * card.total_memory)
+
+
+def graphed(device, mesh, eager: bool) -> bool:
+    """Whether a decode loop replays from a graph: on a card, without a
+    mesh, unless ``eager``."""
+    return device.type == "cuda" and mesh is None and not eager
+
+
+_THREAD_LOCAL = 1   # cudaStreamCaptureModeThreadLocal
+
+
+@contextlib.contextmanager
+def _if_node(graph, done: torch.Tensor, body):
+    """Within a capture of ``graph`` on the current stream: the work the
+    block queues on the ``body`` stream (made current) becomes the body of
+    a conditional (if) node on "some flag of ``done`` is false" (bools on
+    the card, contiguous), which each replay runs while a row is undone
+    and skips once every row is done.  Built through the CUDA runtime (``csrc/graph_cond.cu``): the
+    card's torch has no ``CUDAGraph.begin_capture_to_if_node``.  The
+    body's allocations go to a memory pool of its own, kept until
+    ``graph`` is gone; a failure raises.  A body whose capture fails
+    leaves a node that the runtime cannot instantiate (the process dies
+    in ``capture_end``): ``_GraphLoop._trial_capture`` raises for such a
+    step first."""
+    from whisper_tpu_torch.ops import kernels
+
+    if done.dtype != torch.bool or not done.is_contiguous():
+        raise ValueError("the conditional node reads contiguous bools")
+    index = done.device.index
+    lib = kernels.library()
+    parent = kernels.stream_ptr(done.device)
+    pool = None
+    try:
+        kernels.check(lib.wt_if_node_begin(
+            done.data_ptr(), done.numel(), parent, body.cuda_stream,
+            _THREAD_LOCAL), "wt_if_node_begin")
+        pool = torch.cuda.graph_pool_handle()
+        with torch.cuda.stream(body):
+            torch._C._cuda_beginAllocateCurrentStreamToPool(index, pool)
+            try:
+                yield
+            finally:
+                torch._C._cuda_endAllocateToPool(index, pool)
+                rc = lib.wt_if_node_end(body.cuda_stream)
+        kernels.check(rc, "wt_if_node_end")
+    except BaseException:
+        if pool is not None:
+            torch._C._cuda_releasePool(index, pool)
+        raise
+    weakref.finalize(graph, torch._C._cuda_releasePool, index, pool)
 
 
 class _GraphLoop:
@@ -309,83 +376,116 @@ class _GraphLoop:
         return self.generator
 
     def _capture(self, step) -> None:
-        """Run ``step`` once for real on a side stream (the warm-up: the
-        first call's step 1), then capture it on a stream of its own; both
-        streams are the device's two, made once (each stream that runs a
-        product keeps a cuBLAS workspace).  Unlike ``torch.cuda.graph``, no
-        device-wide sync, garbage collection or emptying of the allocator's
-        cache: a key met while serving holds back no other thread's work."""
-        from whisper_tpu_torch.ops.common import tally_launches
+        """Run ``step`` once for real (the warm-up: the first call's step
+        ``first``), then capture it under a conditional node that runs it
+        only while some row is undone (``_if_node``).  The warm-up runs
+        whatever ``done`` says (a step past all-done returns what the loop
+        would have), its launches deferred as a body's that ran where some
+        row was undone.
+        On a card the warm-up runs on the device's body stream, where the
+        trial and the node's body are then captured (each stream that runs
+        a product keeps a cuBLAS workspace: this one's is made by the
+        warm-up, outside any graph's memory), and the graph on a capture
+        stream of its own; both streams made once.  Unlike
+        ``torch.cuda.graph``, no device-wide sync, garbage collection or
+        emptying of the allocator's cache: a key met while serving holds
+        back no other thread's work."""
+        from whisper_tpu_torch.ops.common import defer_launches, tally_launches
 
         t0 = time.perf_counter()
+        done = self.state.done
         with _CAPTURE_LOCK:
             if self.device not in _CAPTURE_STREAMS:
                 _CAPTURE_STREAMS[self.device] = (
                     torch.cuda.Stream(self.device),
                     torch.cuda.Stream(self.device))
-            side, own = _CAPTURE_STREAMS[self.device]
+            body, own = _CAPTURE_STREAMS[self.device]
             main = torch.cuda.current_stream(self.device)
-            side.wait_stream(main)
-            with torch.cuda.stream(side):
+            undone0 = torch.logical_not(done.all()).long().reshape(1)
+            body.wait_stream(main)
+            with tally_launches() as warm, torch.cuda.stream(body):
                 step()
-            main.wait_stream(side)
+            main.wait_stream(body)
+            defer_launches(dict(warm), undone0)
+            self._trial_capture(step, body)
             graph = torch.cuda.CUDAGraph()
             if self.generator is not None:
                 graph.register_generator_state(self.generator)
             with tally_launches() as tally, torch.cuda.stream(own):
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
-                    step()
+                    with _if_node(graph, done, body):
+                        step()
                 finally:
                     try:
                         graph.capture_end()
                     except BaseException:
-                        # the allocator may go on routing this stream's
+                        # the allocator may go on routing these streams'
                         # allocations to the failed capture's pool
                         del _CAPTURE_STREAMS[self.device]
                         raise
         self.graph, self.tally = graph, dict(tally)
         self.capture_s = time.perf_counter() - t0
 
-    def _capturing(self, step):
-        """Step ``first`` of a key's first call: ``_capture`` (its warm-up
-        runs the step); a capture that fails drops the state and raises."""
-        def first_step() -> None:
+    def _trial_capture(self, step, stream) -> None:
+        """Capture ``step`` into a graph that is thrown away: a step that
+        cannot be captured (a host read, a library that refuses) raises
+        here, before it can leave a conditional node's body half made
+        (``_if_node``)."""
+        from whisper_tpu_torch.ops.common import tally_launches
+
+        trial = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            trial.register_generator_state(self.generator)
+        with tally_launches(), torch.cuda.stream(stream):
+            trial.capture_begin(capture_error_mode="thread_local")
             try:
-                self._capture(step)
-            except BaseException:
-                self.state = None
-                raise
-        return first_step
+                step()
+            finally:
+                try:
+                    trial.capture_end()
+                except BaseException:
+                    # the allocator may go on routing this stream's
+                    # allocations to the failed capture's pool
+                    del _CAPTURE_STREAMS[self.device]
+                    raise
 
-    def _replay(self) -> None:
-        from whisper_tpu_torch.ops.common import add_launches
-
-        self.graph.replay()
-        add_launches(self.tally)
-
-    def run(self, init, make_step, first: int, n: int,
-            exit_every: Optional[int], generator):
+    def run(self, init, make_step, first: int, n: int, generator):
         """init(generator) -> the call's state before step ``first`` (an
         ``InPlaceState``); make_step(state, generator) -> the step
-        function; steps first .. n-1 (``_drive``), then the outputs."""
+        function.  Steps first .. n-1, all queued, nothing read: a key's
+        first call runs step ``first`` as the capture's warm-up (a capture
+        that fails drops the state and raises), every other step is a
+        replay, whose body runs while some row is undone.  The launches of
+        the replays' bodies are deferred (``ops.common.defer_launches``).
+        Returns the outputs."""
+        from whisper_tpu_torch.ops.common import defer_launches
+
         with self._lock:
             main = torch.cuda.current_stream(self.device)
             if self._free is not None:
                 main.wait_event(self._free)
             gen = None if self.generator is None else self._seeded(generator)
             fresh = init(gen)
-            first_step = None
             if self.state is None:
                 # adopt the first call's tensors as the static state; its
                 # first step is the capture's warm-up, then the capture
                 self.state = fresh.owned()
-                first_step = self._capturing(make_step(self.state, gen))
+                if first < n:
+                    try:
+                        self._capture(make_step(self.state, gen))
+                    except BaseException:
+                        self.state = None
+                        raise
+                    first += 1
             else:
                 self.state.copy_(fresh)
             del fresh
-            _drive(self._replay, first, n, self.state.done, exit_every,
-                   first_step=first_step)
+            if self.graph is not None and first < n:
+                start = self.state.trips().clone()
+                for _ in range(first, n):
+                    self.graph.replay()
+                defer_launches(self.tally, self.state.trips() - start)
             out = self.state.outputs()
             if self.graph is None:      # no step ran: capture at a later call
                 self.state = None
@@ -400,7 +500,8 @@ class _GraphLoop:
         with self._lock:
             if self._free is not None:
                 self._free.synchronize()
-            self.state, self.graph, self.tally, self.nbytes = None, None, {}, 0
+            self.state, self.graph = None, None
+            self.tally, self.nbytes = {}, 0
 
 
 class GraphKey(NamedTuple):
@@ -504,29 +605,36 @@ class DecodeGraphs:
                     if v.graph is not None}
 
 
-def exit_period(early_exit: bool, device, block: int = EXIT_BLOCK):
-    """Steps between two reads of ``done`` (``_drive``): None without the
-    early exit, ``block`` on a card, one on the CPU."""
+def exit_period(early_exit: bool, device, mesh, block: int = EXIT_BLOCK):
+    """The eager loop's steps between two reads of ``done`` (``_drive``):
+    None without the early exit, ``block`` under a mesh on a card, else one
+    (where the ``while_loop`` stops).  A graphed loop reads nothing: its
+    conditional step stops on the card."""
     if not early_exit:
         return None
-    return block if device.type == "cuda" else 1
+    return block if device.type == "cuda" and mesh is not None else 1
 
 
 def run_loop(init, make_step, first: int, n: int, exit_every, *,
              graphs: Optional[DecodeGraphs], key, device, params,
              step_weights=None, draft_params=None, generator=None,
-             sampled: bool = False):
-    """Steps first .. n-1 of a decode loop over the state ``init`` makes:
-    eagerly (``graphs`` None: the CPU, a mesh, ``eager=True``), else
-    replayed from the CUDA graph of ``key`` in ``graphs``, which then drops
-    what passes its budget.  Returns the state's outputs."""
-    if graphs is None:
+             sampled: bool = False, mesh=None, eager: bool = False):
+    """Steps first .. n-1 of a decode loop over the state ``init`` makes,
+    and the state's outputs.  Where ``graphed`` (a card, no mesh, not
+    ``eager``): replayed under the conditional node from the graph of
+    ``key`` in ``graphs`` (None: a ``DecodeGraphs`` for this call alone),
+    which then drops what passes its budget; nothing is read.  Else
+    eagerly, ``done`` read once ``exit_every`` steps (``_drive``;
+    ``exit_period``)."""
+    if not graphed(device, mesh, eager):
         st = init(generator)
         _drive(make_step(st, generator), first, n, st.done, exit_every)
         return st.outputs()
+    if graphs is None:
+        graphs = DecodeGraphs(params, step_weights, draft_params)
     loop = graphs.loop(params, step_weights, key, device, sampled,
                        draft_params)
-    out = loop.run(init, make_step, first, n, exit_every, generator)
+    out = loop.run(init, make_step, first, n, generator)
     graphs.trim(key)
     return out
 
@@ -570,12 +678,14 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
     step (B3/B8 on the kernel step), so each row decodes as its unpadded
     shorter prompt would.
 
-    early_exit False reads nothing on the host (every step runs); else the
-    loop reads ``done`` once a block of ``EXIT_BLOCK`` steps on a card,
-    once a step on the CPU (see the module's docstring).  On a card
-    without a mesh the steps replay from a CUDA graph, kept in ``graphs``
-    (a ``DecodeGraphs`` of these weights; None: captured for this call
-    alone), unless ``eager``.
+    On a card without a mesh the steps replay from a CUDA graph, kept in
+    ``graphs`` (a ``DecodeGraphs`` of these weights; None: captured for
+    this call alone), unless ``eager``: all max_new_tokens - 1 replays are
+    queued and nothing is read, the conditional step stopping the loop on
+    the card (see the module's docstring), so the call returns before the
+    decode ends.  The eager loop reads ``done`` on the host once a step,
+    where the JAX loop stops (under a mesh on a card once ``EXIT_BLOCK``
+    steps), or never with early_exit False (every step runs).
 
     mesh: this rank's share of a (data, model) mesh: enc_states are its
     rows, the weights its shard (``parallel.mesh.shard_params``); the
@@ -642,18 +752,15 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
                         ts_cfg=ts_cfg, generator=gen, return_logprobs=return_logprobs,
                         mesh=mesh, draw_rows=draw_rows)
 
-    graphed = dev.type == "cuda" and mesh is None and not eager
-    if graphed and graphs is None:
-        graphs = DecodeGraphs(params, step_weights)
     key = GraphKey(b, p, max_new_tokens, cross_len, kernel_step, int8_mxu,
                    int8_self, int8_cross_kv, step_weights is not None, ts_cfg,
                    temperature > 0, return_logprobs, pad_count is not None,
                    eot_id)
     return run_loop(init, make_step, 1, max_new_tokens,
-                    exit_period(early_exit, dev),
-                    graphs=graphs if graphed else None, key=key, device=dev,
-                    params=params, step_weights=step_weights,
-                    generator=generator, sampled=temperature > 0)
+                    exit_period(early_exit, dev, mesh),
+                    graphs=graphs, key=key, device=dev, params=params,
+                    step_weights=step_weights, generator=generator,
+                    sampled=temperature > 0, mesh=mesh, eager=eager)
 
 
 def strip_generated(row: np.ndarray, eot_id: int) -> list[int]:

@@ -37,13 +37,17 @@ each step (a speculative round) from a CUDA graph captured once per key
 (``runtime.generate``, ``runtime.beam``, ``runtime.speculative``; the
 session keeps them all in ``graphs``, with the draft's weights once
 ``set_draft_model`` attaches them, and ``warmup`` captures a bucket's
-greedy loop).  The ``_async`` forms of greedy decoding and beam search
-read nothing on the host: they return once the work is queued, before the
-decode ends, and ``gather_tokens`` (or the caller's ``.cpu()``) is the
-sync.  The synchronous forms stop early, reading whether every row is
-done once a block of 16 steps.  Speculative decoding reads ``done`` once
-a block of rounds in every form, since its number of rounds depends on
-what the draft gets accepted, and returns after its loop.
+greedy loop), each step under a conditional node that skips it once every
+row is done, so the card stops where the JAX ``while_loop`` stops.  No
+form reads ``done`` on the host there: the ``_async`` forms of greedy
+decoding, beam search and speculative decoding return once the work is
+queued (a speculative form with a large draft waits in its last launches
+for the driver's queue, ``transcribe_short_speculative_async``), and ``gather_tokens`` (or the caller's
+``.cpu()``) is the sync; the synchronous forms read once, at the end,
+where the launches of the graphs' bodies are added
+(``ops.common.settle_launches``).  ``eager_decode`` runs the loops
+eagerly on the card (for comparisons), reading ``done`` once a step, as
+the JAX loop stops.
 
 ``data_parallel`` x ``tensor_parallel`` > 1 (or an explicit ``mesh=``)
 runs the session as one rank of a (data, model) mesh of processes
@@ -71,7 +75,7 @@ import torch.nn.functional as F
 from whisper_tpu_torch.models.convert import params_from_numpy
 from whisper_tpu_torch.models.registry import WhisperDims
 from whisper_tpu_torch.models.whisper import WhisperDecoder, WhisperEncoder
-from whisper_tpu_torch.ops.common import disable_tf32
+from whisper_tpu_torch.ops.common import disable_tf32, settle_launches
 from whisper_tpu_torch.runtime.generate import (
     DecodeGraphs,
     build_suppress_mask,
@@ -317,8 +321,8 @@ class WhisperSession:
         self.graphs = DecodeGraphs(self._decoder_params, self._step_weights)
         self.eager_decode = False
         self._draft = None  # (encoder or None, decoder params, dims)
-        # (verify rounds, committed tokens [B] on the device) per batch
-        # bucket of the last speculative transcribe_from_mel call
+        # (verify rounds [1], committed tokens [B], both on the device) per
+        # batch bucket of the last speculative transcribe_from_mel call
         self.speculative_stats: list = []
 
     @staticmethod
@@ -558,13 +562,15 @@ class WhisperSession:
                                   draft_k: int = 4,
                                   early_exit: bool = False):
         """Per batch bucket: [(device result, start, n), ...], the result
-        the tokens or, with with_scores, (tokens, sum_lp, n_tok).  Greedy
-        decoding reads nothing on the host (every step runs), so on a card
-        this returns once the buckets' work is queued; early_exit reads
-        ``done`` once a block of steps (``transcribe_from_mel``'s form).
-        Beam search (num_beams > 1) does the same.  Speculative decoding
-        reads ``done`` once a block of rounds and the round count at the
-        end, whatever early_exit says."""
+        the tokens or, with with_scores, (tokens, sum_lp, n_tok).  On a
+        card greedy decoding, beam search (num_beams > 1) and speculative
+        decoding read nothing on the host (the graphed loops stop on the
+        card), so this returns once the buckets' work is queued;
+        ``speculative_stats`` then holds each bucket's round count on the
+        device, to read after the results.  early_exit is the eager loop's
+        (the CPU, a mesh, ``eager_decode``): it reads ``done`` once a
+        block of steps (``transcribe_from_mel``'s form), else every step
+        runs; its speculative rounds always read."""
         if chunk_norm_n_valid is not None and pad_count is not None:
             raise ValueError("chunk_norm and conditioned prompts are "
                              "mutually exclusive")
@@ -718,10 +724,12 @@ class WhisperSession:
         """A batch of short utterances through mel, encoder and greedy
         decoding (the continuous-batching serving path): tokens [B,
         max_new_tokens] int32."""
-        return self.transcribe_short_batch_async(
+        toks = self.transcribe_short_batch_async(
             padded_audio, n_valid_frames, prompt, max_new_tokens, eot_id,
             suppress_ids, begin_suppress_ids, ts_cfg, early_exit=True,
         ).cpu().numpy().astype(np.int32)
+        settle_launches()
+        return toks
 
     def transcribe_short_batch_async(
         self,
@@ -743,10 +751,11 @@ class WhisperSession:
         (``serve/engine.py``'s trimmed uploads); the zero tail is made on
         the device after the wire decode.  As the JAX program, this returns
         once the work is queued, before the decode ends: the greedy loop
-        reads nothing on the host (every step runs, replayed from a CUDA
-        graph on a card), so the engine's tick pipeline overlaps tick k's
-        decode with the dispatch of tick k+1.  early_exit reads ``done``
-        once a block of steps (``transcribe_short_batch``'s form)."""
+        reads nothing on the host (replayed from a CUDA graph on a card,
+        stopping there once every row is done), so the engine's tick
+        pipeline overlaps tick k's decode with the dispatch of tick k+1.
+        early_exit is the eager loop's: it reads ``done`` once a block of
+        steps (``transcribe_short_batch``'s form)."""
         mel, prompt_t, base_mask, first_mask = self._short_inputs(
             padded_audio, n_valid_frames, prompt, suppress_ids,
             begin_suppress_ids)
@@ -861,10 +870,12 @@ class WhisperSession:
         draft-and-verify with the attached draft (``set_draft_model``):
         tokens [B, max_new_tokens] int32, the greedy tokens at the
         session's precision and cross-KV quantization."""
-        return self.transcribe_short_speculative_async(
+        toks = self.transcribe_short_speculative_async(
             padded_audio, n_valid_frames, prompt, max_new_tokens, eot_id,
             suppress_ids, begin_suppress_ids, draft_k,
         ).cpu().numpy().astype(np.int32)
+        settle_launches()
+        return toks
 
     def transcribe_short_speculative_async(
         self,
@@ -881,10 +892,15 @@ class WhisperSession:
         serving tick's speculative leg): the main encoder, the draft's own
         or with ``share_encoder`` the main one's states, then
         ``speculative_generate`` (its verify pass through B7).  Its rounds
-        replay from CUDA graphs on a card, but unlike
-        ``transcribe_short_batch_async`` it returns after its loop: the
-        number of rounds depends on the draft, so the loop reads ``done``
-        once a block of rounds (ROADMAP: a device-side exit)."""
+        replay from CUDA graphs on a card, each under a conditional node
+        that skips it once every row is done, so like
+        ``transcribe_short_batch_async`` it reads nothing and returns once
+        its max_new_tokens round launches are queued.  The driver queues
+        only so many launches of a large graph ahead of the card: with a
+        whisper-base draft (four whisper-base steps and a verify pass a
+        round) the launches past about the 100th wait for the card to run
+        the rounds before them, so the call returns near the loop's end; a
+        whisper-tiny draft's returns early."""
         if not self.has_draft:
             raise RuntimeError("no draft model attached (set_draft_model)")
         mel, prompt_t, base_mask, first_mask = self._short_inputs(
@@ -899,9 +915,10 @@ class WhisperSession:
                             first_mask, max_new_tokens: int, eot_id: int,
                             draft_k: int):
         """Draft-and-verify over one chunk batch: (device tokens [B,
-        max_new_tokens], (verify rounds, committed tokens [B])).  The cross caches follow cfg.int8_kv_cache and the
-        kernels the session's rung: the draft's steps through B4/B6, the
-        verify pass through B7."""
+        max_new_tokens], (verify rounds, committed tokens [B]), all on the
+        device).  The cross caches follow cfg.int8_kv_cache and the kernels
+        the session's rung: the draft's steps through B4/B6, the verify
+        pass through B7."""
         from whisper_tpu_torch.runtime.speculative import speculative_generate
 
         d_encoder, d_params, d_dims = self._draft
@@ -966,7 +983,8 @@ class WhisperSession:
                       with_scores: bool = False):
         """Copy the results of transcribe_from_mel_async to the host:
         tokens [c, max_new_tokens] int32, with with_scores also sum_lp [c]
-        fp32 and n_tok [c] int32."""
+        fp32 and n_tok [c] int32; then the launches of the graphs' bodies
+        that ran are counted (``ops.common.settle_launches``)."""
         out = np.empty((c, max_new_tokens), dtype=np.int32)
         sum_lp = np.zeros(c, dtype=np.float32)
         n_tok = np.zeros(c, dtype=np.int32)
@@ -978,6 +996,7 @@ class WhisperSession:
             else:
                 toks = result
             out[start:start + n] = toks[:n].cpu().numpy()
+        settle_launches()
         if with_scores:
             return out, sum_lp, n_tok
         return out

@@ -26,10 +26,13 @@ over ``SpecState``, updated in place as the greedy loop's step
 (``runtime.generate``); its ``fori_loop`` over the draft steps is unrolled
 in the round.  On a card each round replays from a CUDA graph per key
 (``SpecKey``, in a ``DecodeGraphs`` that holds the main and the draft
-weights); ``eager=True``, the CPU and a mesh call the round function as it
-is.  The loop reads ``done`` once a block of ``EXIT_BLOCK`` rounds on a
-card (one block behind), once a round on the CPU; the number of rounds is
-data-dependent, so every form reads.  A round adds one to the device
+weights) under the greedy loop's conditional node (``runtime.generate``):
+a call queues max_new_tokens round replays, which bound the loop since
+every undone row commits a token a round, and reads nothing; the card
+skips the round once every row is done, so the rounds run are the rounds
+counted.  ``eager=True``, the CPU and a mesh call the round function as it
+is and read ``done`` once a round, under a mesh on a card once a block of
+``EXIT_BLOCK`` rounds (one block behind).  A round adds one to the device
 round counter only when some row was undone at its start, so ``n_rounds``
 is the JAX ``while_loop``'s trip count however far a block overruns; a
 round past all-done commits nothing (every row is frozen) and writes its
@@ -55,45 +58,11 @@ from whisper_tpu_torch.runtime.generate import (
     run_loop,
 )
 
-# Rounds run between two reads of ``done`` on a card: a round takes 5-7 ms
-# at whisper-base (16 rows, draft_k 4), so a read every two rounds costs the
-# card nothing, and a block overruns all-done by at most three rounds.
+# Rounds the eager loop runs under a mesh on a card between two reads of
+# ``done``: a round takes 5-7 ms at whisper-base (16 rows, draft_k 4), so a
+# read every two rounds costs the card nothing, and a block overruns
+# all-done by at most three rounds.
 EXIT_BLOCK = 2
-
-
-def _verify_pass(params, dims: WhisperDims, tokens, pos, cache,
-                 cross_len=None, int8_mxu: bool = False, mesh=None):
-    """Multi-token decoder pass: tokens [B, K] at per-row positions
-    [pos_r, pos_r+K); logits [B, K, V] and the cache, written in place.
-    With cross_len set, cross-attention runs the multi-query kernel B7: one
-    K/V stream per layer for all K tokens, each query bitwise what the
-    single-token kernel gives."""
-    dec = params["decoder"]
-    dtype = dec["tok_emb"].dtype
-    k = tokens.shape[1]
-    dev = tokens.device
-    pos_idx = pos[:, None] + torch.arange(k, device=dev)[None, :]   # [B, K]
-    x = dec["tok_emb"][tokens] + dec["pos_embed"][pos_idx].to(dtype)
-    max_len = cache.self_k.shape[3]
-    k_idx = torch.arange(max_len, device=dev)[None, None, :]        # [1,1,S]
-    mask = (k_idx <= pos_idx[:, :, None])[:, None]                # [B,1,K,S]
-    x, cache = whisper._decoder_blocks(params, dims, x, cache, pos, mask,
-                                       cross_len=cross_len, int8_mxu=int8_mxu,
-                                       mesh=mesh)
-    return whisper._logits(params, x), cache
-
-
-def _kernel_cross(packed: bool, int8_cross_kv: bool, dims: WhisperDims,
-                  mesh=None) -> bool:
-    """The JAX package's packing gate: the cross-attention kernels serve an
-    int8 cross cache with head_dim 64 and an even head count, and under a
-    mesh only where the head pairs divide the model axis (``(heads // 2)
-    % tp == 0``, JAX session.py:287-289), so both packages take the same
-    path."""
-    tp = 1 if mesh is None else mesh.model
-    return bool(packed and int8_cross_kv and dims.head_dim == 64
-                and dims.decoder_heads % 2 == 0
-                and (dims.decoder_heads // 2) % tp == 0)
 
 
 def _verify_pass(params, dims: WhisperDims, tokens, pos, cache,
@@ -149,6 +118,9 @@ class SpecState(InPlaceState):
         out = [self.n_gen, self.last, self.done, self.buf, self.rounds,
                self.suppress, *self.cache, *self.d_cache]
         return [t for t in out if t is not None]
+
+    def trips(self) -> torch.Tensor:
+        return self.rounds
 
     def owned(self) -> "SpecState":
         return dataclasses.replace(self, suppress=self.suppress.clone())
@@ -261,10 +233,10 @@ def speculative_generate(params, dims: WhisperDims, draft_params,
 
     enc_states / draft_enc_states: each model's encoder states [B, T, d];
     prompt: [P] ids shared by every row; masks: [V] fp32 additive.
-    n_rounds (a host int, read once the loop ends) counts verify passes
-    that had a row undone: with a good draft n_committed / n_rounds
-    approaches draft_k + 1 tokens per pass of the main model, with a
-    useless one about 1.
+    n_rounds (a one-element int64 tensor on the device: read it after the
+    results) counts verify passes that had a row undone: with a good draft
+    n_committed / n_rounds approaches draft_k + 1 tokens per pass of the
+    main model, with a useless one about 1.
 
     int8_cross_kv quantizes BOTH models' cross caches as the greedy path
     does (both prefills run plain, through the same int8 values).
@@ -283,7 +255,9 @@ def speculative_generate(params, dims: WhisperDims, draft_params,
 
     On a card without a mesh the rounds replay from a CUDA graph kept in
     ``graphs`` (a ``DecodeGraphs`` of these main and draft weights; None:
-    captured for this call alone), unless ``eager``."""
+    captured for this call alone), unless ``eager``: nothing is read and
+    the call returns before the loop ends.  The eager loop reads ``done``
+    once a round (under a mesh on a card once ``EXIT_BLOCK`` rounds)."""
     if draft_k < 1:
         # Nothing would be drafted or committed, and the loop would not end.
         raise ValueError(f"draft_k must be >= 1, got {draft_k}")
@@ -328,9 +302,6 @@ def speculative_generate(params, dims: WhisperDims, draft_params,
                          m_cross_len=m_cross_len, d_cross_len=d_cross_len,
                          int8_mxu=int8_mxu, mesh=mesh)
 
-    graphed = dev.type == "cuda" and mesh is None and not eager
-    if graphed and graphs is None:
-        graphs = DecodeGraphs(params, draft_params=draft_params)
     key = SpecKey(b, p, max_new_tokens, draft_k, enc_states.shape[1],
                   draft_enc_states.shape[1], m_cross_len is not None,
                   d_cross_len is not None, int8_mxu, int8_cross_kv, eot_id)
@@ -338,10 +309,10 @@ def speculative_generate(params, dims: WhisperDims, draft_params,
     # bound the loop; it stops where every row is done.
     buf, rounds, n_gen = run_loop(
         init, make_round, 0, max_new_tokens,
-        exit_period(True, dev, EXIT_BLOCK),
-        graphs=graphs if graphed else None, key=key, device=dev,
-        params=params, draft_params=draft_params)
+        exit_period(True, dev, mesh, EXIT_BLOCK), graphs=graphs,
+        key=key, device=dev, params=params, draft_params=draft_params,
+        mesh=mesh, eager=eager)
     # Positions never committed (the overrun slack included) become EOT.
     ar_w = torch.arange(width, device=dev)[None, :]
     buf = torch.where(ar_w < n_gen[:, None], buf, eot_id)[:, :max_new_tokens]
-    return buf, int(rounds), n_gen
+    return buf, rounds, n_gen

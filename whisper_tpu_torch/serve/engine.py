@@ -26,9 +26,15 @@ tick k+1's queued work.  ``warmup`` captures each bucket's greedy loop
 before serving; a key first met while serving is captured under its loop's
 lock, on a stream of its own (``runtime.generate``), while the other lane
 launches.  A speculative tick's rounds replay from CUDA graphs too (its
-keys captured by ``warmup`` as well), but its dispatch returns after its
-loop, which reads whether every row is done once a block of rounds: the
-number of rounds depends on the draft.  Both lanes
+keys captured by ``warmup`` as well), and its dispatch returns once queued
+as a greedy tick's does: each step and round of either runs under a
+conditional node that skips it on the card once every row is done, so no
+tick reads ``done`` on the host.  With a large draft (a whisper-base one)
+the driver's launch queue fills before the last rounds are queued, and the
+tick's dispatch waits there for the card
+(``transcribe_short_speculative_async``).
+``_finish_short`` copies a tick's tokens and then counts the launches of
+the graphs' bodies that ran.  Both lanes
 hold the interpreter lock while they issue work, so a long request slows
 the short lane's host side.
 
@@ -48,6 +54,7 @@ from typing import List, Optional
 import numpy as np
 
 from whisper_tpu_torch.frontend import golden
+from whisper_tpu_torch.ops.common import settle_launches
 from whisper_tpu_torch.pipeline.chunk import CHUNK_FRAMES
 from whisper_tpu_torch.pipeline.longform import transcribe_longform
 from whisper_tpu_torch.runtime.generate import strip_generated
@@ -334,6 +341,7 @@ class StreamingEngine:
         (error-isolating: serving survives a failed tick)."""
         try:
             tokens = device_tokens.cpu().numpy()
+            settle_launches()
             for i, r in enumerate(reqs):
                 gen = strip_generated(tokens[i], self._special.eot)
                 if self.tokenizer is not None:
