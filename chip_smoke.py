@@ -16,7 +16,7 @@ What it does, in order (any failure raises and exits non-zero):
    and B10b's kernels the LN-and-product kernel cp.async and fp64 mma.sync
    (DMMA), B10a's attention cp.async, B10b's bulk copies and the O product
    cp.async, ldmatrix and bf16 mma.sync.
-3. Runs each kernel (B1-B10c, sixteen rows) against its plain PyTorch
+3. Runs each kernel (B1-B10c, sixteen rows, and the sampled pick) against its plain PyTorch
    version on the card at the shapes its path gives it (whisper-base, batch
    bucket 16: B1-B4 at x5, B6 at x4, B8 at x7, B9a/B9b with the fused
    encoder block, B10c in the hybrid decode step, B7 with five queries a
@@ -24,7 +24,11 @@ What it does, in order (any failure raises and exits non-zero):
    in the fully fused decode step; B5 at the one-shot limit of 7,680
    frames, beside the composition of PyTorch calls around ``torch.stft``
    (cuFFT) that computes the same function; B2 and B9a also at
-   whisper-medium's d=1024), prints the
+   whisper-medium's d=1024), and the sampled pick of a decode step at T > 0
+   (``ops.sampling``, no Pallas counterpart: a Philox Gumbel-max draw keyed
+   by the loop's state) at bucket 16 over whisper-base's 51,865 ids, its
+   ids, uniforms and scores bitwise the plain version's, beside the
+   composition ``exponential_`` ... ``argmax`` the loops ran before, prints the
    largest difference, the time of one call of each (median of five runs
    of 20 calls), the least time the card could take for the same work (the
    larger of its bytes over 3.35 TB/s and its operations over the peak rate
@@ -73,8 +77,8 @@ What it does, in order (any failure raises and exits non-zero):
    the encoder and twelve teacher-forced decode steps.
 5. Drives the main path, ``whisper_tpu_torch.headline``'s workload
    (whisper-base, random weights from seed 0, rung x5, the 301.574 s
-   synthetic file; the decode steps replayed from a CUDA graph captured in
-   the warm-up), once to warm up and then three timed times, with every
+   synthetic file; each decode one launch of a CUDA graph captured in the
+   warm-up), once to warm up and then three timed times, with every
    kernel's launch count set to 0 just before each run and read just after;
    asserts the token shape, identical tokens across runs, finite encoder
    states and logits, and that every kernel of the path was launched.
@@ -90,8 +94,7 @@ What it does, in order (any failure raises and exits non-zero):
    Prints e2e, model time and launches of each beside x5's.
 7. Speculative decoding on the same file: x5 with a random whisper-tiny
    draft (draft_k = 4; B7 once per layer and verify round run, the rounds
-   replayed from a graph: the rounds counted, and up to two blocks of
-   rounds more run past all-done), x5 with
+   run by a graph's while node: the rounds counted), x5 with
    whisper-base as its own draft sharing the encoder (the accept path:
    about ceil(128 / 5) rounds), x4 with the tiny draft (B7's dequantizing
    kernel).  The two x5 runs must give the same tokens (one rejects nearly
@@ -170,18 +173,19 @@ What it does, in order (any failure raises and exits non-zero):
    the 127 eager steps once more under torch.profiler: B10a's, B10b's and
    B10c's in-situ time a call, by kernel, and the device time a step.
 8b. ``[graph]`` (``check_graph``): the greedy loop that every session runs
-   on the card replays its steps from CUDA graphs (``runtime.generate``);
+   on the card is one launch of a CUDA graph a decode (``runtime.generate``);
    here it is held against the same step function run eagerly
    (``session.eager_decode``): (a) the main path at x5, graphed and eager
    alternated, three runs each: tokens bitwise and launches equal, e2e and
    ms a decode step of both beside the fully fused step's replay; (b) the
    bucket of 16 at x3, x4, x5, x7, both fused flags, the grammar, a 68-slot
    left-padded prompt through B3 and B8, and sampling at T = 0.5 with a
-   seed: tokens bitwise and every kernel's launches equal (the sampled
-   draws: two graphed runs equal; equal to the eager draws, printed);
-   (c) the host seconds until ``transcribe_from_mel_async`` returns against
-   the card's span of the work it queued, and the sequential mode's
-   windows replaying a bucket-1 graph with the grammar and ``pad_count``;
+   seed: tokens bitwise (the sampled draws too: the key is in the loop's
+   state), every kernel's launches equal, one graph launch a call;
+   (c) the host seconds until ``transcribe_from_mel_async`` returns beside
+   those to queue the encoder alone and against the card's span of the
+   work it queued, one graph launch a call, and the sequential mode's
+   windows running a bucket-1 graph with the grammar and ``pad_count``;
    (d) capture seconds a key and the peak device memory of an x5 session,
    eager and graphed.  The main path, the ladder, the decoding options,
    the prompts, serving and the pipelined mode above all run graphed.
@@ -194,9 +198,10 @@ What it does, in order (any failure raises and exits non-zero):
    launches equal, rounds counted and run, e2e; at x5 ms a round; each
    new key's capture seconds and kept state.  The eager loops of (b), (e)
    and (f) read ``done`` every step (round), where the graphed ones stop.
-8c. ``[exit]`` (``check_exit``): every graphed greedy step, beam step and
-   speculative round runs under a CUDA-graph conditional node on "some row
-   undone" (``runtime.generate._if_node``), so the card stops where
+8c. ``[exit]`` (``check_exit``): every graphed greedy, beam and speculative
+   decode is one launch of a graph whose step (round) is the body of a
+   CUDA-graph while node on "trips < n and some row undone"
+   (``runtime.generate._while_node``), so the card stops where
    ``lax.while_loop`` stops.  An end-of-text id that the 301.574 s file's
    chunks emit at steps of their own within 12, a bucket of 16 of those
    chunks and one of 1; against the eager loop reading ``done`` every
@@ -205,12 +210,12 @@ What it does, in order (any failure raises and exits non-zero):
    (only those chunks' first ids kept, so every beam ends); (c)
    speculative with a random whisper-tiny draft and with the model's own
    int8 weights; launches equal throughout; device ms of each decode
-   beside the same call with no row ending, and the host ms until each
-   ``_async`` form (``transcribe_short_speculative_async`` too) returns
-   beside the card's span of its work; with the tiny draft the
-   speculative dispatch must return within half its span (the own-weights
-   draft's round graphs fill the driver's launch queue, so its dispatch
-   waits in its last launches: printed, not required).
+   beside the same call with no row ending (greedy and beams then run
+   exactly n - first = 127 steps), and the host ms until each ``_async``
+   form (``transcribe_short_speculative_async`` too) returns, one graph
+   launch, beside the host ms to queue the encoder alone and the card's
+   span of its work; with either draft the speculative dispatch must
+   return within half its span.
 9. Drives the benchmark CLI (``whisper_tpu_torch.bench.cli.main``, in
    process) over four synthetic WAV files (4 s; 29.5 s at 44.1 kHz stereo;
    76 s, just under the one-shot limit; 150 s, streamed) at whisper-base
@@ -374,7 +379,8 @@ def check_kernels(card: str) -> list:
     from whisper_tpu_torch.headline import synth_audio
     from whisper_tpu_torch.ops import attention, cross_attention, encoder_mlp
     from whisper_tpu_torch.ops import decoder_kernels, encoder_block
-    from whisper_tpu_torch.ops import kernels, log_mel, self_attention
+    from whisper_tpu_torch.ops import kernels, log_mel, sampling
+    from whisper_tpu_torch.ops import self_attention
     from whisper_tpu_torch.pipeline.chunk import mel_frame_bucket
     from whisper_tpu_torch.profile_ladder import mel_composition
 
@@ -626,6 +632,27 @@ def check_kernels(card: str) -> list:
         (2 * b * h * t * dh + 2 * d * d + 4 * d + 2 * b * d) * 2,
         4 * b * h * t * dh + 4 * b * d * d, "fp32")
 
+    # The sampled pick of a decode step at T > 0 (no Pallas counterpart:
+    # the JAX loop draws with jax.random.categorical, the key in its carry):
+    # bucket 16 over whisper-base's vocabulary, suppressed ids at -inf, T,
+    # the key and the step on the card; the ids, and the uniforms and
+    # scores it writes when asked, bitwise the plain version's.
+    vocab = 51865
+    pick_logits = torch.randn(b, vocab, generator=g, device=dev) * 4.0
+    pick_logits[:, ::50] = float("-inf")
+    pick_args = (pick_logits, torch.full((1,), 0.5, device=dev),
+                 sampling.generator_key(
+                     torch.Generator(device=dev).manual_seed(3), dev),
+                 torch.full((1,), 7, dtype=torch.int64, device=dev))
+    rows.append(("gumbel_pick", (sampling, "launches"), "gumbel_pick.cu",
+                 "none: whisper_tpu/runtime/generate.py:97 (pick draws with "
+                 "jax.random.categorical)",
+                 lambda: sampling.gumbel_pick(*pick_args),
+                 lambda: sampling.gumbel_pick_plain(*pick_args), 0.0))
+    # the logits read once, the ids written; Philox's integer work is far
+    # under the card's rate
+    work["gumbel_pick"] = (b * vocab * 4 + b * 8, 0, "fp32")
+
     # What a launch through the library's C interface costs when the kernel
     # does nothing: the floor under every kernel whose bound is microseconds.
     lib = kernels.library()
@@ -660,6 +687,15 @@ def check_kernels(card: str) -> list:
             if not torch.equal(mine, theirs):
                 raise AssertionError(f"{name}: a cache buffer differs from "
                                      "the plain version's after the insert")
+        if name == "gumbel_pick":
+            draws = sampling.gumbel_pick(*pick_args, with_draws=True)[1:]
+            plain_draws = sampling.gumbel_scores_plain(*pick_args)
+            if not (torch.equal(got, want) and all(
+                    torch.equal(m_, p_) for m_, p_ in zip(draws,
+                                                          plain_draws))):
+                raise AssertionError("gumbel_pick: the ids, uniforms or "
+                                     "scores are not bitwise the plain "
+                                     "version's")
         ms, plain_ms = _median_ms(kern), _median_ms(plain)
         bound_ms, bound_by = _bound(*work[name])
         library_ms = _median_ms(library[name]) if name in library else None
@@ -686,6 +722,13 @@ def check_kernels(card: str) -> list:
           f"of five PyTorch calls in bf16 (layer_norm, linear, gelu, linear, "
           f"add; no one call computes B10c) {comp_ms:.4f} ms on {card}",
           flush=True)
+    comp_ms = _median_ms(lambda: _pick_composition(*pick_args[:2]))
+    by_name["gumbel_pick"]["composition_ms"] = comp_ms
+    print(f"[kernel] the sampled pick at bucket 16, V = {vocab}: ids, "
+          f"uniforms and scores bitwise the plain version's; "
+          f"{by_name['gumbel_pick']['ms']:.4f} ms against the composition "
+          f"exponential_, clamp_min_, log, div, sub, argmax (no one call "
+          f"samples from logits) {comp_ms:.4f} ms on {card}", flush=True)
     check_b1_b4_edges(card, by_name, randn, q.shape, (qx, k8, v8, ks, vs))
     check_b6_edges(card, by_name, randn, (qx, k8, v8, ks, vs), qm)
     check_b2_b3_edges(card, by_name, randn, mlp_args, med_args,
@@ -799,6 +842,17 @@ def check_kernels(card: str) -> list:
           f"{by_name['decoder_cross_block']['device_ops_per_call']:g}",
           flush=True)
     return out
+
+
+def _pick_composition(logits, temperature):
+    """The sampled pick as PyTorch calls (the draw the loops made before the
+    key moved into their state): argmax(logits / T - log E), E ~ Exp(1)
+    from torch's generator, floored at the smallest normal float."""
+    import torch
+
+    e = torch.empty_like(logits).exponential_()
+    return torch.argmax(logits / temperature - torch.log(
+        e.clamp_min_(torch.finfo(torch.float32).tiny)), -1)
 
 
 def _mlp_composition(x, ln, w1, b1, w2, b2):
@@ -1418,7 +1472,7 @@ MAIN_PATH_KERNELS = ("fused_attention", "fused_encoder_mlp",
 def _counts(results) -> dict:
     """Every kernel's count, once the launches of the graphs' bodies that
     ran are added (``ops.common.settle_launches``: a graphed decode loop's
-    replays count where the results reach the host)."""
+    bodies count where the results reach the host)."""
     from whisper_tpu_torch.ops.common import settle_launches
 
     settle_launches(wait=True)
@@ -1664,9 +1718,9 @@ def check_speculative(card: str, results, params, dims, audio, x5) -> dict:
         if toks.shape != greedy[2].shape or not (
                 (toks >= 0) & (toks < dims.vocab_size)).all():
             raise AssertionError(f"{label}: tokens {toks.shape}")
-        # B7 once a layer and round run; the rounds replay from a graph,
-        # each under a conditional node that stops them on the card where
-        # the last row ends, so every round run is counted
+        # B7 once a layer and round run; the rounds run as the body of a
+        # graph's while node that stops on the card where the last row
+        # ends, so every round run is counted
         b7 = c["cross_attend_multi"]           # either B7 kernel
         ran = b7 // n_l
         if b7 != ran * n_l or not 1 <= rounds == ran:
@@ -1879,6 +1933,26 @@ def check_fused_step(card: str, results, params, dims, audio) -> dict:
 
 
 @contextlib.contextmanager
+def _graph_launches():
+    """Within the block every launch of a CUDA graph (``CUDAGraph.replay``)
+    adds one to the list yielded: a graphed decode is one launch."""
+    import torch
+
+    launches = []
+    replay = torch.cuda.CUDAGraph.replay
+
+    def counted(graph):
+        launches.append(1)
+        replay(graph)
+
+    torch.cuda.CUDAGraph.replay = counted
+    try:
+        yield launches
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
+
+
+@contextlib.contextmanager
 def _eager_loop(session):
     """Within the block ``session``'s decode loops (greedy, beams,
     speculative rounds) run their in-place step eagerly on the card
@@ -1910,27 +1984,31 @@ GRAPH_CONFIGS = (
 
 
 def check_graph(card: str, results, params, dims, audio, x5,
-                fused_ms: float) -> None:
-    """The greedy loop replayed from CUDA graphs against the same loop run
+                fused_ms: float) -> dict:
+    """The greedy loop run from CUDA graphs against the same loop run
     eagerly (``[graph]`` lines), whisper-base, the 301.574 s file, 128
     tokens: (a) the main path (x5), graphed and eager alternated, three runs
     each after a warm-up of each: tokens bitwise and launches equal, e2e
     (median) and ms a step of the bucket's decode (host clock, one sync at
     the end, the prefill's time taken out) beside the fully fused step's
     replay; (b) the bucket of 16 through ``session._greedy`` graphed (the
-    capture's call and a replay) and eagerly at x3, x4, x5, x7, both fused
+    capture's call and a later one) and eagerly at x3, x4, x5, x7, both fused
     flags, the grammar, left-padded prompts through B3 and B8, and sampling
-    at T = 0.5 with scores (twice one seed: equal; equal to the eager draws
-    is printed): tokens (and scores) bitwise, every kernel's launches
-    equal; (c) the host seconds until ``transcribe_from_mel_async`` returns
-    against the card's span of the work it queued (CUDA events), and the
+    at T = 0.5 with scores (the key in the loop's state, so the graphed
+    draws are the eager loop's): tokens (and scores) bitwise, every
+    kernel's launches equal, one graph launch a call; (c) the host seconds
+    until ``transcribe_from_mel_async`` returns beside the host seconds to
+    queue the encoder alone and against the card's span of the work it
+    queued (CUDA events), one graph launch a call, and the
     sequential mode's windows graphed (bucket 1, the grammar, pad_count);
     (d) each key's capture seconds; the device memory an x5 session keeps
     (``memory_allocated()`` after its run, less before the session, and
     the peak) run eagerly and then graphed; and, in a fresh x5 session,
     what it keeps as keys add up: the buckets 1-16 warmed, the fallback
     ladder's temperatures with scores at each bucket (every T > 0 one key),
-    four prompt lengths at bucket 1, beside the state its graphs count."""
+    four prompt lengths at bucket 1, beside the state its graphs count.
+    Returns the launch counts of the sampled decode's graphed run (its
+    path: the only one that launches the pick kernel)."""
     import numpy as np
     import torch
 
@@ -2075,35 +2153,40 @@ def check_graph(card: str, results, params, dims, audio, x5,
                 extra["generator"] = torch.Generator(
                     device="cuda").manual_seed(seed)
             _zero_counts(results)
-            if eager:
-                with _eager_loop(s_):
+            with _graph_launches() as graph_launches:
+                if eager:
+                    with _eager_loop(s_):
+                        out = s_._greedy(enc_, p_t, *masks, 128, eot, **kw,
+                                         **extra)
+                else:
                     out = s_._greedy(enc_, p_t, *masks, 128, eot, **kw,
                                      **extra)
-            else:
-                out = s_._greedy(enc_, p_t, *masks, 128, eot, **kw, **extra)
             out = tuple(t.cpu() for t in out) if isinstance(out, tuple) \
                 else (out.cpu(),)
-            return out, _counts(results)
+            return out, _counts(results), len(graph_launches)
 
-        eager_out, eager_c = run(eager=True)
-        got = [run(), run()]               # the capture's call, a replay
-        if any(not all(torch.equal(a, b_) for a, b_ in zip(g[0], got[0][0]))
-               for g in got):
-            raise AssertionError(f"(b) {label}: two graphed runs differ")
-        same = all(torch.equal(a, b_) for a, b_ in zip(got[0][0], eager_out))
-        if seed is None and not same:
-            raise AssertionError(f"(b) {label}: graphed tokens differ from "
-                                 "the eager loop's")
-        if any(g[1] != eager_c for g in got):
+        eager_out, eager_c, _ = run(eager=True)
+        got = [run(), run()]               # the capture's call, a later one
+        if not all(all(torch.equal(a, b_) for a, b_ in zip(g[0], eager_out))
+                   for g in got):
+            raise AssertionError(f"(b) {label}: graphed tokens (or scores) "
+                                 "differ from the eager loop's")
+        if any(g[1] != eager_c for g in got) or any(g[2] != 1 for g in got):
             raise AssertionError(f"(b) {label}: launches graphed "
-                                 f"{[g[1] for g in got]}, eager {eager_c}")
+                                 f"{[g[1] for g in got]}, eager {eager_c}; "
+                                 f"graph launches a call "
+                                 f"{[g[2] for g in got]}, want 1")
+        if (eager_c["gumbel_pick"] > 0) != (seed is not None):
+            raise AssertionError(f"(b) {label}: the sampled pick launched "
+                                 f"{eager_c['gumbel_pick']} times")
+        if seed is not None:
+            sampled_counts = got[1][1]
         launched = {k: v for k, v in eager_c.items() if v}
-        verdict = ("bitwise the eager loop's" if same else
-                   "not the eager loop's draws (the graph draws others)")
         print(f"[graph] (b) {label}, bucket {b}, 128 tokens, on {card}: "
-              f"graphed tokens {verdict}"
-              f"{'' if seed is None else ', two runs of seed 3 equal'}; "
-              f"launches equal {launched}", flush=True)
+              f"graphed tokens bitwise the eager loop's"
+              f"{'' if seed is None else ' (sampled: the key in the state)'}"
+              f"; one graph launch a call; launches equal {launched}",
+              flush=True)
         note(label, s_)
 
     # (c) the async dispatch, and the sequential mode's windows
@@ -2112,15 +2195,21 @@ def check_graph(card: str, results, params, dims, audio, x5,
                               mel_frame_bucket(nv))
     starts = [p_ // golden.HOP for p_ in chunk_starts(len(audio), 480_000,
                                                       400_000)]
-    dispatch = []
+    chunks = _bucket_chunks(session, audio)
+    dispatch, enc_host = [], []
     for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session.encoder(chunks)
+        enc_host.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
         ev0, ev1 = torch.cuda.Event(True), torch.cuda.Event(True)
         ev0.record()
         t0 = time.perf_counter()
-        pieces = session.transcribe_from_mel_async(
-            mel, starts, prompt, 128, eot, gen_cfg.suppress_tokens,
-            gen_cfg.begin_suppress_tokens)
+        with _graph_launches() as graph_launches:
+            pieces = session.transcribe_from_mel_async(
+                mel, starts, prompt, 128, eot, gen_cfg.suppress_tokens,
+                gen_cfg.begin_suppress_tokens)
         host_s = time.perf_counter() - t0
         ev1.record()
         toks = session.gather_tokens(pieces, len(starts), 128)
@@ -2129,8 +2218,12 @@ def check_graph(card: str, results, params, dims, audio, x5,
         if not np.array_equal(toks, x5[2]):
             raise AssertionError("(c) async tokens differ from the main "
                                  "path's")
+        if len(graph_launches) != 1:
+            raise AssertionError(f"(c) {len(graph_launches)} graph launches "
+                                 "an _async call, want 1")
     host_s, dev_s, all_s = (statistics.median(d[i] for d in dispatch[1:])
                             for i in range(3))
+    enc_s = statistics.median(enc_host[1:])
     transcribe_sequential(session, synth_audio(76.0), "en", "transcribe",
                           128, condition_on_prev_text=True)
     seq_keys = [k for k in session.graphs.captures()
@@ -2141,7 +2234,8 @@ def check_graph(card: str, results, params, dims, audio, x5,
     note("sequential windows", session)
     print(f"[graph] (c) whisper-base x5, {len(starts)} chunks, on {card}: "
           f"transcribe_from_mel_async returns after {host_s * 1e3:.3f} ms of "
-          f"host time; the card's span of the work it queued "
+          f"host time (one graph launch; queueing the encoder alone "
+          f"{enc_s * 1e3:.3f} ms); the card's span of the work it queued "
           f"{dev_s * 1e3:.3f} ms; to the tokens on the host "
           f"{all_s * 1e3:.3f} ms (median of 3 after one); the sequential "
           f"mode's windows replay {len(seq_keys)} graph(s) of bucket 1 with "
@@ -2205,6 +2299,7 @@ def check_graph(card: str, results, params, dims, audio, x5,
                       for label, n, m, c in stages)
           + f"; budget {_budget(torch.device('cuda', 0)) * gib:.4f} GiB; "
           f"[graph] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return sampled_counts
 
 
 def _alternated(results, fns: dict, rounds: int):
@@ -2254,7 +2349,7 @@ def _kept_line(session, kind: str) -> str:
 
 
 def check_graph_beam_spec(card: str, results, params, dims, audio) -> None:
-    """Beam search and speculative rounds replayed from CUDA graphs against
+    """Beam search and speculative rounds run from CUDA graphs against
     the same loops run eagerly (``[graph]`` (e), (f) lines), whisper-base,
     the 301.574 s file, 128 tokens, the eager loops reading ``done`` every
     step (round), where the graphed ones stop.  (e) beams K = 4 (64 beam
@@ -2497,9 +2592,9 @@ def _ending_id(toks, steps: int = 12):
 
 def check_exit(card: str, results, params, dims, audio) -> None:
     """The decode loops' exit on the card (``[exit]`` lines): each graphed
-    greedy step, beam step and speculative round runs under a conditional
-    node on "some row undone", so the card stops where ``lax.while_loop``
-    stops.  whisper-base x5, the 301.574 s file's chunks, 128 tokens; an
+    greedy, beam and speculative decode is one launch of a graph whose
+    step (round) is the body of a while node on "trips < n and some row
+    undone", so the card stops where ``lax.while_loop`` stops.  whisper-base x5, the 301.574 s file's chunks, 128 tokens; an
     end-of-text id that the file's chunks emit at steps of their own within
     12 (``_ending_id``, from the eager decode with the real end-of-text,
     which random weights never emit), and a bucket of 16 made of the
@@ -2512,11 +2607,13 @@ def check_exit(card: str, results, params, dims, audio) -> None:
     speculative with a random whisper-tiny draft and with the model's own
     int8 weights: tokens and rounds bitwise, launches equal, rounds run
     (B7 launches / layers) the rounds counted.  Beside each, device ms of
-    the decode (CUDA events) against the same call whose rows never end,
-    and the host ms until each ``_async`` form returns against the card's
-    span of the work it queued (``transcribe_short_speculative_async``:
-    the serving tick's leg, 16 windows of 30 s; with the tiny draft within
-    half the span).  Any mismatch raises."""
+    the decode (CUDA events) against the same call whose rows never end
+    (greedy and beams: exactly n - first = 127 steps), and the host ms
+    until each ``_async`` form returns, one graph launch, beside the host
+    ms to queue the encoder alone and against the card's span of the work
+    it queued (``transcribe_short_speculative_async``: the serving tick's
+    leg, 16 windows of 30 s; with either draft within half the span).  Any
+    mismatch raises."""
     import numpy as np
     import torch
 
@@ -2575,7 +2672,7 @@ def check_exit(card: str, results, params, dims, audio) -> None:
 
     def async_ms(fn, calls: int = 3):
         """Median (host ms until ``fn()`` returns, device ms of the span
-        of the work it queued), warmed."""
+        of the work it queued), warmed; each call one graph launch."""
         fn()
         out = []
         for _ in range(calls):
@@ -2583,13 +2680,27 @@ def check_exit(card: str, results, params, dims, audio) -> None:
             ev0, ev1 = torch.cuda.Event(True), torch.cuda.Event(True)
             ev0.record()
             t0 = time.perf_counter()
-            res = fn()
+            with _graph_launches() as graph_launches:
+                res = fn()
             host = (time.perf_counter() - t0) * 1e3
             ev1.record()
             ev1.synchronize()
             out.append((host, ev0.elapsed_time(ev1)))
             del res
+            if len(graph_launches) != 1:
+                raise AssertionError(f"[exit] {len(graph_launches)} graph "
+                                     "launches an _async call, want 1")
         return tuple(statistics.median(o[i] for o in out) for i in (0, 1))
+
+    def queue_ms(fn, calls: int = 3):
+        """Median host ms until ``fn()`` returns, the card idle before."""
+        out = []
+        for _ in range(calls + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out[1:])
 
     def same(label, runs):
         """Every run's result and counts those of the first (the eager
@@ -2607,6 +2718,8 @@ def check_exit(card: str, results, params, dims, audio) -> None:
 
     # (a) greedy, bucket 16 and 1
     for b, b_starts in buckets.items():
+        chunks_b = chunks_of(b_starts)
+        enc_ms = queue_ms(lambda: session.encoder(chunks_b))
         def sync(e=eot, st=b_starts):
             return session.transcribe_from_mel(mel, st, prompt, 128, e, *sup,
                                                with_scores=True)
@@ -2630,10 +2743,16 @@ def check_exit(card: str, results, params, dims, audio) -> None:
                 * n_l):
             raise AssertionError(f"[exit] (a) bucket {b}: {steps} steps run, "
                                  f"the while loop's {trip}; launches {c}")
-        enc = session.encoder(chunks_of(b_starts))
+        enc = session.encoder(chunks_b)
         ms = {name: device_ms(lambda e=e: session._greedy(
             enc, prompt_t, *masks, 128, e, early_exit=False))
             for name, e in (("ending", eot), ("never ending", never))}
+        _, _, c_never = _decode_run(results, lambda: session._greedy(
+            enc, prompt_t, *masks, 128, never))
+        if c_never["self_attend_step"] != 127 * n_l:
+            raise AssertionError(f"[exit] (a) bucket {b}, no row ending: "
+                                 f"{c_never['self_attend_step'] / n_l} "
+                                 "steps run, want n - first = 127")
         host, span = async_ms(lambda st=b_starts: session.transcribe_from_mel_async(
             mel, st, prompt, 128, eot, *sup))
         print(f"[exit] (a) greedy x5, bucket {b}, on {card}: tokens, sum_lp "
@@ -2642,15 +2761,18 @@ def check_exit(card: str, results, params, dims, audio) -> None:
               f"steps run = the while loop's trip count {trip}; launches "
               f"equal {c['self_attend_step']} B3, {c['cross_attend_step']} "
               f"B4; the decode's device ms {ms['ending']:.4f}, "
-              f"{ms['never ending']:.4f} with no row ending (median of 3); "
-              f"transcribe_from_mel_async returns after {host:.3f} ms of "
-              f"host time, the card's span of its work {span:.3f} ms",
-              flush=True)
+              f"{ms['never ending']:.4f} with no row ending (median of 3; "
+              f"127 = n - first steps run); transcribe_from_mel_async "
+              f"returns after {host:.3f} ms of host time, one graph launch "
+              f"(queueing the encoder alone {enc_ms:.3f} ms), the card's "
+              f"span of its work {span:.3f} ms", flush=True)
 
     # (b) beams K = 4, bucket 16, the ids of those rows' first steps kept
     # (every other id suppressed), so that every beam ends
     b_starts = buckets[16]
-    enc = session.encoder(chunks_of(b_starts))
+    chunks16 = chunks_of(b_starts)
+    enc = session.encoder(chunks16)
+    enc_ms = queue_ms(lambda: session.encoder(chunks16))
     keep = {int(t) for t in base[rows, :13].flatten()} | {eot}
     b_sup = ([i for i in range(dims.vocab_size) if i not in keep], sup[1])
     b_masks = session._get_masks(*b_sup)
@@ -2688,6 +2810,11 @@ def check_exit(card: str, results, params, dims, audio) -> None:
                              f"{c}, {c2}")
     ms = {name: device_ms(lambda e=e: beams(e)) for name, e in (
         ("ending", eot), ("never ending", never))}
+    _, _, c_never = _decode_run(results, lambda: beams(never))
+    if c_never["cross_attend_step"] != 127 * n_l:
+        raise AssertionError(f"[exit] (b) beams, no beam ending: "
+                             f"{c_never['cross_attend_step'] / n_l} steps "
+                             "run, want n - first = 127")
     host, span = async_ms(lambda: session.transcribe_from_mel_async(
         mel, b_starts, prompt, 128, eot, *b_sup, num_beams=4))
     print(f"[exit] (b) beams K = 4 x5, bucket 16 (64 beam rows), ids kept "
@@ -2698,8 +2825,10 @@ def check_exit(card: str, results, params, dims, audio) -> None:
           f"{'(every beam ended)' if steps < 127 else '(a beam ran to the bound)'}"
           f", launches equal {c['cross_attend_step']} B4; the decode's "
           f"device ms {ms['ending']:.4f}, {ms['never ending']:.4f} with no "
-          f"beam ending; the _async form returns after {host:.3f} ms of host "
-          f"time, the card's span {span:.3f} ms", flush=True)
+          f"beam ending (127 = n - first steps run); the _async form returns "
+          f"after {host:.3f} ms of host time, one graph launch (queueing the "
+          f"encoder alone {enc_ms:.3f} ms), the card's span {span:.3f} ms",
+          flush=True)
 
     # (c) speculative
     tiny = get_dims("openai/whisper-tiny")
@@ -2708,11 +2837,11 @@ def check_exit(card: str, results, params, dims, audio) -> None:
                        for i in range(16)])
     n_valid = np.full(16, 3000, np.int32)
     chunks = chunks_of(b_starts)
-    for label, draft, d_dims, share, ahead in (
+    for label, draft, d_dims, share in (
             ("a random whisper-tiny draft", init_params(tiny, seed=1), tiny,
-             False, True),
+             False),
             ("its own int8 weights as draft", quantize_params(params), dims,
-             True, False)):
+             True)):
         session.set_draft_model(draft, d_dims, share_encoder=share)
 
         def spec(e=eot):
@@ -2744,13 +2873,7 @@ def check_exit(card: str, results, params, dims, audio) -> None:
             chunks, enc, prompt_t, *masks, 128, never, 4))
         host, span = async_ms(lambda: session.transcribe_short_speculative_async(
             padded, n_valid, prompt, 128, never, *sup))
-        # The driver queues only so many launches of a graph this size
-        # ahead of the card (about 100 of an own-weights round: four
-        # whisper-base draft steps and a verify pass, under the node or
-        # captured flat alike, profile_ladder --conditional): that draft's
-        # dispatch waits in its last launches.
-        if ahead and not (loop_host < 0.5 * loop_span
-                          and host < 0.5 * span):
+        if not (loop_host < 0.5 * loop_span and host < 0.5 * span):
             raise AssertionError(
                 f"[exit] (c) {label}: the _async dispatch returned after "
                 f"{host:.3f} ms of a {span:.3f} ms span (the rounds alone "
@@ -2763,9 +2886,9 @@ def check_exit(card: str, results, params, dims, audio) -> None:
               f"device ms {ms['ending']:.4f}, {ms['never ending']:.4f} with "
               f"no row ending; transcribe_short_speculative_async (16 x 30 "
               f"s, no row ending) returns after {host:.3f} ms of host time, "
-              f"the card's span of its work {span:.3f} ms (the prefills and "
-              f"rounds alone: {loop_host:.3f} ms host, {loop_span:.3f} ms "
-              f"span)", flush=True)
+              f"one graph launch, the card's span of its work {span:.3f} ms "
+              f"(the prefills and rounds alone: {loop_host:.3f} ms host, "
+              f"{loop_span:.3f} ms span); within half the span", flush=True)
     del session
     print(f"[exit] phase {time.perf_counter() - t_phase:.1f} s, on {card}",
           flush=True)
@@ -2959,13 +3082,17 @@ def check_decoding(card: str, results, params, dims, audio, x5) -> None:
         drawn = np.concatenate([r[2].reshape(-1) for r in rungs])
         if np.isin(drawn, supp).any():
             raise AssertionError(f"ladder, seed {seed}: a suppressed id drawn")
+        if c["gumbel_pick"] == 0:
+            raise AssertionError(f"ladder, seed {seed}: the sampled rungs "
+                                 "launched no pick kernel")
         ladders.append([r[2] for r in rungs])
         print(f"[decoding] (c) fallback ladder {DEFAULT_TEMPERATURES}, seed "
               f"{seed}, whisper-base x5, on {card}: e2e {secs:.4f} s, model "
               f"{timing.model_only_s:.4f} s for {len(rungs)} rungs of "
               f"{len(starts)} chunks; every chunk accepted at 1.0; no "
               f"suppressed id among {drawn.size} tokens; B4 launches "
-              f"{c['cross_attend_step']}", flush=True)
+              f"{c['cross_attend_step']}, the pick kernel's "
+              f"{c['gumbel_pick']}", flush=True)
     same = all((a == b).all() for a, b in zip(*ladders[:2]))
     other = [float((a == b).mean()) for a, b in zip(ladders[0], ladders[2])]
     if not same or min(other[1:]) == 1.0:
@@ -4746,7 +4873,8 @@ def main() -> None:
     check_pipelined(card, results, params, dims, audio)
     fused_step, fused_ms = check_fused_step(card, results, params, dims,
                                             audio)
-    check_graph(card, results, params, dims, audio, x5_run, fused_ms)
+    sampled = check_graph(card, results, params, dims, audio, x5_run,
+                          fused_ms)
     check_graph_beam_spec(card, results, params, dims, audio)
     check_exit(card, results, params, dims, audio)
     medium = check_medium_fused_block(card, results)
@@ -4771,7 +4899,8 @@ def main() -> None:
                "cross_attend_multi_dequant":
                    spec["x4"]["cross_attend_multi_dequant"],
                "decoder_self_block": fused_step["decoder_self_block"],
-               "decoder_cross_block": fused_step["decoder_cross_block"]}
+               "decoder_cross_block": fused_step["decoder_cross_block"],
+               "gumbel_pick": sampled["gumbel_pick"]}
     for r in results:
         r["launches"] = path_of.get(r["name"], main_counts[r["name"]])
         if r["launches"] < 1:

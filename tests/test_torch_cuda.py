@@ -17,6 +17,8 @@ The front end (B5, fp32 out) is held to 1e-4 on the normalized mel, the
 card-vs-CPU mel bound of ``chip_smoke.py``.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -25,7 +27,7 @@ from whisper_tpu_torch.frontend import golden
 from whisper_tpu_torch.frontend.mel import normalize
 from whisper_tpu_torch.ops import attention, cross_attention, encoder_mlp
 from whisper_tpu_torch.ops import decoder_kernels, encoder_block
-from whisper_tpu_torch.ops import log_mel, self_attention
+from whisper_tpu_torch.ops import log_mel, sampling, self_attention
 from whisper_tpu_torch.ops.common import disable_tf32, settle_launches
 
 pytestmark = pytest.mark.cuda
@@ -1060,7 +1062,8 @@ def _small_model(seed=0):
 def test_sampled_step_with_a_cuda_generator(gen):
     """temperature > 0 through the x5 kernel step: a generator on the card
     repeats its draws per seed, another seed draws others, no suppressed id
-    is drawn, and a generator on the CPU is refused by the draw itself."""
+    is drawn, and a generator on the CPU is refused (its key would have
+    no offset)."""
     from whisper_tpu_torch.runtime.generate import (
         build_suppress_mask,
         greedy_generate,
@@ -1483,7 +1486,8 @@ GRAPH_RUNGS = {
                int8_self=True),
 }
 GRAPH_CASES = [("x4", ""), ("x5", ""), ("x7", ""), ("x5", "pads"),
-               ("x7", "pads"), ("x5", "grammar"), ("x5", "scores")]
+               ("x7", "pads"), ("x5", "grammar"), ("x5", "scores"),
+               ("x5", "sampled")]
 # kernels of the greedy step, as the profiler names them
 STEP_KERNELS = ("self_step_kernel", "self_step_int8_kernel",
                 "cross_step_kernel", "cross_dequant_kernel")
@@ -1495,7 +1499,9 @@ def _graph_inputs(gen, case):
 
     dims, tree = _small_model(5)
     enc = _randn(gen, 4, 1500, 128)
-    mask = torch.from_numpy(build_suppress_mask(320, [8, 300])).cuda()
+    # sampled: end-of-text (251) suppressed too, so that no row ends
+    mask = torch.from_numpy(build_suppress_mask(
+        320, [8, 251, 300] if case == "sampled" else [8, 300])).cuda()
     prompt = [250, 252, 253, 254]
     kw = {}
     if case == "pads":
@@ -1507,6 +1513,9 @@ def _graph_inputs(gen, case):
         kw["ts_cfg"] = TimestampCfg(255, 251, 254, 10)
     elif case == "scores":
         kw["return_logprobs"] = True
+    elif case == "sampled":
+        kw.update(temperature=0.7, return_logprobs=True,
+                  generator=torch.Generator(device="cuda").manual_seed(3))
     return dims, tree, enc, mask, torch.tensor(prompt, device="cuda"), kw
 
 
@@ -1515,23 +1524,44 @@ def _step_counts():
     return (self_attention.launches, self_attention.int8_launches,
             self_attention.padded_launches,
             self_attention.int8_padded_launches, cross_attention.launches,
-            cross_attention.dequant_launches)
+            cross_attention.dequant_launches, sampling.launches)
+
+
+@contextlib.contextmanager
+def _graph_launches():
+    """Within the block every launch of a CUDA graph
+    (``CUDAGraph.replay``) adds one to the list yielded."""
+    launches = []
+    replay = torch.cuda.CUDAGraph.replay
+
+    def counted(graph):
+        launches.append(1)
+        replay(graph)
+
+    torch.cuda.CUDAGraph.replay = counted
+    try:
+        yield launches
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
 
 
 @pytest.mark.parametrize("rung, case", GRAPH_CASES)
 def test_graphed_loop_is_bitwise_the_eager_loop(gen, rung, case):
-    """The same decode eagerly (reading ``done`` every step) and replayed
-    from a CUDA graph (captured at the first call, replayed at the second):
-    tokens (and scores) bitwise, the launch counters equal (the graph's
-    settled); under torch.profiler each step kernel's eager launches are
-    its counter's (``_device_ops``), a replayed call evaluates the
-    conditional node once a replay, and a replay puts on the card what an
-    eager step does less one operation (``_device_events``): the step's
-    operations, and the node's kernel in place of the eager loop's read of
-    ``done`` (a reduction and a copy to the host).  The graphed trace is
-    held by its totals: torch.profiler misnames a conditional body's
-    kernels (B3 for B8 at x7; with the grammar or scores no B3 at all) and
-    shows the body's copies as kernels, so its names are not held."""
+    """The same decode eagerly (reading ``done`` every step) and from a
+    CUDA graph (captured at the first call, launched again at the second):
+    tokens (and scores; sampled draws too, the key in the loop's state)
+    bitwise, the launch counters equal (the graph's settled), one graph
+    launch a call; under torch.profiler each step kernel's eager launches
+    are its counter's (``_device_ops``), the while node's condition kernel
+    ahead of the node is traced, and a step puts on the card what an eager
+    step does less one operation (``_device_events``): the step's
+    operations, and the condition's kernel at the end of the iteration in
+    place of the eager loop's read of ``done`` (a reduction and a copy to
+    the host).  The graphed trace is held by its totals: torch.profiler
+    misnames a conditional body's kernels (B3 for B8 at x7; with the
+    grammar or scores no B3 at all; the condition kernel of one iteration
+    under another kernel's name) and shows the body's copies as kernels,
+    so the names of what runs in the body are not held."""
     from whisper_tpu_torch.runtime.generate import (
         DecodeGraphs,
         greedy_generate,
@@ -1550,7 +1580,9 @@ def test_graphed_loop_is_bitwise_the_eager_loop(gen, rung, case):
     outs = {}
     for eager in (True, False, False):
         before = _step_counts()
-        outs.setdefault(eager, []).append(run(eager))
+        with _graph_launches() as launches:
+            outs.setdefault(eager, []).append(run(eager))
+        assert len(launches) == (0 if eager else 1), launches
         settle_launches(wait=True)
         counts.setdefault(eager, []).append(
             tuple(a - b for a, b in zip(_step_counts(), before)))
@@ -1570,22 +1602,23 @@ def test_graphed_loop_is_bitwise_the_eager_loop(gen, rung, case):
 
     for name, at in zip(STEP_KERNELS, (0, 1, 4, 5)):
         assert traced(True, name) == counts[True][0][at], (name, ops[True])
-    assert traced(False, "set_condition_kernel") == 23, ops[False]
+    assert traced(False, "set_condition_kernel") >= 1, ops[False]
     assert traced(True, "set_condition_kernel") == 0
     toks = want[0] if kw.get("return_logprobs") else want
     assert not (toks == 251).any()      # no row ends: 23 steps each
-    # 24 tokens against 12: twelve steps (replays) more, what a call does
-    # outside its loop the same
+    assert (counts[True][0][6] > 0) == (case == "sampled")   # the pick
+    # 24 tokens against 12: twelve steps (iterations) more, what a call
+    # does outside its loop the same
     more = {e: _device_events(lambda e=e: run(e))
             - _device_events(lambda e=e: run(e, 12)) for e in (True, False)}
     assert more[False] == more[True] - 12, more
 
 
 def test_graphed_sampling_repeats_per_seed(gen):
-    """T = 1 through the x5 step: a graph registered with its own generator,
-    set per call to the caller's seed: one seed twice equal, another seed
-    different, no suppressed id drawn; printed whether the graphed draws
-    are those of the eager loop that reads every step."""
+    """T = 1 through the x5 step, the key (the caller's seed) in the loop's
+    state: one seed twice equal, another seed different, no suppressed id
+    drawn, and the graphed draws bitwise those of the eager loop that
+    reads every step."""
     from whisper_tpu_torch.runtime.generate import (
         DecodeGraphs,
         build_suppress_mask,
@@ -1610,8 +1643,7 @@ def test_graphed_sampling_repeats_per_seed(gen):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert not torch.equal(a[0], c[0])
     assert not torch.isin(a[0], torch.tensor(suppress, device="cuda")).any()
-    print("graphed draws equal the eager loop's:",
-          all(torch.equal(x, y) for x, y in zip(a, run(7, eager=True))))
+    assert all(torch.equal(x, y) for x, y in zip(a, run(7, eager=True)))
 
 
 def test_every_temperature_shares_one_graph(gen):
@@ -1908,13 +1940,13 @@ def test_a_new_draft_recaptures_and_never_replays_the_old(gen):
 
     run(old)
     (key, _), = graphs.captures().items()
-    old_loop = graphs.loop(tree, None, key, enc.device, False, old)
+    old_loop = graphs.loop(tree, None, key, enc.device, old)
     graphs.set_draft(new)
     assert not graphs.captures() and old_loop.graph is None
     with pytest.raises(ValueError, match="other weights"):
         run(old)
     got = run(new)
-    assert graphs.loop(tree, None, key, enc.device, False, new) \
+    assert graphs.loop(tree, None, key, enc.device, new) \
         is not old_loop
     want = run(new, eager=True)
     assert torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
@@ -2157,10 +2189,11 @@ def test_speculative_async_returns_before_its_loop_ends(gen, draft):
 
 
 def test_no_if_node_support_raises(gen, monkeypatch):
-    """A runtime that refuses the conditional node (cudaErrorNotSupported
-    from ``wt_if_node_begin``): the graphed call raises, nothing falls back
-    to the eager loop or to reads of ``done``, and once the node is made
-    again the key captures and gives the eager loop's tokens."""
+    """A runtime that refuses the conditional (while) node
+    (cudaErrorNotSupported from ``wt_while_node_begin``): the graphed call
+    raises, nothing falls back to the eager loop, to per-step launches or
+    to reads of ``done``, and once the node is made again the key captures
+    and gives the eager loop's tokens."""
     from whisper_tpu_torch.ops import kernels
     from whisper_tpu_torch.runtime import generate
 
@@ -2176,8 +2209,8 @@ def test_no_if_node_support_raises(gen, monkeypatch):
             kernel_step=True, graphs=graphs, eager=eager)
 
     lib = kernels.library()
-    monkeypatch.setattr(lib, "wt_if_node_begin", lambda *a: 801)
-    with pytest.raises(RuntimeError, match="wt_if_node_begin"):
+    monkeypatch.setattr(lib, "wt_while_node_begin", lambda *a: 801)
+    with pytest.raises(RuntimeError, match="wt_while_node_begin"):
         run()
     assert not graphs.captures()
     monkeypatch.undo()
@@ -2185,3 +2218,156 @@ def test_no_if_node_support_raises(gen, monkeypatch):
     got = run()
     assert len(graphs.captures()) == 1
     assert torch.equal(got, run(eager=True))
+
+
+# ---------------------------------------------------------------------------
+# One graph launch a decode: the while node (runtime.generate), and the
+# sampled pick kernel (ops.sampling)
+# ---------------------------------------------------------------------------
+
+def _loop_call(loop, tree, dims, enc, prompt, mask, eot, new, graphs,
+               eager=False, draft=None):
+    """One call of ``loop`` (greedy, beam, speculative) at x5."""
+    from whisper_tpu_torch.runtime import beam, speculative
+    from whisper_tpu_torch.runtime.generate import greedy_generate
+
+    kw = dict(int8_cross_kv=True, int8_mxu=True, eager=eager, graphs=graphs)
+    if loop == "greedy":
+        return greedy_generate(tree, dims, enc, prompt, mask, mask, new, eot,
+                               kernel_step=True, **kw)
+    if loop == "beam":
+        return beam.beam_generate(tree, dims, enc, prompt, mask, mask, new,
+                                  eot, 4, packed_cross=True, **kw)[0]
+    return speculative.speculative_generate(
+        tree, dims, draft, dims, enc, enc, prompt, mask, mask, new, eot, 3,
+        packed_draft=True, packed_main=True, **kw)[0]
+
+
+@pytest.mark.parametrize("loop", ["greedy", "beam", "speculative"])
+def test_each_graphed_call_is_one_graph_launch(gen, loop):
+    """The capture's call (its warm-up step, then the graph) and every
+    later call launch the graph once, nothing else, and give the eager
+    loop's tokens."""
+    from whisper_tpu_torch.runtime.generate import DecodeGraphs
+
+    dims, tree, draft, enc, zero, prompt = _spec_inputs(gen, 17)
+    graphs = DecodeGraphs(tree, draft_params=draft)
+    want = _loop_call(loop, tree, dims, enc, prompt, zero, 251, 24, graphs,
+                      eager=True, draft=draft)
+    for _ in range(3):
+        with _graph_launches() as launches:
+            got = _loop_call(loop, tree, dims, enc, prompt, zero, 251, 24,
+                             graphs, draft=draft)
+        assert len(launches) == 1
+        assert torch.equal(got, want)
+    assert len(graphs.captures()) == 1
+
+
+@pytest.mark.parametrize("loop", ["greedy", "beam"])
+def test_with_no_row_ending_the_bound_ends_the_loop(gen, loop):
+    """End-of-text suppressed: no row ends, and the while node's
+    ``trips < bound`` term stops the loop after exactly n - first = 23
+    steps (B4 once a layer and step), as the eager loop, in the capture's
+    call and a later one; the card is then free."""
+    from whisper_tpu_torch.runtime.generate import DecodeGraphs
+
+    dims, tree, draft, enc, _, prompt = _spec_inputs(gen, 17)
+    mask = _exit_mask()                          # 8 and NEVER suppressed
+    graphs = DecodeGraphs(tree)
+    for eager in (True, False, False):
+        settle_launches(wait=True)
+        before = cross_attention.launches
+        _loop_call(loop, tree, dims, enc, prompt, mask, NEVER, 24, graphs,
+                   eager=eager)
+        torch.cuda.synchronize()
+        settle_launches(wait=True)
+        steps = (cross_attention.launches - before) // dims.decoder_layers
+        assert steps == 24 - 1, (eager, steps)
+
+
+@pytest.mark.parametrize("draw", ["default generator", "own generator"])
+def test_a_body_that_draws_from_a_torch_generator_raises(gen, monkeypatch,
+                                                         draw):
+    """A step that draws from a torch generator would repeat its draws in
+    every iteration of the while node: the trial capture raises (nothing
+    captured, nothing falls back), and once the step is whole again the key
+    captures and gives the eager loop's tokens."""
+    from whisper_tpu_torch.runtime import generate
+
+    dims, tree = _small_model(8)
+    enc = _randn(gen, 2, 1500, 128)
+    zero = torch.zeros(320, device="cuda")
+    prompt = torch.tensor([250, 252, 253, 254], device="cuda")
+    graphs = generate.DecodeGraphs(tree)
+    pick = generate.pick
+    own = torch.Generator(device="cuda").manual_seed(1)
+
+    def drawing_pick(logits, *a, **k):
+        noise = torch.rand(logits.shape, device=logits.device,
+                           generator=own if draw == "own generator" else None)
+        return pick(logits + 0 * noise, *a, **k)
+
+    def run(eager=False):
+        return generate.greedy_generate(
+            tree, dims, enc, prompt, zero, zero, 12, 251, int8_cross_kv=True,
+            kernel_step=True, graphs=graphs, eager=eager)
+
+    monkeypatch.setattr(generate, "pick", drawing_pick)
+    with pytest.raises(RuntimeError):
+        run()
+    assert not graphs.captures()
+    monkeypatch.setattr(generate, "pick", pick)
+    torch.cuda.synchronize()
+    got = run()
+    assert len(graphs.captures()) == 1
+    assert torch.equal(got, run(eager=True))
+
+
+@pytest.mark.parametrize("b,v,row0,t", [(16, 51865, 0, 0.5),
+                                        (16, 51865, 0, 1.0),
+                                        (1, 51865, 7, 0.2), (3, 320, 0, 1.3),
+                                        (5, 4097, 11, 0.7)])
+def test_pick_kernel_is_bitwise_its_plain_version(gen, b, v, row0, t):
+    """The uniforms, the scores and the ids of the kernel equal the plain
+    version's bit for bit, with suppressed ids (-inf) never drawn, at two
+    steps and under the key of a generator that has been used (offset >
+    0); two calls equal; one launch a call."""
+    logits = torch.randn(b, v, generator=gen, device="cuda") * 3.0
+    logits[:, ::9] = float("-inf")
+    temp = torch.full((1,), t, device="cuda")
+    used = torch.Generator(device="cuda").manual_seed(2**63 + 5)
+    torch.rand(1000, generator=used, device="cuda")
+    assert used.get_offset() > 0
+    for key in (sampling.generator_key(
+            torch.Generator(device="cuda").manual_seed(3), "cuda"),
+            sampling.generator_key(used, "cuda")):
+        for s in (1, 97):
+            step = torch.full((1,), s, dtype=torch.int64, device="cuda")
+            before = sampling.launches
+            got = sampling.gumbel_pick(logits, temp, key, step, row0,
+                                       with_draws=True)
+            assert sampling.launches == before + 1
+            plain = sampling.gumbel_scores_plain(logits, temp, key, step,
+                                                 row0)
+            torch.cuda.synchronize()
+            assert torch.equal(got[1], plain[0])
+            assert torch.equal(got[2], plain[1])
+            assert torch.equal(got[0], torch.argmax(plain[1], -1))
+            assert torch.equal(got[0], sampling.gumbel_pick(
+                logits, temp, key, step, row0))
+            assert torch.isfinite(logits.gather(1, got[0][:, None])).all()
+            assert bool((got[1] > 0).all() and (got[1] < 1).all())
+
+
+def test_pick_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    logits = torch.randn(4, 320, generator=gen, device="cuda")
+    temp = torch.full((1,), 0.5, device="cuda")
+    key = torch.zeros(2, dtype=torch.int64, device="cuda")
+    step = torch.zeros(1, dtype=torch.int64, device="cuda")
+    for bad in ((logits.t(), temp, key, step), (logits.half(), temp, key,
+                                                step),
+                (logits, temp.double(), key, step),
+                (logits, temp, key.int(), step), (logits, temp, key[:1], step),
+                (logits, temp, key, step.cpu())):
+        with pytest.raises(ValueError):
+            sampling.gumbel_pick(*bad)

@@ -28,6 +28,7 @@ from whisper_tpu.runtime.session import RuntimeCfg as JaxCfg
 from whisper_tpu.runtime.session import WhisperSession as JaxSession
 from whisper_tpu_torch.models import convert
 from whisper_tpu_torch.models.registry import WhisperDims
+from whisper_tpu_torch.ops.sampling import generator_key
 from whisper_tpu_torch.pipeline import fallback
 from whisper_tpu_torch.runtime.generate import (
     build_suppress_mask,
@@ -98,15 +99,15 @@ def test_t0_scores_equal_jax_and_tokens_the_plain_loops(seed):
 
 @pytest.mark.parametrize("temperature", [0.5, 1.0, 2.0])
 def test_sampled_frequencies_follow_the_softmax(temperature):
-    """4,096 draws of one row of logits (one row per draw, one generator):
+    """4,096 draws of one row of logits (one row per draw, one key):
     each id's count within 4 sigma of 4,096 * softmax(logits / T), the
     suppressed id never drawn; the log-probability is that of the masked
     distribution at T = 1."""
     n = 4096
     logits = torch.tensor([1.0, 0.5, -0.3, 2.0, 0.0, -1.0, 1.5, -np.inf])
     rows = logits.expand(n, -1).contiguous()
-    g = torch.Generator().manual_seed(3)
-    tok, lp = pick(rows, temperature, g, True)
+    key = generator_key(torch.Generator().manual_seed(3), "cpu")
+    tok, lp = pick(rows, temperature, key, 1, True)
     counts = np.bincount(tok.numpy(), minlength=8)
     p = torch.softmax(logits / temperature, -1).double().numpy()
     sigma = np.sqrt(n * p * (1 - p))

@@ -220,8 +220,8 @@ def test_a_round_with_every_row_done_commits_nothing(monkeypatch):
     states = []
 
     def capture(init, make_step, first, n, every, **kw):
-        st = init(None)
-        generate._drive(make_step(st, None), first, n, st.done, every)
+        st = init()
+        generate._drive(make_step(st), first, n, st.done, every)
         states.append((st, make_step))
         return st.outputs()
 
@@ -234,7 +234,7 @@ def test_a_round_with_every_row_done_commits_nothing(monkeypatch):
     assert bool(st.done.all())
     before = [t.clone() for t in (st.rounds, st.buf, st.n_gen, st.last,
                                   st.done)]
-    make_step(st, None)()
+    make_step(st)()
     after = (st.rounds, st.buf, st.n_gen, st.last, st.done)
     assert all(torch.equal(a, b) for a, b in zip(after, before))
 
@@ -292,18 +292,18 @@ def test_decode_graphs_hold_every_kind_under_one_budget(monkeypatch):
     graphs = generate.DecodeGraphs(params, draft_params=draft)
     cpu = torch.device("cpu")
     for key in _keys(0):
-        loop = graphs.loop(params, None, key, cpu, False,
+        loop = graphs.loop(params, None, key, cpu,
                            draft if key.kind == "speculative" else None)
         loop.nbytes, loop.graph = 40, object()
         graphs.trim(key)
     assert [k.kind for k in graphs.captures()] == ["beam", "speculative"]
     assert graphs.nbytes() == 80
     with pytest.raises(ValueError, match="other weights"):
-        graphs.loop(params, None, _keys(1)[2], cpu, False, {"decoder": {}})
-    greedy = graphs.loop(params, None, _keys(1)[0], cpu, False)
+        graphs.loop(params, None, _keys(1)[2], cpu, {"decoder": {}})
+    greedy = graphs.loop(params, None, _keys(1)[0], cpu)
     greedy.nbytes, greedy.graph = 10, object()
     new_draft = {"decoder": {}}
     graphs.set_draft(new_draft)
     assert [k.kind for k in graphs.captures()] == ["beam", "greedy"]
-    assert graphs.loop(params, None, _keys(0)[2], cpu, False,
+    assert graphs.loop(params, None, _keys(0)[2], cpu,
                        new_draft).graph is None

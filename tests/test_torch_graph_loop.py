@@ -32,7 +32,7 @@ from whisper_tpu.runtime.generate import greedy_generate as jax_greedy
 from whisper_tpu_torch.models import convert
 from whisper_tpu_torch.models import whisper
 from whisper_tpu_torch.models.registry import WhisperDims
-from whisper_tpu_torch.ops import common
+from whisper_tpu_torch.ops import common, sampling
 from whisper_tpu_torch.ops.decoder_kernels import (
     build_step_weights,
     decoder_step_hybrid,
@@ -371,13 +371,15 @@ def test_launches_in_a_capture_are_tallied_and_added_once_a_replay():
 @pytest.mark.parametrize("t", [0.2, 0.4, 0.6, 0.8, 1.0])
 def test_pick_with_a_tensor_temperature_is_bitwise_the_float(t):
     """The loop's step divides by T held in a one-element tensor (so every
-    T > 0 shares one graph); on the CPU that is the float form's draw."""
+    T > 0 shares one graph) and draws at the step held in a tensor; on the
+    CPU that is the float and int form's draw."""
     logits = torch.from_numpy(np.random.default_rng(int(t * 10)).normal(
         0, 3, (6, DIMS.vocab_size)).astype(np.float32))
     logits[:, ::7] = float("-inf")
-    got = generate.pick(logits, torch.full((1,), t), torch.Generator()
-                        .manual_seed(5), True)
-    want = generate.pick(logits, t, torch.Generator().manual_seed(5), True)
+    key = sampling.generator_key(torch.Generator().manual_seed(5), "cpu")
+    got = generate.pick(logits, torch.full((1,), t), key,
+                        torch.full((1,), 3), True)
+    want = generate.pick(logits, t, key, 3, True)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
@@ -396,14 +398,14 @@ def test_decode_graphs_keep_their_state_within_the_budget(monkeypatch):
     cpu = torch.device("cpu")
     loops = []
     for i in range(3):
-        loops.append(graphs.loop(params, None, _key(i), cpu, False))
+        loops.append(graphs.loop(params, None, _key(i), cpu))
         loops[-1].nbytes, loops[-1].graph = 40, object()
         graphs.trim(_key(i))
     # key 0 dropped at the third run; key 1 made recent again
     assert list(graphs.captures()) == [_key(1), _key(2)]
     assert loops[0].graph is None and loops[0].nbytes == 0
-    assert graphs.loop(params, None, _key(1), cpu, False) is loops[1]
-    big = graphs.loop(params, None, _key(3), cpu, False)
+    assert graphs.loop(params, None, _key(1), cpu) is loops[1]
+    big = graphs.loop(params, None, _key(3), cpu)
     big.nbytes, big.graph = 150, object()
     graphs.trim(_key(3))
     assert list(graphs.captures()) == [_key(3)]
@@ -416,9 +418,9 @@ def test_decode_graphs_refuse_other_weights():
     params, sw = {"decoder": {}}, object()
     graphs = generate.DecodeGraphs(params, sw)
     cpu = torch.device("cpu")
-    assert graphs.loop(params, sw, _key(0), cpu, False) is graphs.loop(
-        params, None, _key(0), cpu, False)
+    assert graphs.loop(params, sw, _key(0), cpu) is graphs.loop(
+        params, None, _key(0), cpu)
     with pytest.raises(ValueError, match="other weights"):
-        graphs.loop({"decoder": {}}, None, _key(0), cpu, False)
+        graphs.loop({"decoder": {}}, None, _key(0), cpu)
     with pytest.raises(ValueError, match="other weights"):
-        graphs.loop(params, object(), _key(0), cpu, False)
+        graphs.loop(params, object(), _key(0), cpu)

@@ -1,16 +1,21 @@
-// A CUDA-graph conditional (if) node around a decode loop's step: the
-// counterpart of the JAX loops' lax.while_loop condition
-// (whisper_tpu/runtime/generate.py:206, beam.py:172, speculative.py:241).
+// A CUDA-graph conditional (while) node around a decode loop's step: the
+// counterpart of the JAX loops' lax.while_loop
+// (whisper_tpu/runtime/generate.py:170-206, beam.py:121,172,
+// speculative.py:159,241), the whole loop one device program.
 //
 // Called while PyTorch captures a graph on the parent stream
-// (torch.cuda.CUDAGraph.capture_begin): wt_if_node_begin adds, after the
-// parent's work so far, a kernel that sets a conditional handle to "some
-// row is undone" from the loop's n done flags (bools on the card) and an
-// if node on that handle, makes the if node the parent's only dependency,
-// and starts capturing the body stream into the node's body graph;
-// wt_if_node_end ends that capture.  Each replay then runs the body while
-// a row is undone and skips it once every row is done.  The work in
-// between is queued on the body stream.
+// (torch.cuda.CUDAGraph.capture_begin): wt_while_node_begin adds, after the
+// parent's work so far, a kernel that sets a conditional handle to the
+// loop's condition, "trips[0] < bound and some of the n done flags (bools
+// on the card) is false", and a while node on that handle, makes the node
+// the parent's only dependency, and starts capturing the body stream into
+// the node's body graph.  wt_while_node_end queues the same kernel on the
+// body stream, as the body's last node, and ends that capture.  One launch
+// of the graph then runs the body for as long as the condition holds,
+// evaluated on the card before the first iteration and after each: the
+// host queues one launch a decode and reads nothing.  The handle is set by
+// the kernel ahead of the node at every launch (no default value is
+// assigned), and the `trips < bound` term ends a loop whose rows never end.
 //
 // Both return a cudaError_t, 0 on success; neither synchronises.  Needs
 // CUDA 12.3 or later (conditional nodes, cudaStreamBeginCaptureToGraph).
@@ -22,11 +27,14 @@ namespace {
 constexpr int kThreads = 128;
 
 __global__ void set_condition_kernel(cudaGraphConditionalHandle handle,
-                                     const bool* done, int n) {
+                                     const bool* done, int n,
+                                     const long long* trips,
+                                     long long bound) {
   int undone = 0;
   for (int i = threadIdx.x; i < n; i += kThreads) undone |= !done[i];
   undone = __syncthreads_or(undone);
-  if (threadIdx.x == 0) cudaGraphSetConditional(handle, undone ? 1u : 0u);
+  if (threadIdx.x == 0)
+    cudaGraphSetConditional(handle, undone && trips[0] < bound ? 1u : 0u);
 }
 
 cudaError_t capture_info(cudaStream_t s, cudaGraph_t* graph,
@@ -40,32 +48,38 @@ cudaError_t capture_info(cudaStream_t s, cudaGraph_t* graph,
                                            n);
 #endif
   if (e == cudaSuccess && status != cudaStreamCaptureStatusActive)
-    e = cudaErrorIllegalState;  // the parent stream is not capturing
+    e = cudaErrorIllegalState;  // the stream is not capturing
   return e;
 }
 
 }  // namespace
 
-extern "C" int wt_if_node_begin(const bool* done, int n_done, void* parent,
-                                void* body, int mode) {
+// done [n_done] bools and trips [1] int64 on the card; handle: where the
+// node's handle is written, for wt_while_node_end.
+extern "C" int wt_while_node_begin(const bool* done, int n_done,
+                                   const long long* trips, long long bound,
+                                   void* parent, void* body, int mode,
+                                   unsigned long long* handle) {
   cudaStream_t ps = static_cast<cudaStream_t>(parent);
   cudaGraph_t graph;
   const cudaGraphNode_t* deps;
   size_t n;
   cudaError_t e = capture_info(ps, &graph, &deps, &n);
   if (e != cudaSuccess) return e;
-  cudaGraphConditionalHandle handle;
-  e = cudaGraphConditionalHandleCreate(&handle, graph, 0, 0);
+  cudaGraphConditionalHandle h;
+  e = cudaGraphConditionalHandleCreate(&h, graph, 0, 0);
   if (e != cudaSuccess) return e;
-  set_condition_kernel<<<1, kThreads, 0, ps>>>(handle, done, n_done);
+  *handle = h;
+  set_condition_kernel<<<1, kThreads, 0, ps>>>(h, done, n_done, trips,
+                                               bound);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   e = capture_info(ps, &graph, &deps, &n);  // now after the kernel
   if (e != cudaSuccess) return e;
   cudaGraphNodeParams params = {};
   params.type = cudaGraphNodeTypeConditional;
-  params.conditional.handle = handle;
-  params.conditional.type = cudaGraphCondTypeIf;
+  params.conditional.handle = h;
+  params.conditional.type = cudaGraphCondTypeWhile;
   params.conditional.size = 1;
   cudaGraphNode_t node;
 #if CUDART_VERSION >= 13000
@@ -85,7 +99,17 @@ extern "C" int wt_if_node_begin(const bool* done, int n_done, void* parent,
       nullptr, nullptr, 0, static_cast<cudaStreamCaptureMode>(mode));
 }
 
-extern "C" int wt_if_node_end(void* body) {
+// The body's last node, the condition for the next iteration, then the end
+// of the body's capture (ended whatever the launch returned, so that the
+// body stream stops capturing).
+extern "C" int wt_while_node_end(unsigned long long handle, const bool* done,
+                                 int n_done, const long long* trips,
+                                 long long bound, void* body) {
+  cudaStream_t bs = static_cast<cudaStream_t>(body);
+  set_condition_kernel<<<1, kThreads, 0, bs>>>(handle, done, n_done, trips,
+                                               bound);
+  cudaError_t launch = cudaGetLastError();
   cudaGraph_t graph;
-  return cudaStreamEndCapture(static_cast<cudaStream_t>(body), &graph);
+  cudaError_t e = cudaStreamEndCapture(bs, &graph);
+  return launch != cudaSuccess ? launch : e;
 }

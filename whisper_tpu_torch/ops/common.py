@@ -16,7 +16,8 @@ import torch
 # a read and a write that two threads can interleave.
 COUNT_LOCK = threading.Lock()
 # The launches a thread records while it captures a CUDA graph (None when
-# it captures nothing): a capture launches nothing, each replay does.
+# it captures nothing): a capture launches nothing, each launch of the graph
+# does.
 _TALLY = threading.local()
 
 
@@ -38,12 +39,11 @@ def tally_launches():
     """Within the block, this thread's wrappers tally their launches into
     the dict yielded, {(module, counter): n}, and leave the counters as
     they are: a CUDA graph's capture.  A decode loop's graph holds its
-    step under a conditional node that skips the step once every row is
-    done, so its replays add the tally once a step whose body ran, not
-    once a replay: ``defer_launches`` notes the device count of bodies
-    run, and ``settle_launches`` adds tally x count where the caller
-    copies the results to the host (so an ``_async`` form reads
-    nothing)."""
+    step as the body of a while node that runs it until every row is done,
+    so a launch adds the tally once a body that ran: ``defer_launches``
+    notes the device count of bodies run, and ``settle_launches`` adds
+    tally x count where the caller copies the results to the host (so an
+    ``_async`` form reads nothing)."""
     _TALLY.counts = {}
     try:
         yield _TALLY.counts

@@ -31,7 +31,8 @@ SOURCES = ("attention.cu", "encoder_mlp.cu", "self_attention.cu",
            "cross_attention.cu", "cross_attention_dequant.cu", "log_mel.cu",
            "self_attention_int8.cu", "encoder_block.cu", "decoder_mlp.cu",
            "cross_attention_multi.cu", "decoder_self_block.cu",
-           "decoder_cross_block.cu", "launch_floor.cu", "graph_cond.cu")
+           "decoder_cross_block.cu", "launch_floor.cu", "graph_cond.cu",
+           "gumbel_pick.cu")
 HEADERS = ("common.cuh", "hopper.cuh", "encoder_ffn.cuh", "gemm_sm90.cuh",
            "cross_attention.cuh", "decoder_block.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -85,12 +86,17 @@ SIGNATURES = {
     "wt_launch_floor": [_P],
     # the card of the next launches (the library runtime's current device)
     "wt_set_device": [_I],
-    # inside a graph capture on the parent stream: a conditional (if) node
-    # on "some of n done flags is false", its body captured from the body
-    # stream; done, n, parent stream, body stream, capture mode
-    "wt_if_node_begin": [_P, _I, _P, _P, _I],
-    # body stream: the end of the body's capture
-    "wt_if_node_end": [_P],
+    # inside a graph capture on the parent stream: a conditional (while)
+    # node on "trips < bound and some of n done flags is false", its body
+    # captured from the body stream; done, n, trips, bound, parent stream,
+    # body stream, capture mode, where the node's handle is written
+    "wt_while_node_begin": [_P, _I, _P, _L, _P, _P, _I, _P],
+    # the handle, done, n, trips, bound, body stream: the condition as the
+    # body's last node, then the end of the body's capture
+    "wt_while_node_end": [ctypes.c_ulonglong, _P, _I, _P, _L, _P],
+    # logits, temperature, key, step, tok, uniforms (or null), scores (or
+    # null), rows, vocab, row0, stream
+    "wt_gumbel_pick": [_P] * 7 + [_I, _I, _I, _P],
 }
 
 _lib = None          # the loaded library (one per process)

@@ -11,8 +11,8 @@ src/main.rs:834-1008):
 
 Device work is fenced with ``torch.cuda.synchronize`` inside each timed
 region, so the breakdown is honest.  On a card each bucket's greedy
-decode replays its steps from a CUDA graph and reads whether its rows are
-done once a block of 16 steps (``runtime.generate``).  Greedy decoding, plain or speculative
+decode is one launch of a CUDA graph whose while node runs its steps until
+its rows are done (``runtime.generate``).  Greedy decoding, plain or speculative
 (a draft model attached to the session), or beam search; timestamp
 decoding; ``language="auto"`` detects the language on the first window;
 an initial prompt conditions every chunk; word timings come from

@@ -23,7 +23,7 @@ has one length; the session's ``pad_count`` masks the pad slots
 step), so the padded prompt decodes as the unpadded shorter one.
 
 Each window is one bucket-1 decode through ``transcribe_from_mel``: on a
-card its steps replay from the session's graph of that key (bucket 1, the
+card its steps run from the session's graph of that key (bucket 1, the
 grammar, ``pad_count`` when conditioned), captured at the first window;
 the window's tokens are read before the next seek, which needs them.
 """

@@ -51,12 +51,12 @@ exactly by ``chip_smoke.py``.  It calls only what older trees have, so it
 also runs against one (that tree on ``PYTHONPATH``, this file run by its
 path).
 
-Greedy decoding, beam search and speculative rounds on the card replay
-their steps from CUDA graphs (``runtime.generate``, ``runtime.beam``,
-``runtime.speculative``), and the warm-up run captures them, so the traced
-run replays.  Each replayed step sits in a conditional node's body, whose
-kernels torch.profiler does not always name right (one trace named B3 a
-replay where B8 ran): for a graphed run, read its counts of
+Greedy decoding, beam search and speculative rounds on the card run each
+decode as one launch of a CUDA graph (``runtime.generate``,
+``runtime.beam``, ``runtime.speculative``), and the warm-up run captures
+them, so the traced run launches graphs.  Each step is the body of a while
+node, whose kernels torch.profiler does not always name right (one trace
+named B3 a step where B8 ran): for a graphed run, read its counts of
 the hand-written kernels beside the launch counters, or trace the loop
 eagerly (``--graph``).
 
@@ -69,19 +69,25 @@ It calls only what trees since the graphed loop have, so it also runs
 against an older one (that tree on ``PYTHONPATH``, this file run by its
 path): the cost of the loops' conditional node, tree against tree.
 
-``python -m whisper_tpu_torch.profile_ladder --conditional`` runs only what
-the loops' conditional node costs, in one process, on fresh graphs of one
-x5 session, each step (round) captured under the node and captured flat in
-the graph itself (``runtime.generate._if_node`` replaced by a block that
-adds nothing), in turns: the bucket-16 greedy decode of the 301.574 s
-file's chunks with no row ending (device ms of 128 tokens and of a step,
-median of 5; the kernels of one traced decode), and the speculative rounds
-over the same states with a random whisper-tiny draft and with the model's
-own int8 weights (``_speculative_tokens``, 128 tokens, no row ending): the
-host ms of a round's graph launch (median), the launch at which the host
-first waits more than 2 ms when the card is held busy 300 ms first (how
-many launches the driver queues ahead), and the dispatch's host ms beside
-the card's span of its work, median of 3.
+``python -m whisper_tpu_torch.profile_ladder --conditional`` runs only the
+loops' while node against per-step launches, in one process, on fresh
+graphs of one x5 session, in turns: each decode one launch of a graph whose
+step (round) is the body of the while node, and the step captured flat in
+the graph itself (``runtime.generate._while_node`` replaced by a block that
+adds nothing) and launched once a step (``CUDAGraph.replay`` repeated), as
+the loops ran before.  For the bucket-16 greedy decode of the 301.574 s
+file's chunks with no row ending: the host ms to queue a 128-token decode
+beside the host ms to queue its prefill alone (a one-token decode: no step,
+no graph) and the encoder alone (what an ``_async`` dispatch queues before
+the decode), device ms of the decode and of a step (median of 5),
+graph launches a decode and the kernels of one traced decode.  For the
+speculative rounds over the same states with a random whisper-tiny draft
+and with the model's own int8 weights (``_speculative_tokens``, 128
+tokens, no row ending): graph launches a call, the host ms of a launch
+(median), the launch at which the host first waits more than 2 ms when the
+card is held busy 300 ms first (how many launches the driver queues
+ahead), and the dispatch's host ms beside the card's span of its work,
+median of 3.
 
 ``python -m whisper_tpu_torch.profile_ladder --graph`` runs only x5 twice,
 graphed and with the session's greedy loop run eagerly
@@ -679,10 +685,20 @@ def profile_conditional(params, audio) -> list:
     from whisper_tpu_torch.variants.quant import quantize_params
 
     @contextlib.contextmanager
-    def flat(graph, done, body):
+    def flat(graph, done, trips, bound, body):
         yield
 
-    node = generate._if_node
+    node = generate._while_node
+    replay = torch.cuda.CUDAGraph.replay
+    launches: list = []      # host ms of each graph launch
+    per_launch = [1]         # replays of the graph a launch (flat: a step)
+
+    def launch(graph):
+        for _ in range(per_launch[0]):
+            t0 = time.perf_counter()
+            replay(graph)
+            launches.append((time.perf_counter() - t0) * 1e3)
+
     dims = get_dims("openai/whisper-base")
     session = make_session("cuda", params)
     sp = special_tokens("en", "transcribe", None)
@@ -701,11 +717,18 @@ def profile_conditional(params, audio) -> list:
     prompt = torch.tensor([sp.sot, sp.lang, sp.task, sp.no_timestamps],
                           device="cuda")
 
-    def fresh(capture):
-        generate._if_node = capture
+    def fresh(mode, steps):
+        """New graphs of the session in ``mode``: the while node, or the
+        step captured flat and launched ``steps`` times a call (the
+        capture's call, whose warm-up runs the first, one fewer)."""
+        generate._while_node = node if mode == "while" else flat
         old = session.graphs
         session.graphs = generate.DecodeGraphs(old.params, old.step_weights,
                                                old.draft_params)
+        per_launch[0] = 1 if mode == "while" else steps - 1
+
+    def captured(mode, steps):
+        per_launch[0] = 1 if mode == "while" else steps
 
     def span_ms(fn):
         """(device ms of fn's work, host ms until fn returns)."""
@@ -720,18 +743,24 @@ def profile_conditional(params, audio) -> list:
         return ev0.elapsed_time(ev1), host
 
     out = []
+    torch.cuda.CUDAGraph.replay = launch
     try:
-        for mode, capture in (("node", node), ("flat", flat),
-                              ("node", node), ("flat", flat)):
-            fresh(capture)
-
+        enc_host = statistics.median(
+            span_ms(lambda: session.encoder(chunks))[1] for _ in range(5))
+        for mode in ("while", "flat", "while", "flat"):
             def decode(n):
                 return session._greedy(enc, prompt, *masks, n, sp.eot,
                                        early_exit=False)
-            for n in (1, 128, 128):
-                decode(n)
-            whole = [span_ms(lambda: decode(128))[0] for _ in range(5)]
-            pre = [span_ms(lambda: decode(1))[0] for _ in range(5)]
+            fresh(mode, DECODE_STEPS)
+            decode(128)                   # the capture's call
+            captured(mode, DECODE_STEPS)
+            decode(128)
+            decode(1)                     # no step: no graph
+            runs = [span_ms(lambda: decode(128)) for _ in range(5)]
+            pre = [span_ms(lambda: decode(1)) for _ in range(5)]
+            launches.clear()
+            decode(128)
+            n_launches = len(launches)
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 decode(128)
@@ -739,59 +768,58 @@ def profile_conditional(params, audio) -> list:
             kernels = sum(e.count for e in prof.key_averages()
                           if e.device_type == torch.autograd.DeviceType.CUDA
                           and not e.key.startswith(("Memcpy", "Memset")))
-            ms = statistics.median(whole)
-            out.append({"config": f"x5 greedy, bucket 16, step {mode}",
-                        "decode_device_ms": ms, "runs_ms": whole,
-                        "step_device_ms": (ms - statistics.median(pre))
-                        / DECODE_STEPS, "decode_kernels": kernels})
+            ms = statistics.median(r[0] for r in runs)
+            out.append({"config": f"x5 greedy, bucket 16, 128 tokens, no row "
+                                  f"ending, {mode}",
+                        "decode_device_ms": ms, "runs_ms": [r[0] for r in
+                                                            runs],
+                        "step_device_ms": (ms - statistics.median(
+                            p[0] for p in pre)) / DECODE_STEPS,
+                        "queue_host_ms": statistics.median(r[1] for r in
+                                                           runs),
+                        "prefill_queue_host_ms": statistics.median(
+                            p[1] for p in pre),
+                        "encoder_queue_host_ms": enc_host,
+                        "graph_launches": n_launches,
+                        "decode_kernels": kernels})
         tiny = get_dims("openai/whisper-tiny")
-        replay = torch.cuda.CUDAGraph.replay
-        launches: list = []
-
-        def timed(graph):
-            t0 = time.perf_counter()
-            replay(graph)
-            launches.append((time.perf_counter() - t0) * 1e3)
-
         for label, draft, d_dims, share in (
                 ("a random whisper-tiny draft", init_params(tiny, seed=1),
                  tiny, False),
                 ("its own int8 weights", quantize_params(params), dims,
                  True)):
             session.set_draft_model(draft, d_dims, share_encoder=share)
-            for mode, capture in (("node", node), ("flat", flat)):
-                fresh(capture)
-
+            for mode in ("while", "flat"):
                 def rounds():
                     return session._speculative_tokens(
                         chunks, enc, prompt, *masks, 128, sp.eot, 4)
+                fresh(mode, 128)          # rounds 0 .. 127
                 rounds()
+                captured(mode, 128)
                 rounds()
                 spans = [span_ms(rounds) for _ in range(3)]
-                torch.cuda.CUDAGraph.replay = timed
-                try:
-                    launches.clear()
-                    span_ms(rounds)
-                    launch_ms = statistics.median(launches)
-                    launches.clear()
-                    torch.cuda.synchronize()
-                    torch.cuda._sleep(500_000_000)   # ~0.3 s of cycles
-                    rounds()
-                    torch.cuda.synchronize()
-                finally:
-                    torch.cuda.CUDAGraph.replay = replay
+                launches.clear()
+                span_ms(rounds)
+                launch_ms = statistics.median(launches)
+                n_launches = len(launches)
+                launches.clear()
+                torch.cuda.synchronize()
+                torch.cuda._sleep(500_000_000)   # ~0.3 s of cycles
+                rounds()
+                torch.cuda.synchronize()
                 waits = [i for i, ms_ in enumerate(launches) if ms_ > 2.0]
                 out.append({
-                    "config": f"x5 speculative, {label}, bucket 16, round "
-                              f"{mode}",
-                    "round_launches": len(launches),
+                    "config": f"x5 speculative, {label}, bucket 16, 128 "
+                              f"tokens, {mode}",
+                    "graph_launches": n_launches,
                     "launch_host_ms": launch_ms,
                     "first_waiting_launch": waits[0] if waits else None,
                     "dispatch_host_ms": statistics.median(
                         h for _, h in spans),
                     "span_device_ms": statistics.median(d for d, _ in spans)})
     finally:
-        generate._if_node = node
+        generate._while_node = node
+        torch.cuda.CUDAGraph.replay = replay
     return out
 
 
@@ -812,8 +840,9 @@ def main() -> None:
     parser.add_argument("--graph", action="store_true",
                         help="run only x5, graphed and eager")
     parser.add_argument("--conditional", action="store_true",
-                        help="run only the conditional node against a flat "
-                             "capture of the same step and round")
+                        help="run only the while node against per-step "
+                             "launches of a flat capture of the same step and "
+                             "round")
     parser.add_argument("--decode-ms", action="store_true",
                         help="run only x5's e2e and its graphed decode's "
                              "device ms, no row ending")

@@ -25,12 +25,12 @@ updated in place as the greedy loop's (``runtime.generate``): every gather
 of the parents (the token buffer, the lengths, ``done``, the self cache,
 the grammar state) is copied back into the state's own tensors, the token
 column is written at the device ``step``, and the cache slot ``pos`` is a
-device tensor.  On a card each step replays from a CUDA graph per key
-(``BeamKey``, in the caller's ``DecodeGraphs``) under the greedy loop's
-conditional node: every call queues max_new_tokens - 1 replays, reads
-nothing, and the card skips the step once every beam of every row is done,
-the JAX condition (``i < max_new_tokens`` and not all done), so the step
-counter is the ``while_loop``'s trip count.  ``eager=True``, the CPU and a
+device tensor.  On a card each call is one launch of a CUDA graph per key
+(``BeamKey``, in the caller's ``DecodeGraphs``) whose step is the body of
+the greedy loop's while node: the card runs it while the JAX condition
+holds (``i < max_new_tokens`` and not every beam of every row done) and
+nothing is read, so the step counter is the ``while_loop``'s trip
+count.  ``eager=True``, the CPU and a
 mesh call the step function as it is and read ``done`` as the greedy
 loop's eager form does (``early_exit=False``: no read, every step runs).
 Steps past the point where every beam is done change nothing the loop
@@ -187,10 +187,10 @@ def beam_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
     the loop's ``done`` read agrees across its model ranks, and its steps
     run without a graph.
 
-    On a card without a mesh the steps replay from a CUDA graph kept in
+    On a card without a mesh the steps run from a CUDA graph kept in
     ``graphs`` (a ``DecodeGraphs`` of these weights; None: captured for
-    this call alone), unless ``eager``: nothing is read, the card stops the
-    loop, and the call returns before the decode ends.  The eager loop
+    this call alone), unless ``eager``: one launch of its while node,
+    nothing is read, the card stops the loop, and the call returns before the decode ends.  The eager loop
     reads ``done`` once a step (under a mesh on a card once
     ``generate.EXIT_BLOCK`` steps), or never with early_exit False (every
     step runs)."""
@@ -205,7 +205,7 @@ def beam_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
                  if _kernel_cross(packed_cross, int8_cross_kv, dims, mesh)
                  else None)
 
-    def init(_gen) -> BeamState:
+    def init() -> BeamState:
         """The prefill and the first top-K: the state before step 1."""
         tokens_p = prompt.to(device=dev, dtype=torch.long)[None, :].expand(
             b, p)
@@ -248,7 +248,7 @@ def beam_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
             row0=torch.arange(b, device=dev)[:, None] * k, cache=cache,
             ts=ts_state, pad_count=pad_bk)
 
-    def make_step(st: BeamState, _gen):
+    def make_step(st: BeamState):
         return _step_fn(st, params, dims, eot_id=eot_id, cross_len=cross_len,
                         int8_mxu=int8_mxu, ts_cfg=ts_cfg, mesh=mesh)
 

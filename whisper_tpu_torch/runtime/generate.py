@@ -14,8 +14,11 @@ Semantics are the JAX package's (and the reference's, src/main.rs:753-829):
 Options, with the JAX semantics: ``ts_cfg`` applies the timestamp grammar
 (``runtime.timestamps``) after the suppression mask at every step;
 ``temperature > 0`` samples ``argmax(logits / T + Gumbel)``, the
-distribution ``jax.random.categorical`` draws from, with the draws from an
-explicit ``torch.Generator`` on the logits' device; ``return_logprobs``
+distribution ``jax.random.categorical`` draws from: the key is part of the
+loop's state, as in the JAX carry (``LoopState.key``: the seed and offset
+of the caller's ``torch.Generator``), and step s draws its noise from a
+counter-based Philox of (key, s, row, id) on the card
+(``ops.sampling.gumbel_pick``, a hand-written kernel); ``return_logprobs``
 also returns each row's summed log-probability (``log_softmax`` of the
 masked logits, before the division by T) and its token count.
 
@@ -27,8 +30,9 @@ host value changes from one step to the next.  On a card it is warmed once
 on a side stream, captured in a ``torch.cuda.CUDAGraph`` per key
 (``DecodeGraphs``: the batch rows, the prompt length, max_new_tokens, the
 step's route and rung, the grammar, whether it samples, the scores,
-``pad_count``) and replayed once a step; a capture that fails raises.  The
-temperature is a tensor of the state, so every T > 0 shares one graph.  A
+``pad_count``) and launched once a call; a capture that fails raises.  The
+temperature and the key are tensors of the state, so every T > 0 and every
+seed share one graph.  A
 key's loop keeps its state (the cache of its rows) for later calls; the
 loops of one ``DecodeGraphs`` keep at most a quarter of the card's memory
 in it, the least recently used dropped first.  The same machinery
@@ -36,18 +40,21 @@ in it, the least recently used dropped first.  The same machinery
 the beam loop (``runtime.beam``) and the speculative rounds
 (``runtime.speculative``), each with a key of its own, under one budget.
 
-The exit, as the ``while_loop``'s condition: the graph holds the step
-under a CUDA-graph conditional (if) node whose kernel reads ``done`` and
-sets the node to "some row undone", so a replay past all-done runs that
-one kernel and skips the step.  Every call on a card queues the loop's whole bound of replays and
-reads nothing: the step counter (and ``n_tok``) stop where the JAX loop
-stops, and the call returns before the decode ends.  A replay's launches
-count once a step whose body ran: ``ops.common.defer_launches``, settled
-where the results are copied to the host (``settle_launches``).  A torch
-without conditional nodes, or a capture that fails, raises; nothing falls
-back to reads.  Only a key's first call runs its step once for real, the
-warm-up before the capture, whatever ``done`` says (a step past all-done
-returns what the loop would have: a done row emits EOT and adds nothing).
+The loop, as the ``lax.while_loop`` itself: the graph holds the step as
+the body of a CUDA-graph conditional (while) node (``_while_node``,
+``csrc/graph_cond.cu``) whose kernel, ahead of the node and at the end of
+each iteration, sets it to the loop's condition, "trips < n and some row
+undone", so one launch of the graph runs the whole loop on the card and
+stops where the JAX loop stops.  Every call on a card queues that one
+launch and reads nothing, and returns before the decode ends.  The bodies'
+launches count once a step that ran: ``ops.common.defer_launches`` of the
+step counter's advance, settled where the results are copied to the host
+(``settle_launches``).  A capture that fails raises, and so does a body
+that would draw from a torch generator (its draws would repeat in every
+iteration); nothing falls back to per-step launches or to reads.  Only a
+key's first call runs its step once for real, the warm-up before the
+capture, whatever ``done`` says (a step past all-done returns what the
+loop would have: a done row emits EOT and adds nothing).
 
 The eager loop (the CPU, a mesh, ``eager=True``: the card checks compare
 the two) calls the step function as it is and reads ``done`` on the host:
@@ -70,6 +77,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import threading
 import time
@@ -78,9 +86,11 @@ from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from whisper_tpu_torch.models import whisper
 from whisper_tpu_torch.models.registry import WhisperDims
+from whisper_tpu_torch.ops import sampling
 from whisper_tpu_torch.ops.decoder_kernels import decoder_step_hybrid
 
 
@@ -93,28 +103,29 @@ def build_suppress_mask(vocab_size: int, ids: Sequence[int] | None) -> np.ndarra
     return mask
 
 
-def pick(logits: torch.Tensor, temperature, generator,
-         want_lp: bool, rows=None):
+def pick(logits: torch.Tensor, temperature, key, step, want_lp: bool,
+         row0: int = 0):
     """(token [B], its log-probability [B] or None) from masked fp32 logits
-    [B, V].  T > 0: argmax(logits / T - log E), E ~ Exp(1) (a Gumbel-max
-    draw); E is floored at the smallest normal float, so a suppressed id
-    (-inf) can never be drawn.  The log-probability is that of the masked
-    distribution at T = 1, as the JAX ``pick`` takes it.  temperature: a
-    float, or a one-element fp32 tensor holding T > 0 (the loop's step).
+    [B, V].  T > 0: argmax(logits / T - log E), E = -log u of a Philox
+    uniform u of (``key``, ``step``, row, id) (a Gumbel-max draw,
+    ``ops.sampling.gumbel_pick``); E is floored at the smallest normal
+    float, so a suppressed id (-inf) can never be drawn.  The
+    log-probability is that of the masked distribution at T = 1, as the
+    JAX ``pick`` takes it.  temperature: a float (0: argmax), or a
+    one-element fp32 tensor holding T > 0 (the loop's step); key: [2] int64
+    (seed, offset) on the logits' device; step: an int or a [1] int64
+    tensor (the loop's step counter).
 
-    rows (lo, hi, n): the logits are rows [lo, hi) of a batch of n (a data
-    rank's share): the draws are made for all n rows, as the one-process
-    decode makes them, and rows [lo, hi) taken."""
+    row0: the logits' first row is row row0 of the batch (a data rank's
+    share): each row draws as it does in the one-process decode."""
     if torch.is_tensor(temperature) or temperature > 0:
-        if rows is None:
-            e = torch.empty_like(logits).exponential_(generator=generator)
-        else:
-            lo, hi, n = rows
-            e = logits.new_empty((n,) + tuple(logits.shape[1:])).exponential_(
-                generator=generator)[lo:hi]
-        tok = torch.argmax(
-            logits / temperature
-            - torch.log(e.clamp_min_(torch.finfo(torch.float32).tiny)), -1)
+        dev = logits.device
+        if not torch.is_tensor(temperature):
+            temperature = torch.full((1,), temperature, dtype=torch.float32,
+                                     device=dev)
+        if not torch.is_tensor(step):
+            step = torch.full((1,), step, dtype=torch.int64, device=dev)
+        tok = sampling.gumbel_pick(logits, temperature, key, step, row0)
     else:
         tok = torch.argmax(logits, dim=-1)
     if not want_lp:
@@ -131,8 +142,9 @@ class InPlaceState:
     here, ``beam.BeamState``, ``speculative.SpecState``): ``tensors()``,
     every tensor one step updates in place or reads, in one fixed order;
     ``done``, the tensor whose ``all()`` ends the loop; ``trips()``, the
-    one-element counter that a step (a round) whose body runs advances by
-    one; ``owned()``, the state with the caller's tensors (masks, pads)
+    one-element int64 counter that a step (a round) whose body runs
+    advances by one, ``first`` before the loop's first step, which the
+    while node holds under the loop's bound; ``owned()``, the state with the caller's tensors (masks, pads)
     cloned, so that a graph that adopts it reads none of them;
     ``outputs()``, copies of the results, so that the next run may reuse
     the state."""
@@ -179,12 +191,13 @@ class LoopState(InPlaceState):
     ts: Optional[object] = None             # timestamps.TimestampState
     pad_count: Optional[torch.Tensor] = None  # [B] int32
     temperature: Optional[torch.Tensor] = None  # [1] fp32, T > 0 (sampling)
+    key: Optional[torch.Tensor] = None      # [2] int64 (seed, offset)
 
     def tensors(self) -> list:
         """Every tensor of the state, in one fixed order."""
         out = [self.last, self.pos, self.step, self.done, self.buf,
                self.suppress, *self.cache, self.sum_lp, self.n_tok,
-               *(self.ts or ()), self.pad_count, self.temperature]
+               *(self.ts or ()), self.pad_count, self.temperature, self.key]
         return [t for t in out if t is not None]
 
     def trips(self) -> torch.Tensor:
@@ -205,10 +218,10 @@ class LoopState(InPlaceState):
 
 def _step_fn(st: LoopState, params, dims: WhisperDims, *, eot_id: int,
              kernel_step: bool, cross_len: int, int8_mxu: bool,
-             step_weights, ts_cfg, generator, return_logprobs: bool, mesh,
-             draw_rows):
+             step_weights, ts_cfg, return_logprobs: bool, mesh, row0: int):
     """One decode step over ``st``, in place: nothing is read on the host
-    and no host value changes between steps, so a CUDA graph of it replays
+    and no host value changes between steps (the draw's key and step are
+    tensors of the state), so the body of a CUDA graph's while node runs
     every step."""
     from whisper_tpu_torch.runtime import timestamps as ts
 
@@ -228,8 +241,8 @@ def _step_fn(st: LoopState, params, dims: WhisperDims, *, eot_id: int,
         if ts_cfg is not None:
             logits = ts.apply_rules(logits, st.ts, st.step, ts_cfg)
         temperature = 0.0 if st.temperature is None else st.temperature
-        nxt, lp = pick(logits, temperature, generator, return_logprobs,
-                       draw_rows)
+        nxt, lp = pick(logits, temperature, st.key, st.step, return_logprobs,
+                       row0)
         nxt = torch.where(st.done, eot_id, nxt)
         if return_logprobs:
             # rows done before this step add nothing
@@ -297,7 +310,7 @@ def _budget(device) -> int:
 
 
 def graphed(device, mesh, eager: bool) -> bool:
-    """Whether a decode loop replays from a graph: on a card, without a
+    """Whether a decode loop runs from a graph: on a card, without a
     mesh, unless ``eager``."""
     return device.type == "cuda" and mesh is None and not eager
 
@@ -306,30 +319,37 @@ _THREAD_LOCAL = 1   # cudaStreamCaptureModeThreadLocal
 
 
 @contextlib.contextmanager
-def _if_node(graph, done: torch.Tensor, body):
+def _while_node(graph, done: torch.Tensor, trips: torch.Tensor, bound: int,
+                body):
     """Within a capture of ``graph`` on the current stream: the work the
     block queues on the ``body`` stream (made current) becomes the body of
-    a conditional (if) node on "some flag of ``done`` is false" (bools on
-    the card, contiguous), which each replay runs while a row is undone
-    and skips once every row is done.  Built through the CUDA runtime (``csrc/graph_cond.cu``): the
-    card's torch has no ``CUDAGraph.begin_capture_to_if_node``.  The
-    body's allocations go to a memory pool of its own, kept until
-    ``graph`` is gone; a failure raises.  A body whose capture fails
-    leaves a node that the runtime cannot instantiate (the process dies
-    in ``capture_end``): ``_GraphLoop._trial_capture`` raises for such a
-    step first."""
+    a conditional (while) node on "``trips`` < ``bound`` and some flag of
+    ``done`` is false" (a [1] int64 counter and bools on the card,
+    contiguous): one launch of the graph runs the body while that holds,
+    evaluated before the first iteration and after each, and the
+    ``trips < bound`` term ends a loop whose rows never end.  Built through
+    the CUDA runtime (``csrc/graph_cond.cu``): the card's torch has no
+    ``CUDAGraph`` method for conditional nodes.  The body's allocations go
+    to a memory pool of its own, kept until ``graph`` is gone; a failure
+    raises.  A body whose capture fails leaves a node that the runtime
+    cannot instantiate (the process dies in ``capture_end``):
+    ``_GraphLoop._trial_capture`` raises for such a step first."""
     from whisper_tpu_torch.ops import kernels
 
     if done.dtype != torch.bool or not done.is_contiguous():
-        raise ValueError("the conditional node reads contiguous bools")
+        raise ValueError("the while node reads contiguous bools")
+    if trips.dtype != torch.int64 or trips.numel() != 1:
+        raise ValueError("the while node's counter is one int64")
     index = done.device.index
     lib = kernels.library()
     parent = kernels.stream_ptr(done.device)
+    handle = ctypes.c_ulonglong()
+    args = (done.data_ptr(), done.numel(), trips.data_ptr(), bound)
     pool = None
     try:
-        kernels.check(lib.wt_if_node_begin(
-            done.data_ptr(), done.numel(), parent, body.cuda_stream,
-            _THREAD_LOCAL), "wt_if_node_begin")
+        kernels.check(lib.wt_while_node_begin(
+            *args, parent, body.cuda_stream, _THREAD_LOCAL,
+            ctypes.byref(handle)), "wt_while_node_begin")
         pool = torch.cuda.graph_pool_handle()
         with torch.cuda.stream(body):
             torch._C._cuda_beginAllocateCurrentStreamToPool(index, pool)
@@ -337,8 +357,9 @@ def _if_node(graph, done: torch.Tensor, body):
                 yield
             finally:
                 torch._C._cuda_endAllocateToPool(index, pool)
-                rc = lib.wt_if_node_end(body.cuda_stream)
-        kernels.check(rc, "wt_if_node_end")
+                rc = lib.wt_while_node_end(handle.value, *args,
+                                           body.cuda_stream)
+        kernels.check(rc, "wt_while_node_end")
     except BaseException:
         if pool is not None:
             torch._C._cuda_releasePool(index, pool)
@@ -346,15 +367,28 @@ def _if_node(graph, done: torch.Tensor, body):
     weakref.finalize(graph, torch._C._cuda_releasePool, index, pool)
 
 
+class _NoRandomOps(TorchDispatchMode):
+    """Raises at any torch operation that draws from a generator (tagged
+    ``nondeterministic_seeded``): captured in a while node's body, such a
+    draw takes its Philox offset from the host once a launch, so every
+    iteration would repeat the same draws."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if torch.Tag.nondeterministic_seeded in func.tags:
+            raise RuntimeError(
+                f"{func} draws from a torch generator: in a while node's "
+                "body it would repeat its draws in every iteration (the "
+                "decode loops draw from the key in their state)")
+        return func(*args, **(kwargs or {}))
+
+
 class _GraphLoop:
-    """One key's static state, its captured step and the launches the
+    """One key's static state, its captured loop and the launches the
     capture tallied.  ``run`` holds the loop's lock from the copy-in to the
     queued copies of the results, so two threads never share the state."""
 
-    def __init__(self, device: torch.device, sampled: bool):
+    def __init__(self, device: torch.device):
         self.device = device
-        self.generator = (torch.Generator(device=device) if sampled
-                          else None)
         self.state: Optional[InPlaceState] = None
         self.graph = None
         self.tally: dict = {}
@@ -363,25 +397,13 @@ class _GraphLoop:
         self._lock = threading.Lock()
         self._free = None   # an event: the last run's results are copied
 
-    def _seeded(self, generator):
-        """The loop's generator at the caller's seed and offset (the
-        graph draws from its own, registered one)."""
-        if generator.device.type != self.device.type:
-            raise RuntimeError(f"generator on {generator.device}, the decode "
-                               f"on {self.device}")
-        self.generator.manual_seed(generator.initial_seed())
-        offset = generator.get_offset()
-        if offset:
-            self.generator.set_offset(offset)
-        return self.generator
-
-    def _capture(self, step) -> None:
+    def _capture(self, step, bound: int) -> None:
         """Run ``step`` once for real (the warm-up: the first call's step
-        ``first``), then capture it under a conditional node that runs it
-        only while some row is undone (``_if_node``).  The warm-up runs
-        whatever ``done`` says (a step past all-done returns what the loop
-        would have), its launches deferred as a body's that ran where some
-        row was undone.
+        ``first``), then capture it as the body of a while node that runs
+        it while the state's ``trips()`` is under ``bound`` and some row is
+        undone (``_while_node``).  The warm-up runs whatever ``done`` says
+        (a step past all-done returns what the loop would have), its
+        launches deferred as a body's that ran where some row was undone.
         On a card the warm-up runs on the device's body stream, where the
         trial and the node's body are then captured (each stream that runs
         a product keeps a cuBLAS workspace: this one's is made by the
@@ -393,7 +415,7 @@ class _GraphLoop:
         from whisper_tpu_torch.ops.common import defer_launches, tally_launches
 
         t0 = time.perf_counter()
-        done = self.state.done
+        done, trips = self.state.done, self.state.trips()
         with _CAPTURE_LOCK:
             if self.device not in _CAPTURE_STREAMS:
                 _CAPTURE_STREAMS[self.device] = (
@@ -409,12 +431,10 @@ class _GraphLoop:
             defer_launches(dict(warm), undone0)
             self._trial_capture(step, body)
             graph = torch.cuda.CUDAGraph()
-            if self.generator is not None:
-                graph.register_generator_state(self.generator)
             with tally_launches() as tally, torch.cuda.stream(own):
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
-                    with _if_node(graph, done, body):
+                    with _while_node(graph, done, trips, bound, body):
                         step()
                 finally:
                     try:
@@ -429,18 +449,17 @@ class _GraphLoop:
 
     def _trial_capture(self, step, stream) -> None:
         """Capture ``step`` into a graph that is thrown away: a step that
-        cannot be captured (a host read, a library that refuses) raises
-        here, before it can leave a conditional node's body half made
-        (``_if_node``)."""
+        cannot be captured (a host read, a library that refuses) or that
+        draws from a torch generator (``_NoRandomOps``) raises here, before
+        it can leave a while node's body half made (``_while_node``)."""
         from whisper_tpu_torch.ops.common import tally_launches
 
         trial = torch.cuda.CUDAGraph()
-        if self.generator is not None:
-            trial.register_generator_state(self.generator)
         with tally_launches(), torch.cuda.stream(stream):
             trial.capture_begin(capture_error_mode="thread_local")
             try:
-                step()
+                with _NoRandomOps():
+                    step()
             finally:
                 try:
                     trial.capture_end()
@@ -450,30 +469,29 @@ class _GraphLoop:
                     del _CAPTURE_STREAMS[self.device]
                     raise
 
-    def run(self, init, make_step, first: int, n: int, generator):
-        """init(generator) -> the call's state before step ``first`` (an
-        ``InPlaceState``); make_step(state, generator) -> the step
-        function.  Steps first .. n-1, all queued, nothing read: a key's
-        first call runs step ``first`` as the capture's warm-up (a capture
-        that fails drops the state and raises), every other step is a
-        replay, whose body runs while some row is undone.  The launches of
-        the replays' bodies are deferred (``ops.common.defer_launches``).
-        Returns the outputs."""
+    def run(self, init, make_step, first: int, n: int):
+        """init() -> the call's state before step ``first`` (an
+        ``InPlaceState`` whose ``trips()`` holds ``first``); make_step(state)
+        -> the step function.  Steps first .. n-1 while some row is undone,
+        queued as one launch of the graph, nothing read: a key's first call
+        runs step ``first`` as the capture's warm-up (a capture that fails
+        drops the state and raises) and launches the graph for the rest.
+        The launches of the bodies that ran are deferred
+        (``ops.common.defer_launches``).  Returns the outputs."""
         from whisper_tpu_torch.ops.common import defer_launches
 
         with self._lock:
             main = torch.cuda.current_stream(self.device)
             if self._free is not None:
                 main.wait_event(self._free)
-            gen = None if self.generator is None else self._seeded(generator)
-            fresh = init(gen)
+            fresh = init()
             if self.state is None:
                 # adopt the first call's tensors as the static state; its
                 # first step is the capture's warm-up, then the capture
                 self.state = fresh.owned()
                 if first < n:
                     try:
-                        self._capture(make_step(self.state, gen))
+                        self._capture(make_step(self.state), n)
                     except BaseException:
                         self.state = None
                         raise
@@ -483,8 +501,7 @@ class _GraphLoop:
             del fresh
             if self.graph is not None and first < n:
                 start = self.state.trips().clone()
-                for _ in range(first, n):
-                    self.graph.replay()
+                self.graph.replay()
                 defer_launches(self.tally, self.state.trips() - start)
             out = self.state.outputs()
             if self.graph is None:      # no step ran: capture at a later call
@@ -519,7 +536,7 @@ class GraphKey(NamedTuple):
     int8_cross_kv: bool
     hybrid: bool           # the hybrid step (step_weights)
     ts_cfg: object
-    sampled: bool          # temperature > 0 (T itself is in the state)
+    sampled: bool          # temperature > 0 (T and the key are in the state)
     scores: bool
     pads: bool
     eot_id: int
@@ -545,7 +562,7 @@ class DecodeGraphs:
         self._loops: collections.OrderedDict = collections.OrderedDict()
         self._lock = threading.Lock()
 
-    def loop(self, params, step_weights, key, device, sampled: bool,
+    def loop(self, params, step_weights, key, device,
              draft_params=None) -> _GraphLoop:
         if params is not self.params or (
                 step_weights is not None
@@ -555,7 +572,7 @@ class DecodeGraphs:
             raise ValueError("these decode graphs belong to other weights")
         with self._lock:
             if key not in self._loops:
-                self._loops[key] = _GraphLoop(device, sampled)
+                self._loops[key] = _GraphLoop(device)
             self._loops.move_to_end(key)
             return self._loops[key]
 
@@ -609,7 +626,7 @@ def exit_period(early_exit: bool, device, mesh, block: int = EXIT_BLOCK):
     """The eager loop's steps between two reads of ``done`` (``_drive``):
     None without the early exit, ``block`` under a mesh on a card, else one
     (where the ``while_loop`` stops).  A graphed loop reads nothing: its
-    conditional step stops on the card."""
+    while node stops on the card."""
     if not early_exit:
         return None
     return block if device.type == "cuda" and mesh is not None else 1
@@ -617,24 +634,23 @@ def exit_period(early_exit: bool, device, mesh, block: int = EXIT_BLOCK):
 
 def run_loop(init, make_step, first: int, n: int, exit_every, *,
              graphs: Optional[DecodeGraphs], key, device, params,
-             step_weights=None, draft_params=None, generator=None,
-             sampled: bool = False, mesh=None, eager: bool = False):
-    """Steps first .. n-1 of a decode loop over the state ``init`` makes,
-    and the state's outputs.  Where ``graphed`` (a card, no mesh, not
-    ``eager``): replayed under the conditional node from the graph of
-    ``key`` in ``graphs`` (None: a ``DecodeGraphs`` for this call alone),
-    which then drops what passes its budget; nothing is read.  Else
-    eagerly, ``done`` read once ``exit_every`` steps (``_drive``;
-    ``exit_period``)."""
+             step_weights=None, draft_params=None, mesh=None,
+             eager: bool = False):
+    """Steps first .. n-1 of a decode loop over the state ``init()`` makes
+    (``make_step(state)`` its step), while some row is undone, and the
+    state's outputs.  Where ``graphed`` (a card, no mesh, not ``eager``):
+    one launch of the while node of ``key``'s graph in ``graphs`` (None: a
+    ``DecodeGraphs`` for this call alone), which then drops what passes its
+    budget; nothing is read.  Else eagerly, ``done`` read once
+    ``exit_every`` steps (``_drive``; ``exit_period``)."""
     if not graphed(device, mesh, eager):
-        st = init(generator)
-        _drive(make_step(st, generator), first, n, st.done, exit_every)
+        st = init()
+        _drive(make_step(st), first, n, st.done, exit_every)
         return st.outputs()
     if graphs is None:
         graphs = DecodeGraphs(params, step_weights, draft_params)
-    loop = graphs.loop(params, step_weights, key, device, sampled,
-                       draft_params)
-    out = loop.run(init, make_step, first, n, generator)
+    loop = graphs.loop(params, step_weights, key, device, draft_params)
+    out = loop.run(init, make_step, first, n)
     graphs.trim(key)
     return out
 
@@ -648,7 +664,7 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
                     step_weights=None, temperature: float = 0.0,
                     generator: torch.Generator | None = None,
                     return_logprobs: bool = False, pad_count=None,
-                    mesh=None, draw_rows=None, early_exit: bool = True,
+                    mesh=None, row0: int = 0, early_exit: bool = True,
                     eager: bool = False,
                     graphs: Optional[DecodeGraphs] = None):
     """Generated tokens [B, max_new_tokens] (prompt excluded), rows that
@@ -668,9 +684,12 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
     package.
 
     ts_cfg (``runtime.timestamps.TimestampCfg``) enforces the timestamp
-    grammar.  temperature > 0 samples with ``generator``, a
-    ``torch.Generator`` on enc_states' device (a graphed loop draws from a
-    generator of its own set to this one's seed and offset).
+    grammar.  temperature > 0 samples under the key of ``generator`` (a
+    ``torch.Generator``: its seed and, on a card, its offset;
+    ``ops.sampling.generator_key``), held in the loop's state: the draws
+    depend on the key, the step, the row and the id, not on the generator's
+    later use (it is not advanced), and the graphed loop's are the eager
+    loop's.
 
     pad_count ([B] int32 on enc_states' device): the first pad_count[r]
     prompt slots of row r are left padding (previous-text conditioning at
@@ -678,19 +697,18 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
     step (B3/B8 on the kernel step), so each row decodes as its unpadded
     shorter prompt would.
 
-    On a card without a mesh the steps replay from a CUDA graph, kept in
+    On a card without a mesh the steps run from a CUDA graph, kept in
     ``graphs`` (a ``DecodeGraphs`` of these weights; None: captured for
-    this call alone), unless ``eager``: all max_new_tokens - 1 replays are
-    queued and nothing is read, the conditional step stopping the loop on
-    the card (see the module's docstring), so the call returns before the
-    decode ends.  The eager loop reads ``done`` on the host once a step,
+    this call alone), unless ``eager``: one launch of the graph's while
+    node runs the loop on the card and nothing is read (see the module's
+    docstring), so the call returns before the decode ends.  The eager loop reads ``done`` on the host once a step,
     where the JAX loop stops (under a mesh on a card once ``EXIT_BLOCK``
     steps), or never with early_exit False (every step runs).
 
     mesh: this rank's share of a (data, model) mesh: enc_states are its
     rows, the weights its shard (``parallel.mesh.shard_params``); the
-    tokens returned are its rows, decoded without a graph.  draw_rows (lo,
-    hi, n): those rows' place in the batch, so that sampled draws equal the
+    tokens returned are its rows, decoded without a graph.  row0: the
+    place of its first row in the batch, so that sampled draws equal the
     one-process decode's (``pick``)."""
     from whisper_tpu_torch.runtime import timestamps as ts
 
@@ -709,7 +727,7 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
     dev = enc_states.device
     cross_len = enc_states.shape[1]
 
-    def init(gen) -> LoopState:
+    def init() -> LoopState:
         """The prefill and the first token: the state before step 1."""
         tokens = prompt.to(device=dev, dtype=torch.long)[None, :].expand(b, p)
         prompt_mask = None
@@ -726,8 +744,11 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
         if ts_cfg is not None:
             ts_state = ts.init_state(b, eot_id, dev)
             first_logits = ts.apply_rules(first_logits, ts_state, 0, ts_cfg)
-        first, sum_lp = pick(first_logits, temperature, gen,
-                             return_logprobs, draw_rows)
+        t, key = 0.0, None
+        if temperature > 0:
+            t = torch.full((1,), temperature, dtype=torch.float32, device=dev)
+            key = sampling.generator_key(generator, dev)
+        first, sum_lp = pick(first_logits, t, key, 0, return_logprobs, row0)
         if ts_cfg is not None:
             ts_state = ts.update_state(ts_state, first.clone(), ts_cfg)
         buf = torch.full((b, max_new_tokens), eot_id, dtype=torch.long,
@@ -742,15 +763,14 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
             n_tok=(torch.ones(b, dtype=torch.long, device=dev)
                    if return_logprobs else None),
             ts=ts_state, pad_count=pad_count,
-            temperature=(torch.full((1,), temperature, dtype=torch.float32,
-                                    device=dev) if temperature > 0 else None))
+            temperature=t if temperature > 0 else None, key=key)
 
-    def make_step(st: LoopState, gen):
+    def make_step(st: LoopState):
         return _step_fn(st, params, dims, eot_id=eot_id,
                         kernel_step=kernel_step, cross_len=cross_len,
                         int8_mxu=int8_mxu, step_weights=step_weights,
-                        ts_cfg=ts_cfg, generator=gen, return_logprobs=return_logprobs,
-                        mesh=mesh, draw_rows=draw_rows)
+                        ts_cfg=ts_cfg, return_logprobs=return_logprobs,
+                        mesh=mesh, row0=row0)
 
     key = GraphKey(b, p, max_new_tokens, cross_len, kernel_step, int8_mxu,
                    int8_self, int8_cross_kv, step_weights is not None, ts_cfg,
@@ -759,8 +779,7 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
     return run_loop(init, make_step, 1, max_new_tokens,
                     exit_period(early_exit, dev, mesh),
                     graphs=graphs, key=key, device=dev, params=params,
-                    step_weights=step_weights, generator=generator,
-                    sampled=temperature > 0, mesh=mesh, eager=eager)
+                    step_weights=step_weights, mesh=mesh, eager=eager)
 
 
 def strip_generated(row: np.ndarray, eot_id: int) -> list[int]:

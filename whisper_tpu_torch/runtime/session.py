@@ -32,17 +32,16 @@ reflect-padded utterances of at most 30 s through the plain mel, the
 encoder and greedy or speculative decoding; ``transcribe_chunks`` and
 ``warmup`` take host mel chunks.
 
-Greedy decoding, beam search and speculative decoding on a card replay
-each step (a speculative round) from a CUDA graph captured once per key
+Greedy decoding, beam search and speculative decoding on a card run each
+decode as one launch of a CUDA graph captured once per key
 (``runtime.generate``, ``runtime.beam``, ``runtime.speculative``; the
 session keeps them all in ``graphs``, with the draft's weights once
 ``set_draft_model`` attaches them, and ``warmup`` captures a bucket's
-greedy loop), each step under a conditional node that skips it once every
-row is done, so the card stops where the JAX ``while_loop`` stops.  No
-form reads ``done`` on the host there: the ``_async`` forms of greedy
-decoding, beam search and speculative decoding return once the work is
-queued (a speculative form with a large draft waits in its last launches
-for the driver's queue, ``transcribe_short_speculative_async``), and ``gather_tokens`` (or the caller's
+greedy loop), the step (a speculative round) the body of a while node
+that the card runs until every row is done or the bound is reached, where
+the JAX ``while_loop`` stops.  No form reads ``done`` on the host there:
+the ``_async`` forms of greedy decoding, beam search and speculative
+decoding return once the work is queued, and ``gather_tokens`` (or the caller's
 ``.cpu()``) is the sync; the synchronous forms read once, at the end,
 where the launches of the graphs' bodies are added
 (``ops.common.settle_launches``).  ``eager_decode`` runs the loops
@@ -523,8 +522,9 @@ class WhisperSession:
 
         num_beams > 1: beam search (``runtime.beam``) with length_penalty.
         ts_cfg: the timestamp grammar.  temperature > 0 samples, each batch
-        piece from a generator seeded with ``seed * 100003 + start``, as the
-        JAX session keys its draws.  speculative: draft-and-verify over the
+        piece under the key of a generator seeded with ``seed * 100003 +
+        start``, as the JAX session keys its draws (the key held in the
+        loop's state, ``runtime.generate``).  speculative: draft-and-verify over the
         chunk batch with the attached draft model (``set_draft_model``),
         ``draft_k`` proposals a round; plain greedy decoding only.
         pad_count (an int): the prompt's first pad_count slots are left
@@ -639,7 +639,7 @@ class WhisperSession:
                                       max_new_tokens, eot_id, ts_cfg=ts_cfg,
                                       temperature=temperature, generator=gen,
                                       with_scores=with_scores, pads=pads,
-                                      draw_rows=(lo, hi, bucket),
+                                      row0=lo,
                                       early_exit=early_exit)
             pieces.append((self._gather_rows(result, bucket), start, n))
             start += n
@@ -648,7 +648,7 @@ class WhisperSession:
     def _greedy(self, enc, prompt_t, base_mask, first_mask,
                 max_new_tokens: int, eot_id: int, *, ts_cfg=None,
                 temperature: float = 0.0, generator=None,
-                with_scores: bool = False, pads=None, draw_rows=None,
+                with_scores: bool = False, pads=None, row0: int = 0,
                 early_exit: bool = True):
         """``greedy_generate`` over encoder states with the session's
         rung: its kernels, its cross cache, its step, its mesh and its
@@ -664,7 +664,7 @@ class WhisperSession:
             step_weights=None if pads is not None else self._step_weights,
             temperature=temperature, generator=generator,
             return_logprobs=with_scores, pad_count=pads, mesh=self.mesh,
-            draw_rows=draw_rows, early_exit=early_exit, graphs=self.graphs,
+            row0=row0, early_exit=early_exit, graphs=self.graphs,
             eager=self.eager_decode)
 
     # -- short-utterance batch (serving fast path) --------------------------
@@ -751,8 +751,8 @@ class WhisperSession:
         (``serve/engine.py``'s trimmed uploads); the zero tail is made on
         the device after the wire decode.  As the JAX program, this returns
         once the work is queued, before the decode ends: the greedy loop
-        reads nothing on the host (replayed from a CUDA graph on a card,
-        stopping there once every row is done), so the engine's tick
+        reads nothing on the host (one launch of a CUDA graph's while node
+        on a card, stopping there once every row is done), so the engine's tick
         pipeline overlaps tick k's decode with the dispatch of tick k+1.
         early_exit is the eager loop's: it reads ``done`` once a block of
         steps (``transcribe_short_batch``'s form)."""
@@ -892,15 +892,10 @@ class WhisperSession:
         serving tick's speculative leg): the main encoder, the draft's own
         or with ``share_encoder`` the main one's states, then
         ``speculative_generate`` (its verify pass through B7).  Its rounds
-        replay from CUDA graphs on a card, each under a conditional node
-        that skips it once every row is done, so like
-        ``transcribe_short_batch_async`` it reads nothing and returns once
-        its max_new_tokens round launches are queued.  The driver queues
-        only so many launches of a large graph ahead of the card: with a
-        whisper-base draft (four whisper-base steps and a verify pass a
-        round) the launches past about the 100th wait for the card to run
-        the rounds before them, so the call returns near the loop's end; a
-        whisper-tiny draft's returns early."""
+        run on a card as one launch of a CUDA graph whose while node stops
+        once every row is done, so like ``transcribe_short_batch_async`` it
+        reads nothing and returns once that launch is queued, whatever the
+        draft."""
         if not self.has_draft:
             raise RuntimeError("no draft model attached (set_draft_model)")
         mel, prompt_t, base_mask, first_mask = self._short_inputs(

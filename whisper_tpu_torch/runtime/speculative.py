@@ -24,13 +24,13 @@ while the rest of the batch goes on.
 The JAX package's ``lax.while_loop`` over rounds becomes a round function
 over ``SpecState``, updated in place as the greedy loop's step
 (``runtime.generate``); its ``fori_loop`` over the draft steps is unrolled
-in the round.  On a card each round replays from a CUDA graph per key
+in the round.  On a card each call is one launch of a CUDA graph per key
 (``SpecKey``, in a ``DecodeGraphs`` that holds the main and the draft
-weights) under the greedy loop's conditional node (``runtime.generate``):
-a call queues max_new_tokens round replays, which bound the loop since
-every undone row commits a token a round, and reads nothing; the card
-skips the round once every row is done, so the rounds run are the rounds
-counted.  ``eager=True``, the CPU and a mesh call the round function as it
+weights) whose round is the body of the greedy loop's while node
+(``runtime.generate``): the card runs rounds while fewer than
+max_new_tokens have run, which bounds the loop since every undone row
+commits a token a round, and some row is undone; nothing is read, and the
+rounds run are the rounds counted.  ``eager=True``, the CPU and a mesh call the round function as it
 is and read ``done`` once a round, under a mesh on a card once a block of
 ``EXIT_BLOCK`` rounds (one block behind).  A round adds one to the device
 round counter only when some row was undone at its start, so ``n_rounds``
@@ -253,10 +253,11 @@ def speculative_generate(params, dims: WhisperDims, draft_params,
     deterministic draft) and read the same logits after the all-reduce, so
     their rounds agree; the rounds run without a graph.
 
-    On a card without a mesh the rounds replay from a CUDA graph kept in
+    On a card without a mesh the rounds run from a CUDA graph kept in
     ``graphs`` (a ``DecodeGraphs`` of these main and draft weights; None:
-    captured for this call alone), unless ``eager``: nothing is read and
-    the call returns before the loop ends.  The eager loop reads ``done``
+    captured for this call alone), unless ``eager``: one launch of its
+    while node, nothing is read, and the call returns before the loop
+    ends.  The eager loop reads ``done``
     once a round (under a mesh on a card once ``EXIT_BLOCK`` rounds)."""
     if draft_k < 1:
         # Nothing would be drafted or committed, and the loop would not end.
@@ -275,7 +276,7 @@ def speculative_generate(params, dims: WhisperDims, draft_params,
                    if _kernel_cross(packed_draft, int8_cross_kv, draft_dims)
                    else None)
 
-    def init(_gen) -> SpecState:
+    def init() -> SpecState:
         """Both prefills and the first token: the state before round 0."""
         tokens_p = prompt.to(device=dev, dtype=torch.long)[None, :].expand(
             b, p)
@@ -295,7 +296,7 @@ def speculative_generate(params, dims: WhisperDims, draft_params,
             rounds=torch.zeros(1, dtype=torch.long, device=dev),
             suppress=suppress_mask, cache=cache, d_cache=d_cache)
 
-    def make_round(st: SpecState, _gen):
+    def make_round(st: SpecState):
         return _round_fn(st, params, dims, draft_params, draft_dims,
                          prompt_len=p, max_new_tokens=max_new_tokens,
                          draft_k=draft_k, eot_id=eot_id,

@@ -55,7 +55,7 @@ def apply_rules(logits: torch.Tensor, state: TimestampState, step,
     """The grammar's -inf mask applied to fp32 logits [B, V]; ``step`` is
     0 for the first generated token: a host int, or the loop's counter as
     a one-element integer tensor on the logits' device, which is never
-    read on the host (a captured step replays every step)."""
+    read on the host (a captured step runs every step)."""
     v = logits.shape[-1]
     col = torch.arange(v, device=logits.device)[None, :]
     tsb = cfg.timestamp_begin

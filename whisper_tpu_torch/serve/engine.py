@@ -25,14 +25,11 @@ pageable memory, waits for the stream), and tick k's copy to the host with
 tick k+1's queued work.  ``warmup`` captures each bucket's greedy loop
 before serving; a key first met while serving is captured under its loop's
 lock, on a stream of its own (``runtime.generate``), while the other lane
-launches.  A speculative tick's rounds replay from CUDA graphs too (its
+launches.  A speculative tick's rounds run from CUDA graphs too (its
 keys captured by ``warmup`` as well), and its dispatch returns once queued
-as a greedy tick's does: each step and round of either runs under a
-conditional node that skips it on the card once every row is done, so no
-tick reads ``done`` on the host.  With a large draft (a whisper-base one)
-the driver's launch queue fills before the last rounds are queued, and the
-tick's dispatch waits there for the card
-(``transcribe_short_speculative_async``).
+as a greedy tick's does: either decode is one graph launch whose while
+node runs the steps (rounds) on the card until every row is done, so no
+tick reads ``done`` on the host.
 ``_finish_short`` copies a tick's tokens and then counts the launches of
 the graphs' bodies that ran.  Both lanes
 hold the interpreter lock while they issue work, so a long request slows
