@@ -890,31 +890,34 @@ def _in_situ(summary) -> str:
     return "; ".join(parts)
 
 
-def _device_ops_per_call(fn, calls: int = 5, names=None) -> float:
+def _device_ops_per_call(fn, calls: int = 5, names=None,
+                         traces: int = 5) -> float:
     """Operations (kernels, copies, memsets) that one call of ``fn`` puts on
     the card, counted by torch.profiler over ``calls`` calls; their names
     are added to the set ``names`` where one is given.  The profiler now
-    and then drops an event from a trace of short calls (PERF.md §7), which
-    only ever lowers the count, so the largest count of three traces is
-    taken: an operation a wrapper adds shows in every trace."""
+    and then drops an event from a trace of short calls (PERF.md §7; B5's
+    two kernels once lost one event in each of three traces), which only
+    ever lowers a count, so each operation's largest count over ``traces``
+    traces is taken, as the card tests' ``_device_ops`` does: an operation
+    a wrapper adds shows in some trace, and one it does not add in none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    counts = []
-    for _ in range(3):
+    counts: dict = {}
+    for _ in range(traces):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names is not None:
-            names.update(e.key for e in events)
-        counts.append(sum(e.count for e in events) / calls)
-    return max(counts)
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                counts[e.key] = max(counts.get(e.key, 0), e.count)
+    if names is not None:
+        names.update(counts)
+    return sum(counts.values()) / calls
 
 
 def _at_beam_rows(label: str, step, plain, randn, args, k: int = 4):
@@ -1469,6 +1472,29 @@ MAIN_PATH_KERNELS = ("fused_attention", "fused_encoder_mlp",
                      "self_attend_step", "cross_attend_step")
 
 
+def _memory_line(label: str) -> None:
+    """The device memory a phase starts with, earlier phases' garbage
+    collected and the allocator's free cache returned: bytes allocated and
+    reserved, and the decode graphs still alive (``DecodeGraphs``: their
+    keys and the bytes they count)."""
+    import gc
+
+    import torch
+
+    from whisper_tpu_torch.runtime.generate import DecodeGraphs
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    live = [o for o in gc.get_objects() if isinstance(o, DecodeGraphs)]
+    gib = 2**-30
+    print(f"[memory] before {label}: allocated "
+          f"{torch.cuda.memory_allocated() * gib:.3f} GiB, reserved "
+          f"{torch.cuda.memory_reserved() * gib:.3f} GiB; {len(live)} decode "
+          f"graphs alive, {sum(len(g.kept()) for g in live)} keys counting "
+          f"{sum(g.nbytes() for g in live) * gib:.3f} GiB", flush=True)
+
+
 def _counts(results) -> dict:
     """Every kernel's count, once the launches of the graphs' bodies that
     ran are added (``ops.common.settle_launches``: a graphed decode loop's
@@ -1935,15 +1961,16 @@ def check_fused_step(card: str, results, params, dims, audio) -> dict:
 @contextlib.contextmanager
 def _graph_launches():
     """Within the block every launch of a CUDA graph (``CUDAGraph.replay``)
-    adds one to the list yielded: a graphed decode is one launch."""
+    adds its host ms to the list yielded: a graphed decode is one launch."""
     import torch
 
     launches = []
     replay = torch.cuda.CUDAGraph.replay
 
     def counted(graph):
-        launches.append(1)
+        t0 = time.perf_counter()
         replay(graph)
+        launches.append((time.perf_counter() - t0) * 1e3)
 
     torch.cuda.CUDAGraph.replay = counted
     try:
@@ -2046,9 +2073,11 @@ def check_graph(card: str, results, params, dims, audio, x5,
         run_once(session, audio)
     eager_mem = (kept(base_mem), torch.cuda.max_memory_allocated() - base_mem)
     torch.cuda.reset_peak_memory_stats()
+    reserved = torch.cuda.memory_reserved()
     run_once(session, audio)                      # captures the bucket's key
     graph_mem = (kept(base_mem), torch.cuda.max_memory_allocated() - base_mem,
-                 session.graphs.nbytes())
+                 session.graphs.nbytes(), sum(session.graphs.pools().values()),
+                 torch.cuda.memory_reserved() - reserved)
     note("x5 main path", session)
 
     # (a) the main path, alternated
@@ -2197,6 +2226,7 @@ def check_graph(card: str, results, params, dims, audio, x5,
                                                       400_000)]
     chunks = _bucket_chunks(session, audio)
     dispatch, enc_host = [], []
+    pre_tally = {}
     for _ in range(4):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2214,16 +2244,52 @@ def check_graph(card: str, results, params, dims, audio, x5,
         ev1.record()
         toks = session.gather_tokens(pieces, len(starts), 128)
         dispatch.append((host_s, ev0.elapsed_time(ev1) / 1e3,
-                         time.perf_counter() - t0))
+                         time.perf_counter() - t0, sum(graph_launches)))
         if not np.array_equal(toks, x5[2]):
             raise AssertionError("(c) async tokens differ from the main "
                                  "path's")
         if len(graph_launches) != 1:
             raise AssertionError(f"(c) {len(graph_launches)} graph launches "
                                  "an _async call, want 1")
-    host_s, dev_s, all_s = (statistics.median(d[i] for d in dispatch[1:])
-                            for i in range(3))
+    host_s, dev_s, all_s, launch_ms = (
+        statistics.median(d[i] for d in dispatch[1:]) for i in range(4))
     enc_s = statistics.median(enc_host[1:])
+    # the program holds the encoder: its kernels are in the launch's tally
+    for k, loop in session.graphs._loops.items():
+        if k.front[:1] == ("chunks",) and k.rows == 16:
+            pre_tally = {f"{m.__name__.rsplit('.', 1)[-1]}.{n}": c
+                         for (m, n), c in loop.pre_tally.items()}
+    if not (pre_tally.get("attention.launches")
+            and pre_tally.get("encoder_mlp.launches")):
+        raise AssertionError(f"(c) the bucket program's pre-node tally "
+                             f"{pre_tally}: B1 and B2 not in it")
+    # a second call at a key with other inputs: the file reversed, so
+    # other chunks; its own eager tokens and scores, bitwise, no new key,
+    # and scores other than the first call's (random weights decode most
+    # chunks into the same tokens: the scores show a frozen input)
+    other = np.ascontiguousarray(audio[::-1])
+    o_nv = golden.num_frames(len(other))
+    o_mel = session.compute_mel(golden.reflect_pad(other), o_nv,
+                                mel_frame_bucket(o_nv))
+
+    def scored(m):
+        return session.transcribe_from_mel(
+            m, starts, prompt, 128, eot, gen_cfg.suppress_tokens,
+            gen_cfg.begin_suppress_tokens, with_scores=True)
+
+    first = scored(mel)                      # captures the key with scores
+    keys = set(session.graphs.captures())
+    got = scored(o_mel)
+    with _eager_loop(session):
+        want2 = scored(o_mel)
+    if not all(np.array_equal(a, b) for a, b in zip(got, want2)) or set(
+            session.graphs.captures()) != keys or np.array_equal(
+            first[1], got[1]):
+        raise AssertionError("(c) a second call at the bucket's key with "
+                             "other audio: not its eager result, a new key, "
+                             "or the first call's scores")
+    pools = {k: v for k, v in session.graphs.pools().items()
+             if k.front[:1] == ("chunks",)}
     transcribe_sequential(session, synth_audio(76.0), "en", "transcribe",
                           128, condition_on_prev_text=True)
     seq_keys = [k for k in session.graphs.captures()
@@ -2232,29 +2298,42 @@ def check_graph(card: str, results, params, dims, audio, x5,
         raise AssertionError("(c) the sequential mode's windows ran no graph "
                              "of bucket 1 with the grammar and pad_count")
     note("sequential windows", session)
+    gib = 2**-30
     print(f"[graph] (c) whisper-base x5, {len(starts)} chunks, on {card}: "
           f"transcribe_from_mel_async returns after {host_s * 1e3:.3f} ms of "
-          f"host time (one graph launch; queueing the encoder alone "
+          f"host time (one graph launch of the bucket's program: the "
+          f"encoder, the prefill and the loop; the launch itself "
+          f"{launch_ms:.3f} ms; queueing the encoder alone "
           f"{enc_s * 1e3:.3f} ms); the card's span of the work it queued "
           f"{dev_s * 1e3:.3f} ms; to the tokens on the host "
-          f"{all_s * 1e3:.3f} ms (median of 3 after one); the sequential "
-          f"mode's windows replay {len(seq_keys)} graph(s) of bucket 1 with "
-          f"the grammar and pad_count", flush=True)
+          f"{all_s * 1e3:.3f} ms (median of 3 after one); the program's "
+          f"pre-node tally {pre_tally}; a second call at the key with other "
+          f"audio (the file reversed) bitwise its eager tokens and scores, "
+          f"no new key; "
+          f"the chunk programs' pools "
+          + ", ".join(f"rows {k.rows}: {v * gib:.4f} GiB"
+                      for k, v in pools.items())
+          + f"; the sequential mode's windows replay {len(seq_keys)} "
+          f"graph(s) of bucket 1 with the grammar and pad_count",
+          flush=True)
 
     # (d) capture seconds and memory
-    print(f"[graph] (d) on {card}: seconds to capture a key (a real step "
-          f"on a side stream, then the capture), {len(captures)} keys: "
+    print(f"[graph] (d) on {card}: seconds to capture a key (the "
+          f"program's work once on side streams, the trial captures, then "
+          f"the capture), {len(captures)} keys: "
           + "; ".join(f"{label}, rows {k.rows}, prompt {k.prompt_len}: "
                       f"{secs:.4f}" for k, (label, secs) in captures.items()),
           flush=True)
-    gib = 2**-30
     print(f"[graph] (d) device memory of an x5 session over the file, "
           f"memory_allocated() less before the session (its weights "
           f"{weights_mem * gib:.4f} GiB), on {card}: kept after an eager run "
           f"{eager_mem[0] * gib:.4f} GiB (peak {eager_mem[1] * gib:.4f}), "
           f"kept after the graphed run {graph_mem[0] * gib:.4f} GiB (peak "
-          f"{graph_mem[1] * gib:.4f}; the state its graphs count "
-          f"{graph_mem[2] * gib:.4f})", flush=True)
+          f"{graph_mem[1] * gib:.4f}; what its graphs count, state, inputs "
+          f"and pools, {graph_mem[2] * gib:.4f}, of it pools "
+          f"{graph_mem[3] * gib:.4f}, reserved "
+          f"{graph_mem[4] * gib:.4f} GiB more than after the eager run)",
+          flush=True)
 
     # (d) keys adding up in a fresh session
     from whisper_tpu_torch.pipeline.fallback import DEFAULT_TEMPERATURES
@@ -2269,7 +2348,8 @@ def check_graph(card: str, results, params, dims, audio, x5,
 
     def stage(label):
         stages.append((label, len(s_.graphs.captures()),
-                       kept(base_mem) - weights_mem, s_.graphs.nbytes()))
+                       kept(base_mem) - weights_mem, s_.graphs.nbytes(),
+                       sum(s_.graphs.pools().values())))
 
     for b in (1, 2, 4, 8, 16):
         s_.warmup(b, prompt, 128, eot)
@@ -2287,16 +2367,20 @@ def check_graph(card: str, results, params, dims, audio, x5,
                    torch.tensor(prev[:n_prev] + prompt, device="cuda"),
                    *masks, 128, eot)
     stage("prompt lengths 5-8 at bucket 1")
+    # the warm-ups' 5 chunk programs (a bucket each); the ladder's calls on
+    # given encoder states, 2 a bucket (T = 0 with scores, and one key for
+    # every T > 0): 15; at bucket 1 four more prompt lengths: 19
     if [st[1] for st in stages] != [5, 15, 19]:
-        raise AssertionError(f"(d) keys as they add up {stages}: want 5, "
-                             "15 (T = 0 and one key for every T > 0 a "
-                             "bucket), 19")
+        raise AssertionError(f"(d) keys as they add up {stages}: want 5 "
+                             "chunk programs, 15 (T = 0 and one key for "
+                             "every T > 0 a bucket), 19")
     print(f"[graph] (d) a fresh x5 session's keys adding up, on {card}: "
           + "; ".join(f"{label}: {n} keys, memory_allocated() less the "
                       f"session's weights and 16 rows of encoder states "
-                      f"{m * gib:.4f} GiB, the state its "
-                      f"graphs count {c * gib:.4f} GiB"
-                      for label, n, m, c in stages)
+                      f"{m * gib:.4f} GiB, what its graphs count (state, "
+                      f"inputs, pools) {c * gib:.4f} GiB, of it pools "
+                      f"{pl * gib:.4f} GiB"
+                      for label, n, m, c, pl in stages)
           + f"; budget {_budget(torch.device('cuda', 0)) * gib:.4f} GiB; "
           f"[graph] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     return sampled_counts
@@ -2341,10 +2425,12 @@ def _bucket_chunks(session, audio):
 def _kept_line(session, kind: str) -> str:
     """Capture seconds and kept state of ``session``'s keys of ``kind``."""
     kept, caps = session.graphs.kept(), session.graphs.captures()
+    pools = session.graphs.pools()
     return "; ".join(
         f"rows {k.rows}, prompt {k.prompt_len}, {k.max_new_tokens} "
-        f"tokens: capture {caps[k]:.4f} s, "
-        f"state {kept[k] * 2**-30:.4f} GiB"
+        f"tokens, {k.front[0]}: capture {caps[k]:.4f} s, kept (state, "
+        f"inputs, pools) {kept[k] * 2**-30:.4f} GiB, of it pools "
+        f"{pools[k] * 2**-30:.4f}"
         for k in caps if k.kind == kind)
 
 
@@ -2672,7 +2758,8 @@ def check_exit(card: str, results, params, dims, audio) -> None:
 
     def async_ms(fn, calls: int = 3):
         """Median (host ms until ``fn()`` returns, device ms of the span
-        of the work it queued), warmed; each call one graph launch."""
+        of the work it queued, host ms of its graph launch), warmed; each
+        call one graph launch."""
         fn()
         out = []
         for _ in range(calls):
@@ -2685,12 +2772,12 @@ def check_exit(card: str, results, params, dims, audio) -> None:
             host = (time.perf_counter() - t0) * 1e3
             ev1.record()
             ev1.synchronize()
-            out.append((host, ev0.elapsed_time(ev1)))
+            out.append((host, ev0.elapsed_time(ev1), sum(graph_launches)))
             del res
             if len(graph_launches) != 1:
                 raise AssertionError(f"[exit] {len(graph_launches)} graph "
                                      "launches an _async call, want 1")
-        return tuple(statistics.median(o[i] for o in out) for i in (0, 1))
+        return tuple(statistics.median(o[i] for o in out) for i in (0, 1, 2))
 
     def queue_ms(fn, calls: int = 3):
         """Median host ms until ``fn()`` returns, the card idle before."""
@@ -2753,8 +2840,9 @@ def check_exit(card: str, results, params, dims, audio) -> None:
             raise AssertionError(f"[exit] (a) bucket {b}, no row ending: "
                                  f"{c_never['self_attend_step'] / n_l} "
                                  "steps run, want n - first = 127")
-        host, span = async_ms(lambda st=b_starts: session.transcribe_from_mel_async(
-            mel, st, prompt, 128, eot, *sup))
+        host, span, _ = async_ms(
+            lambda st=b_starts: session.transcribe_from_mel_async(
+                mel, st, prompt, 128, eot, *sup))
         print(f"[exit] (a) greedy x5, bucket {b}, on {card}: tokens, sum_lp "
               f"and n_tok bitwise the eager per-step loop's (synchronous, "
               f"twice, and _async); rows end at steps {row_ends}; {steps} "
@@ -2815,7 +2903,7 @@ def check_exit(card: str, results, params, dims, audio) -> None:
         raise AssertionError(f"[exit] (b) beams, no beam ending: "
                              f"{c_never['cross_attend_step'] / n_l} steps "
                              "run, want n - first = 127")
-    host, span = async_ms(lambda: session.transcribe_from_mel_async(
+    host, span, _ = async_ms(lambda: session.transcribe_from_mel_async(
         mel, b_starts, prompt, 128, eot, *b_sup, num_beams=4))
     print(f"[exit] (b) beams K = 4 x5, bucket 16 (64 beam rows), ids kept "
           f"{sorted(keep)}, on {card}: "
@@ -2869,15 +2957,34 @@ def check_exit(card: str, results, params, dims, audio) -> None:
         ms = {name: device_ms(lambda e=e: session._speculative_tokens(
             chunks, enc, prompt_t, *masks, 128, e, 4))
             for name, e in (("ending", eot), ("never ending", never))}
-        loop_host, loop_span = async_ms(lambda: session._speculative_tokens(
-            chunks, enc, prompt_t, *masks, 128, never, 4))
-        host, span = async_ms(lambda: session.transcribe_short_speculative_async(
-            padded, n_valid, prompt, 128, never, *sup))
+        loop_host, loop_span, _ = async_ms(
+            lambda: session._speculative_tokens(
+                chunks, enc, prompt_t, *masks, 128, never, 4))
+        host, span, launch = async_ms(
+            lambda: session.transcribe_short_speculative_async(
+                padded, n_valid, prompt, 128, never, *sup))
+        t0 = time.perf_counter()
+        session._short_rows(padded, n_valid)       # the rows' wire encoding
+        encode_ms = (time.perf_counter() - t0) * 1e3
         if not (loop_host < 0.5 * loop_span and host < 0.5 * span):
             raise AssertionError(
                 f"[exit] (c) {label}: the _async dispatch returned after "
                 f"{host:.3f} ms of a {span:.3f} ms span (the rounds alone "
                 f"{loop_host:.3f} of {loop_span:.3f})")
+        # a second call at the short program's key with other audio (the
+        # windows reversed): its own eager tokens, bitwise, no new key
+        keys = set(session.graphs.captures())
+        rev = np.ascontiguousarray(padded[::-1, ::-1])
+        got = session.transcribe_short_speculative(rev, n_valid, prompt,
+                                                   128, never, *sup)
+        with _eager_loop(session):
+            want2 = session.transcribe_short_speculative(
+                rev, n_valid, prompt, 128, never, *sup)
+        if not np.array_equal(got, want2) or set(
+                session.graphs.captures()) != keys:
+            raise AssertionError(f"[exit] (c) {label}: a second short call "
+                                 "at the key with other audio: not its "
+                                 "eager result, or a new key")
         print(f"[exit] (c) speculative x5, {label}, draft_k 4, bucket 16, on "
               f"{card}: tokens and rounds bitwise the eager per-round loop's "
               f"(synchronous, twice, and _async); {rounds} rounds counted = "
@@ -2885,10 +2992,16 @@ def check_exit(card: str, results, params, dims, audio) -> None:
               f"({never_rounds} rounds with no row ending); the decode's "
               f"device ms {ms['ending']:.4f}, {ms['never ending']:.4f} with "
               f"no row ending; transcribe_short_speculative_async (16 x 30 "
-              f"s, no row ending) returns after {host:.3f} ms of host time, "
-              f"one graph launch, the card's span of its work {span:.3f} ms "
-              f"(the prefills and rounds alone: {loop_host:.3f} ms host, "
-              f"{loop_span:.3f} ms span); within half the span", flush=True)
+              f"s, no row ending) returns after {host:.3f} ms of host time "
+              f"({100 * host / span:.1f}% of the span), one graph launch of "
+              f"the short program (the mel, both encoders, both prefills and "
+              f"the rounds; the launch itself {launch:.3f} ms; the rows' "
+              f"wire encoding on the host alone {encode_ms:.3f} ms), the "
+              f"card's "
+              f"span of its work {span:.3f} ms (from given encoder states: "
+              f"{loop_host:.3f} ms host, {loop_span:.3f} ms span); within "
+              f"half the span; a second short call with other audio bitwise "
+              f"its eager tokens, no new key", flush=True)
     del session
     print(f"[exit] phase {time.perf_counter() - t_phase:.1f} s, on {card}",
           flush=True)
@@ -4869,14 +4982,21 @@ def main() -> None:
                              spec_tokens["x5"],
                          "speculative x4 against greedy x4":
                              spec_tokens["x4"]})
+    _memory_line("[serve]")
     check_serve(card, results, params, dims)
+    _memory_line("[pipelined]")
     check_pipelined(card, results, params, dims, audio)
+    _memory_line("[fused step]")
     fused_step, fused_ms = check_fused_step(card, results, params, dims,
                                             audio)
+    _memory_line("[graph]")
     sampled = check_graph(card, results, params, dims, audio, x5_run,
                           fused_ms)
+    _memory_line("[graph] (e), (f)")
     check_graph_beam_spec(card, results, params, dims, audio)
+    _memory_line("[exit]")
     check_exit(card, results, params, dims, audio)
+    _memory_line("the medium fused block")
     medium = check_medium_fused_block(card, results)
     cli = check_cli(card, results)
     check_audio(card, results)

@@ -13,7 +13,8 @@ the while node's plain form (a Python ``while`` on the same condition,
   rounds with a random draft and with the int8 cross cache (tokens,
   ``n_rounds``, committed counts); the steps (rounds) run, at the
   capture's call and at a later one, equal the JAX ``while_loop``'s trip
-  count.  With no row ending every step runs.
+  count, the capture's call besides its one warm-up step (round), whose
+  results its launch overwrites.  With no row ending every step runs.
 - The graphed schedule is one launch a call and reads nothing on the host
   before its end: greedy, beams, speculative and the session's speculative
   ``_async`` form.
@@ -116,27 +117,34 @@ def _ending_eot(decode, ids, limit: int, never: int = NEVER):
 
 
 class _PlainGraph:
-    """The while node's plain form: a launch runs the step while the
-    counter is under the bound and some row is undone (a Python ``while``
-    on the node's condition)."""
+    """The program's plain form: a launch runs the pre-node part once (the
+    front, the prefill, the first pick), then the step while the counter is
+    under the bound and some row is undone (a Python ``while`` on the while
+    node's condition); step None: the pre-node part alone."""
 
-    def __init__(self, step, done: torch.Tensor, trips: torch.Tensor,
+    def __init__(self, pre, step, done: torch.Tensor, trips: torch.Tensor,
                  bound: int):
-        self.step, self.done, self.trips, self.bound = step, done, trips, bound
+        self.pre, self.step = pre, step
+        self.done, self.trips, self.bound = done, trips, bound
 
     def replay(self) -> None:
-        while int(self.trips) < self.bound and not bool(self.done.all()):
+        self.pre()
+        while self.step is not None and int(self.trips) < self.bound \
+                and not bool(self.done.all()):
             self.step()
 
 
 class _PlainLoop(generate._GraphLoop):
     """``_GraphLoop`` with the plain form for its graph: the capture runs
-    the warm-up step."""
+    the warm-up (the pre-node part and a step), whose results the launch
+    overwrites."""
 
-    def _capture(self, step, bound: int) -> None:
-        step()
-        self.graph = _PlainGraph(step, self.state.done, self.state.trips(),
-                                 bound)
+    def _capture(self, pre, step, bound: int) -> None:
+        pre()
+        if step is not None:
+            step()
+        self.graph = _PlainGraph(pre, step, self.state.done,
+                                 self.state.trips(), bound)
 
 
 class _Landed:
@@ -245,9 +253,10 @@ def _greedy_run(tp, enc, case, eot, max_new=MAX_NEW, **kw):
 def test_greedy_stops_where_the_while_loop_stops(case, conditional,
                                                  jax_trips, monkeypatch):
     """Tokens, n_tok and sum_lp equal JAX's; the capture's call and a
-    later call run the JAX trip count of steps, the first as its warm-up
-    and the rest under the plain while node, and so does the eager loop
-    that reads every step."""
+    later call each launch the program once and run the JAX trip count of
+    steps under the plain while node (the capture's call one more before
+    it: the warm-up, whose results the launch overwrites), and so does the
+    eager loop that reads every step."""
     prompt, grammar, pads, seed, spread = GREEDY_CASES[case]
     enc, jp, tp = _model(seed, spread=spread)
     eot = _ending_eot(
@@ -274,7 +283,8 @@ def test_greedy_stops_where_the_while_loop_stops(case, conditional,
         np.testing.assert_array_equal(n_tok.numpy(), np.asarray(jn))
         np.testing.assert_allclose(sum_lp.numpy(), np.asarray(jlp),
                                    rtol=1e-4, atol=0)
-        assert len(steps) == trip, (call, len(steps), trip)
+        warm = call == "capture"
+        assert len(steps) == trip + warm, (call, len(steps), trip)
     assert len(graphs.captures()) == 1
 
 
@@ -291,7 +301,8 @@ def test_greedy_runs_every_step_when_no_row_ends(conditional, jax_trips,
                            torch.tensor(PROMPT), torch.from_numpy(mask),
                            torch.from_numpy(mask), MAX_NEW, NEVER)
     np.testing.assert_array_equal(toks.numpy(), np.asarray(jt))
-    assert len(steps) == MAX_NEW - 1
+    # the capture's warm-up step, then the launch's MAX_NEW - 1
+    assert len(steps) == 1 + MAX_NEW - 1
 
 
 def test_sampled_draws_of_the_steps_that_run_are_the_eager_loops(
@@ -345,9 +356,9 @@ def _beam_masks(grammar: bool):
 @pytest.mark.parametrize("grammar", [False, True])
 def test_beams_stop_where_the_while_loop_stops(k, grammar, conditional,
                                                jax_trips, monkeypatch):
-    """Tokens equal JAX's and scores within 1e-4; the capture's call, a
-    later call and the eager per-step loop run the JAX trip count of
-    steps, which ends before max_new_tokens."""
+    """Tokens equal JAX's and scores within 1e-4; the capture's call (and
+    its warm-up step), a later call and the eager per-step loop run the JAX
+    trip count of steps, which ends before max_new_tokens."""
     enc, jp, tp = _model(6)
     prompt = PROMPT[:3] if grammar else PROMPT
     base, first = _beam_masks(grammar)
@@ -369,7 +380,7 @@ def test_beams_stop_where_the_while_loop_stops(k, grammar, conditional,
         np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
         np.testing.assert_allclose(tsc.numpy(), np.asarray(js), rtol=0,
                                    atol=1e-4)
-        assert len(steps) == trip, (call, len(steps), trip)
+        assert len(steps) == trip + (call == "capture"), (call, len(steps))
 
 
 # ---------------------------------------------------------------------------
@@ -396,8 +407,9 @@ def test_speculative_stops_where_the_while_loop_stops(case, conditional,
                                                       jax_trips,
                                                       monkeypatch):
     """Tokens, n_rounds and the committed counts equal JAX's; the rounds
-    run, at the capture's call, a later call and in the eager loop that
-    reads every round, equal JAX's trip count and the rounds counted."""
+    run, at the capture's call (besides its warm-up round), a later call
+    and in the eager loop that reads every round, equal JAX's trip count
+    and the rounds counted."""
     draft_seed, kw = SPEC_CASES[case]
     enc, jp, tp = _model(1, HD64, b=4, spread=1.0)
     _, jd, td = (_model(draft_seed, HD64) if draft_seed != 1
@@ -430,7 +442,9 @@ def test_speculative_stops_where_the_while_loop_stops(case, conditional,
         np.testing.assert_array_equal(toks.numpy(), np.asarray(want[0]))
         np.testing.assert_array_equal(n.numpy(), np.asarray(want[2]))
         assert torch.is_tensor(n_rounds) and n_rounds.shape == (1,)
-        assert int(n_rounds) == trip == len(rounds), (call, len(rounds))
+        warm = call == "capture"
+        assert int(n_rounds) == trip == len(rounds) - warm, (call,
+                                                             len(rounds))
     assert (toks.numpy() == eot).any(axis=1).all()
 
 
@@ -452,9 +466,10 @@ def queued(monkeypatch):
 def test_the_graphed_schedule_reads_nothing(loop, conditional, queued,
                                             no_host_reads):  # noqa: F811
     """The capture's call and a later one each queue one launch of the
-    graph with no bool, item, tolist or cpu: the capture's call runs its
-    first step for real (the warm-up, as on the card) and launches the
-    graph for the rest, a later call launches it for every step."""
+    graph with no bool, item, tolist or cpu: the capture's call runs the
+    prefill and its first step for real (the warm-up, as on the card) and
+    then launches the program, prefill and every step, as a later call
+    does."""
     enc, _, tp = _model(1, HD64)
     mask = torch.zeros(HD64.vocab_size)
     graphs = generate.DecodeGraphs(tp, draft_params=tp)
@@ -521,9 +536,6 @@ class _Toy(generate.InPlaceState):
     def trips(self):
         return self.step
 
-    def owned(self):
-        return self
-
     def outputs(self):
         return self.step.clone()
 
@@ -545,24 +557,29 @@ def queued_events(monkeypatch, landed):
 
 
 def test_a_replay_counts_its_tally_once_a_body_that_ran(queued_events):
-    """Rows ending at steps 3 and 5 of a bound of 10: the capture's call
-    runs step 1 as its warm-up and three bodies in its launch (the
-    warm-up's launches count as the plain graph's: here none), a later
-    call four; tally x bodies is deferred while the count is on the card,
-    added by ``settle_launches`` once it has landed."""
+    """Rows ending at steps 3 and 5 of a bound of 10: every call, the
+    capture's too (its warm-up runs the pre-node part and step 1, whose
+    launches count nowhere), is one launch of the program: the pre-node
+    part's tally counts once at the launch, the body's once an iteration
+    that ran, four a call, deferred while the count is on the card and
+    added by ``settle_launches`` once it has landed.  The call's input (the
+    rows' ends) reaches the program through the key's static copy."""
     mod = sys.modules[__name__]
     mod.toy_launches = 0
+    mod.toy_pre_launches = 0
 
     class Tallied(_PlainLoop):
-        def _capture(self, step, bound):
-            super()._capture(step, bound)
+        def _capture(self, pre, step, bound):
+            super()._capture(pre, step, bound)
+            self.pre_tally = {(mod, "toy_pre_launches"): 2}
             self.tally = {(mod, "toy_launches"): 3}
 
     loop = Tallied(torch.device("cpu"))
 
-    def init():
-        return _Toy(torch.ones(1, dtype=torch.long),
-                    torch.zeros(2, dtype=torch.bool), torch.tensor([3, 5]))
+    def prepare(xs, out=None):
+        st = _Toy(torch.ones(1, dtype=torch.long),
+                  torch.zeros(2, dtype=torch.bool), xs[0])
+        return st if out is None else out.copy_(st)
 
     def make_step(st):
         def step():
@@ -571,17 +588,20 @@ def test_a_replay_counts_its_tally_once_a_body_that_ran(queued_events):
         return step
 
     total = 0
-    for bodies in (3, 4):
+    for call, ends in enumerate(([3, 5], [2, 5])):
         _Queued.landed = False
-        assert int(loop.run(init, make_step, 1, 10)) == 5
+        got = loop.run((torch.tensor(ends),), prepare, make_step, 1, 10)
+        assert int(got) == 5
         common.settle_launches()
+        assert mod.toy_pre_launches == 2 * (call + 1)
         assert mod.toy_launches == total        # still on the card
         _Queued.landed = True
         common.settle_launches()
-        total += 3 * bodies
+        total += 3 * 4
         assert mod.toy_launches == total
+    assert loop.inputs[0].tolist() == [2, 5]
     common.settle_launches(wait=True)
-    assert mod.toy_launches == 21
+    assert mod.toy_launches == 24
 
 
 def test_deferred_launches_add_tally_times_runs(queued_events):

@@ -219,8 +219,8 @@ def test_a_round_with_every_row_done_commits_nothing(monkeypatch):
     enc, _, tp = _inputs(0, b=2, dims=HD64)
     states = []
 
-    def capture(init, make_step, first, n, every, **kw):
-        st = init()
+    def capture(inputs, prepare, make_step, first, n, every, **kw):
+        st = prepare(inputs, None)
         generate._drive(make_step(st), first, n, st.done, every)
         states.append((st, make_step))
         return st.outputs()

@@ -45,6 +45,20 @@ def _constants(n_mels: int):
             np.ascontiguousarray(fb.T))
 
 
+_DEVICE_CONSTANTS: dict = {}   # (device, n_mels) -> _constants on it
+
+
+def device_constants(device, n_mels: int) -> tuple:
+    """``_constants`` as tensors on ``device``, uploaded once per (device,
+    n_mels): a copy from the host cannot sit inside a CUDA graph, and a
+    bucket program's mel runs in one."""
+    key = (torch.device(device), n_mels)
+    if key not in _DEVICE_CONSTANTS:
+        _DEVICE_CONSTANTS[key] = tuple(torch.from_numpy(c).to(device)
+                                       for c in _constants(n_mels))
+    return _DEVICE_CONSTANTS[key]
+
+
 def decode_transfer(audio: torch.Tensor) -> torch.Tensor:
     """Wire decode: int16 PCM -> float32 (x / 32767); float32 passes."""
     if audio.dtype == torch.int16:
@@ -71,8 +85,7 @@ def _log_spec_raw(padded_audio: torch.Tensor, n_mels: int,
                   n_frames: int) -> torch.Tensor:
     """Framing + windowed DFT matmuls + mel projection + log10: returns
     log_spec [n_frames, n_mels] fp32, un-clamped and un-normalized."""
-    cosw, sinw, fb_t = (torch.from_numpy(c).to(padded_audio.device)
-                        for c in _constants(n_mels))
+    cosw, sinw, fb_t = device_constants(padded_audio.device, n_mels)
     frames = frame_signal(decode_transfer(padded_audio), n_frames)
     re = torch.matmul(frames, cosw)
     im = torch.matmul(frames, sinw)
@@ -117,3 +130,30 @@ def log_mel_torch(padded_audio: torch.Tensor, valid_frames: int,
     log_spec, vmax = log_spec_slab(padded_audio, valid_frames, n_mels,
                                    n_frames)
     return normalize(log_spec, vmax, valid_frames)
+
+
+def log_mel_batch(padded_audio: torch.Tensor, valid_frames: torch.Tensor,
+                  n_mels: int = 80, n_frames: int = 3000) -> torch.Tensor:
+    """``log_mel_torch`` of every row of ``padded_audio`` [B, L] (float32
+    or a wire encoding, L >= (n_frames + 2) * HOP) at once, as the JAX short
+    program vmaps ``log_mel_jax``: [B, n_mels, n_frames], row r normalized
+    over its own ``valid_frames[r]`` frames (an integer [B] tensor on the
+    audio's device, read there).  One framing, the DFT and mel products
+    over every row's frames, one masked max a row."""
+    audio = decode_transfer(padded_audio)
+    b = audio.shape[0]
+    cosw, sinw, fb_t = device_constants(audio.device, n_mels)
+    rows = audio[:, :(n_frames + 2) * HOP].reshape(b, n_frames + 2, HOP)
+    frames = torch.cat([rows[:, :n_frames], rows[:, 1:n_frames + 1],
+                        rows[:, 2:n_frames + 2, :WIN - 2 * HOP]], dim=-1)
+    re = torch.matmul(frames, cosw)
+    im = torch.matmul(frames, sinw)
+    power = re * re + im * im                          # [B, n_frames, 201]
+    log_spec = torch.log10(torch.clamp_min(torch.matmul(power, fb_t), 1e-10))
+    valid = (torch.arange(n_frames, device=audio.device)[None, :]
+             < valid_frames[:, None])                  # [B, n_frames]
+    vmax = torch.where(valid[:, :, None], log_spec, -torch.inf).amax(
+        dim=(1, 2))
+    out = (torch.maximum(log_spec.transpose(1, 2), vmax[:, None, None] - 8.0)
+           + 4.0) / 4.0
+    return torch.where(valid[:, None, :], out, 0.0)

@@ -385,18 +385,27 @@ def _encoder_block_fused(x, p: Dict, dh: int, f: int, mode: str,
 # ---------------------------------------------------------------------------
 
 def init_cache(dims: WhisperDims, batch: int, max_len: int, t_enc: int,
-               dtype: torch.dtype, device, heads: Optional[int] = None
-               ) -> KVCache:
+               dtype: torch.dtype, device, heads: Optional[int] = None,
+               int8_cross: bool = False) -> KVCache:
     """Zero caches of ``heads`` heads (a tensor-parallel rank's share;
-    the model's decoder heads by default)."""
+    the model's decoder heads by default); with int8_cross the cross K/V
+    int8 beside their fp32 scales [L, B, H, 1, 1], left for the prefill to
+    fill."""
     l, dh = dims.decoder_layers, dims.head_dim
     h = dims.decoder_heads if heads is None else heads
 
-    def z(s):
-        return torch.zeros((l, batch, h, s, dh), dtype=dtype, device=device)
+    def z(s, dt=dtype):
+        return torch.zeros((l, batch, h, s, dh), dtype=dt, device=device)
 
-    return KVCache(self_k=z(max_len), self_v=z(max_len),
-                   cross_k=z(t_enc), cross_v=z(t_enc))
+    cache = KVCache(self_k=z(max_len), self_v=z(max_len),
+                    cross_k=z(t_enc, torch.int8 if int8_cross else dtype),
+                    cross_v=z(t_enc, torch.int8 if int8_cross else dtype))
+    if not int8_cross:
+        return cache
+    scale = (l, batch, h, 1, 1)
+    return cache._replace(
+        cross_k_scale=torch.empty(scale, dtype=torch.float32, device=device),
+        cross_v_scale=torch.empty(scale, dtype=torch.float32, device=device))
 
 
 def _decoder_mlp(x, p, dims: WhisperDims, mesh=None):
@@ -588,17 +597,26 @@ def _decoder_blocks_kernel(params: Params, dims: WhisperDims, x,
     return _layer_norm(x, dec["ln_f_s"], dec["ln_f_b"]), cache
 
 
-def quantize_cross_kv(cache: KVCache) -> KVCache:
-    """Quantize the cross K/V to symmetric int8 with per-(L,B,H) scales."""
-    def quant(x):
-        x32 = x.float()
-        absmax = x32.abs().amax(dim=(3, 4), keepdim=True)
-        scale = div127(torch.clamp_min(absmax, 1e-12))  # a true division
-        q = torch.clamp(torch.round(x32 / scale), -127, 127)
-        return q.to(torch.int8), scale
+def _quant_cross(x, q_out=None, s_out=None):
+    """Symmetric int8 of ``x`` [..., T, Dh] with one fp32 scale for each
+    leading index (absmax over T and Dh): (int8, scale [..., 1, 1]),
+    written into ``q_out`` and ``s_out`` where given."""
+    x32 = x.float()
+    absmax = x32.abs().amax(dim=(-2, -1), keepdim=True)
+    scale = div127(torch.clamp_min(absmax, 1e-12))  # a true division
+    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    if q_out is None:
+        return q, scale
+    q_out.copy_(q)
+    s_out.copy_(scale)
+    return q_out, s_out
 
-    k8, ks = quant(cache.cross_k)
-    v8, vs = quant(cache.cross_v)
+
+def quantize_cross_kv(cache: KVCache) -> KVCache:
+    """Quantize the cross K/V to symmetric int8 with per-(L,B,H) scales
+    (``decoder_prefill`` does so layer by layer, into its cache)."""
+    k8, ks = _quant_cross(cache.cross_k)
+    v8, vs = _quant_cross(cache.cross_v)
     return cache._replace(cross_k=k8, cross_v=v8,
                           cross_k_scale=ks, cross_v_scale=vs)
 
@@ -631,7 +649,8 @@ def _logits(params: Params, x):
 
 def decoder_prefill(params: Params, dims: WhisperDims, tokens, enc_states,
                     max_len: int, *, int8_cross_kv: bool = False,
-                    prompt_mask=None, mesh=None):
+                    prompt_mask=None, mesh=None,
+                    cache: Optional[KVCache] = None):
     """Full-prompt decoder pass: logits [B, P, V] and a cache whose self-KV
     holds positions [0, P) and whose cross-KV is final.
 
@@ -641,22 +660,39 @@ def decoder_prefill(params: Params, dims: WhisperDims, tokens, enc_states,
     0, and no pad slot is ever attended, so the real rows equal those of
     the unpadded shorter prompt.
 
+    cache: a cache of these shapes (the cross K/V int8 with their scales
+    when int8_cross_kv) to write into instead of a new one (a graphed
+    loop's static state): its self K/V are zeroed and rows [0, P) written.
+    Either way each layer's cross K/V (quantized where int8) go straight
+    into their slots, so no stack of every layer's (nor its fp32 copy for
+    the quantization) is made.
+
     mesh: the caches hold this rank's heads (``_decoder_blocks``)."""
     dec = params["decoder"]
     dtype = dec["tok_emb"].dtype
     b, p = tokens.shape
     h = _cols(dec["blocks"]["xk_w"]) // dims.head_dim   # the rank's heads
     enc = enc_states.to(dtype)
-    ck, cv = [], []
-    for li in range(dims.decoder_layers):
+    l, t = dims.decoder_layers, enc.shape[1]
+    if cache is None:
+        cache = init_cache(dims, b, max_len, t, dtype, enc.device, heads=h,
+                           int8_cross=int8_cross_kv)
+    elif (cache.cross_k_scale is not None) != int8_cross_kv:
+        raise ValueError("the cache's cross K/V do not match int8_cross_kv")
+    else:
+        cache.self_k.zero_()
+        cache.self_v.zero_()
+    # each layer's cross K/V (quantized where int8) straight into its slots
+    for li in range(l):
         pb = _layer(dec["blocks"], li)
-        ck.append(_split_heads(_dense(enc, pb["xk_w"], None), h))
-        cv.append(_split_heads(_dense(enc, pb["xv_w"], pb["xv_b"]), h))
-    cache = init_cache(dims, b, max_len, enc.shape[1], dtype, enc.device,
-                       heads=h)
-    cache = cache._replace(cross_k=torch.stack(ck), cross_v=torch.stack(cv))
-    if int8_cross_kv:
-        cache = quantize_cross_kv(cache)
+        for w, bias, slot, scale in (
+                ("xk_w", None, cache.cross_k, cache.cross_k_scale),
+                ("xv_w", "xv_b", cache.cross_v, cache.cross_v_scale)):
+            x = _split_heads(_dense(enc, pb[w], bias and pb[bias]), h)
+            if int8_cross_kv:
+                _quant_cross(x, slot[li], scale[li])
+            else:
+                slot[li].copy_(x)
 
     ar = torch.arange(max_len, device=enc.device)
     mask = ar[None, :] <= ar[:p, None]                         # [P, S_max]

@@ -70,24 +70,26 @@ against an older one (that tree on ``PYTHONPATH``, this file run by its
 path): the cost of the loops' conditional node, tree against tree.
 
 ``python -m whisper_tpu_torch.profile_ladder --conditional`` runs only the
-loops' while node against per-step launches, in one process, on fresh
-graphs of one x5 session, in turns: each decode one launch of a graph whose
-step (round) is the body of the while node, and the step captured flat in
-the graph itself (``runtime.generate._while_node`` replaced by a block that
-adds nothing) and launched once a step (``CUDAGraph.replay`` repeated), as
-the loops ran before.  For the bucket-16 greedy decode of the 301.574 s
-file's chunks with no row ending: the host ms to queue a 128-token decode
-beside the host ms to queue its prefill alone (a one-token decode: no step,
-no graph) and the encoder alone (what an ``_async`` dispatch queues before
-the decode), device ms of the decode and of a step (median of 5),
-graph launches a decode and the kernels of one traced decode.  For the
-speculative rounds over the same states with a random whisper-tiny draft
-and with the model's own int8 weights (``_speculative_tokens``, 128
-tokens, no row ending): graph launches a call, the host ms of a launch
-(median), the launch at which the host first waits more than 2 ms when the
-card is held busy 300 ms first (how many launches the driver queues
-ahead), and the dispatch's host ms beside the card's span of its work,
-median of 3.
+decode programs' forms against each other, in one process, on fresh graphs
+of one x5 session, in turns: the program (the bucket's encoder, prefill and
+first pick captured ahead of the loop's while node: one launch from the
+gathered chunks to the tokens), the while node alone with the encoder and
+the prefill run eagerly before its launch (the form before the program),
+and the step captured flat (``runtime.generate._while_node`` replaced by
+a block that adds nothing) behind the same eager work and launched once a
+step (``CUDAGraph.replay`` repeated).  For ``transcribe_from_mel_async``
+over the 301.574 s file's chunks in a bucket of 16 with no row ending: the
+host ms to queue a 128-token decode beside one graph launch's host ms, a
+one-token decode's and the encoder's alone, device ms of the decode and
+of a step (median of 5), graph launches a decode, the kernels of one
+traced decode and the program's pool bytes.  For the speculative rounds
+over the same chunks with a random whisper-tiny draft and with the
+model's own int8 weights (128 tokens, no row ending): graph launches a
+call, the host ms of a launch (median), the launch at which the host first
+waits more than 2 ms when the card is held busy 300 ms first (how many
+launches the CUDA launch queue holds ahead), and the dispatch's host ms
+beside the card's span of its work, median of 3, for the long form and for
+``transcribe_short_speculative_async`` (16 windows of 30 s).
 
 ``python -m whisper_tpu_torch.profile_ladder --graph`` runs only x5 twice,
 graphed and with the session's greedy loop run eagerly
@@ -674,24 +676,34 @@ def profile_conditional(params, audio) -> list:
     from whisper_tpu_torch.headline import make_session
     from whisper_tpu_torch.models.convert import init_params
     from whisper_tpu_torch.models.registry import get_dims
-    from whisper_tpu_torch.pipeline.chunk import (
-        CHUNK_FRAMES,
-        chunk_starts,
-        mel_frame_bucket,
-    )
+    from whisper_tpu_torch.pipeline.chunk import chunk_starts, mel_frame_bucket
     from whisper_tpu_torch.runtime import generate
     from whisper_tpu_torch.runtime.genconfig import GenerationCfg
     from whisper_tpu_torch.tokenizer.specials import special_tokens
     from whisper_tpu_torch.variants.quant import quantize_params
 
     @contextlib.contextmanager
-    def flat(graph, done, trips, bound, body):
-        yield
+    def flat(graph, done, trips, bound, body, pool=None):
+        yield None
 
-    node = generate._while_node
+    node, program = generate._while_node, generate._GraphLoop
     replay = torch.cuda.CUDAGraph.replay
     launches: list = []      # host ms of each graph launch
     per_launch = [1]         # replays of the graph a launch (flat: a step)
+
+    class LoopOnly(generate._GraphLoop):
+        """The forms before the program: the pre-node work (the encoders,
+        the prefill) run eagerly ahead of each launch, the graph holding
+        the loop alone (behind one no-op kernel in the pre-node's place)."""
+
+        def _capture(self, pre, step, bound):
+            self._pre = pre
+            trips = self.state.trips()
+            super()._capture(lambda: trips.add_(0), step, bound)
+
+        def _launch(self):
+            self._pre()
+            super()._launch()
 
     def launch(graph):
         for _ in range(per_launch[0]):
@@ -708,27 +720,28 @@ def profile_conditional(params, audio) -> list:
     starts = [p // golden.HOP for p in chunk_starts(len(audio), 480_000,
                                                     400_000)]
     starts += [mel.shape[1]] * (16 - len(starts))
-    mel_pad = torch.nn.functional.pad(mel, (0, CHUNK_FRAMES))
-    chunks = torch.stack([mel_pad[:, s:s + CHUNK_FRAMES] for s in starts])
-    enc = session.encoder(chunks)
-    cfg = GenerationCfg()
-    masks = session._get_masks(cfg.suppress_tokens,
-                               cfg.begin_suppress_tokens)
-    prompt = torch.tensor([sp.sot, sp.lang, sp.task, sp.no_timestamps],
-                          device="cuda")
+    sup = (GenerationCfg().suppress_tokens,
+           GenerationCfg().begin_suppress_tokens)
+    prompt = [sp.sot, sp.lang, sp.task, sp.no_timestamps]
+    chunks = torch.nn.functional.pad(mel, (0, 3000)).unfold(
+        1, 3000, 1).transpose(0, 1)[torch.tensor(starts, device="cuda")]
+    hop = (len(audio) - 480_000) // 15
+    padded = np.stack([golden.reflect_pad(audio[i * hop:i * hop + 480_000])
+                       for i in range(16)])
+    n_valid = np.full(16, 3000, np.int32)
 
     def fresh(mode, steps):
-        """New graphs of the session in ``mode``: the while node, or the
-        step captured flat and launched ``steps`` times a call (the
-        capture's call, whose warm-up runs the first, one fewer)."""
-        generate._while_node = node if mode == "while" else flat
+        """New graphs of the session in ``mode``: the program (the
+        encoder, the prefill and the loop in one graph), the while node
+        alone behind an eager encoder and prefill (the form before), or
+        the step captured flat and launched ``steps`` times a call."""
+        generate._while_node = flat if mode == "flat" else node
+        generate._GraphLoop = program if mode == "program" else LoopOnly
         old = session.graphs
-        session.graphs = generate.DecodeGraphs(old.params, old.step_weights,
-                                               old.draft_params)
-        per_launch[0] = 1 if mode == "while" else steps - 1
-
-    def captured(mode, steps):
-        per_launch[0] = 1 if mode == "while" else steps
+        session.graphs = generate.DecodeGraphs(
+            old.params, old.step_weights, old.draft_params, old.encoder,
+            old.draft_encoder)
+        per_launch[0] = steps if mode == "flat" else 1
 
     def span_ms(fn):
         """(device ms of fn's work, host ms until fn returns)."""
@@ -747,20 +760,19 @@ def profile_conditional(params, audio) -> list:
     try:
         enc_host = statistics.median(
             span_ms(lambda: session.encoder(chunks))[1] for _ in range(5))
-        for mode in ("while", "flat", "while", "flat"):
+        for mode in ("program", "while", "flat", "program", "while", "flat"):
             def decode(n):
-                return session._greedy(enc, prompt, *masks, n, sp.eot,
-                                       early_exit=False)
+                return session.transcribe_from_mel_async(
+                    mel, starts, prompt, n, sp.eot, *sup)
             fresh(mode, DECODE_STEPS)
             decode(128)                   # the capture's call
-            captured(mode, DECODE_STEPS)
             decode(128)
-            decode(1)                     # no step: no graph
+            decode(1)                     # no step
             runs = [span_ms(lambda: decode(128)) for _ in range(5)]
             pre = [span_ms(lambda: decode(1)) for _ in range(5)]
             launches.clear()
             decode(128)
-            n_launches = len(launches)
+            n_launches, launch_ms = len(launches), statistics.median(launches)
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 decode(128)
@@ -769,19 +781,23 @@ def profile_conditional(params, audio) -> list:
                           if e.device_type == torch.autograd.DeviceType.CUDA
                           and not e.key.startswith(("Memcpy", "Memset")))
             ms = statistics.median(r[0] for r in runs)
-            out.append({"config": f"x5 greedy, bucket 16, 128 tokens, no row "
-                                  f"ending, {mode}",
-                        "decode_device_ms": ms, "runs_ms": [r[0] for r in
-                                                            runs],
+            pool = max(session.graphs.pools().values())
+            out.append({"config": f"x5 transcribe_from_mel_async, bucket 16, "
+                                  f"128 tokens, no row ending, {mode}",
+                        "decode_device_ms": ms,
+                        "runs_ms": [r[0] for r in runs],
                         "step_device_ms": (ms - statistics.median(
                             p[0] for p in pre)) / DECODE_STEPS,
                         "queue_host_ms": statistics.median(r[1] for r in
                                                            runs),
-                        "prefill_queue_host_ms": statistics.median(
+                        "one_token_queue_host_ms": statistics.median(
                             p[1] for p in pre),
+                        "launch_host_ms": launch_ms,
                         "encoder_queue_host_ms": enc_host,
                         "graph_launches": n_launches,
-                        "decode_kernels": kernels})
+                        "decode_kernels": kernels,
+                        "program_pool_bytes": pool,
+                        "keys": len(session.graphs.captures())})
         tiny = get_dims("openai/whisper-tiny")
         for label, draft, d_dims, share in (
                 ("a random whisper-tiny draft", init_params(tiny, seed=1),
@@ -789,15 +805,20 @@ def profile_conditional(params, audio) -> list:
                 ("its own int8 weights", quantize_params(params), dims,
                  True)):
             session.set_draft_model(draft, d_dims, share_encoder=share)
-            for mode in ("while", "flat"):
+            for mode in ("program", "while", "flat"):
                 def rounds():
-                    return session._speculative_tokens(
-                        chunks, enc, prompt, *masks, 128, sp.eot, 4)
+                    return session.transcribe_from_mel_async(
+                        mel, starts, prompt, 128, sp.eot, *sup,
+                        speculative=True)
+
+                def short():
+                    return session.transcribe_short_speculative_async(
+                        padded, n_valid, prompt, 128, sp.eot, *sup)
                 fresh(mode, 128)          # rounds 0 .. 127
-                rounds()
-                captured(mode, 128)
-                rounds()
+                for fn in (rounds, rounds, short, short):
+                    fn()
                 spans = [span_ms(rounds) for _ in range(3)]
+                short_spans = [span_ms(short) for _ in range(3)]
                 launches.clear()
                 span_ms(rounds)
                 launch_ms = statistics.median(launches)
@@ -816,9 +837,13 @@ def profile_conditional(params, audio) -> list:
                     "first_waiting_launch": waits[0] if waits else None,
                     "dispatch_host_ms": statistics.median(
                         h for _, h in spans),
-                    "span_device_ms": statistics.median(d for d, _ in spans)})
+                    "span_device_ms": statistics.median(d for d, _ in spans),
+                    "short_dispatch_host_ms": statistics.median(
+                        h for _, h in short_spans),
+                    "short_span_device_ms": statistics.median(
+                        d for d, _ in short_spans)})
     finally:
-        generate._while_node = node
+        generate._while_node, generate._GraphLoop = node, program
         torch.cuda.CUDAGraph.replay = replay
     return out
 

@@ -50,9 +50,12 @@ from whisper_tpu_torch.models import whisper
 from whisper_tpu_torch.models.registry import WhisperDims
 from whisper_tpu_torch.runtime.generate import (
     DecodeGraphs,
+    Front,
     InPlaceState,
     exit_period,
+    front_key,
     run_loop,
+    states_front,
 )
 from whisper_tpu_torch.runtime.speculative import _kernel_cross
 
@@ -96,9 +99,6 @@ class BeamState(InPlaceState):
     def trips(self) -> torch.Tensor:
         return self.step
 
-    def owned(self) -> "BeamState":
-        return dataclasses.replace(self, suppress=self.suppress.clone())
-
     def outputs(self):
         """(buf, scores, lengths) of every beam."""
         return self.buf.clone(), self.scores.clone(), self.lengths.clone()
@@ -118,6 +118,7 @@ class BeamKey(NamedTuple):
     ts_cfg: object
     pads: bool
     eot_id: int
+    front: tuple = ()
     kind: str = "beam"
 
 
@@ -166,7 +167,7 @@ def _step_fn(st: BeamState, params, dims: WhisperDims, *, eot_id: int,
     return step
 
 
-def beam_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
+def beam_generate(params, dims: WhisperDims, enc_states,
                   prompt: torch.Tensor, suppress_mask: torch.Tensor,
                   first_suppress_mask: torch.Tensor, max_new_tokens: int,
                   eot_id: int, num_beams: int, length_penalty: float = 1.0,
@@ -177,47 +178,59 @@ def beam_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
                   graphs: Optional[DecodeGraphs] = None):
     """Returns (tokens [B, max_new_tokens] of the best beam, scores [B]).
 
-    enc_states: [B, T_enc, d]; prompt: [P] ids shared by every row; masks:
-    [V] fp32 additive.  packed_cross (with int8_cross_kv, head_dim 64 and
-    an even head count) runs cross-attention through B4 (int8_mxu) or B6.
-    With ts_cfg each beam carries its own timestamp-grammar state.
+    enc_states: [B, T_enc, d], or a ``generate.Front`` that computes them
+    (the session's bucket programs); prompt: [P] ids shared by every row;
+    masks: [V] fp32 additive.  packed_cross (with int8_cross_kv, head_dim
+    64 and an even head count) runs cross-attention through B4 (int8_mxu)
+    or B6.  With ts_cfg each beam carries its own timestamp-grammar state.
     pad_count ([B] int32): left pad slots of each row's prompt, masked in
     the prefill and repeated per beam for every step.  mesh: this rank's
     share of a (data, model) mesh (its rows and heads, ``greedy_generate``);
     the loop's ``done`` read agrees across its model ranks, and its steps
     run without a graph.
 
-    On a card without a mesh the steps run from a CUDA graph kept in
-    ``graphs`` (a ``DecodeGraphs`` of these weights; None: captured for
-    this call alone), unless ``eager``: one launch of its while node,
-    nothing is read, the card stops the loop, and the call returns before the decode ends.  The eager loop
-    reads ``done`` once a step (under a mesh on a card once
-    ``generate.EXIT_BLOCK`` steps), or never with early_exit False (every
-    step runs)."""
+    On a card without a mesh the call runs as one launch of a CUDA graph
+    kept in ``graphs`` (a ``DecodeGraphs`` of these weights; None: captured
+    for this call alone), unless ``eager``: the front, the prefill, the
+    first top-K and the cache tiled per beam, then the steps under its
+    while node; nothing is read, the card stops the loop, and the call
+    returns before the decode ends.  The eager loop reads ``done`` once a
+    step (under a mesh on a card once ``generate.EXIT_BLOCK`` steps), or
+    never with early_exit False (every step runs)."""
     from whisper_tpu_torch.runtime import timestamps as ts
 
-    b = enc_states.shape[0]
+    front = (enc_states if isinstance(enc_states, Front)
+             else states_front(enc_states))
+    b, t_enc, dev = front.rows, front.length, front.device
     k = num_beams
     p = prompt.shape[0]
     v = dims.vocab_size
-    dev = enc_states.device
-    cross_len = (enc_states.shape[1]
-                 if _kernel_cross(packed_cross, int8_cross_kv, dims, mesh)
-                 else None)
+    cross_len = (t_enc if _kernel_cross(packed_cross, int8_cross_kv, dims,
+                                        mesh) else None)
+    inputs = front.inputs + (prompt.long(), suppress_mask,
+                             first_suppress_mask)
+    if pad_count is not None:
+        inputs += (pad_count,)
+    nf = len(front.inputs)
 
-    def init() -> BeamState:
-        """The prefill and the first top-K: the state before step 1."""
-        tokens_p = prompt.to(device=dev, dtype=torch.long)[None, :].expand(
-            b, p)
+    def prepare(xs, out: Optional[BeamState] = None) -> BeamState:
+        """The front, the prefill (of B rows, in a buffer of its own) and
+        the first top-K, the cache tiled per beam: the state before step 1,
+        written into ``out`` where given (the tiles straight into its
+        cache)."""
+        enc = front.encode(*xs[:nf])
+        prompt_t, suppress, first_mask, *rest = xs[nf:]
+        tokens_p = prompt_t[None, :].expand(b, p)
         prompt_mask = pad_bk = None
         if pad_count is not None:
+            pads = rest[0]
             prompt_mask = (torch.arange(p, device=dev)[None, :]
-                           >= pad_count[:, None])              # [B, P]
-            pad_bk = pad_count.to(torch.int32).repeat_interleave(k)  # [B*K]
+                           >= pads[:, None])                   # [B, P]
+            pad_bk = pads.to(torch.int32).repeat_interleave(k)   # [B*K]
         logits, cache = whisper.decoder_prefill(
-            params, dims, tokens_p, enc_states, p + max_new_tokens,
+            params, dims, tokens_p, enc, p + max_new_tokens,
             int8_cross_kv=int8_cross_kv, prompt_mask=prompt_mask, mesh=mesh)
-        first_logits = logits[:, -1, :].float() + first_suppress_mask
+        first_logits = logits[:, -1, :].float() + first_mask
         if ts_cfg is not None:
             first_logits = ts.apply_rules(first_logits,
                                           ts.init_state(b, eot_id, dev), 0,
@@ -225,40 +238,50 @@ def beam_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
         scores, first = top_k(torch.log_softmax(first_logits, dim=-1), k)
         # [L, B, ...] -> [L, B*K, ...], beam j of row r at r*K + j; the
         # scales [L, B, H, 1, 1] tile alike
-        cache = whisper.KVCache(*(None if x is None
-                                  else x.repeat_interleave(k, dim=1)
-                                  for x in cache))
+        if out is None:
+            cache = whisper.KVCache(*(None if x is None
+                                      else x.repeat_interleave(k, dim=1)
+                                      for x in cache))
+        else:
+            for x, tiles in zip(cache, out.cache):
+                if x is not None:
+                    tiles.view(x.shape[0], b, k, *x.shape[2:]).copy_(
+                        x[:, :, None].expand(-1, -1, k,
+                                             *(-1,) * (x.ndim - 2)))
+            cache = out.cache
         buf = torch.full((b, k, max_new_tokens), eot_id, dtype=torch.long,
                          device=dev)
         buf[:, :, 0] = first
         eot_only = torch.full((v,), NEG_INF, dtype=torch.float32, device=dev)
-        eot_only[eot_id] = 0.0
+        eot_only[eot_id:eot_id + 1].fill_(0.0)     # no copy from the host
         ts_state = None
         if ts_cfg is not None:
             ts_state = ts.update_state(ts.init_state(b * k, eot_id, dev),
                                        first.reshape(b * k), ts_cfg)
-        return BeamState(
+        st = BeamState(
             last=first.reshape(b * k),
             pos=torch.full((1,), p, dtype=torch.int32, device=dev),
             step=torch.ones(1, dtype=torch.long, device=dev),
             done=first == eot_id,
             lengths=torch.ones((b, k), dtype=torch.long, device=dev),
-            scores=scores, buf=buf, suppress=suppress_mask,
+            scores=scores, buf=buf, suppress=suppress,
             eot_only=eot_only,
             row0=torch.arange(b, device=dev)[:, None] * k, cache=cache,
             ts=ts_state, pad_count=pad_bk)
+        return st if out is None else out.copy_(st)
 
     def make_step(st: BeamState):
         return _step_fn(st, params, dims, eot_id=eot_id, cross_len=cross_len,
                         int8_mxu=int8_mxu, ts_cfg=ts_cfg, mesh=mesh)
 
-    key = BeamKey(b * k, k, p, max_new_tokens, enc_states.shape[1],
+    key = BeamKey(b * k, k, p, max_new_tokens, t_enc,
                   cross_len is not None, int8_mxu, int8_cross_kv, ts_cfg,
-                  pad_count is not None, eot_id)
+                  pad_count is not None, eot_id, front_key(front))
     buf, scores, lengths = run_loop(
-        init, make_step, 1, max_new_tokens,
+        inputs, prepare, make_step, 1, max_new_tokens,
         exit_period(early_exit, dev, mesh), graphs=graphs, key=key,
-        device=dev, params=params, mesh=mesh, eager=eager)
+        device=dev, params=params, encoders=front.weights, mesh=mesh,
+        eager=eager)
 
     norm = scores / lengths.float() ** length_penalty
     best = torch.argmax(norm, dim=1)                           # [B]

@@ -26,38 +26,49 @@ The JAX ``lax.while_loop`` becomes a step function that updates the
 loop's state in place (``LoopState``: the last token, the cache slot
 ``pos`` and the step counter as one-element device tensors, ``done``, the
 token buffer, the scores, the grammar's state and the cache), so that no
-host value changes from one step to the next.  On a card it is warmed once
-on a side stream, captured in a ``torch.cuda.CUDAGraph`` per key
-(``DecodeGraphs``: the batch rows, the prompt length, max_new_tokens, the
-step's route and rung, the grammar, whether it samples, the scores,
-``pad_count``) and launched once a call; a capture that fails raises.  The
-temperature and the key are tensors of the state, so every T > 0 and every
-seed share one graph.  A
-key's loop keeps its state (the cache of its rows) for later calls; the
-loops of one ``DecodeGraphs`` keep at most a quarter of the card's memory
-in it, the least recently used dropped first.  The same machinery
-(``InPlaceState``, ``_GraphLoop``, ``DecodeGraphs``, ``run_loop``) runs
-the beam loop (``runtime.beam``) and the speculative rounds
-(``runtime.speculative``), each with a key of its own, under one budget.
+host value changes from one step to the next.  What the JAX session jits
+ahead of the loop into the same program, a bucket's one, is a ``Front``:
+the chunk normalisation and the encoder (the short path: the wire decode,
+the mel and the encoder; a draft's encoder too), then the loop's
+``prepare``: the prefill writing the cache, the int8 cross cache and the
+first pick, the state before step ``first``.  Every value that changes
+from call to call (the audio or the chunks, the prompt, ``pad_count``, the
+masks, the temperature, the sampling key) is an input tensor.
 
-The loop, as the ``lax.while_loop`` itself: the graph holds the step as
+On a card one ``torch.cuda.CUDAGraph`` per key (``DecodeGraphs``: the
+batch rows, the prompt length, max_new_tokens, the step's route and rung,
+the grammar, whether it samples, the scores, ``pad_count``, the front's
+kind and its inputs' shapes) holds the whole program: the front and
+``prepare`` on a capture stream (the pre-node program), then the step as
 the body of a CUDA-graph conditional (while) node (``_while_node``,
 ``csrc/graph_cond.cu``) whose kernel, ahead of the node and at the end of
 each iteration, sets it to the loop's condition, "trips < n and some row
-undone", so one launch of the graph runs the whole loop on the card and
-stops where the JAX loop stops.  Every call on a card queues that one
-launch and reads nothing, and returns before the decode ends.  The bodies'
-launches count once a step that ran: ``ops.common.defer_launches`` of the
-step counter's advance, settled where the results are copied to the host
-(``settle_launches``).  A capture that fails raises, and so does a body
-that would draw from a torch generator (its draws would repeat in every
-iteration); nothing falls back to per-step launches or to reads.  Only a
-key's first call runs its step once for real, the warm-up before the
-capture, whatever ``done`` says (a step past all-done returns what the
-loop would have: a done row emits EOT and adds nothing).
+undone", so one launch runs the whole bucket on the card, from its input
+to its tokens, and stops where the JAX loop stops.  A call copies its
+inputs into the key's static tensors (a bucket's windows by one indexed
+read, ``Gather``; the short path's upload as shipped) and queues that one
+launch; it reads nothing and returns before the decode ends.  The
+pre-node program's launches count once a launch, the body's once a step
+that ran: ``ops.common.defer_launches`` of the step counter's advance,
+settled where the results are copied to the host (``settle_launches``).
+A capture that fails raises, and so does work that would draw from a
+torch generator (its draws would repeat in every iteration); nothing falls
+back to an eager encoder, prefill or step, or to reads.  A key's first
+call runs the program's work once for real, the warm-up before the
+capture, then launches the graph, whose ``prepare`` overwrites what the
+warm-up left (a step past all-done returns what the loop would have: a
+done row emits EOT and adds nothing).  A key keeps its static inputs, its
+state (one cache of its rows) and its graph's memory pools (the front's
+and the prefill's temporaries) for later calls; the keys of one
+``DecodeGraphs`` keep at most a quarter of the card's memory in all, the
+least recently used dropped first.  The same machinery (``InPlaceState``,
+``_GraphLoop``, ``DecodeGraphs``, ``run_loop``) runs the beam loop
+(``runtime.beam``) and the speculative rounds (``runtime.speculative``),
+each with a key of its own, under one budget.
 
 The eager loop (the CPU, a mesh, ``eager=True``: the card checks compare
-the two) calls the step function as it is and reads ``done`` on the host:
+the two) runs the front and ``prepare`` into a new state, then calls the
+step function as it is and reads ``done`` on the host:
 with ``early_exit=False`` never (every step runs; a row past EOT emits EOT
 and adds nothing to its scores, so the tokens, sums and counts are those
 of a loop that stopped), else once a step, so that it stops where
@@ -82,7 +93,7 @@ import dataclasses
 import threading
 import time
 import weakref
-from typing import NamedTuple, Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -144,10 +155,8 @@ class InPlaceState:
     ``done``, the tensor whose ``all()`` ends the loop; ``trips()``, the
     one-element int64 counter that a step (a round) whose body runs
     advances by one, ``first`` before the loop's first step, which the
-    while node holds under the loop's bound; ``owned()``, the state with the caller's tensors (masks, pads)
-    cloned, so that a graph that adopts it reads none of them;
-    ``outputs()``, copies of the results, so that the next run may reuse
-    the state."""
+    while node holds under the loop's bound; ``outputs()``, copies of the
+    results, so that the next run may reuse the state."""
 
     done: torch.Tensor
 
@@ -157,21 +166,27 @@ class InPlaceState:
     def trips(self) -> torch.Tensor:
         raise NotImplementedError
 
-    def owned(self):
-        raise NotImplementedError
-
     def outputs(self):
         raise NotImplementedError
 
     def nbytes(self) -> int:
         """Device bytes the state's tensors hold (whole storages, once)."""
-        storages = {t.untyped_storage().data_ptr():
-                    t.untyped_storage().nbytes() for t in self.tensors()}
-        return sum(storages.values())
+        return _storage_bytes(self.tensors())
 
-    def copy_(self, other: "InPlaceState") -> None:
+    def copy_(self, other: "InPlaceState") -> "InPlaceState":
+        """Write ``other``'s values into this state's tensors, skipping
+        those the two share (a cache the prefill wrote in place)."""
         for mine, theirs in zip(self.tensors(), other.tensors()):
-            mine.copy_(theirs)
+            if mine is not theirs:
+                mine.copy_(theirs)
+        return self
+
+
+def _storage_bytes(tensors) -> int:
+    """Device bytes of the storages of ``tensors``, each counted once."""
+    storages = {t.untyped_storage().data_ptr():
+                t.untyped_storage().nbytes() for t in tensors}
+    return sum(storages.values())
 
 
 @dataclasses.dataclass
@@ -202,12 +217,6 @@ class LoopState(InPlaceState):
 
     def trips(self) -> torch.Tensor:
         return self.step
-
-    def owned(self) -> "LoopState":
-        return dataclasses.replace(
-            self, suppress=self.suppress.clone(),
-            pad_count=None if self.pad_count is None
-            else self.pad_count.clone())
 
     def outputs(self):
         """buf, or with scores (buf, sum_lp, n_tok)."""
@@ -320,7 +329,7 @@ _THREAD_LOCAL = 1   # cudaStreamCaptureModeThreadLocal
 
 @contextlib.contextmanager
 def _while_node(graph, done: torch.Tensor, trips: torch.Tensor, bound: int,
-                body):
+                body, pool=None):
     """Within a capture of ``graph`` on the current stream: the work the
     block queues on the ``body`` stream (made current) becomes the body of
     a conditional (while) node on "``trips`` < ``bound`` and some flag of
@@ -331,9 +340,11 @@ def _while_node(graph, done: torch.Tensor, trips: torch.Tensor, bound: int,
     the CUDA runtime (``csrc/graph_cond.cu``): the card's torch has no
     ``CUDAGraph`` method for conditional nodes.  The body's allocations go
     to a memory pool of its own, kept until ``graph`` is gone; a failure
-    raises.  A body whose capture fails leaves a node that the runtime
+    raises (``pool``: a pool id to take, else a new one).  A body whose
+    capture fails leaves a node that the runtime
     cannot instantiate (the process dies in ``capture_end``):
-    ``_GraphLoop._trial_capture`` raises for such a step first."""
+    ``_GraphLoop._trial_capture`` raises for such a step first.  Yields the
+    body's pool id."""
     from whisper_tpu_torch.ops import kernels
 
     if done.dtype != torch.bool or not done.is_contiguous():
@@ -345,23 +356,25 @@ def _while_node(graph, done: torch.Tensor, trips: torch.Tensor, bound: int,
     parent = kernels.stream_ptr(done.device)
     handle = ctypes.c_ulonglong()
     args = (done.data_ptr(), done.numel(), trips.data_ptr(), bound)
-    pool = None
+    taken = False
     try:
         kernels.check(lib.wt_while_node_begin(
             *args, parent, body.cuda_stream, _THREAD_LOCAL,
             ctypes.byref(handle)), "wt_while_node_begin")
-        pool = torch.cuda.graph_pool_handle()
+        if pool is None:
+            pool = torch.cuda.graph_pool_handle()
+        taken = True
         with torch.cuda.stream(body):
             torch._C._cuda_beginAllocateCurrentStreamToPool(index, pool)
             try:
-                yield
+                yield pool
             finally:
                 torch._C._cuda_endAllocateToPool(index, pool)
                 rc = lib.wt_while_node_end(handle.value, *args,
                                            body.cuda_stream)
         kernels.check(rc, "wt_while_node_end")
     except BaseException:
-        if pool is not None:
+        if taken:
             torch._C._cuda_releasePool(index, pool)
         raise
     weakref.finalize(graph, torch._C._cuda_releasePool, index, pool)
@@ -382,37 +395,128 @@ class _NoRandomOps(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+class Gather(NamedTuple):
+    """A call's input made by one indexed read on the device: rows
+    ``index`` (an int64 tensor on ``src``'s device) of ``src`` along its
+    first axis (``torch.index_select``), written straight into the key's
+    static tensor.  A bucket's windows of a whole-file mel are gathered so,
+    outside the graph: the file's length stays out of the key."""
+
+    src: torch.Tensor
+    index: torch.Tensor
+
+
+def _signature(x) -> tuple:
+    """(shape, dtype) of a call's input (a tensor or a ``Gather``)."""
+    if isinstance(x, Gather):
+        return (x.index.shape[0], *x.src.shape[1:]), x.src.dtype
+    return tuple(x.shape), x.dtype
+
+
+def _on_device(x, device) -> torch.Tensor:
+    """A call's input as a tensor on ``device`` (the eager loop's)."""
+    if isinstance(x, Gather):
+        return torch.index_select(x.src, 0, x.index)
+    return x.to(device)
+
+
+def _copy_in(static: torch.Tensor, x) -> None:
+    """A call's input into the key's static tensor of its shape."""
+    if isinstance(x, Gather):
+        torch.index_select(x.src, 0, x.index, out=static)
+    else:
+        static.copy_(x)
+
+
+class Front(NamedTuple):
+    """A call's work ahead of its decode loop's prefill, which the JAX
+    session jits into the bucket's one program with the loop (a bucket's
+    chunk normalisation and encoder; the short path's wire decode, zero
+    tail, mel and encoder; with a draft, its encoder too):
+    ``encode(*inputs)`` -> the encoder states [rows, length, d] (speculative
+    decoding: the main model's and the draft's, of ``draft_length``
+    frames).  ``inputs``: the call's tensors, on any device, or
+    ``Gather``s, copied into the key's static tensors ahead of a launch (no
+    copy from the host inside a graph); ``key``: what ``encode`` computes,
+    besides its inputs' shapes and dtypes (``front_key``); ``weights``: the
+    encoders it runs, which ``DecodeGraphs`` holds to its own."""
+
+    encode: Callable
+    inputs: tuple
+    key: tuple
+    rows: int
+    length: int
+    device: torch.device
+    weights: tuple = ()
+    draft_length: Optional[int] = None
+
+
+def states_front(enc_states: torch.Tensor,
+                 draft_states: Optional[torch.Tensor] = None) -> Front:
+    """Encoder states given as they are (a loop called directly): the
+    program copies them in and starts at the prefill."""
+    if draft_states is None:
+        return Front(lambda e: e, (enc_states,), ("states",),
+                     enc_states.shape[0], enc_states.shape[1],
+                     enc_states.device)
+    return Front(lambda e, d: (e, d), (enc_states, draft_states),
+                 ("states",), enc_states.shape[0], enc_states.shape[1],
+                 enc_states.device, draft_length=draft_states.shape[1])
+
+
+def front_key(front: Front) -> tuple:
+    """What a loop's key holds of its front: the front's key and its
+    inputs' shapes and dtypes (a bucket's rows, the short path's ship
+    length and wire)."""
+    return front.key + tuple(_signature(x) for x in front.inputs)
+
+
+def _pool_bytes(pools) -> int:
+    """Device bytes the caching allocator holds in the memory pools
+    ``pools`` (a graph's pool ids): their segments, whole, from its
+    snapshot."""
+    wanted = {tuple(p) for p in pools if p is not None}
+    if not wanted:
+        return 0
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) in wanted)
+
+
 class _GraphLoop:
-    """One key's static state, its captured loop and the launches the
-    capture tallied.  ``run`` holds the loop's lock from the copy-in to the
-    queued copies of the results, so two threads never share the state."""
+    """One key's static inputs and state, its captured program and the
+    launches the capture tallied.  ``run`` holds the loop's lock from the
+    copy-in to the queued copies of the results, so two threads never share
+    them."""
 
     def __init__(self, device: torch.device):
         self.device = device
+        self.inputs: Optional[tuple] = None   # the static input tensors
         self.state: Optional[InPlaceState] = None
         self.graph = None
-        self.tally: dict = {}
+        self.pre_tally: dict = {}   # the pre-node program's: once a launch
+        self.tally: dict = {}       # the body's: once an iteration that ran
         self.capture_s = 0.0
-        self.nbytes = 0     # the state's device bytes
+        self.pools: tuple = ()      # the graph's memory pools
+        self.pool_nbytes = 0
+        self.nbytes = 0     # device bytes of the state, inputs and pools
         self._lock = threading.Lock()
         self._free = None   # an event: the last run's results are copied
 
-    def _capture(self, step, bound: int) -> None:
-        """Run ``step`` once for real (the warm-up: the first call's step
-        ``first``), then capture it as the body of a while node that runs
-        it while the state's ``trips()`` is under ``bound`` and some row is
-        undone (``_while_node``).  The warm-up runs whatever ``done`` says
-        (a step past all-done returns what the loop would have), its
-        launches deferred as a body's that ran where some row was undone.
-        On a card the warm-up runs on the device's body stream, where the
-        trial and the node's body are then captured (each stream that runs
-        a product keeps a cuBLAS workspace: this one's is made by the
-        warm-up, outside any graph's memory), and the graph on a capture
-        stream of its own; both streams made once.  Unlike
-        ``torch.cuda.graph``, no device-wide sync, garbage collection or
-        emptying of the allocator's cache: a key met while serving holds
-        back no other thread's work."""
-        from whisper_tpu_torch.ops.common import defer_launches, tally_launches
+    def _capture(self, pre, step, bound: int) -> None:
+        """Run the pre-node program ``pre`` and then ``step`` once for real
+        (the warm-up, whose results the launch overwrites), then capture
+        both into one graph: ``pre``, then a while node whose body is
+        ``step``, run while the state's ``trips()`` is under ``bound`` and
+        some row is undone (``_while_node``); step None: ``pre`` alone.
+        ``pre`` is warmed and captured on a capture stream, the step on the
+        device's body stream, both made once: each stream that runs a
+        product keeps a cuBLAS workspace, which the warm-up makes outside
+        any graph's memory, as it does a kernel's build, its library's load
+        and its shared-memory limit.  A throwaway trial capture of each
+        comes first (``_trial_capture``).  Unlike ``torch.cuda.graph``, no
+        device-wide sync, garbage collection or emptying of the allocator's
+        cache: a key met while serving holds back no other thread's work."""
+        from whisper_tpu_torch.ops.common import tally_launches
 
         t0 = time.perf_counter()
         done, trips = self.state.done, self.state.trips()
@@ -423,19 +527,35 @@ class _GraphLoop:
                     torch.cuda.Stream(self.device))
             body, own = _CAPTURE_STREAMS[self.device]
             main = torch.cuda.current_stream(self.device)
-            undone0 = torch.logical_not(done.all()).long().reshape(1)
-            body.wait_stream(main)
-            with tally_launches() as warm, torch.cuda.stream(body):
-                step()
-            main.wait_stream(body)
-            defer_launches(dict(warm), undone0)
-            self._trial_capture(step, body)
+            own.wait_stream(main)
+            with tally_launches(), torch.cuda.stream(own):
+                pre()
+            if step is not None:
+                body.wait_stream(own)
+                with tally_launches(), torch.cuda.stream(body):
+                    step()
+                own.wait_stream(body)
+            main.wait_stream(own)
+            # the trials capture into the graph's own pools and live until
+            # its capture has taken them: their memory is the graph's, not
+            # pools of their own left behind
+            pools = (torch.cuda.graph_pool_handle(),
+                     torch.cuda.graph_pool_handle() if step else None)
+            trials = [self._trial_capture(pre, own, pools[0])]
+            if step is not None:
+                trials.append(self._trial_capture(step, body, pools[1]))
             graph = torch.cuda.CUDAGraph()
-            with tally_launches() as tally, torch.cuda.stream(own):
-                graph.capture_begin(capture_error_mode="thread_local")
+            tally = {}
+            with torch.cuda.stream(own):
+                graph.capture_begin(pool=pools[0],
+                                    capture_error_mode="thread_local")
                 try:
-                    with _while_node(graph, done, trips, bound, body):
-                        step()
+                    with tally_launches() as pre_tally:
+                        pre()
+                    if step is not None:
+                        with tally_launches() as tally, _while_node(
+                                graph, done, trips, bound, body, pools[1]):
+                            step()
                 finally:
                     try:
                         graph.capture_end()
@@ -444,22 +564,26 @@ class _GraphLoop:
                         # allocations to the failed capture's pool
                         del _CAPTURE_STREAMS[self.device]
                         raise
-        self.graph, self.tally = graph, dict(tally)
+        del trials
+        self.graph, self.pre_tally, self.tally = graph, dict(pre_tally), \
+            dict(tally)
+        self.pools = pools
         self.capture_s = time.perf_counter() - t0
 
-    def _trial_capture(self, step, stream) -> None:
-        """Capture ``step`` into a graph that is thrown away: a step that
-        cannot be captured (a host read, a library that refuses) or that
+    def _trial_capture(self, fn, stream, pool):
+        """Capture ``fn`` into a graph that is never launched, in memory
+        pool ``pool``, and return it: work that cannot be captured (a host
+        read, a copy from pageable memory, a library that refuses) or that
         draws from a torch generator (``_NoRandomOps``) raises here, before
         it can leave a while node's body half made (``_while_node``)."""
         from whisper_tpu_torch.ops.common import tally_launches
 
         trial = torch.cuda.CUDAGraph()
         with tally_launches(), torch.cuda.stream(stream):
-            trial.capture_begin(capture_error_mode="thread_local")
+            trial.capture_begin(pool=pool, capture_error_mode="thread_local")
             try:
                 with _NoRandomOps():
-                    step()
+                    fn()
             finally:
                 try:
                     trial.capture_end()
@@ -468,63 +592,85 @@ class _GraphLoop:
                     # allocations to the failed capture's pool
                     del _CAPTURE_STREAMS[self.device]
                     raise
+        return trial
 
-    def run(self, init, make_step, first: int, n: int):
-        """init() -> the call's state before step ``first`` (an
-        ``InPlaceState`` whose ``trips()`` holds ``first``); make_step(state)
-        -> the step function.  Steps first .. n-1 while some row is undone,
-        queued as one launch of the graph, nothing read: a key's first call
-        runs step ``first`` as the capture's warm-up (a capture that fails
-        drops the state and raises) and launches the graph for the rest.
-        The launches of the bodies that ran are deferred
-        (``ops.common.defer_launches``).  Returns the outputs."""
-        from whisper_tpu_torch.ops.common import defer_launches
+    def _launch(self) -> None:
+        self.graph.replay()
+
+    def run(self, inputs, prepare, make_step, first: int, n: int):
+        """inputs: the call's (its ``Front``'s, then the loop's own:
+        tensors on any device or ``Gather``s); prepare(static inputs, state
+        or None) -> the state before step ``first`` (an ``InPlaceState``
+        whose ``trips()`` holds ``first``), written into the state given,
+        in place, or a new one; make_step(state) -> the step function.
+
+        The inputs are copied into the key's static tensors, then one
+        launch of the key's graph runs ``prepare`` and steps first .. n-1
+        while some row is undone, reading nothing.  A key's first call
+        makes its static inputs and state (``prepare`` into None) and
+        captures the graph (``_capture``; a capture that fails drops them
+        and raises) before that launch: the launch's own ``prepare``
+        overwrites every tensor of the state the warm-up left, so a first
+        call's results are its launch's, as a later call's are.  Launches
+        count the pre-node program's tally once (``ops.common.add_launches``)
+        and the body's once an iteration that ran (``defer_launches``).
+        Returns the outputs."""
+        from whisper_tpu_torch.ops.common import (
+            add_launches,
+            defer_launches,
+            tally_launches,
+        )
 
         with self._lock:
             main = torch.cuda.current_stream(self.device)
             if self._free is not None:
                 main.wait_event(self._free)
-            fresh = init()
-            if self.state is None:
-                # adopt the first call's tensors as the static state; its
-                # first step is the capture's warm-up, then the capture
-                self.state = fresh.owned()
-                if first < n:
-                    try:
-                        self._capture(make_step(self.state), n)
-                    except BaseException:
-                        self.state = None
-                        raise
-                    first += 1
-            else:
-                self.state.copy_(fresh)
-            del fresh
-            if self.graph is not None and first < n:
-                start = self.state.trips().clone()
-                self.graph.replay()
-                defer_launches(self.tally, self.state.trips() - start)
+            if self.inputs is None:
+                self.inputs = tuple(
+                    torch.empty(shape, dtype=dtype, device=self.device)
+                    for shape, dtype in map(_signature, inputs))
+            for static, x in zip(self.inputs, inputs):
+                _copy_in(static, x)
+            if self.graph is None:
+                try:
+                    with tally_launches():      # their launches count nowhere
+                        self.state = prepare(self.inputs, None)
+                    self._capture(lambda: prepare(self.inputs, self.state),
+                                  make_step(self.state) if first < n
+                                  else None, n)
+                except BaseException:
+                    self.inputs = self.state = None
+                    raise
+                self.pool_nbytes = _pool_bytes(self.pools)
+                self.nbytes = self.pool_nbytes + _storage_bytes(
+                    self.state.tensors() + list(self.inputs))
+            self._launch()
+            add_launches(self.pre_tally)
+            if first < n:
+                defer_launches(self.tally, self.state.trips() - first)
             out = self.state.outputs()
-            if self.graph is None:      # no step ran: capture at a later call
-                self.state = None
-            self.nbytes = 0 if self.state is None else self.state.nbytes()
             self._free = torch.cuda.Event()
             self._free.record(main)
             return out
 
     def release(self) -> None:
-        """Drop the graph and the state once the last run's work is done
-        (a later run captures anew)."""
+        """Drop the graph, the inputs and the state once the last run's
+        work is done (a later run captures anew)."""
         with self._lock:
             if self._free is not None:
                 self._free.synchronize()
-            self.state, self.graph = None, None
-            self.tally, self.nbytes = {}, 0
+            self.inputs, self.state, self.graph = None, None, None
+            self.pre_tally, self.tally, self.pools = {}, {}, ()
+            self.nbytes = self.pool_nbytes = 0
 
 
 class GraphKey(NamedTuple):
-    """What a captured greedy step is specialised to.  Each loop has a key
-    of its own (``beam.BeamKey``, ``speculative.SpecKey``), each ending in
-    its ``kind``, so that keys of two loops never compare equal."""
+    """What a captured greedy program is specialised to.  Each loop has a
+    key of its own (``beam.BeamKey``, ``speculative.SpecKey``), each ending
+    in its ``front`` (``front_key``: the chunks, the chunk-normalised
+    chunks, the short path's audio or given encoder states, and their
+    shapes) and its ``kind``, so that keys of two loops never compare
+    equal."""
 
     rows: int
     prompt_len: int
@@ -536,39 +682,46 @@ class GraphKey(NamedTuple):
     int8_cross_kv: bool
     hybrid: bool           # the hybrid step (step_weights)
     ts_cfg: object
-    sampled: bool          # temperature > 0 (T and the key are in the state)
+    sampled: bool          # temperature > 0 (T and the key are inputs)
     scores: bool
     pads: bool
     eot_id: int
+    front: tuple = ()
     kind: str = "greedy"
 
 
 class DecodeGraphs:
-    """The captured decode loops of one set of weights (a session's: the
-    decoder tree, for the hybrid step its step weights, and for speculative
-    decoding the draft's decoder tree, held here), one per key, of every
-    kind: greedy steps, beam steps and speculative rounds;
-    ``greedy_generate``, ``beam_generate`` and ``speculative_generate``
-    take it (``graphs=``) and refuse other weights.  The loops keep at most
-    ``GRAPH_MEMORY_SHARE`` of the card's memory in state, every kind
-    counted: after a run that passes it, the least recently used other
-    loops are dropped.  Not counted: the temporaries of one step that each
-    graph's own memory pool keeps."""
+    """The captured decode programs of one set of weights (a session's:
+    the decoder tree, for the hybrid step its step weights, its encoder,
+    and for speculative decoding the draft's decoder tree and encoder, held
+    here), one per key, of every kind: greedy steps, beam steps and
+    speculative rounds; ``greedy_generate``, ``beam_generate`` and
+    ``speculative_generate`` take it (``graphs=``) and refuse other
+    weights.  The programs keep at most ``GRAPH_MEMORY_SHARE`` of the
+    card's memory, every kind counted, each key by what it holds: its
+    state, its static inputs and its graph's memory pools (the encoder's
+    and the prefill's temporaries, the step's); after a run that passes
+    it, the least recently used other keys are dropped."""
 
-    def __init__(self, params, step_weights=None, draft_params=None):
+    def __init__(self, params, step_weights=None, draft_params=None,
+                 encoder=None, draft_encoder=None):
         self.params = params
         self.step_weights = step_weights
         self.draft_params = draft_params
+        self.encoder = encoder
+        self.draft_encoder = draft_encoder
         self._loops: collections.OrderedDict = collections.OrderedDict()
         self._lock = threading.Lock()
 
-    def loop(self, params, step_weights, key, device,
-             draft_params=None) -> _GraphLoop:
+    def loop(self, params, step_weights, key, device, draft_params=None,
+             encoders=()) -> _GraphLoop:
         if params is not self.params or (
                 step_weights is not None
                 and step_weights is not self.step_weights) or (
                 draft_params is not None
-                and draft_params is not self.draft_params):
+                and draft_params is not self.draft_params) or any(
+                w is not self.encoder and w is not self.draft_encoder
+                for w in encoders):
             raise ValueError("these decode graphs belong to other weights")
         with self._lock:
             if key not in self._loops:
@@ -576,11 +729,14 @@ class DecodeGraphs:
             self._loops.move_to_end(key)
             return self._loops[key]
 
-    def set_draft(self, draft_params) -> None:
-        """Serve speculative rounds with ``draft_params`` from now on: every
-        speculative loop, captured with the draft before, is dropped."""
+    def set_draft(self, draft_params, draft_encoder=None) -> None:
+        """Serve speculative rounds with ``draft_params`` (and
+        ``draft_encoder``, None where the draft reads the main encoder's
+        states) from now on: every speculative loop, captured with the
+        draft before, is dropped."""
         with self._lock:
             self.draft_params = draft_params
+            self.draft_encoder = draft_encoder
             victims = [self._loops.pop(k) for k in list(self._loops)
                        if k.kind == "speculative"]
         for v in victims:
@@ -588,7 +744,7 @@ class DecodeGraphs:
 
     def trim(self, keep) -> None:
         """Drop the least recently used loops other than ``keep`` while the
-        loops' state passes the budget."""
+        loops' bytes (state, inputs and pools) pass the budget."""
         with self._lock:
             if keep not in self._loops:     # dropped by another thread's run
                 return
@@ -605,18 +761,23 @@ class DecodeGraphs:
             v.release()
 
     def nbytes(self) -> int:
-        """Device bytes of the state the loops keep."""
+        """Device bytes the loops keep: state, inputs and pools."""
         with self._lock:
             return sum(v.nbytes for v in self._loops.values())
 
     def kept(self) -> dict:
-        """{key: device bytes its loop's state keeps}."""
+        """{key: device bytes its loop keeps}."""
         with self._lock:
             return {k: v.nbytes for k, v in self._loops.items()}
 
+    def pools(self) -> dict:
+        """{key: device bytes of its graph's memory pools}."""
+        with self._lock:
+            return {k: v.pool_nbytes for k, v in self._loops.items()}
+
     def captures(self) -> dict:
-        """{key: seconds its warm-up step and capture took}, for the loops
-        kept and captured."""
+        """{key: seconds its warm-up and capture took}, for the loops kept
+        and captured."""
         with self._lock:
             return {k: v.capture_s for k, v in self._loops.items()
                     if v.graph is not None}
@@ -632,30 +793,32 @@ def exit_period(early_exit: bool, device, mesh, block: int = EXIT_BLOCK):
     return block if device.type == "cuda" and mesh is not None else 1
 
 
-def run_loop(init, make_step, first: int, n: int, exit_every, *,
+def run_loop(inputs, prepare, make_step, first: int, n: int, exit_every, *,
              graphs: Optional[DecodeGraphs], key, device, params,
-             step_weights=None, draft_params=None, mesh=None,
+             step_weights=None, draft_params=None, encoders=(), mesh=None,
              eager: bool = False):
-    """Steps first .. n-1 of a decode loop over the state ``init()`` makes
-    (``make_step(state)`` its step), while some row is undone, and the
-    state's outputs.  Where ``graphed`` (a card, no mesh, not ``eager``):
-    one launch of the while node of ``key``'s graph in ``graphs`` (None: a
-    ``DecodeGraphs`` for this call alone), which then drops what passes its
-    budget; nothing is read.  Else eagerly, ``done`` read once
+    """Steps first .. n-1 of a decode loop over the state ``prepare``
+    makes from the call's ``inputs`` (``_GraphLoop.run``), while some row
+    is undone, and the state's outputs.  Where ``graphed`` (a card, no
+    mesh, not ``eager``): one launch of ``key``'s graph in ``graphs``
+    (None: a ``DecodeGraphs`` for this call alone), ``prepare`` its
+    pre-node program, which then drops what passes its budget; nothing is
+    read.  Else eagerly: ``prepare`` into a new state, ``done`` read once
     ``exit_every`` steps (``_drive``; ``exit_period``)."""
     if not graphed(device, mesh, eager):
-        st = init()
+        st = prepare(tuple(_on_device(x, device) for x in inputs), None)
         _drive(make_step(st), first, n, st.done, exit_every)
         return st.outputs()
     if graphs is None:
-        graphs = DecodeGraphs(params, step_weights, draft_params)
-    loop = graphs.loop(params, step_weights, key, device, draft_params)
-    out = loop.run(init, make_step, first, n)
+        graphs = DecodeGraphs(params, step_weights, draft_params, *encoders)
+    loop = graphs.loop(params, step_weights, key, device, draft_params,
+                       encoders)
+    out = loop.run(inputs, prepare, make_step, first, n)
     graphs.trim(key)
     return out
 
 
-def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
+def greedy_generate(params, dims: WhisperDims, enc_states,
                     prompt: torch.Tensor, suppress_mask: torch.Tensor,
                     first_suppress_mask: torch.Tensor, max_new_tokens: int,
                     eot_id: int, *, ts_cfg=None, int8_cross_kv: bool = False,
@@ -670,8 +833,11 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
     """Generated tokens [B, max_new_tokens] (prompt excluded), rows that
     finished early padded with EOT; with return_logprobs also (sum_lp [B]
     fp32, n_tok [B] int64): the log-probability summed over each row's
-    tokens up to and including its first EOT, and their count.  prompt: [P]
-    ids shared by every row; masks: [V] fp32 additive.  kernel_step runs the
+    tokens up to and including its first EOT, and their count.
+    enc_states: [B, T, d], or a ``Front`` that computes them from the
+    call's inputs (the session's bucket programs: chunk normalisation and
+    encoder, the short path's mel and encoder).  prompt: [P] ids shared by
+    every row (on any device); masks: [V] fp32 additive.  kernel_step runs the
     decode step through kernel B3 and, against the int8 cross cache, B4
     (int8_mxu, x5) or B6 (x4); with int8_self and int8_mxu (x7) the self
     cache is quantized after the prefill and the step runs B8, then B4.
@@ -697,13 +863,15 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
     step (B3/B8 on the kernel step), so each row decodes as its unpadded
     shorter prompt would.
 
-    On a card without a mesh the steps run from a CUDA graph, kept in
-    ``graphs`` (a ``DecodeGraphs`` of these weights; None: captured for
-    this call alone), unless ``eager``: one launch of the graph's while
-    node runs the loop on the card and nothing is read (see the module's
-    docstring), so the call returns before the decode ends.  The eager loop reads ``done`` on the host once a step,
-    where the JAX loop stops (under a mesh on a card once ``EXIT_BLOCK``
-    steps), or never with early_exit False (every step runs).
+    On a card without a mesh the call runs as one launch of a CUDA graph
+    kept in ``graphs`` (a ``DecodeGraphs`` of these weights; None: captured
+    for this call alone), unless ``eager``: the front, the prefill and the
+    first pick, then the steps under the graph's while node, on the card,
+    nothing read (see the module's docstring), so the call returns before
+    the decode ends.  The eager loop runs the same front and prefill, then
+    reads ``done`` on the host once a step, where the JAX loop stops (under
+    a mesh on a card once ``EXIT_BLOCK`` steps), or never with early_exit
+    False (every step runs).
 
     mesh: this rank's share of a (data, model) mesh: enc_states are its
     rows, the weights its shard (``parallel.mesh.shard_params``); the
@@ -722,48 +890,71 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
     kernel_step = kernel_step and step_weights is None
     if kernel_step and not int8_cross_kv:
         raise ValueError("kernel_step needs the int8 cross cache")
-    b = enc_states.shape[0]
+    front = (enc_states if isinstance(enc_states, Front)
+             else states_front(enc_states))
+    b, cross_len, dev = front.rows, front.length, front.device
     p = prompt.shape[0]
-    dev = enc_states.device
-    cross_len = enc_states.shape[1]
+    x7 = kernel_step and int8_self and int8_mxu
+    # every value that changes from call to call is an input tensor: the
+    # program reads it from the key's static copy
+    inputs = front.inputs + (prompt.long(), suppress_mask,
+                             first_suppress_mask)
+    if pad_count is not None:
+        inputs += (pad_count,)
+    if temperature > 0:
+        inputs += (torch.full((1,), temperature, dtype=torch.float32,
+                              device=dev),
+                   sampling.generator_key(generator, dev))
+    nf = len(front.inputs)
 
-    def init() -> LoopState:
-        """The prefill and the first token: the state before step 1."""
-        tokens = prompt.to(device=dev, dtype=torch.long)[None, :].expand(b, p)
+    def prepare(xs, out: Optional[LoopState] = None) -> LoopState:
+        """The front (the encoder states), the prefill and the first
+        token: the state before step 1, written into ``out`` where given
+        (the prefill's cache straight into its cache; at x7 the self cache
+        quantized from a bf16 buffer of the prefill's)."""
+        enc = front.encode(*xs[:nf])
+        prompt_t, suppress, first_mask, *rest = xs[nf:]
+        pads = rest.pop(0) if pad_count is not None else None
+        t, key = rest if temperature > 0 else (0.0, None)
+        tokens = prompt_t[None, :].expand(b, p)
         prompt_mask = None
-        if pad_count is not None:
+        if pads is not None:
             prompt_mask = (torch.arange(p, device=dev)[None, :]
-                           >= pad_count[:, None])              # [B, P]
+                           >= pads[:, None])                   # [B, P]
+        cache = None if out is None else out.cache
+        if cache is not None and x7:
+            bf = torch.empty(cache.self_k.shape, device=dev,
+                             dtype=params["decoder"]["tok_emb"].dtype)
+            cache = cache._replace(self_k=bf, self_v=torch.empty_like(bf),
+                                   self_k_scale=None, self_v_scale=None)
         logits, cache = whisper.decoder_prefill(
-            params, dims, tokens, enc_states, p + max_new_tokens,
-            int8_cross_kv=int8_cross_kv, prompt_mask=prompt_mask, mesh=mesh)
-        if kernel_step and int8_self and int8_mxu:
+            params, dims, tokens, enc, p + max_new_tokens,
+            int8_cross_kv=int8_cross_kv, prompt_mask=prompt_mask, mesh=mesh,
+            cache=cache)
+        if x7:
             cache = whisper.quantize_self_kv(cache)
-        first_logits = logits[:, -1, :].float() + first_suppress_mask
+        first_logits = logits[:, -1, :].float() + first_mask
         ts_state = None
         if ts_cfg is not None:
             ts_state = ts.init_state(b, eot_id, dev)
             first_logits = ts.apply_rules(first_logits, ts_state, 0, ts_cfg)
-        t, key = 0.0, None
-        if temperature > 0:
-            t = torch.full((1,), temperature, dtype=torch.float32, device=dev)
-            key = sampling.generator_key(generator, dev)
         first, sum_lp = pick(first_logits, t, key, 0, return_logprobs, row0)
         if ts_cfg is not None:
             ts_state = ts.update_state(ts_state, first.clone(), ts_cfg)
         buf = torch.full((b, max_new_tokens), eot_id, dtype=torch.long,
                          device=dev)
         buf[:, 0] = first
-        return LoopState(
+        st = LoopState(
             last=first, pos=torch.full((1,), p, dtype=torch.int32,
                                        device=dev),
             step=torch.ones(1, dtype=torch.long, device=dev),
-            done=first == eot_id, buf=buf, suppress=suppress_mask,
+            done=first == eot_id, buf=buf, suppress=suppress,
             cache=cache, sum_lp=sum_lp,
             n_tok=(torch.ones(b, dtype=torch.long, device=dev)
                    if return_logprobs else None),
-            ts=ts_state, pad_count=pad_count,
+            ts=ts_state, pad_count=pads,
             temperature=t if temperature > 0 else None, key=key)
+        return st if out is None else out.copy_(st)
 
     def make_step(st: LoopState):
         return _step_fn(st, params, dims, eot_id=eot_id,
@@ -775,11 +966,12 @@ def greedy_generate(params, dims: WhisperDims, enc_states: torch.Tensor,
     key = GraphKey(b, p, max_new_tokens, cross_len, kernel_step, int8_mxu,
                    int8_self, int8_cross_kv, step_weights is not None, ts_cfg,
                    temperature > 0, return_logprobs, pad_count is not None,
-                   eot_id)
-    return run_loop(init, make_step, 1, max_new_tokens,
+                   eot_id, front_key(front))
+    return run_loop(inputs, prepare, make_step, 1, max_new_tokens,
                     exit_period(early_exit, dev, mesh),
                     graphs=graphs, key=key, device=dev, params=params,
-                    step_weights=step_weights, mesh=mesh, eager=eager)
+                    step_weights=step_weights, encoders=front.weights,
+                    mesh=mesh, eager=eager)
 
 
 def strip_generated(row: np.ndarray, eot_id: int) -> list[int]:

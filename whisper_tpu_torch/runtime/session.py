@@ -33,13 +33,18 @@ encoder and greedy or speculative decoding; ``transcribe_chunks`` and
 ``warmup`` take host mel chunks.
 
 Greedy decoding, beam search and speculative decoding on a card run each
-decode as one launch of a CUDA graph captured once per key
-(``runtime.generate``, ``runtime.beam``, ``runtime.speculative``; the
-session keeps them all in ``graphs``, with the draft's weights once
-``set_draft_model`` attaches them, and ``warmup`` captures a bucket's
-greedy loop), the step (a speculative round) the body of a while node
-that the card runs until every row is done or the bound is reached, where
-the JAX ``while_loop`` stops.  No form reads ``done`` on the host there:
+batch bucket as one launch of a CUDA graph captured once per key, the JAX
+session's one program a bucket (``runtime.generate``, ``runtime.beam``,
+``runtime.speculative``; the session keeps them all in ``graphs``, with
+its encoder and the draft's weights once ``set_draft_model`` attaches
+them, and ``warmup`` captures a bucket's program): a call gathers the
+bucket's windows from the file's mel into the key's static chunks (the
+short path copies its rows in as shipped), and the graph runs the chunk
+normalisation, the encoder(s), the prefill and the first pick
+(``generate.Front``, the loops' ``prepare``), then the step (a
+speculative round) as the body of a while node that the card runs until
+every row is done or the bound is reached, where the JAX ``while_loop``
+stops.  No form reads ``done`` on the host there:
 the ``_async`` forms of greedy decoding, beam search and speculative
 decoding return once the work is queued, and ``gather_tokens`` (or the caller's
 ``.cpu()``) is the sync; the synchronous forms read once, at the end,
@@ -77,6 +82,8 @@ from whisper_tpu_torch.models.whisper import WhisperDecoder, WhisperEncoder
 from whisper_tpu_torch.ops.common import disable_tf32, settle_launches
 from whisper_tpu_torch.runtime.generate import (
     DecodeGraphs,
+    Front,
+    Gather,
     build_suppress_mask,
     greedy_generate,
 )
@@ -204,18 +211,22 @@ def _check_supported(cfg: RuntimeCfg) -> None:
         raise NotImplementedError("; ".join(missing))
 
 
-def chunk_norm(chunks: torch.Tensor, starts: Sequence[int],
-               n_valid: int) -> torch.Tensor:
+def chunk_norm(chunks: torch.Tensor, starts, n_valid) -> torch.Tensor:
     """Per-chunk normalization of raw log-spec windows [B, n_mels, 3000]
     cut at frame ``starts`` of a slab with ``n_valid`` valid frames (the
     JAX session's ``chunk_norm`` branch): each window's max over its valid
     frames (start + i < n_valid), a clamp at that max - 8, (x + 4) / 4,
     invalid frames 0.  A window with no valid frame (a bucket's padding
-    row) has max -inf, leaves the clamp idle and comes out all zeros."""
+    row) has max -inf, leaves the clamp idle and comes out all zeros.
+    starts: host ints or a [B] int64 tensor on the chunks' device; n_valid:
+    an int or a one-element tensor there (a bucket program reads both on
+    the card)."""
     from whisper_tpu_torch.pipeline.chunk import CHUNK_FRAMES
 
-    frame_ix = (torch.as_tensor(list(starts), dtype=torch.int64)[:, None]
-                + torch.arange(CHUNK_FRAMES)).to(chunks.device)
+    dev = chunks.device
+    if not torch.is_tensor(starts):
+        starts = torch.as_tensor(list(starts), dtype=torch.int64).to(dev)
+    frame_ix = starts[:, None] + torch.arange(CHUNK_FRAMES, device=dev)
     valid = (frame_ix < n_valid)[:, None, :]
     vmax = torch.where(valid, chunks, -torch.inf).amax(dim=(1, 2),
                                                        keepdim=True)
@@ -317,7 +328,8 @@ class WhisperSession:
         # rounds), one per key, their state within a quarter of the card's
         # memory; eager_decode runs the loops on the card without them
         # (for comparisons)
-        self.graphs = DecodeGraphs(self._decoder_params, self._step_weights)
+        self.graphs = DecodeGraphs(self._decoder_params, self._step_weights,
+                                   encoder=self.encoder)
         self.eager_decode = False
         self._draft = None  # (encoder or None, decoder params, dims)
         # (verify rounds [1], committed tokens [B], both on the device) per
@@ -401,14 +413,18 @@ class WhisperSession:
                                 torch.from_numpy(first).to(self.device))
         return self._masks[key]
 
-    def _token_tensor(self, ids) -> torch.Tensor:
+    def _token_ids(self, ids) -> torch.Tensor:
         """Host token ids (a prompt, a prefix, teacher-forced tokens) as an
-        int64 tensor on the device, clamped into the vocabulary as the JAX
-        model's gather clamps them (``whisper.clamp_token_ids``)."""
+        int64 tensor on the host, clamped into the vocabulary as the JAX
+        model's gather clamps them (``whisper.clamp_token_ids``): a decode
+        program copies it into its static prompt."""
         from whisper_tpu_torch.models.whisper import clamp_token_ids
 
-        return torch.from_numpy(clamp_token_ids(
-            ids, self.dims.vocab_size)).to(self.device)
+        return torch.from_numpy(clamp_token_ids(ids, self.dims.vocab_size))
+
+    def _token_tensor(self, ids) -> torch.Tensor:
+        """``_token_ids`` on the device."""
+        return self._token_ids(ids).to(self.device)
 
     def _encode_transfer(self, audio: np.ndarray) -> np.ndarray:
         """Host-side upload encoding: int16 PCM for "int16", float32 as it
@@ -588,8 +604,13 @@ class WhisperSession:
 
         c = len(frame_starts)
         n_frames = mel.shape[1]
-        mel_pad = F.pad(mel, (0, CHUNK_FRAMES))
-        prompt_t = self._token_tensor(prompt)
+        # every window of the file's mel as a view [F + 1, n_mels, 3000]: a
+        # bucket's are gathered by one indexed read into its program's
+        # static chunks, outside the graph (the file's length stays out of
+        # the key)
+        windows = F.pad(mel, (0, CHUNK_FRAMES)).unfold(
+            1, CHUNK_FRAMES, 1).transpose(0, 1)
+        prompt_ids = self._token_ids(prompt)
         base_mask, first_mask = self._get_masks(suppress_ids,
                                                 begin_suppress_ids)
         pieces = []
@@ -602,19 +623,17 @@ class WhisperSession:
             starts += [n_frames] * (bucket - n)
             # this rank's rows under a mesh (all of them without one)
             lo, hi = self._data_rows(bucket)
-            starts = starts[lo:hi]
-            chunks = torch.stack([mel_pad[:, s:s + CHUNK_FRAMES]
-                                  for s in starts])
-            if chunk_norm_n_valid is not None:
-                chunks = chunk_norm(chunks, starts, int(chunk_norm_n_valid))
-            enc = self.encoder(chunks)
+            starts_t = torch.tensor(starts[lo:hi], dtype=torch.int64).to(
+                self.device)
+            front = self._chunk_front(Gather(windows, starts_t), starts_t,
+                                      chunk_norm_n_valid, speculative)
             pads = None
             if pad_count is not None:
                 pads = torch.full((hi - lo,), int(pad_count),
                                   dtype=torch.int32, device=self.device)
             if speculative:
                 result, (rounds, committed) = self._speculative_tokens(
-                    chunks, enc, prompt_t, base_mask, first_mask,
+                    front, None, prompt_ids, base_mask, first_mask,
                     max_new_tokens, eot_id, draft_k)
                 self.speculative_stats.append(
                     (rounds, self._gather_rows(committed, bucket)))
@@ -622,7 +641,7 @@ class WhisperSession:
                 from whisper_tpu_torch.runtime.beam import beam_generate
 
                 result, _ = beam_generate(
-                    self._decoder_params, self.dims, enc, prompt_t,
+                    self._decoder_params, self.dims, front, prompt_ids,
                     base_mask, first_mask, max_new_tokens, eot_id, num_beams,
                     length_penalty, ts_cfg=ts_cfg,
                     int8_cross_kv=self.cfg.int8_kv_cache,
@@ -635,15 +654,70 @@ class WhisperSession:
                 if temperature > 0.0:
                     gen = torch.Generator(device=self.device)
                     gen.manual_seed(seed * 100003 + start)
-                result = self._greedy(enc, prompt_t, base_mask, first_mask,
-                                      max_new_tokens, eot_id, ts_cfg=ts_cfg,
-                                      temperature=temperature, generator=gen,
-                                      with_scores=with_scores, pads=pads,
-                                      row0=lo,
+                result = self._greedy(front, prompt_ids, base_mask,
+                                      first_mask, max_new_tokens, eot_id,
+                                      ts_cfg=ts_cfg, temperature=temperature,
+                                      generator=gen, with_scores=with_scores,
+                                      pads=pads, row0=lo,
                                       early_exit=early_exit)
             pieces.append((self._gather_rows(result, bucket), start, n))
             start += n
         return pieces
+
+    def _encoder_key(self, draft: bool) -> tuple:
+        """What a bucket program's encoder work depends on: the session's
+        encoder flags and, with a draft, whether the draft runs an encoder
+        of its own."""
+        key = (self.cfg.fused_attention, self.cfg.fused_encoder_mlp,
+               self._enc_i8, self.cfg.fused_encoder_block)
+        if draft:
+            key += ("draft", self._draft[0] is None)
+        return key
+
+    def _encode(self, mel: torch.Tensor, draft: bool):
+        """The encoder states of ``mel`` [B, n_mels, 3000]; with a draft,
+        (the main model's, the draft's: its own encoder's, or with
+        ``share_encoder`` the main one's)."""
+        enc = self.encoder(mel)
+        if not draft:
+            return enc
+        d_encoder = self._draft[0]
+        return enc, (enc if d_encoder is None else d_encoder(mel))
+
+    def _front(self, kind: tuple, inputs: tuple, encode, rows: int,
+               draft: bool) -> Front:
+        from whisper_tpu_torch.pipeline.chunk import CHUNK_FRAMES
+
+        t_enc = (CHUNK_FRAMES + 1) // 2          # the stem's stride 2
+        weights = (self.encoder,)
+        if draft and self._draft[0] is not None:
+            weights += (self._draft[0],)
+        return Front(encode, inputs, kind + self._encoder_key(draft), rows,
+                     t_enc, self.device, weights,
+                     draft_length=t_enc if draft else None)
+
+    def _chunk_front(self, chunks, starts_t: torch.Tensor, n_valid,
+                     draft: bool) -> Front:
+        """A chunk bucket's work ahead of the prefill, as the JAX
+        session's ``_get_mel_fn`` program: with ``n_valid`` (a raw log-spec
+        slab's valid frames) each window normalized with its own max
+        (``chunk_norm``, reading the rows' starts and n_valid on the card),
+        then the encoder, and with ``draft`` the draft's.  chunks: the
+        bucket's windows (a ``Gather``)."""
+        norm = n_valid is not None
+        inputs = (chunks,)
+        if norm:
+            inputs += (starts_t, torch.full((1,), int(n_valid),
+                                            dtype=torch.int64,
+                                            device=self.device))
+
+        def encode(x, starts=None, nv=None):
+            if norm:
+                x = chunk_norm(x, starts, nv)
+            return self._encode(x, draft)
+
+        kind = ("chunk-normalised chunks",) if norm else ("chunks",)
+        return self._front(kind, inputs, encode, len(starts_t), draft)
 
     def _greedy(self, enc, prompt_t, base_mask, first_mask,
                 max_new_tokens: int, eot_id: int, *, ts_cfg=None,
@@ -669,46 +743,62 @@ class WhisperSession:
 
     # -- short-utterance batch (serving fast path) --------------------------
 
-    def _short_mel(self, padded_audio: np.ndarray,
-                   n_valid_frames: np.ndarray) -> torch.Tensor:
-        """The mel [B, n_mels, 3000] of a batch of reflect-padded rows of
-        at most 30 s: the rows uploaded wire-encoded and decoded on the
-        device, then given their zero tail up to the full window (the
-        engine's trimmed uploads ship them shorter) or cut back to it, as
-        the JAX program does after its wire decode, and each row's plain
-        log-mel over its own valid frames.  The one-shot kernel B5 is not
-        on this path: the JAX short program calls ``log_mel_jax`` whatever
-        ``fused_frontend`` says."""
+    def _short_mel_device(self, audio: torch.Tensor,
+                          n_valid: torch.Tensor) -> torch.Tensor:
+        """The mel [B, n_mels, 3000] of wire-encoded rows on the device, as
+        the JAX short program makes it: the wire decode, the zero tail up
+        to the full window (the engine's trimmed uploads ship rows shorter)
+        or the cut back to it, then one batched plain log-mel over every
+        row's own valid frames (``n_valid`` [B] on the device).  The
+        one-shot kernel B5 is not on this path: the JAX short program calls
+        ``log_mel_jax`` whatever ``fused_frontend`` says."""
         from whisper_tpu_torch.frontend.mel import (
             decode_transfer,
-            log_mel_torch,
+            log_mel_batch,
         )
         from whisper_tpu_torch.pipeline.chunk import CHUNK_FRAMES
 
         full = CHUNK_FRAMES * 160 + 400
-        audio = decode_transfer(self._upload(self._encode_transfer(
-            np.asarray(padded_audio))))
+        audio = decode_transfer(audio)
         short = full - audio.shape[-1]
         if short > 0:
             audio = F.pad(audio, (0, short))
         elif short < 0:
             audio = audio[..., :full]
-        n_valid = np.asarray(n_valid_frames).astype(np.int64)
-        return torch.stack([
-            log_mel_torch(row, int(nv), n_mels=self.dims.n_mels,
-                          n_frames=CHUNK_FRAMES)
-            for row, nv in zip(audio, n_valid)])
+        return log_mel_batch(audio, n_valid, n_mels=self.dims.n_mels,
+                             n_frames=CHUNK_FRAMES)
 
-    def _short_inputs(self, padded_audio, n_valid_frames, prompt,
-                      suppress_ids, begin_suppress_ids):
-        """The mel of this rank's rows (all of them without a mesh), the
-        prompt and the masks."""
+    def _short_rows(self, padded_audio: np.ndarray, n_valid_frames):
+        """This rank's rows (all of them without a mesh) as host tensors:
+        the audio wire-encoded as shipped, the valid frames int64."""
         lo, hi = self._data_rows(len(padded_audio))
-        mel = self._short_mel(np.asarray(padded_audio)[lo:hi],
-                              np.asarray(n_valid_frames)[lo:hi])
-        prompt_t = self._token_tensor(prompt)
-        return (mel, prompt_t) + tuple(self._get_masks(suppress_ids,
-                                                       begin_suppress_ids))
+        audio = np.ascontiguousarray(self._encode_transfer(
+            np.asarray(padded_audio)[lo:hi]))
+        n_valid = np.asarray(n_valid_frames)[lo:hi].astype(np.int64)
+        return torch.from_numpy(audio), torch.from_numpy(n_valid)
+
+    def _short_mel(self, padded_audio: np.ndarray,
+                   n_valid_frames: np.ndarray) -> torch.Tensor:
+        """The mel [B, n_mels, 3000] of a batch of reflect-padded rows of
+        at most 30 s, run eagerly (``_short_mel_device``)."""
+        audio, n_valid = self._short_rows(padded_audio, n_valid_frames)
+        return self._short_mel_device(audio.to(self.device),
+                                      n_valid.to(self.device))
+
+    def _short_front(self, padded_audio, n_valid_frames,
+                     draft: bool) -> Front:
+        """The short program's work ahead of the prefill (the JAX
+        session's short program): the rows uploaded into the key's static
+        buffer as shipped (the key holds their length and wire), then on
+        the card their mel (``_short_mel_device``), the encoder, and with
+        ``draft`` the draft's."""
+        audio, n_valid = self._short_rows(padded_audio, n_valid_frames)
+
+        def encode(a, nv):
+            return self._encode(self._short_mel_device(a, nv), draft)
+
+        return self._front(("short audio",), (audio, n_valid), encode,
+                           audio.shape[0], draft)
 
     def transcribe_short_batch(
         self,
@@ -756,12 +846,12 @@ class WhisperSession:
         pipeline overlaps tick k's decode with the dispatch of tick k+1.
         early_exit is the eager loop's: it reads ``done`` once a block of
         steps (``transcribe_short_batch``'s form)."""
-        mel, prompt_t, base_mask, first_mask = self._short_inputs(
-            padded_audio, n_valid_frames, prompt, suppress_ids,
-            begin_suppress_ids)
+        base_mask, first_mask = self._get_masks(suppress_ids,
+                                                begin_suppress_ids)
+        front = self._short_front(padded_audio, n_valid_frames, False)
         return self._gather_rows(
-            self._greedy(self.encoder(mel), prompt_t, base_mask, first_mask,
-                         max_new_tokens, eot_id, ts_cfg=ts_cfg,
+            self._greedy(front, self._token_ids(prompt), base_mask,
+                         first_mask, max_new_tokens, eot_id, ts_cfg=ts_cfg,
                          early_exit=early_exit),
             len(padded_audio))
 
@@ -822,34 +912,60 @@ class WhisperSession:
                                  device=self.device)
         self._draft = (encoder, {"decoder": decoder.tree()}, draft_dims)
         # the speculative loops captured with an earlier draft go
-        self.graphs.set_draft(self._draft[1])
+        self.graphs.set_draft(self._draft[1], encoder)
 
         # Sizing is advisory and never fatal: both models' parameters, KV
         # caches and encoder states stay resident during a speculative
-        # decode.  max_len 132 = prompt (4) + the chunk decode's default 128
-        # new tokens; the cross caches dominate the total anyway.
+        # decode (``speculative_footprint``).
         warn = None
         try:
             from whisper_tpu_torch.utils import hbm
 
-            wb = torch.empty((), dtype=self.cfg.torch_dtype).element_size()
-            m = self.mesh
-            fp = hbm.decode_footprint(
-                self.dims, self.cfg.max_batch, 132, weight_bytes=wb,
-                kv_bytes=wb, int8_cross=self.cfg.int8_kv_cache,
-                draft_dims=draft_dims, shared_draft_encoder=share_encoder,
-                cache_copies=1.0,
-                data_parallel=1 if m is None else m.data,
-                tensor_parallel=1 if m is None else m.model)
-            warn = hbm.check_fit(fp, label="speculative decode "
-                                 f"(max_batch={self.cfg.max_batch})",
-                                 device=self.device)
+            warn = hbm.check_fit(
+                self.speculative_footprint(draft_dims, share_encoder),
+                label="speculative decode "
+                f"(max_batch={self.cfg.max_batch})", device=self.device)
         except Exception:  # noqa: BLE001 (the estimate is a courtesy)
             pass
         if warn:
             import warnings
 
             warnings.warn(warn, ResourceWarning, stacklevel=2)
+
+    def speculative_footprint(self, draft_dims: WhisperDims,
+                              share_encoder: bool = False) -> dict:
+        """The device bytes a speculative decode at max_batch keeps
+        (``utils.hbm.decode_footprint``): both models' parameters, KV caches
+        and encoder states, with max_len 132 = prompt (4) + the chunk
+        decode's default 128 new tokens (the cross caches dominate the total
+        anyway).  One copy of each cache: the eager loop updates it in
+        place, and a graphed program's prefill writes its key's state in
+        place.  A graphed session (a card, no mesh, not ``eager_decode``)
+        also keeps the active key's graph pools (its encoders' and
+        prefills' temporaries: the largest measured so far, or
+        ``hbm.program_pool_bytes`` before any) and the budget other keys may
+        keep (``generate.GRAPH_MEMORY_SHARE`` of the card's memory,
+        ``generate._budget``)."""
+        from whisper_tpu_torch.runtime import generate
+        from whisper_tpu_torch.utils import hbm
+
+        wb = torch.empty((), dtype=self.cfg.torch_dtype).element_size()
+        m = self.mesh
+        graph = {}
+        if generate.graphed(self.device, m, self.eager_decode):
+            pool = hbm.program_pool_bytes(
+                self.dims, self.cfg.max_batch, 4, act_bytes=wb,
+                fused_attention=self.cfg.fused_attention,
+                draft_dims=None if share_encoder else draft_dims)
+            pool = max([pool, *self.graphs.pools().values()])
+            graph = dict(graph_pool=pool,
+                         graph_kept=generate._budget(self.device))
+        return hbm.decode_footprint(
+            self.dims, self.cfg.max_batch, 132, weight_bytes=wb,
+            kv_bytes=wb, int8_cross=self.cfg.int8_kv_cache,
+            draft_dims=draft_dims, shared_draft_encoder=share_encoder,
+            cache_copies=1.0, data_parallel=1 if m is None else m.data,
+            tensor_parallel=1 if m is None else m.model, **graph)
 
     @property
     def has_draft(self) -> bool:
@@ -898,12 +1014,12 @@ class WhisperSession:
         draft."""
         if not self.has_draft:
             raise RuntimeError("no draft model attached (set_draft_model)")
-        mel, prompt_t, base_mask, first_mask = self._short_inputs(
-            padded_audio, n_valid_frames, prompt, suppress_ids,
-            begin_suppress_ids)
+        base_mask, first_mask = self._get_masks(suppress_ids,
+                                                begin_suppress_ids)
         toks, _ = self._speculative_tokens(
-            mel, self.encoder(mel), prompt_t, base_mask, first_mask,
-            max_new_tokens, eot_id, draft_k)
+            self._short_front(padded_audio, n_valid_frames, True), None,
+            self._token_ids(prompt), base_mask, first_mask, max_new_tokens,
+            eot_id, draft_k)
         return self._gather_rows(toks, len(padded_audio))
 
     def _speculative_tokens(self, chunks, enc, prompt_t, base_mask,
@@ -911,13 +1027,19 @@ class WhisperSession:
                             draft_k: int):
         """Draft-and-verify over one chunk batch: (device tokens [B,
         max_new_tokens], (verify rounds, committed tokens [B]), all on the
-        device).  The cross caches follow cfg.int8_kv_cache and the kernels
-        the session's rung: the draft's steps through B4/B6, the verify
-        pass through B7."""
+        device).  chunks: the bucket's mel, whose draft states the draft's
+        encoder makes here beside the main states ``enc``; or a ``Front``
+        that runs both encoders in the program, and enc None.  The cross
+        caches follow cfg.int8_kv_cache and the kernels the session's rung:
+        the draft's steps through B4/B6, the verify pass through B7."""
         from whisper_tpu_torch.runtime.speculative import speculative_generate
 
         d_encoder, d_params, d_dims = self._draft
-        enc_d = enc if d_encoder is None else d_encoder(chunks)
+        enc_d = None
+        if not isinstance(chunks, Front):
+            enc_d = enc if d_encoder is None else d_encoder(chunks)
+        else:
+            enc = chunks
         packed = bool(self.cfg.packed_cross_kv and self.cfg.int8_kv_cache)
         toks, rounds, n_committed = speculative_generate(
             self._decoder_params, self.dims, d_params, d_dims, enc, enc_d,
@@ -963,8 +1085,10 @@ class WhisperSession:
         """Run the bucket that ``n_chunks`` lands in once on zeros.  There
         is nothing to compile: the first run builds the kernels (at first
         use), creates the libraries' handles, fills the allocator's cache at
-        the bucket's sizes and, on a card, captures the bucket's greedy
-        loop, so that no later run of that key captures."""
+        the bucket's sizes and, on a card, captures the bucket's program
+        (the chunks' gather aside: the encoder, the prefill and the greedy
+        loop in one graph), so that no later run of that key captures,
+        whatever the file's length."""
         from whisper_tpu_torch.pipeline.chunk import CHUNK_FRAMES
 
         bucket = _bucket_batch(min(n_chunks, self.cfg.max_batch),

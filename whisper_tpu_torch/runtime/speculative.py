@@ -53,9 +53,12 @@ from whisper_tpu_torch.models import whisper
 from whisper_tpu_torch.models.registry import WhisperDims
 from whisper_tpu_torch.runtime.generate import (
     DecodeGraphs,
+    Front,
     InPlaceState,
     exit_period,
+    front_key,
     run_loop,
+    states_front,
 )
 
 # Rounds the eager loop runs under a mesh on a card between two reads of
@@ -122,9 +125,6 @@ class SpecState(InPlaceState):
     def trips(self) -> torch.Tensor:
         return self.rounds
 
-    def owned(self) -> "SpecState":
-        return dataclasses.replace(self, suppress=self.suppress.clone())
-
     def outputs(self):
         """(buf, rounds, n_gen)."""
         return self.buf.clone(), self.rounds.clone(), self.n_gen.clone()
@@ -144,6 +144,7 @@ class SpecKey(NamedTuple):
     int8_mxu: bool
     int8_cross_kv: bool
     eot_id: int
+    front: tuple = ()
     kind: str = "speculative"
 
 
@@ -219,8 +220,9 @@ def _round_fn(st: SpecState, params, dims: WhisperDims, draft_params,
 
 
 def speculative_generate(params, dims: WhisperDims, draft_params,
-                         draft_dims: WhisperDims, enc_states: torch.Tensor,
-                         draft_enc_states: torch.Tensor, prompt: torch.Tensor,
+                         draft_dims: WhisperDims, enc_states,
+                         draft_enc_states: Optional[torch.Tensor],
+                         prompt: torch.Tensor,
                          suppress_mask: torch.Tensor,
                          first_suppress_mask: torch.Tensor,
                          max_new_tokens: int, eot_id: int, draft_k: int = 4,
@@ -232,7 +234,10 @@ def speculative_generate(params, dims: WhisperDims, draft_params,
     """Returns (tokens [B, max_new_tokens], n_rounds, n_committed [B]).
 
     enc_states / draft_enc_states: each model's encoder states [B, T, d];
-    prompt: [P] ids shared by every row; masks: [V] fp32 additive.
+    or enc_states a ``generate.Front`` that computes both (the session's
+    bucket programs: the main encoder, and the draft's unless it shares
+    it) and draft_enc_states None.  prompt: [P] ids shared by every row;
+    masks: [V] fp32 additive.
     n_rounds (a one-element int64 tensor on the device: read it after the
     results) counts verify passes that had a row undone: with a good draft
     n_committed / n_rounds approaches draft_k + 1 tokens per pass of the
@@ -253,48 +258,57 @@ def speculative_generate(params, dims: WhisperDims, draft_params,
     deterministic draft) and read the same logits after the all-reduce, so
     their rounds agree; the rounds run without a graph.
 
-    On a card without a mesh the rounds run from a CUDA graph kept in
-    ``graphs`` (a ``DecodeGraphs`` of these main and draft weights; None:
-    captured for this call alone), unless ``eager``: one launch of its
-    while node, nothing is read, and the call returns before the loop
-    ends.  The eager loop reads ``done``
-    once a round (under a mesh on a card once ``EXIT_BLOCK`` rounds)."""
+    On a card without a mesh the call runs as one launch of a CUDA graph
+    kept in ``graphs`` (a ``DecodeGraphs`` of these main and draft weights;
+    None: captured for this call alone), unless ``eager``: the front, both
+    prefills and the first token, then the rounds under its while node;
+    nothing is read, and the call returns before the loop ends.  The eager
+    loop reads ``done`` once a round (under a mesh on a card once
+    ``EXIT_BLOCK`` rounds)."""
     if draft_k < 1:
         # Nothing would be drafted or committed, and the loop would not end.
         raise ValueError(f"draft_k must be >= 1, got {draft_k}")
-    b = enc_states.shape[0]
+    front = (enc_states if isinstance(enc_states, Front)
+             else states_front(enc_states, draft_enc_states))
+    b, t_enc, dev = front.rows, front.length, front.device
     p = prompt.shape[0]
-    dev = enc_states.device
     # + draft_k + 1 slack: the last verify round may overrun before masking
     # (a round commits up to draft_k + 1 tokens, the bonus token included).
     max_len = p + max_new_tokens + draft_k + 1
     width = max_new_tokens + draft_k + 1
-    m_cross_len = (enc_states.shape[1]
+    m_cross_len = (t_enc
                    if _kernel_cross(packed_main, int8_cross_kv, dims, mesh)
                    else None)
-    d_cross_len = (draft_enc_states.shape[1]
+    d_cross_len = (front.draft_length
                    if _kernel_cross(packed_draft, int8_cross_kv, draft_dims)
                    else None)
+    inputs = front.inputs + (prompt.long(), suppress_mask,
+                             first_suppress_mask)
+    nf = len(front.inputs)
 
-    def init() -> SpecState:
-        """Both prefills and the first token: the state before round 0."""
-        tokens_p = prompt.to(device=dev, dtype=torch.long)[None, :].expand(
-            b, p)
+    def prepare(xs, out: Optional[SpecState] = None) -> SpecState:
+        """The front, both prefills and the first token: the state before
+        round 0, written into ``out`` where given (both caches in place)."""
+        enc, enc_d = front.encode(*xs[:nf])
+        prompt_t, suppress, first_mask = xs[nf:]
+        tokens_p = prompt_t[None, :].expand(b, p)
         logits, cache = whisper.decoder_prefill(
-            params, dims, tokens_p, enc_states, max_len,
-            int8_cross_kv=int8_cross_kv, mesh=mesh)
-        first = torch.argmax(logits[:, -1, :].float() + first_suppress_mask,
-                             -1)
+            params, dims, tokens_p, enc, max_len,
+            int8_cross_kv=int8_cross_kv, mesh=mesh,
+            cache=None if out is None else out.cache)
+        first = torch.argmax(logits[:, -1, :].float() + first_mask, -1)
         _, d_cache = whisper.decoder_prefill(
-            draft_params, draft_dims, tokens_p, draft_enc_states, max_len,
-            int8_cross_kv=int8_cross_kv)
+            draft_params, draft_dims, tokens_p, enc_d, max_len,
+            int8_cross_kv=int8_cross_kv,
+            cache=None if out is None else out.d_cache)
         buf = torch.full((b, width), eot_id, dtype=torch.long, device=dev)
         buf[:, 0] = first
-        return SpecState(
+        st = SpecState(
             n_gen=torch.ones((b,), dtype=torch.long, device=dev), last=first,
             done=first == eot_id, buf=buf,
             rounds=torch.zeros(1, dtype=torch.long, device=dev),
-            suppress=suppress_mask, cache=cache, d_cache=d_cache)
+            suppress=suppress, cache=cache, d_cache=d_cache)
+        return st if out is None else out.copy_(st)
 
     def make_round(st: SpecState):
         return _round_fn(st, params, dims, draft_params, draft_dims,
@@ -303,16 +317,16 @@ def speculative_generate(params, dims: WhisperDims, draft_params,
                          m_cross_len=m_cross_len, d_cross_len=d_cross_len,
                          int8_mxu=int8_mxu, mesh=mesh)
 
-    key = SpecKey(b, p, max_new_tokens, draft_k, enc_states.shape[1],
-                  draft_enc_states.shape[1], m_cross_len is not None,
-                  d_cross_len is not None, int8_mxu, int8_cross_kv, eot_id)
+    key = SpecKey(b, p, max_new_tokens, draft_k, t_enc, front.draft_length,
+                  m_cross_len is not None, d_cross_len is not None, int8_mxu,
+                  int8_cross_kv, eot_id, front_key(front))
     # Every undone row commits a token a round, so max_new_tokens rounds
     # bound the loop; it stops where every row is done.
     buf, rounds, n_gen = run_loop(
-        init, make_round, 0, max_new_tokens,
+        inputs, prepare, make_round, 0, max_new_tokens,
         exit_period(True, dev, mesh, EXIT_BLOCK), graphs=graphs,
         key=key, device=dev, params=params, draft_params=draft_params,
-        mesh=mesh, eager=eager)
+        encoders=front.weights, mesh=mesh, eager=eager)
     # Positions never committed (the overrun slack included) become EOT.
     ar_w = torch.arange(width, device=dev)[None, :]
     buf = torch.where(ar_w < n_gen[:, None], buf, eot_id)[:, :max_new_tokens]

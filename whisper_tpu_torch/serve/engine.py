@@ -158,13 +158,15 @@ class StreamingEngine:
     def warmup(self, batch: int = 0) -> None:
         """Run the short-batch path once for the given bucket, or for every
         power-of-two bucket up to max_batch (a lone request hits bucket 1,
-        a burst the bigger ones): nothing compiles, but the first run of a
-        shape builds the kernels (at first use), the libraries' handles and
-        the allocator's cache, and captures the bucket's greedy loop.
+        a burst the bigger ones), at every ship length a tick may take:
+        nothing compiles, but the first run of a shape builds the kernels
+        (at first use), the libraries' handles and the allocator's cache,
+        and on a card captures the shape's program (the mel, the encoder,
+        the prefill and the loop in one graph, keyed by the bucket and the
+        ship length), so that a first request captures nothing.
 
-        With trim_upload the live ticks ship sub-bucket lengths; the
-        smallest (1/8 window, the short-utterance streaming case) is run
-        beside the full window."""
+        With trim_upload the live ticks ship the sub-bucket lengths of
+        ``_ship_len``: 1/8, 1/4, 1/2 and the whole window."""
         if batch:
             buckets = [batch]
         else:
@@ -173,8 +175,8 @@ class StreamingEngine:
                 buckets.append(b)
                 b <<= 1
         pad_len = self._short_limit + 2 * 200
-        lengths = ([pad_len // 8, pad_len] if self.cfg.trim_upload
-                   else [pad_len])
+        lengths = ([pad_len // 8, pad_len // 4, pad_len // 2, pad_len]
+                   if self.cfg.trim_upload else [pad_len])
         for n in buckets:
             for ship_len in lengths:
                 audio = np.zeros((n, ship_len), dtype=np.float32)

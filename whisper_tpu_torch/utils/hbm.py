@@ -7,9 +7,11 @@ priced before anything is allocated, and an operator can shrink
 ``max_batch`` while that is still cheap.
 
 Estimates cover the long-lived residents: parameters, KV caches (self and
-cross, floating point or int8) and encoder states.  Temporaries (attention
-scores, activations of one layer) are excluded: they are small next to the
-residents at decode shapes.  Treat the numbers as a tight lower bound and
+cross, floating point or int8) and encoder states; for a session whose
+decodes run as CUDA-graph programs, also the active program's memory pool
+(``program_pool_bytes``: the encoder's and the prefill's temporaries,
+which the graph keeps) and what the other programs may keep.  Other
+temporaries are excluded.  Treat the numbers as a tight lower bound and
 keep 5-10% headroom.
 """
 
@@ -98,7 +100,9 @@ def decode_footprint(dims: WhisperDims, batch: int, max_len: int,
                      shared_draft_params: bool = False,
                      shared_draft_encoder: bool = False,
                      cache_copies: float = 1.0, data_parallel: int = 1,
-                     tensor_parallel: int = 1) -> Dict[str, int]:
+                     tensor_parallel: int = 1,
+                     graph_pool: Optional[int] = None,
+                     graph_kept: Optional[int] = None) -> Dict[str, int]:
     """Resident-set breakdown (bytes) of a greedy or speculative decode:
     {'params', 'kv_cache', 'enc_states', 'draft_*', 'total'}.
 
@@ -108,10 +112,16 @@ def decode_footprint(dims: WhisperDims, batch: int, max_len: int,
     draft's decoder reads the main model's encoder states, so neither the
     draft's encoder weights nor a second set of encoder states is resident.
 
-    cache_copies multiplies the KV-cache terms.  It is 1.0 here: eager
-    PyTorch updates the caches in place and carries no second copy of them
-    (the JAX package passes 2.0 for the copies its compiled decode loop
-    holds).
+    cache_copies multiplies the KV-cache terms.  The port's callers pass
+    1.0: its eager loop updates the caches in place, and a graphed program
+    (``runtime.generate``) has its prefill write the key's static state in
+    place, so neither carries a second copy of them (the JAX package passes
+    2.0 for the copies its compiled decode loop holds).
+
+    graph_pool / graph_kept (a session whose decodes run as CUDA-graph
+    programs): the active program's memory pools, and the bytes the other
+    programs' keys may keep (``generate.GRAPH_MEMORY_SHARE`` of the card),
+    each a term of its own; absent (None), the breakdown has neither key.
 
     data_parallel / tensor_parallel: the footprint of one rank of a
     (data, model) mesh: its share of the batch's rows, its shard of the
@@ -140,8 +150,43 @@ def decode_footprint(dims: WhisperDims, batch: int, max_len: int,
             0 if shared_draft_encoder
             else batch * enc_len * draft_dims.d_model * kv_bytes
         )
+    if graph_pool is not None:
+        out["graph_pool"] = int(graph_pool)
+    if graph_kept is not None:
+        out["graph_kept"] = int(graph_kept)
     out["total"] = sum(out.values())
     return out
+
+
+def program_pool_bytes(dims: WhisperDims, batch: int, prompt_len: int = 4,
+                       enc_len: Optional[int] = None, *, act_bytes: int = 2,
+                       fused_attention: bool = True,
+                       draft_dims: Optional[WhisperDims] = None) -> int:
+    """An estimate of the memory pool one bucket program's graph keeps
+    (``runtime.generate``): the largest set of temporaries live at once in
+    its pre-node work, which the graph holds between launches.  In the
+    encoder, the stem (the mel at fp32 and two conv outputs, each [B, d,
+    2T]) or a block (four [B, T, d] activations, FC1's output and its GELU
+    [B, T, d_ffn], and without the fused attention the fp32 scores and
+    probabilities [B, H, T, T]); then the prefill's fp32 logits [B, P, V]
+    with one layer's cross K and V before their cache.  A draft with its
+    own encoder adds its blocks' set (the main states live beside it)."""
+    enc_len = dims.max_source_positions if enc_len is None else enc_len
+    b, t, ab = batch, enc_len, act_bytes
+
+    def encoder(d: WhisperDims) -> int:
+        stem = b * 2 * t * (4 * d.n_mels + 2 * ab * d.d_model)
+        block = b * t * ab * (4 * d.d_model + 2 * d.d_ffn)
+        if not fused_attention:
+            block += 2 * 4 * b * d.encoder_heads * t * t
+        return max(stem, block)
+
+    prefill = (4 * b * prompt_len * dims.vocab_size
+               + 2 * b * t * dims.d_model * ab)
+    total = max(encoder(dims), prefill)
+    if draft_dims is not None:
+        total += encoder(draft_dims) + b * t * dims.d_model * ab
+    return int(total)
 
 
 def device_hbm_budget(device=None) -> Optional[int]:
