@@ -26,11 +26,15 @@ What it does, in order (any failure raises and exits non-zero):
    (cuFFT) that computes the same function; B2 and B9a also at
    whisper-medium's d=1024), and the sampled pick of a decode step at T > 0
    (``ops.sampling``, no Pallas counterpart: a Philox Gumbel-max draw keyed
-   by the loop's state) at bucket 16 over whisper-base's 51,865 ids, its
-   ids, uniforms and scores bitwise the plain version's, beside the
-   composition ``exponential_`` ... ``argmax`` the loops ran before, prints the
-   largest difference, the time of one call of each (median of five runs
-   of 20 calls), the least time the card could take for the same work (the
+   by the loop's state, each row split across the card) at bucket 16 over
+   whisper-base's 51,865 ids, its ids, uniforms and scores bitwise the
+   plain version's, one kernel a call, its device µs a call from a graph of
+   128 picks at bucket 16 and 1, its bound the larger of its bytes and the
+   issue of the instructions the function needs (``pick_work_ms``; the
+   issue of its compiled loop, read from its SASS, printed beside), beside
+   the composition ``exponential_`` ... ``argmax`` the loops ran before,
+   prints the largest difference, the time of one call of each (median of
+   five runs of 20 calls), the least time the card could take for the same work (the
    larger of its bytes over 3.35 TB/s and its operations over the peak rate
    for their type) and, where one PyTorch call computes the same function,
    that call's time.  B1 (wgmma, scores in registers) is also held at
@@ -187,7 +191,9 @@ What it does, in order (any failure raises and exits non-zero):
    work it queued, one graph launch a call, and the sequential mode's
    windows running a bucket-1 graph with the grammar and ``pad_count``;
    (d) capture seconds a key and the peak device memory of an x5 session,
-   eager and graphed.  The main path, the ladder, the decoding options,
+   eager and graphed; (g) the while node's cost an iteration: a body of one
+   counting kernel under the node for 128 trips against a flat graph of
+   128 launches of it.  The main path, the ladder, the decoding options,
    the prompts, serving and the pipelined mode above all run graphed.
    (e) beams K = 4 at x5 and x4 (64 beam rows, B4 or B6), graphed and
    eager alternated: tokens bitwise, launches equal, e2e and model_s; at
@@ -311,7 +317,153 @@ def _bf16_steps(got, want) -> float:
     return float(((got - want).abs() / (scale * 2.0 ** -7)).max())
 
 
-def check_sass(lib_path) -> None:
+# Hopper's rates a clock on each SM, in thread instructions: its four
+# schedulers issue one warp instruction each; integer arithmetic has 64
+# lanes, the special-function unit (MUFU) and conversions 16, loads and
+# stores 32.  The clock is the one at which fp32's 67 TFLOP/s peak holds
+# (132 SMs x 128 lanes x 2 operations): 1.98 GHz.
+SMS = 132
+SM_LANES = {"issue": 128, "int": 64, "mufu": 16, "mem": 32}
+SM_CLOCK = PEAK_OPS["fp32"] / (2 * 128 * SMS)
+_INT_OPS = {"LOP3", "LOP", "SHF", "SHL", "SHR", "LEA", "SEL", "PRMT", "POPC",
+            "FLO", "BREV", "BMSK", "SGXT", "VIADD", "VIMNMX"}
+_MUFU_OPS = {"MUFU", "I2F", "F2I", "F2F", "I2I", "FRND", "I2FP", "F2IP"}
+_MEM_OPS = {"LDG", "STG", "LD", "ST", "LDS", "STS", "ATOM", "ATOMG", "RED",
+            "REDG"}
+
+
+def _sass_class(op: str) -> str:
+    """The pipe an instruction (its opcode) issues to beyond the
+    scheduler: "int", "mufu", "mem" or "other" (fp32 and moves, at the
+    issue rate)."""
+    base = op.split(".")[0]
+    if base in _MUFU_OPS:
+        return "mufu"
+    if base in _MEM_OPS:
+        return "mem"
+    if base in _INT_OPS or base.startswith("I"):
+        return "int"
+    return "other"
+
+
+def pick_loop_counts(sass: str) -> dict:
+    """The instructions of one group of four ids in the pick kernel as the
+    decode launches it (no draws written), read from its SASS: the loop
+    over groups is the backward branch that spans the most instructions;
+    its body's Philox multiplies by 0xD2511F53 (ten a group) say how many
+    groups one pass of it takes.  Returns {"issue", "int", "mufu", "mem"}
+    a group, "groups_a_pass" and the body's "opcodes" by count."""
+    import re
+
+    part = next((p for p in sass.split("Function : ")[1:]
+                 if "18gumbel_pick_kernelILb0E" in p.split("\n", 1)[0]),
+                None)
+    if part is None:
+        raise AssertionError("the pick kernel (no draws) is not in the SASS")
+    insts, labels, pending = [], {}, []
+    for line in part.splitlines():
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if m:
+            addr = int(m.group(1), 16)
+            for label in pending:
+                labels[label] = addr
+            pending = []
+            words = m.group(2).split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            if words:
+                insts.append((addr, words[0], m.group(2)))
+    loops = []
+    for addr, op, text in insts:
+        if op.split(".")[0] != "BRA":
+            continue
+        m = re.search(r"\((\.L_x_\d+)\)", text)
+        target = (labels.get(m.group(1)) if m else
+                  int(re.search(r"0x([0-9a-f]+)", text).group(1), 16))
+        if target is not None and target < addr:
+            loops.append((target, addr))
+    if not loops:
+        raise AssertionError("the pick kernel's SASS has no loop")
+    lo, hi = max(loops, key=lambda span: span[1] - span[0])
+    # a forward branch over a call skips the division's slow path (a
+    # divisor or quotient out of the fast path's range): not counted
+    skipped = set()
+    for addr, op, text in insts:
+        if lo <= addr <= hi and op.split(".")[0] == "BRA":
+            target = int(re.search(r"0x([0-9a-f]+)", text).group(1), 16)
+            over = [a for a, o, _ in insts if addr < a < target]
+            if addr < target <= hi and any(
+                    o.startswith("CALL") for a, o, _ in insts
+                    if addr < a < target):
+                skipped.update(over)
+    body = [(op, text) for addr, op, text in insts
+            if lo <= addr <= hi and op != "NOP" and addr not in skipped]
+    # each Philox round takes one product's high word by 0xD2511F53
+    philox = sum(1 for op, text in body
+                 if op in ("IMAD.HI.U32", "IMAD.WIDE.U32")
+                 and re.search(r"0xd2511f53|-0x2daee0ad", text.lower()))
+    per_pass = max(1, round(philox / 10))
+    counts = {"issue": 0, "int": 0, "mufu": 0, "mem": 0}
+    opcodes: dict = {}
+    for op, _ in body:
+        counts["issue"] += 1
+        kind = _sass_class(op)
+        if kind != "other":
+            counts[kind] += 1
+        opcodes[op] = opcodes.get(op, 0) + 1
+    out = {k: v / per_pass for k, v in counts.items()}
+    out.update(groups_a_pass=per_pass, philox_multiplies=philox,
+               opcodes=dict(sorted(opcodes.items(), key=lambda kv: -kv[1])))
+    return out
+
+
+def issue_ms(counts: dict, n: int = 1) -> float:
+    """The least time (ms) the card's SMs take to issue ``n`` times the
+    thread instructions ``counts`` holds by pipe (the keys of
+    ``SM_LANES``), each pipe at its rate."""
+    clocks = max(counts.get(k, 0) / SM_LANES[k] for k in SM_LANES)
+    return n * clocks / SMS / SM_CLOCK * 1e3
+
+
+# The work the sampled pick's function needs, in thread instructions by
+# pipe: what any kernel computing it must issue, not what the pick kernel
+# spends (no moves, branches or loop control; Philox's round keys, the
+# same for every group, made once).  A group of four ids: Philox4x32-10's
+# ten rounds, each two 32 x 32 -> 64-bit products and two three-input
+# xors.  An id whose logit is finite: the uniform (one shift-and-add, one
+# subtraction), two precise logf on their normal-range path (libdevice's:
+# three integer operations, one conversion, thirteen fp32), max(-log u,
+# FLT_MIN), the division's fast path by the launch's reciprocal of T (a
+# product and two fma), the subtraction, and the compare into the running
+# best (an fp32 compare, a float and an integer select): 8 integer, 2
+# conversions and 34 fp32.
+PICK_GROUP_WORK = {"issue": 40, "int": 40}
+PICK_ID_WORK = {"issue": 44, "int": 8, "mufu": 2}
+
+
+def pick_work_ms(logits) -> float:
+    """The least time (ms) the card takes to issue the sampled pick's work
+    (``PICK_ID_WORK``, ``PICK_GROUP_WORK``) on these logits: Philox for
+    each group of four ids that holds a finite logit, the draw and the
+    compare for each finite logit (a -inf logit's score is -inf whatever
+    its draw)."""
+    import torch
+
+    rows, vocab = logits.shape
+    finite = torch.isfinite(logits)
+    pad = torch.zeros(rows, -vocab % 4, dtype=torch.bool,
+                      device=logits.device)
+    groups = int(torch.cat([finite, pad], 1).view(rows, -1, 4).any(2).sum())
+    ids = int(finite.sum())
+    return issue_ms({k: groups * PICK_GROUP_WORK.get(k, 0)
+                     + ids * PICK_ID_WORK.get(k, 0) for k in SM_LANES})
+
+
+def check_sass(lib_path):
     """What the compiler made of the kernels built on Hopper's own
     instructions, read from the library with cuobjdump: the encoder
     attention kernel and the encoder MLP's products must hold warpgroup
@@ -322,7 +474,9 @@ def check_sass(lib_path) -> None:
     cp.async copies (LDGSTS), ldmatrix (LDSM) and bf16 mma.sync (HMMA), and
     of the fused attention blocks the LN-and-product kernel cp.async copies
     and fp64 mma.sync (DMMA), B10a's attention cp.async copies, B10b's bulk
-    copies and the O product cp.async, ldmatrix and bf16 mma.sync."""
+    copies and the O product cp.async, ldmatrix and bf16 mma.sync.
+    Returns the pick kernel's instructions a group of four ids
+    (``pick_loop_counts``), None without cuobjdump."""
     import re
     import shutil
     import subprocess
@@ -331,7 +485,7 @@ def check_sass(lib_path) -> None:
     if not os.path.isfile(tool):
         print("[sass] cuobjdump not found: instruction counts not read",
               flush=True)
-        return
+        return None
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True).stdout
     # the mangled names, with their lengths: no other kernel's name ends so
@@ -368,10 +522,19 @@ def check_sass(lib_path) -> None:
     if seen != set(want):
         raise AssertionError(f"kernels not found in the SASS: "
                              f"{sorted(set(want) - seen)}")
+    pick = pick_loop_counts(sass)
+    print(f"[sass] gumbel_pick_kernel: a group of four ids "
+          f"{pick['issue']:g} instructions ({pick['int']:g} integer, "
+          f"{pick['mufu']:g} MUFU and conversions, {pick['mem']:g} loads and "
+          f"stores), {pick['groups_a_pass']} group(s) a pass of its loop; "
+          f"the loop's opcodes {pick['opcodes']}", flush=True)
+    return pick
 
 
-def check_kernels(card: str) -> list:
-    """Each kernel against its plain version at its path's shapes."""
+def check_kernels(card: str, pick_sass) -> list:
+    """Each kernel against its plain version at its path's shapes;
+    pick_sass: the pick kernel's instructions a group (``check_sass``, None
+    without cuobjdump), whose issue time is printed beside its bound."""
     import numpy as np
     import torch
 
@@ -644,14 +807,20 @@ def check_kernels(card: str) -> list:
                  sampling.generator_key(
                      torch.Generator(device=dev).manual_seed(3), dev),
                  torch.full((1,), 7, dtype=torch.int64, device=dev))
+    pick_ws = sampling.pick_workspace(b, dev)   # as a decode's state holds
     rows.append(("gumbel_pick", (sampling, "launches"), "gumbel_pick.cu",
                  "none: whisper_tpu/runtime/generate.py:97 (pick draws with "
                  "jax.random.categorical)",
-                 lambda: sampling.gumbel_pick(*pick_args),
+                 lambda: sampling.gumbel_pick(*pick_args, workspace=pick_ws),
                  lambda: sampling.gumbel_pick_plain(*pick_args), 0.0))
-    # the logits read once, the ids written; Philox's integer work is far
-    # under the card's rate
-    work["gumbel_pick"] = (b * vocab * 4 + b * 8, 0, "fp32")
+    # the logits read once, the ids written; against the instructions the
+    # function needs (``pick_work_ms``)
+    pick_bytes = b * vocab * 4 + b * 8
+    pick_work = pick_work_ms(pick_logits)
+    pick_bytes_ms = _bound(pick_bytes, 0, "fp32")[0]
+    bound_of = {"gumbel_pick": (max(pick_bytes_ms, pick_work),
+                                "bytes" if pick_bytes_ms >= pick_work
+                                else "operations")}
 
     # What a launch through the library's C interface costs when the kernel
     # does nothing: the floor under every kernel whose bound is microseconds.
@@ -697,7 +866,7 @@ def check_kernels(card: str) -> list:
                                      "scores are not bitwise the plain "
                                      "version's")
         ms, plain_ms = _median_ms(kern), _median_ms(plain)
-        bound_ms, bound_by = _bound(*work[name])
+        bound_ms, bound_by = bound_of.get(name) or _bound(*work[name])
         library_ms = _median_ms(library[name]) if name in library else None
         print(f"[kernel] {name}: max_abs_err {err:.3g} ({steps:.3g} {unit}, "
               f"tolerance {tol}); {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
@@ -723,12 +892,33 @@ def check_kernels(card: str) -> list:
           f"add; no one call computes B10c) {comp_ms:.4f} ms on {card}",
           flush=True)
     comp_ms = _median_ms(lambda: _pick_composition(*pick_args[:2]))
-    by_name["gumbel_pick"]["composition_ms"] = comp_ms
-    print(f"[kernel] the sampled pick at bucket 16, V = {vocab}: ids, "
-          f"uniforms and scores bitwise the plain version's; "
-          f"{by_name['gumbel_pick']['ms']:.4f} ms against the composition "
-          f"exponential_, clamp_min_, log, div, sub, argmax (no one call "
-          f"samples from logits) {comp_ms:.4f} ms on {card}", flush=True)
+    pick = by_name["gumbel_pick"]
+    pick["composition_ms"] = comp_ms
+    pick.update(check_pick_in_graphs(pick_args, pick_ws))
+    ops = _device_ops_per_call(
+        lambda: sampling.gumbel_pick(*pick_args, workspace=pick_ws))
+    if ops != 1:
+        raise AssertionError(f"gumbel_pick: {ops} device operations a call, "
+                             "expected its one kernel")
+    groups = b * -(-vocab // 4)
+    pick["sass_issue_ms"] = (issue_ms(pick_sass, groups) if pick_sass
+                             else None)
+    print(f"[kernel] the sampled pick at bucket {b}, V = {vocab}: ids, "
+          f"uniforms and scores bitwise the plain version's, one kernel a "
+          f"call; the wrapper {pick['ms']:.4f} ms a call (host-bound), in a "
+          f"graph of 128 picks {pick['device_us']:.3f} µs a call on the "
+          f"card, at bucket 1 {pick['device_us_bucket1']:.3f} µs; bound "
+          f"{pick['bound_ms'] * 1e3:.3f} µs by {pick['bound_by']} (bytes "
+          f"{pick_bytes_ms * 1e3:.3f} µs, the function's instructions "
+          f"{pick_work * 1e3:.3f} µs); the kernel's own loop, {groups} "
+          f"groups of four ids at "
+          + (f"{pick_sass['issue']:g} instructions a group from its SASS "
+             f"({pick_sass['int']:g} integer, {pick_sass['mufu']:g} MUFU and "
+             f"conversions), issues in {pick['sass_issue_ms'] * 1e3:.3f} µs"
+             if pick_sass else "not read (no cuobjdump)")
+          + f"; the composition exponential_, clamp_min_, log, div, sub, "
+          f"argmax (no one call samples from logits) {comp_ms:.4f} ms; "
+          f"on {card}", flush=True)
     check_b1_b4_edges(card, by_name, randn, q.shape, (qx, k8, v8, ks, vs))
     check_b6_edges(card, by_name, randn, (qx, k8, v8, ks, vs), qm)
     check_b2_b3_edges(card, by_name, randn, mlp_args, med_args,
@@ -841,6 +1031,60 @@ def check_kernels(card: str) -> list:
           f"{by_name['decoder_self_block']['device_ops_per_call']:g}, B10b "
           f"{by_name['decoder_cross_block']['device_ops_per_call']:g}",
           flush=True)
+    return out
+
+
+def _graph_us(fn, calls: int = 128, runs: int = 5) -> float:
+    """Device µs a call of ``fn``: ``calls`` calls captured in one CUDA
+    graph, the replay timed with CUDA events, the median of ``runs``."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) * 1e3 / calls)
+    return statistics.median(times)
+
+
+def check_pick_in_graphs(pick_args, pick_ws) -> dict:
+    """The pick's device µs a call from a graph of 128 picks, at the path's
+    bucket and at bucket 1; every replayed id bitwise the plain
+    version's."""
+    import torch
+
+    from whisper_tpu_torch.ops import sampling
+
+    logits, temp, key, step = pick_args
+    out = {}
+    for label, rows in (("", logits.shape[0]), ("_bucket1", 1)):
+        args = (logits[:rows].contiguous(), temp, key, step)
+        ws = pick_ws[:rows].contiguous()
+        got = {}
+
+        def pick():
+            got["tok"] = sampling.gumbel_pick(*args, workspace=ws)
+
+        out["device_us" + label] = _graph_us(pick)
+        torch.cuda.synchronize()
+        if not torch.equal(got["tok"], sampling.gumbel_pick_plain(*args)):
+            raise AssertionError(f"gumbel_pick ({rows} rows): a replayed id "
+                                 "differs from the plain version's")
     return out
 
 
@@ -2383,7 +2627,97 @@ def check_graph(card: str, results, params, dims, audio, x5,
                       for label, n, m, c, pl in stages)
           + f"; budget {_budget(torch.device('cuda', 0)) * gib:.4f} GiB; "
           f"[graph] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    check_while_node(card)
     return sampled_counts
+
+
+def check_while_node(card: str, trips: int = 128, rows: int = 16) -> dict:
+    """(g) What the decode loops' while node costs an iteration: one graph
+    whose while node (``runtime.generate._while_node``, on "``trips`` < 128
+    and some of 16 rows undone", the rows never done) runs a body of one
+    kernel that adds one to the counter (``wt_launch_count``), against one
+    flat graph of 128 launches of that kernel and one of 128 empty kernels
+    (``wt_launch_floor``); each replay after a reset of the counter, CUDA
+    events around 20 replays, the median of 5, in turns.  The difference a
+    trip is the node and its condition kernel (``set_condition_kernel``,
+    ``csrc/graph_cond.cu``), whose bound is its bytes: the rows' bools and
+    the 8-byte counter read."""
+    import torch
+
+    from whisper_tpu_torch.ops import kernels
+    from whisper_tpu_torch.runtime.generate import _while_node
+
+    lib = kernels.library()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    done = torch.zeros(rows, dtype=torch.bool, device=dev)
+
+    def bump():
+        kernels.check(lib.wt_launch_count(count.data_ptr(),
+                                          kernels.stream_ptr(dev)),
+                      "launch_count")
+
+    def empty():
+        kernels.check(lib.wt_launch_floor(kernels.stream_ptr(dev)),
+                      "launch_floor")
+
+    side, body = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    graphs = {}
+    with torch.cuda.stream(side):
+        bump()
+        empty()
+        for name, fn in (("flat count", bump), ("flat empty", empty)):
+            graphs[name] = torch.cuda.CUDAGraph()
+            graphs[name].capture_begin(capture_error_mode="thread_local")
+            for _ in range(trips):
+                fn()
+            graphs[name].capture_end()
+        graph = graphs["while"] = torch.cuda.CUDAGraph()
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            with _while_node(graph, done, count, trips, body):
+                bump()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream(dev).wait_stream(side)
+
+    def replay_ms(graph_):
+        times = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(20):
+                count.zero_()
+                graph_.replay()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / 20)
+        return statistics.median(times)
+
+    for g_ in graphs.values():       # the first launch uploads the graph
+        count.zero_()
+        g_.replay()
+    torch.cuda.synchronize()
+    if int(count) != trips:
+        raise AssertionError(f"(g) the while node ran {int(count)} trips, "
+                             f"expected {trips}")
+    ms = {name: [] for name in graphs}
+    for name in [*graphs, *reversed(graphs)]:
+        ms[name].append(replay_ms(graphs[name]))
+    us = {name: statistics.mean(v) * 1e3 / trips for name, v in ms.items()}
+    node_us = us["while"] - us["flat count"]
+    bound_us = _bound(rows + 8, 0, "fp32")[0] * 1e3
+    print(f"[graph] (g) the while node, on {card}: a trip of a body of one "
+          f"counting kernel {us['while']:.3f} µs against "
+          f"{us['flat count']:.3f} µs a launch of that kernel in a flat graph "
+          f"of {trips} (an empty kernel's {us['flat empty']:.3f}): the node "
+          f"and its condition kernel {node_us:.3f} µs an iteration; the "
+          f"condition's bound {bound_us:.6f} µs by bytes ({rows} bools and "
+          f"the 8-byte counter); {trips} trips a launch", flush=True)
+    return {"while_us": us["while"], "flat_us": us["flat count"],
+            "node_us": node_us, "bound_us": bound_us}
 
 
 def _alternated(results, fns: dict, rounds: int):
@@ -4940,9 +5274,9 @@ def main() -> None:
         for line in log.read_text().splitlines():
             if "Used" in line or "spill" in line:
                 print(f"[ptxas] {line.strip()}", flush=True)
-    check_sass(lib)
+    pick_sass = check_sass(lib)
 
-    results = check_kernels(card)
+    results = check_kernels(card, pick_sass)
 
     dims = get_dims(MODEL_ID)
     params = init_params(dims, seed=0)

@@ -81,24 +81,43 @@ def _device_ops(call, calls=3, traces=3):
     return ops
 
 
-def _device_events(call, traces=3) -> int:
+def _device_events(call, traces=4):
     """The device operations (kernels, copies, fills) one call of ``call``
-    puts on the card, by torch.profiler: the largest total over ``traces``
-    traces, whatever they are named."""
+    puts on the card, by torch.profiler, whatever they are named: (the
+    largest total over ``traces`` traces; every trace's total).  For eager
+    work: late in a long process traces of a graph miss most of the
+    graph's kernels, so a graph's operations are read from its nodes
+    instead (``_GraphLoop.body_ops``).  A trace now and then holds fewer
+    events than the call put there, never more: its first few operations
+    go unrecorded (a trace of an eager decode of 24 tokens missed one or
+    two of its first fills in 3 of 8 traces, and the same loss in every
+    trace of a call once left the largest of five totals 1-3 short).  So
+    each trace opens with 32 launches of the library's empty kernel
+    (``wt_launch_floor``), not counted, which take the place of the
+    operations a trace's start loses, and the largest total is the
+    call's."""
     from torch.profiler import ProfilerActivity, profile
 
+    from whisper_tpu_torch.ops import kernels
+
+    lib = kernels.library()
+    stream = kernels.stream_ptr(torch.device("cuda"))
     call()
     torch.cuda.synchronize()
     totals = []
     for _ in range(traces):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(32):
+                kernels.check(lib.wt_launch_floor(stream), "launch_floor")
+            torch.cuda.synchronize()
             call()
             torch.cuda.synchronize()
         totals.append(sum(
             e.count for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA))
-    return max(totals)
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "empty_kernel" not in e.key))
+    return max(totals), totals
 
 
 @pytest.mark.parametrize("bh", [(2, 3), (16, 8)])
@@ -1553,15 +1572,18 @@ def test_graphed_loop_is_bitwise_the_eager_loop(gen, rung, case):
     bitwise, the launch counters equal (the graph's settled), one graph
     launch a call; under torch.profiler each step kernel's eager launches
     are its counter's (``_device_ops``), the while node's condition kernel
-    ahead of the node is traced, and a step puts on the card what an eager
-    step does less one operation (``_device_events``): the step's
+    ahead of the node is traced, and an iteration of the while node puts
+    on the card what an eager step does less one operation: the step's
     operations, and the condition's kernel at the end of the iteration in
     place of the eager loop's read of ``done`` (a reduction and a copy to
-    the host).  The graphed trace is held by its totals: torch.profiler
-    misnames a conditional body's kernels (B3 for B8 at x7; with the
-    grammar or scores no B3 at all; the condition kernel of one iteration
-    under another kernel's name) and shows the body's copies as kernels,
-    so the names of what runs in the body are not held."""
+    the host).  The eager step's operations are the profiler's
+    (``_device_events``); an iteration's are the body graph's kernel, copy
+    and fill nodes (``_GraphLoop.body_ops``), which no dropped event can
+    change.  Those are held by their number: torch.profiler misnames a
+    conditional body's kernels (B3 for B8 at x7; with the grammar or
+    scores no B3 at all; the condition kernel of one iteration under
+    another kernel's name) and shows the body's copies as kernels, so the
+    names of what runs in the body are not held."""
     from whisper_tpu_torch.runtime.generate import (
         DecodeGraphs,
         greedy_generate,
@@ -1607,16 +1629,24 @@ def test_graphed_loop_is_bitwise_the_eager_loop(gen, rung, case):
     toks = want[0] if kw.get("return_logprobs") else want
     assert not (toks == 251).any()      # no row ends: 23 steps each
     assert (counts[True][0][6] > 0) == (case == "sampled")   # the pick
-    # 24 tokens against 12: twelve steps (iterations) more, what a call
-    # does outside its loop the same.  Both keys captured anew, after the
-    # profiler's first session: a program captured before it traced 439 of
-    # its 4,069 operations (x4, NVIDIA H100 80GB HBM3), one captured after
-    # it all of them
-    graphs = DecodeGraphs(tree)
-    more = {e: _device_events(lambda e=e: run(e), traces=5)
-            - _device_events(lambda e=e: run(e, 12), traces=5)
-            for e in (True, False)}
-    assert more[False] == more[True] - 12, more
+    # 24 tokens against 12: twelve steps more, what a call does outside its
+    # loop the same; every key's body (24 and 12 tokens) an eager step less
+    # the read of ``done``
+    run(False, 12)
+    body_ops = {k: loop.body_ops for k, loop in graphs._loops.items()}
+    counted = {n: _device_events(lambda n=n: run(True, n)) for n in (24, 12)}
+    more = counted[24][0] - counted[12][0]
+    if any(12 * ops != more - 12 for ops in body_ops.values()):
+        # what differs, by name: the eager run's operations, 24 less 12
+        ops24, ops12 = (_device_ops(lambda n=n: run(True, n), calls=1)
+                        for n in (24, 12))
+        by_name = {k: ops24.get(k, 0) - ops12.get(k, 0)
+                   for k in set(ops24) | set(ops12)
+                   if ops24.get(k, 0) != ops12.get(k, 0)}
+        raise AssertionError(f"an iteration's operations {body_ops}, the "
+                             f"eager loop's at 24 tokens less 12: {more} "
+                             f"(want 12 iterations, each an eager step less "
+                             f"one): {counted}; eager by name {by_name}")
 
 
 def test_graphed_sampling_repeats_per_seed(gen):
@@ -2331,17 +2361,25 @@ def test_a_body_that_draws_from_a_torch_generator_raises(gen, monkeypatch,
     assert torch.equal(got, run(eager=True))
 
 
-@pytest.mark.parametrize("b,v,row0,t", [(16, 51865, 0, 0.5),
-                                        (16, 51865, 0, 1.0),
-                                        (1, 51865, 7, 0.2), (3, 320, 0, 1.3),
-                                        (5, 4097, 11, 0.7)])
+# (rows, vocabulary, row0, T): the main path's shapes, then every
+# vocabulary that ends a row on each remainder mod 4 at 1, 16 and 64 rows
+PICK_CASES = [(16, 51865, 0, 0.5), (16, 51865, 0, 1.0), (1, 51865, 7, 0.2),
+              (3, 320, 0, 1.3), (5, 4097, 11, 0.7)] + [
+    (b, v, 13 if b == 16 else 0, 0.9)
+    for v in (1, 3, 4, 5, 4097, 51864, 51865, 51866) for b in (1, 16, 64)]
+
+
+@pytest.mark.parametrize("b,v,row0,t", PICK_CASES)
 def test_pick_kernel_is_bitwise_its_plain_version(gen, b, v, row0, t):
     """The uniforms, the scores and the ids of the kernel equal the plain
     version's bit for bit, with suppressed ids (-inf) never drawn, at two
     steps and under the key of a generator that has been used (offset >
-    0); two calls equal; one launch a call."""
+    0); two calls equal; one launch a call.  Each row is split across
+    blocks (one at the smallest vocabularies), so this holds the merge of
+    the blocks' bests too, and a row's last group of 1-3 ids."""
     logits = torch.randn(b, v, generator=gen, device="cuda") * 3.0
-    logits[:, ::9] = float("-inf")
+    if v > 1:
+        logits[:, ::9] = float("-inf")
     temp = torch.full((1,), t, device="cuda")
     used = torch.Generator(device="cuda").manual_seed(2**63 + 5)
     torch.rand(1000, generator=used, device="cuda")
@@ -2379,6 +2417,154 @@ def test_pick_wrapper_refuses_what_the_kernel_does_not_take(gen):
                 (logits, temp, key, step.cpu())):
         with pytest.raises(ValueError):
             sampling.gumbel_pick(*bad)
+    ws = sampling.pick_workspace(4, "cuda")
+    for bad_ws in (ws[:3], ws.int(), ws.cpu(), ws.t(),
+                   sampling.pick_workspace(4, "cuda")[:, :1]):
+        with pytest.raises(ValueError, match="workspace"):
+            sampling.gumbel_pick(logits, temp, key, step, workspace=bad_ws)
+
+
+def _pick_blocks(rows, vocab):
+    """The ids each block of the pick takes (4 x its groups)."""
+    from whisper_tpu_torch.ops import kernels
+
+    return 4 * kernels.library().wt_gumbel_pick_groups_per_block(rows, vocab)
+
+
+def test_pick_merges_the_blocks_bests_as_torch_argmax(gen):
+    """Bucket 16 over 51,865 ids, each row split across blocks, with what
+    the merge across blocks must order as ``torch.argmax`` does: an equal
+    largest score in two blocks (2^30 at T = 1: every score there rounds to
+    exactly 2^30), the higher id's block first or last; a NaN in the last
+    block; NaNs in two blocks; a NaN beside +inf; one id left of a -inf
+    row; a row all -inf; +inf in two blocks.  Ids, uniforms and scores
+    bitwise the plain version's, each row's id the one expected, and the
+    workspace left zero."""
+    b, v = 16, 51865
+    per = _pick_blocks(b, v)
+    assert 3 * per < v - 3, "too few blocks a row to plant in"
+    big, inf, nan = 2.0 ** 30, float("inf"), float("nan")
+    # row: (-inf everywhere first?, {id: logit}, the id expected)
+    plants = [(False, {per + 5: big, 3 * per + 1: big}, per + 5),
+              (False, {2: big, v - 2: big}, 2),
+              (False, {v - 3: nan}, v - 3),
+              (False, {per + 9: nan, 2 * per: nan}, per + 9),
+              (False, {1: inf, v - 1: nan}, v - 1),
+              (True, {2 * per + 17: 0.5}, 2 * per + 17),
+              (True, {}, 0),
+              (False, {v - 1: inf, per: inf}, per)]
+    logits = torch.randn(b, v, generator=gen, device="cuda") * 3.0
+    for r, (masked, ids, _) in enumerate(plants):
+        if masked:
+            logits[r] = -inf
+        for i, x in ids.items():
+            logits[r, i] = x
+    temp = torch.ones(1, device="cuda")
+    key = sampling.generator_key(
+        torch.Generator(device="cuda").manual_seed(9), "cuda")
+    ws = sampling.pick_workspace(b, "cuda")
+    for s_ in (0, 41):
+        step = torch.full((1,), s_, dtype=torch.int64, device="cuda")
+        tok, u, sc = sampling.gumbel_pick(logits, temp, key, step,
+                                          with_draws=True, workspace=ws)
+        pu, ps = sampling.gumbel_scores_plain(logits, temp, key, step)
+        torch.cuda.synchronize()
+        # bit for bit, the NaNs' too (torch.equal holds no NaN equal)
+        assert torch.equal(u, pu)
+        assert torch.equal(sc.view(torch.int32), ps.view(torch.int32))
+        assert torch.equal(tok, torch.argmax(ps, -1))
+        assert torch.equal(tok, sampling.gumbel_pick(logits, temp, key, step,
+                                                     workspace=ws))
+        for r, (_, ids, want) in enumerate(plants):
+            assert int(tok[r]) == want, (r, int(tok[r]), want)
+            if r < 2:                           # the tie is a tie
+                assert all(sc[r, i] == big for i in ids)
+        assert not ws.any()
+
+
+def test_pick_in_a_while_node_resets_its_tickets(gen):
+    """128 iterations of one CUDA-graph while node whose body picks at the
+    loop's step (``runtime.generate._while_node``), launched twice: every
+    iteration's ids bitwise the plain version's at that step, so every
+    launch of the kernel found its slots and tickets zero, and the
+    workspace is zero after each launch of the graph."""
+    from whisper_tpu_torch.runtime.generate import _while_node
+
+    b, v, n = 16, 51865, 128
+    logits = torch.randn(b, v, generator=gen, device="cuda") * 3.0
+    logits[:, ::9] = float("-inf")
+    temp = torch.full((1,), 0.8, device="cuda")
+    key = sampling.generator_key(
+        torch.Generator(device="cuda").manual_seed(4), "cuda")
+    step = torch.zeros(1, dtype=torch.int64, device="cuda")
+    done = torch.zeros(b, dtype=torch.bool, device="cuda")
+    buf = torch.full((b, n), -1, dtype=torch.int64, device="cuda")
+    ws = sampling.pick_workspace(b, "cuda")
+
+    def body():
+        tok = sampling.gumbel_pick(logits, temp, key, step, workspace=ws)
+        buf.index_copy_(1, step, tok[:, None])
+        step.add_(1)
+
+    main = torch.cuda.current_stream()
+    side, inner = torch.cuda.Stream(), torch.cuda.Stream()
+    side.wait_stream(main)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        body()                          # warm: the library loaded
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            with _while_node(graph, done, step, n, inner):
+                body()
+        finally:
+            graph.capture_end()
+    main.wait_stream(side)
+    for _ in range(2):
+        step.zero_()
+        buf.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert int(step) == n
+        assert not ws.any()
+        for i in range(n):
+            at = torch.full((1,), i, dtype=torch.int64, device="cuda")
+            assert torch.equal(buf[:, i], sampling.gumbel_pick_plain(
+                logits, temp, key, at)), i
+
+
+def test_pick_on_two_streams_at_once(gen):
+    """Two streams, each with its own logits and workspace, held back by a
+    sleep so that their picks queue up and then run at the same time: 20
+    picks each at steps of their own, every id bitwise the plain
+    version's."""
+    b, v, n = 16, 51865, 20
+    temp = torch.full((1,), 0.6, device="cuda")
+    key = sampling.generator_key(
+        torch.Generator(device="cuda").manual_seed(5), "cuda")
+    lanes = []
+    for _ in range(2):
+        lanes.append((torch.cuda.Stream(),
+                      torch.randn(b, v, generator=gen, device="cuda") * 3.0,
+                      sampling.pick_workspace(b, "cuda"),
+                      [torch.full((1,), i, dtype=torch.int64, device="cuda")
+                       for i in range(n)]))
+    main = torch.cuda.current_stream()
+    for stream, *_ in lanes:
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream):
+            torch.cuda._sleep(2_000_000)
+    got = [[], []]
+    for i in range(n):
+        for k, (stream, logits, ws, steps) in enumerate(lanes):
+            with torch.cuda.stream(stream):
+                got[k].append(sampling.gumbel_pick(logits, temp, key,
+                                                   steps[i], workspace=ws))
+    torch.cuda.synchronize()
+    for k, (_, logits, ws, steps) in enumerate(lanes):
+        assert not ws.any()
+        for i in range(n):
+            assert torch.equal(got[k][i], sampling.gumbel_pick_plain(
+                logits, temp, key, steps[i])), (k, i)
 
 
 # ---------------------------------------------------------------------------

@@ -550,7 +550,8 @@ def test_every_csrc_file_is_named_for_the_build():
     ("B7-i8", "cross_attention_multi.cu"), ("B10c", "decoder_mlp.cu"),
     ("B10a", "decoder_self_block.cu"), ("B10b", "decoder_cross_block.cu"),
     ("B9a", "encoder_block.cu"), ("B9b", "encoder_block.cu"),
-    ("B8", "self_attention_int8.cu"), ("B5", "log_mel.cu")])
+    ("B8", "self_attention_int8.cu"), ("B5", "log_mel.cu"),
+    ("pick", "gumbel_pick.cu")])
 def test_kernel_variants_cut_the_sources_as_they_are(kernel, source):
     """``kernel_variants`` makes its timed variants by replacing text of the
     CUDA sources; every replacement must still find its text, and each
@@ -570,7 +571,8 @@ def test_kernel_variants_cut_the_sources_as_they_are(kernel, source):
                   "B9a": (kv.b9_source, kv.B9_VARIANTS),
                   "B9b": (kv.b9_source, kv.B9_VARIANTS),
                   "B8": (kv.b8_source, kv.B8_VARIANTS),
-                  "B5": (kv.b5_source, kv.B5_VARIANTS)}[kernel]
+                  "B5": (kv.b5_source, kv.B5_VARIANTS),
+                  "pick": (kv.pick_source, kv.PICK_VARIANTS)}[kernel]
     text = (kernels.CSRC / source).read_text()
     variants = {name: cut(text, name) for name in names}
     assert variants["as_built"].count("WT_EXPORT") == text.count("WT_EXPORT")

@@ -251,6 +251,36 @@ def test_the_loops_draws_are_the_keys_draws_at_each_step(monkeypatch):
     assert not torch.equal(a, run(22))
 
 
+def test_the_loops_picks_share_the_states_zeroed_workspace(monkeypatch):
+    """Every pick of one decode gets the workspace its loop's state carries
+    (``LoopState.pick_ws``): one [B, 2] int64 tensor of zeros, made with
+    the state, the same at every step; a greedy decode (T = 0) has none."""
+    enc, _, tp = _model(5)
+    mask = torch.from_numpy(build_suppress_mask(DIMS.vocab_size, [EOT]))
+    seen = []
+    real = sampling.gumbel_pick
+
+    def spy(logits, temperature, key, step, row0=0, **kw):
+        seen.append(kw.get("workspace"))
+        return real(logits, temperature, key, step, row0, **kw)
+
+    monkeypatch.setattr(sampling, "gumbel_pick", spy)
+
+    def run(t):
+        return greedy_generate(
+            tp, DIMS, torch.from_numpy(enc), torch.tensor(PROMPT), mask,
+            mask, 6, EOT, temperature=t,
+            generator=torch.Generator().manual_seed(3))
+
+    run(0.7)
+    assert len(seen) == 6
+    ws = seen[0]
+    assert ws.dtype == torch.int64 and tuple(ws.shape) == (enc.shape[0], 2)
+    assert all(w is ws for w in seen) and not ws.any()
+    run(0.0)
+    assert len(seen) == 6
+
+
 @pytest.mark.parametrize("op", [
     lambda x: torch.rand(3),
     lambda x: torch.empty(3).exponential_(),

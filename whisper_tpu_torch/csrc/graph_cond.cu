@@ -22,6 +22,8 @@
 
 #include <cuda_runtime.h>
 
+#include <vector>
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -52,6 +54,31 @@ cudaError_t capture_info(cudaStream_t s, cudaGraph_t* graph,
   return e;
 }
 
+// Adds to *ops the kernel, copy and fill nodes of graph g and of its child
+// graphs; *ops becomes -1 at a conditional node.
+cudaError_t work_nodes(cudaGraph_t g, long long* ops) {
+  size_t n = 0;
+  cudaError_t e = cudaGraphGetNodes(g, nullptr, &n);
+  if (e != cudaSuccess) return e;
+  std::vector<cudaGraphNode_t> nodes(n);
+  if (n > 0) e = cudaGraphGetNodes(g, nodes.data(), &n);
+  for (size_t i = 0; i < n && e == cudaSuccess && *ops >= 0; ++i) {
+    cudaGraphNodeType type;
+    e = cudaGraphNodeGetType(nodes[i], &type);
+    if (e != cudaSuccess) break;
+    if (type == cudaGraphNodeTypeKernel || type == cudaGraphNodeTypeMemcpy ||
+        type == cudaGraphNodeTypeMemset) {
+      ++*ops;
+    } else if (type == cudaGraphNodeTypeGraph) {
+      cudaGraph_t child;
+      e = cudaGraphChildGraphNodeGetGraph(nodes[i], &child);
+      if (e == cudaSuccess) e = work_nodes(child, ops);
+    } else if (type == cudaGraphNodeTypeConditional) {
+      *ops = -1;
+    }
+  }
+  return e;
+}
 }  // namespace
 
 // done [n_done] bools and trips [1] int64 on the card; handle: where the
@@ -101,15 +128,21 @@ extern "C" int wt_while_node_begin(const bool* done, int n_done,
 
 // The body's last node, the condition for the next iteration, then the end
 // of the body's capture (ended whatever the launch returned, so that the
-// body stream stops capturing).
+// body stream stops capturing).  body_ops (or null): where the body's
+// device operations are written, its kernel, copy and fill nodes (those of
+// child graphs included), what one iteration puts on the card; -1 if it
+// holds a conditional node, whose work the graph alone does not fix.
 extern "C" int wt_while_node_end(unsigned long long handle, const bool* done,
                                  int n_done, const long long* trips,
-                                 long long bound, void* body) {
+                                 long long bound, void* body,
+                                 long long* body_ops) {
   cudaStream_t bs = static_cast<cudaStream_t>(body);
   set_condition_kernel<<<1, kThreads, 0, bs>>>(handle, done, n_done, trips,
                                                bound);
   cudaError_t launch = cudaGetLastError();
   cudaGraph_t graph;
   cudaError_t e = cudaStreamEndCapture(bs, &graph);
-  return launch != cudaSuccess ? launch : e;
+  if (launch != cudaSuccess) return launch;
+  if (e == cudaSuccess && body_ops != nullptr) e = work_nodes(graph, body_ops);
+  return e;
 }

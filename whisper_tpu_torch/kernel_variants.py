@@ -167,6 +167,28 @@ bucket 16, eagerly and in a CUDA graph of 20 calls:
 - ``ln_only``: the LayerNorm kernels alone;
 - ``no_oproj``: B9b without its O product.
 
+**The sampled pick** (each row split across the card; no Pallas
+counterpart).  Builds ``csrc/gumbel_pick.cu`` as it is and in variants,
+and times one call at bucket 16 and at bucket 1 over whisper-base's 51,865
+ids, in a CUDA graph of 128 calls (in turns, forward and back):
+
+- ``unroll_2``: the loop over a thread's groups unrolled twice, two
+  groups' chains side by side;
+- ``threads_256``: blocks of 256 threads, half as many an SM;
+- ``one_group_a_thread``: twice the threads, so that each walks one group
+  at bucket 16;
+- ``no_merge``: every block writes its best as the row's id (no slot, no
+  ticket; the id is then wrong);
+- ``no_draw``: the loads, the reductions and the merge, each group's four
+  logits compared as they are in place of the draw (what the launch, the
+  loads and the merge cost).
+
+``--pick-earlier FILE`` times, beside them and in the same turns, an
+earlier pick kernel: a source with the C interface of the one-block-a-row
+kernel, ``wt_gumbel_pick`` without the workspace (as ``git show
+<commit>:whisper_tpu_torch/csrc/gumbel_pick.cu`` prints it for the commits
+before the split), as ``earlier``.
+
 Prints one JSON line for each kernel with the card's name and power limit.
 It needs a CUDA card and nvcc and raises without them.
 """
@@ -177,6 +199,7 @@ import argparse
 import ctypes
 import json
 import subprocess
+from pathlib import Path
 
 B1_VARIANTS = ("as_built", "no_ex2", "no_mma", "neither", "no_load",
             "two_consumers")
@@ -627,6 +650,41 @@ def b10_source(text: str, name: str) -> str:
         if cut == "no_exchange":
             text = _swap(text, _B10_EXCHANGE,
                          "    red[(rank * BLK_RT + r) * CR + c % CR] = z;\n")
+    return text
+
+
+PICK_VARIANTS = ("as_built", "unroll_2", "threads_256", "one_group_a_thread",
+                 "no_merge", "no_draw")
+_PICK_LOOP = "#pragma unroll 1\n  for (; g < stop; g += kThreads) {"
+_PICK_MERGE = """  fold_max(slot, pack(best, best_id));
+  if (take_ticket(slot + 1) == gridDim.x - 1) {
+    unsigned long long won = atomicExch(slot, 0ull);
+    slot[1] = 0;   // every block has taken its ticket
+    tok[r] = (int)~(unsigned)won;
+  }"""
+
+
+def pick_source(text: str, name: str) -> str:
+    """``gumbel_pick.cu``'s text cut into the named variant."""
+    if name == "unroll_2":
+        text = _swap(text, _PICK_LOOP,
+                     _PICK_LOOP.replace("unroll 1", "unroll 2"))
+    if name == "threads_256":
+        text = _swap(text, "constexpr int kThreads = 128;\n"
+                     "constexpr int kBlocksPerSM = 8;",
+                     "constexpr int kThreads = 256;\n"
+                     "constexpr int kBlocksPerSM = 4;")
+    if name == "one_group_a_thread":
+        text = _swap(text, "(long long)sm_count() * kBlocksPerSM * kThreads",
+                     "(long long)sm_count() * 2 * kBlocksPerSM * kThreads")
+    if name == "no_merge":
+        text = _swap(text, _PICK_MERGE, "  tok[r] = best_id;")
+    if name == "no_draw":
+        text = _swap(text, "    visit<kDraws>(x, g, 4, d, best, best_id, "
+                     "u_row, s_row);\n",
+                     "    if (!(x[0] + x[1] + x[2] + x[3] <= best)) {\n"
+                     "      best = x[0] + x[1] + x[2] + x[3];\n"
+                     "      best_id = 4 * g;\n    }\n")
     return text
 
 
@@ -1313,16 +1371,80 @@ def b5(card: str) -> dict:
             "ms_per_call_in_a_cuda_graph": graph_ms}
 
 
+def pick(card: str, earlier=None) -> dict:
+    import torch
+
+    from whisper_tpu_torch.ops import kernels, sampling
+
+    libs = _build("gumbel_pick.cu", pick_source, PICK_VARIANTS)
+    for lib in libs.values():
+        lib.wt_gumbel_pick.argtypes = kernels.SIGNATURES["wt_gumbel_pick"]
+    variants = PICK_VARIANTS
+    if earlier:
+        # an absolute path: csrc's own is not joined to it
+        libs.update(_build(str(Path(earlier).resolve()), lambda text, _: text,
+                           ("earlier",), stem="gumbel_pick"))
+        no_ws = kernels.SIGNATURES["wt_gumbel_pick"]
+        libs["earlier"].wt_gumbel_pick.argtypes = no_ws[:7] + no_ws[8:]
+        variants += ("earlier",)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    vocab = 51865
+    logits = torch.randn(16, vocab, generator=g, device="cuda") * 4.0
+    logits[:, ::50] = float("-inf")
+    temp = torch.full((1,), 0.5, device="cuda")
+    key = sampling.generator_key(
+        torch.Generator(device="cuda").manual_seed(3), "cuda")
+    step = torch.full((1,), 7, dtype=torch.int64, device="cuda")
+    us = {}
+    for rows in (16, 1):
+        x = logits[:rows].contiguous()
+        ws = sampling.pick_workspace(rows, "cuda")
+        tok = torch.empty(rows, dtype=torch.int64, device="cuda")
+
+        def graph_of(lib, calls=128):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                capturing = torch.cuda.current_stream().cuda_stream
+                ptrs = (x.data_ptr(), temp.data_ptr(), key.data_ptr(),
+                        step.data_ptr(), tok.data_ptr(), None, None)
+                ptrs += () if lib is libs.get("earlier") else (ws.data_ptr(),)
+                for _ in range(calls):
+                    rc = lib.wt_gumbel_pick(*ptrs, rows, vocab, 0, capturing)
+                    if rc != 0:
+                        raise RuntimeError(f"launch failed with CUDA error "
+                                           f"{rc}")
+            return graph
+
+        want = sampling.gumbel_pick_plain(x, temp, key, step)
+        graphs = {v: graph_of(libs[v]) for v in variants}
+        at = us.setdefault(f"bucket_{rows}", {v: [] for v in variants})
+        for names in (variants, tuple(reversed(variants))):
+            for name in names:
+                at[name].append(1e3 / 128 * _median_ms(
+                    lambda i: graphs[name].replay(), calls=1))
+                if name != "no_merge" and name != "no_draw" and \
+                        not torch.equal(tok, want):
+                    raise AssertionError(f"pick variant {name} at {rows} "
+                                         "rows: an id differs from the plain "
+                                         "version's")
+    return {"kernel": "gumbel_pick", "card": card, "vocab": vocab,
+            "us_per_call_in_a_cuda_graph": us}
+
+
 def main() -> None:
     import torch
 
     runs = {"b1": b1, "b4": b4, "b6_b7_dequant": b6_b7_dequant,
             "b7_int8": b7_int8, "b10c": b10c, "b10ab": b10ab, "b2": b2,
-            "b3": b3, "b9": b9, "b8": b8, "b5": b5}
+            "b3": b3, "b9": b9, "b8": b8, "b5": b5, "pick": pick}
     parser = argparse.ArgumentParser(prog="whisper_tpu_torch.kernel_variants")
     parser.add_argument("kernels", nargs="*", metavar="KERNEL",
                         help=f"any of {', '.join(runs)} (default: all)")
-    names = parser.parse_args().kernels or list(runs)
+    parser.add_argument("--pick-earlier", metavar="FILE",
+                        help="an earlier pick kernel's source, timed beside "
+                             "the pick's variants")
+    args = parser.parse_args()
+    names = args.kernels or list(runs)
     unknown = sorted(set(names) - set(runs))
     if unknown:
         parser.error(f"unknown kernels {unknown}")
@@ -1332,7 +1454,8 @@ def main() -> None:
 
     card = card_info()
     for name in names:
-        lines = runs[name](card)
+        lines = (pick(card, args.pick_earlier) if name == "pick"
+                 else runs[name](card))
         for line in lines if isinstance(lines, list) else [lines]:
             print(json.dumps(line), flush=True)
 

@@ -84,6 +84,8 @@ SIGNATURES = {
     "wt_decoder_cross_block": [_P] * 11 + [_I] * 4 + [_P],
     # stream: an empty kernel
     "wt_launch_floor": [_P],
+    # counter ([1] int64), stream: a kernel that adds one to the counter
+    "wt_launch_count": [_P, _P],
     # the card of the next launches (the library runtime's current device)
     "wt_set_device": [_I],
     # inside a graph capture on the parent stream: a conditional (while)
@@ -91,12 +93,15 @@ SIGNATURES = {
     # captured from the body stream; done, n, trips, bound, parent stream,
     # body stream, capture mode, where the node's handle is written
     "wt_while_node_begin": [_P, _I, _P, _L, _P, _P, _I, _P],
-    # the handle, done, n, trips, bound, body stream: the condition as the
-    # body's last node, then the end of the body's capture
-    "wt_while_node_end": [ctypes.c_ulonglong, _P, _I, _P, _L, _P],
+    # the handle, done, n, trips, bound, body stream, where the body's
+    # device operations are written (or null): the condition as the body's
+    # last node, then the end of the body's capture
+    "wt_while_node_end": [ctypes.c_ulonglong, _P, _I, _P, _L, _P, _P],
     # logits, temperature, key, step, tok, uniforms (or null), scores (or
-    # null), rows, vocab, row0, stream
-    "wt_gumbel_pick": [_P] * 7 + [_I, _I, _I, _P],
+    # null), workspace, rows, vocab, row0, stream
+    "wt_gumbel_pick": [_P] * 8 + [_I, _I, _I, _P],
+    # rows, vocab: the groups of four ids each block of the pick takes
+    "wt_gumbel_pick_groups_per_block": [_I, _I],
 }
 
 _lib = None          # the loaded library (one per process)

@@ -25,8 +25,10 @@ passes its first row's place in the batch as ``row0``: it draws its own
 rows, those of the one-process decode, without the others'.
 
 On a CUDA tensor ``gumbel_pick`` launches the hand-written kernel
-``csrc/gumbel_pick.cu`` (one block a row; it replaces no Pallas kernel:
-see its header); on a CPU tensor it takes ``gumbel_pick_plain``, which
+``csrc/gumbel_pick.cu`` (each row split across the card's SMs, the blocks'
+bests met in the same launch through a [B, 2] int64 ``workspace`` that
+every launch leaves zero; it replaces no Pallas kernel: see its header);
+on a CPU tensor it takes ``gumbel_pick_plain``, which
 does the same arithmetic in PyTorch (Philox in int64 tensor arithmetic
 masked to 32 bits, no product above 2^49; the division a true division by
 a tensor; ``torch.log``), bitwise the kernel on the card.  Any other
@@ -131,13 +133,23 @@ def gumbel_pick_plain(logits, temperature, key, step, row0: int = 0):
         gumbel_scores_plain(logits, temperature, key, step, row0)[1], -1)
 
 
+def pick_workspace(rows: int, device) -> torch.Tensor:
+    """The pick kernel's workspace for ``rows`` rows: [rows, 2] int64
+    zeros on ``device`` (each row's best and ticket), which every launch
+    leaves zero.  One a decode loop's state: two launches that may run at
+    once (two streams, two graphs) must not share one."""
+    return torch.zeros(rows, 2, dtype=torch.int64, device=device)
+
+
 def gumbel_pick(logits: torch.Tensor, temperature: torch.Tensor,
                 key: torch.Tensor, step: torch.Tensor, row0: int = 0, *,
-                with_draws: bool = False):
+                with_draws: bool = False, workspace=None):
     """logits [B, V] fp32, contiguous; temperature [1] fp32 (T > 0); key
     [2] int64; step [1] int64, all on the logits' device -> the ids [B]
     int64; with_draws also (u, scores) [B, V] fp32, which the kernel then
-    writes (checks only: the decode does not ask for them)."""
+    writes (checks only: the decode does not ask for them).  workspace:
+    a ``pick_workspace(B, device)`` for the kernel (None: a zeroed one is
+    made for the call; the plain version needs none)."""
     if route(logits) == "plain":
         if with_draws:
             u, s = gumbel_scores_plain(logits, temperature, key, step, row0)
@@ -157,6 +169,14 @@ def gumbel_pick(logits: torch.Tensor, temperature: torch.Tensor,
     if logits.dim() != 2 or not logits.is_contiguous():
         raise ValueError("gumbel_pick: logits must be contiguous [B, V]")
     b, v = logits.shape
+    if workspace is None:
+        workspace = pick_workspace(b, logits.device)
+    elif (workspace.device != logits.device
+          or workspace.dtype != torch.int64
+          or tuple(workspace.shape) != (b, 2)
+          or not workspace.is_contiguous()):
+        raise ValueError(f"gumbel_pick: the workspace must be contiguous "
+                         f"[{b}, 2] int64 on {logits.device}")
     tok = torch.empty(b, dtype=torch.int64, device=logits.device)
     u = s = None
     if with_draws:
@@ -165,7 +185,7 @@ def gumbel_pick(logits: torch.Tensor, temperature: torch.Tensor,
     kernels.check(lib.wt_gumbel_pick(
         logits.data_ptr(), temperature.data_ptr(), key.data_ptr(),
         step.data_ptr(), tok.data_ptr(), 0 if u is None else u.data_ptr(),
-        0 if s is None else s.data_ptr(), b, v, row0,
+        0 if s is None else s.data_ptr(), workspace.data_ptr(), b, v, row0,
         kernels.stream_ptr(logits.device)), "gumbel_pick")
     count_launch(sys.modules[__name__], launches=1)
     return (tok, u, s) if with_draws else tok

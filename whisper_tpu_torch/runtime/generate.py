@@ -115,7 +115,7 @@ def build_suppress_mask(vocab_size: int, ids: Sequence[int] | None) -> np.ndarra
 
 
 def pick(logits: torch.Tensor, temperature, key, step, want_lp: bool,
-         row0: int = 0):
+         row0: int = 0, workspace=None):
     """(token [B], its log-probability [B] or None) from masked fp32 logits
     [B, V].  T > 0: argmax(logits / T - log E), E = -log u of a Philox
     uniform u of (``key``, ``step``, row, id) (a Gumbel-max draw,
@@ -128,7 +128,9 @@ def pick(logits: torch.Tensor, temperature, key, step, want_lp: bool,
     tensor (the loop's step counter).
 
     row0: the logits' first row is row row0 of the batch (a data rank's
-    share): each row draws as it does in the one-process decode."""
+    share): each row draws as it does in the one-process decode.
+    workspace: the pick kernel's (``ops.sampling.pick_workspace``), which
+    the loop's state carries; None: one made for the call."""
     if torch.is_tensor(temperature) or temperature > 0:
         dev = logits.device
         if not torch.is_tensor(temperature):
@@ -136,7 +138,8 @@ def pick(logits: torch.Tensor, temperature, key, step, want_lp: bool,
                                      device=dev)
         if not torch.is_tensor(step):
             step = torch.full((1,), step, dtype=torch.int64, device=dev)
-        tok = sampling.gumbel_pick(logits, temperature, key, step, row0)
+        tok = sampling.gumbel_pick(logits, temperature, key, step, row0,
+                                   workspace=workspace)
     else:
         tok = torch.argmax(logits, dim=-1)
     if not want_lp:
@@ -207,12 +210,16 @@ class LoopState(InPlaceState):
     pad_count: Optional[torch.Tensor] = None  # [B] int32
     temperature: Optional[torch.Tensor] = None  # [1] fp32, T > 0 (sampling)
     key: Optional[torch.Tensor] = None      # [2] int64 (seed, offset)
+    # [B, 2] int64, the pick kernel's (``sampling.pick_workspace``): zeroed
+    # once, when the state is made, and left zero by every launch
+    pick_ws: Optional[torch.Tensor] = None
 
     def tensors(self) -> list:
         """Every tensor of the state, in one fixed order."""
         out = [self.last, self.pos, self.step, self.done, self.buf,
                self.suppress, *self.cache, self.sum_lp, self.n_tok,
-               *(self.ts or ()), self.pad_count, self.temperature, self.key]
+               *(self.ts or ()), self.pad_count, self.temperature, self.key,
+               self.pick_ws]
         return [t for t in out if t is not None]
 
     def trips(self) -> torch.Tensor:
@@ -251,7 +258,7 @@ def _step_fn(st: LoopState, params, dims: WhisperDims, *, eot_id: int,
             logits = ts.apply_rules(logits, st.ts, st.step, ts_cfg)
         temperature = 0.0 if st.temperature is None else st.temperature
         nxt, lp = pick(logits, temperature, st.key, st.step, return_logprobs,
-                       row0)
+                       row0, st.pick_ws)
         nxt = torch.where(st.done, eot_id, nxt)
         if return_logprobs:
             # rows done before this step add nothing
@@ -343,8 +350,11 @@ def _while_node(graph, done: torch.Tensor, trips: torch.Tensor, bound: int,
     raises (``pool``: a pool id to take, else a new one).  A body whose
     capture fails leaves a node that the runtime
     cannot instantiate (the process dies in ``capture_end``):
-    ``_GraphLoop._trial_capture`` raises for such a step first.  Yields the
-    body's pool id."""
+    ``_GraphLoop._trial_capture`` raises for such a step first.  Yields a
+    dict that holds, once the block has ended, "body_ops": the device
+    operations an iteration runs, read from the body graph's nodes
+    (kernels, copies and fills; -1 where the body holds a conditional
+    node)."""
     from whisper_tpu_torch.ops import kernels
 
     if done.dtype != torch.bool or not done.is_contiguous():
@@ -355,6 +365,7 @@ def _while_node(graph, done: torch.Tensor, trips: torch.Tensor, bound: int,
     lib = kernels.library()
     parent = kernels.stream_ptr(done.device)
     handle = ctypes.c_ulonglong()
+    body_ops = ctypes.c_longlong(0)
     args = (done.data_ptr(), done.numel(), trips.data_ptr(), bound)
     taken = False
     try:
@@ -364,15 +375,18 @@ def _while_node(graph, done: torch.Tensor, trips: torch.Tensor, bound: int,
         if pool is None:
             pool = torch.cuda.graph_pool_handle()
         taken = True
+        info = {}
         with torch.cuda.stream(body):
             torch._C._cuda_beginAllocateCurrentStreamToPool(index, pool)
             try:
-                yield pool
+                yield info
             finally:
                 torch._C._cuda_endAllocateToPool(index, pool)
                 rc = lib.wt_while_node_end(handle.value, *args,
-                                           body.cuda_stream)
+                                           body.cuda_stream,
+                                           ctypes.byref(body_ops))
         kernels.check(rc, "wt_while_node_end")
+        info["body_ops"] = body_ops.value
     except BaseException:
         if taken:
             torch._C._cuda_releasePool(index, pool)
@@ -495,6 +509,7 @@ class _GraphLoop:
         self.graph = None
         self.pre_tally: dict = {}   # the pre-node program's: once a launch
         self.tally: dict = {}       # the body's: once an iteration that ran
+        self.body_ops = 0   # the body graph's device operations (nodes)
         self.capture_s = 0.0
         self.pools: tuple = ()      # the graph's memory pools
         self.pool_nbytes = 0
@@ -525,16 +540,16 @@ class _GraphLoop:
                 _CAPTURE_STREAMS[self.device] = (
                     torch.cuda.Stream(self.device),
                     torch.cuda.Stream(self.device))
-            body, own = _CAPTURE_STREAMS[self.device]
+            body_stream, own = _CAPTURE_STREAMS[self.device]
             main = torch.cuda.current_stream(self.device)
             own.wait_stream(main)
             with tally_launches(), torch.cuda.stream(own):
                 pre()
             if step is not None:
-                body.wait_stream(own)
-                with tally_launches(), torch.cuda.stream(body):
+                body_stream.wait_stream(own)
+                with tally_launches(), torch.cuda.stream(body_stream):
                     step()
-                own.wait_stream(body)
+                own.wait_stream(body_stream)
             main.wait_stream(own)
             # the trials capture into the graph's own pools and live until
             # its capture has taken them: their memory is the graph's, not
@@ -543,9 +558,10 @@ class _GraphLoop:
                      torch.cuda.graph_pool_handle() if step else None)
             trials = [self._trial_capture(pre, own, pools[0])]
             if step is not None:
-                trials.append(self._trial_capture(step, body, pools[1]))
+                trials.append(self._trial_capture(step, body_stream,
+                                                  pools[1]))
             graph = torch.cuda.CUDAGraph()
-            tally = {}
+            tally, body = {}, {}
             with torch.cuda.stream(own):
                 graph.capture_begin(pool=pools[0],
                                     capture_error_mode="thread_local")
@@ -554,7 +570,8 @@ class _GraphLoop:
                         pre()
                     if step is not None:
                         with tally_launches() as tally, _while_node(
-                                graph, done, trips, bound, body, pools[1]):
+                                graph, done, trips, bound, body_stream,
+                                pools[1]) as body:
                             step()
                 finally:
                     try:
@@ -567,6 +584,7 @@ class _GraphLoop:
         del trials
         self.graph, self.pre_tally, self.tally = graph, dict(pre_tally), \
             dict(tally)
+        self.body_ops = body.get("body_ops", 0)
         self.pools = pools
         self.capture_s = time.perf_counter() - t0
 
@@ -938,7 +956,14 @@ def greedy_generate(params, dims: WhisperDims, enc_states,
         if ts_cfg is not None:
             ts_state = ts.init_state(b, eot_id, dev)
             first_logits = ts.apply_rules(first_logits, ts_state, 0, ts_cfg)
-        first, sum_lp = pick(first_logits, t, key, 0, return_logprobs, row0)
+        # the pick's workspace: made (zeroed) with a new state, outside any
+        # capture; a graph's program reuses its state's
+        ws = None
+        if temperature > 0:
+            ws = (sampling.pick_workspace(b, dev) if out is None
+                  else out.pick_ws)
+        first, sum_lp = pick(first_logits, t, key, 0, return_logprobs, row0,
+                             ws)
         if ts_cfg is not None:
             ts_state = ts.update_state(ts_state, first.clone(), ts_cfg)
         buf = torch.full((b, max_new_tokens), eot_id, dtype=torch.long,
@@ -953,7 +978,7 @@ def greedy_generate(params, dims: WhisperDims, enc_states,
             n_tok=(torch.ones(b, dtype=torch.long, device=dev)
                    if return_logprobs else None),
             ts=ts_state, pad_count=pads,
-            temperature=t if temperature > 0 else None, key=key)
+            temperature=t if temperature > 0 else None, key=key, pick_ws=ws)
         return st if out is None else out.copy_(st)
 
     def make_step(st: LoopState):
