@@ -75,7 +75,14 @@ What it does, in order (any failure raises and exits non-zero):
    farther from that), two calls bitwise equal and two device operations a
    call.  An empty
    kernel launched through the same C interface is timed and printed beside
-   the kernels whose bound is under 20 microseconds.
+   the kernels whose bound is under 20 microseconds.  The greedy step's
+   tail (``ops.loop_tail``: the loop state's update after the pick and, in
+   a while node's body, the node's condition, one kernel of
+   ``csrc/graph_cond.cu``) bitwise its plain version at 1, 16, 64 and 1,025
+   rows, step 0 and the last column, rows done before it, ending at it and
+   going on, with and without scores, one kernel a call; the while node's
+   condition kernel (C) held by the trips a node runs against its plain
+   loop; both timed alone in ``[graph]`` (g).
 4. Holds the port on the card against the port on the CPU (the kernels'
    plain versions) on a small input: an 80 s clip through the front end,
    the encoder and twelve teacher-forced decode steps.
@@ -85,7 +92,8 @@ What it does, in order (any failure raises and exits non-zero):
    warm-up), once to warm up and then three timed times, with every
    kernel's launch count set to 0 just before each run and read just after;
    asserts the token shape, identical tokens across runs, finite encoder
-   states and logits, and that every kernel of the path was launched.
+   states and logits, and that every kernel of the path was launched, the
+   greedy tail once a step and C ahead of the decode's while node.
 6. Drives the same file at whisper-base through the rest of the ladder
    and ``RuntimeCfg``, a warm-up and three timed runs each, counts set to 0
    just before each and read just after: rung x7 (B8 and B4 once per layer and
@@ -192,8 +200,14 @@ What it does, in order (any failure raises and exits non-zero):
    windows running a bucket-1 graph with the grammar and ``pad_count``;
    (d) capture seconds a key and the peak device memory of an x5 session,
    eager and graphed; (g) the while node's cost an iteration: a body of one
-   counting kernel under the node for 128 trips against a flat graph of
-   128 launches of it.  The main path, the ladder, the decoding options,
+   counting kernel and C under the node for 128 trips against a flat graph
+   of 128 launches of it; a body of the greedy tail setting the condition
+   itself against the same tail followed by C and against the tail in a
+   flat graph (what the node costs without C, what C costs in a body); C
+   and the tail alone in flat graphs of 128 launches, beside an empty
+   kernel.  In (b) every graphed
+   greedy call launches C once (ahead of the node: the body ends in the
+   tail) and prints an iteration's device operations.  The main path, the ladder, the decoding options,
    the prompts, serving and the pipelined mode above all run graphed.
    (e) beams K = 4 at x5 and x4 (64 beam rows, B4 or B6), graphed and
    eager alternated: tokens bitwise, launches equal, e2e and model_s; at
@@ -251,7 +265,9 @@ What it does, in order (any failure raises and exits non-zero):
    launches counted, every chunk that differs from the one-process bucket-16
    rows judged by ``divergence_report`` (a divergence that is not a
    tie-flip fails), e2e printed beside the one-process run's.
-10. Prints one JSON line with the kernels, then, as the last line,
+10. Prints one JSON line with the kernels (the tail's and C's launches:
+   the main path's, 127 tails and one C a 128-token bucket), then, as the
+   last line,
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -1031,6 +1047,7 @@ def check_kernels(card: str, pick_sass) -> list:
           f"{by_name['decoder_self_block']['device_ops_per_call']:g}, B10b "
           f"{by_name['decoder_cross_block']['device_ops_per_call']:g}",
           flush=True)
+    out.extend(check_loop_tail(card))
     return out
 
 
@@ -1086,6 +1103,259 @@ def check_pick_in_graphs(pick_args, pick_ws) -> dict:
             raise AssertionError(f"gumbel_pick ({rows} rows): a replayed id "
                                  "differs from the plain version's")
     return out
+
+
+def _node_graph(done, trips, bound: int, body, tail: bool = False):
+    """One CUDA graph holding one while node (``runtime.generate._while_node``)
+    on ``done`` and ``trips`` under ``bound``, whose body is ``body()``
+    (warmed by the caller); with ``tail`` the body's loop tail sets the
+    condition, else C ends the body.  (graph, the node's info)."""
+    import torch
+
+    from whisper_tpu_torch.runtime.generate import _while_node
+
+    dev = done.device
+    side, inner = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            with _while_node(graph, done, trips, bound, inner,
+                             tail=tail) as info:
+                body()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    return graph, info
+
+
+def _flat_graph(fn, calls: int = 128, warm: bool = True):
+    """``calls`` calls of ``fn`` captured in one flat CUDA graph on a side
+    stream, after one warm-up call where ``warm``."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        if warm:
+            fn()
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            for _ in range(calls):
+                fn()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    return graph
+
+
+def _replay_us(graphs: dict, resets: dict, trips: int = 128,
+               replays: int = 20, runs: int = 5) -> dict:
+    """µs a trip of each graph ({name: graph}; a trip: a launch of a flat
+    graph's kernel, an iteration of a while node): CUDA events around each
+    replay alone, after its reset (``resets``: {name: fn}, queued outside
+    the events), the mean of ``replays`` replays over ``trips``, the median
+    of ``runs``; the graphs in turns, forward and back, the two means."""
+    import torch
+
+    def reset(name):
+        if name in resets:
+            resets[name]()
+
+    def one(name):
+        times = []
+        for _ in range(runs):
+            events = []
+            for _ in range(replays):
+                reset(name)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                graphs[name].replay()
+                end.record()
+                events.append((start, end))
+            torch.cuda.synchronize()
+            times.append(statistics.mean(s.elapsed_time(e)
+                                         for s, e in events))
+        return statistics.median(times) * 1e3 / trips
+
+    for name in graphs:              # the first launch uploads the graph
+        reset(name)
+        graphs[name].replay()
+    torch.cuda.synchronize()
+    us = {name: [] for name in graphs}
+    for name in [*graphs, *reversed(graphs)]:
+        us[name].append(one(name))
+    return {name: statistics.mean(v) for name, v in us.items()}
+
+
+# the greedy step's tail, checked bitwise against its plain version: rows,
+# steps (the first column and the last of 128), scores
+TAIL_ROWS, TAIL_COLS = (1, 16, 64, 1025), 128
+EOT_ID = 50257
+
+
+def _tail_state(g, b: int, step: int, scores: bool, seed: int,
+                cols: int = TAIL_COLS):
+    """A loop state before a step at column ``step`` on the card: [nxt,
+    lp, done, buf, last, pos, step, sum_lp, n_tok]; row r is done before
+    the step, ends at it (picks EOT) or goes on by (r + seed) % 3; with
+    scores sum_lp holds -0.0 in row 0 and lp a NaN in the last row."""
+    import torch
+
+    dev = "cuda"
+    kind = (torch.arange(b, device=dev) + seed) % 3
+    nxt = torch.randint(0, 50000, (b,), generator=g, device=dev)
+    st = [torch.where(kind == 1, EOT_ID, nxt), None, kind == 0,
+          torch.randint(0, 51865, (b, cols), generator=g, device=dev),
+          torch.randint(0, 51865, (b,), generator=g, device=dev),
+          torch.full((1,), 4 + step, dtype=torch.int32, device=dev),
+          torch.full((1,), step, dtype=torch.int64, device=dev), None, None]
+    if scores:
+        lp = torch.randn(b, generator=g, device=dev) - 3.0
+        lp[-1] = float("nan")
+        sum_lp = torch.randn(b, generator=g, device=dev) * 10.0 - 30.0
+        sum_lp[0] = -0.0
+        st[1], st[7] = lp, sum_lp
+        st[8] = torch.randint(1, 128, (b,), generator=g, device=dev)
+    return st
+
+
+def _tail_err(got, want) -> tuple:
+    """(bitwise, the largest |difference|) of two states' outputs, floats
+    by their bits, NaNs in the same places counting as no difference."""
+    import torch
+
+    same, err = True, 0.0
+    for a, b in zip(got[2:], want[2:]):
+        if a is None:
+            continue
+        d = (a.double() - b.double()).abs()
+        if a.is_floating_point():
+            same &= torch.equal(a.view(torch.int32), b.view(torch.int32))
+            d[torch.isnan(a) & torch.isnan(b)] = 0.0
+        else:
+            same &= torch.equal(a, b)
+        err = max(err, float(d.max()))
+    return same, err
+
+
+def check_loop_tail(card: str) -> list:
+    """The greedy step's tail (``ops.loop_tail``, ``wt_loop_tail`` in
+    ``csrc/graph_cond.cu``) and the while node's condition kernel (C):
+    their rows of the kernels line.  The tail bitwise its plain version at
+    1, 16, 64 and 1,025 rows (one block, rows in turn), at step 0 and the
+    last column, rows done before it, ending at it and going on, with and
+    without scores; one kernel a call (the nodes of a while node's body of
+    one tail); its wrapper's ms and the plain version's at bucket 16
+    without scores (the main path's).  C: the trips a while node runs with
+    C ending a counting body, against its plain version's loop
+    (``condition_plain``), with every row done, some, none, and bounds 0,
+    5 and 128; its plain version's ms.  The bounds are bytes.  Their device
+    µs alone, in flat graphs of 128, come from ``[graph]`` (g)
+    (``check_while_node``), timed in turns with the node."""
+    import torch
+
+    from whisper_tpu_torch.ops import kernels, loop_tail
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    g = torch.Generator(device=dev).manual_seed(23)
+    err, cases = 0.0, 0
+    for b, step, scores, seed in itertools.product(
+            TAIL_ROWS, (0, TAIL_COLS - 1), (False, True), range(3)):
+        got = _tail_state(g, b, step, scores, seed)
+        want = [None if t is None else t.clone() for t in got]
+        before = loop_tail.launches
+        loop_tail.loop_tail(*got, eot_id=EOT_ID)
+        loop_tail.loop_tail_plain(*want, eot_id=EOT_ID)
+        torch.cuda.synchronize()
+        same, e = _tail_err(got, want)
+        if not same or loop_tail.launches != before + 1:
+            raise AssertionError(
+                f"loop_tail at {b} rows, step {step}, scores {scores}, seed "
+                f"{seed}: not bitwise its plain version (largest difference "
+                f"{e:.3g}), or {loop_tail.launches - before} launches")
+        err, cases = max(err, e), cases + 1
+    b = 16
+    states = [_tail_state(g, b, 0, False, 1) for _ in range(3)]
+    ms = _median_ms(lambda: loop_tail.loop_tail(*states[0], eot_id=EOT_ID))
+    plain_ms = _median_ms(lambda: loop_tail.loop_tail_plain(
+        *states[1], eot_id=EOT_ID))
+    # what a call puts on the card, read from a graph's nodes (torch.profiler
+    # traces a few of this short kernel's launches): a while node's body of
+    # one tail, which sets the node's condition
+    st = states[2]
+    _, info = _node_graph(st[2], st[6], TAIL_COLS,
+                          lambda: loop_tail.loop_tail(*st, eot_id=EOT_ID),
+                          tail=True)
+    if info["body_ops"] != 1:
+        raise AssertionError(f"loop_tail: {info['body_ops']} device "
+                             "operations a call, expected its one kernel")
+    # nxt and done read; buf's column, last and done written; pos and step
+    # read and written
+    tail_bound = _bound(b * (8 + 1 + 8 + 8 + 1) + 2 * (4 + 8), 0, "fp32")
+
+    # C: the trips of a node whose counting body never ends a row
+    lib = kernels.library()
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+
+    def bump():
+        kernels.check(lib.wt_launch_count(count.data_ptr(),
+                                          kernels.stream_ptr(dev)),
+                      "launch_count")
+
+    bump()
+    c_err = 0
+    for n_done, bound in ((0, 128), (15, 128), (16, 128), (0, 5), (0, 0)):
+        done = torch.arange(b, device=dev) < n_done
+        graph, _ = _node_graph(done, count, bound, bump)
+        want = 0
+        while bool(loop_tail.condition_plain(
+                done, torch.full((1,), want, device=dev), bound)):
+            want += 1
+        for _ in range(2):
+            count.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            c_err = max(c_err, abs(int(count) - want))
+        if c_err:
+            raise AssertionError(f"C: {int(count)} trips with {n_done} of "
+                                 f"{b} rows done under {bound}, its plain "
+                                 f"loop {want}")
+    c_plain_ms = _median_ms(lambda: loop_tail.condition_plain(done, count,
+                                                              128))
+    c_bound = _bound(b + 8, 0, "fp32")
+    print(f"[kernel] loop_tail (the greedy step's tail, csrc/graph_cond.cu):"
+          f" bitwise its plain version in {cases} cases ({TAIL_ROWS} rows, "
+          f"step 0 and {TAIL_COLS - 1}, rows done, ending and going on, "
+          f"with and without scores), one kernel a call; at bucket {b} "
+          f"{ms:.4f} ms vs plain {plain_ms:.4f} ms (the seven operations "
+          f"it replaces), bound {tail_bound[0] * 1e3:.6f} µs by "
+          f"{tail_bound[1]}; C (the while node's condition kernel): trips "
+          f"as its plain loop's with 0, 15 and 16 of {b} rows done and "
+          f"bounds 0, 5, 128, its plain version {c_plain_ms:.4f} ms, bound "
+          f"{c_bound[0] * 1e3:.6f} µs by bytes ({b} bools and the 8-byte "
+          f"counter); both alone on the card: [graph] (g), on {card}",
+          flush=True)
+    src = "whisper_tpu_torch/csrc/graph_cond.cu"
+    return [
+        {"name": "loop_tail", "route": "cuda", "source": src,
+         "replaces": "none: whisper_tpu/runtime/generate.py:197-205 (the "
+                     "while_loop body's update after its pick, which XLA "
+                     "fuses)",
+         "counter": (loop_tail, "launches"), "max_abs_err": err, "ms": ms,
+         "plain_ms": plain_ms, "bound_ms": tail_bound[0],
+         "bound_by": tail_bound[1], "library_ms": None},
+        {"name": "while_condition", "route": "cuda", "source": src,
+         "replaces": "none: whisper_tpu/runtime/generate.py:170-173 "
+                     "(lax.while_loop's cond)",
+         "counter": (loop_tail, "condition_launches"),
+         "max_abs_err": float(c_err), "ms": None, "plain_ms": c_plain_ms,
+         "bound_ms": c_bound[0], "bound_by": c_bound[1],
+         "library_ms": None},
+    ]
 
 
 def _pick_composition(logits, temperature):
@@ -1711,9 +1981,15 @@ def check_b8_b5_edges(card: str, by_name, randn, b3_args, wire) -> None:
 
 
 # The kernels of the headline main path (x5, a 301.574 s file: streamed
-# mel, so no B5; int8 x int8 cross-attention, so no B6).
+# mel, so no B5; int8 x int8 cross-attention, so no B6), and the greedy
+# step's tail; C, ahead of the decode's while node, is read on its own
+# (GRAPHED_ONLY).
 MAIN_PATH_KERNELS = ("fused_attention", "fused_encoder_mlp",
-                     "self_attend_step", "cross_attend_step")
+                     "self_attend_step", "cross_attend_step", "loop_tail")
+# Launched by a graphed loop alone (the eager loop reads ``done`` on the
+# host in its place), so left out of the counts that graphed and eager runs
+# compare: the while node's condition kernel.
+GRAPHED_ONLY = ("while_condition",)
 
 
 def _memory_line(label: str) -> None:
@@ -1740,13 +2016,25 @@ def _memory_line(label: str) -> None:
 
 
 def _counts(results) -> dict:
-    """Every kernel's count, once the launches of the graphs' bodies that
-    ran are added (``ops.common.settle_launches``: a graphed decode loop's
-    bodies count where the results reach the host)."""
+    """Every kernel's count but ``GRAPHED_ONLY``'s, once the launches of
+    the graphs' bodies that ran are added (``ops.common.settle_launches``:
+    a graphed decode loop's bodies count where the results reach the
+    host)."""
     from whisper_tpu_torch.ops.common import settle_launches
 
     settle_launches(wait=True)
-    return {r["name"]: getattr(*r["counter"]) for r in results}
+    return {r["name"]: getattr(*r["counter"]) for r in results
+            if r["name"] not in GRAPHED_ONLY}
+
+
+def _condition_count() -> int:
+    """C's launches since the counts were set to 0, the graphs' bodies
+    that ran added."""
+    from whisper_tpu_torch.ops import loop_tail
+    from whisper_tpu_torch.ops.common import settle_launches
+
+    settle_launches(wait=True)
+    return loop_tail.condition_launches
 
 
 def _zero_counts(results) -> None:
@@ -1925,8 +2213,10 @@ def check_ladder(card: str, results, params, dims, audio, x5) -> dict:
         step = (c["self_attend_step"], c["self_attend_step_int8"],
                 c["cross_attend_step"], c["decoder_mlp_block"])
         layers_steps = max(step)
+        # the tail once a step
         ok = layers_steps > 0 and layers_steps % n_l == 0 \
-            and c["cross_attend_step_dequant"] == 0
+            and c["cross_attend_step_dequant"] == 0 \
+            and c["loop_tail"] * n_l == layers_steps
         if label == "x7":      # B8 then B4, once per layer and step; no B3
             ok = ok and enc == (n_e, n_e, 0, 0) \
                 and step == (0, layers_steps, layers_steps, 0)
@@ -1996,8 +2286,10 @@ def check_speculative(card: str, results, params, dims, audio, x5) -> dict:
         if b7 != ran * n_l or not 1 <= rounds == ran:
             raise AssertionError(f"{label}: B7 launched {b7} times for "
                                  f"{rounds} rounds of {n_l} layers")
-        if c["self_attend_step"] or c["self_attend_step_int8"]:
-            raise AssertionError(f"{label}: B3/B8 launched: {c}")
+        if c["self_attend_step"] or c["self_attend_step_int8"] \
+                or c["loop_tail"]:
+            raise AssertionError(f"{label}: B3/B8 or the greedy tail "
+                                 f"launched: {c}")
         # The prefill is the greedy run's, so every chunk's first token is.
         if not (toks[:, 0] == greedy[2][:, 0]).all():
             raise AssertionError(f"{label}: a first token differs from the "
@@ -2436,10 +2728,18 @@ def check_graph(card: str, results, params, dims, audio, x5,
                                      **extra)
             out = tuple(t.cpu() for t in out) if isinstance(out, tuple) \
                 else (out.cpu(),)
-            return out, _counts(results), len(graph_launches)
+            return out, _counts(results), len(graph_launches), \
+                _condition_count()
 
-        eager_out, eager_c, _ = run(eager=True)
+        eager_out, eager_c, _, eager_cond = run(eager=True)
         got = [run(), run()]               # the capture's call, a later one
+        # C once a graphed call, ahead of the node: the body ends in the
+        # tail, which sets the condition
+        if eager_cond != 0 or any(g[3] != 1 for g in got):
+            raise AssertionError(f"(b) {label}: C launched {eager_cond} "
+                                 f"times eagerly, {[g[3] for g in got]} a "
+                                 "graphed call; want 0 and 1")
+        body_ops = next(reversed(s_.graphs._loops.values())).body_ops
         if not all(all(torch.equal(a, b_) for a, b_ in zip(g[0], eager_out))
                    for g in got):
             raise AssertionError(f"(b) {label}: graphed tokens (or scores) "
@@ -2458,7 +2758,8 @@ def check_graph(card: str, results, params, dims, audio, x5,
         print(f"[graph] (b) {label}, bucket {b}, 128 tokens, on {card}: "
               f"graphed tokens bitwise the eager loop's"
               f"{'' if seed is None else ' (sampled: the key in the state)'}"
-              f"; one graph launch a call; launches equal {launched}",
+              f"; one graph launch a call, C once a call; an iteration "
+              f"{body_ops} device operations; launches equal {launched}",
               flush=True)
         note(label, s_)
 
@@ -2627,28 +2928,32 @@ def check_graph(card: str, results, params, dims, audio, x5,
                       for label, n, m, c, pl in stages)
           + f"; budget {_budget(torch.device('cuda', 0)) * gib:.4f} GiB; "
           f"[graph] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
-    check_while_node(card)
-    return sampled_counts
+    return sampled_counts, check_while_node(card)
 
 
 def check_while_node(card: str, trips: int = 128, rows: int = 16) -> dict:
-    """(g) What the decode loops' while node costs an iteration: one graph
-    whose while node (``runtime.generate._while_node``, on "``trips`` < 128
-    and some of 16 rows undone", the rows never done) runs a body of one
-    kernel that adds one to the counter (``wt_launch_count``), against one
-    flat graph of 128 launches of that kernel and one of 128 empty kernels
-    (``wt_launch_floor``); each replay after a reset of the counter, CUDA
-    events around 20 replays, the median of 5, in turns.  The difference a
-    trip is the node and its condition kernel (``set_condition_kernel``,
-    ``csrc/graph_cond.cu``), whose bound is its bytes: the rows' bools and
-    the 8-byte counter read."""
+    """(g) What the decode loops' while node costs an iteration, with and
+    without its condition kernel (C, ``set_condition_kernel`` in
+    ``csrc/graph_cond.cu``) ending the body, and C and the greedy step's
+    tail (``ops.loop_tail``) alone: graphs of one while node
+    (``runtime.generate._while_node``, on "``trips`` < 128 and some of 16
+    rows undone", the rows never done) whose body is one kernel that adds
+    one to the counter (``wt_launch_count``) followed by C; the tail
+    setting the condition itself; the same tail followed by C; against
+    flat graphs of 128 launches of the counting kernel, of the tail, of C
+    (``wt_condition_kernels``: then a node that runs no iteration) and of
+    an empty kernel (``wt_launch_floor``).  Each replay after its reset,
+    CUDA events around the replay alone, the graphs in turns.  A trip of
+    the node less a launch of its body in a flat graph is what the node
+    costs; the tail followed by C less the tail alone is what C costs in a
+    body."""
     import torch
 
-    from whisper_tpu_torch.ops import kernels
-    from whisper_tpu_torch.runtime.generate import _while_node
+    from whisper_tpu_torch.ops import kernels, loop_tail
 
     lib = kernels.library()
     dev = torch.device("cuda", torch.cuda.current_device())
+    g = torch.Generator(device=dev).manual_seed(29)
     count = torch.zeros(1, dtype=torch.int64, device=dev)
     done = torch.zeros(rows, dtype=torch.bool, device=dev)
 
@@ -2661,63 +2966,73 @@ def check_while_node(card: str, trips: int = 128, rows: int = 16) -> dict:
         kernels.check(lib.wt_launch_floor(kernels.stream_ptr(dev)),
                       "launch_floor")
 
-    side, body = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    graphs = {}
-    with torch.cuda.stream(side):
-        bump()
-        empty()
-        for name, fn in (("flat count", bump), ("flat empty", empty)):
-            graphs[name] = torch.cuda.CUDAGraph()
-            graphs[name].capture_begin(capture_error_mode="thread_local")
-            for _ in range(trips):
-                fn()
-            graphs[name].capture_end()
-        graph = graphs["while"] = torch.cuda.CUDAGraph()
-        graph.capture_begin(capture_error_mode="thread_local")
-        try:
-            with _while_node(graph, done, count, trips, body):
-                bump()
-        finally:
-            graph.capture_end()
-    torch.cuda.current_stream(dev).wait_stream(side)
+    def conditions():
+        kernels.check(lib.wt_condition_kernels(
+            done.data_ptr(), rows, count.data_ptr(), kernels.stream_ptr(dev),
+            trips), "condition_kernels")
 
-    def replay_ms(graph_):
-        times = []
-        for _ in range(5):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(20):
-                count.zero_()
-                graph_.replay()
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end) / 20)
-        return statistics.median(times)
+    # three states whose picks never end a row (ids below EOT_ID)
+    tails = [_tail_state(g, rows, 0, False, 2, cols=trips) for _ in range(3)]
+    for st in tails:
+        st[0].clamp_(max=EOT_ID - 1)
+        st[2].zero_()
 
-    for g_ in graphs.values():       # the first launch uploads the graph
-        count.zero_()
-        g_.replay()
-    torch.cuda.synchronize()
-    if int(count) != trips:
-        raise AssertionError(f"(g) the while node ran {int(count)} trips, "
-                             f"expected {trips}")
-    ms = {name: [] for name in graphs}
-    for name in [*graphs, *reversed(graphs)]:
-        ms[name].append(replay_ms(graphs[name]))
-    us = {name: statistics.mean(v) * 1e3 / trips for name, v in ms.items()}
-    node_us = us["while"] - us["flat count"]
-    bound_us = _bound(rows + 8, 0, "fp32")[0] * 1e3
-    print(f"[graph] (g) the while node, on {card}: a trip of a body of one "
-          f"counting kernel {us['while']:.3f} µs against "
-          f"{us['flat count']:.3f} µs a launch of that kernel in a flat graph "
-          f"of {trips} (an empty kernel's {us['flat empty']:.3f}): the node "
-          f"and its condition kernel {node_us:.3f} µs an iteration; the "
-          f"condition's bound {bound_us:.6f} µs by bytes ({rows} bools and "
-          f"the 8-byte counter); {trips} trips a launch", flush=True)
-    return {"while_us": us["while"], "flat_us": us["flat count"],
-            "node_us": node_us, "bound_us": bound_us}
+    def tail_of(st):
+        return lambda: loop_tail.loop_tail(*st, eot_id=EOT_ID)
+
+    def reset_of(st):
+        return lambda: (st[6].zero_(), st[2].zero_())
+
+    bump()
+    empty()
+    graphs = {"flat count": _flat_graph(bump, trips),
+              "flat empty": _flat_graph(empty, trips),
+              "flat tail": _flat_graph(tail_of(tails[0]), trips),
+              # its launches and the node that owns their handle are made
+              # inside the capture
+              "flat C": _flat_graph(conditions, 1, warm=False)}
+    graphs["count + C"] = _node_graph(done, count, trips, bump)[0]
+    sets, ops_sets = _node_graph(tails[1][2], tails[1][6], trips,
+                                 tail_of(tails[1]), tail=True)
+    graphs["tail sets it"] = sets
+    then_c, ops_c = _node_graph(tails[2][2], tails[2][6], trips,
+                                tail_of(tails[2]))
+    graphs["tail + C"] = then_c
+    resets = {"flat count": count.zero_, "count + C": count.zero_,
+              "flat tail": reset_of(tails[0]),
+              "tail sets it": reset_of(tails[1]),
+              "tail + C": reset_of(tails[2])}
+    for name in ("count + C", "tail sets it", "tail + C"):
+        resets[name]()
+        graphs[name].replay()
+        torch.cuda.synchronize()
+        ran = int(count) if name == "count + C" else int(
+            tails[1 if name == "tail sets it" else 2][6])
+        if ran != trips:
+            raise AssertionError(f"(g) the while node ({name}) ran {ran} "
+                                 f"trips, expected {trips}")
+    if (ops_sets["body_ops"], ops_c["body_ops"]) != (1, 2):
+        raise AssertionError(f"(g) body operations: the tail setting the "
+                             f"condition {ops_sets['body_ops']}, the tail "
+                             f"and C {ops_c['body_ops']}; want 1 and 2")
+    us = _replay_us(graphs, resets, trips)
+    node_us = us["count + C"] - us["flat count"]
+    bare_us = us["tail sets it"] - us["flat tail"]
+    c_us = us["tail + C"] - us["tail sets it"]
+    print(f"[graph] (g) the while node, on {card}, µs a trip ({trips} "
+          f"trips a launch, {rows} rows): a body of one counting kernel "
+          f"then C {us['count + C']:.3f} against {us['flat count']:.3f} a "
+          f"launch of that kernel in a flat graph: the node and C "
+          f"{node_us:.3f}; a body of the greedy tail setting the condition "
+          f"itself {us['tail sets it']:.3f} (1 operation) against the tail "
+          f"followed by C {us['tail + C']:.3f} (2): the node without C "
+          f"{bare_us:.3f}, C in a body {c_us:.3f}; alone in flat graphs of "
+          f"{trips}: the tail {us['flat tail']:.3f}, C {us['flat C']:.3f}, "
+          f"an empty kernel {us['flat empty']:.3f}", flush=True)
+    return {"while_us": us["count + C"], "flat_us": us["flat count"],
+            "node_us": node_us, "node_without_c_us": bare_us,
+            "c_in_body_us": c_us, "tail_us": us["flat tail"],
+            "c_us": us["flat C"], "empty_us": us["flat empty"]}
 
 
 def _alternated(results, fns: dict, rounds: int):
@@ -5288,9 +5603,16 @@ def main() -> None:
     # launch counts; the median run by e2e.
     x5_run = _timed_run(session, audio, results, runs=3)
     e2e, timing, toks, main_counts = x5_run
+    main_c = _condition_count()          # the last run's: counts set to 0
     idle = [n for n in MAIN_PATH_KERNELS if main_counts[n] == 0]
-    if idle:
-        raise AssertionError(f"kernels not launched on the main path: {idle}")
+    if idle or main_c == 0:
+        raise AssertionError(f"kernels not launched on the main path: {idle}"
+                             f", C launched {main_c} times")
+    # the tail once a decode step, as B4 once a layer and step
+    if main_counts["loop_tail"] * dims.decoder_layers \
+            != main_counts["cross_attend_step"]:
+        raise AssertionError(f"the tail launched {main_counts['loop_tail']} "
+                             f"times, B4 {main_counts['cross_attend_step']}")
     n_chunks = len(chunk_starts(len(audio), 480_000, 400_000))  # 12
     if toks.shape != (n_chunks, 128):
         raise AssertionError(f"tokens {toks.shape}, expected "
@@ -5302,7 +5624,8 @@ def main() -> None:
           f"e2e {e2e:.4f} s, preprocess {timing.preprocess_s:.4f} s, model "
           f"{timing.model_only_s:.4f} s, decode {timing.decode_s:.4f} s, "
           f"{AUDIO_SECONDS / e2e:.2f}x real time (median of 3); launches "
-          f"per run {main_counts}", flush=True)
+          f"per run {main_counts}, C {main_c} (ahead of each decode's while "
+          f"node; the tail sets the condition after each step)", flush=True)
 
     del session
     ladder_runs = check_ladder(card, results, params, dims, audio, x5_run)
@@ -5324,8 +5647,8 @@ def main() -> None:
     fused_step, fused_ms = check_fused_step(card, results, params, dims,
                                             audio)
     _memory_line("[graph]")
-    sampled = check_graph(card, results, params, dims, audio, x5_run,
-                          fused_ms)
+    sampled, while_node = check_graph(card, results, params, dims, audio,
+                                      x5_run, fused_ms)
     _memory_line("[graph] (e), (f)")
     check_graph_beam_spec(card, results, params, dims, audio)
     _memory_line("[exit]")
@@ -5354,9 +5677,21 @@ def main() -> None:
                    spec["x4"]["cross_attend_multi_dequant"],
                "decoder_self_block": fused_step["decoder_self_block"],
                "decoder_cross_block": fused_step["decoder_cross_block"],
-               "gumbel_pick": sampled["gumbel_pick"]}
+               "gumbel_pick": sampled["gumbel_pick"],
+               "while_condition": main_c}
+    # the tail's and C's device µs alone, in flat graphs of 128 ([graph]
+    # (g)); C has no wrapper of its own to time, so its ms is that
+    by_name = {r["name"]: r for r in results}
+    by_name["loop_tail"].update(device_us=while_node["tail_us"],
+                                node_without_c_us=while_node[
+                                    "node_without_c_us"])
+    by_name["while_condition"].update(
+        ms=while_node["c_us"] / 1e3, device_us=while_node["c_us"],
+        in_body_us=while_node["c_in_body_us"],
+        empty_device_us=while_node["empty_us"])
     for r in results:
-        r["launches"] = path_of.get(r["name"], main_counts[r["name"]])
+        r["launches"] = path_of[r["name"]] if r["name"] in path_of \
+            else main_counts[r["name"]]
         if r["launches"] < 1:
             raise AssertionError(f"{r['name']}: not launched on its path")
         del r["counter"]

@@ -27,7 +27,8 @@ from whisper_tpu_torch.frontend import golden
 from whisper_tpu_torch.frontend.mel import normalize
 from whisper_tpu_torch.ops import attention, cross_attention, encoder_mlp
 from whisper_tpu_torch.ops import decoder_kernels, encoder_block
-from whisper_tpu_torch.ops import log_mel, sampling, self_attention
+from whisper_tpu_torch.ops import log_mel, loop_tail, sampling
+from whisper_tpu_torch.ops import self_attention
 from whisper_tpu_torch.ops.common import disable_tf32, settle_launches
 
 pytestmark = pytest.mark.cuda
@@ -1543,7 +1544,8 @@ def _step_counts():
     return (self_attention.launches, self_attention.int8_launches,
             self_attention.padded_launches,
             self_attention.int8_padded_launches, cross_attention.launches,
-            cross_attention.dequant_launches, sampling.launches)
+            cross_attention.dequant_launches, sampling.launches,
+            loop_tail.launches)
 
 
 @contextlib.contextmanager
@@ -1571,12 +1573,12 @@ def test_graphed_loop_is_bitwise_the_eager_loop(gen, rung, case):
     tokens (and scores; sampled draws too, the key in the loop's state)
     bitwise, the launch counters equal (the graph's settled), one graph
     launch a call; under torch.profiler each step kernel's eager launches
-    are its counter's (``_device_ops``), the while node's condition kernel
-    ahead of the node is traced, and an iteration of the while node puts
-    on the card what an eager step does less one operation: the step's
-    operations, and the condition's kernel at the end of the iteration in
-    place of the eager loop's read of ``done`` (a reduction and a copy to
-    the host).  The eager step's operations are the profiler's
+    are its counter's (``_device_ops``), the greedy tail's too (one a
+    step), the while node's condition kernel ahead of the node is traced,
+    and an iteration of the while node puts on the card what an eager step
+    does less two operations: the step's operations, which end in the
+    tail kernel that sets the node's condition, without the eager loop's
+    read of ``done`` (a reduction and a copy to the host).  The eager step's operations are the profiler's
     (``_device_events``); an iteration's are the body graph's kernel, copy
     and fill nodes (``_GraphLoop.body_ops``), which no dropped event can
     change.  Those are held by their number: torch.profiler misnames a
@@ -1622,8 +1624,10 @@ def test_graphed_loop_is_bitwise_the_eager_loop(gen, rung, case):
         return sum(c for k, c in ops[e].items() if name + "(" in k
                    or k.endswith(name) or f"{name}<" in k)
 
-    for name, at in zip(STEP_KERNELS, (0, 1, 4, 5)):
+    for name, at in zip(STEP_KERNELS + ("loop_tail_kernel",),
+                        (0, 1, 4, 5, 7)):
         assert traced(True, name) == counts[True][0][at], (name, ops[True])
+    assert counts[True][0][7] == 23          # the tail once a step
     assert traced(False, "set_condition_kernel") >= 1, ops[False]
     assert traced(True, "set_condition_kernel") == 0
     toks = want[0] if kw.get("return_logprobs") else want
@@ -1631,12 +1635,12 @@ def test_graphed_loop_is_bitwise_the_eager_loop(gen, rung, case):
     assert (counts[True][0][6] > 0) == (case == "sampled")   # the pick
     # 24 tokens against 12: twelve steps more, what a call does outside its
     # loop the same; every key's body (24 and 12 tokens) an eager step less
-    # the read of ``done``
+    # the read of ``done``, two operations: no condition kernel ends it
     run(False, 12)
     body_ops = {k: loop.body_ops for k, loop in graphs._loops.items()}
     counted = {n: _device_events(lambda n=n: run(True, n)) for n in (24, 12)}
     more = counted[24][0] - counted[12][0]
-    if any(12 * ops != more - 12 for ops in body_ops.values()):
+    if any(12 * ops != more - 24 for ops in body_ops.values()):
         # what differs, by name: the eager run's operations, 24 less 12
         ops24, ops12 = (_device_ops(lambda n=n: run(True, n), calls=1)
                         for n in (24, 12))
@@ -1646,7 +1650,7 @@ def test_graphed_loop_is_bitwise_the_eager_loop(gen, rung, case):
         raise AssertionError(f"an iteration's operations {body_ops}, the "
                              f"eager loop's at 24 tokens less 12: {more} "
                              f"(want 12 iterations, each an eager step less "
-                             f"one): {counted}; eager by name {by_name}")
+                             f"two): {counted}; eager by name {by_name}")
 
 
 def test_graphed_sampling_repeats_per_seed(gen):
@@ -2530,6 +2534,149 @@ def test_pick_in_a_while_node_resets_its_tickets(gen):
             at = torch.full((1,), i, dtype=torch.int64, device="cuda")
             assert torch.equal(buf[:, i], sampling.gumbel_pick_plain(
                 logits, temp, key, at)), i
+
+
+# ---------------------------------------------------------------------------
+# The greedy step's tail (ops.loop_tail) and the while node's condition
+# ---------------------------------------------------------------------------
+
+TAIL_EOT = 50257
+
+
+def _tail_state(gen, b, cols, step, scores, seed):
+    """A loop state on the card before a step at column ``step``: [nxt,
+    lp, done, buf, last, pos, step, sum_lp, n_tok]; row r is done before
+    the step, ends at it (picks EOT) or goes on, by (r + seed) % 3; with
+    scores sum_lp holds -0.0 in row 0 and lp a NaN in the last row."""
+    kind = (torch.arange(b, device="cuda") + seed) % 3
+    nxt = torch.randint(0, 50000, (b,), generator=gen, device="cuda")
+    st = [torch.where(kind == 1, TAIL_EOT, nxt), None, kind == 0,
+          torch.randint(0, 51865, (b, cols), generator=gen, device="cuda"),
+          torch.randint(0, 51865, (b,), generator=gen, device="cuda"),
+          torch.full((1,), 4 + step, dtype=torch.int32, device="cuda"),
+          torch.full((1,), step, dtype=torch.int64, device="cuda"), None,
+          None]
+    if scores:
+        st[1] = torch.randn(b, generator=gen, device="cuda") - 3.0
+        st[1][-1] = float("nan")
+        st[7] = torch.randn(b, generator=gen, device="cuda") * 10.0 - 30.0
+        st[7][0] = -0.0
+        st[8] = torch.randint(1, 128, (b,), generator=gen, device="cuda")
+    return st
+
+
+def _bits_equal(a, b) -> bool:
+    """Tensors (or Nones) equal, floats by their bits."""
+    def bits(t):
+        return t.view(torch.int32) if t.is_floating_point() else t
+    return all(x is None and y is None or torch.equal(bits(x), bits(y))
+               for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("scores", [False, True])
+@pytest.mark.parametrize("step", ["first", "last"])
+@pytest.mark.parametrize("b", [1, 16, 64, 1025])
+def test_loop_tail_kernel_is_bitwise_its_plain_version(gen, b, step,
+                                                       scores):
+    """One block, rows in turn past its 128 threads (1,025 rows: nine
+    turns); step 0 and the last column of 128; over three seeds each row
+    done before the step, ending at it and going on; every tensor of the
+    state bitwise the plain version's (sum_lp by its bits: -0.0 + 0.0 and
+    NaN), one launch a call."""
+    at = 0 if step == "first" else 127
+    for seed in range(3):
+        got = _tail_state(gen, b, 128, at, scores, seed)
+        want = [None if t is None else t.clone() for t in got]
+        before = loop_tail.launches
+        loop_tail.loop_tail(*got, eot_id=TAIL_EOT)
+        loop_tail.loop_tail_plain(*want, eot_id=TAIL_EOT)
+        torch.cuda.synchronize()
+        assert loop_tail.launches == before + 1
+        assert _bits_equal(got, want), seed
+
+
+def test_loop_tail_is_one_kernel_and_refuses_what_it_does_not_take(gen):
+    """One call puts the tail kernel on the card and nothing else (counted
+    by ``_device_events``, whose traces open with empty launches: a trace
+    of three calls alone held one of them); the wrapper refuses operands
+    the kernel does not take."""
+    st = _tail_state(gen, 16, 128, 0, True, 1)
+
+    def call():
+        loop_tail.loop_tail(*st, eot_id=TAIL_EOT)
+
+    assert _device_events(call)[0] == 1
+    assert any("loop_tail_kernel" in k for k in _device_ops(call))
+    bad = {"pos as int64": (5, st[5].long()), "lp alone missing": (1, None),
+           "buf transposed": (3, st[3].t()), "nxt on the CPU":
+           (0, st[0].cpu()), "nxt as int32": (0, st[0].int())}
+    for label, (i, t) in bad.items():
+        args = list(st)
+        args[i] = t
+        with pytest.raises(ValueError, match="loop_tail"):
+            loop_tail.loop_tail(*args, eot_id=TAIL_EOT)
+
+
+@pytest.mark.parametrize("case", ["rows ending at steps of their own",
+                                  "no row ending",
+                                  "every row done before the node"])
+def test_a_tail_ended_while_node_stops_where_the_eager_loop_stops(gen,
+                                                                   case):
+    """A while node (``runtime.generate._while_node`` with ``tail``) whose
+    body gathers the step's ids from a table and ends in the tail kernel,
+    which sets the node's condition: no condition kernel in the body (two
+    operations), and two launches each stop where the eager loop (the
+    plain condition read on the host, the tail a step) stops, with every
+    tensor of the state bitwise its."""
+    from whisper_tpu_torch.runtime.generate import _while_node
+
+    b, n = 16, 64
+    ids = torch.randint(0, TAIL_EOT, (b, n), generator=gen, device="cuda")
+    ends = torch.randint(2, 40, (b,), generator=gen, device="cuda")
+    if case != "no row ending":
+        ids.scatter_(1, ends[:, None], TAIL_EOT)
+    st = _tail_state(gen, b, n, 1, True, 0)
+    st[2].fill_(case == "every row done before the node")
+    start = [None if t is None else t.clone() for t in st]
+    eager = [None if t is None else t.clone() for t in st]
+    nxt = torch.empty(b, 1, dtype=torch.int64, device="cuda")
+
+    def body():
+        torch.index_select(ids, 1, st[6], out=nxt)
+        loop_tail.loop_tail(nxt.view(b), *st[1:], eot_id=TAIL_EOT)
+
+    main = torch.cuda.current_stream()
+    side, inner = torch.cuda.Stream(), torch.cuda.Stream()
+    side.wait_stream(main)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        body()                          # warm: the library loaded
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            with _while_node(graph, st[2], st[6], n, inner,
+                             tail=True) as info:
+                body()
+        finally:
+            graph.capture_end()
+    main.wait_stream(side)
+    assert info["body_ops"] == 2        # the gather and the tail: no C
+    steps = 0
+    while bool(loop_tail.condition_plain(eager[2], eager[6], n)):
+        loop_tail.loop_tail(ids[:, int(eager[6])].contiguous(), *eager[1:],
+                            eot_id=TAIL_EOT)
+        steps += 1
+    want_steps = {"rows ending at steps of their own": int(ends.max()),
+                  "no row ending": n - 1,
+                  "every row done before the node": 0}[case]
+    assert steps == want_steps
+    for _ in range(2):
+        for mine, first in zip(st[1:], start[1:]):
+            if mine is not None:
+                mine.copy_(first)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert int(st[6]) - 1 == steps
+        assert _bits_equal(st[1:], eager[1:])
 
 
 def test_pick_on_two_streams_at_once(gen):

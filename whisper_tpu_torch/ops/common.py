@@ -43,12 +43,15 @@ def tally_launches():
     so a launch adds the tally once a body that ran: ``defer_launches``
     notes the device count of bodies run, and ``settle_launches`` adds
     tally x count where the caller copies the results to the host (so an
-    ``_async`` form reads nothing)."""
+    ``_async`` form reads nothing).  A block within another tallies into
+    its own dict, and the outer block's takes the launches before and
+    after it (a while node's body within its graph's program)."""
+    outer = getattr(_TALLY, "counts", None)
     _TALLY.counts = {}
     try:
         yield _TALLY.counts
     finally:
-        _TALLY.counts = None
+        _TALLY.counts = outer
 
 
 def add_launches(tally: dict, times: int = 1) -> None:

@@ -93,10 +93,19 @@ SIGNATURES = {
     # captured from the body stream; done, n, trips, bound, parent stream,
     # body stream, capture mode, where the node's handle is written
     "wt_while_node_begin": [_P, _I, _P, _L, _P, _P, _I, _P],
-    # the handle, done, n, trips, bound, body stream, where the body's
-    # device operations are written (or null): the condition as the body's
-    # last node, then the end of the body's capture
-    "wt_while_node_end": [ctypes.c_ulonglong, _P, _I, _P, _L, _P, _P],
+    # the handle, done, n, trips, bound, body stream, whether to queue the
+    # condition as the body's last node (0: the body's tail set it), where
+    # the body's device operations are written (or null): the end of the
+    # body's capture
+    "wt_while_node_end": [ctypes.c_ulonglong, _P, _I, _P, _L, _P, _I, _P],
+    # nxt, lp (or null), done, buf, last, sum_lp (or null), n_tok (or
+    # null), pos, step, rows, cols, eot, the while node's handle, whether
+    # to set it, the node's bound, stream: the greedy step's tail
+    "wt_loop_tail": [_P] * 9 + [_I, _I, _L, ctypes.c_ulonglong, _I, _L, _P],
+    # done, n, trips, stream, launches: inside a capture, the condition
+    # kernel alone, each launch setting 0, then a while node that runs no
+    # iteration (timing)
+    "wt_condition_kernels": [_P, _I, _P, _P, _I],
     # logits, temperature, key, step, tok, uniforms (or null), scores (or
     # null), workspace, rows, vocab, row0, stream
     "wt_gumbel_pick": [_P] * 8 + [_I, _I, _I, _P],

@@ -64,7 +64,10 @@ eagerly (``--graph``).
 over the 301.574 s file, five times (e2e, host clock), and the graphed
 decode of its bucket of 16 and of its first chunk alone with no row ending
 (128 tokens, no read): the device ms of the decode and of a step (the
-prefill taken out), CUDA events, median of 7, and the host ms to queue it.
+prefill taken out), CUDA events, median of 7, and the host ms to queue it;
+then the device operations of an iteration of the bucket's while node
+(``_GraphLoop.body_ops``, from the body graph's nodes), without and with
+scores.
 It calls only what trees since the graphed loop have, so it also runs
 against an older one (that tree on ``PYTHONPATH``, this file run by its
 path): the cost of the loops' conditional node, tree against tree.
@@ -76,7 +79,8 @@ first pick captured ahead of the loop's while node: one launch from the
 gathered chunks to the tokens), the while node alone with the encoder and
 the prefill run eagerly before its launch (the form before the program),
 and the step captured flat (``runtime.generate._while_node`` replaced by
-a block that adds nothing) behind the same eager work and launched once a
+a block that adds nothing but the step's own tally; its loop tail then
+sets no condition) behind the same eager work and launched once a
 step (``CUDAGraph.replay`` repeated).  For ``transcribe_from_mel_async``
 over the 301.574 s file's chunks in a bucket of 16 with no row ending: the
 host ms to queue a 128-token decode beside one graph launch's host ms, a
@@ -661,6 +665,13 @@ def profile_decode_ms(params, audio) -> dict:
         out[f"bucket{b}_step_device_ms"] = (ms - pre) / DECODE_STEPS
         out[f"bucket{b}_queue_host_ms"] = statistics.median(
             w[1] for w in whole)
+    # an iteration's device operations, read from the body graph's nodes
+    # (trees since they are read), at bucket 16 without and with scores
+    for label, kw in (("", {}), ("_scores", {"with_scores": True})):
+        session._greedy(enc, prompt, *masks, DECODE_STEPS + 1, sp.eot,
+                        early_exit=False, **kw)
+        loop = next(reversed(session.graphs._loops.values()))
+        out[f"bucket16_body_ops{label}"] = getattr(loop, "body_ops", None)
     return out
 
 
@@ -676,6 +687,7 @@ def profile_conditional(params, audio) -> list:
     from whisper_tpu_torch.headline import make_session
     from whisper_tpu_torch.models.convert import init_params
     from whisper_tpu_torch.models.registry import get_dims
+    from whisper_tpu_torch.ops.common import tally_launches
     from whisper_tpu_torch.pipeline.chunk import chunk_starts, mel_frame_bucket
     from whisper_tpu_torch.runtime import generate
     from whisper_tpu_torch.runtime.genconfig import GenerationCfg
@@ -683,8 +695,11 @@ def profile_conditional(params, audio) -> list:
     from whisper_tpu_torch.variants.quant import quantize_params
 
     @contextlib.contextmanager
-    def flat(graph, done, trips, bound, body, pool=None):
-        yield None
+    def flat(graph, done, trips, bound, body, pool=None, tail=False):
+        info = {}
+        with tally_launches() as tally:
+            yield info
+        info["tally"] = dict(tally)
 
     node, program = generate._while_node, generate._GraphLoop
     replay = torch.cuda.CUDAGraph.replay

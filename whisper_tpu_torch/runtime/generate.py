@@ -41,10 +41,12 @@ the grammar, whether it samples, the scores, ``pad_count``, the front's
 kind and its inputs' shapes) holds the whole program: the front and
 ``prepare`` on a capture stream (the pre-node program), then the step as
 the body of a CUDA-graph conditional (while) node (``_while_node``,
-``csrc/graph_cond.cu``) whose kernel, ahead of the node and at the end of
-each iteration, sets it to the loop's condition, "trips < n and some row
-undone", so one launch runs the whole bucket on the card, from its input
-to its tokens, and stops where the JAX loop stops.  A call copies its
+``csrc/graph_cond.cu``) whose condition, "trips < n and some row undone",
+a kernel ahead of the node sets, and at the end of each iteration the
+step's last kernel (``ops.loop_tail``: the state's update after the pick
+and the condition in one launch), so one launch runs the whole bucket on
+the card, from its input to its tokens, and stops where the JAX loop
+stops.  A call copies its
 inputs into the key's static tensors (a bucket's windows by one indexed
 read, ``Gather``; the short path's upload as shipped) and queues that one
 launch; it reads nothing and returns before the decode ends.  The
@@ -101,7 +103,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from whisper_tpu_torch.models import whisper
 from whisper_tpu_torch.models.registry import WhisperDims
-from whisper_tpu_torch.ops import sampling
+from whisper_tpu_torch.ops import loop_tail, sampling
 from whisper_tpu_torch.ops.decoder_kernels import decoder_step_hybrid
 
 
@@ -159,9 +161,13 @@ class InPlaceState:
     one-element int64 counter that a step (a round) whose body runs
     advances by one, ``first`` before the loop's first step, which the
     while node holds under the loop's bound; ``outputs()``, copies of the
-    results, so that the next run may reuse the state."""
+    results, so that the next run may reuse the state;
+    ``sets_condition``, whether the step's last kernel sets the while
+    node's condition itself (the greedy step's ``ops.loop_tail``), so that
+    the node queues no condition kernel after the body."""
 
     done: torch.Tensor
+    sets_condition = False
 
     def tensors(self) -> list:
         raise NotImplementedError
@@ -195,7 +201,10 @@ def _storage_bytes(tensors) -> int:
 @dataclasses.dataclass
 class LoopState(InPlaceState):
     """The greedy loop's carried state: every field a tensor on the device
-    that one step updates in place (``_step_fn``)."""
+    that one step updates in place (``_step_fn``), whose tail kernel sets
+    the while node's condition."""
+
+    sets_condition = True
 
     last: torch.Tensor            # [B] int64, the token the step feeds
     pos: torch.Tensor             # [1] int32, its cache slot
@@ -238,7 +247,11 @@ def _step_fn(st: LoopState, params, dims: WhisperDims, *, eot_id: int,
     """One decode step over ``st``, in place: nothing is read on the host
     and no host value changes between steps (the draw's key and step are
     tensors of the state), so the body of a CUDA graph's while node runs
-    every step."""
+    every step.  The state's update after the pick is one call of
+    ``ops.loop_tail``, which in a while node's body also sets its
+    condition; the grammar's state follows it, from ``st.last`` (the
+    step's ids with done rows' EOT), and changes neither ``done`` nor the
+    step."""
     from whisper_tpu_torch.runtime import timestamps as ts
 
     def step() -> None:
@@ -259,18 +272,10 @@ def _step_fn(st: LoopState, params, dims: WhisperDims, *, eot_id: int,
         temperature = 0.0 if st.temperature is None else st.temperature
         nxt, lp = pick(logits, temperature, st.key, st.step, return_logprobs,
                        row0, st.pick_ws)
-        nxt = torch.where(st.done, eot_id, nxt)
-        if return_logprobs:
-            # rows done before this step add nothing
-            st.sum_lp.add_(torch.where(st.done, 0.0, lp))
-            st.n_tok.add_((~st.done).long())
+        loop_tail.loop_tail(nxt, lp, st.done, st.buf, st.last, st.pos,
+                            st.step, st.sum_lp, st.n_tok, eot_id=eot_id)
         if ts_cfg is not None:
-            ts.update_state_(st.ts, nxt, ts_cfg)
-        st.buf.index_copy_(1, st.step, nxt[:, None])
-        st.done.logical_or_(nxt == eot_id)
-        st.last.copy_(nxt)
-        st.pos.add_(1)
-        st.step.add_(1)
+            ts.update_state_(st.ts, st.last, ts_cfg)
 
     return step
 
@@ -336,7 +341,7 @@ _THREAD_LOCAL = 1   # cudaStreamCaptureModeThreadLocal
 
 @contextlib.contextmanager
 def _while_node(graph, done: torch.Tensor, trips: torch.Tensor, bound: int,
-                body, pool=None):
+                body, pool=None, tail: bool = False):
     """Within a capture of ``graph`` on the current stream: the work the
     block queues on the ``body`` stream (made current) becomes the body of
     a conditional (while) node on "``trips`` < ``bound`` and some flag of
@@ -345,17 +350,27 @@ def _while_node(graph, done: torch.Tensor, trips: torch.Tensor, bound: int,
     evaluated before the first iteration and after each, and the
     ``trips < bound`` term ends a loop whose rows never end.  Built through
     the CUDA runtime (``csrc/graph_cond.cu``): the card's torch has no
-    ``CUDAGraph`` method for conditional nodes.  The body's allocations go
-    to a memory pool of its own, kept until ``graph`` is gone; a failure
-    raises (``pool``: a pool id to take, else a new one).  A body whose
-    capture fails leaves a node that the runtime
+    ``CUDAGraph`` method for conditional nodes.  A condition kernel (C)
+    ahead of the node sets the condition at every launch; after each
+    iteration C at the end of the body sets it or, with ``tail``, the
+    body's loop tail (``ops.loop_tail``), which takes the node's handle
+    here: a ``tail`` body that launches no tail kernel, or more than one,
+    raises (its body then ends in C, so no node is made whose condition
+    nothing sets).  C counts in ``ops.loop_tail.condition_launches``: the
+    one ahead of the node where the block's caller tallies (a graph's
+    program: once a launch), those ending the body in the body's tally.
+    The body's allocations go to a memory pool of its own, kept until
+    ``graph`` is gone; a failure raises (``pool``: a pool id to take, else
+    a new one).  A body whose capture fails leaves a node that the runtime
     cannot instantiate (the process dies in ``capture_end``):
     ``_GraphLoop._trial_capture`` raises for such a step first.  Yields a
-    dict that holds, once the block has ended, "body_ops": the device
-    operations an iteration runs, read from the body graph's nodes
-    (kernels, copies and fills; -1 where the body holds a conditional
-    node)."""
+    dict that holds, once the block has ended, "tally": the launches the
+    body tallied (``ops.common.tally_launches``), an iteration's, and
+    "body_ops": the device operations an iteration runs, read from the
+    body graph's nodes (kernels, copies and fills; -1 where the body holds
+    a conditional node)."""
     from whisper_tpu_torch.ops import kernels
+    from whisper_tpu_torch.ops.common import count_launch, tally_launches
 
     if done.dtype != torch.bool or not done.is_contiguous():
         raise ValueError("the while node reads contiguous bools")
@@ -372,20 +387,39 @@ def _while_node(graph, done: torch.Tensor, trips: torch.Tensor, bound: int,
         kernels.check(lib.wt_while_node_begin(
             *args, parent, body.cuda_stream, _THREAD_LOCAL,
             ctypes.byref(handle)), "wt_while_node_begin")
+        count_launch(loop_tail, condition_launches=1)
         if pool is None:
             pool = torch.cuda.graph_pool_handle()
         taken = True
         info = {}
+        offer = None
+        set_by_tail = False
         with torch.cuda.stream(body):
             torch._C._cuda_beginAllocateCurrentStreamToPool(index, pool)
             try:
-                yield info
+                with tally_launches() as tally, (
+                        loop_tail.offer_condition(handle.value, done, trips,
+                                                  bound)
+                        if tail else contextlib.nullcontext()) as offer:
+                    try:
+                        yield info
+                    finally:
+                        set_by_tail = offer is not None and offer.taken == 1
+                        if not set_by_tail:      # C ends the body
+                            count_launch(loop_tail, condition_launches=1)
             finally:
                 torch._C._cuda_endAllocateToPool(index, pool)
                 rc = lib.wt_while_node_end(handle.value, *args,
                                            body.cuda_stream,
+                                           int(not set_by_tail),
                                            ctypes.byref(body_ops))
         kernels.check(rc, "wt_while_node_end")
+        if tail and not set_by_tail:
+            raise RuntimeError(
+                f"the while node's body launched {offer.taken} loop tail "
+                "kernels that set its condition, not one: its condition "
+                "would be set by none, or twice")
+        info["tally"] = dict(tally)
         info["body_ops"] = body_ops.value
     except BaseException:
         if taken:
@@ -561,18 +595,22 @@ class _GraphLoop:
                 trials.append(self._trial_capture(step, body_stream,
                                                   pools[1]))
             graph = torch.cuda.CUDAGraph()
-            tally, body = {}, {}
+            body = {}
             with torch.cuda.stream(own):
                 graph.capture_begin(pool=pools[0],
                                     capture_error_mode="thread_local")
                 try:
+                    # the node's condition kernel ahead of it counts with
+                    # the pre-node program, once a launch; the body keeps
+                    # its own tally, once an iteration
                     with tally_launches() as pre_tally:
                         pre()
-                    if step is not None:
-                        with tally_launches() as tally, _while_node(
-                                graph, done, trips, bound, body_stream,
-                                pools[1]) as body:
-                            step()
+                        if step is not None:
+                            with _while_node(
+                                    graph, done, trips, bound, body_stream,
+                                    pools[1],
+                                    self.state.sets_condition) as body:
+                                step()
                 finally:
                     try:
                         graph.capture_end()
@@ -582,8 +620,8 @@ class _GraphLoop:
                         del _CAPTURE_STREAMS[self.device]
                         raise
         del trials
-        self.graph, self.pre_tally, self.tally = graph, dict(pre_tally), \
-            dict(tally)
+        self.graph, self.pre_tally = graph, dict(pre_tally)
+        self.tally = body.get("tally", {})
         self.body_ops = body.get("body_ops", 0)
         self.pools = pools
         self.capture_s = time.perf_counter() - t0
