@@ -257,14 +257,23 @@ What it does, in order (any failure raises and exits non-zero):
 9c. ``[parallel]`` (``check_parallel``), whisper-base, the 301.574 s file:
    (a) a world of one over NCCL through the mesh code path
    (``make_mesh(1, 1)``, ``shard_params``, the data rows, the row-parallel
-   branches), tokens bitwise and launches equal to the session's without
-   a group; (b) two ranks sharing cuda:0 over gloo (``python3
+   branches), graphed by the rule (``generate.graphed``): one graph launch
+   a bucket, tokens bitwise and launches equal to the session's without a
+   group and to the same world run eagerly, e2e of both; (a') an NCCL
+   all-reduce on the world's group captured in a while node's body (the
+   trial capture's nodes walked first): its trips and values bitwise an
+   eager loop of the same steps, its device µs an iteration beside the
+   same body without it; (b) two ranks sharing cuda:0 over gloo (``python3
    chip_smoke.py --parallel-rank R PORT REF OUT`` each, spawned with a
-   timeout; a rank that exits non-zero fails the run): DP 2 at x5, TP 2 at
-   x5 and at x7 (4 of 8 heads a rank), each rank's B1, B2, B3 or B8 and B4
-   launches counted, every chunk that differs from the one-process bucket-16
-   rows judged by ``divergence_report`` (a divergence that is not a
-   tie-flip fails), e2e printed beside the one-process run's.
+   timeout; a rank that exits non-zero fails the run): DP 2 at x5, each
+   rank graphed (its model axis of one rank; the tokens' gather over gloo
+   after the launch), one launch a bucket, its tokens bitwise its own
+   eager run; TP 2 at x5 and at x7 (4 of 8 heads a rank), eager by the
+   rule (the model axis over gloo), a line saying so; each rank's B1, B2,
+   B3 or B8 and B4 launches counted, every chunk that differs from the
+   one-process bucket-16 rows judged by ``divergence_report`` (a divergence
+   that is not a tie-flip fails), e2e printed beside the one-process
+   run's.
 10. Prints one JSON line with the kernels (the tail's and C's launches:
    the main path's, 127 tails and one C a 128-token bucket), then, as the
    last line,
@@ -5372,15 +5381,51 @@ def _zero_module_counts() -> None:
     cross_attention.launches = 0
 
 
+def _async_dispatch(session, audio, calls: int = 3) -> tuple:
+    """The file's bucket through ``transcribe_from_mel_async``: (host ms
+    until it returns, its program and under a mesh the tokens' gather
+    queued; ms of the card's span of that work, CUDA events; graph launches
+    a call), medians of ``calls`` after one more; then the pools the
+    session's graphs keep (bytes)."""
+    import torch
+
+    from whisper_tpu_torch.frontend import golden
+    from whisper_tpu_torch.pipeline.chunk import chunk_starts, mel_frame_bucket
+
+    nv = golden.num_frames(len(audio))
+    mel = session.compute_mel(golden.reflect_pad(audio), nv,
+                              mel_frame_bucket(nv))
+    starts = [p // golden.HOP for p in chunk_starts(len(audio), 480_000,
+                                                    400_000)]
+    out = []
+    for _ in range(calls + 1):
+        torch.cuda.synchronize()
+        ev0, ev1 = torch.cuda.Event(True), torch.cuda.Event(True)
+        ev0.record()
+        t0 = time.perf_counter()
+        with _graph_launches() as launches:
+            pieces = session.transcribe_from_mel_async(mel, starts, PROMPT,
+                                                       128, EOT)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev1.record()
+        session.gather_tokens(pieces, len(starts), 128)
+        out.append((host_ms, ev0.elapsed_time(ev1), len(launches)))
+    return (*(statistics.median(o[i] for o in out[1:]) for i in range(3)),
+            sum(session.graphs.pools().values()))
+
+
 def parallel_rank(rank: int, port: int, ref_path: str, out_path: str) -> int:
     """One of the two ranks of ``[parallel]`` (b): a gloo world of 2 on
     cuda:0 (NCCL refuses two ranks on one card; gloo carries the CUDA
     tensors through the host).  Each configuration of
-    ``PARALLEL_CONFIGS``: a short warm-up, then one run of the 301.574 s
-    file with the counts set to 0 just before and read just after; every
-    chunk whose chain differs from the one-process bucket-16 run's is
-    judged by ``divergence_report`` (through the mesh session's own field
-    under TP).  Writes its results to ``out_path``."""
+    ``PARALLEL_CONFIGS``: a warm-up (a graphed rank's at the run's key, so
+    the run captures nothing; an eager one short), then one run of the
+    301.574 s file with the counts set to 0 just before and read just
+    after, its graph launches counted; a graphed rank runs the file once
+    more eagerly (``eager_decode``), whose tokens must be its graphed
+    run's; every chunk whose chain differs from the one-process bucket-16
+    run's is judged by ``divergence_report`` (through the mesh session's
+    own field under TP).  Writes its results to ``out_path``."""
     import numpy as np
     import torch
 
@@ -5409,16 +5454,30 @@ def parallel_rank(rank: int, port: int, ref_path: str, out_path: str) -> int:
     for label, variant, dp, tp in PARALLEL_CONFIGS:
         session = make_session("cuda", params, variant, data_parallel=dp,
                                tensor_parallel=tp)
-        run_once(session, audio, max_new_tokens=8)          # warm-up
+        path = session.decode_path
+        graphed = path == "graphed"
+        run_once(session, audio, max_new_tokens=128 if graphed else 8)
         _zero_module_counts()
         torch.cuda.synchronize()
         collector = []
-        t0 = time.perf_counter()
-        _, timing = run_once(session, audio, token_collector=collector)
-        torch.cuda.synchronize()
-        e2e = time.perf_counter() - t0
+        with _graph_launches() as launches:
+            t0 = time.perf_counter()
+            _, timing = run_once(session, audio, token_collector=collector)
+            torch.cuda.synchronize()
+            e2e = time.perf_counter() - t0
         counts = _module_counts()
         toks = collector[0]
+        eager = {}
+        if graphed:
+            collector = []
+            with _eager_loop(session):
+                t0 = time.perf_counter()
+                run_once(session, audio, token_collector=collector)
+                torch.cuda.synchronize()
+                eager = {"e2e_eager": time.perf_counter() - t0,
+                         "eager_equal": bool(np.array_equal(collector[0],
+                                                            toks))}
+            eager["async"] = _async_dispatch(session, audio)
         want = np.asarray(ref[variant], dtype=toks.dtype)
         s_ref = make_session("cuda", params, variant)
         mel = s_ref.compute_mel(golden.reflect_pad(audio), nv,
@@ -5427,6 +5486,8 @@ def parallel_rank(rank: int, port: int, ref_path: str, out_path: str) -> int:
             s_ref, session if tp > 1 else s_ref, mel,
             [(s, PROMPT) for s in starts], want, toks, EOT, label)
         out[label] = {"e2e": e2e, "model_s": timing.model_only_s,
+                      "path": path, "launches": len(launches),
+                      "launch_ms": launches, **eager,
                       "counts": counts, "rows_equal": int(sum(
                           (a == b).all() for a, b in zip(toks, want))),
                       "tokens_equal": float((toks == want).mean()),
@@ -5453,21 +5514,100 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _node_all_reduce(group, trips: int = 128) -> dict:
+    """``[parallel]`` (a'): ``dist.all_reduce`` on ``group`` (NCCL) inside
+    a while node's body, [16, 512] fp32 (a TP rank's partial O, XO or FC2
+    output at bucket 16): the body ``y = x * 0.75 + 0.125``, the
+    all-reduce of y, ``x = y``, ``trips += 1``, under the bound ``trips``
+    (no done flag ever set).  The body's trial capture is walked first
+    (``generate._bad_body_node``), then the graph of one node launched:
+    trips and x bitwise an eager loop of the same steps.  Device µs an
+    iteration (CUDA events over a launch, best of three) beside the same
+    body without the all-reduce, and each body's device operations."""
+    import torch
+    import torch.distributed as dist
+
+    from whisper_tpu_torch.runtime.generate import _bad_body_node
+
+    dev = torch.device("cuda")
+    x0 = torch.randn(16, 512, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(5))
+    out = {}
+    for reduce in (True, False):
+        x = x0.clone()
+        count = torch.zeros(1, dtype=torch.long, device=dev)
+        done = torch.zeros(1, dtype=torch.bool, device=dev)
+
+        def body():
+            y = x * 0.75 + 0.125
+            if reduce:
+                dist.all_reduce(y, group=group)
+            x.copy_(y)
+            count.add_(1)
+
+        want = x0.clone()
+        for _ in range(trips):         # eager: the communicator made here
+            want = want * 0.75 + 0.125
+            if reduce:
+                dist.all_reduce(want, group=group)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        trial = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            trial.capture_begin(capture_error_mode="thread_local")
+            try:
+                body()
+                bad = _bad_body_node(side)
+            finally:
+                trial.capture_end()
+        del trial
+        if bad is not None:
+            raise AssertionError(f"[parallel] (a') the all-reduce left a "
+                                 f"node of type {bad} in a capture")
+        graph, info = _node_graph(done, count, trips, body)
+        times = []
+        for _ in range(3):
+            x.copy_(x0)
+            count.zero_()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) * 1e3 / trips)
+            if int(count) != trips or not torch.equal(x, want):
+                raise AssertionError(
+                    f"[parallel] (a') the while node ran {int(count)} "
+                    f"trips of {trips}, x bitwise the eager loop's: "
+                    f"{torch.equal(x, want)} (all-reduce {reduce})")
+        out["with" if reduce else "without"] = (min(times),
+                                                info["body_ops"])
+    return out
+
+
 def check_parallel(card: str, results, params, dims, audio, x5,
                    x7_tokens) -> None:
     """``[parallel]``, whisper-base at full width, the 301.574 s file.
     (a) A world of one over NCCL through the mesh code path (dp = tp = 1:
     ``make_mesh`` over the group, ``shard_params``, the data rows, the
-    row-parallel branches, whose sums over one rank make no call): tokens
-    bitwise the session's without a group, the same launches.  (b) Two ranks sharing cuda:0 over gloo, spawned with a
-    timeout (``parallel_rank``): DP 2 at x5, TP 2 at x5 and at x7 (4 of 8
-    heads a rank through B1, B3 or B8, and B4); every divergence from the
-    one-process rows must be a tie-flip, each rank's launches as predicted.
-    e2e beside the one-process run's: two processes on one card, gloo
-    copying through the host; a record, not a claim."""
+    row-parallel branches, whose sums over one rank make no call), graphed
+    by the rule: one graph launch a bucket, tokens bitwise the session's
+    without a group and the same world's eager run, the same launches;
+    e2e of both.  (a') An NCCL all-reduce in a while node's body
+    (``_node_all_reduce``), and what the card's torch offers of NCCL's own
+    calls on the group's communicator.  (b) Two ranks sharing cuda:0 over
+    gloo, spawned with a timeout (``parallel_rank``): DP 2 at x5, each
+    rank graphed, one launch a bucket, bitwise its eager run; TP 2 at x5
+    and at x7 (4 of 8 heads a rank through B1, B3 or B8, and B4), eager by
+    the rule; every divergence from the one-process rows must be a
+    tie-flip, each rank's launches as predicted.  e2e beside the
+    one-process run's: two processes on one card, gloo copying through the
+    host; a record, not a claim."""
     import subprocess
 
     import numpy as np
+    import torch
     import torch.distributed as dist
 
     from whisper_tpu_torch.headline import make_session
@@ -5478,27 +5618,65 @@ def check_parallel(card: str, results, params, dims, audio, x5,
     pm.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0, backend="nccl",
                         timeout_s=300)
     try:
-        session = make_session("cuda", params, "x5", mesh=pm.make_mesh(1, 1))
-        e2e, timing, toks, c = _timed_run(session, audio, results)
+        mesh = pm.make_mesh(1, 1)
+        session = make_session("cuda", params, "x5", mesh=mesh)
+        path = session.decode_path
+        if path != "graphed":
+            raise AssertionError(f"[parallel] (a) a world of one over NCCL "
+                                 f"decodes {path}, not graphed by the rule")
+        with _graph_launches() as launches:
+            e2e, timing, toks, c = _timed_run(session, audio, results)
+        with _eager_loop(session), _graph_launches() as eager_launches:
+            e2e_eager, timing_eager, toks_eager, c_eager = _timed_run(
+                session, audio, results)
+        a_host, a_span, a_launches, a_pools = _async_dispatch(session, audio)
         del session
         # one NCCL collective on the card: the tokens summed over the world
-        import torch
-
         summed = torch.as_tensor(toks, device="cuda")
         dist.all_reduce(summed)
         if not np.array_equal(summed.cpu().numpy(), toks):
             raise AssertionError("[parallel] (a) an NCCL all-reduce over a "
                                  "world of one changed its tensor")
+        node = _node_all_reduce(mesh.group(pm.MODEL_AXIS))
+        backend = mesh.group(pm.MODEL_AXIS)._get_backend(
+            torch.device("cuda"))
+        comm_ptr = hasattr(backend, "_comm_ptr")
+        version = torch.cuda.nccl.version()
+        nccl_version = (".".join(map(str, version))
+                        if isinstance(version, tuple) else str(version))
     finally:
         dist.destroy_process_group()
-    if not np.array_equal(toks, x5[2]) or c != x5[3]:
+    # the warm-up's launch and the run's: one bucket of 16 each
+    if len(launches) != 2 or eager_launches:
+        raise AssertionError(f"[parallel] (a) graph launches {len(launches)}"
+                             f" graphed (2: the warm-up's and the run's), "
+                             f"{len(eager_launches)} eager")
+    if not (np.array_equal(toks, x5[2]) and np.array_equal(toks_eager, toks)
+            and c == x5[3] == c_eager):
         raise AssertionError("[parallel] (a) the world of one over NCCL "
-                             "differs from the session without a group")
+                             "differs from the session without a group or "
+                             "from its eager run")
     print(f"[parallel] (a) whisper-base x5, 301.574 s, a world of one over "
-          f"NCCL through the mesh (dp 1 x tp 1) on {card}: tokens bitwise "
-          f"the one-process run's, launches equal; e2e {e2e:.4f} s, model "
-          f"{timing.model_only_s:.4f} s (one-process median {x5[0]:.4f} s)",
-          flush=True)
+          f"NCCL through the mesh (dp 1 x tp 1) on {card}: {path} by the "
+          f"rule, one graph launch a bucket (host {launches[-1]:.3f} ms); "
+          f"tokens bitwise the one-process run's and the eager run's, "
+          f"launches equal; e2e {e2e:.4f} s graphed, {e2e_eager:.4f} s "
+          f"eager (model {timing.model_only_s:.4f} / "
+          f"{timing_eager.model_only_s:.4f} s; one-process median "
+          f"{x5[0]:.4f} s); transcribe_from_mel_async returns after "
+          f"{a_host:.3f} ms of host time, {a_launches:.0f} launch, of a "
+          f"{a_span:.3f} ms span on the card; pools {a_pools / 2**30:.3f} "
+          "GiB", flush=True)
+    (with_us, with_ops), (without_us, without_ops) = (node["with"],
+                                                      node["without"])
+    print(f"[parallel] (a') an NCCL all-reduce of [16, 512] fp32 on the "
+          f"world's group inside a while node's body on {card}: 128 trips "
+          f"and values bitwise the eager loop; no node a body may not hold "
+          f"in its trial capture; {with_us:.3f} µs an iteration, "
+          f"{with_ops} device operations a body, against {without_us:.3f} "
+          f"µs and {without_ops} without the all-reduce (NCCL "
+          f"{nccl_version} in torch {torch.__version__}; the group's "
+          f"backend has _comm_ptr: {comm_ptr})", flush=True)
 
     with tempfile.TemporaryDirectory() as tmp:
         ref_path = os.path.join(tmp, "ref.json")
@@ -5525,6 +5703,19 @@ def check_parallel(card: str, results, params, dims, audio, x5,
     steps = 127 * n_l
     for label, variant, dp, tp in PARALLEL_CONFIGS:
         r0, r1 = ranks[0][label], ranks[1][label]
+        for r, res in enumerate((r0, r1)):
+            if tp == 1 and (res["path"] != "graphed" or res["launches"] != 1
+                            or not res["eager_equal"]):
+                raise AssertionError(
+                    f"[parallel] (b) {label} rank {r}: {res['path']}, "
+                    f"{res['launches']} graph launches (1: one bucket), "
+                    f"eager tokens equal {res.get('eager_equal')}")
+            if tp > 1 and (not res["path"].startswith("eager")
+                           or res["launches"]):
+                raise AssertionError(
+                    f"[parallel] (b) {label} rank {r}: {res['path']}, "
+                    f"{res['launches']} graph launches, not eager by the "
+                    "rule")
         self_b = "self_attend_step_int8" if variant == "x7" \
             else "self_attend_step"
         want = {"fused_attention": n_e, "fused_encoder_mlp": n_e,
@@ -5552,6 +5743,21 @@ def check_parallel(card: str, results, params, dims, audio, x5,
               f"(largest reference margin {r0['margin']:.4f}, "
               f"max_dlogit_chain {r0['max_dlogit_chain']:.4f}); launches a "
               f"rank {r0['counts']} / {r1['counts']}", flush=True)
+        if tp == 1:
+            (h0, s0, _, p0), (h1, s1, _, p1) = r0["async"], r1["async"]
+            print(f"[parallel] (b) {label}: each rank graphed, one launch "
+                  f"a bucket (host {r0['launch_ms'][0]:.3f} / "
+                  f"{r1['launch_ms'][0]:.3f} ms), tokens bitwise its eager "
+                  f"run; e2e eager rank 0 {r0['e2e_eager']:.4f} s, rank 1 "
+                  f"{r1['e2e_eager']:.4f} s; transcribe_from_mel_async "
+                  f"returns after {h0:.3f} / {h1:.3f} ms of host time (the "
+                  f"gloo gather waits for the card), spans {s0:.3f} / "
+                  f"{s1:.3f} ms; pools a rank {p0 / 2**30:.3f} / "
+                  f"{p1 / 2**30:.3f} GiB", flush=True)
+        else:
+            print(f"[parallel] (b) {label}: {r0['path']}: the rule "
+                  "(generate.graphed) chose the eager loop before any "
+                  "capture, no graph launched", flush=True)
     print(f"[parallel] phase {time.perf_counter() - t0:.1f} s", flush=True)
 
 

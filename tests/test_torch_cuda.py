@@ -2857,3 +2857,180 @@ def test_a_graphed_call_holds_one_cache_and_counts_its_pools(gen):
           f"{loop.pool_nbytes} B, reserved {reserved} B")
     assert abs(held - state) <= 2 * 2**20
     assert 0 < loop.pool_nbytes <= reserved
+
+
+# ---------------------------------------------------------------------------
+# A mesh rank's program (runtime.generate.graphed): a world of one over
+# NCCL in this process, the only NCCL world one card allows (NCCL refuses
+# two ranks on one card)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_world(gen):
+    """A process group of one over NCCL on a free localhost port, and its
+    mesh (``make_mesh(1, 1)``: every group a communicator of this rank on
+    this card); the group is destroyed after the test."""
+    import socket
+
+    import torch.distributed as dist
+
+    from whisper_tpu_torch.parallel import mesh as pm
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    pm.init_distributed(f"127.0.0.1:{port}", 1, 0, backend="nccl",
+                        timeout_s=120)
+    try:
+        yield pm.make_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_call(loop, tree, dims, draft, enc, zero, prompt, mesh, graphs,
+               eager=False):
+    """One x5 call of ``loop`` (greedy, greedy sampled at T = 0.5, beams
+    K = 4, speculative) under ``mesh``: its tokens."""
+    from whisper_tpu_torch.runtime import beam, speculative
+    from whisper_tpu_torch.runtime.generate import greedy_generate
+
+    kw = dict(int8_cross_kv=True, int8_mxu=True, mesh=mesh, eager=eager,
+              graphs=graphs)
+    if loop.startswith("greedy"):
+        if loop == "greedy sampled":
+            kw.update(temperature=0.5, generator=torch.Generator(
+                device="cuda").manual_seed(3))
+        return greedy_generate(tree, dims, enc, prompt, zero, zero, 24, 251,
+                               kernel_step=True, **kw)
+    if loop == "beam":
+        return beam.beam_generate(tree, dims, enc, prompt, zero, zero, 24,
+                                  251, 4, packed_cross=True, **kw)[0]
+    return speculative.speculative_generate(
+        tree, dims, draft, dims, enc, enc, prompt, zero, zero, 24, 251, 3,
+        packed_draft=True, packed_main=True, **kw)[0]
+
+
+@pytest.mark.parametrize("loop", ["greedy", "greedy sampled", "beam",
+                                  "speculative"])
+def test_a_world_of_one_over_nccl_runs_a_call_in_one_launch(gen, nccl_world,
+                                                            loop):
+    """The mesh code path over NCCL (the sharded wrappers, the
+    row-parallel branches, whose sums over one rank make no call) graphs
+    by the rule: the capture's call and a later one launch the graph once
+    each, nothing else, and give the same mesh's eager tokens, which are
+    the tokens of the decode without a mesh, graphed."""
+    from whisper_tpu_torch.runtime.generate import DecodeGraphs, graphed
+
+    mesh = nccl_world
+    dims, tree, draft, enc, zero, prompt = _spec_inputs(gen, 17)
+    assert mesh.model_backend == "nccl" and graphed(enc.device, mesh, False)
+    graphs = DecodeGraphs(tree, draft_params=draft)
+    args = (loop, tree, dims, draft, enc, zero, prompt)
+    want = _mesh_call(*args, mesh, graphs, eager=True)
+    for _ in range(2):
+        with _graph_launches() as launches:
+            got = _mesh_call(*args, mesh, graphs)
+        assert len(launches) == 1
+        assert torch.equal(got, want)
+    assert len(graphs.captures()) == 1
+    assert torch.equal(_mesh_call(*args, None, DecodeGraphs(
+        tree, draft_params=draft)), want)
+
+
+def test_an_nccl_all_reduce_in_a_while_node_body(gen, nccl_world):
+    """One ``dist.all_reduce`` on the world's NCCL group in a while node's
+    body, beside the body's arithmetic and its counter: the trial capture
+    holds no node a body may not hold, and one launch of the node's graph
+    runs the bound's trips with x bitwise an eager loop of the same steps,
+    twice."""
+    import torch.distributed as dist
+
+    from whisper_tpu_torch.parallel import mesh as pm
+    from whisper_tpu_torch.runtime.generate import _bad_body_node, _while_node
+
+    group = nccl_world.group(pm.MODEL_AXIS)
+    x0 = torch.randn(16, 512, generator=gen, device="cuda")
+    x = x0.clone()
+    trips = torch.zeros(1, dtype=torch.long, device="cuda")
+    done = torch.zeros(1, dtype=torch.bool, device="cuda")
+    bound = 40
+
+    def body():
+        y = x * 0.75 + 0.125
+        dist.all_reduce(y, group=group)
+        x.copy_(y)
+        trips.add_(1)
+
+    want = x0.clone()
+    for _ in range(bound):                 # the communicator made eagerly
+        want = want * 0.75 + 0.125
+        dist.all_reduce(want, group=group)
+    side, inner = torch.cuda.Stream(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    trial = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        trial.capture_begin(capture_error_mode="thread_local")
+        try:
+            body()
+            bad = _bad_body_node(side)
+        finally:
+            trial.capture_end()
+    assert bad is None
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            with _while_node(graph, done, trips, bound, inner) as info:
+                body()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    print(f"body operations {info['body_ops']}")
+    for _ in range(2):
+        x.copy_(x0)
+        trips.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert int(trips) == bound
+        assert torch.equal(x, want)
+
+
+def test_a_body_holding_a_node_no_body_may_hold_raises(gen, monkeypatch):
+    """A step that records an external event (an event record node, which
+    a while node's body may not hold) raises in its trial capture, naming
+    the node's type, before a node is made: nothing captured, nothing falls
+    back; once the step is whole again the key captures and gives the
+    eager loop's tokens."""
+    from whisper_tpu_torch.runtime import generate
+
+    dims, tree = _small_model(8)
+    enc = _randn(gen, 2, 1500, 128)
+    zero = torch.zeros(320, device="cuda")
+    prompt = torch.tensor([250, 252, 253, 254], device="cuda")
+    graphs = generate.DecodeGraphs(tree)
+    make = generate._step_fn
+    events = []      # alive while a graph holds their nodes
+
+    def recording(*a, **kw):
+        step = make(*a, **kw)
+
+        def run():
+            step()
+            events.append(torch.cuda.Event(external=True))
+            events[-1].record()
+        return run
+
+    def run(eager=False):
+        return generate.greedy_generate(
+            tree, dims, enc, prompt, zero, zero, 12, 251, int8_cross_kv=True,
+            kernel_step=True, graphs=graphs, eager=eager)
+
+    monkeypatch.setattr(generate, "_step_fn", recording)
+    with pytest.raises(RuntimeError, match='type "event record"'):
+        run()
+    assert not graphs.captures()
+    monkeypatch.setattr(generate, "_step_fn", make)
+    torch.cuda.synchronize()
+    got = run()
+    assert len(graphs.captures()) == 1
+    assert torch.equal(got, run(eager=True))

@@ -33,6 +33,14 @@
 // (rows in turn past 128), the OR across rows one __syncthreads_or, and
 // the point of the tail is the launches it removes.
 //
+// A conditional node's body may hold kernel, copy, fill, empty,
+// child-graph and conditional nodes only (CUDA's rules for body graphs): no
+// event record or wait, host, allocation or semaphore node.  A body with
+// one makes a graph the runtime cannot instantiate, so the step's throwaway
+// trial capture is walked first (wt_capture_bad_node) and the caller raises
+// before any node is made: a collective that left such a node in a step
+// (a mesh's, captured with it) is found there.
+//
 // Every entry point returns a cudaError_t, 0 on success; none
 // synchronises.  Needs CUDA 12.3 or later (conditional nodes,
 // cudaStreamBeginCaptureToGraph).
@@ -138,7 +146,50 @@ cudaError_t work_nodes(cudaGraph_t g, long long* ops) {
   }
   return e;
 }
+bool allowed_in_body(cudaGraphNodeType type) {
+  return type == cudaGraphNodeTypeKernel || type == cudaGraphNodeTypeMemcpy ||
+         type == cudaGraphNodeTypeMemset || type == cudaGraphNodeTypeEmpty ||
+         type == cudaGraphNodeTypeGraph ||
+         type == cudaGraphNodeTypeConditional;
+}
+
+// The type of the first node of graph g, or of its child graphs, that a
+// conditional node's body may not hold, in *bad; *bad stays -1 if none.
+cudaError_t first_bad_node(cudaGraph_t g, int* bad) {
+  size_t n = 0;
+  cudaError_t e = cudaGraphGetNodes(g, nullptr, &n);
+  if (e != cudaSuccess) return e;
+  std::vector<cudaGraphNode_t> nodes(n);
+  if (n > 0) e = cudaGraphGetNodes(g, nodes.data(), &n);
+  for (size_t i = 0; i < n && e == cudaSuccess && *bad < 0; ++i) {
+    cudaGraphNodeType type;
+    e = cudaGraphNodeGetType(nodes[i], &type);
+    if (e != cudaSuccess) break;
+    if (!allowed_in_body(type)) {
+      *bad = static_cast<int>(type);
+    } else if (type == cudaGraphNodeTypeGraph) {
+      cudaGraph_t child;
+      e = cudaGraphChildGraphNodeGetGraph(nodes[i], &child);
+      if (e == cudaSuccess) e = first_bad_node(child, bad);
+    }
+  }
+  return e;
+}
 }  // namespace
+
+// Inside a capture on the stream, before it ends: the type of the first
+// node captured so far that a while node's body may not hold (a
+// cudaGraphNodeType), in *bad; -1 if every node may be there.
+extern "C" int wt_capture_bad_node(void* stream, int* bad) {
+  *bad = -1;
+  cudaGraph_t graph;
+  const cudaGraphNode_t* deps;
+  size_t n;
+  cudaError_t e = capture_info(static_cast<cudaStream_t>(stream), &graph,
+                               &deps, &n);
+  if (e != cudaSuccess) return e;
+  return first_bad_node(graph, bad);
+}
 
 // done [n_done] bools and trips [1] int64 on the card; handle: where the
 // node's handle is written, for wt_while_node_end.

@@ -166,7 +166,9 @@ def _row_dense(x, w, b, mesh, full: int, int8_act: bool = False):
     - w and x are both whole: ``_dense``.
 
     A model axis of one takes the first branch, whose sum over one rank
-    is no call at all."""
+    is no call at all.  Nothing is read on the host: inside a rank's
+    captured program (``runtime.generate``) the collectives are captured
+    with the products around them."""
     if mesh is None:
         return _dense(x, w, b, int8_act)
     from whisper_tpu_torch.parallel import mesh as pm

@@ -98,6 +98,10 @@ SIGNATURES = {
     # the body's device operations are written (or null): the end of the
     # body's capture
     "wt_while_node_end": [ctypes.c_ulonglong, _P, _I, _P, _L, _P, _I, _P],
+    # stream, where the type is written: inside a capture on the stream,
+    # the first node captured that a while node's body may not hold (-1:
+    # none)
+    "wt_capture_bad_node": [_P, _P],
     # nxt, lp (or null), done, buf, last, sum_lp (or null), n_tok (or
     # null), pos, step, rows, cols, eot, the while node's handle, whether
     # to set it, the node's bound, stream: the greedy step's tail

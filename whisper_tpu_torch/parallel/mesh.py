@@ -23,7 +23,17 @@ A rank's local rank order is JAX's ``devices.reshape(data, model)``: rank
 = data_index * model + model_index.  The backend is NCCL on cards and gloo
 on the CPU (gloo also carries CUDA tensors, through the host, where two
 ranks share a card).  Every group has a finite timeout, so a rank that
-stops answering fails its peers instead of hanging them.
+stops answering fails its peers instead of hanging them, as long as its
+collectives are called from the host; a collective captured in a CUDA
+graph (``runtime.generate``: a rank's bucket program) has no work item the
+group's watchdog could time out, so the ranks of a captured program must
+take the same trips through it (they do: see ``runtime.generate``).
+
+A collective over NCCL queues on the card and can be captured in a CUDA
+graph, the program's collectives then replaying with it, as GSPMD puts
+them inside the JAX program; over gloo it goes through the host and
+cannot.  ``Mesh.capturable`` records which holds for the model axis, the
+only one a decode loop reduces over.
 """
 
 from __future__ import annotations
@@ -54,13 +64,27 @@ class Mesh:
     """This process's place in a (data, model) grid of processes.
 
     ``device_mesh`` holds the process groups (None for a mesh made only
-    to slice parameters, as ``shard_params`` needs no group)."""
+    to slice parameters, as ``shard_params`` needs no group);
+    ``model_backend`` the model group's backend ("nccl", "gloo"; None
+    without groups)."""
 
     data: int = 1
     model: int = 1
     data_index: int = 0
     model_index: int = 0
     device_mesh: object = None
+    model_backend: Optional[str] = None
+
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can capture the collectives of a decode
+        loop on this rank: those over "model", which make no call on an
+        axis of one rank and queue on the card over NCCL (gloo carries a
+        CUDA tensor through the host, which no capture can hold).  The
+        data axis's one collective, the tokens' gather, comes after the
+        loop, outside any graph.  A mesh without groups counts as
+        capturable only where its model axis has one rank."""
+        return self.model == 1 or self.model_backend == "nccl"
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -128,7 +152,8 @@ def make_mesh(n_devices: Optional[int] = None, model_parallel: int = 1, *,
     and the process group must hold exactly n_devices ranks: one process a
     card.  Raises RuntimeError naming torchrun without a process group.
     Its groups time out as the process group does (``init_distributed``'s
-    timeout_s), or after ``timeout_s``."""
+    timeout_s), or after ``timeout_s``.  Both groups take the process
+    group's backend, which the mesh records (``Mesh.capturable``)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -163,7 +188,8 @@ def make_mesh(n_devices: Optional[int] = None, model_parallel: int = 1, *,
                           MODEL_AXIS: (backend, opts)})
     return Mesh(data=n_devices // model_parallel, model=model_parallel,
                 data_index=dm.get_local_rank(DATA_AXIS),
-                model_index=dm.get_local_rank(MODEL_AXIS), device_mesh=dm)
+                model_index=dm.get_local_rank(MODEL_AXIS), device_mesh=dm,
+                model_backend=dist.get_backend(dm.get_group(MODEL_AXIS)))
 
 
 # Tensor-parallel rules, keyed by stacked-param name ([L, ...] layouts of
@@ -256,7 +282,16 @@ def all_reduce(t: torch.Tensor, mesh: Mesh, axis: str = MODEL_AXIS,
     taken in fp32 and rounded to t's dtype once (bf16 partial products
     summed as fp32); integers are summed exactly.  Over an axis of one
     rank it is ``t`` itself, with no call: a data-parallel rank pays
-    nothing for its model axis."""
+    nothing for its model axis.
+
+    Sound under a CUDA graph's capture (``Mesh.capturable``): the fp32
+    copy is made on the current stream, so inside a capture it comes from
+    the capture's memory pool; the call reads nothing on the host, and
+    over NCCL it queues on the group's own stream behind the current
+    stream's work, which waits for it before its next kernel (the
+    synchronous form's ``wait``), so a capture holds the collective
+    between the kernels around it.  Over gloo the call waits on the host
+    for the card, as it always has."""
     import torch.distributed as dist
 
     if mesh.shape[axis] == 1:
@@ -275,7 +310,9 @@ def all_gather(t: torch.Tensor, mesh: Mesh, axis: str, dim: int
     """The ranks' ``t`` of ``axis`` concatenated along ``dim`` in rank
     order.  Built on all_reduce over a zero buffer (exact: every element
     is one rank's value plus zeros), which gloo also runs on CUDA tensors;
-    the results are small (tokens) or per-layer activations."""
+    the results are small (tokens) or per-layer activations.  Sound under
+    capture as ``all_reduce`` is: the zero buffer is made on the current
+    stream."""
     import torch.distributed as dist
 
     n = mesh.shape[axis]

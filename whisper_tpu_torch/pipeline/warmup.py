@@ -60,7 +60,9 @@ def warm_buckets(session, durations_s: Iterable[float], *, language: str,
                  speculative: bool = False, draft_k: int = 4) -> int:
     """Transcribe synthetic zero audio once per distinct shape (capturing
     each bucket's greedy loop on a card); returns the number of shapes
-    warmed."""
+    warmed.  The ranks of a mesh, given the same durations, warm and
+    capture the same keys in the same order, their warm-ups' collectives
+    in lockstep."""
     seen: Set[Tuple[int, frozenset]] = set()
     durs = []
     for d in durations_s:

@@ -30,9 +30,11 @@ device tensor.  On a card each call is one launch of a CUDA graph per key
 the greedy loop's while node: the card runs it while the JAX condition
 holds (``i < max_new_tokens`` and not every beam of every row done) and
 nothing is read, so the step counter is the ``while_loop``'s trip
-count.  ``eager=True``, the CPU and a
-mesh call the step function as it is and read ``done`` as the greedy
-loop's eager form does (``early_exit=False``: no read, every step runs).
+count; a mesh rank's loop too, wherever its collectives can be captured
+(``generate.graphed``), with a key of its own rows (``row0``).
+``eager=True``, the CPU and a mesh whose model axis runs over gloo call
+the step function as it is and read ``done`` as the greedy loop's eager
+form does (``early_exit=False``: no read, every step runs).
 Steps past the point where every beam is done change nothing the loop
 returns: each beam's one candidate is its own EOT at zero cost, the scores
 are already in ``top_k``'s order, so the parents are the identity, the
@@ -118,6 +120,7 @@ class BeamKey(NamedTuple):
     ts_cfg: object
     pads: bool
     eot_id: int
+    row0: int = 0          # a data rank's first row of the batch
     front: tuple = ()
     kind: str = "beam"
 
@@ -173,8 +176,8 @@ def beam_generate(params, dims: WhisperDims, enc_states,
                   eot_id: int, num_beams: int, length_penalty: float = 1.0,
                   *, ts_cfg=None, int8_cross_kv: bool = False,
                   packed_cross: bool = False, int8_mxu: bool = False,
-                  pad_count=None, mesh=None, early_exit: bool = True,
-                  eager: bool = False,
+                  pad_count=None, mesh=None, row0: int = 0,
+                  early_exit: bool = True, eager: bool = False,
                   graphs: Optional[DecodeGraphs] = None):
     """Returns (tokens [B, max_new_tokens] of the best beam, scores [B]).
 
@@ -186,17 +189,18 @@ def beam_generate(params, dims: WhisperDims, enc_states,
     pad_count ([B] int32): left pad slots of each row's prompt, masked in
     the prefill and repeated per beam for every step.  mesh: this rank's
     share of a (data, model) mesh (its rows and heads, ``greedy_generate``);
-    the loop's ``done`` read agrees across its model ranks, and its steps
-    run without a graph.
+    its model ranks' ``done`` agrees, so they take the same steps; row0:
+    the place of its first row in the batch (the key's).
 
-    On a card without a mesh the call runs as one launch of a CUDA graph
-    kept in ``graphs`` (a ``DecodeGraphs`` of these weights; None: captured
-    for this call alone), unless ``eager``: the front, the prefill, the
-    first top-K and the cache tiled per beam, then the steps under its
-    while node; nothing is read, the card stops the loop, and the call
-    returns before the decode ends.  The eager loop reads ``done`` once a
-    step (under a mesh on a card once ``generate.EXIT_BLOCK`` steps), or
-    never with early_exit False (every step runs)."""
+    On a card the call runs as one launch of a CUDA graph kept in
+    ``graphs`` (a ``DecodeGraphs`` of these weights; None: captured for
+    this call alone), unless ``eager`` or a mesh whose collectives cannot
+    be captured (``generate.graphed``): the front, the prefill, the first
+    top-K and the cache tiled per beam, then the steps under its while
+    node; nothing is read, the card stops the loop, and the call returns
+    before the decode ends.  The eager loop reads ``done`` once a step (an
+    eager mesh on a card once ``generate.EXIT_BLOCK`` steps), or never with
+    early_exit False (every step runs)."""
     from whisper_tpu_torch.runtime import timestamps as ts
 
     front = (enc_states if isinstance(enc_states, Front)
@@ -276,10 +280,12 @@ def beam_generate(params, dims: WhisperDims, enc_states,
 
     key = BeamKey(b * k, k, p, max_new_tokens, t_enc,
                   cross_len is not None, int8_mxu, int8_cross_kv, ts_cfg,
-                  pad_count is not None, eot_id, front_key(front))
+                  pad_count is not None, eot_id, row0=row0,
+                  front=front_key(front))
     buf, scores, lengths = run_loop(
         inputs, prepare, make_step, 1, max_new_tokens,
-        exit_period(early_exit, dev, mesh), graphs=graphs, key=key,
+        exit_period(early_exit, dev, mesh, eager=eager), graphs=graphs,
+        key=key,
         device=dev, params=params, encoders=front.weights, mesh=mesh,
         eager=eager)
 

@@ -37,8 +37,9 @@ masks, the temperature, the sampling key) is an input tensor.
 
 On a card one ``torch.cuda.CUDAGraph`` per key (``DecodeGraphs``: the
 batch rows, the prompt length, max_new_tokens, the step's route and rung,
-the grammar, whether it samples, the scores, ``pad_count``, the front's
-kind and its inputs' shapes) holds the whole program: the front and
+the grammar, whether it samples, the scores, ``pad_count``, a data rank's
+first row, the front's kind and its inputs' shapes) holds the whole
+program: the front and
 ``prepare`` on a capture stream (the pre-node program), then the step as
 the body of a CUDA-graph conditional (while) node (``_while_node``,
 ``csrc/graph_cond.cu``) whose condition, "trips < n and some row undone",
@@ -68,22 +69,37 @@ least recently used dropped first.  The same machinery (``InPlaceState``,
 (``runtime.beam``) and the speculative rounds (``runtime.speculative``),
 each with a key of its own, under one budget.
 
-The eager loop (the CPU, a mesh, ``eager=True``: the card checks compare
-the two) runs the front and ``prepare`` into a new state, then calls the
-step function as it is and reads ``done`` on the host:
-with ``early_exit=False`` never (every step runs; a row past EOT emits EOT
-and adds nothing to its scores, so the tokens, sums and counts are those
-of a loop that stopped), else once a step, so that it stops where
-``lax.while_loop`` stops, except under a mesh on a card: there once a
-block of ``EXIT_BLOCK`` steps, from a non-blocking copy read only after the
-next block is queued, so the card never waits on the host.
+The eager loop (the CPU, ``eager=True``: the card checks compare the two,
+and a mesh whose collectives cannot be captured) runs the front and
+``prepare`` into a new state, then calls the step function as it is and
+reads ``done`` on the host: with ``early_exit=False`` never (every step
+runs; a row past EOT emits EOT and adds nothing to its scores, so the
+tokens, sums and counts are those of a loop that stopped), else once a
+step, so that it stops where ``lax.while_loop`` stops, except under a mesh
+on a card: there once a block of ``EXIT_BLOCK`` steps, from a non-blocking
+copy read only after the next block is queued, so the card never waits on
+the host.
 
-Under a mesh (``parallel.mesh``) every rank runs the step function on its
-own rows without a graph, since gloo's collectives go through the host
-(``mesh=`` reaches the model's collectives): the model ranks of one data
-rank hold the same rows, and their logits follow the same all-reduce, so
-their ``done`` reads agree and they take the same number of steps, as the
-collectives need; a data rank stops when its own rows end.
+Under a mesh (``parallel.mesh``) every rank runs the loop on its own rows
+and heads (``mesh=`` reaches the model's collectives), where the JAX
+session runs the mesh's whole decode in one program and GSPMD puts the
+collectives inside it.  ``graphed`` holds the rule: a rank's bucket is one
+launch of its program, as without a mesh, wherever every collective on
+the loop's path can be captured (``Mesh.capturable``: a model axis of one
+rank makes no call, and NCCL queues its all-reduces on the card, so the
+capture holds them between the step's kernels, in the while node's body);
+a data rank's tokens are gathered over "data" after the launch.  A model
+axis over gloo, whose collectives carry CUDA tensors through the host,
+runs eagerly: the rule picks that before any capture, and a capture that
+fails raises.  A collective replayed from a graph has no work item the
+group's watchdog could time out, so the model ranks of a program must
+take the same trips through it: they hold the same rows, their logits
+follow the same all-reduce, and their picks share the key and the first
+row (``row0``), so their ``done`` agrees and they run the same steps (and
+read it alike, eagerly); a data rank stops when its own rows end.  The
+model ranks meet their keys in the same order (SPMD: the same calls, the
+same warm-ups, whose eager collectives run in lockstep), so each captures
+and drops the same programs.
 """
 
 from __future__ import annotations
@@ -331,9 +347,14 @@ def _budget(device) -> int:
 
 
 def graphed(device, mesh, eager: bool) -> bool:
-    """Whether a decode loop runs from a graph: on a card, without a
-    mesh, unless ``eager``."""
-    return device.type == "cuda" and mesh is None and not eager
+    """Whether a decode loop runs from a graph: on a card, unless
+    ``eager``, wherever every collective on the loop's path can be captured
+    (no mesh, or ``mesh.capturable``: a model axis of one rank, or one over
+    NCCL; a data axis over any backend, its gather coming after the
+    launch).  A model axis over gloo runs eagerly (see the module's
+    docstring)."""
+    return (device.type == "cuda" and not eager
+            and (mesh is None or mesh.capturable))
 
 
 _THREAD_LOCAL = 1   # cudaStreamCaptureModeThreadLocal
@@ -368,7 +389,9 @@ def _while_node(graph, done: torch.Tensor, trips: torch.Tensor, bound: int,
     body tallied (``ops.common.tally_launches``), an iteration's, and
     "body_ops": the device operations an iteration runs, read from the
     body graph's nodes (kernels, copies and fills; -1 where the body holds
-    a conditional node)."""
+    a conditional node).  A mesh's collectives in the block queue on their
+    group's stream, which joins the body's capture and is joined back by
+    the next kernel's stream."""
     from whisper_tpu_torch.ops import kernels
     from whisper_tpu_torch.ops.common import count_launch, tally_launches
 
@@ -426,6 +449,28 @@ def _while_node(graph, done: torch.Tensor, trips: torch.Tensor, bound: int,
             torch._C._cuda_releasePool(index, pool)
         raise
     weakref.finalize(graph, torch._C._cuda_releasePool, index, pool)
+
+
+# cudaGraphNodeType -> its name, for the types a while node's body may not
+# hold (``_bad_body_node``)
+_NODE_TYPES = {3: "host", 6: "event wait", 7: "event record",
+               8: "external semaphore signal", 9: "external semaphore wait",
+               10: "memory allocation", 11: "memory free"}
+
+
+def _bad_body_node(stream) -> Optional[str]:
+    """Inside a capture on ``stream``: the type of the first node captured
+    so far that a while node's body may not hold (CUDA's rules for
+    conditional bodies: kernel, copy, fill, empty, child-graph and
+    conditional nodes only; ``csrc/graph_cond.cu``), or None."""
+    from whisper_tpu_torch.ops import kernels
+
+    bad = ctypes.c_int(-1)
+    kernels.check(kernels.library().wt_capture_bad_node(
+        stream.cuda_stream, ctypes.byref(bad)), "wt_capture_bad_node")
+    if bad.value < 0:
+        return None
+    return _NODE_TYPES.get(bad.value, f"type {bad.value}")
 
 
 class _NoRandomOps(TorchDispatchMode):
@@ -536,8 +581,9 @@ class _GraphLoop:
     copy-in to the queued copies of the results, so two threads never share
     them."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, mesh=None):
         self.device = device
+        self.mesh = mesh      # the rank's mesh, where its collectives run
         self.inputs: Optional[tuple] = None   # the static input tensors
         self.state: Optional[InPlaceState] = None
         self.graph = None
@@ -593,7 +639,7 @@ class _GraphLoop:
             trials = [self._trial_capture(pre, own, pools[0])]
             if step is not None:
                 trials.append(self._trial_capture(step, body_stream,
-                                                  pools[1]))
+                                                  pools[1], body=True))
             graph = torch.cuda.CUDAGraph()
             body = {}
             with torch.cuda.stream(own):
@@ -626,20 +672,27 @@ class _GraphLoop:
         self.pools = pools
         self.capture_s = time.perf_counter() - t0
 
-    def _trial_capture(self, fn, stream, pool):
+    def _trial_capture(self, fn, stream, pool, body: bool = False):
         """Capture ``fn`` into a graph that is never launched, in memory
         pool ``pool``, and return it: work that cannot be captured (a host
         read, a copy from pageable memory, a library that refuses) or that
         draws from a torch generator (``_NoRandomOps``) raises here, before
-        it can leave a while node's body half made (``_while_node``)."""
+        it can leave a while node's body half made (``_while_node``), and
+        so does a ``body`` whose capture holds a node that a while node's
+        body may not (``_bad_body_node``: an event, a host callback or an
+        allocation, which a mesh's collectives might leave), naming its
+        type."""
         from whisper_tpu_torch.ops.common import tally_launches
 
         trial = torch.cuda.CUDAGraph()
+        bad = None
         with tally_launches(), torch.cuda.stream(stream):
             trial.capture_begin(pool=pool, capture_error_mode="thread_local")
             try:
                 with _NoRandomOps():
                     fn()
+                if body:
+                    bad = _bad_body_node(stream)
             finally:
                 try:
                     trial.capture_end()
@@ -648,6 +701,15 @@ class _GraphLoop:
                     # allocations to the failed capture's pool
                     del _CAPTURE_STREAMS[self.device]
                     raise
+        if bad is not None:
+            where = "" if self.mesh is None else (
+                f" (a rank of a {self.mesh.data} x {self.mesh.model} mesh, "
+                f"its model group over {self.mesh.model_backend})")
+            raise RuntimeError(
+                f"the loop's step left a node of type \"{bad}\" in its "
+                f"capture{where}: a while node's body holds kernel, copy, "
+                "fill, empty, child-graph and conditional nodes only, so its "
+                "graph could not be instantiated")
         return trial
 
     def _launch(self) -> None:
@@ -742,6 +804,9 @@ class GraphKey(NamedTuple):
     scores: bool
     pads: bool
     eot_id: int
+    # a data rank's first row of the batch, which the pick kernel takes as
+    # a constant: two shares never share a program
+    row0: int = 0
     front: tuple = ()
     kind: str = "greedy"
 
@@ -770,7 +835,7 @@ class DecodeGraphs:
         self._lock = threading.Lock()
 
     def loop(self, params, step_weights, key, device, draft_params=None,
-             encoders=()) -> _GraphLoop:
+             encoders=(), mesh=None) -> _GraphLoop:
         if params is not self.params or (
                 step_weights is not None
                 and step_weights is not self.step_weights) or (
@@ -781,7 +846,7 @@ class DecodeGraphs:
             raise ValueError("these decode graphs belong to other weights")
         with self._lock:
             if key not in self._loops:
-                self._loops[key] = _GraphLoop(device)
+                self._loops[key] = _GraphLoop(device, mesh)
             self._loops.move_to_end(key)
             return self._loops[key]
 
@@ -839,14 +904,19 @@ class DecodeGraphs:
                     if v.graph is not None}
 
 
-def exit_period(early_exit: bool, device, mesh, block: int = EXIT_BLOCK):
+def exit_period(early_exit: bool, device, mesh, block: int = EXIT_BLOCK, *,
+                eager: bool = False):
     """The eager loop's steps between two reads of ``done`` (``_drive``):
-    None without the early exit, ``block`` under a mesh on a card, else one
+    None without the early exit; ``block`` for an eager mesh on a card
+    (one that ``graphed`` runs eagerly: a model axis over gloo, or
+    ``eager``), so its host reads keep a block behind the card; else one
     (where the ``while_loop`` stops).  A graphed loop reads nothing: its
     while node stops on the card."""
     if not early_exit:
         return None
-    return block if device.type == "cuda" and mesh is not None else 1
+    eager_mesh = (device.type == "cuda" and mesh is not None
+                  and not graphed(device, mesh, eager))
+    return block if eager_mesh else 1
 
 
 def run_loop(inputs, prepare, make_step, first: int, n: int, exit_every, *,
@@ -855,12 +925,13 @@ def run_loop(inputs, prepare, make_step, first: int, n: int, exit_every, *,
              eager: bool = False):
     """Steps first .. n-1 of a decode loop over the state ``prepare``
     makes from the call's ``inputs`` (``_GraphLoop.run``), while some row
-    is undone, and the state's outputs.  Where ``graphed`` (a card, no
-    mesh, not ``eager``): one launch of ``key``'s graph in ``graphs``
-    (None: a ``DecodeGraphs`` for this call alone), ``prepare`` its
-    pre-node program, which then drops what passes its budget; nothing is
-    read.  Else eagerly: ``prepare`` into a new state, ``done`` read once
-    ``exit_every`` steps (``_drive``; ``exit_period``)."""
+    is undone, and the state's outputs.  Where ``graphed`` (a card, not
+    ``eager``, and no mesh or one whose collectives can be captured): one
+    launch of ``key``'s graph in ``graphs`` (None: a ``DecodeGraphs`` for
+    this call alone), ``prepare`` its pre-node program, which then drops
+    what passes its budget; nothing is read.  Else eagerly: ``prepare``
+    into a new state, ``done`` read once ``exit_every`` steps (``_drive``;
+    ``exit_period``)."""
     if not graphed(device, mesh, eager):
         st = prepare(tuple(_on_device(x, device) for x in inputs), None)
         _drive(make_step(st), first, n, st.done, exit_every)
@@ -868,7 +939,7 @@ def run_loop(inputs, prepare, make_step, first: int, n: int, exit_every, *,
     if graphs is None:
         graphs = DecodeGraphs(params, step_weights, draft_params, *encoders)
     loop = graphs.loop(params, step_weights, key, device, draft_params,
-                       encoders)
+                       encoders, mesh)
     out = loop.run(inputs, prepare, make_step, first, n)
     graphs.trim(key)
     return out
@@ -919,21 +990,22 @@ def greedy_generate(params, dims: WhisperDims, enc_states,
     step (B3/B8 on the kernel step), so each row decodes as its unpadded
     shorter prompt would.
 
-    On a card without a mesh the call runs as one launch of a CUDA graph
-    kept in ``graphs`` (a ``DecodeGraphs`` of these weights; None: captured
-    for this call alone), unless ``eager``: the front, the prefill and the
-    first pick, then the steps under the graph's while node, on the card,
-    nothing read (see the module's docstring), so the call returns before
-    the decode ends.  The eager loop runs the same front and prefill, then
-    reads ``done`` on the host once a step, where the JAX loop stops (under
-    a mesh on a card once ``EXIT_BLOCK`` steps), or never with early_exit
+    On a card the call runs as one launch of a CUDA graph kept in
+    ``graphs`` (a ``DecodeGraphs`` of these weights; None: captured for
+    this call alone), unless ``eager`` or a mesh whose collectives cannot
+    be captured (``graphed``): the front, the prefill and the first pick,
+    then the steps under the graph's while node, on the card, nothing read
+    (see the module's docstring), so the call returns before the decode
+    ends.  The eager loop runs the same front and prefill, then reads
+    ``done`` on the host once a step, where the JAX loop stops (an eager
+    mesh on a card once ``EXIT_BLOCK`` steps), or never with early_exit
     False (every step runs).
 
     mesh: this rank's share of a (data, model) mesh: enc_states are its
     rows, the weights its shard (``parallel.mesh.shard_params``); the
-    tokens returned are its rows, decoded without a graph.  row0: the
-    place of its first row in the batch, so that sampled draws equal the
-    one-process decode's (``pick``)."""
+    tokens returned are its rows.  row0: the place of its first row in the
+    batch, so that sampled draws equal the one-process decode's (``pick``);
+    a key of its own."""
     from whisper_tpu_torch.runtime import timestamps as ts
 
     if step_weights is not None and pad_count is not None:
@@ -1029,9 +1101,9 @@ def greedy_generate(params, dims: WhisperDims, enc_states,
     key = GraphKey(b, p, max_new_tokens, cross_len, kernel_step, int8_mxu,
                    int8_self, int8_cross_kv, step_weights is not None, ts_cfg,
                    temperature > 0, return_logprobs, pad_count is not None,
-                   eot_id, front_key(front))
+                   eot_id, row0=row0, front=front_key(front))
     return run_loop(inputs, prepare, make_step, 1, max_new_tokens,
-                    exit_period(early_exit, dev, mesh),
+                    exit_period(early_exit, dev, mesh, eager=eager),
                     graphs=graphs, key=key, device=dev, params=params,
                     step_weights=step_weights, encoders=front.weights,
                     mesh=mesh, eager=eager)

@@ -58,10 +58,14 @@ runs the session as one rank of a (data, model) mesh of processes
 (``parallel.mesh``: one process a card, a ``torch.distributed`` group):
 the weights are this rank's tensor-parallel shard, each batch bucket's
 rows are split over "data" and the tokens all-gathered, and every rank
-returns the whole batch's tokens; its greedy loop runs without a graph
-(gloo's collectives go through the host).  What the port does not carry
-(the wire encodings) raises ``NotImplementedError`` naming its ROADMAP
-entry; nothing silently takes another path.
+returns the whole batch's tokens.  On a card a rank's bucket runs as one
+launch of its program, as without a mesh, wherever its collectives can be
+captured (``generate.graphed``: a model axis of one rank, or one over
+NCCL), the tokens' gather over "data" queued after the launch; a model
+axis over gloo runs its loops eagerly, by that rule and before any
+capture (``decode_path`` says which a call takes).  What the port does
+not carry (the wire encodings) raises ``NotImplementedError`` naming its
+ROADMAP entry; nothing silently takes another path.
 """
 
 from __future__ import annotations
@@ -390,10 +394,29 @@ class WhisperSession:
                 "DP speedup) for this batch", stacklevel=3)
         return 0, n
 
+    @property
+    def decode_path(self) -> str:
+        """Which path the session's decode loops take (``generate.graphed``,
+        the one rule): "graphed" (one launch of a bucket's program), else
+        "eager (...)" with the rule's reason."""
+        from whisper_tpu_torch.runtime.generate import graphed
+
+        if graphed(self.device, self.mesh, self.eager_decode):
+            return "graphed"
+        if self.eager_decode:
+            return "eager (eager_decode)"
+        if self.device.type != "cuda":
+            return "eager (not a card)"
+        return (f"eager (the model axis of {self.mesh.model} ranks over "
+                f"{self.mesh.model_backend}: its collectives go through "
+                "the host and cannot be captured)")
+
     def _gather_rows(self, result, n: int):
         """A result of this rank's rows of a batch of n (a tensor or a
         tuple of them) as the whole batch's: all-gathered over "data"
-        under a mesh, unless the batch ran replicated."""
+        under a mesh, unless the batch ran replicated.  Queued on the
+        stream behind the rank's program, read nothing on the host (over
+        gloo the gather waits for the stream, as every gloo call does)."""
         if self.mesh is None or n % self.mesh.data:
             return result
         from whisper_tpu_torch.parallel.mesh import all_gather_rows
@@ -581,12 +604,14 @@ class WhisperSession:
         the tokens or, with with_scores, (tokens, sum_lp, n_tok).  On a
         card greedy decoding, beam search (num_beams > 1) and speculative
         decoding read nothing on the host (the graphed loops stop on the
-        card), so this returns once the buckets' work is queued;
-        ``speculative_stats`` then holds each bucket's round count on the
-        device, to read after the results.  early_exit is the eager loop's
-        (the CPU, a mesh, ``eager_decode``): it reads ``done`` once a
-        block of steps (``transcribe_from_mel``'s form), else every step
-        runs; its speculative rounds always read."""
+        card), so this returns once the buckets' work is queued, under a
+        mesh with each bucket's gather over "data" (over NCCL; gloo waits
+        for the stream); ``speculative_stats`` then holds each bucket's
+        round count on the device, to read after the results.  early_exit
+        is the eager loop's (the CPU, a model axis over gloo,
+        ``eager_decode``): it reads ``done`` once a block of steps
+        (``transcribe_from_mel``'s form), else every step runs; its
+        speculative rounds always read."""
         if chunk_norm_n_valid is not None and pad_count is not None:
             raise ValueError("chunk_norm and conditioned prompts are "
                              "mutually exclusive")
@@ -634,7 +659,7 @@ class WhisperSession:
             if speculative:
                 result, (rounds, committed) = self._speculative_tokens(
                     front, None, prompt_ids, base_mask, first_mask,
-                    max_new_tokens, eot_id, draft_k)
+                    max_new_tokens, eot_id, draft_k, row0=lo)
                 self.speculative_stats.append(
                     (rounds, self._gather_rows(committed, bucket)))
             elif num_beams > 1:
@@ -647,7 +672,7 @@ class WhisperSession:
                     int8_cross_kv=self.cfg.int8_kv_cache,
                     packed_cross=self._packed,
                     int8_mxu=self._int8_mxu, pad_count=pads, mesh=self.mesh,
-                    early_exit=early_exit, eager=self.eager_decode,
+                    row0=lo, early_exit=early_exit, eager=self.eager_decode,
                     graphs=self.graphs)
             else:
                 gen = None
@@ -852,6 +877,7 @@ class WhisperSession:
         return self._gather_rows(
             self._greedy(front, self._token_ids(prompt), base_mask,
                          first_mask, max_new_tokens, eot_id, ts_cfg=ts_cfg,
+                         row0=self._data_rows(len(padded_audio))[0],
                          early_exit=early_exit),
             len(padded_audio))
 
@@ -940,23 +966,29 @@ class WhisperSession:
         decode's default 128 new tokens (the cross caches dominate the total
         anyway).  One copy of each cache: the eager loop updates it in
         place, and a graphed program's prefill writes its key's state in
-        place.  A graphed session (a card, no mesh, not ``eager_decode``)
-        also keeps the active key's graph pools (its encoders' and
-        prefills' temporaries: the largest measured so far, or
+        place.  A graphed session (``generate.graphed``: a card, not
+        ``eager_decode``, a mesh whose collectives can be captured) also
+        keeps the active key's graph pools (its encoders' and prefills'
+        temporaries: the largest measured so far, or
         ``hbm.program_pool_bytes`` before any) and the budget other keys may
         keep (``generate.GRAPH_MEMORY_SHARE`` of the card's memory,
-        ``generate._budget``)."""
+        ``generate._budget``).  Under a mesh every term is this rank's: its
+        rows of the batch, its shard of the weights and heads, its
+        program's pools; each rank keeps the budget on its own card (two
+        ranks sharing one card keep a quarter each)."""
         from whisper_tpu_torch.runtime import generate
         from whisper_tpu_torch.utils import hbm
 
         wb = torch.empty((), dtype=self.cfg.torch_dtype).element_size()
         m = self.mesh
+        dp, tp = (1, 1) if m is None else (m.data, m.model)
         graph = {}
         if generate.graphed(self.device, m, self.eager_decode):
             pool = hbm.program_pool_bytes(
-                self.dims, self.cfg.max_batch, 4, act_bytes=wb,
+                self.dims, -(-self.cfg.max_batch // dp), 4, act_bytes=wb,
                 fused_attention=self.cfg.fused_attention,
-                draft_dims=None if share_encoder else draft_dims)
+                draft_dims=None if share_encoder else draft_dims,
+                tensor_parallel=tp)
             pool = max([pool, *self.graphs.pools().values()])
             graph = dict(graph_pool=pool,
                          graph_kept=generate._budget(self.device))
@@ -964,8 +996,7 @@ class WhisperSession:
             self.dims, self.cfg.max_batch, 132, weight_bytes=wb,
             kv_bytes=wb, int8_cross=self.cfg.int8_kv_cache,
             draft_dims=draft_dims, shared_draft_encoder=share_encoder,
-            cache_copies=1.0, data_parallel=1 if m is None else m.data,
-            tensor_parallel=1 if m is None else m.model, **graph)
+            cache_copies=1.0, data_parallel=dp, tensor_parallel=tp, **graph)
 
     @property
     def has_draft(self) -> bool:
@@ -1019,17 +1050,18 @@ class WhisperSession:
         toks, _ = self._speculative_tokens(
             self._short_front(padded_audio, n_valid_frames, True), None,
             self._token_ids(prompt), base_mask, first_mask, max_new_tokens,
-            eot_id, draft_k)
+            eot_id, draft_k, row0=self._data_rows(len(padded_audio))[0])
         return self._gather_rows(toks, len(padded_audio))
 
     def _speculative_tokens(self, chunks, enc, prompt_t, base_mask,
                             first_mask, max_new_tokens: int, eot_id: int,
-                            draft_k: int):
+                            draft_k: int, row0: int = 0):
         """Draft-and-verify over one chunk batch: (device tokens [B,
         max_new_tokens], (verify rounds, committed tokens [B]), all on the
         device).  chunks: the bucket's mel, whose draft states the draft's
         encoder makes here beside the main states ``enc``; or a ``Front``
-        that runs both encoders in the program, and enc None.  The cross
+        that runs both encoders in the program, and enc None.  row0: this
+        rank's first row of the batch under a mesh.  The cross
         caches follow cfg.int8_kv_cache and the kernels the session's rung:
         the draft's steps through B4/B6, the verify pass through B7."""
         from whisper_tpu_torch.runtime.speculative import speculative_generate
@@ -1048,7 +1080,7 @@ class WhisperSession:
             int8_cross_kv=self.cfg.int8_kv_cache, packed_draft=packed,
             packed_main=packed,
             int8_mxu=bool(self.cfg.int8_mxu_attn and packed), mesh=self.mesh,
-            eager=self.eager_decode, graphs=self.graphs)
+            row0=row0, eager=self.eager_decode, graphs=self.graphs)
         return toks, (rounds, n_committed)
 
     # -- mel chunks -> tokens -------------------------------------------------

@@ -30,9 +30,12 @@ weights) whose round is the body of the greedy loop's while node
 (``runtime.generate``): the card runs rounds while fewer than
 max_new_tokens have run, which bounds the loop since every undone row
 commits a token a round, and some row is undone; nothing is read, and the
-rounds run are the rounds counted.  ``eager=True``, the CPU and a mesh call the round function as it
-is and read ``done`` once a round, under a mesh on a card once a block of
-``EXIT_BLOCK`` rounds (one block behind).  A round adds one to the device
+rounds run are the rounds counted; a mesh rank's rounds too, wherever
+its collectives can be captured (``generate.graphed``), with a key of its
+own rows (``row0``).  ``eager=True``, the CPU and a mesh whose model axis
+runs over gloo call the round function as it is and read ``done`` once a
+round, an eager mesh on a card once a block of ``EXIT_BLOCK`` rounds (one
+block behind).  A round adds one to the device
 round counter only when some row was undone at its start, so ``n_rounds``
 is the JAX ``while_loop``'s trip count however far a block overruns; a
 round past all-done commits nothing (every row is frozen) and writes its
@@ -61,10 +64,10 @@ from whisper_tpu_torch.runtime.generate import (
     states_front,
 )
 
-# Rounds the eager loop runs under a mesh on a card between two reads of
-# ``done``: a round takes 5-7 ms at whisper-base (16 rows, draft_k 4), so a
-# read every two rounds costs the card nothing, and a block overruns
-# all-done by at most three rounds.
+# Rounds the eager loop runs under an eager mesh on a card between two
+# reads of ``done`` (``generate.exit_period``): a round takes 5-7 ms at
+# whisper-base (16 rows, draft_k 4), so a read every two rounds costs the
+# card nothing, and a block overruns all-done by at most three rounds.
 EXIT_BLOCK = 2
 
 
@@ -144,6 +147,7 @@ class SpecKey(NamedTuple):
     int8_mxu: bool
     int8_cross_kv: bool
     eot_id: int
+    row0: int = 0          # a data rank's first row of the batch
     front: tuple = ()
     kind: str = "speculative"
 
@@ -229,7 +233,7 @@ def speculative_generate(params, dims: WhisperDims, draft_params,
                          *, int8_cross_kv: bool = False,
                          packed_draft: bool = False,
                          packed_main: bool = False, int8_mxu: bool = False,
-                         mesh=None, eager: bool = False,
+                         mesh=None, row0: int = 0, eager: bool = False,
                          graphs: Optional[DecodeGraphs] = None):
     """Returns (tokens [B, max_new_tokens], n_rounds, n_committed [B]).
 
@@ -256,14 +260,16 @@ def speculative_generate(params, dims: WhisperDims, draft_params,
     draft is whole on every rank and runs without collectives.  The model
     ranks of a data rank propose alike (the same rows, the same
     deterministic draft) and read the same logits after the all-reduce, so
-    their rounds agree; the rounds run without a graph.
+    their rounds agree.  row0: the place of its first row in the batch
+    (the key's).
 
-    On a card without a mesh the call runs as one launch of a CUDA graph
-    kept in ``graphs`` (a ``DecodeGraphs`` of these main and draft weights;
-    None: captured for this call alone), unless ``eager``: the front, both
+    On a card the call runs as one launch of a CUDA graph kept in
+    ``graphs`` (a ``DecodeGraphs`` of these main and draft weights; None:
+    captured for this call alone), unless ``eager`` or a mesh whose
+    collectives cannot be captured (``generate.graphed``): the front, both
     prefills and the first token, then the rounds under its while node;
     nothing is read, and the call returns before the loop ends.  The eager
-    loop reads ``done`` once a round (under a mesh on a card once
+    loop reads ``done`` once a round (an eager mesh on a card once
     ``EXIT_BLOCK`` rounds)."""
     if draft_k < 1:
         # Nothing would be drafted or committed, and the loop would not end.
@@ -319,12 +325,12 @@ def speculative_generate(params, dims: WhisperDims, draft_params,
 
     key = SpecKey(b, p, max_new_tokens, draft_k, t_enc, front.draft_length,
                   m_cross_len is not None, d_cross_len is not None, int8_mxu,
-                  int8_cross_kv, eot_id, front_key(front))
+                  int8_cross_kv, eot_id, row0=row0, front=front_key(front))
     # Every undone row commits a token a round, so max_new_tokens rounds
     # bound the loop; it stops where every row is done.
     buf, rounds, n_gen = run_loop(
         inputs, prepare, make_round, 0, max_new_tokens,
-        exit_period(True, dev, mesh, EXIT_BLOCK), graphs=graphs,
+        exit_period(True, dev, mesh, EXIT_BLOCK, eager=eager), graphs=graphs,
         key=key, device=dev, params=params, draft_params=draft_params,
         encoders=front.weights, mesh=mesh, eager=eager)
     # Positions never committed (the overrun slack included) become EOT.

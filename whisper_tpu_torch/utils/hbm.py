@@ -161,7 +161,8 @@ def decode_footprint(dims: WhisperDims, batch: int, max_len: int,
 def program_pool_bytes(dims: WhisperDims, batch: int, prompt_len: int = 4,
                        enc_len: Optional[int] = None, *, act_bytes: int = 2,
                        fused_attention: bool = True,
-                       draft_dims: Optional[WhisperDims] = None) -> int:
+                       draft_dims: Optional[WhisperDims] = None,
+                       tensor_parallel: int = 1) -> int:
     """An estimate of the memory pool one bucket program's graph keeps
     (``runtime.generate``): the largest set of temporaries live at once in
     its pre-node work, which the graph holds between launches.  In the
@@ -170,22 +171,26 @@ def program_pool_bytes(dims: WhisperDims, batch: int, prompt_len: int = 4,
     [B, T, d_ffn], and without the fused attention the fp32 scores and
     probabilities [B, H, T, T]); then the prefill's fp32 logits [B, P, V]
     with one layer's cross K and V before their cache.  A draft with its
-    own encoder adds its blocks' set (the main states live beside it)."""
-    enc_len = dims.max_source_positions if enc_len is None else enc_len
-    b, t, ab = batch, enc_len, act_bytes
+    own encoder adds its blocks' set (the main states live beside it).
 
-    def encoder(d: WhisperDims) -> int:
+    A rank of a mesh: ``batch`` its rows; tensor_parallel its model axis,
+    which splits the main encoder's FC1 columns and heads and the
+    prefill's cross heads (a draft is whole on every rank)."""
+    enc_len = dims.max_source_positions if enc_len is None else enc_len
+    b, t, ab, tp = batch, enc_len, act_bytes, tensor_parallel
+
+    def encoder(d: WhisperDims, split: int) -> int:
         stem = b * 2 * t * (4 * d.n_mels + 2 * ab * d.d_model)
-        block = b * t * ab * (4 * d.d_model + 2 * d.d_ffn)
+        block = b * t * ab * (4 * d.d_model + 2 * d.d_ffn // split)
         if not fused_attention:
-            block += 2 * 4 * b * d.encoder_heads * t * t
+            block += 2 * 4 * b * d.encoder_heads // split * t * t
         return max(stem, block)
 
     prefill = (4 * b * prompt_len * dims.vocab_size
-               + 2 * b * t * dims.d_model * ab)
-    total = max(encoder(dims), prefill)
+               + 2 * b * t * dims.d_model // tp * ab)
+    total = max(encoder(dims, tp), prefill)
     if draft_dims is not None:
-        total += encoder(draft_dims) + b * t * dims.d_model * ab
+        total += encoder(draft_dims, 1) + b * t * dims.d_model * ab
     return int(total)
 
 
