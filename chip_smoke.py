@@ -236,6 +236,39 @@ What it does, in order (any failure raises and exits non-zero):
    launch, beside the host ms to queue the encoder alone and the card's
    span of its work; with either draft the speculative dispatch must
    return within half its span.
+8d. ``[large]`` (``check_large``), after the whisper-medium run: the large
+   family at full width (128 mels, d = 1,280, 20 heads of 64, vocab
+   51,866), random weights from seed 0 built once each.  First B1, B2c,
+   B3, B4 and B5 at the shapes whisper-large-v3-turbo's main path gives
+   them (bucket 16, 4 decoder layers; B5 at 128 mels and 7,680 frames),
+   each against its plain version, timed, with its bound.  (a)
+   whisper-large-v3-turbo at x5 on the 301.574 s file (12 chunks in one
+   bucket of 16, 128 tokens; ``headline.make_session("cuda", ..., "x5",
+   "openai/whisper-large-v3-turbo")``): a warm-up and three timed runs,
+   tokens equal and in the vocabulary, one graph launch a bucket, launches
+   by the capture's tally (B1 = B2 = 32 a program launch, B3 = B4 = 4 a
+   step run, the tail once a step, C once, B5 0), an eager run
+   (``eager_decode``) bitwise the graphed tokens with equal launches,
+   finite encoder states and logits; prints e2e (median of 3), x real
+   time, model_s, capture seconds, the key's state, inputs and pools
+   beside ``decode_footprint``'s caches and ``program_pool_bytes``, the
+   peak device memory above the phase's start, and the kernels' in-situ
+   µs from a traced eager run with five one-shot mels of 76.8 s (B5).
+   (b), run first on the same session while whisper-large-v3's weights
+   are drawn on a thread of their own: the card against the port on the
+   CPU at turbo, one 30 s chunk: the mel at 128 bins (1e-4), the encoder
+   states after 32 layers (``LARGE_ENC_STEPS`` bf16 steps), the prefill's
+   logits over 51,866 ids and four teacher-forced steps (5e-2).  (c)
+   whisper-large-v3 (32 decoder layers) on the same file: one graphed and
+   one eager run, tokens bitwise and launches equal, one graph launch;
+   capture seconds, the body's nodes, ms a step graphed and eager, the
+   key's state, inputs and pools against the gate's prediction, and
+   whether ``check_fit`` passes at bucket 16 with that key's pools and the
+   budget other keys may keep.  (d) the CLI at turbo (``--model-id
+   openai/whisper-large-v3-turbo --allow-random-init --variant x5``) over
+   the 76 s WAV (one-shot front end: B5 at 128 mels): per-file e2e, the
+   Timing split, the peak above its start.  A line gives each part's
+   seconds.
 9. Drives the benchmark CLI (``whisper_tpu_torch.bench.cli.main``, in
    process) over four synthetic WAV files (4 s; 29.5 s at 44.1 kHz stereo;
    76 s, just under the one-shot limit; 150 s, streamed) at whisper-base
@@ -282,6 +315,7 @@ What it does, in order (any failure raises and exits non-zero):
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import csv
 import gc
@@ -2056,10 +2090,18 @@ def _zero_counts(results) -> None:
         setattr(*r["counter"], 0)
 
 
-def check_against_cpu(params, dims) -> None:
+def check_against_cpu(params, dims, model_id: str = "openai/whisper-base",
+                      seconds: float = 80.0, steps: int = 12,
+                      enc_steps_tol: float = 8.0, logit_tol: float = 5e-2,
+                      card_session=None) -> None:
     """The port on the card (kernels) against the port on the CPU (plain
-    versions) on an 80 s clip: mel, encoder states, prefill logits and twelve
-    decode steps teacher-forced with the CPU's tokens."""
+    versions) at ``model_id`` (``dims``, weights ``params``) on a clip of
+    ``seconds``: mel, encoder states, prefill logits and ``steps`` decode
+    steps teacher-forced with the CPU's tokens, the prompt the default
+    special ids (en, transcribe, no timestamps).  Tolerances: the mel 1e-4,
+    the encoder ``enc_steps_tol`` bf16 steps, the logits ``logit_tol``.
+    ``card_session``: the x5 session on the card to use, where the caller
+    has one."""
     import torch
 
     from whisper_tpu_torch.frontend import golden
@@ -2070,55 +2112,79 @@ def check_against_cpu(params, dims) -> None:
         chunk_starts,
         mel_frame_bucket,
     )
+    from whisper_tpu_torch.tokenizer.specials import special_tokens
 
-    audio = synth_audio(80.0)
+    audio = synth_audio(seconds)
     padded = golden.reflect_pad(audio)
     nv = golden.num_frames(len(audio))
-    sessions = {dev: make_session(dev, params) for dev in ("cuda", "cpu")}
-    mels = {dev: s.compute_mel(padded, nv, mel_frame_bucket(nv)).float().cpu()
-            for dev, s in sessions.items()}
+    sessions = {"cuda": card_session or make_session("cuda", params,
+                                                     model_id=model_id),
+                "cpu": make_session("cpu", params, model_id=model_id)}
+    mels, enc, cpu_s = {}, {}, {}
+    for dev, s in sessions.items():
+        t0 = time.perf_counter()
+        mels[dev] = s.compute_mel(padded, nv,
+                                  mel_frame_bucket(nv)).float().cpu()
+        cpu_s["mel"] = time.perf_counter() - t0      # the CPU's: last
     mel_err = float((mels["cuda"] - mels["cpu"]).abs().max())
     starts = [p // golden.HOP for p in chunk_starts(len(audio), 480_000,
                                                     400_000)]
     chunks = torch.stack([torch.nn.functional.pad(
         mels["cpu"], (0, CHUNK_FRAMES))[:, s:s + CHUNK_FRAMES]
         for s in starts])
-    enc = {dev: s.encoder(chunks.to(dev)) for dev, s in sessions.items()}
+    for dev, s in sessions.items():
+        t0 = time.perf_counter()
+        enc[dev] = s.encoder(chunks.to(dev))
+        cpu_s["encoder"] = time.perf_counter() - t0    # the CPU's: last
     enc_steps = _bf16_steps(enc["cuda"].cpu(), enc["cpu"])
+    finite = bool(torch.isfinite(enc["cuda"]).all())
 
-    prompt = torch.tensor([50258, 50259, 50359, 50363])
+    special = special_tokens("en", "transcribe", None)
+    prompt = torch.tensor([special.sot, special.lang, special.task,
+                           special.no_timestamps])
     tokens = prompt[None].expand(len(starts), -1)
+    p_len = len(prompt)
     logits, caches = {}, {}
     for dev, s in sessions.items():
         p = s._decoder_params
         logits[dev], caches[dev] = whisper.decoder_prefill(
-            p, dims, tokens.to(dev), enc["cpu"].to(dev), 4 + 12,
+            p, dims, tokens.to(dev), enc["cpu"].to(dev), p_len + steps,
             int8_cross_kv=True)
+    finite &= bool(torch.isfinite(logits["cuda"]).all())
     errs = [float((logits["cuda"].cpu() - logits["cpu"]).abs().max())]
     last = logits["cpu"][:, -1].argmax(-1)
-    for i in range(12):
+    for i in range(steps):
         step = {}
         for dev, s in sessions.items():
             step[dev], caches[dev] = whisper.decoder_step(
-                s._decoder_params, dims, last.to(dev), 4 + i, caches[dev],
-                kernel_step=True, cross_len=enc["cpu"].shape[1])
+                s._decoder_params, dims, last.to(dev), p_len + i,
+                caches[dev], kernel_step=True,
+                cross_len=enc["cpu"].shape[1])
         if not torch.isfinite(step["cuda"]).all():
             raise AssertionError(f"non-finite logits at step {i}")
         errs.append(float((step["cuda"].cpu() - step["cpu"]).abs().max()))
         last = step["cpu"].argmax(-1)
     scale = float(logits["cpu"].abs().max())
-    print(f"[reference] card vs CPU on an 80 s clip: mel max diff "
-          f"{mel_err:.3g}; encoder {enc_steps:.2f} bf16 steps; logits max "
-          f"diff prefill {errs[0]:.3g}, steps {max(errs[1:]):.3g} "
-          f"(logit scale {scale:.3g})", flush=True)
+    name = model_id.split("/")[-1]
+    print(f"[reference] {name}: card vs CPU on a {seconds:g} s clip "
+          f"({len(starts)} chunk(s), {dims.n_mels} mels, "
+          f"{dims.encoder_layers} encoder layers, {dims.vocab_size} ids): "
+          f"mel max diff {mel_err:.3g}; encoder {enc_steps:.2f} bf16 steps; "
+          f"logits max diff prefill {errs[0]:.3g}, {steps} steps "
+          f"{max(errs[1:]):.3g} (logit scale {scale:.3g}); the CPU's mel "
+          f"{cpu_s['mel']:.1f} s, encoder "
+          f"{cpu_s['encoder']:.1f} s", flush=True)
+    if not finite:
+        raise AssertionError(f"{name}: non-finite encoder states or logits "
+                             "on the card")
     if mel_err > 1e-4:
         raise AssertionError(f"mel differs by {mel_err} (tolerance 1e-4)")
-    if enc_steps > 8.0:
+    if enc_steps > enc_steps_tol:
         raise AssertionError(f"encoder differs by {enc_steps:.2f} bf16 "
-                             "steps (tolerance 8)")
-    if max(errs) > 5e-2:
+                             f"steps (tolerance {enc_steps_tol:g})")
+    if max(errs) > logit_tol:
         raise AssertionError(f"logits differ by {max(errs)} (tolerance "
-                             "5e-2)")
+                             f"{logit_tol:g})")
 
 
 def _bucket_encoder_states(session, audio):
@@ -3984,11 +4050,12 @@ def _one_shot_mels(durations, warmup: int) -> int:
 
 
 def run_cli(label: str, card: str, results, audio_dir: str, out_dir: str,
-            args, mel_seconds=None) -> dict:
+            args, mel_seconds=None, files=CLI_FILES) -> dict:
     """One in-process run of the benchmark CLI with every kernel count set
     to 0 just before it; checks its outputs and returns the counts.
     mel_seconds: the durations the front end sees, where they are not the
-    files' (``--vad-filter``)."""
+    files' (``--vad-filter``); files: the ``CLI_FILES`` entries the audio
+    dir holds, where not the first of them."""
     import csv
     import math
 
@@ -4000,6 +4067,7 @@ def run_cli(label: str, card: str, results, audio_dir: str, out_dir: str,
     _zero_counts(results)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     rc = cli_main(["--audio-dir", audio_dir, "--onnx-dir",
                    os.path.join(out_dir, "no-model"), "--allow-random-init",
@@ -4015,7 +4083,7 @@ def run_cli(label: str, card: str, results, audio_dir: str, out_dir: str,
         table = list(csv.reader(f))
     rows = json.load(open(f"{out}/j.json"))
     summary = json.load(open(f"{out}/s.json"))
-    want = [(name, secs) for name, secs, _, _ in CLI_FILES][:n]
+    want = [(name, secs) for name, secs, _, _ in files][:n]
     if rc != 0 or table[0] != CSV_HEADER or len(table) != n + 1:
         raise AssertionError(f"{label}: rc {rc}, CSV {table[:1]} with "
                              f"{len(table) - 1} rows, expected {n}")
@@ -4034,10 +4102,14 @@ def run_cli(label: str, card: str, results, audio_dir: str, out_dir: str,
                              f"times, expected {mels} (one per one-shot "
                              "mel)")
     p95 = summary["latency_end_to_end_s"]["p95"]
+    split = ", ".join(f"{k} {v['median']:.4f}"
+                      for k, v in summary["breakdown_s"].items())
     print(f"[cli] {label} on {card}: per-file e2e "
           + ", ".join(f"{f} {x:.4f} s" for (f, _), x in zip(want, e2e))
-          + f"; p95 {p95:.4f} s; wall {wall:.1f} s with warm-up; peak "
-          f"device memory {peak:.3f} GiB; launches {counts}", flush=True)
+          + f"; p95 {p95:.4f} s; Timing (median s) {split}; wall "
+          f"{wall:.1f} s with warm-up; peak device memory {peak:.3f} GiB, "
+          f"{peak - base / 2 ** 30:.3f} above what was allocated at its "
+          f"start; launches {counts}", flush=True)
     return counts
 
 
@@ -5761,6 +5833,415 @@ def check_parallel(card: str, results, params, dims, audio, x5,
     print(f"[parallel] phase {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# [large]: the large family on the card at full width
+LARGE_TURBO = "openai/whisper-large-v3-turbo"
+LARGE_V3 = "openai/whisper-large-v3"
+# [large] (b): the card within LARGE_ENC_STEPS bf16 steps of the CPU's
+# encoder states after 32 layers.  Base's bound is 8 at 6 layers; on the
+# CPU the port's bf16 encoder at d = 1,280 lies 7.49 bf16 steps from an
+# fp32 evaluation of the same weights at 6 layers and 13.03 at 32
+# (``scripts/torch_encoder_depth.py``): 8 x 13.03 / 7.49 = 13.9.  The
+# logits keep base's 5e-2: the prefill reads the CPU's encoder states on
+# both sides, and turbo's decoder has 4 layers.
+LARGE_ENC_STEPS = 14.0
+
+
+def _gib(n: float) -> str:
+    return f"{n * 2 ** -30:.3f} GiB"
+
+
+def _key_memory(session, key) -> tuple:
+    """(state, static inputs, pools) device bytes of ``key``'s loop."""
+    from whisper_tpu_torch.runtime import generate
+
+    loop = session.graphs._loops[key]
+    return (generate._storage_bytes(loop.state.tensors()),
+            generate._storage_bytes(list(loop.inputs)), loop.pool_nbytes)
+
+
+def _gate_line(dims, memory, rows: int = 16) -> str:
+    """A key's state, inputs and pools beside the gate's prediction at
+    ``rows`` rows, 132 positions (``utils.hbm``): the caches
+    (``decode_footprint``'s kv_cache) and the program's pools
+    (``program_pool_bytes``)."""
+    from whisper_tpu_torch.utils import hbm
+
+    fp = hbm.decode_footprint(dims, rows, 132, weight_bytes=2, kv_bytes=2,
+                              int8_cross=True)
+    pool = hbm.program_pool_bytes(dims, rows, 4, act_bytes=2)
+    state, inputs, pools = memory
+    return (f"state {_gib(state)} against the predicted caches "
+            f"{_gib(fp['kv_cache'])} ({state / fp['kv_cache']:.3f}x), inputs "
+            f"{_gib(inputs)}, pools {_gib(pools)} against program_pool_bytes "
+            f"{_gib(pool)} ({pools / pool:.3f}x); params "
+            f"{_gib(fp['params'])}")
+
+
+def check_large_kernels(card: str, results) -> None:
+    """B1, B2c, B3, B4 and B5 at the shapes whisper-large-v3-turbo's main
+    path gives them (bucket 16, 20 heads of 64, d = 1,280, f = 5,120, 4
+    decoder layers; B5 at 128 mels and 7,680 frames, the CLI's one-shot
+    limit): each against its plain version within its tolerance, a call
+    timed beside the plain version's and its bound.  The figures go into
+    the rows of ``results`` (B2c's row is ``fused_encoder_mlp_d1024``)
+    under ``at_large_v3_turbo``."""
+    import numpy as np
+    import torch
+
+    from whisper_tpu_torch.frontend import golden
+    from whisper_tpu_torch.headline import synth_audio
+    from whisper_tpu_torch.ops import attention, cross_attention, encoder_mlp
+    from whisper_tpu_torch.ops import log_mel, self_attention
+    from whisper_tpu_torch.pipeline.chunk import mel_frame_bucket
+
+    dev, bf = "cuda", torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(bf)
+
+    def qweight(rows_, cols):
+        return (torch.randint(-127, 128, (rows_, cols), generator=g,
+                              device=dev).to(bf) * torch.tensor(2e-4,
+                                                                dtype=bf))
+
+    b, h, t, dh, d, f = 16, 20, 1500, 64, 1280, 5120
+    n_l, s_max, pos, n = 4, 132, 70, 16 * 1500
+    q, k, v = randn(b, h, t, dh, scale=dh ** -0.5), randn(b, h, t, dh), \
+        randn(b, h, t, dh)
+    mlp = (randn(b, t, d), 1.0 + randn(d, scale=0.1), randn(d, scale=0.1),
+           qweight(d, f), randn(f, scale=0.1), qweight(f, d),
+           randn(d, scale=0.1))
+    qs, kn, vn = randn(b, h, dh, scale=dh ** -0.5), randn(b, h, dh), \
+        randn(b, h, dh)
+    kc, vc = randn(n_l, b, h, s_max, dh), randn(n_l, b, h, s_max, dh)
+    kc2, vc2 = kc.clone(), vc.clone()
+    qx = randn(b, h, dh, scale=dh ** -0.5)
+    k8, v8 = (torch.randint(-127, 128, (n_l, b, h, t, dh), generator=g,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(n_l, b, h, generator=g, device=dev) * 0.02 + 1e-3
+              for _ in range(2))
+    nv = 7680
+    pcm = np.round(np.clip(golden.reflect_pad(synth_audio(
+        nv * golden.HOP / 16000.0)), -1, 1) * 32767.0)
+    wire = torch.from_numpy(pcm.astype(np.int16)).to(dev)
+    nf = mel_frame_bucket(nv)
+    tables = sum(x.numel() * x.element_size()
+                 for x in log_mel._device_tables(torch.device(dev), 128))
+    nnz = log_mel.mel_bands(128)[1].size
+    # name: (kernel, plain, tolerance, (bytes, operations, their type))
+    cases = {
+        "fused_attention": (
+            lambda: attention.fused_attention(q, k, v),
+            lambda: attention.fused_attention_plain(q, k, v), 2.0,
+            (4 * b * h * t * dh * 2, 4 * b * h * t * t * dh, "bf16")),
+        "fused_encoder_mlp_d1024": (
+            lambda: encoder_mlp.fused_encoder_mlp(*mlp),
+            lambda: encoder_mlp.fused_encoder_mlp_plain(*mlp), 2.0,
+            ((2 * n * d + 2 * d * f + 3 * d + f) * 2, 4 * n * d * f,
+             "bf16")),
+        "self_attend_step": (
+            lambda: self_attention.self_attend_step(qs, kn, vn, kc, vc, 3,
+                                                    pos),
+            lambda: self_attention.self_attend_step_plain(qs, kn, vn, kc2,
+                                                          vc2, 3, pos), 2.0,
+            (b * h * dh * 2 * (2 * (pos + 1) + 6),
+             4 * b * h * (pos + 1) * dh, "fp32")),
+        "cross_attend_step": (
+            lambda: cross_attention.cross_attend_step(qx, k8, v8, ks, vs, 2,
+                                                      s_valid=t),
+            lambda: cross_attention.cross_attend_step_plain(
+                qx, k8, v8, ks, vs, 2, s_valid=t), 2.0,
+            (b * h * (2 * t * dh + 2 * dh * 2 + 8), 4 * b * h * t * dh,
+             "int8")),
+        "log_mel": (
+            lambda: log_mel.log_mel(wire, nv, 128, nf),
+            lambda: log_mel.log_mel_plain(wire, nv, 128, nf), 1e-4,
+            (((nv - 1) * golden.HOP + golden.WIN) * 2 + 128 * nf * 4
+             + tables,
+             nv * (2.5 * 400 * np.log2(400) + 3 * 201 + 2 * nnz), "fp32")),
+    }
+    by_name = {r["name"]: r for r in results}
+    for name, (kern, plain, tol, work) in cases.items():
+        got, want = kern(), plain()
+        if name == "self_attend_step" and not (torch.equal(kc, kc2)
+                                               and torch.equal(vc, vc2)):
+            raise AssertionError("B3 at 20 heads: the caches differ from the "
+                                 "plain version's after the insert")
+        err = float((got.float() - want.float()).abs().max())
+        steps = err if name == "log_mel" else _bf16_steps(got, want)
+        if steps > tol or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{name} at large-v3-turbo's shape: "
+                                 f"{steps:.3g} from the plain version "
+                                 f"(tolerance {tol})")
+        ms, plain_ms = _median_ms(kern), _median_ms(plain)
+        bound_ms, bound_by = _bound(*work)
+        by_name[name]["at_large_v3_turbo"] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+        print(f"[large] kernel {name} at large-v3-turbo's shape: "
+              f"max_abs_err {err:.3g} ({steps:.3g}, tolerance {tol}); "
+              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.5f} ms by {bound_by} on {card}", flush=True)
+
+
+def _bucket_launches(c: dict, cond: int, dims, label: str) -> int:
+    """A bucket's launches by the capture's tally: B1 and B2 once an
+    encoder layer (one program launch), B3 and B4 once a decoder layer and
+    step run (the tail once a step), C once, no B5; the steps run."""
+    steps = c["loop_tail"]
+    want = {"fused_attention": dims.encoder_layers,
+            "fused_encoder_mlp": dims.encoder_layers,
+            "self_attend_step": dims.decoder_layers * steps,
+            "cross_attend_step": dims.decoder_layers * steps, "log_mel": 0}
+    if steps < 1 or cond != 1 or any(c[k] != v for k, v in want.items()):
+        raise AssertionError(f"[large] {label}: launches {c}, C {cond}; "
+                             f"want {want}, C 1")
+    return steps
+
+
+def check_large(card: str, results) -> None:
+    """``[large]``: the large family's main path on the card at full width
+    (see the module's docstring, 8d)."""
+    import numpy as np
+    import torch
+
+    from whisper_tpu_torch.frontend import golden
+    from whisper_tpu_torch.headline import (
+        AUDIO_SECONDS,
+        make_session,
+        run_once,
+        synth_audio,
+    )
+    from whisper_tpu_torch.models.convert import init_params
+    from whisper_tpu_torch.models.registry import get_dims
+    from whisper_tpu_torch.pipeline.chunk import mel_frame_bucket
+    from whisper_tpu_torch.runtime import generate
+    from whisper_tpu_torch.tokenizer.specials import special_tokens
+    from whisper_tpu_torch.utils import hbm
+
+    t_phase = time.perf_counter()
+    secs = {}
+    # large-v3's 1.55 G normals are drawn on a thread of their own (numpy
+    # leaves the GIL while it fills an array) while the kernels, turbo's
+    # weights and (b) run; it is joined before any timed run
+    executor = concurrent.futures.ThreadPoolExecutor(1)
+    large_v3 = executor.submit(init_params, get_dims(LARGE_V3), seed=0)
+    check_large_kernels(card, results)
+    secs["kernels"] = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    dims = get_dims(LARGE_TURBO)
+    params = init_params(dims, seed=0)
+    secs["turbo weights"] = time.perf_counter() - t0
+    session = make_session("cuda", params, "x5", LARGE_TURBO)
+    weights = torch.cuda.memory_allocated() - base
+
+    # (b) the card against the port on the CPU: one 30 s chunk
+    t0 = time.perf_counter()
+    check_against_cpu(params, dims, LARGE_TURBO, seconds=30.0, steps=4,
+                      enc_steps_tol=LARGE_ENC_STEPS, card_session=session)
+    del params
+    secs["(b)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = large_v3.result()
+    executor.shutdown()
+    secs["large-v3 weights, waited for"] = time.perf_counter() - t0
+
+    # (a) turbo on the 301.574 s file, one bucket of 16
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    audio = synth_audio(AUDIO_SECONDS)
+    e2e, timing, toks, c = _timed_run(session, audio, results, runs=3)
+    steps = _bucket_launches(c, _condition_count(), dims, "(a) graphed")
+    (key, capture_s), = session.graphs.captures().items()
+    if toks.shape != (12, 128) or not ((toks >= 0)
+                                       & (toks < dims.vocab_size)).all():
+        raise AssertionError(f"[large] (a): tokens {toks.shape}")
+    with _graph_launches() as launches:
+        run_once(session, audio)
+    if len(launches) != 1:
+        raise AssertionError(f"[large] (a): {len(launches)} graph launches "
+                             "for the file's one bucket")
+    with _eager_loop(session):
+        _zero_counts(results)
+        col = []
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        run_once(session, audio, token_collector=col)
+        eager_s = time.perf_counter() - t1
+        eager_c = _counts(results)
+    if not np.array_equal(col[0], toks) or eager_c != c:
+        raise AssertionError(f"[large] (a): the eager run's tokens differ "
+                             f"or its launches {eager_c} are not the "
+                             f"graphed run's {c}")
+    check_main_path_finite(session, audio, dims)
+    memory = _key_memory(session, key)
+    peak = torch.cuda.max_memory_allocated() - base
+    # the eager decode traced, and in the same trace five one-shot mels of
+    # 76.8 s (B5 at 128 mels, 7,680 frames): a short trace of its own may
+    # record no device time at all
+    short = synth_audio(76.8)
+    nv = golden.num_frames(len(short))
+    padded = golden.reflect_pad(short)
+    with _eager_loop(session):
+        traced = _traced(lambda: (run_once(session, audio), [
+            session.compute_mel(padded, nv, mel_frame_bucket(nv))
+            for _ in range(5)]))
+    # in situ, µs a call: B2 its three kernels, B5 the span of its two
+    by_name = {r["name"]: r for r in results}
+    kern = traced["kernels"]
+    b5 = traced["calls"].get("B5")
+    for name, ms in (
+            ("fused_attention", kern.get("B1", {}).get("mean_ms")),
+            ("fused_encoder_mlp_d1024",
+             sum(kern[k]["mean_ms"] for k in ("B2 (LayerNorm)",
+                                              "B2 (FC1 product)",
+                                              "B2 (FC2 product)"))
+             if "B2 (FC1 product)" in kern else None),
+            ("self_attend_step", kern.get("B3", {}).get("mean_ms")),
+            ("cross_attend_step", kern.get("B4", {}).get("mean_ms")),
+            ("log_mel", b5["mean_ms"] if b5 else None)):
+        by_name[name]["at_large_v3_turbo"]["device_us"] = (
+            None if ms is None else ms * 1e3)
+    secs["(a)"] = time.perf_counter() - t0
+    print(f"[large] (a) whisper-large-v3-turbo x5, {AUDIO_SECONDS} s, 12 "
+          f"chunks in a bucket of 16, on {card}: e2e {e2e:.4f} s (median of "
+          f"3), {AUDIO_SECONDS / e2e:.2f}x real time, preprocess "
+          f"{timing.preprocess_s:.4f} s, model {timing.model_only_s:.4f} s; "
+          f"eager {eager_s:.4f} s, tokens bitwise the graphed run's; one "
+          f"graph launch a bucket; launches {c} ({steps} steps run; B1, B2 "
+          f"{dims.encoder_layers} a program launch, B3, B4 "
+          f"{dims.decoder_layers} a step, no B5); capture {capture_s:.2f} s; "
+          f"the key: {_gate_line(dims, memory)}; weights {_gib(weights)}, "
+          f"peak {_gib(peak)} above the phase's start; in situ, µs "
+          f"(launches), the eager run and five one-shot mels of {nv} frames "
+          f"at 128 mels: {_in_situ(traced)}", flush=True)
+    del session
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # (c) whisper-large-v3 (32 decoder layers) on the same file
+    t0 = time.perf_counter()
+    dims = get_dims(LARGE_V3)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    session = make_session("cuda", params, "x5", LARGE_V3)
+    del params
+    run_once(session, audio)                      # captures the bucket's key
+    (key, capture_s), = session.graphs.captures().items()
+    runs = {}
+    for mode in ("graphed", "eager"):
+        _zero_counts(results)
+        col = []
+        with _graph_launches() as launches:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if mode == "eager":
+                with _eager_loop(session):
+                    run_once(session, audio, token_collector=col)
+            else:
+                run_once(session, audio, token_collector=col)
+            e2e = time.perf_counter() - t1
+        runs[mode] = (e2e, col[0], _counts(results), len(launches),
+                      _condition_count())
+    (g_s, g_toks, g_c, g_launch, g_cond), (e_s, e_toks, e_c, e_launch, _) = \
+        runs["graphed"], runs["eager"]
+    if not np.array_equal(g_toks, e_toks) or g_c != e_c or g_launch != 1 \
+            or e_launch != 0:
+        raise AssertionError(f"[large] (c): tokens bitwise "
+                             f"{np.array_equal(g_toks, e_toks)}, launches "
+                             f"{g_c} / {e_c}, graph launches {g_launch} / "
+                             f"{e_launch}")
+    steps = _bucket_launches(g_c, g_cond, dims, "(c) graphed")
+    check_main_path_finite(session, audio, dims)
+    loop = session.graphs._loops[key]
+    memory = _key_memory(session, key)
+    # ms a step of the bucket's decode on its encoder states, graphed and
+    # eager: 128 tokens less 1, over 127 steps (no row ending)
+    enc, _ = _bucket_encoder_states(session, audio)
+    special = special_tokens("en", "transcribe", None)
+    prompt_t = torch.tensor([special.sot, special.lang, special.task,
+                             special.no_timestamps], device="cuda")
+    masks = session._get_masks([], [])
+
+    def decode_s(n_new, eager):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if eager:
+            with _eager_loop(session):
+                session._greedy(enc, prompt_t, *masks, n_new, special.eot,
+                                early_exit=False)
+        else:
+            session._greedy(enc, prompt_t, *masks, n_new, special.eot,
+                            early_exit=False)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t1
+
+    step_ms = {}
+    for eager in (False, True):
+        if not eager:                         # captures (the eager loop is
+            decode_s(1, eager)                # warm from the run above)
+            decode_s(128, eager)
+        step_ms[eager] = (decode_s(128, eager) - decode_s(1, eager)) * 1e3 \
+            / 127
+    footprint = hbm.decode_footprint(
+        dims, 16, 132, weight_bytes=2, kv_bytes=2, int8_cross=True,
+        graph_pool=memory[2], graph_kept=generate._budget(session.device))
+    warn = hbm.check_fit(footprint, device=session.device)
+    peak = torch.cuda.max_memory_allocated() - base
+    kept = session.graphs.kept()
+    secs["(c)"] = time.perf_counter() - t0
+    print(f"[large] (c) whisper-large-v3 x5 (32 decoder layers), the same "
+          f"file, on {card}: e2e graphed {g_s:.4f} s, eager {e_s:.4f} s, "
+          f"tokens bitwise, launches equal {g_c} ({steps} steps run), one "
+          f"graph launch; capture {capture_s:.2f} s; the body's nodes "
+          f"{loop.body_ops}; the bucket's decode {step_ms[False]:.4f} ms a "
+          f"step graphed, {step_ms[True]:.4f} eager (host clock, prefill "
+          f"taken out); the key: {_gate_line(dims, memory)}; check_fit at "
+          f"bucket 16 with that key's pools and the budget other keys may "
+          f"keep ({_gib(footprint['total'])} of "
+          f"{_gib(hbm.device_hbm_budget(session.device))}): "
+          + ("passes" if warn is None else f"warns: {warn}")
+          + f"; {len(kept)} keys kept, {_gib(sum(kept.values()))} against "
+          f"the budget {_gib(generate._budget(session.device))}; peak "
+          f"{_gib(peak)} above the part's start", flush=True)
+    del session, enc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # (d) the CLI at turbo over one WAV (76 s: the one-shot front end, B5,
+    # at 128 mels)
+    t0 = time.perf_counter()
+    files = (CLI_FILES[2],)
+    with tempfile.TemporaryDirectory() as tmp:
+        audio_dir = os.path.join(tmp, "audio")
+        os.makedirs(audio_dir)
+        _write_wav(os.path.join(audio_dir, files[0][0]), *files[0][1:])
+        os.environ["HF_HOME"] = os.path.join(tmp, "hf")
+        c = run_cli("large-v3-turbo-x5", card, results, audio_dir, tmp,
+                    ["--model-id", LARGE_TURBO, "--max-new-tokens", "128",
+                     "--variant", "x5"], files=files)
+    if not (c["log_mel"] > 0 and c["fused_attention"] > 0
+            and c["fused_encoder_mlp"] > 0
+            and c["self_attend_step"] == c["cross_attend_step"] > 0
+            and c["cross_attend_step_dequant"] == 0):
+        raise AssertionError(f"[large] (d) the CLI at turbo: launches {c}")
+    secs["(d)"] = time.perf_counter() - t0
+    secs["phase"] = time.perf_counter() - t_phase
+    print("[large] seconds: " + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in secs.items()),
+          flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -5861,6 +6342,8 @@ def main() -> None:
     check_exit(card, results, params, dims, audio)
     _memory_line("the medium fused block")
     medium = check_medium_fused_block(card, results)
+    _memory_line("[large]")
+    check_large(card, results)
     cli = check_cli(card, results)
     check_audio(card, results)
     check_parallel(card, results, params, dims, audio, x5_run,

@@ -1685,6 +1685,52 @@ def test_graphed_sampling_repeats_per_seed(gen):
     assert all(torch.equal(x, y) for x, y in zip(a, run(7, eager=True)))
 
 
+def test_a_32_layer_body_is_bitwise_the_eager_loop(gen):
+    """whisper-large-v3's deepest body at a narrow width: a toy of its shape
+    (128 mels, 32 decoder layers, four heads of 64 at d = 256, vocab
+    51,866) at x5, bucket 4, 24 tokens: the graphed decode (a while node
+    whose body holds 32 layers of B3 and B4) bitwise the eager loop, one
+    graph launch a call and one capture, the launch counters equal, B3 and
+    B4 32 a step and the greedy tail once a step."""
+    from whisper_tpu_torch.models import convert
+    from whisper_tpu_torch.models.registry import _dims
+    from whisper_tpu_torch.runtime.generate import (
+        DecodeGraphs,
+        build_suppress_mask,
+        greedy_generate,
+    )
+
+    dims = _dims(128, 256, 2, 4, 32, 4, 51866)
+    tree = convert.params_from_numpy(convert.init_params(dims, 7), "cuda",
+                                     BF)
+    enc = _randn(gen, 4, 1500, 256)
+    mask = torch.from_numpy(build_suppress_mask(51866, [8, 300])).cuda()
+    prompt = torch.tensor([50258, 50259, 50359, 50363], device="cuda")
+    graphs = DecodeGraphs(tree)
+
+    def run(eager):
+        return greedy_generate(tree, dims, enc, prompt, mask, mask, 24, 50257,
+                               eager=eager, graphs=graphs,
+                               **GRAPH_RUNGS["x5"])
+
+    outs, counts = {}, {}
+    for eager in (True, False, False):
+        before = _step_counts()
+        with _graph_launches() as launches:
+            outs.setdefault(eager, []).append(run(eager))
+        assert len(launches) == (0 if eager else 1), launches
+        counts.setdefault(eager, []).append(
+            tuple(a - b for a, b in zip(_step_counts(), before)))
+    assert len(graphs.captures()) == 1
+    (loop,) = graphs._loops.values()
+    assert loop.body_ops > 0
+    for got in outs[False]:
+        assert torch.equal(got, outs[True][0])
+    assert counts[False] == [counts[True][0]] * 2, counts
+    b3, b4, tail = (counts[True][0][i] for i in (0, 4, 7))
+    assert tail >= 1 and b3 == b4 == 32 * tail, counts
+
+
 def test_every_temperature_shares_one_graph(gen):
     """The fallback ladder's temperatures through the x5 step with scores:
     one sampled key, captured once; each T's tokens and scores bitwise the

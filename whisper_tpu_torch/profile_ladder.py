@@ -112,6 +112,17 @@ difference with greedy's run of the same round, and the traced run's
 device operations (in all and a decode step), busy ms, the hand-written
 kernels' in-situ times and the five largest other device operations (for
 beams: the stable sort, the gathers).
+
+``python -m whisper_tpu_torch.profile_ladder --pools`` runs only the bucket
+programs' memory: whisper-base and whisper-large-v3-turbo at x5, the
+301.574 s file (12 chunks, bucket 16) and a 76 s file (3 chunks, bucket 4),
+one session a model.  For each program, the live peak of its pre-node
+work in the capture's warm-up (``torch.cuda.max_memory_allocated`` above
+what was allocated before it: the encoder's and the prefill's
+temporaries) and of its step's, the bytes of its graph's two memory pools
+(the pre-node program's and the while node's body's) after their trial
+captures and after the capture, and ``utils.hbm.program_pool_bytes`` at
+its rows; one JSON line each.
 """
 
 from __future__ import annotations
@@ -597,6 +608,86 @@ def profile_decoding(params, audio):
                "largest_other": out["largest_other"]}
 
 
+POOL_RUNS = (("openai/whisper-base", 301.574), ("openai/whisper-base", 76.0),
+             ("openai/whisper-large-v3-turbo", 301.574),
+             ("openai/whisper-large-v3-turbo", 76.0))
+
+
+def profile_pools() -> list:
+    """The ``--pools`` lines (see the module's docstring)."""
+    import torch
+
+    from whisper_tpu_torch.headline import make_session, run_once, synth_audio
+    from whisper_tpu_torch.models.convert import init_params
+    from whisper_tpu_torch.models.registry import get_dims
+    from whisper_tpu_torch.runtime import generate
+    from whisper_tpu_torch.utils import hbm
+
+    capture, trial = generate._GraphLoop._capture, \
+        generate._GraphLoop._trial_capture
+    seen = {}
+
+    def live(fn, name):
+        """``fn`` that records, the first time it runs (the warm-up), its
+        live peak above what was allocated before it."""
+        def run():
+            if name in seen:
+                return fn()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn()
+            torch.cuda.synchronize()
+            seen[name] = torch.cuda.max_memory_allocated() - before
+            return out
+        return run
+
+    def capturing(self, pre, step, bound):
+        capture(self, live(pre, "pre"),
+                None if step is None else live(step, "step"), bound)
+        seen["pre pool"] = generate._pool_bytes(self.pools[:1])
+        seen["body pool"] = generate._pool_bytes(self.pools[1:])
+
+    def trying(self, fn, stream, pool, body=False):
+        out = trial(self, fn, stream, pool, body)
+        seen["body pool after its trial" if body
+             else "pre pool after its trial"] = generate._pool_bytes([pool])
+        return out
+
+    generate._GraphLoop._capture = capturing
+    generate._GraphLoop._trial_capture = trying
+    out, session = [], None
+    try:
+        for model_id, seconds in POOL_RUNS:
+            dims = get_dims(model_id)
+            if session is None or session.dims != dims:
+                session = None
+                torch.cuda.empty_cache()
+                session = make_session("cuda", init_params(dims, seed=0),
+                                       "x5", model_id)
+            seen.clear()
+            run_once(session, synth_audio(seconds))
+            rows = next(reversed(session.graphs.kept())).rows
+            gib = {k: v / 2 ** 30 for k, v in seen.items()}
+            out.append({
+                "config": f"{model_id} x5, {seconds} s, bucket {rows}",
+                "pre_live_peak_gib": gib["pre"],
+                "step_live_peak_gib": gib["step"],
+                "pre_pool_after_trial_gib": gib["pre pool after its trial"],
+                "body_pool_after_trial_gib": gib[
+                    "body pool after its trial"],
+                "pre_pool_gib": gib["pre pool"],
+                "body_pool_gib": gib["body pool"],
+                "pools_over_live_peak": (seen["pre pool"] + seen["body pool"])
+                / seen["pre"],
+                "program_pool_bytes_gib": hbm.program_pool_bytes(
+                    dims, rows, 4, act_bytes=2) / 2 ** 30})
+    finally:
+        generate._GraphLoop._capture = capture
+        generate._GraphLoop._trial_capture = trial
+    return out
+
+
 def profile_decode_ms(params, audio) -> dict:
     """The ``--decode-ms`` line (see the module's docstring)."""
     import statistics
@@ -886,6 +977,10 @@ def main() -> None:
     parser.add_argument("--decode-ms", action="store_true",
                         help="run only x5's e2e and its graphed decode's "
                              "device ms, no row ending")
+    parser.add_argument("--pools", action="store_true",
+                        help="run only the bucket programs' memory pools "
+                             "beside their live peaks, whisper-base and "
+                             "whisper-large-v3-turbo")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("whisper_tpu_torch.profile_ladder needs a CUDA card")
@@ -907,6 +1002,11 @@ def main() -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         torch.zeros(1, device="cuda")
         torch.cuda.synchronize()
+    if args.pools:
+        for out in profile_pools():
+            out["device"] = card
+            print(json.dumps(out), flush=True)
+        return
     dims = get_dims(MODEL_ID)
     params = init_params(dims, seed=0)
     if args.fused_step:

@@ -158,6 +158,15 @@ def decode_footprint(dims: WhisperDims, batch: int, max_len: int,
     return out
 
 
+# A graph's private memory pool keeps more than its program's live peak:
+# the caching allocator rounds blocks up and reuses a freed block only for
+# a request that fits it.  On the card a bucket program's pools were
+# 1.27-1.29x the live peak of its warm-up at bucket 16 and 1.28-1.60x at
+# bucket 4, whisper-base and whisper-large-v3-turbo (``python -m
+# whisper_tpu_torch.profile_ladder --pools``; PERF.md §6).
+POOL_SLACK = 1.25
+
+
 def program_pool_bytes(dims: WhisperDims, batch: int, prompt_len: int = 4,
                        enc_len: Optional[int] = None, *, act_bytes: int = 2,
                        fused_attention: bool = True,
@@ -165,33 +174,42 @@ def program_pool_bytes(dims: WhisperDims, batch: int, prompt_len: int = 4,
                        tensor_parallel: int = 1) -> int:
     """An estimate of the memory pool one bucket program's graph keeps
     (``runtime.generate``): the largest set of temporaries live at once in
-    its pre-node work, which the graph holds between launches.  In the
-    encoder, the stem (the mel at fp32 and two conv outputs, each [B, d,
-    2T]) or a block (four [B, T, d] activations, FC1's output and its GELU
-    [B, T, d_ffn], and without the fused attention the fp32 scores and
-    probabilities [B, H, T, T]); then the prefill's fp32 logits [B, P, V]
-    with one layer's cross K and V before their cache.  A draft with its
-    own encoder adds its blocks' set (the main states live beside it).
+    its pre-node work, which the graph holds between launches, times
+    ``POOL_SLACK``.  In the encoder, the stem (the mel at fp32 and two conv
+    outputs, each [B, d, 2T]) or a block: the six [B, T, d] activations a
+    layer's names hold until the next layer rebinds them (the residual,
+    LayerNorm's output, q, k, v and the attention's output), beside the
+    larger of LayerNorm's four fp32 temporaries [B, T, d] and the MLP's
+    (LayerNorm's output and the result [B, T, d], FC1's output and its
+    GELU [B, T, d_ffn]: the unfused MLP's; B2 keeps fewer); and without
+    the fused attention the fp32 scores and probabilities [B, H, T, T].
+    Then the prefill: the encoder states, the fp32 logits [B, P, V] and
+    one layer's cross K and V before their cache, with the fp32 copies its
+    attention reads.  A draft with its own encoder adds its blocks' set
+    (the main states live beside it).
 
     A rank of a mesh: ``batch`` its rows; tensor_parallel its model axis,
-    which splits the main encoder's FC1 columns and heads and the
+    which splits the main encoder's q, k, v, FC1 columns and heads and the
     prefill's cross heads (a draft is whole on every rank)."""
     enc_len = dims.max_source_positions if enc_len is None else enc_len
     b, t, ab, tp = batch, enc_len, act_bytes, tensor_parallel
 
     def encoder(d: WhisperDims, split: int) -> int:
         stem = b * 2 * t * (4 * d.n_mels + 2 * ab * d.d_model)
-        block = b * t * ab * (4 * d.d_model + 2 * d.d_ffn // split)
+        kept = b * t * ab * (2 * d.d_model + 4 * d.d_model // split)
+        layer_norm = 4 * 4 * b * t * d.d_model
+        mlp = b * t * ab * (2 * d.d_model + 2 * d.d_ffn // split)
+        block = kept + max(layer_norm, mlp)
         if not fused_attention:
             block += 2 * 4 * b * d.encoder_heads // split * t * t
         return max(stem, block)
 
-    prefill = (4 * b * prompt_len * dims.vocab_size
-               + 2 * b * t * dims.d_model // tp * ab)
+    prefill = (b * t * dims.d_model * ab + 4 * b * prompt_len * dims.vocab_size
+               + 2 * b * t * dims.d_model // tp * (ab + 4))
     total = max(encoder(dims, tp), prefill)
     if draft_dims is not None:
         total += encoder(draft_dims, 1) + b * t * dims.d_model * ab
-    return int(total)
+    return int(POOL_SLACK * total)
 
 
 def device_hbm_budget(device=None) -> Optional[int]:
