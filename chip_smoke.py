@@ -267,8 +267,21 @@ What it does, in order (any failure raises and exits non-zero):
    budget other keys may keep.  (d) the CLI at turbo (``--model-id
    openai/whisper-large-v3-turbo --allow-random-init --variant x5``) over
    the 76 s WAV (one-shot front end: B5 at 128 mels): per-file e2e, the
-   Timing split, the peak above its start.  A line gives each part's
-   seconds.
+   Timing split, the peak above its start.  The kernel rows also hold
+   SDPA beside B1 and the bf16 composition beside B2c at turbo's shapes,
+   B7-i8 at large-v3's verify pass (16 rows, 20 heads, five queries) and
+   B4 at its 32 beam rows.  (e) large-v3 on (c)'s session, speculative,
+   draft_k 4, with a random distil-large-v3 draft (seed 1, drawn on the
+   same thread after large-v3's weights) on its own encoder and on the
+   shared one, and with large-v3's own int8 weights
+   (``_large_speculative``); (f) the same session with beam 2, timestamps
+   and translate at large-v3's own special ids (``_large_beams``); (g)
+   distil-large-v3 serving: the engine warmed at max_batch 16, a burst of
+   16 clips against each alone, 32 streams of 30 s three times, no capture
+   after the warm-up; (h) distil-large-v3 on the 301.574 s file
+   (``_large_distil``); (i) the CLI at large-v3 with ``--num-beams 2
+   --timestamps --task translate`` and a tokenizer.json of large-v3's
+   special ids (``_large_cli``).  A line gives each part's seconds.
 9. Drives the benchmark CLI (``whisper_tpu_torch.bench.cli.main``, in
    process) over four synthetic WAV files (4 s; 29.5 s at 44.1 kHz stereo;
    76 s, just under the one-shot limit; 150 s, streamed) at whisper-base
@@ -1414,12 +1427,19 @@ def _pick_composition(logits, temperature):
 
 def _mlp_composition(x, ln, w1, b1, w2, b2):
     """B10c's function as five PyTorch calls in bf16 (the yardstick beside
-    it: no one call computes it)."""
+    it: no one call computes it): B2's composition with B10c's stacked
+    LayerNorm and [1, n] biases."""
+    return _encoder_mlp_composition(x, ln[0], ln[1], w1, b1[0], w2, b2[0])
+
+
+def _encoder_mlp_composition(x, ln_s, ln_b, w1, b1, w2, b2):
+    """B2's function as five PyTorch calls in bf16 (layer_norm, linear,
+    gelu, linear, add: no one call computes it)."""
     import torch.nn.functional as F
 
-    r = F.layer_norm(x, x.shape[-1:], ln[0], ln[1], 1e-5)
-    h = F.gelu(F.linear(r, w1.t(), b1[0]), approximate="tanh")
-    return x + F.linear(h, w2.t(), b2[0])
+    r = F.layer_norm(x, x.shape[-1:], ln_s, ln_b, 1e-5)
+    h = F.gelu(F.linear(r, w1.t(), b1), approximate="tanh")
+    return x + F.linear(h, w2.t(), b2)
 
 
 def _traced(fn):
@@ -1666,7 +1686,6 @@ def check_b2_b3_edges(card: str, by_name, randn, mlp_args, med_args,
     the same in output and caches; one device operation a call with and
     without ``pad_count``."""
     import torch
-    import torch.nn.functional as F
 
     from whisper_tpu_torch.ops import encoder_mlp, self_attention
 
@@ -1707,17 +1726,11 @@ def check_b2_b3_edges(card: str, by_name, randn, mlp_args, med_args,
                              f"card a call, expected its three kernels: "
                              f"{sorted(names)}")
 
-    def composition(a):
-        xc, s_, b_, w1_, b1_, w2_, b2_ = a
-        r = F.layer_norm(xc, xc.shape[-1:], s_, b_, 1e-5)
-        h = F.gelu(F.linear(r, w1_.t(), b1_), approximate="tanh")
-        return xc + F.linear(h, w2_.t(), b2_)
-
     for label, args, row in (("d = 512, 24,000 rows", mlp_args,
                               "fused_encoder_mlp"),
                              ("d = 1,024, 1,500 rows", med_args,
                               "fused_encoder_mlp_d1024")):
-        comp_ms = _median_ms(lambda: composition(args))
+        comp_ms = _median_ms(lambda: _encoder_mlp_composition(*args))
         peak = by_name[row]["bound_ms"] / by_name[row]["ms"]
         print(f"[kernel] B2 at {label}: {by_name[row]['ms']:.4f} ms "
               f"({100 * peak:.1f}% of the bf16 peak) against a composition "
@@ -4216,6 +4229,19 @@ def _judge(session_ref, session_var, mel, prompt, ref_rows, var_rows, eot,
                                              if not d.tie_flip]
 
 
+def _judge_line(verdict) -> str:
+    """A ``_judge`` result as a line's words."""
+    from whisper_tpu_torch.variants.diagnose import KERNEL_EPS
+
+    n_div, flips, d_max, margin, drift = verdict
+    return (f"{n_div} chunks diverge, {flips} tie-flips (largest reference "
+            f"margin at a divergence {margin:.4f}, KERNEL_EPS {KERNEL_EPS}); "
+            f"max_dlogit_chain {d_max:.4f}; not tie-flips: "
+            + ("; ".join(f"step {d.step}: {d.x0_token} -> {d.var_token}, "
+                         f"margin {d.x0_margin:.4f}, variant margin "
+                         f"{d.var_margin:.4f}" for d in drift) or "none"))
+
+
 def _parse_cues(path: str) -> list:
     """(start s, end s, text) of every cue of an .srt or .vtt file."""
     import re
@@ -4279,7 +4305,6 @@ def check_prompts_words(card: str, results, params, dims, audio,
         strip_generated,
     )
     from whisper_tpu_torch.tokenizer.specials import special_tokens
-    from whisper_tpu_torch.variants.diagnose import KERNEL_EPS
 
     t_phase = time.perf_counter()
     n_e = dims.encoder_layers
@@ -4472,19 +4497,11 @@ def check_prompts_words(card: str, results, params, dims, audio,
         s_var = make_session("cuda", params, "x7") if "x7" in name else s_ref
         mel = s_ref.compute_mel(golden.reflect_pad(audio), nv,
                                 mel_frame_bucket(nv))
-        n_div, flips, d_max, margin, drift = _judge(
-            s_ref, s_var, mel, [(s, base) for s in starts], ref, var, eot,
-            name)
+        verdict = _judge(s_ref, s_var, mel, [(s, base) for s in starts],
+                         ref, var, eot, name)
         print(f"[prompts] (d) judge, {name}, whisper-base, 301.574 s, on "
               f"{card}: tokens equal {float((ref == var).mean()):.4f} of "
-              f"{ref.size}; {n_div} chunks diverge, {flips} tie-flips "
-              f"(largest reference margin at a divergence {margin:.4f}, "
-              f"KERNEL_EPS {KERNEL_EPS}); max_dlogit_chain {d_max:.4f}; not "
-              "tie-flips: "
-              + ("; ".join(f"step {d.step}: {d.x0_token} -> {d.var_token}, "
-                           f"margin {d.x0_margin:.4f}, variant margin "
-                           f"{d.var_margin:.4f}" for d in drift) or "none"),
-              flush=True)
+              f"{ref.size}; " + _judge_line(verdict), flush=True)
         del s_ref, s_var
 
     # (e) the CLI with each new flag over the four files
@@ -5836,6 +5853,17 @@ def check_parallel(card: str, results, params, dims, audio, x5,
 # [large]: the large family on the card at full width
 LARGE_TURBO = "openai/whisper-large-v3-turbo"
 LARGE_V3 = "openai/whisper-large-v3"
+LARGE_DISTIL = "distil-whisper/distil-large-v3"
+# large-v3's special ids: its tokenizer holds one language more than the
+# multilingual models', so its task ids, <|startofprev|> and
+# <|notimestamps|> sit one higher than those of the fallback without a
+# tokenizer.json (``tokenizer.specials``), and its timestamps start at
+# 50,365
+LARGE_V3_SPECIALS = {"<|endoftext|>": 50257, "<|startoftranscript|>": 50258,
+                     "<|en|>": 50259, "<|translate|>": 50359,
+                     "<|transcribe|>": 50360, "<|startofprev|>": 50362,
+                     "<|notimestamps|>": 50364}
+LARGE_V3_TIMESTAMP_BEGIN = 50365
 # [large] (b): the card within LARGE_ENC_STEPS bf16 steps of the CPU's
 # encoder states after 32 layers.  Base's bound is 8 at 6 layers; on the
 # CPU the port's bf16 encoder at d = 1,280 lies 7.49 bf16 steps from an
@@ -5880,11 +5908,17 @@ def _gate_line(dims, memory, rows: int = 16) -> str:
 def check_large_kernels(card: str, results) -> None:
     """B1, B2c, B3, B4 and B5 at the shapes whisper-large-v3-turbo's main
     path gives them (bucket 16, 20 heads of 64, d = 1,280, f = 5,120, 4
-    decoder layers; B5 at 128 mels and 7,680 frames, the CLI's one-shot
-    limit): each against its plain version within its tolerance, a call
-    timed beside the plain version's and its bound.  The figures go into
-    the rows of ``results`` (B2c's row is ``fused_encoder_mlp_d1024``)
-    under ``at_large_v3_turbo``."""
+    decoder layers; B5 at 128 mels and 7,680 frames), B1 and B2c beside
+    their library call (``scaled_dot_product_attention``; the bf16
+    composition of five PyTorch calls that ``check_b2_b3_edges`` times at
+    whisper-medium); then B7-i8 at whisper-large-v3's verify pass (16 rows,
+    20 heads, five queries: each query bitwise B4's) and B4 at its beam
+    rows (beam 2: 32 rows against the cache tiled per beam, each beam
+    bitwise the untiled call): each against its plain version within its
+    tolerance, a call timed beside the plain version's and its bound.  The
+    figures go into the rows of ``results`` (B2c's row is
+    ``fused_encoder_mlp_d1024``) under ``at_large_v3_turbo``, B7-i8's
+    under ``at_large_v3`` and B4's beam rows under ``at_large_v3_beams``."""
     import numpy as np
     import torch
 
@@ -5906,7 +5940,7 @@ def check_large_kernels(card: str, results) -> None:
                                                                 dtype=bf))
 
     b, h, t, dh, d, f = 16, 20, 1500, 64, 1280, 5120
-    n_l, s_max, pos, n = 4, 132, 70, 16 * 1500
+    n_l, s_max, pos, n, n_q, beams = 4, 132, 70, 16 * 1500, 5, 2
     q, k, v = randn(b, h, t, dh, scale=dh ** -0.5), randn(b, h, t, dh), \
         randn(b, h, t, dh)
     mlp = (randn(b, t, d), 1.0 + randn(d, scale=0.1), randn(d, scale=0.1),
@@ -5921,6 +5955,15 @@ def check_large_kernels(card: str, results) -> None:
                             device=dev, dtype=torch.int8) for _ in range(2))
     ks, vs = (torch.rand(n_l, b, h, generator=g, device=dev) * 0.02 + 1e-3
               for _ in range(2))
+    cross = (k8, v8, ks, vs)
+    qm = randn(b, n_q, h, dh, scale=dh ** -0.5)
+    # the cache tiled per beam as ``runtime.beam`` tiles it, beam j of row r
+    # at r * beams + j (the scales as the [..., 0, 0] views of a [L, B*K,
+    # H, 1, 1] tensor)
+    tiled = tuple(x.repeat_interleave(beams, dim=1) for x in (k8, v8)) + \
+        tuple(x[..., None, None].repeat_interleave(beams, dim=1)[..., 0, 0]
+              for x in (ks, vs))
+    qb = randn(b * beams, h, dh, scale=dh ** -0.5)
     nv = 7680
     pcm = np.round(np.clip(golden.reflect_pad(synth_audio(
         nv * golden.HOP / 16000.0)), -1, 1) * 32767.0)
@@ -5929,40 +5972,74 @@ def check_large_kernels(card: str, results) -> None:
     tables = sum(x.numel() * x.element_size()
                  for x in log_mel._device_tables(torch.device(dev), 128))
     nnz = log_mel.mel_bands(128)[1].size
-    # name: (kernel, plain, tolerance, (bytes, operations, their type))
-    cases = {
-        "fused_attention": (
-            lambda: attention.fused_attention(q, k, v),
-            lambda: attention.fused_attention_plain(q, k, v), 2.0,
-            (4 * b * h * t * dh * 2, 4 * b * h * t * t * dh, "bf16")),
-        "fused_encoder_mlp_d1024": (
-            lambda: encoder_mlp.fused_encoder_mlp(*mlp),
-            lambda: encoder_mlp.fused_encoder_mlp_plain(*mlp), 2.0,
-            ((2 * n * d + 2 * d * f + 3 * d + f) * 2, 4 * n * d * f,
-             "bf16")),
-        "self_attend_step": (
-            lambda: self_attention.self_attend_step(qs, kn, vn, kc, vc, 3,
-                                                    pos),
-            lambda: self_attention.self_attend_step_plain(qs, kn, vn, kc2,
-                                                          vc2, 3, pos), 2.0,
-            (b * h * dh * 2 * (2 * (pos + 1) + 6),
-             4 * b * h * (pos + 1) * dh, "fp32")),
-        "cross_attend_step": (
-            lambda: cross_attention.cross_attend_step(qx, k8, v8, ks, vs, 2,
-                                                      s_valid=t),
-            lambda: cross_attention.cross_attend_step_plain(
-                qx, k8, v8, ks, vs, 2, s_valid=t), 2.0,
-            (b * h * (2 * t * dh + 2 * dh * 2 + 8), 4 * b * h * t * dh,
-             "int8")),
-        "log_mel": (
-            lambda: log_mel.log_mel(wire, nv, 128, nf),
-            lambda: log_mel.log_mel_plain(wire, nv, 128, nf), 1e-4,
-            (((nv - 1) * golden.HOP + golden.WIN) * 2 + 128 * nf * 4
-             + tables,
-             nv * (2.5 * 400 * np.log2(400) + 3 * 201 + 2 * nnz), "fp32")),
-    }
+
+    def queries_are_b4s():
+        got = cross_attention.cross_attend_multi(qm, *cross, 2, s_valid=t,
+                                                 int8_mxu=True)
+        return all(torch.equal(got[:, i], cross_attention.cross_attend_step(
+            qm[:, i].contiguous(), *cross, 2, s_valid=t)) for i in range(n_q))
+
+    def beams_are_untiled():
+        got = cross_attention.cross_attend_step(qb, *tiled, 2, s_valid=t)
+        rows = torch.arange(b, device=dev) * beams
+        return all(torch.equal(got[rows + j], cross_attention.cross_attend_step(
+            qb[rows + j].contiguous(), *cross, 2, s_valid=t))
+            for j in range(beams))
+
+    # (row, the row's key, kernel, plain, tolerance, (bytes, operations,
+    # their type), the library call or None, a bitwise check or None)
+    turbo, v3, v3_beams = ("at_large_v3_turbo", "at_large_v3",
+                           "at_large_v3_beams")
+    cases = [
+        ("fused_attention", turbo,
+         lambda: attention.fused_attention(q, k, v),
+         lambda: attention.fused_attention_plain(q, k, v), 2.0,
+         (4 * b * h * t * dh * 2, 4 * b * h * t * t * dh, "bf16"),
+         lambda: torch.nn.functional.scaled_dot_product_attention(
+             q, k, v, scale=1.0), None),
+        ("fused_encoder_mlp_d1024", turbo,
+         lambda: encoder_mlp.fused_encoder_mlp(*mlp),
+         lambda: encoder_mlp.fused_encoder_mlp_plain(*mlp), 2.0,
+         ((2 * n * d + 2 * d * f + 3 * d + f) * 2, 4 * n * d * f, "bf16"),
+         lambda: _encoder_mlp_composition(*mlp), None),
+        ("self_attend_step", turbo,
+         lambda: self_attention.self_attend_step(qs, kn, vn, kc, vc, 3, pos),
+         lambda: self_attention.self_attend_step_plain(qs, kn, vn, kc2, vc2,
+                                                       3, pos), 2.0,
+         (b * h * dh * 2 * (2 * (pos + 1) + 6), 4 * b * h * (pos + 1) * dh,
+          "fp32"), None, None),
+        ("cross_attend_step", turbo,
+         lambda: cross_attention.cross_attend_step(qx, *cross, 2, s_valid=t),
+         lambda: cross_attention.cross_attend_step_plain(qx, *cross, 2,
+                                                         s_valid=t), 2.0,
+         (b * h * (2 * t * dh + 2 * dh * 2 + 8), 4 * b * h * t * dh, "int8"),
+         None, None),
+        ("log_mel", turbo, lambda: log_mel.log_mel(wire, nv, 128, nf),
+         lambda: log_mel.log_mel_plain(wire, nv, 128, nf), 1e-4,
+         (((nv - 1) * golden.HOP + golden.WIN) * 2 + 128 * nf * 4 + tables,
+          nv * (2.5 * 400 * np.log2(400) + 3 * 201 + 2 * nnz), "fp32"),
+         None, None),
+        ("cross_attend_multi", v3,
+         lambda: cross_attention.cross_attend_multi(qm, *cross, 2, s_valid=t,
+                                                    int8_mxu=True),
+         lambda: cross_attention.cross_attend_multi_plain(
+             qm, *cross, 2, s_valid=t, int8_mxu=True), 2.0,
+         (b * h * (2 * t * dh + 8) + 2 * b * n_q * h * dh * 2,
+          4 * b * n_q * h * t * dh, "int8"), None, queries_are_b4s),
+        ("cross_attend_step", v3_beams,
+         lambda: cross_attention.cross_attend_step(qb, *tiled, 2, s_valid=t),
+         lambda: cross_attention.cross_attend_step_plain(qb, *tiled, 2,
+                                                         s_valid=t), 2.0,
+         (b * beams * h * (2 * t * dh + 2 * dh * 2 + 8),
+          4 * b * beams * h * t * dh, "int8"), None, beams_are_untiled),
+    ]
+    shape = {turbo: "large-v3-turbo's shape",
+             v3: f"large-v3's verify pass ({b} rows, {h} heads, {n_q} "
+                 "queries; each query bitwise B4's)",
+             v3_beams: f"large-v3's {b * beams} beam rows (the cache tiled "
+                       "per beam; each beam bitwise the untiled call)"}
     by_name = {r["name"]: r for r in results}
-    for name, (kern, plain, tol, work) in cases.items():
+    for name, at, kern, plain, tol, work, library, bitwise in cases:
         got, want = kern(), plain()
         if name == "self_attend_step" and not (torch.equal(kc, kc2)
                                                and torch.equal(vc, vc2)):
@@ -5971,18 +6048,24 @@ def check_large_kernels(card: str, results) -> None:
         err = float((got.float() - want.float()).abs().max())
         steps = err if name == "log_mel" else _bf16_steps(got, want)
         if steps > tol or not torch.isfinite(got.float()).all():
-            raise AssertionError(f"{name} at large-v3-turbo's shape: "
-                                 f"{steps:.3g} from the plain version "
-                                 f"(tolerance {tol})")
+            raise AssertionError(f"{name} at {shape[at]}: {steps:.3g} from "
+                                 f"the plain version (tolerance {tol})")
+        if bitwise is not None and not bitwise():
+            raise AssertionError(f"{name} at {shape[at]}: not bitwise")
         ms, plain_ms = _median_ms(kern), _median_ms(plain)
+        library_ms = None if library is None else _median_ms(library)
         bound_ms, bound_by = _bound(*work)
-        by_name[name]["at_large_v3_turbo"] = {
+        by_name[name][at] = {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
-        print(f"[large] kernel {name} at large-v3-turbo's shape: "
-              f"max_abs_err {err:.3g} ({steps:.3g}, tolerance {tol}); "
-              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.5f} ms by {bound_by} on {card}", flush=True)
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+        print(f"[large] kernel {name} at {shape[at]}: max_abs_err "
+              f"{err:.3g} ({steps:.3g}, tolerance {tol}); {ms:.4f} ms vs "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms by "
+              f"{bound_by}"
+              + ("" if library_ms is None
+                 else f", library call {library_ms:.4f} ms")
+              + f" on {card}", flush=True)
 
 
 def _bucket_launches(c: dict, cond: int, dims, label: str) -> int:
@@ -5998,6 +6081,484 @@ def _bucket_launches(c: dict, cond: int, dims, label: str) -> int:
         raise AssertionError(f"[large] {label}: launches {c}, C {cond}; "
                              f"want {want}, C 1")
     return steps
+
+
+def _large_v3_added_tokens() -> list:
+    """large-v3's special ids as a tokenizer.json's ``added_tokens``."""
+    return [{"id": i, "content": t, "special": True}
+            for t, i in LARGE_V3_SPECIALS.items()]
+
+
+def _large_speculative(card: str, results, session, params, draft, audio,
+                       greedy) -> dict:
+    """``[large]`` (e): whisper-large-v3 (``session``: (c)'s, x5) decoding
+    the 301.574 s file speculatively, draft_k 4, with three drafts in turn:
+    distil-large-v3 (``draft``, random weights) on its own encoder and on
+    the main one (``share_encoder``), and large-v3's own int8 weights on
+    the main encoder (``params``: a draft whose proposals the verify pass
+    nearly always accepts).  For each: a graphed run after the capture and
+    an eager one, tokens bitwise, rounds counted (``speculative_stats``)
+    and rounds run (B7 launches over 32 layers) equal in both, launches
+    equal, one graph launch; B1 and B2 once a main encoder layer, B7 once a
+    layer and round run, B4 once a draft layer, draft step and round run,
+    no B3; e2e, x real time, capture seconds, ms a round run of the
+    bucket's decode on its encoder states (graphed, host clock, the
+    prefills and a round taken out), the key's state and pools beside
+    ``speculative_footprint`` and ``program_pool_bytes``.  The drafts'
+    tokens must be bitwise equal, and each chunk that differs from (c)'s
+    greedy tokens (``greedy``) is judged by ``divergence_report``
+    (``_judge``): a first divergence that is not a tie-flip fails.
+    Returns the B7 launches of each draft's graphed run."""
+    import numpy as np
+    import torch
+
+    from whisper_tpu_torch.frontend import golden
+    from whisper_tpu_torch.headline import AUDIO_SECONDS, run_once
+    from whisper_tpu_torch.models.registry import get_dims
+    from whisper_tpu_torch.pipeline.chunk import chunk_starts, mel_frame_bucket
+    from whisper_tpu_torch.runtime.genconfig import GenerationCfg
+    from whisper_tpu_torch.tokenizer.specials import special_tokens
+    from whisper_tpu_torch.utils import hbm
+    from whisper_tpu_torch.variants.quant import quantize_params
+
+    dims, k = session.dims, 4
+    n_l = dims.decoder_layers
+    d_dims = get_dims(LARGE_DISTIL)
+    arms = (("a random distil-large-v3 on its own encoder", draft, d_dims,
+             False),
+            ("the same on the shared encoder", draft, d_dims, True),
+            ("large-v3's own int8 weights on the shared encoder",
+             quantize_params({"decoder": params["decoder"]}), dims, True))
+    special = special_tokens("en", "transcribe", None)
+    eot = special.eot
+    prompt = [special.sot, special.lang, special.task, special.no_timestamps]
+    prompt_t = torch.tensor(prompt, device="cuda")
+    gen_cfg = GenerationCfg()
+    masks = session._get_masks(gen_cfg.suppress_tokens,
+                               gen_cfg.begin_suppress_tokens)
+    chunks = _bucket_chunks(session, audio)
+    enc = session.encoder(chunks)
+
+    def decode_s(n_new):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        session._speculative_tokens(chunks, enc, prompt_t, *masks, n_new, eot,
+                                    k)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t1
+
+    tokens, b7 = {}, {}
+    for label, d_params, dd, share in arms:
+        session.set_draft_model(d_params, dd, share_encoder=share)
+        run_once(session, audio, speculative=True, draft_k=k)   # captures
+        (key, capture_s), = [(kk, s) for kk, s in
+                             session.graphs.captures().items()
+                             if kk.kind == "speculative"]
+        runs = {}
+        for mode in ("graphed", "eager"):
+            _zero_counts(results)
+            col = []
+            with _graph_launches() as launches, (
+                    _eager_loop(session) if mode == "eager"
+                    else contextlib.nullcontext()):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                run_once(session, audio, token_collector=col,
+                         speculative=True, draft_k=k)
+                e2e = time.perf_counter() - t1
+            rounds = int(sum(r for r, _ in session.speculative_stats))
+            # tokens committed a row (the bucket's padding rows too)
+            committed = np.concatenate([c_.cpu().numpy() for _, c_ in
+                                        session.speculative_stats]).mean()
+            runs[mode] = (e2e, col[0], _counts(results), len(launches),
+                          rounds, committed)
+        (g_s, toks, c, g_launch, rounds, committed), \
+            (e_s, e_toks, e_c, e_launch, e_rounds, _) = \
+            runs["graphed"], runs["eager"]
+        ran = c["cross_attend_multi"] // n_l
+        want = {"fused_attention": dims.encoder_layers,
+                "fused_encoder_mlp": dims.encoder_layers,
+                "cross_attend_multi": n_l * rounds,
+                "cross_attend_step": dd.decoder_layers * k * rounds,
+                "self_attend_step": 0, "loop_tail": 0}
+        if not (np.array_equal(toks, e_toks) and c == e_c
+                and rounds == e_rounds == ran and g_launch == 1
+                and e_launch == 0
+                and all(c[n] == v for n, v in want.items())):
+            raise AssertionError(
+                f"[large] (e) {label}: tokens bitwise "
+                f"{np.array_equal(toks, e_toks)}, rounds {rounds} / "
+                f"{e_rounds} counted, {ran} run, graph launches {g_launch} / "
+                f"{e_launch}, launches {c} / {e_c}; want {want}")
+        tokens[label], b7[label] = toks, c["cross_attend_multi"]
+        # the key's memory before the bucket's decode adds two keys (the
+        # budget may then drop it)
+        state, inputs, pools = _key_memory(session, key)
+        fp = session.speculative_footprint(dd, share)
+        decode_s(1)
+        decode_s(128)                              # captures both keys
+        _zero_counts(results)
+        whole = decode_s(128)
+        run_rounds = _counts(results)["cross_attend_multi"] // n_l
+        round_ms = (whole - decode_s(1)) * 1e3 / (run_rounds - 1)
+        pool_est = hbm.program_pool_bytes(dims, 16, 4, act_bytes=2,
+                                          draft_dims=None if share else dd)
+        caches = fp["kv_cache"] + fp["draft_kv_cache"]
+        print(f"[large] (e) whisper-large-v3 x5 with {label} as draft, draft_k"
+              f" {k}, the 301.574 s file, on {card}: e2e graphed {g_s:.4f} s "
+              f"({AUDIO_SECONDS / g_s:.2f}x real time), eager {e_s:.4f} s; "
+              f"tokens bitwise, launches equal, one graph launch; {rounds} "
+              f"rounds counted and run, {committed / rounds:.3f} tokens "
+              f"committed a round and row; launches {c}; capture "
+              f"{capture_s:.2f} s; the bucket's decode {round_ms:.4f} ms a "
+              f"round run graphed ({run_rounds} rounds; host clock, the "
+              f"prefills and a round taken out); the key: state "
+              f"{_gib(state)} against the footprint's caches {_gib(caches)} "
+              f"({state / caches:.3f}x), inputs {_gib(inputs)}, pools "
+              f"{_gib(pools)} against program_pool_bytes {_gib(pool_est)} "
+              f"({pools / pool_est:.3f}x); speculative_footprint total "
+              f"{_gib(fp['total'])}", flush=True)
+    first, *rest = tokens.values()
+    if any(not np.array_equal(first, t) for t in rest):
+        raise AssertionError("[large] (e): the tokens depend on the draft")
+    nv = golden.num_frames(len(audio))
+    mel = session.compute_mel(golden.reflect_pad(audio), nv,
+                              mel_frame_bucket(nv))
+    starts = [p // golden.HOP for p in chunk_starts(len(audio), 480_000,
+                                                    400_000)]
+    verdict = _judge(session, session, mel, [(s, prompt) for s in starts],
+                     greedy, first, eot, "speculative large-v3")
+    print(f"[large] (e) the three drafts' tokens bitwise equal; against (c)'s"
+          f" greedy tokens: {float((first == greedy).mean()):.4f} of "
+          f"{first.size} equal, " + _judge_line(verdict), flush=True)
+    if verdict[4]:
+        raise AssertionError(f"[large] (e): divergences from greedy that are "
+                             f"not tie-flips: {verdict[4]}")
+    return b7
+
+
+def _large_beams(card: str, results, session, audio) -> int:
+    """``[large]`` (f): whisper-large-v3 (``session``, x5) translating the
+    301.574 s file with beam 2 and timestamps, large-v3's own special ids
+    (``LARGE_V3_SPECIALS`` through a tokenizer that holds them): 12 chunks
+    in a bucket of 16, 32 beam rows against the cross cache tiled per beam.
+    A graphed run through ``transcribe_longform`` after the capture and an
+    eager one: tokens bitwise (timestamps included), launches equal, one
+    graph launch, B4 once a decoder layer and step run, no B3; every row
+    within the timestamp grammar (``_grammar_errors``: timestamps from
+    50,365, never decreasing, pairs closed); the bucket's beam decode on its
+    encoder states (``beam_generate``, 128 tokens, no read) graphed and
+    eager: tokens and scores bitwise, ms a step of each (host clock, the
+    prefill taken out); the body's nodes, the self cache's gather a step
+    (the step's ``index_select`` and ``copy_`` of self_k and self_v over
+    the key's own cache) in device µs, the key's state and pools, and the
+    prompt's ids as the program holds them.  Returns the B4 launches of
+    the graphed run."""
+    import numpy as np
+    import torch
+
+    from whisper_tpu_torch.headline import AUDIO_SECONDS
+    from whisper_tpu_torch.pipeline.longform import transcribe_longform
+    from whisper_tpu_torch.runtime.beam import beam_generate
+    from whisper_tpu_torch.runtime.genconfig import GenerationCfg
+    from whisper_tpu_torch.runtime.timestamps import TimestampCfg
+    from whisper_tpu_torch.tokenizer.bpe import WhisperDetokenizer
+    from whisper_tpu_torch.tokenizer.specials import special_tokens
+    from whisper_tpu_torch.utils import hbm
+
+    dims, beams = session.dims, 2
+    n_l = dims.decoder_layers
+    tok = WhisperDetokenizer({}, _large_v3_added_tokens())
+    special = special_tokens("en", "translate", tok)
+    ts_cfg = TimestampCfg(special.no_timestamps + 1, special.eot,
+                          special.no_timestamps)
+    if ts_cfg.timestamp_begin != LARGE_V3_TIMESTAMP_BEGIN:
+        raise AssertionError(f"[large] (f): timestamps from "
+                             f"{ts_cfg.timestamp_begin}")
+
+    def run(eager):
+        col = []
+        with _graph_launches() as launches, (
+                _eager_loop(session) if eager else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, timing = transcribe_longform(
+                session, audio, "en", "translate", 128, tokenizer=tok,
+                timestamps=True, num_beams=beams, token_collector=col)
+            e2e = time.perf_counter() - t1
+        return e2e, timing, col[0], len(launches)
+
+    run(False)                                     # captures the bucket's key
+    (key, capture_s), = [(kk, s) for kk, s in
+                         session.graphs.captures().items()
+                         if kk.kind == "beam"]
+    runs = {}
+    for mode in ("graphed", "eager"):
+        _zero_counts(results)
+        runs[mode] = run(mode == "eager") + (_counts(results),)
+    (g_s, timing, toks, g_launch, c), (e_s, _, e_toks, e_launch, e_c) = \
+        runs["graphed"], runs["eager"]
+    steps = c["cross_attend_step"] // n_l
+    if not (np.array_equal(toks, e_toks) and c == e_c and g_launch == 1
+            and e_launch == 0 and key.rows == 16 * beams
+            and c["cross_attend_step"] == n_l * steps and 0 < steps <= 127
+            and c["self_attend_step"] == 0 and c["loop_tail"] == 0):
+        raise AssertionError(
+            f"[large] (f): tokens bitwise {np.array_equal(toks, e_toks)}, "
+            f"graph launches {g_launch} / {e_launch}, rows {key.rows}, "
+            f"launches {c} / {e_c}")
+    errs = [(r, e) for r, row in enumerate(toks)
+            for e in _grammar_errors(row, ts_cfg)]
+    if errs:
+        raise AssertionError(f"[large] (f): rows break the timestamp "
+                             f"grammar: {errs[:8]}")
+    loop = session.graphs._loops[key]
+    prompt_ids = loop.inputs[-3].tolist()      # prompt, suppress, first mask
+    if prompt_ids != [special.sot, special.lang, special.task]:
+        raise AssertionError(f"[large] (f): the program's prompt {prompt_ids}")
+    body_ops, memory = loop.body_ops, _key_memory(session, key)
+
+    # the bucket's beam decode on its encoder states, 127 steps, no read
+    enc = session.encoder(_bucket_chunks(session, audio))
+    gen_cfg = GenerationCfg()
+    masks = session._get_masks(gen_cfg.suppress_tokens,
+                               gen_cfg.begin_suppress_tokens)
+    prompt_t = torch.tensor(prompt_ids, device="cuda")
+
+    def decode(n_new, eager):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = beam_generate(
+            session._decoder_params, dims, enc, prompt_t, *masks, n_new,
+            special.eot, beams, ts_cfg=ts_cfg, int8_cross_kv=True,
+            packed_cross=True, int8_mxu=True, early_exit=False, eager=eager,
+            graphs=session.graphs)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t1, out
+
+    decode(1, False)
+    decode(128, False)                             # captures both keys
+    step_ms, outs = {}, {}
+    for mode in ("graphed", "eager"):
+        pre, _ = decode(1, mode == "eager")
+        whole, outs[mode] = decode(128, mode == "eager")
+        step_ms[mode] = (whole - pre) * 1e3 / 127
+    if not all(torch.equal(a, b) for a, b in zip(outs["graphed"],
+                                                 outs["eager"])):
+        raise AssertionError("[large] (f): the bucket's beam decode graphed "
+                             "differs from eager (tokens or scores)")
+    # the step's gather of the self cache after its parent beams, alone, on
+    # the bucket decode's own cache (the next launch's prefill writes it
+    # anew; the long-form key may have left the budget by now)
+    (state_128,) = [lp.state for kk, lp in session.graphs._loops.items()
+                    if kk.kind == "beam" and kk.front[0] == "states"
+                    and kk.max_new_tokens == 128]
+    sk, sv = state_128.cache.self_k, state_128.cache.self_v
+    rows = torch.arange(key.rows, device="cuda").view(-1, beams).flip(1) \
+        .reshape(-1)
+
+    def gather():
+        sk.copy_(sk.index_select(1, rows))
+        sv.copy_(sv.index_select(1, rows))
+
+    gather_us = _median_ms(gather, calls=10) * 1e3
+    cache_bytes = sk.numel() * sk.element_size() * 2
+    state, inputs, pools = memory
+    caches = hbm.kv_cache_bytes(dims, key.rows, key.prompt_len + 128,
+                                int8_cross=True)
+    pool_est = hbm.program_pool_bytes(dims, 16, key.prompt_len, act_bytes=2)
+    stamps = toks[toks >= ts_cfg.timestamp_begin]
+    print(f"[large] (f) whisper-large-v3 x5, beam {beams}, timestamps, "
+          f"translate, the 301.574 s file ({key.rows} beam rows), on {card}: "
+          f"the prompt's ids {prompt_ids}, timestamps from "
+          f"{ts_cfg.timestamp_begin}; e2e graphed {g_s:.4f} s "
+          f"({AUDIO_SECONDS / g_s:.2f}x real time; model "
+          f"{timing.model_only_s:.4f} s), eager {e_s:.4f} s; tokens bitwise "
+          f"(timestamps included), launches equal {c} ({steps} steps run), "
+          f"one graph launch; every row within the grammar, {stamps.size} "
+          f"timestamps ({int(stamps.min()) if stamps.size else None} to "
+          f"{int(stamps.max()) if stamps.size else None}); capture "
+          f"{capture_s:.2f} s; the body's nodes {body_ops}; the bucket's beam"
+          f" decode, tokens and scores bitwise, {step_ms['graphed']:.4f} ms a"
+          f" step graphed, {step_ms['eager']:.4f} eager (host clock, prefill "
+          f"taken out); the self cache's gather {gather_us:.1f} µs a step on "
+          f"the card ({4 * cache_bytes / gather_us * 1e-3:.0f} GB/s over "
+          f"{_gib(4 * cache_bytes)} read and written); the key: state "
+          f"{_gib(state)} against the caches at {key.rows} rows "
+          f"{_gib(caches)} ({state / caches:.3f}x), inputs {_gib(inputs)}, "
+          f"pools {_gib(pools)} against program_pool_bytes {_gib(pool_est)} "
+          f"({pools / pool_est:.3f}x)", flush=True)
+    return c["cross_attend_step"]
+
+
+def _large_distil(card: str, results, params, audio) -> None:
+    """``[large]`` (g), (h): distil-large-v3 (32 encoder layers, 2 decoder
+    layers; ``params``) at x5.  (g) serving: the engine at max_batch 16
+    with trimmed uploads, warmed (``warmup``: buckets 1 to 16 at four ship
+    lengths, 20 programs, each holding the 32-layer encoder); the keys kept
+    after it and their state, inputs and pools against the budget; a burst
+    of 16 clips of 1-30 s, each row equal to the clip alone at bucket 1 or
+    its first divergence a judged tie-flip (``_judge_rows``); then 32
+    concurrent streams of 30 s, three reps (``serve_bench.run_bench``):
+    aggregate x real time, latency p50 and p95; no key captured after the
+    warm-up.  (h) the 301.574 s file: a warm-up and three timed runs, one
+    graph launch a bucket, launches by the capture's tally (B1 = B2 = 32 a
+    program launch, B3 = B4 = 2 a step run, the tail once a step, C once),
+    an eager run bitwise the graphed tokens with equal launches."""
+    import numpy as np
+    import torch
+
+    from whisper_tpu_torch.headline import AUDIO_SECONDS, make_session, run_once
+    from whisper_tpu_torch.models.registry import get_dims
+    from whisper_tpu_torch.runtime import generate
+    from whisper_tpu_torch.runtime.genconfig import GenerationCfg
+    from whisper_tpu_torch.runtime.generate import strip_generated
+    from whisper_tpu_torch.serve import serve_bench
+    from whisper_tpu_torch.serve.engine import EngineConfig, StreamingEngine
+    from whisper_tpu_torch.tokenizer.specials import special_tokens
+
+    dims = get_dims(LARGE_DISTIL)
+    session = make_session("cuda", params, "x5", LARGE_DISTIL)
+    special = special_tokens("en", "transcribe", None)
+    prompt = [special.sot, special.lang, special.task, special.no_timestamps]
+    eot = special.eot
+    gen = GenerationCfg()
+    budget = generate._budget(session.device)
+
+    # (g) the engine's short lane
+    eng = StreamingEngine(session, cfg=EngineConfig(max_new_tokens=128,
+                                                    batch_window_ms=20))
+    try:
+        t1 = time.perf_counter()
+        eng.warmup()
+        warm_s = time.perf_counter() - t1
+        warm, kept = session.graphs.captures(), session.graphs.kept()
+        pools = session.graphs.pools()
+        short = [kk for kk in warm if kk.front[0] == "short audio"]
+        if len(short) != 20 or set(kept) != set(warm):
+            raise AssertionError(f"[large] (g): {len(short)} short programs "
+                                 f"captured, {len(kept)} kept after the "
+                                 f"warm-up")
+        clips = _serve_clips(16, seed=14)
+        _zero_counts(results)
+        t1 = time.perf_counter()
+        texts, lat = _latencies(eng, clips)
+        wall = time.perf_counter() - t1
+        c = _counts(results)
+        if any(c[n] == 0 for n in ("fused_attention", "fused_encoder_mlp",
+                                   "self_attend_step", "cross_attend_step")) \
+                or c["log_mel"]:
+            raise AssertionError(f"[large] (g) the burst: launches {c}")
+
+        def alone(clip):
+            toks = session.transcribe_short_batch(
+                *_one_row(clip), prompt, 128, eot,
+                suppress_ids=gen.suppress_tokens,
+                begin_suppress_ids=gen.begin_suppress_tokens)
+            return strip_generated(toks[0], eot)
+
+        verdict = _judge_rows(session, clips, prompt, eot,
+                              [_engine_tokens(t) for t in texts],
+                              [alone(a) for a in clips],
+                              "(g) batched against alone")
+        reps = serve_bench.run_bench(eng, serve_bench.make_streams(32, 30.0),
+                                     reps=3)
+        after = session.graphs.captures()
+        captured = [kk for kk, s_ in after.items() if warm.get(kk) != s_]
+        if captured or set(after) != set(warm):
+            raise AssertionError(f"[large] (g): {len(captured)} keys "
+                                 "captured after the warm-up, "
+                                 f"{len(set(warm) - set(after))} dropped")
+    finally:
+        eng.close()
+    print(f"[large] (g) distil-large-v3 x5 serving, max_batch 16, trimmed "
+          f"uploads, on {card}: warm-up {warm_s:.1f} s, {len(short)} "
+          f"programs kept (state, inputs and pools "
+          f"{_gib(sum(kept.values()))}, of it pools "
+          f"{_gib(sum(pools.values()))}, against the budget {_gib(budget)}; "
+          f"pools a bucket-16 program "
+          + ", ".join(_gib(pools[kk]) for kk in short if kk.rows == 16)
+          + f"); a burst of 16 clips of 1-30 s: wall {wall:.4f} s, latency "
+          f"p50 {_pct(lat, 0.5):.4f} s p95 {_pct(lat, 0.95):.4f} s, "
+          f"{verdict} against each clip alone at bucket 1; launches {c}",
+          flush=True)
+    for i, r in enumerate(reps):
+        print(f"[large] (g) distil-large-v3 x5, 32 streams x 30 s, rep {i}, "
+              f"on {card}: wall {r['wall_s']:.4f} s, {r['x_real_time']:.2f}x "
+              f"real time aggregate, latency p50 {r['p50_s']:.4f} s p95 "
+              f"{r['p95_s']:.4f} s max {r['max_s']:.4f} s, ticks so far "
+              f"{r['ticks']}", flush=True)
+    print(f"[large] (g) keys captured after the warm-up: 0 (of "
+          f"{len(after)} kept)", flush=True)
+
+    # (h) the 301.574 s file
+    e2e, timing, toks, c = _timed_run(session, audio, results, runs=3)
+    steps = _bucket_launches(c, _condition_count(), dims, "(h) graphed")
+    (capture_s,) = [s_ for kk, s_ in session.graphs.captures().items()
+                    if kk.front[0] == "chunks"]
+    with _graph_launches() as launches:
+        run_once(session, audio)
+    with _eager_loop(session):
+        _zero_counts(results)
+        col = []
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        run_once(session, audio, token_collector=col)
+        eager_s = time.perf_counter() - t1
+        eager_c = _counts(results)
+    if len(launches) != 1 or not np.array_equal(col[0], toks) \
+            or eager_c != c:
+        raise AssertionError(f"[large] (h): {len(launches)} graph launches, "
+                             f"eager tokens bitwise "
+                             f"{np.array_equal(col[0], toks)}, launches "
+                             f"{eager_c} / {c}")
+    print(f"[large] (h) distil-large-v3 x5, the 301.574 s file, 12 chunks in "
+          f"a bucket of 16, on {card}: e2e {e2e:.4f} s (median of 3), "
+          f"{AUDIO_SECONDS / e2e:.2f}x real time, model "
+          f"{timing.model_only_s:.4f} s; eager {eager_s:.4f} s, tokens "
+          f"bitwise the graphed run's, launches equal; one graph launch; "
+          f"launches {c} ({steps} steps run); capture {capture_s:.2f} s",
+          flush=True)
+
+
+def _large_cli(card: str, results) -> dict:
+    """``[large]`` (i): the CLI at whisper-large-v3 (``--allow-random-init``:
+    its weights drawn anew from seed 0) with ``--num-beams 2 --timestamps
+    --task translate`` over the 76 s WAV (B5 at 128 mels), large-v3's
+    special ids read from a tokenizer.json that holds them
+    (``--tokenizer-json``): per-file e2e, the Timing split and the peak
+    above its start (``run_cli``); B1 and B2 32 a program launch, B4 and no
+    B3 (beam search's step), no B6; the row's text holds timestamps.
+    Returns the counts."""
+    files = (CLI_FILES[2],)
+    label = "large-v3-x5-beams2-timestamps-translate"
+    with tempfile.TemporaryDirectory() as tmp:
+        audio_dir = os.path.join(tmp, "audio")
+        os.makedirs(audio_dir)
+        _write_wav(os.path.join(audio_dir, files[0][0]), *files[0][1:])
+        tok_json = os.path.join(tmp, "tokenizer.json")
+        with open(tok_json, "w") as f:
+            json.dump({"model": {"vocab": {}},
+                       "added_tokens": _large_v3_added_tokens()}, f)
+        os.environ["HF_HOME"] = os.path.join(tmp, "hf")
+        c = run_cli(label, card, results, audio_dir, tmp,
+                    ["--model-id", LARGE_V3, "--max-new-tokens", "128",
+                     "--variant", "x5", "--num-beams", "2", "--timestamps",
+                     "--task", "translate", "--tokenizer-json", tok_json],
+                    files=files)
+        with open(os.path.join(tmp, label, "c.csv")) as f:
+            text = list(csv.reader(f))[1][4]
+    if not (c["fused_attention"] > 0 and c["fused_attention"] % 32 == 0
+            and c["fused_encoder_mlp"] == c["fused_attention"]
+            and c["cross_attend_step"] > 0 and c["self_attend_step"] == 0
+            and c["cross_attend_step_dequant"] == 0 and "<|" in text):
+        raise AssertionError(f"[large] (i) the CLI at large-v3 with beams, "
+                             f"timestamps and translate: launches {c}, text "
+                             f"{text[:200]!r}")
+    print(f"[large] (i) the CLI's text at large-v3 opens {text[:80]!r} (text "
+          "tokens decode to nothing: the tokenizer.json holds the special "
+          "ids alone)", flush=True)
+    return c
 
 
 def check_large(card: str, results) -> None:
@@ -6022,11 +6583,13 @@ def check_large(card: str, results) -> None:
 
     t_phase = time.perf_counter()
     secs = {}
-    # large-v3's 1.55 G normals are drawn on a thread of their own (numpy
-    # leaves the GIL while it fills an array) while the kernels, turbo's
-    # weights and (b) run; it is joined before any timed run
+    # large-v3's 1.55 G normals, then distil-large-v3's 0.76 G, are drawn on
+    # a thread of their own (numpy leaves the GIL while it fills an array)
+    # while the kernels, turbo's weights and (b) run, then (a) and (c);
+    # each is joined before its first use
     executor = concurrent.futures.ThreadPoolExecutor(1)
     large_v3 = executor.submit(init_params, get_dims(LARGE_V3), seed=0)
+    distil = executor.submit(init_params, get_dims(LARGE_DISTIL), seed=1)
     check_large_kernels(card, results)
     secs["kernels"] = time.perf_counter() - t_phase
 
@@ -6049,7 +6612,6 @@ def check_large(card: str, results) -> None:
     secs["(b)"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     params = large_v3.result()
-    executor.shutdown()
     secs["large-v3 weights, waited for"] = time.perf_counter() - t0
 
     # (a) turbo on the 301.574 s file, one bucket of 16
@@ -6134,7 +6696,6 @@ def check_large(card: str, results) -> None:
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     session = make_session("cuda", params, "x5", LARGE_V3)
-    del params
     run_once(session, audio)                      # captures the bucket's key
     (key, capture_s), = session.graphs.captures().items()
     runs = {}
@@ -6213,7 +6774,24 @@ def check_large(card: str, results) -> None:
           + f"; {len(kept)} keys kept, {_gib(sum(kept.values()))} against "
           f"the budget {_gib(generate._budget(session.device))}; peak "
           f"{_gib(peak)} above the part's start", flush=True)
-    del session, enc
+    del enc
+
+    # (e) speculative decoding and (f) beams on (c)'s session
+    t0 = time.perf_counter()
+    draft = distil.result()
+    executor.shutdown()
+    secs["distil-large-v3 weights, waited for"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b7 = _large_speculative(card, results, session, params, draft, audio,
+                            g_toks)
+    secs["(e)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b4 = _large_beams(card, results, session, audio)
+    secs["(f)"] = time.perf_counter() - t0
+    by_name = {r["name"]: r for r in results}
+    by_name["cross_attend_multi"]["at_large_v3"]["launches"] = b7
+    by_name["cross_attend_step"]["at_large_v3_beams"]["launches"] = b4
+    del session, params
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -6236,6 +6814,19 @@ def check_large(card: str, results) -> None:
             and c["cross_attend_step_dequant"] == 0):
         raise AssertionError(f"[large] (d) the CLI at turbo: launches {c}")
     secs["(d)"] = time.perf_counter() - t0
+
+    # (g) distil-large-v3 serving, (h) on the 301.574 s file; (i) the CLI at
+    # large-v3 with beams, timestamps and translate
+    t0 = time.perf_counter()
+    _large_distil(card, results, draft, audio)
+    del draft
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    secs["(g), (h)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _large_cli(card, results)
+    secs["(i)"] = time.perf_counter() - t0
     secs["phase"] = time.perf_counter() - t_phase
     print("[large] seconds: " + ", ".join(f"{k} {v:.1f}"
                                           for k, v in secs.items()),

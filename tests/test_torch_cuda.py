@@ -751,14 +751,17 @@ def test_b10c_replays_in_a_cuda_graph(gen, b, d):
     (1, 1500, 1500, 2, 8), (5, 1500, 1500, 3, 6), (9, 1504, 1500, 1, 8),
     (3, 96, 96, 2, 2), (2, 2000, 1999, 1, 2), (17, 1500, 1500, 2, 8),
     (17, 2000, 1999, 1, 6), (8, 193, 193, 2, 4), (1, 2000, 384, 1, 8),
-    (5, 1731, 1731, 2, 8), (5, 2000, 1999, 3, 6)])
+    (5, 1731, 1731, 2, 8), (5, 2000, 1999, 3, 6), (5, 1500, 1500, 16, 20),
+    (5, 1504, 1499, 16, 20)])
 def test_b7_queries_are_bitwise_the_single_token_kernels(gen, t, s, s_valid,
                                                          b, h, int8_mxu):
     """Every query of B7 bit for bit what B4 (int8_mxu) or B6 gives for it:
     both kernels with T past one chunk of eight queries (9, 17), exactly one
     chunk (8), at one segment short, one row past one, eight and eleven
     segments (S = 1,731 to 2,000: three blocks own two), with masked tails;
-    and the whole within 2 bf16 steps of the plain version."""
+    at whisper-large-v3's verify pass (16 rows, 20 heads, T = 5) with all
+    1,500 columns valid and with 1,499 of a cache padded to 1,504; and the
+    whole within 2 bf16 steps of the plain version."""
     n_l = 2
     q = _randn(gen, b, t, h, 64, scale=0.125)
     k8 = torch.randint(-127, 128, (n_l, b, h, s, 64), generator=gen,
@@ -1044,13 +1047,14 @@ def _beam_cache(gen, n_l, b, k, h, s):
 
 @pytest.mark.parametrize("dequant", [False, True])
 @pytest.mark.parametrize("b,k,h,s", [(16, 4, 8, 1500), (3, 3, 8, 1500),
-                                     (16, 4, 6, 193)])
+                                     (16, 4, 6, 193), (16, 2, 20, 1500)])
 def test_b4_b6_at_beam_rows(gen, b, k, h, s, dequant):
     """B4 (x5) and B6 (x4) at B*K rows against the cache tiled per beam,
     the scales as views of a [L, B*K, H, 1, 1] tensor: each beam's row is
     bitwise the kernel's row on the untiled cache, and the whole within 2
     bf16 steps of the plain version (B4 bitwise at the path's inputs,
-    PERF.md)."""
+    PERF.md); whisper-large-v3's beam 2 at bucket 16 is 32 rows of 20
+    heads."""
     n_l = 2
     step = cross_attention.cross_attend_step_dequant if dequant \
         else cross_attention.cross_attend_step
@@ -3080,3 +3084,57 @@ def test_a_body_holding_a_node_no_body_may_hold_raises(gen, monkeypatch):
     got = run()
     assert len(graphs.captures()) == 1
     assert torch.equal(got, run(eager=True))
+
+
+# ---------------------------------------------------------------------------
+# Serving at the large family's dims
+# ---------------------------------------------------------------------------
+
+def test_distil_large_v3_warmup_leaves_no_capture_to_a_live_tick(
+        gen, monkeypatch):
+    """The serving engine at distil-large-v3's dims (128 mels, d = 1,280, a
+    32-layer encoder, 20 heads, 2 decoder layers, 51,866 ids; random
+    weights) at x5, max_batch 4: ``warmup`` captures buckets 1, 2 and 4 at
+    its four ship lengths, twelve programs, and keeps them all; live ticks
+    of one to four clips of 1-30 s then capture nothing, and every request
+    resolves to the tokenizer-less text of its ids (empty where a row's
+    first token ends it)."""
+    from whisper_tpu_torch.models.convert import init_params
+    from whisper_tpu_torch.models.registry import get_dims
+    from whisper_tpu_torch.runtime import generate
+    from whisper_tpu_torch.runtime.session import RuntimeCfg, WhisperSession
+    from whisper_tpu_torch.serve.engine import EngineConfig, StreamingEngine
+    from whisper_tpu_torch.variants.ladder import apply_variant
+
+    dims = get_dims("distil-whisper/distil-large-v3")
+    cfg, _ = apply_variant(RuntimeCfg(max_batch=4), "x5")
+    session = WhisperSession(init_params(dims, seed=1), dims, cfg,
+                             device="cuda")
+    eng = StreamingEngine(session, cfg=EngineConfig(max_new_tokens=16,
+                                                    batch_window_ms=20))
+    try:
+        eng.warmup()
+        warm = session.graphs.captures()
+        assert len(warm) == 12 and set(session.graphs.kept()) == set(warm)
+        captured = []
+        capture = generate._GraphLoop._capture
+
+        def counted(self, *a, **kw):
+            captured.append(1)
+            return capture(self, *a, **kw)
+
+        monkeypatch.setattr(generate._GraphLoop, "_capture", counted)
+        rng = np.random.default_rng(3)
+        clips = [(0.1 * rng.standard_normal(int(s * 16000)))
+                 .astype(np.float32) for s in (1.0, 3.5, 7.0, 12.0, 29.5)]
+        texts = [eng.transcribe(c, timeout=300) for c in clips]   # bucket 1
+        for group in (clips[:4], clips[1:4], clips[3:]):         # 4, 4, 2
+            futs = [eng.submit(c) for c in group]
+            texts += [f.result(timeout=300) for f in futs]
+        assert not captured
+        assert session.graphs.captures() == warm
+        assert len(texts) == 14 and all(
+            not t or (t.startswith("[TOKENS:") and t.endswith("]"))
+            for t in texts)
+    finally:
+        eng.close()

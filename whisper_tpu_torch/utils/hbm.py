@@ -186,7 +186,9 @@ def program_pool_bytes(dims: WhisperDims, batch: int, prompt_len: int = 4,
     Then the prefill: the encoder states, the fp32 logits [B, P, V] and
     one layer's cross K and V before their cache, with the fp32 copies its
     attention reads.  A draft with its own encoder adds its blocks' set
-    (the main states live beside it).
+    (the main states live beside it); that encoder runs plain whatever
+    ``fused_attention`` says (``session.set_draft_model``, as in the JAX
+    package), so its set holds the scores and probabilities.
 
     A rank of a mesh: ``batch`` its rows; tensor_parallel its model axis,
     which splits the main encoder's q, k, v, FC1 columns and heads and the
@@ -194,21 +196,21 @@ def program_pool_bytes(dims: WhisperDims, batch: int, prompt_len: int = 4,
     enc_len = dims.max_source_positions if enc_len is None else enc_len
     b, t, ab, tp = batch, enc_len, act_bytes, tensor_parallel
 
-    def encoder(d: WhisperDims, split: int) -> int:
+    def encoder(d: WhisperDims, split: int, fused: bool) -> int:
         stem = b * 2 * t * (4 * d.n_mels + 2 * ab * d.d_model)
         kept = b * t * ab * (2 * d.d_model + 4 * d.d_model // split)
         layer_norm = 4 * 4 * b * t * d.d_model
         mlp = b * t * ab * (2 * d.d_model + 2 * d.d_ffn // split)
         block = kept + max(layer_norm, mlp)
-        if not fused_attention:
+        if not fused:
             block += 2 * 4 * b * d.encoder_heads // split * t * t
         return max(stem, block)
 
     prefill = (b * t * dims.d_model * ab + 4 * b * prompt_len * dims.vocab_size
                + 2 * b * t * dims.d_model // tp * (ab + 4))
-    total = max(encoder(dims, tp), prefill)
+    total = max(encoder(dims, tp, fused_attention), prefill)
     if draft_dims is not None:
-        total += encoder(draft_dims, 1) + b * t * dims.d_model * ab
+        total += encoder(draft_dims, 1, False) + b * t * dims.d_model * ab
     return int(POOL_SLACK * total)
 
 
