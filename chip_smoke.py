@@ -99,11 +99,9 @@ What it does, in order (any failure raises and exits non-zero):
    just before each and read just after: rung x7 (B8 and B4 once per layer and
    step, no B3), rung x6 (the W8A8 encoder; kernels as at x5), and x5 with
    ``fused_encoder_block`` and ``fused_decoder_step`` (B9a, B1 and B9b once
-   per encoder layer, B10c once per layer and step, none of B2, B3, B4);
-   then a 4 s file at whisper-medium with ``fused_encoder_block`` (the
-   d >= 1024 composition: B9a, B1 and B2 once per layer, no B9b; one more
-   run under torch.profiler for B9a's and B2's in-situ times at d = 1,024).
-   Prints e2e, model time and launches of each beside x5's.
+   per encoder layer, B10c once per layer and step, none of B2, B3, B4).
+   Prints e2e, model time and launches of each beside x5's (the fused
+   block at whisper-small's and whisper-medium's widths: 8d).
 7. Speculative decoding on the same file: x5 with a random whisper-tiny
    draft (draft_k = 4; B7 once per layer and verify round run, the rounds
    run by a graph's while node: the rounds counted), x5 with
@@ -236,7 +234,43 @@ What it does, in order (any failure raises and exits non-zero):
    launch, beside the host ms to queue the encoder alone and the card's
    span of its work; with either draft the speculative dispatch must
    return within half its span.
-8d. ``[large]`` (``check_large``), after the whisper-medium run: the large
+8d. ``[medium]`` (``check_medium``): the medium family at full width (80
+   mels, whisper-small: d = 768, 12 heads of 64, 12 + 12 layers;
+   whisper-medium: d = 1,024, 16 heads, 24 + 24 layers; whisper-medium.en and
+   distil-medium.en: vocab 51,864), depth uncut, random weights from seed 0
+   (the draft's from seed 1) drawn once each, in turn, on one thread that runs
+   from here on (``_draw_family_weights``).  First B1 (beside SDPA), B2c (the
+   JAX rule's "chunked" MLP at both widths, beside the composition of five
+   PyTorch calls), B9a at d = 768 and B9a' at 1,024 (beside their
+   composition), B3 (its caches bitwise) and B4 (bitwise) at both, B6 at
+   whisper-small and B7-i8 at whisper-medium.en's verify pass (16 rows, 16
+   heads, five queries, each bitwise B4's), each against its plain version,
+   timed, with its bound.  (a) whisper-small and (b) whisper-medium at x5 on
+   the 301.574 s file (``_medium_file``): a warm-up and three timed runs,
+   tokens equal and in the vocabulary, one graph launch a bucket, launches by
+   the capture's tally, an eager run bitwise the graphed tokens with equal
+   launches, finite encoder states and logits; capture seconds, the key's
+   state and pools beside ``decode_footprint``'s caches and
+   ``program_pool_bytes``, the peak above the part's start, in-situ µs from a
+   traced eager run of 16 tokens; (c) on each session the card against the
+   port on the CPU on one 30 s chunk (``MEDIUM_ENC_STEPS`` bf16 steps, logits
+   5e-2); then the same file with ``fused_encoder_block``: the "chunked"
+   composition the JAX rule picks at d >= 768 (B9a = B1 = B2 = the encoder's
+   layers, no B9b), B9a's in-situ µs, every chunk that differs from the
+   unfused tokens a judged tie-flip.  (d) whisper-medium.en with ids
+   suppressed across its 51,864 ids (``_medium_en_speculative``): greedy
+   graphed, then speculative, draft_k 4, on the shared encoder with a random
+   distil-medium.en draft and with its own int8 weights, graphed: rounds
+   counted = run, B7 = 24 x rounds, B4 = the draft's layers x 4 x rounds, the
+   drafts' tokens bitwise equal, every divergence from greedy a judged
+   tie-flip, the key's pools beside ``speculative_footprint`` and
+   ``program_pool_bytes``; then the timestamp grammar and T = 0.5 on the
+   bucket's encoder states, graphed twice and eagerly, bitwise, every row
+   within the grammar.  (e) the CLI at whisper-small ``--variant int8`` over
+   the 76 s WAV (B5, B6 at 12 heads, no B4) and at whisper-medium x5 over the
+   4 s WAV (B2c), each on the weights drawn above (``_drawn_weights``).  A
+   line gives each part's seconds.
+8e. ``[large]`` (``check_large``), after ``[medium]``: the large
    family at full width (128 mels, d = 1,280, 20 heads of 64, vocab
    51,866), random weights from seed 0 built once each.  First B1, B2c,
    B3, B4 and B5 at the shapes whisper-large-v3-turbo's main path gives
@@ -254,8 +288,7 @@ What it does, in order (any failure raises and exits non-zero):
    beside ``decode_footprint``'s caches and ``program_pool_bytes``, the
    peak device memory above the phase's start, and the kernels' in-situ
    µs from a traced eager run with five one-shot mels of 76.8 s (B5).
-   (b), run first on the same session while whisper-large-v3's weights
-   are drawn on a thread of their own: the card against the port on the
+   (b), run first on the same session: the card against the port on the
    CPU at turbo, one 30 s chunk: the mel at 128 bins (1e-4), the encoder
    states after 32 layers (``LARGE_ENC_STEPS`` bf16 steps), the prefill's
    logits over 51,866 ids and four teacher-forced steps (5e-2).  (c)
@@ -273,24 +306,24 @@ What it does, in order (any failure raises and exits non-zero):
    B4 at its 32 beam rows.  (e) large-v3 on (c)'s session, speculative,
    draft_k 4, with a random distil-large-v3 draft (seed 1, drawn on the
    same thread after large-v3's weights) on its own encoder and on the
-   shared one, and with large-v3's own int8 weights
-   (``_large_speculative``); (f) the same session with beam 2, timestamps
-   and translate at large-v3's own special ids (``_large_beams``); (g)
+   shared one, and with large-v3's own int8 weights, an eager run bitwise
+   the graphed one on the shared encoder (``_large_speculative``); (f) the
+   same session with beam 2, timestamps and translate at large-v3's own
+   special ids (``_large_beams``); (i) the CLI at large-v3 with
+   ``--num-beams 2 --timestamps --task translate``, a tokenizer.json of
+   large-v3's special ids and the weights (c) drew (``_large_cli``); (g)
    distil-large-v3 serving: the engine warmed at max_batch 16, a burst of
    16 clips against each alone, 32 streams of 30 s three times, no capture
    after the warm-up; (h) distil-large-v3 on the 301.574 s file
-   (``_large_distil``); (i) the CLI at large-v3 with ``--num-beams 2
-   --timestamps --task translate`` and a tokenizer.json of large-v3's
-   special ids (``_large_cli``).  A line gives each part's seconds.
+   (``_large_distil``).  A line gives each part's seconds.
 9. Drives the benchmark CLI (``whisper_tpu_torch.bench.cli.main``, in
    process) over four synthetic WAV files (4 s; 29.5 s at 44.1 kHz stereo;
    76 s, just under the one-shot limit; 150 s, streamed) at whisper-base
-   ``--variant x5`` and ``--variant int8``, then over the 4 s file at
-   whisper-medium x5, every kernel's count set to 0 just before each run
-   and read just after; asserts rc 0, the reference's CSV header and
-   summary keys, four rows of the files' durations, B5 on every one-shot
-   mel, B4 and not B6 at x5, B6 and not B4 at int8, B2 at d=1024 in the
-   medium run; prints each run's per-file e2e, p95 and peak device memory.
+   ``--variant x5`` and ``--variant int8``, every kernel's count set to 0
+   just before each run and read just after; asserts rc 0, the reference's
+   CSV header and summary keys, four rows of the files' durations, B5 on
+   every one-shot mel, B4 and not B6 at x5, B6 and not B4 at int8; prints
+   each run's per-file e2e, p95 and peak device memory.
    One more run at ``--variant x7`` over the four files (B8 and B4, no B3),
    one at x5 with each decoding flag (``--timestamps``, ``--language auto``,
    ``--temperatures 0,0.2,0.4``, ``--num-beams 4``; 32 tokens), and one at x5
@@ -1442,6 +1475,15 @@ def _encoder_mlp_composition(x, ln_s, ln_b, w1, b1, w2, b2):
     return x + F.linear(h, w2.t(), b2)
 
 
+def _qkv_composition(x, ln_s, ln_b, w, bias):
+    """B9a's function as two PyTorch calls in bf16 (layer_norm, linear: no
+    one call computes it)."""
+    import torch.nn.functional as F
+
+    r = F.layer_norm(x, x.shape[-1:], ln_s, ln_b, 1e-5)
+    return F.linear(r, w.t(), bias)
+
+
 def _traced(fn):
     """``fn()`` under torch.profiler: profile_ladder's summary of the trace
     (device operations, busy ms, in-situ kernel times, call spans)."""
@@ -1868,10 +1910,6 @@ def check_b9_edges(card: str, by_name, randn, qkv_args, qkv_med,
                                  f"the card a call, expected its kernels "
                                  f"{want}: {sorted(names)}")
 
-    def qkv_composition(x, ln_s, ln_b, w, bias):
-        r = F.layer_norm(x, x.shape[-1:], ln_s, ln_b, 1e-5)
-        return F.linear(r, w.t(), bias)
-
     def out_mlp_composition(x, ctx, o_w, o_b, ln_s, ln_b, w1, b1, w2, b2):
         y = x + F.linear(ctx, o_w.t(), o_b)
         r = F.layer_norm(y, y.shape[-1:], ln_s, ln_b, 1e-5)
@@ -1879,9 +1917,9 @@ def check_b9_edges(card: str, by_name, randn, qkv_args, qkv_med,
         return y + F.linear(h, w2.t(), b2)
 
     for row, comp, args, calls in (
-            ("fused_ln_qkv", qkv_composition, qkv_args,
+            ("fused_ln_qkv", _qkv_composition, qkv_args,
              "layer_norm, linear"),
-            ("fused_ln_qkv_d1024", qkv_composition, qkv_med,
+            ("fused_ln_qkv_d1024", _qkv_composition, qkv_med,
              "layer_norm, linear"),
             ("fused_out_mlp", out_mlp_composition, out_args,
              "linear, add, layer_norm, linear, gelu, linear, add")):
@@ -3124,11 +3162,13 @@ def check_while_node(card: str, trips: int = 128, rows: int = 16) -> dict:
 
 
 def _alternated(results, fns: dict, rounds: int):
-    """Each of ``fns`` ({mode: fn}) once to warm up (a graphed mode
-    captures there), then ``rounds`` rounds in turns, each run through
-    ``_decode_run``: {mode: [(result, host seconds, counts), ...]}."""
-    for fn in fns.values():
-        fn()
+    """Each mode of ``fns`` ({mode: fn}) but "eager" once to warm up (a
+    graphed mode captures there, after an eager warm-up of its step), then
+    ``rounds`` rounds in turns, each run through ``_decode_run``: {mode:
+    [(result, host seconds, counts), ...]}."""
+    for mode, fn in fns.items():
+        if mode != "eager":
+            fn()
     out = {mode: [] for mode in fns}
     for _ in range(rounds):
         for mode, fn in fns.items():
@@ -3177,17 +3217,16 @@ def check_graph_beam_spec(card: str, results, params, dims, audio) -> None:
     the 301.574 s file, 128 tokens, the eager loops reading ``done`` every
     step (round), where the graphed ones stop.  (e) beams K = 4 (64 beam
     rows) at x5 and x4 through the long-form path, graphed and eager
-    alternated, three runs each after a warm-up of each: tokens bitwise
-    and launches equal,
-    e2e and model_s (median); at x5 the bucket's beam decode (no read, 127
-    steps) graphed and eager, ms a step with the prefill taken out, and the
-    grammar and left-padded prompts graphed against eager (tokens, scores
-    and launches); (f) speculative at x5 and x4 with a random whisper-tiny
+    alternated, two runs each after the graphed run's warm-up (its
+    capture): tokens bitwise and launches equal, e2e and model_s (median);
+    at x5 the bucket's beam decode (no read, 127 steps) graphed and eager,
+    ms a step with the prefill taken out, and the grammar and left-padded
+    prompts graphed against eager (tokens, scores and launches); (f) speculative at x5 and x4 with a random whisper-tiny
     draft and with the model's own int8 weights as draft (shared encoder),
-    draft_k 4, graphed and eager alternated, two runs each after a warm-up
-    of each: tokens bitwise, rounds and launches equal, rounds counted and
-    rounds run (B7 launches / layers), e2e and model_s; at x5 the bucket's
-    decode, ms a round.  Each key's capture seconds and kept state."""
+    draft_k 4, one graphed run after its capture and one eager: tokens
+    bitwise, rounds and launches equal, rounds counted and rounds run (B7
+    launches / layers), e2e and model_s; at x5 the bucket's decode, ms a
+    round graphed.  Each key's capture seconds and kept state."""
     import numpy as np
     import torch
 
@@ -3246,7 +3285,7 @@ def check_graph_beam_spec(card: str, results, params, dims, audio) -> None:
         session = make_session("cuda", params, variant)
         runs = _alternated(results, {
             "graphed": lambda s=session: run(s, False, num_beams=4),
-            "eager": lambda s=session: run(s, True, num_beams=4)}, 3)
+            "eager": lambda s=session: run(s, True, num_beams=4)}, 2)
         c = same(runs, f"(e) beams {variant}")
         steps = c[on] // n_l
         if not (c[on] == steps * n_l and 0 < steps <= 127
@@ -3257,7 +3296,7 @@ def check_graph_beam_spec(card: str, results, params, dims, audio) -> None:
                 f"rows, on {card}: e2e graphed {med['graphed'][0]:.4f} s "
                 f"(model {med['graphed'][1]:.4f}), eager "
                 f"{med['eager'][0]:.4f} s (model {med['eager'][1]:.4f}), "
-                f"alternated, median of 3; tokens bitwise, launches equal, "
+                f"alternated, median of 2; tokens bitwise, launches equal, "
                 f"{steps} steps run")
         if variant == "x5":
             enc = session.encoder(_bucket_chunks(session, audio))
@@ -3336,7 +3375,7 @@ def check_graph_beam_spec(card: str, results, params, dims, audio) -> None:
                 return out + (int(sum(r for r, _ in s.speculative_stats)),)
 
             runs = _alternated(results, {"graphed": lambda: spec(False),
-                                         "eager": lambda: spec(True)}, 2)
+                                         "eager": lambda: spec(True)}, 1)
             c = same(runs, f"(f) speculative {variant}, {label}",
                      extra=lambda out: out[2])
             rounds = runs["eager"][0][0][2]
@@ -3349,8 +3388,8 @@ def check_graph_beam_spec(card: str, results, params, dims, audio) -> None:
                     f"{label}, draft_k 4, on {card}: e2e graphed "
                     f"{med['graphed'][0]:.4f} s (model "
                     f"{med['graphed'][1]:.4f}), eager {med['eager'][0]:.4f} "
-                    f"s (model {med['eager'][1]:.4f}), alternated, median of "
-                    f"2; tokens bitwise, rounds and launches equal; "
+                    f"s (model {med['eager'][1]:.4f}), one run each after the "
+                    f"capture; tokens bitwise, rounds and launches equal; "
                     f"{rounds} rounds counted, {run_rounds} run")
             if variant == "x5":
                 chunks = _bucket_chunks(session, audio)
@@ -3358,30 +3397,23 @@ def check_graph_beam_spec(card: str, results, params, dims, audio) -> None:
                 masks = session._get_masks(gen_cfg.suppress_tokens,
                                            gen_cfg.begin_suppress_tokens)
 
-                def decode(n_new, eager):
-                    with (_eager_loop(session) if eager
-                          else contextlib.nullcontext()):
-                        torch.cuda.synchronize()
-                        t0 = time.perf_counter()
-                        _, (r, _) = session._speculative_tokens(
-                            chunks, enc, prompt_t, *masks, n_new, eot, 4)
-                        torch.cuda.synchronize()
+                def decode(n_new):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    _, (r, _) = session._speculative_tokens(
+                        chunks, enc, prompt_t, *masks, n_new, eot, 4)
+                    torch.cuda.synchronize()
                     return time.perf_counter() - t0, int(r)
 
-                round_ms = {}
-                for mode, eager in (("graphed", False), ("eager", True)):
-                    for n_new in (1, 128):
-                        decode(n_new, eager)
-                    _zero_counts(results)
-                    whole, r = decode(128, eager)
-                    ran = _counts(results)["cross_attend_multi"] // n_l
-                    pre = decode(1, eager)[0]
-                    round_ms[mode] = (whole - pre) * 1e3 / (ran - 1)
+                for n_new in (1, 128):                # captures
+                    decode(n_new)
+                _zero_counts(results)
+                whole, r = decode(128)
+                ran = _counts(results)["cross_attend_multi"] // n_l
+                round_ms = (whole - decode(1)[0]) * 1e3 / (ran - 1)
                 line += (f"; the bucket's decode, ms a round run graphed "
-                         f"{round_ms['graphed']:.4f}, eager "
-                         f"{round_ms['eager']:.4f} ({r} rounds counted, "
-                         f"{ran} run; host clock, prefills and a round "
-                         f"taken out)")
+                         f"{round_ms:.4f} ({r} rounds counted, {ran} run; "
+                         f"host clock, prefills and a round taken out)")
             print(line + f"; keys: {_kept_line(session, 'speculative')}",
                   flush=True)
         del session
@@ -3744,36 +3776,6 @@ def check_exit(card: str, results, params, dims, audio) -> None:
           flush=True)
 
 
-def check_medium_fused_block(card: str, results) -> dict:
-    """A 4 s file at whisper-medium (random weights from seed 0) at x5 with
-    fused_encoder_block: at d = 1024 the composition is B9a, B1, a plain
-    O-projection and B2, once per encoder layer, and never B9b."""
-    from whisper_tpu_torch.headline import make_session, run_once, synth_audio
-    from whisper_tpu_torch.models.registry import get_dims
-
-    model_id = "openai/whisper-medium"
-    dims = get_dims(model_id)
-    session = make_session("cuda", None, "x5", model_id,
-                           fused_encoder_block=True)
-    e2e, timing, toks, c = _timed_run(session, synth_audio(4.0), results,
-                                      max_new_tokens=16)
-    n_l = dims.encoder_layers
-    if not (c["fused_ln_qkv"] == c["fused_encoder_mlp"]
-            == c["fused_attention"] == n_l and c["fused_out_mlp"] == 0
-            and c["self_attend_step"] == c["cross_attend_step"] > 0):
-        raise AssertionError(f"whisper-medium fused block: launches {c}")
-    if toks.shape != (1, 16) or not ((toks >= 0)
-                                     & (toks < dims.vocab_size)).all():
-        raise AssertionError(f"whisper-medium fused block: tokens {toks}")
-    traced = _traced(lambda: run_once(session, synth_audio(4.0),
-                                      max_new_tokens=16))
-    print(f"[medium] whisper-medium x5+fused_encoder_block, 4 s, 16 tokens, "
-          f"on {card}: e2e {e2e:.4f} s, model {timing.model_only_s:.4f} s; "
-          f"launches {c}; in situ, µs (launches; at d = 1,024 B9a is B9a' "
-          f"and B2 B2c): {_in_situ(traced)}", flush=True)
-    return c
-
-
 def _grammar_errors(row, cfg) -> list:
     """What one generated row breaks of the timestamp grammar
     (``runtime.timestamps``): the first token a timestamp at most
@@ -4128,8 +4130,8 @@ def run_cli(label: str, card: str, results, audio_dir: str, out_dir: str,
 
 def check_cli(card: str, results) -> dict:
     """The CLI at whisper-base x5, int8 and x7 over the four files, then at
-    whisper-medium x5 and at whisper-base x5 with a whisper-tiny draft over
-    the 4 s file; returns each run's counts."""
+    whisper-base x5 with a whisper-tiny draft over the 4 s file (the CLI at
+    whisper-medium runs in ``[medium]``); returns each run's counts."""
     with tempfile.TemporaryDirectory() as tmp:
         audio_dir = os.path.join(tmp, "audio")
         os.makedirs(audio_dir)
@@ -4158,22 +4160,15 @@ def check_cli(card: str, results) -> dict:
         for name in os.listdir(audio_dir):
             if name != CLI_FILES[0][0]:
                 os.remove(os.path.join(audio_dir, name))
-        runs["whisper-medium x5"] = run_cli(
-            "medium-x5", card, results, audio_dir, tmp,
-            ["--model-id", "openai/whisper-medium", "--max-new-tokens", "16",
-             "--variant", "x5"])
         runs["whisper-base x5 draft"] = run_cli(
             "base-x5-draft", card, results, audio_dir, tmp,
             base + ["--variant", "x5", "--draft-model-id",
                     "openai/whisper-tiny", "--draft-k", "4"])
-    x5, x4, med = (runs["whisper-base x5"], runs["whisper-base int8"],
-                   runs["whisper-medium x5"])
+    x5, x4 = runs["whisper-base x5"], runs["whisper-base int8"]
     for label, c, on, off in (("x5", x5, "cross_attend_step",
                                "cross_attend_step_dequant"),
                               ("int8", x4, "cross_attend_step_dequant",
-                               "cross_attend_step"),
-                              ("medium x5", med, "cross_attend_step",
-                               "cross_attend_step_dequant")):
+                               "cross_attend_step")):
         if not (c[on] > 0 and c[off] == 0 and c["self_attend_step"] > 0
                 and c["fused_attention"] > 0 and c["fused_encoder_mlp"] > 0):
             raise AssertionError(f"CLI {label}: launches {c}")
@@ -5850,6 +5845,613 @@ def check_parallel(card: str, results, params, dims, audio, x5,
     print(f"[parallel] phase {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# [medium]: the medium family on the card at full width
+SMALL = "openai/whisper-small"
+MEDIUM = "openai/whisper-medium"
+MEDIUM_EN = "openai/whisper-medium.en"
+DISTIL_MEDIUM_EN = "distil-whisper/distil-medium.en"
+# [medium] (c): the card within these bf16 steps of the CPU's encoder
+# states after the model's layers: base's 8 at 6 layers, scaled by the
+# port's bf16 encoder's distance from fp32 on the CPU at the model's widths
+# (``scripts/torch_encoder_depth.py``): whisper-small 7.04 bf16 steps at 6
+# layers and 7.54 at 12 (8 x 7.54 / 7.04 = 8.6), whisper-medium 6.28 at 6
+# and 11.90 at 24 (8 x 11.90 / 6.28 = 15.2).  The logits keep base's 5e-2.
+MEDIUM_ENC_STEPS = {SMALL: 9.0, MEDIUM: 16.0}
+# [medium] (d): ids suppressed at every step, the English-only
+# vocabulary's last id (51,863) among them, and at the first step
+MEDIUM_EN_SUPPRESS = [1, 2, 220, 50357, 51863]
+MEDIUM_EN_BEGIN_SUPPRESS = [220, EOT]
+
+
+@contextlib.contextmanager
+def _drawn_weights(*drawn):
+    """Within the block the port's ``convert.init_params`` hands back each
+    of ``drawn`` ((dims, seed, tree): the tree it would draw, drawn before)
+    in place of drawing it again: a CLI run's ``--allow-random-init``
+    weights, the very arrays, without the ~20 s a billion normals take."""
+    from whisper_tpu_torch.models import convert
+
+    draw = convert.init_params
+
+    def init_params(dims, seed=0):
+        for d, s, tree in drawn:
+            if d == dims and s == seed:
+                return tree
+        return draw(dims, seed)
+
+    convert.init_params = init_params
+    try:
+        yield
+    finally:
+        convert.init_params = draw
+
+
+def check_medium_kernels(card: str, results) -> None:
+    """The kernels of the medium family's path at its shapes: whisper-small
+    (12 heads, d = 768, f = 3,072, 12 decoder layers) and whisper-medium (16
+    heads, d = 1,024, f = 4,096, 24 decoder layers), bucket 16, 1500
+    positions: B1 (beside ``scaled_dot_product_attention``), B2c (the
+    "chunked" JAX rule's MLP at both widths: the port's one B2 kernel,
+    beside the bf16 composition of five PyTorch calls), B9a at d = 768 and
+    B9a' at d = 1,024 (beside their composition of two), B3 and B4 at both
+    (B4 bitwise; B3's caches bitwise, its output within 2 bf16 steps: the
+    plain version's scores are a cuBLAS product in an order of the
+    library's choosing), B6 at whisper-small (x4, the CLI's rung)
+    and B7-i8 at whisper-medium.en's verify pass (16 rows, 16 heads, five
+    queries, each bitwise B4's); each against its plain version within its
+    tolerance, timed beside it and its bound.  The figures go into the rows
+    of ``results`` under ``at_whisper_small`` and ``at_whisper_medium``
+    (B2c's row is ``fused_encoder_mlp_d1024``, B9a's ``fused_ln_qkv`` and
+    the row of B9a' ``fused_ln_qkv_d1024``)."""
+    import torch
+
+    from whisper_tpu_torch.models.registry import get_dims
+    from whisper_tpu_torch.ops import attention, cross_attention, encoder_mlp
+    from whisper_tpu_torch.ops import encoder_block, self_attention
+
+    g, randn, qweight = _card_inputs(7)
+    b, t, dh, s_max, pos, n_q = 16, 1500, 64, 132, 70, 5
+    n = b * t
+    for model_id, at, b9a in ((SMALL, "at_whisper_small", "fused_ln_qkv"),
+                              (MEDIUM, "at_whisper_medium",
+                               "fused_ln_qkv_d1024")):
+        dims = get_dims(model_id)
+        d, f, h, n_l = (dims.d_model, dims.d_ffn, dims.encoder_heads,
+                        dims.decoder_layers)
+        q, k, v = randn(b, h, t, dh, scale=dh ** -0.5), randn(b, h, t, dh), \
+            randn(b, h, t, dh)
+        mlp = (randn(b, t, d), 1.0 + randn(d, scale=0.1), randn(d, scale=0.1),
+               qweight(d, f), randn(f, scale=0.1), qweight(f, d),
+               randn(d, scale=0.1))
+        qkv = mlp[:3] + (qweight(d, 3 * d), randn(3 * d, scale=0.1))
+        qs, kn, vn = randn(b, h, dh, scale=dh ** -0.5), randn(b, h, dh), \
+            randn(b, h, dh)
+        kc, vc = randn(n_l, b, h, s_max, dh), randn(n_l, b, h, s_max, dh)
+        kc2, vc2 = kc.clone(), vc.clone()
+        qx = randn(b, h, dh, scale=dh ** -0.5)
+        k8, v8 = (torch.randint(-127, 128, (n_l, b, h, t, dh), generator=g,
+                                device="cuda", dtype=torch.int8)
+                  for _ in range(2))
+        ks, vs = (torch.rand(n_l, b, h, generator=g, device="cuda") * 0.02
+                  + 1e-3 for _ in range(2))
+        cross = (k8, v8, ks, vs)
+        cross_bytes = b * h * (2 * t * dh + 2 * dh * 2 + 8)
+        cases = [
+            ("fused_attention", at,
+             lambda: attention.fused_attention(q, k, v),
+             lambda: attention.fused_attention_plain(q, k, v), 2.0,
+             (4 * b * h * t * dh * 2, 4 * b * h * t * t * dh, "bf16"),
+             lambda: torch.nn.functional.scaled_dot_product_attention(
+                 q, k, v, scale=1.0), None),
+            ("fused_encoder_mlp_d1024", at,
+             lambda: encoder_mlp.fused_encoder_mlp(*mlp),
+             lambda: encoder_mlp.fused_encoder_mlp_plain(*mlp), 2.0,
+             ((2 * n * d + 2 * d * f + 3 * d + f) * 2, 4 * n * d * f, "bf16"),
+             lambda: _encoder_mlp_composition(*mlp), None),
+            (b9a, at, lambda: encoder_block.fused_ln_qkv(*qkv),
+             lambda: encoder_block.fused_ln_qkv_plain(*qkv), 2.0,
+             ((n * d + n * 3 * d + d * 3 * d + 5 * d) * 2,
+              2 * n * d * 3 * d, "bf16"),
+             lambda: _qkv_composition(*qkv), None),
+            ("self_attend_step", at,
+             lambda: self_attention.self_attend_step(qs, kn, vn, kc, vc, 3,
+                                                     pos),
+             lambda: self_attention.self_attend_step_plain(
+                 qs, kn, vn, kc2, vc2, 3, pos), 2.0,
+             (b * h * dh * 2 * (2 * (pos + 1) + 6),
+              4 * b * h * (pos + 1) * dh, "fp32"), None,
+             lambda got, want: torch.equal(kc, kc2) and torch.equal(vc, vc2)),
+            ("cross_attend_step", at,
+             lambda: cross_attention.cross_attend_step(qx, *cross, 2,
+                                                       s_valid=t),
+             lambda: cross_attention.cross_attend_step_plain(qx, *cross, 2,
+                                                             s_valid=t), 2.0,
+             (cross_bytes, 4 * b * h * t * dh, "int8"), None, torch.equal),
+        ]
+        if model_id == SMALL:
+            cases.append((
+                "cross_attend_step_dequant", at,
+                lambda: cross_attention.cross_attend_step_dequant(
+                    qx, *cross, 2, s_valid=t),
+                lambda: cross_attention.cross_attend_step_dequant_plain(
+                    qx, *cross, 2, s_valid=t), 2.0,
+                (cross_bytes, 4 * b * h * t * dh, "fp32"), None, None))
+        else:
+            qm = randn(b, n_q, h, dh, scale=dh ** -0.5)
+
+            def queries_are_b4s(got, want):
+                return torch.equal(got, want) and all(
+                    torch.equal(got[:, i], cross_attention.cross_attend_step(
+                        qm[:, i].contiguous(), *cross, 2, s_valid=t))
+                    for i in range(n_q))
+
+            cases.append((
+                "cross_attend_multi", at,
+                lambda: cross_attention.cross_attend_multi(
+                    qm, *cross, 2, s_valid=t, int8_mxu=True),
+                lambda: cross_attention.cross_attend_multi_plain(
+                    qm, *cross, 2, s_valid=t, int8_mxu=True), 2.0,
+                (b * h * (2 * t * dh + 8) + 2 * b * n_q * h * dh * 2,
+                 4 * b * n_q * h * t * dh, "int8"), None, queries_are_b4s))
+        name = model_id.split("/")[-1]
+        _hold_rows("[medium]", cases, {at: f"{name}'s shape ({b} rows, {h} "
+                                           f"heads, d = {d}, {n_l} decoder "
+                                           f"layers)"}, results, card)
+        del q, k, v, mlp, qkv, kc, vc, kc2, vc2, k8, v8, cross, cases
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _note_in_situ(traced, results, at: str, b5: bool = False) -> None:
+    """The in-situ µs a call of B1, B2c (its three kernels), B3, B4 and,
+    with ``b5``, B5 (the span of its two) from a trace summary
+    (``_traced``) into the rows of ``results`` under ``at``: None where
+    the trace holds no such kernel."""
+    by_name = {r["name"]: r for r in results}
+    kern = traced["kernels"]
+    b2 = ("B2 (LayerNorm)", "B2 (FC1 product)", "B2 (FC2 product)")
+    ms = {"fused_attention": kern.get("B1", {}).get("mean_ms"),
+          "fused_encoder_mlp_d1024":
+              sum(kern[k]["mean_ms"] for k in b2)
+              if all(k in kern for k in b2) else None,
+          "self_attend_step": kern.get("B3", {}).get("mean_ms"),
+          "cross_attend_step": kern.get("B4", {}).get("mean_ms")}
+    if b5:
+        call = traced["calls"].get("B5")
+        ms["log_mel"] = call["mean_ms"] if call else None
+    for name, v in ms.items():
+        by_name[name][at]["device_us"] = None if v is None else v * 1e3
+
+
+def _file_runs(session, audio, results, label: str) -> tuple:
+    """The 301.574 s file (``audio``: 12 chunks in a bucket of 16) through
+    ``session`` at x5: a warm-up (the capture) and three timed runs, tokens
+    equal and in the vocabulary, one graph launch a bucket, launches by the
+    capture's tally (``_bucket_launches``), an eager run (``eager_decode``)
+    bitwise the graphed tokens with equal launches, finite encoder states
+    and logits.  Returns (e2e median of 3, its Timing, tokens, launches,
+    steps run, capture seconds, eager seconds, the key's memory)."""
+    import numpy as np
+    import torch
+
+    from whisper_tpu_torch.headline import run_once
+
+    dims = session.dims
+    e2e, timing, toks, c = _timed_run(session, audio, results, runs=3)
+    steps = _bucket_launches(c, _condition_count(), dims, f"{label} graphed")
+    (key, capture_s), = session.graphs.captures().items()
+    if toks.shape != (12, 128) or not ((toks >= 0)
+                                       & (toks < dims.vocab_size)).all():
+        raise AssertionError(f"{label}: tokens {toks.shape}")
+    with _graph_launches() as launches:
+        run_once(session, audio)
+    if len(launches) != 1:
+        raise AssertionError(f"{label}: {len(launches)} graph launches for "
+                             "the file's one bucket")
+    with _eager_loop(session):
+        _zero_counts(results)
+        col = []
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        run_once(session, audio, token_collector=col)
+        eager_s = time.perf_counter() - t1
+        eager_c = _counts(results)
+    if not np.array_equal(col[0], toks) or eager_c != c:
+        raise AssertionError(f"{label}: the eager run's tokens differ or "
+                             f"its launches {eager_c} are not the graphed "
+                             f"run's {c}")
+    check_main_path_finite(session, audio, dims)
+    return (e2e, timing, toks, c, steps, capture_s, eager_s,
+            _key_memory(session, key))
+
+
+def _medium_file(card: str, results, params, model_id: str, audio,
+                 part: str) -> dict:
+    """``[medium]`` (a) or (b) (``part``): ``model_id`` (``params``) at x5
+    on the 301.574 s file, 12 chunks in a bucket of 16.  A warm-up (the
+    capture) and three timed runs, tokens equal and in the vocabulary, one
+    graph launch a bucket, launches by the capture's tally (B1 = B2 = the
+    encoder's layers a program launch, B3 = B4 = the decoder's a step run,
+    the tail once a step, C once, no B5), an eager run bitwise the graphed
+    tokens with equal launches, finite encoder states and logits; the key's
+    state and pools beside ``decode_footprint``'s caches and
+    ``program_pool_bytes``, the peak above the part's start, the kernels'
+    in-situ µs from a traced eager run of 16 tokens; then (c), the card
+    against the port on the CPU on one 30 s chunk, within
+    ``MEDIUM_ENC_STEPS`` bf16 steps (encoder) and 5e-2 (logits).  Then the
+    same file with ``fused_encoder_block``: the JAX rule's "chunked"
+    composition at these widths, B9a = B1 = B2 = the encoder's layers and
+    no B9b, B9a's in-situ µs from a traced encoder call; every chunk whose
+    tokens differ from the unfused run's judged by ``divergence_report``
+    (``_judge``): a first divergence that is not a tie-flip fails.
+    Returns the fused run's launches."""
+    import torch
+
+    from whisper_tpu_torch.frontend import golden
+    from whisper_tpu_torch.headline import AUDIO_SECONDS, make_session, run_once
+    from whisper_tpu_torch.models.registry import get_dims
+    from whisper_tpu_torch.ops import encoder_block
+    from whisper_tpu_torch.pipeline.chunk import chunk_starts, mel_frame_bucket
+
+    dims = get_dims(model_id)
+    name = model_id.split("/")[-1]
+    label = f"[medium] ({part}) {name} x5"
+    at = "at_" + name.replace("-", "_")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    session = make_session("cuda", params, "x5", model_id)
+    weights = torch.cuda.memory_allocated() - base
+    e2e, timing, toks, c, steps, capture_s, eager_s, memory = _file_runs(
+        session, audio, results, label)
+    peak = torch.cuda.max_memory_allocated() - base
+    with _eager_loop(session):
+        traced = _traced(lambda: run_once(session, audio, max_new_tokens=16))
+    _note_in_situ(traced, results, at)
+    print(f"{label}, {AUDIO_SECONDS} s, 12 chunks in a bucket of 16, on "
+          f"{card}: e2e {e2e:.4f} s (median of 3), {AUDIO_SECONDS / e2e:.2f}x"
+          f" real time, preprocess {timing.preprocess_s:.4f} s, model "
+          f"{timing.model_only_s:.4f} s; eager {eager_s:.4f} s, tokens "
+          f"bitwise the graphed run's, launches equal; one graph launch a "
+          f"bucket; launches {c} ({steps} steps run; B1, B2 "
+          f"{dims.encoder_layers} a program launch, B3, B4 "
+          f"{dims.decoder_layers} a step, no B5); capture {capture_s:.2f} s; "
+          f"the key: {_gate_line(dims, memory)}; weights {_gib(weights)}, "
+          f"peak {_gib(peak)} above the part's start; in situ, µs "
+          f"(launches), an eager run of 16 tokens: {_in_situ(traced)}",
+          flush=True)
+
+    # (c) the card against the port on the CPU, one 30 s chunk
+    check_against_cpu(params, dims, model_id, seconds=30.0, steps=4,
+                      enc_steps_tol=MEDIUM_ENC_STEPS[model_id],
+                      card_session=session)
+
+    # the fused encoder block: the "chunked" composition at d >= 768
+    fused = make_session("cuda", params, "x5", model_id,
+                         fused_encoder_block=True)
+    mode = encoder_block.fused_block_mode(dims.d_model, dims.d_ffn,
+                                          torch.bfloat16)
+    f_e2e, _, f_toks, fc = _timed_run(fused, audio, results)
+    n_l = dims.encoder_layers
+    f_steps = fc["loop_tail"]
+    if not (mode == "chunked" and fc["fused_ln_qkv"] == fc["fused_attention"]
+            == fc["fused_encoder_mlp"] == n_l and fc["fused_out_mlp"] == 0
+            and fc["self_attend_step"] == fc["cross_attend_step"]
+            == dims.decoder_layers * f_steps and fc["log_mel"] == 0):
+        raise AssertionError(f"{label} with the fused block ({mode}): "
+                             f"launches {fc}; want B9a = B1 = B2 = {n_l}, "
+                             "no B9b")
+    chunks = _bucket_chunks(fused, audio)
+    b9a = _traced(lambda: fused.encoder(chunks))["calls"].get("B9a")
+    by_name = {r["name"]: r for r in results}
+    by_name["fused_ln_qkv" if dims.d_model < 1024
+            else "fused_ln_qkv_d1024"][at]["device_us"] = (
+        None if b9a is None else b9a["mean_ms"] * 1e3)
+    nv = golden.num_frames(len(audio))
+    mel = session.compute_mel(golden.reflect_pad(audio), nv,
+                              mel_frame_bucket(nv))
+    starts = [p // golden.HOP for p in chunk_starts(len(audio), 480_000,
+                                                    400_000)]
+    verdict = _judge(session, fused, mel, [(s, PROMPT) for s in starts],
+                     toks, f_toks, EOT, f"{name} fused block")
+    print(f"{label}+fused_encoder_block (the JAX rule's \"{mode}\" "
+          f"composition: B9a, B1, a plain O-projection, B2) on {card}: e2e "
+          f"{f_e2e:.4f} s; launches {fc}; B9a in situ "
+          + ("not recorded" if b9a is None
+             else f"{b9a['mean_ms'] * 1e3:.2f} µs a call ({b9a['calls']})")
+          + f"; against the unfused run's tokens: "
+          f"{float((f_toks == toks).mean()):.4f} of {toks.size} equal, "
+          + _judge_line(verdict), flush=True)
+    if verdict[4]:
+        raise AssertionError(f"{label}: fused-block divergences that are "
+                             f"not tie-flips: {verdict[4]}")
+    del session, fused
+    return fc
+
+
+def _medium_en_speculative(card: str, results, params, draft, audio) -> int:
+    """``[medium]`` (d): whisper-medium.en (``params``, x5) on the 301.574 s
+    file with ids suppressed across its 51,864-id vocabulary
+    (``MEDIUM_EN_SUPPRESS``) and the multilingual fallback's prompt, as
+    the JAX package takes it without a tokenizer.json: greedy, graphed (one
+    graph launch, launches by the capture's tally); then speculative,
+    draft_k 4, on the shared encoder with a random distil-medium.en
+    (``draft``: 2 decoder layers) and with whisper-medium.en's own int8
+    weights as drafts, graphed after the capture (``[large]`` (e) holds a
+    speculative program against its eager loop); rounds counted
+    (``speculative_stats``) equal rounds run (B7 launches over 24 layers),
+    B7 = 24 x rounds, B4 = the draft's layers x 4 x rounds, B1 = B2 = 24
+    (one encoder), no B3, one graph launch; the two drafts' tokens bitwise
+    equal, each chunk that differs from the greedy run's judged by
+    ``divergence_report``; the key's state and pools beside
+    ``speculative_footprint`` and ``program_pool_bytes``.  Then, on the
+    bucket's encoder states, greedy with the timestamp grammar (timestamps
+    from 50,364 to 51,863) and sampled at T = 0.5 with scores (the pick
+    kernel over 51,864 ids), each graphed twice and eagerly once: tokens
+    (and scores) bitwise, C once a graphed call, every row within the
+    grammar.  No token is a suppressed id or past the vocabulary.  Returns
+    the B7 launches of the distil draft's run."""
+    import numpy as np
+    import torch
+
+    from whisper_tpu_torch.frontend import golden
+    from whisper_tpu_torch.headline import AUDIO_SECONDS, make_session
+    from whisper_tpu_torch.models.registry import get_dims
+    from whisper_tpu_torch.pipeline.chunk import chunk_starts, mel_frame_bucket
+    from whisper_tpu_torch.pipeline.longform import transcribe_longform
+    from whisper_tpu_torch.runtime.genconfig import GenerationCfg
+    from whisper_tpu_torch.runtime.timestamps import TimestampCfg
+    from whisper_tpu_torch.utils import hbm
+    from whisper_tpu_torch.variants.quant import quantize_params
+
+    dims, d_dims, k = get_dims(MEDIUM_EN), get_dims(DISTIL_MEDIUM_EN), 4
+    n_l, vocab = dims.decoder_layers, dims.vocab_size
+    label = "[medium] (d) whisper-medium.en x5"
+    session = make_session("cuda", params, "x5", MEDIUM_EN)
+    gen = GenerationCfg(MEDIUM_EN_SUPPRESS, MEDIUM_EN_BEGIN_SUPPRESS)
+
+    def in_vocab(toks, what):
+        if ((toks < 0) | (toks >= vocab)).any() \
+                or np.isin(toks, MEDIUM_EN_SUPPRESS).any() \
+                or np.isin(toks[:, 0], MEDIUM_EN_BEGIN_SUPPRESS).any():
+            raise AssertionError(f"{label} {what}: a token past the "
+                                 f"{vocab}-id vocabulary or suppressed")
+
+    def run(speculative):
+        col = []
+        _zero_counts(results)
+        with _graph_launches() as launches:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            transcribe_longform(session, audio, "en", "transcribe", 128,
+                                gen_cfg=gen, token_collector=col,
+                                speculative=speculative, draft_k=k)
+            e2e = time.perf_counter() - t1
+        stats = session.speculative_stats if speculative else []
+        rounds = int(sum(r for r, _ in stats))
+        committed = float(np.concatenate([c_.cpu().numpy() for _, c_ in
+                                          stats]).mean()) if stats else 0.0
+        return (e2e, col[0], _counts(results), len(launches), rounds,
+                committed, _condition_count())
+
+    run(False)                                     # captures the bucket's key
+    g_s, greedy, g_c, g_launch, _, _, g_cond = run(False)
+    g_steps = _bucket_launches(g_c, g_cond, dims, f"{label} greedy")
+    in_vocab(greedy, "greedy")
+    if g_launch != 1 or greedy.shape != (12, 128):
+        raise AssertionError(f"{label} greedy: {g_launch} graph launches, "
+                             f"tokens {greedy.shape}")
+    print(f"{label} greedy, the 301.574 s file, {vocab} ids, suppressed "
+          f"{MEDIUM_EN_SUPPRESS} (first step also "
+          f"{MEDIUM_EN_BEGIN_SUPPRESS}), on {card}: e2e {g_s:.4f} s "
+          f"({AUDIO_SECONDS / g_s:.2f}x real time), one graph launch, "
+          f"launches {g_c} ({g_steps} steps run)", flush=True)
+
+    arms = (("a random distil-medium.en", draft, d_dims),
+            ("whisper-medium.en's own int8 weights",
+             quantize_params({"decoder": params["decoder"]}), dims))
+    tokens, b7 = {}, []
+    for arm, d_params, dd in arms:
+        session.set_draft_model(d_params, dd, share_encoder=True)
+        run(True)                                  # captures
+        (key, capture_s), = [(kk, s_) for kk, s_ in
+                             session.graphs.captures().items()
+                             if kk.kind == "speculative"]
+        e2e, toks, c, launch, rounds, committed, _ = run(True)
+        ran = c["cross_attend_multi"] // n_l
+        want = {"fused_attention": dims.encoder_layers,
+                "fused_encoder_mlp": dims.encoder_layers,
+                "cross_attend_multi": n_l * rounds,
+                "cross_attend_step": dd.decoder_layers * k * rounds,
+                "self_attend_step": 0, "loop_tail": 0, "log_mel": 0}
+        if launch != 1 or rounds != ran \
+                or any(c[n_] != v for n_, v in want.items()):
+            raise AssertionError(f"{label} with {arm} as draft: {launch} "
+                                 f"graph launches, {rounds} rounds counted, "
+                                 f"{ran} run, launches {c}; want {want}")
+        in_vocab(toks, f"with {arm} as draft")
+        tokens[arm] = toks
+        b7.append(c["cross_attend_multi"])
+        state, inputs, pools = _key_memory(session, key)
+        fp = session.speculative_footprint(dd, True)
+        caches = fp["kv_cache"] + fp["draft_kv_cache"]
+        pool_est = hbm.program_pool_bytes(dims, 16, 4, act_bytes=2)
+        print(f"{label} with {arm} as draft on the shared encoder, draft_k "
+              f"{k}, on {card}: e2e graphed {e2e:.4f} s "
+              f"({AUDIO_SECONDS / e2e:.2f}x real time); one graph launch; "
+              f"{rounds} rounds counted and run, {committed / rounds:.3f} "
+              f"tokens committed a round and row; launches {c}; capture "
+              f"{capture_s:.2f} s; the key: state {_gib(state)} against the "
+              f"footprint's caches {_gib(caches)} ({state / caches:.3f}x), "
+              f"inputs {_gib(inputs)}, pools {_gib(pools)} against "
+              f"program_pool_bytes {_gib(pool_est)} ({pools / pool_est:.3f}x)"
+              f"; speculative_footprint total {_gib(fp['total'])}",
+              flush=True)
+    first, own = tokens.values()
+    if not np.array_equal(first, own):
+        raise AssertionError(f"{label}: the tokens depend on the draft")
+    nv = golden.num_frames(len(audio))
+    mel = session.compute_mel(golden.reflect_pad(audio), nv,
+                              mel_frame_bucket(nv))
+    starts = [p // golden.HOP for p in chunk_starts(len(audio), 480_000,
+                                                    400_000)]
+    verdict = _judge(session, session, mel, [(s, PROMPT) for s in starts],
+                     greedy, first, EOT, "speculative medium.en")
+    print(f"{label}: the two drafts' tokens bitwise equal; against the "
+          f"greedy tokens: {float((first == greedy).mean()):.4f} of "
+          f"{first.size} equal, " + _judge_line(verdict), flush=True)
+    if verdict[4]:
+        raise AssertionError(f"{label}: divergences from greedy that are not "
+                             f"tie-flips: {verdict[4]}")
+
+    # the grammar and the sampled pick over 51,864 ids
+    enc, _ = _bucket_encoder_states(session, audio)
+    masks = session._get_masks(gen.suppress_tokens, gen.begin_suppress_tokens)
+    ts_cfg = TimestampCfg(PROMPT[3] + 1, EOT, PROMPT[3])
+    for what, kw, prompt in (
+            ("the timestamp grammar", {"ts_cfg": ts_cfg}, PROMPT[:3]),
+            ("T = 0.5, seed 3, with scores",
+             {"temperature": 0.5, "with_scores": True}, PROMPT)):
+        p_t = torch.tensor(prompt, device="cuda")
+
+        def decode(eager=False):
+            extra = {}
+            if "temperature" in kw:
+                extra["generator"] = torch.Generator(
+                    device="cuda").manual_seed(3)
+            _zero_counts(results)
+            with _graph_launches() as launches, (
+                    _eager_loop(session) if eager
+                    else contextlib.nullcontext()):
+                out = session._greedy(enc, p_t, *masks, 128, EOT, **kw,
+                                      **extra)
+            out = tuple(t_.cpu() for t_ in out) if isinstance(out, tuple) \
+                else (out.cpu(),)
+            return out, _counts(results), len(launches), _condition_count()
+
+        want = decode(eager=True)
+        got = [decode(), decode()]        # the capture's call, a later one
+        if not all(all(torch.equal(a, b_) for a, b_ in zip(g_[0], want[0]))
+                   and g_[1] == want[1] and g_[2] == 1 and g_[3] == 1
+                   for g_ in got) or want[3] != 0:
+            raise AssertionError(f"{label}, {what}: the graphed calls differ "
+                                 "from the eager loop (tokens, scores, "
+                                 "launches), or not one graph launch and "
+                                 "one C a call")
+        if (want[1]["gumbel_pick"] > 0) != ("temperature" in kw):
+            raise AssertionError(f"{label}, {what}: the pick kernel launched "
+                                 f"{want[1]['gumbel_pick']} times")
+        toks = want[0][0].numpy()
+        in_vocab(toks, what)
+        extra_line = ""
+        if "ts_cfg" in kw:
+            errs = [(r, e) for r, row in enumerate(toks)
+                    for e in _grammar_errors(row, ts_cfg)]
+            if errs:
+                raise AssertionError(f"{label}: rows break the timestamp "
+                                     f"grammar: {errs[:8]}")
+            stamps = toks[toks >= ts_cfg.timestamp_begin]
+            extra_line = (f"; every row within the grammar, {stamps.size} "
+                          f"timestamps ({int(stamps.min())} to "
+                          f"{int(stamps.max())})" if stamps.size else
+                          "; every row within the grammar")
+        print(f"{label}, the bucket of 16 at {what}, 128 tokens, {vocab} "
+              f"ids, on {card}: two graphed calls bitwise the eager loop "
+              f"(tokens{', scores' if 'temperature' in kw else ''}), one "
+              f"graph launch and C once a call, launches equal "
+              f"{ {n_: v for n_, v in want[1].items() if v} }{extra_line}",
+              flush=True)
+    del session
+    return b7[0]
+
+
+def check_medium(card: str, results, drawn: dict) -> dict:
+    """``[medium]``: the medium family's main path on the card at full
+    width (see the module's docstring, 8d); ``drawn``:
+    ``_draw_family_weights``'s futures, whose trees of the family this
+    phase takes and lets go.  Returns the launches of the whisper-medium
+    fused-block run and of the CLI at whisper-medium x5."""
+    import torch
+
+    from whisper_tpu_torch.headline import AUDIO_SECONDS, synth_audio
+    from whisper_tpu_torch.models.registry import get_dims
+
+    t_phase = time.perf_counter()
+    secs = {}
+    check_medium_kernels(card, results)
+    secs["kernels"] = time.perf_counter() - t_phase
+    audio = synth_audio(AUDIO_SECONDS)
+    out = {}
+    for part, model_id in (("a", SMALL), ("b", MEDIUM)):
+        t0 = time.perf_counter()
+        params = drawn[model_id].result()
+        secs[f"{model_id} weights, waited for"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out[model_id] = _medium_file(card, results, params, model_id, audio,
+                                     part)
+        secs[f"({part}), (c)"] = time.perf_counter() - t0
+    by_name = {r["name"]: r for r in results}
+    for row, model_id in (("fused_ln_qkv", SMALL),
+                          ("fused_ln_qkv_d1024", MEDIUM)):
+        name = model_id.split("/")[-1]
+        by_name[row]["at_" + name.replace("-", "_")]["launches"] = \
+            out[model_id]["fused_ln_qkv"]
+
+    # (d) whisper-medium.en with a distil-medium.en draft
+    t0 = time.perf_counter()
+    b7 = _medium_en_speculative(card, results, drawn.pop(MEDIUM_EN).result(),
+                                drawn.pop(DISTIL_MEDIUM_EN).result(), audio)
+    by_name["cross_attend_multi"]["at_whisper_medium"]["launches"] = b7
+    secs["(d)"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # (e) the CLI at whisper-small --variant int8 over the 76 s WAV (B5, B6
+    # at 12 heads), and at whisper-medium x5 over the 4 s WAV, each with the
+    # weights drawn above
+    t0 = time.perf_counter()
+    cli = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["HF_HOME"] = os.path.join(tmp, "hf")
+        for label, model_id, variant, file, n_new in (
+                ("whisper-small-int8", SMALL, "int8", CLI_FILES[2], 128),
+                ("whisper-medium-x5", MEDIUM, "x5", CLI_FILES[0], 16)):
+            audio_dir = os.path.join(tmp, label + "-audio")
+            os.makedirs(audio_dir)
+            _write_wav(os.path.join(audio_dir, file[0]), *file[1:])
+            with _drawn_weights((get_dims(model_id), 0,
+                                 drawn.pop(model_id).result())):
+                cli[label] = run_cli(
+                    label, card, results, audio_dir, tmp,
+                    ["--model-id", model_id, "--max-new-tokens", str(n_new),
+                     "--variant", variant], files=(file,))
+    small, medium = cli["whisper-small-int8"], cli["whisper-medium-x5"]
+    if not (small["log_mel"] > 0 and small["cross_attend_step_dequant"] > 0
+            and small["cross_attend_step"] == 0
+            and small["self_attend_step"] > 0
+            and small["fused_attention"] > 0
+            and small["fused_attention"] % 12 == 0
+            and small["fused_encoder_mlp"] == small["fused_attention"]):
+        raise AssertionError(f"[medium] (e) the CLI at whisper-small int8: "
+                             f"launches {small}")
+    if not (medium["cross_attend_step"] > 0
+            and medium["cross_attend_step_dequant"] == 0
+            and medium["self_attend_step"] > 0
+            and medium["fused_attention"] > 0
+            and medium["fused_encoder_mlp"] > 0):
+        raise AssertionError(f"[medium] the CLI at whisper-medium x5: "
+                             f"launches {medium}")
+    secs["(e)"] = time.perf_counter() - t0
+    secs["phase"] = time.perf_counter() - t_phase
+    print("[medium] seconds: " + ", ".join(f"{k} {v:.1f}"
+                                           for k, v in secs.items()),
+          flush=True)
+    return {"fused block": out[MEDIUM], "cli medium x5": medium}
+
+
 # [large]: the large family on the card at full width
 LARGE_TURBO = "openai/whisper-large-v3-turbo"
 LARGE_V3 = "openai/whisper-large-v3"
@@ -5872,6 +6474,25 @@ LARGE_V3_TIMESTAMP_BEGIN = 50365
 # logits keep base's 5e-2: the prefill reads the CPU's encoder states on
 # both sides, and turbo's decoder has 4 layers.
 LARGE_ENC_STEPS = 14.0
+
+
+# The medium and large families' random weights, (model id, seed), in the
+# order ``[medium]`` and ``[large]`` use them (distil's as drafts: seed 1).
+FAMILY_WEIGHTS = ((SMALL, 0), (MEDIUM, 0), (MEDIUM_EN, 0),
+                  (DISTIL_MEDIUM_EN, 1), (LARGE_TURBO, 0), (LARGE_V3, 0),
+                  (LARGE_DISTIL, 1))
+
+
+def _draw_family_weights(executor) -> dict:
+    """{model id: a future of its ``init_params`` tree}, drawn in turn on
+    ``executor``'s one thread (numpy leaves the GIL while it fills an
+    array, 5.3 G normals in all) while the phases run; each phase joins a
+    tree before its first use and pops it once done with it."""
+    from whisper_tpu_torch.models.convert import init_params
+    from whisper_tpu_torch.models.registry import get_dims
+
+    return {m: executor.submit(init_params, get_dims(m), seed=s_)
+            for m, s_ in FAMILY_WEIGHTS}
 
 
 def _gib(n: float) -> str:
@@ -5905,6 +6526,64 @@ def _gate_line(dims, memory, rows: int = 16) -> str:
             f"{_gib(fp['params'])}")
 
 
+def _card_inputs(seed: int):
+    """(generator, randn, qweight) on the card from ``seed``: randn(*shape,
+    scale) bf16 normals; qweight(rows, cols) int8 steps of 2e-4 in bf16, as
+    the encoder passes its dequantized int8 weights."""
+    import torch
+
+    bf = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda")
+                * scale).to(bf)
+
+    def qweight(rows_, cols):
+        return (torch.randint(-127, 128, (rows_, cols), generator=g,
+                              device="cuda").to(bf)
+                * torch.tensor(2e-4, dtype=bf))
+
+    return g, randn, qweight
+
+
+def _hold_rows(phase: str, cases, shape: dict, results, card: str) -> None:
+    """Each of ``cases``, (row, the row's key, kernel, plain, tolerance,
+    (bytes, operations, their type), the library call or None, a check
+    ``bitwise(got, want)`` or None), against its plain version: finite,
+    within its tolerance (in bf16 steps; B5's in absolute terms) and, where
+    given, bitwise; then a call timed beside the plain version's, its bound
+    and the library call's.  The figures go into the row of ``results``
+    under its key; a line each, opened by ``phase``, names ``shape[key]``."""
+    import torch
+
+    by_name = {r["name"]: r for r in results}
+    for name, at, kern, plain, tol, work, library, bitwise in cases:
+        got, want = kern(), plain()
+        err = float((got.float() - want.float()).abs().max())
+        steps = err if name == "log_mel" else _bf16_steps(got, want)
+        if steps > tol or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{name} at {shape[at]}: {steps:.3g} from "
+                                 f"the plain version (tolerance {tol})")
+        if bitwise is not None and not bitwise(got, want):
+            raise AssertionError(f"{name} at {shape[at]}: not bitwise")
+        ms, plain_ms = _median_ms(kern), _median_ms(plain)
+        library_ms = None if library is None else _median_ms(library)
+        bound_ms, bound_by = _bound(*work)
+        by_name[name][at] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+        print(f"{phase} kernel {name} at {shape[at]}: max_abs_err "
+              f"{err:.3g} ({steps:.3g}, tolerance {tol}"
+              f"{'' if bitwise is None else '; bitwise'}); {ms:.4f} ms vs "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms by "
+              f"{bound_by}"
+              + ("" if library_ms is None
+                 else f", library call {library_ms:.4f} ms")
+              + f" on {card}", flush=True)
+
+
 def check_large_kernels(card: str, results) -> None:
     """B1, B2c, B3, B4 and B5 at the shapes whisper-large-v3-turbo's main
     path gives them (bucket 16, 20 heads of 64, d = 1,280, f = 5,120, 4
@@ -5928,17 +6607,8 @@ def check_large_kernels(card: str, results) -> None:
     from whisper_tpu_torch.ops import log_mel, self_attention
     from whisper_tpu_torch.pipeline.chunk import mel_frame_bucket
 
-    dev, bf = "cuda", torch.bfloat16
-    g = torch.Generator(device=dev).manual_seed(5)
-
-    def randn(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=g, device=dev) * scale).to(bf)
-
-    def qweight(rows_, cols):
-        return (torch.randint(-127, 128, (rows_, cols), generator=g,
-                              device=dev).to(bf) * torch.tensor(2e-4,
-                                                                dtype=bf))
-
+    dev = "cuda"
+    g, randn, qweight = _card_inputs(5)
     b, h, t, dh, d, f = 16, 20, 1500, 64, 1280, 5120
     n_l, s_max, pos, n, n_q, beams = 4, 132, 70, 16 * 1500, 5, 2
     q, k, v = randn(b, h, t, dh, scale=dh ** -0.5), randn(b, h, t, dh), \
@@ -5973,21 +6643,16 @@ def check_large_kernels(card: str, results) -> None:
                  for x in log_mel._device_tables(torch.device(dev), 128))
     nnz = log_mel.mel_bands(128)[1].size
 
-    def queries_are_b4s():
-        got = cross_attention.cross_attend_multi(qm, *cross, 2, s_valid=t,
-                                                 int8_mxu=True)
+    def queries_are_b4s(got, want):
         return all(torch.equal(got[:, i], cross_attention.cross_attend_step(
             qm[:, i].contiguous(), *cross, 2, s_valid=t)) for i in range(n_q))
 
-    def beams_are_untiled():
-        got = cross_attention.cross_attend_step(qb, *tiled, 2, s_valid=t)
+    def beams_are_untiled(got, want):
         rows = torch.arange(b, device=dev) * beams
         return all(torch.equal(got[rows + j], cross_attention.cross_attend_step(
             qb[rows + j].contiguous(), *cross, 2, s_valid=t))
             for j in range(beams))
 
-    # (row, the row's key, kernel, plain, tolerance, (bytes, operations,
-    # their type), the library call or None, a bitwise check or None)
     turbo, v3, v3_beams = ("at_large_v3_turbo", "at_large_v3",
                            "at_large_v3_beams")
     cases = [
@@ -6007,7 +6672,8 @@ def check_large_kernels(card: str, results) -> None:
          lambda: self_attention.self_attend_step_plain(qs, kn, vn, kc2, vc2,
                                                        3, pos), 2.0,
          (b * h * dh * 2 * (2 * (pos + 1) + 6), 4 * b * h * (pos + 1) * dh,
-          "fp32"), None, None),
+          "fp32"), None,
+         lambda got, want: torch.equal(kc, kc2) and torch.equal(vc, vc2)),
         ("cross_attend_step", turbo,
          lambda: cross_attention.cross_attend_step(qx, *cross, 2, s_valid=t),
          lambda: cross_attention.cross_attend_step_plain(qx, *cross, 2,
@@ -6038,34 +6704,7 @@ def check_large_kernels(card: str, results) -> None:
                  "queries; each query bitwise B4's)",
              v3_beams: f"large-v3's {b * beams} beam rows (the cache tiled "
                        "per beam; each beam bitwise the untiled call)"}
-    by_name = {r["name"]: r for r in results}
-    for name, at, kern, plain, tol, work, library, bitwise in cases:
-        got, want = kern(), plain()
-        if name == "self_attend_step" and not (torch.equal(kc, kc2)
-                                               and torch.equal(vc, vc2)):
-            raise AssertionError("B3 at 20 heads: the caches differ from the "
-                                 "plain version's after the insert")
-        err = float((got.float() - want.float()).abs().max())
-        steps = err if name == "log_mel" else _bf16_steps(got, want)
-        if steps > tol or not torch.isfinite(got.float()).all():
-            raise AssertionError(f"{name} at {shape[at]}: {steps:.3g} from "
-                                 f"the plain version (tolerance {tol})")
-        if bitwise is not None and not bitwise():
-            raise AssertionError(f"{name} at {shape[at]}: not bitwise")
-        ms, plain_ms = _median_ms(kern), _median_ms(plain)
-        library_ms = None if library is None else _median_ms(library)
-        bound_ms, bound_by = _bound(*work)
-        by_name[name][at] = {
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
-        print(f"[large] kernel {name} at {shape[at]}: max_abs_err "
-              f"{err:.3g} ({steps:.3g}, tolerance {tol}); {ms:.4f} ms vs "
-              f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms by "
-              f"{bound_by}"
-              + ("" if library_ms is None
-                 else f", library call {library_ms:.4f} ms")
-              + f" on {card}", flush=True)
+    _hold_rows("[large]", cases, shape, results, card)
 
 
 def _bucket_launches(c: dict, cond: int, dims, label: str) -> int:
@@ -6078,8 +6717,8 @@ def _bucket_launches(c: dict, cond: int, dims, label: str) -> int:
             "self_attend_step": dims.decoder_layers * steps,
             "cross_attend_step": dims.decoder_layers * steps, "log_mel": 0}
     if steps < 1 or cond != 1 or any(c[k] != v for k, v in want.items()):
-        raise AssertionError(f"[large] {label}: launches {c}, C {cond}; "
-                             f"want {want}, C 1")
+        raise AssertionError(f"{label}: launches {c}, C {cond}; want "
+                             f"{want}, C 1")
     return steps
 
 
@@ -6096,14 +6735,17 @@ def _large_speculative(card: str, results, session, params, draft, audio,
     distil-large-v3 (``draft``, random weights) on its own encoder and on
     the main one (``share_encoder``), and large-v3's own int8 weights on
     the main encoder (``params``: a draft whose proposals the verify pass
-    nearly always accepts).  For each: a graphed run after the capture and
-    an eager one, tokens bitwise, rounds counted (``speculative_stats``)
-    and rounds run (B7 launches over 32 layers) equal in both, launches
-    equal, one graph launch; B1 and B2 once a main encoder layer, B7 once a
+    nearly always accepts).  For each: a graphed run after the capture,
+    and with distil on the shared encoder an eager one, tokens bitwise,
+    rounds and launches equal (the drafts' tokens are bitwise equal, so one
+    eager run holds all three); rounds counted (``speculative_stats``) and
+    rounds run (B7 launches over 32 layers) equal, one graph launch; B1 and
+    B2 once a main encoder layer, B7 once a
     layer and round run, B4 once a draft layer, draft step and round run,
-    no B3; e2e, x real time, capture seconds, ms a round run of the
-    bucket's decode on its encoder states (graphed, host clock, the
-    prefills and a round taken out), the key's state and pools beside
+    no B3; e2e, x real time, capture seconds, on the shared encoder ms a
+    round run of the bucket's decode on its encoder states (graphed, host
+    clock, the prefills and a round taken out; on its own encoder the
+    draft's round is the same), the key's state and pools beside
     ``speculative_footprint`` and ``program_pool_bytes``.  The drafts'
     tokens must be bitwise equal, and each chunk that differs from (c)'s
     greedy tokens (``greedy``) is judged by ``divergence_report``
@@ -6124,11 +6766,13 @@ def _large_speculative(card: str, results, session, params, draft, audio,
     dims, k = session.dims, 4
     n_l = dims.decoder_layers
     d_dims = get_dims(LARGE_DISTIL)
+    # (label, the draft's weights and dims, share_encoder, an eager run)
     arms = (("a random distil-large-v3 on its own encoder", draft, d_dims,
-             False),
-            ("the same on the shared encoder", draft, d_dims, True),
+             False, False),
+            ("the same on the shared encoder", draft, d_dims, True, True),
             ("large-v3's own int8 weights on the shared encoder",
-             quantize_params({"decoder": params["decoder"]}), dims, True))
+             quantize_params({"decoder": params["decoder"]}), dims, True,
+             False))
     special = special_tokens("en", "transcribe", None)
     eot = special.eot
     prompt = [special.sot, special.lang, special.task, special.no_timestamps]
@@ -6148,14 +6792,14 @@ def _large_speculative(card: str, results, session, params, draft, audio,
         return time.perf_counter() - t1
 
     tokens, b7 = {}, {}
-    for label, d_params, dd, share in arms:
+    for label, d_params, dd, share, eager in arms:
         session.set_draft_model(d_params, dd, share_encoder=share)
         run_once(session, audio, speculative=True, draft_k=k)   # captures
         (key, capture_s), = [(kk, s) for kk, s in
                              session.graphs.captures().items()
                              if kk.kind == "speculative"]
         runs = {}
-        for mode in ("graphed", "eager"):
+        for mode in ("graphed", "eager") if eager else ("graphed",):
             _zero_counts(results)
             col = []
             with _graph_launches() as launches, (
@@ -6172,9 +6816,9 @@ def _large_speculative(card: str, results, session, params, draft, audio,
                                         session.speculative_stats]).mean()
             runs[mode] = (e2e, col[0], _counts(results), len(launches),
                           rounds, committed)
-        (g_s, toks, c, g_launch, rounds, committed), \
-            (e_s, e_toks, e_c, e_launch, e_rounds, _) = \
-            runs["graphed"], runs["eager"]
+        (g_s, toks, c, g_launch, rounds, committed) = runs["graphed"]
+        (e_s, e_toks, e_c, e_launch, e_rounds, _) = runs.get(
+            "eager", (None, toks, c, 0, rounds, None))
         ran = c["cross_attend_multi"] // n_l
         want = {"fused_attention": dims.encoder_layers,
                 "fused_encoder_mlp": dims.encoder_layers,
@@ -6195,24 +6839,29 @@ def _large_speculative(card: str, results, session, params, draft, audio,
         # budget may then drop it)
         state, inputs, pools = _key_memory(session, key)
         fp = session.speculative_footprint(dd, share)
-        decode_s(1)
-        decode_s(128)                              # captures both keys
-        _zero_counts(results)
-        whole = decode_s(128)
-        run_rounds = _counts(results)["cross_attend_multi"] // n_l
-        round_ms = (whole - decode_s(1)) * 1e3 / (run_rounds - 1)
+        rounds_line = ""
+        if share:     # a round on the draft's own encoder is the same round
+            decode_s(1)
+            decode_s(128)                          # captures both keys
+            _zero_counts(results)
+            whole = decode_s(128)
+            run_rounds = _counts(results)["cross_attend_multi"] // n_l
+            round_ms = (whole - decode_s(1)) * 1e3 / (run_rounds - 1)
+            rounds_line = (f"; the bucket's decode {round_ms:.4f} ms a round "
+                           f"run graphed ({run_rounds} rounds; host clock, "
+                           f"the prefills and a round taken out)")
         pool_est = hbm.program_pool_bytes(dims, 16, 4, act_bytes=2,
                                           draft_dims=None if share else dd)
         caches = fp["kv_cache"] + fp["draft_kv_cache"]
         print(f"[large] (e) whisper-large-v3 x5 with {label} as draft, draft_k"
               f" {k}, the 301.574 s file, on {card}: e2e graphed {g_s:.4f} s "
-              f"({AUDIO_SECONDS / g_s:.2f}x real time), eager {e_s:.4f} s; "
-              f"tokens bitwise, launches equal, one graph launch; {rounds} "
+              f"({AUDIO_SECONDS / g_s:.2f}x real time)"
+              + ("" if e_s is None else f", eager {e_s:.4f} s, tokens "
+                 "bitwise, launches equal")
+              + f"; one graph launch; {rounds} "
               f"rounds counted and run, {committed / rounds:.3f} tokens "
               f"committed a round and row; launches {c}; capture "
-              f"{capture_s:.2f} s; the bucket's decode {round_ms:.4f} ms a "
-              f"round run graphed ({run_rounds} rounds; host clock, the "
-              f"prefills and a round taken out); the key: state "
+              f"{capture_s:.2f} s{rounds_line}; the key: state "
               f"{_gib(state)} against the footprint's caches {_gib(caches)} "
               f"({state / caches:.3f}x), inputs {_gib(inputs)}, pools "
               f"{_gib(pools)} against program_pool_bytes {_gib(pool_est)} "
@@ -6493,7 +7142,8 @@ def _large_distil(card: str, results, params, audio) -> None:
 
     # (h) the 301.574 s file
     e2e, timing, toks, c = _timed_run(session, audio, results, runs=3)
-    steps = _bucket_launches(c, _condition_count(), dims, "(h) graphed")
+    steps = _bucket_launches(c, _condition_count(), dims,
+                             "[large] (h) graphed")
     (capture_s,) = [s_ for kk, s_ in session.graphs.captures().items()
                     if kk.front[0] == "chunks"]
     with _graph_launches() as launches:
@@ -6521,18 +7171,22 @@ def _large_distil(card: str, results, params, audio) -> None:
           flush=True)
 
 
-def _large_cli(card: str, results) -> dict:
+def _large_cli(card: str, results, params) -> dict:
     """``[large]`` (i): the CLI at whisper-large-v3 (``--allow-random-init``:
-    its weights drawn anew from seed 0) with ``--num-beams 2 --timestamps
+    its weights from seed 0, ``params``, the tree drawn for (c) handed back
+    by ``_drawn_weights``) with ``--num-beams 2 --timestamps
     --task translate`` over the 76 s WAV (B5 at 128 mels), large-v3's
     special ids read from a tokenizer.json that holds them
     (``--tokenizer-json``): per-file e2e, the Timing split and the peak
     above its start (``run_cli``); B1 and B2 32 a program launch, B4 and no
     B3 (beam search's step), no B6; the row's text holds timestamps.
     Returns the counts."""
+    from whisper_tpu_torch.models.registry import get_dims
+
     files = (CLI_FILES[2],)
     label = "large-v3-x5-beams2-timestamps-translate"
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, _drawn_weights(
+            (get_dims(LARGE_V3), 0, params)):
         audio_dir = os.path.join(tmp, "audio")
         os.makedirs(audio_dir)
         _write_wav(os.path.join(audio_dir, files[0][0]), *files[0][1:])
@@ -6561,9 +7215,10 @@ def _large_cli(card: str, results) -> dict:
     return c
 
 
-def check_large(card: str, results) -> None:
+def check_large(card: str, results, drawn: dict) -> None:
     """``[large]``: the large family's main path on the card at full width
-    (see the module's docstring, 8d)."""
+    (see the module's docstring, 8e); ``drawn``: ``_draw_family_weights``'s
+    futures, whose trees this phase takes and lets go."""
     import numpy as np
     import torch
 
@@ -6574,7 +7229,6 @@ def check_large(card: str, results) -> None:
         run_once,
         synth_audio,
     )
-    from whisper_tpu_torch.models.convert import init_params
     from whisper_tpu_torch.models.registry import get_dims
     from whisper_tpu_torch.pipeline.chunk import mel_frame_bucket
     from whisper_tpu_torch.runtime import generate
@@ -6583,13 +7237,6 @@ def check_large(card: str, results) -> None:
 
     t_phase = time.perf_counter()
     secs = {}
-    # large-v3's 1.55 G normals, then distil-large-v3's 0.76 G, are drawn on
-    # a thread of their own (numpy leaves the GIL while it fills an array)
-    # while the kernels, turbo's weights and (b) run, then (a) and (c);
-    # each is joined before its first use
-    executor = concurrent.futures.ThreadPoolExecutor(1)
-    large_v3 = executor.submit(init_params, get_dims(LARGE_V3), seed=0)
-    distil = executor.submit(init_params, get_dims(LARGE_DISTIL), seed=1)
     check_large_kernels(card, results)
     secs["kernels"] = time.perf_counter() - t_phase
 
@@ -6599,19 +7246,18 @@ def check_large(card: str, results) -> None:
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     dims = get_dims(LARGE_TURBO)
-    params = init_params(dims, seed=0)
-    secs["turbo weights"] = time.perf_counter() - t0
-    session = make_session("cuda", params, "x5", LARGE_TURBO)
+    turbo = drawn.pop(LARGE_TURBO).result()
+    secs["turbo weights, waited for"] = time.perf_counter() - t0
+    session = make_session("cuda", turbo, "x5", LARGE_TURBO)
     weights = torch.cuda.memory_allocated() - base
 
     # (b) the card against the port on the CPU: one 30 s chunk
     t0 = time.perf_counter()
-    check_against_cpu(params, dims, LARGE_TURBO, seconds=30.0, steps=4,
+    check_against_cpu(turbo, dims, LARGE_TURBO, seconds=30.0, steps=4,
                       enc_steps_tol=LARGE_ENC_STEPS, card_session=session)
-    del params
     secs["(b)"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    params = large_v3.result()
+    params = drawn.pop(LARGE_V3).result()
     secs["large-v3 weights, waited for"] = time.perf_counter() - t0
 
     # (a) turbo on the 301.574 s file, one bucket of 16
@@ -6620,31 +7266,8 @@ def check_large(card: str, results) -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     audio = synth_audio(AUDIO_SECONDS)
-    e2e, timing, toks, c = _timed_run(session, audio, results, runs=3)
-    steps = _bucket_launches(c, _condition_count(), dims, "(a) graphed")
-    (key, capture_s), = session.graphs.captures().items()
-    if toks.shape != (12, 128) or not ((toks >= 0)
-                                       & (toks < dims.vocab_size)).all():
-        raise AssertionError(f"[large] (a): tokens {toks.shape}")
-    with _graph_launches() as launches:
-        run_once(session, audio)
-    if len(launches) != 1:
-        raise AssertionError(f"[large] (a): {len(launches)} graph launches "
-                             "for the file's one bucket")
-    with _eager_loop(session):
-        _zero_counts(results)
-        col = []
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        run_once(session, audio, token_collector=col)
-        eager_s = time.perf_counter() - t1
-        eager_c = _counts(results)
-    if not np.array_equal(col[0], toks) or eager_c != c:
-        raise AssertionError(f"[large] (a): the eager run's tokens differ "
-                             f"or its launches {eager_c} are not the "
-                             f"graphed run's {c}")
-    check_main_path_finite(session, audio, dims)
-    memory = _key_memory(session, key)
+    e2e, timing, toks, c, steps, capture_s, eager_s, memory = _file_runs(
+        session, audio, results, "[large] (a)")
     peak = torch.cuda.max_memory_allocated() - base
     # the eager decode traced, and in the same trace five one-shot mels of
     # 76.8 s (B5 at 128 mels, 7,680 frames): a short trace of its own may
@@ -6656,22 +7279,7 @@ def check_large(card: str, results) -> None:
         traced = _traced(lambda: (run_once(session, audio), [
             session.compute_mel(padded, nv, mel_frame_bucket(nv))
             for _ in range(5)]))
-    # in situ, µs a call: B2 its three kernels, B5 the span of its two
-    by_name = {r["name"]: r for r in results}
-    kern = traced["kernels"]
-    b5 = traced["calls"].get("B5")
-    for name, ms in (
-            ("fused_attention", kern.get("B1", {}).get("mean_ms")),
-            ("fused_encoder_mlp_d1024",
-             sum(kern[k]["mean_ms"] for k in ("B2 (LayerNorm)",
-                                              "B2 (FC1 product)",
-                                              "B2 (FC2 product)"))
-             if "B2 (FC1 product)" in kern else None),
-            ("self_attend_step", kern.get("B3", {}).get("mean_ms")),
-            ("cross_attend_step", kern.get("B4", {}).get("mean_ms")),
-            ("log_mel", b5["mean_ms"] if b5 else None)):
-        by_name[name]["at_large_v3_turbo"]["device_us"] = (
-            None if ms is None else ms * 1e3)
+    _note_in_situ(traced, results, "at_large_v3_turbo", b5=True)
     secs["(a)"] = time.perf_counter() - t0
     print(f"[large] (a) whisper-large-v3-turbo x5, {AUDIO_SECONDS} s, 12 "
           f"chunks in a bucket of 16, on {card}: e2e {e2e:.4f} s (median of "
@@ -6721,7 +7329,7 @@ def check_large(card: str, results) -> None:
                              f"{np.array_equal(g_toks, e_toks)}, launches "
                              f"{g_c} / {e_c}, graph launches {g_launch} / "
                              f"{e_launch}")
-    steps = _bucket_launches(g_c, g_cond, dims, "(c) graphed")
+    steps = _bucket_launches(g_c, g_cond, dims, "[large] (c) graphed")
     check_main_path_finite(session, audio, dims)
     loop = session.graphs._loops[key]
     memory = _key_memory(session, key)
@@ -6778,8 +7386,7 @@ def check_large(card: str, results) -> None:
 
     # (e) speculative decoding and (f) beams on (c)'s session
     t0 = time.perf_counter()
-    draft = distil.result()
-    executor.shutdown()
+    draft = drawn.pop(LARGE_DISTIL).result()
     secs["distil-large-v3 weights, waited for"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     b7 = _large_speculative(card, results, session, params, draft, audio,
@@ -6791,16 +7398,24 @@ def check_large(card: str, results) -> None:
     by_name = {r["name"]: r for r in results}
     by_name["cross_attend_multi"]["at_large_v3"]["launches"] = b7
     by_name["cross_attend_step"]["at_large_v3_beams"]["launches"] = b4
-    del session, params
+    del session
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
+    # (i) the CLI at large-v3 with beams, timestamps and translate, on the
+    # weights (c) drew
+    t0 = time.perf_counter()
+    _large_cli(card, results, params)
+    del params
+    secs["(i)"] = time.perf_counter() - t0
+
     # (d) the CLI at turbo over one WAV (76 s: the one-shot front end, B5,
-    # at 128 mels)
+    # at 128 mels), on the weights (a) ran
     t0 = time.perf_counter()
     files = (CLI_FILES[2],)
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, _drawn_weights(
+            (get_dims(LARGE_TURBO), 0, turbo)):
         audio_dir = os.path.join(tmp, "audio")
         os.makedirs(audio_dir)
         _write_wav(os.path.join(audio_dir, files[0][0]), *files[0][1:])
@@ -6813,10 +7428,10 @@ def check_large(card: str, results) -> None:
             and c["self_attend_step"] == c["cross_attend_step"] > 0
             and c["cross_attend_step_dequant"] == 0):
         raise AssertionError(f"[large] (d) the CLI at turbo: launches {c}")
+    del turbo
     secs["(d)"] = time.perf_counter() - t0
 
-    # (g) distil-large-v3 serving, (h) on the 301.574 s file; (i) the CLI at
-    # large-v3 with beams, timestamps and translate
+    # (g) distil-large-v3 serving, (h) on the 301.574 s file
     t0 = time.perf_counter()
     _large_distil(card, results, draft, audio)
     del draft
@@ -6824,9 +7439,6 @@ def check_large(card: str, results) -> None:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     secs["(g), (h)"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    _large_cli(card, results)
-    secs["(i)"] = time.perf_counter() - t0
     secs["phase"] = time.perf_counter() - t_phase
     print("[large] seconds: " + ", ".join(f"{k} {v:.1f}"
                                           for k, v in secs.items()),
@@ -6858,6 +7470,13 @@ def main() -> None:
     print(card, flush=True)
 
     t_start = t0 = time.perf_counter()
+    phases, last = {}, [t_start]
+
+    def done(phase: str) -> None:
+        """The seconds since the last phase ended, as ``phase``'s."""
+        now = time.perf_counter()
+        phases[phase], last[0] = now - last[0], now
+
     lib = kernels.build(extra_flags=("-Xptxas", "-v"))
     print(f"[build] {lib.parent.name}: {time.perf_counter() - t0:.1f} s "
           f"(nvcc: {kernels.build_seconds if kernels.build_seconds else 0:.1f}"
@@ -6868,8 +7487,10 @@ def main() -> None:
             if "Used" in line or "spill" in line:
                 print(f"[ptxas] {line.strip()}", flush=True)
     pick_sass = check_sass(lib)
+    done("build, SASS")
 
     results = check_kernels(card, pick_sass)
+    done("kernels")
 
     dims = get_dims(MODEL_ID)
     params = init_params(dims, seed=0)
@@ -6904,54 +7525,77 @@ def main() -> None:
           f"{AUDIO_SECONDS / e2e:.2f}x real time (median of 3); launches "
           f"per run {main_counts}, C {main_c} (ahead of each decode's while "
           f"node; the tail sets the condition after each step)", flush=True)
+    done("the card against the CPU, the main path")
 
     del session
     ladder_runs = check_ladder(card, results, params, dims, audio, x5_run)
     ladder = {label: r[3] for label, r in ladder_runs.items()}
+    done("the ladder")
     spec, spec_tokens = check_speculative(card, results, params, dims, audio,
                                           x5_run)
+    done("[speculative]")
     check_decoding(card, results, params, dims, audio, x5_run)
+    done("[decoding]")
     check_prompts_words(card, results, params, dims, audio,
                         {"x7 against x5": (x5_run[2], ladder_runs["x7"][2]),
                          "speculative x5 against greedy x5":
                              spec_tokens["x5"],
                          "speculative x4 against greedy x4":
                              spec_tokens["x4"]})
+    done("[prompts]")
     _memory_line("[serve]")
     check_serve(card, results, params, dims)
+    done("[serve]")
     _memory_line("[pipelined]")
     check_pipelined(card, results, params, dims, audio)
+    done("[pipelined]")
     _memory_line("[fused step]")
     fused_step, fused_ms = check_fused_step(card, results, params, dims,
                                             audio)
+    done("[fused step]")
     _memory_line("[graph]")
     sampled, while_node = check_graph(card, results, params, dims, audio,
                                       x5_run, fused_ms)
+    done("[graph] (a)-(d), (g)")
     _memory_line("[graph] (e), (f)")
     check_graph_beam_spec(card, results, params, dims, audio)
+    done("[graph] (e), (f)")
     _memory_line("[exit]")
     check_exit(card, results, params, dims, audio)
-    _memory_line("the medium fused block")
-    medium = check_medium_fused_block(card, results)
-    _memory_line("[large]")
-    check_large(card, results)
+    done("[exit]")
+    _memory_line("[medium]")
+    executor = concurrent.futures.ThreadPoolExecutor(1)
+    try:
+        drawn = _draw_family_weights(executor)
+        medium = check_medium(card, results, drawn)
+        done("[medium]")
+        _memory_line("[large]")
+        check_large(card, results, drawn)
+        done("[large]")
+    finally:
+        executor.shutdown(cancel_futures=True)
     cli = check_cli(card, results)
+    done("[cli]")
     check_audio(card, results)
+    done("[audio]")
     check_parallel(card, results, params, dims, audio, x5_run,
                    ladder_runs["x7"][2])
+    done("[parallel]")
     # Each kernel's launches in the run of its own path.  The two rows at
-    # d = 1024 share their kernels' counters with the d = 512 rows.
+    # d = 1024 share their kernels' counters with the d = 512 rows: theirs
+    # are whisper-medium's: B2c's from the CLI at whisper-medium x5, those
+    # of B9a' from the 301.574 s file with the fused block ([medium] (b)).
     fused = ladder["x5+fused_encoder_block+fused_decoder_step"]
     path_of = {"log_mel": cli["whisper-base x5"]["log_mel"],
                "cross_attend_step_dequant":
                    cli["whisper-base int8"]["cross_attend_step_dequant"],
                "fused_encoder_mlp_d1024":
-                   cli["whisper-medium x5"]["fused_encoder_mlp"],
+                   medium["cli medium x5"]["fused_encoder_mlp"],
                "self_attend_step_int8": ladder["x7"]["self_attend_step_int8"],
                "fused_ln_qkv": fused["fused_ln_qkv"],
                "fused_out_mlp": fused["fused_out_mlp"],
                "decoder_mlp_block": fused["decoder_mlp_block"],
-               "fused_ln_qkv_d1024": medium["fused_ln_qkv"],
+               "fused_ln_qkv_d1024": medium["fused block"]["fused_ln_qkv"],
                "cross_attend_multi": spec["x5"]["cross_attend_multi"],
                "cross_attend_multi_dequant":
                    spec["x4"]["cross_attend_multi_dequant"],
@@ -6976,7 +7620,8 @@ def main() -> None:
             raise AssertionError(f"{r['name']}: not launched on its path")
         del r["counter"]
     print(f"[time] chip_smoke.py: {time.perf_counter() - t_start:.0f} s, the "
-          "kernels' build included", flush=True)
+          "kernels' build included; by phase: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in phases.items()), flush=True)
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2646,17 +2646,39 @@ def test_loop_tail_kernel_is_bitwise_its_plain_version(gen, b, step,
 
 
 def test_loop_tail_is_one_kernel_and_refuses_what_it_does_not_take(gen):
-    """One call puts the tail kernel on the card and nothing else (counted
-    by ``_device_events``, whose traces open with empty launches: a trace
-    of three calls alone held one of them); the wrapper refuses operands
-    the kernel does not take."""
+    """One call puts the tail kernel on the card and nothing else, counted
+    without the profiler (whose traces late in a long process held no tail
+    kernel at all): the call captured as a while node's body
+    (``runtime.generate._while_node`` with ``tail``, which raises unless
+    the body launched one tail kernel that took the node's handle) leaves
+    one device operation in the body graph, read from its kernel, copy and
+    fill nodes as ``_GraphLoop.body_ops`` reads them, and tallies one
+    launch, the tail's; the wrapper refuses operands the kernel does not
+    take."""
+    from whisper_tpu_torch.runtime.generate import _while_node
+
     st = _tail_state(gen, 16, 128, 0, True, 1)
 
     def call():
         loop_tail.loop_tail(*st, eot_id=TAIL_EOT)
 
-    assert _device_events(call)[0] == 1
-    assert any("loop_tail_kernel" in k for k in _device_ops(call))
+    main = torch.cuda.current_stream()
+    side, inner = torch.cuda.Stream(), torch.cuda.Stream()
+    side.wait_stream(main)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        call()                          # warm: the library loaded
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            with _while_node(graph, st[2], st[6], 128, inner,
+                             tail=True) as info:
+                call()
+        finally:
+            graph.capture_end()
+    main.wait_stream(side)
+    torch.cuda.synchronize()
+    assert info["body_ops"] == 1, info
+    assert info["tally"] == {(loop_tail, "launches"): 1}, info
     bad = {"pos as int64": (5, st[5].long()), "lp alone missing": (1, None),
            "buf transposed": (3, st[3].t()), "nxt on the CPU":
            (0, st[0].cpu()), "nxt as int32": (0, st[0].int())}
