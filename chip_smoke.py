@@ -94,6 +94,22 @@ What it does, in order (any failure raises and exits non-zero):
    asserts the token shape, identical tokens across runs, finite encoder
    states and logits, and that every kernel of the path was launched, the
    greedy tail once a step and C ahead of the decode's while node.
+5b. ``[wire]`` (``check_wire``): the main path's session in each of the
+   seven upload wires of ``RuntimeCfg.audio_transfer`` (f32, int16,
+   dint16, dint16p, ulaw8, pcm12, pcm14): (a) the 301.574 s file through
+   the graphed long-form path, a warm-up and three timed runs each, its
+   bytes shipped, host encode ms, upload ms and device decode µs printed,
+   the card's decode of every slab bitwise the port's on the CPU, the
+   main path's kernels launched and B5 not, the tokens against int16's:
+   dint16 and dint16p bitwise (their mel too), every divergence of f32,
+   ulaw8, pcm12 and pcm14 a tie-flip by ``divergence_report`` on each
+   wire's own mel; (b) B5 one shot on a 76 s clip in each wire, launched
+   once by the session's mel, its wrapper within 1e-4 of its plain version
+   (or of its float64 evaluation where the plain version is farther) and
+   timed; (c) a short-lane tick at bucket 16 under pcm12 and dint16, a key
+   each, two graphed ticks bitwise the eager one, dint16's tokens int16's;
+   (d) the CLI with ``--audio-transfer auto`` and ``auto-pcm``: the probe's
+   rates and pick, and the run in that wire.
 6. Drives the same file at whisper-base through the rest of the ladder
    and ``RuntimeCfg``, a warm-up and three timed runs each, counts set to 0
    just before each and read just after: rung x7 (B8 and B4 once per layer and
@@ -4195,12 +4211,13 @@ def check_cli(card: str, results) -> dict:
 
 
 def _judge(session_ref, session_var, mel, prompt, ref_rows, var_rows, eot,
-           name):
+           name, mel_var=None):
     """``divergence_report`` on each chunk's pair of chains (one round a
-    chunk: the report's rounds suppress earlier rounds' tokens):
-    (divergences, of them tie-flips, max |delta logit| over the chains, the
-    largest reference margin at a divergence, the divergences that are not
-    tie-flips)."""
+    chunk: the report's rounds suppress earlier rounds' tokens), the
+    variant's chunks cut from ``mel_var`` where its mel is its own (another
+    upload wire): (divergences, of them tie-flips, max |delta logit| over
+    the chains, the largest reference margin at a divergence, the
+    divergences that are not tie-flips)."""
     import torch
 
     from whisper_tpu_torch.pipeline.chunk import CHUNK_FRAMES
@@ -4208,14 +4225,17 @@ def _judge(session_ref, session_var, mel, prompt, ref_rows, var_rows, eot,
     from whisper_tpu_torch.variants.diagnose import divergence_report
 
     mel_pad = torch.nn.functional.pad(mel, (0, CHUNK_FRAMES))
+    var_pad = mel_pad if mel_var is None else torch.nn.functional.pad(
+        mel_var, (0, CHUNK_FRAMES))
     divs, d_max = [], 0.0
     for (s0, pr), ref, var in zip(prompt, ref_rows, var_rows):
         c_ref, c_var = strip_generated(ref, eot), strip_generated(var, eot)
         if c_ref == c_var:
             continue
         chunk = mel_pad[:, s0:s0 + CHUNK_FRAMES]
-        diag = divergence_report(name, session_ref, session_var, chunk, chunk,
-                                 pr, [c_ref], [c_var], eot_id=eot)
+        diag = divergence_report(name, session_ref, session_var, chunk,
+                                 var_pad[:, s0:s0 + CHUNK_FRAMES], pr,
+                                 [c_ref], [c_var], eot_id=eot)
         divs += diag.divergences
         d_max = max(d_max, diag.max_dlogit_chain)
     flips = sum(d.tie_flip for d in divs)
@@ -7445,6 +7465,234 @@ def check_large(card: str, results, drawn: dict) -> None:
           flush=True)
 
 
+# [wire]: every upload wire of ``RuntimeCfg.audio_transfer``
+WIRES = ("f32", "int16", "dint16", "dint16p", "ulaw8", "pcm12", "pcm14")
+LOSSLESS = ("dint16", "dint16p")      # decode to int16's samples bit for bit
+
+
+def _wire_upload(session, padded, n_valid: int) -> tuple:
+    """The streamed front end's upload of a file in the session's wire,
+    slab by slab as ``compute_mel_streamed`` ships it, three times: (bytes
+    shipped, host encode ms, upload ms (pageable copies, a synchronize at
+    the end; medians of 3), the device decode's µs for the whole file
+    (``_median_ms``), the host slabs, the slabs on the card)."""
+    import torch
+
+    from whisper_tpu_torch.frontend.golden import HOP
+    from whisper_tpu_torch.frontend.mel import decode_transfer
+
+    sf = int(session.cfg.mel_slab_frames)
+    need = (sf + 2) * HOP
+    encode, upload = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        host = [session.encode_host_slab(padded, f0 * HOP, need)
+                for f0 in range(0, n_valid, sf)]
+        t1 = time.perf_counter()
+        dev = [session._upload(h) for h in host]
+        torch.cuda.synchronize()
+        encode.append((t1 - t0) * 1e3)
+        upload.append((time.perf_counter() - t1) * 1e3)
+    tag = session._transfer_tag()
+    decode_us = _median_ms(lambda: [decode_transfer(x, tag)
+                                    for x in dev]) * 1e3
+    return (sum(h.nbytes for h in host), statistics.median(encode),
+            statistics.median(upload), decode_us, host, dev)
+
+
+def check_wire(card: str, results, session, audio) -> None:
+    """``[wire]``: the seven upload wires (``WIRES``) through the session
+    of the main path (whisper-base x5), its ``audio_transfer`` set in turn.
+    (a) The 301.574 s file through the graphed long-form path in each wire:
+    bytes shipped, host encode ms, upload ms, device decode µs; the card's
+    decode of every slab bitwise the port's decode of the same bytes on the
+    CPU; a warm-up and three timed runs (tokens equal), the main path's
+    kernels launched and B5 not; tokens against int16's: dint16 and dint16p
+    bitwise, every divergence of f32, ulaw8, pcm12 and pcm14 a tie-flip by
+    ``divergence_report`` on each wire's own mel.  (b) A 76 s clip one
+    shot in each wire: the session's mel launches B5 once (wires other than
+    float32 and int16 decoded ahead of it); B5's wrapper on the wire's
+    bytes within 1e-4 of its plain version (or of its float64 evaluation
+    where the plain version is farther), timed.  (c) One short-lane tick
+    at bucket 16 (16 clips of 1-30 s, 128 tokens) under pcm12 and dint16:
+    a key each, the graphed tick twice and an eager one bitwise, dint16's
+    tokens int16's.  (d) The CLI under ``--audio-transfer auto`` and
+    ``auto-pcm`` over the 4 s file: the probe's line, its rates and pick."""
+    import dataclasses
+    import io
+
+    import numpy as np
+    import torch
+
+    from whisper_tpu_torch.frontend import golden
+    from whisper_tpu_torch.frontend.mel import decode_transfer
+    from whisper_tpu_torch.ops import log_mel
+    from whisper_tpu_torch.pipeline.chunk import chunk_starts, mel_frame_bucket
+
+    t_phase = time.perf_counter()
+    base_cfg = session.cfg
+    by_name = {r["name"]: r for r in results}
+
+    def wire(mode):
+        session.cfg = dataclasses.replace(base_cfg, audio_transfer=mode)
+        return session._transfer_tag()
+
+    # (a) the 301.574 s file in each wire
+    padded = golden.reflect_pad(audio).astype(np.float32)
+    nv = golden.num_frames(len(audio))
+    starts = [p // golden.HOP
+              for p in chunk_starts(len(audio), 480_000, 400_000)]
+    runs = {}
+    for mode in WIRES:
+        tag = wire(mode)
+        n_bytes, enc_ms, up_ms, dec_us, host, dev = _wire_upload(
+            session, padded, nv)
+        same = all(torch.equal(decode_transfer(d, tag).cpu(),
+                               decode_transfer(torch.from_numpy(h), tag))
+                   for h, d in zip(host, dev))
+        if not same:
+            raise AssertionError(f"[wire] (a) {mode}: the card's decode is "
+                                 "not the CPU's bitwise")
+        e2e, timing, toks, counts = _timed_run(session, audio, results,
+                                               runs=3)
+        idle = [n for n in MAIN_PATH_KERNELS if counts[n] == 0]
+        if idle or counts["log_mel"]:
+            raise AssertionError(f"[wire] (a) {mode}: launches {counts}")
+        mel = session.compute_mel(padded, nv, mel_frame_bucket(nv))
+        runs[mode] = (toks, mel)
+        print(f"[wire] (a) {mode}, whisper-base x5, {len(audio) / 16000} s "
+              f"({len(host)} slabs), on {card}: {n_bytes:,} bytes shipped, "
+              f"host encode {enc_ms:.2f} ms, upload {up_ms:.3f} ms, device "
+              f"decode {dec_us:.1f} µs, the card's decode bitwise the CPU's;"
+              f" e2e {e2e:.4f} s (preprocess {timing.preprocess_s:.4f} s; "
+              f"median of 3), launches {counts}", flush=True)
+    ref_toks, ref_mel = runs["int16"]
+    for mode in WIRES:
+        toks, mel = runs[mode]
+        equal = float((toks == ref_toks).mean())
+        if mode in LOSSLESS:
+            if not (np.array_equal(toks, ref_toks)
+                    and torch.equal(mel, ref_mel)):
+                raise AssertionError(f"[wire] (a) {mode}: tokens or mel not "
+                                     "int16's bitwise")
+            line = "tokens and mel bitwise int16's"
+        elif mode == "int16":
+            continue
+        else:
+            verdict = _judge(session, session, ref_mel,
+                             [(s0, PROMPT) for s0 in starts], ref_toks,
+                             toks, EOT, f"{mode} against int16",
+                             mel_var=mel)
+            if verdict[4]:
+                raise AssertionError(f"[wire] (a) {mode}: divergences that "
+                                     f"are not tie-flips: {verdict[4]}")
+            line = (f"mel within {float((mel - ref_mel).abs().max()):.4g} "
+                    "of int16's; " + _judge_line(verdict))
+        print(f"[wire] (a) {mode} against int16 on {card}: tokens equal "
+              f"{equal:.4f} of {toks.size}; {line}", flush=True)
+
+    # (b) B5 one shot on a 76 s clip in each wire
+    clip = audio[:76 * 16000]
+    cpad = golden.reflect_pad(clip).astype(np.float32)
+    cnv = golden.num_frames(len(clip))
+    bucket = mel_frame_bucket(cnv)
+    b5_wires = by_name["log_mel"].setdefault("by_wire", {})
+    for mode in WIRES:
+        tag = wire(mode)
+        _zero_counts(results)
+        session.compute_mel(cpad, cnv, bucket)
+        launches = _counts(results)["log_mel"]
+        x = session._upload(session._encode_transfer(cpad))
+        got = log_mel.log_mel(x, cnv, 80, bucket, transfer=tag)
+        want = log_mel.log_mel_plain(x, cnv, 80, bucket, transfer=tag)
+        exact = log_mel.log_mel_float64(x, cnv, 80, bucket, transfer=tag)
+        err, err64, plain64 = (float((a - b).abs().max())
+                               for a, b in ((got, want), (got, exact),
+                                            (want, exact)))
+        held = err if err <= 1e-4 or plain64 <= 1e-4 else err64
+        if launches != 1 or held > 1e-4:
+            raise AssertionError(f"[wire] (b) B5 {mode}: {launches} launches"
+                                 f", {err:.3g} from the plain version "
+                                 f"({err64:.3g} from float64)")
+        ms = _median_ms(lambda: log_mel.log_mel(x, cnv, 80, bucket,
+                                                transfer=tag))
+        b5_wires[mode] = {"ms": ms, "launches": launches,
+                         "max_abs_err": held, "bytes": x.nbytes}
+        print(f"[wire] (b) B5, {mode}, 76 s one shot ({cnv} of {bucket} "
+              f"frames, {x.nbytes:,} bytes) on {card}: {launches} launch in "
+              f"the session's mel; the wrapper {ms:.4f} ms a call (decode "
+              f"included), {err:.3g} from the plain version ({err64:.3g} "
+              f"from float64; held {held:.3g} <= 1e-4)", flush=True)
+
+    # (c) a short-lane tick at bucket 16 under pcm12 and dint16
+    clips = _serve_clips(16, seed=28)
+    rows = np.zeros((16, 480_400), dtype=np.float32)
+    n_valid = np.zeros(16, dtype=np.int32)
+    for i, c in enumerate(clips):
+        p = golden.reflect_pad(c)
+        rows[i, :len(p)] = p
+        n_valid[i] = golden.num_frames(len(c))
+    ticks = {}
+    for mode in ("int16", "pcm12", "dint16"):
+        wire(mode)
+        keys = len(session.graphs.captures())
+        first = session.transcribe_short_batch(rows, n_valid, PROMPT, 128,
+                                               EOT)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = session.transcribe_short_batch(rows, n_valid, PROMPT, 128,
+                                               EOT)
+        tick = time.perf_counter() - t0
+        with _eager_loop(session):
+            eager = session.transcribe_short_batch(rows, n_valid, PROMPT,
+                                                   128, EOT)
+        new = len(session.graphs.captures()) - keys
+        if not (np.array_equal(first, eager) and np.array_equal(again, eager)
+                and new == 1):
+            raise AssertionError(f"[wire] (c) {mode}: graphed ticks bitwise "
+                                 f"the eager one: {np.array_equal(first, eager)}"
+                                 f", {np.array_equal(again, eager)}; {new} "
+                                 "new keys")
+        ticks[mode] = first
+        if mode != "int16":
+            print(f"[wire] (c) short lane, {mode}, bucket 16 (16 x 30 s "
+                  f"rows), 128 tokens, on {card}: its own key; two graphed "
+                  f"ticks bitwise the eager one; a tick {tick:.4f} s; "
+                  f"tokens equal to int16's "
+                  f"{float((first == ticks['int16']).mean()):.4f}", flush=True)
+    if not np.array_equal(ticks["dint16"], ticks["int16"]):
+        raise AssertionError("[wire] (c) dint16's tick is not int16's")
+    session.cfg = base_cfg
+
+    # (d) the CLI's probe
+    with tempfile.TemporaryDirectory() as tmp:
+        audio_dir = os.path.join(tmp, "audio")
+        os.makedirs(audio_dir)
+        name, secs, sr, ch = CLI_FILES[0]
+        _write_wav(os.path.join(audio_dir, name), secs, sr, ch)
+        os.environ["HF_HOME"] = os.path.join(tmp, "hf")
+        for mode in ("auto", "auto-pcm"):
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                run_cli(f"base-x5-{mode}", card, results, audio_dir, tmp,
+                        ["--model-id", "openai/whisper-base",
+                         "--max-new-tokens", "32", "--variant", "x5",
+                         "--audio-transfer", mode])
+            probe = [x for x in err.getvalue().splitlines()
+                     if x.startswith("[wire-probe] ")]
+            used = json.load(open(os.path.join(
+                tmp, f"base-x5-{mode}", "s.json")))["config_used"]
+            if len(probe) != 1 or not probe[0].endswith(
+                    f"-> {used['audio_transfer']}"):
+                raise AssertionError(f"[wire] (d) {mode}: probe {probe}, "
+                                     f"ran {used['audio_transfer']}")
+            print(f"[wire] (d) the CLI, --audio-transfer {mode}, on {card}: "
+                  f"{probe[0]}; the run's audio_transfer "
+                  f"{used['audio_transfer']}", flush=True)
+    print(f"[wire] phase {time.perf_counter() - t_phase:.1f} s, on {card}",
+          flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -7526,6 +7774,8 @@ def main() -> None:
           f"per run {main_counts}, C {main_c} (ahead of each decode's while "
           f"node; the tail sets the condition after each step)", flush=True)
     done("the card against the CPU, the main path")
+    check_wire(card, results, session, audio)
+    done("[wire]")
 
     del session
     ladder_runs = check_ladder(card, results, params, dims, audio, x5_run)

@@ -207,8 +207,6 @@ NOT_PORTED = {
     "data_parallel": ["--data-parallel", "2"],
     "tensor_parallel": ["--tensor-parallel", "2"],
     "dcn": ["--dcn-coordinator", "localhost:1234"],
-    "wire_ulaw8": ["--audio-transfer", "ulaw8"],
-    "wire_auto": ["--audio-transfer", "auto"],
 }
 
 
@@ -225,6 +223,35 @@ def test_not_ported_flags_exit_naming_roadmap(case, tmp_path):
     with pytest.raises(SystemExit, match=PORTED_NOW.get(case, "ROADMAP")):
         cli.main(["--audio-dir", str(tmp_path), *NOT_PORTED[case]],
                  device="cpu")
+
+
+@pytest.mark.parametrize("wire", ["ulaw8", "auto"])
+def test_audio_transfer_runs_and_gives_jax_outputs_at_x0(
+        audio_dir, model_dir, tmp_path, tmp_path_factory, capsys, wire):
+    """--audio-transfer ulaw8 (a lossy wire) and auto (the probe, timed
+    here on the CPU) at x0 over the three files (one shot, streamed,
+    resampled): rc 0 and the JAX CLI's files, durations and texts with the
+    same flag.  Under auto both CLIs pick a lossless wire, whose samples are
+    int16's bit for bit, so the texts agree whichever each probe picks; the
+    port prints its probe's line."""
+    rc = cli.main(_argv(audio_dir, model_dir, tmp_path, "--variant", "x0",
+                        "--audio-transfer", wire), device="cpu")
+    assert rc == 0
+    probe = [x for x in capsys.readouterr().err.splitlines()
+             if x.startswith("[wire-probe] ")]
+    assert len(probe) == (wire == "auto")
+    header, rows, jrows, summary = _outputs(tmp_path)
+    jout = tmp_path_factory.mktemp(f"jax-wire-{wire}")
+    assert jax_cli.main(_argv(audio_dir, model_dir, jout, "--variant", "x0",
+                              "--audio-transfer", wire)) == 0
+    jheader, jcsv, jjrows, jsummary = _outputs(jout)
+    assert header == jheader and _keys(summary) == _keys(jsummary)
+    assert [r[:2] for r in rows] == [r[:2] for r in jcsv]
+    assert [r["text"] for r in jrows] == [r["text"] for r in jjrows]
+    assert any(r["text"] for r in jrows)
+    picked = summary["config_used"]["audio_transfer"]
+    assert picked == wire if wire != "auto" else picked in (
+        "int16", "dint16", "dint16p")
 
 
 PIPELINED = {

@@ -10,7 +10,9 @@ the card with
 not use).  ``chip_smoke.py`` checks the kernels at the main path's shapes;
 these cover the edges it does not reach: ragged sequence lengths, a
 nonzero ``pad_count``, a padded cross cache, the other model widths, the
-front end at 1 to 30,000 frames and the wrapper's refusals.  Tolerance: 2
+front end at 1 to 30,000 frames, the upload wires (the card's decode
+bitwise the CPU's, B5 under each, a short-lane program a wire) and the
+wrappers' refusals.  Tolerance: 2
 bf16 steps (2^-7 relative) of each value, the mean magnitude as the floor
 near zero; both sides round at the same points, and sum in another order.
 The front end (B5, fp32 out) is held to 1e-4 on the normalized mel, the
@@ -613,6 +615,105 @@ def test_b5_launches_its_two_kernels(gen):
     assert sum(ops.values()) == 6 and len(ops) == 2, ops
     assert any("mel_spectrum_kernel" in k for k in ops), ops
     assert any("mel_normalize_kernel" in k for k in ops), ops
+
+
+# ---------------------------------------------------------------------------
+# The upload wires: the card's decode, B5 under each, the short lane's keys
+# ---------------------------------------------------------------------------
+
+WIRE_ENCODINGS = ("int16", "dint16", "dint16p", "ulaw8", "pcm12", "pcm14")
+
+
+def _wire_bytes(audio: np.ndarray, mode: str) -> np.ndarray:
+    from whisper_tpu_torch.audio.resample import ulaw_encode
+    from whisper_tpu_torch.utils.pcmpack import encode_wire
+
+    return ulaw_encode(audio) if mode == "ulaw8" else encode_wire(audio,
+                                                                  mode)
+
+
+def _wire_tag(mode: str) -> str:
+    return mode if mode in ("pcm12", "pcm14") else "auto"
+
+
+@pytest.mark.parametrize("shape", [(160_001,), (3, 30_007)], ids=str)
+@pytest.mark.parametrize("mode", WIRE_ENCODINGS)
+def test_wire_decode_on_the_card_is_the_cpus_bitwise(gen, mode, shape):
+    """The same wire bytes decoded on the card and on the CPU: the same
+    float32 bits (the integer wires' products by float32 reciprocals, their
+    running sums in int64; ulaw8 by its table)."""
+    from whisper_tpu_torch.frontend.mel import decode_transfer
+
+    rng = np.random.default_rng(sum(shape))
+    audio = np.clip(rng.normal(0, 0.4, shape), -1.2, 1.2).astype(np.float32)
+    host = torch.from_numpy(_wire_bytes(audio, mode))
+    want = decode_transfer(host, _wire_tag(mode))
+    got = decode_transfer(host.cuda(), _wire_tag(mode))
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("valid,n_frames", [(17, 3000), (7680, 12000)])
+@pytest.mark.parametrize("mode", WIRE_ENCODINGS + ("float32",))
+def test_b5_under_each_wire_matches_plain(gen, mode, valid, n_frames):
+    """B5's wrapper given each wire (``transfer`` naming pcm12 and pcm14):
+    float32 and int16 straight to its kernels, the others decoded ahead of
+    the launch; one launch a call, within 1e-4 of the plain version on the
+    same bytes (or of its float64 evaluation where the plain version is
+    farther), the invalid frames 0."""
+    disable_tf32()
+    x = _b5_wire(valid, "float32", valid + 7)
+    if mode != "float32":
+        x = torch.from_numpy(_wire_bytes(x.cpu().numpy(), mode)).cuda()
+    tag = _wire_tag(mode)
+    before = log_mel.launches
+    got = log_mel.log_mel(x, valid, 80, n_frames, transfer=tag)
+    assert log_mel.launches == before + 1
+    want = log_mel.log_mel_plain(x, valid, 80, n_frames, transfer=tag)
+    exact = log_mel.log_mel_float64(x, valid, 80, n_frames, transfer=tag)
+    torch.cuda.synchronize()
+    err, err64, plain64 = (float((a - b).abs().max())
+                           for a, b in ((got, want), (got, exact),
+                                        (want, exact)))
+    assert err <= 1e-4 or (plain64 > 1e-4 and err64 <= 1e-4), (
+        err, err64, plain64)
+    assert bool((got[:, valid:] == 0).all())
+
+
+def test_short_lane_keys_a_program_per_wire(gen):
+    """One session's short lane at bucket 2 under ulaw8 (rows of 12,000
+    samples), then pcm12, int16 and dint16 (rows of 8,000): ulaw8 and pcm12
+    both ship 2 x 12,000 uint8 bytes, and each wire captures a program of
+    its own, whose tokens are its eager run's bitwise; dint16's tokens are
+    int16's."""
+    import dataclasses
+
+    from whisper_tpu_torch.models import convert
+    from whisper_tpu_torch.models.registry import get_dims
+    from whisper_tpu_torch.runtime.session import RuntimeCfg, WhisperSession
+
+    dims = get_dims("test/whisper-nano")
+    sess = WhisperSession(convert.init_params(dims, seed=0), dims,
+                          RuntimeCfg(dtype="float32", max_batch=2),
+                          device="cuda")
+    rng = np.random.default_rng(5)
+    rows = {n: rng.normal(0, 0.2, (2, n)).astype(np.float32)
+            for n in (12_000, 8_000)}
+    toks = {}
+    for mode, n in (("ulaw8", 12_000), ("pcm12", 8_000), ("int16", 8_000),
+                    ("dint16", 8_000)):
+        sess.cfg = dataclasses.replace(sess.cfg, audio_transfer=mode)
+        nv = np.array([n // 160 - 3, n // 320], np.int32)
+        keys = len(sess.graphs.captures())
+        toks[mode] = sess.transcribe_short_batch(rows[n], nv, [1, 2, 3], 6, 5)
+        assert len(sess.graphs.captures()) == keys + 1, mode
+        sess.eager_decode = True
+        eager = sess.transcribe_short_batch(rows[n], nv, [1, 2, 3], 6, 5)
+        sess.eager_decode = False
+        np.testing.assert_array_equal(toks[mode], eager)
+    assert len({k.front for k in sess.graphs.captures()}) == 4
+    np.testing.assert_array_equal(toks["dint16"], toks["int16"])
 
 
 @pytest.mark.parametrize("rows,d", [(1, 512), (1499, 512), (24000, 512),

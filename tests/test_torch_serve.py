@@ -125,13 +125,15 @@ def sess(params):
 CLIPS = [_audio(1.0, 0), _audio(2.5, 1), _audio(3.6, 2)]
 
 
-@pytest.mark.parametrize("wire", ["int16", "float32"])
+@pytest.mark.parametrize("wire", ["int16", "float32", "dint16", "dint16p",
+                                  "ulaw8", "pcm12", "pcm14"])
 def test_short_batch_equals_jax_trimmed_full_and_over_the_window(params,
                                                                  wire):
     """x0: the port's tokens equal JAX's full-width tokens at the full
     width, at the engine's 1/8 trimmed width (the zero tail made on the
-    device after the wire decode) and for rows shipped past the window
-    (cut back to it: the samples past it must not count)."""
+    device after the wire decode; pcm14 packs the 60,050 samples to 60,052)
+    and for rows shipped past the window (cut back to it: the samples past
+    it must not count), in every upload wire."""
     jcfg, tcfg = _cfgs("x0", max_batch=4, audio_transfer=wire)
     jsess = JaxSession(params, DIMS, jcfg)
     tsess = WhisperSession(params, DIMS, tcfg, device="cpu")

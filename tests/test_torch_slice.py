@@ -366,23 +366,31 @@ def test_longform_decoding_options_run(case):
 SESSION_CASES = {
     "mesh": ("x5", dict(data_parallel=2)),
     "mesh_tensor_parallel": ("x7", dict(tensor_parallel=2)),
-    "wire_encoding": ("x5", dict(audio_transfer="ulaw8")),
 }
 
 
 @pytest.mark.parametrize("case", sorted(SESSION_CASES))
 def test_session_configs_not_ported_raise(case):
-    """A wire encoding names its ROADMAP entry.  Meshes are ported
-    (``parallel.mesh``): in a process without a process group of
-    data_parallel x tensor_parallel processes they raise naming torchrun
-    (tests/test_torch_parallel.py runs them in gloo worlds)."""
+    """Meshes are ported (``parallel.mesh``): in a process without a
+    process group of data_parallel x tensor_parallel processes they raise
+    naming torchrun (tests/test_torch_parallel.py runs them in gloo
+    worlds)."""
     rung, overrides = SESSION_CASES[case]
-    if case.startswith("mesh"):
-        with pytest.raises(RuntimeError, match="torchrun"):
-            _small_session(rung, **overrides)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="torchrun"):
         _small_session(rung, **overrides)
+
+
+def test_session_under_a_wire_encoding_builds_and_decodes():
+    """A session under ulaw8 at x5 builds and decodes 8 s: the rows are
+    uploaded as uint8 mu-law and decoded on the device (tests of every wire
+    against JAX: tests/test_torch_wire.py)."""
+    sess = _small_session("x5", audio_transfer="ulaw8")
+    tokens = []
+    text, timing = transcribe_longform(
+        sess, _audio(8.0), language="en", task="transcribe",
+        max_new_tokens=3, tokenizer=RecordingTok(), token_collector=tokens)
+    assert sess._encode_transfer(_audio(1.0)).dtype == np.uint8
+    assert tokens[0].shape == (1, 3) and timing.end_to_end_s > 0
 
 
 @pytest.mark.parametrize("rung", ["x0", "x5"])

@@ -8,13 +8,21 @@ Transcript parity with the reference requires this exact resampler
 (SURVEY.md §2.1 N6).  Where the native library loads, the C++
 ``wt_resample_linear`` (``native/audio_decode.cc``) runs instead; it is
 bit-equal to the NumPy expression (tests/test_torch_native_audio.py), as
-in the JAX package.  mu-law encoding is a wire mode of the TPU tunnel
-(ROADMAP "Not to port").
+in the JAX package.  ``ulaw_encode`` is the ulaw8 upload wire's host
+encoder (its device decode: ``frontend.mel.decode_transfer``).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def ulaw_encode(x: np.ndarray, mu: float = 255.0) -> np.ndarray:
+    """mu-law companding to uint8 (G.711-style): a quarter of the float32
+    upload's bytes at about 37 dB SNR."""
+    x = np.clip(np.asarray(x, dtype=np.float32), -1.0, 1.0)
+    y = np.sign(x) * np.log1p(mu * np.abs(x)) / np.log1p(mu)
+    return np.round((y + 1.0) * 127.5).astype(np.uint8)
 
 
 def resample_linear(x: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:

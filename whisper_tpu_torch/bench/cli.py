@@ -16,7 +16,10 @@ points at a model dir in the JAX package's format (``params.safetensors``
 
 Working flags: the chunked path, ``--variant x0..x7|int8``, ``--dtype``,
 ``--matmul-precision``, ``--max-batch``, ``--chunk-parallelism``,
-``--audio-transfer f32|int16``, ``--discovery-best-json``, ``--intra-op``
+``--audio-transfer`` (every wire of the JAX CLI; ``auto`` and
+``auto-pcm`` time the candidates on the link to the card first:
+``utils.wireprobe``, which prints ``[wire-probe] <mode>=<rate>MB/s ... ->
+<mode>`` to stderr), ``--discovery-best-json``, ``--intra-op``
 and ``--inter-op`` (``intra_op >= 2`` prefetches the next file and its mel
 on a second thread), ``--warmup``, ``--limit-files``, ``--write-txt``,
 ``--tokenizer-json``, ``--allow-random-init``, ``--onnx-dir``,
@@ -41,8 +44,7 @@ host:port --dcn-num-processes N --dcn-process-id R`` in each process (0
 and -1, the defaults, take ``WORLD_SIZE`` and ``RANK`` from the
 environment).  Every rank decodes; rank 0 alone writes the CSV, the JSON,
 the summary, the transcripts and the report.  The JAX CLI's refusals of
-combinations stay as they are there; the wire encodings exit naming their
-ROADMAP entry; no flag is silently ignored.
+combinations stay as they are there; no flag is silently ignored.
 """
 
 from __future__ import annotations
@@ -60,7 +62,6 @@ from whisper_tpu_torch.utils.device import DEVICE_ENV  # noqa: F401
 from whisper_tpu_torch.utils.device import resolve_device as _device
 
 AUDIO_EXTS = (".wav", ".flac", ".mp3")
-PORTED_TRANSFERS = ("", "f32", "int16")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -121,9 +122,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--audio-transfer", default="",
                    choices=["", "f32", "int16", "dint16", "dint16p",
                             "pcm12", "pcm14", "ulaw8", "auto", "auto-pcm"],
-                   help="H2D audio upload encoding: f32 or int16 (the wire "
-                        "encodings and their probe are not ported: ROADMAP "
-                        "'Not to port')")
+                   help="host-to-card audio upload encoding; 'auto' "
+                        "times int16 against the delta codings on this "
+                        "link at startup and picks one; 'auto-pcm' also "
+                        "races pcm12 (bit-packed truncated PCM: 25%% fewer "
+                        "bytes, quantization noise near the log-mel clamp "
+                        "floor; utils/pcmpack.py); pcm14 is explicit-only, "
+                        "its 12.5%% cannot clear the probe's margin")
     p.add_argument("--allow-random-init", action="store_true",
                    help="build random-weight params from --model-id when the "
                         "model dir has no params.safetensors (benchmarking "
@@ -167,17 +172,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def not_ported(args) -> List[str]:
-    """The flags of ``args`` that ask for what the port lacks, each with
-    its ROADMAP item (empty when the run is ported)."""
-    checks = [
-        (args.audio_transfer not in PORTED_TRANSFERS,
-         f"--audio-transfer {args.audio_transfer} (the TPU tunnel's wire "
-         "encodings and probe): ROADMAP 'Not to port'"),
-    ]
-    return [msg for hit, msg in checks if hit]
-
-
 def list_audio_files(audio_dir: str, limit: int) -> List[str]:
     """Sorted wav/flac/mp3 file names (ref src/main.rs:1111-1128)."""
     files = sorted(
@@ -209,10 +203,7 @@ def _build_session(args, cfg, device):
             f"whisper_tpu_torch.models.convert_cli --hf-dir HF_DIR --out-dir "
             f"{model_dir}, or pass --allow-random-init)"
         )
-    try:
-        return WhisperSession(params, dims, cfg, device=device)
-    except NotImplementedError as e:  # a discovery config the port lacks
-        raise SystemExit(f"not ported: {e}")
+    return WhisperSession(params, dims, cfg, device=device)
 
 
 def _join_processes(args, n_mesh: int) -> int:
@@ -285,9 +276,6 @@ def main(argv: Optional[List[str]] = None, *, device=None) -> int:
             "--write-srt/--write-vtt need a cue timing source: pass "
             "--word-timestamps (any long-form mode) or "
             "--longform-mode sequential (timestamped segments)")
-    missing = not_ported(args)
-    if missing:
-        raise SystemExit("not ported: " + "; ".join(missing))
     device = _device(device)
 
     # Ensure output dirs (ref src/main.rs:1068-1071).
@@ -325,7 +313,17 @@ def main(argv: Optional[List[str]] = None, *, device=None) -> int:
         cfg = dataclasses.replace(cfg, matmul_precision=args.matmul_precision)
     if args.max_batch > 0:
         cfg = dataclasses.replace(cfg, max_batch=args.max_batch)
-    if args.audio_transfer:
+    if args.audio_transfer in ("auto", "auto-pcm"):
+        # time the candidate wires on this process's link to the card and
+        # take the fastest (utils/wireprobe.py)
+        from whisper_tpu_torch.utils.wireprobe import choose_audio_transfer
+
+        mode, mbps = choose_audio_transfer(
+            allow_pcm=args.audio_transfer == "auto-pcm", device=device)
+        rates = " ".join(f"{m}={v:.0f}MB/s" for m, v in mbps.items())
+        print(f"[wire-probe] {rates} -> {mode}", file=sys.stderr)
+        cfg = dataclasses.replace(cfg, audio_transfer=mode)
+    elif args.audio_transfer:
         cfg = dataclasses.replace(cfg, audio_transfer=args.audio_transfer)
     if args.data_parallel > 0:
         cfg = dataclasses.replace(cfg, data_parallel=args.data_parallel)

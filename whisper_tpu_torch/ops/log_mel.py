@@ -2,12 +2,20 @@
 
 ``log_mel`` replaces the JAX package's Pallas ``log_mel_pallas``
 (``_mel_kernel``), with its signature and semantics: reflect-padded audio
-(float32, or int16 PCM decoded as x / 32767) -> normalized log-mel
-[n_mels, n_frames], frames >= ``valid_frames`` excluded from the global max
-and zeroed.
+in any upload wire (``transfer`` as ``frontend.mel.decode_transfer`` takes
+it) -> normalized log-mel [n_mels, n_frames], frames >= ``valid_frames``
+excluded from the global max and zeroed.  The kernels read float32, or
+int16 PCM that they decode as x / 32767 in their own loads; every other
+wire (dint16, dint16p, ulaw8, pcm12, pcm14) is decoded to float32 by
+``decode_transfer``'s torch operations ahead of the launch, as the JAX
+wrapper decodes with XLA operations ahead of its ``pallas_call`` (a running
+sum over the whole signal does not fit the frame-blocked grid).  A pcm
+wire's decode may be up to 3 samples longer than the padded audio; the
+kernels address frames by index, so those samples feed no valid frame.
 
 On a CUDA tensor it launches the hand-written Hopper kernels of
-``csrc/log_mel.cu`` and puts nothing else on the card: a spectrum kernel
+``csrc/log_mel.cu``, and for float32 and int16 puts nothing else on the
+card: a spectrum kernel
 (only the valid frames, each by a 200-point complex FFT of its 400 windowed
 samples, the mel filters' bands of nonzero weights, log10) that writes the
 raw log-mel in the [n_mels, n_frames] layout and each tile's max, and a
@@ -37,6 +45,7 @@ import torch
 
 from whisper_tpu_torch.frontend import golden
 from whisper_tpu_torch.frontend.mel import (
+    INT16_SCALE,
     _constants,
     decode_transfer,
     frame_signal,
@@ -46,7 +55,6 @@ from whisper_tpu_torch.frontend.mel import (
 from whisper_tpu_torch.ops import kernels
 from whisper_tpu_torch.ops.common import check_operand, count_launch, route
 
-INT16_SCALE = float(np.float32(1.0 / 32767.0))  # decode_transfer's factor
 TILE_FRAMES = 8     # frames of one block of the spectrum kernel (its FT)
 MAX_MELS = 128      # what the spectrum kernel's staging holds (its MAX_MELS)
 
@@ -55,15 +63,18 @@ _tables: dict = {}  # (device, n_mels) -> the kernels' tables on the device
 
 
 def log_mel_plain(padded_audio: torch.Tensor, valid_frames: int,
-                  n_mels: int = 80, n_frames: int | None = None):
-    """Reference version: the plain PyTorch front end (framing views, fp32
-    DFT matmuls with TF32 off, mel matmul, log10, normalization)."""
+                  n_mels: int = 80, n_frames: int | None = None,
+                  transfer: str = "auto"):
+    """Reference version: the plain PyTorch front end (the wire decode,
+    framing views, fp32 DFT matmuls with TF32 off, mel matmul, log10,
+    normalization)."""
     return log_mel_torch(padded_audio, valid_frames, n_mels=n_mels,
-                         n_frames=n_frames)
+                         n_frames=n_frames, transfer=transfer)
 
 
 def log_mel_float64(padded_audio: torch.Tensor, valid_frames: int,
-                    n_mels: int, n_frames: int) -> torch.Tensor:
+                    n_mels: int, n_frames: int,
+                    transfer: str = "auto") -> torch.Tensor:
     """The plain version's function evaluated in float64 on its own fp32
     operands (the decoded samples and the window-folded DFT tables,
     widened), normalized and returned in float32: the yardstick for B5
@@ -72,7 +83,8 @@ def log_mel_float64(padded_audio: torch.Tensor, valid_frames: int,
     dev = padded_audio.device
     cosw, sinw, fb_t = (torch.from_numpy(c).to(dev, torch.float64)
                         for c in _constants(n_mels))
-    frames = frame_signal(decode_transfer(padded_audio), n_frames).double()
+    frames = frame_signal(decode_transfer(padded_audio, transfer),
+                          n_frames).double()
     re, im = frames @ cosw, frames @ sinw
     ls = torch.log10(torch.clamp_min((re * re + im * im) @ fb_t, 1e-10)).T
     return normalize(ls, ls[:, :valid_frames].amax(), valid_frames).float()
@@ -126,9 +138,8 @@ def _launch(padded_audio: torch.Tensor, n_mels: int, n_frames: int,
         raise ValueError("log_spec launches the CUDA kernel; a CPU tensor "
                          "takes log_mel_plain")
     if padded_audio.dtype not in (torch.float32, torch.int16):
-        raise NotImplementedError(
-            f"audio transfer dtype {padded_audio.dtype}: the port carries "
-            "only the int16 and float32 encodings (ROADMAP 'Not to port')")
+        raise ValueError(f"log_mel kernel: audio dtype {padded_audio.dtype};"
+                         " it reads float32 or int16 PCM")
     if n_frames < 1 or padded_audio.dim() != 1 or not 0 < n_mels <= MAX_MELS:
         raise ValueError(f"log_mel kernel: n_frames {n_frames}, n_mels "
                          f"{n_mels}, audio shape {tuple(padded_audio.shape)}")
@@ -162,11 +173,17 @@ def log_spec(padded_audio: torch.Tensor, n_mels: int, n_frames: int,
 
 
 def log_mel(padded_audio: torch.Tensor, valid_frames: int, n_mels: int = 80,
-            n_frames: int | None = None) -> torch.Tensor:
-    """Log-mel [n_mels, n_frames] from reflect-padded audio (the signal
-    needs (n_frames + 2) * 160 samples; fewer are zero-extended)."""
+            n_frames: int | None = None,
+            transfer: str = "auto") -> torch.Tensor:
+    """Log-mel [n_mels, n_frames] from reflect-padded audio in the wire
+    ``transfer`` names or its dtype tells (the signal needs
+    (n_frames + 2) * 160 samples; fewer are zero-extended)."""
     if n_frames is None:
         raise ValueError("n_frames is required")
     if route(padded_audio) == "plain":
-        return log_mel_plain(padded_audio, valid_frames, n_mels, n_frames)
+        return log_mel_plain(padded_audio, valid_frames, n_mels, n_frames,
+                             transfer)
+    if transfer != "auto" or padded_audio.dtype not in (torch.float32,
+                                                         torch.int16):
+        padded_audio = decode_transfer(padded_audio, transfer)
     return _launch(padded_audio, n_mels, n_frames, valid_frames, True)

@@ -9,7 +9,8 @@ the chunked mode's; only the normalization scope changes, so transcripts
 can differ from the chunked mode's near quiet regions.  The file is cut
 into slabs of ``slab_chunks`` chunks, one capacity for every slab (ragged
 tails masked by their valid-frame count), and each slab is uploaded
-(``session.encode_host_slab``), turned into a raw log-spec by the plain
+in the session's wire (``session.encode_host_slab``), turned into a raw
+log-spec by the plain
 ``frontend.mel.log_spec_slab`` (kernel B5 is not on this path, as in the
 JAX module, which calls the XLA ``log_spec_slab``) and decoded by
 ``session.transcribe_from_mel_async(..., chunk_norm_n_valid=n_valid)``.
@@ -142,7 +143,8 @@ def transcribe_longform_pipelined(
         enc = session._upload(session.encode_host_slab(padded, f0 * HOP,
                                                        need))
         ls, _vmax = log_spec_slab(enc, n_valid, n_mels=session.dims.n_mels,
-                                  n_frames=cap)
+                                  n_frames=cap,
+                                  transfer=session._transfer_tag())
         slab_ls.append(ls)
         if i == 0:
             _sync(session.device)

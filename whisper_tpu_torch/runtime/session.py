@@ -63,9 +63,14 @@ launch of its program, as without a mesh, wherever its collectives can be
 captured (``generate.graphed``: a model axis of one rank, or one over
 NCCL), the tokens' gather over "data" queued after the launch; a model
 axis over gloo runs its loops eagerly, by that rule and before any
-capture (``decode_path`` says which a call takes).  What the port does
-not carry (the wire encodings) raises ``NotImplementedError`` naming its
-ROADMAP entry; nothing silently takes another path.
+capture (``decode_path`` says which a call takes).
+
+``audio_transfer`` picks the upload wire of every path that uploads audio
+(the one-shot and streamed mels, the pipelined slabs, the short batch and
+its speculative form), as in the JAX session: float32 ("f32", "float32",
+"auto"), int16 PCM, or a compact encoding (dint16, dint16p, ulaw8, pcm12,
+pcm14; ``utils.pcmpack``), encoded on the host and decoded on the device
+(``frontend.mel.decode_transfer``).  A mode that names no wire raises.
 """
 
 from __future__ import annotations
@@ -199,20 +204,22 @@ def _bucket_batch(n: int, cap: int) -> int:
     return min(b, cap)
 
 
-# The compact upload encodings of the JAX package's remote-device link.
-# Every other audio_transfer mode ("int16" aside) uploads float32 as it is,
-# as the JAX session's _encode_transfer does ("f32", "float32", "auto").
-WIRE_ENCODINGS = ("dint16", "dint16p", "ulaw8", "pcm12", "pcm14")
+# The encoded upload wires and their dtypes (utils.pcmpack,
+# audio.resample.ulaw_encode); the other modes upload float32 as it is, as
+# the JAX session's _encode_transfer does ("auto" is the CLI's probe, which
+# names the wire before a session is made).
+WIRE_DTYPES = {"int16": np.int16, "dint16": np.uint16, "dint16p": np.int8,
+               "ulaw8": np.uint8, "pcm12": np.uint8, "pcm14": np.uint8}
+TRANSFERS = ("f32", "float32", "auto") + tuple(WIRE_DTYPES)
 
 
 def _check_supported(cfg: RuntimeCfg) -> None:
-    """Raise NotImplementedError for configurations the port lacks."""
-    missing = []
-    if cfg.audio_transfer in WIRE_ENCODINGS:
-        missing.append(f"audio_transfer {cfg.audio_transfer!r}: a wire "
-                       "encoding of the TPU tunnel (ROADMAP 'Not to port')")
-    if missing:
-        raise NotImplementedError("; ".join(missing))
+    """Raise ValueError for a configuration no session runs: an
+    ``audio_transfer`` that names no upload wire (the JAX session would
+    upload it as float32; the port never falls back)."""
+    if cfg.audio_transfer not in TRANSFERS:
+        raise ValueError(f"audio_transfer {cfg.audio_transfer!r} names no "
+                         f"upload wire: one of {', '.join(TRANSFERS)}")
 
 
 def chunk_norm(chunks: torch.Tensor, starts, n_valid) -> torch.Tensor:
@@ -449,13 +456,25 @@ class WhisperSession:
         """``_token_ids`` on the device."""
         return self._token_ids(ids).to(self.device)
 
+    def _transfer_tag(self) -> str:
+        """The decode's ``transfer`` tag for cfg.audio_transfer."""
+        from whisper_tpu_torch.frontend.mel import transfer_tag
+
+        return transfer_tag(self.cfg.audio_transfer)
+
     def _encode_transfer(self, audio: np.ndarray) -> np.ndarray:
-        """Host-side upload encoding: int16 PCM for "int16", float32 as it
-        is for every other mode the session accepts."""
-        if self.cfg.audio_transfer == "int16" and audio.dtype != np.int16:
-            x = np.clip(np.asarray(audio, dtype=np.float32), -1.0, 1.0)
-            return np.round(x * 32767.0).astype(np.int16)
-        return audio
+        """Host-side upload encoding in cfg.audio_transfer, [..., L] (a
+        batch's rows each on their own), as the JAX session's: int16 PCM;
+        the compact wires of ``utils.pcmpack`` and ulaw8; float32 as it is
+        for the float modes.  Audio already in the wire's dtype passes."""
+        from whisper_tpu_torch.audio.resample import ulaw_encode
+        from whisper_tpu_torch.utils.pcmpack import encode_wire
+
+        mode = self.cfg.audio_transfer
+        if mode not in WIRE_DTYPES or audio.dtype == WIRE_DTYPES[mode]:
+            return audio
+        return ulaw_encode(audio) if mode == "ulaw8" else encode_wire(audio,
+                                                                      mode)
 
     def _upload(self, host: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(host)).to(self.device)
@@ -474,19 +493,21 @@ class WhisperSession:
     def _compute_mel_single(self, padded_audio: np.ndarray, n_valid: int,
                             n_frames: int) -> torch.Tensor:
         """One-shot upload + whole-file mel: kernel B5 when
-        cfg.fused_frontend (x3+), else the plain torch front end."""
+        cfg.fused_frontend (x3+), else the plain torch front end; the wire
+        decoded on the device."""
         audio = self._upload(self._encode_transfer(padded_audio))
         if self.cfg.fused_frontend:
             from whisper_tpu_torch.ops.log_mel import log_mel
         else:
             from whisper_tpu_torch.frontend.mel import log_mel_torch as log_mel
         return log_mel(audio, n_valid, n_mels=self.dims.n_mels,
-                       n_frames=n_frames)
+                       n_frames=n_frames, transfer=self._transfer_tag())
 
     def encode_host_slab(self, padded_audio: np.ndarray, s0: int,
                          need: int) -> np.ndarray:
         """Samples [s0, s0+need) of the padded signal, zero-filled past its
-        end, wire-encoded."""
+        end in float32 and then wire-encoded (zero bytes of a wire are not
+        silence: dint16's running sum and pcm12's biased codes)."""
         avail = padded_audio[s0: s0 + need]
         if avail.shape[0] < need:
             buf = np.zeros(need, dtype=np.float32)
@@ -517,7 +538,8 @@ class WhisperSession:
             enc = self._upload(self.encode_host_slab(padded_audio, f0 * HOP,
                                                      need))
             ls, vm = log_spec_slab(enc, max(0, min(n_valid - f0, sf)),
-                                   n_mels=self.dims.n_mels, n_frames=sf)
+                                   n_mels=self.dims.n_mels, n_frames=sf,
+                                   transfer=self._transfer_tag())
             slabs.append(ls)
             vmaxes.append(vm)
         ls = torch.cat(slabs, dim=1)
@@ -784,11 +806,11 @@ class WhisperSession:
         from whisper_tpu_torch.pipeline.chunk import CHUNK_FRAMES
 
         full = CHUNK_FRAMES * 160 + 400
-        audio = decode_transfer(audio)
+        audio = decode_transfer(audio, self._transfer_tag())
         short = full - audio.shape[-1]
         if short > 0:
             audio = F.pad(audio, (0, short))
-        elif short < 0:
+        elif short < 0:      # rows shipped, or a pcm pack group, past it
             audio = audio[..., :full]
         return log_mel_batch(audio, n_valid, n_mels=self.dims.n_mels,
                              n_frames=CHUNK_FRAMES)
@@ -816,14 +838,15 @@ class WhisperSession:
         session's short program): the rows uploaded into the key's static
         buffer as shipped (the key holds their length and wire), then on
         the card their mel (``_short_mel_device``), the encoder, and with
-        ``draft`` the draft's."""
+        ``draft`` the draft's.  The key holds the decode's tag beside the
+        rows' dtype: ulaw8 and pcm12 rows are both uint8."""
         audio, n_valid = self._short_rows(padded_audio, n_valid_frames)
 
         def encode(a, nv):
             return self._encode(self._short_mel_device(a, nv), draft)
 
-        return self._front(("short audio",), (audio, n_valid), encode,
-                           audio.shape[0], draft)
+        return self._front(("short audio", self._transfer_tag()),
+                           (audio, n_valid), encode, audio.shape[0], draft)
 
     def transcribe_short_batch(
         self,

@@ -30,6 +30,11 @@ keys captured by ``warmup`` as well), and its dispatch returns once queued
 as a greedy tick's does: either decode is one graph launch whose while
 node runs the steps (rounds) on the card until every row is done, so no
 tick reads ``done`` on the host.
+A tick's rows and ``warmup``'s go to the session as float32, and the
+session encodes them in its upload wire (``cfg.audio_transfer``), so each
+key's static input has the wire's dtype and byte length (a pcm14 row of
+1/8 of the window, 60,050 samples, ships 105,091 bytes, which decode to
+60,052 samples) and the key holds the decode's tag.
 ``_finish_short`` copies a tick's tokens and then counts the launches of
 the graphs' bodies that ran.  Both lanes
 hold the interpreter lock while they issue work, so a long request slows
